@@ -1,0 +1,387 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises (non-zero exit):
+
+1. device  — the card, and nvidia-smi's name/power-limit line.
+2. build   — nvcc builds every CUDA source of maggy_tpu_torch/ops/csrc.
+3. kernels — each flash-attention kernel against its plain PyTorch version
+             (bf16 and fp32; the BERT-base training shape with a padding
+             mask that fully masks some rows, and a causal GQA shape),
+             each error beside its tolerance; kernel, plain and
+             scaled_dot_product_attention times (the latter a yardstick,
+             never used by the port).
+4. slice   — the BERT-base (12 x 768, vocab 30522) ASHA + median-stopping
+             sweep through maggy_tpu_torch.experiment.lagom on two thread
+             runners. Launch counters are zeroed just before and read just
+             after: every attention call of every step must have gone
+             through the kernels. Then the swept model's logits against the
+             same weights on the CPU path, and the per-step time alone.
+
+Then the {"kernels": [...]} summary line, the nvidia-smi line, and the last
+line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
+JAX or maggy_tpu.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 / fp32 FLOP/s.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SOURCE = "maggy_tpu_torch/ops/csrc/flash_attn.cu"
+REPLACES = {"flash_fwd": "maggy_tpu/ops/attention.py:226",
+            "flash_bwd_dkdv": "maggy_tpu/ops/attention.py:443",
+            "flash_bwd_dq": "maggy_tpu/ops/attention.py:482"}
+# BERT-base fine-tune: batch 32 at the padded length 128 (BASELINE.md config 4).
+BERT_B, BERT_S = 32, 128
+STEPS_PER_BUDGET = 4
+REPORT_EVERY = 2
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def tolerance(dtype, ref):
+    """bf16: 1e-2 of the largest plain value plus 1e-2 (outputs are rounded
+    to bf16, 2^-8 relative, and fp32 sums run in another order); fp32:
+    1e-4 relative plus 1e-5."""
+    scale = float(ref.float().abs().max())
+    return 1e-2 * scale + 1e-2 if dtype == torch.bfloat16 else 1e-4 * scale + 1e-5
+
+
+def gpu_time_ms(fn, reps=20):
+    """Mean device time of ``fn`` in ms, each call timed alone with CUDA
+    events after evicting the 50 MB L2 (operands arrive cold, as they do
+    from the surrounding training step)."""
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+# ------------------------------------------------------------------- phases
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], stdout=subprocess.PIPE,
+                         text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    # float32 products in full precision on both sides of every comparison.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from maggy_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    sources = build.compile_all()
+    for name in sources:
+        build.library(name)
+    ptxas = [line.strip() for name in sources
+             for line in build.build_logs.get(name, "").splitlines() if "Used" in line]
+    emit("build", sources=sources, seconds=time.perf_counter() - t0,
+         ptxas_register_lines=len(ptxas), ptxas_sample=ptxas[:3])
+
+
+def make_inputs(B, Sq, Sk, H, Hkv, D, dtype, padded, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, device="cuda", generator=g).to(dtype)
+    k = torch.randn(B, Sk, Hkv, D, device="cuda", generator=g).to(dtype)
+    v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=g).to(dtype)
+    do = torch.randn(B, Sq, H, D, device="cuda", generator=g).to(dtype)
+    mask = None
+    if padded:
+        lens = torch.randint(16, Sk + 1, (B,), device="cuda", generator=g)
+        lens[: max(1, B // 8)] = 0  # fully padded rows: output is the mean of V
+        mask = (torch.arange(Sk, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    return q, k, v, do, mask
+
+
+def live_entries(B, Sq, Sk, H, causal, mask):
+    """Score entries the data needs: kept keys, causally visible."""
+    keep = torch.ones(B, Sk, device="cuda") if mask is None else mask.float()
+    vis = torch.ones(Sq, Sk, device="cuda")
+    if causal:
+        vis = vis.tril(Sk - Sq)
+    return int((keep[:, None, :] * vis[None]).sum().item()) * H
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels():
+    from maggy_tpu_torch.ops import attention as A
+
+    cases = [("bert_base", (BERT_B, BERT_S, BERT_S, 12, 12, 64), False, True),
+             ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False)]
+    results, main = [], {}
+    for label, shape, causal, padded in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, mask = make_inputs(*shape, dtype, padded, seed=1)
+            out, lse = A.flash_fwd(q, k, v, mask, causal)
+            p_out, p_lse = A._plain_fwd(q, k, v, mask, causal)
+            delta = A._row_delta(do, p_out)
+            dk, dv = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
+            p_dk, p_dv = A._plain_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
+            dq = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
+            p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
+            torch.cuda.synchronize()
+            live = p_lse > A.ALL_MASKED_LSE
+            pairs = {"flash_fwd": [(out, p_out),
+                                   (torch.where(live, lse, 0.0), torch.where(live, p_lse, 0.0))],
+                     "flash_bwd_dkdv": [(dk, p_dk), (dv, p_dv)],
+                     "flash_bwd_dq": [(dq, p_dq)]}
+            for name, checks in pairs.items():
+                err = max(float((a.float() - b.float()).abs().max()) for a, b in checks)
+                tol = min(tolerance(dtype, b) for _, b in checks)
+                ok = err <= tol and all(bool(torch.isfinite(a).all()) for a, _ in checks)
+                results.append({"case": label, "dtype": str(dtype), "kernel": name,
+                                "max_abs_err": err, "tol": tol, "ok": ok})
+                if not ok:
+                    emit("kernels", checks=results)
+                    raise AssertionError("{} disagrees with its plain version on {} {}: "
+                                         "{} > {}".format(name, label, dtype, err, tol))
+                if label == "bert_base" and dtype == torch.bfloat16:
+                    main[name] = {"max_abs_err": err}
+    A.reset_launch_counts()
+
+    # Times at the main path's shape and type: BERT-base, bf16, padded.
+    B, S, H, D = BERT_B, BERT_S, 12, 64
+    dtype = torch.bfloat16
+    q, k, v, do, mask = make_inputs(B, S, S, H, H, D, dtype, True, seed=2)
+    out, lse = A.flash_fwd(q, k, v, mask, False)
+    delta = A._row_delta(do, out)
+    bool_mask = mask.bool()[:, None, None, :]
+    n_live = live_entries(B, S, S, H, False, mask)
+    elem = q.element_size()
+    t_io = q.numel() * elem  # one [B,S,H,D] tensor
+    stat = B * H * S * 4
+    mask_b = mask.numel() * 4
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    timing = {
+        "flash_fwd": dict(
+            ms=lambda: A.flash_fwd(q, k, v, mask, False),
+            plain=lambda: A._plain_fwd(q, k, v, mask, False),
+            library=lambda: sdpa(qt, kt, vt, attn_mask=bool_mask),
+            nbytes=4 * t_io + stat + mask_b, flops=4 * D * n_live),
+        "flash_bwd_dkdv": dict(
+            ms=lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, False),
+            plain=lambda: A._plain_bwd_dkdv(q, k, v, do, lse, delta, mask, False),
+            library=None, nbytes=6 * t_io + 2 * stat + mask_b, flops=8 * D * n_live),
+        "flash_bwd_dq": dict(
+            ms=lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, mask, False),
+            plain=lambda: A._plain_bwd_dq(q, k, v, do, lse, delta, mask, False),
+            library=None, nbytes=5 * t_io + 2 * stat + mask_b, flops=6 * D * n_live),
+    }
+    for name, t in timing.items():
+        b_ms, b_by = bound(t["nbytes"], t["flops"], dtype)
+        main[name].update(ms=gpu_time_ms(t["ms"]), plain_ms=gpu_time_ms(t["plain"]),
+                          bound_ms=b_ms, bound_by=b_by,
+                          library_ms=gpu_time_ms(t["library"]) if t["library"] else None)
+
+    # fwd+bwd yardstick: the three kernels vs SDPA's forward and backward.
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        o = sdpa(qg, kg, vg, attn_mask=bool_mask)
+        torch.autograd.grad(o, (qg, kg, vg), do.transpose(1, 2))
+
+    def kernels_fwd_bwd():
+        o, l_ = A.flash_fwd(q, k, v, mask, False)
+        dl = A._row_delta(do, o)
+        A.flash_bwd_dkdv(q, k, v, do, l_, dl, mask, False)
+        A.flash_bwd_dq(q, k, v, do, l_, dl, mask, False)
+
+    A.reset_launch_counts()
+    emit("kernels", checks=results, shape_main=[B, S, H, D], dtype=str(dtype),
+         timed={n: {k_: v_ for k_, v_ in m.items()} for n, m in main.items()},
+         fwd_bwd_ms=gpu_time_ms(kernels_fwd_bwd, reps=10),
+         sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10))
+    return main
+
+
+def make_dataset(vocab, n_batches, seed):
+    """Token batches made from ``seed``: BERT-base's vocabulary, padded
+    length 128, each row's true length drawn from [16, 128]; label =
+    whether the upper half of the vocabulary dominates the real tokens."""
+    rng = np.random.default_rng(seed)
+    n = n_batches * BERT_B
+    tokens = rng.integers(2, vocab, size=(n, BERT_S))
+    lens = rng.integers(16, BERT_S + 1, size=n)
+    mask = np.arange(BERT_S)[None, :] < lens[:, None]
+    labels = ((tokens > vocab // 2) & mask).sum(1) * 2 > lens
+    return (torch.as_tensor(tokens, device="cuda"), torch.as_tensor(mask, device="cuda"),
+            torch.as_tensor(labels.astype(np.int64), device="cuda"))
+
+
+def phase_slice(exp_dir):
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.models import BertConfig, BertEncoder
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.optimizers import Asha
+    from maggy_tpu_torch.train import (Trainer, adamw, cross_entropy_loss,
+                                       warmup_cosine_decay_schedule)
+
+    cfg = BertConfig.base()
+    tokens, mask, labels = make_dataset(cfg.vocab_size, 16, seed=0)
+    n_batches = tokens.shape[0] // BERT_B
+    lock = threading.Lock()
+    steps_taken = []
+    step_ms = []
+
+    def batch(i):
+        lo = (i % n_batches) * BERT_B
+        return {"inputs": (tokens[lo:lo + BERT_B], mask[lo:lo + BERT_B]),
+                "labels": labels[lo:lo + BERT_B]}
+
+    def loss_fn(logits, b):
+        return cross_entropy_loss(logits, b["labels"])
+
+    def train_bert(lr, warmup_frac, budget, reporter):
+        total = int(budget) * STEPS_PER_BUDGET
+        sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
+        trainer = Trainer(BertEncoder(cfg, device="cuda"), adamw(sched), loss_fn,
+                          device="cuda").init(seed=0)
+        done = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for i in range(total):
+                loss = trainer.step(batch(i))
+                done += 1
+                if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
+                    reporter.broadcast(-loss, step=i)
+        finally:
+            torch.cuda.synchronize()
+            with lock:
+                steps_taken.append(done)
+                step_ms.append((time.perf_counter() - t0) * 1e3 / max(done, 1))
+        final = float(loss)
+        if not math.isfinite(final):
+            raise FloatingPointError("non-finite loss {}".format(final))
+        return {"metric": -final}
+
+    sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
+    config = OptimizationConfig(
+        name="bert_base_asha_smoke", num_trials=9,
+        optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=0),
+        searchspace=sp, direction="max", num_workers=2, es_policy="median",
+        es_min=3, hb_interval=0.1, seed=0, experiment_dir=exp_dir)
+
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = experiment.lagom(train_bert, config)
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+
+    trials = []
+    for run in os.listdir(exp_dir):
+        for entry in os.listdir(os.path.join(exp_dir, run)):
+            path = os.path.join(exp_dir, run, entry, "trial.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    trials.append(json.load(f))
+    promoted = sum(1 for t in trials if t["info_dict"].get("sample_type") == "promoted")
+    total_steps = sum(steps_taken)
+    expected = cfg.num_layers * total_steps
+    if not (len(trials) == result["num_trials"] > 0 and promoted > 0
+            and math.isfinite(result["best_val"])):
+        raise AssertionError("sweep result malformed: {} trials, {} promoted, {}".format(
+            len(trials), promoted, result))
+    if any(n != expected for n in launches.values()) or expected == 0:
+        raise AssertionError("launches {} != {} layers x {} steps".format(
+            launches, cfg.num_layers, total_steps))
+
+    # The swept model against the same weights on the CPU (reference
+    # attention, no kernel), on a small input.
+    model = BertEncoder(cfg, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(3))
+    small = batch(0)
+    toks, msk = small["inputs"][0][:2], small["inputs"][1][:2]
+    with torch.no_grad():
+        gpu_logits = model(toks, msk)
+        cpu_logits = copy.deepcopy(model).to("cpu")(toks.cpu(), msk.cpu())
+    logit_err = float((gpu_logits.cpu() - cpu_logits).abs().max())
+    logit_tol = 5e-2 * float(cpu_logits.abs().max()) + 5e-2
+    if not (torch.isfinite(gpu_logits).all() and logit_err <= logit_tol
+            and gpu_logits.shape == (2, cfg.num_classes)):
+        raise AssertionError("BERT-base logits off the CPU path: {} > {}".format(
+            logit_err, logit_tol))
+
+    # Per-step time of one trainer alone on the card.
+    trainer = Trainer(model, adamw(1e-4), loss_fn, device="cuda").init(seed=0)
+    for i in range(3):
+        trainer.step(batch(i))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_alone = 10
+    for i in range(n_alone):
+        trainer.step(batch(i))
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t1) * 1e3 / n_alone
+
+    emit("slice", trials_finished=len(trials), promoted=promoted,
+         early_stopped=result["early_stopped"], best_hp=result["best_hp"],
+         best_val=result["best_val"], steps=total_steps, launches=launches,
+         expected_launches_each=expected, sweep_wall_s=wall,
+         step_ms_in_sweep_median=float(np.median(step_ms)),
+         step_ms_alone=alone_ms, logits_max_abs_err=logit_err, logits_tol=logit_tol,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def main():
+    smi = phase_device()
+    phase_build()
+    main_times = phase_kernels()
+    exp_dir = os.path.join(ROOT, "build", "chip_smoke_experiments")
+    os.makedirs(exp_dir, exist_ok=True)
+    for run in os.listdir(exp_dir):
+        shutil.rmtree(os.path.join(exp_dir, run), ignore_errors=True)
+    launches = phase_slice(exp_dir)
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+                "launches": launches[name], **main_times[name]} for name in REPLACES]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                            "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,4 @@
+from maggy_tpu_torch.train.optim import adamw, warmup_cosine_decay_schedule
+from maggy_tpu_torch.train.trainer import Trainer, cross_entropy_loss
+
+__all__ = ["Trainer", "adamw", "cross_entropy_loss", "warmup_cosine_decay_schedule"]

@@ -10,7 +10,8 @@ setup(
         "studies, and distributed training on JAX/XLA/Pallas."
     ),
     packages=find_packages(exclude=["tests", "examples"]),
-    package_data={"maggy_tpu.native": ["framing.cpp"]},
+    package_data={"maggy_tpu.native": ["framing.cpp"],
+                  "maggy_tpu_torch": ["ops/csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",

@@ -122,6 +122,11 @@ def pytest_configure(config):
         "edges, and the lane_idle goodput split. The kill-mid-block "
         "soak is `python -m maggy_tpu.chaos --vmap`; the A/B gate is "
         "`bench.py --vmap`. Select with -m vmap.")
+    config.addinivalue_line(
+        "markers",
+        "torch: PyTorch/CUDA port tests (maggy_tpu_torch) — parity with "
+        "the JAX package on the CPU; tests that need a CUDA card skip "
+        "without one. Select with -m torch.")
 
 
 @pytest.fixture(autouse=True)
