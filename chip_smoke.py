@@ -7,17 +7,22 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 1. device  — the card, and nvidia-smi's name/power-limit line.
 2. build   — nvcc builds every CUDA source of maggy_tpu_torch/ops/csrc.
 3. kernels — each flash-attention kernel against its plain PyTorch version
-             (bf16 and fp32; the BERT-base training shape with a padding
-             mask that fully masks some rows, and a causal GQA shape),
-             each error beside its tolerance; kernel, plain and
-             scaled_dot_product_attention times (the latter a yardstick,
-             never used by the port).
+             (bf16, bf16 with fp32 gradients, and fp32; the BERT-base
+             training shape with a padding mask that fully masks some rows,
+             a causal GQA shape, and causal padded shapes at S=256 with
+             fully padded rows), each error beside its tolerance; each
+             kernel's registers, local memory, shared memory and resident
+             blocks per SM (failing if a D=64 tensor-core kernel spills);
+             kernel, plain and scaled_dot_product_attention times (SDPA's
+             forward, backward and both are yardsticks, never used by the
+             port).
 4. slice   — the BERT-base (12 x 768, vocab 30522) ASHA + median-stopping
              sweep through maggy_tpu_torch.experiment.lagom on two thread
              runners. Launch counters are zeroed just before and read just
              after: every attention call of every step must have gone
              through the kernels. Then the swept model's logits against the
-             same weights on the CPU path, and the per-step time alone.
+             same weights on the CPU path, the per-step time alone, and a
+             torch.profiler breakdown of five more steps.
 
 Then the {"kernels": [...]} summary line, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
@@ -146,8 +151,12 @@ def bound(nbytes, flops, dtype):
 def phase_kernels():
     from maggy_tpu_torch.ops import attention as A
 
+    # causal_pad_*: causal with padding and fully padded batch rows at
+    # S=256, where the row's mean of V spans the unskipped 128-key tiles.
     cases = [("bert_base", (BERT_B, BERT_S, BERT_S, 12, 12, 64), False, True),
-             ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False)]
+             ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False),
+             ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
+             ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True)]
     results, main = [], {}
     for label, shape, causal, padded in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -159,25 +168,41 @@ def phase_kernels():
             p_dk, p_dv = A._plain_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
             dq = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
             p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
-            torch.cuda.synchronize()
             live = p_lse > A.ALL_MASKED_LSE
-            pairs = {"flash_fwd": [(out, p_out),
-                                   (torch.where(live, lse, 0.0), torch.where(live, p_lse, 0.0))],
-                     "flash_bwd_dkdv": [(dk, p_dk), (dv, p_dv)],
-                     "flash_bwd_dq": [(dq, p_dq)]}
-            for name, checks in pairs.items():
+            pairs = [("flash_fwd", "", [(out, p_out), (torch.where(live, lse, 0.0),
+                                                       torch.where(live, p_lse, 0.0))]),
+                     ("flash_bwd_dkdv", "", [(dk, p_dk), (dv, p_dv)]),
+                     ("flash_bwd_dq", "", [(dq, p_dq)])]
+            if dtype == torch.bfloat16:  # fp32 gradients (the ring building block)
+                dk32, dv32 = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal, True)
+                dq32 = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal, True)
+                pairs += [("flash_bwd_dkdv", "/grad_fp32", [(dk32, p_dk), (dv32, p_dv)]),
+                          ("flash_bwd_dq", "/grad_fp32", [(dq32, p_dq)])]
+            torch.cuda.synchronize()
+            for name, variant, checks in pairs:
                 err = max(float((a.float() - b.float()).abs().max()) for a, b in checks)
                 tol = min(tolerance(dtype, b) for _, b in checks)
                 ok = err <= tol and all(bool(torch.isfinite(a).all()) for a, _ in checks)
-                results.append({"case": label, "dtype": str(dtype), "kernel": name,
-                                "max_abs_err": err, "tol": tol, "ok": ok})
+                results.append({"case": label + variant, "dtype": str(dtype),
+                                "kernel": name, "max_abs_err": err, "tol": tol, "ok": ok})
                 if not ok:
                     emit("kernels", checks=results)
                     raise AssertionError("{} disagrees with its plain version on {} {}: "
-                                         "{} > {}".format(name, label, dtype, err, tol))
-                if label == "bert_base" and dtype == torch.bfloat16:
+                                         "{} > {}".format(name, label + variant, dtype, err, tol))
+                if label == "bert_base" and not variant and dtype == torch.bfloat16:
                     main[name] = {"max_abs_err": err}
     A.reset_launch_counts()
+
+    # What each kernel takes on the card, per head dim and type.
+    resources = [{"kernel": name, "D": D, "dtype": str(dtype),
+                  **A.kernel_resources(name, D, dtype)}
+                 for name in REPLACES for D in A.KERNEL_HEAD_DIMS
+                 for dtype in (torch.bfloat16, torch.float32)]
+    spilling = [r for r in resources if r["D"] == 64 and r["dtype"] == str(torch.bfloat16)
+                and r["kernel"] in ("flash_fwd", "flash_bwd_dkdv") and r["local_bytes"]]
+    if spilling:
+        emit("kernels", checks=results, resources=resources)
+        raise AssertionError("tensor-core kernels use local memory at D=64: {}".format(spilling))
 
     # Times at the main path's shape and type: BERT-base, bf16, padded.
     B, S, H, D = BERT_B, BERT_S, 12, 64
@@ -214,24 +239,34 @@ def phase_kernels():
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=gpu_time_ms(t["library"]) if t["library"] else None)
 
-    # fwd+bwd yardstick: the three kernels vs SDPA's forward and backward.
+    # Yardsticks: the three kernels vs SDPA's forward and backward, and the
+    # backward pair (delta, dK/dV, dQ) vs SDPA's backward alone on a kept
+    # graph.
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+    dot_ = do.transpose(1, 2)
 
     def sdpa_fwd_bwd():
         o = sdpa(qg, kg, vg, attn_mask=bool_mask)
-        torch.autograd.grad(o, (qg, kg, vg), do.transpose(1, 2))
+        torch.autograd.grad(o, (qg, kg, vg), dot_)
 
     def kernels_fwd_bwd():
         o, l_ = A.flash_fwd(q, k, v, mask, False)
+        kernels_bwd(o, l_)
+
+    def kernels_bwd(o=out, l_=lse):
         dl = A._row_delta(do, o)
         A.flash_bwd_dkdv(q, k, v, do, l_, dl, mask, False)
         A.flash_bwd_dq(q, k, v, do, l_, dl, mask, False)
 
+    o_kept = sdpa(qg, kg, vg, attn_mask=bool_mask)
+    sdpa_bwd_ms = gpu_time_ms(
+        lambda: torch.autograd.grad(o_kept, (qg, kg, vg), dot_, retain_graph=True))
     A.reset_launch_counts()
-    emit("kernels", checks=results, shape_main=[B, S, H, D], dtype=str(dtype),
-         timed={n: {k_: v_ for k_, v_ in m.items()} for n, m in main.items()},
+    emit("kernels", checks=results, resources=resources, shape_main=[B, S, H, D],
+         dtype=str(dtype), timed={n: dict(m) for n, m in main.items()},
          fwd_bwd_ms=gpu_time_ms(kernels_fwd_bwd, reps=10),
-         sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10))
+         sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10),
+         bwd_pair_ms=gpu_time_ms(kernels_bwd), sdpa_bwd_ms=sdpa_bwd_ms)
     return main
 
 
@@ -354,15 +389,46 @@ def phase_slice(exp_dir):
         trainer.step(batch(i))
     torch.cuda.synchronize()
     alone_ms = (time.perf_counter() - t1) * 1e3 / n_alone
+    profile = step_device_profile(lambda i: trainer.step(batch(i)))
 
     emit("slice", trials_finished=len(trials), promoted=promoted,
          early_stopped=result["early_stopped"], best_hp=result["best_hp"],
          best_val=result["best_val"], steps=total_steps, launches=launches,
          expected_launches_each=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)),
-         step_ms_alone=alone_ms, logits_max_abs_err=logit_err, logits_tol=logit_tol,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         step_ms_alone=alone_ms, step_profile=profile, logits_max_abs_err=logit_err,
+         logits_tol=logit_tol, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches
+
+
+def step_device_profile(step, steps=5):
+    """Per training step over ``steps`` steps under torch.profiler: the
+    host-clock step time, the device's busy time (every kernel and copy),
+    the attention kernels' part, the largest kernels, and the device's idle
+    share of those same steps."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # GPU-side user annotations (the optimizer's step range) span kernels
+    # that are counted on their own.
+    device = {e.key: e.self_device_time_total / 1e3 / steps for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not e.is_user_annotation}
+    busy = sum(device.values())
+    if busy == 0:
+        raise AssertionError("the profiler recorded no device time over {} steps".format(steps))
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
+    return {"step_ms": step_ms, "device_busy_ms": busy,
+            "attention_kernels_ms": sum(v for k, v in device.items() if "flash_" in k),
+            "idle_share": 1.0 - busy / step_ms,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
 def main():

@@ -7,10 +7,25 @@ key-padding keep-mask, bottom-right causal alignment when Sq != Sk):
 - ``attention_reference``: direct fp32 softmax attention.
 - ``flash_attention``: a ``torch.autograd.Function`` over three kernels,
   ``flash_fwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (CUDA C++ in
-  ``csrc/flash_attn.cu``). Each wrapper launches its kernel for a CUDA
-  tensor and runs its plain version, which repeats the kernel's arithmetic
-  directly, only for a CPU tensor. Each wrapper counts its launches in a
-  plain ``launches`` attribute.
+  ``csrc/flash_attn.cu``), replacing the Pallas ``_flash_fwd_kernel``,
+  ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``. Each wrapper
+  launches its kernel for a CUDA tensor and runs its plain version, which
+  repeats the kernel's arithmetic directly, only for a CPU tensor. Each
+  wrapper counts its launches in a plain ``launches`` attribute.
+
+  All three are bound by bytes on an H100 at the BERT-base shape (B=32,
+  S=128, H=12, D=64, bf16): about 7.6, 11.4 and 9.5 us at 3.35 TB/s. For
+  bf16 the forward and dK/dV run on tensor cores: bf16 tiles in shared
+  memory loaded with double-buffered ``cp.async``, every product an
+  ``mma.sync`` m16n8k16 with fp32 accumulation fed by ``ldmatrix``, and P
+  and dS kept in registers as the A operand of the next product. fp32
+  inputs (all three kernels) and dQ (both types) run on simple CUDA-core
+  kernels with fp32 tiles; tensor cores would break the fp32 tolerance.
+
+  The causal tile skip runs at CAUSAL_SKIP_BLOCK = 128, the JAX package's
+  tile size, whatever tile a kernel computes in: a fully masked causal row
+  averages V over the keys of the unskipped tiles, so the skip granularity
+  is part of the result.
 - ``flash_block_fwd`` / ``flash_block_bwd``: the ring-attention building
   blocks (external lse/delta in, fp32 gradients out).
 - ``multi_head_attention``: the public entry. A CUDA tensor whose shapes
@@ -28,9 +43,15 @@ import torch
 NEG_INF = -1e30
 #: A row whose log-sum-exp is below this saw only masked keys.
 ALL_MASKED_LSE = -1e29
-#: Tile sizes of the CUDA kernels (csrc/flash_attn.cu BQ/BK). The plain
-#: versions need them: a fully masked causal row averages over the keys of
-#: the tiles the kernel does not skip.
+#: Granularity of the causal tile skip (csrc/flash_attn.cu SKIP): the JAX
+#: package's flash kernels run at 128 x 128 tiles and skip a key tile lying
+#: wholly above the diagonal, so a fully masked causal row averages V over
+#: the keys of the unskipped 128-key tiles. The CUDA kernels compute in
+#: smaller tiles but apply the skip at this granularity, as do the plain
+#: versions.
+CAUSAL_SKIP_BLOCK = 128
+#: Tile sizes of the CUDA kernels (csrc/flash_attn.cu BQ/BK): Sq and Sk
+#: must be multiples of them. Both divide CAUSAL_SKIP_BLOCK.
 BLOCK_Q = 64
 BLOCK_K = 64
 #: Head dims the kernels are instantiated for.
@@ -69,15 +90,16 @@ def attention_reference(q, k, v, causal: bool = True, mask=None):
 def _masks(B, Sq, Sk, causal, mask, device):
     """(masked [B,1,Sq,Sk], live [Sq,Sk]): ``masked`` marks the entries the
     kernels set to NEG_INF; ``live`` the entries of k-tiles the kernels do not
-    skip (the Pallas causal skip test at BLOCK_Q x BLOCK_K tiles)."""
+    skip (the Pallas causal skip test at CAUSAL_SKIP_BLOCK tiles)."""
     qpos = torch.arange(Sq, device=device)[:, None]
     kpos = torch.arange(Sk, device=device)[None, :]
     offset = Sk - Sq
     masked = torch.zeros(B, 1, Sq, Sk, dtype=torch.bool, device=device)
     live = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
     if causal:
+        g = CAUSAL_SKIP_BLOCK
         masked = masked | (kpos > qpos + offset)
-        live = (kpos // BLOCK_K) * BLOCK_K < (qpos // BLOCK_Q + 1) * BLOCK_Q + offset
+        live = (kpos // g) * g < (qpos // g + 1) * g + offset
     if mask is not None:
         masked = masked | (mask == 0)[:, None, None, :]
     return masked, live
@@ -172,6 +194,10 @@ def _check(q, k, v, mask, *more):
     if mask is not None and (mask.shape != (B, Sk) or mask.dtype != torch.int32
                              or not mask.is_contiguous() or mask.device != q.device):
         raise ValueError("mask must be a contiguous int32 [B, Sk] tensor on q's device")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, mask) + more if t is not None):
+        raise ValueError("the bf16 kernels copy 16-byte chunks: every tensor must "
+                         "start on a 16-byte boundary")
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -273,6 +299,22 @@ def launch_counts():
     return {kernel.__name__: kernel.launches for kernel in KERNELS}
 
 
+def kernel_resources(name: str, D: int, dtype: torch.dtype):
+    """What the CUDA kernel that wrapper ``name`` launches for (D, dtype)
+    takes on the card: registers and local (spill and stack) bytes per
+    thread, static and dynamic shared bytes and threads per block, and the
+    blocks that fit on one SM. Needs the card."""
+    from maggy_tpu_torch.ops import build
+
+    info = (ctypes.c_int * 6)()
+    index = [kernel.__name__ for kernel in KERNELS].index(name)
+    _raise_on(build.library(_SOURCE).flash_kernel_info(
+        index, D, _DTYPE_CODE[dtype], 0, info), name)
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads",
+            "blocks_per_sm")
+    return dict(zip(keys, info))
+
+
 # ------------------------------------------------------------ autograd seam
 
 
@@ -365,23 +407,23 @@ def multi_head_attention(q, k, v, causal: bool = True, mask=None,
                          force: Optional[str] = None):
     """Public attention entry. q: [B,Sq,H,D], k/v: [B,Sk,Hkv,D].
 
-    A CUDA tensor with a key-padding (or no) mask, D >= 64 with D % 8 == 0
-    and 128-tiling Sq/Sk goes through the flash kernels; anything else, and
-    every CPU tensor, through ``attention_reference``. ``force`` in
-    {"flash", "reference"} overrides the choice; "flash" on a CPU tensor
-    runs the kernels' plain versions."""
+    A CUDA tensor with a key-padding (or no) mask, a head dim the kernels
+    are built for (KERNEL_HEAD_DIMS) and 128-tiling Sq/Sk goes through the
+    flash kernels; anything else, and every CPU tensor, through
+    ``attention_reference``. ``force`` in {"flash", "reference"} overrides
+    the choice; "flash" on a CPU tensor runs the kernels' plain versions."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if H % Hkv != 0:
         raise ValueError("H={} not divisible by Hkv={}".format(H, Hkv))
     pad_mask, mask_ok = _key_padding_mask(mask, B, Sk)
-    tiles_ok = mask_ok and D >= 64 and D % 8 == 0 and Sq % 128 == 0 and Sk % 128 == 0
+    tiles_ok = mask_ok and D in KERNEL_HEAD_DIMS and Sq % 128 == 0 and Sk % 128 == 0
     if force == "flash":
         if not tiles_ok:
             raise ValueError(
-                "force='flash' requires a key-padding (or no) mask, D>=64 with "
-                "D%8==0, and 128-tiling Sq/Sk; got D={}, Sq={}, Sk={}, mask "
-                "shape={}".format(D, Sq, Sk, None if mask is None
+                "force='flash' requires a key-padding (or no) mask, head_dim in "
+                "{}, and 128-tiling Sq/Sk; got D={}, Sq={}, Sk={}, mask "
+                "shape={}".format(KERNEL_HEAD_DIMS, D, Sq, Sk, None if mask is None
                                   else tuple(torch.as_tensor(mask).shape)))
         use_flash = True
     else:

@@ -1,9 +1,10 @@
 // Flash attention for Hopper (sm_90a): forward, dK/dV backward, dQ backward.
 //
 // Replaces the three Pallas TPU kernels of maggy_tpu/ops/attention.py:
-//   flash_fwd_kernel      <- _flash_fwd_kernel       (pallas_call at :226)
-//   flash_bwd_dkdv_kernel <- _flash_bwd_dkdv_kernel  (pallas_call at :443)
-//   flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel    (pallas_call at :482)
+//   bf16: flash_fwd_tc_kernel       <- _flash_fwd_kernel       (pallas_call at :226)
+//         flash_bwd_dkdv_tc_kernel  <- _flash_bwd_dkdv_kernel  (pallas_call at :443)
+//   fp32: flash_fwd_kernel, flash_bwd_dkdv_kernel (the same two, on CUDA cores)
+//   both: flash_bwd_dq_kernel       <- _flash_bwd_dq_kernel    (pallas_call at :482)
 //
 // Layouts (all row-major, contiguous): q/dO/out/dq [B,Sq,H,D], k/v/dk/dv
 // [B,Sk,Hkv,D] with H % Hkv == 0 (GQA: query head h reads kv head h / rep,
@@ -11,11 +12,11 @@
 // lse/delta [B,H,Sq] fp32.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the BERT-base
-// training shape B=32, S=128, H=12, D=64, bf16: the forward moves ~25 MB
-// (q,k,v read, out written, lse written) for ~1.6 GFLOP, about 7.5 us of
-// memory time against 1.6 us of tensor-core time -- memory-bound. The two
-// backward kernels together move ~69 MB (q,k,v,dO read, lse/delta read,
-// dq,dk,dv written), about 21 us. PERF.md carries the measured times.
+// training shape B=32, S=128, H=12, D=64, bf16, padded: the forward moves
+// ~25 MB (q,k,v read, out and lse written) for ~1.6 GFLOP: 7.6 us of memory
+// time against ~1.6 us of tensor-core time, so bytes bound it; dK/dV moves
+// ~38 MB (11.4 us) and dQ ~32 MB (9.5 us), bytes again. chip_smoke.py
+// computes the bound from each run's inputs; PERF.md carries the times.
 //
 // Design. A TPU grid runs in order on one core and carries the online-softmax
 // state across its innermost (sequential) grid dimension in VMEM scratch. On
@@ -25,21 +26,40 @@
 //   dK/dV:   one block per (b, kv-head, k-tile), looping over the group's
 //            rep query heads and the q-tiles, so the GQA sum needs no atomics;
 //   dQ:      one block per (b, h, q-tile), looping over k-tiles.
-// Tiles are 64 x 64 with 256 threads: four threads own one tile row and split
-// its D columns, so row reductions are two warp shuffles and the per-row
-// accumulators stay in registers. Tiles are converted to fp32 in shared
-// memory and all arithmetic is fp32 (as the Pallas kernel upcasts per tile);
-// rows are padded by one float against bank conflicts. mma/wgmma, TMA and
-// pipelining are later work: this version is simple and right first.
+//
+// bf16 forward and dK/dV (the training path) run on tensor cores. Four warps
+// per block, each owning 16 rows (query rows in the forward, key rows in
+// dK/dV). Tiles stay bf16 in shared memory, rows padded by 16 bytes so the
+// eight row addresses of an ldmatrix fall in distinct banks. Loads are
+// cp.async, 16 bytes a thread, double-buffered: the next K/V tile (forward)
+// or (Q, dO, lse, delta) tile (dK/dV) lands while the current one computes.
+// Every product is mma.sync.m16n8k16 bf16 with fp32 accumulation, fed by
+// ldmatrix (ldmatrix.trans where the shared tile is the row-major B operand).
+// The m16n8 fp32 accumulator of S (or S^T) is exactly the m16k16 A fragment
+// of the next product once rounded to bf16, so P and dS never leave
+// registers; a row's max and sum need only the shuffles inside a quad.
+//   forward: S = Q K^T (Q fragments held in registers), online softmax, O += P V;
+//   dK/dV:   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, so P
+//            and dS come out in key-row layout, ready as A operands.
+// ~47 KB (forward) and ~37 KB (dK/dV) of shared memory at D=64 leave
+// several blocks resident on each SM.
+//
+// fp32 inputs run on the simple kernels: tiles converted to fp32 in shared
+// memory, every product fp32 FMA on CUDA cores (tensor cores would break the
+// fp32 tolerance), 64 x 64 tiles, 256 threads, four threads per tile row.
+// dQ runs on that simple kernel for both types (its redesign is next).
 //
 // Masking uses NEG_INF = -1e30, not -inf, so a query row whose keys are all
 // masked yields exp(0) = 1 for every key it saw and returns the mean of V
 // (the Pallas forward's behaviour). Causal masking is bottom-right aligned
-// (offset = Sk - Sq) and k-tiles entirely above the diagonal are skipped with
-// the Pallas test kb*BK < (qi+1)*BQ + offset. The backward treats masked
-// entries as constants (ds = 0) and, for a fully masked row (lse below
-// -1e29), gives every key of an unskipped tile p = 1/n: the exact gradient of
-// the forward above.
+// (offset = Sk - Sq). Key tiles wholly above the diagonal are skipped with
+// the Pallas test kb*128 < (qi+1)*128 + offset at SKIP = 128, the tile size
+// the JAX package runs its kernels at, whatever tile a kernel here computes
+// in: which keys a fully masked causal row averages over depends on the
+// skip granularity, so it must match the reference, not the CUDA tiling.
+// The backward treats masked entries as constants (ds = 0) and, for a fully
+// masked row (lse below -1e29), gives every key of an unskipped tile
+// p = 1/n: the exact gradient of the forward above.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,19 +67,47 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+constexpr int SKIP = 128;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
+constexpr int TC_NT = 128;  // tensor-core kernels: 4 warps x 16 rows
+constexpr int TC_BQ = 64;   // forward query rows per block
+constexpr int TC_BK = 64;   // key rows per tile (forward) and per block (dK/dV)
+// dK/dV query rows per step: 32 keeps the 2 x 16 x D accumulators and the
+// two 16 x 32 score fragments in registers (no spills up to D=128).
+constexpr int TC_BWD_BQ = 32;
 constexpr float NEG_INF = -1e30f;
 constexpr float ALL_MASKED_LSE = -1e29f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
+
+// Keys (a prefix of the Sk keys) a query tile starting at row q0 sees: all
+// when not causal, else the whole SKIP-key tiles that start left of its
+// SKIP-row tile's diagonal (the Pallas skip test at 128 x 128). A tile of
+// any size dividing SKIP is processed iff its first key lies below this.
+__device__ __forceinline__ int keys_seen(int causal, int q0, int offset, int Sk) {
+  if (!causal) return Sk;
+  const int lim = (q0 / SKIP + 1) * SKIP + offset;
+  if (lim <= 0) return 0;
+  return min(Sk, ((lim + SKIP - 1) / SKIP) * SKIP);
+}
+
+__device__ __forceinline__ bool masked(int causal, const int* mask, int b, int Sk,
+                                       int qpos, int kpos, int offset) {
+  return (causal && kpos > qpos + offset) || (mask && mask[(size_t)b * Sk + kpos] == 0);
+}
+
+// ------------------------------------------------ fp32 kernels (CUDA cores)
 
 // rows x D tile from global (row stride `stride` elements) into shared
 // memory with leading dimension `ld`, converted to fp32 and scaled.
@@ -90,24 +138,6 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// Does k-tile kb contribute to q-tile qi (the Pallas causal skip test)?
-__device__ __forceinline__ bool tile_live(int causal, int kb, int qi, int offset) {
-  return !causal || kb * BK < (qi + 1) * BQ + offset;
-}
-
-__device__ __forceinline__ bool masked(int causal, const int* mask, int b, int Sk,
-                                       int qpos, int kpos, int offset) {
-  return (causal && kpos > qpos + offset) || (mask && mask[(size_t)b * Sk + kpos] == 0);
-}
-
-// Keys a fully masked row of q-tile qi averaged over in the forward.
-__device__ __forceinline__ int keys_seen(int causal, int qi, int offset, int Sk) {
-  if (!causal) return Sk;
-  const int lim = (qi + 1) * BQ + offset;
-  if (lim <= 0) return 0;
-  return min(Sk, ((lim + BK - 1) / BK) * BK);
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -126,6 +156,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int qpos = qi * BQ + row;
   const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const int n_keys = keys_seen(causal, qi * BQ, offset, Sk);
 
   load_tile<T, D>(sQ, DP, q + ((size_t)b * Sq + qi * BQ) * qs + (size_t)h * D, qs, BQ, sm_scale);
   float acc[DC];
@@ -133,7 +164,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < DC; ++c) acc[c] = 0.f;
   float m = NEG_INF, l = 0.f;
 
-  for (int kb = 0; kb < Sk / BK && tile_live(causal, kb, qi, offset); ++kb) {
+  for (int kb = 0; kb * BK < n_keys; ++kb) {
     __syncthreads();  // the previous tile is fully consumed
     const size_t koff = ((size_t)b * Sk + kb * BK) * ks + (size_t)hk * D;
     load_tile<T, D>(sK, DP, k + koff, ks, BK, 1.f);
@@ -213,7 +244,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < rep; ++r) {
     const int h = hk * rep + r;
     for (int qi = 0; qi < Sq / BQ; ++qi) {
-      if (!tile_live(causal, kb, qi, offset)) continue;
+      const int n = keys_seen(causal, qi * BQ, offset, Sk);
+      if (kb * BK >= n) continue;
       __syncthreads();
       const size_t qoff = ((size_t)b * Sq + qi * BQ) * qs + (size_t)h * D;
       load_tile<T, D>(sQ, DP, q + qoff, qs, BQ, 1.f);
@@ -224,8 +256,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sDelta[threadIdx.x] = delta[st];
       }
       __syncthreads();
-      const int n = keys_seen(causal, qi, offset, Sk);
-      const float uniform = n > 0 ? 1.f / n : 0.f;
+      const float uniform = 1.f / n;
 #pragma unroll 4
       for (int ii = 0; ii < BQ / 4; ++ii) {
         const int i = part + 4 * ii;
@@ -285,6 +316,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = ((size_t)b * Sq + qi * BQ) * qs + (size_t)h * D;
   const size_t st = ((size_t)b * H + h) * Sq + qpos;
   const float my_lse = lse[st], my_delta = delta[st];
+  const int n_keys = keys_seen(causal, qi * BQ, offset, Sk);
 
   load_tile<T, D>(sQ, DP, q + qoff, qs, BQ, 1.f);
   load_tile<T, D>(sdO, DP, dO + qoff, qs, BQ, 1.f);
@@ -292,7 +324,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < DC; ++c) acc[c] = 0.f;
 
-  for (int kb = 0; kb < Sk / BK && tile_live(causal, kb, qi, offset); ++kb) {
+  for (int kb = 0; kb * BK < n_keys; ++kb) {
     __syncthreads();
     const size_t koff = ((size_t)b * Sk + kb * BK) * ks + (size_t)hk * D;
     load_tile<T, D>(sK, DP, k + koff, ks, BK, 1.f);
@@ -323,58 +355,511 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < DC; ++c) o[part + 4 * c] = from_f<G>(acc[c]);
 }
 
+// ------------------------------------------- bf16 kernels (tensor cores)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and register i of every lane receives its (lane/4, 2*(lane%4)) pair.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The same, each matrix transposed: lane gets its (2*(lane%4), lane/4) pair.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] * b[16x8], bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of the 16x16 chunk kc of a 16 x 8n accumulator: n-tiles
+// 2kc and 2kc+1, rounded to bf16. The m16n8 accumulator holds (g, 2t..2t+1)
+// in c0,c1 and (g+8, 2t..2t+1) in c2,c3; the m16k16 A fragment wants
+// (g, 2t..) (g+8, 2t..) (g, 8+2t..) (g+8, 8+2t..) in a0..a3.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// ROWS x D bf16 tile (global row stride `stride` elements) into shared
+// memory with row stride LD, 16 bytes per cp.async.
+template <int ROWS, int D, int LD>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, size_t stride) {
+  constexpr int CPR = D / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += TC_NT) {
+    const int r = idx / CPR, c = (idx % CPR) * 8;
+    cp_async16(dst + r * LD + c, src + r * stride + c);
+  }
+}
+
+// Address giving ldmatrix.x4 the A fragment (16 rows from `row0`, columns
+// col0..col0+15) of a row-major tile.
+__device__ __forceinline__ const bf16* a_addr(const bf16* tile, int ld, int row0, int col0,
+                                              int lane) {
+  return tile + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8;
+}
+
+// Address giving ldmatrix.x4 the B fragments of two n-tiles (rows n0..n0+15
+// of a tile stored n-major, i.e. B^T row-major, k columns col0..col0+15):
+// registers {0,1} for n-tile n0, {2,3} for n0+8.
+__device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int ld, int n0, int col0,
+                                               int lane) {
+  return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + col0 + ((lane >> 3) & 1) * 8;
+}
+
+// Address giving ldmatrix.x4.trans the B fragments of two n-tiles from a
+// tile stored k-major (B row-major: rows k0..k0+15, columns n0..n0+15):
+// registers {0,1} for columns n0..n0+7, {2,3} for n0+8..n0+15.
+__device__ __forceinline__ const bf16* b_addr(const bf16* tile, int ld, int k0, int n0,
+                                              int lane) {
+  return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
+}
+
+// Shared row stride of a bf16 tile: D plus 16 bytes, so the eight rows one
+// ldmatrix reads start in eight different 4-bank groups.
+__host__ __device__ constexpr int tc_ld(int D) { return D + 8; }
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ mask,
+                    bf16* __restrict__ out, float* __restrict__ lse,
+                    int Sq, int Sk, int H, int Hkv, int causal, float sm_scale) {
+  constexpr int LD = tc_ld(D), KC = D / 16, DT = D / 8, ST = TC_BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + TC_BQ * LD;    // [2][TC_BK][LD]
+  bf16* sV = sK + 2 * TC_BK * LD;  // [2][TC_BK][LD]
+  int* sM = reinterpret_cast<int*>(sV + 2 * TC_BK * LD);  // [2][TC_BK]
+
+  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv), offset = Sk - Sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const int q0 = qi * TC_BQ;
+  const int n_kb = keys_seen(causal, q0, offset, Sk) / TC_BK;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+
+  auto load_kv = [&](int kb, int buf) {
+    const size_t koff = ((size_t)b * Sk + kb * TC_BK) * ks + (size_t)hk * D;
+    cp_tile<TC_BK, D, LD>(sK + buf * TC_BK * LD, k + koff, ks);
+    cp_tile<TC_BK, D, LD>(sV + buf * TC_BK * LD, v + koff, ks);
+    if (mask && threadIdx.x < TC_BK / 4)
+      cp_async16(sM + buf * TC_BK + threadIdx.x * 4,
+                 mask + (size_t)b * Sk + kb * TC_BK + threadIdx.x * 4);
+  };
+
+  cp_tile<TC_BQ, D, LD>(sQ, q + ((size_t)b * Sq + q0) * qs + (size_t)h * D, qs);
+  if (n_kb > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  uint32_t qf[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], a_addr(sQ, LD, warp * 16, kc * 16, lane));
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int buf = kb & 1;
+    if (kb > 0) {
+      cp_async_wait_all();  // tile kb has landed ...
+      __syncthreads();      // ... for every thread, and tile kb-1 is consumed
+    }
+    if (kb + 1 < n_kb) load_kv(kb + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* tK = sK + buf * TC_BK * LD;
+    const bf16* tV = sV + buf * TC_BK * LD;
+    const int* tM = sM + buf * TC_BK;
+
+    // S = Q K^T over this warp's 16 rows and the tile's TC_BK keys.
+    float s[ST][4];
+#pragma unroll
+    for (int j = 0; j < ST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int jp = 0; jp < ST / 2; ++jp) {
+        uint32_t bk[4];
+        ldsm_x4(bk, bt_addr(tK, LD, jp * 16, kc * 16, lane));
+        mma_bf16(s[2 * jp], qf[kc], bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qf[kc], bk[2], bk[3]);
+      }
+    }
+
+    // Mask, then the online softmax on the rows row0 (e = 0, 1) and
+    // row0 + 8 (e = 2, 3); a row's 64 entries sit in one quad.
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int kpos = kb * TC_BK + col, qpos = row0 + 8 * (e >> 1);
+        float x = s[j][e] * sm_scale;
+        if ((causal && kpos > qpos + offset) || (mask && tM[col] == 0)) x = NEG_INF;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = row_max4(mx[i]);
+      alpha[i] = exp2f((m[i] - mx[i]) * LOG2E);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[j][e] - m[e >> 1]) * LOG2E);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V, P from registers as the A operand.
+#pragma unroll
+    for (int kc = 0; kc < TC_BK / 16; ++kc) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, b_addr(tV, LD, kc * 16, dp * 16, lane));
+        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = row0 + 8 * i;
+    const float l_safe = fmaxf(row_sum4(l[i]), 1e-30f);
+    const float inv = 1.f / l_safe;
+    bf16* orow = out + ((size_t)b * Sq + qpos) * qs + (size_t)h * D;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+          pack_bf16(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+    if (t == 0) lse[((size_t)b * H + h) * Sq + qpos] = m[i] + logf(l_safe);
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+template <typename G, int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ mask, G* __restrict__ dk,
+                         G* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
+                         int causal, float sm_scale) {
+  constexpr int LD = tc_ld(D), QB = TC_BWD_BQ, KC = D / 16, DT = D / 8, ST = QB / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TC_BK * LD;
+  bf16* sQ = sV + TC_BK * LD;     // [2][QB][LD]
+  bf16* sdO = sQ + 2 * QB * LD;   // [2][QB][LD]
+  float* sL = reinterpret_cast<float*>(sdO + 2 * QB * LD);  // [2][QB]
+  float* sD = sL + 2 * QB;                                  // [2][QB]
+
+  const int kb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = H / Hkv, offset = Sk - Sq, n_qb = Sq / QB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const size_t koff = ((size_t)b * Sk + kb * TC_BK) * ks + (size_t)hk * D;
+  const int krow0 = kb * TC_BK + warp * 16 + g;  // this thread's key rows: krow0, krow0 + 8
+  bool keep[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) keep[i] = !mask || mask[(size_t)b * Sk + krow0 + 8 * i] != 0;
+
+  // q-tiles that see this key tile form a suffix [qb0, n_qb) for each head.
+  int qb0 = 0;
+  while (qb0 < n_qb && kb * TC_BK >= keys_seen(causal, qb0 * QB, offset, Sk)) ++qb0;
+  const int per_head = n_qb - qb0, n_it = rep * per_head;
+
+  auto load_q = [&](int it, int buf) {
+    const int h = hk * rep + it / per_head, qb = qb0 + it % per_head;
+    const size_t qoff = ((size_t)b * Sq + qb * QB) * qs + (size_t)h * D;
+    cp_tile<QB, D, LD>(sQ + buf * QB * LD, q + qoff, qs);
+    cp_tile<QB, D, LD>(sdO + buf * QB * LD, dO + qoff, qs);
+    const size_t st = ((size_t)b * H + h) * Sq + qb * QB;
+    if (threadIdx.x < QB / 4)
+      cp_async16(sL + buf * QB + threadIdx.x * 4, lse + st + threadIdx.x * 4);
+    else if (threadIdx.x < QB / 2)
+      cp_async16(sD + buf * QB + (threadIdx.x - QB / 4) * 4,
+                 delta + st + (threadIdx.x - QB / 4) * 4);
+  };
+
+  cp_tile<TC_BK, D, LD>(sK, k + koff, ks);
+  cp_tile<TC_BK, D, LD>(sV, v + koff, ks);
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1;
+    cp_async_wait_all();  // tile it has landed ...
+    __syncthreads();      // ... for every thread, and tile it-1 is consumed
+    if (it + 1 < n_it) load_q(it + 1, buf ^ 1);
+    cp_async_commit();
+    const int qb = qb0 + it % per_head;
+    const bf16* tQ = sQ + buf * QB * LD;
+    const bf16* tdO = sdO + buf * QB * LD;
+    const float* tL = sL + buf * QB;
+    const float* tD = sD + buf * QB;
+    const int n_keys = keys_seen(causal, qb * QB, offset, Sk);
+    const float uniform = 1.f / n_keys;
+
+    // S^T = K Q^T: 16 key rows x QB query columns per warp.
+    float st[ST][4];
+#pragma unroll
+    for (int j = 0; j < ST; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t ka[4];
+      ldsm_x4(ka, a_addr(sK, LD, warp * 16, kc * 16, lane));
+#pragma unroll
+      for (int jp = 0; jp < ST / 2; ++jp) {
+        uint32_t bq[4];
+        ldsm_x4(bq, bt_addr(tQ, LD, jp * 16, kc * 16, lane));
+        mma_bf16(st[2 * jp], ka, bq[0], bq[1]);
+        mma_bf16(st[2 * jp + 1], ka, bq[2], bq[3]);
+      }
+    }
+
+    // P^T from the saved lse; masked entries are constants.
+    uint32_t live_bits = 0;  // bit (4j + e): entry (j, e) is not masked
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const int qpos = qb * QB + qc, kpos = krow0 + 8 * (e >> 1);
+        const float L = tL[qc];
+        const bool live = keep[e >> 1] && !(causal && kpos > qpos + offset);
+        live_bits |= (uint32_t)live << (4 * j + e);
+        st[j][e] = live ? exp2f((st[j][e] * sm_scale - L) * LOG2E)
+                        : (L < ALL_MASKED_LSE ? uniform : 0.f);
+      }
+    }
+
+    // dV += P^T dO.
+#pragma unroll
+    for (int kc = 0; kc < QB / 16; ++kc) {
+      uint32_t pa[4];
+      acc_to_a(pa, st[2 * kc], st[2 * kc + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bo[4];
+        ldsm_x4_t(bo, b_addr(tdO, LD, kc * 16, dp * 16, lane));
+        mma_bf16(dv_acc[2 * dp], pa, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * dp + 1], pa, bo[2], bo[3]);
+      }
+    }
+
+    // dP^T = V dO^T.
+    float dpt[ST][4];
+#pragma unroll
+    for (int j = 0; j < ST; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t va[4];
+      ldsm_x4(va, a_addr(sV, LD, warp * 16, kc * 16, lane));
+#pragma unroll
+      for (int jp = 0; jp < ST / 2; ++jp) {
+        uint32_t bo[4];
+        ldsm_x4(bo, bt_addr(tdO, LD, jp * 16, kc * 16, lane));
+        mma_bf16(dpt[2 * jp], va, bo[0], bo[1]);
+        mma_bf16(dpt[2 * jp + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // dS^T = P^T (dP^T - delta) * scale, 0 where masked.
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dl = tD[8 * j + 2 * t + (e & 1)];
+        dpt[j][e] = (live_bits >> (4 * j + e)) & 1u
+                        ? st[j][e] * (dpt[j][e] - dl) * sm_scale : 0.f;
+      }
+    }
+
+    // dK += dS^T Q.
+#pragma unroll
+    for (int kc = 0; kc < QB / 16; ++kc) {
+      uint32_t da[4];
+      acc_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bq[4];
+        ldsm_x4_t(bq, b_addr(tQ, LD, kc * 16, dp * 16, lane));
+        mma_bf16(dk_acc[2 * dp], da, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * dp + 1], da, bq[2], bq[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t o = ((size_t)b * Sk + krow0 + 8 * i) * ks + (size_t)hk * D;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      store2(dk + o + 8 * j + 2 * t, dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+      store2(dv + o + 8 * j + 2 * t, dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
 size_t fwd_smem(int D) { return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)); }
 size_t dkdv_smem(int D) {
   return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
 }
 size_t dq_smem(int D) { return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1)); }
+size_t fwd_tc_smem(int D) {
+  return sizeof(bf16) * (TC_BQ + 4 * TC_BK) * tc_ld(D) + sizeof(int) * 2 * TC_BK;
+}
+size_t dkdv_tc_smem(int D) {
+  return sizeof(bf16) * (2 * TC_BK + 4 * TC_BWD_BQ) * tc_ld(D) + sizeof(float) * 4 * TC_BWD_BQ;
+}
+
+// Launch `kern`, or, with `info`, describe it instead: registers per thread,
+// local (spill and stack) bytes per thread, static and dynamic shared memory
+// per block, threads per block, and resident blocks per SM.
+template <typename... P, typename... A>
+int launch(void (*kern)(P...), dim3 grid, int threads, size_t smem, cudaStream_t stream,
+           int* info, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (info) {
+    cudaFuncAttributes a;
+    int blocks = 0;
+    if ((err = cudaFuncGetAttributes(&a, kern)) != cudaSuccess) return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads, smem)) != cudaSuccess)
+      return (int)err;
+    info[0] = a.numRegs;
+    info[1] = (int)a.localSizeBytes;
+    info[2] = (int)a.sharedSizeBytes;
+    info[3] = (int)smem;
+    info[4] = threads;
+    info[5] = blocks;
+    return 0;
+  }
+  kern<<<grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 template <typename T, int D>
-cudaError_t fwd_t(const void* q, const void* k, const void* v, const int* mask,
-                  void* out, float* lse, int B, int Sq, int Sk, int H, int Hkv,
-                  int causal, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(Sq / BQ, H, B), NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, lse, Sq, Sk, H, Hkv, causal, scale);
-  return cudaGetLastError();
+int fwd_t(const void* q, const void* k, const void* v, const int* mask, void* out,
+          float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal, float scale,
+          cudaStream_t s, int* info) {
+  return launch(flash_fwd_kernel<T, D>, dim3(Sq / BQ, H, B), NT, fwd_smem(D), s, info,
+                (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, lse, Sq, Sk, H, Hkv,
+                causal, scale);
+}
+
+template <int D>
+int fwd_tc_t(const void* q, const void* k, const void* v, const int* mask, void* out,
+             float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal, float scale,
+             cudaStream_t s, int* info) {
+  return launch(flash_fwd_tc_kernel<D>, dim3(Sq / TC_BQ, H, B), TC_NT, fwd_tc_smem(D), s, info,
+                (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, lse, Sq, Sk,
+                H, Hkv, causal, scale);
 }
 
 template <typename T, typename G, int D>
-cudaError_t dkdv_t(const void* q, const void* k, const void* v, const void* dO,
-                   const float* lse, const float* delta, const int* mask, void* dk,
-                   void* dv, int B, int Sq, int Sk, int H, int Hkv, int causal,
-                   float scale, cudaStream_t stream) {
-  auto kern = flash_bwd_dkdv_kernel<T, G, D>;
-  const size_t smem = dkdv_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(Sk / BK, Hkv, B), NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta, mask, (G*)dk, (G*)dv,
-      Sq, Sk, H, Hkv, causal, scale);
-  return cudaGetLastError();
+int dkdv_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+           const float* delta, const int* mask, void* dk, void* dv, int B, int Sq, int Sk,
+           int H, int Hkv, int causal, float scale, cudaStream_t s, int* info) {
+  return launch(flash_bwd_dkdv_kernel<T, G, D>, dim3(Sk / BK, Hkv, B), NT, dkdv_smem(D), s,
+                info, (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta, mask,
+                (G*)dk, (G*)dv, Sq, Sk, H, Hkv, causal, scale);
+}
+
+template <typename G, int D>
+int dkdv_tc_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+              const float* delta, const int* mask, void* dk, void* dv, int B, int Sq, int Sk,
+              int H, int Hkv, int causal, float scale, cudaStream_t s, int* info) {
+  return launch(flash_bwd_dkdv_tc_kernel<G, D>, dim3(Sk / TC_BK, Hkv, B), TC_NT,
+                dkdv_tc_smem(D), s, info, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                (const bf16*)dO, lse, delta, mask, (G*)dk, (G*)dv, Sq, Sk, H, Hkv, causal,
+                scale);
 }
 
 template <typename T, typename G, int D>
-cudaError_t dq_t(const void* q, const void* k, const void* v, const void* dO,
-                 const float* lse, const float* delta, const int* mask, void* dq,
-                 int B, int Sq, int Sk, int H, int Hkv, int causal, float scale,
-                 cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<T, G, D>;
-  const size_t smem = dq_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(Sq / BQ, H, B), NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta, mask, (G*)dq,
-      Sq, Sk, H, Hkv, causal, scale);
-  return cudaGetLastError();
+int dq_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+         const float* delta, const int* mask, void* dq, int B, int Sq, int Sk, int H,
+         int Hkv, int causal, float scale, cudaStream_t s, int* info) {
+  return launch(flash_bwd_dq_kernel<T, G, D>, dim3(Sq / BQ, H, B), NT, dq_smem(D), s, info,
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta, mask,
+                (G*)dq, Sq, Sk, H, Hkv, causal, scale);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16. grad_fp32 = 1 writes fp32 gradients
-// from bf16 inputs (the ring-attention building block); otherwise gradients
-// take the input type.
 #define DISPATCH_D(D, CALL)                      \
   switch (D) {                                   \
     case 64: { constexpr int DD = 64; return CALL; }   \
@@ -383,49 +868,91 @@ cudaError_t dq_t(const void* q, const void* k, const void* v, const void* dO,
     default: return (int)cudaErrorInvalidValue;  \
   }
 
+// dtype codes: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (tensor-core
+// forward and dK/dV). grad_fp32 = 1 writes fp32 gradients from bf16 inputs
+// (the ring-attention building block); otherwise gradients take the input
+// type. A non-null `info` describes the kernel the call would launch.
+int fwd_any(const void* q, const void* k, const void* v, const int* mask, void* out,
+            float* lse, int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype,
+            float scale, cudaStream_t s, int* info) {
+  if (dtype == 0) {
+    DISPATCH_D(D, (fwd_t<float, DD>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  }
+  DISPATCH_D(D, (fwd_tc_t<DD>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+}
+
+int dkdv_any(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+             const float* delta, const int* mask, void* dk, void* dv, int B, int Sq, int Sk,
+             int H, int Hkv, int D, int causal, int dtype, int grad_fp32, float scale,
+             cudaStream_t s, int* info) {
+  if (dtype == 0) {
+    DISPATCH_D(D, (dkdv_t<float, float, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  }
+  if (grad_fp32) {
+    DISPATCH_D(D, (dkdv_tc_t<float, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  }
+  DISPATCH_D(D, (dkdv_tc_t<bf16, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+}
+
+int dq_any(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+           const float* delta, const int* mask, void* dq, int B, int Sq, int Sk, int H,
+           int Hkv, int D, int causal, int dtype, int grad_fp32, float scale, cudaStream_t s,
+           int* info) {
+  if (dtype == 0) {
+    DISPATCH_D(D, (dq_t<float, float, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  }
+  if (grad_fp32) {
+    DISPATCH_D(D, (dq_t<bf16, float, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  }
+  DISPATCH_D(D, (dq_t<bf16, bf16, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+}
+
 }  // namespace
 
 extern "C" {
 
-int flash_block_q() { return BQ; }
-int flash_block_k() { return BK; }
-
 int flash_fwd(const void* q, const void* k, const void* v, const int* mask,
               void* out, float* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
               int causal, int dtype, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    DISPATCH_D(D, (int)(fwd_t<float, DD>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, causal, scale, s)));
-  }
-  DISPATCH_D(D, (int)(fwd_t<__nv_bfloat16, DD>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, causal, scale, s)));
+  return fwd_any(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, D, causal, dtype, scale,
+                 (cudaStream_t)stream, nullptr);
 }
 
 int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dO,
                    const float* lse, const float* delta, const int* mask, void* dk,
                    void* dv, int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
                    int dtype, int grad_fp32, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    DISPATCH_D(D, (int)(dkdv_t<float, float, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s)));
-  }
-  if (grad_fp32) {
-    DISPATCH_D(D, (int)(dkdv_t<__nv_bfloat16, float, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s)));
-  }
-  DISPATCH_D(D, (int)(dkdv_t<__nv_bfloat16, __nv_bfloat16, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s)));
+  return dkdv_any(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, D, causal, dtype,
+                  grad_fp32, scale, (cudaStream_t)stream, nullptr);
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                  const float* lse, const float* delta, const int* mask, void* dq,
                  int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype,
                  int grad_fp32, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    DISPATCH_D(D, (int)(dq_t<float, float, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s)));
+  return dq_any(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, D, causal, dtype,
+                grad_fp32, scale, (cudaStream_t)stream, nullptr);
+}
+
+// Resources of the kernel that kernel (0 = flash_fwd, 1 = flash_bwd_dkdv,
+// 2 = flash_bwd_dq) launches for (D, dtype, grad_fp32), into info[6]:
+// registers, local bytes per thread, static shared bytes, dynamic shared
+// bytes, threads per block, resident blocks per SM.
+int flash_kernel_info(int kernel, int D, int dtype, int grad_fp32, int* info) {
+  const float scale = 1.f;
+  switch (kernel) {
+    case 0:
+      return fwd_any(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 0, 0, 1, 1, D,
+                     0, dtype, scale, nullptr, info);
+    case 1:
+      return dkdv_any(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, 1, 0, 0, 1, 1, D, 0, dtype, grad_fp32, scale, nullptr, info);
+    case 2:
+      return dq_any(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
+                    0, 0, 1, 1, D, 0, dtype, grad_fp32, scale, nullptr, info);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  if (grad_fp32) {
-    DISPATCH_D(D, (int)(dq_t<__nv_bfloat16, float, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s)));
-  }
-  DISPATCH_D(D, (int)(dq_t<__nv_bfloat16, __nv_bfloat16, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s)));
 }
 
 }  // extern "C"

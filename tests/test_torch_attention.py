@@ -100,6 +100,51 @@ def test_plain_flash_matches_pallas_interpret(case):
         assert _maxdiff(g, pg, rows) < GRAD_TOL
 
 
+@pytest.mark.parametrize("case", ["causal_pad_s256", "causal_pad_sq_ne_sk"])
+def test_causal_padded_all_masked_row_matches_pallas(case):
+    """Causal attention over a batch row whose keys are all padding. The
+    Pallas kernels (128 x 128 tiles, as the JAX package's
+    multi_head_attention calls them) average V over the keys of the
+    unskipped 128-key tiles; the port must give the same forward on every
+    row. This case cannot join test_plain_flash_matches_jax_reference:
+    attention_reference averages a fully masked row over all Sk keys.
+    Gradients of live rows are held against the Pallas backward; those of
+    the fully masked row against autograd through the port's plain forward,
+    since the Pallas backward is wrong on such rows."""
+    B, Sq, Sk, H, Hkv, D = {"causal_pad_s256": (2, 256, 256, 2, 2, 64),
+                            "causal_pad_sq_ne_sk": (2, 128, 384, 4, 2, 64)}[case]
+    q, k, v, keep = _inputs(B, Sq, Sk, H, Hkv, D, "pad", seed=5)
+    jkeep = jnp.asarray(keep)
+    pl_out, pl_grads = _jax_grads(
+        lambda q_, k_, v_: jax_attn.flash_attention(q_, k_, v_, jkeep, True, 128, 128, True),
+        q, k, v)
+    out, grads = _port_grads(q, k, v, keep, True)
+    assert np.isfinite(out).all()
+    assert _maxdiff(out, pl_out) < FWD_TOL
+    for g, pg in zip(grads, pl_grads):
+        assert _maxdiff(g, pg, slice(0, B - 1)) < GRAD_TOL
+
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    plain_out, _ = A._plain_fwd(qt, kt, vt, torch.tensor(keep.astype(np.int32)), True)
+    plain_grads = torch.autograd.grad((plain_out ** 2).sum(), (qt, kt, vt))
+    for g, pg in zip(grads, plain_grads):
+        assert _maxdiff(g, pg.numpy(), B - 1) < GRAD_TOL
+
+
+def test_mha_unbuilt_head_dim_goes_to_reference():
+    """D=80 tiles but has no kernel instantiation: dispatch sends it to
+    attention_reference, and forcing the kernels raises up front."""
+    q, k, v, keep = _inputs(2, 128, 128, 2, 2, 80, "pad")
+    m4 = keep[:, None, None, :]
+    args = [torch.tensor(x) for x in (q, k, v)]
+    with pytest.raises(ValueError, match=r"^force='flash'.*\(64, 96, 128\)"):
+        A.multi_head_attention(*args, causal=True, mask=torch.tensor(m4), force="flash")
+    out = A.multi_head_attention(*args, causal=True, mask=torch.tensor(m4))
+    ref = jax_attn.attention_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       causal=True, mask=jnp.asarray(m4))
+    assert _maxdiff(out.numpy(), np.asarray(ref)) < FWD_TOL
+
+
 def test_block_building_blocks_match_pallas():
     """flash_block_fwd/bwd (external lse/delta, fp32 gradients) against the
     JAX package's, both in their CPU forms."""
@@ -177,3 +222,4 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
     torch.cuda.synchronize()
     for a, b in ((out, p_out), (lse, p_lse), (dk, p_dk), (dv, p_dv), (dq, p_dq)):
         assert float((a - b).abs().max()) < FWD_TOL
+
