@@ -10,19 +10,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              (bf16, bf16 with fp32 gradients, and fp32; the BERT-base
              training shape with a padding mask that fully masks some rows,
              a causal GQA shape, and causal padded shapes at S=256 with
-             fully padded rows), each error beside its tolerance; each
-             kernel's registers, local memory, shared memory and resident
-             blocks per SM (failing if a D=64 tensor-core kernel spills);
-             kernel, plain and scaled_dot_product_attention times (SDPA's
-             forward, backward and both are yardsticks, never used by the
-             port).
+             fully padded rows), dQ also in the mode that computes delta
+             from the forward's output, each error beside its tolerance;
+             each kernel's registers, local memory, shared memory and
+             resident blocks per SM (failing if a D=64 tensor-core kernel
+             spills); kernel, plain and scaled_dot_product_attention times
+             (SDPA's forward, backward and both are yardsticks, never used
+             by the port).
 4. slice   — the BERT-base (12 x 768, vocab 30522) ASHA + median-stopping
              sweep through maggy_tpu_torch.experiment.lagom on two thread
              runners. Launch counters are zeroed just before and read just
              after: every attention call of every step must have gone
              through the kernels. Then the swept model's logits against the
              same weights on the CPU path, the per-step time alone, and a
-             torch.profiler breakdown of five more steps.
+             torch.profiler breakdown of five more steps (with each flash
+             kernel's device time per launch).
 
 Then the {"kernels": [...]} summary line, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
@@ -35,6 +37,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -163,21 +166,29 @@ def phase_kernels():
             q, k, v, do, mask = make_inputs(*shape, dtype, padded, seed=1)
             out, lse = A.flash_fwd(q, k, v, mask, causal)
             p_out, p_lse = A._plain_fwd(q, k, v, mask, causal)
+            p_out = p_out.contiguous()
             delta = A._row_delta(do, p_out)
             dk, dv = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
             p_dk, p_dv = A._plain_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
             dq = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
             p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
+            # The mode the autograd backward runs: delta from the output.
+            dq_f, delta_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, causal, out=p_out)
             live = p_lse > A.ALL_MASKED_LSE
             pairs = [("flash_fwd", "", [(out, p_out), (torch.where(live, lse, 0.0),
                                                        torch.where(live, p_lse, 0.0))]),
                      ("flash_bwd_dkdv", "", [(dk, p_dk), (dv, p_dv)]),
-                     ("flash_bwd_dq", "", [(dq, p_dq)])]
+                     ("flash_bwd_dq", "", [(dq, p_dq)]),
+                     ("flash_bwd_dq", "/fused_delta", [(dq_f, p_dq), (delta_f, delta)])]
             if dtype == torch.bfloat16:  # fp32 gradients (the ring building block)
                 dk32, dv32 = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal, True)
                 dq32 = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal, True)
+                dq32_f, delta32_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, causal,
+                                                   True, out=p_out)
                 pairs += [("flash_bwd_dkdv", "/grad_fp32", [(dk32, p_dk), (dv32, p_dv)]),
-                          ("flash_bwd_dq", "/grad_fp32", [(dq32, p_dq)])]
+                          ("flash_bwd_dq", "/grad_fp32", [(dq32, p_dq)]),
+                          ("flash_bwd_dq", "/fused_delta/grad_fp32",
+                           [(dq32_f, p_dq), (delta32_f, delta)])]
             torch.cuda.synchronize()
             for name, variant, checks in pairs:
                 err = max(float((a.float() - b.float()).abs().max()) for a, b in checks)
@@ -193,13 +204,15 @@ def phase_kernels():
                     main[name] = {"max_abs_err": err}
     A.reset_launch_counts()
 
-    # What each kernel takes on the card, per head dim and type.
-    resources = [{"kernel": name, "D": D, "dtype": str(dtype),
-                  **A.kernel_resources(name, D, dtype)}
+    # What each kernel takes on the card, per head dim and type (and, for
+    # the backward, per gradient type).
+    variants = [(torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)]
+    resources = [{"kernel": name, "D": D, "dtype": str(dtype), "grad_fp32": g32,
+                  **A.kernel_resources(name, D, dtype, g32)}
                  for name in REPLACES for D in A.KERNEL_HEAD_DIMS
-                 for dtype in (torch.bfloat16, torch.float32)]
+                 for dtype, g32 in variants if not (g32 and name == "flash_fwd")]
     spilling = [r for r in resources if r["D"] == 64 and r["dtype"] == str(torch.bfloat16)
-                and r["kernel"] in ("flash_fwd", "flash_bwd_dkdv") and r["local_bytes"]]
+                and r["local_bytes"]]
     if spilling:
         emit("kernels", checks=results, resources=resources)
         raise AssertionError("tensor-core kernels use local memory at D=64: {}".format(spilling))
@@ -238,10 +251,17 @@ def phase_kernels():
         main[name].update(ms=gpu_time_ms(t["ms"]), plain_ms=gpu_time_ms(t["plain"]),
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=gpu_time_ms(t["library"]) if t["library"] else None)
+    # dQ computing delta as well: O read and delta written on top.
+    f_ms, f_by = bound(6 * t_io + 2 * stat + mask_b, 6 * D * n_live + 2 * D * B * S * H, dtype)
+    timed = {n: dict(m) for n, m in main.items()}
+    timed["flash_bwd_dq"].update(
+        fused_ms=gpu_time_ms(lambda: A.flash_bwd_dq(q, k, v, do, lse, None, mask, False,
+                                                    out=out)),
+        fused_bound_ms=f_ms, fused_bound_by=f_by)
 
     # Yardsticks: the three kernels vs SDPA's forward and backward, and the
-    # backward pair (delta, dK/dV, dQ) vs SDPA's backward alone on a kept
-    # graph.
+    # backward pair (dQ computing delta, then dK/dV) vs SDPA's backward
+    # alone on a kept graph.
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
     dot_ = do.transpose(1, 2)
 
@@ -253,17 +273,16 @@ def phase_kernels():
         o, l_ = A.flash_fwd(q, k, v, mask, False)
         kernels_bwd(o, l_)
 
-    def kernels_bwd(o=out, l_=lse):
-        dl = A._row_delta(do, o)
+    def kernels_bwd(o=out, l_=lse):  # what the autograd backward runs
+        _, dl = A.flash_bwd_dq(q, k, v, do, l_, None, mask, False, out=o)
         A.flash_bwd_dkdv(q, k, v, do, l_, dl, mask, False)
-        A.flash_bwd_dq(q, k, v, do, l_, dl, mask, False)
 
     o_kept = sdpa(qg, kg, vg, attn_mask=bool_mask)
     sdpa_bwd_ms = gpu_time_ms(
         lambda: torch.autograd.grad(o_kept, (qg, kg, vg), dot_, retain_graph=True))
     A.reset_launch_counts()
     emit("kernels", checks=results, resources=resources, shape_main=[B, S, H, D],
-         dtype=str(dtype), timed={n: dict(m) for n, m in main.items()},
+         dtype=str(dtype), timed=timed,
          fwd_bwd_ms=gpu_time_ms(kernels_fwd_bwd, reps=10),
          sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10),
          bwd_pair_ms=gpu_time_ms(kernels_bwd), sdpa_bwd_ms=sdpa_bwd_ms)
@@ -404,8 +423,9 @@ def phase_slice(exp_dir):
 def step_device_profile(step, steps=5):
     """Per training step over ``steps`` steps under torch.profiler: the
     host-clock step time, the device's busy time (every kernel and copy),
-    the attention kernels' part, the largest kernels, and the device's idle
-    share of those same steps."""
+    the attention kernels' part and its split by kernel (ms per step,
+    launches per step, ms per launch), the largest kernels, and the
+    device's idle share of those same steps."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -418,16 +438,22 @@ def step_device_profile(step, steps=5):
         step_ms = (time.perf_counter() - t0) * 1e3 / steps
     # GPU-side user annotations (the optimizer's step range) span kernels
     # that are counted on their own.
-    device = {e.key: e.self_device_time_total / 1e3 / steps for e in prof.key_averages()
+    events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-              and not e.is_user_annotation}
+              and not e.is_user_annotation]
+    device = {e.key: e.self_device_time_total / 1e3 / steps for e in events}
     busy = sum(device.values())
     if busy == 0:
         raise AssertionError("the profiler recorded no device time over {} steps".format(steps))
+    flash = {re.search(r"flash_\w+(<[^>]*>)?", e.key).group(0): {
+        "ms_per_step": e.self_device_time_total / 1e3 / steps,
+        "launches_per_step": e.count / steps,
+        "ms_per_launch": e.self_device_time_total / 1e3 / e.count}
+        for e in events if "flash_" in e.key}
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
     return {"step_ms": step_ms, "device_busy_ms": busy,
             "attention_kernels_ms": sum(v for k, v in device.items() if "flash_" in k),
-            "idle_share": 1.0 - busy / step_ms,
+            "attention_kernels": flash, "idle_share": 1.0 - busy / step_ms,
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 

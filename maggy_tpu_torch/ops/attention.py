@@ -15,12 +15,14 @@ key-padding keep-mask, bottom-right causal alignment when Sq != Sk):
 
   All three are bound by bytes on an H100 at the BERT-base shape (B=32,
   S=128, H=12, D=64, bf16): about 7.6, 11.4 and 9.5 us at 3.35 TB/s. For
-  bf16 the forward and dK/dV run on tensor cores: bf16 tiles in shared
-  memory loaded with double-buffered ``cp.async``, every product an
-  ``mma.sync`` m16n8k16 with fp32 accumulation fed by ``ldmatrix``, and P
-  and dS kept in registers as the A operand of the next product. fp32
-  inputs (all three kernels) and dQ (both types) run on simple CUDA-core
-  kernels with fp32 tiles; tensor cores would break the fp32 tolerance.
+  bf16 all three run on tensor cores: bf16 tiles in shared memory loaded
+  with double-buffered ``cp.async``, every product an ``mma.sync``
+  m16n8k16 with fp32 accumulation fed by ``ldmatrix``, and P and dS kept
+  in registers as the A operand of the next product. fp32 inputs run on
+  simple CUDA-core kernels with fp32 tiles; tensor cores would break the
+  fp32 tolerance. The autograd backward runs dQ first: given the forward's
+  output, the dQ kernel computes delta = rowsum(dO * O) for its rows and
+  hands it to dK/dV.
 
   The causal tile skip runs at CAUSAL_SKIP_BLOCK = 128, the JAX package's
   tile size, whatever tile a kernel computes in: a fully masked causal row
@@ -262,26 +264,40 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal: bool,
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, mask, causal: bool,
-                 grad_fp32: bool = False):
-    """dQ [B,Sq,H,D] (q's dtype, or fp32 with ``grad_fp32``)."""
+                 grad_fp32: bool = False, out=None):
+    """dQ [B,Sq,H,D] (q's dtype, or fp32 with ``grad_fp32``).
+
+    Takes exactly one of ``delta`` (rowsum(dO * O), [B,H,Sq] fp32) and
+    ``out`` (the forward's output). Given ``out``, the kernel computes
+    delta for its rows itself and the call returns (dq, delta), delta for
+    the dK/dV kernel. bf16 runs on tensor cores, fp32 on CUDA cores."""
+    if (delta is None) == (out is None):
+        raise ValueError("flash_bwd_dq takes exactly one of delta and out")
+    dt = torch.float32 if grad_fp32 else q.dtype
     if _device_kind(q) == "cpu":
-        dq = _plain_bwd_dq(q, k, v, do, lse, delta, mask, causal)
-        return dq.to(torch.float32 if grad_fp32 else q.dtype)
+        if out is not None:
+            delta = _row_delta(do, out)
+        dq = _plain_bwd_dq(q, k, v, do, lse, delta, mask, causal).to(dt)
+        return dq if out is None else (dq, delta)
     from maggy_tpu_torch.ops import build
 
-    _check(q, k, v, mask, do, lse, delta)
+    _check(q, k, v, mask, do, lse, delta if out is None else out)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    dq = torch.empty(q.shape, dtype=torch.float32 if grad_fp32 else q.dtype,
-                     device=q.device)
+    delta_out = None
+    if out is not None:
+        if out.shape != q.shape or out.dtype != q.dtype:
+            raise ValueError("out must have q's shape and dtype")
+        delta_out = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=dt, device=q.device)
     lib = build.library(_SOURCE)
     flash_bwd_dq.launches += 1
     _raise_on(lib.flash_bwd_dq(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(mask),
-        _ptr(dq), B, Sq, Sk, H, Hkv, D, int(causal), _DTYPE_CODE[q.dtype],
-        int(grad_fp32), 1.0 / math.sqrt(D), _stream()),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(out),
+        _ptr(delta_out), _ptr(mask), _ptr(dq), B, Sq, Sk, H, Hkv, D, int(causal),
+        _DTYPE_CODE[q.dtype], int(grad_fp32), 1.0 / math.sqrt(D), _stream()),
         "flash_bwd_dq")
-    return dq
+    return dq if out is None else (dq, delta_out)
 
 
 #: The three kernel wrappers, each with its launch count.
@@ -299,17 +315,17 @@ def launch_counts():
     return {kernel.__name__: kernel.launches for kernel in KERNELS}
 
 
-def kernel_resources(name: str, D: int, dtype: torch.dtype):
-    """What the CUDA kernel that wrapper ``name`` launches for (D, dtype)
-    takes on the card: registers and local (spill and stack) bytes per
-    thread, static and dynamic shared bytes and threads per block, and the
-    blocks that fit on one SM. Needs the card."""
+def kernel_resources(name: str, D: int, dtype: torch.dtype, grad_fp32: bool = False):
+    """What the CUDA kernel that wrapper ``name`` launches for (D, dtype,
+    grad_fp32) takes on the card: registers and local (spill and stack)
+    bytes per thread, static and dynamic shared bytes and threads per
+    block, and the blocks that fit on one SM. Needs the card."""
     from maggy_tpu_torch.ops import build
 
     info = (ctypes.c_int * 6)()
     index = [kernel.__name__ for kernel in KERNELS].index(name)
     _raise_on(build.library(_SOURCE).flash_kernel_info(
-        index, D, _DTYPE_CODE[dtype], 0, info), name)
+        index, D, _DTYPE_CODE[dtype], int(grad_fp32), info), name)
     keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads",
             "blocks_per_sm")
     return dict(zip(keys, info))
@@ -330,7 +346,8 @@ def _canon_mask(mask, B, Sk):
 
 def _row_delta(do, out):
     """delta = rowsum(dO * O) as [B,H,Sq] fp32 (an XLA op in the JAX
-    package, a torch op here)."""
+    package): the plain version of the delta the dQ kernel computes when
+    given ``out``."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -346,9 +363,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = _row_delta(do, out)
+        dq, delta = flash_bwd_dq(q, k, v, do, lse, None, mask, ctx.causal, out=out)
         dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, mask, ctx.causal)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, mask, ctx.causal)
         return dq, dk, dv, None, None
 
 

@@ -32,7 +32,7 @@ SIGNATURES = {
     "flash_attn.cu": {
         "flash_fwd": [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
         "flash_bwd_dkdv": [_P] * 9 + [_I] * 8 + [_I, _F, _P],
-        "flash_bwd_dq": [_P] * 8 + [_I] * 8 + [_I, _F, _P],
+        "flash_bwd_dq": [_P] * 10 + [_I] * 8 + [_I, _F, _P],
         "flash_kernel_info": [_I] * 4 + [_P],
     },
 }

@@ -3,8 +3,9 @@
 // Replaces the three Pallas TPU kernels of maggy_tpu/ops/attention.py:
 //   bf16: flash_fwd_tc_kernel       <- _flash_fwd_kernel       (pallas_call at :226)
 //         flash_bwd_dkdv_tc_kernel  <- _flash_bwd_dkdv_kernel  (pallas_call at :443)
-//   fp32: flash_fwd_kernel, flash_bwd_dkdv_kernel (the same two, on CUDA cores)
-//   both: flash_bwd_dq_kernel       <- _flash_bwd_dq_kernel    (pallas_call at :482)
+//         flash_bwd_dq_tc_kernel    <- _flash_bwd_dq_kernel    (pallas_call at :482)
+//   fp32: flash_fwd_kernel, flash_bwd_dkdv_kernel, flash_bwd_dq_kernel (the
+//         same three, on CUDA cores)
 //
 // Layouts (all row-major, contiguous): q/dO/out/dq [B,Sq,H,D], k/v/dk/dv
 // [B,Sk,Hkv,D] with H % Hkv == 0 (GQA: query head h reads kv head h / rep,
@@ -15,8 +16,9 @@
 // training shape B=32, S=128, H=12, D=64, bf16, padded: the forward moves
 // ~25 MB (q,k,v read, out and lse written) for ~1.6 GFLOP: 7.6 us of memory
 // time against ~1.6 us of tensor-core time, so bytes bound it; dK/dV moves
-// ~38 MB (11.4 us) and dQ ~32 MB (9.5 us), bytes again. chip_smoke.py
-// computes the bound from each run's inputs; PERF.md carries the times.
+// ~38 MB (11.4 us) and dQ ~32 MB (9.5 us; ~38 MB when it also reads O and
+// writes delta), bytes again. chip_smoke.py computes the bound from each
+// run's inputs; PERF.md carries the times.
 //
 // Design. A TPU grid runs in order on one core and carries the online-softmax
 // state across its innermost (sequential) grid dimension in VMEM scratch. On
@@ -27,27 +29,33 @@
 //            rep query heads and the q-tiles, so the GQA sum needs no atomics;
 //   dQ:      one block per (b, h, q-tile), looping over k-tiles.
 //
-// bf16 forward and dK/dV (the training path) run on tensor cores. Four warps
-// per block, each owning 16 rows (query rows in the forward, key rows in
-// dK/dV). Tiles stay bf16 in shared memory, rows padded by 16 bytes so the
-// eight row addresses of an ldmatrix fall in distinct banks. Loads are
-// cp.async, 16 bytes a thread, double-buffered: the next K/V tile (forward)
-// or (Q, dO, lse, delta) tile (dK/dV) lands while the current one computes.
-// Every product is mma.sync.m16n8k16 bf16 with fp32 accumulation, fed by
-// ldmatrix (ldmatrix.trans where the shared tile is the row-major B operand).
-// The m16n8 fp32 accumulator of S (or S^T) is exactly the m16k16 A fragment
-// of the next product once rounded to bf16, so P and dS never leave
-// registers; a row's max and sum need only the shuffles inside a quad.
+// bf16 inputs (the training path) run on tensor cores. Four warps per block,
+// each owning 16 rows (query rows in the forward and dQ, key rows in dK/dV).
+// Tiles stay bf16 in shared memory, rows padded by 16 bytes so the eight row
+// addresses of an ldmatrix fall in distinct banks. Loads are cp.async, 16
+// bytes a thread, double-buffered: the next K/V tile (forward, dQ) or (Q, dO,
+// lse, delta) tile (dK/dV) lands while the current one computes. Every
+// product is mma.sync.m16n8k16 bf16 with fp32 accumulation, fed by ldmatrix
+// (ldmatrix.trans where the shared tile is the row-major B operand). The
+// m16n8 fp32 accumulator of S (or S^T) is exactly the m16k16 A fragment of
+// the next product once rounded to bf16, so P and dS never leave registers;
+// a row's max and sum need only the shuffles inside a quad.
 //   forward: S = Q K^T (Q fragments held in registers), online softmax, O += P V;
 //   dK/dV:   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, so P
-//            and dS come out in key-row layout, ready as A operands.
-// ~47 KB (forward) and ~37 KB (dK/dV) of shared memory at D=64 leave
-// several blocks resident on each SM.
+//            and dS come out in key-row layout, ready as A operands;
+//   dQ:      S = Q K^T, dP = dO V^T, dQ += dS K (K through ldmatrix.trans).
+// ~47 KB (forward), ~37 KB (dK/dV) and ~55 KB (dQ) of shared memory at D=64
+// leave several blocks resident on each SM.
+//
+// delta = rowsum(dO * O) is computed by the dQ kernels when given O (the
+// autograd backward runs dQ first and hands its delta to dK/dV): a dQ block
+// already holds its rows' dO, where a dK/dV block would recompute delta for
+// every q-tile it visits. Given delta instead (the ring building block's
+// global delta), they read it.
 //
 // fp32 inputs run on the simple kernels: tiles converted to fp32 in shared
 // memory, every product fp32 FMA on CUDA cores (tensor cores would break the
 // fp32 tolerance), 64 x 64 tiles, 256 threads, four threads per tile row.
-// dQ runs on that simple kernel for both types (its redesign is next).
 //
 // Masking uses NEG_INF = -1e30, not -inf, so a query row whose keys are all
 // masked yields exp(0) = 1 for every key it saw and returns the mean of V
@@ -293,11 +301,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// With `o` set, delta is computed here (four threads a row) and written to
+// delta_out; else it is read from `delta`.
 template <typename T, typename G, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
+                    const T* __restrict__ o, float* __restrict__ delta_out,
                     const int* __restrict__ mask, G* __restrict__ dq, int Sq,
                     int Sk, int H, int Hkv, int causal, float sm_scale) {
   constexpr int DP = D + 1, KP = BK + 1, DC = D / 4;
@@ -315,7 +326,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
   const size_t qoff = ((size_t)b * Sq + qi * BQ) * qs + (size_t)h * D;
   const size_t st = ((size_t)b * H + h) * Sq + qpos;
-  const float my_lse = lse[st], my_delta = delta[st];
+  const float my_lse = lse[st];
+  float my_delta;
+  if (o) {
+    const size_t r = qoff + (size_t)row * qs;
+    float sum = 0.f;
+    for (int c = part; c < D; c += 4) sum += to_f(dO[r + c]) * to_f(o[r + c]);
+    my_delta = row_sum4(sum);
+    if (part == 0) delta_out[st] = my_delta;
+  } else {
+    my_delta = delta[st];
+  }
   const int n_keys = keys_seen(causal, qi * BQ, offset, Sk);
 
   load_tile<T, D>(sQ, DP, q + qoff, qs, BQ, 1.f);
@@ -350,9 +371,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  G* o = dq + ((size_t)b * Sq + qpos) * qs + (size_t)h * D;
+  G* dq_row = dq + ((size_t)b * Sq + qpos) * qs + (size_t)h * D;
 #pragma unroll
-  for (int c = 0; c < DC; ++c) o[part + 4 * c] = from_f<G>(acc[c]);
+  for (int c = 0; c < DC; ++c) dq_row[part + 4 * c] = from_f<G>(acc[c]);
 }
 
 // ------------------------------------------- bf16 kernels (tensor cores)
@@ -774,6 +795,202 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Dot product of eight bf16 pairs held as two 16-byte vectors, in fp32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    s += fx.x * fy.x + fx.y * fy.y;
+  }
+  return s;
+}
+
+// Q and dO A fragments stay in registers across the key loop up to this head
+// dim; above it they are re-read from shared memory for every key tile.
+constexpr int DQ_HOLD_D = 96;
+
+// bf16 dQ on tensor cores (G = bf16, or fp32 for grad_fp32). Replaces
+// _flash_bwd_dq_kernel (maggy_tpu/ops/attention.py:369). Bytes bound it:
+// q, k, v and dO read and dq written, ~31 MB at the BERT-base shape (9.5 us
+// at 3.35 TB/s) against ~2.4 GFLOP (2.4 us on the tensor cores). The design
+// is the forward's: one block per (b, h, 64-row q-tile), four warps of 16
+// query rows, Q and dO landed once by cp.async, K/V tiles and their mask ints
+// double-buffered. Per key tile, S = Q K^T and dP = dO V^T on mma.sync, then
+// dS = P (dP - delta) scale in registers, 0 at every masked entry (a fully
+// masked row gets dq = 0, the gradient of its constant output), then
+// dQ += dS K with dS as the A operand straight from the accumulators.
+// With `o` set, the prologue computes delta = rowsum(dO * O) for the block's
+// rows, while the tiles land: the quad that owns a row in the mma layout
+// takes its 16-byte chunks t, t+4, ... and row_sum4 adds them; delta goes
+// to delta_out for the dK/dV kernel.
+template <typename G, int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const bf16* __restrict__ o, float* __restrict__ delta_out,
+                       const int* __restrict__ mask, G* __restrict__ dq,
+                       int Sq, int Sk, int H, int Hkv, int causal, float sm_scale) {
+  constexpr int LD = tc_ld(D), KC = D / 16, DT = D / 8, ST = TC_BK / 8, CH = D / 32;
+  constexpr bool HOLD = D <= DQ_HOLD_D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + TC_BQ * LD;
+  bf16* sK = sdO + TC_BQ * LD;     // [2][TC_BK][LD]
+  bf16* sV = sK + 2 * TC_BK * LD;  // [2][TC_BK][LD]
+  int* sM = reinterpret_cast<int*>(sV + 2 * TC_BK * LD);  // [2][TC_BK]
+
+  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv), offset = Sk - Sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const int q0 = qi * TC_BQ;
+  const size_t qoff = ((size_t)b * Sq + q0) * qs + (size_t)h * D;
+  const int n_kb = keys_seen(causal, q0, offset, Sk) / TC_BK;
+  const int r0 = warp * 16 + g;  // this thread's rows in the tile: r0, r0 + 8
+  const size_t st = ((size_t)b * H + h) * Sq + q0 + r0;
+
+  auto load_kv = [&](int kb, int buf) {
+    const size_t koff = ((size_t)b * Sk + kb * TC_BK) * ks + (size_t)hk * D;
+    cp_tile<TC_BK, D, LD>(sK + buf * TC_BK * LD, k + koff, ks);
+    cp_tile<TC_BK, D, LD>(sV + buf * TC_BK * LD, v + koff, ks);
+    if (mask && threadIdx.x < TC_BK / 4)
+      cp_async16(sM + buf * TC_BK + threadIdx.x * 4,
+                 mask + (size_t)b * Sk + kb * TC_BK + threadIdx.x * 4);
+  };
+
+  cp_tile<TC_BQ, D, LD>(sQ, q + qoff, qs);
+  cp_tile<TC_BQ, D, LD>(sdO, dO + qoff, qs);
+  if (n_kb > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  float L[2], dl[2];
+  uint4 ov[2][CH];
+  if (o) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        ov[i][c] = *reinterpret_cast<const uint4*>(o + qoff + (size_t)(r0 + 8 * i) * qs +
+                                                   (t + 4 * c) * 8);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) L[i] = lse[st + 8 * i];
+  cp_async_wait_all();
+  __syncthreads();
+  if (o) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        sum += dot8(ov[i][c],
+                    *reinterpret_cast<const uint4*>(sdO + (r0 + 8 * i) * LD + (t + 4 * c) * 8));
+      dl[i] = row_sum4(sum);
+      if (t == 0) delta_out[st + 8 * i] = dl[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) dl[i] = delta[st + 8 * i];
+  }
+
+  uint32_t qf[KC][4], df[KC][4];
+  if constexpr (HOLD) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      ldsm_x4(qf[kc], a_addr(sQ, LD, warp * 16, kc * 16, lane));
+      ldsm_x4(df[kc], a_addr(sdO, LD, warp * 16, kc * 16, lane));
+    }
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int buf = kb & 1;
+    if (kb > 0) {
+      cp_async_wait_all();  // tile kb has landed ...
+      __syncthreads();      // ... for every thread, and tile kb-1 is consumed
+    }
+    if (kb + 1 < n_kb) load_kv(kb + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* tK = sK + buf * TC_BK * LD;
+    const bf16* tV = sV + buf * TC_BK * LD;
+    const int* tM = sM + buf * TC_BK;
+
+    // S = Q K^T and dP = dO V^T over this warp's 16 rows and TC_BK keys.
+    float s[ST][4], dp[ST][4];
+#pragma unroll
+    for (int j = 0; j < ST; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], da[4];
+      if constexpr (HOLD) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[kc][e];
+          da[e] = df[kc][e];
+        }
+      } else {
+        ldsm_x4(qa, a_addr(sQ, LD, warp * 16, kc * 16, lane));
+        ldsm_x4(da, a_addr(sdO, LD, warp * 16, kc * 16, lane));
+      }
+#pragma unroll
+      for (int jp = 0; jp < ST / 2; ++jp) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, bt_addr(tK, LD, jp * 16, kc * 16, lane));
+        mma_bf16(s[2 * jp], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qa, bk[2], bk[3]);
+        ldsm_x4(bv, bt_addr(tV, LD, jp * 16, kc * 16, lane));
+        mma_bf16(dp[2 * jp], da, bv[0], bv[1]);
+        mma_bf16(dp[2 * jp + 1], da, bv[2], bv[3]);
+      }
+    }
+
+    // dS = P (dP - delta) * scale, 0 where masked; rows r0 (e = 0, 1) and
+    // r0 + 8 (e = 2, 3).
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1), i = e >> 1;
+        const int kpos = kb * TC_BK + col, qpos = q0 + r0 + 8 * i;
+        const bool live = !(causal && kpos > qpos + offset) && !(mask && tM[col] == 0);
+        s[j][e] = live ? exp2f((s[j][e] * sm_scale - L[i]) * LOG2E) * (dp[j][e] - dl[i]) * sm_scale
+                       : 0.f;
+      }
+    }
+
+    // dQ += dS K, dS from registers as the A operand.
+#pragma unroll
+    for (int kc = 0; kc < TC_BK / 16; ++kc) {
+      uint32_t sa[4];
+      acc_to_a(sa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int dc = 0; dc < D / 16; ++dc) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, b_addr(tK, LD, kc * 16, dc * 16, lane));
+        mma_bf16(acc[2 * dc], sa, bk[0], bk[1]);
+        mma_bf16(acc[2 * dc + 1], sa, bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    G* row = dq + qoff + (size_t)(r0 + 8 * i) * qs;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) store2(row + 8 * j + 2 * t, acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 size_t fwd_smem(int D) { return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)); }
@@ -786,6 +1003,9 @@ size_t fwd_tc_smem(int D) {
 }
 size_t dkdv_tc_smem(int D) {
   return sizeof(bf16) * (2 * TC_BK + 4 * TC_BWD_BQ) * tc_ld(D) + sizeof(float) * 4 * TC_BWD_BQ;
+}
+size_t dq_tc_smem(int D) {
+  return sizeof(bf16) * (2 * TC_BQ + 4 * TC_BK) * tc_ld(D) + sizeof(int) * 2 * TC_BK;
 }
 
 // Launch `kern`, or, with `info`, describe it instead: registers per thread,
@@ -853,11 +1073,22 @@ int dkdv_tc_t(const void* q, const void* k, const void* v, const void* dO, const
 
 template <typename T, typename G, int D>
 int dq_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-         const float* delta, const int* mask, void* dq, int B, int Sq, int Sk, int H,
-         int Hkv, int causal, float scale, cudaStream_t s, int* info) {
+         const float* delta, const void* o, float* delta_out, const int* mask, void* dq,
+         int B, int Sq, int Sk, int H, int Hkv, int causal, float scale, cudaStream_t s,
+         int* info) {
   return launch(flash_bwd_dq_kernel<T, G, D>, dim3(Sq / BQ, H, B), NT, dq_smem(D), s, info,
-                (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta, mask,
-                (G*)dq, Sq, Sk, H, Hkv, causal, scale);
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta,
+                (const T*)o, delta_out, mask, (G*)dq, Sq, Sk, H, Hkv, causal, scale);
+}
+
+template <typename G, int D>
+int dq_tc_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+            const float* delta, const void* o, float* delta_out, const int* mask, void* dq,
+            int B, int Sq, int Sk, int H, int Hkv, int causal, float scale, cudaStream_t s,
+            int* info) {
+  return launch(flash_bwd_dq_tc_kernel<G, D>, dim3(Sq / TC_BQ, H, B), TC_NT, dq_tc_smem(D), s,
+                info, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, lse,
+                delta, (const bf16*)o, delta_out, mask, (G*)dq, Sq, Sk, H, Hkv, causal, scale);
 }
 
 #define DISPATCH_D(D, CALL)                      \
@@ -869,9 +1100,11 @@ int dq_t(const void* q, const void* k, const void* v, const void* dO, const floa
   }
 
 // dtype codes: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (tensor-core
-// forward and dK/dV). grad_fp32 = 1 writes fp32 gradients from bf16 inputs
-// (the ring-attention building block); otherwise gradients take the input
-// type. A non-null `info` describes the kernel the call would launch.
+// kernels). grad_fp32 = 1 writes fp32 gradients from bf16 inputs (the
+// ring-attention building block); otherwise gradients take the input type.
+// dQ computes delta into delta_out when given the forward's output `o`
+// (then `delta` is null), else reads `delta`. A non-null `info` describes
+// the kernel the call would launch.
 int fwd_any(const void* q, const void* k, const void* v, const int* mask, void* out,
             float* lse, int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype,
             float scale, cudaStream_t s, int* info) {
@@ -895,16 +1128,16 @@ int dkdv_any(const void* q, const void* k, const void* v, const void* dO, const 
 }
 
 int dq_any(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-           const float* delta, const int* mask, void* dq, int B, int Sq, int Sk, int H,
-           int Hkv, int D, int causal, int dtype, int grad_fp32, float scale, cudaStream_t s,
-           int* info) {
+           const float* delta, const void* o, float* delta_out, const int* mask, void* dq,
+           int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype, int grad_fp32,
+           float scale, cudaStream_t s, int* info) {
   if (dtype == 0) {
-    DISPATCH_D(D, (dq_t<float, float, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+    DISPATCH_D(D, (dq_t<float, float, DD>(q, k, v, dO, lse, delta, o, delta_out, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
   }
   if (grad_fp32) {
-    DISPATCH_D(D, (dq_t<bf16, float, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+    DISPATCH_D(D, (dq_tc_t<float, DD>(q, k, v, dO, lse, delta, o, delta_out, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
   }
-  DISPATCH_D(D, (dq_t<bf16, bf16, DD>(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  DISPATCH_D(D, (dq_tc_t<bf16, DD>(q, k, v, dO, lse, delta, o, delta_out, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
 }
 
 }  // namespace
@@ -927,11 +1160,11 @@ int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dO,
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
-                 const float* lse, const float* delta, const int* mask, void* dq,
-                 int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype,
-                 int grad_fp32, float scale, void* stream) {
-  return dq_any(q, k, v, dO, lse, delta, mask, dq, B, Sq, Sk, H, Hkv, D, causal, dtype,
-                grad_fp32, scale, (cudaStream_t)stream, nullptr);
+                 const float* lse, const float* delta, const void* o, float* delta_out,
+                 const int* mask, void* dq, int B, int Sq, int Sk, int H, int Hkv, int D,
+                 int causal, int dtype, int grad_fp32, float scale, void* stream) {
+  return dq_any(q, k, v, dO, lse, delta, o, delta_out, mask, dq, B, Sq, Sk, H, Hkv, D, causal,
+                dtype, grad_fp32, scale, (cudaStream_t)stream, nullptr);
 }
 
 // Resources of the kernel that kernel (0 = flash_fwd, 1 = flash_bwd_dkdv,
@@ -948,8 +1181,8 @@ int flash_kernel_info(int kernel, int D, int dtype, int grad_fp32, int* info) {
       return dkdv_any(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                       nullptr, 1, 0, 0, 1, 1, D, 0, dtype, grad_fp32, scale, nullptr, info);
     case 2:
-      return dq_any(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
-                    0, 0, 1, 1, D, 0, dtype, grad_fp32, scale, nullptr, info);
+      return dq_any(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, 1, 0, 0, 1, 1, D, 0, dtype, grad_fp32, scale, nullptr, info);
     default:
       return (int)cudaErrorInvalidValue;
   }

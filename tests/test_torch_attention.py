@@ -166,6 +166,85 @@ def test_block_building_blocks_match_pallas():
         assert _maxdiff(g.numpy(), np.asarray(jg)) < GRAD_TOL
 
 
+FUSED_CASES = dict(CASES, causal_pad_s256=(2, 256, 256, 2, 2, 64, True, "pad"))
+
+
+def _bwd_inputs(case, seed=6):
+    """CPU tensors for one backward call: q, k, v, dO, the int32 mask, the
+    causal flag, and the forward's out and lse."""
+    B, Sq, Sk, H, Hkv, D, causal, mask_kind = FUSED_CASES[case]
+    q, k, v, keep = _inputs(B, Sq, Sk, H, Hkv, D, mask_kind, seed)
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(np.float32)
+    mask = None if keep is None else torch.tensor(keep.astype(np.int32))
+    qt, kt, vt, dot = (torch.tensor(x) for x in (q, k, v, do))
+    out, lse = A.flash_fwd(qt, kt, vt, mask, causal)
+    return qt, kt, vt, dot, mask, causal, out, lse
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_dq_fused_delta_matches_delta_in(case):
+    """Given the forward's output, flash_bwd_dq returns delta = rowsum(dO*O)
+    beside dq: the same dq as given that delta, the same delta as
+    ``_row_delta``."""
+    q, k, v, do, mask, causal, out, lse = _bwd_inputs(case)
+    dq_f, delta_f = A.flash_bwd_dq(q, k, v, do, lse, None, mask, causal, out=out)
+    delta = A._row_delta(do, out)
+    dq = A.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal)
+    B, Sq, H, _ = q.shape
+    assert delta_f.shape == (B, H, Sq) and delta_f.dtype == torch.float32
+    assert _maxdiff(delta_f.numpy(), delta.numpy()) <= 1e-6
+    assert dq_f.shape == q.shape and _maxdiff(dq_f.numpy(), dq.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["causal_gqa_d128", "causal_sq_ne_sk"])
+def test_dq_fused_delta_matches_jax_block_bwd(case):
+    """The fused delta against the JAX package's sum(dO * O), and dq against
+    its flash_block_bwd (Pallas, interpret mode) given that delta."""
+    q, k, v, do, mask, causal, out, lse = _bwd_inputs(case)
+    assert mask is None  # the block building block takes no mask
+    dq_f, delta_f = A.flash_bwd_dq(q, k, v, do, lse, None, mask, causal, out=out)
+    j_delta = jnp.sum(jnp.asarray(do.numpy()) * jnp.asarray(out.numpy()), -1).transpose(0, 2, 1)
+    assert _maxdiff(delta_f.numpy(), np.asarray(j_delta)) < GRAD_TOL
+    j_dq, _, _ = jax_attn.flash_block_bwd(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v, do, lse)), j_delta, causal=causal,
+        interpret=True)
+    assert _maxdiff(dq_f.numpy(), np.asarray(j_dq)) < GRAD_TOL
+
+
+@pytest.mark.parametrize("given", ["both", "neither"])
+def test_dq_takes_exactly_one_of_delta_and_out(given):
+    q, k, v, do, mask, causal, out, lse = _bwd_inputs("pad_all_masked_row")
+    both = given == "both"
+    with pytest.raises(ValueError, match="exactly one of delta and out"):
+        A.flash_bwd_dq(q, k, v, do, lse, A._row_delta(do, out) if both else None, mask,
+                       causal, out=out if both else None)
+
+
+def test_backward_runs_fused_dq_then_dkdv(monkeypatch):
+    """The autograd backward asks dQ for delta and hands that delta to
+    dK/dV: no separate delta pass."""
+    calls = []
+    fused_dq, dkdv = A.flash_bwd_dq, A.flash_bwd_dkdv
+
+    def record_dq(*args, **kwargs):
+        calls.append(("dq", args[5] is None and kwargs.get("out") is not None))
+        result = fused_dq(*args, **kwargs)
+        calls.append(("delta", result[1]))
+        return result
+
+    def record_dkdv(*args, **kwargs):
+        calls.append(("dkdv", args[5]))
+        return dkdv(*args, **kwargs)
+
+    monkeypatch.setattr(A, "flash_bwd_dq", record_dq)
+    monkeypatch.setattr(A, "flash_bwd_dkdv", record_dkdv)
+    q, k, v, _, mask, causal, _, _ = _bwd_inputs("pad_all_masked_row")
+    q.requires_grad_()
+    A.flash_attention(q, k, v, mask, causal).sum().backward()
+    assert [c[0] for c in calls] == ["dq", "delta", "dkdv"]
+    assert calls[0][1] and calls[2][1] is calls[1][1]
+
+
 def test_mha_on_cpu_never_launches_a_kernel():
     q, k, v, keep = _inputs(2, 128, 128, 2, 2, 64, "pad")
     qt, kt, vt = (torch.tensor(x) for x in (q, k, v))
@@ -214,12 +293,15 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
     mask[1, 100:] = 0
     out, lse = A.flash_fwd(q, k, v, mask, False)
     p_out, p_lse = A._plain_fwd(q, k, v, mask, False)
+    p_out = p_out.contiguous()
     delta = A._row_delta(do, p_out)
     dk, dv = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, False)
     p_dk, p_dv = A._plain_bwd_dkdv(q, k, v, do, p_lse, delta, mask, False)
     dq = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, False)
     p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, mask, False)
+    dq_f, delta_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, False, out=p_out)
     torch.cuda.synchronize()
-    for a, b in ((out, p_out), (lse, p_lse), (dk, p_dk), (dv, p_dv), (dq, p_dq)):
+    for a, b in ((out, p_out), (lse, p_lse), (dk, p_dk), (dv, p_dv), (dq, p_dq),
+                 (dq_f, p_dq), (delta_f, delta)):
         assert float((a - b).abs().max()) < FWD_TOL
 
