@@ -9,12 +9,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 3. kernels — each flash-attention kernel against its plain PyTorch version
              (bf16, bf16 with fp32 gradients, and fp32; the BERT-base
              training shape with a padding mask that fully masks some rows,
-             a causal GQA shape, and causal padded shapes at S=256 with
-             fully padded rows), dQ also in the mode that computes delta
+             a causal GQA shape, causal padded shapes at S=256 with fully
+             padded rows, and the Llama-3-8B training shape: causal, GQA
+             32:8, D=128, S=2048), dQ also in the mode that computes delta
              from the forward's output, each error beside its tolerance;
              each kernel's registers, local memory, shared memory and
              resident blocks per SM (failing if a D=64 tensor-core kernel
-             spills); kernel, plain and scaled_dot_product_attention times
+             spills; bf16 D=128 local memory printed); kernel, plain and
+             scaled_dot_product_attention times at both main paths' shapes
              (SDPA's forward, backward and both are yardsticks, never used
              by the port).
 4. slice   — the BERT-base (12 x 768, vocab 30522) ASHA + median-stopping
@@ -25,8 +27,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              same weights on the CPU path, the per-step time alone, and a
              torch.profiler breakdown of five more steps (with each flash
              kernel's device time per launch).
+5. slice_llama — the Llama-3-8B LoRA sweep (32 x 4096, vocab 128256,
+             32/8 heads, remat) through experiment.lagom: ASHA over
+             (lora_rank, lora_alpha, lr) on two thread runners, each trial
+             building the full model, only the adapters trained, batches of
+             2 x 2048 tokens, the vocab-chunked loss. Launch counters are
+             zeroed just before and read just after: the forward kernel
+             runs twice per layer and step (remat), the backward kernels
+             once. Then a 2-layer full-width model on the card against the
+             CPU path (hidden states, loss, layer-0 adapter gradients), the
+             chunked loss's time, the step time alone, a torch.profiler
+             breakdown of three steps, and the phase's peak memory.
 
-Then the {"kernels": [...]} summary line, the nvidia-smi line, and the last
+Then the {"kernels": [...]} summary line (one entry per kernel and main
+path, each with that path's launches and times at its shape), the
+nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
 JAX or maggy_tpu.
 """
@@ -34,6 +49,8 @@ JAX or maggy_tpu.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -61,6 +78,12 @@ REPLACES = {"flash_fwd": "maggy_tpu/ops/attention.py:226",
 BERT_B, BERT_S = 32, 128
 STEPS_PER_BUDGET = 4
 REPORT_EVERY = 2
+# Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5).
+LLAMA_B, LLAMA_S = 2, 2048
+LLAMA_STEPS_PER_BUDGET = 2
+#: (batch, Sq, Sk, heads, kv heads, head dim) of each main path's attention.
+MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
+               "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
 
 
 def emit(phase, **fields):
@@ -156,11 +179,12 @@ def phase_kernels():
 
     # causal_pad_*: causal with padding and fully padded batch rows at
     # S=256, where the row's mean of V spans the unskipped 128-key tiles.
-    cases = [("bert_base", (BERT_B, BERT_S, BERT_S, 12, 12, 64), False, True),
+    cases = [("bert_base", MAIN_SHAPES["bert_base"], False, True),
              ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False),
              ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
-             ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True)]
-    results, main = [], {}
+             ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
+             ("llama3_8b", MAIN_SHAPES["llama3_8b"], True, False)]
+    results, main = [], {path: {} for path in MAIN_SHAPES}
     for label, shape, causal, padded in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do, mask = make_inputs(*shape, dtype, padded, seed=1)
@@ -200,8 +224,8 @@ def phase_kernels():
                     emit("kernels", checks=results)
                     raise AssertionError("{} disagrees with its plain version on {} {}: "
                                          "{} > {}".format(name, label + variant, dtype, err, tol))
-                if label == "bert_base" and not variant and dtype == torch.bfloat16:
-                    main[name] = {"max_abs_err": err}
+                if label in main and not variant and dtype == torch.bfloat16:
+                    main[label][name] = {"max_abs_err": err}
     A.reset_launch_counts()
 
     # What each kernel takes on the card, per head dim and type (and, for
@@ -216,35 +240,64 @@ def phase_kernels():
     if spilling:
         emit("kernels", checks=results, resources=resources)
         raise AssertionError("tensor-core kernels use local memory at D=64: {}".format(spilling))
+    # The Llama path's head dim: local memory is reported, not gated.
+    d128 = {"{}{}".format(r["kernel"], "/grad_fp32" if r["grad_fp32"] else ""):
+            {key: r[key] for key in ("registers", "local_bytes", "blocks_per_sm")}
+            for r in resources if r["D"] == 128 and r["dtype"] == str(torch.bfloat16)}
 
-    # Times at the main path's shape and type: BERT-base, bf16, padded.
-    B, S, H, D = BERT_B, BERT_S, 12, 64
+    # Times at each main path's shape and type (bf16): BERT-base padded,
+    # Llama-3-8B causal GQA.
+    timed, yardsticks = {}, {}
+    for path in MAIN_SHAPES:
+        timed[path], yardsticks[path] = time_kernels(path, main[path])
+    A.reset_launch_counts()
+    llama = MAIN_SHAPES["llama3_8b"]
+    emit("kernels", checks=results, resources=resources, bf16_d128_resources=d128,
+         shape_main=[BERT_B, BERT_S, 12, 64], dtype=str(torch.bfloat16),
+         timed=timed["bert_base"], **yardsticks["bert_base"],
+         llama3_8b={"shape": [llama[0], llama[1], llama[3], llama[4], llama[5]],
+                    "causal": True, "timed": timed["llama3_8b"], **yardsticks["llama3_8b"]})
+    return main
+
+
+def time_kernels(path, main):
+    """Times of the three kernels at ``path``'s shape in bf16, written into
+    ``main`` beside each one's bound, plain-version time and library time;
+    returns (``main`` with the fused dQ's time, yardsticks). BERT-base is
+    key-padded and not causal; Llama-3-8B causal, unpadded, GQA 32:8."""
+    from maggy_tpu_torch.ops import attention as A
+
+    B, S, _, H, Hkv, D = MAIN_SHAPES[path]
+    causal = path == "llama3_8b"
     dtype = torch.bfloat16
-    q, k, v, do, mask = make_inputs(B, S, S, H, H, D, dtype, True, seed=2)
-    out, lse = A.flash_fwd(q, k, v, mask, False)
+    q, k, v, do, mask = make_inputs(B, S, S, H, Hkv, D, dtype, not causal, seed=2)
+    out, lse = A.flash_fwd(q, k, v, mask, causal)
     delta = A._row_delta(do, out)
-    bool_mask = mask.bool()[:, None, None, :]
-    n_live = live_entries(B, S, S, H, False, mask)
-    elem = q.element_size()
-    t_io = q.numel() * elem  # one [B,S,H,D] tensor
+    n_live = live_entries(B, S, S, H, causal, mask)
+    t_q = q.numel() * q.element_size()  # q, o, dO, dQ
+    t_kv = k.numel() * k.element_size()  # k, v, dK, dV
     stat = B * H * S * 4
-    mask_b = mask.numel() * 4
+    mask_b = 0 if mask is None else mask.numel() * 4
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if causal:
+        sdpa_kw = dict(is_causal=True, enable_gqa=True)
+    else:
+        sdpa_kw = dict(attn_mask=mask.bool()[:, None, None, :])
     timing = {
         "flash_fwd": dict(
-            ms=lambda: A.flash_fwd(q, k, v, mask, False),
-            plain=lambda: A._plain_fwd(q, k, v, mask, False),
-            library=lambda: sdpa(qt, kt, vt, attn_mask=bool_mask),
-            nbytes=4 * t_io + stat + mask_b, flops=4 * D * n_live),
+            ms=lambda: A.flash_fwd(q, k, v, mask, causal),
+            plain=lambda: A._plain_fwd(q, k, v, mask, causal),
+            library=lambda: sdpa(qt, kt, vt, **sdpa_kw),
+            nbytes=2 * t_q + 2 * t_kv + stat + mask_b, flops=4 * D * n_live),
         "flash_bwd_dkdv": dict(
-            ms=lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, False),
-            plain=lambda: A._plain_bwd_dkdv(q, k, v, do, lse, delta, mask, False),
-            library=None, nbytes=6 * t_io + 2 * stat + mask_b, flops=8 * D * n_live),
+            ms=lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal),
+            plain=lambda: A._plain_bwd_dkdv(q, k, v, do, lse, delta, mask, causal),
+            library=None, nbytes=2 * t_q + 4 * t_kv + 2 * stat + mask_b, flops=8 * D * n_live),
         "flash_bwd_dq": dict(
-            ms=lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, mask, False),
-            plain=lambda: A._plain_bwd_dq(q, k, v, do, lse, delta, mask, False),
-            library=None, nbytes=5 * t_io + 2 * stat + mask_b, flops=6 * D * n_live),
+            ms=lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal),
+            plain=lambda: A._plain_bwd_dq(q, k, v, do, lse, delta, mask, causal),
+            library=None, nbytes=3 * t_q + 2 * t_kv + 2 * stat + mask_b, flops=6 * D * n_live),
     }
     for name, t in timing.items():
         b_ms, b_by = bound(t["nbytes"], t["flops"], dtype)
@@ -252,10 +305,11 @@ def phase_kernels():
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=gpu_time_ms(t["library"]) if t["library"] else None)
     # dQ computing delta as well: O read and delta written on top.
-    f_ms, f_by = bound(6 * t_io + 2 * stat + mask_b, 6 * D * n_live + 2 * D * B * S * H, dtype)
+    f_ms, f_by = bound(4 * t_q + 2 * t_kv + 2 * stat + mask_b,
+                       6 * D * n_live + 2 * D * B * S * H, dtype)
     timed = {n: dict(m) for n, m in main.items()}
     timed["flash_bwd_dq"].update(
-        fused_ms=gpu_time_ms(lambda: A.flash_bwd_dq(q, k, v, do, lse, None, mask, False,
+        fused_ms=gpu_time_ms(lambda: A.flash_bwd_dq(q, k, v, do, lse, None, mask, causal,
                                                     out=out)),
         fused_bound_ms=f_ms, fused_bound_by=f_by)
 
@@ -266,27 +320,23 @@ def phase_kernels():
     dot_ = do.transpose(1, 2)
 
     def sdpa_fwd_bwd():
-        o = sdpa(qg, kg, vg, attn_mask=bool_mask)
+        o = sdpa(qg, kg, vg, **sdpa_kw)
         torch.autograd.grad(o, (qg, kg, vg), dot_)
 
     def kernels_fwd_bwd():
-        o, l_ = A.flash_fwd(q, k, v, mask, False)
+        o, l_ = A.flash_fwd(q, k, v, mask, causal)
         kernels_bwd(o, l_)
 
     def kernels_bwd(o=out, l_=lse):  # what the autograd backward runs
-        _, dl = A.flash_bwd_dq(q, k, v, do, l_, None, mask, False, out=o)
-        A.flash_bwd_dkdv(q, k, v, do, l_, dl, mask, False)
+        _, dl = A.flash_bwd_dq(q, k, v, do, l_, None, mask, causal, out=o)
+        A.flash_bwd_dkdv(q, k, v, do, l_, dl, mask, causal)
 
-    o_kept = sdpa(qg, kg, vg, attn_mask=bool_mask)
+    o_kept = sdpa(qg, kg, vg, **sdpa_kw)
     sdpa_bwd_ms = gpu_time_ms(
         lambda: torch.autograd.grad(o_kept, (qg, kg, vg), dot_, retain_graph=True))
-    A.reset_launch_counts()
-    emit("kernels", checks=results, resources=resources, shape_main=[B, S, H, D],
-         dtype=str(dtype), timed=timed,
-         fwd_bwd_ms=gpu_time_ms(kernels_fwd_bwd, reps=10),
-         sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10),
-         bwd_pair_ms=gpu_time_ms(kernels_bwd), sdpa_bwd_ms=sdpa_bwd_ms)
-    return main
+    return timed, dict(fwd_bwd_ms=gpu_time_ms(kernels_fwd_bwd, reps=10),
+                       sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10),
+                       bwd_pair_ms=gpu_time_ms(kernels_bwd), sdpa_bwd_ms=sdpa_bwd_ms)
 
 
 def make_dataset(vocab, n_batches, seed):
@@ -363,13 +413,7 @@ def phase_slice(exp_dir):
     wall = time.perf_counter() - t0
     launches = A.launch_counts()
 
-    trials = []
-    for run in os.listdir(exp_dir):
-        for entry in os.listdir(os.path.join(exp_dir, run)):
-            path = os.path.join(exp_dir, run, entry, "trial.json")
-            if os.path.exists(path):
-                with open(path) as f:
-                    trials.append(json.load(f))
+    trials = read_trials(exp_dir)
     promoted = sum(1 for t in trials if t["info_dict"].get("sample_type") == "promoted")
     total_steps = sum(steps_taken)
     expected = cfg.num_layers * total_steps
@@ -457,17 +501,228 @@ def step_device_profile(step, steps=5):
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
+def read_trials(exp_dir):
+    trials = []
+    for run in os.listdir(exp_dir):
+        for entry in os.listdir(os.path.join(exp_dir, run)):
+            path = os.path.join(exp_dir, run, entry, "trial.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    trials.append(json.load(f))
+    return trials
+
+
+def bf16_tolerance(ref):
+    """Card (kernels, cuBLAS) against the CPU path (reference attention),
+    both computing in bf16: 5e-2 of the largest CPU value, about a dozen
+    bf16 roundings (2^-8 relative each) of the largest entry, for two
+    layers whose residual stream, products and attention probabilities are
+    rounded to bf16 at different places on the two sides."""
+    return 5e-2 * float(ref.float().abs().max()) + 1e-6
+
+
+def phase_slice_llama(exp_dir):
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.models import Llama, LlamaConfig
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.optimizers import Asha
+    from maggy_tpu_torch.train import Trainer, adamw, only_lora
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = LlamaConfig.llama3_8b()
+    # Token batches over the whole vocabulary, made from a numpy seed.
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, size=(4, LLAMA_B, LLAMA_S)), device="cuda")
+    lock = threading.Lock()
+    steps_taken, step_ms = [], []
+
+    def batch(i):
+        t = tokens[i % tokens.shape[0]]
+        return {"inputs": (t,), "tokens": t}
+
+    def loss_fn(out, b):
+        return chunked_next_token_loss(out[0], out[1], b["tokens"])
+
+    def make_trainer(lora_rank, lora_alpha, lr):
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=int(lora_rank)),
+                                  lora_alpha=float(lora_alpha))
+        return Trainer(Llama(cfg, device="cuda"), only_lora(adamw(lr)), loss_fn,
+                       device="cuda", train_kwargs={"return_hidden": True}).init(seed=0)
+
+    def train_llama(lora_rank, lora_alpha, lr, budget, reporter):
+        trainer = make_trainer(lora_rank, lora_alpha, lr)
+        total = int(budget) * LLAMA_STEPS_PER_BUDGET
+        done = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for i in range(total):
+                loss = trainer.step(batch(i))
+                done += 1
+                reporter.broadcast(-loss, step=i)
+        finally:
+            torch.cuda.synchronize()
+            with lock:
+                steps_taken.append(done)
+                step_ms.append((time.perf_counter() - t0) * 1e3 / max(done, 1))
+        final = float(loss)
+        if not math.isfinite(final):
+            raise FloatingPointError("non-finite loss {}".format(final))
+        return {"metric": -final}
+
+    # The search space of examples/llama_lora_sweep.py.
+    sp = Searchspace(lora_rank=("DISCRETE", [4, 8, 16]), lora_alpha=("DOUBLE", [4.0, 32.0]),
+                     lr=("DOUBLE", [1e-4, 3e-3]))
+    config = OptimizationConfig(
+        name="llama3_8b_lora_asha_smoke", num_trials=3,
+        optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=3, seed=0),
+        searchspace=sp, direction="max", num_workers=2, es_policy="none",
+        hb_interval=0.1, seed=0, experiment_dir=exp_dir)
+
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = experiment.lagom(train_llama, config)
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    peak_sweep = torch.cuda.max_memory_allocated()
+
+    trials = read_trials(exp_dir)
+    promoted = sum(1 for t in trials if t["info_dict"].get("sample_type") == "promoted")
+    finished = [t for t in trials if t["final_metric"] is not None
+                and math.isfinite(t["final_metric"])]
+    total_steps = sum(steps_taken)
+    layers = base.num_layers
+    expected = {"flash_fwd": 2 * layers * total_steps, "flash_bwd_dkdv": layers * total_steps,
+                "flash_bwd_dq": layers * total_steps}
+    if not (len(trials) == len(finished) == result["num_trials"] == 4 and promoted == 1
+            and total_steps == 12 and math.isfinite(result["best_val"])):
+        raise AssertionError("Llama sweep malformed: {} trials ({} finished, {} promoted), "
+                             "{} steps, {}".format(len(trials), len(finished), promoted,
+                                                   total_steps, result))
+    if launches != expected:
+        raise AssertionError("launches {} != {} (remat: the forward twice per layer and "
+                             "step)".format(launches, expected))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # A 2-layer model at full width on the card (kernels) against the same
+    # weights on the CPU (reference attention): hidden states, the chunked
+    # loss and the layer-0 adapters' gradients, with the base frozen in bf16
+    # as in the sweep and lora_b drawn nonzero so every adapter has one.
+    cfg2 = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=16), num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = Llama(cfg2, device="cuda")
+    model.init_weights(gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    only_lora(adamw(1e-4))(model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    small = tokens[0, :1, :128]
+
+    def forward_backward(m, toks):
+        hidden, head = m(toks, return_hidden=True)
+        loss = chunked_next_token_loss(hidden, head, toks)
+        loss.backward()
+        grads = {n: p.grad.float().cpu() for n, p in m.named_parameters()
+                 if n.startswith("layers.0.") and p.grad is not None}
+        return hidden.detach().float().cpu(), loss.item(), grads
+
+    t_cpu = time.perf_counter()
+    c_hidden, c_loss, c_grads = forward_backward(cpu_model, small.cpu())
+    cpu_s = time.perf_counter() - t_cpu
+    g_hidden, g_loss, g_grads = forward_backward(model, small)
+    del model, cpu_model
+    full_width = {"hidden_max_abs_err": float((g_hidden - c_hidden).abs().max()),
+                  "hidden_tol": bf16_tolerance(c_hidden), "loss": g_loss, "cpu_loss": c_loss,
+                  "loss_tol": 1e-2 * abs(c_loss), "cpu_seconds": cpu_s,
+                  "adapter_grads": {n: [float((g_grads[n] - c_grads[n]).abs().max()),
+                                        bf16_tolerance(c_grads[n])] for n in sorted(c_grads)}}
+    bad = [n for n, (err, tol) in full_width["adapter_grads"].items() if not err <= tol]
+    if not (g_hidden.shape == (1, 128, cfg2.hidden_dim) and torch.isfinite(g_hidden).all()
+            and full_width["hidden_max_abs_err"] <= full_width["hidden_tol"]
+            and abs(g_loss - c_loss) <= full_width["loss_tol"] and math.isfinite(g_loss)
+            and len(g_grads) == len(c_grads) == 8 and not bad):
+        emit("slice_llama", full_width=full_width)
+        raise AssertionError("full-width Llama off the CPU path: {}".format(bad or full_width))
+
+    # The chunked loss at the sweep's shape (bf16 hidden, frozen bf16 head):
+    # forward alone, and forward + backward (its gradient products in fp32).
+    g = torch.Generator(device="cuda").manual_seed(4)
+    hid = torch.randn(LLAMA_B, LLAMA_S, base.hidden_dim, device="cuda",
+                      generator=g).to(torch.bfloat16).requires_grad_()
+    head = (0.02 * torch.randn(base.hidden_dim, base.vocab_size, device="cuda",
+                               generator=g)).to(torch.bfloat16)
+
+    def loss_fwd():
+        with torch.no_grad():
+            chunked_next_token_loss(hid, head, tokens[0])
+
+    def loss_fwd_bwd():
+        torch.autograd.grad(chunked_next_token_loss(hid, head, tokens[0]), hid)
+
+    loss_ms = {"fwd": gpu_time_ms(loss_fwd, reps=5), "fwd_bwd": gpu_time_ms(loss_fwd_bwd, reps=5)}
+    # Whether torch.mm(..., out_dtype=float32) has a derivative here (the
+    # chunked loss calls it only where no gradient flows through it).
+    a = torch.ones(16, 16, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    try:
+        torch.mm(a, a.detach(), out_dtype=torch.float32).sum().backward()
+        mm_out_dtype_differentiable = True
+    except RuntimeError:
+        mm_out_dtype_differentiable = False
+    del hid, head, a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Per-step time of one trainer alone on the card, then three profiled
+    # steps.
+    trainer = make_trainer(16, 16.0, 1e-4)
+    for i in range(2):
+        trainer.step(batch(i))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_alone = 3
+    for i in range(n_alone):
+        trainer.step(batch(i))
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t1) * 1e3 / n_alone
+    profile = step_device_profile(lambda i: trainer.step(batch(i)), steps=3)
+
+    emit("slice_llama", trials_finished=len(finished), promoted=promoted,
+         best_hp=result["best_hp"], best_val=result["best_val"], steps=total_steps,
+         launches=launches, expected_launches=expected, sweep_wall_s=wall,
+         step_ms_in_sweep_median=float(np.median(step_ms)), step_ms_alone=alone_ms,
+         step_profile=profile, full_width=full_width, chunked_loss_ms=loss_ms,
+         mm_out_dtype_differentiable=mm_out_dtype_differentiable,
+         peak_mem_sweep_gb=peak_sweep / 1e9,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def fresh_dir(path):
+    os.makedirs(path, exist_ok=True)
+    for run in os.listdir(path):
+        shutil.rmtree(os.path.join(path, run), ignore_errors=True)
+    return path
+
+
 def main():
     smi = phase_device()
     phase_build()
     main_times = phase_kernels()
-    exp_dir = os.path.join(ROOT, "build", "chip_smoke_experiments")
-    os.makedirs(exp_dir, exist_ok=True)
-    for run in os.listdir(exp_dir):
-        shutil.rmtree(os.path.join(exp_dir, run), ignore_errors=True)
-    launches = phase_slice(exp_dir)
+    launches = {
+        "bert_base": phase_slice(fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments"))),
+        "llama3_8b": phase_slice_llama(
+            fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama")))}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "launches": launches[name], **main_times[name]} for name in REPLACES]
+                "path": path, "launches": launches[path][name], **main_times[path][name]}
+               for path in MAIN_SHAPES for name in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -44,10 +44,14 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4):
-    """An optimizer factory: ``params -> (torch.optim.AdamW, LambdaLR)``."""
+    """An optimizer factory: ``params -> (torch.optim.AdamW, LambdaLR)``,
+    where ``params`` is a module (all its parameters) or an iterable of
+    parameters."""
     schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
 
     def build(params):
+        if isinstance(params, torch.nn.Module):
+            params = params.parameters()
         opt = torch.optim.AdamW(params, lr=1.0, betas=(b1, b2), eps=eps,
                                 weight_decay=weight_decay)
         return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)

@@ -21,14 +21,17 @@ def cross_entropy_loss(logits, labels):
 
 
 class Trainer:
-    """``Trainer(model, optimizer, loss_fn, device)``: ``optimizer`` is a
-    factory ``params -> (optimizer, lr_scheduler)`` such as
-    ``train.optim.adamw(...)``; ``loss_fn(outputs, batch)`` returns a scalar.
-    The model is called as ``model(*batch["inputs"])`` (dropout off, as the
-    JAX Trainer calls its model without ``train``)."""
+    """``Trainer(model, optimizer, loss_fn, device, train_kwargs)``:
+    ``optimizer`` is a factory ``model -> (optimizer, lr_scheduler)`` such
+    as ``train.optim.adamw(...)`` (every parameter) or
+    ``train.lora.only_lora(adamw(...))`` (the adapters alone);
+    ``loss_fn(outputs, batch)`` returns a scalar, where ``outputs`` is what
+    the model returns (a tuple such as ``(hidden, head)`` included). The
+    model is called as ``model(*batch["inputs"], **train_kwargs)`` (dropout
+    off, as the JAX Trainer calls its model without ``train``)."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Callable, loss_fn: Callable,
-                 device="cuda"):
+                 device="cuda", train_kwargs: Optional[Dict[str, Any]] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; pass "
@@ -36,6 +39,7 @@ class Trainer:
         self.model = model.to(self.device)
         self.optimizer_factory = optimizer
         self.loss_fn = loss_fn
+        self.train_kwargs = dict(train_kwargs or {})
         self.optimizer = None
         self.scheduler = None
 
@@ -50,7 +54,7 @@ class Trainer:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0 if seed is None else int(seed))
             self.model.init_weights(gen)
-        self.optimizer, self.scheduler = self.optimizer_factory(self.model.parameters())
+        self.optimizer, self.scheduler = self.optimizer_factory(self.model)
         return self
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -65,7 +69,7 @@ class Trainer:
 
     def step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One optimizer step; returns the loss (lazy 0-d tensor)."""
-        loss = self.loss_fn(self.model(*batch["inputs"]), batch)
+        loss = self.loss_fn(self.model(*batch["inputs"], **self.train_kwargs), batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()

@@ -26,6 +26,9 @@ GRAD_TOL = 1e-3
 CASES = {
     "pad_all_masked_row": (2, 128, 128, 2, 2, 64, False, "pad"),
     "causal_gqa_d128": (1, 128, 128, 4, 2, 128, True, None),
+    # The Llama path's mode (causal, unpadded, GQA, D=128) across three
+    # 128-key skip tiles.
+    "causal_gqa_d128_s384": (1, 384, 384, 4, 2, 128, True, None),
     "causal_sq_ne_sk": (1, 128, 256, 2, 2, 64, True, None),
     "gqa_pad_s256": (2, 256, 256, 4, 2, 64, False, "pad"),
 }
