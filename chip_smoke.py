@@ -27,7 +27,19 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              same weights on the CPU path, the per-step time alone, and a
              torch.profiler breakdown of five more steps (with each flash
              kernel's device time per launch).
-5. slice_llama — the Llama-3-8B LoRA sweep (32 x 4096, vocab 128256,
+5. slice_bo — the BERT-base sweep of examples/bert_glue_hpo.py (lr,
+             warmup_frac, batch 32 or 64; median stopping) through
+             experiment.lagom on two thread runners, three times: TPE,
+             GP + Hyperband (BOHB-shaped, 13 trials) with the driver's
+             prefetching suggester, and the same GP sweep with prefetch off.
+             Each sweep must finish its controller's trial count with a
+             model-proposed trial, no suggest() on the RPC server's thread,
+             and launch counters (zeroed before each sweep) at 12 x steps;
+             the prefetched GP sweep must have prefetch hits. Prints suggest
+             latencies by source, hand-off gaps by runner, invalidations,
+             lock fallbacks, step times beside the ASHA sweep's, wall times
+             and the best values.
+6. slice_llama — the Llama-3-8B LoRA sweep (32 x 4096, vocab 128256,
              32/8 heads, remat) through experiment.lagom: ASHA over
              (lora_rank, lora_alpha, lr) on two thread runners, each trial
              building the full model, only the adapters trained, batches of
@@ -81,8 +93,17 @@ REPORT_EVERY = 2
 # Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5).
 LLAMA_B, LLAMA_S = 2, 2048
 LLAMA_STEPS_PER_BUDGET = 2
-#: (batch, Sq, Sk, heads, kv heads, head dim) of each main path's attention.
+# The Bayesian-optimization sweeps of examples/bert_glue_hpo.py. Cuts: TPE
+# runs 14 trials of 16 steps (the example: 8 trials; TPE fits its KDEs only
+# from 2(d+1) = 8 finalized trials, and a suggestion prefetched while two
+# trials run sees about k - 3 of its k predecessors finalized, so only the
+# 12th and later can be model proposals); GP + Hyperband runs 4 steps per
+# budget unit; a heartbeat every 4 steps.
+BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 16, 4, 4
+#: (batch, Sq, Sk, heads, kv heads, head dim) of each main path's attention;
+#: the BO sweeps add batch 64 (their search space is batch in {32, 64}).
 MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
+               "bert_base_bo": (64, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
 
 
@@ -180,6 +201,7 @@ def phase_kernels():
     # causal_pad_*: causal with padding and fully padded batch rows at
     # S=256, where the row's mean of V spans the unskipped 128-key tiles.
     cases = [("bert_base", MAIN_SHAPES["bert_base"], False, True),
+             ("bert_base_bo", MAIN_SHAPES["bert_base_bo"], False, True),
              ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False),
              ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
              ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
@@ -255,6 +277,8 @@ def phase_kernels():
     emit("kernels", checks=results, resources=resources, bf16_d128_resources=d128,
          shape_main=[BERT_B, BERT_S, 12, 64], dtype=str(torch.bfloat16),
          timed=timed["bert_base"], **yardsticks["bert_base"],
+         bert_base_bo={"shape": [64, BERT_S, 12, 64], "timed": timed["bert_base_bo"],
+                       **yardsticks["bert_base_bo"]},
          llama3_8b={"shape": [llama[0], llama[1], llama[3], llama[4], llama[5]],
                     "causal": True, "timed": timed["llama3_8b"], **yardsticks["llama3_8b"]})
     return main
@@ -459,9 +483,152 @@ def phase_slice(exp_dir):
          best_val=result["best_val"], steps=total_steps, launches=launches,
          expected_launches_each=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)),
-         step_ms_alone=alone_ms, step_profile=profile, logits_max_abs_err=logit_err,
+         step_ms_alone=alone_ms, step_profile=profile,
+         pipeline=pipeline_summary(result["pipeline"]), logits_max_abs_err=logit_err,
          logits_tol=logit_tol, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return launches, float(np.median(step_ms))
+
+
+def percentiles(values):
+    """p50 and max of a list of ms (None for an empty list)."""
+    if not values:
+        return None
+    return {"n": len(values), "p50": float(np.median(values)), "max": float(max(values))}
+
+
+def pipeline_summary(pipe):
+    """The driver's hand-off counters of one sweep (result.json's
+    "pipeline"), with latencies reduced to p50 and max."""
+    return {"prefetch": pipe["prefetch"],
+            "suggest_ms": {src: percentiles(v) for src, v in pipe["suggest_ms"].items()},
+            "suggest_threads": pipe["suggest_threads"],
+            "handoff_ms": {pid: percentiles(v) for pid, v in sorted(pipe["handoff_ms"].items())},
+            "prefetch_hits": pipe["prefetch_hits"], "prefetch_misses": pipe["prefetch_misses"],
+            "invalidated": pipe["invalidated"], "lock_fallbacks": pipe["lock_fallbacks"]}
+
+
+def phase_slice_bo(exp_root, asha_step_ms):
+    """The BERT-base sweep of examples/bert_glue_hpo.py under TPE, then
+    GP + Hyperband with prefetch on and off: same model, data and trainer
+    as phase_slice."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.models import BertConfig, BertEncoder
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.optimizers.bayes import GP, TPE
+    from maggy_tpu_torch.train import (Trainer, adamw, cross_entropy_loss,
+                                       warmup_cosine_decay_schedule)
+
+    t_phase = time.perf_counter()
+    cfg = BertConfig.base()
+    tokens, mask, labels = make_dataset(cfg.vocab_size, 16, seed=0)
+    n_rows = tokens.shape[0]
+    lock = threading.Lock()
+    steps_taken, step_ms = [], {32: [], 64: []}
+
+    def make_batch(i, size):
+        lo = (i * size) % (n_rows - size + 1)
+        return {"inputs": (tokens[lo:lo + size], mask[lo:lo + size]),
+                "labels": labels[lo:lo + size]}
+
+    def loss_fn(logits, b):
+        return cross_entropy_loss(logits, b["labels"])
+
+    def train_bert(lr, warmup_frac, batch, reporter, budget=None):
+        size = int(batch)
+        total = BO_TPE_STEPS if budget is None else int(budget) * BO_STEPS_PER_BUDGET
+        sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
+        trainer = Trainer(BertEncoder(cfg, device="cuda"), adamw(sched), loss_fn,
+                          device="cuda").init(seed=0)
+        done = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for i in range(total):
+                loss = trainer.step(make_batch(i, size))
+                done += 1
+                if i % BO_REPORT_EVERY == BO_REPORT_EVERY - 1 or i == total - 1:
+                    reporter.broadcast(-loss, step=i)
+        finally:
+            torch.cuda.synchronize()
+            with lock:
+                steps_taken.append(done)
+                step_ms[size].append((time.perf_counter() - t0) * 1e3 / max(done, 1))
+        final = float(loss)
+        if not math.isfinite(final):
+            raise FloatingPointError("non-finite loss {}".format(final))
+        return {"metric": -final}
+
+    def gp():
+        return GP(acquisition="ei", async_strategy="impute", impute_strategy="cl_min",
+                  num_warmup_trials=4, seed=0, pruner="hyperband",
+                  pruner_kwargs=dict(min_budget=1, max_budget=9, eta=3, n_iterations=1))
+
+    # The search space and settings of examples/bert_glue_hpo.py.
+    sp = Searchspace(lr=("DOUBLE", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]),
+                     batch=("DISCRETE", [32, 64]))
+    sweeps = [("tpe", TPE(num_warmup_trials=4, seed=0), BO_TPE_TRIALS, True, BO_TPE_TRIALS),
+              ("gp_hyperband", gp(), 1, True, 13),
+              ("gp_hyperband_no_prefetch", gp(), 1, False, 13)]
+    out, launches_all = {}, {}
+    for name, optimizer, num_trials, prefetch, expected_trials in sweeps:
+        exp_dir = fresh_dir(os.path.join(exp_root, name))
+        config = OptimizationConfig(
+            name="bert_base_" + name, num_trials=num_trials, optimizer=optimizer,
+            searchspace=sp, direction="max", num_workers=2, es_policy="median", es_min=3,
+            hb_interval=0.1, seed=0, experiment_dir=exp_dir, prefetch=prefetch)
+        del steps_taken[:]
+        for v in step_ms.values():
+            del v[:]
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = experiment.lagom(train_bert, config)
+        wall = time.perf_counter() - t0
+        launches = A.launch_counts()
+        trials = read_trials(exp_dir)
+        pipe = result["pipeline"]
+        types = [t["info_dict"]["sample_type"] for t in trials]
+        total_steps = sum(steps_taken)
+        expected = cfg.num_layers * total_steps
+        summary = {
+            "trials_finished": len(trials), "expected_trials": expected_trials,
+            "sample_types": {k: types.count(k) for k in sorted(set(types))},
+            "budgets": sorted(t["params"].get("budget", 0) for t in trials),
+            "early_stopped": result["early_stopped"], "best_hp": result["best_hp"],
+            "best_val": result["best_val"], "steps": total_steps, "launches": launches,
+            "expected_launches_each": expected, "sweep_wall_s": wall,
+            "step_ms_median": float(np.median(step_ms[32] + step_ms[64])),
+            "step_ms_median_by_batch": {b: float(np.median(v)) for b, v in step_ms.items() if v},
+            **pipeline_summary(pipe)}
+        emit("slice_bo_sweep", sweep=name, controller=type(optimizer).__name__, **summary)
+        problems = []
+        if not (len(trials) == result["num_trials"] == expected_trials
+                and all(t["status"] == "FINALIZED" for t in trials)
+                and math.isfinite(result["best_val"])):
+            problems.append("{} of {} trials finalized".format(len(trials), expected_trials))
+        if "model" not in types:
+            problems.append("no model-proposed trial")
+        if "rpc-server" in pipe["suggest_threads"]:
+            problems.append("suggest() ran on the RPC server's thread")
+        if prefetch and name.startswith("gp") and pipe["prefetch_hits"] == 0:
+            problems.append("no prefetch hit")
+        if any(n != expected for n in launches.values()) or expected == 0:
+            problems.append("launches {} != {} layers x {} steps".format(
+                launches, cfg.num_layers, total_steps))
+        if problems:
+            raise AssertionError("slice_bo {}: {}".format(name, "; ".join(problems)))
+        out[name] = summary
+        for k, n in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + n
+
+    emit("slice_bo", sweeps=list(out), launches=launches_all,
+         step_ms_median={"asha": asha_step_ms,
+                         **{name: v["step_ms_median"] for name, v in out.items()}},
+         handoff_ms={name: v["handoff_ms"] for name, v in out.items()},
+         suggest_ms={name: v["suggest_ms"] for name, v in out.items()},
+         sweep_wall_s={name: v["sweep_wall_s"] for name, v in out.items()},
+         best_val={name: v["best_val"] for name, v in out.items()},
+         phase_s=time.perf_counter() - t_phase)
+    return launches_all
 
 
 def step_device_profile(step, steps=5):
@@ -697,7 +864,8 @@ def phase_slice_llama(exp_dir):
          best_hp=result["best_hp"], best_val=result["best_val"], steps=total_steps,
          launches=launches, expected_launches=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)), step_ms_alone=alone_ms,
-         step_profile=profile, full_width=full_width, chunked_loss_ms=loss_ms,
+         step_profile=profile, pipeline=pipeline_summary(result["pipeline"]),
+         full_width=full_width, chunked_loss_ms=loss_ms,
          mm_out_dtype_differentiable=mm_out_dtype_differentiable,
          peak_mem_sweep_gb=peak_sweep / 1e9,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -716,8 +884,12 @@ def main():
     smi = phase_device()
     phase_build()
     main_times = phase_kernels()
+    bert_launches, asha_step_ms = phase_slice(
+        fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments")))
     launches = {
-        "bert_base": phase_slice(fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments"))),
+        "bert_base": bert_launches,
+        "bert_base_bo": phase_slice_bo(os.path.join(ROOT, "build", "chip_smoke_experiments_bo"),
+                                       asha_step_ms),
         "llama3_8b": phase_slice_llama(
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama")))}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],

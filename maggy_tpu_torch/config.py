@@ -29,10 +29,13 @@ class OptimizationConfig(LagomConfig):
     """Hyperparameter-optimization experiment (reference
     `experiment_config.py:25-50`).
 
-    ``optimizer`` is a registry name ("randomsearch", "asha") or an
-    AbstractOptimizer instance. ``num_workers`` is the number of concurrent
-    thread runners, or "auto" for one per CUDA device; the driver clamps it
-    to ``num_trials``."""
+    ``optimizer`` is a registry name ("randomsearch", "asha", "gridsearch",
+    "tpe", "gp", "none") or an AbstractOptimizer instance. ``num_workers``
+    is the number of concurrent thread runners, or "auto" for one per CUDA
+    device; the driver clamps it to ``num_trials``. ``prefetch`` pipelines
+    the trial hand-off: a suggester thread materializes the next
+    suggestions while runners train, and a FINAL's reply carries the
+    runner's next trial (``maggy_tpu/config.py:194``)."""
 
     num_trials: int = 1
     optimizer: Union[str, Any] = "randomsearch"
@@ -44,6 +47,7 @@ class OptimizationConfig(LagomConfig):
     es_policy: Union[str, Any] = constants.DEFAULT_ES_POLICY
     num_workers: Union[int, str] = 1
     seed: Optional[int] = None
+    prefetch: bool = True
     # Experiment artifact root; defaults to the environment's base dir.
     experiment_dir: Optional[str] = None
 

@@ -3,9 +3,10 @@
 The subset of ``maggy_tpu/core/rpc.py`` a single-process thread-runner sweep
 needs: the framed transport, the `Reservations` registry, the select-loop
 `Server`, the HPO `OptimizationServer` (verbs REG, GET, METRIC, FINAL, LOG,
-with the next assignment piggybacked on the FINAL reply) and the runner
-`Client`. Parity: reference `maggy/core/rpc.py` (:35-113, :116-162,
-:250-286, :295-437, :440-593).
+with the next assignment piggybacked on the FINAL reply when the driver's
+fast path processes the FINAL on this thread) and the runner `Client`.
+Parity: reference `maggy/core/rpc.py` (:35-113, :116-162, :250-286,
+:295-437, :440-593).
 
 Wire layout as in the JAX package: 4-byte big-endian length, 32-byte
 HMAC-SHA256 of the payload under the experiment secret, payload. The payload
@@ -115,6 +116,11 @@ class Reservations:
             rec = self._table.get(int(partition_id))
             if rec is not None:
                 rec["released"] = True
+
+    def live_count(self) -> int:
+        """Registered, unreleased partitions: the prefetch queue's bound."""
+        with self.lock:
+            return sum(1 for rec in self._table.values() if not rec.get("released"))
 
     def get_assigned_trial(self, partition_id: int) -> Optional[str]:
         with self.lock:
@@ -246,6 +252,9 @@ class OptimizationServer(Server):
 
     def __init__(self, secret: Optional[str] = None):
         self.driver = None
+        # partition -> when its last FINAL arrived, until its next TRIAL
+        # leaves (the hand-off gap); touched only on the server thread.
+        self._final_at: Dict[int, float] = {}
         super().__init__(secret)
 
     def attach_driver(self, driver) -> None:
@@ -269,18 +278,31 @@ class OptimizationServer(Server):
         return {"type": "OK"}
 
     def _final(self, msg):
-        """Finalize on this thread and reply with the runner's next
-        assignment (TRIAL), its release (GSTOP), or OK (poll with GET)."""
+        """Finalize on this thread when the driver's fast path takes it and
+        reply with the runner's next assignment (TRIAL), its release
+        (GSTOP), or OK; otherwise enqueue the FINAL for the driver's worker
+        thread and reply OK: the runner then GET-polls (JAX `rpc.py:1428-
+        1447`)."""
         pid = msg["partition_id"]
+        self._final_at[pid] = time.monotonic()
         self.reservations.clear_trial_if(pid, msg.get("trial_id"))
-        self.driver.process_final(msg)
+        if not self.driver.process_final_inline(msg):
+            self.driver.enqueue(dict(msg))
+            return {"type": "OK"}
         reply = self._serve_assigned(pid)
         if reply is not None:
+            if reply["type"] == "TRIAL":
+                self.driver.note_prefetch_hit(reply["trial_id"])
             return reply
         if self.driver.experiment_done:
-            self.reservations.mark_released(pid)
+            self._release(pid)
             return {"type": "GSTOP"}
+        self.driver.note_prefetch_miss(msg.get("trial_id"))
         return {"type": "OK"}
+
+    def _release(self, partition_id) -> None:
+        self._final_at.pop(partition_id, None)
+        self.reservations.mark_released(partition_id)
 
     def _serve_assigned(self, partition_id):
         """The TRIAL reply for the partition's assigned trial — shared by GET
@@ -296,6 +318,9 @@ class OptimizationServer(Server):
             trial.start = time.time()
             trial.info_dict["partition"] = partition_id
             info = dict(trial.info_dict)
+        t_final = self._final_at.pop(partition_id, None)
+        if t_final is not None:
+            self.driver.note_handoff(partition_id, (time.monotonic() - t_final) * 1e3)
         return {"type": "TRIAL", "trial_id": trial.trial_id,
                 "params": trial.params, "info": info}
 
@@ -307,7 +332,7 @@ class OptimizationServer(Server):
         if reply is not None:
             return reply
         if self.driver.experiment_done:
-            self.reservations.mark_released(msg["partition_id"])
+            self._release(msg["partition_id"])
             return {"type": "GSTOP"}
         return {"type": "OK", "trial_id": None}
 

@@ -1,7 +1,9 @@
 """ASHA — Asynchronous Successive Halving (arXiv:1810.05934).
 
 Copy of ``maggy_tpu/optimizers/asha.py`` without the vectorized-lane rung
-drain, checkpoint-fork GC and resume restore. Parity: reference
+drain, checkpoint-fork GC and resume restore. ``report`` bumps
+``schedule_version`` and ``recycle`` un-commits a promotion, as the JAX
+controller does for the driver's prefetch pipeline. Parity: reference
 `maggy/optimizer/asha.py` — params and validation (:39-69), rung
 bookkeeping (:71-82), stop at max rung (:89-92), top-down promotion scan
 (:94-147), fresh rung-0 sampling (:149-156). Promotion uses the
@@ -57,12 +59,31 @@ class Asha(AbstractOptimizer):
         return self.resource_min * (self.reduction_factor ** rung)
 
     def report(self, trial: Trial) -> None:
+        """Bookkeep the just-finalized trial into its rung. Bumps
+        ``schedule_version`` when the FINAL changes what suggest() would
+        return next — a survivor reaching the top rung (experiment done) or
+        a promotion becoming available — so the driver invalidates any
+        prefetched rung-0 sample instead of dispatching it ahead of the
+        promotion."""
         if trial.final_metric is None:
             return
         rung = trial.info_dict.get("rung", 0)
         self.rungs.setdefault(rung, []).append(trial.trial_id)
         if rung == self.max_rung:
             self._exhausted = True
+            self.schedule_version += 1
+        elif self._promotable() is not None:
+            self.schedule_version += 1
+
+    def recycle(self, trial: Trial) -> None:
+        """Take back an invalidated prefetched suggestion. A promoted trial
+        un-commits its parent from the promoted ledger, or the parent's next
+        rung would never run. A dropped rung-0 sample needs nothing: the
+        sampling budget counts final_store + trial_store."""
+        parent = trial.info_dict.get("parent")
+        rung = trial.info_dict.get("rung", 0)
+        if parent is not None and rung > 0 and parent in self.promoted.get(rung - 1, []):
+            self.promoted[rung - 1].remove(parent)
 
     def _promotable(self):
         """Top-down scan for a promotable (not-yet-promoted) trial: (rung,
@@ -102,9 +123,3 @@ class Asha(AbstractOptimizer):
         params = self.searchspace.get_random_parameter_values(1, rng=self.rng)[0]
         params["budget"] = self.rung_budget(0)
         return Trial(params, info_dict={"sample_type": "random", "rung": 0})
-
-    def _lookup_params(self, trial_id: str) -> dict:
-        for t in self.final_store:
-            if t.trial_id == trial_id:
-                return dict(t.params)
-        raise KeyError("Unknown trial id {}".format(trial_id))
