@@ -50,24 +50,49 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              CPU path (hidden states, loss, layer-0 adapter gradients), the
              chunked loss's time, the step time alone, a torch.profiler
              breakdown of three steps, and the phase's peak memory.
+7. slice_process — the slice sweep under pool="process": two spawned runner
+             processes, each with its own interpreter and CUDA context. Each
+             trial writes its steps and its process's kernel launches to a
+             file of its own; the launches summed over all runner processes
+             must be 12 x steps for each kernel, over all 13 trials. Prints
+             the in-sweep step median beside slice's (thread runners) and
+             each runner process's peak memory.
+8. slice_mnist — bench.py's headline sweep at its own widths: MnistCNN(3,
+             2, 16 features, 2 classes) on 2048 x 16 x 16 x 1 data from
+             make_data (seed 0), ASHA(3, 1, 9) + median stopping, 3 runners,
+             batch in {128, 256, 512}, 40 steps a budget unit, under
+             pool="thread" and pool="process". First the card's logits for
+             one batch against the CPU's. Prints each sweep's wall time,
+             trial count and in-sweep step median.
+9. slice_recovery — the process sweep of slice_mnist with a loss timeout of
+             3 s, in which the first trial to reach step 20 kills its own
+             runner process (os._exit) and the second freezes its own
+             (SIGSTOP). The sweep must return with two lost runners, every
+             trial finalized once, and both faulted trials re-run to the
+             end in another process. Prints the time from each fault to its
+             requeue.
 
 Then the {"kernels": [...]} summary line (one entry per kernel and main
 path, each with that path's launches and times at its shape), the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
-JAX or maggy_tpu.
+JAX or maggy_tpu. Runner processes are spawned and re-import this file as
+``__mp_main__``: importing it does no CUDA work, and their train functions
+are the module-level ``train_*`` below.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -105,6 +130,19 @@ BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 16, 4, 4
 MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "bert_base_bo": (64, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
+#: Paths that run the kernels at another path's shape: the process-runner
+#: sweep is the slice sweep's.
+SAME_SHAPE = {"bert_base_process": "bert_base"}
+#: Where the runners' trials train (a CPU rehearsal of the sweep phases
+#: sets "cpu"; the script itself only runs on the card).
+DEVICE = "cuda"
+# bench.py's headline: MNIST CNN trials, 40 steps a budget unit, a swept
+# batch size, a heartbeat metric every 2 steps.
+MNIST_STEPS_PER_BUDGET = 40
+MNIST_BATCHES = [128, 256, 512]
+# slice_recovery: the step at which the two faulting trials fault, after
+# FAULT_WAIT_S of heartbeats, and the loss timeout that detects them.
+FAULT_STEP, FAULT_WAIT_S, RECOVERY_LOSS_TIMEOUT_S = 20, 0.5, 3.0
 
 
 def emit(phase, **fields):
@@ -373,81 +411,268 @@ def make_dataset(vocab, n_batches, seed):
     lens = rng.integers(16, BERT_S + 1, size=n)
     mask = np.arange(BERT_S)[None, :] < lens[:, None]
     labels = ((tokens > vocab // 2) & mask).sum(1) * 2 > lens
-    return (torch.as_tensor(tokens, device="cuda"), torch.as_tensor(mask, device="cuda"),
-            torch.as_tensor(labels.astype(np.int64), device="cuda"))
+    return (torch.as_tensor(tokens, device=DEVICE), torch.as_tensor(mask, device=DEVICE),
+            torch.as_tensor(labels.astype(np.int64), device=DEVICE))
 
 
-def phase_slice(exp_dir):
+# ---------------------------------------------- trial functions of the runners
+# Module-level, so a spawned runner process unpickles them by name (its
+# import of this file as __mp_main__ runs only the definitions). Each
+# process builds its data once, from the seed.
+
+_DATA = {}
+_DATA_LOCK = threading.Lock()
+
+
+def cached(key, build):
+    with _DATA_LOCK:
+        if key not in _DATA:
+            _DATA[key] = build()
+        return _DATA[key]
+
+
+def full_fp32():
+    """float32 products in full precision (no TF32) in this process; a
+    spawned runner starts from PyTorch's defaults, where cuDNN may run fp32
+    convolutions in TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def bert_data():
+    """(BERT-base config, batch(i)): the seeded token batches on the card."""
+    from maggy_tpu_torch.models import BertConfig
+
+    def build():
+        cfg = BertConfig.base()
+        tokens, mask, labels = make_dataset(cfg.vocab_size, 16, seed=0)
+        n_batches = tokens.shape[0] // BERT_B
+
+        def batch(i):
+            lo = (i % n_batches) * BERT_B
+            return {"inputs": (tokens[lo:lo + BERT_B], mask[lo:lo + BERT_B]),
+                    "labels": labels[lo:lo + BERT_B]}
+
+        return cfg, batch
+
+    return cached("bert", build)
+
+
+def labels_loss(logits, b):
+    from maggy_tpu_torch.train import cross_entropy_loss
+
+    return cross_entropy_loss(logits, b["labels"])
+
+
+def process_age_s():
+    """Seconds since this process started (Linux: /proc/self/stat's start
+    time against the boot clock)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    return time.clock_gettime(time.CLOCK_BOOTTIME) - start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+class TrialRecord:
+    """Made when a trial function is entered; when the trial ends (early
+    stop and errors included), writes its steps, its step time, its set-up
+    time (model, optimizer, data) and its process's age when it was entered,
+    the kernel launches its process made meanwhile, the process's peak
+    device memory and its pid to a file of its own, ``<out_dir>/<trial
+    id>.<pid>.json``. A process runner runs one trial at a time, so there
+    the launches are the trial's own; thread runners share the process's
+    counters."""
+
+    def __init__(self, out_dir, reporter):
+        self.entered = time.perf_counter()
+        self.process_age_s = process_age_s()
+        self.trial_id = reporter.trial_id
+        self.path = os.path.join(out_dir, "{}.{}.json".format(self.trial_id, os.getpid()))
+        self.steps = 0
+
+    def __enter__(self):
+        from maggy_tpu_torch.ops import attention as A
+
+        torch.cuda.synchronize()
+        self.launches = A.launch_counts()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from maggy_tpu_torch.ops import attention as A
+
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - self.t0) * 1e3
+        record = {"trial_id": self.trial_id, "pid": os.getpid(), "steps": self.steps,
+                  "step_ms": ms / max(self.steps, 1), "step_s": ms / 1e3,
+                  "setup_s": self.t0 - self.entered, "process_age_s": self.process_age_s,
+                  "launches": {k: n - self.launches[k] for k, n in A.launch_counts().items()},
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        with open(self.path + ".tmp", "w") as f:
+            json.dump(record, f)
+        os.replace(self.path + ".tmp", self.path)
+        return False
+
+
+def read_records(out_dir):
+    records = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                records.append(json.load(f))
+    return records
+
+
+def time_split(records):
+    """Where a sweep's runner time went: each runner process's age when its
+    first trial was entered (interpreter, imports, CUDA context, the
+    driver's first assignment), and over all trials the set-up and the
+    stepping seconds."""
+    first = {}
+    for r in records:
+        first[r["pid"]] = min(first.get(r["pid"], r["process_age_s"]), r["process_age_s"])
+    return {"first_trial_at_process_age_s": {str(p): a for p, a in sorted(first.items())},
+            "setup_s": {"total": sum(r["setup_s"] for r in records),
+                        "median": float(np.median([r["setup_s"] for r in records]))},
+            "step_s_total": sum(r["step_s"] for r in records)}
+
+
+def train_bert_asha(lr, warmup_frac, budget, reporter, out_dir):
+    """One trial of the BERT-base ASHA sweep (slice, slice_process)."""
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.train import Trainer, adamw, warmup_cosine_decay_schedule
+
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    cfg, batch = bert_data()
+    total = int(budget) * STEPS_PER_BUDGET
+    sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
+    trainer = Trainer(BertEncoder(cfg, device=DEVICE), adamw(sched), labels_loss,
+                      device=DEVICE).init(seed=0)
+    with record:
+        for i in range(total):
+            loss = trainer.step(batch(i))
+            record.steps += 1
+            if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
+                reporter.broadcast(-loss, step=i)
+    final = float(loss)
+    if not math.isfinite(final):
+        raise FloatingPointError("non-finite loss {}".format(final))
+    return {"metric": -final}
+
+
+def make_data(n=2048, key=0):
+    """bench.py's synthetic headline data: 16 x 16 x 1 images from a
+    seeded normal, label = whether the image's mean is positive."""
+    rng = np.random.default_rng(key)
+    X = rng.normal(size=(n, 16, 16, 1)).astype(np.float32)
+    y = (X.mean(axis=(1, 2, 3)) > 0).astype(np.int32)
+    return X, y
+
+
+def mnist_model(device):
+    from maggy_tpu_torch.models import MnistCNN
+
+    return MnistCNN(kernel_size=3, pool_size=2, features=16, num_classes=2, image_size=16,
+                    device=device)
+
+
+def fault(flag, reporter):
+    """Claim ``flag`` (O_EXCL); the claiming trial lets a few heartbeats
+    go out, then writes its trial id, pid and the time into the flag.
+    True for the claimant."""
+    try:
+        fd = os.open(flag, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        return False
+    time.sleep(FAULT_WAIT_S)
+    os.write(fd, json.dumps({"trial_id": reporter.trial_id, "pid": os.getpid(),
+                             "at": time.time()}).encode())
+    os.close(fd)
+    return True
+
+
+def train_mnist(lr, batch, budget, reporter, out_dir, kill_flag=None, wedge_flag=None):
+    """bench.py's train_mnist on the card: the budget-scaled MNIST CNN
+    trial with adam, a heartbeat every 2 steps. With the flags (slice_
+    recovery), the first trial to reach FAULT_STEP kills its own process
+    and the second freezes its own."""
+    from maggy_tpu_torch.train import ShardedBatchIterator, Trainer, adam
+
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    X, Y = cached("mnist", make_data)
+    trainer = Trainer(mnist_model(DEVICE), adam(lr), labels_loss, device=DEVICE).init(seed=0)
+    steps = max(1, int(MNIST_STEPS_PER_BUDGET * budget))
+    it = iter(ShardedBatchIterator({"x": X, "y": Y}, batch_size=int(batch), epochs=None,
+                                   seed=1, device=DEVICE))
+    with record:
+        for i in range(steps):
+            b = next(it)
+            loss = trainer.step({"inputs": (b["x"],), "labels": b["y"]})
+            record.steps += 1
+            if i % 2 == 0:
+                reporter.broadcast(-loss, step=i)
+            if i == FAULT_STEP and kill_flag is not None:
+                if fault(kill_flag, reporter):
+                    os._exit(42)
+                if fault(wedge_flag, reporter):
+                    os.kill(os.getpid(), signal.SIGSTOP)
+    return {"metric": -float(loss)}
+
+
+# ------------------------------------------------------------------- sweeps
+
+
+def bert_asha_sweep(exp_dir, pool):
+    """The BERT-base ASHA(3, 1, 9) + median sweep on two runners of
+    ``pool``: (result, wall s, records, the driver process's launches)."""
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
-    from maggy_tpu_torch.models import BertConfig, BertEncoder
     from maggy_tpu_torch.ops import attention as A
     from maggy_tpu_torch.optimizers import Asha
-    from maggy_tpu_torch.train import (Trainer, adamw, cross_entropy_loss,
-                                       warmup_cosine_decay_schedule)
 
-    cfg = BertConfig.base()
-    tokens, mask, labels = make_dataset(cfg.vocab_size, 16, seed=0)
-    n_batches = tokens.shape[0] // BERT_B
-    lock = threading.Lock()
-    steps_taken = []
-    step_ms = []
-
-    def batch(i):
-        lo = (i % n_batches) * BERT_B
-        return {"inputs": (tokens[lo:lo + BERT_B], mask[lo:lo + BERT_B]),
-                "labels": labels[lo:lo + BERT_B]}
-
-    def loss_fn(logits, b):
-        return cross_entropy_loss(logits, b["labels"])
-
-    def train_bert(lr, warmup_frac, budget, reporter):
-        total = int(budget) * STEPS_PER_BUDGET
-        sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
-        trainer = Trainer(BertEncoder(cfg, device="cuda"), adamw(sched), loss_fn,
-                          device="cuda").init(seed=0)
-        done = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            for i in range(total):
-                loss = trainer.step(batch(i))
-                done += 1
-                if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
-                    reporter.broadcast(-loss, step=i)
-        finally:
-            torch.cuda.synchronize()
-            with lock:
-                steps_taken.append(done)
-                step_ms.append((time.perf_counter() - t0) * 1e3 / max(done, 1))
-        final = float(loss)
-        if not math.isfinite(final):
-            raise FloatingPointError("non-finite loss {}".format(final))
-        return {"metric": -final}
-
+    out_dir = fresh_dir(os.path.join(exp_dir, "records"))
     sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
     config = OptimizationConfig(
         name="bert_base_asha_smoke", num_trials=9,
         optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=0),
         searchspace=sp, direction="max", num_workers=2, es_policy="median",
-        es_min=3, hb_interval=0.1, seed=0, experiment_dir=exp_dir)
-
+        es_min=3, hb_interval=0.1, seed=0, experiment_dir=fresh_dir(os.path.join(exp_dir, "exp")),
+        pool=pool)
     A.reset_launch_counts()
     t0 = time.perf_counter()
-    result = experiment.lagom(train_bert, config)
+    result = experiment.lagom(functools.partial(train_bert_asha, out_dir=out_dir), config)
     wall = time.perf_counter() - t0
-    launches = A.launch_counts()
+    return result, wall, read_records(out_dir), A.launch_counts()
 
-    trials = read_trials(exp_dir)
+
+def check_bert_sweep(name, result, exp_dir, records, launches):
+    """13 trials (promoted ones among them) each with its record, a finite
+    best value, and launches at 12 x steps for each kernel."""
+    cfg, _ = bert_data()
+    trials = read_trials(os.path.join(exp_dir, "exp"))
     promoted = sum(1 for t in trials if t["info_dict"].get("sample_type") == "promoted")
-    total_steps = sum(steps_taken)
+    total_steps = sum(r["steps"] for r in records)
     expected = cfg.num_layers * total_steps
-    if not (len(trials) == result["num_trials"] > 0 and promoted > 0
+    if not (len(trials) == result["num_trials"] == len(records) == 13 and promoted > 0
+            and all(t["status"] == "FINALIZED" for t in trials)
             and math.isfinite(result["best_val"])):
-        raise AssertionError("sweep result malformed: {} trials, {} promoted, {}".format(
-            len(trials), promoted, result))
+        raise AssertionError("{} sweep malformed: {} trials, {} records, {} promoted, "
+                             "{}".format(name, len(trials), len(records), promoted, result))
     if any(n != expected for n in launches.values()) or expected == 0:
-        raise AssertionError("launches {} != {} layers x {} steps".format(
-            launches, cfg.num_layers, total_steps))
+        raise AssertionError("{} launches {} != {} layers x {} steps".format(
+            name, launches, cfg.num_layers, total_steps))
+    return trials, promoted, total_steps, expected
+
+
+def phase_slice(exp_dir):
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.train import Trainer, adamw
+
+    cfg, batch = bert_data()
+    result, wall, records, launches = bert_asha_sweep(exp_dir, "thread")
+    trials, promoted, total_steps, expected = check_bert_sweep(
+        "slice", result, exp_dir, records, launches)
+    step_ms = [r["step_ms"] for r in records]
 
     # The swept model against the same weights on the CPU (reference
     # attention, no kernel), on a small input.
@@ -466,7 +691,7 @@ def phase_slice(exp_dir):
             logit_err, logit_tol))
 
     # Per-step time of one trainer alone on the card.
-    trainer = Trainer(model, adamw(1e-4), loss_fn, device="cuda").init(seed=0)
+    trainer = Trainer(model, adamw(1e-4), labels_loss, device="cuda").init(seed=0)
     for i in range(3):
         trainer.step(batch(i))
     torch.cuda.synchronize()
@@ -483,10 +708,41 @@ def phase_slice(exp_dir):
          best_val=result["best_val"], steps=total_steps, launches=launches,
          expected_launches_each=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)),
-         step_ms_alone=alone_ms, step_profile=profile,
+         step_ms_alone=alone_ms, step_profile=profile, time_split=time_split(records),
          pipeline=pipeline_summary(result["pipeline"]), logits_max_abs_err=logit_err,
          logits_tol=logit_tol, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches, float(np.median(step_ms))
+
+
+def phase_slice_process(exp_dir, thread_step_ms):
+    """The slice sweep on two runner processes: launches summed over the
+    processes' trial records."""
+    from maggy_tpu_torch.ops import attention as A
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    result, wall, records, driver_launches = bert_asha_sweep(exp_dir, "process")
+    launches = {k: sum(r["launches"][k] for r in records) for k in A.launch_counts()}
+    if any(driver_launches.values()):
+        raise AssertionError("the driver process launched kernels in a process sweep: "
+                             "{}".format(driver_launches))
+    trials, promoted, total_steps, expected = check_bert_sweep(
+        "slice_process", result, exp_dir, records, launches)
+    pids = sorted({r["pid"] for r in records})
+    if os.getpid() in pids:
+        raise AssertionError("trials ran in the driver process {}, not only in runner "
+                             "processes {}".format(os.getpid(), pids))
+    step_ms = float(np.median([r["step_ms"] for r in records]))
+    emit("slice_process", trials_finished=len(trials), promoted=promoted,
+         early_stopped=result["early_stopped"], best_val=result["best_val"],
+         steps=total_steps, launches=launches, expected_launches_each=expected,
+         sweep_wall_s=wall, step_ms_in_sweep_median=step_ms,
+         thread_step_ms_in_sweep_median=thread_step_ms,
+         runner_peak_mem_gb={str(pid): max(r["peak_mem_gb"] for r in records if r["pid"] == pid)
+                             for pid in pids},
+         time_split=time_split(records), lost_runners=result["lost_runners"],
+         pipeline=pipeline_summary(result["pipeline"]))
+    return launches
 
 
 def percentiles(values):
@@ -873,10 +1129,140 @@ def phase_slice_llama(exp_dir):
     return launches
 
 
+def mnist_sweep(exp_dir, pool, fn_kw=None, **config_kw):
+    """bench.py's headline sweep (run_framework_sweep: ASHA(3, 1, 9) +
+    median stopping over lr and batch, 18 rung-0 trials, 3 runners) on
+    ``pool``: (result, wall s, trials, records)."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.optimizers import Asha
+
+    out_dir = fresh_dir(os.path.join(exp_dir, "records"))
+    trial_dir = fresh_dir(os.path.join(exp_dir, "exp"))
+    sp = Searchspace(lr=("DOUBLE_LOG", [1e-4, 3e-2]), batch=("DISCRETE", MNIST_BATCHES))
+    config = OptimizationConfig(
+        name="bench_asha", num_trials=18,
+        optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=0),
+        searchspace=sp, direction="max", num_workers=3, hb_interval=0.1, es_policy="median",
+        es_interval=1, es_min=3, seed=0, experiment_dir=trial_dir, pool=pool, **config_kw)
+    t0 = time.perf_counter()
+    result = experiment.lagom(functools.partial(train_mnist, out_dir=out_dir, **(fn_kw or {})),
+                              config)
+    wall = time.perf_counter() - t0
+    return result, wall, read_trials(trial_dir), read_records(out_dir)
+
+
+def check_mnist_sweep(name, pool, result, trials, records):
+    """Every trial finalized once with its record, promotions, a finite best
+    value, steps taken; process runners other than the driver."""
+    ids = [t["id"] for t in trials]
+    problems = []
+    if not (len(ids) == len(set(ids)) == result["num_trials"] > 0
+            and all(t["status"] == "FINALIZED" for t in trials)
+            and math.isfinite(result["best_val"])):
+        problems.append("{} trials, {} finalized, result {}".format(
+            len(ids), sum(t["status"] == "FINALIZED" for t in trials), result["num_trials"]))
+    if not any(t["info_dict"].get("sample_type") == "promoted" for t in trials):
+        problems.append("no promoted trial")
+    if set(ids) - {r["trial_id"] for r in records} or not sum(r["steps"] for r in records):
+        problems.append("trials without a step record")
+    pids = {r["pid"] for r in records}
+    if (os.getpid() in pids) != (pool == "thread"):
+        problems.append("trials ran in processes {} (driver {})".format(sorted(pids), os.getpid()))
+    if problems:
+        raise AssertionError("{}: {}".format(name, "; ".join(problems)))
+
+
+def mnist_summary(result, wall, trials, records):
+    return {"sweep_wall_s": wall, "trials_finished": len(trials),
+            "promoted": sum(t["info_dict"].get("sample_type") == "promoted" for t in trials),
+            "early_stopped": result["early_stopped"], "best_val": result["best_val"],
+            "steps": sum(r["steps"] for r in records),
+            "step_ms_in_sweep_median": float(np.median([r["step_ms"] for r in records])),
+            "runner_processes": len({r["pid"] for r in records}),
+            "time_split": time_split(records), "lost_runners": result["lost_runners"]}
+
+
+def phase_slice_mnist(exp_root):
+    """bench.py's headline on the card under thread and process runners,
+    after the card's logits against the CPU's for one batch."""
+    from maggy_tpu_torch.train import ShardedBatchIterator
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    X, Y = cached("mnist", make_data)
+    model = mnist_model(DEVICE)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(0))
+    b = next(iter(ShardedBatchIterator({"x": X, "y": Y}, batch_size=MNIST_BATCHES[0],
+                                       seed=1, device=DEVICE)))
+    with torch.no_grad():
+        gpu_logits = model(b["x"]).cpu()
+        cpu_logits = copy.deepcopy(model).to("cpu")(b["x"].cpu())
+    # fp32 on both sides with TF32 off (full_fp32): cuDNN and oneDNN sum in
+    # other orders, a few ulps of each logit.
+    logit_err = float((gpu_logits - cpu_logits).abs().max())
+    logit_tol = 1e-4 * float(cpu_logits.abs().max()) + 1e-5
+    if not (torch.isfinite(gpu_logits).all() and logit_err <= logit_tol
+            and gpu_logits.shape == (MNIST_BATCHES[0], 2)):
+        raise AssertionError("MNIST CNN logits off the CPU path: {} > {}".format(
+            logit_err, logit_tol))
+    sweeps = {}
+    for pool in ("thread", "process"):
+        name = "slice_mnist/" + pool
+        result, wall, trials, records = mnist_sweep(os.path.join(exp_root, pool), pool)
+        check_mnist_sweep(name, pool, result, trials, records)
+        sweeps[pool] = mnist_summary(result, wall, trials, records)
+    emit("slice_mnist", logits_max_abs_err=logit_err, logits_tol=logit_tol,
+         tf32=torch.backends.cudnn.allow_tf32, **sweeps)
+
+
+def phase_slice_recovery(exp_dir):
+    """The process sweep of slice_mnist with two runners faulting mid-trial:
+    one exits, one freezes."""
+    flags = {"kill": os.path.join(exp_dir, "kill.flag"),
+             "wedge": os.path.join(exp_dir, "wedge.flag")}
+    for flag in flags.values():
+        if os.path.exists(flag):
+            os.remove(flag)
+    result, wall, trials, records = mnist_sweep(
+        os.path.join(exp_dir, "sweep"), "process",
+        fn_kw={"kill_flag": flags["kill"], "wedge_flag": flags["wedge"]},
+        hb_loss_timeout=RECOVERY_LOSS_TIMEOUT_S)
+    faults = {}
+    for kind, flag in flags.items():
+        with open(flag) as f:
+            faults[kind] = json.load(f)
+    requeued = {r["trial_id"]: r for r in result["recovery"]["requeued"]}
+    status = {t["id"]: t["status"] for t in trials}
+    problems = []
+    try:
+        check_mnist_sweep("slice_recovery", "process", result, trials, records)
+    except AssertionError as e:
+        problems.append(str(e))
+    if result["lost_runners"] != 2:
+        problems.append("{} lost runners, not 2".format(result["lost_runners"]))
+    for kind, f in faults.items():
+        reruns = [r for r in records if r["trial_id"] == f["trial_id"] and r["pid"] != f["pid"]]
+        if f["trial_id"] not in requeued or status.get(f["trial_id"]) != "FINALIZED" \
+                or not reruns:
+            problems.append("the {} trial {} was not requeued and re-run to its end".format(
+                kind, f["trial_id"]))
+        else:
+            f.update(partition=requeued[f["trial_id"]]["partition"],
+                     fault_to_requeue_s=requeued[f["trial_id"]]["at"] - f["at"],
+                     rerun_pid=reruns[0]["pid"], rerun_steps=reruns[0]["steps"])
+    killed = result["recovery"]["killed"]
+    if faults["wedge"].get("partition") not in killed:
+        problems.append("the frozen runner was not killed (killed: {})".format(killed))
+    emit("slice_recovery", faults=faults, killed=killed, loss_timeout_s=RECOVERY_LOSS_TIMEOUT_S,
+         stale_finals_dropped=result["recovery"]["stale_finals_dropped"],
+         **mnist_summary(result, wall, trials, records))
+    if problems:
+        raise AssertionError("slice_recovery: {}".format("; ".join(problems)))
+
+
 def fresh_dir(path):
-    os.makedirs(path, exist_ok=True)
-    for run in os.listdir(path):
-        shutil.rmtree(os.path.join(path, run), ignore_errors=True)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
     return path
 
 
@@ -884,17 +1270,21 @@ def main():
     smi = phase_device()
     phase_build()
     main_times = phase_kernels()
-    bert_launches, asha_step_ms = phase_slice(
-        fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments")))
+    bert_launches, asha_step_ms = phase_slice(os.path.join(ROOT, "build", "chip_smoke_experiments"))
     launches = {
         "bert_base": bert_launches,
         "bert_base_bo": phase_slice_bo(os.path.join(ROOT, "build", "chip_smoke_experiments_bo"),
                                        asha_step_ms),
         "llama3_8b": phase_slice_llama(
-            fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama")))}
+            fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama"))),
+        "bert_base_process": phase_slice_process(
+            os.path.join(ROOT, "build", "chip_smoke_experiments_process"), asha_step_ms)}
+    phase_slice_mnist(os.path.join(ROOT, "build", "chip_smoke_experiments_mnist"))
+    phase_slice_recovery(fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_recovery")))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "path": path, "launches": launches[path][name], **main_times[path][name]}
-               for path in MAIN_SHAPES for name in REPLACES]
+                "path": path, "launches": launches[path][name],
+                **main_times[SAME_SHAPE.get(path, path)][name]}
+               for path in launches for name in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

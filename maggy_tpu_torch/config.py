@@ -1,10 +1,11 @@
 """Typed experiment configs; the config type selects the experiment kind.
 
-The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` and
-`OptimizationConfig` with the fields of a single-process thread-runner
-sweep. Fleet, gang, vmap, fork, chaos, observability and resume fields are
-absent, so passing one is a TypeError rather than a silently ignored knob.
-Parity: reference `maggy/experiment_config.py:18-50`.
+The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` (with the
+heartbeat-loss shape) and `OptimizationConfig` with the fields of a
+single-host sweep over thread, process or GPU-pinned process runners, with
+heartbeat-loss requeue. Fleet, gang, vmap, fork, chaos, observability and
+resume fields are absent, so passing one is a TypeError rather than a
+silently ignored knob. Parity: reference `maggy/experiment_config.py:18-50`.
 """
 
 from __future__ import annotations
@@ -15,13 +16,31 @@ from typing import Any, Optional, Union
 from maggy_tpu_torch import constants
 from maggy_tpu_torch.searchspace import Searchspace
 
+#: Runner pools the port runs, and the JAX package's that it does not.
+POOLS = ("thread", "process", "gpu")
+_UNPORTED_POOLS = ("elastic", "remote")
+
 
 @dataclass
 class LagomConfig:
-    """Base config (reference `experiment_config.py:18-23`)."""
+    """Base config (reference `experiment_config.py:18-23`). A runner is
+    declared lost after max(hb_loss_min_s, hb_interval * hb_loss_factor)
+    seconds of silence unless the experiment sets ``hb_loss_timeout``."""
 
     name: str = "maggyTpuTorchExperiment"
     hb_interval: float = constants.DEFAULT_HEARTBEAT_INTERVAL_S
+    hb_loss_factor: float = constants.HEARTBEAT_LOSS_FACTOR
+    hb_loss_min_s: float = constants.HEARTBEAT_LOSS_MIN_S
+
+    def resolved_hb_loss_timeout(self) -> float:
+        """Seconds of heartbeat silence before a runner is declared lost:
+        the explicit ``hb_loss_timeout`` field when set, else
+        max(hb_loss_min_s, hb_interval * hb_loss_factor) — the one home of
+        this resolution (``maggy_tpu/config.py:107-117``)."""
+        explicit = getattr(self, "hb_loss_timeout", None)
+        if explicit is not None:
+            return float(explicit)
+        return max(self.hb_loss_min_s, self.hb_interval * self.hb_loss_factor)
 
 
 @dataclass
@@ -30,12 +49,16 @@ class OptimizationConfig(LagomConfig):
     `experiment_config.py:25-50`).
 
     ``optimizer`` is a registry name ("randomsearch", "asha", "gridsearch",
-    "tpe", "gp", "none") or an AbstractOptimizer instance. ``num_workers``
-    is the number of concurrent thread runners, or "auto" for one per CUDA
-    device; the driver clamps it to ``num_trials``. ``prefetch`` pipelines
-    the trial hand-off: a suggester thread materializes the next
-    suggestions while runners train, and a FINAL's reply carries the
-    runner's next trial (``maggy_tpu/config.py:194``)."""
+    "tpe", "gp", "none") or an AbstractOptimizer instance. ``pool`` picks the
+    runners: "thread" (in-process threads sharing the CUDA device), "process"
+    (one spawned OS process each; ``train_fn`` must be module-level) or "gpu"
+    (processes pinned to ``chips_per_trial`` CUDA devices each through
+    CUDA_VISIBLE_DEVICES). ``num_workers`` is the runner count, or "auto" for
+    one per CUDA device; the driver clamps it to ``num_trials``.
+    ``prefetch`` pipelines the trial hand-off: a suggester thread
+    materializes the next suggestions while runners train, and a FINAL's
+    reply carries the runner's next trial (``maggy_tpu/config.py:194``).
+    ``hb_loss_timeout`` overrides the heartbeat-loss shape of LagomConfig."""
 
     num_trials: int = 1
     optimizer: Union[str, Any] = "randomsearch"
@@ -46,8 +69,11 @@ class OptimizationConfig(LagomConfig):
     es_min: int = constants.DEFAULT_ES_MIN
     es_policy: Union[str, Any] = constants.DEFAULT_ES_POLICY
     num_workers: Union[int, str] = 1
+    pool: str = "thread"
+    chips_per_trial: int = 1
     seed: Optional[int] = None
     prefetch: bool = True
+    hb_loss_timeout: Optional[float] = None
     # Experiment artifact root; defaults to the environment's base dir.
     experiment_dir: Optional[str] = None
 
@@ -58,3 +84,16 @@ class OptimizationConfig(LagomConfig):
             raise ValueError(
                 "num_workers must be an int or 'auto', got {!r}".format(
                     self.num_workers))
+        if self.pool == "tpu":
+            raise ValueError("pool='tpu' pins TPU chips; the port pins CUDA devices "
+                             "with pool='gpu'")
+        if self.pool in _UNPORTED_POOLS:
+            raise NotImplementedError(
+                "pool={!r} is not ported yet (ROADMAP queue 1 item 9); the port "
+                "runs {}".format(self.pool, ", ".join(repr(p) for p in POOLS)))
+        if self.pool not in POOLS:
+            raise ValueError("pool must be one of {}, got {!r}".format(
+                ", ".join(repr(p) for p in POOLS), self.pool))
+        if not isinstance(self.chips_per_trial, int) or self.chips_per_trial < 1:
+            raise ValueError("chips_per_trial must be an int >= 1, got {!r}".format(
+                self.chips_per_trial))

@@ -2,7 +2,8 @@
 
 Copy of the subset of ``maggy_tpu/constants.py`` the port uses (parity:
 reference `maggy/constants.py:23-28`; the prefetch lock bound of
-``maggy_tpu/constants.py:31-36``).
+``maggy_tpu/constants.py:31-36``; the heartbeat-loss defaults of
+``maggy_tpu/constants.py:80-88``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ RPC_RECV_BUFSIZE = 1 << 16
 # while the suggester thread is mid-model-fit, so this bounds the RPC
 # event loop's worst-case stall per FINAL.
 PREFETCH_FINAL_LOCK_TIMEOUT_S = 0.05
+# Failure detection: a runner whose assigned trial has gone this many
+# heartbeat intervals without any message is declared lost and its trial is
+# requeued to another runner (the floor keeps a sub-second hb_interval from
+# declaring a runner dead while it creates its CUDA context). Defaults for
+# the ``hb_loss_factor`` / ``hb_loss_min_s`` config fields.
+HEARTBEAT_LOSS_FACTOR = 30.0
+HEARTBEAT_LOSS_MIN_S = 10.0
 
 # Early-stop defaults (reference `maggy/experiment_config.py:33-35`).
 DEFAULT_ES_INTERVAL = 1

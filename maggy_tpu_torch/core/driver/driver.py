@@ -5,8 +5,11 @@ reference `maggy/core/experiment_driver/driver.py` — RPC server +
 per-experiment secret (:54-57,74-79), a message queue consumed by a daemon
 worker thread dispatching to registered callbacks (:59-61,140-158), and the
 lifecycle startup -> register -> serve -> fan out runners -> finalize ->
-stop (:81-117)). The telemetry journal, chaos, health, observability,
-fleet leasing and crash recovery of the JAX package are not ported yet.
+stop (:81-117)). Runner deaths are survivable once the survivors have
+finished the schedule (their trials requeue through heartbeat-loss
+detection, ``maggy_tpu/core/driver/driver.py:281-292``). The telemetry
+journal, chaos, health, observability, fleet leasing and crash recovery of
+the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ class Driver:
         # unguarded-ok: monotonic completion latch, polled lock-free by design
         self.experiment_done = False
         self._worker_thread: Optional[threading.Thread] = None
+        # The pool running this experiment's runners: heartbeat-loss
+        # recovery kills a lost runner through it.
+        self._active_pool = None
         self.executor_logs: list = []  # guarded-by: _log_lock
         self._log_lock = threading.Lock()
         self.exception: Optional[BaseException] = None
@@ -79,16 +85,23 @@ class Driver:
             self._exp_startup_callback()
             self.server_addr = self.env.connect_host(self.server)
             self._start_worker()
+            self._active_pool = self._make_runner_pool()
             # Blocks until every runner returns (foreachPartition semantics).
-            failures = self._make_runner_pool().run(self._executor_fn(train_fn))
+            failures = self._active_pool.run(self._executor_fn(train_fn))
             job_end = time.time()
             # A callback failure must surface BEFORE finalization, or the
             # experiment would be marked FINISHED with a bogus result.
             if self.exception is not None:
                 raise self.exception
+            # Dead runners are survivable if the survivors completed the
+            # schedule (the dead ones' trials were requeued); otherwise fatal.
             if failures:
-                raise RuntimeError("{} runner(s) failed: {}".format(
-                    len(failures), failures)) from failures[0]
+                if not self.experiment_done:
+                    raise RuntimeError(
+                        "{} runner(s) failed and the experiment did not complete: "
+                        "{}".format(len(failures), failures)) from failures[0]
+                self._log("{} runner(s) died but the experiment completed: {}".format(
+                    len(failures), failures))
             return self._exp_final_callback(job_end)
         except BaseException as exc:  # noqa: BLE001 - the driver always cleans up
             self._exp_exception_callback(exc)

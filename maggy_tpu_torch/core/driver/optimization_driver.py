@@ -11,9 +11,14 @@ package's pipelined hand-off (``config.prefetch``, JAX `:240-278,
 a FINAL is processed on the RPC thread when the schedule lock is free within
 a bounded wait, and its reply carries the runner's next trial. An expensive
 controller (Bayesian optimization) never runs suggest() on the RPC thread.
-Gangs, vmap blocks, forks, preemption, heartbeat-loss requeue, resume and
-telemetry are not ported yet; the pipeline's counters are plain numbers in
-``progress_snapshot`` and result.json.
+Heartbeat-loss recovery (JAX `:644-697, :847-868, :1381-1407`): a runner
+silent for the resolved loss timeout while holding a trial is declared lost,
+its trial is reset and requeued ahead of fresh suggestions, the pool kills
+the runner where it can, and a FINAL from the revoked run (stale run epoch,
+or the trial still waiting in the requeue) is dropped. Gangs, vmap blocks,
+forks, preemption, resume and telemetry are not ported yet; the pipeline's
+and the recovery's counters are plain numbers in ``progress_snapshot`` and
+result.json, and the recovery's events are ``maggy.log`` lines.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from maggy_tpu_torch.config import OptimizationConfig
 from maggy_tpu_torch.core.driver.driver import Driver
 from maggy_tpu_torch.core.executors.trial_executor import trial_executor_fn
 from maggy_tpu_torch.core.rpc import OptimizationServer
-from maggy_tpu_torch.core.runner_pool import ThreadRunnerPool, resolve_num_workers
+from maggy_tpu_torch.core.runner_pool import (GPURunnerPool, ProcessRunnerPool,
+                                              ThreadRunnerPool, resolve_num_workers)
 from maggy_tpu_torch.earlystop import MedianStoppingRule, NoStoppingRule
 from maggy_tpu_torch.optimizers import Asha, GridSearch, RandomSearch, SingleRun
 from maggy_tpu_torch.optimizers.abstractoptimizer import AbstractOptimizer
@@ -65,6 +71,8 @@ class OptimizationDriver(Driver):
         super().__init__(config, app_id, run_id)
         self._trial_store: Dict[str, Trial] = {}  # guarded-by: _store_lock
         self._final_store: List[Trial] = []  # guarded-by: _store_lock
+        # Trials of lost runners, served before fresh suggestions.
+        self._requeue: List[str] = []  # guarded-by: _store_lock
         self._store_lock = threading.RLock()
         # Serializes the schedule across the worker thread (REG/IDLE and
         # FINAL fallbacks), the RPC thread (the FINAL fast path) and the
@@ -86,9 +94,16 @@ class OptimizationDriver(Driver):
 
         self.result = {"best_id": None, "best_val": None, "best_hp": None,
                        "worst_id": None, "worst_val": None, "worst_hp": None,
-                       "avg": None, "num_trials": 0, "early_stopped": 0}
+                       "avg": None, "num_trials": 0, "early_stopped": 0,
+                       "lost_runners": 0,
+                       # Heartbeat-loss recovery: each requeue (trial,
+                       # partition, wall time), stale FINALs dropped, and the
+                       # runners the pool killed.
+                       "recovery": {"requeued": [], "stale_finals_dropped": 0,
+                                    "killed": []}}
         self.job_start: Optional[float] = None
         self.maggy_log = ""
+        self.server.hb_loss_timeout = config.resolved_hb_loss_timeout()
 
         # ---- pipelined hand-off (config.prefetch) ----
         self._prefetch_enabled = bool(config.prefetch) and self.controller.supports_prefetch()
@@ -151,6 +166,12 @@ class OptimizationDriver(Driver):
         return OptimizationServer(secret=self.secret)
 
     def _make_runner_pool(self):
+        pool = self.config.pool
+        if pool == "process":
+            return ProcessRunnerPool(self.num_executors)
+        if pool == "gpu":
+            return GPURunnerPool(self.num_executors,
+                                 chips_per_trial=self.config.chips_per_trial)
         return ThreadRunnerPool(self.num_executors)
 
     def _executor_fn(self, train_fn):
@@ -165,6 +186,7 @@ class OptimizationDriver(Driver):
             FINAL=self._final_msg_callback,
             IDLE=self._idle_msg_callback,
             REG=self._register_msg_callback,
+            LOST=self._lost_msg_callback,
         )
 
     def get_trial(self, trial_id):
@@ -238,6 +260,19 @@ class OptimizationDriver(Driver):
             if self.server.reservations.get_assigned_trial(msg["partition_id"]) is None:
                 self._assign_next(msg["partition_id"], None)
             return
+        if self._is_stale_final(trial, msg):
+            # The trial was requeued out from under this runner (a false
+            # loss: the runner was only slow) while its FINAL was in flight;
+            # the requeue is authoritative and the re-run's FINAL counts.
+            # The server cleared no assignment for it, so the runner still
+            # needs work.
+            with self._stats_lock:
+                self.result["recovery"]["stale_finals_dropped"] += 1
+            self._log("dropping stale FINAL for requeued trial {} from runner {}".format(
+                trial.trial_id, msg["partition_id"]))
+            if self.server.reservations.get_assigned_trial(msg["partition_id"]) is None:
+                self._assign_next(msg["partition_id"], None)
+            return
         with trial.lock:
             if msg.get("error"):
                 trial.status = Trial.ERROR
@@ -257,6 +292,60 @@ class OptimizationDriver(Driver):
         # experiment_done and releases the pool.
         self.env.dump(trial.to_json(), "{}/{}/trial.json".format(self.exp_dir, trial.trial_id))
         self._assign_next(msg["partition_id"], trial)
+
+    def _is_stale_final(self, trial: Trial, msg) -> bool:
+        """A FINAL from a run that was declared lost: its run epoch is older
+        than the trial's (the trial was requeued, and maybe re-dispatched,
+        since), or the trial still waits in the requeue and this partition
+        does not hold it. The server cleared the partition's assignment
+        before this check when it named the trial, so a retried FINAL of a
+        live run never lands here: it finds the trial finalized and gone."""
+        epoch = msg.get("epoch")
+        with trial.lock:
+            if epoch is not None and int(epoch) != trial.run_epoch:
+                return True
+        with self._store_lock:
+            waiting = trial.trial_id in self._requeue
+        return waiting and self.server.reservations.get_assigned_trial(
+            msg["partition_id"]) != trial.trial_id
+
+    def _lost_msg_callback(self, msg) -> None:
+        """A runner went silent while holding a trial: the trial goes back
+        into the schedule, ahead of fresh suggestions, for whichever runner
+        asks for work next, and the pool kills the runner if it can (one
+        wedged in a native call never returns, and would block the pool's
+        join). Under the schedule lock, so a racing FINAL of the same trial
+        either finalizes it first (then there is nothing to requeue) or
+        finds it requeued (then it is dropped as stale)."""
+        pid = msg["partition_id"]
+        with self._sched_lock:
+            trial = self.get_trial(msg["trial_id"])
+            if trial is None:
+                return
+            trial.reset_run_state()
+            with self._store_lock:
+                if trial.trial_id not in self._requeue:
+                    self._requeue.append(trial.trial_id)
+            with self._stats_lock:
+                self.result["lost_runners"] += 1
+                self.result["recovery"]["requeued"].append(
+                    {"trial_id": trial.trial_id, "partition": pid, "at": time.time()})
+        self._log("runner {} heartbeat lost; trial {} requeued for reassignment".format(
+            pid, trial.trial_id))
+        pool = self._active_pool
+        if pool is not None and pool.kill_worker(pid):
+            with self._stats_lock:
+                self.result["recovery"]["killed"].append(pid)
+            self._log("runner {} killed after heartbeat loss (presumed wedged)".format(pid))
+
+    def _pop_requeue(self) -> Optional[Trial]:
+        """The oldest requeued trial still in the store."""
+        with self._store_lock:
+            while self._requeue:
+                trial = self._trial_store.get(self._requeue.pop(0))
+                if trial is not None:
+                    return trial
+        return None
 
     def _register_msg_callback(self, msg) -> None:
         self._assign_next(msg["partition_id"], None)
@@ -287,15 +376,28 @@ class OptimizationDriver(Driver):
 
     # locked-by: _sched_lock
     def _assign_next_locked(self, partition_id: int, last_trial: Optional[Trial]) -> None:
-        if self._prefetch_enabled:
+        # Requeued trials take priority over fresh suggestions, but never
+        # swallow a FINAL report: the controller sees ``last_trial`` first.
+        if last_trial is None:
+            suggestion = "IDLE"
+        elif self._prefetch_enabled:
             # Split contract: report on the FINAL path (dropping schedule-
             # stale prefetches), then take the hand-off from the queue.
-            if last_trial is not None:
-                self.controller.report(last_trial)
-                self._invalidate_stale_prefetch()
+            self.controller.report(last_trial)
+            self._invalidate_stale_prefetch()
             suggestion = self._next_suggestion()
         else:
             suggestion = self._timed("inline", lambda: self.controller.get_suggestion(last_trial))
+        if suggestion in (None, "IDLE"):
+            requeued = self._pop_requeue()
+            if requeued is not None:
+                self.server.reservations.assign_trial(partition_id, requeued.trial_id)
+                self._log("requeued trial {} assigned to runner {}".format(
+                    requeued.trial_id, partition_id))
+                return
+            if last_trial is None:
+                suggestion = self._next_suggestion() if self._prefetch_enabled else \
+                    self._timed("inline", lambda: self.controller.get_suggestion(None))
         if suggestion is None:
             # Over only once nothing is in flight.
             with self._store_lock:

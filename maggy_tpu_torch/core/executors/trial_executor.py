@@ -6,7 +6,10 @@ connect -> register -> start heartbeat -> loop {get_suggestion -> trial dir
 + .hparams.json -> train_fn(**params[, reporter]) -> persist the return ->
 on EarlyStopException use its carried metric -> FINAL} until GSTOP. The
 FINAL reply usually carries the next assignment, so the get_suggestion at
-the top of the loop is wire-free.
+the top of the loop is wire-free, and every FINAL echoes the run epoch of
+its assignment, so the driver can drop a FINAL of a run it requeued. A
+``BaseException`` from ``train_fn`` ends the runner: its heartbeats stop,
+and the driver's heartbeat-loss scan requeues the trial onto a survivor.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from maggy_tpu_torch.exceptions import EarlyStopException
 
 
 class TrialExecutor:
-    """The worker each runner thread executes."""
+    """The worker each runner (thread or process) executes; picklable when
+    ``train_fn`` is, so process pools can send it to a spawned child."""
 
     def __init__(self, server_addr: Tuple[str, int], secret: str, hb_interval: float,
                  exp_dir: str, optimization_key: str, train_fn: Callable):

@@ -1,12 +1,14 @@
 """Control plane: driver <-> trial-runner RPC.
 
-The subset of ``maggy_tpu/core/rpc.py`` a single-process thread-runner sweep
-needs: the framed transport, the `Reservations` registry, the select-loop
-`Server`, the HPO `OptimizationServer` (verbs REG, GET, METRIC, FINAL, LOG,
-with the next assignment piggybacked on the FINAL reply when the driver's
-fast path processes the FINAL on this thread) and the runner `Client`.
-Parity: reference `maggy/core/rpc.py` (:35-113, :116-162, :250-286,
-:295-437, :440-593).
+The subset of ``maggy_tpu/core/rpc.py`` a single-host sweep needs: the
+framed transport, the `Reservations` registry with per-partition liveness
+(every message counts as a beat), the select-loop `Server`, the HPO
+`OptimizationServer` (verbs REG, GET, METRIC, FINAL, LOG, with the next
+assignment piggybacked on the FINAL reply when the driver's fast path
+processes the FINAL on this thread, and the heartbeat-loss scan on the loop's
+tick) and the runner `Client`, whose FINAL echoes the run epoch of the
+assignment it finishes. Parity: reference `maggy/core/rpc.py` (:35-113,
+:116-162, :250-286, :295-437, :440-593).
 
 Wire layout as in the JAX package: 4-byte big-endian length, 32-byte
 HMAC-SHA256 of the payload under the experiment secret, payload. The payload
@@ -94,7 +96,37 @@ class Reservations:
 
     def add(self, meta: Dict[str, Any]) -> None:
         with self.lock:
-            self._table[int(meta["partition_id"])] = dict(meta)
+            rec = dict(meta)
+            rec["last_beat"] = time.monotonic()
+            self._table[int(meta["partition_id"])] = rec
+
+    def touch(self, partition_id) -> None:
+        """Record liveness: any message from the runner counts as a beat."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is not None:
+                rec["last_beat"] = time.monotonic()
+
+    # locked-by: lock
+    def _silent_locked(self, timeout: float):
+        now = time.monotonic()
+        return [pid for pid, rec in self._table.items()
+                if not rec.get("released") and now - rec["last_beat"] > timeout]
+
+    def silent(self, timeout: float):
+        """Registered, unreleased partitions silent for longer than
+        ``timeout``, whether or not they hold a trial."""
+        with self.lock:
+            return self._silent_locked(timeout)
+
+    def lost_assignments(self, timeout: float):
+        """Silent partitions that hold a trial: [(partition_id, trial_id)].
+        Read-only; the caller decides recovery (``maggy_tpu/core/rpc.py:
+        181-189``)."""
+        with self.lock:
+            return [(pid, self._table[pid]["trial_id"])
+                    for pid in self._silent_locked(timeout)
+                    if self._table[pid].get("trial_id") is not None]
 
     def assign_trial(self, partition_id: int, trial_id: Optional[str]) -> None:
         with self.lock:
@@ -235,6 +267,10 @@ class Server:
         while not self._stop_event.is_set():
             for key, mask in self._sel.select(timeout=0.2):
                 key.data(key.fileobj, mask)
+            self._tick()
+
+    def _tick(self) -> None:
+        """Periodic hook run on the event-loop thread between selects."""
 
     def stop(self):
         self._stop_event.set()
@@ -255,6 +291,10 @@ class OptimizationServer(Server):
         # partition -> when its last FINAL arrived, until its next TRIAL
         # leaves (the hand-off gap); touched only on the server thread.
         self._final_at: Dict[int, float] = {}
+        # Seconds of silence after which a partition holding a trial is
+        # declared lost (set by the driver); None disables the scan.
+        self.hb_loss_timeout: Optional[float] = None
+        self._last_loss_scan = time.monotonic()
         super().__init__(secret)
 
     def attach_driver(self, driver) -> None:
@@ -264,14 +304,35 @@ class OptimizationServer(Server):
         self._handlers.update(REG=self._reg, METRIC=self._metric,
                               FINAL=self._final, GET=self._get, LOG=self._log)
 
+    def _tick(self) -> None:
+        """The heartbeat-loss scan, at most every min(1 s, timeout / 4):
+        each silent partition holding a trial loses its assignment first
+        (so its late FINAL clears nothing), then the driver gets LOST
+        (``maggy_tpu/core/rpc.py:1260-1286``)."""
+        if self.driver is None or self.hb_loss_timeout is None:
+            return
+        now = time.monotonic()
+        if now - self._last_loss_scan < min(1.0, self.hb_loss_timeout / 4):
+            return
+        self._last_loss_scan = now
+        for pid, trial_id in self.reservations.lost_assignments(self.hb_loss_timeout):
+            self.reservations.assign_trial(pid, None)
+            self.driver.enqueue({"type": "LOST", "trial_id": trial_id, "partition_id": pid})
+
     def _reg(self, msg):
         self.reservations.add({"partition_id": msg["partition_id"], "trial_id": None})
         self.driver.enqueue({"type": "REG", "partition_id": msg["partition_id"]})
         return {"type": "OK"}
 
     def _metric(self, msg):
-        self.driver.enqueue(dict(msg))
+        pid = msg["partition_id"]
+        self.reservations.touch(pid)
         trial_id = msg.get("trial_id")
+        if trial_id is not None and self.reservations.get_assigned_trial(pid) != trial_id:
+            # A runner declared lost keeps beating if it was only slow: its
+            # metric must not enter the history of the trial's re-run.
+            msg = {**msg, "value": None}
+        self.driver.enqueue(dict(msg))
         trial = self.driver.get_trial(trial_id) if trial_id else None
         if trial is not None and trial.get_early_stop():
             return {"type": "STOP"}
@@ -284,7 +345,11 @@ class OptimizationServer(Server):
         thread and reply OK: the runner then GET-polls (JAX `rpc.py:1428-
         1447`)."""
         pid = msg["partition_id"]
+        self.reservations.touch(pid)
         self._final_at[pid] = time.monotonic()
+        # Conditional: a retried FINAL must not wipe the next assignment. A
+        # FINAL of a run declared lost finds its assignment already cleared
+        # by the scan, and the driver drops it by its stale run epoch.
         self.reservations.clear_trial_if(pid, msg.get("trial_id"))
         if not self.driver.process_final_inline(msg):
             self.driver.enqueue(dict(msg))
@@ -317,6 +382,9 @@ class OptimizationServer(Server):
         with trial.lock:
             trial.start = time.time()
             trial.info_dict["partition"] = partition_id
+            # The FINAL echoes the run epoch: the driver drops a dead run's
+            # FINAL by epoch even when the re-run is on the same partition.
+            trial.info_dict["epoch"] = trial.run_epoch
             info = dict(trial.info_dict)
         t_final = self._final_at.pop(partition_id, None)
         if t_final is not None:
@@ -325,6 +393,7 @@ class OptimizationServer(Server):
                 "params": trial.params, "info": info}
 
     def _get(self, msg):
+        self.reservations.touch(msg["partition_id"])
         # Serve an already-assigned trial BEFORE honoring experiment-done:
         # the last suggestion may be assigned concurrently with another
         # FINAL ending the experiment, and must still run.
@@ -461,7 +530,8 @@ class Client:
         (reference `rpc.py:584-593`); bank a piggybacked TRIAL or GSTOP."""
         with reporter.lock:
             data = reporter.get_data()
-            resp = self._request({**payload, "type": "FINAL", "logs": data["logs"]})
+            resp = self._request({**payload, "type": "FINAL", "logs": data["logs"],
+                                  "epoch": self.last_info.get("epoch")})
             reporter.reset()
         if resp.get("type") == "TRIAL":
             self._piggyback = (resp["trial_id"], resp["params"], resp.get("info", {}))

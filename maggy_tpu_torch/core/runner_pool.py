@@ -1,21 +1,29 @@
 """Runner pools: the fan-out substrate replacing Spark executors.
 
-``ThreadRunnerPool`` of ``maggy_tpu/core/runner_pool.py``: N in-process
-runner threads sharing the process's CUDA device(s). Process, TPU-pinned,
-elastic and remote pools are not ported yet.
+The pools of ``maggy_tpu/core/runner_pool.py:130-330`` that one host runs:
+``ThreadRunnerPool`` (N in-process runner threads sharing the process's CUDA
+device), ``ProcessRunnerPool`` (one spawned OS process per runner, each with
+its own interpreter and CUDA context; a lost runner is SIGKILLed) and
+``GPURunnerPool`` (processes pinned to disjoint CUDA devices through
+CUDA_VISIBLE_DEVICES, the counterpart of the JAX package's TPU-pinned pool).
+The elastic and remote pools are not ported yet.
 """
 
 from __future__ import annotations
 
+import multiprocessing as mp
+import os
 import threading
 import traceback
-from typing import Callable, List
+from abc import ABC, abstractmethod
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 
 def resolve_num_workers(config) -> int:
-    """``num_workers="auto"``: one runner per visible CUDA device."""
+    """``num_workers="auto"``: one runner per visible CUDA device (for the
+    "gpu" pool, per ``chips_per_trial`` devices)."""
     nw = getattr(config, "num_workers", 1)
     if nw != "auto":
         return int(nw)
@@ -23,17 +31,37 @@ def resolve_num_workers(config) -> int:
     if count == 0:
         raise ValueError("num_workers='auto' found no CUDA device; pass an "
                          "explicit count")
+    if getattr(config, "pool", "thread") == "gpu":
+        return max(1, count // max(1, config.chips_per_trial))
     return count
 
 
-class ThreadRunnerPool:
+class RunnerPool(ABC):
     def __init__(self, num_workers: int):
         self.num_workers = num_workers
 
+    @abstractmethod
     def run(self, worker_fn: Callable[[int], None]) -> List[BaseException]:
-        """Run ``worker_fn(partition_id)`` on every runner thread and block
-        until all return. Returns the runner failures instead of raising;
-        the driver decides whether they are fatal."""
+        """Run ``worker_fn(partition_id)`` on every runner and block until
+        all return. Returns the runner failures (exceptions, or
+        RuntimeErrors for dead processes) instead of raising: a dead runner
+        is survivable once its trial is requeued onto the survivors, and the
+        driver decides whether the failures are fatal."""
+
+    def terminate(self) -> None:
+        """Force-stop every runner (best effort); threads cannot be
+        stopped, so only process pools act on it."""
+
+    def kill_worker(self, partition_id: int) -> bool:
+        """Kill ONE runner that heartbeat-loss detection declared lost,
+        leaving the rest running: a runner wedged in a native call never
+        returns and would block the pool's join. True if a runner was
+        killed; thread pools cannot kill a thread and return False."""
+        return False
+
+
+class ThreadRunnerPool(RunnerPool):
+    def run(self, worker_fn: Callable[[int], None]) -> List[BaseException]:
         errors: List[BaseException] = []
         lock = threading.Lock()
 
@@ -52,3 +80,85 @@ class ThreadRunnerPool:
         for t in threads:
             t.join()
         return errors
+
+
+def device_env(index: int, chips_per_trial: int = 1) -> Dict[str, str]:
+    """Env pinning runner ``index`` to CUDA devices [index*k, (index+1)*k)
+    of those this process sees (``chip_env`` of ``maggy_tpu/core/
+    runner_pool.py:196-214``). The CUDA runtime reads CUDA_VISIBLE_DEVICES
+    when the child first touches the card, so the child sees its devices as
+    0..k-1. Indices go through the parent's own CUDA_VISIBLE_DEVICES when it
+    has one."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = [v.strip() for v in visible.split(",") if v.strip()] if visible else None
+    chosen = range(index * chips_per_trial, (index + 1) * chips_per_trial)
+    if ids is not None and chosen[-1] >= len(ids):
+        raise ValueError("runner {} needs devices {}..{} but CUDA_VISIBLE_DEVICES lists "
+                         "{}".format(index, chosen[0], chosen[-1], len(ids)))
+    return {"CUDA_VISIBLE_DEVICES": ",".join(ids[i] if ids else str(i) for i in chosen)}
+
+
+def _process_entry(worker_fn, pid: int, env: Dict[str, str]) -> None:
+    # Device pinning must precede the child's first CUDA call; spawn starts
+    # the child from a fresh interpreter, so no context exists yet.
+    os.environ.update(env)
+    worker_fn(pid)
+
+
+class ProcessRunnerPool(RunnerPool):
+    """One spawned OS process per runner (``maggy_tpu/core/runner_pool.py:
+    252-301``). Spawn only: a process that has touched CUDA cannot fork a
+    child that uses it. ``train_fn`` must therefore be picklable: a
+    module-level function (or a ``functools.partial`` of one)."""
+
+    def __init__(self, num_workers: int,
+                 env_fn: Optional[Callable[[int], Dict[str, str]]] = None):
+        super().__init__(num_workers)
+        self.env_fn = env_fn
+        self._procs: list = []
+
+    def terminate(self) -> None:
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+
+    def kill_worker(self, partition_id: int) -> bool:
+        # SIGKILL: a SIGSTOPped or natively wedged process never runs a
+        # SIGTERM handler, while SIGKILL reaps it unconditionally.
+        if 0 <= partition_id < len(self._procs):
+            p = self._procs[partition_id]
+            if p.is_alive():
+                p.kill()
+                return True
+        return False
+
+    def run(self, worker_fn: Callable[[int], None]) -> List[BaseException]:
+        ctx = mp.get_context("spawn")
+        envs = [self.env_fn(i) if self.env_fn else {} for i in range(self.num_workers)]
+        self._procs = [ctx.Process(target=_process_entry, args=(worker_fn, i, envs[i]),
+                                   name="runner-{}".format(i))
+                       for i in range(self.num_workers)]
+        for p in self._procs:
+            p.start()
+        failures: List[BaseException] = []
+        for p in self._procs:
+            p.join()
+            if p.exitcode != 0:
+                failures.append(RuntimeError("Runner process {} died (exit code {}).".format(
+                    p.name, p.exitcode)))
+        return failures
+
+
+class GPURunnerPool(ProcessRunnerPool):
+    """Runner processes pinned to disjoint CUDA devices: runner i sees
+    devices [i*k, (i+1)*k) as its 0..k-1, k = ``chips_per_trial``. Raises
+    when the pool needs more devices than this process sees."""
+
+    def __init__(self, num_workers: int, chips_per_trial: int = 1,
+                 visible_devices: Optional[int] = None):
+        visible = torch.cuda.device_count() if visible_devices is None else visible_devices
+        if num_workers * chips_per_trial > visible:
+            raise ValueError("{} workers x {} devices per trial exceeds the {} visible "
+                             "CUDA devices".format(num_workers, chips_per_trial, visible))
+        super().__init__(num_workers, env_fn=lambda i: device_env(i, chips_per_trial))
+        self.chips_per_trial = chips_per_trial

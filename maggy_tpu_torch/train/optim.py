@@ -1,6 +1,7 @@
-"""The optax pieces the BERT sweep uses, as torch optimizers.
+"""The optax pieces the BERT and MNIST sweeps use, as torch optimizers.
 
-``adamw`` matches ``optax.adamw``'s defaults (b1 0.9, b2 0.999, eps 1e-8,
+``adam`` is ``optax.adam`` (eps 1e-8 added after the square root, eps_root
+0): ``adamw`` with no weight decay computes the same update. ``adamw`` matches ``optax.adamw``'s defaults (b1 0.9, b2 0.999, eps 1e-8,
 weight decay 1e-4 on every parameter — torch's own AdamW default decay is
 1e-2). ``warmup_cosine_decay_schedule`` is optax's schedule (step ->
 learning rate); ``adamw`` drives torch.optim.AdamW with a base rate of 1 and
@@ -57,3 +58,9 @@ def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.
         return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
     return build
+
+
+def adam(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8):
+    """``optax.adam``'s update as an optimizer factory (see ``adamw``)."""
+    return adamw(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=0.0)

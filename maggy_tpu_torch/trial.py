@@ -1,7 +1,8 @@
 """Trial: the unit of schedulable work and its thread-safe state machine.
 
-Copy of ``maggy_tpu/trial.py`` without the preemption and run-epoch state
-(the port has no scheduler preemption or requeue path yet).
+Copy of ``maggy_tpu/trial.py`` with its run epoch and ``reset_run_state``
+(heartbeat-loss requeue), without the preemption state (the port has no
+scheduler preemption yet).
 
 Parity: reference `maggy/trial.py` — status machine (:33-37), deterministic
 md5-derived 16-char trial ids (:110-136), thread-safe early-stop flag and
@@ -59,6 +60,10 @@ class Trial:
         self.metric_dict: Dict[int, float] = {}  # guarded-by: lock
         self.start: Optional[float] = None  # guarded-by: lock
         self.duration: Optional[float] = None  # guarded-by: lock
+        # Run epoch: bumped on every reset_run_state (requeue) and stamped
+        # into each dispatch, so the driver can tell a dead run's in-flight
+        # FINAL from the live re-run's, even from the same partition.
+        self.run_epoch = 0  # guarded-by: lock
         self.info_dict: Dict[str, Any] = info_dict or {}
         self.lock = threading.RLock()
 
@@ -97,6 +102,22 @@ class Trial:
     def set_early_stop(self) -> None:
         with self.lock:
             self.early_stop = True
+
+    def reset_run_state(self) -> None:
+        """Discard the state of a dead run before a re-run: a requeued trial
+        restarts from step 0 on another runner, so stale metric history
+        would collide with the new run's steps (dedup by step) and a stale
+        early-stop flag would stop it at once (``maggy_tpu/trial.py:116-
+        130``)."""
+        with self.lock:
+            self.early_stop = False
+            self.final_metric = None
+            self.run_epoch += 1
+            self.metric_history = []
+            self.step_history = []
+            self.metric_dict = {}
+            self.start = None
+            self.status = Trial.SCHEDULED
 
     def append_metric(self, metric: float, step: Optional[int] = None) -> bool:
         """Record a heartbeat metric; dedup by step (reference `trial.py:93-108`).

@@ -1,7 +1,9 @@
-"""The port's control plane: whole ASHA, TPE and GP + Hyperband sweeps with
-JAX, scikit-learn and the JAX package unimportable, the import boundary by
-AST, schedule parity of the port's ASHA and RandomSearch with maggy_tpu's,
-and a one-runner TPE sweep giving the JAX package's parameter sequence."""
+"""The port's control plane: whole ASHA, TPE and GP + Hyperband sweeps on
+thread runners and one sweep on process runners with JAX, scikit-learn and
+the JAX package unimportable (in the runner processes too), the import
+boundary by AST, schedule parity of the port's ASHA and RandomSearch with
+maggy_tpu's, and a one-runner TPE sweep giving the JAX package's parameter
+sequence."""
 
 import ast
 import json
@@ -76,6 +78,9 @@ _SWEEP = textwrap.dedent("""
     mask = np.arange(128)[None] < rng.integers(16, 129, 64)[:, None]
     labels = ((tokens > cfg.vocab_size // 2) & mask).sum(1) * 2 > mask.sum(1)
 
+    def banned_imports():
+        return sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+
     def train(lr, warmup_frac, reporter, budget=1, batch=8, steps_per_budget=3):
         steps = int(budget) * steps_per_budget
         sched = warmup_cosine_decay_schedule(0.0, lr, int(steps * warmup_frac), steps)
@@ -89,44 +94,68 @@ _SWEEP = textwrap.dedent("""
             reporter.broadcast(-loss, step=i)
         return {{"metric": -float(loss)}}
 
-    def sweep(name, optimizer, num_trials, space, fn=train):
+    def train_in_process(lr, warmup_frac, reporter):
+        # Module-level, so a spawned runner unpickles it from __mp_main__,
+        # which re-ran the import hook above before importing anything.
+        out = train(lr, warmup_frac, reporter, steps_per_budget=2)
+        return {{**out, "banned": banned_imports(), "pid": os.getpid()}}
+
+    def sweep(name, optimizer, num_trials, space, fn=train, **kw):
         exp_dir = tempfile.mkdtemp()
         result = experiment.lagom(fn, OptimizationConfig(
             name=name, num_trials=num_trials, optimizer=optimizer, searchspace=space,
             direction="max", num_workers=2, es_policy="median", es_min=2, hb_interval=0.05,
-            seed=0, experiment_dir=exp_dir))
-        trials = []
+            seed=0, experiment_dir=exp_dir, **kw))
+        trials, outputs = [], []
         for run in os.listdir(exp_dir):
             for entry in os.listdir(os.path.join(exp_dir, run)):
                 p = os.path.join(exp_dir, run, entry, "trial.json")
                 if os.path.exists(p):
                     trials.append(json.load(open(p)))
-        return {{"result": result, "trials": trials}}
+                    outputs.append(json.load(open(os.path.join(exp_dir, run, entry,
+                                                               ".outputs.json"))))
+        return {{"result": result, "trials": trials, "outputs": outputs}}
 
-    sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
-    bo_sp = Searchspace(lr=("DOUBLE", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]),
-                        batch=("DISCRETE", [4, 8]))
-    out = {{"asha": sweep("blocked_imports", Asha(2, 1, 4, seed=0), 6, sp),
-            "tpe": sweep("blocked_tpe", TPE(num_warmup_trials=3, seed=0), 14, bo_sp,
-                         lambda reporter, **p: train(reporter=reporter, steps_per_budget=2, **p)),
-            "gp": sweep("blocked_gp", GP(num_warmup_trials=3, seed=0, pruner="hyperband",
-                                         pruner_kwargs=dict(min_budget=1, max_budget=9, eta=3,
-                                                            n_iterations=1)), 1, bo_sp,
-                        lambda reporter, **p: train(reporter=reporter, steps_per_budget=1, **p))}}
-    out["leaked"] = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
-    print(json.dumps(out))
+    if __name__ == "__main__":
+        sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
+        bo_sp = Searchspace(lr=("DOUBLE", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]),
+                            batch=("DISCRETE", [4, 8]))
+        out = {{"asha": sweep("blocked_imports", Asha(2, 1, 4, seed=0), 6, sp),
+                "tpe": sweep("blocked_tpe", TPE(num_warmup_trials=3, seed=0), 14, bo_sp,
+                             lambda reporter, **p: train(reporter=reporter, steps_per_budget=2,
+                                                         **p)),
+                "gp": sweep("blocked_gp", GP(num_warmup_trials=3, seed=0, pruner="hyperband",
+                                             pruner_kwargs=dict(min_budget=1, max_budget=9,
+                                                                eta=3, n_iterations=1)),
+                            1, bo_sp,
+                            lambda reporter, **p: train(reporter=reporter, steps_per_budget=1,
+                                                        **p)),
+                "process": sweep("blocked_process", "randomsearch", 3, sp, train_in_process,
+                                 pool="process")}}
+        out["leaked"] = banned_imports()
+        out["pid"] = os.getpid()
+        print(json.dumps(out))
 """)
 
 
 @pytest.mark.timeout(300)
-def test_sweep_runs_with_jax_and_maggy_tpu_blocked():
-    script = _SWEEP.format(banned=BANNED, root=ROOT)
+def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
+    # Run from a file, not with -c: a spawned runner re-imports the main
+    # module by path (as __mp_main__), which re-installs the import hook.
+    script = tmp_path / "blocked_sweeps.py"
+    script.write_text(_SWEEP.format(banned=BANNED, root=ROOT))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", script], stdout=subprocess.PIPE,
+    proc = subprocess.run([sys.executable, str(script)], stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True, timeout=280, env=env)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    # The process sweep: every trial ran in a runner process of its own
+    # (not the driver's), which saw none of the banned modules either.
+    result, outputs = out["process"]["result"], out["process"]["outputs"]
+    assert result["num_trials"] == len(outputs) == 3 and result["lost_runners"] == 0
+    assert all(o["banned"] == [] for o in outputs)
+    assert out["pid"] not in {o["pid"] for o in outputs}
     result, trials = out["asha"]["result"], out["asha"]["trials"]
     assert set(result) >= {"best_id", "best_val", "best_hp", "worst_val", "avg",
                            "num_trials", "early_stopped", "pipeline"}
