@@ -72,6 +72,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              end in another process. Prints the time from each fault to its
              requeue.
 
+After every sweep, its telemetry journal (<exp_dir>/telemetry.jsonl) is
+replayed through maggy_tpu_torch.telemetry and the sweep's line gets a
+"telemetry" field: event count, torn lines, hand-off p50/p95 per runner,
+the early-stop reaction, and the goodput ledger's buckets in seconds and
+shares. The phase fails on a missing or torn journal, a finalized-trial
+count other than result.json's, a finalized trial without queued ->
+assigned -> running -> finalized, goodput buckets that do not sum to a
+runner's held time, or result.json pipeline counts other than the
+journal's; slice_recovery also on other than 2 lost runners and 2 requeues
+or no rework. slice and slice_recovery write and validate a Perfetto
+trace. slice_process and the MNIST process sweep print each runner's
+queue wait, init and first-step time from the ledger, and slice_mnist
+reruns its thread sweep with telemetry off and on in turns, twice
+(telemetry's cost where the host sets the pace).
+
 Then the {"kernels": [...]} summary line (one entry per kernel and main
 path, each with that path's launches and times at its shape), the
 nvidia-smi line, and the last
@@ -87,6 +102,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import glob
 import json
 import math
 import os
@@ -401,6 +417,106 @@ def time_kernels(path, main):
                        bwd_pair_ms=gpu_time_ms(kernels_bwd), sdpa_bwd_ms=sdpa_bwd_ms)
 
 
+LIFECYCLE = ("queued", "assigned", "running", "finalized")
+
+
+def in_order(wanted, phases):
+    """Whether ``wanted`` occurs in ``phases`` in that order."""
+    it = iter(phases)
+    return all(any(p == w for p in it) for w in wanted)
+
+
+def journal_check(name, exp_dir, result, recovery=False, trace=False):
+    """Replay the sweep's journal and hold it to result.json; returns the
+    phase line's "telemetry" field (with the events and ledger under
+    "_events" and "_goodput" for the caller)."""
+    from maggy_tpu_torch.telemetry import derive, read_events
+    from maggy_tpu_torch.telemetry.trace import validate_trace, write_trace
+
+    paths = glob.glob(os.path.join(exp_dir, "*", "telemetry.jsonl"))
+    if len(paths) != 1:
+        raise AssertionError("{}: {} telemetry journals under {}".format(name, len(paths), exp_dir))
+    events = read_events(paths[0])
+    derived = derive(events)
+    trial_events = [e for e in events if e["ev"] == "trial"]
+    phases = {}
+    for e in trial_events:
+        phases.setdefault(e["trial"], []).append(e["phase"])
+    finals = sum(p.count("finalized") for p in phases.values())
+    gp = derived["goodput"]
+    held = gp["held_chip_s"]
+    problems = []
+    if events.torn_lines:
+        problems.append("{} torn lines".format(events.torn_lines))
+    if not finals == sum("finalized" in p for p in phases.values()) == result["num_trials"]:
+        problems.append("{} finalized events for {} trials in result.json".format(
+            finals, result["num_trials"]))
+    unordered = [t for t, p in phases.items() if "finalized" in p and not in_order(LIFECYCLE, p)]
+    if unordered:
+        problems.append("finalized without {}: {}".format(" -> ".join(LIFECYCLE), unordered))
+    for pid, p in gp["per_partition"].items():
+        if abs(sum(p["buckets"].values()) - p["held_s"]) > 1e-6 * p["held_s"]:
+            problems.append("runner {}'s buckets sum to {} of {} s held".format(
+                pid, sum(p["buckets"].values()), p["held_s"]))
+    trial_phases = [e["phase"] for e in trial_events]
+    counts = {"prefetch_hits": trial_phases.count("prefetch_hit"),
+              "prefetch_misses": trial_phases.count("prefetch_miss"),
+              "invalidated": sum(e["n"] for e in events if e["ev"] == "prefetch_invalidated"),
+              "lock_fallbacks": sum(1 for e in trial_events
+                                    if e["phase"] == "prefetch_miss" and e.get("lock_fallback"))}
+    if counts != {k: result["pipeline"][k] for k in counts}:
+        problems.append("pipeline {} against the journal's {}".format(
+            {k: result["pipeline"][k] for k in counts}, counts))
+    requeues = [e for e in trial_events if e["phase"] == "requeued"]
+    if recovery and not (trial_phases.count("lost") == 2 and len(requeues) == 2
+                         and all(e.get("reason") == "heartbeat_loss" for e in requeues)
+                         and gp["buckets"]["rework"] > 0):
+        problems.append("recovery: {} lost, requeues {}, rework {} s".format(
+            trial_phases.count("lost"), [e.get("reason") for e in requeues],
+            gp["buckets"]["rework"]))
+    partitions = sorted({e["partition"] for e in trial_events if e.get("partition") is not None})
+    out = {"events": len(events), "torn_lines": events.torn_lines,
+           "handoff_ms": {str(p): derive([e for e in trial_events
+                                          if e.get("partition") == p])["handoff"]
+                          for p in partitions},
+           "early_stop_reaction_ms": derived["early_stop_reaction"],
+           "requeue_recovery_ms": derived["requeue_recovery"],
+           "goodput": {"held_s": held,
+                       "buckets_s": {b: v for b, v in gp["buckets"].items() if v},
+                       "shares": {b: v / held for b, v in gp["buckets"].items() if v},
+                       "goodput_fraction": gp["goodput_fraction"],
+                       "unaccounted_fraction": gp["unaccounted_fraction"]}}
+    if trace:
+        path = os.path.join(os.path.dirname(paths[0]), "trace.json")
+        n = write_trace(events, path)
+        with open(path) as f:
+            if validate_trace(json.load(f)) != n:
+                problems.append("trace.json does not hold its {} events".format(n))
+        out["trace_events"] = n
+    if problems:
+        emit(name, telemetry=out)
+        raise AssertionError("{} telemetry: {}".format(name, "; ".join(problems)))
+    out["_events"], out["_goodput"] = events, gp
+    return out
+
+
+def public(telemetry):
+    return {k: v for k, v in telemetry.items() if not k.startswith("_")}
+
+
+def runner_setup(telemetry):
+    """Per runner (partition), from the goodput ledger: its queue wait
+    (registered -> first trial running) and init (Trainer.init) in s, and
+    each trial's first-step time (first broadcast less init) in ms."""
+    first_step = {}
+    for e in telemetry["_events"]:
+        if e["ev"] == "trial" and e["phase"] == "compiled" and "first_step_ms" in e:
+            first_step.setdefault(str(e["partition"]), []).append(e["first_step_ms"])
+    return {str(pid): {"queue_wait_s": p["buckets"]["queue_wait"], "init_s": p["buckets"]["init"],
+                       "first_step_ms": first_step.get(str(pid), [])}
+            for pid, p in sorted(telemetry["_goodput"]["per_partition"].items())}
+
+
 def make_dataset(vocab, n_batches, seed):
     """Token batches made from ``seed``: BERT-base's vocabulary, padded
     length 128, each row's true length drawn from [16, 128]; label =
@@ -672,6 +788,7 @@ def phase_slice(exp_dir):
     result, wall, records, launches = bert_asha_sweep(exp_dir, "thread")
     trials, promoted, total_steps, expected = check_bert_sweep(
         "slice", result, exp_dir, records, launches)
+    telemetry = journal_check("slice", os.path.join(exp_dir, "exp"), result, trace=True)
     step_ms = [r["step_ms"] for r in records]
 
     # The swept model against the same weights on the CPU (reference
@@ -709,8 +826,9 @@ def phase_slice(exp_dir):
          expected_launches_each=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)),
          step_ms_alone=alone_ms, step_profile=profile, time_split=time_split(records),
-         pipeline=pipeline_summary(result["pipeline"]), logits_max_abs_err=logit_err,
-         logits_tol=logit_tol, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         pipeline=pipeline_summary(result["pipeline"]), telemetry=public(telemetry),
+         logits_max_abs_err=logit_err, logits_tol=logit_tol,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches, float(np.median(step_ms))
 
 
@@ -728,6 +846,7 @@ def phase_slice_process(exp_dir, thread_step_ms):
                              "{}".format(driver_launches))
     trials, promoted, total_steps, expected = check_bert_sweep(
         "slice_process", result, exp_dir, records, launches)
+    telemetry = journal_check("slice_process", os.path.join(exp_dir, "exp"), result)
     pids = sorted({r["pid"] for r in records})
     if os.getpid() in pids:
         raise AssertionError("trials ran in the driver process {}, not only in runner "
@@ -740,8 +859,9 @@ def phase_slice_process(exp_dir, thread_step_ms):
          thread_step_ms_in_sweep_median=thread_step_ms,
          runner_peak_mem_gb={str(pid): max(r["peak_mem_gb"] for r in records if r["pid"] == pid)
                              for pid in pids},
-         time_split=time_split(records), lost_runners=result["lost_runners"],
-         pipeline=pipeline_summary(result["pipeline"]))
+         time_split=time_split(records), runner_setup=runner_setup(telemetry),
+         lost_runners=result["lost_runners"], pipeline=pipeline_summary(result["pipeline"]),
+         telemetry=public(telemetry))
     return launches
 
 
@@ -842,6 +962,7 @@ def phase_slice_bo(exp_root, asha_step_ms):
         launches = A.launch_counts()
         trials = read_trials(exp_dir)
         pipe = result["pipeline"]
+        telemetry = journal_check("slice_bo " + name, exp_dir, result)
         types = [t["info_dict"]["sample_type"] for t in trials]
         total_steps = sum(steps_taken)
         expected = cfg.num_layers * total_steps
@@ -854,7 +975,7 @@ def phase_slice_bo(exp_root, asha_step_ms):
             "expected_launches_each": expected, "sweep_wall_s": wall,
             "step_ms_median": float(np.median(step_ms[32] + step_ms[64])),
             "step_ms_median_by_batch": {b: float(np.median(v)) for b, v in step_ms.items() if v},
-            **pipeline_summary(pipe)}
+            **pipeline_summary(pipe), "telemetry": public(telemetry)}
         emit("slice_bo_sweep", sweep=name, controller=type(optimizer).__name__, **summary)
         problems = []
         if not (len(trials) == result["num_trials"] == expected_trials
@@ -1029,6 +1150,7 @@ def phase_slice_llama(exp_dir):
     if launches != expected:
         raise AssertionError("launches {} != {} (remat: the forward twice per layer and "
                              "step)".format(launches, expected))
+    telemetry = journal_check("slice_llama", exp_dir, result)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1121,7 +1243,7 @@ def phase_slice_llama(exp_dir):
          launches=launches, expected_launches=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)), step_ms_alone=alone_ms,
          step_profile=profile, pipeline=pipeline_summary(result["pipeline"]),
-         full_width=full_width, chunked_loss_ms=loss_ms,
+         telemetry=public(telemetry), full_width=full_width, chunked_loss_ms=loss_ms,
          mm_out_dtype_differentiable=mm_out_dtype_differentiable,
          peak_mem_sweep_gb=peak_sweep / 1e9,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1206,13 +1328,34 @@ def phase_slice_mnist(exp_root):
         raise AssertionError("MNIST CNN logits off the CPU path: {} > {}".format(
             logit_err, logit_tol))
     sweeps = {}
-    for pool in ("thread", "process"):
-        name = "slice_mnist/" + pool
-        result, wall, trials, records = mnist_sweep(os.path.join(exp_root, pool), pool)
+    # Then the thread sweep with telemetry off and on in turns, twice: its
+    # cost where the host sets the pace, both sides warm.
+    pairs = [("thread_telemetry_{}_{}".format("on" if on else "off", i), "thread", on)
+             for i in (1, 2) for on in (False, True)]
+    for label, pool, on in [("thread", "thread", True), ("process", "process", True)] + pairs:
+        name = "slice_mnist/" + label
+        exp_dir = os.path.join(exp_root, label)
+        result, wall, trials, records = mnist_sweep(exp_dir, pool, telemetry=on)
         check_mnist_sweep(name, pool, result, trials, records)
-        sweeps[pool] = mnist_summary(result, wall, trials, records)
+        sweeps[label] = mnist_summary(result, wall, trials, records)
+        if on:
+            telemetry = journal_check(name, os.path.join(exp_dir, "exp"), result)
+            sweeps[label]["telemetry"] = public(telemetry)
+            if pool == "process":
+                sweeps[label]["runner_setup"] = runner_setup(telemetry)
+        elif glob.glob(os.path.join(exp_dir, "exp", "*", "telemetry.jsonl*")):
+            raise AssertionError("{}: a journal was written with telemetry off".format(name))
+    cost = {label: {"sweep_wall_s": sweeps[label]["sweep_wall_s"],
+                    "wall_ms_per_step": 1e3 * sweeps[label]["sweep_wall_s"] / sweeps[label]["steps"],
+                    **{k: sweeps[label][k] for k in ("step_ms_in_sweep_median", "trials_finished",
+                                                     "steps")}}
+            for label, _, _ in pairs}
+    for on in ("off", "on"):
+        runs = [v for k, v in cost.items() if "_{}_".format(on) in k]
+        cost["median_" + on] = {k: float(np.median([r[k] for r in runs]))
+                                for k in ("wall_ms_per_step", "step_ms_in_sweep_median")}
     emit("slice_mnist", logits_max_abs_err=logit_err, logits_tol=logit_tol,
-         tf32=torch.backends.cudnn.allow_tf32, **sweeps)
+         tf32=torch.backends.cudnn.allow_tf32, telemetry_cost=cost, **sweeps)
 
 
 def phase_slice_recovery(exp_dir):
@@ -1253,9 +1396,11 @@ def phase_slice_recovery(exp_dir):
     killed = result["recovery"]["killed"]
     if faults["wedge"].get("partition") not in killed:
         problems.append("the frozen runner was not killed (killed: {})".format(killed))
+    telemetry = journal_check("slice_recovery", os.path.join(exp_dir, "sweep", "exp"), result,
+                              recovery=True, trace=True)
     emit("slice_recovery", faults=faults, killed=killed, loss_timeout_s=RECOVERY_LOSS_TIMEOUT_S,
          stale_finals_dropped=result["recovery"]["stale_finals_dropped"],
-         **mnist_summary(result, wall, trials, records))
+         telemetry=public(telemetry), **mnist_summary(result, wall, trials, records))
     if problems:
         raise AssertionError("slice_recovery: {}".format("; ".join(problems)))
 

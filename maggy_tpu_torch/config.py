@@ -3,9 +3,9 @@
 The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` (with the
 heartbeat-loss shape) and `OptimizationConfig` with the fields of a
 single-host sweep over thread, process or GPU-pinned process runners, with
-heartbeat-loss requeue. Fleet, gang, vmap, fork, chaos, observability and
-resume fields are absent, so passing one is a TypeError rather than a
-silently ignored knob. Parity: reference `maggy/experiment_config.py:18-50`.
+heartbeat-loss requeue and the telemetry journal. Fleet, gang, vmap, fork,
+chaos, observability and resume fields are absent, so passing one is a
+TypeError rather than a silently ignored knob. Parity: reference `maggy/experiment_config.py:18-50`.
 """
 
 from __future__ import annotations
@@ -25,12 +25,18 @@ _UNPORTED_POOLS = ("elastic", "remote")
 class LagomConfig:
     """Base config (reference `experiment_config.py:18-23`). A runner is
     declared lost after max(hb_loss_min_s, hb_interval * hb_loss_factor)
-    seconds of silence unless the experiment sets ``hb_loss_timeout``."""
+    seconds of silence unless the experiment sets ``hb_loss_timeout``.
+    ``telemetry`` writes the experiment's journal, ``<exp_dir>/
+    telemetry.jsonl`` (``maggy_tpu/config.py:31-36``); with it off, no
+    journal is written and result.json's event-derived counts (prefetch
+    hits and misses, suggest latencies, hand-off gaps, requeues) are
+    empty."""
 
     name: str = "maggyTpuTorchExperiment"
     hb_interval: float = constants.DEFAULT_HEARTBEAT_INTERVAL_S
     hb_loss_factor: float = constants.HEARTBEAT_LOSS_FACTOR
     hb_loss_min_s: float = constants.HEARTBEAT_LOSS_MIN_S
+    telemetry: bool = True
 
     def resolved_hb_loss_timeout(self) -> float:
         """Seconds of heartbeat silence before a runner is declared lost:

@@ -7,9 +7,12 @@ worker thread dispatching to registered callbacks (:59-61,140-158), and the
 lifecycle startup -> register -> serve -> fan out runners -> finalize ->
 stop (:81-117)). Runner deaths are survivable once the survivors have
 finished the schedule (their trials requeue through heartbeat-loss
-detection, ``maggy_tpu/core/driver/driver.py:281-292``). The telemetry
-journal, chaos, health, observability, fleet leasing and crash recovery of
-the JAX package are not ported yet.
+detection, ``maggy_tpu/core/driver/driver.py:281-292``). The driver owns
+the experiment's telemetry (JAX `driver.py:95-133, :404-423`): the journal
+``<exp_dir>/telemetry.jsonl``, attached to the RPC server, with the
+``driver_epoch`` and ``experiment`` start/end events, closed on stop.
+Chaos, health, observability, fleet leasing and crash recovery (and with
+it the journal's resume) of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import traceback
 from typing import Any, Callable, Dict, Optional
 
 from maggy_tpu_torch.core.environment import EnvSing
+from maggy_tpu_torch.telemetry import JOURNAL_NAME, Telemetry
 
 
 class Driver:
@@ -51,6 +55,16 @@ class Driver:
         self.exp_dir = self.env.register_experiment(
             app_id, run_id, {"name": self.name, "type": type(self).__name__},
             base_dir=config.experiment_dir)
+        # Record paths are buffer-only (the journal flushes on its own
+        # daemon thread): attaching it costs the message hot path no I/O.
+        self.telemetry = Telemetry(env=self.env, journal_path=self.exp_dir + "/" + JOURNAL_NAME,
+                                   enabled=config.telemetry)
+        self.server.telemetry = self.telemetry
+        # The first incarnation, 1-based as in the JAX package: the port has
+        # no driver recovery, so it is the only one.
+        self.telemetry.event("driver_epoch", epoch=1)
+        self.telemetry.event("experiment", phase="start", name=self.name,
+                             driver=type(self).__name__, app_id=app_id, run_id=run_id)
         self._register_msg_callbacks()
 
     # ------------------------------------------------------------- template
@@ -139,6 +153,8 @@ class Driver:
         if self._worker_thread is not None:
             self._worker_thread.join(timeout=5)
         self.server.stop()
+        self.telemetry.event("experiment", phase="end")
+        self.telemetry.close()
 
     # ------------------------------------------------------------- services
 

@@ -15,10 +15,15 @@ Heartbeat-loss recovery (JAX `:644-697, :847-868, :1381-1407`): a runner
 silent for the resolved loss timeout while holding a trial is declared lost,
 its trial is reset and requeued ahead of fresh suggestions, the pool kills
 the runner where it can, and a FINAL from the revoked run (stale run epoch,
-or the trial still waiting in the requeue) is dropped. Gangs, vmap blocks,
-forks, preemption, resume and telemetry are not ported yet; the pipeline's
-and the recovery's counters are plain numbers in ``progress_snapshot`` and
-result.json, and the recovery's events are ``maggy.log`` lines.
+or the trial still waiting in the requeue) is dropped. Every trial's
+life is journaled as in the JAX package (`:521-590, :665-697, :1213-1321,
+:1426, :2011-2031, :2293-2299`): ``suggested``, ``queued`` (minting the
+span), ``assigned``, ``first_metric``, ``stop_flagged``, ``finalized``,
+``lost`` and ``requeued``, with ``suggest`` latency events and prefetch
+invalidations beside them. result.json's ``pipeline``, ``lost_runners``
+and ``recovery`` blocks are read back from that telemetry: its metric
+registry and its span events. Gangs, vmap blocks, forks, preemption and
+resume are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +57,11 @@ def _lazy_tpe(**kwargs):
 
     return TPE(**kwargs)
 
+
+#: Registry names: suggest() calls per calling thread, runners killed per
+#: partition.
+_SUGGEST_CALLS = "controller.suggest_calls."
+_KILLED = "recovery.killed.p"
 
 # "gp"/"tpe" resolve lazily: the BO stack pulls scipy, which experiments
 # that never use it need not import.
@@ -94,13 +104,10 @@ class OptimizationDriver(Driver):
 
         self.result = {"best_id": None, "best_val": None, "best_hp": None,
                        "worst_id": None, "worst_val": None, "worst_hp": None,
-                       "avg": None, "num_trials": 0, "early_stopped": 0,
-                       "lost_runners": 0,
-                       # Heartbeat-loss recovery: each requeue (trial,
-                       # partition, wall time), stale FINALs dropped, and the
-                       # runners the pool killed.
-                       "recovery": {"requeued": [], "stale_finals_dropped": 0,
-                                    "killed": []}}
+                       "avg": None, "num_trials": 0, "early_stopped": 0}
+        # Serializes the refresh of result.json's telemetry-derived blocks.
+        self._result_lock = threading.Lock()
+        self._refresh_recovery()
         self.job_start: Optional[float] = None
         self.maggy_log = ""
         self.server.hb_loss_timeout = config.resolved_hb_loss_timeout()
@@ -115,10 +122,6 @@ class OptimizationDriver(Driver):
         # >0 while the FINAL fast path runs on the RPC thread: an expensive
         # suggest() must then wait for the suggester instead.
         self._inline_depth = 0  # guarded-by: _sched_lock
-        self._stats_lock = threading.Lock()
-        self._stats = {"suggest_ms": {"prefetch": [], "inline": []},  # guarded-by: _stats_lock
-                       "suggest_threads": {}, "hits": set(), "misses": set(),
-                       "invalidated": 0, "lock_fallbacks": 0, "handoff_ms": {}}
         self._suggester_thread: Optional[threading.Thread] = None
         if self._prefetch_enabled:
             self._suggester_thread = threading.Thread(
@@ -206,6 +209,11 @@ class OptimizationDriver(Driver):
             return
         with trial.lock:
             n_steps = len(trial.step_history)
+        if n_steps == 1:
+            # Time to first signal: running -> first_metric is the trial's
+            # start-up cost as the control plane sees it.
+            self.telemetry.trial_event(trial.trial_id, "first_metric",
+                                       partition=msg.get("partition_id"))
         with self._store_lock:
             final_snapshot = list(self._final_store)
         if len(final_snapshot) < self.es_min or n_steps % self.es_interval != 0:
@@ -217,6 +225,9 @@ class OptimizationDriver(Driver):
             if not t.get_early_stop():
                 t.set_early_stop()
                 self.result["early_stopped"] += 1
+                # The early-stop reaction's opening edge; its closing edge
+                # is this trial's "finalized".
+                self.telemetry.trial_event(t.trial_id, "stop_flagged")
 
     def process_final_inline(self, msg) -> bool:
         """RPC-thread FINAL fast path: finalize the trial, report it, drop
@@ -229,9 +240,11 @@ class OptimizationDriver(Driver):
         if not self._prefetch_enabled or self.worker_done:
             return False
         if not self._sched_lock.acquire(timeout=constants.PREFETCH_FINAL_LOCK_TIMEOUT_S):
-            with self._stats_lock:
-                self._stats["lock_fallbacks"] += 1
-            self.note_prefetch_miss(msg.get("trial_id"))
+            self.telemetry.metrics.counter("prefetch.lock_fallbacks").inc()
+            # This hand-off really falls back to GET polling: a miss, marked
+            # so the journal counts the lock fallbacks too.
+            self.telemetry.trial_event(msg.get("trial_id"), "prefetch_miss", once=True,
+                                       partition=int(msg["partition_id"]), lock_fallback=True)
             return False
         try:
             self._inline_depth += 1
@@ -266,8 +279,8 @@ class OptimizationDriver(Driver):
             # the requeue is authoritative and the re-run's FINAL counts.
             # The server cleared no assignment for it, so the runner still
             # needs work.
-            with self._stats_lock:
-                self.result["recovery"]["stale_finals_dropped"] += 1
+            self.telemetry.metrics.counter("recovery.stale_finals_dropped").inc()
+            self._refresh_recovery()
             self._log("dropping stale FINAL for requeued trial {} from runner {}".format(
                 trial.trial_id, msg["partition_id"]))
             if self.server.reservations.get_assigned_trial(msg["partition_id"]) is None:
@@ -281,6 +294,11 @@ class OptimizationDriver(Driver):
                 trial.status = Trial.FINALIZED
                 trial.final_metric = float(msg["value"])
             trial.duration = time.time() - trial.start if trial.start else None
+            was_error, was_early_stop = trial.status == Trial.ERROR, trial.early_stop
+        # The hand-off gap's opening edge and the early-stop reaction's
+        # closing edge, journaled before the next assignment.
+        self.telemetry.trial_event(trial.trial_id, "finalized", partition=msg.get("partition_id"),
+                                   early_stop=was_early_stop, error=was_error)
         with self._store_lock:
             self._trial_store.pop(trial.trial_id, None)
             self._final_store.append(trial)
@@ -326,17 +344,21 @@ class OptimizationDriver(Driver):
             with self._store_lock:
                 if trial.trial_id not in self._requeue:
                     self._requeue.append(trial.trial_id)
-            with self._stats_lock:
-                self.result["lost_runners"] += 1
-                self.result["recovery"]["requeued"].append(
-                    {"trial_id": trial.trial_id, "partition": pid, "at": time.time()})
+            self.telemetry.trial_event(trial.trial_id, "lost", partition=pid)
+            # The explicit requeue edge recovery latency derives from.
+            self.telemetry.trial_event(trial.trial_id, "requeued", partition=pid,
+                                       reason="heartbeat_loss")
+            self.telemetry.metrics.counter("recovery.lost_runners").inc()
+            self._refresh_recovery()
         self._log("runner {} heartbeat lost; trial {} requeued for reassignment".format(
             pid, trial.trial_id))
         pool = self._active_pool
         if pool is not None and pool.kill_worker(pid):
-            with self._stats_lock:
-                self.result["recovery"]["killed"].append(pid)
+            self.telemetry.metrics.counter("recovery.killed.p{}".format(pid)).inc()
+            self._refresh_recovery()
             self._log("runner {} killed after heartbeat loss (presumed wedged)".format(pid))
+        # The dead runner's live gauges must not outlive it.
+        self.telemetry.prune_partition(pid)
 
     def _pop_requeue(self) -> Optional[Trial]:
         """The oldest requeued trial still in the store."""
@@ -392,8 +414,8 @@ class OptimizationDriver(Driver):
             requeued = self._pop_requeue()
             if requeued is not None:
                 self.server.reservations.assign_trial(partition_id, requeued.trial_id)
-                self._log("requeued trial {} assigned to runner {}".format(
-                    requeued.trial_id, partition_id))
+                self.telemetry.trial_event(requeued.trial_id, "assigned",
+                                           partition=partition_id, requeue="backlog")
                 return
             if last_trial is None:
                 suggestion = self._next_suggestion() if self._prefetch_enabled else \
@@ -409,6 +431,7 @@ class OptimizationDriver(Driver):
         if suggestion == "IDLE":
             self._rearm_idle(partition_id)
             return
+        self._mint_span(suggestion)
         with self._store_lock:
             # Prefetched suggestions entered the store at admission and come
             # back here at dispatch: only another object is a collision.
@@ -419,6 +442,21 @@ class OptimizationDriver(Driver):
                       "the schedule may lose an entry".format(suggestion.trial_id))
         suggestion.set_status(Trial.SCHEDULED)
         self.server.reservations.assign_trial(partition_id, suggestion.trial_id)
+        self.telemetry.trial_event(suggestion.trial_id, "assigned", partition=partition_id)
+
+    def _mint_span(self, trial: Trial) -> None:
+        """Mint the trial's span when the driver commits to it ("queued")
+        and plant the span id in its info_dict: the TRIAL reply ships info,
+        so the span travels to the runner and back on its METRICs. The
+        queued edge carries the trial's params and scheduler info."""
+        with trial.lock:
+            sched_info = {k: v for k, v in trial.info_dict.items()
+                          if k not in ("span", "partition", "epoch")}
+        span = self.telemetry.trial_event(trial.trial_id, "queued", params=trial.params,
+                                          trial_type=trial.trial_type, info=sched_info)
+        if span is not None:
+            with trial.lock:
+                trial.info_dict["span"] = span
 
     # ------------------------------------------- pipelined hand-off (prefetch)
 
@@ -456,17 +494,22 @@ class OptimizationDriver(Driver):
 
     def _timed(self, source: str, suggest):
         """Call the controller's ``suggest`` (or ``get_suggestion``) and
-        count it: the calling thread's name always, the latency in ms for a
-        materialized trial."""
-        t0 = time.perf_counter()
+        record it (JAX `:1213-1225`): the calling thread's call count and
+        the latency histogram always; for a materialized trial a
+        ``suggest`` event with its latency and source and, on the split
+        contract (prefetch on), the trial's ``suggested`` span edge."""
+        t0 = time.monotonic()
         suggestion = suggest()
-        ms = (time.perf_counter() - t0) * 1e3
-        name = threading.current_thread().name
-        with self._stats_lock:
-            threads = self._stats["suggest_threads"]
-            threads[name] = threads.get(name, 0) + 1
-            if suggestion not in (None, "IDLE"):
-                self._stats["suggest_ms"][source].append(ms)
+        ms = (time.monotonic() - t0) * 1e3
+        self.telemetry.metrics.counter(
+            _SUGGEST_CALLS + threading.current_thread().name).inc()
+        self.telemetry.observe_ms("controller.suggest_ms", ms)
+        if suggestion in (None, "IDLE"):
+            return suggestion
+        self.telemetry.event("suggest", ms=round(ms, 3), source=source,
+                             trial=suggestion.trial_id)
+        if self._prefetch_enabled:
+            self.telemetry.trial_event(suggestion.trial_id, "suggested")
         return suggestion
 
     # locked-by: _sched_lock
@@ -498,8 +541,9 @@ class OptimizationDriver(Driver):
                 self._trial_store.pop(trial.trial_id, None)
             self.controller.recycle(trial)
         if stale:
-            with self._stats_lock:
-                self._stats["invalidated"] += len(stale)
+            self.telemetry.event("prefetch_invalidated", n=len(stale), version=version,
+                                 trials=[t.trial_id for t in stale])
+            self.telemetry.metrics.counter("prefetch.invalidated").inc(len(stale))
             self._suggest_wake.set()
 
     # locked-by: _sched_lock
@@ -518,32 +562,49 @@ class OptimizationDriver(Driver):
             return "IDLE"
         return self._timed("inline", self.controller.suggest)
 
-    def note_prefetch_hit(self, trial_id: str) -> None:
-        """A FINAL reply carried the runner's next trial (counted once per
-        dispatched trial, however many times a retried FINAL re-serves it)."""
-        with self._stats_lock:
-            self._stats["hits"].add(trial_id)
-
-    def note_prefetch_miss(self, trial_id: str) -> None:
-        """A FINAL's runner falls back to GET polling for its next trial."""
-        with self._stats_lock:
-            self._stats["misses"].add(trial_id)
-
-    def note_handoff(self, partition_id: int, ms: float) -> None:
-        """The gap from a runner's FINAL reaching the server to its next
-        TRIAL leaving it (on the FINAL reply or a GET reply)."""
-        with self._stats_lock:
-            self._stats["handoff_ms"].setdefault(str(partition_id), []).append(ms)
-
     def pipeline_snapshot(self) -> Dict[str, Any]:
-        with self._stats_lock:
-            s = self._stats
-            return {"prefetch": self._prefetch_enabled,
-                    "suggest_ms": {k: list(v) for k, v in s["suggest_ms"].items()},
-                    "suggest_threads": dict(s["suggest_threads"]),
-                    "prefetch_hits": len(s["hits"]), "prefetch_misses": len(s["misses"]),
-                    "invalidated": s["invalidated"], "lock_fallbacks": s["lock_fallbacks"],
-                    "handoff_ms": {k: list(v) for k, v in s["handoff_ms"].items()}}
+        """The hand-off pipeline's numbers, read back from the telemetry:
+        counters from its registry; prefetch hits and misses, suggest
+        latencies by source and hand-off gaps by runner from its events."""
+        counters = self.telemetry.metrics.snapshot()["counters"]
+        suggest_ms = {"prefetch": [], "inline": []}
+        handoff_ms: Dict[str, List[float]] = {}
+        hits = misses = 0
+        for ev in self.telemetry.events():
+            if ev.get("ev") == "suggest":
+                suggest_ms[ev["source"]].append(ev["ms"])
+            elif ev.get("ev") != "trial":
+                continue
+            elif ev["phase"] == "prefetch_hit":
+                hits += 1
+            elif ev["phase"] == "prefetch_miss":
+                misses += 1
+            elif ev["phase"] == "running" and "handoff_ms" in ev:
+                handoff_ms.setdefault(str(ev["partition"]), []).append(ev["handoff_ms"])
+        return {"prefetch": self._prefetch_enabled, "suggest_ms": suggest_ms,
+                "suggest_threads": {k[len(_SUGGEST_CALLS):]: n for k, n in counters.items()
+                                    if k.startswith(_SUGGEST_CALLS)},
+                "prefetch_hits": hits, "prefetch_misses": misses,
+                "invalidated": counters.get("prefetch.invalidated", 0),
+                "lock_fallbacks": counters.get("prefetch.lock_fallbacks", 0),
+                "handoff_ms": handoff_ms}
+
+    def _refresh_recovery(self) -> None:
+        """result's ``lost_runners`` and ``recovery`` blocks, read back from
+        the telemetry: counters from its registry, each requeue (trial,
+        partition, wall time) from its ``requeued`` span events."""
+        with self._result_lock:
+            counters = self.telemetry.metrics.snapshot()["counters"]
+            killed = sorted(int(k[len(_KILLED):]) for k in counters if k.startswith(_KILLED))
+            requeued = [{"trial_id": ev["trial"], "partition": ev["partition"], "at": ev["t"]}
+                        for ev in self.telemetry.events()
+                        if ev.get("ev") == "trial" and ev["phase"] == "requeued"
+                        and ev.get("reason") == "heartbeat_loss"]
+            self.result["lost_runners"] = counters.get("recovery.lost_runners", 0)
+            self.result["recovery"] = {
+                "requeued": requeued,
+                "stale_finals_dropped": counters.get("recovery.stale_finals_dropped", 0),
+                "killed": killed}
 
     def stop(self) -> None:
         # Retire the suggester before the base teardown: it must not refill
@@ -582,11 +643,16 @@ class OptimizationDriver(Driver):
         self.controller.finalize_experiment(finalized)
         duration = job_end - (self.job_start or job_end)
         self.result["duration_s"] = duration
+        self._refresh_recovery()
         self.result["pipeline"] = self.pipeline_snapshot()
         self.env.dump(json.dumps(self.result, indent=2, default=str),
                       self.exp_dir + "/result.json")
         util.build_summary(self.exp_dir, self.env)
         self.maggy_log = self._result_summary(duration)
+        # The journal is durable at the finish line: the flusher's cadence
+        # must not decide whether the last trials' spans land.
+        self.telemetry.event("experiment", phase="finalized", duration_s=duration)
+        self.telemetry.flush()
         self.env.finalize_experiment(
             self.exp_dir, "FINISHED",
             {"result": {k: self.result[k] for k in

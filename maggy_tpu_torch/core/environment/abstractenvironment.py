@@ -70,6 +70,13 @@ class LocalEnv:
         with open(path) as f:
             return f.read()
 
+    def delete(self, path: str) -> None:
+        """Remove a file; a missing one is not an error."""
+        try:
+            os.unlink(path)
+        except FileNotFoundError:
+            pass
+
     def open_file(self, path: str, mode: str = "r"):
         if "w" in mode or "a" in mode:
             os.makedirs(os.path.dirname(path), exist_ok=True)

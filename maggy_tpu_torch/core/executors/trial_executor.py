@@ -10,6 +10,10 @@ the top of the loop is wire-free, and every FINAL echoes the run epoch of
 its assignment, so the driver can drop a FINAL of a run it requeued. A
 ``BaseException`` from ``train_fn`` ends the runner: its heartbeats stop,
 and the driver's heartbeat-loss scan requeues the trial onto a survivor.
+Each executor owns one ``RunnerStats`` (JAX `trial_executor.py:136-200`):
+the reporter counts broadcasts into it, the client ships its deltas on the
+heartbeats, and each trial runs inside ``warm.trial_scope`` between
+``trial_start`` and ``trial_end``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from maggy_tpu_torch.core.environment import EnvSing
 from maggy_tpu_torch.core.reporter import Reporter
 from maggy_tpu_torch.core.rpc import Client
 from maggy_tpu_torch.exceptions import EarlyStopException
+from maggy_tpu_torch.telemetry.runnerstats import RunnerStats
+from maggy_tpu_torch.train import warm
 
 
 class TrialExecutor:
@@ -43,6 +49,9 @@ class TrialExecutor:
         reporter = Reporter(
             log_file="{}/executor_{}.log".format(self.exp_dir, partition_id))
         client = Client(self.server_addr, partition_id, self.hb_interval, self.secret)
+        stats = RunnerStats()
+        reporter.stats = stats
+        client.runner_stats = stats
         try:
             client.register()
             client.start_heartbeat(reporter)
@@ -54,12 +63,15 @@ class TrialExecutor:
                 trial_dir = "{}/{}".format(self.exp_dir, trial_id)
                 env.mkdir(trial_dir)
                 env.dump(util.json_dumps_safe(params), trial_dir + "/.hparams.json")
-                reporter.reset(trial_id=trial_id)
+                # The driver-minted span rides the TRIAL info.
+                reporter.reset(trial_id=trial_id, span=client.last_info.get("span"))
+                stats.trial_start(trial_id)
                 call_params = dict(params)
                 if wants_reporter:
                     call_params["reporter"] = reporter
                 try:
-                    retval = self.train_fn(**call_params)
+                    with warm.trial_scope(trial_id=trial_id, stats=stats):
+                        retval = self.train_fn(**call_params)
                     metric = util.handle_return_val(retval, trial_dir,
                                                     self.optimization_key, env)
                     client.finalize_metric(metric, reporter)
@@ -71,6 +83,8 @@ class TrialExecutor:
                 except Exception:  # noqa: BLE001 - report the trial error, keep the runner
                     reporter.log("Trial {} failed:\n{}".format(trial_id, traceback.format_exc()))
                     client.finalize_error(trial_id, reporter)
+                finally:
+                    stats.trial_end(trial_id)
         finally:
             client.stop()
 

@@ -6,7 +6,9 @@ checks, monotonic steps, latest-value store, and raising
 `EarlyStopException` inside the training loop once the driver's STOP reply
 set the flag (:78-102); `log()` buffered for heartbeat shipping (:104-133);
 `get_data()` drain (:135-141); `reset()` between trials (:143-156);
-`early_stop()` armed only after a reported metric (:158-161).
+`early_stop()` armed only after a reported metric (:158-161). Each
+broadcast is counted in the runner's telemetry stats when the user makes it
+(``maggy_tpu/core/reporter.py:115``).
 
 A 0-d or one-element torch tensor is accepted as a metric and kept LAZY:
 the training thread never waits on the device. The heartbeat thread starts
@@ -47,6 +49,12 @@ class Reporter:
         self.metric = None  # guarded-by: lock
         self.step: Optional[int] = None  # guarded-by: lock
         self.trial_id: Optional[str] = None  # guarded-by: lock
+        # Telemetry span the driver minted for this trial (rides the TRIAL
+        # info); every METRIC of the trial carries it.
+        self.span: Optional[str] = None  # guarded-by: lock
+        # Runner-side stat buffer (telemetry.runnerstats.RunnerStats), set
+        # by the trial executor; None outside an experiment.
+        self.stats = None
         self._stop_flag = False  # guarded-by: lock
         self._log_buffer: List[str] = []  # guarded-by: lock
         self._log_file = log_file
@@ -86,6 +94,13 @@ class Reporter:
                 raise exceptions.BroadcastStepValueError(step, self.step)
             self.metric = float(metric) if isinstance(metric, (int, np.number)) else metric
             self.step = int(step)
+            stats = self.stats
+            if stats is not None:
+                # Counts the broadcast when the user makes it, before the
+                # stop check so the early-stopped step counts too. Pure
+                # arithmetic on the host clock: a lazy CUDA metric stays
+                # un-synced.
+                stats.on_broadcast(self.step)
             if self._stop_flag:
                 raise exceptions.EarlyStopException(self._materialize(self.metric))
 
@@ -126,7 +141,9 @@ class Reporter:
         with self.lock:
             logs = self._log_buffer
             self._log_buffer = []
-        return {"metric": metric, "step": step, "logs": logs, "trial_id": tid}
+            span = self.span if self.trial_id == tid else None
+        return {"metric": metric, "step": step, "logs": logs, "trial_id": tid,
+                "span": span}
 
     def _poll_device(self, metric, step, tid, cached):
         """Non-blocking read of a CUDA metric: start its host copy, or read
@@ -159,12 +176,13 @@ class Reporter:
             if self.metric is not None:
                 self._stop_flag = True
 
-    def reset(self, trial_id: Optional[str] = None) -> None:
+    def reset(self, trial_id: Optional[str] = None, span: Optional[str] = None) -> None:
         with self.lock:
             self.metric = None
             self.step = None
             self._stop_flag = False
             self._log_buffer = []
             self.trial_id = trial_id
+            self.span = span
             self._metric_cache = None
             self._copy = None

@@ -10,6 +10,15 @@ tick) and the runner `Client`, whose FINAL echoes the run epoch of the
 assignment it finishes. Parity: reference `maggy/core/rpc.py` (:35-113,
 :116-162, :250-286, :295-437, :440-593).
 
+Telemetry rides the same places as in the JAX package (`rpc.py:433-488,
+:663-675, :1306-1529, :1918-1925`): the TELEM verb answers with the
+driver's telemetry snapshot, every verb's service time lands in an
+``rpc.handle_ms.<verb>`` histogram, the server journals runner
+registration and the ``running``, ``stop_sent`` and ``prefetch_hit`` /
+``prefetch_miss`` span phases, and the client ships its ``RunnerStats``
+deltas on the heartbeat METRIC (``rstats``) with the beat's round-trip
+time. Every record path only appends to memory.
+
 Wire layout as in the JAX package: 4-byte big-endian length, 32-byte
 HMAC-SHA256 of the payload under the experiment secret, payload. The payload
 is JSON (the JAX package uses msgpack); every frame is a fixed-schema map of
@@ -168,6 +177,9 @@ class Server:
     dispatched to ``_handlers``; an unknown verb gets an ERR reply."""
 
     def __init__(self, secret: Optional[str] = None):
+        # Telemetry facade (maggy_tpu_torch.telemetry.Telemetry), attached
+        # by the driver. None = no TELEM verb, no verb timing.
+        self.telemetry = None
         self.secret_hex = secret or pysecrets.token_hex(16)
         self.secret = self.secret_hex.encode()
         self.reservations = Reservations()
@@ -180,6 +192,15 @@ class Server:
 
     def _register_handlers(self) -> None:
         """Subclasses add their verbs."""
+        self._handlers["TELEM"] = self._telem
+
+    def _telem(self, msg):
+        """The telemetry snapshot: live metric registry and span-derived
+        scheduling numbers, under the same per-message HMAC as every verb."""
+        telem = self.telemetry
+        if telem is None or not telem.enabled:
+            return {"type": "ERR", "error": "telemetry is not enabled for this experiment"}
+        return {"type": "TELEM", **telem.snapshot()}
 
     def start(self, host: str = "127.0.0.1", port: int = 0) -> Tuple[str, int]:
         srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -240,9 +261,7 @@ class Server:
     def _dispatch(self, conn, payload: bytes):
         try:
             msg = json.loads(payload)
-            handler = self._handlers.get(msg.get("type"))
-            resp = handler(msg) if handler is not None \
-                else {"type": "ERR", "error": "unknown message type"}
+            resp = self.handle_message(msg)
         except Exception as e:  # noqa: BLE001 - a bad message must never kill the loop
             resp = {"type": "ERR", "error": "handler error: {!r}".format(e)}
         try:
@@ -251,6 +270,21 @@ class Server:
             conn.setblocking(False)
         except OSError:
             self._drop(conn)
+
+    def handle_message(self, msg: Dict[str, Any]) -> Dict[str, Any]:
+        """Handler lookup and the verb's service time, recorded even when
+        the handler raises (``maggy_tpu/core/rpc.py:663-675``)."""
+        handler = self._handlers.get(msg.get("type"))
+        if handler is None:
+            return {"type": "ERR", "error": "unknown message type"}
+        t0 = time.monotonic()
+        try:
+            return handler(msg)
+        finally:
+            telem = self.telemetry
+            if telem is not None:
+                telem.observe_ms("rpc.handle_ms.{}".format(msg.get("type")),
+                                 (time.monotonic() - t0) * 1e3)
 
     def _drop(self, conn):
         self._buffers.pop(conn, None)
@@ -301,6 +335,7 @@ class OptimizationServer(Server):
         self.driver = driver
 
     def _register_handlers(self) -> None:
+        super()._register_handlers()
         self._handlers.update(REG=self._reg, METRIC=self._metric,
                               FINAL=self._final, GET=self._get, LOG=self._log)
 
@@ -320,13 +355,25 @@ class OptimizationServer(Server):
             self.driver.enqueue({"type": "LOST", "trial_id": trial_id, "partition_id": pid})
 
     def _reg(self, msg):
-        self.reservations.add({"partition_id": msg["partition_id"], "trial_id": None})
-        self.driver.enqueue({"type": "REG", "partition_id": msg["partition_id"]})
+        pid = msg["partition_id"]
+        prev = self.reservations.get_assigned_trial(pid)
+        self.reservations.add({"partition_id": pid, "trial_id": None})
+        self.driver.enqueue({"type": "REG", "partition_id": pid})
+        telem = self.telemetry
+        if telem is not None:
+            telem.event("runner", phase="registered", partition=int(pid),
+                        capacity=msg.get("capacity"), reregistration=prev is not None)
         return {"type": "OK"}
 
     def _metric(self, msg):
         pid = msg["partition_id"]
         self.reservations.touch(pid)
+        telem = self.telemetry
+        rstats = msg.pop("rstats", None)
+        if rstats and telem is not None:
+            # Popped first: the driver's METRIC callback sees the payload
+            # shape it always did.
+            telem.record_runner_stats(pid, rstats)
         trial_id = msg.get("trial_id")
         if trial_id is not None and self.reservations.get_assigned_trial(pid) != trial_id:
             # A runner declared lost keeps beating if it was only slow: its
@@ -335,6 +382,10 @@ class OptimizationServer(Server):
         self.driver.enqueue(dict(msg))
         trial = self.driver.get_trial(trial_id) if trial_id else None
         if trial is not None and trial.get_early_stop():
+            if telem is not None:
+                # The moment the runner is FIRST told to stop: once, since
+                # every beat draws STOP until the training loop honors it.
+                telem.trial_event(trial_id, "stop_sent", once=True, partition=int(pid))
             return {"type": "STOP"}
         return {"type": "OK"}
 
@@ -354,20 +405,30 @@ class OptimizationServer(Server):
         if not self.driver.process_final_inline(msg):
             self.driver.enqueue(dict(msg))
             return {"type": "OK"}
+        telem = self.telemetry
         reply = self._serve_assigned(pid)
         if reply is not None:
-            if reply["type"] == "TRIAL":
-                self.driver.note_prefetch_hit(reply["trial_id"])
+            if telem is not None and reply["type"] == "TRIAL":
+                # once: a retried FINAL re-serves the same undelivered
+                # assignment — one hand-off, one hit.
+                telem.trial_event(reply["trial_id"], "prefetch_hit", once=True,
+                                  partition=int(pid))
             return reply
         if self.driver.experiment_done:
             self._release(pid)
             return {"type": "GSTOP"}
-        self.driver.note_prefetch_miss(msg.get("trial_id"))
+        if telem is not None:
+            # Nothing ready: the runner falls back to GET polling.
+            telem.trial_event(msg.get("trial_id"), "prefetch_miss", once=True,
+                              partition=int(pid))
         return {"type": "OK"}
 
     def _release(self, partition_id) -> None:
         self._final_at.pop(partition_id, None)
         self.reservations.mark_released(partition_id)
+        if self.telemetry is not None:
+            # A released runner sends nothing more: its live gauges go.
+            self.telemetry.prune_partition(partition_id)
 
     def _serve_assigned(self, partition_id):
         """The TRIAL reply for the partition's assigned trial — shared by GET
@@ -387,8 +448,15 @@ class OptimizationServer(Server):
             trial.info_dict["epoch"] = trial.run_epoch
             info = dict(trial.info_dict)
         t_final = self._final_at.pop(partition_id, None)
-        if t_final is not None:
-            self.driver.note_handoff(partition_id, (time.monotonic() - t_final) * 1e3)
+        telem = self.telemetry
+        if telem is not None:
+            # "running" = the TRIAL reply leaves the driver: the hand-off
+            # gap's closing edge. ``handoff_ms`` is the gap from this
+            # runner's FINAL reaching the server, where there was one.
+            extra = {} if t_final is None else \
+                {"handoff_ms": (time.monotonic() - t_final) * 1e3}
+            telem.trial_event(trial.trial_id, "running", partition=int(partition_id),
+                              epoch=info.get("epoch"), **extra)
         return {"type": "TRIAL", "trial_id": trial.trial_id,
                 "params": trial.params, "info": info}
 
@@ -434,6 +502,9 @@ class Client:
         self._hb_thread: Optional[threading.Thread] = None
         self._hb_stop = threading.Event()
         self._lock = threading.Lock()  # serializes the request socket
+        # Runner-side stat buffer (telemetry.runnerstats.RunnerStats), set
+        # by the trial executor: its deltas ride the heartbeat METRIC.
+        self.runner_stats = None
 
     def _connect(self) -> socket.socket:
         sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -486,12 +557,25 @@ class Client:
                     data = {"metric": None, "step": None, "logs": [],
                             "trial_id": reporter.trial_id}
                 sent_tid = data["trial_id"]
+                payload = {"type": "METRIC", "trial_id": sent_tid, "value": data["metric"],
+                           "step": data["step"], "logs": data["logs"],
+                           "span": data.get("span")}
+                stats = self.runner_stats
+                delta = stats.snapshot_delta() if stats is not None else None
+                if delta:
+                    payload["rstats"] = delta
+                t_send = time.monotonic()
                 try:
-                    resp = self._request(
-                        {"type": "METRIC", "trial_id": sent_tid, "value": data["metric"],
-                         "step": data["step"], "logs": data["logs"]}, heartbeat=True)
+                    resp = self._request(payload, heartbeat=True)
+                    if stats is not None:
+                        # Retries and backoff included: the control-plane
+                        # latency the runner experiences.
+                        stats.observe_hb_rtt((time.monotonic() - t_send) * 1e3)
                 except (ConnectionError, ValueError):
                     resp = {}
+                    if delta:
+                        # Re-send on the next beat instead of losing it.
+                        stats.requeue_delta(delta)
                 if resp.get("type") == "STOP":
                     # Only stop the trial the beat was ABOUT: the runner may
                     # have rolled over to the next trial meanwhile.
@@ -555,6 +639,25 @@ class Client:
         self._hb_stop.set()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=2)
+        stats = self.runner_stats
+        if stats is not None:
+            # Last stats flush: the final trial's pending records (its
+            # ``compile_events``, finalized at trial end) would otherwise
+            # wait for a beat that never comes. One attempt with a short
+            # deadline: a server already gone must not stall shutdown
+            # (``maggy_tpu/core/rpc.py:2133-2165``).
+            try:
+                delta = stats.snapshot_delta()
+                if delta:
+                    msg = {"type": "METRIC", "trial_id": None, "value": None, "step": None,
+                           "logs": [], "span": None, "rstats": delta,
+                           "partition_id": self.partition_id}
+                    with self._lock:
+                        self._sock.settimeout(2.0)
+                        MessageSocket.send_msg(self._sock, msg, self.secret)
+                        MessageSocket.recv_msg(self._sock, self.secret)
+            except Exception:  # noqa: BLE001 - shutdown must not fail
+                pass
         for sock in (self._sock, self._hb_sock):
             try:
                 sock.close()

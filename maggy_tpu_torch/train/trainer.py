@@ -1,18 +1,22 @@
 """Per-trial training harness: init + step, loss broadcast lazily.
 
 Counterpart of ``maggy_tpu/train/trainer.py``'s `Trainer` for one device:
-no mesh, no warm cache — a trial builds its model, optimizer and state
+no mesh, no warm cache (``init`` notes its time in the trial's
+telemetry scope) — a trial builds its model, optimizer and state
 fresh. The step returns the loss as an un-synced 0-d tensor, which the
 `Reporter` materializes on its heartbeat thread.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from maggy_tpu_torch.train import warm
 
 
 def cross_entropy_loss(logits, labels):
@@ -47,7 +51,11 @@ class Trainer:
              state_dict: Optional[Dict[str, torch.Tensor]] = None) -> "Trainer":
         """Fresh parameters — from ``state_dict`` when given, else the
         model's ``init_weights`` under a generator seeded with ``seed`` — and
-        a fresh optimizer state."""
+        a fresh optimizer state. Inside a trial its host time is noted as
+        the trial's ``init_ms`` (``maggy_tpu/train/trainer.py:512-518``);
+        the model was built on the device before this call, so its
+        construction falls into the trial's ``first_step_ms``."""
+        t0 = time.perf_counter()
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         else:
@@ -55,6 +63,7 @@ class Trainer:
             gen.manual_seed(0 if seed is None else int(seed))
             self.model.init_weights(gen)
         self.optimizer, self.scheduler = self.optimizer_factory(self.model)
+        warm.note_compile(warm=False, init_ms=(time.perf_counter() - t0) * 1e3)
         return self
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:

@@ -65,6 +65,8 @@ _SWEEP = textwrap.dedent("""
     sys.path.insert(0, {root!r})
 
     import numpy as np
+    import maggy_tpu_torch.telemetry
+    import maggy_tpu_torch.train.warm
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
     from maggy_tpu_torch.models import BertConfig, BertEncoder
     from maggy_tpu_torch.optimizers import Asha
@@ -114,7 +116,23 @@ _SWEEP = textwrap.dedent("""
                     trials.append(json.load(open(p)))
                     outputs.append(json.load(open(os.path.join(exp_dir, run, entry,
                                                                ".outputs.json"))))
-        return {{"result": result, "trials": trials, "outputs": outputs}}
+        return {{"result": result, "trials": trials, "outputs": outputs,
+                 "replay": replay_cli(exp_dir)}}
+
+    def replay_cli(exp_dir):
+        # python -m maggy_tpu_torch.telemetry replay <run dir>, under the hook.
+        import contextlib, io, runpy
+        (run,) = os.listdir(exp_dir)
+        buf, argv = io.StringIO(), sys.argv
+        sys.argv = ["maggy_tpu_torch.telemetry", "replay", os.path.join(exp_dir, run)]
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_module("maggy_tpu_torch.telemetry", run_name="__main__")
+        except SystemExit as e:
+            assert not e.code, e.code
+        finally:
+            sys.argv = argv
+        return json.loads(buf.getvalue())
 
     if __name__ == "__main__":
         sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
@@ -156,6 +174,11 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert result["num_trials"] == len(outputs) == 3 and result["lost_runners"] == 0
     assert all(o["banned"] == [] for o in outputs)
     assert out["pid"] not in {o["pid"] for o in outputs}
+    # Every sweep's journal, replayed by the telemetry CLI under the hook.
+    for name in ("asha", "tpe", "gp", "process"):
+        replay = out[name]["replay"]
+        assert replay["torn_lines"] == 0, name
+        assert replay["trials"]["finalized"] == len(out[name]["trials"]), name
     result, trials = out["asha"]["result"], out["asha"]["trials"]
     assert set(result) >= {"best_id", "best_val", "best_hp", "worst_val", "avg",
                            "num_trials", "early_stopped", "pipeline"}
@@ -201,6 +224,11 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
     for dirpath, _, names in os.walk(os.path.join(ROOT, "maggy_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    scanned = {os.path.relpath(f, ROOT) for f in files}
+    assert {os.path.join("maggy_tpu_torch", "telemetry", n + ".py")
+            for n in ("__init__", "__main__", "vocab", "metrics", "journal", "spans",
+                      "goodput", "runnerstats", "trace")} <= scanned
+    assert os.path.join("maggy_tpu_torch", "train", "warm.py") in scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

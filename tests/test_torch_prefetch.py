@@ -5,6 +5,7 @@ real server and client, the suggester's failure contract, an expensive
 controller that must never suggest on the RPC thread, and the Hyperband,
 GridSearch and SingleRun schedules against the JAX package's."""
 
+import glob
 import json
 import math
 import os
@@ -21,6 +22,7 @@ from maggy_tpu.optimizers import SingleRun as JaxSingleRun
 from maggy_tpu.pruner.hyperband import Hyperband as JaxHyperband
 from maggy_tpu.searchspace import Searchspace as JaxSearchspace
 from maggy_tpu_torch import OptimizationConfig, experiment
+from maggy_tpu_torch.telemetry import read_events, replay_journal
 from maggy_tpu_torch.core.driver.optimization_driver import (CONTROLLER_REGISTRY,
                                                               OptimizationDriver)
 from maggy_tpu_torch.core.environment import EnvSing, LocalEnv
@@ -352,6 +354,31 @@ class TestFinalPiggyback:
             drv.stop()
 
 
+    def test_telem_verb_answers_over_server_and_client(self, live):
+        drv, client = live
+        tid = _first(drv, client)
+        client._request({"type": "FINAL", "trial_id": tid, "value": 1.0, "logs": []})
+        telem = client._request({"type": "TELEM"})
+        assert telem["type"] == "TELEM" and telem["enabled"] is True
+        histograms = telem["metrics"]["histograms"]
+        assert {"rpc.handle_ms.REG", "rpc.handle_ms.GET", "rpc.handle_ms.FINAL",
+                "controller.suggest_ms"} <= set(histograms)
+        assert telem["spans"]["trials"]["finalized"] == 1
+        assert telem["spans"]["suggest"]["prefetch_hits"] == 1
+        assert telem["journal"]["torn_lines"] == 0
+
+    def test_telem_verb_errs_with_telemetry_off(self, env):
+        drv = OptimizationDriver(_config(num_trials=2, num_workers=1, telemetry=False), "app", 0)
+        try:
+            addr = drv.server.start()
+            client = Client(addr, 0, 10.0, drv.server.secret_hex)
+            resp = client._request({"type": "TELEM"})
+            assert resp["type"] == "ERR" and "not enabled" in resp["error"]
+            client.stop()
+        finally:
+            drv.stop()
+
+
 class TestPipelineHardening:
     def test_suggester_exception_ends_experiment(self, env):
         class Broken(RandomSearch):
@@ -446,6 +473,44 @@ def test_expensive_sweep_suggests_off_the_rpc_thread(prefetch):
         assert len(pipe["suggest_ms"]["prefetch"]) >= 1
     else:
         assert pipe["suggest_ms"]["prefetch"] == [] and pipe["prefetch_hits"] == 0
+
+
+def test_pipeline_counts_are_the_journals(tmp_path):
+    """An ASHA sweep whose promotions invalidate prefetched samples:
+    result.json's pipeline counts are the journal's prefetch_hit /
+    prefetch_miss / prefetch_invalidated events, as its replay derives
+    them."""
+    result = experiment.lagom(
+        lambda lr, budget, reporter: _sleepy_train(lr, reporter),
+        _config(name="pipeline_journal", num_trials=8, optimizer=Asha(2, 1, 4, seed=5),
+                num_workers=3, hb_interval=0.02, experiment_dir=str(tmp_path)))
+    (journal,) = glob.glob(str(tmp_path / "*" / "telemetry.jsonl"))
+    events = read_events(journal)
+    phases = [e["phase"] for e in events if e["ev"] == "trial"]
+    pipe = result["pipeline"]
+    assert pipe["prefetch_hits"] == phases.count("prefetch_hit") > 0
+    assert pipe["prefetch_misses"] == phases.count("prefetch_miss")
+    assert pipe["invalidated"] == sum(e["n"] for e in events
+                                      if e["ev"] == "prefetch_invalidated")
+    assert pipe["lock_fallbacks"] == 0
+    suggest = replay_journal(journal)["suggest"]
+    assert (suggest["prefetch_hits"], suggest["prefetch_misses"]) == \
+        (pipe["prefetch_hits"], pipe["prefetch_misses"])
+    assert suggest["latency"]["n"] == sum(len(v) for v in pipe["suggest_ms"].values())
+    running = [e for e in events if e["ev"] == "trial" and e["phase"] == "running"]
+    assert sum(len(v) for v in pipe["handoff_ms"].values()) == \
+        sum("handoff_ms" in e for e in running) > 0
+    assert phases.count("finalized") == result["num_trials"]
+
+
+def test_telemetry_off_writes_no_journal(tmp_path):
+    result = experiment.lagom(_sleepy_train, _config(
+        name="no_telemetry", num_trials=3, hb_interval=0.05, telemetry=False,
+        experiment_dir=str(tmp_path)))
+    assert result["num_trials"] == 3
+    (run,) = os.listdir(str(tmp_path))
+    assert not glob.glob(str(tmp_path / run / "telemetry.jsonl*"))
+    assert result["pipeline"]["prefetch_hits"] == 0 and result["lost_runners"] == 0
 
 
 # ---------------------------------------------- schedules against the JAX package

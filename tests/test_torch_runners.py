@@ -6,6 +6,7 @@ while the re-run counts; device pinning, pool validation and the loss
 timeout's resolution."""
 
 import functools
+import glob
 import json
 import os
 import threading
@@ -17,6 +18,8 @@ from maggy_tpu import experiment as jax_experiment
 from maggy_tpu.config import OptimizationConfig as JaxConfig
 from maggy_tpu.searchspace import Searchspace as JaxSearchspace
 
+import maggy_tpu.telemetry as jax_telemetry
+import maggy_tpu_torch.telemetry as port_telemetry
 import torch_runner_fns
 from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
 from maggy_tpu_torch.core.driver.optimization_driver import OptimizationDriver
@@ -85,6 +88,42 @@ def test_system_exit_sweep_recovers_like_maggy_tpu(tmp_path):
     assert len(requeued) == 1 and requeued[0]["trial_id"] in {
         t["id"] for t in _finalized(str(tmp_path / "port"))}
     assert result["recovery"]["killed"] == []  # a thread cannot be killed
+
+
+@pytest.mark.timeout(120)
+def test_system_exit_sweep_journals_the_loss_like_maggy_tpu(tmp_path):
+    """The SystemExit sweep with the journal on, through both packages:
+    one ``lost`` and one ``requeued`` event (reason heartbeat_loss) for the
+    same trial, each trial finalized once, the dead attempt booked as
+    rework; the port's result.json recovery block is that requeue event."""
+    kw = dict(name="system_exit_journal", num_trials=4, optimizer="randomsearch",
+              direction="max", num_workers=2, hb_interval=0.05, hb_loss_timeout=1.0, seed=3,
+              es_policy="none")
+    train, _ = _exit_first_call()
+    result = experiment.lagom(train, OptimizationConfig(
+        searchspace=Searchspace(**SPACE), experiment_dir=str(tmp_path / "port"), **kw))
+    jtrain, _ = _exit_first_call()
+    jax_experiment.lagom(jtrain, JaxConfig(
+        searchspace=JaxSearchspace(**SPACE), experiment_dir=str(tmp_path / "jax"), **kw))
+    for name, telemetry in (("port", port_telemetry), ("jax", jax_telemetry)):
+        (journal,) = glob.glob(str(tmp_path / name / "*" / "telemetry.jsonl"))
+        events = telemetry.read_events(journal)
+        trial_events = [e for e in events if e["ev"] == "trial"]
+        lost = [e for e in trial_events if e["phase"] == "lost"]
+        requeued = [e for e in trial_events if e["phase"] == "requeued"]
+        assert len(lost) == len(requeued) == 1, name
+        assert requeued[0]["reason"] == "heartbeat_loss", name
+        assert requeued[0]["trial"] == lost[0]["trial"], name
+        finalized = [e["trial"] for e in trial_events if e["phase"] == "finalized"]
+        assert len(finalized) == len(set(finalized)) == 4, name
+        derived = telemetry.replay_journal(journal)
+        assert derived["torn_lines"] == 0, name
+        assert derived["trials"]["lost"] == derived["trials"]["requeued"] == 1, name
+        assert derived["goodput"]["buckets"]["rework"] > 0, name
+        if name == "port":
+            assert result["recovery"]["requeued"] == [
+                {"trial_id": requeued[0]["trial"], "partition": requeued[0]["partition"],
+                 "at": requeued[0]["t"]}]
 
 
 @pytest.mark.timeout(120)
