@@ -71,6 +71,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              trial finalized once, and both faulted trials re-run to the
              end in another process. Prints the time from each fault to its
              requeue.
+10. slice_fork — the slice sweep with checkpoint forking (config.fork, on by
+             default): its train function takes ctx, saves the model,
+             optimizer, scheduler and steps done at the end of each trial
+             and, given ctx.resume_step, restores them and continues under
+             its own schedule. Every promoted trial whose parent saved must
+             be journaled forked_from that parent at its step and start at
+             the step after it; derive's fork block must count the forks and
+             the steps saved; launches must be 12 x the steps run; ckpt_gc
+             must retire the parents whose children finalized. (The slice
+             sweep, whose train function has no ctx, must journal no fork.)
+             Prints wall, steps, steps saved, goodput buckets, fork-load,
+             save and restore times with their share spent waiting for the
+             checkpoint lock, and the run directory's peak bytes on disk
+             beside slice's, then removes the run directory.
+11. slice_pbt — examples/pbt_sweep.py on the card: PBT(6 members, 4
+             generations) over lr and weight decay, MnistCNN(3, 2, 8
+             features, 2 classes) on make_data(512), 15 steps a segment,
+             three thread runners; each segment restores its parent's
+             weights and saves its own (skipped, as in the JAX package, when
+             a donor further along staged a later step into its dir; the
+             count is printed). The first generation >= 1 segment
+             to run 5 steps is preempted through the driver's
+             preempt_partition: it must be requeued to resume at its fork
+             step and finalize once, every later segment must fork from the
+             parent PBT named at that parent's newest step, and all 24
+             segments must finalize.
 
 After every sweep, its telemetry journal (<exp_dir>/telemetry.jsonl) is
 replayed through maggy_tpu_torch.telemetry and the sweep's line gets a
@@ -130,6 +156,8 @@ REPLACES = {"flash_fwd": "maggy_tpu/ops/attention.py:226",
 # BERT-base fine-tune: batch 32 at the padded length 128 (BASELINE.md config 4).
 BERT_B, BERT_S = 32, 128
 STEPS_PER_BUDGET = 4
+# The budgets of the BERT sweeps' ASHA(3, 1, 9) rungs.
+RUNG_BUDGETS = (1, 3, 9)
 REPORT_EVERY = 2
 # Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5).
 LLAMA_B, LLAMA_S = 2, 2048
@@ -147,8 +175,8 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "bert_base_bo": (64, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
 #: Paths that run the kernels at another path's shape: the process-runner
-#: sweep is the slice sweep's.
-SAME_SHAPE = {"bert_base_process": "bert_base"}
+#: and forking sweeps are the slice sweep's.
+SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
 DEVICE = "cuda"
@@ -159,6 +187,12 @@ MNIST_BATCHES = [128, 256, 512]
 # slice_recovery: the step at which the two faulting trials fault, after
 # FAULT_WAIT_S of heartbeats, and the loss timeout that detects them.
 FAULT_STEP, FAULT_WAIT_S, RECOVERY_LOSS_TIMEOUT_S = 20, 0.5, 3.0
+# slice_pbt (examples/pbt_sweep.py): steps a segment, and the steps the
+# preempted segment runs before its preemption.
+PBT_STEPS, PBT_PREEMPT_AFTER = 15, 5
+# slice_fork writes about 1.3 GB a BERT-base checkpoint (fp32 weights and
+# AdamW's two moments); the unpromoted rung-0 ones live until the sweep ends.
+FORK_MIN_FREE_BYTES = 20e9
 
 
 def emit(phase, **fields):
@@ -428,8 +462,8 @@ def in_order(wanted, phases):
 
 def journal_check(name, exp_dir, result, recovery=False, trace=False):
     """Replay the sweep's journal and hold it to result.json; returns the
-    phase line's "telemetry" field (with the events and ledger under
-    "_events" and "_goodput" for the caller)."""
+    phase line's "telemetry" field (with the events, ledger and derive's
+    fork block under "_events", "_goodput" and "_fork" for the caller)."""
     from maggy_tpu_torch.telemetry import derive, read_events
     from maggy_tpu_torch.telemetry.trace import validate_trace, write_trace
 
@@ -496,7 +530,7 @@ def journal_check(name, exp_dir, result, recovery=False, trace=False):
     if problems:
         emit(name, telemetry=out)
         raise AssertionError("{} telemetry: {}".format(name, "; ".join(problems)))
-    out["_events"], out["_goodput"] = events, gp
+    out["_events"], out["_goodput"], out["_fork"] = events, gp, derived["fork"]
     return out
 
 
@@ -604,6 +638,8 @@ class TrialRecord:
         self.trial_id = reporter.trial_id
         self.path = os.path.join(out_dir, "{}.{}.json".format(self.trial_id, os.getpid()))
         self.steps = 0
+        # The first step index this run trains (a resumed fork's is past 0).
+        self.first_step = 0
 
     def __enter__(self):
         from maggy_tpu_torch.ops import attention as A
@@ -619,6 +655,7 @@ class TrialRecord:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - self.t0) * 1e3
         record = {"trial_id": self.trial_id, "pid": os.getpid(), "steps": self.steps,
+                  "first_step": self.first_step,
                   "step_ms": ms / max(self.steps, 1), "step_s": ms / 1e3,
                   "setup_s": self.t0 - self.entered, "process_age_s": self.process_age_s,
                   "launches": {k: n - self.launches[k] for k, n in A.launch_counts().items()},
@@ -674,6 +711,114 @@ def train_bert_asha(lr, warmup_frac, budget, reporter, out_dir):
     if not math.isfinite(final):
         raise FloatingPointError("non-finite loss {}".format(final))
     return {"metric": -final}
+
+
+def trainer_state(trainer):
+    """What a BERT trial checkpoints: the model, AdamW's state and the
+    learning-rate schedule's step."""
+    return {"model": trainer.model.state_dict(), "optimizer": trainer.optimizer.state_dict(),
+            "scheduler": trainer.scheduler.state_dict()}
+
+
+def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
+    """One trial of the slice_fork sweep: train_bert_asha with a checkpoint
+    of its state at its end, and, for a fork, a resume from the staged
+    parent checkpoint at the step after it under this trial's own schedule
+    (its larger budget)."""
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.train import Trainer, adamw, warmup_cosine_decay_schedule
+
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    cfg, batch = bert_data()
+    total = int(budget) * STEPS_PER_BUDGET
+    sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
+    trainer = Trainer(BertEncoder(cfg, device=DEVICE), adamw(sched), labels_loss,
+                      device=DEVICE).init(seed=0)
+    if ctx.resume_step is not None:
+        state = ctx.restore_checkpoint({**trainer_state(trainer), "steps_done": 0})
+        if state is None or state["steps_done"] != ctx.resume_step + 1:
+            raise RuntimeError("trial {} resumes at step {} but its checkpoint holds {}".format(
+                reporter.trial_id, ctx.resume_step, state and state["steps_done"]))
+        trainer.model.load_state_dict(state["model"])
+        trainer.optimizer.load_state_dict(state["optimizer"])
+        trainer.scheduler.load_state_dict(state["scheduler"])
+        record.first_step = state["steps_done"]
+        # The parent's last rate was its schedule's; step t of this trial
+        # takes this trial's schedule(t), as its scheduler sets it after.
+        for group in trainer.optimizer.param_groups:
+            group["lr"] = sched(record.first_step)
+    with record:
+        for i in range(record.first_step, total):
+            loss = trainer.step(batch(i))
+            record.steps += 1
+            if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
+                reporter.broadcast(-loss, step=i)
+    final = float(loss)
+    if not math.isfinite(final):
+        raise FloatingPointError("non-finite loss {}".format(final))
+    # The step index of the last step trained: a fork resumes after it.
+    ctx.save_checkpoint(total - 1, {**trainer_state(trainer), "steps_done": total})
+    return {"metric": -final}
+
+
+class PreemptOnce:
+    """slice_pbt's preemption: the first generation >= 1 segment to have
+    run PBT_PREEMPT_AFTER steps claims it, hands its partition to the
+    script's timer thread, and waits until the driver has armed the
+    preemption."""
+
+    def __init__(self):
+        self.claimed = threading.Event()
+        self.armed = threading.Event()
+        self.lock = threading.Lock()
+        self.detail = {}
+
+    def claim(self, trial_id, partition):
+        with self.lock:
+            if self.claimed.is_set():
+                return False
+            self.detail.update(trial_id=trial_id, partition=partition, at=time.time())
+            self.claimed.set()
+        if not self.armed.wait(60):
+            raise RuntimeError("the preemption of trial {} was never armed".format(trial_id))
+        return True
+
+
+def train_pbt(lr, wd, generation, member, budget, ctx, reporter, preempt):
+    """examples/pbt_sweep.py's train_fn on the card: MnistCNN(3, 2, 8, 2)
+    under adamw(lr, wd) for PBT_STEPS steps a budget unit on make_data(512);
+    a segment with a parent starts from its weights; each segment saves its
+    weights as checkpoint ``generation``. The preempted segment reports
+    every step after its claim (each report may raise its STOP)."""
+    from maggy_tpu_torch.models import MnistCNN
+    from maggy_tpu_torch.train import ShardedBatchIterator, Trainer, adamw
+
+    full_fp32()
+    X, Y = cached("pbt", lambda: make_data(n=512, key=0))
+    model = MnistCNN(kernel_size=3, pool_size=2, features=8, num_classes=2, image_size=16,
+                     device=DEVICE)
+    trainer = Trainer(model, adamw(lr, weight_decay=wd), labels_loss,
+                      device=DEVICE).init(seed=member)
+    if ctx.parent_trial_id is not None:
+        restored = ctx.restore_parent({"model": trainer.model.state_dict()})
+        if restored is not None:
+            trainer.model.load_state_dict(restored["model"])
+    it = iter(ShardedBatchIterator({"x": X, "y": Y}, batch_size=64, epochs=None, seed=member,
+                                   device=DEVICE))
+    every = 5
+    for i in range(int(PBT_STEPS * budget)):
+        b = next(it)
+        loss = trainer.step({"inputs": (b["x"],), "labels": b["y"]})
+        if i % every == 0:
+            reporter.broadcast(-loss, step=i)
+        if every == 1:
+            time.sleep(0.05)  # heartbeats carry the STOP meanwhile
+        elif i + 1 == PBT_PREEMPT_AFTER and generation >= 1 and \
+                preempt.claim(reporter.trial_id, ctx.info["partition"]):
+            every = 1
+    ctx.save_checkpoint(generation, {"model": trainer.model.state_dict()})
+    return {"metric": -float(loss)}
 
 
 def make_data(n=2048, key=0):
@@ -739,7 +884,7 @@ def train_mnist(lr, batch, budget, reporter, out_dir, kill_flag=None, wedge_flag
 # ------------------------------------------------------------------- sweeps
 
 
-def bert_asha_sweep(exp_dir, pool):
+def bert_asha_sweep(exp_dir, pool, train=train_bert_asha):
     """The BERT-base ASHA(3, 1, 9) + median sweep on two runners of
     ``pool``: (result, wall s, records, the driver process's launches)."""
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
@@ -756,7 +901,7 @@ def bert_asha_sweep(exp_dir, pool):
         pool=pool)
     A.reset_launch_counts()
     t0 = time.perf_counter()
-    result = experiment.lagom(functools.partial(train_bert_asha, out_dir=out_dir), config)
+    result = experiment.lagom(functools.partial(train, out_dir=out_dir), config)
     wall = time.perf_counter() - t0
     return result, wall, read_records(out_dir), A.launch_counts()
 
@@ -789,6 +934,12 @@ def phase_slice(exp_dir):
     trials, promoted, total_steps, expected = check_bert_sweep(
         "slice", result, exp_dir, records, launches)
     telemetry = journal_check("slice", os.path.join(exp_dir, "exp"), result, trace=True)
+    # The control of slice_fork: a train function without ctx saves nothing,
+    # so no promotion forks.
+    forks = sum(1 for e in telemetry["_events"]
+                if e["ev"] == "trial" and e["phase"] == "forked_from")
+    if forks:
+        raise AssertionError("slice: {} forks from a train function without ctx".format(forks))
     step_ms = [r["step_ms"] for r in records]
 
     # The swept model against the same weights on the CPU (reference
@@ -822,14 +973,256 @@ def phase_slice(exp_dir):
 
     emit("slice", trials_finished=len(trials), promoted=promoted,
          early_stopped=result["early_stopped"], best_hp=result["best_hp"],
-         best_val=result["best_val"], steps=total_steps, launches=launches,
+         best_val=result["best_val"], steps=total_steps, forks=forks, launches=launches,
          expected_launches_each=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)),
          step_ms_alone=alone_ms, step_profile=profile, time_split=time_split(records),
          pipeline=pipeline_summary(result["pipeline"]), telemetry=public(telemetry),
          logits_max_abs_err=logit_err, logits_tol=logit_tol,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches, float(np.median(step_ms))
+    reading = {"sweep_wall_s": wall, "steps": total_steps, "forks": forks,
+               **fork_reading(telemetry)}
+    return launches, float(np.median(step_ms)), reading
+
+
+def fork_reading(telemetry):
+    """A sweep's checkpoint-forking numbers from its journal: goodput
+    buckets (s) and shares, derive's fork block, the p50 of the trials'
+    fork-load, save and restore ms, and the part of the save and restore
+    time spent waiting for the process's checkpoint lock (the other
+    runner's save or restore)."""
+    trial = [e for e in telemetry["_events"] if e["ev"] == "trial"]
+    ckpt = [e for e in trial if e["phase"] == "ckpt_saved"]
+
+    def p50(values):
+        return float(np.median(values)) if values else None
+
+    def lock_share(kind):
+        total = sum(e.get(kind + "_ms", 0.0) for e in ckpt)
+        return sum(e.get(kind + "_lock_ms", 0.0) for e in ckpt) / total if total else None
+
+    return {"ckpt_lock_wait_share": {"save": lock_share("save"),
+                                     "restore": lock_share("restore")},
+            "save_lock_ms_p50": p50([e["save_lock_ms"] / e["saves"] for e in ckpt
+                                     if e.get("saves") and "save_lock_ms" in e]),
+            "goodput_s": telemetry["goodput"]["buckets_s"],
+            "goodput_shares": telemetry["goodput"]["shares"],
+            "fork": telemetry["_fork"],
+            "fork_load_ms_p50": p50([e["fork_load_ms"] for e in trial
+                                     if e["phase"] == "compiled" and "fork_load_ms" in e]),
+            "save_ms_p50": p50([e["save_ms"] / e["saves"] for e in ckpt if e.get("saves")]),
+            "restore_ms_p50": p50([e["restore_ms"] / e["restores"] for e in ckpt
+                                   if e.get("restores")])}
+
+
+class DiskPeak:
+    """Samples the bytes under a directory every 0.25 s on a thread of its
+    own; ``peak`` is the largest sum seen."""
+
+    def __init__(self, path):
+        self.path, self.peak = path, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="disk-peak")
+
+    def _bytes(self):
+        total = 0
+        for root, _, names in os.walk(self.path):
+            for name in names:
+                try:
+                    total += os.path.getsize(os.path.join(root, name))
+                except OSError:  # removed meanwhile (a prune, a GC)
+                    pass
+        return total
+
+    def _run(self):
+        while not self._stop.wait(0.25):
+            self.peak = max(self.peak, self._bytes())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._bytes())
+        return False
+
+
+def phase_slice_fork(exp_dir, slice_reading):
+    """The slice sweep with checkpoint forking, beside slice's readings."""
+    from maggy_tpu_torch.ops import attention as A
+
+    os.makedirs(exp_dir, exist_ok=True)
+    free = shutil.disk_usage(exp_dir).free
+    if free < FORK_MIN_FREE_BYTES:
+        raise AssertionError("slice_fork needs {:.0f} GB free for its checkpoints; {} has "
+                             "{:.1f} GB".format(FORK_MIN_FREE_BYTES / 1e9, exp_dir, free / 1e9))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh_dir(exp_dir)
+    with DiskPeak(exp_dir) as disk:
+        result, wall, records, launches = bert_asha_sweep(exp_dir, "thread", train=train_bert_fork)
+        # The last FINAL's checkpoint GC may still be deleting.
+        for t in threading.enumerate():
+            if t.name == "fork-gc":
+                t.join(120)
+    trials, promoted, total_steps, expected = check_bert_sweep(
+        "slice_fork", result, exp_dir, records, launches)
+    telemetry = journal_check("slice_fork", os.path.join(exp_dir, "exp"), result, trace=True)
+    reading = fork_reading(telemetry)
+    events = [e for e in telemetry["_events"] if e["ev"] == "trial"]
+    forks = {e["trial"]: e for e in events if e["phase"] == "forked_from"}
+    gced = {e["trial"] for e in telemetry["_events"] if e["ev"] == "ckpt_gc"}
+    by_id = {t["id"]: t for t in trials}
+    first_step = {r["trial_id"]: r["first_step"] for r in records}
+    problems = []
+    for t in trials:
+        parent = t["info_dict"].get("parent")
+        if parent is None:
+            continue
+        # A parent that was not early-stopped saved at its last step.
+        if not by_id[parent]["early_stop"]:
+            want = int(by_id[parent]["params"]["budget"]) * STEPS_PER_BUDGET - 1
+            fork = forks.get(t["id"])
+            if fork is None or fork.get("parent") != parent or fork.get("step") != want:
+                problems.append("trial {} not forked from {} at step {}: {}".format(
+                    t["id"], parent, want, fork))
+    for tid, fork in forks.items():
+        if first_step.get(tid) != fork["step"] + 1:
+            problems.append("forked trial {} trained from step {}, not {}".format(
+                tid, first_step.get(tid), fork["step"] + 1))
+    if not (forks and reading["fork"].get("forked") == len(forks)
+            and reading["fork"].get("steps_saved", 0) > 0):
+        problems.append("derive's fork block {} for {} forks".format(reading["fork"], len(forks)))
+    # ckpt_gc: every parent that saved and whose promoted child finalized is
+    # retired on disk. The journal holds each retirement but those of the
+    # top rung's parents, which happen when the sweep is exhausted and may
+    # land after the journal closed.
+    (run_dir,) = glob.glob(os.path.join(exp_dir, "exp", "*", ""))
+    spent = {t["info_dict"]["parent"] for t in trials if t["info_dict"].get("parent")
+             and not by_id[t["info_dict"]["parent"]]["early_stop"]}
+    top = {t["info_dict"].get("parent") for t in trials
+           if t["params"]["budget"] == RUNG_BUDGETS[-1]}
+    on_disk = {tid for tid in spent if os.path.isdir(os.path.join(run_dir, tid, "checkpoints"))}
+    if on_disk or not (spent - top) <= gced:
+        problems.append("ckpt_gc: spent parents {}, still on disk {}, journaled {}".format(
+            sorted(spent), sorted(on_disk), sorted(gced)))
+    line = {"trials_finished": len(trials), "promoted": promoted, "forks": len(forks),
+            "early_stopped": result["early_stopped"], "best_val": result["best_val"],
+            "steps": total_steps, "launches": launches, "expected_launches_each": expected,
+            "sweep_wall_s": wall, "disk_peak_bytes": disk.peak, "ckpt_gc": len(gced),
+            "disk_free_before_bytes": free, **reading, "slice": slice_reading,
+            "pipeline": pipeline_summary(result["pipeline"]), "telemetry": public(telemetry)}
+    emit("slice_fork", **line)
+    if problems:
+        raise AssertionError("slice_fork: {}".format("; ".join(problems)))
+    shutil.rmtree(exp_dir)
+    return launches
+
+
+def phase_slice_pbt(exp_dir):
+    """examples/pbt_sweep.py on the card, one segment preempted gracefully
+    through the driver (reached with experiment.lagom_driver, the entry
+    point lagom itself calls)."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment, util
+    from maggy_tpu_torch.core.environment import EnvSing
+    from maggy_tpu_torch.optimizers import PBT
+
+    fresh_dir(exp_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = Searchspace(lr=("DOUBLE", [1e-4, 3e-2]), wd=("DOUBLE", [0.0, 0.1]))
+    opt = PBT(population=6, generations=4, seed=0)
+    config = OptimizationConfig(
+        name="pbt_sweep", num_trials=opt.schedule_size(), optimizer=opt, searchspace=sp,
+        direction="max", num_workers=3, es_policy="none", seed=0, hb_interval=0.1,
+        experiment_dir=exp_dir)
+    preempt = PreemptOnce()
+    app_id = "pbt_sweep"
+    driver = experiment.lagom_driver(config, app_id,
+                                     util.claim_run_id(exp_dir, app_id, EnvSing.get_instance()))
+    preempted = {}
+
+    def timer():
+        # Waits for the claim, preempts that runner's trial, then lets the
+        # segment go on (each of its steps now reports, and may stop).
+        if preempt.claimed.wait(300) and preempt.detail:
+            preempted["trial_id"] = driver.preempt_partition(preempt.detail["partition"])
+            preempted["at"] = time.time()
+            preempt.armed.set()
+
+    thread = threading.Thread(target=timer, daemon=True, name="preempt-timer")
+    thread.start()
+    t0 = time.perf_counter()
+    result = driver.run_experiment(functools.partial(train_pbt, preempt=preempt))
+    wall = time.perf_counter() - t0
+    preempt.claimed.set()  # releases the timer if no segment claimed
+    thread.join(10)
+    trials = read_trials(exp_dir)
+    failed = [t["id"] for t in trials if t["status"] != "FINALIZED"]
+    if failed:
+        logs = [line for path in sorted(glob.glob(os.path.join(exp_dir, "*", "executor_*.log")))
+                for line in open(path).read().splitlines()]
+        raise AssertionError("slice_pbt: segments {} failed; runner logs:\n{}".format(
+            failed, "\n".join(logs[-80:])))
+    telemetry = journal_check("slice_pbt", exp_dir, result)
+    events = [e for e in telemetry["_events"] if e["ev"] == "trial"]
+    forks = {e["trial"]: e for e in events if e["phase"] == "forked_from"}
+    by_id = {t["id"]: t for t in trials}
+    problems = []
+    if not (len(trials) == result["num_trials"] == 24
+            and all(t["status"] == "FINALIZED" for t in trials)
+            and math.isfinite(result["best_val"])):
+        problems.append("{} trials ({} finalized), result {}".format(
+            len(trials), sum(t["status"] == "FINALIZED" for t in trials), result["num_trials"]))
+    def newest_step(tid):
+        # A segment saves its generation, unless a fork staged a later step
+        # into its dir first: then its save is skipped and the staged step
+        # stays its newest (orbax's rule, ROADMAP queue 3 item 7).
+        return max(by_id[tid]["params"]["generation"], forks.get(tid, {}).get("step", -1))
+
+    for t in trials:
+        parent = t["info_dict"].get("parent")
+        if t["params"]["generation"] >= 1:
+            fork = forks.get(t["id"])
+            want = newest_step(parent) if parent in by_id else None
+            if fork is None or fork.get("parent") != parent or fork.get("step") != want:
+                problems.append("segment {} (parent {}) not forked at step {}: {}".format(
+                    t["id"], parent, want, fork))
+    victim = preempt.detail.get("trial_id")
+    chain = [e for e in events if e["trial"] == victim and e["phase"] in (
+        "preempt_requested", "preempted", "requeued", "resumed", "finalized")]
+    phases = [e["phase"] for e in chain]
+    fork_step = forks.get(victim, {}).get("step")
+    ack = next((e for e in chain if e["phase"] == "preempted"), {})
+    resumed = next((e for e in chain if e["phase"] == "resumed"), {})
+    if not (victim and preempted.get("trial_id") == victim
+            and phases == ["preempt_requested", "preempted", "requeued", "resumed", "finalized"]
+            and ack.get("checkpointed") == (ack.get("step") is not None)
+            and ack.get("step") in (None, fork_step)
+            and resumed.get("from_step") == fork_step is not None
+            and result.get("preemptions") == 1):
+        problems.append("preemption of {} (claimed by {}): chain {}, fork step {}, "
+                        "preemptions {}".format(preempted.get("trial_id"), victim, chain,
+                                                fork_step, result.get("preemptions")))
+    types = [t["info_dict"]["sample_type"] for t in trials]
+    # Segments that forked a step at or past their own generation: their
+    # own save was skipped and they pass the staged copy on.
+    kept_staged = sum(1 for tid, f in forks.items()
+                      if tid in by_id and f["step"] >= by_id[tid]["params"]["generation"])
+    emit("slice_pbt", trials_finished=len(trials), forks=len(forks),
+         saves_skipped_for_staged_step=kept_staged,
+         sample_types={k: types.count(k) for k in sorted(set(types))},
+         best_val=result["best_val"], best_hp=result["best_hp"], sweep_wall_s=wall,
+         preemptions=result.get("preemptions"), preempted=preempt.detail,
+         preemption_chain=[{k: e.get(k) for k in ("phase", "t", "partition", "step",
+                                                  "checkpointed", "reason", "from_step")}
+                           for e in chain],
+         **fork_reading(telemetry), pipeline=pipeline_summary(result["pipeline"]),
+         telemetry=public(telemetry))
+    if problems:
+        raise AssertionError("slice_pbt: {}".format("; ".join(problems)))
 
 
 def phase_slice_process(exp_dir, thread_step_ms):
@@ -1415,7 +1808,8 @@ def main():
     smi = phase_device()
     phase_build()
     main_times = phase_kernels()
-    bert_launches, asha_step_ms = phase_slice(os.path.join(ROOT, "build", "chip_smoke_experiments"))
+    bert_launches, asha_step_ms, slice_reading = phase_slice(
+        os.path.join(ROOT, "build", "chip_smoke_experiments"))
     launches = {
         "bert_base": bert_launches,
         "bert_base_bo": phase_slice_bo(os.path.join(ROOT, "build", "chip_smoke_experiments_bo"),
@@ -1426,6 +1820,9 @@ def main():
             os.path.join(ROOT, "build", "chip_smoke_experiments_process"), asha_step_ms)}
     phase_slice_mnist(os.path.join(ROOT, "build", "chip_smoke_experiments_mnist"))
     phase_slice_recovery(fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_recovery")))
+    launches["bert_base_fork"] = phase_slice_fork(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_fork"), slice_reading)
+    phase_slice_pbt(os.path.join(ROOT, "build", "chip_smoke_experiments_pbt"))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

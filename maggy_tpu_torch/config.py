@@ -3,9 +3,13 @@
 The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` (with the
 heartbeat-loss shape) and `OptimizationConfig` with the fields of a
 single-host sweep over thread, process or GPU-pinned process runners, with
-heartbeat-loss requeue and the telemetry journal. Fleet, gang, vmap, fork,
-chaos, observability and resume fields are absent, so passing one is a
-TypeError rather than a silently ignored knob. Parity: reference `maggy/experiment_config.py:18-50`.
+heartbeat-loss requeue, the telemetry journal and checkpoint forking
+(``fork``). ``resume``, ``vmap_lanes``, ``chips_per_budget`` (gangs) and
+``fleet`` exist only so that setting one raises "not ported yet" with its
+ROADMAP item; each is replaced by the real field in the slice that ports
+it. Chaos and observability fields are absent, so passing one is a
+TypeError rather than a silently ignored knob. Parity: reference
+`maggy/experiment_config.py:18-50`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ from maggy_tpu_torch.searchspace import Searchspace
 #: Runner pools the port runs, and the JAX package's that it does not.
 POOLS = ("thread", "process", "gpu")
 _UNPORTED_POOLS = ("elastic", "remote")
+#: field -> (its value that keeps it off, the ROADMAP queue 1 item that
+#: ports it).
+_UNPORTED_FIELDS = {"resume": (False, "5b"), "vmap_lanes": (1, "7"),
+                    "chips_per_budget": (None, "8"), "fleet": (None, "9")}
 
 
 @dataclass
@@ -64,7 +72,13 @@ class OptimizationConfig(LagomConfig):
     ``prefetch`` pipelines the trial hand-off: a suggester thread
     materializes the next suggestions while runners train, and a FINAL's
     reply carries the runner's next trial (``maggy_tpu/config.py:194``).
-    ``hb_loss_timeout`` overrides the heartbeat-loss shape of LagomConfig."""
+    ``hb_loss_timeout`` overrides the heartbeat-loss shape of LagomConfig.
+    ``fork`` (``maggy_tpu/config.py:205-216``): an ASHA promotion, a PBT
+    segment or a BO near-duplicate whose parent saved a checkpoint is
+    dispatched with ``forked_from`` and ``resume_step``, the runner stages
+    the parent's checkpoint into the child's trial dir, and a train
+    function that takes ``ctx`` resumes there instead of re-training the
+    parent's steps; False gives from-scratch promotions."""
 
     num_trials: int = 1
     optimizer: Union[str, Any] = "randomsearch"
@@ -80,8 +94,15 @@ class OptimizationConfig(LagomConfig):
     seed: Optional[int] = None
     prefetch: bool = True
     hb_loss_timeout: Optional[float] = None
+    fork: bool = True
     # Experiment artifact root; defaults to the environment's base dir.
     experiment_dir: Optional[str] = None
+    # The JAX package's fields whose slices are still to port: setting one
+    # raises (see _UNPORTED_FIELDS).
+    resume: bool = False
+    vmap_lanes: int = 1
+    chips_per_budget: Optional[Any] = None
+    fleet: Any = None
 
     def __post_init__(self):
         if self.direction not in ("max", "min"):
@@ -100,6 +121,11 @@ class OptimizationConfig(LagomConfig):
         if self.pool not in POOLS:
             raise ValueError("pool must be one of {}, got {!r}".format(
                 ", ".join(repr(p) for p in POOLS), self.pool))
+        for name, (off, item) in _UNPORTED_FIELDS.items():
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    "{}={!r} is not ported yet (ROADMAP queue 1 item {})".format(
+                        name, getattr(self, name), item))
         if not isinstance(self.chips_per_trial, int) or self.chips_per_trial < 1:
             raise ValueError("chips_per_trial must be an int >= 1, got {!r}".format(
                 self.chips_per_trial))

@@ -2,7 +2,8 @@
 
 Copy of the subset of ``maggy_tpu/constants.py`` the port uses (parity:
 reference `maggy/constants.py:23-28`; the prefetch lock bound of
-``maggy_tpu/constants.py:31-36``; the heartbeat-loss defaults of
+``maggy_tpu/constants.py:31-36``; the fork-affinity hold of
+``maggy_tpu/constants.py:38-43``; the heartbeat-loss defaults of
 ``maggy_tpu/constants.py:80-88``).
 """
 
@@ -41,6 +42,13 @@ PREFETCH_FINAL_LOCK_TIMEOUT_S = 0.05
 # the ``hb_loss_factor`` / ``hb_loss_min_s`` config fields.
 HEARTBEAT_LOSS_FACTOR = 30.0
 HEARTBEAT_LOSS_MIN_S = 10.0
+
+# Checkpoint forking: how long a forked trial may wait for the runner that
+# ran its parent (``maggy_tpu/constants.py:38-43``) before any idle runner
+# takes it. The JAX package holds it for that runner's warm slot; the port
+# has no warm cache yet (ROADMAP queue 1 item 4), so here the hold buys
+# nothing but keeps the JAX package's dispatch order.
+FORK_AFFINITY_HOLD_S = 0.5
 
 # Early-stop defaults (reference `maggy/experiment_config.py:33-35`).
 DEFAULT_ES_INTERVAL = 1

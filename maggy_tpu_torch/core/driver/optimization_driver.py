@@ -22,8 +22,20 @@ span), ``assigned``, ``first_metric``, ``stop_flagged``, ``finalized``,
 ``lost`` and ``requeued``, with ``suggest`` latency events and prefetch
 invalidations beside them. result.json's ``pipeline``, ``lost_runners``
 and ``recovery`` blocks are read back from that telemetry: its metric
-registry and its span events. Gangs, vmap blocks, forks, preemption and
-resume are not ported yet.
+registry and its span events.
+
+Checkpoint-forking search (``config.fork``, JAX `:163-186, :1362-1366,
+:1468-1580, :2010-2256`): a parent-carrying suggestion (ASHA promotion, PBT
+segment, BO near-duplicate) whose parent checkpointed is stamped with
+``forked_from`` and ``resume_step`` before its ``queued`` edge, journals a
+``forked_from`` edge when assigned, is held briefly for the runner that ran
+its parent, and is downgraded to a from-scratch run (``requeued``, reason
+``fork_source_lost``) when a requeue finds its checkpoint gone; parents the
+controller calls spent lose their ``checkpoints/`` dir on a short-lived
+thread (``ckpt_gc``). ``preempt_partition`` preempts a runner's trial
+gracefully: its ack requeues the trial to resume at its checkpoint (or fork)
+step. Gangs, vmap blocks, fleet eviction, the re-registration (BLACK) path
+and resume are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,9 +53,13 @@ from maggy_tpu_torch.core.rpc import OptimizationServer
 from maggy_tpu_torch.core.runner_pool import (GPURunnerPool, ProcessRunnerPool,
                                               ThreadRunnerPool, resolve_num_workers)
 from maggy_tpu_torch.earlystop import MedianStoppingRule, NoStoppingRule
-from maggy_tpu_torch.optimizers import Asha, GridSearch, RandomSearch, SingleRun
+from maggy_tpu_torch.optimizers import PBT, Asha, GridSearch, RandomSearch, SingleRun
 from maggy_tpu_torch.optimizers.abstractoptimizer import AbstractOptimizer
+from maggy_tpu_torch.train.checkpoint import latest_checkpoint_step_env
 from maggy_tpu_torch.trial import Trial
+
+#: A parent whose checkpoint step is not looked up yet.
+_UNRESOLVED = object()
 
 
 def _lazy_gp(**kwargs):
@@ -66,7 +82,8 @@ _KILLED = "recovery.killed.p"
 # "gp"/"tpe" resolve lazily: the BO stack pulls scipy, which experiments
 # that never use it need not import.
 CONTROLLER_REGISTRY = {"randomsearch": RandomSearch, "gridsearch": GridSearch,
-                       "asha": Asha, "tpe": _lazy_tpe, "gp": _lazy_gp, "none": SingleRun}
+                       "asha": Asha, "pbt": PBT, "tpe": _lazy_tpe, "gp": _lazy_gp,
+                       "none": SingleRun}
 ES_REGISTRY = {"median": MedianStoppingRule, "none": NoStoppingRule}
 
 
@@ -77,7 +94,11 @@ class OptimizationDriver(Driver):
         # num_trials when multi-fidelity.
         self.controller.init_pruner()
         self.num_trials = self._resolve_num_trials(config)
-        self.num_executors = min(resolve_num_workers(config), self.num_trials)
+        # A controller whose schedule bounds its concurrency (PBT: members
+        # are sequential chains) caps the pool, or excess runners idle.
+        max_conc = getattr(self.controller, "max_concurrency", None)
+        self.num_executors = min(resolve_num_workers(config), self.num_trials,
+                                 max_conc() if max_conc is not None else self.num_trials)
         super().__init__(config, app_id, run_id)
         self._trial_store: Dict[str, Trial] = {}  # guarded-by: _store_lock
         self._final_store: List[Trial] = []  # guarded-by: _store_lock
@@ -123,6 +144,19 @@ class OptimizationDriver(Driver):
         # suggest() must then wait for the suggester instead.
         self._inline_depth = 0  # guarded-by: _sched_lock
         self._suggester_thread: Optional[threading.Thread] = None
+
+        # ---- checkpoint-forking search (config.fork) ----
+        self._fork_enabled = bool(config.fork)
+        # (deadline, preferred partition, trial_id): forked trials held
+        # briefly for the runner that ran their parent.
+        self._fork_hold: List[tuple] = []  # guarded-by: _store_lock
+        # Trials that had their one hold (a second would starve them).
+        self._fork_held: set = set()  # guarded-by: _store_lock
+        # Parents whose checkpoints were retired (ckpt_gc): once only.
+        self._ckpt_gced: set = set()  # guarded-by: _store_lock
+        # parent trial id -> its newest checkpoint step (or None): a
+        # finalized parent's checkpoints never move, so each is listed once.
+        self._fork_step_cache: Dict[str, Optional[int]] = {}  # guarded-by: _store_lock
         if self._prefetch_enabled:
             self._suggester_thread = threading.Thread(
                 target=self._suggester_loop, daemon=True, name="suggester")
@@ -154,6 +188,10 @@ class OptimizationDriver(Driver):
             return self.controller.pruner.num_trials()
         if isinstance(self.controller, GridSearch):
             return GridSearch.get_num_trials(config.searchspace)
+        # A fixed combinatorial schedule (PBT: population x generations).
+        size = getattr(self.controller, "schedule_size", None)
+        if size is not None:
+            return size()
         return config.num_trials
 
     @staticmethod
@@ -266,6 +304,11 @@ class OptimizationDriver(Driver):
     def _final_locked(self, msg) -> None:
         self.add_executor_logs(msg.get("logs"))
         trial = self.get_trial(msg.get("trial_id"))
+        if msg.get("preempted"):
+            # A preemption ack is no finalize: the trial goes back into the
+            # schedule and the controller sees no report for it.
+            self._preempted_final(msg, trial)
+            return
         if trial is None:
             # Duplicate FINAL (a retried send whose reply was lost): the
             # result is recorded; the runner still needs work unless it
@@ -310,6 +353,69 @@ class OptimizationDriver(Driver):
         # experiment_done and releases the pool.
         self.env.dump(trial.to_json(), "{}/{}/trial.json".format(self.exp_dir, trial.trial_id))
         self._assign_next(msg["partition_id"], trial)
+        # After the hand-off (the freed runner never waits on disk): retire
+        # the parent checkpoints this FINAL made unforkable.
+        self._sweep_fork_gc()
+
+    # locked-by: _sched_lock
+    def _preempted_final(self, msg, trial: Optional[Trial]) -> None:
+        """Requeue a preempted trial (JAX `:1481-1557`). Only a trial whose
+        preempt flag is still armed is processed: a retried ack (a lost
+        reply) arrives after reset_run_state cleared it and is dropped —
+        without fleet eviction (ROADMAP queue 1 item 9) nothing else clears
+        the flag. ``step`` is the runner's last checkpoint step: the
+        re-dispatch ships it as ``resume_step``; a fork that never
+        checkpointed resumes at its fork point; otherwise it re-runs from
+        scratch."""
+        pid = msg.get("partition_id")
+        if trial is None or not trial.get_preempt():
+            return
+        step = msg.get("step")
+        trial.reset_run_state()
+        with trial.lock:
+            if step is not None:
+                trial.info_dict["resume_step"] = int(step)
+            else:
+                fork = trial.info_dict.get("forked_from")
+                if fork and fork.get("step") is not None:
+                    trial.info_dict["resume_step"] = int(fork["step"])
+                else:
+                    trial.info_dict.pop("resume_step", None)
+        with self._store_lock:
+            if trial.trial_id not in self._requeue:
+                self._requeue.append(trial.trial_id)
+        self.result["preemptions"] = self.result.get("preemptions", 0) + 1
+        self.telemetry.trial_event(trial.trial_id, "preempted", partition=pid, step=step,
+                                   checkpointed=step is not None)
+        self.telemetry.trial_event(trial.trial_id, "requeued", partition=pid,
+                                   reason="preempted")
+        self._log("trial {} preempted on runner {} ({}); requeued".format(
+            trial.trial_id, pid,
+            "checkpoint step {}".format(step) if step is not None else "no checkpoint"))
+        # The runner stays with this experiment: hand it work now, possibly
+        # the preempted trial itself, which is the resume path.
+        self._assign_next_locked(pid, None)
+
+    def preempt_partition(self, partition_id: int, evict: bool = False) -> Optional[str]:
+        """Gracefully preempt whatever ``partition_id`` runs (JAX
+        `:1559-1580`): arm the trial's preempt and early-stop flags, so the
+        next heartbeat draws STOP(preempt) and the runner acks with a
+        preempted FINAL carrying its checkpoint step. Returns the preempted
+        trial id, or None when the partition held nothing. Callable from any
+        thread: touches only trial and reservation locks."""
+        if evict:
+            raise NotImplementedError(
+                "preempt_partition(evict=True) releases a fleet runner, which is not "
+                "ported yet (ROADMAP queue 1 item 9)")
+        trial_id = self.server.reservations.get_assigned_trial(partition_id)
+        trial = self.get_trial(trial_id) if trial_id else None
+        if trial is None:
+            return None
+        trial.set_preempt()
+        trial.set_early_stop()
+        self.telemetry.trial_event(trial.trial_id, "preempt_requested",
+                                   partition=partition_id, evict=evict)
+        return trial.trial_id
 
     def _is_stale_final(self, trial: Trial, msg) -> bool:
         """A FINAL from a run that was declared lost: its run epoch is older
@@ -398,8 +504,17 @@ class OptimizationDriver(Driver):
 
     # locked-by: _sched_lock
     def _assign_next_locked(self, partition_id: int, last_trial: Optional[Trial]) -> None:
-        # Requeued trials take priority over fresh suggestions, but never
-        # swallow a FINAL report: the controller sees ``last_trial`` first.
+        # A suggestion held for its fork parent's runner leaves this runner
+        # free: it pulls again.
+        while self._assign_next_once_locked(partition_id, last_trial):
+            last_trial = None
+
+    # locked-by: _sched_lock
+    def _assign_next_once_locked(self, partition_id: int, last_trial: Optional[Trial]) -> bool:
+        """One assignment attempt; True = pull again."""
+        # Held forks and requeued trials take priority over fresh
+        # suggestions, but never swallow a FINAL report: the controller sees
+        # ``last_trial`` first.
         if last_trial is None:
             suggestion = "IDLE"
         elif self._prefetch_enabled:
@@ -411,12 +526,31 @@ class OptimizationDriver(Driver):
         else:
             suggestion = self._timed("inline", lambda: self.controller.get_suggestion(last_trial))
         if suggestion in (None, "IDLE"):
+            held = self._pop_fork_hold(partition_id)
+            if held is not None:
+                # A fork held for this runner (it ran the parent), or an
+                # expired hold any runner may take.
+                held.set_status(Trial.SCHEDULED)
+                self.server.reservations.assign_trial(partition_id, held.trial_id)
+                self.telemetry.trial_event(held.trial_id, "assigned", partition=partition_id,
+                                           fork_affinity=True)
+                self._journal_fork_edge(held, partition_id)
+                return False
             requeued = self._pop_requeue()
             if requeued is not None:
+                # A requeued fork must still have its resume point.
+                self._verify_fork_source(requeued, partition_id)
                 self.server.reservations.assign_trial(partition_id, requeued.trial_id)
                 self.telemetry.trial_event(requeued.trial_id, "assigned",
                                            partition=partition_id, requeue="backlog")
-                return
+                self._journal_fork_edge(requeued, partition_id)
+                with requeued.lock:
+                    resume_step = requeued.info_dict.get("resume_step")
+                if resume_step is not None:
+                    # The closing edge of a preemption (or a fork's re-run).
+                    self.telemetry.trial_event(requeued.trial_id, "resumed",
+                                               partition=partition_id, from_step=int(resume_step))
+                return False
             if last_trial is None:
                 suggestion = self._next_suggestion() if self._prefetch_enabled else \
                     self._timed("inline", lambda: self.controller.get_suggestion(None))
@@ -426,11 +560,11 @@ class OptimizationDriver(Driver):
                 in_flight = bool(self._trial_store)
             if not in_flight:
                 self.experiment_done = True
-                return
+                return False
             suggestion = "IDLE"
         if suggestion == "IDLE":
             self._rearm_idle(partition_id)
-            return
+            return False
         self._mint_span(suggestion)
         with self._store_lock:
             # Prefetched suggestions entered the store at admission and come
@@ -440,15 +574,25 @@ class OptimizationDriver(Driver):
         if existing is not None and existing is not suggestion:
             self._log("WARNING: controller re-issued in-flight trial id {}; "
                       "the schedule may lose an entry".format(suggestion.trial_id))
+        if self._maybe_hold_for_parent(suggestion, partition_id):
+            self._log("trial {} held for runner {} (fork parent affinity)".format(
+                suggestion.trial_id, self._parent_partition(
+                    suggestion.info_dict.get("forked_from", {}).get("trial"))))
+            return True
         suggestion.set_status(Trial.SCHEDULED)
         self.server.reservations.assign_trial(partition_id, suggestion.trial_id)
         self.telemetry.trial_event(suggestion.trial_id, "assigned", partition=partition_id)
+        self._journal_fork_edge(suggestion, partition_id)
+        return False
 
     def _mint_span(self, trial: Trial) -> None:
         """Mint the trial's span when the driver commits to it ("queued")
         and plant the span id in its info_dict: the TRIAL reply ships info,
         so the span travels to the runner and back on its METRICs. The
-        queued edge carries the trial's params and scheduler info."""
+        queued edge carries the trial's params and scheduler info; the fork
+        stamp is applied first, so ``forked_from`` and ``resume_step`` land
+        on it."""
+        self._stamp_fork(trial)
         with trial.lock:
             sched_info = {k: v for k, v in trial.info_dict.items()
                           if k not in ("span", "partition", "epoch")}
@@ -457,6 +601,181 @@ class OptimizationDriver(Driver):
         if span is not None:
             with trial.lock:
                 trial.info_dict["span"] = span
+
+    # -------------------------------------------- checkpoint-forking search
+
+    def _stamp_fork(self, trial: Trial) -> None:
+        """Turn a parent-carrying suggestion into a checkpoint fork: when the
+        parent left a checkpoint, stamp ``forked_from`` = (parent, step) and
+        ``resume_step`` into the trial's info (shipped with the TRIAL), so
+        the runner stages the parent's checkpoint and a ctx-aware train
+        function resumes at ``step + 1``. A parent without one leaves the
+        trial a from-scratch run; config.fork=False stamps nothing."""
+        if not self._fork_enabled:
+            return
+        with trial.lock:
+            parent = trial.info_dict.get("parent")
+            already = trial.info_dict.get("forked_from")
+        if parent is None or already is not None:
+            return
+        with self._store_lock:
+            step = self._fork_step_cache.get(parent, _UNRESOLVED)
+        if step is _UNRESOLVED:
+            try:
+                step = latest_checkpoint_step_env(self.env, "{}/{}".format(self.exp_dir, parent))
+            except Exception:  # noqa: BLE001 - an unreadable dir = no fork
+                step = None
+            with self._store_lock:
+                self._fork_step_cache[parent] = step
+        if step is None:
+            return
+        with trial.lock:
+            trial.info_dict["forked_from"] = {"trial": parent, "step": int(step)}
+            trial.info_dict["resume_step"] = int(step)
+
+    def _journal_fork_edge(self, trial: Trial, partition_id: int) -> None:
+        """The lineage edge parent -> child with the forked step, once per
+        span (a requeued fork's re-dispatch does not repeat it); ``derive``
+        counts it and the trace draws it as a flow arrow."""
+        with trial.lock:
+            fork = trial.info_dict.get("forked_from")
+        if fork:
+            self.telemetry.trial_event(trial.trial_id, "forked_from", once=True,
+                                       partition=partition_id, parent=fork.get("trial"),
+                                       step=fork.get("step"))
+
+    def _verify_fork_source(self, trial: Trial, partition_id: int) -> None:
+        """Before re-dispatching a requeued fork: its resume point must still
+        exist, as the child's staged copy or the parent's original. A
+        vanished source downgrades the trial to from-scratch loudly
+        (``requeued``, reason ``fork_source_lost``, fork keys stripped)."""
+        with trial.lock:
+            fork = trial.info_dict.get("forked_from")
+        if not fork:
+            return
+        step = fork.get("step")
+        child = "{}/{}/checkpoints/{}".format(self.exp_dir, trial.trial_id, step)
+        parent = "{}/{}/checkpoints/{}".format(self.exp_dir, fork.get("trial"), step)
+        try:
+            ok = self.env.isdir(child) or self.env.isdir(parent)
+        except Exception:  # noqa: BLE001 - unreadable = assume gone
+            ok = False
+        if ok:
+            return
+        with trial.lock:
+            trial.info_dict.pop("forked_from", None)
+            trial.info_dict.pop("resume_step", None)
+        self.telemetry.trial_event(trial.trial_id, "requeued", partition=partition_id,
+                                   reason="fork_source_lost", parent=fork.get("trial"), step=step)
+        self._log("fork source for trial {} (parent {} step {}) vanished; re-running from "
+                  "scratch".format(trial.trial_id, fork.get("trial"), step))
+
+    def _parent_partition(self, parent_id: Optional[str]) -> Optional[int]:
+        """The partition that last ran (and checkpointed) the parent."""
+        return self.telemetry.spans.partition_of(parent_id)
+
+    def _partition_state(self, partition_id: int) -> str:
+        """'live', 'silent' (quiet past the loss timeout) or 'released'
+        (told GSTOP)."""
+        rec = self.server.reservations.get(partition_id)
+        if rec is None:
+            return "live"  # its REG is still in flight
+        if rec.get("released"):
+            return "released"
+        bound = self.server.hb_loss_timeout
+        if bound is not None and self.server.reservations.is_silent(partition_id, bound):
+            return "silent"
+        return "live"
+
+    # locked-by: _sched_lock
+    def _maybe_hold_for_parent(self, trial: Trial, partition_id: int) -> bool:
+        """Parent affinity: a fork dispatched while the runner that ran its
+        parent is alive is held for that runner, at most once per trial and
+        at most FORK_AFFINITY_HOLD_S (then any idle runner takes it). True
+        when held: the asking runner pulls its next suggestion."""
+        if not self._fork_enabled:
+            return False
+        with trial.lock:
+            fork = trial.info_dict.get("forked_from")
+        if not fork:
+            return False
+        preferred = self._parent_partition(fork.get("trial"))
+        if preferred is None or int(preferred) == int(partition_id):
+            return False
+        with self._store_lock:
+            if trial.trial_id in self._fork_held:
+                return False
+        if self._partition_state(int(preferred)) != "live":
+            return False
+        with self._store_lock:
+            self._fork_held.add(trial.trial_id)
+            self._fork_hold.append((time.monotonic() + constants.FORK_AFFINITY_HOLD_S,
+                                    int(preferred), trial.trial_id))
+        return True
+
+    def _pop_fork_hold(self, partition_id: int) -> Optional[Trial]:
+        """A fork held for this partition, or any expired hold."""
+        now = time.monotonic()
+        with self._store_lock:
+            for i, (deadline, preferred, tid) in enumerate(self._fork_hold):
+                if preferred != int(partition_id) and now < deadline:
+                    continue
+                del self._fork_hold[i]
+                trial = self._trial_store.get(tid)
+                if trial is not None:
+                    return trial
+        return None
+
+    # locked-by: _sched_lock
+    def _sweep_fork_gc(self) -> None:
+        """Checkpoint GC: retire a parent's ``checkpoints/`` dir once the
+        controller says no live or schedulable child can fork from it any
+        more (``fork_gc_eligible``). A trial still in the store or the
+        requeue is never touched, and each retirement journals a
+        ``ckpt_gc`` event. Only the decision runs here, under the schedule
+        lock (on the FINAL fast path that is the RPC thread); the deletions
+        run on a short-lived thread."""
+        if not self._fork_enabled:
+            return
+        try:
+            candidates = list(self.controller.fork_gc_eligible())
+        except Exception:  # noqa: BLE001 - GC is an optimization, never fatal
+            return
+        todo = []
+        with self._store_lock:
+            for tid in candidates:
+                if tid in self._ckpt_gced or tid in self._trial_store or tid in self._requeue:
+                    continue
+                # Claimed now, so a racing sweep cannot retire it twice; a
+                # failed delete un-claims it for the next sweep.
+                self._ckpt_gced.add(tid)
+                todo.append(tid)
+        if todo:
+            threading.Thread(target=self._fork_gc_worker, args=(todo,), daemon=True,
+                             name="fork-gc").start()
+
+    def _fork_gc_worker(self, todo: List[str]) -> None:
+        """The deletions of a GC sweep, off the hot path and without driver
+        locks: a claimed trial is finalized and in no backlog."""
+        for tid in todo:
+            path = "{}/{}/checkpoints".format(self.exp_dir, tid)
+            try:
+                had = self.env.isdir(path)
+                if had:
+                    self.env.delete(path, recursive=True)
+            except Exception:  # noqa: BLE001 - a failed delete retries next sweep
+                with self._store_lock:
+                    self._ckpt_gced.discard(tid)
+                continue
+            if had:
+                with self._store_lock:
+                    # A later stamp against this parent must see no checkpoint.
+                    self._fork_step_cache[tid] = None
+                try:
+                    self.telemetry.event("ckpt_gc", trial=tid, why="no_schedulable_child")
+                    self._log("ckpt_gc: retired checkpoints of {}".format(tid))
+                except Exception:  # noqa: BLE001 - the last sweep may outlive teardown
+                    pass
 
     # ------------------------------------------- pipelined hand-off (prefetch)
 

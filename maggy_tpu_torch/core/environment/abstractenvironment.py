@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -18,6 +19,10 @@ class LocalEnv:
     """Local-filesystem environment. Experiment artifacts live under
     ``base_dir`` (default ``$MAGGY_TPU_BASE_DIR`` or
     ``~/maggy_tpu_experiments``)."""
+
+    #: Writes land on a local filesystem: a checkpoint fork publishes with
+    #: one tree copy and ``os.replace`` (``train/checkpoint.py``).
+    FAST_LOCAL_WRITES = True
 
     def __init__(self, base_dir: Optional[str] = None):
         self.base_dir = base_dir or os.environ.get(
@@ -70,8 +75,15 @@ class LocalEnv:
         with open(path) as f:
             return f.read()
 
-    def delete(self, path: str) -> None:
-        """Remove a file; a missing one is not an error."""
+    def delete(self, path: str, recursive: bool = False) -> None:
+        """Remove a file, or a directory (with its contents when
+        ``recursive``); a missing one is not an error."""
+        if os.path.isdir(path):
+            if recursive:
+                shutil.rmtree(path, ignore_errors=True)
+            else:
+                os.rmdir(path)
+            return
         try:
             os.unlink(path)
         except FileNotFoundError:

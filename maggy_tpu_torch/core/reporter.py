@@ -6,7 +6,10 @@ checks, monotonic steps, latest-value store, and raising
 `EarlyStopException` inside the training loop once the driver's STOP reply
 set the flag (:78-102); `log()` buffered for heartbeat shipping (:104-133);
 `get_data()` drain (:135-141); `reset()` between trials (:143-156);
-`early_stop()` armed only after a reported metric (:158-161). Each
+`early_stop()` armed only after a reported metric (:158-161); a STOP that
+carries ``preempt`` marks the stop as a scheduler preemption, which the
+executor consumes with ``take_preempt`` (``maggy_tpu/core/reporter.py:
+36-39, 299-336``; the vectorized lanes are not ported). Each
 broadcast is counted in the runner's telemetry stats when the user makes it
 (``maggy_tpu/core/reporter.py:115``).
 
@@ -56,6 +59,10 @@ class Reporter:
         # by the trial executor; None outside an experiment.
         self.stats = None
         self._stop_flag = False  # guarded-by: lock
+        # The current stop is a scheduler preemption (the STOP reply
+        # carried ``preempt``): the executor acks with a preempted FINAL
+        # instead of finalizing. Consumed by take_preempt().
+        self._preempt_flag = False  # guarded-by: lock
         self._log_buffer: List[str] = []  # guarded-by: lock
         self._log_file = log_file
         # (metric object, float value, step) of the newest materialized value.
@@ -166,21 +173,34 @@ class Reporter:
             return cached[1], cached[2]
         return None, None
 
-    def early_stop(self, trial_id: Optional[str] = None) -> None:
+    def early_stop(self, trial_id: Optional[str] = None, preempt: bool = False) -> None:
         """Arm the stop flag (only once a metric exists). ``trial_id``, when
         given, must match the current trial: a STOP reply to a heartbeat
-        about the PREVIOUS trial must not stop its successor."""
+        about the PREVIOUS trial must not stop its successor. ``preempt``
+        marks the stop as a scheduler preemption."""
         with self.lock:
             if trial_id is not None and trial_id != self.trial_id:
                 return
             if self.metric is not None:
                 self._stop_flag = True
+                if preempt:
+                    self._preempt_flag = True
+
+    def take_preempt(self) -> bool:
+        """Consume the preemption marker: True exactly once per preempted
+        stop (the executor's EarlyStopException handler decides between
+        finalize and preempt ack on it)."""
+        with self.lock:
+            flag = self._preempt_flag
+            self._preempt_flag = False
+            return flag
 
     def reset(self, trial_id: Optional[str] = None, span: Optional[str] = None) -> None:
         with self.lock:
             self.metric = None
             self.step = None
             self._stop_flag = False
+            self._preempt_flag = False
             self._log_buffer = []
             self.trial_id = trial_id
             self.span = span

@@ -7,7 +7,10 @@ framed transport, the `Reservations` registry with per-partition liveness
 assignment piggybacked on the FINAL reply when the driver's fast path
 processes the FINAL on this thread, and the heartbeat-loss scan on the loop's
 tick) and the runner `Client`, whose FINAL echoes the run epoch of the
-assignment it finishes. Parity: reference `maggy/core/rpc.py` (:35-113,
+assignment it finishes. Graceful preemption (JAX `rpc.py:1351-1355, 1468-1474,
+2110-2129`): a STOP reply carries ``preempt`` when the driver preempts the
+trial, and the runner acks with a FINAL marked ``preempted`` that carries its
+last checkpoint step. Parity: reference `maggy/core/rpc.py` (:35-113,
 :116-162, :250-286, :295-437, :440-593).
 
 Telemetry rides the same places as in the JAX package (`rpc.py:433-488,
@@ -162,6 +165,19 @@ class Reservations:
         """Registered, unreleased partitions: the prefetch queue's bound."""
         with self.lock:
             return sum(1 for rec in self._table.values() if not rec.get("released"))
+
+    def get(self, partition_id) -> Optional[Dict[str, Any]]:
+        """A copy of the partition's record (None before its REG)."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            return dict(rec) if rec is not None else None
+
+    def is_silent(self, partition_id, timeout: float) -> bool:
+        """Whether the registered partition has sent nothing for longer
+        than ``timeout``."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            return rec is not None and time.monotonic() - rec["last_beat"] > timeout
 
     def get_assigned_trial(self, partition_id: int) -> Optional[str]:
         with self.lock:
@@ -386,7 +402,10 @@ class OptimizationServer(Server):
                 # The moment the runner is FIRST told to stop: once, since
                 # every beat draws STOP until the training loop honors it.
                 telem.trial_event(trial_id, "stop_sent", once=True, partition=int(pid))
-            return {"type": "STOP"}
+            # ``preempt``: a scheduler preemption, not an early-stop verdict
+            # — the runner acks with a preempted FINAL carrying its last
+            # checkpoint step instead of finalizing (JAX `rpc.py:1351-1355`).
+            return {"type": "STOP", "preempt": trial.get_preempt()}
         return {"type": "OK"}
 
     def _final(self, msg):
@@ -417,8 +436,9 @@ class OptimizationServer(Server):
         if self.driver.experiment_done:
             self._release(pid)
             return {"type": "GSTOP"}
-        if telem is not None:
-            # Nothing ready: the runner falls back to GET polling.
+        if telem is not None and not msg.get("preempted"):
+            # Nothing ready: the runner falls back to GET polling. A
+            # preempted ack is no hand-off attempt, so it is no miss.
             telem.trial_event(msg.get("trial_id"), "prefetch_miss", once=True,
                               partition=int(pid))
         return {"type": "OK"}
@@ -579,7 +599,7 @@ class Client:
                 if resp.get("type") == "STOP":
                     # Only stop the trial the beat was ABOUT: the runner may
                     # have rolled over to the next trial meanwhile.
-                    reporter.early_stop(trial_id=sent_tid)
+                    reporter.early_stop(trial_id=sent_tid, preempt=bool(resp.get("preempt")))
                 self._hb_stop.wait(self.hb_interval)
 
         self._hb_thread = threading.Thread(target=beat, daemon=True, name="heartbeat")
@@ -631,6 +651,15 @@ class Client:
         flag and no metric."""
         return self._finalize({"trial_id": trial_id, "value": None, "error": True},
                               reporter)
+
+    def preempt_ack(self, trial_id: str, reporter, step: Optional[int] = None) -> Dict[str, Any]:
+        """Acknowledge a scheduler preemption: a FINAL marked ``preempted``
+        with the trial's last checkpoint ``step`` (None = it never
+        checkpointed; the driver requeues it from scratch). Its reply is
+        banked as a finalize's is: the runner's next assignment may ride it
+        (JAX `rpc.py:2110-2129`)."""
+        return self._finalize({"trial_id": trial_id, "value": None, "preempted": True,
+                               "step": None if step is None else int(step)}, reporter)
 
     def get_progress(self) -> Dict[str, Any]:
         return self._request({"type": "LOG"})

@@ -1,7 +1,7 @@
 """Abstract optimizer: the driver-side search-algorithm plugin contract.
 
 Copy of ``maggy_tpu/optimizers/abstractoptimizer.py`` without the
-resume/restore contract and checkpoint-fork GC. Parity: reference
+resume/restore contract. Parity: reference
 `maggy/optimizer/abstractoptimizer.py` — contract at :54-79;
 driver-injected attributes at :36-40; observation getters with direction
 normalization at :136-252; duplicate detection at :254-295; pruner init at
@@ -100,6 +100,14 @@ class AbstractOptimizer(ABC):
         default ``get_suggestion`` is untouched)."""
         return type(self).get_suggestion is AbstractOptimizer.get_suggestion \
             and type(self).suggest is not AbstractOptimizer.suggest
+
+    def fork_gc_eligible(self) -> List[str]:
+        """Checkpoint GC (config.fork): ids of trials whose checkpoints no
+        live or schedulable child can still fork from; the driver retires
+        their ``checkpoints/`` dirs. Must be conservative. Default: nothing
+        is ever eligible (a controller that forks says which parents are
+        spent)."""
+        return []
 
     def finalize_experiment(self, trials: List[Trial]) -> None:
         """Called once after the experiment completes."""

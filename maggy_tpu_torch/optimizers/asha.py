@@ -1,7 +1,8 @@
 """ASHA — Asynchronous Successive Halving (arXiv:1810.05934).
 
 Copy of ``maggy_tpu/optimizers/asha.py`` without the vectorized-lane rung
-drain, checkpoint-fork GC and resume restore. ``report`` bumps
+drain and resume restore; its checkpoint-fork GC (``fork_gc_eligible``,
+JAX `asha.py:190-215`) is ported. ``report`` bumps
 ``schedule_version`` and ``recycle`` un-commits a promotion, as the JAX
 controller does for the driver's prefetch pipeline. Parity: reference
 `maggy/optimizer/asha.py` — params and validation (:39-69), rung
@@ -123,3 +124,22 @@ class Asha(AbstractOptimizer):
         params = self.searchspace.get_random_parameter_values(1, rng=self.rng)[0]
         params["budget"] = self.rung_budget(0)
         return Trial(params, info_dict={"sample_type": "random", "rung": 0})
+
+    def fork_gc_eligible(self):
+        """Checkpoint GC: a rung parent's checkpoint is spent once its
+        promotion child has finalized (a trial leaves a rung at most once).
+        A not-yet-promoted trial stays: promotion eligibility grows as rungs
+        fill. Once the experiment is exhausted every finalized trial's
+        checkpoint is spent except the top-rung survivors': the winner's
+        trained state is what the sweep is for."""
+        metrics = self.get_metrics_dict()
+        if self._exhausted:
+            keep = set(self.rungs.get(self.max_rung, []))
+            return sorted(tid for tid in metrics if tid not in keep)
+        finalized_children: Dict[str, int] = {}
+        for t in self.final_store:
+            parent = t.info_dict.get("parent")
+            if parent is not None and t.final_metric is not None:
+                finalized_children[parent] = finalized_children.get(parent, 0) + 1
+        return [parent for parents in self.promoted.values() for parent in parents
+                if finalized_children.get(parent)]

@@ -1,8 +1,8 @@
 """GP-surrogate async Bayesian optimization.
 
-Copy of ``maggy_tpu/optimizers/bayes/gp.py`` without the warm-started-
-neighbor tilt of checkpoint forking, on the port's own regressor
-(``gpr.py``) in place of scikit-learn's. Parity: reference
+Copy of ``maggy_tpu/optimizers/bayes/gp.py`` on the port's own regressor
+(``gpr.py``) in place of scikit-learn's, the warm-started-neighbor tilt of
+checkpoint forking (``fork_eps``, JAX `gp.py:110-141`) included. Parity: reference
 `maggy/optimizer/bayes/gp.py` — surrogate is a Gaussian process with
 ConstantKernel x Matern(nu=2.5) + white noise, normalize_y (:262-287); async
 strategies 'impute' (constant liar cl_min/cl_max/cl_mean or kriging believer
@@ -80,6 +80,18 @@ class GP(BaseAsyncBO):
         X_acq = np.hstack([X_cand, np.ones((len(X_cand), 1))]) if self.interim_results \
             else X_cand
         values = self.acquisition.evaluate(X_acq, model, y_opt)
+        # Warm-neighbor discount (fork_eps): candidates near an executed
+        # config are cheaper (a checkpoint fork), so tilt the lower-is-better
+        # acquisition toward them, scaled by its spread so the tilt is a
+        # preference, never a takeover of the ranking.
+        prox = self.warm_neighbor_proximity(X_cand)
+        tilt_scale = 0.0
+        if prox is not None:
+            v = np.asarray(values, dtype=np.float64).reshape(-1)
+            spread = float(np.max(v) - np.min(v))
+            if spread > 0.0:
+                tilt_scale = self.fork_discount_weight() * spread
+                values = (v - tilt_scale * prox).reshape(np.shape(values))
         if isinstance(self.acquisition, AsyTS):
             x_best = X_cand[int(np.argmin(values))]
         else:
@@ -89,7 +101,12 @@ class GP(BaseAsyncBO):
 
             def objective(x):
                 xq = np.concatenate([x, [1.0]]) if self.interim_results else x
-                return float(self.acquisition.evaluate(xq[np.newaxis, :], model, y_opt)[0])
+                val = float(self.acquisition.evaluate(xq[np.newaxis, :], model, y_opt)[0])
+                if tilt_scale > 0.0:
+                    p = self.warm_neighbor_proximity(x[np.newaxis, :])
+                    if p is not None:
+                        val -= tilt_scale * float(p[0])
+                return val
 
             for i in order:
                 xo, fo, _ = fmin_l_bfgs_b(objective, X_cand[i], approx_grad=True,

@@ -1,8 +1,9 @@
 """Tree-structured Parzen Estimator (BOHB/HpBandSter-style).
 
-Copy of ``maggy_tpu/optimizers/bayes/tpe.py`` without the warm-started-
-neighbor discount of checkpoint forking. Given the same seed and the same
-observations it proposes the same configs. Parity: reference
+Copy of ``maggy_tpu/optimizers/bayes/tpe.py``, the warm-started-neighbor
+discount of checkpoint forking (``fork_eps``, JAX `tpe.py:111-122`)
+included. Given the same seed and the same observations it proposes the
+same configs. Parity: reference
 `maggy/optimizer/bayes/tpe.py` — γ=0.15 good/bad split with n_good/n_bad
 floors of d+1 (:191-221), two mixed-type KDEs with var_type c/u per hparam
 (:180-189, :223-251), candidate sampling: 24 draws around random good-KDE
@@ -102,12 +103,22 @@ class TPE(BaseAsyncBO):
         kdes = self.models[budget]
         good, bad = kdes["good"], kdes["bad"]
         best_x, best_ei = None, -np.inf
+        weight = self.fork_discount_weight()
         for _ in range(self.num_samples):
             idx = int(self.rng.integers(0, good.n))
             x = good.sample_around(self.rng, idx, bw_factor=self.bw_factor)
             ei = max(good.pdf(x[np.newaxis, :])[0], 1e-32) / max(
                 bad.pdf(x[np.newaxis, :])[0], 1e-32
             )
+            # Warm-neighbor discount (fork_eps): the l/g ratio is higher-is-
+            # better, so a candidate near an executed config (a checkpoint
+            # fork) gets a multiplicative boost. Proximity is measured in the
+            # searchspace's normalized transform, not the KDE's encoding.
+            prox = None
+            if weight > 0 and self.fork_eps is not None:
+                prox = self.warm_neighbor_proximity(self.searchspace.transform(self._decode(x)))
+            if prox is not None and prox[0] > 0:
+                ei *= 1.0 + weight * float(prox[0])
             if ei > best_ei:
                 best_x, best_ei = x, ei
         return self._decode(best_x)

@@ -1,0 +1,268 @@
+"""Per-trial checkpoints with ``torch.save``, and cross-trial forking.
+
+Counterpart of ``maggy_tpu/train/checkpoint.py:1-180`` with ``torch.save``
+and ``torch.load`` in place of orbax, in the JAX module's layout: each
+trial dir holds ``checkpoints/<step>/state.pt``, the newest
+``max_to_keep`` steps are kept, and a step's directory appears only once
+its file is complete (written into a temporary directory whose name is not
+a number, then published with ``os.replace``). A promoted ASHA trial, a
+PBT segment or a BO near-duplicate forks its parent's checkpoint: the
+driver stamps the parent's newest step into the assignment and the runner
+copies that step into the child's trial dir (``fork_checkpoint``), so the
+child's own ``restore`` resumes there.
+
+``torch`` is imported only where a checkpoint is written or read: the
+preemption ack and the driver's fork stamp need only the step numbers,
+which come from a directory listing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import shutil
+import threading
+import time
+from typing import Any, Dict, Optional
+
+#: Thread runners share one process: every checkpoint write, read and
+#: prune runs under this lock (``maggy_tpu/train/checkpoint.py:16-20``).
+_CKPT_LOCK = threading.Lock()
+
+#: The one file inside each step's directory.
+STATE_FILE = "state.pt"
+
+#: This thread's wait for ``_CKPT_LOCK`` in its latest checkpoint call.
+_wait = threading.local()
+
+
+@contextlib.contextmanager
+def _locked():
+    """``_CKPT_LOCK``, with the time spent waiting for it kept for
+    ``last_lock_wait_ms``."""
+    t0 = time.perf_counter()
+    with _CKPT_LOCK:
+        _wait.ms = (time.perf_counter() - t0) * 1e3
+        yield
+
+
+def last_lock_wait_ms() -> float:
+    """How long this thread's latest checkpoint call waited for the lock
+    (another runner saving or restoring); 0.0 before any call."""
+    return getattr(_wait, "ms", 0.0)
+
+
+def _steps(path: str):
+    return sorted(int(name) for name in os.listdir(path) if name.isdigit()) \
+        if os.path.isdir(path) else []
+
+
+def _flat_tensors(tree, prefix=()) -> Dict[tuple, Any]:
+    """path -> tensor for every tensor leaf of nested dicts, lists and
+    tuples."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    out: Dict[tuple, Any] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, prefix + (k,)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flat_tensors(v, prefix + (i,)))
+    return out
+
+
+def _onto_template(state, wanted: Dict[tuple, Any], prefix=()):
+    """``state`` with each tensor the template names moved to that
+    template tensor's device."""
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        target = wanted.get(prefix)
+        return state if target is None or state.device == target.device \
+            else state.to(target.device)
+    if isinstance(state, dict):
+        return type(state)((k, _onto_template(v, wanted, prefix + (k,)))
+                           for k, v in state.items())
+    if isinstance(state, (list, tuple)):
+        return type(state)(_onto_template(v, wanted, prefix + (i,))
+                           for i, v in enumerate(state))
+    return state
+
+
+class TrialCheckpointer:
+    """``<trial_dir>/checkpoints/<step>/state.pt``, the newest
+    ``max_to_keep`` steps kept. Every write is synchronous: it has landed
+    when ``save`` returns.
+
+    orbax's rule, which the JAX package's checkpointer follows: a save whose
+    step is not newer than the latest kept step is skipped. A fork stages
+    its parent's step into the child's dir, so a PBT segment that exploits
+    a donor further along keeps the donor's copy, and its lineage continues
+    from the donor's weights (ROADMAP queue 3 item 7)."""
+
+    def __init__(self, trial_dir: str, max_to_keep: int = 1):
+        if max_to_keep < 1:
+            raise ValueError("max_to_keep must be >= 1, got {}".format(max_to_keep))
+        self.path = os.path.abspath(os.path.join(trial_dir, "checkpoints"))
+        self.max_to_keep = max_to_keep
+
+    def save(self, step: int, state: Any) -> None:
+        """Write ``state`` (nested dicts, lists and tuples of tensors and
+        numbers, such as state dicts) as checkpoint ``step``, unless a kept
+        step is ``step`` or later; then the older kept steps beyond
+        ``max_to_keep`` are removed."""
+        import torch
+
+        step = int(step)
+        with _locked():
+            kept = _steps(self.path)
+            if kept and step <= kept[-1]:
+                return
+            os.makedirs(self.path, exist_ok=True)
+            tmp = os.path.join(self.path, ".tmp.{}".format(step))
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(state, os.path.join(tmp, STATE_FILE))
+            os.replace(tmp, os.path.join(self.path, str(step)))
+            for stale in (kept + [step])[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.path, str(stale)))
+
+    def latest_step(self) -> Optional[int]:
+        with _locked():
+            kept = _steps(self.path)
+        return kept[-1] if kept else None
+
+    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+        """Load checkpoint ``step`` (None = the newest; None is returned
+        when there is none) onto the template's device: ``template`` has
+        the saved structure, and each of its tensors gives the shape, dtype
+        and device of the tensor restored at its place (the state a fresh
+        trainer holds, such as its state dicts). Tensors the template does
+        not name (an optimizer's moments before its first step) load onto
+        the device of the template's first tensor. A template tensor the
+        checkpoint lacks, or holds with another shape or dtype, raises."""
+        import torch
+
+        wanted = _flat_tensors(template)
+        first = next(iter(wanted.values()), None)
+        with _locked():
+            if step is None:
+                kept = _steps(self.path)
+                if not kept:
+                    return None
+                step = kept[-1]
+            path = os.path.join(self.path, str(int(step)), STATE_FILE)
+            state = torch.load(path, map_location=None if first is None else first.device,
+                               weights_only=True)
+        got = _flat_tensors(state)
+        for key, t in wanted.items():
+            have = got.get(key)
+            if have is None or have.shape != t.shape or have.dtype != t.dtype:
+                raise ValueError(
+                    "checkpoint {} does not match its template at {}: {} against {}".format(
+                        path, "/".join(map(str, key)),
+                        None if have is None else (tuple(have.shape), have.dtype),
+                        (tuple(t.shape), t.dtype)))
+        return _onto_template(state, wanted)
+
+    def close(self) -> None:
+        """Nothing is held open between calls (kept for the JAX module's
+        interface)."""
+
+
+def latest_checkpoint_step(trial_dir: str) -> Optional[int]:
+    """Newest checkpointed step under ``trial_dir`` or None, from the
+    directory listing alone: the preemption ack needs only the number."""
+    kept = _steps(os.path.join(trial_dir, "checkpoints"))
+    return kept[-1] if kept else None
+
+
+def restore_parent_state(exp_dir: str, parent_trial_id: str, template: Any) -> Optional[Any]:
+    """Warm-start a promoted trial from its parent's newest checkpoint
+    (None when the parent saved none)."""
+    parent_dir = os.path.join(exp_dir, parent_trial_id)
+    if not os.path.isdir(os.path.join(parent_dir, "checkpoints")):
+        return None
+    ckpt = TrialCheckpointer(parent_dir)
+    try:
+        return ckpt.restore(template)
+    finally:
+        ckpt.close()
+
+
+# ------------------------------------------------- cross-trial forking
+
+def latest_checkpoint_step_env(env, trial_dir: str) -> Optional[int]:
+    """``latest_checkpoint_step`` through the environment: the driver
+    resolves a parent's checkpoint step with it at fork-stamp time."""
+    path = "{}/checkpoints".format(trial_dir)
+    if not env.isdir(path):
+        return None
+    steps = [int(name) for name in env.ls(path) if name.isdigit()]
+    return max(steps) if steps else None
+
+
+def _copy_tree_env(env, src: str, dst: str) -> int:
+    """Recursive copy through the environment, byte for byte (returns the
+    files copied): the staging path of environments without a local
+    filesystem."""
+    copied = 0
+    env.mkdir(dst)
+    for name in env.ls(src):
+        s, d = "{}/{}".format(src, name), "{}/{}".format(dst, name)
+        if env.isdir(s):
+            copied += _copy_tree_env(env, s, d)
+        else:
+            with env.open_file(s, "rb") as f:
+                data = f.read()
+            with env.open_file(d, "wb") as out:
+                out.write(data)
+            copied += 1
+    return copied
+
+
+def fork_checkpoint(env, exp_dir: str, parent_trial_id: str, child_trial_dir: str,
+                    step: Optional[int] = None) -> Optional[int]:
+    """Stage the parent trial's checkpoint ``step`` (None = its newest)
+    into the child's trial dir, so the child resumes instead of
+    re-training; the parent's dir stays intact for its other children.
+    Returns the staged step, or None when the parent has no such
+    checkpoint (the caller runs the child from scratch).
+
+    Idempotent and crash-safe (``maggy_tpu/train/checkpoint.py:122-180``):
+    a child that already holds a complete copy returns it without copying;
+    a local copy is published through a temporary directory and
+    ``os.replace``, and an environment copy writes its
+    ``.fork_complete.<step>`` marker last, so a copy torn by a death
+    mid-staging is copied again by the requeued run."""
+    target = step
+    parent_dir = "{}/{}".format(exp_dir, parent_trial_id)
+    if target is None:
+        target = latest_checkpoint_step_env(env, parent_dir)
+        if target is None:
+            return None
+    local = getattr(env, "FAST_LOCAL_WRITES", False)
+    child_step_dir = "{}/checkpoints/{}".format(child_trial_dir, target)
+    marker = "{}/checkpoints/.fork_complete.{}".format(child_trial_dir, target)
+    if env.isdir(child_step_dir) and (local or env.exists(marker)):
+        # Already staged, or the child checkpointed this step itself.
+        return int(target)
+    src = "{}/checkpoints/{}".format(parent_dir, target)
+    if not env.isdir(src):
+        return None
+    if local and os.path.isdir(src):
+        os.makedirs(os.path.dirname(child_step_dir), exist_ok=True)
+        tmp = child_step_dir + ".fork_tmp"
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        shutil.copytree(src, tmp)
+        # A death mid-copy leaves only the tmp dir, whose name is no step.
+        os.replace(tmp, child_step_dir)
+    else:
+        # A re-copy overwrites a torn one; the marker is the publish point.
+        _copy_tree_env(env, src, child_step_dir)
+        env.dump("{}", marker)
+    return int(target)

@@ -1,8 +1,8 @@
 """Trial: the unit of schedulable work and its thread-safe state machine.
 
 Copy of ``maggy_tpu/trial.py`` with its run epoch and ``reset_run_state``
-(heartbeat-loss requeue), without the preemption state (the port has no
-scheduler preemption yet).
+(heartbeat-loss requeue) and its preempt flag (graceful preemption,
+``maggy_tpu/trial.py:108-114``).
 
 Parity: reference `maggy/trial.py` — status machine (:33-37), deterministic
 md5-derived 16-char trial ids (:110-136), thread-safe early-stop flag and
@@ -54,6 +54,10 @@ class Trial:
         self.trial_id = Trial._compute_id(params, trial_type)
         self.status = Trial.PENDING  # guarded-by: lock
         self.early_stop = False  # guarded-by: lock
+        # Scheduler preemption in flight: the early-stop flag carries the
+        # STOP to the runner, this flag marks it as a preemption (the
+        # runner acks with a preempted FINAL instead of finalizing).
+        self.preempt = False  # guarded-by: lock
         self.final_metric: Optional[float] = None  # guarded-by: lock
         self.metric_history: List[float] = []  # guarded-by: lock
         self.step_history: List[int] = []  # guarded-by: lock
@@ -103,6 +107,14 @@ class Trial:
         with self.lock:
             self.early_stop = True
 
+    def get_preempt(self) -> bool:
+        with self.lock:
+            return self.preempt
+
+    def set_preempt(self) -> None:
+        with self.lock:
+            self.preempt = True
+
     def reset_run_state(self) -> None:
         """Discard the state of a dead run before a re-run: a requeued trial
         restarts from step 0 on another runner, so stale metric history
@@ -111,6 +123,7 @@ class Trial:
         130``)."""
         with self.lock:
             self.early_stop = False
+            self.preempt = False
             self.final_metric = None
             self.run_epoch += 1
             self.metric_history = []

@@ -242,10 +242,10 @@ def test_observation_helpers_match_jax():
 
 
 def test_fork_eps_raises_and_invalid_args():
-    with pytest.raises(NotImplementedError, match="fork"):
-        GP(fork_eps=0.1)
-    with pytest.raises(NotImplementedError, match="fork"):
-        TPE(fork_eps=0.1)
+    # fork_eps is ported (near-duplicate warm starts; tests/test_torch_fork.py
+    # holds it against the JAX package): accepted, and off by default.
+    assert GP(fork_eps=0.1).fork_eps == TPE(fork_eps=0.1).fork_eps == 0.1
+    assert GP().fork_eps is None and TPE().fork_eps is None
     with pytest.raises(ValueError, match="interim"):
         TPE(interim_results=True)
     with pytest.raises(ValueError, match="async_strategy"):

@@ -65,11 +65,12 @@ _SWEEP = textwrap.dedent("""
     sys.path.insert(0, {root!r})
 
     import numpy as np
+    import torch
     import maggy_tpu_torch.telemetry
     import maggy_tpu_torch.train.warm
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
     from maggy_tpu_torch.models import BertConfig, BertEncoder
-    from maggy_tpu_torch.optimizers import Asha
+    from maggy_tpu_torch.optimizers import PBT, Asha
     from maggy_tpu_torch.optimizers.bayes import GP, TPE
     from maggy_tpu_torch.train import (Trainer, adamw, cross_entropy_loss,
                                        warmup_cosine_decay_schedule)
@@ -101,6 +102,17 @@ _SWEEP = textwrap.dedent("""
         # which re-ran the import hook above before importing anything.
         out = train(lr, warmup_frac, reporter, steps_per_budget=2)
         return {{**out, "banned": banned_imports(), "pid": os.getpid()}}
+
+    def train_pbt(lr, warmup_frac, generation, member, budget, reporter, ctx):
+        # A PBT segment: its parent's checkpoint (staged by the fork) read
+        # back with torch.load, its own written with torch.save.
+        w = torch.zeros(3)
+        if ctx.resume_step is not None:
+            w = ctx.restore_checkpoint({{"w": w}})["w"]
+        w = w + lr
+        reporter.broadcast(float(w.sum()), step=0)
+        ctx.save_checkpoint(generation, {{"w": w}})
+        return {{"metric": float(w.sum()), "resumed_from": ctx.resume_step}}
 
     def sweep(name, optimizer, num_trials, space, fn=train, **kw):
         exp_dir = tempfile.mkdtemp()
@@ -149,7 +161,9 @@ _SWEEP = textwrap.dedent("""
                             lambda reporter, **p: train(reporter=reporter, steps_per_budget=1,
                                                         **p)),
                 "process": sweep("blocked_process", "randomsearch", 3, sp, train_in_process,
-                                 pool="process")}}
+                                 pool="process"),
+                "pbt": sweep("blocked_pbt", PBT(population=3, generations=2, seed=0), 6, sp,
+                             train_pbt)}}
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
         print(json.dumps(out))
@@ -174,8 +188,14 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert result["num_trials"] == len(outputs) == 3 and result["lost_runners"] == 0
     assert all(o["banned"] == [] for o in outputs)
     assert out["pid"] not in {o["pid"] for o in outputs}
+    # The PBT sweep forked every generation-1 segment from its parent's
+    # checkpoint, through torch.save, the context and the fork path.
+    result, trials, outputs = (out["pbt"][k] for k in ("result", "trials", "outputs"))
+    assert result["num_trials"] == len(trials) == 6
+    assert sorted(o["resumed_from"] for o in outputs if o["resumed_from"] is not None) == [0] * 3
+    assert out["pbt"]["replay"]["fork"]["forked"] == 3
     # Every sweep's journal, replayed by the telemetry CLI under the hook.
-    for name in ("asha", "tpe", "gp", "process"):
+    for name in ("asha", "tpe", "gp", "process", "pbt"):
         replay = out[name]["replay"]
         assert replay["torn_lines"] == 0, name
         assert replay["trials"]["finalized"] == len(out[name]["trials"]), name
@@ -220,7 +240,7 @@ def _imported_roots(path):
 
 
 def test_port_imports_nothing_of_jax_or_maggy_tpu():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "fork_hold_probe.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "maggy_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -228,7 +248,9 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
     assert {os.path.join("maggy_tpu_torch", "telemetry", n + ".py")
             for n in ("__init__", "__main__", "vocab", "metrics", "journal", "spans",
                       "goodput", "runnerstats", "trace")} <= scanned
-    assert os.path.join("maggy_tpu_torch", "train", "warm.py") in scanned
+    assert {os.path.join("maggy_tpu_torch", *p) for p in (
+        ("train", "warm.py"), ("train", "checkpoint.py"), ("core", "executors", "context.py"),
+        ("optimizers", "pbt.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

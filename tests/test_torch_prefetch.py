@@ -114,12 +114,14 @@ class TestSplitContract:
         assert None not in rest and opt.suggest() is None
 
     def test_registry_resolves_every_name(self):
-        assert set(CONTROLLER_REGISTRY) == {"randomsearch", "gridsearch", "asha", "tpe", "gp",
-                                            "none"}
+        assert set(CONTROLLER_REGISTRY) == {"randomsearch", "gridsearch", "asha", "pbt", "tpe",
+                                            "gp", "none"}
+        from maggy_tpu_torch.optimizers import PBT
         from maggy_tpu_torch.optimizers.bayes import GP, TPE
 
         for name, cls in (("tpe", TPE), ("gp", GP), ("none", SingleRun), ("asha", Asha),
-                          ("gridsearch", GridSearch), ("randomsearch", RandomSearch)):
+                          ("gridsearch", GridSearch), ("randomsearch", RandomSearch),
+                          ("pbt", PBT)):
             assert isinstance(CONTROLLER_REGISTRY[name](seed=0), cls)
         assert OptimizationConfig().prefetch is True
 
