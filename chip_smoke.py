@@ -97,6 +97,43 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              step and finalize once, every later segment must fork from the
              parent PBT named at that parent's newest step, and all 24
              segments must finalize.
+12. slice_resume — two sweeps, each killed with SIGKILL mid-flight and
+             resumed (OptimizationConfig(resume=True), the same app id and
+             experiment_dir) in a new process; each incarnation runs as
+             ``chip_smoke.py --resume-child <sweep> <incarnation>``, and the
+             parent only watches files, kills and checks while a child holds
+             the card. bert_base_resume is the slice_fork sweep with an
+             unseeded ASHA and a 3 s loss timeout, killed once 4 trials
+             finalized and the journal on disk shows one running (at a
+             moment with a fork running, if one comes before 7 finalized);
+             mnist_hyperband_resume is MnistCNN(3, 2, 16, 2) on
+             make_data(2048) under RandomSearch(seed 7) + Hyperband(1, 9, 3)
+             over lr and batch, 20 steps a budget unit, two thread runners,
+             each trial marking a file named after its params and budget.
+             Both must show incarnation 1 killed by the signal and 2 exiting
+             0, driver epochs [1, 2] in the markers and the journal, one
+             resumed and one recovered event (in flight >= 1), no trial
+             finalized before the kill running again, each trial in flight
+             at the kill requeued once (blacklist or heartbeat_loss) and
+             finalized after the resume, early_stopped counting both
+             incarnations, and a journal that passes the replay checks.
+             bert_base_resume also: a whole ASHA ladder (every promotion's
+             parent finalized a rung below and promoted once, the top rung
+             reached, 9 rung-0 trials unless the top rung finished first:
+             ASHA then draws no more, and the resumed forks, finishing
+             early, can bring that about), incarnation 2's launches at
+             12 x its steps, promotions of parents saved before the kill
+             forked at the parent's last step and trained from the step
+             after, a fork in flight at the kill resumed at its fork step
+             (recovery's fork count). mnist_hyperband_resume also: the
+             bracket file present at the kill, every slot of the 22 run,
+             only trials in flight at the kill run twice (at most one a
+             runner), result.json counting the slots plus them. Prints each
+             incarnation's wall time, the resume's time to its first
+             assignment, the counts restored, recovered, requeued (by
+             reason) and adopted, the rework, the forks resumed across the
+             crash, the goodput of both incarnations and the peak bytes on
+             disk.
 
 After every sweep, its telemetry journal (<exp_dir>/telemetry.jsonl) is
 replayed through maggy_tpu_torch.telemetry and the sweep's line gets a
@@ -114,7 +151,8 @@ reruns its thread sweep with telemetry off and on in turns, twice
 (telemetry's cost where the host sets the pace).
 
 Then the {"kernels": [...]} summary line (one entry per kernel and main
-path, each with that path's launches and times at its shape), the
+path, each with that path's launches and times at its shape;
+bert_base_resume's launches are incarnation 2's), the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
 JAX or maggy_tpu. Runner processes are spawned and re-import this file as
@@ -176,7 +214,8 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
 #: Paths that run the kernels at another path's shape: the process-runner
 #: and forking sweeps are the slice sweep's.
-SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base"}
+SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
+              "bert_base_resume": "bert_base"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
 DEVICE = "cuda"
@@ -193,6 +232,18 @@ PBT_STEPS, PBT_PREEMPT_AFTER = 15, 5
 # slice_fork writes about 1.3 GB a BERT-base checkpoint (fp32 weights and
 # AdamW's two moments); the unpromoted rung-0 ones live until the sweep ends.
 FORK_MIN_FREE_BYTES = 20e9
+# slice_resume: its sweeps' root, the script its children run (a CPU
+# rehearsal points it at its own), the BERT sweep's loss timeout, the
+# Hyperband sweep's bracket ladder and steps a budget unit (bench.py trains
+# 40; cut, since the sweep only shows the bracket state across a crash),
+# how long incarnation 1 may take to reach its kill point and incarnation 2
+# to finish.
+RESUME_ROOT = os.path.join(ROOT, "build", "chip_smoke_experiments_resume")
+CHILD_SCRIPT = os.path.abspath(__file__)
+RESUME_LOSS_TIMEOUT_S = 3.0
+RESUME_HYPERBAND = {"min_budget": 1, "max_budget": 9, "eta": 3}
+MNIST_RESUME_STEPS_PER_BUDGET = 20
+RESUME_KILL_DEADLINE_S, RESUME_CHILD_TIMEOUT_S = 300, 420
 
 
 def emit(phase, **fields):
@@ -721,10 +772,13 @@ def trainer_state(trainer):
 
 
 def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
-    """One trial of the slice_fork sweep: train_bert_asha with a checkpoint
-    of its state at its end, and, for a fork, a resume from the staged
-    parent checkpoint at the step after it under this trial's own schedule
-    (its larger budget)."""
+    """One trial of the slice_fork and slice_resume sweeps: train_bert_asha
+    with a checkpoint of its state (and its last loss) at its end, and, for
+    a fork, a resume from the staged parent checkpoint at the step after it
+    under this trial's own schedule (its larger budget). A fork whose own
+    final checkpoint is already in its dir (it trained to its end before an
+    interruption, and only its FINAL was lost) restores that one and trains
+    no step."""
     from maggy_tpu_torch.models import BertEncoder
     from maggy_tpu_torch.train import Trainer, adamw, warmup_cosine_decay_schedule
 
@@ -737,7 +791,7 @@ def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
                       device=DEVICE).init(seed=0)
     if ctx.resume_step is not None:
         state = ctx.restore_checkpoint({**trainer_state(trainer), "steps_done": 0})
-        if state is None or state["steps_done"] != ctx.resume_step + 1:
+        if state is None or state["steps_done"] not in (ctx.resume_step + 1, total):
             raise RuntimeError("trial {} resumes at step {} but its checkpoint holds {}".format(
                 reporter.trial_id, ctx.resume_step, state and state["steps_done"]))
         trainer.model.load_state_dict(state["model"])
@@ -748,6 +802,7 @@ def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
         # takes this trial's schedule(t), as its scheduler sets it after.
         for group in trainer.optimizer.param_groups:
             group["lr"] = sched(record.first_step)
+    loss = state["loss"] if record.first_step == total else None
     with record:
         for i in range(record.first_step, total):
             loss = trainer.step(batch(i))
@@ -758,7 +813,8 @@ def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
     if not math.isfinite(final):
         raise FloatingPointError("non-finite loss {}".format(final))
     # The step index of the last step trained: a fork resumes after it.
-    ctx.save_checkpoint(total - 1, {**trainer_state(trainer), "steps_done": total})
+    ctx.save_checkpoint(total - 1, {**trainer_state(trainer), "steps_done": total,
+                                    "loss": final})
     return {"metric": -final}
 
 
@@ -852,18 +908,24 @@ def fault(flag, reporter):
     return True
 
 
-def train_mnist(lr, batch, budget, reporter, out_dir, kill_flag=None, wedge_flag=None):
+def train_mnist(lr, batch, budget, reporter, out_dir, kill_flag=None, wedge_flag=None,
+                marker_dir=None, steps_per_budget=MNIST_STEPS_PER_BUDGET):
     """bench.py's train_mnist on the card: the budget-scaled MNIST CNN
     trial with adam, a heartbeat every 2 steps. With the flags (slice_
     recovery), the first trial to reach FAULT_STEP kills its own process
-    and the second freezes its own."""
+    and the second freezes its own. With ``marker_dir`` (slice_resume), the
+    trial first appends a byte to a file there named after its params and
+    budget (``tests/test_resume.py:184-296``)."""
     from maggy_tpu_torch.train import ShardedBatchIterator, Trainer, adam
 
+    if marker_dir is not None:
+        with open(os.path.join(marker_dir, "{:.10f}_{}_{}".format(lr, batch, budget)), "a") as f:
+            f.write("x")
     record = TrialRecord(out_dir, reporter)
     full_fp32()
     X, Y = cached("mnist", make_data)
     trainer = Trainer(mnist_model(DEVICE), adam(lr), labels_loss, device=DEVICE).init(seed=0)
-    steps = max(1, int(MNIST_STEPS_PER_BUDGET * budget))
+    steps = max(1, int(steps_per_budget * budget))
     it = iter(ShardedBatchIterator({"x": X, "y": Y}, batch_size=int(batch), epochs=None,
                                    seed=1, device=DEVICE))
     with record:
@@ -1223,6 +1285,417 @@ def phase_slice_pbt(exp_dir):
          telemetry=public(telemetry))
     if problems:
         raise AssertionError("slice_pbt: {}".format("; ".join(problems)))
+
+
+# ------------------------------------------------------------- slice_resume
+
+
+def resume_dirs(sweep):
+    """(root, experiment dir, run dir) of a slice_resume sweep: both
+    incarnations run under app id ``sweep``, run 0."""
+    root = os.path.join(RESUME_ROOT, sweep)
+    exp = os.path.join(root, "exp")
+    return root, exp, os.path.join(exp, sweep + "_0")
+
+
+def resume_config(sweep, incarnation):
+    """(config, train function, records dir) of one incarnation of a
+    slice_resume sweep; the second resumes the first's run."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace
+    from maggy_tpu_torch.optimizers import Asha, RandomSearch
+
+    root, exp, _ = resume_dirs(sweep)
+    out_dir = os.path.join(root, "records", str(incarnation))
+    os.makedirs(out_dir, exist_ok=True)
+    resume = incarnation > 1
+    if sweep == "bert_base_resume":
+        # The slice_fork sweep, with an unseeded ASHA: a seeded one resumed
+        # draws its pre-crash rung-0 configs again (ROADMAP queue 3 item 8),
+        # and "no finalized trial runs again" would then test nothing.
+        sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
+        config = OptimizationConfig(
+            name=sweep, num_trials=9,
+            optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=None),
+            searchspace=sp, direction="max", num_workers=2, es_policy="median", es_min=3,
+            hb_interval=0.1, hb_loss_timeout=RESUME_LOSS_TIMEOUT_S, seed=0,
+            experiment_dir=exp, resume=resume)
+        return config, functools.partial(train_bert_fork, out_dir=out_dir), out_dir
+    markers = os.path.join(root, "markers")
+    os.makedirs(markers, exist_ok=True)
+    sp = Searchspace(lr=("DOUBLE_LOG", [1e-4, 3e-2]), batch=("DISCRETE", MNIST_BATCHES))
+    config = OptimizationConfig(
+        name=sweep, optimizer=RandomSearch(seed=7, pruner="hyperband",
+                                           pruner_kwargs=RESUME_HYPERBAND),
+        searchspace=sp, direction="max", num_workers=2, hb_interval=0.1, es_policy="none",
+        seed=7, experiment_dir=exp, resume=resume)
+    return config, functools.partial(train_mnist, out_dir=out_dir, marker_dir=markers,
+                                     steps_per_budget=MNIST_RESUME_STEPS_PER_BUDGET), out_dir
+
+
+def resume_child(sweep, incarnation):
+    """One incarnation of a slice_resume sweep in a process of its own
+    (``chip_smoke.py --resume-child <sweep> <incarnation>``): the sweep
+    through experiment.lagom, the launch counters zeroed just before and
+    read just after; prints one JSON line with its launches, its steps and
+    first steps from the per-trial records, its wall time and its peak
+    device memory."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    from maggy_tpu_torch import experiment
+    from maggy_tpu_torch.ops import attention as A
+
+    full_fp32()
+    config, train, out_dir = resume_config(sweep, incarnation)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = experiment.lagom(train, config)
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    records = read_records(out_dir)
+    print(json.dumps({
+        "sweep": sweep, "incarnation": incarnation, "pid": os.getpid(), "wall_s": wall,
+        "launches": launches, "steps": sum(r["steps"] for r in records),
+        "first_step": {r["trial_id"]: r["first_step"] for r in records},
+        "trial_steps": {r["trial_id"]: r["steps"] for r in records},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "num_trials": result["num_trials"]}), flush=True)
+
+
+def log_tail(path, n=60):
+    with open(path, errors="replace") as f:
+        return "\n".join(f.read().splitlines()[-n:])
+
+
+def spawn_child(sweep, incarnation, log_path):
+    env = dict(os.environ, MAGGY_TPU_APP_ID=sweep)
+    with open(log_path, "w") as log:
+        return subprocess.Popen([sys.executable, CHILD_SCRIPT, "--resume-child", sweep,
+                                 str(incarnation)], cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+
+
+def on_disk(run_dir):
+    """What the sweep has made durable: its finalized trial.json records by
+    id, and its journal's events by trial."""
+    from maggy_tpu_torch.telemetry import read_events
+
+    finals = {}
+    for path in glob.glob(os.path.join(run_dir, "*", "trial.json")):
+        with open(path) as f:
+            trial = json.load(f)
+        if trial["status"] == "FINALIZED":
+            finals[trial["id"]] = trial
+    journal = os.path.join(run_dir, "telemetry.jsonl")
+    events = read_events(journal) if os.path.exists(journal) else []
+    by_trial = {}
+    for e in events:
+        if e["ev"] == "trial":
+            by_trial.setdefault(e["trial"], []).append(e)
+    return finals, events, by_trial
+
+
+def in_flight(by_trial):
+    """The journal's trials queued and not finalized: {id: (held, fork)},
+    held = a partition held it (its last attempt edge is assigned or
+    running), fork = its queued edge's forked_from."""
+    out = {}
+    for tid, evs in by_trial.items():
+        phases = [e["phase"] for e in evs]
+        if "queued" not in phases or "finalized" in phases:
+            continue
+        attempt = [p for p in phases if p in ("assigned", "running", "requeued", "lost",
+                                              "preempted")]
+        queued = next(e for e in evs if e["phase"] == "queued")
+        out[tid] = (bool(attempt) and attempt[-1] in ("assigned", "running"),
+                    (queued.get("info") or {}).get("forked_from"))
+    return out
+
+
+def kill_mid_flight(sweep, min_finals):
+    """Incarnation 1, killed with SIGKILL once the run dir holds at least
+    ``min_finals`` finalized trials and the flushed journal a trial running
+    and not finalized, at a moment with a fork running if one comes before
+    the sweep is half done. The parent only reads files meanwhile."""
+    root, _, run_dir = resume_dirs(sweep)
+    log = os.path.join(root, "incarnation_1.log")
+    t_spawn = time.time()
+    proc = spawn_child(sweep, 1, log)
+    try:
+        deadline = time.monotonic() + RESUME_KILL_DEADLINE_S
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("{}: incarnation 1 ended (rc {}) before its kill:\n{}".format(
+                    sweep, proc.returncode, log_tail(log)))
+            finals, _, by_trial = on_disk(run_dir)
+            running = {tid: fork for tid, (held, fork) in in_flight(by_trial).items()
+                       if any(e["phase"] == "running" for e in by_trial[tid])}
+            if len(finals) >= min_finals and running and (
+                    any(running.values()) or len(finals) >= min_finals + 3):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("{}: no kill point within {} s:\n{}".format(
+                    sweep, RESUME_KILL_DEADLINE_S, log_tail(log)))
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+        t_kill = time.time()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError("{}: incarnation 1 exited {}, not by SIGKILL".format(
+            sweep, proc.returncode))
+    finals, events, by_trial = on_disk(run_dir)
+    return {"wall_s": t_kill - t_spawn, "t_kill": t_kill, "finals": finals,
+            "in_flight": in_flight(by_trial), "journal_events": len(events),
+            "torn_lines_at_kill": events.torn_lines if events else 0,
+            "pruner_state": os.path.exists(os.path.join(run_dir, ".pruner_state.json"))}
+
+
+def resume_run(sweep):
+    """Incarnation 2, resumed in a new process, run to its end: its wall
+    time (spawn to exit) and its JSON line."""
+    root = resume_dirs(sweep)[0]
+    log = os.path.join(root, "incarnation_2.log")
+    t_spawn = time.time()
+    proc = spawn_child(sweep, 2, log)
+    try:
+        rc = proc.wait(RESUME_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError("{}: incarnation 2 ran past {} s:\n{}".format(
+            sweep, RESUME_CHILD_TIMEOUT_S, log_tail(log)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    if rc != 0:
+        raise AssertionError("{}: incarnation 2 exited {}:\n{}".format(sweep, rc, log_tail(log)))
+    lines = [line for line in open(log).read().splitlines() if line.startswith('{"sweep"')]
+    return t_spawn, time.time() - t_spawn, json.loads(lines[-1])
+
+
+def resume_checks(sweep, kill, t_spawn2, wall2, child):
+    """The checks both slice_resume sweeps share, on the journal of both
+    incarnations; returns (problems, reading, trials, telemetry, result)."""
+    _, exp, run_dir = resume_dirs(sweep)
+    with open(os.path.join(run_dir, "result.json")) as f:
+        result = json.load(f)
+    trials = read_trials(exp)
+    telemetry = journal_check(sweep, exp, result)
+    events = telemetry["_events"]
+    problems = []
+    epochs = [e["epoch"] for e in events if e["ev"] == "driver_epoch"]
+    markers = sorted(n for n in os.listdir(run_dir) if n.startswith(".driver_epoch."))
+    if epochs != [1, 2] or markers != [".driver_epoch.1", ".driver_epoch.2"]:
+        problems.append("driver epochs {}, markers {}".format(epochs, markers))
+    resumed = [e for e in events if e["ev"] == "experiment" and e.get("phase") == "resumed"]
+    recovered = [e for e in events if e["ev"] == "experiment" and e.get("phase") == "recovered"]
+    if len(resumed) != 1 or len(recovered) != 1 or recovered[0]["inflight"] < 1:
+        problems.append("resumed {}, recovered {}".format(resumed, recovered))
+    seam = next((i for i, e in enumerate(events)
+                 if e["ev"] == "driver_epoch" and e["epoch"] == 2), len(events) - 1)
+    post = [e for e in events[seam:] if e["ev"] == "trial"]
+    rerun = sorted(tid for tid in kill["finals"]
+                   if any(e["trial"] == tid and e["phase"] == "running" for e in post))
+    if rerun:
+        problems.append("trials finalized before the kill ran again: {}".format(rerun))
+    requeues = {}
+    for e in post:
+        if e["phase"] == "requeued":
+            requeues.setdefault(e["trial"], []).append(e.get("reason"))
+    for tid, (held, _) in kill["in_flight"].items():
+        want = 1 if held else 0
+        reasons = requeues.get(tid, [])
+        if len(reasons) != want or not set(reasons) <= {"blacklist", "heartbeat_loss"} or \
+                not any(e["trial"] == tid and e["phase"] == "finalized" for e in post):
+            problems.append("in-flight trial {} (held {}): requeues {}, finalized after the "
+                            "resume: {}".format(tid, held, reasons, any(
+                                e["trial"] == tid and e["phase"] == "finalized" for e in post)))
+    if not all(t["status"] == "FINALIZED" for t in trials):
+        problems.append("{} trials, {} finalized".format(
+            len(trials), sum(t["status"] == "FINALIZED" for t in trials)))
+    if result["early_stopped"] != sum(t["early_stop"] for t in trials):
+        problems.append("early_stopped {} against {} early-stopped trials".format(
+            result["early_stopped"], sum(t["early_stop"] for t in trials)))
+    first_assigned = next((e["t"] for e in post if e["phase"] == "assigned"), None)
+    reasons = [r for rs in requeues.values() for r in rs]
+    rec = recovered[0] if recovered else {}
+    reading = {
+        "incarnation_wall_s": [kill["wall_s"], wall2],
+        "incarnation_2_lagom_wall_s": child["wall_s"],
+        "resume_to_first_assigned_s": {
+            "process": None if first_assigned is None else first_assigned - t_spawn2,
+            "driver": None if first_assigned is None else first_assigned - events[seam]["t"]},
+        "kill_to_resume_s": t_spawn2 - kill["t_kill"],
+        "restored": {"events": resumed[0].get("restored_events") if resumed else None,
+                     "finalized": rec.get("finalized")},
+        "recovered": {k: rec.get(k) for k in ("inflight", "held_partitions", "backlogged",
+                                             "recovered_partitions", "forks")},
+        "requeued": {r: reasons.count(r) for r in sorted(set(reasons))},
+        "adopted": sum(1 for e in events if e["ev"] == "runner" and e.get("phase") == "adopted"),
+        "finalized_before_kill": len(kill["finals"]),
+        "in_flight_at_kill": len(kill["in_flight"]),
+        "torn_lines_at_kill": kill["torn_lines_at_kill"],
+        "peak_mem_gb_incarnation_2": child["peak_mem_gb"],
+    }
+    return problems, reading, trials, telemetry, result
+
+
+def asha_ladder(trials, events):
+    """The ASHA(3, 1, 9) ladder of a sweep: (trials by rung, problems). Each
+    promoted trial's parent finalized one rung below and was promoted once;
+    a top-rung trial finalized; no rung-0 trial was queued after the first
+    top-rung FINAL (ASHA is exhausted then and draws no more). So all 9
+    rung-0 samples run unless the top rung finished first, which an
+    interrupted sweep whose resumed forks finish early can reach (13 trials
+    in the uninterrupted order)."""
+    by_id = {t["id"]: t for t in trials}
+    rung = {tid: RUNG_BUDGETS.index(int(t["params"]["budget"])) for tid, t in by_id.items()}
+    by_rung = [sum(1 for r in rung.values() if r == k) for k in range(len(RUNG_BUDGETS))]
+    problems = []
+    promoted = [t for t in trials if rung[t["id"]] > 0]
+    parents = [t["info_dict"].get("parent") for t in promoted]
+    orphans = [t["id"] for t in promoted
+               if rung.get(t["info_dict"].get("parent")) != rung[t["id"]] - 1]
+    if orphans or len(parents) != len(set(parents)):
+        problems.append("ladder {}: promotions {} without a parent a rung below, parents "
+                        "{}".format(by_rung, orphans, parents))
+    top = [e["t"] for e in events if e["ev"] == "trial" and e["phase"] == "finalized"
+           and rung.get(e["trial"]) == len(RUNG_BUDGETS) - 1]
+    late = [e["trial"] for e in events if e["ev"] == "trial" and e["phase"] == "queued"
+            and rung.get(e["trial"]) == 0 and top and e["t"] > min(top)]
+    if not top or by_rung[0] > 9 or late:
+        problems.append("ladder {}: top rung finalized {} times, rung-0 trials queued after "
+                        "it: {}".format(by_rung, len(top), late))
+    return by_rung, problems
+
+
+def phase_slice_resume():
+    """Two sweeps killed with SIGKILL mid-flight and resumed in a new
+    process; the parent only watches, kills and checks."""
+    from maggy_tpu_torch.pruner.hyperband import Hyperband
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # (a) The slice_fork sweep, killed after its first rung-0 FINALs.
+    sweep = "bert_base_resume"
+    root = fresh_dir(resume_dirs(sweep)[0])
+    free = shutil.disk_usage(root).free
+    if free < FORK_MIN_FREE_BYTES:
+        raise AssertionError("slice_resume needs {:.0f} GB free for its checkpoints; {} has "
+                             "{:.1f} GB".format(FORK_MIN_FREE_BYTES / 1e9, root, free / 1e9))
+    with DiskPeak(root) as disk:
+        kill = kill_mid_flight(sweep, min_finals=4)
+        t_spawn2, wall2, child = resume_run(sweep)
+    problems, reading, trials, telemetry, result = resume_checks(
+        sweep, kill, t_spawn2, wall2, child)
+    by_rung, ladder = asha_ladder(trials, telemetry["_events"])
+    problems += ladder
+    from maggy_tpu_torch.models import BertConfig
+
+    layers = BertConfig.base().num_layers
+    expected = layers * child["steps"]
+    if any(n != expected for n in child["launches"].values()) or expected == 0:
+        problems.append("incarnation 2's launches {} != {} layers x {} steps".format(
+            child["launches"], layers, child["steps"]))
+    events = telemetry["_events"]
+    seam = next(i for i, e in enumerate(events) if e["ev"] == "driver_epoch" and e["epoch"] == 2)
+    post = [e for e in events[seam:] if e["ev"] == "trial"]
+    by_id = {t["id"]: t for t in trials}
+    forks = {e["trial"]: e for e in events if e["ev"] == "trial" and e["phase"] == "forked_from"}
+    queued_after = {e["trial"] for e in post if e["phase"] == "queued"}
+    # Promotions the resumed incarnation made of parents that saved before
+    # the kill fork them at their last step and train from the step after.
+    promoted_forks = []
+    for tid in sorted(queued_after):
+        parent = by_id[tid]["info_dict"].get("parent")
+        if parent is None or parent not in kill["finals"] or kill["finals"][parent]["early_stop"]:
+            continue
+        want = int(kill["finals"][parent]["params"]["budget"]) * STEPS_PER_BUDGET - 1
+        fork = forks.get(tid, {})
+        promoted_forks.append({"trial": tid, "parent": parent, "step": fork.get("step"),
+                               "first_step": child["first_step"].get(tid)})
+        if fork.get("parent") != parent or fork.get("step") != want or \
+                child["first_step"].get(tid) != want + 1:
+            problems.append("promotion {} of {} (saved before the kill): fork {}, first step "
+                            "{}, want step {}".format(tid, parent, fork,
+                                                      child["first_step"].get(tid), want))
+    # A fork in flight at the kill resumes from its fork step.
+    resumed_forks = []
+    for tid, (_, fork) in kill["in_flight"].items():
+        if not fork:
+            continue
+        total = int(by_id[tid]["params"]["budget"]) * STEPS_PER_BUDGET
+        again = [e for e in post if e["trial"] == tid and e["phase"] == "resumed"]
+        first = child["first_step"].get(tid)
+        resumed_forks.append({"trial": tid, "fork_step": fork["step"], "first_step": first,
+                              "resumed": [e.get("from_step") for e in again]})
+        if [e.get("from_step") for e in again] != [fork["step"]] or \
+                first not in (fork["step"] + 1, total):
+            problems.append("fork {} in flight at the kill: resumed {}, first step {}, fork "
+                            "step {}".format(tid, again, first, fork["step"]))
+    if reading["recovered"]["forks"] != len(resumed_forks):
+        problems.append("recovery counted {} forks, {} were in flight".format(
+            reading["recovered"]["forks"], len(resumed_forks)))
+    rerun_steps = sum(child["trial_steps"].get(tid, 0) for tid in kill["in_flight"])
+    emit("slice_resume/" + sweep, **reading, trials_finished=len(trials),
+         early_stopped=result["early_stopped"],
+         early_stopped_before_kill=sum(t["early_stop"] for t in kill["finals"].values()),
+         trials_by_rung=by_rung,
+         best_val=result["best_val"], steps_incarnation_2=child["steps"],
+         launches=child["launches"], expected_launches_each=expected,
+         fork_in_flight_at_kill=bool(resumed_forks), forks_resumed=resumed_forks,
+         promotions_forked_after_resume=promoted_forks,
+         rework_s=telemetry["goodput"]["buckets_s"].get("rework", 0.0),
+         rerun_steps=rerun_steps, disk_peak_bytes=disk.peak,
+         goodput=telemetry["goodput"], telemetry=public(telemetry))
+    if problems:
+        raise AssertionError("slice_resume/{}: {}".format(sweep, "; ".join(problems)))
+    shutil.rmtree(root)
+    launches = child["launches"]
+
+    # (b) bench.py's MNIST model under Hyperband: the bracket state.
+    sweep = "mnist_hyperband_resume"
+    root = fresh_dir(resume_dirs(sweep)[0])
+    kill = kill_mid_flight(sweep, min_finals=4)
+    markers_at_kill = set(os.listdir(os.path.join(root, "markers")))
+    t_spawn2, wall2, child = resume_run(sweep)
+    problems, reading, trials, telemetry, result = resume_checks(sweep, kill, t_spawn2, wall2,
+                                                                 child)
+    full = Hyperband(trial_metric_getter=dict, **RESUME_HYPERBAND).num_trials()
+    if not kill["pruner_state"]:
+        problems.append("no .pruner_state.json at the kill")
+
+    def marker(t):
+        p = t["params"]
+        return "{:.10f}_{}_{}".format(p["lr"], p["batch"], p["budget"])
+
+    sizes = {m: os.path.getsize(os.path.join(root, "markers", m))
+             for m in os.listdir(os.path.join(root, "markers"))}
+    twice = {m for m, n in sizes.items() if n > 1}
+    before = {marker(t) for t in kill["finals"].values()}
+    flight = {marker(t) for t in trials if t["id"] in kill["in_flight"]}
+    # Every slot of the schedule ran; the trials in flight at the kill ran
+    # once more each, and their dropped slots were issued again, as in the
+    # JAX package (ROADMAP queue 3 item 10).
+    if len(sizes) < full or result["num_trials"] != full + reading["recovered"]["inflight"]:
+        problems.append("{} configs ran, {} trials in result.json, for {} slots and {} "
+                        "recovered".format(len(sizes), result["num_trials"], full,
+                                           reading["recovered"]["inflight"]))
+    if twice & before or not twice <= flight & markers_at_kill or len(twice) > 2 or \
+            max(sizes.values()) > 2:
+        problems.append("ran twice: {}; finalized before the kill {}; in flight {}".format(
+            sorted(twice), len(before), sorted(flight)))
+    emit("slice_resume/" + sweep, **reading, trials_finished=len(trials), slots=full,
+         configs_run=len(sizes), ran_twice=len(twice), best_val=result["best_val"],
+         steps_incarnation_2=child["steps"], pruner_state_at_kill=kill["pruner_state"],
+         goodput=telemetry["goodput"], telemetry=public(telemetry))
+    if problems:
+        raise AssertionError("slice_resume/{}: {}".format(sweep, "; ".join(problems)))
+    shutil.rmtree(root)
+    return launches
 
 
 def phase_slice_process(exp_dir, thread_step_ms):
@@ -1823,6 +2296,7 @@ def main():
     launches["bert_base_fork"] = phase_slice_fork(
         os.path.join(ROOT, "build", "chip_smoke_experiments_fork"), slice_reading)
     phase_slice_pbt(os.path.join(ROOT, "build", "chip_smoke_experiments_pbt"))
+    launches["bert_base_resume"] = phase_slice_resume()
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name],
                 **main_times[SAME_SHAPE.get(path, path)][name]}
@@ -1835,4 +2309,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--resume-child"]:
+        resume_child(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

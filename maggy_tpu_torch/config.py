@@ -3,11 +3,11 @@
 The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` (with the
 heartbeat-loss shape) and `OptimizationConfig` with the fields of a
 single-host sweep over thread, process or GPU-pinned process runners, with
-heartbeat-loss requeue, the telemetry journal and checkpoint forking
-(``fork``). ``resume``, ``vmap_lanes``, ``chips_per_budget`` (gangs) and
-``fleet`` exist only so that setting one raises "not ported yet" with its
-ROADMAP item; each is replaced by the real field in the slice that ports
-it. Chaos and observability fields are absent, so passing one is a
+heartbeat-loss requeue, the telemetry journal, checkpoint forking
+(``fork``) and experiment resume (``resume``). ``vmap_lanes``,
+``chips_per_budget`` (gangs) and ``fleet`` exist only so that setting one
+raises "not ported yet" with its ROADMAP item; each is replaced by the real
+field in the slice that ports it. Chaos and observability fields are absent, so passing one is a
 TypeError rather than a silently ignored knob. Parity: reference
 `maggy/experiment_config.py:18-50`.
 """
@@ -25,8 +25,8 @@ POOLS = ("thread", "process", "gpu")
 _UNPORTED_POOLS = ("elastic", "remote")
 #: field -> (its value that keeps it off, the ROADMAP queue 1 item that
 #: ports it).
-_UNPORTED_FIELDS = {"resume": (False, "5b"), "vmap_lanes": (1, "7"),
-                    "chips_per_budget": (None, "8"), "fleet": (None, "9")}
+_UNPORTED_FIELDS = {"vmap_lanes": (1, "7"), "chips_per_budget": (None, "8"),
+                    "fleet": (None, "9")}
 
 
 @dataclass
@@ -78,7 +78,13 @@ class OptimizationConfig(LagomConfig):
     dispatched with ``forked_from`` and ``resume_step``, the runner stages
     the parent's checkpoint into the child's trial dir, and a train
     function that takes ``ctx`` resumes there instead of re-training the
-    parent's steps; False gives from-scratch promotions."""
+    parent's steps; False gives from-scratch promotions. ``resume``
+    (``maggy_tpu/config.py:243-247``) re-enters the most recent run of this
+    app id whose experiment has this ``name``: finalized trials are
+    reloaded from their trial.json artifacts and never re-run, the trials
+    in flight at the interruption are rebuilt from the telemetry journal
+    and re-run, and a pruner's bracket state restores from its checkpoint;
+    sampling optimizers (RandomSearch, TPE, GP) must carry a fixed seed."""
 
     num_trials: int = 1
     optimizer: Union[str, Any] = "randomsearch"
@@ -97,9 +103,9 @@ class OptimizationConfig(LagomConfig):
     fork: bool = True
     # Experiment artifact root; defaults to the environment's base dir.
     experiment_dir: Optional[str] = None
+    resume: bool = False
     # The JAX package's fields whose slices are still to port: setting one
     # raises (see _UNPORTED_FIELDS).
-    resume: bool = False
     vmap_lanes: int = 1
     chips_per_budget: Optional[Any] = None
     fleet: Any = None

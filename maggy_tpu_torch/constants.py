@@ -50,6 +50,11 @@ HEARTBEAT_LOSS_MIN_S = 10.0
 # nothing but keeps the JAX package's dispatch order.
 FORK_AFFINITY_HOLD_S = 0.5
 
+# Multi-fidelity bracket state (Hyperband), checkpointed into the experiment
+# dir on every scheduling transition so that ``resume=True`` restores it
+# (``maggy_tpu/constants.py:91``; either package reads the other's file).
+PRUNER_STATE_FILE = ".pruner_state.json"
+
 # Early-stop defaults (reference `maggy/experiment_config.py:33-35`).
 DEFAULT_ES_INTERVAL = 1
 DEFAULT_ES_MIN = 10

@@ -11,12 +11,24 @@ detection, ``maggy_tpu/core/driver/driver.py:281-292``). The driver owns
 the experiment's telemetry (JAX `driver.py:95-133, :404-423`): the journal
 ``<exp_dir>/telemetry.jsonl``, attached to the RPC server, with the
 ``driver_epoch`` and ``experiment`` start/end events, closed on stop.
-Chaos, health, observability, fleet leasing and crash recovery (and with
-it the journal's resume) of the JAX package are not ported yet.
+
+Crash-only recovery (JAX `driver.py:31-36, 50-135, 298-350`): each driver
+claims the next incarnation of its run dir (``.driver_epoch.N``, exclusive,
+before anything else touches the dir) and journals that epoch. A resumed
+driver (``config.resume``) reads the dead incarnation's
+``driver_state.json`` and comes back on its secret and its port, so runners
+that outlived it keep authenticating and reconnecting; it reloads the
+journal (dropping a torn tail line on its next flush), rebuilds the trial
+spans from it and journals ``experiment`` ``resumed``. A pre-crash port
+still bound means the previous incarnation is alive: the resume refuses
+with ``RunAdoptionError``. Chaos, health, observability and fleet leasing
+of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import queue
 import secrets as pysecrets
 import threading
@@ -24,8 +36,15 @@ import time
 import traceback
 from typing import Any, Callable, Dict, Optional
 
+from maggy_tpu_torch import util
 from maggy_tpu_torch.core.environment import EnvSing
+from maggy_tpu_torch.exceptions import RunAdoptionError
 from maggy_tpu_torch.telemetry import JOURNAL_NAME, Telemetry
+
+#: The run's control-plane identity, written into the experiment dir once
+#: the server is bound: its secret and (host, port). A resumed driver reads
+#: it to come back on the same secret and address.
+DRIVER_STATE_FILE = "driver_state.json"
 
 
 class Driver:
@@ -36,7 +55,23 @@ class Driver:
         self.name = config.name
         self.hb_interval = config.hb_interval
         self.env = EnvSing.get_instance()
-        self.secret = pysecrets.token_hex(16)
+        # The incarnation claim comes before anything touches the run dir:
+        # the loser of a race between two resuming drivers exits here,
+        # before it could overwrite the interrupted run's metadata.
+        base = config.experiment_dir or self.env.experiment_base_dir()
+        run_dir = "{}/{}_{}".format(base.rstrip("/"), app_id, run_id)
+        self.driver_epoch = util.claim_driver_epoch(run_dir, self.env)
+        resume = bool(getattr(config, "resume", False))
+        # The interrupted incarnation's identity: its secret keeps live
+        # runners' frames verifying against this server.
+        self.driver_state: Optional[Dict[str, Any]] = None
+        state_path = run_dir + "/" + DRIVER_STATE_FILE
+        if resume and self.env.exists(state_path):
+            try:
+                self.driver_state = json.loads(self.env.load(state_path))
+            except ValueError:
+                self.driver_state = None  # torn write: a fresh identity
+        self.secret = (self.driver_state or {}).get("secret") or pysecrets.token_hex(16)
         self.server = self._make_server()
         self.server.attach_driver(self)
         self.server_addr: Optional[tuple] = None
@@ -60,9 +95,17 @@ class Driver:
         self.telemetry = Telemetry(env=self.env, journal_path=self.exp_dir + "/" + JOURNAL_NAME,
                                    enabled=config.telemetry)
         self.server.telemetry = self.telemetry
-        # The first incarnation, 1-based as in the JAX package: the port has
-        # no driver recovery, so it is the only one.
-        self.telemetry.event("driver_epoch", epoch=1)
+        if resume:
+            # One journal across interruptions: its replay covers the whole
+            # logical experiment. Restored trials keep their pre-crash span
+            # ids, so later phase events continue the same spans.
+            restored = 0
+            if self.telemetry.journal is not None:
+                restored = self.telemetry.journal.load_existing()
+            self.telemetry.restore_spans()
+            self.telemetry.event("experiment", phase="resumed", restored_events=restored)
+        # The incarnation boundary recovery splits a journal on.
+        self.telemetry.event("driver_epoch", epoch=self.driver_epoch)
         self.telemetry.event("experiment", phase="start", name=self.name,
                              driver=type(self).__name__, app_id=app_id, run_id=run_id)
         self._register_msg_callbacks()
@@ -97,7 +140,7 @@ class Driver:
     def run_experiment(self, train_fn: Callable) -> Any:
         try:
             self._exp_startup_callback()
-            self.server_addr = self.env.connect_host(self.server)
+            self._bind()
             self._start_worker()
             self._active_pool = self._make_runner_pool()
             # Blocks until every runner returns (foreachPartition semantics).
@@ -121,6 +164,31 @@ class Driver:
             self._exp_exception_callback(exc)
         finally:
             self.stop()
+
+    def _bind(self) -> None:
+        """Bind the control-plane server (a resumed driver on the pre-crash
+        port, so that runners' reconnect loops land on it), then persist
+        the identity a later incarnation needs."""
+        prev_port = int((self.driver_state or {}).get("port") or 0)
+        try:
+            self.server_addr = self.env.connect_host(self.server, port=prev_port)
+        except OSError as e:
+            if prev_port == 0:
+                raise
+            # The epoch marker arbitrates racing adopters; a still-bound
+            # port is a predecessor that claimed earlier and never exited.
+            raise RunAdoptionError(
+                "cannot adopt run {}: the pre-crash control-plane port {} is still bound "
+                "({}) — the prior driver incarnation appears to be alive. If an unrelated "
+                "process holds the port, delete {}/{} and resume on a fresh port".format(
+                    self.exp_dir, prev_port, e, self.exp_dir, DRIVER_STATE_FILE)) from e
+        try:
+            self.env.dump(json.dumps({
+                "secret": self.secret, "host": self.server_addr[0],
+                "port": int(self.server_addr[1]), "driver_epoch": self.driver_epoch,
+                "os_pid": os.getpid()}), self.exp_dir + "/" + DRIVER_STATE_FILE)
+        except Exception:  # noqa: BLE001 - the identity mirror must not kill a run
+            pass
 
     def _start_worker(self) -> None:
         def worker():

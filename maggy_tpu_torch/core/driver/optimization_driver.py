@@ -34,8 +34,21 @@ its parent, and is downgraded to a from-scratch run (``requeued``, reason
 controller calls spent lose their ``checkpoints/`` dir on a short-lived
 thread (``ckpt_gc``). ``preempt_partition`` preempts a runner's trial
 gracefully: its ack requeues the trial to resume at its checkpoint (or fork)
-step. Gangs, vmap blocks, fleet eviction, the re-registration (BLACK) path
-and resume are not ported yet.
+step.
+
+Experiment resume and crash-only recovery (``config.resume``, JAX
+`:66-76, 387-470, 544-594, 1597-1609`): before the run dir is touched an
+unseeded RandomSearch or BO controller is refused; then the finalized
+trial.json artifacts are reloaded (with their early stops), the in-flight
+half is rebuilt from the journal (``recovery.py``), the controller replays
+both (``restore_from_finals``), a pruner reloads its bracket state
+(``.pruner_state.json``, written on every scheduling transition) and the
+``recovered`` event is journaled; the suggester starts only after that. A
+runner that registers on a partition holding a trial (a relaunched runner,
+or a resumed driver's runner on a restored slot) takes the BLACK path: the
+trial is requeued (reason ``blacklist``) and handed back to that slot,
+resuming at its fork or preemption step. Gangs, vmap blocks and fleet
+eviction are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ from typing import Any, Dict, List, Optional
 
 from maggy_tpu_torch import constants, util
 from maggy_tpu_torch.config import OptimizationConfig
+from maggy_tpu_torch.core.driver import recovery
 from maggy_tpu_torch.core.driver.driver import Driver
 from maggy_tpu_torch.core.executors.trial_executor import trial_executor_fn
 from maggy_tpu_torch.core.rpc import OptimizationServer
@@ -93,6 +107,11 @@ class OptimizationDriver(Driver):
         # The pruner must exist before the schedule is sized: it owns
         # num_trials when multi-fidelity.
         self.controller.init_pruner()
+        if config.resume:
+            # Before super().__init__ registers the experiment dir: a late
+            # refusal would already have overwritten the interrupted run's
+            # experiment.json.
+            self._validate_resume()
         self.num_trials = self._resolve_num_trials(config)
         # A controller whose schedule bounds its concurrency (PBT: members
         # are sequential chains) caps the pool, or excess runners idle.
@@ -157,7 +176,11 @@ class OptimizationDriver(Driver):
         # parent trial id -> its newest checkpoint step (or None): a
         # finalized parent's checkpoints never move, so each is listed once.
         self._fork_step_cache: Dict[str, Optional[int]] = {}  # guarded-by: _store_lock
+        if config.resume:
+            self._restore_previous_run()
         if self._prefetch_enabled:
+            # Started after the restore: the suggester must never sample
+            # from a controller whose state is still being rebuilt.
             self._suggester_thread = threading.Thread(
                 target=self._suggester_loop, daemon=True, name="suggester")
             self._suggester_thread.start()
@@ -203,6 +226,82 @@ class OptimizationDriver(Driver):
             return ES_REGISTRY[pol.lower()]
         return pol
 
+    def _validate_resume(self) -> None:
+        from maggy_tpu_torch.optimizers.bayes.base import BaseAsyncBO
+
+        if isinstance(self.controller, (RandomSearch, BaseAsyncBO)) \
+                and self.controller.seed is None:
+            raise ValueError(
+                "resume=True with {} requires a fixed seed: an unseeded rerun presamples a "
+                "different schedule and would re-run everything on top of the restored "
+                "trials.".format(type(self.controller).__name__))
+
+    def _restore_previous_run(self) -> None:
+        """Experiment resume: reload every finalized trial.json of the run
+        dir, rebuild the in-flight half from the journal, and let the
+        controller and the pruner drop what already ran (JAX `:387-470`)."""
+        swept = self.env.sweep_tmp_files(self.exp_dir)
+        if swept:
+            self._log("resume: swept {} orphaned tmp file(s)".format(swept))
+        restored: List[Trial] = []
+        for name in sorted(self.env.ls(self.exp_dir)):
+            path = "{}/{}/trial.json".format(self.exp_dir, name)
+            if not self.env.exists(path):
+                continue
+            try:
+                trial = Trial.from_json(self.env.load(path))
+            except (ValueError, KeyError):
+                # A torn artifact: the trial was in flight, so it re-runs.
+                self._log("resume: skipping unreadable {} (trial will re-run)".format(path))
+                continue
+            if trial.status == Trial.FINALIZED and trial.final_metric is not None:
+                restored.append(trial)
+        with self._store_lock:
+            self._final_store.extend(restored)
+        for trial in restored:
+            self._update_result(trial)
+        # The resumed result.json covers every trial it claims.
+        self.result["early_stopped"] += sum(1 for t in restored if t.early_stop)
+        # The in-flight half comes back before the controller's restore, so
+        # buffer-backed samplers drop those configs too: they are minted
+        # already, and a second suggestion would collide in the store.
+        recovered_stats = recovery.recover_optimization_driver(self)
+        with self._store_lock:
+            inflight = list(self._trial_store.values())
+        self.controller.restore_from_finals(restored, inflight=inflight)
+        if self.controller.pruner is not None:
+            path = self.exp_dir + "/" + constants.PRUNER_STATE_FILE
+            if not self.env.exists(path):
+                if restored:
+                    raise ValueError(
+                        "resume=True with a pruner needs the bracket-state checkpoint {}; "
+                        "this experiment predates pruner checkpointing.".format(path))
+            else:
+                self.controller.pruner.load_state_dict(json.loads(self.env.load(path)))
+                self.controller.pruner.restore({t.trial_id for t in restored})
+        if recovered_stats is not None:
+            self.telemetry.event("experiment", phase="recovered", finalized=len(restored),
+                                 **recovered_stats)
+        self._log("resume: restored {} finalized trials from {}{}".format(
+            len(restored), self.exp_dir,
+            "; recovered {} in-flight trial(s) across {} partition(s) from the "
+            "journal".format(recovered_stats["inflight"],
+                             recovered_stats["recovered_partitions"])
+            if recovered_stats is not None else ""))
+
+    def _checkpoint_pruner(self) -> None:
+        """Persist the multi-fidelity bracket state (a few KB of JSON) so an
+        interrupted Hyperband schedule resumes without re-running finalized
+        rungs (JAX `:1597-1609`)."""
+        pruner = self.controller.pruner
+        if pruner is None or not hasattr(pruner, "state_dict"):
+            return
+        try:
+            self.env.dump(json.dumps(pruner.state_dict()),
+                          self.exp_dir + "/" + constants.PRUNER_STATE_FILE)
+        except Exception:  # noqa: BLE001 - checkpointing must not kill a run
+            pass
+
     def _make_server(self):
         return OptimizationServer(secret=self.secret)
 
@@ -224,6 +323,7 @@ class OptimizationDriver(Driver):
     def _register_msg_callbacks(self) -> None:
         self.message_callbacks.update(
             METRIC=self._metric_msg_callback,
+            BLACK=self._blacklist_msg_callback,
             FINAL=self._final_msg_callback,
             IDLE=self._idle_msg_callback,
             REG=self._register_msg_callback,
@@ -348,6 +448,7 @@ class OptimizationDriver(Driver):
         if trial.status == Trial.ERROR and self.controller.pruner is not None:
             # Free the failed run's bracket slot, or its rung never fills.
             self.controller.pruner.report_failure(trial.trial_id)
+            self._checkpoint_pruner()
         self._update_result(trial)
         # Persist BEFORE the hand-off: assigning the last trial flips
         # experiment_done and releases the pool.
@@ -478,8 +579,49 @@ class OptimizationDriver(Driver):
     def _register_msg_callback(self, msg) -> None:
         self._assign_next(msg["partition_id"], None)
 
+    def _blacklist_msg_callback(self, msg) -> None:
+        """A runner registered on a partition that holds a trial: its
+        predecessor died (or belonged to a crashed driver incarnation). The
+        trial is requeued and handed back to this slot at once, resuming as
+        the backlog path would: its fork source is verified and a fork or
+        preempted trial journals ``resumed`` at its step (JAX `:544-594`,
+        without the gang and vmap branches)."""
+        pid = msg["partition_id"]
+        # The partition names a new runner: the dead one's live gauges go.
+        self.telemetry.prune_partition(pid)
+        with self._sched_lock:
+            trial = self.get_trial(msg["trial_id"])
+            if trial is None:
+                # Finalized meanwhile: the slot needs work, not a dead id.
+                self.server.reservations.clear_trial_if(pid, msg["trial_id"])
+                self._assign_next(pid, None)
+                return
+            trial.reset_run_state()
+            # The requeue edge before the reassignment: recovery latency is
+            # read from the journal.
+            self.telemetry.trial_event(trial.trial_id, "requeued", partition=pid,
+                                       reason="blacklist")
+            self._verify_fork_source(trial, pid)
+            self.server.reservations.assign_trial(pid, trial.trial_id)
+            self.telemetry.trial_event(trial.trial_id, "assigned", partition=pid,
+                                       requeue="blacklist")
+            self._journal_fork_edge(trial, pid)
+            with trial.lock:
+                resume_step = trial.info_dict.get("resume_step")
+            if resume_step is not None:
+                self.telemetry.trial_event(trial.trial_id, "resumed", partition=pid,
+                                           from_step=int(resume_step))
+        self._log("executor {} restarted; trial {} requeued".format(pid, msg["trial_id"]))
+
     def _idle_msg_callback(self, msg) -> None:
-        """Re-poll the controller after a short tick (reference :419-439)."""
+        """Re-poll the controller after a short tick (reference :419-439),
+        unless the partition holds an assignment by now: a recovery nudge
+        drained after the slot's REG was served, or an idle tick that
+        outlived a re-registration, would otherwise assign over that trial
+        and leave it in the store with no runner (the JAX driver does, ROADMAP
+        queue 3 item 9)."""
+        if self.server.reservations.get_assigned_trial(msg["partition_id"]) is not None:
+            return
         self._assign_next(msg["partition_id"], None)
 
     def _rearm_idle(self, partition_id: int) -> None:
@@ -568,12 +710,20 @@ class OptimizationDriver(Driver):
         self._mint_span(suggestion)
         with self._store_lock:
             # Prefetched suggestions entered the store at admission and come
-            # back here at dispatch: only another object is a collision.
+            # back here at dispatch: only another object, or a finalized
+            # trial with this id, is a collision.
             existing = self._trial_store.get(suggestion.trial_id)
+            duplicate = (existing is not None and existing is not suggestion) or any(
+                t.trial_id == suggestion.trial_id and t.final_metric is not None
+                for t in self._final_store)
             self._trial_store[suggestion.trial_id] = suggestion
-        if existing is not None and existing is not suggestion:
-            self._log("WARNING: controller re-issued in-flight trial id {}; "
-                      "the schedule may lose an entry".format(suggestion.trial_id))
+        if duplicate:
+            self._log("WARNING: controller re-issued trial id {} (params hash-collide with "
+                      "an in-flight or finalized trial); the schedule may lose an "
+                      "entry".format(suggestion.trial_id))
+        # The controller just moved its schedule (Hyperband bound the trial
+        # to a bracket slot): persist it, so a resume picks the bracket up.
+        self._checkpoint_pruner()
         if self._maybe_hold_for_parent(suggestion, partition_id):
             self._log("trial {} held for runner {} (fork parent affinity)".format(
                 suggestion.trial_id, self._parent_partition(
@@ -883,29 +1033,33 @@ class OptimizationDriver(Driver):
 
     def pipeline_snapshot(self) -> Dict[str, Any]:
         """The hand-off pipeline's numbers, read back from the telemetry:
-        counters from its registry; prefetch hits and misses, suggest
-        latencies by source and hand-off gaps by runner from its events."""
+        suggest calls per thread from its registry; prefetch hits, misses,
+        invalidations and lock fallbacks, suggest latencies by source and
+        hand-off gaps by runner from its events, which a resumed experiment
+        holds for every incarnation."""
         counters = self.telemetry.metrics.snapshot()["counters"]
         suggest_ms = {"prefetch": [], "inline": []}
         handoff_ms: Dict[str, List[float]] = {}
-        hits = misses = 0
+        hits = misses = invalidated = lock_fallbacks = 0
         for ev in self.telemetry.events():
             if ev.get("ev") == "suggest":
                 suggest_ms[ev["source"]].append(ev["ms"])
+            elif ev.get("ev") == "prefetch_invalidated":
+                invalidated += ev["n"]
             elif ev.get("ev") != "trial":
                 continue
             elif ev["phase"] == "prefetch_hit":
                 hits += 1
             elif ev["phase"] == "prefetch_miss":
                 misses += 1
+                lock_fallbacks += bool(ev.get("lock_fallback"))
             elif ev["phase"] == "running" and "handoff_ms" in ev:
                 handoff_ms.setdefault(str(ev["partition"]), []).append(ev["handoff_ms"])
         return {"prefetch": self._prefetch_enabled, "suggest_ms": suggest_ms,
                 "suggest_threads": {k[len(_SUGGEST_CALLS):]: n for k, n in counters.items()
                                     if k.startswith(_SUGGEST_CALLS)},
                 "prefetch_hits": hits, "prefetch_misses": misses,
-                "invalidated": counters.get("prefetch.invalidated", 0),
-                "lock_fallbacks": counters.get("prefetch.lock_fallbacks", 0),
+                "invalidated": invalidated, "lock_fallbacks": lock_fallbacks,
                 "handoff_ms": handoff_ms}
 
     def _refresh_recovery(self) -> None:

@@ -1,17 +1,20 @@
 """Environment: filesystem + experiment registry services.
 
 The local-filesystem environment of ``maggy_tpu/core/environment/
-abstractenvironment.py``; the abstract interface, the GCS backend and the
-fault-injection write hook are not ported yet. Parity: reference
+abstractenvironment.py``, with the resume-time sweep of orphaned atomic-dump
+files; the abstract interface, the GCS backend and the fault-injection
+write hook are not ported yet. Parity: reference
 `maggy/core/environment/abstractenvironment.py:20-169`.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 
@@ -70,6 +73,25 @@ class LocalEnv:
                 os.unlink(tmp)
             except OSError:
                 pass
+
+    def sweep_tmp_files(self, path: str, grace_s: float = 120.0) -> int:
+        """Remove orphaned atomic-dump files (``<name>.tmp.<pid>.<tid>``, the
+        names ``dump`` and ``exclusive_create`` write) left by a process that
+        died between write and rename; called at resume start-up. Only files
+        older than ``grace_s`` go: a live writer (a runner that outlived a
+        crashed driver) holds its file for milliseconds, so the age, not the
+        suffix, keeps the sweep off a write in flight
+        (``maggy_tpu/core/environment/abstractenvironment.py:208-230``)."""
+        removed = 0
+        cutoff = time.time() - grace_s
+        for tmp in glob.glob(os.path.join(path, "**", "*.tmp.*"), recursive=True):
+            try:
+                if os.path.getmtime(tmp) < cutoff:
+                    os.unlink(tmp)
+                    removed += 1
+            except OSError:
+                pass
+        return removed
 
     def load(self, path: str) -> str:
         with open(path) as f:

@@ -184,6 +184,33 @@ class Reservations:
             rec = self._table.get(int(partition_id))
             return rec.get("trial_id") if rec else None
 
+    # ------------------------------------------------------- crash recovery
+
+    def restore(self, partition_id, trial_id: Optional[str] = None,
+                capacity: Optional[int] = None) -> None:
+        """Re-seed a pre-crash partition's record from the replayed journal,
+        with a fresh last beat: a live runner's next message re-binds it
+        (``pop_recovered`` journals ``adopted``), a dead one goes silent
+        past the loss bound and the ordinary loss scan requeues its trial.
+        Never overwrites a live registration."""
+        with self.lock:
+            pid = int(partition_id)
+            if pid in self._table:
+                return
+            self._table[pid] = {"partition_id": pid, "trial_id": trial_id,
+                                "capacity": capacity, "recovered": True,
+                                "last_beat": time.monotonic()}
+
+    def pop_recovered(self, partition_id) -> bool:
+        """Consume the partition's recovered flag: True exactly once, on the
+        first message after recovery."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is not None and rec.get("recovered"):
+                rec.pop("recovered", None)
+                return True
+            return False
+
 
 # --------------------------------------------------------------------- server
 
@@ -370,11 +397,28 @@ class OptimizationServer(Server):
             self.reservations.assign_trial(pid, None)
             self.driver.enqueue({"type": "LOST", "trial_id": trial_id, "partition_id": pid})
 
+    def _note_adopted(self, partition_id) -> None:
+        """A recovered partition's first message: the runner outlived the
+        driver and re-bound on the same secret and address; the ``adopted``
+        runner edge is journaled once."""
+        if self.reservations.pop_recovered(partition_id) and self.telemetry is not None:
+            self.telemetry.event("runner", phase="adopted", partition=int(partition_id))
+
     def _reg(self, msg):
+        """A registration from a partition that already holds a trial means
+        its runner died and was relaunched (or a resumed driver restored the
+        dead incarnation's assignment): the trial stays on the record and
+        the driver takes the BLACK path, which requeues it and hands it back
+        to this slot (reference `rpc.py:308-326`). Otherwise REG asks for a
+        first assignment."""
         pid = msg["partition_id"]
         prev = self.reservations.get_assigned_trial(pid)
-        self.reservations.add({"partition_id": pid, "trial_id": None})
-        self.driver.enqueue({"type": "REG", "partition_id": pid})
+        self.reservations.add({"partition_id": pid, "trial_id": prev,
+                               "capacity": msg.get("capacity")})
+        if prev is not None:
+            self.driver.enqueue({"type": "BLACK", "trial_id": prev, "partition_id": pid})
+        else:
+            self.driver.enqueue({"type": "REG", "partition_id": pid})
         telem = self.telemetry
         if telem is not None:
             telem.event("runner", phase="registered", partition=int(pid),
@@ -384,6 +428,7 @@ class OptimizationServer(Server):
     def _metric(self, msg):
         pid = msg["partition_id"]
         self.reservations.touch(pid)
+        self._note_adopted(pid)
         telem = self.telemetry
         rstats = msg.pop("rstats", None)
         if rstats and telem is not None:
@@ -409,6 +454,20 @@ class OptimizationServer(Server):
         return {"type": "OK"}
 
     def _final(self, msg):
+        """The FINAL handler with its durability barrier, run after the
+        handler and before the reply is written: the journal can never
+        trail a FINAL the runner saw acknowledged. On the inline fast path
+        the finalized edge and trial.json are both durable when the reply
+        leaves; on the worker fallback the FINAL is still queued, and a
+        crash in that window re-runs the trial (at least once, never lost;
+        JAX `rpc.py:1390-1408`)."""
+        try:
+            return self._final_unbarriered(msg)
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.barrier()
+
+    def _final_unbarriered(self, msg):
         """Finalize on this thread when the driver's fast path takes it and
         reply with the runner's next assignment (TRIAL), its release
         (GSTOP), or OK; otherwise enqueue the FINAL for the driver's worker
@@ -416,6 +475,7 @@ class OptimizationServer(Server):
         1447`)."""
         pid = msg["partition_id"]
         self.reservations.touch(pid)
+        self._note_adopted(pid)
         self._final_at[pid] = time.monotonic()
         # Conditional: a retried FINAL must not wipe the next assignment. A
         # FINAL of a run declared lost finds its assignment already cleared
@@ -482,6 +542,7 @@ class OptimizationServer(Server):
 
     def _get(self, msg):
         self.reservations.touch(msg["partition_id"])
+        self._note_adopted(msg["partition_id"])
         # Serve an already-assigned trial BEFORE honoring experiment-done:
         # the last suggestion may be assigned concurrently with another
         # FINAL ending the experiment, and must still run.

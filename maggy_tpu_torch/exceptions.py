@@ -1,8 +1,7 @@
 """Framework exceptions.
 
 Copy of ``maggy_tpu/exceptions.py`` (parity: reference
-`maggy/core/exceptions.py:22-121`) without the multi-host and run-adoption
-errors. `EarlyStopException` is a control-flow exception raised inside the
+`maggy/core/exceptions.py:22-121`) without the multi-host errors. `EarlyStopException` is a control-flow exception raised inside the
 user's training loop by the Reporter when the driver has flagged the
 running trial for early stopping.
 """
@@ -77,3 +76,14 @@ class BroadcastStepValueError(MaggyTPUError):
 
 class AuthenticationError(MaggyTPUError):
     """A control-plane message failed the shared-secret check."""
+
+
+class RunAdoptionError(MaggyTPUError):
+    """Another driver already adopted this run directory, or the previous
+    incarnation still holds its control-plane port.
+
+    Crash-only recovery admits exactly one driver incarnation per run dir
+    at a time: adoption goes through an exclusive ``.driver_epoch.N``
+    marker (``util.claim_driver_epoch``), and the loser of a race between
+    two restarting drivers gets this error instead of a second control
+    plane driving the same experiment."""

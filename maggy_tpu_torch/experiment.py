@@ -3,8 +3,11 @@
 Counterpart of ``maggy_tpu/experiment.py`` for optimization experiments
 (parity: reference `maggy/experiment.py` — one experiment at a time per
 process (:42-45), `lagom(train_fn, config)` (:48-83), `@singledispatch`
-driver dispatch on the config type (:86-108)). Ablation, distributed and
-fleet submission are not ported yet.
+driver dispatch on the config type (:86-108)). With ``config.resume`` it
+re-enters the most recent run of the app id (``MAGGY_TPU_APP_ID``) whose
+experiment has the config's name (``maggy_tpu/experiment.py:76-95``), so a
+resume in a new process finds its run. Ablation, distributed and fleet
+submission are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,8 +38,11 @@ def lagom(train_fn: Callable, config: LagomConfig) -> Any:
     try:
         app_id = os.environ.get("MAGGY_TPU_APP_ID",
                                 "app-{}".format(time.strftime("%Y%m%d-%H%M%S")))
-        run_id = util.claim_run_id(config.experiment_dir or env.experiment_base_dir(),
-                                   app_id, env)
+        base = config.experiment_dir or env.experiment_base_dir()
+        if getattr(config, "resume", False):
+            run_id = util.find_resume_run_id(base, app_id, config.name, env)
+        else:
+            run_id = util.claim_run_id(base, app_id, env)
         return lagom_driver(config, app_id, run_id).run_experiment(train_fn)
     finally:
         with _state_lock:

@@ -1,7 +1,7 @@
 """Abstract optimizer: the driver-side search-algorithm plugin contract.
 
-Copy of ``maggy_tpu/optimizers/abstractoptimizer.py`` without the
-resume/restore contract. Parity: reference
+Copy of ``maggy_tpu/optimizers/abstractoptimizer.py``, with its
+resume/restore contract (``restore``, ``restore_from_finals``). Parity: reference
 `maggy/optimizer/abstractoptimizer.py` — contract at :54-79;
 driver-injected attributes at :36-40; observation getters with direction
 normalization at :136-252; duplicate detection at :254-295; pruner init at
@@ -111,6 +111,34 @@ class AbstractOptimizer(ABC):
 
     def finalize_experiment(self, trials: List[Trial]) -> None:
         """Called once after the experiment completes."""
+
+    def restore(self, finalized: List[Trial]) -> None:
+        """Rebuild schedule state from a previous run's finalized trials
+        (experiment resume). The driver has already filled final_store;
+        subclasses drop executed configs from their sampling buffers or
+        rebuild their bookkeeping. Default: final_store alone."""
+
+    def restore_from_finals(self, finalized: List[Trial],
+                            inflight: List[Trial] = ()) -> None:
+        """Crash-only recovery: ``restore`` over the finalized and the
+        in-flight trials (the driver rebuilt the in-flight ones, so a
+        buffer-backed sampler must not suggest them again), then ``report``
+        each finalized trial in completion order, the bookkeeping the live
+        FINAL path would have done. Prefetched suggestions died with the
+        crashed process uncommitted and are simply derived again.
+        Controllers whose ``restore`` rebuilds the ledgers ``report`` writes
+        (ASHA rungs, PBT chains) override this (JAX
+        `abstractoptimizer.py:143-175`)."""
+        self.restore(list(finalized) + list(inflight))
+        for trial in finalized:
+            self.report(trial)
+
+    @staticmethod
+    def _drop_executed(buffer: List[dict], finalized: List[Trial]) -> List[dict]:
+        """The configs of ``buffer`` the previous run did not execute (trial
+        ids are content hashes of the params)."""
+        done = {t.trial_id for t in finalized}
+        return [c for c in buffer if Trial._compute_id(dict(c), "optimization") not in done]
 
     # ------------------------------------------------------------- plumbing
 

@@ -1,8 +1,12 @@
 """ASHA — Asynchronous Successive Halving (arXiv:1810.05934).
 
 Copy of ``maggy_tpu/optimizers/asha.py`` without the vectorized-lane rung
-drain and resume restore; its checkpoint-fork GC (``fork_gc_eligible``,
-JAX `asha.py:190-215`) is ported. ``report`` bumps
+drain; its checkpoint-fork GC (``fork_gc_eligible``, JAX `asha.py:190-215`)
+and its resume (``restore``, ``restore_from_finals``, JAX `:219-256`) are
+ported. As in the JAX package, the restore leaves ``rng`` where a fresh
+controller starts it: a seeded ASHA resumed after a crash draws its rung-0
+samples from the start of the pre-crash sequence again, and so may suggest
+a config that already finalized (ROADMAP queue 3 item 8). ``report`` bumps
 ``schedule_version`` and ``recycle`` un-commits a promotion, as the JAX
 controller does for the driver's prefetch pipeline. Parity: reference
 `maggy/optimizer/asha.py` — params and validation (:39-69), rung
@@ -143,3 +147,33 @@ class Asha(AbstractOptimizer):
                 finalized_children[parent] = finalized_children.get(parent, 0) + 1
         return [parent for parents in self.promoted.values() for parent in parents
                 if finalized_children.get(parent)]
+
+    def restore(self, finalized) -> None:
+        """Rebuild the rung ladder from a previous run: each finalized trial
+        re-enters its rung, and a promoted child marks its parent promoted
+        out of the rung below."""
+        for t in finalized:
+            rung = t.info_dict.get("rung", 0)
+            self.rungs.setdefault(rung, []).append(t.trial_id)
+            parent = t.info_dict.get("parent")
+            if parent is not None and rung > 0:
+                self.promoted.setdefault(rung - 1, []).append(parent)
+
+    def restore_from_finals(self, finalized, inflight=()) -> None:
+        """Crash-only recovery: ``restore`` rebuilds the ledgers ``report``
+        writes (re-reporting would enter every rung twice) plus the promoted
+        ledger. An in-flight promoted child was committed by the dead
+        incarnation's suggest(): its parent re-enters the promoted ledger, or
+        it would be promoted into a duplicate child. A survivor that reached
+        the top rung before the crash leaves the controller exhausted.
+        Rung-0 sampling counts the stores the driver refilled."""
+        self.restore(finalized)
+        for t in inflight:
+            parent = t.info_dict.get("parent")
+            rung = t.info_dict.get("rung", 0)
+            if parent is not None and rung > 0 and parent not in self.promoted.get(rung - 1, []):
+                self.promoted.setdefault(rung - 1, []).append(parent)
+        if any(t.info_dict.get("rung", 0) >= self.max_rung
+               for t in finalized if t.final_metric is not None):
+            self._exhausted = True
+            self.schedule_version += 1

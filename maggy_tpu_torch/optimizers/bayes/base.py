@@ -1,10 +1,12 @@
 """Asynchronous Bayesian optimization skeleton.
 
-Copy of ``maggy_tpu/optimizers/bayes/base.py`` without resume, with its
-checkpoint-forking near-duplicate warm start (``fork_eps``, JAX
-`base.py:39-58, 160-230`): a model proposal within ``fork_eps`` of a
-finalized config takes that trial as its fork ``parent``, and the
-warm-neighbor proximity that TPE and GP fold into their acquisitions. Parity: reference `maggy/optimizer/bayes/base.py` — warmup
+Copy of ``maggy_tpu/optimizers/bayes/base.py``, with its resume
+(``restore``: the warmup buffer drops executed configs; the surrogate
+refits on the restored final_store) and its checkpoint-forking
+near-duplicate warm start (``fork_eps``, JAX `base.py:39-58, 160-230`): a
+model proposal within ``fork_eps`` of a finalized config takes that trial
+as its fork ``parent``, and the warm-neighbor proximity that TPE and GP
+fold into their acquisitions. Parity: reference `maggy/optimizer/bayes/base.py` — warmup
 buffer (:358-373), ε-random exploration with random_fraction=0.33
 (:239-245), per-budget surrogate `models` dict with key 0 = single-fidelity
 (:135-139), pruner delegation identical to RandomSearch (:187-226),
@@ -107,6 +109,13 @@ class BaseAsyncBO(AbstractOptimizer):
         if self.pruner is not None:
             self.pruner.report_trial(None, new_trial.trial_id)
         return new_trial
+
+    def restore(self, finalized) -> None:
+        # final_store (already refilled by the driver) is the surrogate's
+        # training data, refitted on the next model proposal; only the
+        # warmup buffer needs dedup (resume requires a fixed seed, so the
+        # rerun presamples the same warmup configs).
+        self.warmup_buffer = self._drop_executed(self.warmup_buffer, finalized)
 
     def _propose(self, budget: float) -> Optional[Trial]:
         # 1. warmup buffer

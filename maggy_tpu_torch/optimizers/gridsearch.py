@@ -1,6 +1,6 @@
 """Grid search over DISCRETE/CATEGORICAL spaces.
 
-Copy of ``maggy_tpu/optimizers/gridsearch.py`` without resume (parity:
+Copy of ``maggy_tpu/optimizers/gridsearch.py`` (parity:
 reference `maggy/optimizer/gridsearch.py` — cartesian product (:72-79),
 continuous-param rejection (:81-90), `get_num_trials` classmethod used by
 the driver (:33-43), no pruner support (:47-51)).
@@ -38,3 +38,7 @@ class GridSearch(AbstractOptimizer):
         # The schedule is exactly the grid: an invalidated prefetch goes
         # back so no cell is lost.
         self.config_buffer.insert(0, self._strip_budget(trial.params))
+
+    def restore(self, finalized) -> None:
+        # The grid is deterministic: drop the cells the previous run covered.
+        self.config_buffer = self._drop_executed(self.config_buffer, finalized)

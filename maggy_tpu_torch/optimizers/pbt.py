@@ -15,8 +15,8 @@ with its parent's checkpoint, the runner stages it, and a train function
 that takes ``ctx`` resumes from it (``ctx.restore_parent`` or
 ``ctx.restore_checkpoint``). The train function sees ``generation``,
 ``member`` and ``budget`` as hparams. ``fork_gc_eligible`` says which
-segments' checkpoints are spent. Resuming an interrupted run (``restore``,
-``restore_from_finals``) is not ported yet (ROADMAP queue 1 item 5b).
+segments' checkpoints are spent; ``restore`` and ``restore_from_finals``
+(JAX `pbt.py:267-313`) resume an interrupted run.
 """
 
 from __future__ import annotations
@@ -257,9 +257,42 @@ class PBT(AbstractOptimizer):
     # ---------------------------------------------------------------- resume
 
     def restore(self, finalized) -> None:
-        raise NotImplementedError("resuming a PBT run is not ported yet (ROADMAP queue 1 "
-                                  "item 5b)")
+        """Rebuild the schedule from a previous run; segments in flight at the
+        crash are derived again as their parents' successors below.
+
+        Error state (``_errors``/``_dead``) is not restored: errored segments
+        write no final_metric, so the resume never hands them back and the
+        retry ledger is gone. A member retired by the two-consecutive-error
+        rule re-enters with a fresh retry budget: its lineage re-runs from its
+        last finalized state and is retired again after two more errors if it
+        is broken. Bounded re-work, never a livelock within one run."""
+        # Drop the initial segments of members that already ran generation 0.
+        done0 = {t.info_dict.get("member") for t in finalized
+                 if t.info_dict.get("generation", 0) == 0}
+        self._pending = [p for p in self._pending if p.info_dict["member"] not in done0]
+        # Queue the next segment of each member whose last finalized
+        # generation has no successor yet.
+        latest: Dict[int, Trial] = {}
+        for t in finalized:
+            member = t.info_dict.get("member")
+            if member is None:
+                continue
+            generation = t.info_dict.get("generation", 0)
+            if member not in latest or generation > latest[member].info_dict.get("generation", 0):
+                latest[member] = t
+        for t in latest.values():
+            if t.info_dict.get("generation", 0) + 1 < self.generations:
+                self._pending.append(self._next_segment(t))
 
     def restore_from_finals(self, finalized, inflight=()) -> None:
-        raise NotImplementedError("resuming a PBT run is not ported yet (ROADMAP queue 1 "
-                                  "item 5b)")
+        """Crash-only recovery: ``restore`` already derives each member's next
+        segment from its last finalized generation, the segments ``report``
+        would have appended, so re-reporting would append every chain link
+        twice. The in-flight segments the driver rebuilt from the journal are
+        those successors (same member, generation and content-addressed id):
+        they leave the pending queue, or the chain would run its next link
+        twice."""
+        self.restore(finalized)
+        have = {t.trial_id for t in inflight}
+        if have:
+            self._pending = [p for p in self._pending if p.trial_id not in have]

@@ -1,6 +1,6 @@
 """Random search, with optional multi-fidelity pruning.
 
-Copy of ``maggy_tpu/optimizers/randomsearch.py`` without resume (parity:
+Copy of ``maggy_tpu/optimizers/randomsearch.py`` (parity:
 reference `maggy/optimizer/randomsearch.py` — pre-sampled buffer (:28-40),
 continuous-param requirement (:30-36), pruner delegation handling
 IDLE/None/promoted/fresh (:47-90), plain buffer pop otherwise (:93-106)).
@@ -44,6 +44,11 @@ class RandomSearch(AbstractOptimizer):
         if self.pruner is None:
             self.config_buffer.insert(0, self._strip_budget(trial.params))
 
+    def restore(self, finalized) -> None:
+        # Same seed, same presampled buffer: drop the configs the previous
+        # run executed (the driver refuses an unseeded resume).
+        self.config_buffer = self._drop_executed(self.config_buffer, finalized)
+
     def _pruner_suggestion(self):
         """Delegate budget/promotion decisions to the pruner (reference
         `randomsearch.py:47-90`)."""
@@ -52,6 +57,8 @@ class RandomSearch(AbstractOptimizer):
             return next_run
         parent_id, budget = next_run["trial_id"], next_run["budget"]
         if parent_id is None:
+            # A fresh rung-0 config, with duplicate detection: after a
+            # resume the seeded rng replays the interrupted run's samples.
             params = self.searchspace.get_random_parameter_values(1, rng=self.rng)[0]
             for _ in range(32):
                 if not self.hparams_exist(Trial(dict(params))):

@@ -1,6 +1,6 @@
 """SingleRun: N empty-parameter trials for plain parallel execution.
 
-Copy of ``maggy_tpu/optimizers/singlerun.py`` without resume (parity:
+Copy of ``maggy_tpu/optimizers/singlerun.py`` (parity:
 reference `maggy/optimizer/singlerun.py:21-37`); selected by
 optimizer="none" in the driver registry.
 """
@@ -30,3 +30,9 @@ class SingleRun(AbstractOptimizer):
 
     def recycle(self, trial: Trial) -> None:
         self._pending.insert(0, trial.params.get("run_index"))
+
+    def restore(self, finalized) -> None:
+        # Parallel runners finish out of order: skip exactly the indices that
+        # finalized, not a count (index 3 may finish before index 2).
+        done = {t.params.get("run_index") for t in finalized}
+        self._pending = [i for i in self._pending if i not in done]

@@ -1,7 +1,8 @@
 """Hyperband: multi-bracket successive halving (BOHB-style).
 
-Copy of ``maggy_tpu/pruner/hyperband.py`` without the resume contract
-(state_dict / load_state_dict / restore). Parity: reference
+Copy of ``maggy_tpu/pruner/hyperband.py``, with its resume contract
+(``state_dict`` / ``load_state_dict`` / ``restore``; the JSON has the JAX
+package's keys, so either package reads the other's bracket file). Parity: reference
 `maggy/pruner/hyperband.py` — geometric budget ladder and max rung count
 (:114-125), bracket construction with per-bracket (n_configs, budgets)
 (:197-218), `pruning_routine` scanning active iterations then starting the
@@ -199,3 +200,38 @@ class Hyperband(AbstractPruner):
             return False
         metrics = self.trial_metric_getter()
         return all(it.check_finished(metrics) for it in self.iterations)
+
+    # ------------------------------------------------------ checkpoint/resume
+
+    def state_dict(self) -> dict:
+        """The bracket state as JSON-able data; the driver checkpoints it on
+        every scheduling transition so that ``resume=True`` works with a
+        pruner. The pending hand-out is not saved: an unfinalized hand-out
+        is issued again at restore."""
+        return {"iterations": [
+            {"iteration_id": it.iteration_id, "n_configs": it.n_configs,
+             "budgets": it.budgets, "state": it.state,
+             "configs": {str(r): list(slots) for r, slots in it.configs.items()}}
+            for it in self.iterations]}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.iterations = []
+        for rec in state.get("iterations", []):
+            it = SHIteration(rec["iteration_id"], list(rec["n_configs"]), list(rec["budgets"]))
+            it.state = rec["state"]
+            it.configs = {int(r): list(slots) for r, slots in rec["configs"].items()}
+            self.iterations.append(it)
+
+    def restore(self, finalized_ids) -> None:
+        """Reconcile restored bracket state with the trials that finalized:
+        slots bound to runs the interrupted experiment never finished are
+        dropped (their rungs issue them again), and each bracket's state is
+        recomputed from the surviving metrics."""
+        finalized_ids = set(finalized_ids)
+        metrics = self.trial_metric_getter()
+        for it in self.iterations:
+            it._pending = None
+            for rung in list(it.configs):
+                it.configs[rung] = [s for s in it.configs[rung] if s["actual"] in finalized_ids]
+            it.state = SHIteration.INIT if not any(it.configs.values()) else SHIteration.RUNNING
+            it.check_finished(metrics)

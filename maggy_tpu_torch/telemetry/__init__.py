@@ -18,8 +18,11 @@ Three pieces:
 snapshot via the TELEM verb, and ``replay_journal`` replays a journal
 offline to reproduce the driver's numbers exactly. The journal's strings
 are the JAX package's (vocab.py), so either package replays the other's
-journal. The fleet journal sink, the health engine and the observability
-server are not ported yet (ROADMAP queue 1 items 9 and 11).
+journal. A resumed experiment reloads the journal of its interrupted
+incarnations (``TelemetryJournal.load_existing``) and rebuilds its spans
+from it (``Telemetry.restore_spans``). The fleet journal sink, the health
+engine and the observability server are not ported yet (ROADMAP queue 1
+items 9 and 11).
 """
 
 from __future__ import annotations
@@ -231,11 +234,38 @@ class Telemetry:
                 "journal": {"torn_lines": self.journal.torn_lines
                             if self.journal is not None else 0}}
 
+    def restore_spans(self) -> int:
+        """Rebuild the span tracker from the journal's restored trial events
+        (crash-only recovery, ``maggy_tpu/telemetry/__init__.py:317-338``):
+        each trial keeps its pre-crash span id and first-occurrence phase
+        times, so the recovered driver's later phase events continue the same
+        spans and ``once=True`` dedup (stop_sent, prefetch hit/miss,
+        forked_from) holds across incarnations. Returns the number of trial
+        events replayed into the tracker."""
+        if not self.enabled:
+            return 0
+        n = 0
+        for ev in self.events():
+            if ev.get("ev") != "trial" or not ev.get("trial"):
+                continue
+            self.spans.restore(ev["trial"], ev.get("span"), ev.get("phase"), ev.get("t"),
+                               partition=ev.get("partition"))
+            n += 1
+        return n
+
     # ------------------------------------------------------------ lifecycle
 
     def flush(self) -> None:
         if self.journal is not None:
             self.journal.flush()
+
+    def barrier(self) -> None:
+        """Terminal-event durability barrier: make the buffered journal
+        suffix durable now. The FINAL path runs it before its RPC reply is
+        written, so an acknowledged FINAL is never absent from the recovery
+        source of truth (``maggy_tpu/telemetry/__init__.py:343-355``)."""
+        if self.journal is not None:
+            self.journal.barrier()
 
     def close(self) -> None:
         if self.journal is not None:

@@ -250,7 +250,7 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
                       "goodput", "runnerstats", "trace")} <= scanned
     assert {os.path.join("maggy_tpu_torch", *p) for p in (
         ("train", "warm.py"), ("train", "checkpoint.py"), ("core", "executors", "context.py"),
-        ("optimizers", "pbt.py"))} <= scanned
+        ("optimizers", "pbt.py"), ("core", "driver", "recovery.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

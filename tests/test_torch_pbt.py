@@ -112,12 +112,6 @@ def test_pbt_validation_and_sizes_match_jax():
     assert PBT.SYNTHETIC_PARAMS == JaxPBT.SYNTHETIC_PARAMS
 
 
-def test_pbt_resume_is_not_ported_yet():
-    for call in (lambda o: o.restore([]), lambda o: o.restore_from_finals([], [])):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            call(PBT(population=2, generations=2))
-
-
 def test_driver_sizes_the_schedule_and_clamps_the_pool(tmp_path):
     """num_trials = population x generations whatever the config says, and
     never more runners than members."""
@@ -135,8 +129,7 @@ def test_driver_sizes_the_schedule_and_clamps_the_pool(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("resume", True, "5b"), ("vmap_lanes", 4, "7"), ("chips_per_budget", {1: 2}, "8"),
-    ("fleet", object(), "9")])
+    ("vmap_lanes", 4, "7"), ("chips_per_budget", {1: 2}, "8"), ("fleet", object(), "9")])
 def test_unported_config_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match="item {}".format(item)):
         OptimizationConfig(**{field: value})
