@@ -23,10 +23,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              sweep through maggy_tpu_torch.experiment.lagom on two thread
              runners. Launch counters are zeroed just before and read just
              after: every attention call of every step must have gone
-             through the kernels. Then the swept model's logits against the
-             same weights on the CPU path, the per-step time alone, and a
-             torch.profiler breakdown of five more steps (with each flash
-             kernel's device time per launch).
+             through the kernels, each step but a trial's first replayed
+             from the CUDA graph its Trainer captured (train/warm.py; the
+             flash kernels' launches recorded at capture are counted per
+             replay). Then the swept model's logits against the same
+             weights on the CPU path, the per-step time alone, eager
+             (warm_start=False) and replayed in turns, and a torch.profiler
+             breakdown of five replayed steps (with each flash kernel's
+             device time per launch).
 5. slice_bo — the BERT-base sweep of examples/bert_glue_hpo.py (lr,
              warmup_frac, batch 32 or 64; median stopping) through
              experiment.lagom on two thread runners, three times: TPE,
@@ -134,6 +138,31 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              reason) and adopted, the rework, the forks resumed across the
              crash, the goodput of both incarnations and the peak bytes on
              disk.
+13. slice_warm — bench.py's warm_start A/B (run_compile_ab) on the card,
+             arm by arm: the fixed-shape RandomSearch(seed 11) sweep of 6
+             trials on one thread runner, es_policy none, warm_start on
+             then off, each from an empty warm cache (clear_warm). mnist:
+             MnistCNN(3, 2, 16, 2) on make_data(2048), batch 256, budget 0.5
+             (20 steps), swept_transform(adam, learning_rate=lr), lr
+             DOUBLE_LOG [1e-4, 3e-2]; bert_base: BertConfig.base(), batch 32
+             x 128 with key padding, swept_transform(adamw,
+             learning_rate=lr) at a constant lr in DOUBLE_LOG [1e-5, 1e-4],
+             8 steps a trial. The warm arms must show 5 hits and 1 miss from
+             the journal's compile block and run from graphs, the cold arms
+             0 hits and no graph, bert_base's kernels 12 x steps, and each
+             warm trial's final loss the cold trial's of the same lr within
+             AB_LOSS_TOL. Prints each arm's wall, hits and misses, ttfm p50
+             warm and cold with bench's gate ratio (not gated), in-sweep step
+             p50 and goodput buckets.
+
+Every Trainer takes the warm path (train/warm.py; the train functions
+build their models on device="meta"): each sweep's line has a "warm" field
+(warm hits and misses, graphs captured and replayed, eager warm-up steps,
+failed captures and their errors) and "captured". slice, slice_process,
+slice_bo, slice_mnist, slice_fork, slice_pbt and slice_warm's warm arms
+fail unless their steps replayed graphs and no capture failed; slice_llama
+may step eagerly only where a capture raised (its reason and peak memory
+printed). clear_warm() runs after each phase.
 
 After every sweep, its telemetry journal (<exp_dir>/telemetry.jsonl) is
 replayed through maggy_tpu_torch.telemetry and the sweep's line gets a
@@ -151,8 +180,9 @@ reruns its thread sweep with telemetry off and on in turns, twice
 (telemetry's cost where the host sets the pace).
 
 Then the {"kernels": [...]} summary line (one entry per kernel and main
-path, each with that path's launches and times at its shape;
-bert_base_resume's launches are incarnation 2's), the
+path, each with that path's launches, whether its steps ran captured, and
+times at its shape; bert_base_resume's launches are incarnation 2's,
+bert_base_warm's slice_warm's BERT-base warm arm's), the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
 JAX or maggy_tpu. Runner processes are spawned and re-import this file as
@@ -212,10 +242,10 @@ BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 16, 4, 4
 MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "bert_base_bo": (64, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
-#: Paths that run the kernels at another path's shape: the process-runner
-#: and forking sweeps are the slice sweep's.
+#: Paths that run the kernels at another path's shape: the process-runner,
+#: forking, resumed and warm A/B sweeps are the slice sweep's.
 SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
-              "bert_base_resume": "bert_base"}
+              "bert_base_resume": "bert_base", "bert_base_warm": "bert_base"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
 DEVICE = "cuda"
@@ -244,6 +274,16 @@ RESUME_LOSS_TIMEOUT_S = 3.0
 RESUME_HYPERBAND = {"min_budget": 1, "max_budget": 9, "eta": 3}
 MNIST_RESUME_STEPS_PER_BUDGET = 20
 RESUME_KILL_DEADLINE_S, RESUME_CHILD_TIMEOUT_S = 300, 420
+# slice_warm (bench.py's run_compile_ab): trials an arm, the MNIST arm's
+# batch and budget (20 steps at bench's 40 a unit), the BERT-base arm's
+# steps a trial, and the tolerance (relative, absolute) of each warm trial's
+# final loss against the cold trial's of the same lr. MNIST is fp32: the
+# captured step's capturable AdamW computes its bias corrections on the card
+# in fp32 where the eager one uses Python floats, an ulp or so of each
+# update. BERT-base computes in bf16, where such an ulp can flip the
+# rounding of an activation: a few bf16 roundings (2^-8 each) of the loss.
+AB_TRIALS, AB_MNIST_BATCH, AB_MNIST_BUDGET, AB_BERT_STEPS = 6, 256, 0.5, 8
+AB_LOSS_TOL = {"mnist": (1e-4, 1e-5), "bert_base": (1e-2, 1e-3)}
 
 
 def emit(phase, **fields):
@@ -582,6 +622,60 @@ def journal_check(name, exp_dir, result, recovery=False, trace=False):
         emit(name, telemetry=out)
         raise AssertionError("{} telemetry: {}".format(name, "; ".join(problems)))
     out["_events"], out["_goodput"], out["_fork"] = events, gp, derived["fork"]
+    out["_compile"] = derived["compile"]
+    return out
+
+
+#: Whether each main path's steps ran from CUDA graphs (the kernels line).
+CAPTURED = {}
+
+
+def journal_counters(events):
+    """The warm path's counters summed over a journal's runners: each
+    runner's last cumulative value in its runner_stats events, a value that
+    goes back (a new runner on the partition, a resumed run) banking the one
+    before, as derive's compile block does."""
+    from maggy_tpu_torch.train.warm import COUNTER_KEYS
+
+    cum, bank = {}, {}
+    for e in events:
+        if e["ev"] != "runner_stats":
+            continue
+        c, b = cum.setdefault(e["partition"], {}), bank.setdefault(e["partition"], {})
+        for k in COUNTER_KEYS:
+            if e.get(k) is not None:
+                if int(e[k]) < c.get(k, 0):
+                    b[k] = b.get(k, 0) + c[k]
+                c[k] = int(e[k])
+    return {k: sum(c.get(k, 0) for c in cum.values()) + sum(b.get(k, 0) for b in bank.values())
+            for k in COUNTER_KEYS}
+
+
+def warm_reading(name, telemetry=None, before=None, must_capture=True):
+    """How a sweep's steps ran (train/warm.py): warm hits and misses,
+    graphs captured and replayed, eager steps (one warm-up per unit and
+    batch shape) and failed captures, from this process's counters since
+    ``before`` (thread runners) or else from the journal's runner_stats
+    (runner processes keep their own), with each failed capture's trial and
+    error from the journal's compiled records. ``captured``: steps were
+    replayed and no capture failed; with ``must_capture`` anything else
+    fails the phase."""
+    from maggy_tpu_torch.train import warm
+
+    if before is not None:
+        now = warm.counters()
+        totals = {k: now[k] - before[k] for k in warm.COUNTER_KEYS}
+    else:
+        totals = journal_counters(telemetry["_events"])
+    failed = [] if telemetry is None else [
+        {"trial": e["trial"], "graph_error": e.get("graph_error")}
+        for e in telemetry["_events"]
+        if e["ev"] == "trial" and e["phase"] == "compiled" and e.get("graph_ok") is False]
+    out = {"captured": totals["graph_replays"] > 0 and totals["graph_failures"] == 0
+           and not failed, **totals, "graph_ok_false": failed}
+    if must_capture and not out["captured"]:
+        emit(name, warm=out)
+        raise AssertionError("{}: steps did not run from CUDA graphs: {}".format(name, out))
     return out
 
 
@@ -695,7 +789,7 @@ class TrialRecord:
     def __enter__(self):
         from maggy_tpu_torch.ops import attention as A
 
-        torch.cuda.synchronize()
+        stream_sync()
         self.launches = A.launch_counts()
         self.t0 = time.perf_counter()
         return self
@@ -703,7 +797,7 @@ class TrialRecord:
     def __exit__(self, *exc):
         from maggy_tpu_torch.ops import attention as A
 
-        torch.cuda.synchronize()
+        stream_sync()
         ms = (time.perf_counter() - self.t0) * 1e3
         record = {"trial_id": self.trial_id, "pid": os.getpid(), "steps": self.steps,
                   "first_step": self.first_step,
@@ -715,6 +809,13 @@ class TrialRecord:
             json.dump(record, f)
         os.replace(self.path + ".tmp", self.path)
         return False
+
+
+def stream_sync():
+    """Wait for this thread's stream. Runner threads never synchronize the
+    whole device: a device-wide synchronize while another runner thread
+    captures its step into a CUDA graph fails, and fails that capture."""
+    torch.cuda.current_stream().synchronize()
 
 
 def read_records(out_dir):
@@ -750,7 +851,7 @@ def train_bert_asha(lr, warmup_frac, budget, reporter, out_dir):
     cfg, batch = bert_data()
     total = int(budget) * STEPS_PER_BUDGET
     sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
-    trainer = Trainer(BertEncoder(cfg, device=DEVICE), adamw(sched), labels_loss,
+    trainer = Trainer(BertEncoder(cfg, device="meta"), adamw(sched), labels_loss,
                       device=DEVICE).init(seed=0)
     with record:
         for i in range(total):
@@ -787,7 +888,7 @@ def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
     cfg, batch = bert_data()
     total = int(budget) * STEPS_PER_BUDGET
     sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
-    trainer = Trainer(BertEncoder(cfg, device=DEVICE), adamw(sched), labels_loss,
+    trainer = Trainer(BertEncoder(cfg, device="meta"), adamw(sched), labels_loss,
                       device=DEVICE).init(seed=0)
     if ctx.resume_step is not None:
         state = ctx.restore_checkpoint({**trainer_state(trainer), "steps_done": 0})
@@ -853,7 +954,7 @@ def train_pbt(lr, wd, generation, member, budget, ctx, reporter, preempt):
     full_fp32()
     X, Y = cached("pbt", lambda: make_data(n=512, key=0))
     model = MnistCNN(kernel_size=3, pool_size=2, features=8, num_classes=2, image_size=16,
-                     device=DEVICE)
+                     device="meta")
     trainer = Trainer(model, adamw(lr, weight_decay=wd), labels_loss,
                       device=DEVICE).init(seed=member)
     if ctx.parent_trial_id is not None:
@@ -911,12 +1012,13 @@ def fault(flag, reporter):
 def train_mnist(lr, batch, budget, reporter, out_dir, kill_flag=None, wedge_flag=None,
                 marker_dir=None, steps_per_budget=MNIST_STEPS_PER_BUDGET):
     """bench.py's train_mnist on the card: the budget-scaled MNIST CNN
-    trial with adam, a heartbeat every 2 steps. With the flags (slice_
+    trial with ``swept_transform(adam, learning_rate=lr)`` (``bench.py:85``:
+    every trial of a sweep shares one warm slot), a heartbeat every 2 steps. With the flags (slice_
     recovery), the first trial to reach FAULT_STEP kills its own process
     and the second freezes its own. With ``marker_dir`` (slice_resume), the
     trial first appends a byte to a file there named after its params and
     budget (``tests/test_resume.py:184-296``)."""
-    from maggy_tpu_torch.train import ShardedBatchIterator, Trainer, adam
+    from maggy_tpu_torch.train import ShardedBatchIterator, Trainer, adam, swept_transform
 
     if marker_dir is not None:
         with open(os.path.join(marker_dir, "{:.10f}_{}_{}".format(lr, batch, budget)), "a") as f:
@@ -924,7 +1026,8 @@ def train_mnist(lr, batch, budget, reporter, out_dir, kill_flag=None, wedge_flag
     record = TrialRecord(out_dir, reporter)
     full_fp32()
     X, Y = cached("mnist", make_data)
-    trainer = Trainer(mnist_model(DEVICE), adam(lr), labels_loss, device=DEVICE).init(seed=0)
+    trainer = Trainer(mnist_model("meta"), swept_transform(adam, learning_rate=lr), labels_loss,
+                      device=DEVICE).init(seed=0)
     steps = max(1, int(steps_per_budget * budget))
     it = iter(ShardedBatchIterator({"x": X, "y": Y}, batch_size=int(batch), epochs=None,
                                    seed=1, device=DEVICE))
@@ -987,15 +1090,41 @@ def check_bert_sweep(name, result, exp_dir, records, launches):
     return trials, promoted, total_steps, expected
 
 
+def alone_step_ms(make_trainer, batch, warmup, n, pairs=2):
+    """Per-step host-clock time of one trainer alone on the card, eager
+    (warm_start=False) and replayed from its CUDA graph, in turns (eager,
+    graph, ...): ({"eager": [ms, ...], "graph": [...]}, the last graph
+    trainer)."""
+    out, last = {"eager": [], "graph": []}, {}
+    for warm_start in (False, True) * pairs:
+        trainer = make_trainer(warm_start)
+        for i in range(warmup):
+            trainer.step(batch(i))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(n):
+            trainer.step(batch(i))
+        torch.cuda.synchronize()
+        key = "graph" if warm_start else "eager"
+        out[key].append((time.perf_counter() - t1) * 1e3 / n)
+        last.pop(key, None)
+        gc.collect()
+        last[key] = trainer
+    return out, last["graph"]
+
+
 def phase_slice(exp_dir):
     from maggy_tpu_torch.models import BertEncoder
-    from maggy_tpu_torch.train import Trainer, adamw
+    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, warm
 
     cfg, batch = bert_data()
+    before = warm.counters()
     result, wall, records, launches = bert_asha_sweep(exp_dir, "thread")
     trials, promoted, total_steps, expected = check_bert_sweep(
         "slice", result, exp_dir, records, launches)
     telemetry = journal_check("slice", os.path.join(exp_dir, "exp"), result, trace=True)
+    reading_warm = warm_reading("slice", telemetry, before)
+    CAPTURED["bert_base"] = reading_warm["captured"]
     # The control of slice_fork: a train function without ctx saves nothing,
     # so no promotion forks.
     forks = sum(1 for e in telemetry["_events"]
@@ -1020,25 +1149,26 @@ def phase_slice(exp_dir):
         raise AssertionError("BERT-base logits off the CPU path: {} > {}".format(
             logit_err, logit_tol))
 
-    # Per-step time of one trainer alone on the card.
-    trainer = Trainer(model, adamw(1e-4), labels_loss, device="cuda").init(seed=0)
-    for i in range(3):
-        trainer.step(batch(i))
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    n_alone = 10
-    for i in range(n_alone):
-        trainer.step(batch(i))
-    torch.cuda.synchronize()
-    alone_ms = (time.perf_counter() - t1) * 1e3 / n_alone
-    profile = step_device_profile(lambda i: trainer.step(batch(i)))
+    # Per-step time of one trainer alone on the card, eager and replayed
+    # from its graph in turns, then a profile of five steps as the sweep
+    # runs them (the profiler sees the kernels of a graph's replay).
+    del model
+    alone, graph_trainer = alone_step_ms(
+        lambda ws: Trainer(BertEncoder(cfg, device="meta"), adamw(1e-4), labels_loss,
+                           device="cuda", warm_start=ws).init(seed=0),
+        batch, warmup=3, n=10)
+    profile = step_device_profile(lambda i: graph_trainer.step(batch(i)))
+    del graph_trainer
+    clear_warm()
 
     emit("slice", trials_finished=len(trials), promoted=promoted,
          early_stopped=result["early_stopped"], best_hp=result["best_hp"],
          best_val=result["best_val"], steps=total_steps, forks=forks, launches=launches,
          expected_launches_each=expected, sweep_wall_s=wall,
          step_ms_in_sweep_median=float(np.median(step_ms)),
-         step_ms_alone=alone_ms, step_profile=profile, time_split=time_split(records),
+         step_ms_alone=float(np.median(alone["graph"])),
+         step_ms_alone_eager=float(np.median(alone["eager"])), step_ms_alone_pairs=alone,
+         step_profile=profile, warm=reading_warm, time_split=time_split(records),
          pipeline=pipeline_summary(result["pipeline"]), telemetry=public(telemetry),
          logits_max_abs_err=logit_err, logits_tol=logit_tol,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1113,7 +1243,7 @@ class DiskPeak:
 
 def phase_slice_fork(exp_dir, slice_reading):
     """The slice sweep with checkpoint forking, beside slice's readings."""
-    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import clear_warm, warm
 
     os.makedirs(exp_dir, exist_ok=True)
     free = shutil.disk_usage(exp_dir).free
@@ -1123,6 +1253,7 @@ def phase_slice_fork(exp_dir, slice_reading):
     gc.collect()
     torch.cuda.empty_cache()
     fresh_dir(exp_dir)
+    before = warm.counters()
     with DiskPeak(exp_dir) as disk:
         result, wall, records, launches = bert_asha_sweep(exp_dir, "thread", train=train_bert_fork)
         # The last FINAL's checkpoint GC may still be deleting.
@@ -1133,6 +1264,9 @@ def phase_slice_fork(exp_dir, slice_reading):
         "slice_fork", result, exp_dir, records, launches)
     telemetry = journal_check("slice_fork", os.path.join(exp_dir, "exp"), result, trace=True)
     reading = fork_reading(telemetry)
+    reading_warm = warm_reading("slice_fork", telemetry, before)
+    CAPTURED["bert_base_fork"] = reading_warm["captured"]
+    clear_warm()
     events = [e for e in telemetry["_events"] if e["ev"] == "trial"]
     forks = {e["trial"]: e for e in events if e["phase"] == "forked_from"}
     gced = {e["trial"] for e in telemetry["_events"] if e["ev"] == "ckpt_gc"}
@@ -1174,7 +1308,8 @@ def phase_slice_fork(exp_dir, slice_reading):
             "early_stopped": result["early_stopped"], "best_val": result["best_val"],
             "steps": total_steps, "launches": launches, "expected_launches_each": expected,
             "sweep_wall_s": wall, "disk_peak_bytes": disk.peak, "ckpt_gc": len(gced),
-            "disk_free_before_bytes": free, **reading, "slice": slice_reading,
+            "disk_free_before_bytes": free, **reading, "warm": reading_warm,
+            "slice": slice_reading,
             "pipeline": pipeline_summary(result["pipeline"]), "telemetry": public(telemetry)}
     emit("slice_fork", **line)
     if problems:
@@ -1190,6 +1325,7 @@ def phase_slice_pbt(exp_dir):
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment, util
     from maggy_tpu_torch.core.environment import EnvSing
     from maggy_tpu_torch.optimizers import PBT
+    from maggy_tpu_torch.train import clear_warm, warm
 
     fresh_dir(exp_dir)
     gc.collect()
@@ -1216,6 +1352,7 @@ def phase_slice_pbt(exp_dir):
 
     thread = threading.Thread(target=timer, daemon=True, name="preempt-timer")
     thread.start()
+    before = warm.counters()
     t0 = time.perf_counter()
     result = driver.run_experiment(functools.partial(train_pbt, preempt=preempt))
     wall = time.perf_counter() - t0
@@ -1224,11 +1361,11 @@ def phase_slice_pbt(exp_dir):
     trials = read_trials(exp_dir)
     failed = [t["id"] for t in trials if t["status"] != "FINALIZED"]
     if failed:
-        logs = [line for path in sorted(glob.glob(os.path.join(exp_dir, "*", "executor_*.log")))
-                for line in open(path).read().splitlines()]
         raise AssertionError("slice_pbt: segments {} failed; runner logs:\n{}".format(
-            failed, "\n".join(logs[-80:])))
+            failed, runner_logs(exp_dir)))
     telemetry = journal_check("slice_pbt", exp_dir, result)
+    reading_warm = warm_reading("slice_pbt", telemetry, before)
+    clear_warm()
     events = [e for e in telemetry["_events"] if e["ev"] == "trial"]
     forks = {e["trial"]: e for e in events if e["phase"] == "forked_from"}
     by_id = {t["id"]: t for t in trials}
@@ -1281,8 +1418,8 @@ def phase_slice_pbt(exp_dir):
          preemption_chain=[{k: e.get(k) for k in ("phase", "t", "partition", "step",
                                                   "checkpointed", "reason", "from_step")}
                            for e in chain],
-         **fork_reading(telemetry), pipeline=pipeline_summary(result["pipeline"]),
-         telemetry=public(telemetry))
+         **fork_reading(telemetry), warm=reading_warm,
+         pipeline=pipeline_summary(result["pipeline"]), telemetry=public(telemetry))
     if problems:
         raise AssertionError("slice_pbt: {}".format("; ".join(problems)))
 
@@ -1343,6 +1480,7 @@ def resume_child(sweep, incarnation):
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from maggy_tpu_torch import experiment
     from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import warm
 
     full_fp32()
     config, train, out_dir = resume_config(sweep, incarnation)
@@ -1358,7 +1496,7 @@ def resume_child(sweep, incarnation):
         "first_step": {r["trial_id"]: r["first_step"] for r in records},
         "trial_steps": {r["trial_id"]: r["steps"] for r in records},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "num_trials": result["num_trials"]}), flush=True)
+        "warm": warm.counters(), "num_trials": result["num_trials"]}), flush=True)
 
 
 def log_tail(path, n=60):
@@ -1538,6 +1676,8 @@ def resume_checks(sweep, kill, t_spawn2, wall2, child):
         "in_flight_at_kill": len(kill["in_flight"]),
         "torn_lines_at_kill": kill["torn_lines_at_kill"],
         "peak_mem_gb_incarnation_2": child["peak_mem_gb"],
+        "warm": warm_reading(sweep, telemetry, must_capture=False),
+        "warm_incarnation_2": child["warm"],
     }
     return problems, reading, trials, telemetry, result
 
@@ -1655,6 +1795,8 @@ def phase_slice_resume():
         raise AssertionError("slice_resume/{}: {}".format(sweep, "; ".join(problems)))
     shutil.rmtree(root)
     launches = child["launches"]
+    CAPTURED["bert_base_resume"] = (child["warm"]["graph_replays"] > 0
+                                    and not child["warm"]["graph_failures"])
 
     # (b) bench.py's MNIST model under Hyperband: the bracket state.
     sweep = "mnist_hyperband_resume"
@@ -1698,6 +1840,141 @@ def phase_slice_resume():
     return launches
 
 
+# ---------------------------------------------------------------- slice_warm
+
+
+def train_bert_ab(lr, reporter, out_dir):
+    """One trial of slice_warm's bert_base arm: BERT-base on the slice's
+    key-padded batches under ``swept_transform(adamw, learning_rate=lr)`` (a
+    constant rate: every trial of the sweep is one program), AB_BERT_STEPS
+    steps, a heartbeat every REPORT_EVERY steps."""
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.train import Trainer, adamw, swept_transform
+
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    cfg, batch = bert_data()
+    trainer = Trainer(BertEncoder(cfg, device="meta"), swept_transform(adamw, learning_rate=lr),
+                      labels_loss, device=DEVICE).init(seed=0)
+    with record:
+        for i in range(AB_BERT_STEPS):
+            loss = trainer.step(batch(i))
+            record.steps += 1
+            if i % REPORT_EVERY == REPORT_EVERY - 1:
+                reporter.broadcast(-loss, step=i)
+    return {"metric": -float(loss)}
+
+
+def compile_ab_arm(model, arm, warm_on, exp_root, train, space):
+    """One arm of bench.py's run_compile_ab (``bench.py:259-318``): the
+    fixed-shape RandomSearch(seed 11) sweep of AB_TRIALS trials over
+    ``space`` on one thread runner, es_policy none, ``warm_start=warm_on``,
+    from an empty warm cache. Returns the arm's line and its per-trial
+    final losses by lr."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import clear_warm, warm
+
+    name = "slice_warm/{}/{}".format(model, arm)
+    exp_dir = fresh_dir(os.path.join(exp_root, model, arm))
+    out_dir = fresh_dir(os.path.join(exp_dir, "records"))
+    clear_warm()
+    config = OptimizationConfig(
+        name="bench_ab_{}".format(arm), num_trials=AB_TRIALS, optimizer="randomsearch",
+        searchspace=Searchspace(**space), direction="max", num_workers=1, hb_interval=0.1,
+        es_policy="none", seed=11, warm_start=warm_on,
+        experiment_dir=os.path.join(exp_dir, "exp"))
+    before = warm.counters()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = experiment.lagom(functools.partial(train, out_dir=out_dir), config)
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    telemetry = journal_check(name, os.path.join(exp_dir, "exp"), result)
+    reading = warm_reading(name, telemetry, before, must_capture=warm_on)
+    clear_warm()
+    trials = read_trials(os.path.join(exp_dir, "exp"))
+    records = read_records(out_dir)
+    comp = telemetry["_compile"]
+    warm_p50 = (comp.get("ttfm_warm") or {}).get("median_ms")
+    cold_p50 = (comp.get("ttfm_cold") or {}).get("median_ms")
+    steps = sum(r["steps"] for r in records)
+    line = {"wall_s": wall, "trials": len(trials), "steps": steps,
+            "warm_hits": comp.get("warm_hits", 0), "warm_misses": comp.get("warm_misses", 0),
+            "ttfm_warm": comp.get("ttfm_warm") or {}, "ttfm_cold": comp.get("ttfm_cold") or {},
+            "gate": {"warm_ttfm_p50_ms": warm_p50, "cold_ttfm_p50_ms": cold_p50,
+                     "ratio": cold_p50 / warm_p50 if warm_p50 and cold_p50 else None},
+            "init_ms": comp.get("init_ms"), "compile_ms": comp.get("compile_ms"),
+            "first_step_ms": comp.get("first_step_ms"),
+            "step_ms_in_sweep_median": float(np.median([r["step_ms"] for r in records])),
+            "goodput_s": telemetry["goodput"]["buckets_s"],
+            "goodput_shares": telemetry["goodput"]["shares"], "warm": reading}
+    if model == "bert_base":
+        line["launches"] = launches
+    problems = []
+    if not (len(trials) == result["num_trials"] == AB_TRIALS
+            and all(t["status"] == "FINALIZED" for t in trials)):
+        problems.append("{} trials finalized of {}".format(len(trials), AB_TRIALS))
+    want = (AB_TRIALS - 1, 1) if warm_on else (0, AB_TRIALS)
+    if (line["warm_hits"], line["warm_misses"]) != want:
+        problems.append("warm hits/misses {}/{}, want {}/{}".format(
+            line["warm_hits"], line["warm_misses"], *want))
+    if not warm_on and (reading["graph_replays"] or reading["graph_captures"]):
+        problems.append("the cold arm replayed graphs: {}".format(reading))
+    if model == "bert_base":
+        layers = bert_data()[0].num_layers
+        if any(n != layers * steps for n in launches.values()):
+            problems.append("launches {} != {} layers x {} steps".format(launches, layers,
+                                                                         steps))
+    emit(name, **line)
+    if problems:
+        raise AssertionError("{}: {}".format(name, "; ".join(problems)))
+    losses = {"{:.12g}".format(t["params"]["lr"]): -t["final_metric"] for t in trials}
+    return line, launches, losses
+
+
+def phase_slice_warm(exp_root):
+    """bench.py's warm_start A/B on the card, arm by arm in one call: the
+    MNIST headline at bench's own values, then BERT-base at full width. The
+    warm arms must show AB_TRIALS - 1 hits and 1 miss and run from graphs,
+    the cold arms no hit and no graph, and each warm trial's final loss
+    must agree with the cold trial's of the same lr within AB_LOSS_TOL."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms = {
+        "mnist": (functools.partial(train_mnist, batch=AB_MNIST_BATCH, budget=AB_MNIST_BUDGET),
+                  {"lr": ("DOUBLE_LOG", [1e-4, 3e-2])}),
+        "bert_base": (train_bert_ab, {"lr": ("DOUBLE_LOG", [1e-5, 1e-4])}),
+    }
+    out, bert_launches = {}, None
+    for model, (train, space) in arms.items():
+        lines, losses = {}, {}
+        for arm, warm_on in (("warm", True), ("cold", False)):
+            lines[arm], launches, losses[arm] = compile_ab_arm(model, arm, warm_on, exp_root,
+                                                               train, space)
+            if model == "bert_base" and warm_on:
+                bert_launches = launches
+                CAPTURED["bert_base_warm"] = lines[arm]["warm"]["captured"]
+        rel, absolute = AB_LOSS_TOL[model]
+        diffs = {lr: abs(losses["warm"][lr] - cold) for lr, cold in losses["cold"].items()
+                 if lr in losses["warm"]}
+        bad = {lr: d for lr, d in diffs.items() if not d <= rel * abs(losses["cold"][lr]) + absolute}
+        out[model] = {"wall_s": {arm: lines[arm]["wall_s"] for arm in lines},
+                      "wall_ratio_cold_over_warm": lines["cold"]["wall_s"] / lines["warm"]["wall_s"],
+                      "ttfm_gate_warm_arm": lines["warm"]["gate"],
+                      "step_ms_in_sweep_median": {arm: lines[arm]["step_ms_in_sweep_median"]
+                                                  for arm in lines},
+                      "final_loss_max_abs_diff": max(diffs.values()) if diffs else None,
+                      "loss_tol": {"relative": rel, "absolute": absolute}}
+        if len(diffs) != AB_TRIALS or bad:
+            emit("slice_warm", **out)
+            raise AssertionError("slice_warm/{}: warm losses off the cold arm's: {} of {} "
+                                 "compared, {}".format(model, len(diffs), AB_TRIALS, bad))
+    emit("slice_warm", phase_s=time.perf_counter() - t_phase, **out)
+    return bert_launches
+
+
 def phase_slice_process(exp_dir, thread_step_ms):
     """The slice sweep on two runner processes: launches summed over the
     processes' trial records."""
@@ -1713,6 +1990,8 @@ def phase_slice_process(exp_dir, thread_step_ms):
     trials, promoted, total_steps, expected = check_bert_sweep(
         "slice_process", result, exp_dir, records, launches)
     telemetry = journal_check("slice_process", os.path.join(exp_dir, "exp"), result)
+    reading_warm = warm_reading("slice_process", telemetry)
+    CAPTURED["bert_base_process"] = reading_warm["captured"]
     pids = sorted({r["pid"] for r in records})
     if os.getpid() in pids:
         raise AssertionError("trials ran in the driver process {}, not only in runner "
@@ -1727,7 +2006,7 @@ def phase_slice_process(exp_dir, thread_step_ms):
                              for pid in pids},
          time_split=time_split(records), runner_setup=runner_setup(telemetry),
          lost_runners=result["lost_runners"], pipeline=pipeline_summary(result["pipeline"]),
-         telemetry=public(telemetry))
+         warm=reading_warm, telemetry=public(telemetry))
     return launches
 
 
@@ -1757,7 +2036,7 @@ def phase_slice_bo(exp_root, asha_step_ms):
     from maggy_tpu_torch.models import BertConfig, BertEncoder
     from maggy_tpu_torch.ops import attention as A
     from maggy_tpu_torch.optimizers.bayes import GP, TPE
-    from maggy_tpu_torch.train import (Trainer, adamw, cross_entropy_loss,
+    from maggy_tpu_torch.train import (Trainer, adamw, clear_warm, cross_entropy_loss, warm,
                                        warmup_cosine_decay_schedule)
 
     t_phase = time.perf_counter()
@@ -1779,10 +2058,10 @@ def phase_slice_bo(exp_root, asha_step_ms):
         size = int(batch)
         total = BO_TPE_STEPS if budget is None else int(budget) * BO_STEPS_PER_BUDGET
         sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
-        trainer = Trainer(BertEncoder(cfg, device="cuda"), adamw(sched), loss_fn,
+        trainer = Trainer(BertEncoder(cfg, device="meta"), adamw(sched), loss_fn,
                           device="cuda").init(seed=0)
         done = 0
-        torch.cuda.synchronize()
+        stream_sync()
         t0 = time.perf_counter()
         try:
             for i in range(total):
@@ -1791,7 +2070,7 @@ def phase_slice_bo(exp_root, asha_step_ms):
                 if i % BO_REPORT_EVERY == BO_REPORT_EVERY - 1 or i == total - 1:
                     reporter.broadcast(-loss, step=i)
         finally:
-            torch.cuda.synchronize()
+            stream_sync()
             with lock:
                 steps_taken.append(done)
                 step_ms[size].append((time.perf_counter() - t0) * 1e3 / max(done, 1))
@@ -1821,6 +2100,7 @@ def phase_slice_bo(exp_root, asha_step_ms):
         del steps_taken[:]
         for v in step_ms.values():
             del v[:]
+        before = warm.counters()
         A.reset_launch_counts()
         t0 = time.perf_counter()
         result = experiment.lagom(train_bert, config)
@@ -1829,6 +2109,7 @@ def phase_slice_bo(exp_root, asha_step_ms):
         trials = read_trials(exp_dir)
         pipe = result["pipeline"]
         telemetry = journal_check("slice_bo " + name, exp_dir, result)
+        reading_warm = warm_reading("slice_bo " + name, telemetry, before)
         types = [t["info_dict"]["sample_type"] for t in trials]
         total_steps = sum(steps_taken)
         expected = cfg.num_layers * total_steps
@@ -1841,7 +2122,7 @@ def phase_slice_bo(exp_root, asha_step_ms):
             "expected_launches_each": expected, "sweep_wall_s": wall,
             "step_ms_median": float(np.median(step_ms[32] + step_ms[64])),
             "step_ms_median_by_batch": {b: float(np.median(v)) for b, v in step_ms.items() if v},
-            **pipeline_summary(pipe), "telemetry": public(telemetry)}
+            **pipeline_summary(pipe), "warm": reading_warm, "telemetry": public(telemetry)}
         emit("slice_bo_sweep", sweep=name, controller=type(optimizer).__name__, **summary)
         problems = []
         if not (len(trials) == result["num_trials"] == expected_trials
@@ -1863,7 +2144,10 @@ def phase_slice_bo(exp_root, asha_step_ms):
         for k, n in launches.items():
             launches_all[k] = launches_all.get(k, 0) + n
 
+    clear_warm()
+    CAPTURED["bert_base_bo"] = all(v["warm"]["captured"] for v in out.values())
     emit("slice_bo", sweeps=list(out), launches=launches_all,
+         captured=CAPTURED["bert_base_bo"],
          step_ms_median={"asha": asha_step_ms,
                          **{name: v["step_ms_median"] for name, v in out.items()}},
          handoff_ms={name: v["handoff_ms"] for name, v in out.items()},
@@ -1937,7 +2221,7 @@ def phase_slice_llama(exp_dir):
     from maggy_tpu_torch.ops import attention as A
     from maggy_tpu_torch.ops import chunked_next_token_loss
     from maggy_tpu_torch.optimizers import Asha
-    from maggy_tpu_torch.train import Trainer, adamw, only_lora
+    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, only_lora, warm
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -1957,17 +2241,18 @@ def phase_slice_llama(exp_dir):
     def loss_fn(out, b):
         return chunked_next_token_loss(out[0], out[1], b["tokens"])
 
-    def make_trainer(lora_rank, lora_alpha, lr):
+    def make_trainer(lora_rank, lora_alpha, lr, warm_start=None):
         cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=int(lora_rank)),
                                   lora_alpha=float(lora_alpha))
-        return Trainer(Llama(cfg, device="cuda"), only_lora(adamw(lr)), loss_fn,
-                       device="cuda", train_kwargs={"return_hidden": True}).init(seed=0)
+        return Trainer(Llama(cfg, device="meta"), only_lora(adamw(lr)), loss_fn,
+                       device="cuda", train_kwargs={"return_hidden": True},
+                       warm_start=warm_start).init(seed=0)
 
     def train_llama(lora_rank, lora_alpha, lr, budget, reporter):
         trainer = make_trainer(lora_rank, lora_alpha, lr)
         total = int(budget) * LLAMA_STEPS_PER_BUDGET
         done = 0
-        torch.cuda.synchronize()
+        stream_sync()
         t0 = time.perf_counter()
         try:
             for i in range(total):
@@ -1975,7 +2260,7 @@ def phase_slice_llama(exp_dir):
                 done += 1
                 reporter.broadcast(-loss, step=i)
         finally:
-            torch.cuda.synchronize()
+            stream_sync()
             with lock:
                 steps_taken.append(done)
                 step_ms.append((time.perf_counter() - t0) * 1e3 / max(done, 1))
@@ -1993,12 +2278,14 @@ def phase_slice_llama(exp_dir):
         searchspace=sp, direction="max", num_workers=2, es_policy="none",
         hb_interval=0.1, seed=0, experiment_dir=exp_dir)
 
+    before = warm.counters()
     A.reset_launch_counts()
     t0 = time.perf_counter()
     result = experiment.lagom(train_llama, config)
     wall = time.perf_counter() - t0
     launches = A.launch_counts()
     peak_sweep = torch.cuda.max_memory_allocated()
+    clear_warm()
 
     trials = read_trials(exp_dir)
     promoted = sum(1 for t in trials if t["info_dict"].get("sample_type") == "promoted")
@@ -2017,6 +2304,15 @@ def phase_slice_llama(exp_dir):
         raise AssertionError("launches {} != {} (remat: the forward twice per layer and "
                              "step)".format(launches, expected))
     telemetry = journal_check("slice_llama", exp_dir, result)
+    # The Llama sweep may step eagerly only where a capture raised (out of
+    # memory beside the other runner's 8B base, say): then the reason and
+    # the peak memory are printed.
+    reading_warm = warm_reading("slice_llama", telemetry, before, must_capture=False)
+    if not reading_warm["captured"] and not reading_warm["graph_failures"]:
+        emit("slice_llama", warm=reading_warm)
+        raise AssertionError("slice_llama stepped eagerly without a failed capture: {}".format(
+            reading_warm))
+    CAPTURED["llama3_8b"] = reading_warm["captured"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2090,25 +2386,22 @@ def phase_slice_llama(exp_dir):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Per-step time of one trainer alone on the card, then three profiled
-    # steps.
-    trainer = make_trainer(16, 16.0, 1e-4)
-    for i in range(2):
-        trainer.step(batch(i))
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    n_alone = 3
-    for i in range(n_alone):
-        trainer.step(batch(i))
-    torch.cuda.synchronize()
-    alone_ms = (time.perf_counter() - t1) * 1e3 / n_alone
-    profile = step_device_profile(lambda i: trainer.step(batch(i)), steps=3)
+    # Per-step time of one trainer alone on the card, eager then replayed
+    # from its graph, then three profiled steps as the sweep runs them.
+    alone, graph_trainer = alone_step_ms(
+        lambda ws: make_trainer(16, 16.0, 1e-4, warm_start=ws), batch, warmup=2, n=3, pairs=1)
+    profile = step_device_profile(lambda i: graph_trainer.step(batch(i)), steps=3)
+    alone_graph_ok = graph_trainer._slot.graph_ok
+    del graph_trainer
+    clear_warm()
 
     emit("slice_llama", trials_finished=len(finished), promoted=promoted,
          best_hp=result["best_hp"], best_val=result["best_val"], steps=total_steps,
          launches=launches, expected_launches=expected, sweep_wall_s=wall,
-         step_ms_in_sweep_median=float(np.median(step_ms)), step_ms_alone=alone_ms,
-         step_profile=profile, pipeline=pipeline_summary(result["pipeline"]),
+         step_ms_in_sweep_median=float(np.median(step_ms)),
+         step_ms_alone=alone["graph"][0], step_ms_alone_eager=alone["eager"][0],
+         alone_graph_ok=alone_graph_ok, step_profile=profile, warm=reading_warm,
+         peak_mem_gb_pr9=65.51, pipeline=pipeline_summary(result["pipeline"]),
          telemetry=public(telemetry), full_width=full_width, chunked_loss_ms=loss_ms,
          mm_out_dtype_differentiable=mm_out_dtype_differentiable,
          peak_mem_sweep_gb=peak_sweep / 1e9,
@@ -2139,9 +2432,18 @@ def mnist_sweep(exp_dir, pool, fn_kw=None, **config_kw):
     return result, wall, read_trials(trial_dir), read_records(out_dir)
 
 
-def check_mnist_sweep(name, pool, result, trials, records):
+def runner_logs(exp_dir, n=80):
+    """The last ``n`` lines of a sweep's runner logs (a failed trial's
+    traceback among them)."""
+    lines = [line for path in sorted(glob.glob(os.path.join(exp_dir, "*", "executor_*.log")))
+             for line in open(path, errors="replace").read().splitlines()]
+    return "\n".join(lines[-n:])
+
+
+def check_mnist_sweep(name, pool, result, trials, records, exp_dir):
     """Every trial finalized once with its record, promotions, a finite best
-    value, steps taken; process runners other than the driver."""
+    value, steps taken; process runners other than the driver. A failure
+    shows the runners' logs."""
     ids = [t["id"] for t in trials]
     problems = []
     if not (len(ids) == len(set(ids)) == result["num_trials"] > 0
@@ -2157,7 +2459,8 @@ def check_mnist_sweep(name, pool, result, trials, records):
     if (os.getpid() in pids) != (pool == "thread"):
         problems.append("trials ran in processes {} (driver {})".format(sorted(pids), os.getpid()))
     if problems:
-        raise AssertionError("{}: {}".format(name, "; ".join(problems)))
+        raise AssertionError("{}: {}; runner logs:\n{}".format(name, "; ".join(problems),
+                                                              runner_logs(exp_dir)))
 
 
 def mnist_summary(result, wall, trials, records):
@@ -2173,7 +2476,7 @@ def mnist_summary(result, wall, trials, records):
 def phase_slice_mnist(exp_root):
     """bench.py's headline on the card under thread and process runners,
     after the card's logits against the CPU's for one batch."""
-    from maggy_tpu_torch.train import ShardedBatchIterator
+    from maggy_tpu_torch.train import ShardedBatchIterator, clear_warm, warm
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2201,11 +2504,15 @@ def phase_slice_mnist(exp_root):
     for label, pool, on in [("thread", "thread", True), ("process", "process", True)] + pairs:
         name = "slice_mnist/" + label
         exp_dir = os.path.join(exp_root, label)
+        clear_warm()
+        before = warm.counters()
         result, wall, trials, records = mnist_sweep(exp_dir, pool, telemetry=on)
-        check_mnist_sweep(name, pool, result, trials, records)
+        check_mnist_sweep(name, pool, result, trials, records, os.path.join(exp_dir, "exp"))
         sweeps[label] = mnist_summary(result, wall, trials, records)
+        telemetry = journal_check(name, os.path.join(exp_dir, "exp"), result) if on else None
+        sweeps[label]["warm"] = warm_reading(name, telemetry,
+                                             before if pool == "thread" else None)
         if on:
-            telemetry = journal_check(name, os.path.join(exp_dir, "exp"), result)
             sweeps[label]["telemetry"] = public(telemetry)
             if pool == "process":
                 sweeps[label]["runner_setup"] = runner_setup(telemetry)
@@ -2220,6 +2527,7 @@ def phase_slice_mnist(exp_root):
         runs = [v for k, v in cost.items() if "_{}_".format(on) in k]
         cost["median_" + on] = {k: float(np.median([r[k] for r in runs]))
                                 for k in ("wall_ms_per_step", "step_ms_in_sweep_median")}
+    clear_warm()
     emit("slice_mnist", logits_max_abs_err=logit_err, logits_tol=logit_tol,
          tf32=torch.backends.cudnn.allow_tf32, telemetry_cost=cost, **sweeps)
 
@@ -2244,7 +2552,8 @@ def phase_slice_recovery(exp_dir):
     status = {t["id"]: t["status"] for t in trials}
     problems = []
     try:
-        check_mnist_sweep("slice_recovery", "process", result, trials, records)
+        check_mnist_sweep("slice_recovery", "process", result, trials, records,
+                          os.path.join(exp_dir, "sweep", "exp"))
     except AssertionError as e:
         problems.append(str(e))
     if result["lost_runners"] != 2:
@@ -2265,6 +2574,7 @@ def phase_slice_recovery(exp_dir):
     telemetry = journal_check("slice_recovery", os.path.join(exp_dir, "sweep", "exp"), result,
                               recovery=True, trace=True)
     emit("slice_recovery", faults=faults, killed=killed, loss_timeout_s=RECOVERY_LOSS_TIMEOUT_S,
+         warm=warm_reading("slice_recovery", telemetry, must_capture=False),
          stale_finals_dropped=result["recovery"]["stale_finals_dropped"],
          telemetry=public(telemetry), **mnist_summary(result, wall, trials, records))
     if problems:
@@ -2278,6 +2588,8 @@ def fresh_dir(path):
 
 
 def main():
+    from maggy_tpu_torch.train import clear_warm
+
     smi = phase_device()
     phase_build()
     main_times = phase_kernels()
@@ -2291,14 +2603,19 @@ def main():
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama"))),
         "bert_base_process": phase_slice_process(
             os.path.join(ROOT, "build", "chip_smoke_experiments_process"), asha_step_ms)}
+    clear_warm()
     phase_slice_mnist(os.path.join(ROOT, "build", "chip_smoke_experiments_mnist"))
     phase_slice_recovery(fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_recovery")))
+    clear_warm()
     launches["bert_base_fork"] = phase_slice_fork(
         os.path.join(ROOT, "build", "chip_smoke_experiments_fork"), slice_reading)
     phase_slice_pbt(os.path.join(ROOT, "build", "chip_smoke_experiments_pbt"))
     launches["bert_base_resume"] = phase_slice_resume()
+    clear_warm()
+    launches["bert_base_warm"] = phase_slice_warm(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_warm"))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "path": path, "launches": launches[path][name],
+                "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}
                for path in launches for name in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)

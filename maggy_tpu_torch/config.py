@@ -3,8 +3,9 @@
 The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` (with the
 heartbeat-loss shape) and `OptimizationConfig` with the fields of a
 single-host sweep over thread, process or GPU-pinned process runners, with
-heartbeat-loss requeue, the telemetry journal, checkpoint forking
-(``fork``) and experiment resume (``resume``). ``vmap_lanes``,
+heartbeat-loss requeue, the telemetry journal, the compile-once warm path
+(``warm_start``), checkpoint forking (``fork``) and experiment resume
+(``resume``). ``vmap_lanes``,
 ``chips_per_budget`` (gangs) and ``fleet`` exist only so that setting one
 raises "not ported yet" with its ROADMAP item; each is replaced by the real
 field in the slice that ports it. Chaos and observability fields are absent, so passing one is a
@@ -100,6 +101,14 @@ class OptimizationConfig(LagomConfig):
     seed: Optional[int] = None
     prefetch: bool = True
     hb_loss_timeout: Optional[float] = None
+    # Compile-once hot path (train/warm.py, maggy_tpu/config.py:195-204):
+    # runners keep each program's materialized model, optimizer and
+    # captured step graphs across trials whose program identity matches
+    # (model config, device, loss, swept-optimizer family, batch shape),
+    # so a repeat trial skips the model's build and the step's capture.
+    # State VALUES are always recomputed per trial: only memory and graphs
+    # are reused. False restores the build-per-trial eager path.
+    warm_start: bool = True
     fork: bool = True
     # Experiment artifact root; defaults to the environment's base dir.
     experiment_dir: Optional[str] = None

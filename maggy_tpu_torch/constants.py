@@ -45,9 +45,8 @@ HEARTBEAT_LOSS_MIN_S = 10.0
 
 # Checkpoint forking: how long a forked trial may wait for the runner that
 # ran its parent (``maggy_tpu/constants.py:38-43``) before any idle runner
-# takes it. The JAX package holds it for that runner's warm slot; the port
-# has no warm cache yet (ROADMAP queue 1 item 4), so here the hold buys
-# nothing but keeps the JAX package's dispatch order.
+# takes it: that runner holds the parent's program in its warm slot
+# (train/warm.py), whose retired unit the fork takes before it restores.
 FORK_AFFINITY_HOLD_S = 0.5
 
 # Multi-fidelity bracket state (Hyperband), checkpointed into the experiment

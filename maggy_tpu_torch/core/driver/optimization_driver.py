@@ -318,7 +318,8 @@ class OptimizationDriver(Driver):
         return trial_executor_fn(
             server_addr=self.server_addr, secret=self.server.secret_hex,
             hb_interval=self.hb_interval, exp_dir=self.exp_dir,
-            optimization_key=self.optimization_key, train_fn=train_fn)
+            optimization_key=self.optimization_key, train_fn=train_fn,
+            warm_start=self.config.warm_start)
 
     def _register_msg_callbacks(self) -> None:
         self.message_callbacks.update(

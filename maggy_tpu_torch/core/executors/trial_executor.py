@@ -13,7 +13,9 @@ and the driver's heartbeat-loss scan requeues the trial onto a survivor.
 Each executor owns one ``RunnerStats`` (JAX `trial_executor.py:136-200`):
 the reporter counts broadcasts into it, the client ships its deltas on the
 heartbeats, and each trial runs inside ``warm.trial_scope`` between
-``trial_start`` and ``trial_end``.
+``trial_start`` and ``trial_end``: armed by ``warm_start``
+(``config.warm_start``, JAX `trial_executor.py:95-129, 246-256`), its
+Trainers share warm slots and retire their units at scope exit.
 
 Checkpoint forking and graceful preemption (JAX `trial_executor.py:152,
 217-281, 317-360`): a ``train_fn`` that names ``ctx`` gets a
@@ -48,13 +50,15 @@ class TrialExecutor:
     ``train_fn`` is, so process pools can send it to a spawned child."""
 
     def __init__(self, server_addr: Tuple[str, int], secret: str, hb_interval: float,
-                 exp_dir: str, optimization_key: str, train_fn: Callable):
+                 exp_dir: str, optimization_key: str, train_fn: Callable,
+                 warm_start: bool = True):
         self.server_addr = server_addr
         self.secret = secret
         self.hb_interval = hb_interval
         self.exp_dir = exp_dir
         self.optimization_key = optimization_key
         self.train_fn = train_fn
+        self.warm_start = warm_start
 
     def __call__(self, partition_id: int) -> None:
         env = EnvSing.get_instance()
@@ -90,9 +94,13 @@ class TrialExecutor:
                         call_params["ctx"] = ctx
                     if client.last_info.get("forked_from"):
                         self._stage_fork(ctx, trial_id, trial_dir, client, reporter, stats)
-                    # A trial that continues saved state restores it from its
-                    # checkpoint into fresh state.
-                    with warm.trial_scope(trial_id=trial_id, stats=stats,
+                    # Inside the scope the trial's Trainers take the warm
+                    # path (config.warm_start) and note into this runner's
+                    # stats; at its exit their units retire into their warm
+                    # slots. A trial that continues saved state restores it
+                    # from its checkpoint into fresh state.
+                    with warm.trial_scope(trial_id=trial_id, enabled=self.warm_start,
+                                          stats=stats,
                                           fresh_state=info_needs_fresh_state(client.last_info)):
                         retval = self.train_fn(**call_params)
                     metric = util.handle_return_val(retval, trial_dir,

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maggy_tpu_torch.models.params import init_targets
 from maggy_tpu_torch.ops.attention import multi_head_attention
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
@@ -120,11 +121,16 @@ class BertEncoder(nn.Module):
         self.pooler = _Dense(cfg.hidden_dim, cfg.hidden_dim, cfg, device)
         self.classifier = _Dense(cfg.hidden_dim, cfg.num_classes, cfg, device)
 
+    @property
+    def identity(self):
+        """The warm cache's model identity (``models/params.py``)."""
+        return type(self), self.cfg
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The Flax initializers: normal(0.02) embeddings and dense kernels,
         zero biases, unit LayerNorm scales, drawn from ``generator``."""
-        for name, p in self.named_parameters():
+        for name, p in init_targets(self, self.cfg.param_dtype):
             if name.endswith("embedding") or (name.endswith("weight") and p.ndim == 2):
                 p.normal_(0.0, 0.02, generator=generator)
             elif ".ln" in name or name.startswith("ln"):

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from maggy_tpu_torch.models.params import init_targets
 from maggy_tpu_torch.ops.attention import multi_head_attention
 
 #: flax's lecun_normal draws a standard normal truncated at +-2 and divides
@@ -204,13 +205,20 @@ class Llama(nn.Module):
         self.lm_head = nn.Parameter(torch.empty(
             cfg.hidden_dim, cfg.vocab_size, dtype=cfg.param_dtype, device=device))
 
+    @property
+    def identity(self):
+        """The warm cache's model identity (``models/params.py``)."""
+        return type(self), self.cfg
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The Flax initializers, drawn from ``generator``: lecun_normal dense
         kernels (normal truncated at +-2 sigma, sigma = sqrt(1/fan_in) /
         TRUNC_NORMAL_STD), normal(0.02) embedding, lm head and ``lora_a``,
-        zero ``lora_b``, unit norm scales."""
-        for name, p in self.named_parameters():
+        zero ``lora_b``, unit norm scales. A frozen base cast to the compute
+        dtype (``only_lora``) is drawn in ``param_dtype`` and cast, as when
+        it was built."""
+        for name, p in init_targets(self, self.cfg.param_dtype):
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "weight":
                 std = math.sqrt(1.0 / p.shape[1]) / TRUNC_NORMAL_STD

@@ -7,10 +7,13 @@ from ``image_size`` (28 in ``examples/mnist_hpo.py``, 16 in ``bench.py``).
 Convolutions pad "same", max-pools are "valid" with stride = window, and the
 CNN's activations are permuted back to NHWC before the flatten, so the first
 Dense kernel transposes from Flax as it is (``flax_to_state_dict``).
+Each module keeps its constructor's values as a frozen ``cfg``, which with
+its type is its warm-cache identity (``models/params.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict
 
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from maggy_tpu_torch.models.llama import TRUNC_NORMAL_STD
+from maggy_tpu_torch.models.params import init_targets
 
 
 def _check_device(device) -> torch.device:
@@ -35,12 +39,31 @@ def _lecun_normal(module: nn.Module, generator: torch.Generator) -> None:
     """Flax's default initializers: lecun_normal kernels (normal truncated
     at +-2 sigma, sigma = sqrt(1/fan_in) / TRUNC_NORMAL_STD, fan_in over the
     receptive field and input channels) and zero biases."""
-    for name, p in module.named_parameters():
+    for name, p in init_targets(module, torch.float32):
         if name.endswith("weight"):
             std = math.sqrt(1.0 / (p[0].numel())) / TRUNC_NORMAL_STD
             nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
         else:
             p.zero_()
+
+
+@dataclasses.dataclass(frozen=True)
+class MnistCNNConfig:
+    kernel_size: int
+    pool_size: int
+    dropout: float
+    features: int
+    num_classes: int
+    image_size: int
+    channels: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MnistMLPConfig:
+    features: int
+    num_classes: int
+    image_size: int
+    channels: int
 
 
 class MnistCNN(nn.Module):
@@ -53,6 +76,8 @@ class MnistCNN(nn.Module):
                  channels: int = 1, device="cuda"):
         super().__init__()
         device = _check_device(device)
+        self.cfg = MnistCNNConfig(kernel_size, pool_size, dropout, features, num_classes,
+                                  image_size, channels)
         self.pool_size = pool_size
         self.dropout = dropout
         self.conv0 = nn.Conv2d(channels, features, kernel_size, padding="same", device=device)
@@ -64,6 +89,10 @@ class MnistCNN(nn.Module):
                 image_size, pool_size, pool_size))
         self.dense0 = nn.Linear(side * side * 2 * features, 128, device=device)
         self.dense1 = nn.Linear(128, num_classes, device=device)
+
+    @property
+    def identity(self):
+        return type(self), self.cfg
 
     def init_weights(self, generator: torch.Generator) -> None:
         _lecun_normal(self, generator)
@@ -87,8 +116,13 @@ class MnistMLP(nn.Module):
                  channels: int = 1, device="cuda"):
         super().__init__()
         device = _check_device(device)
+        self.cfg = MnistMLPConfig(features, num_classes, image_size, channels)
         self.dense0 = nn.Linear(image_size * image_size * channels, features, device=device)
         self.dense1 = nn.Linear(features, num_classes, device=device)
+
+    @property
+    def identity(self):
+        return type(self), self.cfg
 
     def init_weights(self, generator: torch.Generator) -> None:
         _lecun_normal(self, generator)

@@ -36,9 +36,11 @@ key-padding keep-mask, bottom-right causal alignment when Sq != Sk):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Optional
+import threading
+from typing import Dict, Optional
 
 import torch
 
@@ -218,6 +220,45 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+_LAUNCH_LOCK = threading.Lock()
+#: Capture stream handle -> the launches recorded into that stream's graph.
+_recording: Dict[int, Dict[str, int]] = {}
+
+
+def _launched(kernel) -> None:
+    """Count one launch of ``kernel``'s CUDA kernel, or, when it went into a
+    graph under capture, record it for that graph. Keyed by stream, not by
+    thread: the backward's kernels launch from autograd's device thread,
+    on the forward's (capturing) stream."""
+    if _recording:
+        recorded = _recording.get(torch.cuda.current_stream().cuda_stream)
+        if recorded is not None:
+            recorded[kernel.__name__] = recorded.get(kernel.__name__, 0) + 1
+            return
+    with _LAUNCH_LOCK:
+        kernel.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches(stream):
+    """Within the block, launches onto ``stream`` (a CUDA graph's capture
+    stream: the capture records kernels without running them) go into the
+    yielded dict by wrapper name instead of the counts."""
+    recorded: Dict[str, int] = {}
+    _recording[stream.cuda_stream] = recorded
+    try:
+        yield recorded
+    finally:
+        _recording.pop(stream.cuda_stream, None)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add a replayed graph's recorded launches to the counts."""
+    with _LAUNCH_LOCK:
+        for kernel in KERNELS:
+            kernel.launches += counts.get(kernel.__name__, 0)
+
+
 def flash_fwd(q, k, v, mask, causal: bool):
     """Forward: (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32)."""
     if _device_kind(q) == "cpu":
@@ -230,7 +271,7 @@ def flash_fwd(q, k, v, mask, causal: bool):
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     lib = build.library(_SOURCE)
-    flash_fwd.launches += 1
+    _launched(flash_fwd)
     _raise_on(lib.flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out),
                             _ptr(lse), B, Sq, Sk, H, Hkv, D, int(causal),
                             _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D), _stream()),
@@ -254,7 +295,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal: bool,
     dk = torch.empty(k.shape, dtype=dt, device=k.device)
     dv = torch.empty(v.shape, dtype=dt, device=v.device)
     lib = build.library(_SOURCE)
-    flash_bwd_dkdv.launches += 1
+    _launched(flash_bwd_dkdv)
     _raise_on(lib.flash_bwd_dkdv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(mask),
         _ptr(dk), _ptr(dv), B, Sq, Sk, H, Hkv, D, int(causal),
@@ -291,7 +332,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask, causal: bool,
         delta_out = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=dt, device=q.device)
     lib = build.library(_SOURCE)
-    flash_bwd_dq.launches += 1
+    _launched(flash_bwd_dq)
     _raise_on(lib.flash_bwd_dq(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(out),
         _ptr(delta_out), _ptr(mask), _ptr(dq), B, Sq, Sk, H, Hkv, D, int(causal),
@@ -307,8 +348,9 @@ for _kernel in KERNELS:
 
 
 def reset_launch_counts() -> None:
-    for kernel in KERNELS:
-        kernel.launches = 0
+    with _LAUNCH_LOCK:
+        for kernel in KERNELS:
+            kernel.launches = 0
 
 
 def launch_counts():

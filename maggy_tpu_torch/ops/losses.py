@@ -81,7 +81,6 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
         h, kernel, tgt, lse = ctx.saved_tensors
         chunk = ctx.chunk
         N, V = h.shape[0], kernel.shape[1]
-        rows = torch.arange(N, device=h.device)
         want_h, want_k = ctx.needs_input_grad[:2]
         dh = torch.zeros(N, h.shape[1], device=h.device) if want_h else None
         dk = torch.zeros(kernel.shape, device=h.device) if want_k else None
@@ -90,8 +89,12 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
             logits = _chunk_logits(h, kernel, c0, cs, chunk)
             # d loss / d logits = (softmax - onehot(target)) * g / N.
             p = torch.exp(logits - lse[:, None])
+            # -1 at each target this chunk owns, with no data-dependent
+            # index (a step captured as a CUDA graph cannot sync): the other
+            # rows add -0.0, which leaves p as it is.
             in_chunk = (tgt >= c0) & (tgt < c0 + chunk)
-            p[rows[in_chunk], (tgt - cs)[in_chunk]] -= 1.0
+            p.scatter_add_(1, (tgt - cs).clamp(0, chunk - 1)[:, None],
+                           -in_chunk.to(p.dtype)[:, None])
             p *= g / N
             if want_h:
                 dh.addmm_(p, kernel[:, cs:cs + chunk].to(h.dtype).float().T)

@@ -20,11 +20,12 @@ heartbeat round-trip time, or memory attribution ever left the worker.
   holds a CUDA context, ``torch.cuda.memory_allocated()``;
 - **compile attribution** (``note_compile``, fed through the trial scope
   of train/warm.py) — the opaque ttfm split into phases: ``init_ms``
-  (``Trainer.init``: weights and optimizer state), ``first_step_ms`` (the
-  residual at first broadcast: the model's construction, dispatch, the
-  first steps' device execution and input staging), plus the trial's
-  ``warm`` flag. Eager PyTorch has no trace or compile phase, so the port
-  notes no ``trace_ms``/``compile_ms``. Shipped once per trial as a
+  (``Trainer.init``: weights and optimizer state, built or re-initialized
+  in a warm unit), ``compile_ms`` (the step's CUDA-graph captures),
+  ``first_step_ms`` (the residual at first broadcast: dispatch, the first
+  steps' device execution and input staging), plus the trial's ``warm``
+  flag (and ``graph_ok``/``graph_error`` when a capture raised). The port
+  has no trace phase, so it notes no ``trace_ms``. Shipped once per trial as a
   ``compile_events`` record (drained like ``profile_skipped``, requeued on
   a failed beat) and journaled by the driver as a ``compiled`` span phase;
 - **counters** (``note_counter``) — cumulative runner counters routed

@@ -37,7 +37,12 @@ def only_lora(factory: Callable) -> Callable:
     dtype, and a frozen parameter is never updated, so the cast changes
     neither the function nor the adapters' gradients; it halves the base
     model's memory (an 8.03B-parameter base: 16.06 GB in bf16 instead of
-    32.1 GB in fp32). The adapters stay in ``param_dtype``."""
+    32.1 GB in fp32). The adapters stay in ``param_dtype``.
+
+    The wrapper carries the inner factory's warm-cache family (or none),
+    its ``scheduler`` and its ``kwargs``: a retired unit's optimizer already
+    holds the adapters alone, so the next trial of the family rebinds it as
+    it would the inner factory's."""
 
     def build(model: torch.nn.Module):
         dtype = model.cfg.dtype
@@ -51,4 +56,11 @@ def only_lora(factory: Callable) -> Callable:
                 p.data = p.data.to(dtype)
         return factory(adapters)
 
+    for attr in ("scheduler", "kwargs"):
+        if hasattr(factory, attr):
+            setattr(build, attr, getattr(factory, attr))
+    info = getattr(factory, "_maggy_swept", None)
+    if info is not None:
+        family = None if info["family"] is None else ("only_lora", info["family"])
+        build._maggy_swept = dict(info, family=family)
     return build

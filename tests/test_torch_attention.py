@@ -16,7 +16,9 @@ import torch
 from maggy_tpu.ops import attention as jax_attn
 from maggy_tpu_torch.ops import attention as A
 
-pytestmark = pytest.mark.torch
+# Each test bounded (a test that hangs fails alone instead of cutting the
+# whole run); the tests that set their own, longer bound keep it.
+pytestmark = [pytest.mark.torch, pytest.mark.timeout(60)]
 
 FWD_TOL = 1e-4
 GRAD_TOL = 1e-3

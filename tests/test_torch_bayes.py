@@ -18,7 +18,9 @@ from maggy_tpu_torch.optimizers.bayes import GP, TPE, gpr
 from maggy_tpu_torch.searchspace import Searchspace
 from maggy_tpu_torch.trial import Trial
 
-pytestmark = pytest.mark.torch
+# Each test bounded (a test that hangs fails alone instead of cutting the
+# whole run); the tests that set their own, longer bound keep it.
+pytestmark = [pytest.mark.torch, pytest.mark.timeout(60)]
 
 MIXED = dict(x=("DOUBLE", [0.0, 1.0]), lr=("DOUBLE_LOG", [1e-5, 1e-1]),
              n=("INTEGER", [1, 8]), b=("DISCRETE", [16, 32, 64]),

@@ -19,7 +19,9 @@ from maggy_tpu_torch.models import BertConfig, BertEncoder, flax_to_state_dict
 from maggy_tpu_torch.train import (Trainer, adamw, cross_entropy_loss,
                                    warmup_cosine_decay_schedule)
 
-pytestmark = pytest.mark.torch
+# Each test bounded (a test that hangs fails alone instead of cutting the
+# whole run); the tests that set their own, longer bound keep it.
+pytestmark = [pytest.mark.torch, pytest.mark.timeout(90)]
 
 B, S = 4, 128
 LOGIT_TOL = 1e-4

@@ -50,7 +50,9 @@ from maggy_tpu_torch.trial import Trial
 
 from tests.test_torch_bayes import MIXED, objective, wire
 
-pytestmark = pytest.mark.torch
+# Each test bounded (a test that hangs fails alone instead of cutting the
+# whole run); the tests that set their own, longer bound keep it.
+pytestmark = [pytest.mark.torch, pytest.mark.timeout(60)]
 
 #: (checkpoint module, LocalEnv class) of each package.
 PACKAGES = {"jax": (jax_ckpt, JaxLocalEnv), "port": (port_ckpt, LocalEnv)}
@@ -774,7 +776,8 @@ def test_checkpoint_lock_wait_is_recorded_apart(tmp_path):
         ctx.save_checkpoint(0, {"w": torch.zeros(2)})
         ctx.restore_checkpoint({"w": torch.zeros(2)})
     stats.trial_end("t")
-    thread.join()
+    thread.join(10)
+    assert not thread.is_alive()
     (record,) = stats.snapshot_delta()["ckpt_events"]
     assert record["saves"] == record["restores"] == 1
     assert 250.0 <= record["save_lock_ms"] <= record["save_ms"]

@@ -30,7 +30,9 @@ from maggy_tpu_torch.models.llama import flax_to_state_dict
 from maggy_tpu_torch.ops import chunked_next_token_loss, chunked_softmax_xent, next_token_loss
 from maggy_tpu_torch.train import Trainer, adamw, is_lora_param, lora_adapter_count, only_lora
 
-pytestmark = pytest.mark.torch
+# Each test bounded (a test that hangs fails alone instead of cutting the
+# whole run); the tests that set their own, longer bound keep it.
+pytestmark = [pytest.mark.torch, pytest.mark.timeout(150)]
 
 B, S = 2, 128
 VOCAB = 512

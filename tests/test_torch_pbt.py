@@ -30,7 +30,9 @@ from maggy_tpu_torch.searchspace import Searchspace
 from maggy_tpu_torch.telemetry import trace as port_trace
 from maggy_tpu_torch.train import warm as port_warm
 
-pytestmark = pytest.mark.torch
+# Each test bounded (a test that hangs fails alone instead of cutting the
+# whole run); the tests that set their own, longer bound keep it.
+pytestmark = [pytest.mark.torch, pytest.mark.timeout(60)]
 
 SPACES = {
     "mixed": dict(lr=("DOUBLE", [0.001, 1.0]), units=("INTEGER", [8, 64]),

@@ -33,7 +33,9 @@ from maggy_tpu_torch.pruner import Hyperband
 from maggy_tpu_torch.searchspace import Searchspace
 from maggy_tpu_torch.trial import Trial
 
-pytestmark = pytest.mark.torch
+# Each test bounded (a test that hangs fails alone instead of cutting the
+# whole run); the tests that set their own, longer bound keep it.
+pytestmark = [pytest.mark.torch, pytest.mark.timeout(60)]
 
 
 def _space():

@@ -229,40 +229,57 @@ def _counting_train():
     return train, calls
 
 
+def _resumed_through_lagom(pkg, base):
+    """The synthetic interrupted run built under ``base`` for ``pkg`` and
+    resumed through its lagom; returns what the test holds it to."""
+    run_dir, ids = _interrupted_run_dir(base, Trial if pkg == "port" else JaxTrial,
+                                        app_id="e2e", name="rec_e2e")
+    train, calls = _counting_train()
+    kw = dict(name="rec_e2e", hb_interval=0.05, hb_loss_timeout=1.0)
+    if pkg == "port":
+        result = experiment.lagom(train, _rec_config(OptimizationConfig, Searchspace, base, **kw))
+    else:
+        jax_experiment.APP_ID = "e2e"
+        result = jax_experiment.lagom(train, _rec_config(JaxConfig, JaxSearchspace, base, **kw))
+    events = (port_telemetry if pkg == "port" else jax_telemetry).read_events(
+        os.path.join(run_dir, "telemetry.jsonl"))
+    return {"num_trials": result["num_trials"], "ids": ids, "calls": calls,
+            "finals": [e["trial"] for e in events
+                       if e.get("ev") == "trial" and e.get("phase") == "finalized"],
+            "epochs": [e["epoch"] for e in events if e.get("ev") == "driver_epoch"],
+            "recovered": [e for e in events if e.get("ev") == "experiment"
+                          and e.get("phase") == "recovered"]}
+
+
 @pytest.mark.timeout(90)
 def test_interrupted_run_resumes_through_lagom_as_jax(tmp_path, monkeypatch):
     """The synthetic interrupted run, built for each package and resumed
     through its lagom (seeded RandomSearch, 4 trials, 2 threads): 4
     finalized, the completed trial never runs again, the one in flight
-    runs once, epochs [1, 2], one recovered event, the same finalized ids."""
-    out = {}
-    for pkg in ("port", "jax"):
-        base = str(tmp_path / pkg)
-        run_dir, ids = _interrupted_run_dir(base, Trial if pkg == "port" else JaxTrial,
-                                            app_id="e2e", name="rec_e2e")
-        train, calls = _counting_train()
-        kw = dict(name="rec_e2e", hb_interval=0.05, hb_loss_timeout=1.0)
-        if pkg == "port":
-            monkeypatch.setenv("MAGGY_TPU_APP_ID", "e2e")
-            result = experiment.lagom(train, _rec_config(OptimizationConfig, Searchspace,
-                                                         base, **kw))
-        else:
-            monkeypatch.setattr(jax_experiment, "APP_ID", "e2e")
-            result = jax_experiment.lagom(train, _rec_config(JaxConfig, JaxSearchspace,
-                                                             base, **kw))
-        events = (port_telemetry if pkg == "port" else jax_telemetry).read_events(
-            os.path.join(run_dir, "telemetry.jsonl"))
-        finals = [e["trial"] for e in events
-                  if e.get("ev") == "trial" and e.get("phase") == "finalized"]
-        assert result["num_trials"] == 4, pkg
-        assert len(finals) == len(set(finals)) == 4, pkg
-        assert ids["t2"] not in calls and calls.count(ids["t1"]) == 1, pkg
-        assert [e["epoch"] for e in events if e.get("ev") == "driver_epoch"] == [1, 2], pkg
-        recovered = [e for e in events if e.get("ev") == "experiment"
-                     and e.get("phase") == "recovered"]
-        assert len(recovered) == 1 and recovered[0]["inflight"] == 1, pkg
-        out[pkg] = set(finals)
-    assert out["port"] == out["jax"]
+    runs once, epochs [1, 2], one recovered event, the same finalized ids.
+    The JAX package's sweep runs in a child process with a time limit: its
+    driver can strand a trial on a re-registration race (ROADMAP queue 3
+    item 9) and never end, and its runner threads would then outlive the
+    test and hold the test process open."""
+    monkeypatch.setenv("MAGGY_TPU_APP_ID", "e2e")
+    out = {"port": _resumed_through_lagom("port", str(tmp_path / "port"))}
+    script = ("import json, sys; sys.path[:0] = [{tests!r}, {root!r}]; import jax; "
+              "jax.config.update('jax_platforms', 'cpu'); import test_torch_resume as t; "
+              "print(json.dumps(t._resumed_through_lagom('jax', {base!r})))").format(
+                  tests=os.path.join(ROOT, "tests"), root=ROOT, base=str(tmp_path / "jax"))
+    proc = subprocess.run([sys.executable, "-c", script], stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=70,
+                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out["jax"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    for pkg, seen in out.items():
+        ids = seen["ids"]
+        assert seen["num_trials"] == 4, pkg
+        assert len(seen["finals"]) == len(set(seen["finals"])) == 4, pkg
+        assert ids["t2"] not in seen["calls"] and seen["calls"].count(ids["t1"]) == 1, pkg
+        assert seen["epochs"] == [1, 2], pkg
+        assert len(seen["recovered"]) == 1 and seen["recovered"][0]["inflight"] == 1, pkg
+    assert set(out["port"]["finals"]) == set(out["jax"]["finals"])
 
 
 # ------------------------------------------------------- the recovering driver
