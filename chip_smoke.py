@@ -154,15 +154,66 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              AB_LOSS_TOL. Prints each arm's wall, hits and misses, ttfm p50
              warm and cold with bench's gate ratio (not gated), in-sweep step
              p50 and goodput buckets.
+14. slice_resnet — examples/resnet_cifar_asha.py at --depth 50 (BASELINE.json
+             config 3): ResNet(50, 2 classes, width in {32, 64}; 64 is
+             ResNet-50's published width), fp32 with TF32 off, CIFAR stem,
+             swept_transform(adamw, lr, weight_decay), has_aux_collections
+             and train=True (BatchNorm's running statistics updated inside
+             the captured step), ASHA(3, 1, 9) + median stopping (es_min 3),
+             9 rung-0 trials on 3 thread runners, the example's
+             ShardedBatchIterator (batch 128, seed 1) over make_cifar_like's
+             seeded 1024 x 32 x 32 x 3 set on the card, 8 steps a budget
+             unit, a heartbeat every 2. Every step after a unit's first at
+             its shape must replay a graph. Then 5 steps replayed against the
+             same 5 taken eagerly from the same start at lr 0: the running
+             statistics must agree within RESNET_BN_RTOL (a replay that
+             updated them twice or not at all misses by about 10%), and so
+             must a warm hit's (a unit stepped and retired, re-initialized
+             in place: fresh statistics, every step replayed); at lr 1e-3,
+             with cuDNN's deterministic algorithms, the replayed run against
+             the same warm trainer stepped eagerly (its capturable AdamW)
+             within RESNET_BN_RTOL, with two witnesses printed: capturable
+             against plain AdamW, and two plain eager runs under the sweep's
+             cuDNN settings; that model's eval logits against the CPU's
+             within RESNET_LOGIT_RTOL. Prints hits and misses
+             (weight decay joins the family by value: a hit is a promotion),
+             goodput, the step alone eager and replayed, its profile, peak
+             memory and the TF32 settings.
+15. slice_vit — examples/vit_cifar_hpo.py at ViT-B/16 (ViTConfig.base(2)):
+             TPE, 8 trials of 12 steps, 2 threads, a plain adamw(lr) (each
+             trial its own slot, as the example intends), batch 64 of a
+             seeded 512 x 224 x 224 x 3 set (the example steps its whole set
+             at once). 197 tokens do not tile by 128: the flash launches
+             must be 0. A two-layer model at full width against the CPU,
+             then the readings of slice_resnet.
+16. slice_moe — slice_llama's LoRA sweep with experts: Llama-3-8B widths,
+             8 experts a layer (top-2, capacity factor 2), 4 layers (cut by
+             memory: phase_slice_moe), batch 2 x 2048, remat, 4 trials.
+             Launches exact (llama3_8b_moe in the kernels line), every step
+             after its warm-up replayed, each step's objective less its task
+             loss equal to its summed aux loss. Prints the aux loss per
+             step, the share of routed tokens dropped at capacity, the step
+             alone and peak memory.
+
+The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
+tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
+place, bitwise a cold build's; has_aux_collections and the MoE config join
+the program key; the aux loss enters the eager step's objective. Nothing
+is captured there. The card re-checks under capture what a capture can
+break: the BatchNorm updates of the replayed steps (slice_resnet, against
+eager steps), a warm hit replaying the retired unit's graph on buffers
+re-initialized in place (slice_resnet), and the summed aux loss computed
+inside the captured region (slice_moe).
 
 Every Trainer takes the warm path (train/warm.py; the train functions
 build their models on device="meta"): each sweep's line has a "warm" field
 (warm hits and misses, graphs captured and replayed, eager warm-up steps,
 failed captures and their errors) and "captured". slice, slice_process,
 slice_bo, slice_mnist, slice_fork, slice_pbt and slice_warm's warm arms
-fail unless their steps replayed graphs and no capture failed; slice_llama
-may step eagerly only where a capture raised (its reason and peak memory
-printed). clear_warm() runs after each phase.
+fail unless their steps replayed graphs and no capture failed, as do
+slice_resnet, slice_vit and slice_moe; slice_llama may step eagerly only
+where a capture raised (its reason and peak memory printed). clear_warm()
+runs after each phase.
 
 After every sweep, its telemetry journal (<exp_dir>/telemetry.jsonl) is
 replayed through maggy_tpu_torch.telemetry and the sweep's line gets a
@@ -182,7 +233,8 @@ reruns its thread sweep with telemetry off and on in turns, twice
 Then the {"kernels": [...]} summary line (one entry per kernel and main
 path, each with that path's launches, whether its steps ran captured, and
 times at its shape; bert_base_resume's launches are incarnation 2's,
-bert_base_warm's slice_warm's BERT-base warm arm's), the
+bert_base_warm's slice_warm's BERT-base warm arm's, llama3_8b_moe's
+slice_moe's at the Llama shape's times), the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
 JAX or maggy_tpu. Runner processes are spawned and re-import this file as
@@ -243,9 +295,11 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "bert_base_bo": (64, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
 #: Paths that run the kernels at another path's shape: the process-runner,
-#: forking, resumed and warm A/B sweeps are the slice sweep's.
+#: forking, resumed and warm A/B sweeps are the slice sweep's, the MoE
+#: Llama's attention is the Llama's.
 SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
-              "bert_base_resume": "bert_base", "bert_base_warm": "bert_base"}
+              "bert_base_resume": "bert_base", "bert_base_warm": "bert_base",
+              "llama3_8b_moe": "llama3_8b"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
 DEVICE = "cuda"
@@ -284,6 +338,25 @@ RESUME_KILL_DEADLINE_S, RESUME_CHILD_TIMEOUT_S = 300, 420
 # rounding of an activation: a few bf16 roundings (2^-8 each) of the loss.
 AB_TRIALS, AB_MNIST_BATCH, AB_MNIST_BUDGET, AB_BERT_STEPS = 6, 256, 0.5, 8
 AB_LOSS_TOL = {"mnist": (1e-4, 1e-5), "bert_base": (1e-2, 1e-3)}
+# slice_resnet (examples/resnet_cifar_asha.py at --depth 50): the widths
+# swept (64 is ResNet-50's published width), the batch and seeded set, 8
+# steps a budget unit, a heartbeat every 2 steps, the steps of the
+# replayed-against-eager BatchNorm checks and their tolerance on the
+# running statistics (relative to 1 + the largest value: the same weights,
+# batches and arithmetic, so only the order of sums may differ), and the
+# eval-logits tolerance against the CPU (TF32 off in every comparison:
+# fp32 sums in another order through 50 layers).
+RESNET_DEPTH, RESNET_WIDTHS, RESNET_BATCH, RESNET_N = 50, [32, 64], 128, 1024
+RESNET_STEPS_PER_BUDGET, RESNET_REPORT_EVERY = 8, 2
+RESNET_BN_STEPS, RESNET_BN_RTOL, RESNET_LOGIT_RTOL = 5, 1e-5, 1e-3
+# slice_vit (examples/vit_cifar_hpo.py with ViTConfig.base(num_classes=2)):
+# batch 64 of a seeded 512-image set (the example steps its whole set at
+# once), 12 steps a trial, 8 TPE trials on two runners, a heartbeat every 4.
+VIT_N, VIT_BATCH, VIT_STEPS, VIT_TRIALS, VIT_REPORT_EVERY = 512, 64, 12, 8, 4
+# slice_moe: the slice_llama LoRA sweep with 8 experts (top-2, capacity
+# factor 2) at Llama-3-8B's widths, cut to MOE_LAYERS layers to fit one
+# card (see phase_slice_moe).
+MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY_FACTOR = 4, 8, 2, 2.0
 
 
 def emit(phase, **fields):
@@ -2215,48 +2288,34 @@ def bf16_tolerance(ref):
     return 5e-2 * float(ref.float().abs().max()) + 1e-6
 
 
-def phase_slice_llama(exp_dir):
+def llama_lora_sweep(phase, name, exp_dir, make_trainer, batch, layers):
+    """slice_llama's sweep: the search space of examples/llama_lora_sweep.py
+    under ASHA(3, 1, 3) (3 rung-0 trials and 1 promotion) on two thread
+    runners, LLAMA_STEPS_PER_BUDGET steps a budget unit, a heartbeat a step.
+    ``make_trainer(lora_rank, lora_alpha, lr)`` returns a trial's trainer
+    and a function of its step's loss whose value is kept per step (or
+    None). Checks the trial and step counts and the kernels' launches (the
+    forward twice per layer and step under remat), replays the journal, and
+    returns what the phase line reads."""
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
-    from maggy_tpu_torch.models import Llama, LlamaConfig
     from maggy_tpu_torch.ops import attention as A
-    from maggy_tpu_torch.ops import chunked_next_token_loss
     from maggy_tpu_torch.optimizers import Asha
-    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, only_lora, warm
+    from maggy_tpu_torch.train import clear_warm, warm
 
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = LlamaConfig.llama3_8b()
-    # Token batches over the whole vocabulary, made from a numpy seed.
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, base.vocab_size, size=(4, LLAMA_B, LLAMA_S)), device="cuda")
     lock = threading.Lock()
-    steps_taken, step_ms = [], []
-
-    def batch(i):
-        t = tokens[i % tokens.shape[0]]
-        return {"inputs": (t,), "tokens": t}
-
-    def loss_fn(out, b):
-        return chunked_next_token_loss(out[0], out[1], b["tokens"])
-
-    def make_trainer(lora_rank, lora_alpha, lr, warm_start=None):
-        cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=int(lora_rank)),
-                                  lora_alpha=float(lora_alpha))
-        return Trainer(Llama(cfg, device="meta"), only_lora(adamw(lr)), loss_fn,
-                       device="cuda", train_kwargs={"return_hidden": True},
-                       warm_start=warm_start).init(seed=0)
+    steps_taken, step_ms, rows = [], [], []
 
     def train_llama(lora_rank, lora_alpha, lr, budget, reporter):
-        trainer = make_trainer(lora_rank, lora_alpha, lr)
+        trainer, on_step = make_trainer(lora_rank, lora_alpha, lr)
         total = int(budget) * LLAMA_STEPS_PER_BUDGET
-        done = 0
+        mine, done = [], 0
         stream_sync()
         t0 = time.perf_counter()
         try:
             for i in range(total):
                 loss = trainer.step(batch(i))
+                if on_step is not None:
+                    mine.append(on_step(loss))
                 done += 1
                 reporter.broadcast(-loss, step=i)
         finally:
@@ -2264,20 +2323,19 @@ def phase_slice_llama(exp_dir):
             with lock:
                 steps_taken.append(done)
                 step_ms.append((time.perf_counter() - t0) * 1e3 / max(done, 1))
+                rows.extend([float(x) for x in row] for row in mine)
         final = float(loss)
         if not math.isfinite(final):
             raise FloatingPointError("non-finite loss {}".format(final))
         return {"metric": -final}
 
-    # The search space of examples/llama_lora_sweep.py.
     sp = Searchspace(lora_rank=("DISCRETE", [4, 8, 16]), lora_alpha=("DOUBLE", [4.0, 32.0]),
                      lr=("DOUBLE", [1e-4, 3e-3]))
     config = OptimizationConfig(
-        name="llama3_8b_lora_asha_smoke", num_trials=3,
+        name=name, num_trials=3,
         optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=3, seed=0),
         searchspace=sp, direction="max", num_workers=2, es_policy="none",
         hb_interval=0.1, seed=0, experiment_dir=exp_dir)
-
     before = warm.counters()
     A.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2292,18 +2350,54 @@ def phase_slice_llama(exp_dir):
     finished = [t for t in trials if t["final_metric"] is not None
                 and math.isfinite(t["final_metric"])]
     total_steps = sum(steps_taken)
-    layers = base.num_layers
     expected = {"flash_fwd": 2 * layers * total_steps, "flash_bwd_dkdv": layers * total_steps,
                 "flash_bwd_dq": layers * total_steps}
     if not (len(trials) == len(finished) == result["num_trials"] == 4 and promoted == 1
             and total_steps == 12 and math.isfinite(result["best_val"])):
-        raise AssertionError("Llama sweep malformed: {} trials ({} finished, {} promoted), "
-                             "{} steps, {}".format(len(trials), len(finished), promoted,
+        raise AssertionError("{} sweep malformed: {} trials ({} finished, {} promoted), "
+                             "{} steps, {}".format(phase, len(trials), len(finished), promoted,
                                                    total_steps, result))
     if launches != expected:
-        raise AssertionError("launches {} != {} (remat: the forward twice per layer and "
-                             "step)".format(launches, expected))
-    telemetry = journal_check("slice_llama", exp_dir, result)
+        raise AssertionError("{} launches {} != {} (remat: the forward twice per layer and "
+                             "step)".format(phase, launches, expected))
+    telemetry = journal_check(phase, exp_dir, result)
+    return {"result": result, "wall": wall, "launches": launches, "expected": expected,
+            "trials_finished": len(finished), "promoted": promoted, "steps": total_steps,
+            "step_ms": step_ms, "rows": rows, "telemetry": telemetry, "before": before,
+            "peak_sweep": peak_sweep}
+
+
+def phase_slice_llama(exp_dir):
+    from maggy_tpu_torch.models import Llama, LlamaConfig
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, only_lora
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = LlamaConfig.llama3_8b()
+    # Token batches over the whole vocabulary, made from a numpy seed.
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, size=(4, LLAMA_B, LLAMA_S)), device="cuda")
+
+    def batch(i):
+        t = tokens[i % tokens.shape[0]]
+        return {"inputs": (t,), "tokens": t}
+
+    def loss_fn(out, b):
+        return chunked_next_token_loss(out[0], out[1], b["tokens"])
+
+    def make_trainer(lora_rank, lora_alpha, lr, warm_start=None):
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=int(lora_rank)),
+                                  lora_alpha=float(lora_alpha))
+        return Trainer(Llama(cfg, device="meta"), only_lora(adamw(lr)), loss_fn,
+                       device="cuda", train_kwargs={"return_hidden": True},
+                       warm_start=warm_start).init(seed=0), None
+
+    sweep = llama_lora_sweep("slice_llama", "llama3_8b_lora_asha_smoke", exp_dir,
+                             make_trainer, batch, base.num_layers)
+    result, telemetry, before = sweep["result"], sweep["telemetry"], sweep["before"]
     # The Llama sweep may step eagerly only where a capture raised (out of
     # memory beside the other runner's 8B base, say): then the reason and
     # the peak memory are printed.
@@ -2389,25 +2483,26 @@ def phase_slice_llama(exp_dir):
     # Per-step time of one trainer alone on the card, eager then replayed
     # from its graph, then three profiled steps as the sweep runs them.
     alone, graph_trainer = alone_step_ms(
-        lambda ws: make_trainer(16, 16.0, 1e-4, warm_start=ws), batch, warmup=2, n=3, pairs=1)
+        lambda ws: make_trainer(16, 16.0, 1e-4, warm_start=ws)[0], batch, warmup=2, n=3,
+        pairs=1)
     profile = step_device_profile(lambda i: graph_trainer.step(batch(i)), steps=3)
     alone_graph_ok = graph_trainer._slot.graph_ok
     del graph_trainer
     clear_warm()
 
-    emit("slice_llama", trials_finished=len(finished), promoted=promoted,
-         best_hp=result["best_hp"], best_val=result["best_val"], steps=total_steps,
-         launches=launches, expected_launches=expected, sweep_wall_s=wall,
-         step_ms_in_sweep_median=float(np.median(step_ms)),
+    emit("slice_llama", trials_finished=sweep["trials_finished"], promoted=sweep["promoted"],
+         best_hp=result["best_hp"], best_val=result["best_val"], steps=sweep["steps"],
+         launches=sweep["launches"], expected_launches=sweep["expected"],
+         sweep_wall_s=sweep["wall"], step_ms_in_sweep_median=float(np.median(sweep["step_ms"])),
          step_ms_alone=alone["graph"][0], step_ms_alone_eager=alone["eager"][0],
          alone_graph_ok=alone_graph_ok, step_profile=profile, warm=reading_warm,
          peak_mem_gb_pr9=65.51, pipeline=pipeline_summary(result["pipeline"]),
          telemetry=public(telemetry), full_width=full_width, chunked_loss_ms=loss_ms,
          mm_out_dtype_differentiable=mm_out_dtype_differentiable,
-         peak_mem_sweep_gb=peak_sweep / 1e9,
+         peak_mem_sweep_gb=sweep["peak_sweep"] / 1e9,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          phase_s=time.perf_counter() - t_phase)
-    return launches
+    return sweep["launches"]
 
 
 def mnist_sweep(exp_dir, pool, fn_kw=None, **config_kw):
@@ -2581,6 +2676,489 @@ def phase_slice_recovery(exp_dir):
         raise AssertionError("slice_recovery: {}".format("; ".join(problems)))
 
 
+# ----------------------------------------- slice 11: ResNet, ViT and MoE paths
+
+
+def replayed_after_warmup(name, reading, steps):
+    """Every step of the sweep after a unit's first at its batch shape
+    replayed a graph: one eager warm-up per capture, every other step a
+    replay, no failed capture."""
+    if not (reading["graph_failures"] == 0 and reading["graph_captures"] > 0
+            and reading["eager_steps"] == reading["graph_captures"]
+            and reading["graph_replays"] + reading["eager_steps"] == steps):
+        emit(name, warm=reading, steps=steps)
+        raise AssertionError("{}: {} steps did not replay after their warm-up: {}".format(
+            name, steps, reading))
+
+
+def tf32_settings():
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def record_sweep(phase, exp_dir, train, **config_kw):
+    """A thread-runner sweep whose trials write TrialRecords: (result, wall
+    s, records, trials, the journal's telemetry, the warm reading (steps
+    must replay from graphs), steps, the process's flash launches)."""
+    from maggy_tpu_torch import OptimizationConfig, experiment
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import clear_warm, warm
+
+    out_dir = fresh_dir(os.path.join(exp_dir, "records"))
+    config = OptimizationConfig(direction="max", hb_interval=0.1, seed=0,
+                                experiment_dir=fresh_dir(os.path.join(exp_dir, "exp")),
+                                **config_kw)
+    before = warm.counters()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = experiment.lagom(functools.partial(train, out_dir=out_dir), config)
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    clear_warm()
+    records, trials = read_records(out_dir), read_trials(os.path.join(exp_dir, "exp"))
+    telemetry = journal_check(phase, os.path.join(exp_dir, "exp"), result)
+    reading = warm_reading(phase, telemetry, before)
+    steps = sum(r["steps"] for r in records)
+    replayed_after_warmup(phase, reading, steps)
+    if not (len(trials) == result["num_trials"] == len(records)
+            and all(t["status"] == "FINALIZED" for t in trials)
+            and math.isfinite(result["best_val"])):
+        raise AssertionError("{} sweep malformed: {} trials, {} records, {}".format(
+            phase, len(trials), len(records), result))
+    return result, wall, records, trials, telemetry, reading, steps, launches
+
+
+def sweep_fields(result, wall, records, trials, telemetry, reading, steps):
+    comp = telemetry["_compile"]
+    return {"trials": len(trials),
+            "promoted": sum(1 for t in trials
+                            if t["info_dict"].get("sample_type") == "promoted"),
+            "early_stopped": result["early_stopped"], "best_hp": result["best_hp"],
+            "best_val": result["best_val"], "steps": steps, "sweep_wall_s": wall,
+            "step_ms_in_sweep_p50": float(np.median([r["step_ms"] for r in records])),
+            "warm": reading, "warm_hits": comp.get("warm_hits", 0),
+            "warm_misses": comp.get("warm_misses", 0), "compile_ms": comp.get("compile_ms"),
+            "init_ms": comp.get("init_ms"), "pipeline": pipeline_summary(result["pipeline"]),
+            "telemetry": public(telemetry), "time_split": time_split(records)}
+
+
+def cifar_data():
+    """examples/resnet_cifar_asha.py's make_cifar_like(): 1024 seeded
+    32 x 32 x 3 images, label = whether the image's mean is positive, on the
+    card."""
+    def build():
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(RESNET_N, 32, 32, 3)).astype(np.float32)
+        y = (X.mean(axis=(1, 2, 3)) > 0).astype(np.int64)
+        return torch.as_tensor(X, device=DEVICE), torch.as_tensor(y, device=DEVICE)
+
+    return cached("cifar", build)
+
+
+def resnet_batches():
+    """The example's ShardedBatchIterator (batch 128, seed 1, epochs
+    without end) over the card-resident set."""
+    from maggy_tpu_torch.train import ShardedBatchIterator
+
+    X, y = cifar_data()
+    for b in ShardedBatchIterator({"x": X, "y": y}, batch_size=RESNET_BATCH, epochs=None,
+                                  seed=1):
+        yield {"inputs": (b["x"],), "labels": b["y"]}
+
+
+def resnet_trainer(lr, width, weight_decay, warm_start=None):
+    """The example's trainer: ResNet(RESNET_DEPTH, 2 classes, width) in
+    fp32, swept AdamW (lr on a tensor, weight decay baked into the family),
+    batch statistics updated in the step."""
+    from maggy_tpu_torch.models import ResNet
+    from maggy_tpu_torch.train import Trainer, adamw, swept_transform
+
+    return Trainer(ResNet(depth=RESNET_DEPTH, num_classes=2, width=int(width), device="meta"),
+                   swept_transform(adamw, learning_rate=lr, weight_decay=weight_decay),
+                   labels_loss, device=DEVICE, has_aux_collections=True,
+                   train_kwargs={"train": True}, warm_start=warm_start).init(seed=0)
+
+
+def train_resnet(lr, width, weight_decay, budget, reporter, out_dir):
+    """One trial of slice_resnet: examples/resnet_cifar_asha.py's train_fn."""
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    trainer = resnet_trainer(lr, width, weight_decay)
+    batches = resnet_batches()
+    with record:
+        for step in range(int(RESNET_STEPS_PER_BUDGET * budget)):
+            loss = trainer.step(next(batches))
+            record.steps += 1
+            if step % RESNET_REPORT_EVERY == 0:
+                reporter.broadcast(-loss, step=step)
+    final = float(loss)
+    if not math.isfinite(final):
+        raise FloatingPointError("non-finite loss {}".format(final))
+    return {"metric": -final, "final_loss": final}
+
+
+def phase_slice_resnet(exp_dir):
+    """The ResNet-50/CIFAR-10 ASHA sweep (BASELINE.md config 3), then the
+    BatchNorm check (RESNET_BN_STEPS steps replayed against the same steps
+    taken eagerly from the same start: the running statistics agree, so
+    each replay updated them once), the trained model's eval logits on the
+    card against the CPU's, the step alone (eager and replayed in turns)
+    and a profile of five replayed steps."""
+    from maggy_tpu_torch import Searchspace
+    from maggy_tpu_torch.optimizers import Asha
+    from maggy_tpu_torch.train import clear_warm, warm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sp = Searchspace(lr=("DOUBLE", [1e-4, 1e-2]), width=("DISCRETE", RESNET_WIDTHS),
+                     weight_decay=("DOUBLE", [1e-5, 1e-3]))
+    swept = record_sweep(
+        "slice_resnet", exp_dir, train_resnet, name="resnet50_cifar_asha_smoke", num_trials=9,
+        optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=0),
+        searchspace=sp, num_workers=3, es_policy="median", es_min=3)
+    launches = swept[-1]
+    if any(launches.values()):
+        raise AssertionError("slice_resnet launched attention kernels: {}".format(launches))
+    peak_sweep = torch.cuda.max_memory_allocated()
+
+    # The BatchNorm check and the eval logits, at ResNet-50's own width.
+    # At lr 0 the weights stay put, so the running statistics of the
+    # replayed steps must be the eager steps' up to the forward's rounding.
+    # At lr 1e-3, with cuDNN's deterministic algorithms, the replayed run
+    # must match the same warm trainer stepped eagerly (the captured step's
+    # arithmetic: capturable AdamW, lr on a tensor). Two witnesses are
+    # printed, not gated: the capturable against the plain AdamW path (both
+    # eager, deterministic algorithms), and two identical plain eager runs
+    # under the sweep's own cuDNN settings.
+    full_fp32()
+    width, wd = RESNET_WIDTHS[-1], 1e-4
+    source = resnet_batches()
+    batches = [next(source) for _ in range(RESNET_BN_STEPS)]
+
+    def bn_run(lr, mode):
+        """RESNET_BN_STEPS steps from the same start: "replayed" (the warm
+        path: an eager warm-up step, then graphs), "warm_eager" (the warm
+        path's trainer, its capturable optimizer, every step eager) or
+        "plain" (warm_start=False). Returns (trainer, losses, replays)."""
+        c0 = warm.counters()["graph_replays"]
+        trainer = resnet_trainer(lr, width, wd, warm_start=mode != "plain")
+        step = trainer._eager_step if mode == "warm_eager" else trainer.step
+        losses = [step(b) for b in batches]
+        torch.cuda.synchronize()
+        return (trainer, [float(x) for x in losses],
+                warm.counters()["graph_replays"] - c0)
+
+    def bn_diff(a, b):
+        errs = {name: float((x - y).abs().max()) / (1.0 + float(y.abs().max()))
+                for (name, x), y in zip(a.model.named_buffers(), b.model.buffers())}
+        worst = max(errs, key=errs.get)
+        return {"max_rel_err": errs[worst], "worst": worst}
+
+    replayed, r_losses, r_replays = bn_run(0.0, "replayed")
+    eager0, e_losses, _ = bn_run(0.0, "plain")
+    bn = {"lr": 0.0, "steps": RESNET_BN_STEPS, "replays": r_replays,
+          "buffers": len(list(eager0.model.buffers())),
+          "means_moved": sum(1 for name, ref in eager0.model.named_buffers()
+                             if name.endswith("mean") and float(ref.abs().max()) > 0),
+          **bn_diff(replayed, eager0), "rtol": RESNET_BN_RTOL,
+          "losses_replayed": r_losses, "losses_eager": e_losses}
+    del replayed
+    cudnn = torch.backends.cudnn
+    settings = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        replayed, r_losses, r_replays = bn_run(1e-3, "replayed")
+        warm_eager, w_losses, _ = bn_run(1e-3, "warm_eager")
+        plain, p_losses, _ = bn_run(1e-3, "plain")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = settings
+    bn_trained = {"lr": 1e-3, "steps": RESNET_BN_STEPS, "replays": r_replays,
+                  "cudnn_deterministic": True, **bn_diff(replayed, warm_eager),
+                  "rtol": RESNET_BN_RTOL, "losses_replayed": r_losses,
+                  "losses_warm_eager": w_losses, "losses_plain": p_losses,
+                  "witness_optimizer_paths": bn_diff(warm_eager, plain)}
+    del warm_eager, plain
+    plain_a, a_losses, _ = bn_run(1e-3, "plain")
+    plain_b, b_losses, _ = bn_run(1e-3, "plain")
+    bn_trained["witness_plain_twice"] = {
+        "cudnn_deterministic": cudnn.deterministic, **bn_diff(plain_a, plain_b),
+        "losses": [a_losses, b_losses]}
+    del plain_a, plain_b
+    # A warm hit: a unit that stepped and retired at trial end, re-initialized
+    # in place for the next trial, whose steps replay the retired unit's
+    # graph. A buffer that init_weights reassigned would leave the graph
+    # updating the old tensor: the statistics would stay at 0 and 1.
+    with warm.trial_scope("warm_hit_donor"):
+        donor = resnet_trainer(1e-3, width, wd)
+        for b in batches[:3]:
+            donor.step(b)
+    c0 = warm.counters()
+    hit = resnet_trainer(0.0, width, wd)
+    fresh = all(bool((buf == (0.0 if name.endswith("mean") else 1.0)).all())
+                for name, buf in hit.model.named_buffers())
+    for b in batches:
+        hit.step(b)
+    c1 = warm.counters()
+    torch.cuda.synchronize()
+    hit_err = bn_diff(hit, eager0)["max_rel_err"]
+    bn["warm_hit"] = {"hits": c1["warm_hits"] - c0["warm_hits"], "fresh_buffers": fresh,
+                      "replays": c1["graph_replays"] - c0["graph_replays"],
+                      "max_rel_err": hit_err}
+    del donor, hit, eager0
+    if not (bn["replays"] == bn_trained["replays"] == RESNET_BN_STEPS - 1
+            and bn["max_rel_err"] <= RESNET_BN_RTOL and bn["means_moved"] == bn["buffers"] // 2
+            and bn_trained["max_rel_err"] <= RESNET_BN_RTOL
+            and bn["warm_hit"] == {"hits": 1, "fresh_buffers": True,
+                                   "replays": RESNET_BN_STEPS, "max_rel_err": hit_err}
+            and hit_err <= RESNET_BN_RTOL):
+        emit("slice_resnet", batch_norm=bn, batch_norm_trained=bn_trained)
+        raise AssertionError("slice_resnet: replayed BatchNorm statistics off the eager "
+                             "steps': {} {}".format(bn, bn_trained))
+    small = batches[0]["inputs"][0][:8]
+    with torch.no_grad():
+        gpu_logits = replayed.model(small, train=False).cpu()
+        cpu_logits = copy.deepcopy(replayed.model).to("cpu")(small.cpu(), train=False)
+    logits = {"max_abs_err": float((gpu_logits - cpu_logits).abs().max()),
+              "tol": RESNET_LOGIT_RTOL * float(cpu_logits.abs().max()) + 1e-5}
+    if not (torch.isfinite(gpu_logits).all() and gpu_logits.shape == (8, 2)
+            and logits["max_abs_err"] <= logits["tol"]):
+        emit("slice_resnet", batch_norm=bn, eval_logits=logits)
+        raise AssertionError("slice_resnet: eval logits off the CPU's: {}".format(logits))
+    del replayed
+    gc.collect()
+
+    alone, graph_trainer = alone_step_ms(
+        lambda ws: resnet_trainer(1e-3, width, wd, warm_start=ws),
+        lambda i: batches[i % len(batches)], warmup=3, n=10)
+    profile = step_device_profile(lambda i: graph_trainer.step(batches[i % len(batches)]))
+    del graph_trainer
+    clear_warm()
+    emit("slice_resnet", depth=RESNET_DEPTH, widths=RESNET_WIDTHS, batch=RESNET_BATCH,
+         **sweep_fields(*swept[:-1]), launches=launches,
+         step_ms_alone=float(np.median(alone["graph"])),
+         step_ms_alone_eager=float(np.median(alone["eager"])), step_ms_alone_pairs=alone,
+         step_profile=profile, batch_norm=bn, batch_norm_trained=bn_trained,
+         eval_logits=logits, tf32=tf32_settings(),
+         peak_mem_sweep_gb=peak_sweep / 1e9,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+
+
+def vit_config():
+    from maggy_tpu_torch.models import ViTConfig
+
+    return ViTConfig.base(num_classes=2)
+
+
+def vit_batch(i):
+    """Batch i (cycling) of examples/vit_cifar_hpo.py's seeded set at the
+    configuration's image size: VIT_N images, label = positive mean."""
+    def build():
+        side = vit_config().image_size
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(VIT_N, side, side, 3)).astype(np.float32)
+        y = (X.mean(axis=(1, 2, 3)) > 0).astype(np.int64)
+        return torch.as_tensor(X, device=DEVICE), torch.as_tensor(y, device=DEVICE)
+
+    X, y = cached("vit", build)
+    lo = (i % (VIT_N // VIT_BATCH)) * VIT_BATCH
+    return {"inputs": (X[lo:lo + VIT_BATCH],), "labels": y[lo:lo + VIT_BATCH]}
+
+
+def vit_trainer(lr, warm_start=None):
+    """The example's trainer: ViT with a plain adamw(lr) (each trial its
+    own slot, as the example intends), eval-mode forward."""
+    from maggy_tpu_torch.models import ViT
+    from maggy_tpu_torch.train import Trainer, adamw
+
+    return Trainer(ViT(vit_config(), device="meta"), adamw(float(lr)), labels_loss,
+                   device=DEVICE, warm_start=warm_start).init(seed=0)
+
+
+def train_vit(lr, reporter, out_dir):
+    """One trial of slice_vit: examples/vit_cifar_hpo.py's train_fn."""
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    trainer = vit_trainer(lr)
+    with record:
+        for i in range(VIT_STEPS):
+            loss = trainer.step(vit_batch(i))
+            record.steps += 1
+            if i % VIT_REPORT_EVERY == 0:
+                reporter.broadcast(-loss, step=i)
+    final = float(loss)
+    if not math.isfinite(final):
+        raise FloatingPointError("non-finite loss {}".format(final))
+    return {"metric": -final}
+
+
+def phase_slice_vit(exp_dir):
+    """The ViT TPE sweep at ViT-B/16 (197 tokens: the attention runs the
+    reference path, so the flash launches must be 0), a two-layer model at
+    full width against the CPU, the step alone and a profile."""
+    from maggy_tpu_torch import Searchspace
+    from maggy_tpu_torch.models import ViT
+    from maggy_tpu_torch.train import clear_warm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    swept = record_sweep(
+        "slice_vit", exp_dir, train_vit, name="vit_b16_tpe_smoke", num_trials=VIT_TRIALS,
+        optimizer="tpe", searchspace=Searchspace(lr=("DOUBLE_LOG", [1e-4, 1e-2])),
+        num_workers=2, es_policy="none")
+    launches = swept[-1]
+    if any(launches.values()):
+        raise AssertionError("slice_vit launched flash kernels: {}".format(launches))
+    peak_sweep = torch.cuda.max_memory_allocated()
+
+    cfg2 = dataclasses.replace(vit_config(), num_layers=2)
+    model = ViT(cfg2, device=DEVICE)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(3))
+    small = vit_batch(0)["inputs"][0][:2]
+    with torch.no_grad():
+        gpu_logits = model(small).cpu()
+        cpu_logits = copy.deepcopy(model).to("cpu")(small.cpu())
+    del model
+    logits = {"max_abs_err": float((gpu_logits - cpu_logits).abs().max()),
+              "tol": bf16_tolerance(cpu_logits)}
+    if not (torch.isfinite(gpu_logits).all() and logits["max_abs_err"] <= logits["tol"]):
+        emit("slice_vit", full_width_logits=logits)
+        raise AssertionError("slice_vit: two-layer ViT-B logits off the CPU's: {}".format(
+            logits))
+
+    alone, graph_trainer = alone_step_ms(lambda ws: vit_trainer(1e-3, warm_start=ws), vit_batch,
+                                         warmup=3, n=10)
+    profile = step_device_profile(lambda i: graph_trainer.step(vit_batch(i)))
+    del graph_trainer
+    clear_warm()
+    emit("slice_vit", config="ViT-B/16", image_size=cfg2.image_size, tokens=cfg2.num_patches + 1,
+         batch=VIT_BATCH, **sweep_fields(*swept[:-1]), flash_launches=launches,
+         step_ms_alone=float(np.median(alone["graph"])),
+         step_ms_alone_eager=float(np.median(alone["eager"])), step_ms_alone_pairs=alone,
+         step_profile=profile, full_width_logits=logits, tf32=tf32_settings(),
+         peak_mem_sweep_gb=peak_sweep / 1e9,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+
+
+def moe_config(lora_rank=16, lora_alpha=16.0):
+    from maggy_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(
+        LlamaConfig.llama3_8b(lora_rank=int(lora_rank)), lora_alpha=float(lora_alpha),
+        num_layers=MOE_LAYERS, num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+        moe_capacity_factor=MOE_CAPACITY_FACTOR)
+
+
+def phase_slice_moe(exp_dir):
+    """slice_llama's LoRA sweep with MOE_EXPERTS experts a layer. The depth
+    is cut by a memory reckoning: a layer holds 1.41 B expert parameters
+    (8 x 3 x 4096 x 14336) beside 42 M of attention, so 4 layers and the
+    2.1 GB embedding and head are 13.7 GB frozen in bf16, but 27 GB while a
+    trial initializes in fp32 before only_lora casts the base, and two
+    runners may initialize at once. Checked: launches exact (the forward
+    twice a layer and step under remat), every step replayed after its
+    warm-up, each step's objective less its task loss equal to its summed
+    aux loss. Printed: the aux loss per step, the share of routed tokens
+    dropped at capacity (one forward of the alone trainer's model), the
+    step alone, eager and replayed, and peak memory."""
+    from maggy_tpu_torch.models import Llama
+    from maggy_tpu_torch.models.moe import _top_k_mask, routing_tensors
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, only_lora
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_config()
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, LLAMA_B, LLAMA_S)), device=DEVICE)
+
+    def batch(i):
+        t = tokens[i % tokens.shape[0]]
+        return {"inputs": (t,), "tokens": t}
+
+    def make_trainer(lora_rank, lora_alpha, lr, warm_start=None):
+        """A trainer, and per step its (objective, task loss, summed aux
+        loss): the loss function keeps its last task loss (under capture
+        the graph's tensor, which each replay rewrites)."""
+        box = {}
+
+        def loss_fn(out, b):
+            task = chunked_next_token_loss(out[0], out[1], b["tokens"])
+            box["task"] = task.detach()
+            return task
+
+        trainer = Trainer(Llama(moe_config(lora_rank, lora_alpha), device="meta"),
+                          only_lora(adamw(lr)), loss_fn, device=DEVICE,
+                          train_kwargs={"return_hidden": True}, warm_start=warm_start)
+        return trainer.init(seed=0), lambda loss: (loss, box["task"].clone(), trainer.aux_loss)
+
+    sweep = llama_lora_sweep("slice_moe", "llama3_8b_moe_lora_asha_smoke", exp_dir,
+                             make_trainer, batch, cfg.num_layers)
+    reading = warm_reading("slice_moe", sweep["telemetry"], sweep["before"])
+    replayed_after_warmup("slice_moe", reading, sweep["steps"])
+    CAPTURED["llama3_8b_moe"] = reading["captured"]
+    # objective = task + each layer's aux loss, in fp32 (a few roundings of
+    # a loss near ln(vocab) = 11.8).
+    rows = sweep["rows"]
+    aux_gap = max(abs(obj - task - aux) for obj, task, aux in rows)
+    if not (len(rows) == sweep["steps"] and aux_gap <= 1e-5
+            and all(math.isfinite(a) and a > 0 for _, _, a in rows)):
+        emit("slice_moe", aux_rows=rows)
+        raise AssertionError("slice_moe: objective less task loss off the summed aux loss "
+                             "by {}".format(aux_gap))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    alone, graph_trainer = alone_step_ms(
+        lambda ws: make_trainer(16, 16.0, 1e-4, warm_start=ws)[0], batch, warmup=2, n=3,
+        pairs=1)
+    alone_graph_ok = graph_trainer._slot.graph_ok
+    routed = []
+
+    def count_routing(mod, args):
+        x = args[0]
+        top_k = min(mod.top_k, mod.num_experts)
+        logits = x.float() @ mod.router.float()
+        dispatch, _, _ = routing_tensors(logits, mod.num_experts, mod.capacity(x.shape[1]), top_k)
+        routed.append((float(dispatch.sum()),
+                       float(_top_k_mask(torch.softmax(logits, -1), top_k).sum())))
+
+    hooks = [layer.moe_mlp.register_forward_pre_hook(count_routing)
+             for layer in graph_trainer.model.layers]
+    with torch.no_grad():
+        graph_trainer.model(batch(0)["inputs"][0], return_hidden=True)
+    for h in hooks:
+        h.remove()
+    del graph_trainer
+    clear_warm()
+    kept, total = sum(k for k, _ in routed), sum(r for _, r in routed)
+    result = sweep["result"]
+    emit("slice_moe", layers=cfg.num_layers, experts=cfg.num_experts, top_k=cfg.moe_top_k,
+         capacity_factor=cfg.moe_capacity_factor,
+         capacity=int(cfg.moe_capacity_factor * LLAMA_S * cfg.moe_top_k / cfg.num_experts),
+         trials_finished=sweep["trials_finished"],
+         promoted=sweep["promoted"], best_hp=result["best_hp"], best_val=result["best_val"],
+         steps=sweep["steps"], launches=sweep["launches"], expected_launches=sweep["expected"],
+         sweep_wall_s=sweep["wall"], step_ms_in_sweep_median=float(np.median(sweep["step_ms"])),
+         aux_loss_per_step=[a for _, _, a in rows],
+         objective_less_task_minus_aux_max_abs=aux_gap,
+         dropped_share=1.0 - kept / total, routed_per_layer=routed,
+         step_ms_alone=alone["graph"][0], step_ms_alone_eager=alone["eager"][0],
+         alone_graph_ok=alone_graph_ok, warm=reading,
+         pipeline=pipeline_summary(result["pipeline"]), telemetry=public(sweep["telemetry"]),
+         peak_mem_sweep_gb=sweep["peak_sweep"] / 1e9,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+    return sweep["launches"]
+
+
 def fresh_dir(path):
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
@@ -2614,6 +3192,11 @@ def main():
     clear_warm()
     launches["bert_base_warm"] = phase_slice_warm(
         os.path.join(ROOT, "build", "chip_smoke_experiments_warm"))
+    clear_warm()
+    phase_slice_resnet(os.path.join(ROOT, "build", "chip_smoke_experiments_resnet"))
+    phase_slice_vit(os.path.join(ROOT, "build", "chip_smoke_experiments_vit"))
+    launches["llama3_8b_moe"] = phase_slice_moe(
+        fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_moe")))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

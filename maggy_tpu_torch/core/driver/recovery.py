@@ -1,6 +1,7 @@
 """Crash-only driver recovery: rebuild control-plane state from the journal.
 
-Copy of ``maggy_tpu/core/driver/recovery.py:1-222``. The telemetry journal
+Copy of ``maggy_tpu/core/driver/recovery.py:1-222``, with one addition
+(the closed edges below). The telemetry journal
 is the experiment's replayable source of truth (durable up to the FINAL
 path's barrier, tolerant of a torn tail line), and the split report/suggest
 optimizer contract makes controller state reconstructible from the FINAL
@@ -22,6 +23,10 @@ What is replayed, re-adopted and requeued:
   ``adopted``). A retried FINAL of the pre-crash incarnation is accepted
   exactly once: the rebuilt trial carries its pre-crash run epoch, so the
   stale-epoch check passes until a requeue bumps it.
+- **Closed** (not in the JAX package): a trial whose trial.json landed
+  while its ``finalized`` edge still sat in the journal's buffer gets that
+  edge journaled at resume, stamped with the time the trial finished, so
+  the journal and result.json count the same trials.
 - **Requeued**: trials whose runners died with the driver. Recovery seeds
   the reservation table with the pre-crash assignments and a fresh
   liveness window; a runner that registers again on that partition takes
@@ -139,15 +144,28 @@ def recover_optimization_driver(driver) -> Optional[Dict[str, Any]]:
     if not state.trials and not state.partitions:
         return None
     with driver._store_lock:
-        already_final = {t.trial_id for t in driver._final_store}
+        already_final = {t.trial_id: t for t in driver._final_store}
+    # A FINAL's trial.json can land before the journal's barrier flushes its
+    # finalized edge: a crash in between leaves the artifact, which says the
+    # trial is done, and a journal that never closes it. Journal the lost
+    # edge, at the time the trial finished, so the journal counts every
+    # trial that result.json does.
+    for trial_id, trial in already_final.items():
+        facts = state.trials.get(trial_id)
+        if facts is not None and facts.finalized:
+            continue
+        done_t = (trial.start + trial.duration
+                  if trial.start is not None and trial.duration is not None else None)
+        driver.telemetry.trial_event(
+            trial_id, "finalized", t=done_t,
+            partition=facts.partition if facts is not None else None,
+            early_stop=trial.early_stop, error=False)
     restored_inflight = 0
     requeued = 0
     restored_forks = 0
     held: Dict[int, str] = {}
     for facts in state.inflight():
         if facts.trial_id in already_final:
-            # The FINAL's trial.json landed but its journal edge was lost to
-            # the crash window: the artifact says the trial is done.
             continue
         trial = Trial(facts.params, trial_type=facts.trial_type)
         if trial.trial_id != facts.trial_id:

@@ -141,9 +141,13 @@ class Reservations:
                     if self._table[pid].get("trial_id") is not None]
 
     def assign_trial(self, partition_id: int, trial_id: Optional[str]) -> None:
+        """Assign (or with None clear) the partition's trial; either way the
+        driver has decided, so a held re-registration is released."""
         with self.lock:
-            if int(partition_id) in self._table:
-                self._table[int(partition_id)]["trial_id"] = trial_id
+            rec = self._table.get(int(partition_id))
+            if rec is not None:
+                rec["trial_id"] = trial_id
+                rec.pop("held", None)
 
     def clear_trial_if(self, partition_id: int, trial_id: Optional[str]) -> None:
         """Clear the partition's assignment only if it still names
@@ -183,6 +187,13 @@ class Reservations:
         with self.lock:
             rec = self._table.get(int(partition_id))
             return rec.get("trial_id") if rec else None
+
+    def servable_trial(self, partition_id: int) -> Optional[str]:
+        """The assignment a GET may hand out: none while a re-registration
+        is held for the driver's BLACK path (``held``)."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            return None if rec is None or rec.get("held") else rec.get("trial_id")
 
     # ------------------------------------------------------- crash recovery
 
@@ -409,12 +420,16 @@ class OptimizationServer(Server):
         its runner died and was relaunched (or a resumed driver restored the
         dead incarnation's assignment): the trial stays on the record and
         the driver takes the BLACK path, which requeues it and hands it back
-        to this slot (reference `rpc.py:308-326`). Otherwise REG asks for a
-        first assignment."""
+        to this slot (reference `rpc.py:308-326`). Until the driver has
+        done so the record is ``held``: the trial stays on it (an IDLE nudge
+        must not assign over it) but no GET serves it, since the new runner
+        would run it under the dead run's epoch, whose FINAL the requeue
+        then drops as stale, clearing the re-assignment and stranding the
+        trial. Otherwise REG asks for a first assignment."""
         pid = msg["partition_id"]
         prev = self.reservations.get_assigned_trial(pid)
         self.reservations.add({"partition_id": pid, "trial_id": prev,
-                               "capacity": msg.get("capacity")})
+                               "capacity": msg.get("capacity"), "held": prev is not None})
         if prev is not None:
             self.driver.enqueue({"type": "BLACK", "trial_id": prev, "partition_id": pid})
         else:
@@ -513,7 +528,7 @@ class OptimizationServer(Server):
     def _serve_assigned(self, partition_id):
         """The TRIAL reply for the partition's assigned trial — shared by GET
         and the FINAL piggyback. None = no assignment."""
-        trial_id = self.reservations.get_assigned_trial(partition_id)
+        trial_id = self.reservations.servable_trial(partition_id)
         if trial_id is None:
             return None
         trial = self.driver.get_trial(trial_id)

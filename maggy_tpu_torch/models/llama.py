@@ -13,7 +13,9 @@ Parameter names follow the Flax module names (``layer_i`` -> ``layers.i``),
 which is what ``flax_to_state_dict`` relies on. Layouts: dense kernels are
 ``nn.Linear``-style weights [out, in] (Flax: [in, out]); ``lora_a`` [in, r],
 ``lora_b`` [r, out], ``embedding`` [vocab, hidden] and ``lm_head``
-[hidden, vocab] are kept as in Flax.
+[hidden, vocab] are kept as in Flax, and so are a ``moe_mlp``'s router and
+stacked experts (``num_experts > 0``; ``models/moe.py``), whose
+load-balancing losses the Trainer adds to the objective.
 """
 
 from __future__ import annotations
@@ -28,12 +30,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from maggy_tpu_torch.models.moe import MoEMLP
 from maggy_tpu_torch.models.params import init_targets
 from maggy_tpu_torch.ops.attention import multi_head_attention
 
 #: flax's lecun_normal draws a standard normal truncated at +-2 and divides
 #: the scale by the truncated distribution's standard deviation.
 TRUNC_NORMAL_STD = 0.87962566103423978
+
+#: The MoE MLP's parameters (Flax layout, copied as they are).
+MOE_LEAVES = ("router", "gate_proj", "up_proj", "down_proj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +60,14 @@ class LlamaConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     remat: bool = True
-    # Ring attention (attention_impl="ring") and mixture-of-experts MLPs
-    # (num_experts > 0) are not ported yet: Llama raises for them.
+    # Ring attention (attention_impl="ring") is not ported yet: Llama
+    # raises for it.
     attention_impl: str = "auto"
+    # Mixture-of-experts: num_experts > 0 replaces the dense MLP with a
+    # top-k routed MoEMLP (``models/moe.py``), every expert on the card.
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
 
     @staticmethod
     def tiny(vocab_size: int = 256, lora_rank: int = 0) -> "LlamaConfig":
@@ -169,14 +179,21 @@ class MLP(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.hidden_dim, cfg.norm_eps, cfg.param_dtype, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.hidden_dim, cfg.norm_eps, cfg.param_dtype, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.num_experts > 0:
+            self.moe_mlp = MoEMLP(cfg.hidden_dim, cfg.intermediate_dim, cfg.num_experts,
+                                  top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                                  dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, positions, mask=None):
         h = x + self.attn(self.attn_norm(x), positions, mask)
-        return h + self.mlp(self.mlp_norm(h))
+        mlp = self.moe_mlp if self.cfg.num_experts > 0 else self.mlp
+        return h + mlp(self.mlp_norm(h))
 
 
 class Llama(nn.Module):
@@ -193,10 +210,7 @@ class Llama(nn.Module):
                                "pass device='cpu' to run on the CPU")
         if cfg.attention_impl == "ring":
             raise NotImplementedError("attention_impl='ring' is not ported yet "
-                                      "(ROADMAP.md queue 1 item 9)")
-        if cfg.num_experts > 0:
-            raise NotImplementedError("mixture-of-experts MLPs (num_experts > 0) are not "
-                                      "ported yet (ROADMAP.md queue 1 item 3)")
+                                      "(ROADMAP.md queue 1 item 8)")
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.hidden_dim, dtype=cfg.param_dtype, device=device))
@@ -215,13 +229,16 @@ class Llama(nn.Module):
         """The Flax initializers, drawn from ``generator``: lecun_normal dense
         kernels (normal truncated at +-2 sigma, sigma = sqrt(1/fan_in) /
         TRUNC_NORMAL_STD), normal(0.02) embedding, lm head and ``lora_a``,
-        zero ``lora_b``, unit norm scales. A frozen base cast to the compute
+        zero ``lora_b``, unit norm scales; the MoE router and stacked
+        expert weights lecun_normal too, with Flax's fan-in over every axis
+        but the last (the expert axis counts). A frozen base cast to the compute
         dtype (``only_lora``) is drawn in ``param_dtype`` and cast, as when
         it was built."""
         for name, p in init_targets(self, self.cfg.param_dtype):
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "weight":
-                std = math.sqrt(1.0 / p.shape[1]) / TRUNC_NORMAL_STD
+            if leaf in ("weight",) + MOE_LEAVES:
+                fan_in = p.shape[1] if leaf == "weight" else p.numel() // p.shape[-1]
+                std = math.sqrt(1.0 / fan_in) / TRUNC_NORMAL_STD
                 nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
             elif leaf in ("embedding", "lm_head", "lora_a"):
                 p.normal_(0.0, 0.02, generator=generator)

@@ -23,15 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from maggy_tpu_torch.models.llama import TRUNC_NORMAL_STD
-from maggy_tpu_torch.models.params import init_targets
-
-
-def _check_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' needs a CUDA device; pass device='cpu' to run "
-                           "on the CPU")
-    return device
+from maggy_tpu_torch.models.params import check_device, init_targets
 
 
 @torch.no_grad()
@@ -75,7 +67,7 @@ class MnistCNN(nn.Module):
                  features: int = 32, num_classes: int = 10, image_size: int = 28,
                  channels: int = 1, device="cuda"):
         super().__init__()
-        device = _check_device(device)
+        device = check_device(device)
         self.cfg = MnistCNNConfig(kernel_size, pool_size, dropout, features, num_classes,
                                   image_size, channels)
         self.pool_size = pool_size
@@ -115,7 +107,7 @@ class MnistMLP(nn.Module):
     def __init__(self, features: int = 8, num_classes: int = 10, image_size: int = 28,
                  channels: int = 1, device="cuda"):
         super().__init__()
-        device = _check_device(device)
+        device = check_device(device)
         self.cfg = MnistMLPConfig(features, num_classes, image_size, channels)
         self.dense0 = nn.Linear(image_size * image_size * channels, features, device=device)
         self.dense1 = nn.Linear(features, num_classes, device=device)

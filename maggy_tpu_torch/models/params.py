@@ -13,6 +13,16 @@ from __future__ import annotations
 import torch
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises: a model runs on the CPU only when the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' needs a CUDA device; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
 def init_targets(module: torch.nn.Module, dtype: torch.dtype):
     """Yield ``(name, tensor)`` for each parameter, in ``named_parameters``
     order, for an initializer to fill in place. A parameter held in another

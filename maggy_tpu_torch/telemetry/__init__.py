@@ -81,15 +81,17 @@ class Telemetry:
     # ------------------------------------------------------------ recording
 
     def trial_event(self, trial_id: Optional[str], phase: str,
-                    once: bool = False, **fields: Any) -> Optional[str]:
+                    once: bool = False, t: Optional[float] = None,
+                    **fields: Any) -> Optional[str]:
         """Mark ``phase`` on the trial's span (minting it on first sight)
-        and journal the occurrence. ``once=True`` journals/counts only the
-        phase's FIRST occurrence — for phases a heartbeat loop would
-        otherwise repeat until the runner reacts (e.g. stop_sent). Returns
-        the span id."""
+        and journal the occurrence, stamped now or at ``t`` (an edge that
+        recovery journals late, at the time it happened). ``once=True``
+        journals/counts only the phase's FIRST occurrence — for phases a
+        heartbeat loop would otherwise repeat until the runner reacts (e.g.
+        stop_sent). Returns the span id."""
         if not self.enabled or not trial_id:
             return None
-        t = time.time()
+        t = time.time() if t is None else t
         span_id, first = self.spans.mark(trial_id, phase, t=t,
                                          partition=fields.get("partition"))
         if once and not first:

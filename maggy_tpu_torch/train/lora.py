@@ -37,7 +37,9 @@ def only_lora(factory: Callable) -> Callable:
     dtype, and a frozen parameter is never updated, so the cast changes
     neither the function nor the adapters' gradients; it halves the base
     model's memory (an 8.03B-parameter base: 16.06 GB in bf16 instead of
-    32.1 GB in fp32). The adapters stay in ``param_dtype``.
+    32.1 GB in fp32). The adapters stay in ``param_dtype``, and so does a
+    parameter that its module names in ``full_precision_params`` (the MoE
+    router, frozen like the experts).
 
     The wrapper carries the inner factory's warm-cache family (or none),
     its ``scheduler`` and its ``kwargs``: a retired unit's optimizer already
@@ -46,6 +48,8 @@ def only_lora(factory: Callable) -> Callable:
 
     def build(model: torch.nn.Module):
         dtype = model.cfg.dtype
+        keep = {id(getattr(m, name)) for m in model.modules()
+                for name in getattr(m, "full_precision_params", ())}
         adapters = []
         with torch.no_grad():
             for name, p in model.named_parameters():
@@ -53,7 +57,8 @@ def only_lora(factory: Callable) -> Callable:
                     adapters.append(p)
                     continue
                 p.requires_grad_(False)
-                p.data = p.data.to(dtype)
+                if id(p) not in keep:
+                    p.data = p.data.to(dtype)
         return factory(adapters)
 
     for attr in ("scheduler", "kwargs"):

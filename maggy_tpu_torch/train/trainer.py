@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.train import warm
 
 
@@ -106,13 +107,15 @@ def _copy_into(static, batch) -> None:
 
 
 class _Graph:
-    """One captured step: the graph, its static inputs, its loss output and
-    the flash-kernel launches recorded at capture (added per replay)."""
+    """One captured step: the graph, its static inputs, its loss and summed
+    auxiliary loss outputs and the flash-kernel launches recorded at capture
+    (added per replay)."""
 
-    __slots__ = ("graph", "inputs", "loss", "launches")
+    __slots__ = ("graph", "inputs", "loss", "aux_loss", "launches")
 
-    def __init__(self, graph, inputs, loss, launches):
-        self.graph, self.inputs, self.loss, self.launches = graph, inputs, loss, launches
+    def __init__(self, graph, inputs, loss, aux_loss, launches):
+        self.graph, self.inputs, self.loss = graph, inputs, loss
+        self.aux_loss, self.launches = aux_loss, launches
 
 
 class _Unit:
@@ -175,14 +178,23 @@ class _Unit:
 
 class Trainer:
     """``Trainer(model, optimizer, loss_fn, device, train_kwargs, step_key,
-    warm_start)``: ``optimizer`` is a factory ``model -> (optimizer,
-    lr_scheduler)`` such as ``train.optim.adamw(...)`` (every parameter),
-    ``train.lora.only_lora(adamw(...))`` (the adapters alone) or
+    warm_start, has_aux_collections)``: ``optimizer`` is a factory ``model ->
+    (optimizer, lr_scheduler)`` such as ``train.optim.adamw(...)`` (every
+    parameter), ``train.lora.only_lora(adamw(...))`` (the adapters alone) or
     ``swept_transform(adamw, learning_rate=lr)``; ``loss_fn(outputs, batch)``
     returns a scalar, where ``outputs`` is what the model returns (a tuple
     such as ``(hidden, head)`` included). The model is called as
     ``model(*batch["inputs"], **train_kwargs)`` (dropout off, as the JAX
     Trainer calls its model without ``train``).
+
+    **Auxiliary collections** (``maggy_tpu/train/trainer.py:271-310``;
+    ``models/variables.py``). Every loss a module sows in the step's forward
+    (MoE's load balancing) is added to the objective, always, and their sum
+    is ``aux_loss`` after the step (None when nothing was sowed). A forward
+    may update the model's buffers (BatchNorm's running statistics, JAX's
+    ``batch_stats``, with ``train_kwargs={"train": True}``) only with
+    ``has_aux_collections=True``, as a Flax ``apply`` needs them mutable;
+    a captured step updates them in place on each replay.
 
     **Warm path (default).** The program key is derived as the JAX
     package's: the model's ``identity`` (type and frozen config), the
@@ -195,7 +207,8 @@ class Trainer:
     materializes the model (built on ``device="meta"``, it costs nothing
     until then) and builds the optimizer. A plain factory, or a module
     without an identity, gets a private slot: no sharing, the graphs and
-    the telemetry kept. ``step_key`` replaces the derived key (trials with
+    the telemetry kept. ``has_aux_collections`` joins either key.
+    ``step_key`` replaces the derived key (trials with
     equal ``step_key``, identity, device, loss_fn and train kwargs share). A
     unit whose optimizer arguments differ from this trial's factory's gets
     a new optimizer, and its graphs are dropped, so no value of another
@@ -211,7 +224,8 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, optimizer: Callable, loss_fn: Callable,
                  device="cuda", train_kwargs: Optional[Dict[str, Any]] = None,
-                 step_key: Optional[tuple] = None, warm_start: Optional[bool] = None):
+                 step_key: Optional[tuple] = None, warm_start: Optional[bool] = None,
+                 has_aux_collections: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; pass "
@@ -220,6 +234,8 @@ class Trainer:
         self.optimizer_factory = optimizer
         self.loss_fn = loss_fn
         self.train_kwargs = dict(train_kwargs or {})
+        self.has_aux_collections = bool(has_aux_collections)
+        self.aux_loss: Optional[torch.Tensor] = None
         self.optimizer = None
         self.scheduler = None
         self._warm_enabled = warm.enabled() if warm_start is None else bool(warm_start)
@@ -231,11 +247,12 @@ class Trainer:
         identity = getattr(self.model, "identity", None)
         tkr = repr(sorted(self.train_kwargs.items()))
         family = warm.opt_family(self.optimizer_factory)
+        aux = self.has_aux_collections
         if step_key is not None:
             key = ("manual", step_key, self.model if identity is None else identity,
-                   self.device, self.loss_fn, tkr)
+                   self.device, aux, self.loss_fn, tkr)
         elif family is not None and identity is not None:
-            key = ("auto", identity, self.device, self.loss_fn, tkr, family)
+            key = ("auto", identity, self.device, aux, self.loss_fn, tkr, family)
         else:
             return warm.WarmSlot(None)
         try:
@@ -332,12 +349,27 @@ class Trainer:
 
         return {k: put(v) for k, v in batch.items()}
 
+    def _objective(self, batch):
+        """(objective, summed auxiliary losses or None): ``loss_fn`` of the
+        model's outputs plus each loss sowed in the forward, in the order
+        sowed. Only the forward runs inside the sowing block, so a layer
+        that rematerialization runs again in the backward sows nothing."""
+        with variables.sowing_losses() as sown, \
+                variables.mutable_buffers(self.has_aux_collections):
+            out = self.model(*batch["inputs"], **self.train_kwargs)
+        loss, aux = self.loss_fn(out, batch), None
+        for leaf in sown:
+            loss = loss + leaf
+            aux = leaf if aux is None else aux + leaf
+        return loss, aux
+
     def _eager_step(self, batch) -> torch.Tensor:
-        loss = self.loss_fn(self.model(*batch["inputs"], **self.train_kwargs), batch)
+        loss, aux = self._objective(batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         self.scheduler.step()
+        self.aux_loss = None if aux is None else aux.detach()
         return loss.detach()
 
     def step(self, batch: Dict[str, Any]) -> torch.Tensor:
@@ -356,6 +388,7 @@ class Trainer:
                 attention.add_launches(graph.launches)
             warm._count("graph_replays")
             loss = graph.loss.clone()
+            self.aux_loss = None if graph.aux_loss is None else graph.aux_loss.clone()
             self.scheduler.step()
             return loss
 
@@ -429,8 +462,7 @@ class Trainer:
                 with torch.cuda.stream(stream), attention.recording_launches(stream) as launches:
                     graph.capture_begin(pool=unit.pool, capture_error_mode="thread_local")
                     try:
-                        loss = self.loss_fn(self.model(*inputs["inputs"], **self.train_kwargs),
-                                            inputs)
+                        loss, aux = self._objective(inputs)
                         loss.backward()
                         self.optimizer.step()
                     except BaseException:
@@ -450,7 +482,8 @@ class Trainer:
                 return None
             warm.note_compile(compile_ms=(time.perf_counter() - t0) * 1e3)
             warm._count("graph_captures")
-        captured = _Graph(graph, inputs, loss.detach(), dict(launches))
+        captured = _Graph(graph, inputs, loss.detach(), None if aux is None else aux.detach(),
+                          dict(launches))
         unit.graphs[key] = captured
         while len(unit.graphs) > warm.PER_SLOT_SHAPES:
             unit.graphs.popitem(last=False)

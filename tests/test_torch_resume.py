@@ -286,7 +286,10 @@ def test_interrupted_run_resumes_through_lagom_as_jax(tmp_path, monkeypatch):
 
 
 def test_recovering_driver_restores_store_reservations_and_secret_as_jax(tmp_path):
-    port, jax, ids = _recovering_drivers(tmp_path)
+    # Prefetch off: each driver's suggester pops the presampled buffer when
+    # it prefetches, so with it on the comparison of the two buffers raced
+    # the two suggester threads (and failed under load).
+    port, jax, ids = _recovering_drivers(tmp_path, prefetch=False)
     try:
         for drv in (port, jax):
             assert [t.trial_id for t in drv._final_store] == [ids["t2"]]
@@ -354,6 +357,40 @@ def test_reregistration_takes_the_black_path_as_jax(tmp_path, order):
         jax.stop()
 
 
+def test_resume_journals_the_finalized_edge_a_crash_lost(tmp_path):
+    """A FINAL writes trial.json before the journal's barrier flushes its
+    finalized edge; a crash in between leaves a finished trial that the
+    journal never closes (the Hyperband resume sweep below was killed in
+    that window under load, and counted one finalized edge fewer than
+    result.json's trials). The resume journals the lost edge once, on the
+    trial's span, at the time the trial finished; the trial in flight is
+    still recovered."""
+    base = str(tmp_path / "port")
+    run_dir, ids = _interrupted_run_dir(base, Trial)
+    journal = os.path.join(run_dir, "telemetry.jsonl")
+    with open(journal) as f:
+        events = [json.loads(line) for line in f]
+    assert events[-1]["phase"] == "finalized" and events[-1]["trial"] == ids["t2"]
+    with open(journal, "w") as f:
+        f.writelines(json.dumps(ev) + "\n" for ev in events[:-1])
+    artifact = os.path.join(run_dir, ids["t2"], "trial.json")
+    done = Trial.from_json(open(artifact).read())
+    done.start, done.duration = events[-1]["t"] - 1.5, 1.5
+    with open(artifact, "w") as f:
+        f.write(done.to_json())
+    port = OptimizationDriver(_rec_config(OptimizationConfig, Searchspace, base, prefetch=False),
+                              "recapp", 0)
+    try:
+        finals = [e for e in port.telemetry.events() if e.get("ev") == "trial"
+                  and e.get("phase") == "finalized"]
+        assert [(e["trial"], e["span"], e["partition"], e["t"]) for e in finals] == [
+            (ids["t2"], "span-t2", 1, events[-1]["t"])]
+        assert set(port._trial_store) == {ids["t1"]}
+        assert [t.trial_id for t in port._final_store] == [ids["t2"]]
+    finally:
+        port.stop()
+
+
 def test_black_for_a_trial_finalized_meanwhile_gives_the_slot_new_work(tmp_path):
     """A BLACK naming a trial that left the store (it finalized before the
     worker drained the BLACK): the slot's dead id is cleared and it gets a
@@ -370,6 +407,31 @@ def test_black_for_a_trial_finalized_meanwhile_gives_the_slot_new_work(tmp_path)
         port.message_callbacks["BLACK"](black)
         got = port.server.reservations.get_assigned_trial(0)
         assert got not in (None, ids["t1"]) and got in port._trial_store
+    finally:
+        port.stop()
+
+
+def test_reregistered_slot_serves_its_trial_only_after_the_black_path(tmp_path):
+    """A runner that registers on a slot holding a trial and GET-polls
+    before the driver's worker drained the BLACK gets no trial: served then,
+    it would run under the dead run's epoch, and its FINAL, dropped as stale
+    after the requeue, would clear the re-assignment and strand the trial
+    (the Hyperband resume sweep below hung so under load). The trial stays
+    on the record meanwhile, and after the BLACK path the GET serves it at
+    the new epoch."""
+    port, jax, ids = _recovering_drivers(tmp_path)
+    jax.stop()
+    try:
+        _drain(port)
+        port.server._reg({"type": "REG", "partition_id": 0})
+        assert port.server._get({"type": "GET", "partition_id": 0}) == {
+            "type": "OK", "trial_id": None}
+        assert port.server.reservations.get_assigned_trial(0) == ids["t1"]
+        (black,) = _drain(port)
+        port.message_callbacks["BLACK"](black)
+        reply = port.server._get({"type": "GET", "partition_id": 0})
+        assert (reply["type"], reply["trial_id"], reply["info"]["epoch"]) == (
+            "TRIAL", ids["t1"], 1)
     finally:
         port.stop()
 
