@@ -194,6 +194,35 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              loss equal to its summed aux loss. Prints the aux loss per
              step, the share of routed tokens dropped at capacity, the step
              alone and peak memory.
+17. slice_lanes — the vectorized lanes (train/vmap.py; config.vmap_lanes).
+             (a) bench.py's --vmap A/B at its own values: MnistMLP(8, 2) on
+             make_data's 16 x 16 x 1 set, full batch 256, RandomSearch(seed
+             7) over lr DOUBLE_LOG [1e-3, 3e-2], 25 trials, one thread
+             runner, hb 0.05 s, es_policy none, arms scalar (the default),
+             lanes1 (vmap_lanes=1) and vmap (vmap_lanes=8); bench's 2500
+             steps a trial cut so that an arm takes about LANES_ARM_BUDGET_S
+             (a scalar trial is timed first). Every trial finalized once in
+             each arm, lanes1's finalized schedule scalar's with no
+             lane-tagged edge, the vmap arm's lane-tagged assignments at
+             least trials - K, each goodput closed; prints the speedup
+             (scalar wall over vmap wall) beside bench's 5x gate, each arm's
+             wall, step p50, goodput shares (lane_idle included) and a
+             profiled replayed step of each (device idle share). (b) bench's
+             _vmap_lane_parity engine gates (4 rates, 25 steps, TF32 off):
+             each lane against its scalar Trainer within LANES_TOL, lane 1
+             masked at step 10 with the survivors bitwise the unmasked
+             block's, a refilled lane against a scalar cold run, a block
+             re-initialized in the retired K-lane unit against a fresh one
+             (bitwise printed). (c) The flash kernels' batching rule at
+             BERT-base width: vmap of flash_attention and of its grad over 4
+             lanes against each lane alone, one launch each. (d) slice_warm's
+             BERT-base sweep (seed 11, 6 trials, 8 steps) with vmap_lanes=4,
+             its blocks VmapTrainer steps on the card: launches 12 x the
+             steps of each dispatch (a block's step once), each lane's final
+             loss slice_warm's warm trial's of its lr within
+             AB_LOSS_TOL["bert_base"], every step but a unit's first
+             replayed; prints the 4-lane step alone replayed beside the
+             scalar one x 4, its profile, and the phase's peak memory.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -234,7 +263,8 @@ Then the {"kernels": [...]} summary line (one entry per kernel and main
 path, each with that path's launches, whether its steps ran captured, and
 times at its shape; bert_base_resume's launches are incarnation 2's,
 bert_base_warm's slice_warm's BERT-base warm arm's, llama3_8b_moe's
-slice_moe's at the Llama shape's times), the
+slice_moe's at the Llama shape's times, bert_base_lanes's slice_lanes'
+at the folded shape, 4 lanes x batch 32), the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
 JAX or maggy_tpu. Runner processes are spawned and re-import this file as
@@ -293,7 +323,8 @@ BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 16, 4, 4
 #: the BO sweeps add batch 64 (their search space is batch in {32, 64}).
 MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "bert_base_bo": (64, BERT_S, BERT_S, 12, 12, 64),
-               "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
+               "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128),
+               "bert_base_lanes": (4 * BERT_B, BERT_S, BERT_S, 12, 12, 64)}
 #: Paths that run the kernels at another path's shape: the process-runner,
 #: forking, resumed and warm A/B sweeps are the slice sweep's, the MoE
 #: Llama's attention is the Llama's.
@@ -357,6 +388,20 @@ VIT_N, VIT_BATCH, VIT_STEPS, VIT_TRIALS, VIT_REPORT_EVERY = 512, 64, 12, 8, 4
 # factor 2) at Llama-3-8B's widths, cut to MOE_LAYERS layers to fit one
 # card (see phase_slice_moe).
 MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY_FACTOR = 4, 8, 2, 2.0
+# slice_lanes (bench.py --vmap, bench.py:107-164, 1264-1440): bench's lanes
+# K, trials, seed, full batch, steps a trial and heartbeat cadence; the
+# wall an arm may take (its steps are cut to fit: slice_lanes' "cut"); the
+# engine gates' rates and steps; the tolerance (relative, absolute) of a lane
+# against its scalar Trainer (fp32, TF32 off: a lane's products are one
+# batched matmul, the scalar's a matmul, their sums in another order); and
+# the BERT-base sweep's lanes.
+LANES_K, LANES_TRIALS, LANES_SEED, LANES_BATCH = 8, 25, 7, 256
+LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 20.0
+LANES_PARITY_LRS, LANES_PARITY_STEPS, LANES_MASK_AT = [1e-3, 3e-3, 1e-2, 3e-2], 25, 10
+LANES_TOL = (1e-4, 1e-5)
+BERT_LANES = 4
+#: The steps a trial of slice_lanes' MNIST arms trains (set by the phase).
+LANES_STEPS = [LANES_BENCH_STEPS]
 
 
 def emit(phase, **fields):
@@ -454,6 +499,7 @@ def phase_kernels():
     # S=256, where the row's mean of V spans the unskipped 128-key tiles.
     cases = [("bert_base", MAIN_SHAPES["bert_base"], False, True),
              ("bert_base_bo", MAIN_SHAPES["bert_base_bo"], False, True),
+             ("bert_base_lanes", MAIN_SHAPES["bert_base_lanes"], False, True),
              ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False),
              ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
              ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
@@ -531,6 +577,8 @@ def phase_kernels():
          timed=timed["bert_base"], **yardsticks["bert_base"],
          bert_base_bo={"shape": [64, BERT_S, 12, 64], "timed": timed["bert_base_bo"],
                        **yardsticks["bert_base_bo"]},
+         bert_base_lanes={"shape": [4 * BERT_B, BERT_S, 12, 64],
+                          "timed": timed["bert_base_lanes"], **yardsticks["bert_base_lanes"]},
          llama3_8b={"shape": [llama[0], llama[1], llama[3], llama[4], llama[5]],
                     "causal": True, "timed": timed["llama3_8b"], **yardsticks["llama3_8b"]})
     return main
@@ -1916,17 +1964,21 @@ def phase_slice_resume():
 # ---------------------------------------------------------------- slice_warm
 
 
-def train_bert_ab(lr, reporter, out_dir):
+def train_bert_ab(lr, reporter, out_dir, lanes=None):
     """One trial of slice_warm's bert_base arm: BERT-base on the slice's
     key-padded batches under ``swept_transform(adamw, learning_rate=lr)`` (a
     constant rate: every trial of the sweep is one program), AB_BERT_STEPS
-    steps, a heartbeat every REPORT_EVERY steps."""
+    steps, a heartbeat every REPORT_EVERY steps. Given ``lanes`` (slice_lanes'
+    sweep with vmap_lanes), the block's lanes train as one VmapTrainer."""
     from maggy_tpu_torch.models import BertEncoder
     from maggy_tpu_torch.train import Trainer, adamw, swept_transform
 
     record = TrialRecord(out_dir, reporter)
     full_fp32()
     cfg, batch = bert_data()
+    if lanes is not None:
+        return train_lanes(lanes_trainer(BertEncoder(cfg, device="meta"), adamw, lanes),
+                           batch, AB_BERT_STEPS, REPORT_EVERY, reporter, lanes, record)
     trainer = Trainer(BertEncoder(cfg, device="meta"), swept_transform(adamw, learning_rate=lr),
                       labels_loss, device=DEVICE).init(seed=0)
     with record:
@@ -1938,17 +1990,19 @@ def train_bert_ab(lr, reporter, out_dir):
     return {"metric": -float(loss)}
 
 
-def compile_ab_arm(model, arm, warm_on, exp_root, train, space):
+def compile_ab_arm(model, arm, warm_on, exp_root, train, space, lanes=None):
     """One arm of bench.py's run_compile_ab (``bench.py:259-318``): the
     fixed-shape RandomSearch(seed 11) sweep of AB_TRIALS trials over
     ``space`` on one thread runner, es_policy none, ``warm_start=warm_on``,
     from an empty warm cache. Returns the arm's line and its per-trial
-    final losses by lr."""
+    final losses by lr. With ``lanes`` (slice_lanes) the sweep runs with
+    vmap_lanes=lanes: its hits and misses depend on how blocks assemble, so
+    instead every step but each unit's first must replay a graph."""
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
     from maggy_tpu_torch.ops import attention as A
     from maggy_tpu_torch.train import clear_warm, warm
 
-    name = "slice_warm/{}/{}".format(model, arm)
+    name = "{}/{}/{}".format("slice_lanes" if lanes else "slice_warm", model, arm)
     exp_dir = fresh_dir(os.path.join(exp_root, model, arm))
     out_dir = fresh_dir(os.path.join(exp_dir, "records"))
     clear_warm()
@@ -1956,7 +2010,7 @@ def compile_ab_arm(model, arm, warm_on, exp_root, train, space):
         name="bench_ab_{}".format(arm), num_trials=AB_TRIALS, optimizer="randomsearch",
         searchspace=Searchspace(**space), direction="max", num_workers=1, hb_interval=0.1,
         es_policy="none", seed=11, warm_start=warm_on,
-        experiment_dir=os.path.join(exp_dir, "exp"))
+        experiment_dir=os.path.join(exp_dir, "exp"), **({"vmap_lanes": lanes} if lanes else {}))
     before = warm.counters()
     A.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1989,7 +2043,9 @@ def compile_ab_arm(model, arm, warm_on, exp_root, train, space):
             and all(t["status"] == "FINALIZED" for t in trials)):
         problems.append("{} trials finalized of {}".format(len(trials), AB_TRIALS))
     want = (AB_TRIALS - 1, 1) if warm_on else (0, AB_TRIALS)
-    if (line["warm_hits"], line["warm_misses"]) != want:
+    if lanes:
+        replayed_after_warmup(name, reading, steps)
+    elif (line["warm_hits"], line["warm_misses"]) != want:
         problems.append("warm hits/misses {}/{}, want {}/{}".format(
             line["warm_hits"], line["warm_misses"], *want))
     if not warm_on and (reading["graph_replays"] or reading["graph_captures"]):
@@ -2011,7 +2067,8 @@ def phase_slice_warm(exp_root):
     MNIST headline at bench's own values, then BERT-base at full width. The
     warm arms must show AB_TRIALS - 1 hits and 1 miss and run from graphs,
     the cold arms no hit and no graph, and each warm trial's final loss
-    must agree with the cold trial's of the same lr within AB_LOSS_TOL."""
+    must agree with the cold trial's of the same lr within AB_LOSS_TOL.
+    Returns the BERT-base warm arm's launches and final losses by lr."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2020,14 +2077,14 @@ def phase_slice_warm(exp_root):
                   {"lr": ("DOUBLE_LOG", [1e-4, 3e-2])}),
         "bert_base": (train_bert_ab, {"lr": ("DOUBLE_LOG", [1e-5, 1e-4])}),
     }
-    out, bert_launches = {}, None
+    out, bert_launches, bert_losses = {}, None, None
     for model, (train, space) in arms.items():
         lines, losses = {}, {}
         for arm, warm_on in (("warm", True), ("cold", False)):
             lines[arm], launches, losses[arm] = compile_ab_arm(model, arm, warm_on, exp_root,
                                                                train, space)
             if model == "bert_base" and warm_on:
-                bert_launches = launches
+                bert_launches, bert_losses = launches, losses[arm]
                 CAPTURED["bert_base_warm"] = lines[arm]["warm"]["captured"]
         rel, absolute = AB_LOSS_TOL[model]
         diffs = {lr: abs(losses["warm"][lr] - cold) for lr, cold in losses["cold"].items()
@@ -2045,7 +2102,420 @@ def phase_slice_warm(exp_root):
             raise AssertionError("slice_warm/{}: warm losses off the cold arm's: {} of {} "
                                  "compared, {}".format(model, len(diffs), AB_TRIALS, bad))
     emit("slice_warm", phase_s=time.perf_counter() - t_phase, **out)
-    return bert_launches
+    return bert_launches, bert_losses
+
+
+# --------------------------------------------------------------- slice_lanes
+
+
+def lanes_trainer(model, factory, lanes, warm_start=None):
+    """A VmapTrainer over a block's lanes: each lane's ``lr`` its
+    learning rate, every lane from the seed-0 init."""
+    from maggy_tpu_torch.train.vmap import VmapTrainer
+
+    return VmapTrainer(model, factory, [{"learning_rate": h["lr"]} for h in lanes.hparams],
+                       labels_loss, device=DEVICE, warm_start=warm_start).init(seed=0)
+
+
+def train_lanes(vt, batch, steps, every, reporter, lanes, record):
+    """A block's lanes through ``steps`` lockstep steps, their [K] losses
+    broadcast every ``every`` steps and lanes the driver stopped masked and
+    retired; returns each lane's final metric (-loss) by trial id."""
+    with record:
+        for i in range(steps):
+            losses = vt.step(batch(i))
+            record.steps += 1
+            if i % every == every - 1 or every == 1:
+                reporter.broadcast_lanes(-losses, step=i)
+                stopped = lanes.take_stopped()
+                if stopped:
+                    values = (-losses).tolist()
+                    for lane in stopped:
+                        vt.mask_lane(lane)
+                        lanes.retire(lane, values[lane])
+    final = (-losses).tolist()
+    return {tid: final[i] for i, tid in enumerate(lanes.trial_ids)}
+
+
+def mnist_mlp(device):
+    from maggy_tpu_torch.models import MnistMLP
+
+    return MnistMLP(features=8, num_classes=2, image_size=16, device=device)
+
+
+def mnist_vmap_batch(n=LANES_BATCH):
+    """bench.py's --vmap batch: the first ``n`` of make_data(seed 0), on the
+    card."""
+    def build():
+        X, Y = make_data()
+        return {"inputs": (torch.as_tensor(X[:n], device=DEVICE),),
+                "labels": torch.as_tensor(Y[:n], device=DEVICE).long()}
+
+    return cached(("mnist_vmap", n), build)
+
+
+def train_mnist_vmap(lr, reporter, out_dir, lanes=None):
+    """bench.py's train_mnist_vmap (``bench.py:115-164``) on the card: the
+    MnistMLP trained full batch for LANES_STEPS steps under
+    ``swept_transform(adam, learning_rate=lr)``, a heartbeat every
+    LANES_REPORT_EVERY steps; a block's lanes as one VmapTrainer."""
+    from maggy_tpu_torch.train import Trainer, adam, swept_transform
+
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    batch = mnist_vmap_batch()
+    steps = LANES_STEPS[0]
+    if lanes is not None:
+        return train_lanes(lanes_trainer(mnist_mlp("meta"), adam, lanes), lambda i: batch,
+                           steps, LANES_REPORT_EVERY, reporter, lanes, record)
+    trainer = Trainer(mnist_mlp("meta"), swept_transform(adam, learning_rate=lr), labels_loss,
+                      device=DEVICE).init(seed=0)
+    with record:
+        for i in range(steps):
+            loss = trainer.step(batch)
+            record.steps += 1
+            if i % LANES_REPORT_EVERY == 0:
+                reporter.broadcast(-loss, step=i)
+    return {"metric": -float(loss)}
+
+
+def lanes_cut():
+    """bench's 2500 steps a trial, cut so that an arm of LANES_TRIALS trials
+    takes about LANES_ARM_BUDGET_S: one scalar trial's replayed step time
+    (after its eager and capture steps) times the steps, plus the trial's
+    set-up, fits LANES_ARM_BUDGET_S / LANES_TRIALS; a multiple of the
+    heartbeat cadence. Returns (steps, the timing)."""
+    from maggy_tpu_torch.train import Trainer, adam, clear_warm, swept_transform
+
+    clear_warm()
+    batch, n = mnist_vmap_batch(), 400
+    t0 = time.perf_counter()
+    trainer = Trainer(mnist_mlp("meta"), swept_transform(adam, learning_rate=1e-2), labels_loss,
+                      device=DEVICE).init(seed=0)
+    for _ in range(3):
+        trainer.step(batch)
+    stream_sync()
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for _ in range(n):
+        trainer.step(batch)
+    stream_sync()
+    step_ms = (time.perf_counter() - t1) * 1e3 / n
+    clear_warm()
+    per_trial_s = LANES_ARM_BUDGET_S / LANES_TRIALS
+    fit = int((per_trial_s * 1e3) / step_ms) // LANES_REPORT_EVERY * LANES_REPORT_EVERY
+    steps = max(LANES_REPORT_EVERY, min(LANES_BENCH_STEPS, fit))
+    return steps, {"scalar_step_ms": step_ms, "first_trial_setup_s": setup_s,
+                   "bench_steps": LANES_BENCH_STEPS, "steps": steps,
+                   "arm_budget_s": LANES_ARM_BUDGET_S,
+                   "trial_s_estimate": steps * step_ms / 1e3}
+
+
+def lanes_ab_arm(arm, k, exp_root):
+    """One arm of bench.py's vmap_main (``bench.py:1315-1440``) on the card:
+    (line, finalized trial ids, journal events)."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.train import clear_warm, warm
+
+    name = "slice_lanes/mnist/{}".format(arm)
+    exp_dir = fresh_dir(os.path.join(exp_root, "mnist", arm))
+    out_dir = fresh_dir(os.path.join(exp_dir, "records"))
+    clear_warm()
+    config = OptimizationConfig(
+        name="bench_vmap_{}".format(arm), num_trials=LANES_TRIALS, optimizer="randomsearch",
+        searchspace=Searchspace(lr=("DOUBLE_LOG", [1e-3, 3e-2])), direction="max",
+        num_workers=1, hb_interval=0.05, es_policy="none", seed=LANES_SEED,
+        experiment_dir=os.path.join(exp_dir, "exp"), **({"vmap_lanes": k} if k else {}))
+    before = warm.counters()
+    t0 = time.perf_counter()
+    result = experiment.lagom(functools.partial(train_mnist_vmap, out_dir=out_dir), config)
+    wall = time.perf_counter() - t0
+    telemetry = journal_check(name, os.path.join(exp_dir, "exp"), result)
+    reading = warm_reading(name, telemetry, before)
+    clear_warm()
+    events = telemetry["_events"]
+    records = read_records(out_dir)
+    trial_events = [e for e in events if e["ev"] == "trial"]
+    finals = [e["trial"] for e in trial_events if e["phase"] == "finalized"]
+    lane_assigned = [e for e in trial_events if e["phase"] == "assigned"
+                     and e.get("lane") is not None]
+    line = {"wall_s": wall, "trials": len(finals), "dispatches": len(records),
+            "steps": sum(r["steps"] for r in records),
+            "step_ms_in_sweep_median": float(np.median([r["step_ms"] for r in records])),
+            "lane_assignments": len(lane_assigned),
+            "blocks": len({e["block"] for e in lane_assigned}),
+            "lane_tagged_edges": sum(1 for e in trial_events if e.get("lane") is not None),
+            "goodput_s": telemetry["goodput"]["buckets_s"],
+            "goodput_shares": telemetry["goodput"]["shares"],
+            "lane_idle_s": telemetry["_goodput"]["buckets"].get("lane_idle", 0.0),
+            "warm": reading}
+    emit(name, **line)
+    if not (len(finals) == len(set(finals)) == result["num_trials"] == LANES_TRIALS):
+        raise AssertionError("{}: {} finalized edges, {} trials, of {}".format(
+            name, len(finals), len(set(finals)), LANES_TRIALS))
+    return line, finals
+
+
+def lanes_engine_gates():
+    """bench.py's _vmap_lane_parity (``bench.py:1264-1313``) on the card,
+    TF32 off: 4 rates, 25 steps on make_data's first 128, each gate beside
+    its limit."""
+    from maggy_tpu_torch.train import Trainer, adam, clear_warm, swept_transform
+    from maggy_tpu_torch.train.vmap import VmapTrainer
+
+    full_fp32()
+    batch = mnist_vmap_batch(128)
+    lrs, steps, (rel, absolute) = LANES_PARITY_LRS, LANES_PARITY_STEPS, LANES_TOL
+
+    def scalar_run(lr):
+        trainer = Trainer(mnist_mlp("meta"), swept_transform(adam, learning_rate=lr),
+                          labels_loss, device=DEVICE).init(seed=0)
+        return torch.stack([trainer.step(batch) for _ in range(steps)]).cpu().numpy()
+
+    def block(rates, fresh=True):
+        if fresh:
+            clear_warm()
+        return VmapTrainer(mnist_mlp("meta"), adam, [{"learning_rate": r} for r in rates],
+                           labels_loss, device=DEVICE).init(seed=0)
+
+    def run(vt, n=steps, mask_at=None):
+        out = []
+        for t in range(n):
+            if t == mask_at:
+                vt.mask_lane(1)
+            out.append(vt.step(batch))
+        return torch.stack(out).cpu().numpy()
+
+    def off(a, b):
+        """(max |a - b|, max of |a - b| - (rel |b| + abs): <= 0 passes)."""
+        d = np.abs(a - b)
+        return float(d.max()), float((d - (rel * np.abs(b) + absolute)).max())
+
+    clear_warm()
+    scalar = {lr: scalar_run(lr) for lr in lrs}
+    fresh_vt = block(lrs)
+    fresh = run(fresh_vt)
+    lane_vs_scalar = [off(fresh[:, i], scalar[lr]) for i, lr in enumerate(lrs)]
+    masked = run(block(lrs), mask_at=LANES_MASK_AT)
+    survivors_bitwise = all(np.array_equal(masked[:, i], fresh[:, i]) for i in (0, 2, 3))
+    refill_vt = block(lrs)
+    run(refill_vt, mask_at=LANES_MASK_AT)
+    refill_vt.refill_lane(1, {"learning_rate": 5e-3})
+    refilled = run(refill_vt)[:, 1]
+    clear_warm()
+    refill_off = off(refilled, scalar_run(5e-3))
+    first = block([2e-3, 4e-3, 6e-3, 8e-3])
+    run(first, n=2)
+    unit = first._unit
+    first.retire_to_warm_cache()
+    second = block(lrs, fresh=False)
+    reused = second._unit is unit
+    second_losses = run(second)
+    reinit_off = off(second_losses, fresh)
+    clear_warm()
+    gates = {"tolerance": {"relative": rel, "absolute": absolute},
+             "lane_vs_scalar_max_abs": [d for d, _ in lane_vs_scalar],
+             "lane_vs_scalar_ok": all(x <= 0 for _, x in lane_vs_scalar),
+             "masked_at_step": LANES_MASK_AT, "survivors_bitwise": survivors_bitwise,
+             "refill_vs_scalar_cold_max_abs": refill_off[0], "refill_ok": refill_off[1] <= 0,
+             "reinit_took_retired_unit": reused,
+             "reinit_vs_fresh_max_abs": reinit_off[0], "reinit_ok": reinit_off[1] <= 0,
+             "reinit_bitwise": bool(np.array_equal(second_losses, fresh))}
+    bad = [k for k in ("lane_vs_scalar_ok", "survivors_bitwise", "refill_ok",
+                       "reinit_took_retired_unit", "reinit_ok") if not gates[k]]
+    return gates, bad
+
+
+def lanes_kernel_check():
+    """The flash kernels' batching rule at BERT-base width (bf16, B=32,
+    S=128, 12 heads, key padding broadcast across BERT_LANES lanes): vmap of
+    flash_attention and of its gradient against each lane alone through the
+    kernels, and the launches of the vmapped calls (one each)."""
+    from maggy_tpu_torch.ops import attention as A
+
+    K = BERT_LANES
+    q, k, v, do, mask = make_inputs(K * BERT_B, BERT_S, BERT_S, 12, 12, 64, torch.bfloat16,
+                                    True, seed=3)
+    q, k, v, do = (x.reshape(K, BERT_B, *x.shape[1:]) for x in (q, k, v, do))
+    mask = mask[:BERT_B].contiguous()
+
+    def attend(q_, k_, v_):
+        return A.flash_attention(q_, k_, v_, mask, False)
+
+    def objective(q_, k_, v_, do_):
+        return (attend(q_, k_, v_).float() * do_.float()).sum()
+
+    A.reset_launch_counts()
+    out = torch.func.vmap(attend)(q, k, v)
+    grads = torch.func.vmap(torch.func.grad(objective, argnums=(0, 1, 2)))(q, k, v, do)
+    torch.cuda.synchronize()
+    launches = A.launch_counts()
+    err, tol = 0.0, float("inf")
+    for i in range(K):
+        leaves = [x[i].detach().clone().requires_grad_() for x in (q, k, v)]
+        ref = attend(*leaves)
+        ref.backward(do[i])
+        for got, want in [(out[i], ref.detach())] + [(g[i], leaf.grad)
+                                                     for g, leaf in zip(grads, leaves)]:
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            tol = min(tol, tolerance(torch.bfloat16, want))
+    A.reset_launch_counts()
+    return {"lanes": K, "shape": [BERT_B, BERT_S, 12, 64], "max_abs_err": err, "tol": tol,
+            "launches": launches,
+            "ok": err <= tol and launches == {"flash_fwd": 2, "flash_bwd_dkdv": 1,
+                                              "flash_bwd_dq": 1}}
+
+
+def op_device_ms(step, steps=3, top=10):
+    """The ``top`` PyTorch operators by their own device time per step
+    over ``steps`` eager steps (a replayed graph's kernels belong to no
+    operator, so the attribution needs eager steps)."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    return [[e.key, e.self_device_time_total / 1e3 / steps, e.count / steps] for e in ops[:top]]
+
+
+def lanes_step_alone(make, batch, warmup=3, n=10):
+    """Host-clock ms of one trainer's replayed step alone on the card."""
+    trainer = make()
+    for i in range(warmup):
+        trainer.step(batch(i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        trainer.step(batch(i))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, trainer
+
+
+def phase_slice_lanes(exp_root, warm_bert_losses):
+    """The vectorized lanes on the card (see the module docstring, phase
+    17). Returns the BERT-base lanes sweep's launches."""
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import Trainer, adam, adamw, clear_warm, swept_transform
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full_fp32()
+    problems = []
+
+    # (a) bench.py's --vmap A/B.
+    LANES_STEPS[0], cut = lanes_cut()
+    arms, finals = {}, {}
+    for arm, k in (("scalar", None), ("lanes1", 1), ("vmap", LANES_K)):
+        arms[arm], finals[arm] = lanes_ab_arm(arm, k, exp_root)
+    if set(finals["lanes1"]) != set(finals["scalar"]):
+        problems.append("lanes1 finalized {} where scalar finalized {}".format(
+            sorted(set(finals["lanes1"]) ^ set(finals["scalar"])), "the others"))
+    if arms["lanes1"]["lane_tagged_edges"] or arms["scalar"]["lane_tagged_edges"]:
+        problems.append("lane-tagged edges without blocks: scalar {}, lanes1 {}".format(
+            arms["scalar"]["lane_tagged_edges"], arms["lanes1"]["lane_tagged_edges"]))
+    if arms["vmap"]["lane_assignments"] < LANES_TRIALS - LANES_K:
+        problems.append("the vmap arm rode {} lane-tagged assignments of {} (need >= {})".format(
+            arms["vmap"]["lane_assignments"], LANES_TRIALS, LANES_TRIALS - LANES_K))
+    # A replayed step of each program, profiled: the card's idle share.
+    batch = mnist_vmap_batch()
+    clear_warm()
+    scalar_trainer = Trainer(mnist_mlp("meta"), swept_transform(adam, learning_rate=1e-2),
+                             labels_loss, device=DEVICE).init(seed=0)
+    from maggy_tpu_torch.train.vmap import VmapTrainer
+
+    block = VmapTrainer(mnist_mlp("meta"), adam,
+                        [{"learning_rate": lr} for lr in np.geomspace(1e-3, 3e-2, LANES_K)],
+                        labels_loss, device=DEVICE).init(seed=0)
+    for _ in range(3):
+        scalar_trainer.step(batch)
+        block.step(batch)
+    profiles = {"scalar": step_device_profile(lambda i: scalar_trainer.step(batch), steps=20),
+                "vmap": step_device_profile(lambda i: block.step(batch), steps=20)}
+    del scalar_trainer, block
+    clear_warm()
+    eager = VmapTrainer(mnist_mlp("meta"), adam,
+                        [{"learning_rate": lr} for lr in np.geomspace(1e-3, 3e-2, LANES_K)],
+                        labels_loss, device=DEVICE, warm_start=False).init(seed=0)
+    eager.step(batch)
+    vmap_ops = op_device_ms(lambda i: eager.step(batch), steps=5)
+    del eager
+    mnist = {"cut": cut, **{arm: arms[arm] for arm in arms},
+             "speedup": arms["scalar"]["wall_s"] / arms["vmap"]["wall_s"],
+             "speedup_bench_gate": float(os.environ.get("BENCH_VMAP_SPEEDUP", "5")),
+             "step_profile": {arm: {key: p[key] for key in ("step_ms", "device_busy_ms",
+                                                              "idle_share")}
+                              for arm, p in profiles.items()},
+             "vmap_eager_op_device_ms": vmap_ops}
+    emit("slice_lanes/mnist", **mnist)
+
+    # (b) The engine gates; (c) the kernels' batching rule at BERT width.
+    gates, bad = lanes_engine_gates()
+    problems += ["engine gate {} failed".format(k) for k in bad]
+    kernel_rule = lanes_kernel_check()
+    if not kernel_rule["ok"]:
+        problems.append("vmapped flash kernels: {}".format(kernel_rule))
+    emit("slice_lanes/engine", gates=gates, kernel_rule=kernel_rule)
+
+    # (d) slice_warm's BERT-base sweep with vmap_lanes.
+    clear_warm()
+    A.reset_launch_counts()
+    line, launches, losses = compile_ab_arm(
+        "bert_base", "lanes", True, exp_root, train_bert_ab,
+        {"lr": ("DOUBLE_LOG", [1e-5, 1e-4])}, lanes=BERT_LANES)
+    CAPTURED["bert_base_lanes"] = line["warm"]["captured"]
+    clear_warm()
+    rel, absolute = AB_LOSS_TOL["bert_base"]
+    diffs = {lr: abs(loss - warm_bert_losses[lr]) for lr, loss in losses.items()
+             if lr in warm_bert_losses}
+    far = {lr: d for lr, d in diffs.items() if not d <= rel * abs(warm_bert_losses[lr]) + absolute}
+    if len(diffs) != AB_TRIALS or far:
+        problems.append("BERT lanes' losses off slice_warm's: {} of {} compared, {}".format(
+            len(diffs), AB_TRIALS, far))
+    cfg, bert_batch = bert_data()
+    lane_rates = [{"learning_rate": lr} for lr in np.geomspace(1e-5, 1e-4, BERT_LANES)]
+
+    def scalar_bert(warm_start=None):
+        return Trainer(BertEncoder(cfg, device="meta"), swept_transform(adamw, learning_rate=3e-5),
+                       labels_loss, device=DEVICE, warm_start=warm_start).init(seed=0)
+
+    def lanes_bert(warm_start=None):
+        return VmapTrainer(BertEncoder(cfg, device="meta"), adamw, lane_rates, labels_loss,
+                           device=DEVICE, warm_start=warm_start).init(seed=0)
+
+    profiles, ops = {}, {}
+    for label, make in (("scalar", scalar_bert), ("lanes", lanes_bert)):
+        ms, trainer = lanes_step_alone(make, bert_batch)
+        profiles[label] = dict(step_device_profile(lambda i: trainer.step(bert_batch(i))),
+                               replayed_step_alone_ms=ms)
+        del trainer
+        eager = make(warm_start=False)
+        eager.step(bert_batch(0))
+        ops[label] = op_device_ms(lambda i: eager.step(bert_batch(i)))
+        del eager
+        clear_warm()
+    scalar_ms = profiles["scalar"]["replayed_step_alone_ms"]
+    lanes_ms = profiles["lanes"]["replayed_step_alone_ms"]
+    bert = {"lanes": BERT_LANES, **line,
+            "final_loss_max_abs_diff_vs_slice_warm": max(diffs.values()) if diffs else None,
+            "loss_tol": {"relative": rel, "absolute": absolute},
+            "replayed_step_alone_ms": {"lanes": lanes_ms, "scalar": scalar_ms,
+                                       "scalar_x_lanes": scalar_ms * BERT_LANES},
+            "step_profile": profiles, "eager_op_device_ms": ops}
+    emit("slice_lanes/bert_base", **bert)
+    emit("slice_lanes", phase_s=time.perf_counter() - t_phase,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, speedup=mnist["speedup"],
+         problems=problems)
+    if problems:
+        raise AssertionError("slice_lanes: {}".format("; ".join(problems)))
+    return launches
 
 
 def phase_slice_process(exp_dir, thread_step_ms):
@@ -3190,13 +3660,16 @@ def main():
     phase_slice_pbt(os.path.join(ROOT, "build", "chip_smoke_experiments_pbt"))
     launches["bert_base_resume"] = phase_slice_resume()
     clear_warm()
-    launches["bert_base_warm"] = phase_slice_warm(
+    launches["bert_base_warm"], warm_bert_losses = phase_slice_warm(
         os.path.join(ROOT, "build", "chip_smoke_experiments_warm"))
     clear_warm()
     phase_slice_resnet(os.path.join(ROOT, "build", "chip_smoke_experiments_resnet"))
     phase_slice_vit(os.path.join(ROOT, "build", "chip_smoke_experiments_vit"))
     launches["llama3_8b_moe"] = phase_slice_moe(
         fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_moe")))
+    clear_warm()
+    launches["bert_base_lanes"] = phase_slice_lanes(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_lanes"), warm_bert_losses)
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

@@ -5,9 +5,9 @@ heartbeat-loss shape) and `OptimizationConfig` with the fields of a
 single-host sweep over thread, process or GPU-pinned process runners, with
 heartbeat-loss requeue, the telemetry journal, the compile-once warm path
 (``warm_start``), checkpoint forking (``fork``) and experiment resume
-(``resume``). ``vmap_lanes``,
-``chips_per_budget`` (gangs) and ``fleet`` exist only so that setting one
-raises "not ported yet" with its ROADMAP item; each is replaced by the real
+(``resume``) and vectorized lanes (``vmap_lanes``). ``chips_per_budget``
+(gangs) and ``fleet`` exist only so that setting one raises "not ported
+yet" with its ROADMAP item; each is replaced by the real
 field in the slice that ports it. Chaos and observability fields are absent, so passing one is a
 TypeError rather than a silently ignored knob. Parity: reference
 `maggy/experiment_config.py:18-50`.
@@ -26,8 +26,7 @@ POOLS = ("thread", "process", "gpu")
 _UNPORTED_POOLS = ("elastic", "remote")
 #: field -> (its value that keeps it off, the ROADMAP queue 1 item that
 #: ports it).
-_UNPORTED_FIELDS = {"vmap_lanes": (1, "7"), "chips_per_budget": (None, "8"),
-                    "fleet": (None, "9")}
+_UNPORTED_FIELDS = {"chips_per_budget": (None, "8"), "fleet": (None, "9")}
 
 
 @dataclass
@@ -113,9 +112,15 @@ class OptimizationConfig(LagomConfig):
     # Experiment artifact root; defaults to the environment's base dir.
     experiment_dir: Optional[str] = None
     resume: bool = False
+    # Vectorized lanes (maggy_tpu/config.py:222-234, train/vmap.py): the
+    # driver packs up to this many compatible suggestions (same non-float
+    # params, no resume or checkpoint fork) into one block delivered to
+    # one runner, whose train function, if it names ``lanes``, trains them
+    # in lockstep as one vmapped step. Each lane keeps its own span,
+    # metrics and FINAL. 1 (the default) is the scalar dispatch path.
+    vmap_lanes: int = 1
     # The JAX package's fields whose slices are still to port: setting one
     # raises (see _UNPORTED_FIELDS).
-    vmap_lanes: int = 1
     chips_per_budget: Optional[Any] = None
     fleet: Any = None
 
@@ -136,6 +141,11 @@ class OptimizationConfig(LagomConfig):
         if self.pool not in POOLS:
             raise ValueError("pool must be one of {}, got {!r}".format(
                 ", ".join(repr(p) for p in POOLS), self.pool))
+        if not isinstance(self.vmap_lanes, int) \
+                or isinstance(self.vmap_lanes, bool) or self.vmap_lanes < 1:
+            raise ValueError(
+                "vmap_lanes must be an int >= 1 (1 = scalar dispatch), "
+                "got {!r}".format(self.vmap_lanes))
         for name, (off, item) in _UNPORTED_FIELDS.items():
             if getattr(self, name) != off:
                 raise NotImplementedError(

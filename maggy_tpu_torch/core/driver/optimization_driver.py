@@ -47,8 +47,20 @@ both (``restore_from_finals``), a pruner reloads its bracket state
 runner that registers on a partition holding a trial (a relaunched runner,
 or a resumed driver's runner on a restored slot) takes the BLACK path: the
 trial is requeued (reason ``blacklist``) and handed back to that slot,
-resuming at its fork or preemption step. Gangs, vmap blocks and fleet
-eviction are not ported yet.
+resuming at its fork or preemption step. Gangs and fleet eviction are not
+ported yet.
+
+Vectorized lanes (``config.vmap_lanes`` = K > 1, JAX `:193-231, 489-520,
+560-656, 1190-1197, 1420-1475, 1889-2007`): when a runner takes a fresh
+suggestion, up to K - 1 compatible prefetched ones (same non-float params,
+no resume or checkpoint fork; a BO near-duplicate rides as a fork lane) join
+it in one block, delivered to that runner as one TRIAL of its leader. Every
+lane keeps its own span, lane-tagged ``assigned``, ``running``,
+``first_metric`` and ``finalized`` edges and FINAL; a lane FINAL before the
+block's last is reported to the controller at once, and the last hands the
+runner its next work. A lost, re-registered or preempted block requeues
+every unfinished lane once, as a scalar trial. The prefetch queue holds K
+suggestions a runner. K = 1 is the scalar path, journal for journal.
 """
 
 from __future__ import annotations
@@ -140,6 +152,15 @@ class OptimizationDriver(Driver):
         self.controller.trial_store = self._trial_store
         self.controller.final_store = self._final_store
         self.controller.direction = config.direction
+        # ---- vectorized lanes (config.vmap_lanes) ----
+        self._vmap_lanes = int(config.vmap_lanes)
+        # Blocks in flight: leader trial id -> {"lanes": [trial ids in lane
+        # order], "partition": pid}; and each lane's leader.
+        self._vmap_blocks: Dict[str, Dict[str, Any]] = {}  # guarded-by: _store_lock
+        self._lane_leader: Dict[str, str] = {}  # guarded-by: _store_lock
+        # Lanes-aware controllers (ASHA's rung drain, BO's fork discount)
+        # read this.
+        self.controller.vmap_lanes = self._vmap_lanes
         self.controller._initialize()
 
         self.result = {"best_id": None, "best_val": None, "best_hp": None,
@@ -335,24 +356,50 @@ class OptimizationDriver(Driver):
         with self._store_lock:
             return self._trial_store.get(trial_id)
 
+    def block_leader(self, trial_id) -> Optional[str]:
+        """The leader of the in-flight block ``trial_id`` rides in, or None."""
+        with self._store_lock:
+            return self._lane_leader.get(trial_id)
+
+    def vmap_block_lanes(self, leader_id: str) -> List[str]:
+        """Lane trial ids of an in-flight block (empty when ``leader_id``
+        leads none)."""
+        with self._store_lock:
+            block = self._vmap_blocks.get(leader_id)
+            return list(block["lanes"]) if block else []
+
     # ------------------------------------------------------------ callbacks
 
     def _metric_msg_callback(self, msg) -> None:
         """Append a heartbeat metric; early-stop check every es_interval
-        steps once es_min trials finalized (reference :331-361)."""
+        steps once es_min trials finalized (reference :331-361). A block's
+        beat carries ``lanes``, each entry applied as its own trial's metric,
+        so the early-stop rule sees K streams."""
         self.add_executor_logs(msg.get("logs"))
-        trial = self.get_trial(msg.get("trial_id"))
-        if trial is None or msg.get("value") is None:
+        if msg.get("lanes"):
+            for beat in msg["lanes"]:
+                self._apply_metric_beat(beat.get("trial_id"), beat.get("value"),
+                                        beat.get("step"), msg.get("partition_id"),
+                                        lane=beat.get("lane"))
             return
-        if not trial.append_metric(msg["value"], msg.get("step")):
+        self._apply_metric_beat(msg.get("trial_id"), msg.get("value"), msg.get("step"),
+                                msg.get("partition_id"))
+
+    def _apply_metric_beat(self, trial_id, value, step, partition_id, lane=None) -> None:
+        trial = self.get_trial(trial_id)
+        if trial is None or value is None:
+            return
+        if not trial.append_metric(value, step):
             return
         with trial.lock:
             n_steps = len(trial.step_history)
         if n_steps == 1:
             # Time to first signal: running -> first_metric is the trial's
-            # start-up cost as the control plane sees it.
+            # start-up cost as the control plane sees it. The lane tag rides
+            # only on a block's beats.
+            extra = {} if lane is None else {"lane": lane}
             self.telemetry.trial_event(trial.trial_id, "first_metric",
-                                       partition=msg.get("partition_id"))
+                                       partition=partition_id, **extra)
         with self._store_lock:
             final_snapshot = list(self._final_store)
         if len(final_snapshot) < self.es_min or n_steps % self.es_interval != 0:
@@ -411,9 +458,12 @@ class OptimizationDriver(Driver):
             self._preempted_final(msg, trial)
             return
         if trial is None:
-            # Duplicate FINAL (a retried send whose reply was lost): the
+            # Duplicate FINAL (a retried send whose reply was lost, or a
+            # block's release-shaped FINAL after every lane retired): the
             # result is recorded; the runner still needs work unless it
             # already holds an undelivered assignment.
+            if msg.get("block") is not None and msg.get("last"):
+                self._drop_block(msg["block"])
             if self.server.reservations.get_assigned_trial(msg["partition_id"]) is None:
                 self._assign_next(msg["partition_id"], None)
             return
@@ -440,9 +490,12 @@ class OptimizationDriver(Driver):
             trial.duration = time.time() - trial.start if trial.start else None
             was_error, was_early_stop = trial.status == Trial.ERROR, trial.early_stop
         # The hand-off gap's opening edge and the early-stop reaction's
-        # closing edge, journaled before the next assignment.
+        # closing edge, journaled before the next assignment. A lane's FINAL
+        # is tagged with its lane and block (goodput splits a block by lane).
+        extra = {} if msg.get("block") is None else {"lane": msg.get("lane"),
+                                                     "block": msg.get("block")}
         self.telemetry.trial_event(trial.trial_id, "finalized", partition=msg.get("partition_id"),
-                                   early_stop=was_early_stop, error=was_error)
+                                   early_stop=was_early_stop, error=was_error, **extra)
         with self._store_lock:
             self._trial_store.pop(trial.trial_id, None)
             self._final_store.append(trial)
@@ -454,10 +507,63 @@ class OptimizationDriver(Driver):
         # Persist BEFORE the hand-off: assigning the last trial flips
         # experiment_done and releases the pool.
         self.env.dump(trial.to_json(), "{}/{}/trial.json".format(self.exp_dir, trial.trial_id))
+        if msg.get("block") is not None:
+            if not msg.get("last"):
+                # A lane before the block's last: the partition still holds
+                # the block, so nothing is handed off, but the controller
+                # sees the result now (and stale prefetches drop).
+                with self._store_lock:
+                    self._lane_leader.pop(trial.trial_id, None)
+                self.controller.report(trial)
+                if self._prefetch_enabled:
+                    self._invalidate_stale_prefetch()
+                self._sweep_fork_gc()
+                return
+            self._drop_block(msg["block"])
         self._assign_next(msg["partition_id"], trial)
         # After the hand-off (the freed runner never waits on disk): retire
         # the parent checkpoints this FINAL made unforkable.
         self._sweep_fork_gc()
+
+    def _drop_block(self, leader_id: str) -> Optional[Dict[str, Any]]:
+        """Forget an in-flight block: its entry (returned) and its lanes'
+        leader."""
+        with self._store_lock:
+            block = self._vmap_blocks.pop(leader_id, None)
+            for tid in (block or {}).get("lanes", ()):
+                self._lane_leader.pop(tid, None)
+        return block
+
+    def _requeue_vmap_block(self, leader_id: str, partition_id, reason: str) -> bool:
+        """Tear down a dead block (JAX `:596-635`): every unfinished lane but
+        the leader requeues once as a scalar trial (the leader takes the
+        caller's own requeue path); finalized lanes stay finalized, and the
+        block stamps go. False when ``leader_id`` leads no block."""
+        block = self._drop_block(leader_id)
+        if block is None:
+            return False
+        for tid in block["lanes"]:
+            trial = self.get_trial(tid)
+            if trial is None:
+                continue
+            with trial.lock:
+                trial.info_dict.pop("vmap", None)
+                trial.info_dict.pop("vmap_block", None)
+                done = trial.final_metric is not None or trial.status == Trial.ERROR
+            if done or tid == leader_id:
+                continue
+            trial.reset_run_state()
+            with self._store_lock:
+                if tid not in self._requeue:
+                    self._requeue.append(tid)
+            # Literal reasons, so the journal vocabulary scan sees them.
+            if reason == "preempted":
+                self.telemetry.trial_event(tid, "requeued", partition=partition_id,
+                                           reason="preempted")
+            else:
+                self.telemetry.trial_event(tid, "requeued", partition=partition_id,
+                                           reason="vmap_block_lost")
+        return True
 
     # locked-by: _sched_lock
     def _preempted_final(self, msg, trial: Optional[Trial]) -> None:
@@ -473,6 +579,9 @@ class OptimizationDriver(Driver):
         if trial is None or not trial.get_preempt():
             return
         step = msg.get("step")
+        # A preempted block's leader takes its lanes with it: they requeue
+        # as scalar trials; the leader follows the path below.
+        self._requeue_vmap_block(trial.trial_id, pid, "preempted")
         trial.reset_run_state()
         with trial.lock:
             if step is not None:
@@ -546,20 +655,24 @@ class OptimizationDriver(Driver):
         pid = msg["partition_id"]
         with self._sched_lock:
             trial = self.get_trial(msg["trial_id"])
-            if trial is None:
+            # A lost block leader takes its lanes with it, also when its own
+            # lane finalized early.
+            block = self._requeue_vmap_block(msg["trial_id"], pid, "vmap_block_lost")
+            if trial is None and not block:
                 return
-            trial.reset_run_state()
-            with self._store_lock:
-                if trial.trial_id not in self._requeue:
-                    self._requeue.append(trial.trial_id)
-            self.telemetry.trial_event(trial.trial_id, "lost", partition=pid)
-            # The explicit requeue edge recovery latency derives from.
-            self.telemetry.trial_event(trial.trial_id, "requeued", partition=pid,
-                                       reason="heartbeat_loss")
+            if trial is not None:
+                trial.reset_run_state()
+                with self._store_lock:
+                    if trial.trial_id not in self._requeue:
+                        self._requeue.append(trial.trial_id)
+                self.telemetry.trial_event(trial.trial_id, "lost", partition=pid)
+                # The explicit requeue edge recovery latency derives from.
+                self.telemetry.trial_event(trial.trial_id, "requeued", partition=pid,
+                                           reason="heartbeat_loss")
             self.telemetry.metrics.counter("recovery.lost_runners").inc()
             self._refresh_recovery()
         self._log("runner {} heartbeat lost; trial {} requeued for reassignment".format(
-            pid, trial.trial_id))
+            pid, msg["trial_id"]))
         pool = self._active_pool
         if pool is not None and pool.kill_worker(pid):
             self.telemetry.metrics.counter("recovery.killed.p{}".format(pid)).inc()
@@ -586,12 +699,16 @@ class OptimizationDriver(Driver):
         trial is requeued and handed back to this slot at once, resuming as
         the backlog path would: its fork source is verified and a fork or
         preempted trial journals ``resumed`` at its step (JAX `:544-594`,
-        without the gang and vmap branches)."""
+        without the gang branch)."""
         pid = msg["partition_id"]
         # The partition names a new runner: the dead one's live gauges go.
         self.telemetry.prune_partition(pid)
         with self._sched_lock:
             trial = self.get_trial(msg["trial_id"])
+            # A re-registered block leader: the other lanes requeue as
+            # scalar trials, the leader (block stamps stripped) comes back
+            # to this slot.
+            self._requeue_vmap_block(msg["trial_id"], pid, "vmap_block_lost")
             if trial is None:
                 # Finalized meanwhile: the slot needs work, not a dead id.
                 self.server.reservations.clear_trial_if(pid, msg["trial_id"])
@@ -731,10 +848,99 @@ class OptimizationDriver(Driver):
                     suggestion.info_dict.get("forked_from", {}).get("trial"))))
             return True
         suggestion.set_status(Trial.SCHEDULED)
+        if self._vmap_lanes > 1 and self._assemble_vmap_block_locked(suggestion, partition_id):
+            return False
         self.server.reservations.assign_trial(partition_id, suggestion.trial_id)
         self.telemetry.trial_event(suggestion.trial_id, "assigned", partition=partition_id)
         self._journal_fork_edge(suggestion, partition_id)
         return False
+
+    # ------------------------------------------------------ vectorized lanes
+
+    def _vmap_blockable_locked(self, trial: Trial) -> bool:
+        """Can the trial ride a block (JAX `:1900-1921`, no gangs here)? Not
+        with unhashable params (no program key), nor as a resume or a
+        checkpoint fork (a lane restores no state); a BO near-duplicate
+        keeps its parent tag and rides as a fork lane, trained from scratch."""
+        try:
+            hash(tuple(sorted(trial.params.items())))
+        except TypeError:
+            return False
+        with trial.lock:
+            info = dict(trial.info_dict)
+        if info.get("resume_step") is not None or info.get("forked_from"):
+            return False
+        if info.get("parent") and not info.get("near_duplicate"):
+            return False
+        return True
+
+    @staticmethod
+    def _vmap_compatible(a: Trial, b: Trial) -> bool:
+        """One vmapped program? The driver's proxy for the runner's warm
+        key (JAX `:1923-1939`): the same trial type and param names and
+        equal non-float values; floats are the stacked axis."""
+        if a.trial_type != b.trial_type or set(a.params) != set(b.params):
+            return False
+        for key, va in a.params.items():
+            vb = b.params[key]
+            if isinstance(va, float) and isinstance(vb, float):
+                continue
+            if va != vb:
+                return False
+        return True
+
+    # locked-by: _sched_lock
+    def _assemble_vmap_block_locked(self, leader: Trial, partition_id: int) -> bool:
+        """Up to K compatible suggestions, the leader and prefetched ones,
+        as one block delivered to ``partition_id`` (JAX `:1941-2007`). True
+        = assigned (at least 2 lanes); False = the caller dispatches the
+        leader as a scalar trial."""
+        if not self._vmap_blockable_locked(leader):
+            return False
+        lanes = [leader]
+        for cand in list(self._prefetched):
+            if len(lanes) >= self._vmap_lanes:
+                break
+            if not self._vmap_blockable_locked(cand) or not self._vmap_compatible(leader, cand):
+                continue
+            self._prefetched.remove(cand)
+            self._prefetch_versions.pop(cand.trial_id, None)
+            lanes.append(cand)
+        if len(lanes) < 2:
+            return False
+        self._suggest_wake.set()
+        lane_descs = []
+        for i, t in enumerate(lanes):
+            if i > 0:
+                # Admitted but never dispatched: their queued edges now.
+                self._mint_span(t)
+                t.set_status(Trial.SCHEDULED)
+            with t.lock:
+                if t.info_dict.get("near_duplicate") and t.info_dict.get("parent"):
+                    # A BO near-duplicate rides as a fork lane: a fresh init
+                    # beside its parent's family, not a checkpoint restore.
+                    t.info_dict.pop("forked_from", None)
+                    t.info_dict.pop("resume_step", None)
+                    t.info_dict["fork_lane"] = {"parent": t.info_dict["parent"]}
+                t.info_dict["vmap"] = {"lane": i, "block": leader.trial_id}
+                t.info_dict["epoch"] = t.run_epoch
+                lane_descs.append({"trial_id": t.trial_id, "lane": i, "params": dict(t.params),
+                                   "span": t.info_dict.get("span"), "epoch": t.run_epoch,
+                                   "fork_lane": t.info_dict.get("fork_lane")})
+        with leader.lock:
+            leader.info_dict["vmap_block"] = {"lanes": lane_descs}
+        with self._store_lock:
+            self._vmap_blocks[leader.trial_id] = {"lanes": [t.trial_id for t in lanes],
+                                                  "partition": partition_id}
+            for t in lanes:
+                self._lane_leader[t.trial_id] = leader.trial_id
+        self.server.reservations.assign_trial(partition_id, leader.trial_id)
+        for i, t in enumerate(lanes):
+            self.telemetry.trial_event(t.trial_id, "assigned", partition=partition_id, lane=i,
+                                       block=leader.trial_id)
+        self._log("vmap block {}: {} lanes assigned to runner {}".format(
+            leader.trial_id, len(lanes), partition_id))
+        return True
 
     def _mint_span(self, trial: Trial) -> None:
         """Mint the trial's span when the driver commits to it ("queued")
@@ -948,8 +1154,9 @@ class OptimizationDriver(Driver):
 
     def _prefetch_capacity(self) -> int:
         """One suggestion per live (registered, unreleased) runner, never
-        more than the executor clamp."""
-        return min(self.num_executors, self.server.reservations.live_count())
+        more than the executor clamp; K a runner under vectorized lanes, or
+        a one-deep queue would starve block assembly (JAX `:1190-1197`)."""
+        return min(self.num_executors, self.server.reservations.live_count()) * self._vmap_lanes
 
     def _refill_prefetch(self) -> bool:
         """One refill attempt; True when a suggestion was materialized."""

@@ -1,7 +1,7 @@
 """Crash-only driver recovery: rebuild control-plane state from the journal.
 
-Copy of ``maggy_tpu/core/driver/recovery.py:1-222``, with one addition
-(the closed edges below). The telemetry journal
+Copy of ``maggy_tpu/core/driver/recovery.py:1-222``, with two additions
+(the closed edges and the block lanes below). The telemetry journal
 is the experiment's replayable source of truth (durable up to the FINAL
 path's barrier, tolerant of a torn tail line), and the split report/suggest
 optimizer contract makes controller state reconstructible from the FINAL
@@ -27,6 +27,12 @@ What is replayed, re-adopted and requeued:
   while its ``finalized`` edge still sat in the journal's buffer gets that
   edge journaled at resume, stamped with the time the trial finished, so
   the journal and result.json count the same trials.
+- **Block lanes** (not in the JAX package): a vectorized block in flight
+  at the crash had every lane assigned to its runner's partition, which
+  holds the block's leader. The leader is held as a scalar trial; every
+  other lane goes to the requeue, to run as a scalar trial. (The JAX
+  package holds the lane journaled last, which need not be the leader, and
+  strands the others in the store: ROADMAP queue 3.)
 - **Requeued**: trials whose runners died with the driver. Recovery seeds
   the reservation table with the pre-crash assignments and a fresh
   liveness window; a runner that registers again on that partition takes
@@ -128,6 +134,20 @@ def replay_recovery_state(events: List[Dict[str, Any]]) -> ReplayedState:
     return state
 
 
+def block_lanes(events: List[Dict[str, Any]]) -> Dict[str, str]:
+    """Lane trial id -> its block's leader, for each trial whose latest
+    ``assigned`` edge put it in a block beside another leader."""
+    lanes: Dict[str, str] = {}
+    for ev in events:
+        if ev.get("ev") == "trial" and ev.get("phase") == "assigned" and ev.get("trial"):
+            leader = ev.get("block")
+            if leader is not None and leader != ev["trial"]:
+                lanes[ev["trial"]] = leader
+            else:
+                lanes.pop(ev["trial"], None)
+    return lanes
+
+
 def recover_optimization_driver(driver) -> Optional[Dict[str, Any]]:
     """Apply the journal's replayed state to a freshly constructed, resuming
     OptimizationDriver: rebuild the in-flight half of the trial store,
@@ -140,9 +160,11 @@ def recover_optimization_driver(driver) -> Optional[Dict[str, Any]]:
 
     if driver.telemetry.journal is None:
         return None
-    state = replay_recovery_state(driver.telemetry.events())
+    events = driver.telemetry.events()
+    state = replay_recovery_state(events)
     if not state.trials and not state.partitions:
         return None
+    lanes = block_lanes(events)
     with driver._store_lock:
         already_final = {t.trial_id: t for t in driver._final_store}
     # A FINAL's trial.json can land before the journal's barrier flushes its
@@ -192,7 +214,7 @@ def recover_optimization_driver(driver) -> Optional[Dict[str, Any]]:
             # in the journaled info): the rebuilt fork resumes from the same
             # fork point.
             restored_forks += 1
-        if facts.partition is not None:
+        if facts.partition is not None and facts.trial_id not in lanes:
             # The pre-crash holder: a live runner's retried FINAL matches,
             # a re-registered slot takes the BLACK path, a dead one's
             # silence requeues through the loss scan.

@@ -20,8 +20,9 @@ The state saved is anything ``torch.save`` writes with tensors and numbers
 in nested dicts, lists and tuples — typically ``{"model":
 model.state_dict(), "optimizer": optimizer.state_dict(), ...}``; a restore
 takes the same structure from a freshly built trainer as its template.
-Gang contexts and the vectorized ``LaneSet`` are not ported yet (ROADMAP
-queue 1 items 8 and 7).
+Gang contexts are not ported yet (ROADMAP queue 1 item 8). A train function
+that names ``lanes`` gets a ``LaneSet`` for a vectorized block instead of
+one trial (JAX ``:199-245``).
 """
 
 from __future__ import annotations
@@ -172,3 +173,47 @@ class TrialContext:
         if self._checkpointer is not None:
             self._checkpointer.close()
             self._checkpointer = None
+
+
+class LaneSet:
+    """The train function's view of a vectorized K-lane block
+    (``config.vmap_lanes`` > 1; JAX ``context.py:199-245``): the lanes'
+    hyperparameters to stack into a ``VmapTrainer``, the lanes the driver
+    stopped, and ``retire``, which sends a lane's own FINAL. A train
+    function opts in by naming a ``lanes`` parameter; without it the
+    executor runs the block's lanes one after another as scalar trials."""
+
+    def __init__(self, lanes, reporter, finalize):
+        # Lane descriptors in lane order: {"trial_id", "lane", "params",
+        # "span", "epoch", "fork_lane"} from the block's TRIAL info.
+        self.lanes = [dict(entry) for entry in lanes]
+        self.reporter = reporter
+        self._finalize = finalize
+        self._by_id = {entry["trial_id"]: i for i, entry in enumerate(self.lanes)}
+
+    def __len__(self) -> int:
+        return len(self.lanes)
+
+    @property
+    def trial_ids(self):
+        return [entry["trial_id"] for entry in self.lanes]
+
+    @property
+    def hparams(self):
+        """Each lane's params, in lane order."""
+        return [dict(entry.get("params") or {}) for entry in self.lanes]
+
+    def lane_of(self, trial_id: str) -> int:
+        return self._by_id[trial_id]
+
+    def take_stopped(self):
+        """Lane indices newly stopped by the driver, each once: mask them
+        (``VmapTrainer.mask_lane``), then ``retire`` each with its metric."""
+        return [self._by_id[tid] for tid in self.reporter.take_stopped_lanes()
+                if tid in self._by_id]
+
+    def retire(self, lane: int, metric) -> None:
+        """Send lane ``lane``'s FINAL now, mid-block: its span closes when it
+        stopped contributing, so the masked tail is billed as ``lane_idle``.
+        Lanes never retired here are finalized when the function returns."""
+        self._finalize(self.lanes[lane], metric)

@@ -25,6 +25,15 @@ downgrades the trial to a from-scratch run), the staging time lands in the
 stats as ``fork_load_ms``; and an ``EarlyStopException`` that a preempting
 STOP raised is acked with the trial's last checkpoint step instead of being
 finalized.
+
+Vectorized blocks (``config.vmap_lanes``; JAX `trial_executor.py:183-190,
+361-545`): an assignment stamped ``vmap_block`` delivers K lane trials at
+once. Each lane gets its own trial dir and ``.hparams.json``; a train
+function that names ``lanes`` runs them as one ``LaneSet`` (one vmapped
+step, ``train/vmap.py``) and returns a dict of metrics by lane trial id or
+a sequence in lane order; one without it runs them one after another as
+scalar trials. Either way every lane sends its own FINAL with its own run
+epoch, and only the last releases the partition.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from typing import Callable, Tuple
 
 from maggy_tpu_torch import util
 from maggy_tpu_torch.core.environment import EnvSing
-from maggy_tpu_torch.core.executors.context import TrialContext, info_needs_fresh_state
+from maggy_tpu_torch.core.executors.context import (LaneSet, TrialContext,
+                                                    info_needs_fresh_state)
 from maggy_tpu_torch.core.reporter import Reporter
 from maggy_tpu_torch.core.rpc import Client
 from maggy_tpu_torch.exceptions import EarlyStopException
@@ -77,6 +87,10 @@ class TrialExecutor:
                 trial_id, params = client.get_suggestion()
                 if trial_id is None:
                     break
+                if client.last_info.get("vmap_block"):
+                    self._run_vmap_block(trial_id, params, client, reporter, stats, env,
+                                         sig_params)
+                    continue
                 trial_dir = "{}/{}".format(self.exp_dir, trial_id)
                 env.mkdir(trial_dir)
                 env.dump(util.json_dumps_safe(params), trial_dir + "/.hparams.json")
@@ -131,6 +145,137 @@ class TrialExecutor:
                         ctx.close()
         finally:
             client.stop()
+
+    # ------------------------------------------------------ vectorized blocks
+
+    def _run_vmap_block(self, leader_id: str, params: dict, client, reporter, stats, env,
+                        sig_params) -> None:
+        """Run a K-lane block: one delivery, K trials. A train function that
+        names ``lanes`` trains them as one ``LaneSet``; otherwise they run
+        one after another (``_run_block_sequential``). Each lane sends its
+        own FINAL; the last (``last=True``) releases the partition and banks
+        the piggybacked next assignment (JAX `:361-451`)."""
+        info = client.last_info
+        lane_descs = list((info.get("vmap_block") or {}).get("lanes") or ())
+        if not lane_descs:
+            client.finalize_error(leader_id, reporter)
+            return
+        for entry in lane_descs:
+            lane_dir = "{}/{}".format(self.exp_dir, entry["trial_id"])
+            env.mkdir(lane_dir)
+            env.dump(util.json_dumps_safe(entry.get("params") or {}), lane_dir + "/.hparams.json")
+        if "lanes" not in sig_params:
+            self._run_block_sequential(leader_id, lane_descs, client, reporter, stats, env,
+                                       sig_params)
+            return
+        reporter.reset_lanes(leader_id, info.get("span"), lane_descs)
+        stats.trial_start(leader_id)
+        finalized = []
+
+        def finalize(entry, metric, last=False, error=False):
+            if entry["trial_id"] in finalized:
+                return
+            finalized.append(entry["trial_id"])
+            # A lane the function returned no metric for counts as failed.
+            metric = None if metric is None else float(metric)
+            error = error or metric is None
+            if not error:
+                lane_dir = "{}/{}".format(self.exp_dir, entry["trial_id"])
+                env.dump(util.json_dumps_safe({self.optimization_key: metric}),
+                         lane_dir + "/.outputs.json")
+                env.dump(str(float(metric)), lane_dir + "/.metric")
+            client.finalize_lane(entry["trial_id"], metric, reporter, lane=entry.get("lane", 0),
+                                 block=leader_id, epoch=entry.get("epoch"), last=last,
+                                 error=error)
+
+        call_params = dict(params)
+        call_params["lanes"] = LaneSet(lane_descs, reporter, finalize)
+        if "reporter" in sig_params:
+            call_params["reporter"] = reporter
+        try:
+            with warm.trial_scope(trial_id=leader_id, enabled=self.warm_start, stats=stats):
+                retval = self.train_fn(**call_params)
+            metrics = self._lane_metrics(retval, lane_descs)
+            remaining = [e for e in lane_descs if e["trial_id"] not in finalized]
+            for i, entry in enumerate(remaining):
+                finalize(entry, metrics.get(entry["trial_id"]), last=i == len(remaining) - 1)
+            if not remaining:
+                # Every lane retired mid-block: a release-shaped FINAL (the
+                # leader's id again, which the driver drops as a duplicate)
+                # frees the partition.
+                client.finalize_lane(leader_id, None, reporter, lane=0, block=leader_id,
+                                     epoch=lane_descs[0].get("epoch"), last=True)
+        except EarlyStopException:
+            if reporter.take_preempt():
+                reporter.log("Block {} preempted; all lanes requeue.".format(leader_id))
+                client.preempt_ack(leader_id, reporter, step=None)
+            else:
+                self._error_out_lanes(leader_id, lane_descs, finalized, client, reporter)
+        except Exception:  # noqa: BLE001 - report the block error, keep the runner
+            reporter.log("Block {} failed:\n{}".format(leader_id, traceback.format_exc()))
+            self._error_out_lanes(leader_id, lane_descs, finalized, client, reporter)
+        finally:
+            stats.trial_end(leader_id)
+
+    def _lane_metrics(self, retval, lane_descs) -> dict:
+        """A lanes train function's return as {trial_id: metric}: a dict by
+        lane trial id, or a sequence in lane order."""
+        if isinstance(retval, dict):
+            return {e["trial_id"]: retval.get(e["trial_id"]) for e in lane_descs}
+        if isinstance(retval, (list, tuple)) and len(retval) == len(lane_descs):
+            return {e["trial_id"]: float(v) for e, v in zip(lane_descs, retval)}
+        from maggy_tpu_torch.exceptions import ReturnTypeError
+
+        raise ReturnTypeError(self.optimization_key, retval)
+
+    def _error_out_lanes(self, leader_id, lane_descs, finalized, client, reporter) -> None:
+        """FINAL every unfinalized lane as an error (the last releases the
+        partition), or the release-shaped FINAL when none is left."""
+        remaining = [e for e in lane_descs if e["trial_id"] not in finalized]
+        for i, entry in enumerate(remaining):
+            finalized.append(entry["trial_id"])
+            client.finalize_lane(entry["trial_id"], None, reporter, lane=entry.get("lane", 0),
+                                 block=leader_id, epoch=entry.get("epoch"),
+                                 last=i == len(remaining) - 1, error=True)
+        if not remaining:
+            client.finalize_lane(leader_id, None, reporter, lane=0, block=leader_id,
+                                 epoch=lane_descs[0].get("epoch"), last=True)
+
+    def _run_block_sequential(self, leader_id: str, lane_descs, client, reporter, stats, env,
+                              sig_params) -> None:
+        """A block whose train function takes no ``lanes``: each lane runs as
+        an ordinary scalar trial on this runner, back to back, with its own
+        reporter reset and FINAL (JAX `:490-545`)."""
+        for i, entry in enumerate(lane_descs):
+            tid = entry["trial_id"]
+            last = i == len(lane_descs) - 1
+            lane = entry.get("lane", i)
+            lane_dir = "{}/{}".format(self.exp_dir, tid)
+            reporter.reset(trial_id=tid, span=entry.get("span"))
+            stats.trial_start(tid)
+            call_params = dict(entry.get("params") or {})
+            if "reporter" in sig_params:
+                call_params["reporter"] = reporter
+            try:
+                with warm.trial_scope(trial_id=tid, enabled=self.warm_start, stats=stats):
+                    retval = self.train_fn(**call_params)
+                metric = util.handle_return_val(retval, lane_dir, self.optimization_key, env)
+                client.finalize_lane(tid, metric, reporter, lane=lane, block=leader_id,
+                                     epoch=entry.get("epoch"), last=last)
+            except EarlyStopException as e:
+                if reporter.take_preempt():
+                    client.preempt_ack(leader_id, reporter, step=None)
+                    return
+                env.dump(util.json_dumps_safe({self.optimization_key: e.metric}),
+                         lane_dir + "/.outputs.json")
+                client.finalize_lane(tid, e.metric, reporter, lane=lane, block=leader_id,
+                                     epoch=entry.get("epoch"), last=last)
+            except Exception:  # noqa: BLE001 - report the lane error, run the rest
+                reporter.log("Lane trial {} failed:\n{}".format(tid, traceback.format_exc()))
+                client.finalize_lane(tid, None, reporter, lane=lane, block=leader_id,
+                                     epoch=entry.get("epoch"), last=last, error=True)
+            finally:
+                stats.trial_end(tid)
 
     def _stage_fork(self, ctx, trial_id: str, trial_dir: str, client, reporter,
                     stats) -> None:

@@ -9,7 +9,7 @@ set the flag (:78-102); `log()` buffered for heartbeat shipping (:104-133);
 `early_stop()` armed only after a reported metric (:158-161); a STOP that
 carries ``preempt`` marks the stop as a scheduler preemption, which the
 executor consumes with ``take_preempt`` (``maggy_tpu/core/reporter.py:
-36-39, 299-336``; the vectorized lanes are not ported). Each
+36-39, 299-336``). Each
 broadcast is counted in the runner's telemetry stats when the user makes it
 (``maggy_tpu/core/reporter.py:115``).
 
@@ -18,6 +18,15 @@ the training thread never waits on the device. The heartbeat thread starts
 an asynchronous device-to-host copy of the newest loss, ships the newest
 value already on the host meanwhile, and reads the copy on a later beat
 once its CUDA event has completed (the driver dedups by step).
+
+A vectorized K-lane block (``train/vmap.py``; JAX ``reporter.py:45-55,
+122-186, 261-319, 349-368``) arms the reporter with ``reset_lanes``; the
+training loop reports the block's ``[K]`` loss vector with
+``broadcast_lanes``, kept lazy and read on the heartbeat thread through
+the same event check, and shipped as one lane-tagged entry per live lane.
+A driver stop of one lane arrives through ``stop_lanes`` and never raises:
+the loop polls ``take_stopped_lanes`` and masks the lane. Only a
+preempting (whole-block) stop raises.
 """
 
 from __future__ import annotations
@@ -32,13 +41,15 @@ from maggy_tpu_torch import exceptions
 
 
 class _HostCopy:
-    """An in-flight device-to-host copy of one lazy metric tensor."""
+    """An in-flight device-to-host copy of one lazy metric tensor (a scalar,
+    or a block's [K] loss vector)."""
 
     def __init__(self, metric: torch.Tensor):
         self.metric = metric
-        self.host = torch.empty((), dtype=metric.dtype, pin_memory=True)
+        shape = () if metric.numel() == 1 else tuple(metric.shape)
+        self.host = torch.empty(shape, dtype=metric.dtype, pin_memory=True)
         with torch.cuda.device(metric.device):
-            self.host.copy_(metric.detach().reshape(()), non_blocking=True)
+            self.host.copy_(metric.detach().reshape(shape), non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
 
@@ -68,6 +79,17 @@ class Reporter:
         # (metric object, float value, step) of the newest materialized value.
         self._metric_cache = None  # guarded-by: lock
         self._copy: Optional[_HostCopy] = None  # guarded-by: lock
+        # ---- a vectorized K-lane block (train/vmap.py) ----
+        # Lane descriptors in lane order ({"trial_id", "span", "lane"}), or
+        # None for a scalar trial.
+        self._lanes: Optional[List[Dict[str, Any]]] = None  # guarded-by: lock
+        self._lane_vec = None  # guarded-by: lock  # lazy [K] loss vector
+        self._lane_step: Optional[int] = None  # guarded-by: lock
+        self._lane_cache = None  # guarded-by: lock  # (vector, [floats], step)
+        self._lane_copy: Optional[_HostCopy] = None  # guarded-by: lock
+        # Lane trial ids the driver stopped; _new: not yet taken by the loop.
+        self._lane_stops: set = set()  # guarded-by: lock
+        self._lane_stops_new: set = set()  # guarded-by: lock
 
     # ------------------------------------------------------------- user API
 
@@ -111,6 +133,63 @@ class Reporter:
             if self._stop_flag:
                 raise exceptions.EarlyStopException(self._materialize(self.metric))
 
+    def broadcast_lanes(self, values, step: Optional[int] = None) -> None:
+        """Report a K-lane block's loss vector (``VmapTrainer.step``'s
+        output: K entries, masked lanes included; they are dropped at ship
+        time), kept lazy like ``broadcast``. Raises ``EarlyStopException``
+        only when the whole block is stopped (a preemption): a lane's stop
+        surfaces through ``take_stopped_lanes``."""
+        with self.lock:
+            if self._lanes is None:
+                raise exceptions.BroadcastMetricTypeError(values)
+            shape = getattr(values, "shape", None)
+            n = shape[0] if shape else len(values)
+            if (shape is not None and len(shape) != 1) or n != len(self._lanes):
+                raise exceptions.BroadcastMetricTypeError(values)
+            if step is not None and (not isinstance(step, (int, np.integer))
+                                     or isinstance(step, bool)):
+                raise exceptions.BroadcastStepTypeError(step)
+            if step is None:
+                step = self._lane_step + 1 if self._lane_step is not None else 0
+            elif self._lane_step is not None and step <= self._lane_step:
+                raise exceptions.BroadcastStepValueError(step, self._lane_step)
+            self._lane_vec = values
+            self._lane_step = int(step)
+            # The leader's beat is step-aligned with the lanes: code keyed on
+            # "has this trial reported" (stop arming) reads the scalar step.
+            self.step = self._lane_step
+            stats = self.stats
+            if stats is not None:
+                stats.on_broadcast(self._lane_step)
+            if self._stop_flag:
+                raise exceptions.EarlyStopException(None)
+
+    def stop_lanes(self, trial_ids) -> None:
+        """Flag lanes of the current block for early stop (the heartbeat
+        thread applies the server's ``stop_lanes`` reply here); unknown ids
+        are ignored."""
+        with self.lock:
+            if not self._lanes:
+                return
+            known = {entry["trial_id"] for entry in self._lanes}
+            for tid in trial_ids or ():
+                if tid in known and tid not in self._lane_stops:
+                    self._lane_stops.add(tid)
+                    self._lane_stops_new.add(tid)
+
+    def take_stopped_lanes(self) -> List[str]:
+        """Newly stopped lane trial ids, each returned once: the loop masks
+        them (``VmapTrainer.mask_lane``) and retires each with its metric."""
+        with self.lock:
+            fresh = sorted(self._lane_stops_new)
+            self._lane_stops_new = set()
+            return fresh
+
+    def stopped_lanes(self) -> List[str]:
+        """Every lane trial id stopped so far this block."""
+        with self.lock:
+            return sorted(self._lane_stops)
+
     @staticmethod
     def _materialize(metric):
         """Lazy value -> float (waits for the step that produced it)."""
@@ -145,12 +224,57 @@ class Reporter:
                     if self.trial_id == tid:
                         self._metric_cache = (metric, value, step)
                 metric = value
+        lanes_out = self._lane_data(tid)
         with self.lock:
             logs = self._log_buffer
             self._log_buffer = []
             span = self.span if self.trial_id == tid else None
-        return {"metric": metric, "step": step, "logs": logs, "trial_id": tid,
+        data = {"metric": metric, "step": step, "logs": logs, "trial_id": tid,
                 "span": span}
+        if lanes_out is not None:
+            data["lanes"] = lanes_out
+        return data
+
+    def _lane_data(self, tid) -> Optional[List[Dict[str, Any]]]:
+        """The newest lane vector as lane-tagged beat entries, one per live
+        lane; None outside a block or before its first broadcast, or while
+        a CUDA vector's first host copy is in flight. One [K] copy replaces
+        K scalar reads."""
+        with self.lock:
+            lanes, vec, vstep = self._lanes, self._lane_vec, self._lane_step
+            stops = set(self._lane_stops)
+            cached = self._lane_cache
+        if lanes is None or vec is None:
+            return None
+        if cached is not None and cached[0] is vec:
+            values, vstep = cached[1], cached[2]
+        elif isinstance(vec, torch.Tensor) and vec.is_cuda:
+            with self.lock:
+                if self.trial_id != tid:
+                    return None
+                copy = self._lane_copy
+                if copy is None or copy.metric is not vec:
+                    copy = self._lane_copy = _HostCopy(vec)
+            if not copy.ready():
+                if cached is None:
+                    return None
+                values, vstep = cached[1], cached[2]
+            else:
+                values = [float(v) for v in copy.host.reshape(-1).tolist()]
+                with self.lock:
+                    if self.trial_id == tid:
+                        self._lane_cache = (vec, values, vstep)
+                        self._lane_copy = None
+        else:
+            flat = vec.detach().reshape(-1).tolist() if isinstance(vec, torch.Tensor) \
+                else np.asarray(vec).reshape(-1)
+            values = [float(v) for v in flat]
+            with self.lock:
+                if self.trial_id == tid:
+                    self._lane_cache = (vec, values, vstep)
+        return [{"trial_id": entry["trial_id"], "value": values[i], "step": vstep,
+                 "span": entry.get("span"), "lane": entry.get("lane", i)}
+                for i, entry in enumerate(lanes) if entry["trial_id"] not in stops]
 
     def _poll_device(self, metric, step, tid, cached):
         """Non-blocking read of a CUDA metric: start its host copy, or read
@@ -177,8 +301,22 @@ class Reporter:
         """Arm the stop flag (only once a metric exists). ``trial_id``, when
         given, must match the current trial: a STOP reply to a heartbeat
         about the PREVIOUS trial must not stop its successor. ``preempt``
-        marks the stop as a scheduler preemption."""
+        marks the stop as a scheduler preemption. In a block, a preempting
+        stop stops the whole block and a plain one goes to the lane's mask
+        (``stop_lanes``)."""
         with self.lock:
+            if self._lanes is not None:
+                lane_ids = {entry["trial_id"] for entry in self._lanes}
+                if trial_id is not None and trial_id != self.trial_id \
+                        and trial_id not in lane_ids:
+                    return
+                if preempt:
+                    if self._lane_step is not None or self.metric is not None:
+                        self._stop_flag = True
+                        self._preempt_flag = True
+                elif trial_id is not None:
+                    self.stop_lanes([trial_id])
+                return
             if trial_id is not None and trial_id != self.trial_id:
                 return
             if self.metric is not None:
@@ -206,3 +344,20 @@ class Reporter:
             self.span = span
             self._metric_cache = None
             self._copy = None
+            self._lanes = None
+            self._lane_vec = None
+            self._lane_step = None
+            self._lane_cache = None
+            self._lane_copy = None
+            self._lane_stops = set()
+            self._lane_stops_new = set()
+
+    def reset_lanes(self, trial_id: str, span: Optional[str],
+                    lanes: List[Dict[str, Any]]) -> None:
+        """Arm the reporter for a K-lane block: ``trial_id`` and ``span``
+        are the block leader's (the partition's assignment), ``lanes`` the
+        per-lane descriptors of the TRIAL reply's ``vmap_block``."""
+        self.reset(trial_id=trial_id, span=span)
+        with self.lock:
+            self._lanes = [{"trial_id": entry["trial_id"], "span": entry.get("span"),
+                            "lane": entry.get("lane", i)} for i, entry in enumerate(lanes)]

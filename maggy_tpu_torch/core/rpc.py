@@ -13,6 +13,14 @@ trial, and the runner acks with a FINAL marked ``preempted`` that carries its
 last checkpoint step. Parity: reference `maggy/core/rpc.py` (:35-113,
 :116-162, :250-286, :295-437, :440-593).
 
+Vectorized blocks (JAX `rpc.py:1333-1389, 1413-1428, 1514-1532, 1893-1939,
+2083-2100`): a block's TRIAL reply journals a ``running`` edge for every
+lane; its heartbeat carries ``lanes``, one lane-tagged metric a live lane,
+and a lane's early stop is answered with ``stop_lanes`` (the runner masks
+the lane), a STOP being kept for a preemption of the whole block; each lane
+sends its own FINAL with its own run epoch, and only the last (``last``)
+clears the partition, by the block leader's id, and gets the hand-off.
+
 Telemetry rides the same places as in the JAX package (`rpc.py:433-488,
 :663-675, :1306-1529, :1918-1925`): the TELEM verb answers with the
 driver's telemetry snapshot, every verb's service time lands in an
@@ -451,11 +459,17 @@ class OptimizationServer(Server):
             # shape it always did.
             telem.record_runner_stats(pid, rstats)
         trial_id = msg.get("trial_id")
-        if trial_id is not None and self.reservations.get_assigned_trial(pid) != trial_id:
+        assigned = self.reservations.get_assigned_trial(pid)
+        if trial_id is not None and assigned != trial_id and (
+                assigned is None or self.driver.block_leader(trial_id) != assigned):
             # A runner declared lost keeps beating if it was only slow: its
-            # metric must not enter the history of the trial's re-run.
-            msg = {**msg, "value": None}
+            # metric must not enter the history of the trial's re-run (a
+            # lane of a block the partition holds is its own).
+            msg = {k: v for k, v in msg.items() if k != "lanes"}
+            msg["value"] = None
         self.driver.enqueue(dict(msg))
+        if msg.get("lanes"):
+            return self._metric_lanes(msg, trial_id)
         trial = self.driver.get_trial(trial_id) if trial_id else None
         if trial is not None and trial.get_early_stop():
             if telem is not None:
@@ -467,6 +481,33 @@ class OptimizationServer(Server):
             # checkpoint step instead of finalizing (JAX `rpc.py:1351-1355`).
             return {"type": "STOP", "preempt": trial.get_preempt()}
         return {"type": "OK"}
+
+    def _metric_lanes(self, msg, leader_id):
+        """The reply to a block's beat: ``stop_lanes`` names the lanes the
+        driver stopped (the runner masks them; the block keeps running), and
+        a STOP is kept for a preemption, which stops the whole block (JAX
+        `rpc.py:1358-1389`)."""
+        telem = self.telemetry
+        stop_lanes, preempt = [], False
+        for beat in msg["lanes"]:
+            lane_trial = self.driver.get_trial(beat.get("trial_id"))
+            if lane_trial is None or not lane_trial.get_early_stop():
+                continue
+            if lane_trial.get_preempt():
+                preempt = True
+                continue
+            stop_lanes.append(beat["trial_id"])
+            if telem is not None:
+                # once: the lane appears in beats until the loop masks it.
+                telem.trial_event(beat["trial_id"], "stop_sent", once=True,
+                                  partition=int(msg["partition_id"]), lane=beat.get("lane"))
+        leader = self.driver.get_trial(leader_id) if leader_id else None
+        if preempt or (leader is not None and leader.get_early_stop() and leader.get_preempt()):
+            return {"type": "STOP", "preempt": True}
+        reply = {"type": "OK"}
+        if stop_lanes:
+            reply["stop_lanes"] = stop_lanes
+        return reply
 
     def _final(self, msg):
         """The FINAL handler with its durability barrier, run after the
@@ -491,11 +532,20 @@ class OptimizationServer(Server):
         pid = msg["partition_id"]
         self.reservations.touch(pid)
         self._note_adopted(pid)
+        if msg.get("block") is not None and not msg.get("last"):
+            # A lane's FINAL before the block's last: the partition still
+            # holds the block, so no clear and no hand-off; the driver
+            # reports the lane to the controller now.
+            if not self.driver.process_final_inline(msg):
+                self.driver.enqueue(dict(msg))
+            return {"type": "OK"}
         self._final_at[pid] = time.monotonic()
         # Conditional: a retried FINAL must not wipe the next assignment. A
         # FINAL of a run declared lost finds its assignment already cleared
-        # by the scan, and the driver drops it by its stale run epoch.
-        self.reservations.clear_trial_if(pid, msg.get("trial_id"))
+        # by the scan, and the driver drops it by its stale run epoch. A
+        # block's last lane clears by the leader, whose id the partition
+        # holds.
+        self.reservations.clear_trial_if(pid, msg.get("block") or msg.get("trial_id"))
         if not self.driver.process_final_inline(msg):
             self.driver.enqueue(dict(msg))
             return {"type": "OK"}
@@ -552,6 +602,23 @@ class OptimizationServer(Server):
                 {"handoff_ms": (time.monotonic() - t_final) * 1e3}
             telem.trial_event(trial.trial_id, "running", partition=int(partition_id),
                               epoch=info.get("epoch"), **extra)
+        for entry in (info.get("vmap_block") or {}).get("lanes", ()):
+            # A block's lanes enter RUNNING with the leader, each with a
+            # running edge of its own, so every lane's span closes.
+            if entry["trial_id"] == trial.trial_id:
+                continue
+            lane_trial = self.driver.get_trial(entry["trial_id"])
+            if lane_trial is None:
+                continue
+            lane_trial.set_status(Trial.RUNNING)
+            with lane_trial.lock:
+                lane_trial.start = time.time()
+                lane_trial.info_dict["partition"] = partition_id
+                lane_trial.info_dict["epoch"] = lane_trial.run_epoch
+            if telem is not None:
+                telem.trial_event(entry["trial_id"], "running", partition=int(partition_id),
+                                  epoch=entry.get("epoch"), lane=entry.get("lane"),
+                                  block=trial.trial_id)
         return {"type": "TRIAL", "trial_id": trial.trial_id,
                 "params": trial.params, "info": info}
 
@@ -656,6 +723,9 @@ class Client:
                 payload = {"type": "METRIC", "trial_id": sent_tid, "value": data["metric"],
                            "step": data["step"], "logs": data["logs"],
                            "span": data.get("span")}
+                if data.get("lanes"):
+                    # A block's beat: one lane-tagged entry a live lane.
+                    payload["lanes"] = data["lanes"]
                 stats = self.runner_stats
                 delta = stats.snapshot_delta() if stats is not None else None
                 if delta:
@@ -676,6 +746,10 @@ class Client:
                     # Only stop the trial the beat was ABOUT: the runner may
                     # have rolled over to the next trial meanwhile.
                     reporter.early_stop(trial_id=sent_tid, preempt=bool(resp.get("preempt")))
+                elif resp.get("stop_lanes"):
+                    # Lanes of the block the driver stopped: the training
+                    # loop masks them in place.
+                    reporter.stop_lanes(resp["stop_lanes"])
                 self._hb_stop.wait(self.hb_interval)
 
         self._hb_thread = threading.Thread(target=beat, daemon=True, name="heartbeat")
@@ -710,14 +784,31 @@ class Client:
         (reference `rpc.py:584-593`); bank a piggybacked TRIAL or GSTOP."""
         with reporter.lock:
             data = reporter.get_data()
-            resp = self._request({**payload, "type": "FINAL", "logs": data["logs"],
-                                  "epoch": self.last_info.get("epoch")})
+            resp = self._request({"epoch": self.last_info.get("epoch"), **payload,
+                                  "type": "FINAL", "logs": data["logs"]})
             reporter.reset()
+        self._bank(resp)
+        return resp
+
+    def finalize_lane(self, trial_id: str, metric, reporter, *, lane: int, block: str,
+                      epoch=None, last: bool = False, error: bool = False) -> Dict[str, Any]:
+        """One lane's FINAL of a K-lane block, with the LANE's run epoch (the
+        leader's would let a stale lane FINAL past the driver's epoch
+        guard). Only the ``last`` releases the partition, resets the
+        reporter and banks the reply's hand-off (JAX `rpc.py:2083-2108`)."""
+        payload = {"trial_id": trial_id, "value": None if error else metric, "epoch": epoch,
+                   "lane": int(lane), "block": block, "last": bool(last)}
+        if error:
+            payload["error"] = True
+        if last:
+            return self._finalize(payload, reporter)
+        return self._request({**payload, "type": "FINAL", "logs": []})
+
+    def _bank(self, resp: Dict[str, Any]) -> None:
         if resp.get("type") == "TRIAL":
             self._piggyback = (resp["trial_id"], resp["params"], resp.get("info", {}))
         elif resp.get("type") == "GSTOP":
             self.done = True
-        return resp
 
     def finalize_metric(self, metric, reporter) -> Dict[str, Any]:
         return self._finalize({"trial_id": reporter.trial_id, "value": metric}, reporter)

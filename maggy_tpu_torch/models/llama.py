@@ -31,7 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from maggy_tpu_torch.models.moe import MoEMLP
-from maggy_tpu_torch.models.params import init_targets
+from maggy_tpu_torch.models.params import check_device, init_targets
 from maggy_tpu_torch.ops.attention import multi_head_attention
 
 #: flax's lecun_normal draws a standard normal truncated at +-2 and divides
@@ -117,11 +117,14 @@ def rope(x, positions, theta: float):
 class LoRADense(nn.Module):
     """Bias-free dense layer with an optional low-rank adapter:
     y = x W^T + (x A) B * alpha / r, every factor cast to the compute dtype
-    first. ``train.lora.only_lora`` trains only ``lora_a``/``lora_b``."""
+    first. ``train.lora.only_lora`` trains only ``lora_a``/``lora_b``.
+    ``device`` defaults to the card and raises without one unless it is
+    "cpu" (or "meta")."""
 
     def __init__(self, in_dim: int, features: int, cfg: LlamaConfig, lora_rank: int,
-                 device=None):
+                 device="cuda"):
         super().__init__()
+        device = check_device(device)
         self.compute_dtype = cfg.dtype
         self.weight = nn.Parameter(torch.empty(features, in_dim, dtype=cfg.param_dtype,
                                                device=device))
@@ -142,7 +145,7 @@ class LoRADense(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         H, r = cfg.hidden_dim, cfg.lora_rank
@@ -165,7 +168,7 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         H, M = cfg.hidden_dim, cfg.intermediate_dim
         self.gate_proj = LoRADense(H, M, cfg, 0, device)
@@ -177,7 +180,7 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.hidden_dim, cfg.norm_eps, cfg.param_dtype, device)

@@ -5,7 +5,7 @@ layouts (q [B,Sq,H,D], k/v [B,Sk,Hkv,D], GQA when Hkv < H, a [B,Sk]
 key-padding keep-mask, bottom-right causal alignment when Sq != Sk):
 
 - ``attention_reference``: direct fp32 softmax attention.
-- ``flash_attention``: a ``torch.autograd.Function`` over three kernels,
+- ``flash_attention``: ``torch.autograd.Function``s over three kernels,
   ``flash_fwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (CUDA C++ in
   ``csrc/flash_attn.cu``), replacing the Pallas ``_flash_fwd_kernel``,
   ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``. Each wrapper
@@ -23,6 +23,11 @@ key-padding keep-mask, bottom-right causal alignment when Sq != Sk):
   fp32 tolerance. The autograd backward runs dQ first: given the forward's
   output, the dQ kernel computes delta = rowsum(dO * O) for its rows and
   hands it to dK/dV.
+
+  Under ``torch.func.vmap`` (the vectorized lanes, ``train/vmap.py``)
+  each Function's batching rule folds the lane axis into the batch axis
+  and launches once for all lanes; ``torch.func.grad`` runs the same
+  backward.
 
   The causal tile skip runs at CAUSAL_SKIP_BLOCK = 128, the JAX package's
   tile size, whatever tile a kernel computes in: a fully masked causal row
@@ -393,21 +398,101 @@ def _row_delta(do, out):
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _fold(x, dim, lanes):
+    """One argument of a batching rule -> its lanes folded into the batch
+    axis: [K, B, ...] -> [K*B, ...] (lane-major), contiguous. An unbatched
+    argument (``dim`` None: a key mask broadcast across the lanes) is
+    repeated K times; None stays None."""
+    if x is None:
+        return None
+    if dim is None:
+        return x.repeat((lanes,) + (1,) * (x.ndim - 1))
+    x = x.movedim(dim, 0)
+    return x.reshape((lanes * x.shape[1],) + tuple(x.shape[2:])).contiguous()
+
+
+def _unfold(x, lanes):
+    """[K*B, ...] -> [K, B, ...]: a batching rule's output, lane dim 0."""
+    return x.reshape((lanes, x.shape[0] // lanes) + tuple(x.shape[1:]))
+
+
 class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, mask, causal):
-        out, lse = flash_fwd(q, k, v, mask, causal)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
-        ctx.causal = causal
-        return out
+    """(out, lse) of the forward kernel. New-style (``setup_context``) so
+    that it runs under ``torch.func`` transforms; its ``vmap`` rule folds
+    the lane axis into the batch axis, so one launch serves every lane (the
+    JAX package's ``pallas_call`` batches under ``jax.vmap`` the same way).
+    The backward calls the two backward Functions below, which carry vmap
+    rules of their own: under ``vmap(grad(f))`` it runs on the lanes'
+    batched tensors, whose memory only a batching rule can hand a kernel."""
 
     @staticmethod
-    def backward(ctx, do):
+    def forward(q, k, v, mask, causal):
+        return flash_fwd(q, k, v, mask, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, mask, causal = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        del dlse  # lse is not differentiable
         q, k, v, mask, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        dq, delta = flash_bwd_dq(q, k, v, do, lse, None, mask, ctx.causal, out=out)
-        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, mask, ctx.causal)
+        dq, delta = _FlashBwdDq.apply(q, k, v, do, lse, mask, out, ctx.causal)
+        dk, dv = _FlashBwdDkdv.apply(q, k, v, do, lse, delta, mask, ctx.causal)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, causal):
+        K = info.batch_size
+        dq, dk, dv, dm = in_dims[:4]
+        out, lse = _FlashAttention.apply(_fold(q, dq, K), _fold(k, dk, K), _fold(v, dv, K),
+                                         _fold(mask, dm, K), causal)
+        return (_unfold(out, K), _unfold(lse, K)), (0, 0)
+
+
+class _FlashBwdDq(torch.autograd.Function):
+    """(dQ, delta) of the dQ kernel in the mode that computes delta =
+    rowsum(dO * O) from the forward's output. No backward: no path takes a
+    second derivative."""
+
+    @staticmethod
+    def forward(q, k, v, do, lse, mask, out, causal):
+        return flash_bwd_dq(q, k, v, do, lse, None, mask, causal, out=out)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, lse, mask, out, causal):
+        K = info.batch_size
+        args = [_fold(x, d, K) for x, d in zip((q, k, v, do, lse, mask, out), in_dims)]
+        dq, delta = _FlashBwdDq.apply(*args, causal)
+        return (_unfold(dq, K), _unfold(delta, K)), (0, 0)
+
+
+class _FlashBwdDkdv(torch.autograd.Function):
+    """(dK, dV) of the dK/dV kernel given delta. No backward."""
+
+    @staticmethod
+    def forward(q, k, v, do, lse, delta, mask, causal):
+        return flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, lse, delta, mask, causal):
+        K = info.batch_size
+        args = [_fold(x, d, K) for x, d in zip((q, k, v, do, lse, delta, mask), in_dims)]
+        dk, dv = _FlashBwdDkdv.apply(*args, causal)
+        return (_unfold(dk, K), _unfold(dv, K)), (0, 0)
 
 
 def flash_attention(q, k, v, mask=None, causal: bool = True):
@@ -417,8 +502,9 @@ def flash_attention(q, k, v, mask=None, causal: bool = True):
     unskipped tiles (all Sk keys when not causal); such rows are padding and
     must be excluded from the loss."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    return _FlashAttention.apply(q, k, v, _canon_mask(mask, q.shape[0], k.shape[1]),
-                                 causal)
+    out, _ = _FlashAttention.apply(q, k, v, _canon_mask(mask, q.shape[0], k.shape[1]),
+                                   causal)
+    return out
 
 
 # ------------------------------------------------- ring-attention building blocks

@@ -1,7 +1,7 @@
 """ASHA — Asynchronous Successive Halving (arXiv:1810.05934).
 
-Copy of ``maggy_tpu/optimizers/asha.py`` without the vectorized-lane rung
-drain; its checkpoint-fork GC (``fork_gc_eligible``, JAX `asha.py:190-215`)
+Copy of ``maggy_tpu/optimizers/asha.py``, with the vectorized lanes' rung
+drain (JAX `asha.py:57-62, 130-158`); its checkpoint-fork GC (``fork_gc_eligible``, JAX `asha.py:190-215`)
 and its resume (``restore``, ``restore_from_finals``, JAX `:219-256`) are
 ported. As in the JAX package, the restore leaves ``rng`` where a fresh
 controller starts it: a seeded ASHA resumed after a crash draws its rung-0
@@ -50,6 +50,10 @@ class Asha(AbstractOptimizer):
             self.max_rung += 1
         # A survivor reached the top rung: the experiment is over.
         self._exhausted = False
+        # K-at-a-time rung drain (config.vmap_lanes > 1, which the driver
+        # sets as ``self.vmap_lanes``): once a drain starts, the promotable
+        # backlog empties before rung-0 sampling resumes.
+        self._draining = False
 
     def initialize(self) -> None:
         # rf^max_rung rung-0 samples are the minimum that lets one trial
@@ -90,20 +94,26 @@ class Asha(AbstractOptimizer):
         if parent is not None and rung > 0 and parent in self.promoted.get(rung - 1, []):
             self.promoted[rung - 1].remove(parent)
 
-    def _promotable(self):
-        """Top-down scan for a promotable (not-yet-promoted) trial: (rung,
-        parent_id), best metric first within a rung, or None."""
+    def _promotable_all(self) -> List[tuple]:
+        """Every promotable (rung, parent_id), top rung first and best
+        metric first within a rung: the order of both the single-step scan
+        and the drain."""
         metrics = self.get_metrics_dict()  # normalized: lower is better
+        out: List[tuple] = []
         for rung in sorted(self.rungs.keys(), reverse=True):
             if rung >= self.max_rung:
                 continue
             finalized = [tid for tid in self.rungs[rung] if tid in metrics]
             k = len(finalized) // self.reduction_factor
             top_k = sorted(finalized, key=lambda tid: metrics[tid])[:k]
-            for tid in top_k:
-                if tid not in self.promoted.get(rung, []):
-                    return rung, tid
-        return None
+            out.extend((rung, tid) for tid in top_k if tid not in self.promoted.get(rung, []))
+        return out
+
+    def _promotable(self):
+        """Top-down scan for a promotable (not-yet-promoted) trial: (rung,
+        parent_id), best metric first within a rung, or None."""
+        candidates = self._promotable_all()
+        return candidates[0] if candidates else None
 
     def _rung0_budget_left(self) -> bool:
         sampled = sum(1 for t in self.final_store if t.info_dict.get("rung", 0) == 0)
@@ -114,14 +124,27 @@ class Asha(AbstractOptimizer):
     def suggest(self):
         if self._exhausted:
             return None  # a survivor reached the top — experiment done
-        promotable = self._promotable()
-        if promotable is not None:
-            rung, parent_id = promotable
-            self.promoted.setdefault(rung, []).append(parent_id)
-            params = self._strip_budget(self._lookup_params(parent_id))
-            params["budget"] = self.rung_budget(rung + 1)
-            return Trial(params, info_dict={"sample_type": "promoted",
-                                            "rung": rung + 1, "parent": parent_id})
+        promotable = self._promotable_all()
+        if promotable:
+            # The rung drain under vectorized lanes: a lone promotion (it
+            # restores a checkpoint, so it never rides a block) would split
+            # the rung-0 stream that blocks assemble from. While rung-0
+            # sampling can still fill lanes, promotions wait until K pile
+            # up, then the backlog drains back to back. With one lane they
+            # go at once, the scalar schedule.
+            lanes = max(1, int(getattr(self, "vmap_lanes", 1) or 1))
+            defer = (lanes > 1 and not self._draining and len(promotable) < lanes
+                     and self._rung0_budget_left())
+            if not defer:
+                self._draining = len(promotable) > 1
+                rung, parent_id = promotable[0]
+                self.promoted.setdefault(rung, []).append(parent_id)
+                params = self._strip_budget(self._lookup_params(parent_id))
+                params["budget"] = self.rung_budget(rung + 1)
+                return Trial(params, info_dict={"sample_type": "promoted",
+                                                "rung": rung + 1, "parent": parent_id})
+        else:
+            self._draining = False
         if not self._rung0_budget_left():
             # Everything sampled; wait for in-flight trials to enable promotion.
             return "IDLE" if self.trial_store else None

@@ -158,9 +158,9 @@ class BaseAsyncBO(AbstractOptimizer):
 
     #: Weight of the warm-neighbor acquisition discount: a candidate near an
     #: executed config is favored because it is cheaper to evaluate (it
-    #: forks the neighbor's checkpoint), not better. The port has no
-    #: vectorized lanes (ROADMAP queue 1 item 7), so every fork is a scalar
-    #: checkpoint fork, which gets half this weight (JAX `base.py:199-206`).
+    #: forks the neighbor's checkpoint, or under ``config.vmap_lanes`` > 1
+    #: rides its family as a fork lane in a block), not better. A scalar
+    #: checkpoint fork gets half this weight (JAX `base.py:170-212`).
     FORK_DISCOUNT = 0.25
 
     def warm_neighbor_proximity(self, X_cand) -> Optional[np.ndarray]:
@@ -183,8 +183,11 @@ class BaseAsyncBO(AbstractOptimizer):
         return np.clip(1.0 - d / float(self.fork_eps), 0.0, 1.0)
 
     def fork_discount_weight(self) -> float:
-        """The discount weight of a scalar checkpoint fork."""
-        return self.FORK_DISCOUNT * 0.5
+        """The discount weight: full under vectorized lanes (the driver sets
+        ``vmap_lanes`` on the controller; a fork lane shares its parent's
+        block), half for a scalar checkpoint fork."""
+        lanes = max(1, int(getattr(self, "vmap_lanes", 1) or 1))
+        return self.FORK_DISCOUNT * (1.0 if lanes > 1 else 0.5)
 
     def _near_duplicate(self, trial: Trial) -> Optional[str]:
         """The nearest finalized trial within ``fork_eps``, or None."""

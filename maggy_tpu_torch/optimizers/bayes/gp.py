@@ -81,7 +81,8 @@ class GP(BaseAsyncBO):
             else X_cand
         values = self.acquisition.evaluate(X_acq, model, y_opt)
         # Warm-neighbor discount (fork_eps): candidates near an executed
-        # config are cheaper (a checkpoint fork), so tilt the lower-is-better
+        # config are cheaper (a checkpoint fork, or under config.vmap_lanes
+        # a fork lane in the parent's block), so tilt the lower-is-better
         # acquisition toward them, scaled by its spread so the tilt is a
         # preference, never a takeover of the ranking.
         prox = self.warm_neighbor_proximity(X_cand)

@@ -112,7 +112,8 @@ class TPE(BaseAsyncBO):
             )
             # Warm-neighbor discount (fork_eps): the l/g ratio is higher-is-
             # better, so a candidate near an executed config (a checkpoint
-            # fork) gets a multiplicative boost. Proximity is measured in the
+            # fork, or a fork lane in the parent's block) gets a
+            # multiplicative boost. Proximity is measured in the
             # searchspace's normalized transform, not the KDE's encoding.
             prox = None
             if weight > 0 and self.fork_eps is not None:

@@ -9,9 +9,10 @@ a LambdaLR whose factor at step t is that schedule's value, so update t
 uses schedule(t) exactly as optax's step counter does.
 
 A factory's builder also carries ``scheduler`` (optimizer -> this
-builder's LambdaLR over it) and ``kwargs`` (its AdamW arguments), which the
-warm path (``train/warm.py``) reads to hand a retired optimizer to the next
-trial. ``swept_transform`` is the counterpart of
+builder's LambdaLR over it), ``schedule`` (step -> learning rate) and
+``kwargs`` (its AdamW arguments), which the warm path (``train/warm.py``)
+reads to hand a retired optimizer to the next trial and the vectorized
+lanes (``train/vmap.py``) read to drive one AdamW param group a lane. ``swept_transform`` is the counterpart of
 ``maggy_tpu/train/trainer.py:354-405``: see its docstring for which
 hyperparameters ride tensors and which are baked into the family.
 """
@@ -66,6 +67,7 @@ def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.
         return opt, build.scheduler(opt)
 
     build.scheduler = lambda opt: torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+    build.schedule = schedule
     build.kwargs = kwargs
     return build
 

@@ -106,6 +106,54 @@ def _copy_into(static, batch) -> None:
         static.copy_(torch.as_tensor(batch), non_blocking=True)
 
 
+def capture_step(slot, unit, device, batch, run):
+    """Capture ``run(inputs)`` (one training step on copies of ``batch``'s
+    arrays) as a CUDA graph into ``unit.pool`` under the capture gate: the
+    capture records the step without running it, and the caller replays it.
+    Returns (graph, inputs, run's outputs, the flash launches recorded), or
+    None after an error, which clears ``slot.graph_ok``, is noted in the
+    trial's compile record and counted."""
+    from maggy_tpu_torch.ops import attention
+
+    with _GATE.capture():
+        t0 = time.perf_counter()
+        try:
+            # The memory pools of destroyed graphs are freed only by a
+            # cache release, and the allocator cannot release during a
+            # capture: an allocation that needs that memory would fail.
+            torch.cuda.empty_cache()
+            inputs = _tree_map(
+                lambda x: torch.as_tensor(x).to(device, copy=True)
+                if isinstance(x, (torch.Tensor, np.ndarray)) else x, batch)
+            if unit.pool is None:
+                unit.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            current = torch.cuda.current_stream(device)
+            stream = torch.cuda.Stream(device=device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream), attention.recording_launches(stream) as launches:
+                graph.capture_begin(pool=unit.pool, capture_error_mode="thread_local")
+                try:
+                    outputs = run(inputs)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:  # noqa: BLE001 - the body's error is the one to keep
+                        pass
+                    raise
+                graph.capture_end()
+            current.wait_stream(stream)
+        except Exception as e:  # noqa: BLE001 - a failed capture steps eagerly, noted
+            slot.graph_ok = False
+            slot.graph_error = "{}: {}".format(type(e).__name__, e)[:500]
+            warm.note_compile(graph_ok=False, graph_error=slot.graph_error)
+            warm._count("graph_failures")
+            return None
+        warm.note_compile(compile_ms=(time.perf_counter() - t0) * 1e3)
+        warm._count("graph_captures")
+    return graph, inputs, outputs, dict(launches)
+
+
 class _Graph:
     """One captured step: the graph, its static inputs, its loss and summed
     auxiliary loss outputs and the flash-kernel launches recorded at capture
@@ -437,53 +485,22 @@ class Trainer:
 
     def _capture(self, unit: _Unit, key, batch) -> Optional[_Graph]:
         """Capture one step for ``key``'s batch shape into the unit's memory
-        pool: the capture records the step without running it, and the
-        caller replays it. On an error the slot's ``graph_ok`` is cleared,
-        noted and counted, and None returned."""
-        from maggy_tpu_torch.ops import attention
+        pool (``capture_step``); on an error the optimizer's gradients are
+        dropped and None returned."""
+        def run(inputs):
+            loss, aux = self._objective(inputs)
+            loss.backward()
+            self.optimizer.step()
+            return loss, aux
 
-        with _GATE.capture():
-            t0 = time.perf_counter()
-            try:
-                # The memory pools of destroyed graphs are freed only by a
-                # cache release, and the allocator cannot release during a
-                # capture: an allocation that needs that memory would fail.
-                torch.cuda.empty_cache()
-                inputs = _tree_map(
-                    lambda x: torch.as_tensor(x).to(self.device, copy=True)
-                    if isinstance(x, (torch.Tensor, np.ndarray)) else x, batch)
-                if unit.pool is None:
-                    unit.pool = torch.cuda.graph_pool_handle()
-                graph = torch.cuda.CUDAGraph()
-                current = torch.cuda.current_stream(self.device)
-                stream = torch.cuda.Stream(device=self.device)
-                stream.wait_stream(current)
-                self.optimizer.zero_grad(set_to_none=True)
-                with torch.cuda.stream(stream), attention.recording_launches(stream) as launches:
-                    graph.capture_begin(pool=unit.pool, capture_error_mode="thread_local")
-                    try:
-                        loss, aux = self._objective(inputs)
-                        loss.backward()
-                        self.optimizer.step()
-                    except BaseException:
-                        try:
-                            graph.capture_end()
-                        except Exception:  # noqa: BLE001 - the body's error is the one to keep
-                            pass
-                        raise
-                    graph.capture_end()
-                current.wait_stream(stream)
-            except Exception as e:  # noqa: BLE001 - a failed capture steps eagerly, noted
-                self.optimizer.zero_grad(set_to_none=True)
-                self._slot.graph_ok = False
-                self._slot.graph_error = "{}: {}".format(type(e).__name__, e)[:500]
-                warm.note_compile(graph_ok=False, graph_error=self._slot.graph_error)
-                warm._count("graph_failures")
-                return None
-            warm.note_compile(compile_ms=(time.perf_counter() - t0) * 1e3)
-            warm._count("graph_captures")
+        self.optimizer.zero_grad(set_to_none=True)
+        captured = capture_step(self._slot, unit, self.device, batch, run)
+        if captured is None:
+            self.optimizer.zero_grad(set_to_none=True)
+            return None
+        graph, inputs, (loss, aux), launches = captured
         captured = _Graph(graph, inputs, loss.detach(), None if aux is None else aux.detach(),
-                          dict(launches))
+                          launches)
         unit.graphs[key] = captured
         while len(unit.graphs) > warm.PER_SLOT_SHAPES:
             unit.graphs.popitem(last=False)

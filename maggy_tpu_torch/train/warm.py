@@ -49,8 +49,11 @@ Left out of the JAX module, each for a reason:
 - the re-init prebuild (``_prebuild_reinit_async``, ``reinit_prebuilds``,
   ``maggy_tpu/train/trainer.py:120-160``): an in-place torch re-init has no
   compile to overlap;
-- ``_VmapEntry`` (``maggy_tpu/train/warm.py:351-387``): it waits for the
-  vectorized lanes (ROADMAP queue 1 item 7).
+
+The vectorized lanes (``train/vmap.py``) keep their own units in the slot
+of their program: ``WarmSlot.vmap_entry(key, lanes)`` holds one retired
+K-lane unit (stacked state, per-lane optimizer, the block's graphs) per K
+(``_VmapEntry``, ``maggy_tpu/train/warm.py:351-424``).
 
 ``MAGGY_TPU_WARM_START=0`` disables the warm default process-wide.
 """
@@ -299,23 +302,83 @@ class _InitEntry:
             _release(unit)
 
 
+class _VmapEntry:
+    """A program's vectorized warm state for one lane count K: the retired
+    K-lane unit of the previous block (``train/vmap.py``), which the next
+    block of the program and K takes and re-initializes in place, the
+    counterpart of the JAX entry's donated stacked buffers
+    (``maggy_tpu/train/warm.py:351-387``). One unit: a second block running
+    meanwhile builds its own, and the later retirement replaces (frees) the
+    earlier."""
+
+    __slots__ = ("lanes", "retired", "lock")
+
+    def __init__(self, lanes: int):
+        self.lanes = lanes
+        self.retired = None  # guarded-by: lock
+        self.lock = threading.Lock()
+
+    def store_retired(self, unit) -> None:
+        with self.lock:
+            replaced, self.retired = self.retired, unit
+        _release(replaced)
+
+    def take_retired(self):
+        """Pop the retired unit (at most one consumer: its memory is
+        re-initialized in place)."""
+        with self.lock:
+            unit, self.retired = self.retired, None
+            return unit
+
+    def drop_retired(self) -> None:
+        _release(self.take_retired())
+
+
 class WarmSlot:
     """One program's warm state: its init entry, whose retired units carry
-    their captured graphs, and ``graph_ok``, cleared by a capture that
-    raised (its trials then step eagerly, and the error is kept in
+    their captured graphs, its vectorized entries by lane count
+    (``vmap_entry``), and ``graph_ok``, cleared by a capture that raised
+    (its trials then step eagerly, and the error is kept in
     ``graph_error``)."""
 
-    __slots__ = ("key", "entry", "graph_ok", "graph_error")
+    __slots__ = ("key", "entry", "vmaps", "lock", "graph_ok", "graph_error")
 
     def __init__(self, key):
         self.key = key
         self.entry = _InitEntry()
+        self.vmaps: "OrderedDict[Any, _VmapEntry]" = OrderedDict()  # guarded-by: lock
+        self.lock = threading.Lock()
         self.graph_ok = True
         self.graph_error: Optional[str] = None
+
+    def vmap_entry(self, key, lanes: int) -> _VmapEntry:
+        """Get-or-create the vectorized entry for ``key`` and ``lanes``
+        (``maggy_tpu/train/warm.py:410-424``), bounded by PER_SLOT_SHAPES
+        entries a slot (LRU)."""
+        with self.lock:
+            entry = self.vmaps.get(key)
+            evicted = []
+            if entry is None or entry.lanes != lanes:
+                if entry is not None:
+                    evicted.append(entry)
+                entry = _VmapEntry(lanes)
+                self.vmaps[key] = entry
+                while len(self.vmaps) > PER_SLOT_SHAPES:
+                    evicted.append(self.vmaps.popitem(last=False)[1])
+            else:
+                self.vmaps.move_to_end(key)
+        for old in evicted:
+            old.drop_retired()
+        return entry
 
     def release(self) -> None:
         """Drop every retired unit, freeing its graphs."""
         self.entry.drop_retired()
+        with self.lock:
+            entries = list(self.vmaps.values())
+            self.vmaps.clear()
+        for entry in entries:
+            entry.drop_retired()
 
 
 class WarmCache:

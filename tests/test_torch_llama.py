@@ -25,7 +25,7 @@ from maggy_tpu.parallel import make_mesh
 from maggy_tpu.train import Trainer as JaxTrainer
 from maggy_tpu.train.lora import lora_adapter_count as jax_lora_count
 from maggy_tpu.train.lora import lora_mask, only_lora as jax_only_lora
-from maggy_tpu_torch.models import Llama, LlamaConfig, rope
+from maggy_tpu_torch.models import Llama, LlamaConfig, LoRADense, rope
 from maggy_tpu_torch.models.llama import flax_to_state_dict
 from maggy_tpu_torch.ops import chunked_next_token_loss, chunked_softmax_xent, next_token_loss
 from maggy_tpu_torch.train import Trainer, adamw, is_lora_param, lora_adapter_count, only_lora
@@ -313,3 +313,13 @@ def test_cuda_default_refuses_without_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Llama(_configs()[1])
+
+
+def test_lora_dense_cuda_default_refuses_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    tcfg = _configs()[1]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoRADense(8, 8, tcfg, 2)
+    layer = LoRADense(8, 8, tcfg, 2, device="cpu")
+    assert layer.weight.device.type == "cpu" and layer.lora_a.device.type == "cpu"

@@ -131,7 +131,7 @@ def test_driver_sizes_the_schedule_and_clamps_the_pool(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("vmap_lanes", 4, "7"), ("chips_per_budget", {1: 2}, "8"), ("fleet", object(), "9")])
+    ("chips_per_budget", {1: 2}, "8"), ("fleet", object(), "9")])
 def test_unported_config_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match="item {}".format(item)):
         OptimizationConfig(**{field: value})
