@@ -119,7 +119,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              resumed and one recovered event (in flight >= 1), no trial
              finalized before the kill running again, each trial in flight
              at the kill requeued once (blacklist or heartbeat_loss) and
-             finalized after the resume, early_stopped counting both
+             finalized after the resume (one whose trial.json landed before
+             the kill, its journal edge not: closed at the resume, stamped
+             at its finish, neither requeued nor re-run), early_stopped counting both
              incarnations, and a journal that passes the replay checks.
              bert_base_resume also: a whole ASHA ladder (every promotion's
              parent finalized a rung below and promoted once, the top rung
@@ -223,6 +225,33 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              AB_LOSS_TOL["bert_base"], every step but a unit's first
              replayed; prints the 4-lane step alone replayed beside the
              scalar one x 4, its profile, and the phase's peak memory.
+18. slice_chaos — the port's chaos soaks (maggy_tpu_torch.chaos.harness)
+             with trials that train on the card: train_mnist (budget
+             CHAOS_BUDGET), train_mnist_vmap, and train_mnist_ckpt (each step
+             checkpointed through the TrialContext, resumed from
+             ctx.resume_step), hb 0.1 s, the health engine on. Sub-soaks,
+             each printing violations (must be none), injections by kind
+             (each planned kind at least once), recoveries with fault to
+             requeue and fault to the re-run's first metric, health flags,
+             wall, warm counters, retired warm units and allocated bytes
+             before and after (and after dropping the units and the cuBLAS
+             workspaces), peak memory: kill_thread (default_plan: a kill, a
+             false preemption, METRIC drops, severed FINAL replies; thread
+             runners), kill_process (default_plan on two runner processes,
+             the kill a SIGKILL), piggyback (a kill in the hand-off's window:
+             one requeue), stall_obs (an 8 s stall under a 5 s hang bound,
+             obs_port=0: the health engine's hang flag, exactly one auto torch.profiler capture with
+             threads.txt and a trace holding CUDA kernel events, /healthz 503
+             during the stall and 200 after it), preempt (resumed from its
+             acked checkpoint step >= 1), fork (the killed fork resumed from
+             its fork point; the failover half across lagom(...,
+             resume=True)), lanes (vmap_lanes=4: a torn block, every live
+             lane requeued once) and control (no fault: no rework, at most 5%
+             unaccounted, no health flag). Then check_invariants over every
+             earlier phase's journal (build/chip_smoke_experiments*): no lost,
+             phantom or twice-finalized trial and an ended experiment on each;
+             each journal's raised health flags are printed, those of
+             fault-free phases apart.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -276,6 +305,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import faulthandler
 import functools
 import gc
 import glob
@@ -1764,6 +1794,17 @@ def resume_checks(sweep, kill, t_spawn2, wall2, child):
         if e["phase"] == "requeued":
             requeues.setdefault(e["trial"], []).append(e.get("reason"))
     for tid, (held, _) in kill["in_flight"].items():
+        if tid in kill["finals"]:
+            # Its trial.json landed before the kill and its finalized edge
+            # did not (the FINAL's journal barrier comes after the write):
+            # the resume closes the edge, stamped at the trial's finish, and
+            # neither requeues nor re-runs it (core/driver/recovery.py).
+            closed = [e for e in post if e["trial"] == tid and e["phase"] == "finalized"]
+            if len(closed) != 1 or closed[0]["t"] > kill["t_kill"] or tid in requeues:
+                problems.append("trial {} finalized before the kill but not closed at the "
+                                "resume: finalized edges {}, requeues {}".format(
+                                    tid, [e["t"] for e in closed], requeues.get(tid)))
+            continue
         want = 1 if held else 0
         reasons = requeues.get(tid, [])
         if len(reasons) != want or not set(reasons) <= {"blacklist", "heartbeat_loss"} or \
@@ -3629,6 +3670,334 @@ def phase_slice_moe(exp_dir):
     return sweep["launches"]
 
 
+# ----------------------------------------- slice 13: chaos, health and obs
+
+
+#: slice_chaos: where its soaks run (outside the earlier phases' dirs, which
+#: its journal audit reads), the trials' heartbeat, the MNIST trial's budget
+#: (40 steps a unit), the checkpointing trial's steps a unit and its pause a
+#: step (its preemption lands mid-trial), the stall and the stall soak's hang
+#: factor (those of the JAX package's --stall soak: a 2 s stall, factor 10,
+#: so a 1 s bound at this heartbeat), its trials (the sweep must outlive the stall's flags), and the phases
+#: whose sweeps inject faults on purpose.
+CHAOS_ROOT = os.path.join(ROOT, "build", "chip_smoke_chaos")
+CHAOS_HB_S, CHAOS_BUDGET = 0.1, 6
+CHAOS_CKPT_STEPS, CHAOS_CKPT_PACE_S = 16, 0.02
+CHAOS_STALL_S, CHAOS_STALL_TRIALS, CHAOS_HANG_FACTOR = 2.0, 60, 10.0
+#: A sub-soak still running after this many seconds dumps every thread's
+#: stack and ends the script (faulthandler), instead of holding the card.
+CHAOS_SOAK_LIMIT_S = 240
+FAULTED_PHASES = ("chip_smoke_experiments_recovery", "chip_smoke_experiments_resume",
+                  "chip_smoke_experiments_pbt")
+
+
+def chaos_space():
+    from maggy_tpu_torch import Searchspace
+
+    return Searchspace(lr=("DOUBLE_LOG", [1e-4, 3e-2]), batch=("DISCRETE", MNIST_BATCHES))
+
+
+def mnist_ckpt_state(trainer, steps_done, loss=0.0):
+    return {"model": trainer.model.state_dict(), "optimizer": trainer.optimizer.state_dict(),
+            "steps_done": steps_done, "loss": float(loss)}
+
+
+def train_mnist_ckpt(lr, reporter, ctx, out_dir, budget=1, batch=MNIST_BATCHES[0]):
+    """slice_chaos's checkpointing trial: train_mnist's model, data and
+    swept optimizer for CHAOS_CKPT_STEPS steps a budget unit, each step
+    checkpointed through the TrialContext before its heartbeat, then a
+    pause of CHAOS_CKPT_PACE_S; with ``ctx.resume_step`` (a preemption's
+    acked step or a fork's staged one) it restores the trial's newest
+    checkpoint and goes on at the step after it: the staged step, or a later
+    one that a killed attempt saved before its FINAL was lost (one that
+    finished its steps trains no more)."""
+    from maggy_tpu_torch.train import ShardedBatchIterator, Trainer, adam, swept_transform
+
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    X, Y = cached("mnist", make_data)
+    trainer = Trainer(mnist_model("meta"), swept_transform(adam, learning_rate=lr), labels_loss,
+                      device=DEVICE).init(seed=0)
+    steps = CHAOS_CKPT_STEPS * int(budget)
+    if ctx.resume_step is not None:
+        state = ctx.restore_checkpoint(mnist_ckpt_state(trainer, 0))
+        if state is None or not ctx.resume_step + 1 <= state["steps_done"] <= steps:
+            raise RuntimeError("trial {} resumes at step {} but its checkpoint holds {}".format(
+                reporter.trial_id, ctx.resume_step, state and state["steps_done"]))
+        trainer.model.load_state_dict(state["model"])
+        trainer.optimizer.load_state_dict(state["optimizer"])
+        record.first_step = state["steps_done"]
+        loss = state["loss"]
+    else:
+        loss = None
+    it = iter(ShardedBatchIterator({"x": X, "y": Y}, batch_size=int(batch), epochs=None,
+                                   seed=1, device=DEVICE))
+    with record:
+        for i in range(record.first_step, steps):
+            b = next(it)
+            loss = trainer.step({"inputs": (b["x"],), "labels": b["y"]})
+            record.steps += 1
+            ctx.save_checkpoint(i, mnist_ckpt_state(trainer, i + 1, loss))
+            reporter.broadcast(-loss, step=i)
+            time.sleep(CHAOS_CKPT_PACE_S)
+    return {"metric": -float(loss)}
+
+
+def chaos_events(report, ev):
+    from maggy_tpu_torch.telemetry import read_events
+
+    return [e for e in read_events(report["journal"]) if e["ev"] == ev]
+
+
+def replacement_first_metric_s(report):
+    """Per runner-death fault: fault to its trial's requeue, to the re-run's
+    dispatch (its running edge) and to the re-run's first metric (the first
+    heartbeat of the trial's re-run: the driver journals a second
+    first_metric edge only for steps the dead run had not reported), s,
+    from the journal."""
+    from maggy_tpu_torch.telemetry import read_events
+
+    events = read_events(report["journal"])
+    out = []
+    for c in (e for e in events if e["ev"] == "chaos" and e.get("trial")
+              and e["kind"] in ("kill_runner", "kill_fork", "fake_preemption")):
+        later = [e for e in events if e.get("trial") == c["trial"] and e["t"] >= c["t"]]
+        req = next((e["t"] for e in later if e.get("phase") == "requeued"), None)
+        rerun = [e for e in later if req is not None and e["t"] >= req]
+        run = next((e["t"] for e in rerun if e.get("phase") == "running"), None)
+        beat = next((e["t"] for e in rerun if e["ev"] == "runner_stats" and "steps" in e
+                     and run is not None and e["t"] >= run), None)
+        out.append({"kind": c["kind"], "mechanism": c.get("mechanism"),
+                    "partition": c.get("partition"),
+                    **{"fault_to_{}_s".format(k): None if t is None else t - c["t"]
+                       for k, t in (("requeue", req), ("rerun_dispatch", run),
+                                    ("rerun_first_metric", beat))}})
+    return out
+
+
+def trace_kernels(path):
+    """CUDA kernel events in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        return sum(1 for e in json.load(f).get("traceEvents", []) if e.get("cat") == "kernel")
+
+
+def stall_reading(report, problems):
+    """slice_chaos's stall sub-soak: the one auto capture (its dump, trace,
+    CUDA kernel events, time and size) and /healthz across the stall."""
+    captures = [e for e in chaos_events(report, "profile_captured") if e.get("reason") == "auto"]
+    stall = chaos_events(report, "chaos")[0]
+    out = {"captures": len(captures),
+           "profiler_primed_s": chaos_events(report, "obs_started")[0]["profiler_primed_s"],
+           "flags": [{k: e.get(k) for k in ("check", "metric", "partition", "silent_s",
+                                            "value_ms")} | {"at_s": e["t"] - stall["t"]}
+                     for e in chaos_events(report, "health") if e.get("status") == "raised"]}
+    if len(captures) != 1:
+        problems.append("stall: {} auto profile captures, not 1".format(len(captures)))
+    else:
+        cap = captures[0]
+        trace = os.path.join(cap["path"], "trace.json")
+        files = sorted(os.listdir(cap["path"]))
+        out.update(files=files, activities=cap.get("activities"), check=cap.get("check"),
+                   partition=cap.get("partition"), window_s=cap.get("duration_s"))
+        if files != ["threads.txt", "trace.json"]:
+            problems.append("stall: the capture holds {}".format(files))
+        else:
+            out.update(kernel_events=trace_kernels(trace), trace_bytes=os.path.getsize(trace),
+                       journaled_to_trace_written_s=os.path.getmtime(trace) - cap["t"])
+            if not out["kernel_events"]:
+                problems.append("stall: the capture's trace holds no CUDA kernel event")
+    codes = [(t, c) for t, c in report["obs"]["healthz"] if t >= stall["t"]]
+    first_503 = next((t for t, c in codes if c == 503), None)
+    after = [t for t, c in codes if c == 200 and first_503 is not None and t > first_503]
+    out.update(healthz_503_at_s=None if first_503 is None else first_503 - stall["t"],
+               healthz_200_again_at_s=after[0] - stall["t"] if after else None,
+               scrapes=report["obs"]["scrapes"], scrape_ms=report["obs"]["scrape_ms"])
+    if first_503 is None or not after:
+        problems.append("stall: /healthz did not read 503 during the stall and 200 after it")
+    return out
+
+
+def allocated_after_release():
+    """Allocated bytes after dropping every warm unit (clear_warm), then
+    after also dropping the cuBLAS workspaces PyTorch keeps for each
+    (handle, stream) pair, one pair for each capture's side stream."""
+    from maggy_tpu_torch.train import clear_warm
+
+    clear_warm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cleared = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return [cleared, torch.cuda.memory_allocated()]
+
+
+def chaos_soak(name, run, problems, kinds, pool="thread"):
+    """Run one slice_chaos sub-soak and print its line: violations,
+    injections by kind, recovery latencies, health flags, wall, warm
+    counters, warm units and allocated bytes before and after (and after
+    the units and the cuBLAS workspaces are dropped), peak memory. A
+    violation, or no injection of each kind in ``kinds``, is a problem."""
+    from maggy_tpu_torch.train import warm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before, units0, alloc0 = warm.counters(), warm.warm_cache().retired_units(), \
+        torch.cuda.memory_allocated()
+    faulthandler.dump_traceback_later(CHAOS_SOAK_LIMIT_S, exit=True)
+    try:
+        report = run()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    gc.collect()
+    line = {"violations": report["violations"], "injected": report["faults"]["by_kind"],
+            "recoveries": report["recoveries"], "preemptions": report["preemptions"],
+            "forks": report["forks"], "vmap_blocks": report["vmap_blocks"],
+            "health": {k: report["health"][k] for k in ("raised", "by_check", "stall_flags")},
+            "trials": report["trials"], "lost_runners": report["result"]["lost_runners"],
+            "client_retries": report["client_retries"], "wall_s": report["wall_s"],
+            "warm": {k: v - before[k] for k, v in warm.counters().items()} if pool == "thread"
+            else journal_counters(chaos_events(report, "runner_stats")),
+            "graph_errors": [e.get("graph_error") for e in chaos_events(report, "trial")
+                             if e["phase"] == "compiled" and e.get("graph_ok") is False],
+            "warm_units": [units0, warm.warm_cache().retired_units()],
+            "allocated_bytes": [alloc0, torch.cuda.memory_allocated()],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "faults": replacement_first_metric_s(report)}
+    line["allocated_bytes_released"] = allocated_after_release()
+    for kind in kinds:
+        if not report["faults"]["by_kind"].get(kind):
+            problems.append("{}: no {} injected".format(name, kind))
+    if report["violations"]:
+        problems.append("{}: {}".format(name, report["violations"]))
+    return report, line
+
+
+def journal_audit(problems):
+    """check_invariants over every earlier phase's journal: invariants 1
+    (no lost or phantom trial), 2 (no duplicate FINAL) and 4 (the experiment
+    ended) on each, and each journal's raised health flags by check."""
+    from maggy_tpu_torch.chaos.harness import check_invariants
+    from maggy_tpu_torch.telemetry import read_events
+
+    audit = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "build", "chip_smoke_experiments*", "**",
+                                              "telemetry.jsonl"), recursive=True)):
+        rel = os.path.relpath(os.path.dirname(path), os.path.join(ROOT, "build"))
+        events = read_events(path)
+        report = check_invariants(events)
+        held = [v for v in report["violations"]
+                if v.startswith(("lost trial", "phantom trial", "duplicate FINAL",
+                                 "experiment never finalized"))]
+        audit[rel] = {"trials": report["trials"]["finalized"],
+                      "raised": report["health"]["raised"],
+                      "by_check": report["health"]["by_check"],
+                      "flags": [{k: e.get(k) for k in ("check", "metric", "partition", "window",
+                                                       "silent_s", "bound_s", "value_ms",
+                                                       "fleet_median_ms")}
+                                for e in events
+                                if e["ev"] == "health" and e.get("status") == "raised"],
+                      "fault_free": not rel.startswith(FAULTED_PHASES),
+                      "invariants_1_2_4": held}
+        if held:
+            problems.append("journal {}: {}".format(rel, held))
+    if not audit:
+        problems.append("no earlier phase's journal to audit")
+    flagged = {k: v["by_check"] for k, v in audit.items() if v["fault_free"] and v["raised"]}
+    return audit, flagged
+
+
+def phase_slice_chaos():
+    """The port's chaos soaks on the card through maggy_tpu_torch.chaos's
+    harness, with trials that train on it, then the journal audit."""
+    from maggy_tpu_torch.chaos import harness
+    from maggy_tpu_torch.train import clear_warm
+
+    t_phase = time.perf_counter()
+    # The earlier phases' objects live to the end of the script: moved out
+    # of the collector's reach, an automatic full collection during a soak
+    # (which holds every runner thread) walks only the soaks' objects.
+    gc.collect()
+    gc.freeze()
+    fresh_dir(CHAOS_ROOT)
+    out_dir = fresh_dir(os.path.join(CHAOS_ROOT, "records"))
+    problems = []
+    mnist = functools.partial(train_mnist, out_dir=out_dir, budget=CHAOS_BUDGET)
+    ckpt = functools.partial(train_mnist_ckpt, out_dir=out_dir)
+    space = {"searchspace": chaos_space()}
+
+    def soak(name, **kw):
+        return lambda: harness.run_soak(base_dir=os.path.join(CHAOS_ROOT, name),
+                                        hb_interval=CHAOS_HB_S, **kw)
+
+    subsoaks = [
+        ("kill_thread", ["kill_runner", "fake_preemption"], "thread",
+         soak("kill_thread", plan=harness.default_plan(7), seed=7, train_fn=mnist,
+              hb_loss_timeout=1.0, config_overrides=space)),
+        ("kill_process", ["kill_runner"], "process",
+         soak("kill_process", plan=harness.default_plan(7), seed=7, train_fn=mnist,
+              num_trials=6, workers=2, pool="process", hb_loss_timeout=RECOVERY_LOSS_TIMEOUT_S,
+              config_overrides=space)),
+        ("piggyback", ["kill_runner"], "thread",
+         soak("piggyback", plan=harness.piggyback_plan(7), seed=7, train_fn=mnist,
+              hb_loss_timeout=1.0, config_overrides=space)),
+        ("stall_obs", ["stall_runner"], "thread",
+         soak("stall_obs", plan=harness.stall_plan(7, duration_s=CHAOS_STALL_S), seed=7,
+              train_fn=mnist, num_trials=CHAOS_STALL_TRIALS, hb_loss_timeout=10.0, obs=True,
+              config_overrides={**space, "health_hang_factor": CHAOS_HANG_FACTOR,
+                                "health_interval_s": 0.1})),
+        ("preempt", ["preempt_trial"], "thread",
+         soak("preempt", plan=harness.preempt_plan(7), seed=7, train_fn=ckpt,
+              hb_loss_timeout=1.0, config_overrides=space)),
+        ("fork", ["kill_fork"], "thread",
+         lambda: harness.run_fork_soak(seed=7, base_dir=os.path.join(CHAOS_ROOT, "fork"),
+                                       train_fn=ckpt, hb_interval=CHAOS_HB_S,
+                                       hb_loss_timeout=1.0)),
+        ("lanes", ["kill_runner"], "thread",
+         lambda: harness.run_vmap_soak(
+             seed=7, base_dir=os.path.join(CHAOS_ROOT, "lanes"), hb_interval=CHAOS_HB_S,
+             hb_loss_timeout=1.0, train_fn=functools.partial(train_mnist_vmap,
+                                                             out_dir=out_dir))),
+        ("control", [], "thread",
+         lambda: harness.run_goodput_soak(seed=7, base_dir=os.path.join(CHAOS_ROOT, "control"),
+                                          hb_interval=CHAOS_HB_S, train_fn=mnist,
+                                          config_overrides=space)),
+    ]
+    lines = {}
+    for name, kinds, pool, run in subsoaks:
+        clear_warm()
+        report, line = chaos_soak(name, run, problems, kinds, pool)
+        if name == "stall_obs":
+            line["stall"] = stall_reading(report, problems)
+        elif name == "piggyback" and [r.get("requeues") for r in report["recoveries"]] != [1]:
+            problems.append("piggyback: requeues {}".format(report["recoveries"]))
+        elif name == "preempt" and not [p for p in report["preemptions"]
+                                        if p.get("outcome") == "preempted"
+                                        and p.get("from_step", 0) >= 1]:
+            problems.append("preempt: no trial preempted and resumed from its checkpoint")
+        elif name == "fork":
+            line["fork_failover"] = {k: report["fork_failover"][k] for k in ("violations",
+                                                                             "fork")}
+            if not [f for f in report["forks"] if f.get("outcome") == "resumed_from_fork"]:
+                problems.append("fork: the killed fork did not resume from its fork point")
+        elif name == "kill_process" and [f["mechanism"] for f in line["faults"]
+                                         if f["kind"] == "kill_runner"] != ["sigkill"]:
+            problems.append("kill_process: the kill was no SIGKILL: {}".format(line["faults"]))
+        elif name == "control" and report["health"]["raised"]:
+            problems.append("control: {} health flags in a fault-free soak".format(
+                report["health"]["raised"]))
+        emit("slice_chaos/" + name, **line)
+        lines[name] = line
+    clear_warm()
+    gc.unfreeze()
+    audit, flagged = journal_audit(problems)
+    emit("slice_chaos/journals", journals=audit, fault_free_flagged=flagged)
+    emit("slice_chaos", soaks=sorted(lines), phase_s=time.perf_counter() - t_phase,
+         problems=problems)
+    if problems:
+        raise AssertionError("slice_chaos: {}".format("; ".join(map(str, problems))))
+
+
 def fresh_dir(path):
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
@@ -3670,6 +4039,7 @@ def main():
     clear_warm()
     launches["bert_base_lanes"] = phase_slice_lanes(
         os.path.join(ROOT, "build", "chip_smoke_experiments_lanes"), warm_bert_losses)
+    phase_slice_chaos()
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

@@ -1,20 +1,21 @@
 """Typed experiment configs; the config type selects the experiment kind.
 
 The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` (with the
-heartbeat-loss shape) and `OptimizationConfig` with the fields of a
+heartbeat-loss shape, fault injection, the live health engine and the
+observability plane) and `OptimizationConfig` with the fields of a
 single-host sweep over thread, process or GPU-pinned process runners, with
 heartbeat-loss requeue, the telemetry journal, the compile-once warm path
 (``warm_start``), checkpoint forking (``fork``) and experiment resume
 (``resume``) and vectorized lanes (``vmap_lanes``). ``chips_per_budget``
 (gangs) and ``fleet`` exist only so that setting one raises "not ported
 yet" with its ROADMAP item; each is replaced by the real
-field in the slice that ports it. Chaos and observability fields are absent, so passing one is a
-TypeError rather than a silently ignored knob. Parity: reference
+field in the slice that ports it. Parity: reference
 `maggy/experiment_config.py:18-50`.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Optional, Union
 
@@ -45,6 +46,38 @@ class LagomConfig:
     hb_loss_factor: float = constants.HEARTBEAT_LOSS_FACTOR
     hb_loss_min_s: float = constants.HEARTBEAT_LOSS_MIN_S
     telemetry: bool = True
+    #: Fault injection (``maggy_tpu_torch.chaos``, ``maggy_tpu/config.py:
+    #: 40-43``): a FaultPlan or the path of a plan JSON; None (the default)
+    #: leaves every chaos hook a no-op. Also armed by
+    #: MAGGY_TPU_CHAOS=<plan.json>. Requires telemetry.
+    chaos: Any = None
+    #: Live health engine (``telemetry/health.py``): periodic straggler,
+    #: heartbeat-RTT and hang checks over the spans and runner stats,
+    #: journaled as ``health`` events and carried by the TELEM snapshot. On
+    #: by default, as in the JAX package; off when telemetry is.
+    health: bool = True
+    #: Seconds between health checks; None -> max(0.25, hb_interval).
+    health_interval_s: Optional[float] = None
+    #: Hang watchdog: a partition holding a trial with no progress for
+    #: ``health_hang_factor * hb_interval`` seconds is flagged (4x that
+    #: before the trial's first metric).
+    health_hang_factor: float = 25.0
+    #: Observability plane (``telemetry/obs.py``): an HTTP server with GET
+    #: /metrics (Prometheus text), /status, /healthz (200 or 503) and
+    #: /profilez (an on-demand torch.profiler capture). None (the default)
+    #: opens no socket; 0 binds an ephemeral port, journaled as an
+    #: ``obs_started`` event. Also armed by MAGGY_TPU_OBS_PORT. One server a
+    #: process: a second experiment joins the first one's listener.
+    obs_port: Optional[int] = None
+    #: Obs bind host: loopback, since the endpoints are unauthenticated.
+    obs_host: str = "127.0.0.1"
+
+    def resolved_obs_port(self) -> Optional[int]:
+        """The obs server port to bind, or None for off: ``obs_port`` when
+        set, else MAGGY_TPU_OBS_PORT (``maggy_tpu/config.py:96-104``)."""
+        if self.obs_port is not None:
+            return int(self.obs_port)
+        return resolved_env_obs_port()
 
     def resolved_hb_loss_timeout(self) -> float:
         """Seconds of heartbeat silence before a runner is declared lost:
@@ -55,6 +88,18 @@ class LagomConfig:
         if explicit is not None:
             return float(explicit)
         return max(self.hb_loss_min_s, self.hb_interval * self.hb_loss_factor)
+
+
+def resolved_env_obs_port() -> Optional[int]:
+    """MAGGY_TPU_OBS_PORT as an int, or None when unset, empty or not a
+    number."""
+    raw = os.environ.get("MAGGY_TPU_OBS_PORT", "").strip()
+    if not raw:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        return None
 
 
 @dataclass

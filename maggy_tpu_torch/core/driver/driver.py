@@ -21,8 +21,20 @@ that outlived it keep authenticating and reconnecting; it reloads the
 journal (dropping a torn tail line on its next flush), rebuilds the trial
 spans from it and journals ``experiment`` ``resumed``. A pre-crash port
 still bound means the previous incarnation is alive: the resume refuses
-with ``RunAdoptionError``. Chaos, health, observability and fleet leasing
-of the JAX package are not ported yet.
+with ``RunAdoptionError``.
+
+Fault injection, health and observability (JAX `driver.py:136-222,
+395-459`): a plan named by ``config.chaos`` or MAGGY_TPU_CHAOS arms a
+``ChaosEngine`` (telemetry required), which the driver attaches to the
+reservations, itself and, once built, the runner pool; the ``chaos_armed``
+event opens the run and ``chaos_summary`` closes it. The live health engine
+(``config.health``, on by default) starts on the reservations. With
+``config.obs_port`` (or MAGGY_TPU_OBS_PORT) the experiment registers with the
+process obs server (``obs_started`` names its address), and the health
+engine's first straggler or hang flag per partition captures a
+torch.profiler trace (the profiler is started and stopped once first, so
+that capture does not pay its one-time start-up while runners step). Fleet
+leasing is not ported yet.
 """
 
 from __future__ import annotations
@@ -108,7 +120,68 @@ class Driver:
         self.telemetry.event("driver_epoch", epoch=self.driver_epoch)
         self.telemetry.event("experiment", phase="start", name=self.name,
                              driver=type(self).__name__, app_id=app_id, run_id=run_id)
+        self.chaos = self._arm_chaos(config)
+        self.health = None
+        if self.telemetry.enabled and config.health:
+            from maggy_tpu_torch.telemetry.health import HealthEngine
+
+            self.health = HealthEngine(self.telemetry, hb_interval=self.hb_interval,
+                                       interval_s=config.health_interval_s,
+                                       hang_factor=config.health_hang_factor)
+            self.health.attach(reservations=self.server.reservations)
+            self.telemetry.health = self.health
+            self.health.start()
+        self.obs_registration = None
+        self.profiler = None
+        obs_port = config.resolved_obs_port()
+        if obs_port is not None and self.telemetry.enabled:
+            self._register_obs(obs_port, config.obs_host)
         self._register_msg_callbacks()
+
+    def _arm_chaos(self, config):
+        """The armed ChaosEngine of the plan named by ``config.chaos`` (a
+        FaultPlan or a plan-JSON path) or MAGGY_TPU_CHAOS, else None."""
+        plan_src = config.chaos or os.environ.get("MAGGY_TPU_CHAOS")
+        if not plan_src:
+            return None
+        from maggy_tpu_torch.chaos import ChaosEngine, FaultPlan, arm
+
+        if not self.telemetry.enabled:
+            # No phase events to trigger on and no journal for the
+            # injections: the plan would be a silent no-op.
+            raise ValueError(
+                "chaos fault injection requires telemetry=True: on_phase triggers ride "
+                "trial-span events and every injection must be journaled for the "
+                "recovery invariants to be checkable")
+        plan = plan_src if isinstance(plan_src, FaultPlan) \
+            else FaultPlan.load(plan_src, env=self.env)
+        engine = ChaosEngine(plan, telemetry=self.telemetry)
+        engine.attach(reservations=self.server.reservations, driver=self)
+        self.telemetry.chaos_hook = engine.on_trial_phase
+        arm(engine)
+        self.telemetry.event("chaos_armed", seed=plan.seed, specs=len(plan.specs))
+        return engine
+
+    def _register_obs(self, port: int, host: str) -> None:
+        """Join the process obs server; the health engine gains the
+        auto-capture hook."""
+        from maggy_tpu_torch.telemetry import obs as obs_mod
+        from maggy_tpu_torch.telemetry.profiling import ProfileCapturer
+
+        self.profiler = ProfileCapturer(self.telemetry, profile_dir=self.exp_dir + "/profiles")
+        primed_s = self.profiler.prime()
+        if self.health is not None:
+            self.health.attach(profiler=self.profiler)
+        run = "{}/{}".format(self.app_id, self.run_id)
+        self.obs_registration = obs_mod.ObsRegistration(
+            key=run, labels={"experiment": self.name, "run": run}, telemetry=self.telemetry,
+            status_fn=self.obs_status, health=self.health, profiler=self.profiler)
+        server = obs_mod.register(self.obs_registration, port=port, host=host)
+        # Port 0 binds an ephemeral port: the journal is where tools learn
+        # the real address.
+        self.telemetry.event("obs_started", host=server.address[0], port=server.address[1],
+                             experiment=self.name, app_id=self.app_id, run_id=self.run_id,
+                             profiler_primed_s=primed_s)
 
     # ------------------------------------------------------------- template
 
@@ -143,6 +216,9 @@ class Driver:
             self._bind()
             self._start_worker()
             self._active_pool = self._make_runner_pool()
+            if self.chaos is not None:
+                # Kill and stall faults act through the pool.
+                self.chaos.attach(pool=self._active_pool)
             # Blocks until every runner returns (foreachPartition semantics).
             failures = self._active_pool.run(self._executor_fn(train_fn))
             job_end = time.time()
@@ -220,7 +296,25 @@ class Driver:
         self.experiment_done = True
         if self._worker_thread is not None:
             self._worker_thread.join(timeout=5)
+        if self.obs_registration is not None:
+            # Before the telemetry closes: a scrape landing mid-stop must
+            # not read a closing journal.
+            from maggy_tpu_torch.telemetry import obs as obs_mod
+
+            obs_mod.deregister(self.obs_registration)
+            self.obs_registration = None
+        if self.health is not None:
+            self.health.close()
+        if self.profiler is not None:
+            # A capture the last flag started ends before the journal does.
+            self.profiler.join()
         self.server.stop()
+        if self.chaos is not None:
+            from maggy_tpu_torch.chaos import disarm
+
+            self.telemetry.event("chaos_summary", **self.chaos.summary())
+            # Only if this engine is the armed one.
+            disarm(self.chaos)
         self.telemetry.event("experiment", phase="end")
         self.telemetry.close()
 
@@ -234,6 +328,19 @@ class Driver:
 
     def progress_snapshot(self) -> Dict[str, Any]:
         return {}
+
+    def obs_status(self) -> Dict[str, Any]:
+        """Live control-plane state for the obs /status route (JAX
+        `driver.py:439-459`): progress and the reservation table. Read-only
+        and lock-brief: it runs on an obs handler thread."""
+        progress = {k: v for k, v in self.progress_snapshot().items()
+                    if k not in ("log_tail", "log_total")}
+        reservations = {pid: {"trial": rec.get("trial_id"), "released": bool(rec.get("released")),
+                              "capacity": rec.get("capacity")}
+                        for pid, rec in self.server.reservations.all().items()}
+        return {"experiment": self.name, "app_id": self.app_id, "run_id": self.run_id,
+                "driver": type(self).__name__, "done": self.experiment_done,
+                "progress": progress, "reservations": reservations}
 
     def _log(self, msg: str) -> None:
         line = "{} ({}/{}): {}".format(

@@ -607,6 +607,17 @@ class OptimizationDriver(Driver):
         # the preempted trial itself, which is the resume path.
         self._assign_next_locked(pid, None)
 
+    def obs_status(self) -> Dict[str, Any]:
+        """The base /status document with the trial store's counts (JAX
+        `optimization_driver.py:2348-2379`, without its gang and fleet
+        blocks). One lock at a time: it runs on an obs handler thread."""
+        out = super().obs_status()
+        with self._store_lock:
+            out["store"] = {"trials": len(self._trial_store),
+                            "finalized": len(self._final_store),
+                            "requeue": len(self._requeue)}
+        return out
+
     def preempt_partition(self, partition_id: int, evict: bool = False) -> Optional[str]:
         """Gracefully preempt whatever ``partition_id`` runs (JAX
         `:1559-1580`): arm the trial's preempt and early-stop flags, so the
@@ -673,6 +684,12 @@ class OptimizationDriver(Driver):
             self._refresh_recovery()
         self._log("runner {} heartbeat lost; trial {} requeued for reassignment".format(
             pid, msg["trial_id"]))
+        if self.chaos is not None and self.chaos.suppress_reap(pid):
+            # A chaos-faked preemption: the runner is healthy and must live
+            # to deliver the duplicate FINAL the fault provokes (JAX
+            # `optimization_driver.py:681-686`).
+            self._log("runner {} loss was a chaos-faked preemption; reap suppressed".format(pid))
+            return
         pool = self._active_pool
         if pool is not None and pool.kill_worker(pid):
             self.telemetry.metrics.counter("recovery.killed.p{}".format(pid)).inc()
@@ -785,6 +802,23 @@ class OptimizationDriver(Driver):
             suggestion = self._next_suggestion()
         else:
             suggestion = self._timed("inline", lambda: self.controller.get_suggestion(last_trial))
+        state = self._partition_state(partition_id)
+        if state != "live":
+            # A partition quiet past the loss bound (or released) gets no
+            # work: the controller has seen the FINAL, and a fresh
+            # suggestion goes to the requeue for a live runner (JAX
+            # `optimization_driver.py:1688-1706`). A silent one keeps its
+            # idle chain, so it gets work again once its beats return.
+            if suggestion not in (None, "IDLE"):
+                self._mint_span(suggestion)
+                with self._store_lock:
+                    self._trial_store[suggestion.trial_id] = suggestion
+                    self._requeue.append(suggestion.trial_id)
+                self.telemetry.trial_event(suggestion.trial_id, "requeued",
+                                           partition=partition_id, reason="dead_partition")
+            if state == "silent":
+                self._rearm_idle(partition_id)
+            return False
         if suggestion in (None, "IDLE"):
             held = self._pop_fork_hold(partition_id)
             if held is not None:
@@ -1088,7 +1122,9 @@ class OptimizationDriver(Driver):
         """Checkpoint GC: retire a parent's ``checkpoints/`` dir once the
         controller says no live or schedulable child can fork from it any
         more (``fork_gc_eligible``). A trial still in the store or the
-        requeue is never touched, and each retirement journals a
+        requeue is never touched, nor the parent of a fork that is (an
+        exhausted ASHA names every finalized parent, a requeued fork's
+        among them), and each retirement journals a
         ``ckpt_gc`` event. Only the decision runs here, under the schedule
         lock (on the FINAL fast path that is the RPC thread); the deletions
         run on a short-lived thread."""
@@ -1100,8 +1136,15 @@ class OptimizationDriver(Driver):
             return
         todo = []
         with self._store_lock:
+            # A parent that a trial in flight or in the requeue forks from
+            # keeps its checkpoint: a requeued fork re-stages it (the dead
+            # attempt may have replaced its own staged copy with later
+            # steps).
+            forked_from = {(t.info_dict.get("forked_from") or {}).get("trial")
+                           for t in self._trial_store.values()}
             for tid in candidates:
-                if tid in self._ckpt_gced or tid in self._trial_store or tid in self._requeue:
+                if tid in self._ckpt_gced or tid in self._trial_store or tid in self._requeue \
+                        or tid in forked_from:
                     continue
                 # Claimed now, so a racing sweep cannot retire it twice; a
                 # failed delete un-claims it for the next sweep.

@@ -2,8 +2,10 @@
 
 The local-filesystem environment of ``maggy_tpu/core/environment/
 abstractenvironment.py``, with the resume-time sweep of orphaned atomic-dump
-files; the abstract interface, the GCS backend and the fault-injection
-write hook are not ported yet. Parity: reference
+files and the chaos write hook: ``dump`` and ``exclusive_create`` ask an
+armed engine's ``on_env_write`` first (``env_write_fail``; the telemetry
+journal's own path is exempt there). The abstract interface and the GCS
+backend are not ported yet. Parity: reference
 `maggy/core/environment/abstractenvironment.py:20-169`.
 """
 
@@ -39,8 +41,19 @@ class LocalEnv:
     def mkdir(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
 
+    @staticmethod
+    def _chaos_write_check(path: str) -> None:
+        """Raise the OSError of an ``env_write_fail`` fault that fires for
+        ``path``; unarmed, one global read."""
+        from maggy_tpu_torch.chaos.injectors import active_engine
+
+        engine = active_engine()
+        if engine is not None:
+            engine.on_env_write(path)
+
     def dump(self, data: str, path: str) -> None:
         # Atomic (tmp + rename): a hard kill mid-write leaves old-or-nothing.
+        self._chaos_write_check(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = "{}.tmp.{}.{}".format(path, os.getpid(), threading.get_ident())
         try:
@@ -58,6 +71,7 @@ class LocalEnv:
         """Create ``path`` with ``data`` only if it does not exist; False when
         another writer got there first. A private tmp file is hard-linked into
         place: exclusive (the kernel arbitrates) and atomic."""
+        self._chaos_write_check(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = "{}.tmp.{}.{}".format(path, os.getpid(), threading.get_ident())
         try:

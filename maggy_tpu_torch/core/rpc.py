@@ -30,6 +30,15 @@ registration and the ``running``, ``stop_sent`` and ``prefetch_hit`` /
 deltas on the heartbeat METRIC (``rstats``) with the beat's round-trip
 time. Every record path only appends to memory.
 
+Fault injection (JAX `rpc.py:131-160, 614-652, 712-722, 1766-1820`): every
+chaos hook first reads ``chaos.active_engine()``, and unarmed that read is
+its only cost. The server's dispatch asks ``on_server_message`` whether to
+drop, delay or sever a request, its loop calls the engine's ``tick`` between
+selects, the client's ``_request`` calls ``on_client_request`` (where a
+condemned thread runner dies with ``ChaosKilled``) and counts its retries and
+reconnects in ``CLIENT_METRICS``, and ``Reservations.age_beat`` fakes a
+silent runner for ``fake_preemption``.
+
 Wire layout as in the JAX package: 4-byte big-endian length, 32-byte
 HMAC-SHA256 of the payload under the experiment secret, payload. The payload
 is JSON (the JAX package uses msgpack); every frame is a fixed-schema map of
@@ -51,13 +60,26 @@ import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from maggy_tpu_torch import constants
+from maggy_tpu_torch.chaos.injectors import ChaosKilled
+from maggy_tpu_torch.chaos.injectors import active_engine as chaos_engine
 from maggy_tpu_torch.exceptions import AuthenticationError
+from maggy_tpu_torch.telemetry.metrics import MetricsRegistry
 from maggy_tpu_torch.trial import Trial
 from maggy_tpu_torch.util import json_default_numpy
 
 _LEN = struct.Struct(">I")
 _HEADER = 4 + 32
 MAX_FRAME = 64 * 1024 * 1024
+
+#: Process-wide client-side RPC counters (``rpc.client.retries``,
+#: ``rpc.client.reconnects``): thread runners share them with the driver, so
+#: a chaos soak can tell that the retry paths ran.
+CLIENT_METRICS = MetricsRegistry()
+
+#: The client's retry backoff sleep, a module attribute of its own so that a
+#: test can count the backoff without patching ``time.sleep`` for every
+#: thread of its process.
+_sleep = time.sleep
 
 
 # --------------------------------------------------------------------- wire
@@ -121,11 +143,25 @@ class Reservations:
             self._table[int(meta["partition_id"])] = rec
 
     def touch(self, partition_id) -> None:
-        """Record liveness: any message from the runner counts as a beat."""
+        """Record liveness: any message from the runner counts as a beat.
+        A chaos mute window (``age_beat``) suppresses the update."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is not None and rec.get("mute_until", 0.0) <= time.monotonic():
+                rec["last_beat"] = time.monotonic()
+
+    def age_beat(self, partition_id, age_s: float, mute_s: float = 0.0) -> None:
+        """Chaos ``fake_preemption``: push the partition's last beat
+        ``age_s`` into the past and ignore its beats for ``mute_s`` seconds,
+        so the heartbeat-loss scan sees a silent runner while the runner
+        stays alive (the falsely-declared-lost race)."""
         with self.lock:
             rec = self._table.get(int(partition_id))
             if rec is not None:
-                rec["last_beat"] = time.monotonic()
+                now = time.monotonic()
+                rec["last_beat"] = min(rec.get("last_beat", now), now - age_s)
+                if mute_s > 0:
+                    rec["mute_until"] = now + mute_s
 
     # locked-by: lock
     def _silent_locked(self, timeout: float):
@@ -195,6 +231,12 @@ class Reservations:
         with self.lock:
             rec = self._table.get(int(partition_id))
             return rec.get("trial_id") if rec else None
+
+    def all(self) -> Dict[int, Dict[str, Any]]:
+        """Copies of every partition's record: the health engine's view of
+        who holds what, and the obs /status reservation table."""
+        with self.lock:
+            return {pid: dict(rec) for pid, rec in self._table.items()}
 
     def servable_trial(self, partition_id: int) -> Optional[str]:
         """The assignment a GET may hand out: none while a re-registration
@@ -321,11 +363,33 @@ class Server:
         return payload
 
     def _dispatch(self, conn, payload: bytes):
+        sever_reply = False
         try:
             msg = json.loads(payload)
+            engine = chaos_engine()
+            if engine is not None:
+                action = engine.on_server_message(msg)
+                if action is not None:
+                    if action[0] == "drop":
+                        # Message lost and the connection reset: the
+                        # client's retry path re-delivers.
+                        self._drop(conn)
+                        return
+                    if action[0] == "delay":
+                        # On the event loop on purpose: a stalled control
+                        # plane stalls every client.
+                        time.sleep(action[1])
+                    elif action[0] == "sever":
+                        # Handle, then cut the connection instead of
+                        # replying: the client retries and the handler runs
+                        # twice (at-least-once delivery).
+                        sever_reply = True
             resp = self.handle_message(msg)
         except Exception as e:  # noqa: BLE001 - a bad message must never kill the loop
             resp = {"type": "ERR", "error": "handler error: {!r}".format(e)}
+        if sever_reply:
+            self._drop(conn)
+            return
         try:
             conn.setblocking(True)
             MessageSocket.send_msg(conn, resp, self.secret)
@@ -364,6 +428,10 @@ class Server:
             for key, mask in self._sel.select(timeout=0.2):
                 key.data(key.fileobj, mask)
             self._tick()
+            engine = chaos_engine()
+            if engine is not None:
+                # Elapsed-time fault triggers ride the loss scan's cadence.
+                engine.tick()
 
     def _tick(self) -> None:
         """Periodic hook run on the event-loop thread between selects."""
@@ -677,11 +745,16 @@ class Client:
 
     def _request(self, msg: Dict[str, Any], heartbeat: bool = False) -> Dict[str, Any]:
         """Send one message with reconnect retries (exponential backoff with
-        full jitter, reference `rpc.py:465-493`)."""
+        full jitter, reference `rpc.py:465-493`), counted in
+        ``CLIENT_METRICS``. An armed chaos engine may stall the call or, for
+        a condemned runner, raise ``ChaosKilled``, which no retry catches."""
         msg = {**msg, "partition_id": self.partition_id}
         last_err = None
         delay = constants.CLIENT_RETRY_BACKOFF_BASE_S
         for attempt in range(constants.CLIENT_MAX_RETRIES + 1):
+            engine = chaos_engine()
+            if engine is not None:
+                engine.on_client_request(msg)
             try:
                 if heartbeat:
                     MessageSocket.send_msg(self._hb_sock, msg, self.secret)
@@ -689,17 +762,21 @@ class Client:
                 with self._lock:
                     MessageSocket.send_msg(self._sock, msg, self.secret)
                     return MessageSocket.recv_msg(self._sock, self.secret)
+            except ChaosKilled:
+                raise
             except (ConnectionError, socket.timeout, OSError) as e:
                 last_err = e
                 if attempt >= constants.CLIENT_MAX_RETRIES:
                     break
-                time.sleep(delay * (0.5 + 0.5 * random.random()))
+                CLIENT_METRICS.counter("rpc.client.retries").inc()
+                _sleep(delay * (0.5 + 0.5 * random.random()))
                 delay = min(delay * 2, constants.CLIENT_RETRY_BACKOFF_CAP_S)
                 try:
                     fresh = self._connect()
                 except OSError as conn_err:
                     last_err = conn_err
                     continue
+                CLIENT_METRICS.counter("rpc.client.reconnects").inc()
                 if heartbeat:
                     self._hb_sock = fresh
                 else:

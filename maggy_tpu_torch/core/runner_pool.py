@@ -6,13 +6,19 @@ device), ``ProcessRunnerPool`` (one spawned OS process per runner, each with
 its own interpreter and CUDA context; a lost runner is SIGKILLed) and
 ``GPURunnerPool`` (processes pinned to disjoint CUDA devices through
 CUDA_VISIBLE_DEVICES, the counterpart of the JAX package's TPU-pinned pool).
-The elastic and remote pools are not ported yet.
+The elastic and remote pools are not ported yet. Each pool exposes
+``kill_worker`` and ``stall_worker`` (``maggy_tpu/core/runner_pool.py:150-163,
+268-279``), through which the chaos engine's ``kill_runner`` and
+``stall_runner`` faults act: process pools SIGKILL, and SIGSTOP then SIGCONT;
+thread pools can do neither and return False, and the engine falls back to
+its cooperative kill and stall in the RPC client.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import signal
 import threading
 import traceback
 from abc import ABC, abstractmethod
@@ -59,6 +65,12 @@ class RunnerPool(ABC):
         killed; thread pools cannot kill a thread and return False."""
         return False
 
+    def stall_worker(self, partition_id: int, duration_s: float) -> bool:
+        """Freeze ONE runner for ``duration_s`` seconds (chaos
+        ``stall_runner``). True if the pool froze it; thread pools return
+        False and the chaos engine stalls the runner's RPC calls instead."""
+        return False
+
 
 class ThreadRunnerPool(RunnerPool):
     def run(self, worker_fn: Callable[[int], None]) -> List[BaseException]:
@@ -98,6 +110,29 @@ def device_env(index: int, chips_per_trial: int = 1) -> Dict[str, str]:
     return {"CUDA_VISIBLE_DEVICES": ",".join(ids[i] if ids else str(i) for i in chosen)}
 
 
+def _stall_process(p, duration_s: float) -> bool:
+    """SIGSTOP ``p`` now and SIGCONT it from a daemon timer after
+    ``duration_s``. A process that exits meanwhile is simply not resumed."""
+    if not (p.is_alive() and p.pid):
+        return False
+    try:
+        os.kill(p.pid, signal.SIGSTOP)
+    except OSError:
+        return False
+
+    def resume():
+        try:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGCONT)
+        except OSError:
+            pass
+
+    timer = threading.Timer(duration_s, resume)
+    timer.daemon = True
+    timer.start()
+    return True
+
+
 def _process_entry(worker_fn, pid: int, env: Dict[str, str]) -> None:
     # Device pinning must precede the child's first CUDA call; spawn starts
     # the child from a fresh interpreter, so no context exists yet.
@@ -130,6 +165,11 @@ class ProcessRunnerPool(RunnerPool):
             if p.is_alive():
                 p.kill()
                 return True
+        return False
+
+    def stall_worker(self, partition_id: int, duration_s: float) -> bool:
+        if 0 <= partition_id < len(self._procs):
+            return _stall_process(self._procs[partition_id], duration_s)
         return False
 
     def run(self, worker_fn: Callable[[int], None]) -> List[BaseException]:

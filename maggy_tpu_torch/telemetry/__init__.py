@@ -20,9 +20,13 @@ offline to reproduce the driver's numbers exactly. The journal's strings
 are the JAX package's (vocab.py), so either package replays the other's
 journal. A resumed experiment reloads the journal of its interrupted
 incarnations (``TelemetryJournal.load_existing``) and rebuilds its spans
-from it (``Telemetry.restore_spans``). The fleet journal sink, the health
-engine and the observability server are not ported yet (ROADMAP queue 1
-items 9 and 11).
+from it (``Telemetry.restore_spans``). The facade forwards every trial
+phase to ``chaos_hook`` (an armed chaos engine's ``on_trial_phase``), stamps
+each partition's last progress for the hang watchdog, and its snapshot
+carries the ``health`` engine's findings (``health.py``); the observability
+server (``obs.py``) renders its registry and snapshot, and ``profiling.py``
+captures torch.profiler traces at a flagged anomaly. The fleet journal sink
+is not ported yet (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -70,10 +74,18 @@ class Telemetry:
         # cache it: (monotonic t, event count, derived). Recomputed only
         # when events arrived AND the cache is older than a second.
         self._derive_cache = (0.0, -1, {})
+        # Phase-transition listener, set by an armed chaos engine (its
+        # on-state-transition triggers); telemetry knows no chaos semantics.
+        self.chaos_hook = None
+        # The live health engine (health.HealthEngine), attached by the
+        # driver; None = no health block in the snapshot.
+        self.health = None
         # Runner-side stats (runnerstats.RunnerStats deltas shipped on
-        # heartbeat METRIC payloads), merged per partition.
+        # heartbeat METRIC payloads), merged per partition, and each
+        # partition's last trial-progress stamp (the hang watchdog's input).
         self._runner_lock = threading.Lock()
         self._runner_state: Dict[int, Dict[str, Any]] = {}  # guarded-by: _runner_lock
+        self._progress: Dict[int, float] = {}  # guarded-by: _runner_lock
         # Trials whose compiled record already bumped the live registry
         # counters (the journal itself is deduped by once=True).
         self._compiled_seen: set = set()  # guarded-by: _runner_lock
@@ -99,6 +111,14 @@ class Telemetry:
         self._record({"t": t, "ev": "trial", "trial": trial_id,
                       "span": span_id, "phase": phase, **fields})
         self.metrics.counter("trial.phase.{}".format(phase)).inc()
+        if fields.get("partition") is not None:
+            self._note_progress(int(fields["partition"]))
+        hook = self.chaos_hook
+        if hook is not None:
+            try:
+                hook(trial_id, phase, fields.get("partition"))
+            except Exception:  # noqa: BLE001 - chaos must never break telemetry
+                pass
         return span_id
 
     def event(self, ev: str, **fields: Any) -> None:
@@ -133,6 +153,13 @@ class Telemetry:
                 merged = self._runner_state.setdefault(pid, {})
                 merged.update(stats)
                 merged["updated_t"] = time.time()
+            # Liveness-only fields (RTT, RSS) keep changing on a wedged
+            # runner whose heartbeat thread lives: only progress resets the
+            # hang watchdog.
+            from maggy_tpu_torch.telemetry.runnerstats import PROGRESS_KEYS
+
+            if any(k in stats for k in PROGRESS_KEYS):
+                self._note_progress(pid)
             for key in ("hb_rtt_ms", "rss_mb", "dev_mem_mb", "cadence_ms",
                         "ttfm_ms", "warm_hits", "warm_misses",
                         "xla_cache_hits", "xla_cache_misses"):
@@ -187,6 +214,17 @@ class Telemetry:
             and name.endswith(suffix))
         with self._runner_lock:
             self._runner_state.pop(pid, None)
+            self._progress.pop(pid, None)
+
+    def _note_progress(self, pid: int) -> None:
+        with self._runner_lock:
+            self._progress[pid] = time.monotonic()
+
+    def last_progress(self, partition) -> Optional[float]:
+        """Monotonic time of the partition's last trial progress (a phase
+        event naming it, or runner-reported step movement), or None."""
+        with self._runner_lock:
+            return self._progress.get(int(partition))
 
     def runner_state(self) -> Dict[int, Dict[str, Any]]:
         """Per-partition merged runner stats (copies)."""
@@ -221,6 +259,25 @@ class Telemetry:
         self._derive_cache = (now, n, derived)
         return derived
 
+    def refresh_goodput_gauges(self) -> Dict[str, Any]:
+        """Fold the journal's goodput ledger (through the ~1 Hz derive
+        cache) into the ``goodput.*`` gauges, so a /metrics scrape carries
+        the current chip-time accounting (``maggy_tpu/telemetry/
+        __init__.py:272-297``). Returns the ledger block."""
+        if not self.enabled:
+            return {}
+        block = self._derived_spans().get("goodput") or {}
+        if not block:
+            return block
+        self.metrics.gauge("goodput.fraction").set(block.get("goodput_fraction") or 0.0)
+        self.metrics.gauge("goodput.unaccounted_fraction").set(
+            block.get("unaccounted_fraction") or 0.0)
+        self.metrics.gauge("goodput.held_chip_s").set(round(block.get("held_chip_s") or 0.0, 3))
+        for pid, p in (block.get("per_partition") or {}).items():
+            if p.get("goodput_fraction") is not None:
+                self.metrics.gauge("goodput.fraction.p{}".format(pid)).set(p["goodput_fraction"])
+        return block
+
     def snapshot(self, fresh: bool = False) -> Dict[str, Any]:
         """Plain-dict snapshot: live metrics + span-derived scheduling
         numbers (derivation cached, at most ~1 Hz — pass ``fresh=True``
@@ -228,13 +285,16 @@ class Telemetry:
         This is the TELEM RPC reply body."""
         if not self.enabled:
             return {"enabled": False}
-        return {"enabled": True,
+        snap = {"enabled": True,
                 "metrics": self.metrics.snapshot(),
                 "spans": self._derived_spans(max_age_s=0.0 if fresh else 1.0),
                 "num_spans": len(self.spans),
                 "runners": self.runner_state(),
                 "journal": {"torn_lines": self.journal.torn_lines
                             if self.journal is not None else 0}}
+        if self.health is not None:
+            snap["health"] = self.health.snapshot()
+        return snap
 
     def restore_spans(self) -> int:
         """Rebuild the span tracker from the journal's restored trial events

@@ -2,7 +2,10 @@
 
 A verbatim copy of ``maggy_tpu/telemetry/vocab.py``: both packages write
 the same strings, so either package's replay reads the other's journal.
-The port emits a subset (no gangs, forks, fleet, chaos or health yet).
+The port emits a subset: the trial lifecycle with prefetch, forks,
+preemption, resume and vectorized lanes, chaos injections, health flags,
+profile captures and the obs plane's discovery event; not the gang, fleet
+or journal-sink vocabulary (ROADMAP queue 1 items 8 and 9).
 
 One home for the stringly-typed contract between EMITTERS (``Telemetry.
 trial_event`` / ``Telemetry.event`` call sites across the package) and

@@ -15,7 +15,7 @@ materializes on its heartbeat thread.
 from __future__ import annotations
 
 import contextlib
-import threading
+import gc
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional
@@ -24,56 +24,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from maggy_tpu_torch import device_gate
 from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.train import warm
 
-
-
-class _StepGate:
-    """Steps on the card share the gate; a capture holds it alone, and a
-    waiting capture keeps new steps out. One capture at a time in a process
-    (two thread runners' captures must not share the allocator's capture
-    bookkeeping), and no other runner thread's step runs meanwhile: a
-    library call of another thread's step can fail while a stream captures
-    (a cuDNN convolution's backward was seen to, and to invalidate the
-    capture)."""
-
-    def __init__(self):
-        self._cond = threading.Condition()
-        self._steps = 0  # steps running
-        self._waiting = 0  # captures waiting
-        self._capturing = False
-
-    @contextlib.contextmanager
-    def step(self):
-        with self._cond:
-            while self._capturing or self._waiting:
-                self._cond.wait()
-            self._steps += 1
-        try:
-            yield
-        finally:
-            with self._cond:
-                self._steps -= 1
-                self._cond.notify_all()
-
-    @contextlib.contextmanager
-    def capture(self):
-        with self._cond:
-            self._waiting += 1
-            while self._capturing or self._steps:
-                self._cond.wait()
-            self._waiting -= 1
-            self._capturing = True
-        try:
-            yield
-        finally:
-            with self._cond:
-                self._capturing = False
-                self._cond.notify_all()
-
-
-_GATE = _StepGate()
 
 
 def cross_entropy_loss(logits, labels):
@@ -106,6 +60,22 @@ def _copy_into(static, batch) -> None:
         static.copy_(torch.as_tensor(batch), non_blocking=True)
 
 
+@contextlib.contextmanager
+def _no_cyclic_gc():
+    """No cyclic garbage collection during a capture. A dead graph that a
+    reference cycle keeps (a dropped trainer's) is destroyed by the cyclic
+    collector on whichever thread triggers it, and a graph destroyed on the
+    capturing thread invalidates the capture (CUDAGraph reset: "operation
+    not permitted when stream is capturing")."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def capture_step(slot, unit, device, batch, run):
     """Capture ``run(inputs)`` (one training step on copies of ``batch``'s
     arrays) as a CUDA graph into ``unit.pool`` under the capture gate: the
@@ -115,7 +85,7 @@ def capture_step(slot, unit, device, batch, run):
     trial's compile record and counted."""
     from maggy_tpu_torch.ops import attention
 
-    with _GATE.capture():
+    with device_gate.capture(), _no_cyclic_gc():
         t0 = time.perf_counter()
         try:
             # The memory pools of destroyed graphs are freed only by a
@@ -186,8 +156,13 @@ class _Unit:
         self.lr: list = []
 
     def drop_graphs(self) -> None:
+        """Drop the graphs, and with them their memory pool: once no graph
+        holds it the allocator retires the pool, and a capture into its
+        handle again trips the allocator (``use_count > 0``), so the next
+        capture takes a fresh one."""
         self.graphs.clear()
         self.warmed.clear()
+        self.pool = None
 
     def release(self) -> None:
         """Free the graphs and their memory pool: the pool's blocks return
@@ -425,7 +400,7 @@ class Trainer:
         if self.device.type != "cuda":
             return self._eager_step(batch)
         graph = self._graph_for(batch)
-        with _GATE.step():
+        with device_gate.step():
             if graph is None:
                 return self._eager_step(batch)
             _copy_into(graph.inputs, batch)

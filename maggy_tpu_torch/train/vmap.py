@@ -26,7 +26,7 @@ over stacked state:
   (``train/optim.py``, ROADMAP queue 3 item 11).
 - **On the card** a batch shape's first step runs eagerly and later steps
   replay a CUDA graph captured once into the unit's memory pool, through
-  ``Trainer``'s capture gate. Everything the graph writes is written in
+  the process's capture gate (``device_gate``). Everything the graph writes is written in
   place (parameters, optimizer state, gradient buffer, learning rates): a
   rebound tensor would leave the replayed graph writing the old one.
 - **Masking** (``mask_lane``) retires a lane on the host: its row keeps
@@ -54,10 +54,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from maggy_tpu_torch import device_gate
 from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.train import warm
 from maggy_tpu_torch.train.optim import swept_transform
-from maggy_tpu_torch.train.trainer import _GATE, _copy_into, _on_meta, capture_step
+from maggy_tpu_torch.train.trainer import _copy_into, _on_meta, capture_step
 
 _NOT_PORTED = ("vectorized lanes of a model with buffers or sowed losses are not ported yet "
                "(ROADMAP queue 1 item 7b)")
@@ -327,7 +328,7 @@ class VmapTrainer:
             losses = self._run(unit, batch).detach()
         else:
             graph = self._graph_for(unit, batch)
-            with _GATE.step():
+            with device_gate.step():
                 if graph is None:
                     losses = self._run(unit, batch).detach()
                 else:

@@ -418,6 +418,21 @@ class WarmCache:
         with self._lock:
             return list(self._slots)
 
+    def retired_units(self) -> int:
+        """Retired units held over all slots, scalar and K-lane: what a
+        runner that left (a thread ended by a chaos kill among them) keeps
+        on the card until another runner takes it or ``clear_warm``."""
+        with self._lock:
+            slots = list(self._slots.values())
+        n = 0
+        for slot in slots:
+            with slot.entry.lock:
+                n += len(slot.entry.retired)
+            with slot.lock:
+                entries = list(slot.vmaps.values())
+            n += sum(e.retired is not None for e in entries)
+        return n
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._slots)

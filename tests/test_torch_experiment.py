@@ -69,7 +69,11 @@ _SWEEP = textwrap.dedent("""
     import numpy as np
     import torch
     import maggy_tpu_torch.telemetry
+    import maggy_tpu_torch.telemetry.health
+    import maggy_tpu_torch.telemetry.obs
+    import maggy_tpu_torch.telemetry.profiling
     import maggy_tpu_torch.train.warm
+    from maggy_tpu_torch.chaos import harness
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
     from maggy_tpu_torch.models import BertConfig, BertEncoder
     from maggy_tpu_torch.optimizers import PBT, Asha
@@ -166,6 +170,14 @@ _SWEEP = textwrap.dedent("""
                                  pool="process"),
                 "pbt": sweep("blocked_pbt", PBT(population=3, generations=2, seed=0), 6, sp,
                              train_pbt)}}
+        # The chaos stall soak with the obs plane on: the health engine,
+        # the obs server, a torch.profiler capture and the checker, under
+        # the hook.
+        stall = harness.run_soak(plan=harness.stall_plan(7), seed=7, hb_loss_timeout=10.0,
+                                 base_dir=tempfile.mkdtemp(), obs=True,
+                                 config_overrides={{"health_hang_factor": 10.0,
+                                                   "health_interval_s": 0.1}})
+        out["chaos"] = {{"violations": stall["violations"], "profiles": stall["profiles"]}}
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
         print(json.dumps(out))
@@ -184,6 +196,7 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    assert out["chaos"]["violations"] == [] and out["chaos"]["profiles"]["auto"] == 1
     # The process sweep: every trial ran in a runner process of its own
     # (not the driver's), which saw none of the banned modules either.
     result, outputs = out["process"]["result"], out["process"]["outputs"]

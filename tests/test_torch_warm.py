@@ -318,9 +318,9 @@ def test_a_capture_waits_for_running_steps_and_holds_new_ones_out():
     import threading
     import time
 
-    from maggy_tpu_torch.train.trainer import _StepGate
+    from maggy_tpu_torch.device_gate import _Gate
 
-    gate, order = _StepGate(), []
+    gate, order = _Gate(), []
     step_in, capture_in = threading.Event(), threading.Event()
 
     def long_step():
