@@ -225,6 +225,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              AB_LOSS_TOL["bert_base"], every step but a unit's first
              replayed; prints the 4-lane step alone replayed beside the
              scalar one x 4, its profile, and the phase's peak memory.
+             (e) resnet50_lanes: 4 lanes of ResNet-50 (width 64, batch 128,
+             fp32, TF32 off) with has_aux_collections and train=True, the
+             stacked running statistics updated inside the captured
+             VmapTrainer step; each lane against its own scalar Trainer:
+             losses within RESNET_LANES_LOSS_TOL, parameters and running
+             statistics within RESNET_LANES_TOL_PER_LR x its lr; the unit
+             module's own buffers untouched, every step after the first
+             replayed. (f) moe_lanes: 2 lanes of the MoE Llama (Llama-3-8B
+             widths, 8 experts, 1 layer, bf16 parameters, every parameter
+             trained, no LoRA, eager, batch 1 x 2048): each lane's
+             objective with its load-balancing losses against its own
+             scalar Trainer within AB_LOSS_TOL["bert_base"], the flash
+             launches exactly one a layer and block step
+             (llama3_8b_moe_lanes in the kernels line, at the Llama's
+             shape: 2 lanes of batch 1).
 18. slice_chaos — the port's chaos soaks (maggy_tpu_torch.chaos.harness)
              with trials that train on the card: train_mnist (budget
              CHAOS_BUDGET), train_mnist_vmap, and train_mnist_ckpt (each step
@@ -252,6 +267,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              phantom or twice-finalized trial and an ended experiment on each;
              each journal's raised health flags are printed, those of
              fault-free phases apart.
+19. slice_ablation — LOCO ablation studies through experiment.lagom with an
+             AblationConfig on thread runners, each journal replayed, each
+             step after a unit's warm-up replayed, the LOCO schedule's trial
+             ids finalized. titanic_loco: examples/titanic_ablation.py's
+             study: make_titanic_like(2048, seed 0) written as a TFRecord and
+             registered as "titanic" in a DatasetRegistry under the phase's
+             directory, AblationStudy("titanic", version, "survived") over
+             the 5 features, layers hidden_1 and hidden_2 and the prefix
+             group hidden (9 trials, 3 runners), each an AblatableSequential
+             with a lazy input layer trained full batch (Adam 1e-2, 60
+             steps); each trial's parameter count its kept layers', sex the
+             worst ablation, the base trial's accuracy above 0.8.
+             bert_base_loco: BERT-base's 12 encoder layers on slice's data,
+             the 12 singly, [layer_10, layer_11] and the prefix group layer_1
+             (15 trials, 2 runners, 24 steps each, a constant-rate swept
+             AdamW). filter_layers matches by name or prefix, so the single
+             layer_1 trial drops layer_10 and layer_11 too, as the prefix
+             group does: each flash kernel launched (12 + 11 x 11 + 9 + 10 +
+             9) x 24 = 3864 times, warm hits >= 9 (one miss at most a runner
+             and program: the 11 other single ablations are one 11-layer
+             program). Prints each study's wall, step p50, goodput, warm
+             hits and misses and peak memory.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -293,7 +330,10 @@ path, each with that path's launches, whether its steps ran captured, and
 times at its shape; bert_base_resume's launches are incarnation 2's,
 bert_base_warm's slice_warm's BERT-base warm arm's, llama3_8b_moe's
 slice_moe's at the Llama shape's times, bert_base_lanes's slice_lanes'
-at the folded shape, 4 lanes x batch 32), the
+at the folded shape, 4 lanes x batch 32, llama3_8b_moe_lanes's its MoE
+arm's at the Llama's shape (2 lanes x batch 1), bert_base_loco's
+slice_ablation's),
+the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
 JAX or maggy_tpu. Runner processes are spawned and re-import this file as
@@ -356,11 +396,13 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128),
                "bert_base_lanes": (4 * BERT_B, BERT_S, BERT_S, 12, 12, 64)}
 #: Paths that run the kernels at another path's shape: the process-runner,
-#: forking, resumed and warm A/B sweeps are the slice sweep's, the MoE
-#: Llama's attention is the Llama's.
+#: forking, resumed, warm A/B and LOCO sweeps are the slice sweep's, the MoE
+#: Llama's attention is the Llama's, and so is its lanes' (2 lanes of batch
+#: 1 fold into the Llama's batch 2).
 SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
               "bert_base_resume": "bert_base", "bert_base_warm": "bert_base",
-              "llama3_8b_moe": "llama3_8b"}
+              "bert_base_loco": "bert_base", "llama3_8b_moe": "llama3_8b",
+              "llama3_8b_moe_lanes": "llama3_8b"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
 DEVICE = "cuda"
@@ -432,6 +474,43 @@ LANES_TOL = (1e-4, 1e-5)
 BERT_LANES = 4
 #: The steps a trial of slice_lanes' MNIST arms trains (set by the phase).
 LANES_STEPS = [LANES_BENCH_STEPS]
+# slice_lanes' lanes of models with buffers or sowed losses. resnet50_lanes:
+# slice_resnet's ResNet-50 at width 64 and batch 128, fp32 (TF32 off),
+# has_aux_collections, captured; its lanes' rates, the weight decay baked
+# into the family, the steps, and the tolerances of each lane against its
+# own scalar Trainer: losses relative, and parameters and running
+# statistics relative to 1 + the largest value, per unit of the lane's
+# learning rate. vmap's batched convolutions take other cuDNN algorithms
+# than the scalar ones, whose sums run in another order, and AdamW moves
+# each weight by about lr a step whatever its gradient's size, so a
+# near-zero gradient whose last bits differ can step the other way: up to
+# 2 lr a step, 10 lr over the 5 steps, and BatchNorm's statistics of the
+# deeper blocks carry such differences on. (A flat 1e-3 bound failed at lr
+# 1e-3 on an H100: statistics 1.16e-2 off, parameters 5.59e-3, growing
+# linearly with lr from 7.2e-4 at 1e-4; PERF.md.) The arm prints a witness
+# beside them: a second scalar run at the largest rate against the first,
+# under the same cuDNN settings.
+# moe_lanes: the MoE Llama at Llama-3-8B's widths with MOE_EXPERTS experts
+# a layer (top-2, capacity factor 2), without LoRA (every parameter
+# trained: the lanes stack every parameter, frozen ones too, as the JAX
+# package's stack every variable), parameters in bf16, no remat
+# (torch.func's grad does not take torch.utils.checkpoint's saved-tensor
+# hooks), eager, MOE_LANES_LAYERS layers at MOE_LANES_K lanes, batches of
+# MOE_LANES_B x 2048 tokens (the memory reckoning: lanes_moe_arm), each
+# lane's objective against its scalar Trainer within
+# AB_LOSS_TOL["bert_base"] (bf16 arithmetic).
+RESNET_LANES_LRS, RESNET_LANES_WD = [1e-4, 2e-4, 5e-4, 1e-3], 1e-4
+RESNET_LANES_STEPS, RESNET_LANES_LOSS_TOL, RESNET_LANES_TOL_PER_LR = 5, 1e-3, 20.0
+MOE_LANES_K, MOE_LANES_LAYERS, MOE_LANES_STEPS, MOE_LANES_B = 2, 1, 3, 1
+MOE_LANES_LRS = [1e-5, 1e-4]
+# slice_ablation: examples/titanic_ablation.py's study (make_titanic_like's
+# rows, 5 features, full batch, Adam 1e-2, 60 steps, 3 runners) and a LOCO
+# study over BERT-base's 12 encoder layers on slice's data (a constant-rate
+# swept AdamW, 24 steps a trial, 2 runners).
+TITANIC_FEATURES = ["pclass", "sex", "age", "fare", "embarked"]
+TITANIC_N, TITANIC_STEPS, TITANIC_LR, TITANIC_RUNNERS = 2048, 60, 1e-2, 3
+BERT_LOCO_NAMES = ["embed"] + ["layer_{}".format(i) for i in range(12)] + ["head"]
+BERT_LOCO_STEPS, BERT_LOCO_LR, BERT_LOCO_RUNNERS = 24, 3e-5, 2
 
 
 def emit(phase, **fields):
@@ -622,7 +701,7 @@ def time_kernels(path, main):
     from maggy_tpu_torch.ops import attention as A
 
     B, S, _, H, Hkv, D = MAIN_SHAPES[path]
-    causal = path == "llama3_8b"
+    causal = path.startswith("llama3_8b")
     dtype = torch.bfloat16
     q, k, v, do, mask = make_inputs(B, S, S, H, Hkv, D, dtype, not causal, seed=2)
     out, lse = A.flash_fwd(q, k, v, mask, causal)
@@ -2437,6 +2516,185 @@ def lanes_step_alone(make, batch, warmup=3, n=10):
     return (time.perf_counter() - t0) * 1e3 / n, trainer
 
 
+def lanes_resnet_arm():
+    """resnet50_lanes: RESNET_LANES_K lanes of slice_resnet's ResNet-50
+    (width 64, batch 128, fp32, TF32 off) with has_aux_collections and
+    train=True, one captured VmapTrainer step a batch for
+    RESNET_LANES_STEPS batches of the example's iterator; then each lane's
+    own scalar Trainer (same seed, rate and weight decay) on the same
+    batches. Returns (line, problems)."""
+    from maggy_tpu_torch.models import ResNet
+    from maggy_tpu_torch.train import adamw, clear_warm, warm
+    from maggy_tpu_torch.train.vmap import VmapTrainer
+
+    full_fp32()
+    clear_warm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    it = resnet_batches()
+    batches = [next(it) for _ in range(RESNET_LANES_STEPS)]
+    before = warm.counters()
+    t0 = time.perf_counter()
+    vt = VmapTrainer(ResNet(depth=RESNET_DEPTH, num_classes=2, width=64, device="meta"), adamw,
+                     [{"learning_rate": lr} for lr in RESNET_LANES_LRS], labels_loss,
+                     device=DEVICE, has_aux_collections=True, train_kwargs={"train": True},
+                     weight_decay=RESNET_LANES_WD).init(seed=0)
+    losses = torch.stack([vt.step(b) for b in batches]).cpu().numpy()
+    lanes_s = time.perf_counter() - t0
+    reading = {k: warm.counters()[k] - before[k] for k in warm.COUNTER_KEYS}
+    state = {i: {k: v.detach().cpu() for k, v in vt.lane_state_dict(i).items()}
+             for i in range(len(RESNET_LANES_LRS))}
+    untouched = all(torch.equal(b.cpu(), torch.zeros_like(b.cpu()) if n.endswith(".mean")
+                                else torch.ones_like(b.cpu()))
+                    for n, b in vt.model.named_buffers())
+    peak_lanes = torch.cuda.max_memory_allocated() / 1e9
+    del vt
+    clear_warm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_lane = []
+    for i, lr in enumerate(RESNET_LANES_LRS):
+        scalar = resnet_trainer(lr, 64, RESNET_LANES_WD)
+        ref = np.asarray([float(scalar.step(b)) for b in batches])
+        want = {k: v.detach().cpu() for k, v in scalar.model.state_dict().items()}
+
+        def off(names):
+            return max(float((state[i][k] - want[k]).abs().max())
+                       / (1.0 + float(want[k].abs().max())) for k in names)
+
+        stat_names = [k for k in want if k.endswith((".mean", ".var"))]
+        per_lane.append({"lr": lr,
+                         "loss_rel_err": float(np.max(np.abs(losses[:, i] - ref) / np.abs(ref))),
+                         "stats_err": off(stat_names),
+                         "params_err": off([k for k in want if k not in stat_names]),
+                         "tol_stats_params": RESNET_LANES_TOL_PER_LR * lr})
+        del scalar
+        clear_warm()
+    # The witness: the largest rate's scalar Trainer run again, against its
+    # first run (cuDNN may pick other algorithms run to run).
+    scalar = resnet_trainer(RESNET_LANES_LRS[-1], 64, RESNET_LANES_WD)
+    ref2 = np.asarray([float(scalar.step(b)) for b in batches])
+    again = {k: v.detach().cpu() for k, v in scalar.model.state_dict().items()}
+    witness = {"lr": RESNET_LANES_LRS[-1],
+               "loss_rel_err": float(np.max(np.abs(ref2 - ref) / np.abs(ref))),
+               "stats_params_err": max(float((again[k] - want[k]).abs().max())
+                                       / (1.0 + float(want[k].abs().max())) for k in want)}
+    del scalar
+    clear_warm()
+    replayed = reading["graph_replays"] == RESNET_LANES_STEPS - 1 and reading["graph_failures"] == 0
+    line = {"lanes": len(RESNET_LANES_LRS), "width": 64, "batch": RESNET_BATCH,
+            "steps": RESNET_LANES_STEPS, "losses": losses.tolist(), "vs_scalar": per_lane,
+            "witness_scalar_vs_scalar": witness,
+            "loss_tol": RESNET_LANES_LOSS_TOL, "tol_per_lr": RESNET_LANES_TOL_PER_LR,
+            "module_buffers_untouched": untouched, "warm": reading, "captured": replayed,
+            "lanes_s": lanes_s, "peak_mem_lanes_gb": peak_lanes}
+    problems = []
+    far = [r for r in per_lane if not (r["loss_rel_err"] <= RESNET_LANES_LOSS_TOL
+                                       and r["stats_err"] <= r["tol_stats_params"]
+                                       and r["params_err"] <= r["tol_stats_params"])]
+    if far:
+        problems.append("resnet50 lanes off their scalar Trainers: {}".format(far))
+    if not (untouched and replayed and np.isfinite(losses).all()):
+        problems.append("resnet50 lanes: module buffers untouched {}, replayed {}: {}".format(
+            untouched, replayed, reading))
+    return line, problems
+
+
+def moe_lanes_config():
+    from maggy_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(
+        LlamaConfig.llama3_8b(lora_rank=0), num_layers=MOE_LANES_LAYERS,
+        num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K, moe_capacity_factor=MOE_CAPACITY_FACTOR,
+        param_dtype=torch.bfloat16, remat=False)
+
+
+def lanes_moe_arm():
+    """moe_lanes: MOE_LANES_K lanes of the MoE Llama (moe_lanes_config),
+    MOE_LANES_STEPS eager VmapTrainer steps on seeded MOE_LANES_B x 2048
+    token batches, each lane's objective (task loss plus the layers' load-
+    balancing losses) against its own scalar Trainer's. Memory: a lane holds
+    2.50 B parameters (embedding and head 2 x 525 M, a layer's 8 experts
+    1.41 B and attention 42 M), at 2 bytes each as parameter, gradient
+    buffer and AdamW's two moments (20 GB a lane), beside the unit's module
+    (5 GB) and a step's own gradients (5 GB a lane); the dense logits'
+    path (vmap takes no custom Function, so not the chunked loss) holds
+    about 10 GB a lane at batch 2 x 2048. At batch 2 this arm ran out of
+    memory on an H100 80GB after the ResNet arm; so batch 1 x 2048, about
+    18 GB less. Returns (line, problems, launches)."""
+    from maggy_tpu_torch.models import Llama
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.ops import next_token_loss
+    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, swept_transform
+    from maggy_tpu_torch.train.vmap import VmapTrainer
+
+    clear_warm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Earlier captures' cuBLAS workspaces (ROADMAP F13): the two lanes peak
+    # within a few GB of the card's memory.
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_lanes_config()
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(MOE_LANES_STEPS, MOE_LANES_B, LLAMA_S)), device=DEVICE)
+    batches = [{"inputs": (t,), "tokens": t} for t in tokens]
+
+    def loss_fn(logits, b):
+        return next_token_loss(logits, b["tokens"])
+
+    t0 = time.perf_counter()
+    vt = VmapTrainer(Llama(cfg, device="meta"), adamw,
+                     [{"learning_rate": lr} for lr in MOE_LANES_LRS], loss_fn, device=DEVICE,
+                     warm_start=False).init(seed=0)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    losses, aux = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        losses.append(vt.step(b))
+        aux.append(vt.aux_loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MOE_LANES_STEPS
+    launches = A.launch_counts()
+    losses, aux = torch.stack(losses).float().cpu().numpy(), torch.stack(aux).float().cpu().numpy()
+    peak_lanes = torch.cuda.max_memory_allocated() / 1e9
+    del vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel, absolute = AB_LOSS_TOL["bert_base"]
+    off, aux_off = 0.0, 0.0
+    for i, lr in enumerate(MOE_LANES_LRS):
+        scalar = Trainer(Llama(cfg, device="meta"), swept_transform(adamw, learning_rate=lr),
+                         loss_fn, device=DEVICE, warm_start=False).init(seed=0)
+        for t, b in enumerate(batches):
+            ref = float(scalar.step(b))
+            off = max(off, float(abs(losses[t, i] - ref) - (rel * abs(ref) + absolute)))
+            aux_off = max(aux_off, float(abs(aux[t, i] - float(scalar.aux_loss))))
+        del scalar
+        gc.collect()
+        torch.cuda.empty_cache()
+    A.reset_launch_counts()
+    expected = MOE_LANES_LAYERS * MOE_LANES_STEPS
+    line = {"lanes": MOE_LANES_K, "layers": cfg.num_layers, "experts": cfg.num_experts,
+            "param_dtype": str(cfg.param_dtype), "steps": MOE_LANES_STEPS,
+            "batch": [MOE_LANES_B, LLAMA_S],
+            "lrs": MOE_LANES_LRS, "losses": losses.tolist(), "aux_losses": aux.tolist(),
+            "loss_excess_over_tol": off, "aux_max_abs_diff_vs_scalar": aux_off,
+            "tol": {"relative": rel, "absolute": absolute}, "launches": launches,
+            "expected_launches": expected, "init_s": init_s, "step_ms_eager": step_ms,
+            "peak_mem_lanes_gb": peak_lanes, "captured": False}
+    problems = []
+    if off > 0 or not (np.isfinite(losses).all() and (aux > 0).all()):
+        problems.append("MoE lanes off their scalar Trainers by {} over the tolerance, aux "
+                        "{}".format(off, aux.tolist()))
+    if any(launches.get(k) != expected for k in REPLACES):
+        problems.append("MoE lanes launched {}, want {} each".format(launches, expected))
+    return line, problems, launches
+
+
 def phase_slice_lanes(exp_root, warm_bert_losses):
     """The vectorized lanes on the card (see the module docstring, phase
     17). Returns the BERT-base lanes sweep's launches."""
@@ -2551,12 +2809,22 @@ def phase_slice_lanes(exp_root, warm_bert_losses):
                                        "scalar_x_lanes": scalar_ms * BERT_LANES},
             "step_profile": profiles, "eager_op_device_ms": ops}
     emit("slice_lanes/bert_base", **bert)
+    peak = torch.cuda.max_memory_allocated()
+
+    # (e) and (f): lanes of models with buffers or sowed losses.
+    resnet, bad = lanes_resnet_arm()
+    problems += bad
+    emit("slice_lanes/resnet50_lanes", **resnet)
+    moe, bad, moe_launches = lanes_moe_arm()
+    problems += bad
+    CAPTURED["llama3_8b_moe_lanes"] = False
+    emit("slice_lanes/moe_lanes", **moe)
     emit("slice_lanes", phase_s=time.perf_counter() - t_phase,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, speedup=mnist["speedup"],
-         problems=problems)
+         peak_mem_gb=max(peak, torch.cuda.max_memory_allocated()) / 1e9,
+         speedup=mnist["speedup"], problems=problems)
     if problems:
         raise AssertionError("slice_lanes: {}".format("; ".join(problems)))
-    return launches
+    return launches, moe_launches
 
 
 def phase_slice_process(exp_dir, thread_step_ms):
@@ -3998,6 +4266,264 @@ def phase_slice_chaos():
         raise AssertionError("slice_chaos: {}".format("; ".join(map(str, problems))))
 
 
+# ------------------------------------------------- slice 14: ablation studies
+
+
+def make_titanic_like(n=TITANIC_N, seed=0):
+    """examples/titanic_ablation.py's data: five standard-normal features;
+    survived = [1.5 sex - 0.8 pclass + 0.3 fare + noise > 0]."""
+    rng = np.random.default_rng(seed)
+    X = {f: rng.normal(size=n).astype(np.float32) for f in TITANIC_FEATURES}
+    logits = 1.5 * X["sex"] - 0.8 * X["pclass"] + 0.3 * X["fare"]
+    y = (logits + 0.5 * rng.normal(size=n) > 0).astype(np.int32)
+    return X, y
+
+
+def titanic_input():
+    """Flax's nn.Dense(32) infers its input width; the port's input layer is
+    lazy, since an ablated feature leaves four."""
+    return torch.nn.LazyLinear(32)
+
+
+def titanic_hidden():
+    return torch.nn.Sequential(torch.nn.Linear(32, 32), torch.nn.ReLU())
+
+
+def titanic_head():
+    return torch.nn.Linear(32, 2)
+
+
+TITANIC_LAYERS = (("input_dense", titanic_input), ("hidden_1", titanic_hidden),
+                  ("hidden_2", titanic_hidden), ("head", titanic_head))
+
+
+def titanic_model(ablated_layers=frozenset()):
+    from maggy_tpu_torch.models.surgery import ablatable_model_generator
+
+    return ablatable_model_generator(TITANIC_LAYERS, ablated_layers)
+
+
+def titanic_params(ablated_feature, ablated_layer):
+    """The parameter count of a titanic trial's model: its kept layers'."""
+    from maggy_tpu_torch.models.surgery import filter_layers
+
+    features = len(TITANIC_FEATURES) - (ablated_feature != "None")
+    ablated = frozenset() if ablated_layer == "None" else frozenset(
+        [ablated_layer] if isinstance(ablated_layer, str) else ablated_layer)
+    sizes = {"input_dense": 32 * features + 32, "hidden_1": 32 * 32 + 32,
+             "hidden_2": 32 * 32 + 32, "head": 32 * 2 + 2}
+    return sum(sizes[n] for n in filter_layers([n for n, _ in TITANIC_LAYERS], ablated))
+
+
+def train_titanic(dataset_function, model_function, ablated_feature, ablated_layer, reporter,
+                  out_dir):
+    """examples/titanic_ablation.py's train_fn through the port's Trainer
+    on the card: the registry's TFRecord minus the ablated feature, the
+    model minus the ablated layers, full batch, Adam, TITANIC_STEPS steps."""
+    from maggy_tpu_torch.train import Trainer, adam
+
+    record = TrialRecord(out_dir, reporter)
+    data = dataset_function()
+    y = torch.as_tensor(np.asarray(data.pop("survived"), dtype=np.int64), device=DEVICE)
+    x = torch.as_tensor(np.stack([data[c] for c in sorted(data)], axis=1), device=DEVICE)
+    batch = {"inputs": (x,), "labels": y}
+    trainer = Trainer(model_function(), adam(TITANIC_LR), labels_loss, device=DEVICE).init(
+        seed=0, example_inputs=batch["inputs"])
+    with record:
+        for i in range(TITANIC_STEPS):
+            loss = trainer.step(batch)
+            record.steps += 1
+            if i % 20 == 0:
+                reporter.broadcast(-loss, step=i)
+    with torch.no_grad():
+        acc = float((trainer.model(x).argmax(-1) == y).float().mean())
+    return {"metric": acc, "loss": float(loss),
+            "params": sum(p.numel() for p in trainer.model.parameters())}
+
+
+def bert_loco_dataset(ablated_feature=None):
+    return bert_data()[1]
+
+
+def bert_loco_model(ablated_layers=frozenset()):
+    """BERT-base less the encoder layers filter_layers removes from
+    [embed, layer_0 ... layer_11, head]: layers trained from scratch are
+    interchangeable, so any n removed is the (12 - n)-layer encoder."""
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.models.surgery import filter_layers
+
+    cfg = bert_data()[0]
+    removed = len(BERT_LOCO_NAMES) - len(filter_layers(BERT_LOCO_NAMES, frozenset(ablated_layers)))
+    return BertEncoder(dataclasses.replace(cfg, num_layers=cfg.num_layers - removed),
+                       device="meta")
+
+
+def train_bert_loco(dataset_function, model_function, ablated_feature, ablated_layer, reporter,
+                    out_dir):
+    """A bert_base_loco trial: the ablated encoder on slice's batches under
+    swept_transform(adamw, learning_rate=BERT_LOCO_LR), BERT_LOCO_STEPS
+    steps, a heartbeat every REPORT_EVERY."""
+    from maggy_tpu_torch.train import Trainer, adamw, swept_transform
+
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    batch, model = dataset_function(), model_function()
+    trainer = Trainer(model, swept_transform(adamw, learning_rate=BERT_LOCO_LR), labels_loss,
+                      device=DEVICE).init(seed=0)
+    with record:
+        for i in range(BERT_LOCO_STEPS):
+            loss = trainer.step(batch(i))
+            record.steps += 1
+            if i % REPORT_EVERY == REPORT_EVERY - 1:
+                reporter.broadcast(-loss, step=i)
+    return {"metric": -float(loss), "layers": model.cfg.num_layers}
+
+
+def ablation_sweep(name, exp_dir, train, study, workers):
+    """lagom(train, AblationConfig(study)) on ``workers`` thread runners:
+    the journal checked, every step after a unit's warm-up replayed, and
+    the LOCO schedule's trial ids finalized. Returns (line, trials, the
+    flash launches)."""
+    from maggy_tpu_torch import AblationConfig, experiment
+    from maggy_tpu_torch.ablation.ablator import LOCO
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import clear_warm, warm
+
+    exp = fresh_dir(os.path.join(exp_dir, "exp"))
+    out_dir = fresh_dir(os.path.join(exp_dir, "records"))
+    loco = LOCO(study)
+    loco.initialize()
+    scheduled = [t.trial_id for t in loco.trial_buffer]
+    clear_warm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = warm.counters()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = experiment.lagom(functools.partial(train, out_dir=out_dir), AblationConfig(
+        name=name, ablation_study=study, direction="max", num_workers=workers,
+        hb_interval=0.1, experiment_dir=exp))
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    telemetry = journal_check("slice_ablation/" + name, exp, result)
+    reading = warm_reading("slice_ablation/" + name, telemetry, before)
+    clear_warm()
+    records, trials = read_records(out_dir), read_trials(exp)
+    steps = sum(r["steps"] for r in records)
+    replayed_after_warmup("slice_ablation/" + name, reading, steps)
+    if not (sorted(t["id"] for t in trials) == sorted(scheduled)
+            and all(t["status"] == "FINALIZED" for t in trials)
+            and result["num_trials"] == len(scheduled) == len(records)):
+        raise AssertionError("slice_ablation/{}: {} trials finalized of the schedule's {}: "
+                             "{}".format(name, len(trials), len(scheduled), result))
+    comp = telemetry["_compile"]
+    line = {"trials": len(trials), "steps": steps, "wall_s": wall,
+            "step_ms_in_sweep_p50": float(np.median([r["step_ms"] for r in records])),
+            "best_hp": result["best_hp"], "best_val": result["best_val"],
+            "worst_hp": result["worst_hp"], "worst_val": result["worst_val"],
+            "warm_hits": comp.get("warm_hits", 0), "warm_misses": comp.get("warm_misses", 0),
+            "warm": reading, "goodput_s": telemetry["goodput"]["buckets_s"],
+            "goodput_shares": telemetry["goodput"]["shares"], "peak_mem_gb": peak,
+            "telemetry": public(telemetry)}
+    return line, trials, launches
+
+
+def phase_slice_ablation(exp_root):
+    """Phase 19: two LOCO studies through lagom(AblationConfig) on thread
+    runners. titanic_loco: examples/titanic_ablation.py's study, its data
+    written as a TFRecord and registered as "titanic" in a DatasetRegistry
+    rooted in the phase's directory, addressed by name and version: all 5
+    features, layers hidden_1 and hidden_2 and the prefix group hidden, 9
+    trials. bert_base_loco: BERT-base's 12 encoder layers singly, the group
+    [layer_10, layer_11] and the prefix group layer_1, 15 trials, on
+    slice's data. Returns bert_base_loco's flash launches."""
+    from maggy_tpu_torch.ablation import AblationStudy
+    from maggy_tpu_torch.train import DatasetRegistry
+    from maggy_tpu_torch.train.tfrecord import write_tfrecord
+
+    t_phase = time.perf_counter()
+    problems = []
+    exp_root = fresh_dir(exp_root)
+
+    X, y = make_titanic_like()
+    path = os.path.join(exp_root, "titanic.tfrecord")
+    write_tfrecord(path, ({**{f: float(X[f][i]) for f in TITANIC_FEATURES},
+                           "survived": int(y[i])} for i in range(len(y))))
+    version = DatasetRegistry(root=os.path.join(exp_root, "registry")).register(
+        "titanic", path, description="examples/titanic_ablation.py's make_titanic_like")
+    os.environ["MAGGY_TPU_REGISTRY_ROOT"] = os.path.join(exp_root, "registry")
+    study = AblationStudy("titanic", version, "survived")
+    study.features.include(*TITANIC_FEATURES)
+    study.model.set_base_model_generator(titanic_model)
+    study.model.layers.include("hidden_1", "hidden_2")
+    study.model.layers.include_groups(prefix="hidden")
+    titanic, trials, _ = ablation_sweep("titanic_loco", os.path.join(exp_root, "titanic"),
+                                        train_titanic, study, TITANIC_RUNNERS)
+    wrong = {}
+    for t in trials:
+        want = titanic_params(t["params"]["ablated_feature"], t["params"]["ablated_layer"])
+        got = read_output(exp_root, "titanic", t)
+        if got != want:
+            wrong[t["id"]] = [got, want]
+    base = [t["final_metric"] for t in trials if t["params"]["ablated_feature"] == "None"
+            and t["params"]["ablated_layer"] == "None"]
+    titanic.update(base_accuracy=base[0] if base else None, params_off=wrong)
+    if wrong:
+        problems.append("titanic trials' parameter counts off their kept layers: {}".format(wrong))
+    if titanic["worst_hp"]["ablated_feature"] != "sex":
+        problems.append("titanic's worst ablation is {}, not sex".format(titanic["worst_hp"]))
+    if not (base and base[0] > 0.8):
+        problems.append("titanic's base accuracy {} <= 0.8".format(base))
+    emit("slice_ablation/titanic_loco", **titanic)
+
+    bert = AblationStudy("bert_glue", 1, "labels", dataset_generator=bert_loco_dataset)
+    bert.model.set_base_model_generator(bert_loco_model)
+    bert.model.layers.include(*BERT_LOCO_NAMES[1:-1])
+    bert.model.layers.include_groups(["layer_10", "layer_11"])
+    bert.model.layers.include_groups(prefix="layer_1")
+    line, trials, launches = ablation_sweep("bert_base_loco", os.path.join(exp_root, "bert"),
+                                            train_bert_loco, bert, BERT_LOCO_RUNNERS)
+    CAPTURED["bert_base_loco"] = line["warm"]["captured"]
+    # filter_layers matches every entry by name or prefix (both packages),
+    # and a single layer reaches the generator as the same frozenset as a
+    # prefix group of that name: the single "layer_1" trial drops layer_1,
+    # layer_10 and layer_11, as the prefix group does. So 12, 11 x 11, 9,
+    # 10 and 9 layers: (12 + 121 + 9 + 10 + 9) x 24 = 3864 launches.
+    layers = sorted(read_output(exp_root, "bert", t) for t in trials)
+    want = sorted([12] + [11] * 11 + [9, 10, 9])
+    expected = sum(want) * BERT_LOCO_STEPS
+    # Warm hits: one miss at most a runner and program (12, 11, 10 and 9
+    # layers), the rest hits.
+    programs = {n: want.count(n) for n in set(want)}
+    min_hits = len(want) - sum(min(c, BERT_LOCO_RUNNERS) for c in programs.values())
+    line.update(layers_per_trial=layers, launches=launches, expected_launches=expected,
+                min_warm_hits=min_hits)
+    if layers != want:
+        problems.append("bert_base_loco trained {} layers a trial, want {}".format(layers, want))
+    if any(n != expected for n in launches.values()) or set(launches) != set(REPLACES):
+        problems.append("bert_base_loco launched {}, want {} each".format(launches, expected))
+    if line["warm_hits"] < min_hits:
+        problems.append("bert_base_loco: {} warm hits, want >= {} (one miss a runner and "
+                        "program)".format(line["warm_hits"], min_hits))
+    emit("slice_ablation/bert_base_loco", **line)
+    emit("slice_ablation", phase_s=time.perf_counter() - t_phase, problems=problems)
+    if problems:
+        raise AssertionError("slice_ablation: {}".format("; ".join(problems)))
+    return launches
+
+
+def read_output(exp_root, study, trial):
+    """A trial's returned "params" (titanic) or "layers" (bert) from its
+    .outputs.json."""
+    (path,) = glob.glob(os.path.join(exp_root, study, "exp", "*", trial["id"],
+                                     ".outputs.json"))
+    with open(path) as f:
+        out = json.load(f)
+    return out["params"] if study == "titanic" else out["layers"]
+
+
 def fresh_dir(path):
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
@@ -4037,9 +4563,11 @@ def main():
     launches["llama3_8b_moe"] = phase_slice_moe(
         fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_moe")))
     clear_warm()
-    launches["bert_base_lanes"] = phase_slice_lanes(
+    launches["bert_base_lanes"], launches["llama3_8b_moe_lanes"] = phase_slice_lanes(
         os.path.join(ROOT, "build", "chip_smoke_experiments_lanes"), warm_bert_losses)
     phase_slice_chaos()
+    launches["bert_base_loco"] = phase_slice_ablation(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_ablation"))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

@@ -6,7 +6,8 @@ observability plane) and `OptimizationConfig` with the fields of a
 single-host sweep over thread, process or GPU-pinned process runners, with
 heartbeat-loss requeue, the telemetry journal, the compile-once warm path
 (``warm_start``), checkpoint forking (``fork``) and experiment resume
-(``resume``) and vectorized lanes (``vmap_lanes``). ``chips_per_budget``
+(``resume``) and vectorized lanes (``vmap_lanes``), and `AblationConfig`
+for LOCO ablation studies. ``chips_per_budget``
 (gangs) and ``fleet`` exist only so that setting one raises "not ported
 yet" with its ROADMAP item; each is replaced by the real
 field in the slice that ports it. Parity: reference
@@ -199,3 +200,16 @@ class OptimizationConfig(LagomConfig):
         if not isinstance(self.chips_per_trial, int) or self.chips_per_trial < 1:
             raise ValueError("chips_per_trial must be an int >= 1, got {!r}".format(
                 self.chips_per_trial))
+
+
+@dataclass
+class AblationConfig(OptimizationConfig):
+    """Ablation-study experiment (``maggy_tpu/config.py:303-316``; reference
+    `experiment_config.py:52-66`). ``ablation_study`` is an
+    ``ablation.AblationStudy``; ``ablator`` a registry name ("loco") or an
+    ``AbstractAblator``. The optimizer and early-stop fields are ignored:
+    an ablation schedule is fixed and never early-stops."""
+
+    ablation_study: Any = None
+    ablator: Union[str, Any] = "loco"
+    es_policy: str = "none"

@@ -26,6 +26,12 @@ stats as ``fork_load_ms``; and an ``EarlyStopException`` that a preempting
 STOP raised is acked with the trial's last checkpoint step instead of being
 finalized.
 
+Ablation trials (``trial_type="ablation"``, JAX `trial_executor.py:92,
+105, 212-216`): the assignment's declarative spec ({"ablated_feature",
+"ablated_layer", "model_key"}) goes through ``ablation_resolver`` before
+the call, so the train function receives ``dataset_function`` and
+``model_function`` (``ablation/ablator/loco.py``).
+
 Vectorized blocks (``config.vmap_lanes``; JAX `trial_executor.py:183-190,
 361-545`): an assignment stamped ``vmap_block`` delivers K lane trials at
 once. Each lane gets its own trial dir and ``.hparams.json``; a train
@@ -41,7 +47,7 @@ from __future__ import annotations
 import inspect
 import time
 import traceback
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 from maggy_tpu_torch import util
 from maggy_tpu_torch.core.environment import EnvSing
@@ -61,7 +67,8 @@ class TrialExecutor:
 
     def __init__(self, server_addr: Tuple[str, int], secret: str, hb_interval: float,
                  exp_dir: str, optimization_key: str, train_fn: Callable,
-                 warm_start: bool = True):
+                 warm_start: bool = True, trial_type: str = "optimization",
+                 ablation_resolver: Optional[Callable] = None):
         self.server_addr = server_addr
         self.secret = secret
         self.hb_interval = hb_interval
@@ -69,6 +76,8 @@ class TrialExecutor:
         self.optimization_key = optimization_key
         self.train_fn = train_fn
         self.warm_start = warm_start
+        self.trial_type = trial_type
+        self.ablation_resolver = ablation_resolver
 
     def __call__(self, partition_id: int) -> None:
         env = EnvSing.get_instance()
@@ -98,6 +107,9 @@ class TrialExecutor:
                 reporter.reset(trial_id=trial_id, span=client.last_info.get("span"))
                 stats.trial_start(trial_id)
                 call_params = dict(params)
+                if self.trial_type == "ablation":
+                    # Declarative spec -> the study's generators.
+                    call_params = self.ablation_resolver(call_params)
                 if wants_reporter:
                     call_params["reporter"] = reporter
                 ctx = None

@@ -6,8 +6,9 @@ process (:42-45), `lagom(train_fn, config)` (:48-83), `@singledispatch`
 driver dispatch on the config type (:86-108)). With ``config.resume`` it
 re-enters the most recent run of the app id (``MAGGY_TPU_APP_ID``) whose
 experiment has the config's name (``maggy_tpu/experiment.py:76-95``), so a
-resume in a new process finds its run. Ablation, distributed and fleet
-submission are not ported yet.
+resume in a new process finds its run. An ``AblationConfig`` runs a LOCO
+study through the ``AblationDriver`` (``core/driver/ablation_driver.py``).
+Distributed training and fleet submission are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from functools import singledispatch
 from typing import Any, Callable
 
 from maggy_tpu_torch import util
-from maggy_tpu_torch.config import LagomConfig, OptimizationConfig
+from maggy_tpu_torch.config import AblationConfig, LagomConfig, OptimizationConfig
 from maggy_tpu_torch.core.environment import EnvSing
 
 _state_lock = threading.Lock()
@@ -52,7 +53,7 @@ def lagom(train_fn: Callable, config: LagomConfig) -> Any:
 @singledispatch
 def lagom_driver(config, app_id: str, run_id: int):
     raise TypeError("Unsupported config type {}; the port runs "
-                    "OptimizationConfig.".format(type(config)))
+                    "OptimizationConfig and AblationConfig.".format(type(config)))
 
 
 @lagom_driver.register(OptimizationConfig)
@@ -60,3 +61,10 @@ def _(config: OptimizationConfig, app_id: str, run_id: int):
     from maggy_tpu_torch.core.driver.optimization_driver import OptimizationDriver
 
     return OptimizationDriver(config, app_id, run_id)
+
+
+@lagom_driver.register(AblationConfig)
+def _(config: AblationConfig, app_id: str, run_id: int):
+    from maggy_tpu_torch.core.driver.ablation_driver import AblationDriver
+
+    return AblationDriver(config, app_id, run_id)

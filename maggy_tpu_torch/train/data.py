@@ -1,16 +1,21 @@
-"""Input pipeline: per-rank sharding and device placement.
+"""Input pipeline: per-rank sharding, device placement, path datasets.
 
-Copy of ``ShardedBatchIterator`` and ``prefetch_iterator`` of
-``maggy_tpu/train/data.py:20-195`` (parity: reference `maggy/core/
+Copy of ``maggy_tpu/train/data.py`` (parity: reference `maggy/core/
 patching.py` — in-memory datasets sharded by the DistributedSampler
-contract, :50-68, with automatic device movement, :89-107). The JAX
-package's ``mesh`` becomes a torch ``device``; the seeded permutation is the
-same, so both packages yield the same index sequence. Path datasets
-(``from_path``, ``load_path_dataset``) are not ported yet.
+contract, :50-68, with automatic device movement, :89-107, and path
+datasets sharded by row or file, :69-81). The JAX package's ``mesh``
+becomes a torch ``device``; the seeded permutation is the same, so both
+packages yield the same index sequence. ``drop_feature`` and
+``feature_dropping_generator`` are LOCO's dataset ablation. Parquet needs
+``pyarrow``, imported only when a parquet path is loaded, as in the JAX
+package; where it is not installed (the card's machine) a parquet path
+raises ``ImportError``, and ``.npz``, TFRecord and ``registry://`` paths
+load without it.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Any, Dict, Iterator, Optional
@@ -54,6 +59,26 @@ class ShardedBatchIterator:
         self.device = None if device is None else torch.device(device)
         self.epochs = epochs
         self.prefetch = prefetch
+
+    @classmethod
+    def from_path(cls, path: str, batch_size: int, columns: Optional[list] = None,
+                  shard_by: str = "row", shard_count: int = 1, current_shard: int = 0,
+                  **kwargs) -> "ShardedBatchIterator":
+        """An iterator over an on-disk dataset (any path ``load_path_dataset``
+        reads, ``registry://`` URIs included). ``shard_by="row"`` gives each
+        shard disjoint rows of one shared permutation; ``shard_by="file"``
+        assigns whole files of a directory round-robin to shards before
+        loading, so each reads only its own (JAX ``data.py:99-130``)."""
+        if shard_by not in ("row", "file"):
+            raise ValueError("shard_by must be 'row' or 'file'")
+        if shard_by == "file":
+            data = load_path_dataset(path, columns=columns,
+                                     file_shard=(current_shard, shard_count))
+            # Rows within this shard's files all belong to this shard.
+            return cls(data, batch_size, shard_count=1, current_shard=0, **kwargs)
+        data = load_path_dataset(path, columns=columns)
+        return cls(data, batch_size, shard_count=shard_count, current_shard=current_shard,
+                   **kwargs)
 
     def _shard_indices(self, epoch: int) -> np.ndarray:
         idx = np.arange(self.n)
@@ -140,3 +165,96 @@ def prefetch_iterator(iterator, size: int = 2):
             yield item
     finally:
         stop.set()
+
+
+def drop_feature(data: Dict[str, Any], feature: Optional[str]) -> Dict[str, Any]:
+    """Dict-of-arrays minus one column: the LOCO dataset ablation step. The
+    values alias the input arrays; ``feature_dropping_generator`` adds the
+    per-trial copies. An unknown feature raises: silently dropping nothing
+    would corrupt the study's comparison."""
+    if feature is None:
+        return dict(data)
+    if feature not in data:
+        raise KeyError("Ablated feature {!r} is not a column of the dataset "
+                       "(have: {}).".format(feature, sorted(data)))
+    return {k: v for k, v in data.items() if k != feature}
+
+
+def feature_dropping_generator(source):
+    """A LOCO ``dataset_generator``: ``gen(ablated_feature=None)`` returns
+    the training data as a dict of arrays minus the ablated feature.
+    ``source`` is a dict of arrays or a path ``load_path_dataset`` reads,
+    loaded once and cached. Each call returns fresh copies: trials normalize
+    in place, and runner threads share this generator."""
+    cache = {}
+
+    def generator(ablated_feature: Optional[str] = None):
+        if isinstance(source, str):
+            if "data" not in cache:
+                cache["data"] = load_path_dataset(source)
+            data = cache["data"]
+        else:
+            data = source
+        return {k: np.array(v, copy=True) for k, v in drop_feature(data, ablated_feature).items()}
+
+    return generator
+
+
+def _file_shard(files, file_shard, kind):
+    if file_shard is None:
+        return files
+    current, count = file_shard
+    if count > len(files):
+        raise ValueError("{} shards but only {} {} files; use shard_by='row'".format(
+            count, len(files), kind))
+    return files[current::count]
+
+
+def load_path_dataset(path, columns=None, file_shard=None, registry_root=None):
+    """Load an on-disk dataset into a dict of numpy arrays: a ``.npz``
+    archive, a ``.tfrecord``/``.tfrecords`` file or a directory of them, a
+    ``.parquet`` file or a directory of them, or a ``registry://name[@v]``
+    URI resolved through the dataset registry (``registry_root`` or
+    $MAGGY_TPU_REGISTRY_ROOT for a registry outside the default root).
+    ``file_shard=(current, count)`` keeps files ``[current::count]`` of a
+    directory; a single file rejects it (JAX ``data.py:238-318``)."""
+    from maggy_tpu_torch.train import registry, tfrecord
+
+    if registry.is_registry_uri(path):
+        path = registry.resolve_path(path, root=registry_root)
+    single = file_shard is not None and file_shard[1] > 1
+    if tfrecord.is_tfrecord_path(path):
+        if os.path.isdir(path):
+            files = _file_shard(sorted(
+                os.path.join(path, f) for f in os.listdir(path)
+                if f.endswith((".tfrecord", ".tfrecords"))), file_shard, "tfrecord")
+        elif single:
+            raise ValueError("file-level sharding needs a tfrecord directory")
+        else:
+            files = [path]
+        return tfrecord.load_tfrecord_dataset(files, columns=columns)
+    if path.endswith(".npz"):
+        if single:
+            raise ValueError("file-level sharding needs a parquet directory")
+        with np.load(path) as archive:
+            return {k: archive[k] for k in (columns or list(archive.keys()))}
+    if os.path.isdir(path):
+        files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                       if f.endswith(".parquet"))
+        if not files:
+            raise ValueError("No .parquet files under {}".format(path))
+        files = _file_shard(files, file_shard, "parquet")
+    elif path.endswith(".parquet"):
+        if single:
+            raise ValueError("file-level sharding needs a parquet directory")
+        files = [path]
+    else:
+        raise ValueError("Unsupported dataset path {!r} (.npz, .tfrecord, .parquet, or a "
+                         "directory of .tfrecord or .parquet files)".format(path))
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    tables = [pq.read_table(f, columns=columns) for f in files]
+    table = tables[0] if len(tables) == 1 else pa.concat_tables(tables)
+    return {name: np.asarray(table.column(name).to_numpy(zero_copy_only=False))
+            for name in table.column_names}

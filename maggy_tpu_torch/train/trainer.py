@@ -9,7 +9,9 @@ backward and optimizer step) after one eager warm-up step, and replayed;
 the retired trial's module, optimizer and graphs (its **unit**) are
 re-initialized in place for the next trial of the program. The step
 returns the loss as an un-synced 0-d tensor, which the `Reporter`
-materializes on its heartbeat thread.
+materializes on its heartbeat thread; ``fit`` steps over batches with the
+JAX Trainer's reporting and callbacks (``maggy_tpu/train/trainer.py:
+622-640``).
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.nn.parameter import is_lazy
+
 from maggy_tpu_torch import device_gate
 from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.train import warm
-
 
 
 def cross_entropy_loss(logits, labels):
@@ -38,6 +41,26 @@ def cross_entropy_loss(logits, labels):
 def _on_meta(model: torch.nn.Module) -> bool:
     p = next(model.parameters(), None)
     return p is not None and p.is_meta
+
+
+def materialize_lazy(model: torch.nn.Module, example_inputs) -> None:
+    """Give a model's lazy modules (``nn.LazyLinear``) their shapes: one
+    forward of ``example_inputs`` without gradients, on the meta device when
+    the model is built there (no storage, no arithmetic), else on the
+    model's device. A no-op for a model without lazy parameters."""
+    if not any(is_lazy(p) for p in model.parameters()):
+        return
+    if example_inputs is None:
+        raise ValueError("the model has lazy modules (nn.LazyLinear): pass example_inputs "
+                         "to init() so that they get their shapes before the optimizer "
+                         "and the captured step see them")
+    meta = any(p.is_meta for p in model.parameters())
+    device = torch.device("meta") if meta else next(
+        (p.device for p in model.parameters() if not is_lazy(p)), torch.device("cpu"))
+    inputs = _tree_map(lambda x: torch.empty_like(torch.as_tensor(x), device=device) if meta
+                       else torch.as_tensor(x).to(device), tuple(example_inputs))
+    with torch.no_grad(), variables.sowing_losses(), variables.mutable_buffers(False):
+        model(*inputs)
 
 
 def _tree_map(fn, tree):
@@ -288,12 +311,16 @@ class Trainer:
     # ------------------------------------------------------------- init
 
     def init(self, seed: Optional[int] = None,
-             state_dict: Optional[Dict[str, torch.Tensor]] = None) -> "Trainer":
+             state_dict: Optional[Dict[str, torch.Tensor]] = None,
+             example_inputs=None) -> "Trainer":
         """Fresh parameters — from ``state_dict`` when given, else the
         model's ``init_weights`` under a generator seeded with ``seed`` — and
         a fresh optimizer state, built, or on a warm hit written into the
-        retired unit in place. Inside a trial its host time is noted as the
-        trial's ``init_ms`` and its outcome as ``warm``
+        retired unit in place. ``example_inputs`` (the model's positional
+        inputs, e.g. ``batch["inputs"]``) give a model's lazy modules their
+        shapes (``materialize_lazy``), as the JAX Trainer's init traces the
+        model on them. Inside a trial its host time is noted as the trial's
+        ``init_ms`` and its outcome as ``warm``
         (``maggy_tpu/train/trainer.py:497-528``)."""
         t0 = time.perf_counter()
         self._unit = None
@@ -301,6 +328,7 @@ class Trainer:
         if unit is not None:
             self._adopt(unit, seed, state_dict)
         else:
+            materialize_lazy(self.model, example_inputs)
             self._build(seed, state_dict)
         if self._slot is not None:
             warm.record_warm_event(unit is not None)
@@ -394,6 +422,22 @@ class Trainer:
         self.scheduler.step()
         self.aux_loss = None if aux is None else aux.detach()
         return loss.detach()
+
+    def fit(self, batches, reporter=None, report_every: int = 1, callbacks=()) -> float:
+        """Step over ``batches`` (dicts of arrays or tensors, placed on the
+        device); returns the final loss. Every ``report_every``-th step's
+        loss is broadcast unsynced (the ``Reporter`` reads it on its
+        heartbeat thread), and each callback (``callbacks.BatchEnd``-style)
+        is called as ``cb({"loss": loss}, step=i)`` with the same tensor
+        (``maggy_tpu/train/trainer.py:622-640``)."""
+        loss = None
+        for i, batch in enumerate(batches):
+            loss = self.step(self.place_batch(batch))
+            if reporter is not None and i % report_every == 0:
+                reporter.broadcast(loss, step=i)
+            for cb in callbacks:
+                cb({"loss": loss}, step=i)
+        return float(loss) if loss is not None else float("nan")
 
     def step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One optimizer step; returns the loss (lazy 0-d tensor)."""

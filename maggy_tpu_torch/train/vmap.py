@@ -5,16 +5,23 @@ A small model leaves the card idle between a trial's kernels; K trials that
 differ only in their learning rate train in lockstep instead, as ONE step
 over stacked state:
 
-- **State.** Each parameter is one stacked tensor ``[K, ...]``; lane i's
-  values are its row. Every lane starts from one scalar init (the seed or
-  state dict a scalar ``Trainer`` of the program would start from), written
-  into each row (JAX ``:153-193``).
+- **State.** Each parameter and each buffer (BatchNorm's running
+  statistics, JAX's ``batch_stats``) is one stacked tensor ``[K, ...]``;
+  lane i's values are its row. Every lane starts from one scalar init (the
+  seed or state dict a scalar ``Trainer`` of the program would start from),
+  written into each row (JAX ``:153-193``).
 - **The step** is ``torch.func.vmap(torch.func.grad_and_value(objective),
-  in_dims=(0, None))`` over ``torch.func.functional_call`` of the unit's
-  module with lane i's rows: the batch is broadcast across lanes, and the
-  gradients land in a preallocated stacked buffer. The flash kernels run
-  under it through their batching rules (``ops/attention.py``), one launch
-  for all K lanes.
+  in_dims=(0, 0, None))`` over ``torch.func.functional_call`` of the unit's
+  module with lane i's parameter and buffer rows: the batch is broadcast
+  across lanes, and the gradients land in a preallocated stacked buffer.
+  The buffers enter as vmapped inputs, not module state, so a forward with
+  ``has_aux_collections`` (``models/variables.py``) updates each lane's
+  running statistics in place in its own row and never the module's
+  unbatched buffers; each loss a module sows joins its lane's objective
+  inside the vmapped function (JAX ``build_step_fn``, ``trainer.py:
+  286-310``), and their sum is ``aux_loss`` [K] after the step. The flash
+  kernels run under it through their batching rules (``ops/attention.py``),
+  one launch for all K lanes.
 - **The optimizer** is the scalar path's ``torch.optim.AdamW`` with one
   param group a lane: lane i's parameters are ``nn.Parameter`` views of the
   stacked rows, their ``.grad`` views of the gradient buffer's, and its
@@ -27,8 +34,9 @@ over stacked state:
 - **On the card** a batch shape's first step runs eagerly and later steps
   replay a CUDA graph captured once into the unit's memory pool, through
   the process's capture gate (``device_gate``). Everything the graph writes is written in
-  place (parameters, optimizer state, gradient buffer, learning rates): a
-  rebound tensor would leave the replayed graph writing the old one.
+  place (parameters, buffers, optimizer state, gradient buffer, learning
+  rates): a rebound tensor would leave the replayed graph writing the old
+  one.
 - **Masking** (``mask_lane``) retires a lane on the host: its row keeps
   computing, the other lanes' values do not move by a bit, and goodput
   bills the masked tail to ``lane_idle``. ``refill_lane`` writes a fresh
@@ -37,13 +45,12 @@ over stacked state:
 - **Warm path.** A finished block retires its K-lane unit (module, stacked
   state, optimizer, graphs) into its program's ``WarmSlot.vmap_entry``; the
   next block of the program and K writes its own initial values into it in
-  place (the counterpart of JAX's donated broadcast re-init, ``:195-212``).
+  place, the stacked buffers reset with the parameters (the counterpart of
+  JAX's donated broadcast re-init, ``:195-212``). ``has_aux_collections``
+  joins the program key, as it joins the scalar one.
 
-Left out: models with buffers or sowed losses (``has_aux_collections``,
-BatchNorm's running statistics, the MoE's auxiliary losses) raise
-``NotImplementedError`` (ROADMAP queue 1 item 7b): a forward under ``vmap``
-would write batched tensors into the module's buffers and carry them out
-through the thread-local sowing list (``models/variables.py``).
+Every parameter is stacked and trained, frozen ones included: a LoRA
+factory (``train.lora.only_lora``) is not a family the lanes take.
 """
 
 from __future__ import annotations
@@ -59,9 +66,6 @@ from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.train import warm
 from maggy_tpu_torch.train.optim import swept_transform
 from maggy_tpu_torch.train.trainer import _copy_into, _on_meta, capture_step
-
-_NOT_PORTED = ("vectorized lanes of a model with buffers or sowed losses are not ported yet "
-               "(ROADMAP queue 1 item 7b)")
 
 
 def stack_trees(trees: Sequence[Any]):
@@ -123,24 +127,27 @@ class _LaneSchedules:
 
 class _LaneGraph:
     """One captured K-lane step: the graph, its static inputs, its [K] loss
-    output and the flash-kernel launches recorded at capture."""
+    and summed auxiliary loss outputs and the flash-kernel launches
+    recorded at capture."""
 
-    __slots__ = ("graph", "inputs", "losses", "launches")
+    __slots__ = ("graph", "inputs", "losses", "aux", "launches")
 
-    def __init__(self, graph, inputs, losses, launches):
-        self.graph, self.inputs, self.losses, self.launches = graph, inputs, losses, launches
+    def __init__(self, graph, inputs, losses, aux, launches):
+        self.graph, self.inputs, self.losses = graph, inputs, losses
+        self.aux, self.launches = aux, launches
 
 
 class _VmapUnit:
     """What a retired block hands the next block of its program and K: the
-    module (the scalar init's target), the stacked parameters and gradient
-    buffer, the per-lane optimizer and the step's graphs by batch shape."""
+    module (the scalar init's target), the stacked parameters, buffers and
+    gradient buffer, the per-lane optimizer and the step's graphs by batch
+    shape."""
 
-    __slots__ = ("model", "stacked", "grads", "lane_params", "optimizer", "opt_kwargs",
-                 "graphs", "warmed", "pool")
+    __slots__ = ("model", "stacked", "buffers", "grads", "lane_params", "optimizer",
+                 "opt_kwargs", "graphs", "warmed", "pool")
 
-    def __init__(self, model, stacked, grads, lane_params, optimizer, opt_kwargs):
-        self.model, self.stacked, self.grads = model, stacked, grads
+    def __init__(self, model, stacked, buffers, grads, lane_params, optimizer, opt_kwargs):
+        self.model, self.stacked, self.buffers, self.grads = model, stacked, buffers, grads
         self.lane_params, self.optimizer, self.opt_kwargs = lane_params, optimizer, opt_kwargs
         self.graphs: "OrderedDict[tuple, _LaneGraph]" = OrderedDict()
         self.warmed: set = set()
@@ -158,8 +165,10 @@ class VmapTrainer:
     **statics, **hp_i)`` (``adam`` or ``adamw``), e.g. ``lane_hparams=
     [{"learning_rate": 1e-3}, ...]``. ``loss_fn(outputs, batch)`` and the
     model call are ``Trainer``'s. ``step(batch)`` returns the lazy ``[K]``
-    loss tensor. The warm slot is the scalar ``Trainer``'s of the same
-    program; see the module docstring."""
+    loss tensor; ``has_aux_collections`` lets the forward update the
+    stacked buffers (BatchNorm with ``train_kwargs={"train": True}``). The
+    warm slot is the scalar ``Trainer``'s of the same program; see the
+    module docstring."""
 
     def __init__(self, model: torch.nn.Module, opt_factory: Callable, lane_hparams,
                  loss_fn: Callable, device="cuda", train_kwargs: Optional[Dict[str, Any]] = None,
@@ -172,8 +181,6 @@ class VmapTrainer:
             raise ValueError(
                 "every lane must sweep the SAME hyperparameter names (one program family); "
                 "got {}".format([sorted(hp) for hp in lane_hparams]))
-        if has_aux_collections or any(True for _ in model.buffers()):
-            raise NotImplementedError(_NOT_PORTED)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VmapTrainer(device='cuda') needs a CUDA device; pass "
@@ -185,6 +192,8 @@ class VmapTrainer:
         self.k = len(self.lane_hparams)
         self.loss_fn = loss_fn
         self.train_kwargs = dict(train_kwargs or {})
+        self.has_aux_collections = bool(has_aux_collections)
+        self.aux_loss: Optional[torch.Tensor] = None
         builds = [self._build_for(hp) for hp in self.lane_hparams]
         self.family = warm.opt_family(builds[0])
         for build in builds:
@@ -205,8 +214,7 @@ class VmapTrainer:
         self._mask = [False] * self.k
         self._seed: Optional[int] = None
         self._state_dict = None
-        self._vstep = torch.func.vmap(torch.func.grad_and_value(self._objective),
-                                      in_dims=(0, None))
+        self._sown = False
         warm.register_trainer(self)
 
     def _build_for(self, hparams):
@@ -218,7 +226,8 @@ class VmapTrainer:
         if self.family is None or identity is None:
             return warm.WarmSlot(None)
         tkr = repr(sorted(self.train_kwargs.items()))
-        key = ("auto", identity, self.device, False, self.loss_fn, tkr, self.family)
+        key = ("auto", identity, self.device, self.has_aux_collections, self.loss_fn, tkr,
+               self.family)
         try:
             return warm.warm_cache().slot(key)[0]
         except TypeError:
@@ -240,8 +249,8 @@ class VmapTrainer:
              state_dict: Optional[Dict[str, torch.Tensor]] = None) -> "VmapTrainer":
         """Stacked K-lane init from one scalar init (``seed`` or
         ``state_dict``), built, or on a warm hit written into the retired
-        K-lane unit in place: parameters, optimizer state zeroed, the
-        lanes' learning rates (JAX ``:153-193``)."""
+        K-lane unit in place: parameters and buffers, optimizer state
+        zeroed, the lanes' learning rates (JAX ``:153-193``)."""
         t0 = time.perf_counter()
         self._seed, self._state_dict = seed, state_dict
         unit = None if self._entry is None else self._entry.take_retired()
@@ -255,8 +264,10 @@ class VmapTrainer:
         self.model = unit.model
         self._scalar_init(unit.model, seed, state_dict)
         with torch.no_grad():
-            for name, p in unit.model.named_parameters():
-                unit.stacked[name].copy_(p.detach().unsqueeze(0).expand_as(unit.stacked[name]))
+            for rows, values in ((unit.stacked, unit.model.named_parameters()),
+                                 (unit.buffers, unit.model.named_buffers())):
+                for name, value in values:
+                    rows[name].copy_(value.detach().unsqueeze(0).expand_as(rows[name]))
             for state in unit.optimizer.state.values():
                 for value in state.values():
                     if hasattr(value, "zero_"):
@@ -264,6 +275,7 @@ class VmapTrainer:
         self.optimizer = unit.optimizer
         self.scheduler = _LaneSchedules(unit.optimizer, [b.schedule for b in self._builds])
         self._mask = [False] * self.k
+        self.aux_loss = None
         if self._slot is not None:
             warm.record_warm_event(hit)
         warm.note_compile(warm=hit, vmap_lanes=self.k,
@@ -279,6 +291,9 @@ class VmapTrainer:
             stacked[name] = torch.zeros((self.k,) + tuple(p.shape), dtype=p.dtype,
                                         device=self.device)
             grads[name] = torch.zeros_like(stacked[name])
+        buffers = {name: torch.zeros((self.k,) + tuple(b.shape), dtype=b.dtype,
+                                     device=self.device)
+                   for name, b in model.named_buffers()}
         lane_params = []
         for i in range(self.k):
             params = []
@@ -296,27 +311,44 @@ class VmapTrainer:
                 group["lr"] = torch.tensor(1.0, dtype=torch.float32, device=self.device)
                 group["capturable"] = True
             optimizer._warned_capturable_if_run_uncaptured = True
-        return _VmapUnit(model, stacked, grads, lane_params, optimizer, kwargs)
+        return _VmapUnit(model, stacked, buffers, grads, lane_params, optimizer, kwargs)
 
     # ------------------------------------------------------------- step
 
-    def _objective(self, params, batch):
-        with variables.sowing_losses() as sown, variables.mutable_buffers(False):
-            out = torch.func.functional_call(self.model, params, tuple(batch["inputs"]),
-                                             self.train_kwargs)
-        if sown:
-            raise NotImplementedError(_NOT_PORTED)
-        return self.loss_fn(out, batch)
+    def _objective(self, params, buffers, batch):
+        """One lane's (objective, summed sowed losses): the
+        trainer's ``loss_fn`` plus each loss sowed in the forward, which
+        updates the lane's buffer rows in place where they are mutable."""
+        with variables.sowing_losses() as sown, \
+                variables.mutable_buffers(self.has_aux_collections):
+            out = torch.func.functional_call(self.model, (params, buffers),
+                                             tuple(batch["inputs"]), self.train_kwargs)
+        loss = self.loss_fn(out, batch)
+        aux = torch.zeros_like(loss)
+        for leaf in sown:
+            loss, aux = loss + leaf, aux + leaf
+        self._sown = bool(sown)
+        return loss, aux.detach()
 
-    def _run(self, unit: _VmapUnit, batch) -> torch.Tensor:
-        """One K-lane step, in place: gradients into the unit's buffer, the
-        per-lane optimizer over the stacked rows."""
-        grads, losses = self._vstep(unit.stacked, batch)
+    def _run(self, unit: _VmapUnit, batch):
+        """One K-lane step, in place: gradients into the unit's buffer,
+        buffer rows updated by the forward, the per-lane optimizer over the
+        stacked rows. Returns the [K] losses and summed sowed losses."""
+        # Built per call: a transform kept on the trainer would close a
+        # reference cycle through the bound objective, and the unit, its
+        # graphs and their memory pool would outlive the trainer until a
+        # cyclic collection.
+        vstep = torch.func.vmap(torch.func.grad_and_value(self._objective, has_aux=True),
+                                in_dims=(0, 0, None))
+        grads, (losses, aux) = vstep(unit.stacked, unit.buffers, batch)
         with torch.no_grad():
             for name, g in grads.items():
                 unit.grads[name].copy_(g)
+        # The step's own gradients go before the optimizer's state is
+        # allocated (its first step): a model's worth of bytes a lane.
+        del grads
         unit.optimizer.step()
-        return losses
+        return losses, aux
 
     def step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One lockstep step of all K lanes; returns the lazy ``[K]`` loss
@@ -325,12 +357,12 @@ class VmapTrainer:
         if unit is None:
             raise RuntimeError("VmapTrainer.step before init()")
         if self.device.type != "cuda":
-            losses = self._run(unit, batch).detach()
+            losses, aux = self._run(unit, batch)
         else:
             graph = self._graph_for(unit, batch)
             with device_gate.step():
                 if graph is None:
-                    losses = self._run(unit, batch).detach()
+                    losses, aux = self._run(unit, batch)
                 else:
                     _copy_into(graph.inputs, batch)
                     graph.graph.replay()
@@ -339,7 +371,8 @@ class VmapTrainer:
 
                         attention.add_launches(graph.launches)
                     warm._count("graph_replays")
-                    losses = graph.losses.clone()
+                    losses, aux = graph.losses.clone(), graph.aux.clone()
+        self.aux_loss = aux if self._sown else None
         self.scheduler.step()
         return losses
 
@@ -369,8 +402,8 @@ class VmapTrainer:
                                 lambda inputs: self._run(unit, inputs))
         if captured is None:
             return None
-        graph, inputs, losses, launches = captured
-        unit.graphs[key] = _LaneGraph(graph, inputs, losses.detach(), launches)
+        graph, inputs, (losses, aux), launches = captured
+        unit.graphs[key] = _LaneGraph(graph, inputs, losses, aux, launches)
         while len(unit.graphs) > warm.PER_SLOT_SHAPES:
             unit.graphs.popitem(last=False)
         return unit.graphs[key]
@@ -390,9 +423,9 @@ class VmapTrainer:
                     state_dict: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Refill lane ``lane`` with a fresh trial mid-block (JAX
         ``:275-315``): the scalar init (``seed`` or ``state_dict``, by
-        default the block's own) written into its row, its optimizer state
-        zeroed and its schedule restarted at ``hparams``' rate, all in
-        place."""
+        default the block's own) written into its parameter and buffer
+        rows, its optimizer state zeroed and its schedule restarted at
+        ``hparams``' rate, all in place."""
         build = self._build_for(hparams)
         if warm.opt_family(build) != self.family or \
                 getattr(build, "kwargs", None) != self._builds[0].kwargs:
@@ -403,8 +436,10 @@ class VmapTrainer:
             seed, state_dict = self._seed, self._state_dict
         self._scalar_init(unit.model, seed, state_dict)
         with torch.no_grad():
-            for name, p in unit.model.named_parameters():
-                unit.stacked[name][lane].copy_(p.detach())
+            for rows, values in ((unit.stacked, unit.model.named_parameters()),
+                                 (unit.buffers, unit.model.named_buffers())):
+                for name, value in values:
+                    rows[name][lane].copy_(value.detach())
             for p in unit.lane_params[lane]:
                 for value in unit.optimizer.state.get(p, {}).values():
                     if hasattr(value, "zero_"):
@@ -415,8 +450,11 @@ class VmapTrainer:
         self._mask[lane] = False
 
     def lane_state_dict(self, lane: int) -> Dict[str, torch.Tensor]:
-        """Lane ``lane``'s parameters by name (views of the stacked rows)."""
-        return {name: t[lane] for name, t in self._unit.stacked.items()}
+        """Lane ``lane``'s parameters and buffers by name, as a module's
+        ``state_dict`` (views of the stacked rows)."""
+        unit = self._unit
+        return {name: t[lane] for rows in (unit.stacked, unit.buffers)
+                for name, t in rows.items()}
 
     # -------------------------------------------------------- retirement
 

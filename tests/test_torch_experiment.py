@@ -80,6 +80,12 @@ _SWEEP = textwrap.dedent("""
     from maggy_tpu_torch.optimizers.bayes import GP, TPE
     from maggy_tpu_torch.train import (Trainer, adamw, cross_entropy_loss,
                                        warmup_cosine_decay_schedule)
+    from maggy_tpu_torch import AblationConfig
+    from maggy_tpu_torch.ablation import AblationStudy
+    from maggy_tpu_torch.callbacks import BatchEnd
+    from maggy_tpu_torch.models.surgery import ablatable_model_generator
+    from maggy_tpu_torch.train import DatasetRegistry, adam
+    from maggy_tpu_torch.train.tfrecord import write_tfrecord
 
     cfg = BertConfig.tiny()
     rng = np.random.default_rng(0)
@@ -137,6 +143,40 @@ _SWEEP = textwrap.dedent("""
         return {{"result": result, "trials": trials, "outputs": outputs,
                  "replay": replay_cli(exp_dir)}}
 
+    def ablation_layers():
+        return (("first", lambda: torch.nn.LazyLinear(4)), ("mid", lambda: torch.nn.Linear(4, 4)),
+                ("last", lambda: torch.nn.Linear(4, 2)))
+
+    def ablation_model(ablated_layers=frozenset()):
+        return ablatable_model_generator(ablation_layers(), ablated_layers)
+
+    def train_ablation(dataset_function, model_function, ablated_feature, ablated_layer,
+                       reporter):
+        # A LOCO trial: the registry's TFRecord minus its feature, the model
+        # minus its layer, trained by Trainer.fit with a callback.
+        data = dataset_function()
+        y = torch.as_tensor(data.pop("y"), dtype=torch.long)
+        x = torch.as_tensor(np.stack([data[k] for k in sorted(data)], axis=1))
+        batch = {{"inputs": (x,), "y": y}}
+        t = Trainer(model_function(), adam(5e-2), lambda lo, b: cross_entropy_loss(lo, b["y"]),
+                    device="cpu").init(seed=0, example_inputs=batch["inputs"])
+        t.fit([batch] * 40, callbacks=[BatchEnd(reporter)])
+        return {{"metric": float(t.model(x).argmax(-1).eq(y).float().mean())}}
+
+    def ablation_study():
+        root = tempfile.mkdtemp()
+        rows = rng.normal(size=(32, 2)).astype("float32")
+        path = os.path.join(root, "toy.tfrecord")
+        write_tfrecord(path, ({{"a": float(r[0]), "b": float(r[1]), "y": int(r[0] > 0)}}
+                              for r in rows))
+        version = DatasetRegistry(root=root).register("toy", path)
+        os.environ["MAGGY_TPU_REGISTRY_ROOT"] = root
+        study = AblationStudy("toy", version, "y")
+        study.features.include("a", "b")
+        study.model.set_base_model_generator(ablation_model)
+        study.model.layers.include("mid")
+        return study
+
     def replay_cli(exp_dir):
         # python -m maggy_tpu_torch.telemetry replay <run dir>, under the hook.
         import contextlib, io, runpy
@@ -178,6 +218,10 @@ _SWEEP = textwrap.dedent("""
                                  config_overrides={{"health_hang_factor": 10.0,
                                                    "health_interval_s": 0.1}})
         out["chaos"] = {{"violations": stall["violations"], "profiles": stall["profiles"]}}
+        ablated = experiment.lagom(train_ablation, AblationConfig(
+            name="blocked_ablation", ablation_study=ablation_study(), num_workers=2,
+            hb_interval=0.05, experiment_dir=tempfile.mkdtemp()))
+        out["ablation"] = {{k: ablated[k] for k in ("num_trials", "worst_hp")}}
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
         print(json.dumps(out))
@@ -196,6 +240,9 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    # A LOCO study over a registered TFRecord: 1 + 2 features + 1 layer.
+    assert out["ablation"]["num_trials"] == 4
+    assert out["ablation"]["worst_hp"]["ablated_feature"] == "a"
     assert out["chaos"]["violations"] == [] and out["chaos"]["profiles"]["auto"] == 1
     # The process sweep: every trial ran in a runner process of its own
     # (not the driver's), which saw none of the banned modules either.
@@ -266,7 +313,11 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
     assert {os.path.join("maggy_tpu_torch", *p) for p in (
         ("train", "warm.py"), ("train", "checkpoint.py"), ("core", "executors", "context.py"),
         ("optimizers", "pbt.py"), ("core", "driver", "recovery.py"), ("train", "trainer.py"),
-        ("train", "optim.py"), ("train", "lora.py"), ("models", "params.py"))} <= scanned
+        ("train", "optim.py"), ("train", "lora.py"), ("models", "params.py"),
+        ("train", "tfrecord.py"), ("train", "registry.py"), ("train", "data.py"),
+        ("ablation", "ablationstudy.py"), ("ablation", "ablator", "abstractablator.py"),
+        ("ablation", "ablator", "loco.py"), ("models", "surgery.py"), ("callbacks.py",),
+        ("core", "driver", "ablation_driver.py"), ("train", "vmap.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

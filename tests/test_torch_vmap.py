@@ -216,12 +216,16 @@ def test_validation_as_jax():
 
 
 def test_models_with_buffers_or_sowed_losses_are_refused():
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        VmapTrainer(mlp(), adam, [{"learning_rate": 1e-3}], loss_fn, device="cpu",
-                    has_aux_collections=True)
+    """Lanes take buffers and sowed losses (ROADMAP queue 1 item 7b, the
+    tests below); what is still refused is the scalar Trainer's refusal and
+    Flax's: a forward that would update buffers the block did not declare
+    mutable (``has_aux_collections=False``)."""
     resnet = ResNet(depth=18, num_classes=2, width=4, device="meta")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        VmapTrainer(resnet, adam, [{"learning_rate": 1e-3}], loss_fn, device="cpu")
+    vt = VmapTrainer(resnet, adam, [{"learning_rate": 1e-3}] * 2, loss_fn, device="cpu",
+                     train_kwargs={"train": True}).init(seed=0)
+    x = np.random.default_rng(1).normal(size=(2, 16, 16, 3)).astype(np.float32)
+    with pytest.raises(ValueError, match="has_aux_collections=True"):
+        vt.step({"inputs": (torch.from_numpy(x),), "labels": torch.tensor([0, 1])})
 
     class Sowing(torch.nn.Module):
         def __init__(self):
@@ -240,8 +244,202 @@ def test_models_with_buffers_or_sowed_losses_are_refused():
 
     vt = VmapTrainer(Sowing(), adam, [{"learning_rate": 1e-3}] * 2, loss_fn,
                      device="cpu").init(seed=0)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        vt.step(BATCH)
+    losses = vt.step(BATCH)
+    with torch.no_grad():
+        out = vt.model(BATCH["inputs"][0])
+    task = float(loss_fn(out, BATCH))
+    np.testing.assert_allclose(vt.aux_loss.numpy(), losses.numpy() - task, rtol=1e-5)
+
+
+# --------------------------------------- buffers and sowed losses (item 7b)
+
+RESNET = dict(depth=18, num_classes=2, width=4, cifar_stem=True)
+AUX_LRS = [1e-3, 1e-2]
+AUX_STEPS = 3
+MOE = dict(num_experts=4, moe_top_k=2, moe_capacity_factor=1.0)
+MOE_B, MOE_S, MOE_VOCAB = 2, 32, 128
+#: fp32 on both sides (tests/test_torch_resnet.py's and test_torch_moe.py's
+#: step tolerances): 1e-5 relative on losses, 1e-4 relative to (1 + the
+#: largest value) on parameters and running statistics.
+AUX_LOSS_RTOL, AUX_STATE_TOL = 1e-5, 1e-4
+
+
+def _resnet_batches():
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(AUX_STEPS):
+        x = rng.normal(size=(4, 16, 16, 3)).astype(np.float32)
+        out.append((x, (x.mean(axis=(1, 2, 3)) > 0).astype(np.int32)))
+    return out
+
+
+def _moe_batches():
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, MOE_VOCAB, size=(MOE_B, MOE_S)).astype(np.int32)
+            for _ in range(AUX_STEPS)]
+
+
+def _lane(tree, i):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a[i]), tree)
+
+
+@pytest.fixture(scope="module")
+def jax_resnet_block():
+    """JAX's K-lane ResNet-18 block with has_aux_collections and train=True
+    (stacked batch_stats out of every step): its losses, each lane's final
+    params and statistics as the port's state dicts, and lane 0's start."""
+    from maggy_tpu.models.resnet import ResNet as JaxResNet
+    from maggy_tpu_torch.models.resnet import flax_to_state_dict as resnet_state
+
+    jax_clear_warm()
+    mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
+    vt = JaxVmapTrainer(JaxResNet(**RESNET), optax.adam,
+                        [{"learning_rate": lr} for lr in AUX_LRS],
+                        lambda logits, b: jax_xent(logits, b["labels"]), mesh,
+                        has_aux_collections=True, train_kwargs={"train": True})
+    vt.init(jax.random.key(0), (jnp.zeros((1, 16, 16, 3)),), init_kwargs={"train": True})
+    start = _lane(vt.variables, 0)
+    losses = np.stack([np.asarray(vt.step({"inputs": (jnp.asarray(x),), "labels": jnp.asarray(y)}))
+                       for x, y in _resnet_batches()])
+    finals = [resnet_state(_lane(vt.variables["params"], i), _lane(vt.variables["batch_stats"], i))
+              for i in range(len(AUX_LRS))]
+    jax_clear_warm()
+    return losses, finals, resnet_state(start["params"], start["batch_stats"])
+
+
+def _resnet_lanes(state=None, **kw):
+    return VmapTrainer(ResNet(device="meta", **RESNET), adam,
+                       [{"learning_rate": lr} for lr in AUX_LRS], loss_fn, device="cpu",
+                       has_aux_collections=True, train_kwargs={"train": True},
+                       **kw).init(seed=0, state_dict=state)
+
+
+def _run_resnet(vt):
+    return np.stack([vt.step({"inputs": (torch.from_numpy(x),),
+                              "labels": torch.from_numpy(y).long()}).numpy().copy()
+                     for x, y in _resnet_batches()])
+
+
+def _state_close(got, ref):
+    for name, value in ref.items():
+        ref_v = torch.as_tensor(np.asarray(value))
+        err = float((got[name] - ref_v).abs().max()) / (1.0 + float(ref_v.abs().max()))
+        assert err < AUX_STATE_TOL, name
+
+
+def test_resnet_lanes_carry_batch_stats_as_the_jax_vmap_trainer(jax_resnet_block):
+    """Two ResNet-18 lanes with has_aux_collections from Flax's own init:
+    each lane's losses, parameters and running statistics after three
+    steps against the JAX package's lane and the port's scalar Trainer;
+    the unit's module keeps its own unbatched buffers as initialized."""
+    jlosses, jfinals, start = jax_resnet_block
+    vt = _resnet_lanes(start)
+    losses = _run_resnet(vt)
+    np.testing.assert_allclose(losses, jlosses, rtol=AUX_LOSS_RTOL)
+    for i, lr in enumerate(AUX_LRS):
+        _state_close(vt.lane_state_dict(i), jfinals[i])
+        scalar = Trainer(ResNet(device="meta", **RESNET), swept_transform(adam, learning_rate=lr),
+                         loss_fn, device="cpu", has_aux_collections=True,
+                         train_kwargs={"train": True}, warm_start=False).init(state_dict=start)
+        for t, (x, y) in enumerate(_resnet_batches()):
+            loss = float(scalar.step({"inputs": (torch.from_numpy(x),),
+                                      "labels": torch.from_numpy(y).long()}))
+            assert loss == pytest.approx(losses[t, i], rel=AUX_LOSS_RTOL)
+        _state_close(vt.lane_state_dict(i), scalar.model.state_dict())
+    assert not np.array_equal(losses[:, 0], losses[:, 1])
+    for name, buf in vt.model.named_buffers():
+        assert torch.equal(buf, start[name]), name
+    assert vt.aux_loss is None
+
+
+def test_reinit_resets_the_stacked_buffers_in_place():
+    """A ResNet block stepped and retired: the next block of the program
+    takes its K-lane unit, every lane's running statistics reset to the
+    scalar init's in place, and trains bitwise as a fresh block."""
+    fresh = _run_resnet(_resnet_lanes(warm_start=False))
+    first = _resnet_lanes()
+    _run_resnet(first)
+    unit = first._unit
+    rows = {name: t.data_ptr() for name, t in unit.buffers.items()}
+    assert rows and all(float(t[:, 0].abs().sum()) > 0 for n, t in unit.buffers.items()
+                        if n.endswith(".mean"))
+    first.retire_to_warm_cache()
+    second = _resnet_lanes()
+    assert second._unit is unit
+    for name, t in unit.buffers.items():
+        assert t.data_ptr() == rows[name]
+        expected = 0.0 if name.endswith(".mean") else 1.0
+        assert torch.equal(t, torch.full_like(t, expected)), name
+    assert np.array_equal(_run_resnet(second), fresh)
+
+
+def test_has_aux_collections_joins_the_lane_program_key():
+    def unit(aux):
+        vt = VmapTrainer(ResNet(depth=18, num_classes=2, width=4, device="meta"), adam,
+                         [{"learning_rate": 1e-3}] * 2, loss_fn, device="cpu",
+                         has_aux_collections=aux).init(seed=0)
+        vt.retire_to_warm_cache()
+        return vt._slot
+
+    assert unit(True) is not unit(False)
+    assert unit(True) is unit(True)
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    """JAX's K-lane block of a two-layer MoE Llama (4 experts, capacity
+    factor 1): its losses, sowed losses included, and the port's state dict
+    of the init every lane started from."""
+    import dataclasses
+
+    from flax import linen as nn
+
+    from maggy_tpu.models.llama import Llama as JaxLlama
+    from maggy_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+    from maggy_tpu.train.trainer import next_token_loss as jax_next_token_loss
+    from maggy_tpu_torch.models import LlamaConfig
+    from maggy_tpu_torch.models.llama import flax_to_state_dict as llama_state
+
+    jax_clear_warm()
+    jcfg = dataclasses.replace(JaxLlamaConfig.tiny(MOE_VOCAB), dtype=jnp.float32, **MOE)
+    tcfg = dataclasses.replace(LlamaConfig.tiny(MOE_VOCAB), dtype=torch.float32, **MOE)
+    mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
+    vt = JaxVmapTrainer(JaxLlama(jcfg), optax.adam, [{"learning_rate": lr} for lr in AUX_LRS],
+                        lambda logits, b: jax_next_token_loss(logits, b["tokens"]), mesh)
+    vt.init(jax.random.key(0), (jnp.ones((1, MOE_S), jnp.int32),))
+    start = llama_state(_lane(nn.meta.unbox(vt.variables)["params"], 0))
+    losses = np.stack([np.asarray(vt.step({"inputs": (jnp.asarray(t),), "tokens": jnp.asarray(t)}))
+                       for t in _moe_batches()])
+    jax_clear_warm()
+    return tcfg, start, losses
+
+
+def test_moe_lanes_add_their_aux_losses_as_the_jax_vmap_trainer(moe_pair):
+    """Two lanes of the MoE Llama: each lane's objective (task loss plus the
+    layers' load-balancing losses) against the JAX package's lane, and its
+    summed aux loss against the port's scalar Trainer's."""
+    from maggy_tpu_torch.models import Llama
+    from maggy_tpu_torch.ops import next_token_loss
+
+    tcfg, start, jlosses = moe_pair
+
+    def tokens_loss(logits, b):
+        return next_token_loss(logits, b["tokens"])
+
+    vt = VmapTrainer(Llama(tcfg, device="meta"), adam, [{"learning_rate": lr} for lr in AUX_LRS],
+                     tokens_loss, device="cpu").init(state_dict=start)
+    scalars = [Trainer(Llama(tcfg, device="meta"), swept_transform(adam, learning_rate=lr),
+                       tokens_loss, device="cpu", warm_start=False).init(state_dict=start)
+               for lr in AUX_LRS]
+    for t, tokens in enumerate(_moe_batches()):
+        x = torch.as_tensor(tokens, dtype=torch.long)
+        batch = {"inputs": (x,), "tokens": x}
+        losses = vt.step(batch).numpy()
+        np.testing.assert_allclose(losses, jlosses[t], rtol=AUX_LOSS_RTOL)
+        for i, scalar in enumerate(scalars):
+            assert float(scalar.step(batch)) == pytest.approx(losses[i], rel=AUX_LOSS_RTOL)
+            assert float(scalar.aux_loss) == pytest.approx(float(vt.aux_loss[i]), rel=1e-4)
+    assert float(vt.aux_loss.min()) > 0 and jlosses[-1, 0] != jlosses[-1, 1]
 
 
 # ------------------------------------------------- flash kernels under vmap
