@@ -5,7 +5,12 @@
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
 1. device  — the card, and nvidia-smi's name/power-limit line.
-2. build   — nvcc builds every CUDA source of maggy_tpu_torch/ops/csrc.
+2. build   — nvcc builds every CUDA source of maggy_tpu_torch/ops/csrc, and
+             g++ the native control-plane codec (maggy_tpu_torch/native/
+             framing.cpp, host code) into build/native/: is_native() must
+             hold, its HMAC equal hashlib's, its crc32c the Python table's,
+             and its TFRecord scan the Python reader's records on
+             titanic_loco's TFRecord (make_titanic_like written anew).
 3. kernels — each flash-attention kernel against its plain PyTorch version
              (bf16, bf16 with fp32 gradients, and fp32; the BERT-base
              training shape with a padding mask that fully masks some rows,
@@ -289,6 +294,40 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              and program: the 11 other single ablations are one 11-layer
              program). Prints each study's wall, step p50, goodput, warm
              hits and misses and peak memory.
+20. slice_fleet — after clear_warm(): (a) maggy_tpu_torch.fleet.soak.
+             run_fleet_soak() at its defaults (bench.py --fleet's shape:
+             closed-form trials, a low-priority bulk sweep preempted by a
+             high-priority arrival), ok with a preemption; (b) one
+             Fleet(runners=2) in this process hosting two tenants through
+             experiment.lagom_submit: bulk (priority low, RandomSearch, 4
+             trials of FLEET_BERT_STEPS BERT-base steps on slice's data,
+             saving through ctx.save_checkpoint every FLEET_SAVE_EVERY steps
+             and on a preempt ack, resuming from ctx.resume_step) and, once
+             bulk holds both runners, urgent (priority high, one runner, 2
+             trials of slice_mnist's MnistCNN). The gates of run_fleet_soak
+             (both schedules complete, check_invariants on each journal, a
+             preemption in fleet.jsonl that the bulk journal executed, every
+             checkpointed preemption resumed, the starvation bound FLEET_
+             STARVATION_S), a checkpointed bulk trial resumed at its acked
+             step, and each flash kernel's launches at 12 x the BERT steps
+             its trials' records count (a preempted attempt's and its
+             resumption's both). Prints wall, queue waits, preemptions, share
+             against expected share, resumed_from_steps, preempt-to-resume
+             time, each tenant's goodput, warm hits and misses, health flags
+             and peak memory; (c) python -m maggy_tpu_torch.monitor --fleet
+             <home> --once and python -m maggy_tpu_torch.telemetry trace
+             <home>, each exiting 0, the fleet trace valid.
+21. slice_remote — the slice sweep (ASHA(3, 1, 9) + median, 13 trials)
+             under pool="remote", num_workers=2: two agent processes run
+             python -m maggy_tpu_torch.runner --ticket <exp>/runner_ticket.
+             json --train chip_smoke:train_bert_remote, each with its own
+             CUDA context. Each trial's record file holds its agent's
+             launches; summed they must be 12 x steps. While the sweep runs,
+             python -m maggy_tpu_torch.monitor --ticket <ticket> --once, and
+             with --telem, --health and --goodput, each exit 0. Prints the
+             in-sweep step p50 beside slice_process's, JOIN to first trial
+             per agent (the server's JOIN against the journal's first
+             running edge of its partition) and each agent's peak memory.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -332,7 +371,8 @@ bert_base_warm's slice_warm's BERT-base warm arm's, llama3_8b_moe's
 slice_moe's at the Llama shape's times, bert_base_lanes's slice_lanes'
 at the folded shape, 4 lanes x batch 32, llama3_8b_moe_lanes's its MoE
 arm's at the Llama's shape (2 lanes x batch 1), bert_base_loco's
-slice_ablation's),
+slice_ablation's, bert_base_fleet's slice_fleet's card soak's,
+bert_base_remote's slice_remote's summed over its agents),
 the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
@@ -355,6 +395,7 @@ import os
 import re
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import threading
@@ -401,7 +442,8 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
 #: 1 fold into the Llama's batch 2).
 SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
               "bert_base_resume": "bert_base", "bert_base_warm": "bert_base",
-              "bert_base_loco": "bert_base", "llama3_8b_moe": "llama3_8b",
+              "bert_base_loco": "bert_base", "bert_base_fleet": "bert_base",
+              "bert_base_remote": "bert_base", "llama3_8b_moe": "llama3_8b",
               "llama3_8b_moe_lanes": "llama3_8b"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
@@ -511,6 +553,21 @@ TITANIC_FEATURES = ["pclass", "sex", "age", "fare", "embarked"]
 TITANIC_N, TITANIC_STEPS, TITANIC_LR, TITANIC_RUNNERS = 2048, 60, 1e-2, 3
 BERT_LOCO_NAMES = ["embed"] + ["layer_{}".format(i) for i in range(12)] + ["head"]
 BERT_LOCO_STEPS, BERT_LOCO_LR, BERT_LOCO_RUNNERS = 24, 3e-5, 2
+# slice_fleet's card soak: the bulk tenant's trials, steps a trial and
+# checkpoint cadence, the urgent tenant's trials, the scheduler's grace
+# (run_fleet_soak's), the heartbeat, and the starvation bound (a first
+# Trainer.init on the card takes 8-10 s, ROADMAP F3, and a BERT-base save
+# about 2.3 s, F4: an urgent tenant can wait for both before its runner
+# frees).
+FLEET_BULK_TRIALS, FLEET_BERT_STEPS, FLEET_SAVE_EVERY, FLEET_URGENT_TRIALS = 4, 24, 8, 2
+FLEET_GRACE_S, FLEET_HB_S, FLEET_STARVATION_S = 0.25, 0.1, 60.0
+# slice_remote: where the agents' trials write their records (the agents
+# read it from the environment), and how long the phase may wait for them.
+REMOTE_RECORDS_ENV = "MAGGY_TPU_SMOKE_RECORDS"
+REMOTE_TRAIN = "chip_smoke:train_bert_remote"
+REMOTE_AGENT_TIMEOUT_S = 400
+#: Readings one phase leaves for a later one's line.
+READINGS = {}
 
 
 def emit(phase, **fields):
@@ -570,7 +627,66 @@ def phase_build():
     ptxas = [line.strip() for name in sources
              for line in build.build_logs.get(name, "").splitlines() if "Used" in line]
     emit("build", sources=sources, seconds=time.perf_counter() - t0,
-         ptxas_register_lines=len(ptxas), ptxas_sample=ptxas[:3])
+         ptxas_register_lines=len(ptxas), ptxas_sample=ptxas[:3], native=native_check())
+
+
+def py_tfrecord_records(path):
+    """A TFRecord's payloads read in Python: each frame's length and payload
+    crcs checked with the table crc32c."""
+    from maggy_tpu_torch.train.tfrecord import py_crc32c
+
+    def masked(data):
+        crc = py_crc32c(data)
+        return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+    out, data, pos = [], open(path, "rb").read(), 0
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        (length,) = struct.unpack("<Q", header)
+        (length_crc,) = struct.unpack("<I", data[pos + 8:pos + 12])
+        payload = data[pos + 12:pos + 12 + length]
+        (payload_crc,) = struct.unpack("<I", data[pos + 12 + length:pos + 16 + length])
+        if length_crc != masked(header) or payload_crc != masked(payload):
+            raise AssertionError("{}: a frame's crc is off at byte {}".format(path, pos))
+        out.append(payload)
+        pos += 16 + length
+    return out
+
+
+def native_check():
+    """The native codec (host code, framing.cpp) builds and loads, and
+    agrees with hashlib and the Python routes."""
+    import hashlib
+    import hmac
+
+    from maggy_tpu_torch import native
+    from maggy_tpu_torch.train import tfrecord
+
+    t0 = time.perf_counter()
+    if not native.is_native():
+        raise AssertionError("native codec did not load: {}".format(native.build_error))
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    for n in (0, 1, 63, 64, 65, 4096, 1 << 20):
+        key, msg = rng.bytes(int(rng.integers(1, 100))), rng.bytes(n)
+        if native.hmac_sha256(key, msg) != hmac.new(key, msg, hashlib.sha256).digest():
+            raise AssertionError("native HMAC off hashlib's at {} bytes".format(n))
+        if native.crc32c(msg) != tfrecord.py_crc32c(msg):
+            raise AssertionError("native crc32c off the table's at {} bytes".format(n))
+    big = rng.bytes(1 << 24)
+    t1 = time.perf_counter()
+    native.crc32c(big)
+    crc_s = time.perf_counter() - t1
+    X, y = make_titanic_like()
+    path = os.path.join(ROOT, "build", "native", "titanic.tfrecord")
+    tfrecord.write_tfrecord(path, ({**{f: float(X[f][i]) for f in TITANIC_FEATURES},
+                                    "survived": int(y[i])} for i in range(len(y))))
+    data = open(path, "rb").read()
+    scanned = [data[o:o + n] for o, n in native.tfrecord_scan(data)]
+    if scanned != py_tfrecord_records(path) or len(scanned) != TITANIC_N:
+        raise AssertionError("native TFRecord scan off the Python reader on {}".format(path))
+    return {"native": True, "library": os.path.relpath(native.library_path(), ROOT),
+            "load_s": build_s, "crc32c_16MiB_ms": crc_s * 1e3, "titanic_records": len(scanned)}
 
 
 def make_inputs(B, Sq, Sk, H, Hkv, D, dtype, padded, seed):
@@ -2849,6 +2965,7 @@ def phase_slice_process(exp_dir, thread_step_ms):
         raise AssertionError("trials ran in the driver process {}, not only in runner "
                              "processes {}".format(os.getpid(), pids))
     step_ms = float(np.median([r["step_ms"] for r in records]))
+    READINGS["slice_process_step_ms"] = step_ms
     emit("slice_process", trials_finished=len(trials), promoted=promoted,
          early_stopped=result["early_stopped"], best_val=result["best_val"],
          steps=total_steps, launches=launches, expected_launches_each=expected,
@@ -4524,6 +4641,360 @@ def read_output(exp_root, study, trial):
     return out["params"] if study == "titanic" else out["layers"]
 
 
+# ------------------------------------------------------- the fleet, remote
+
+
+def train_bert_fleet(lr, warmup_frac, reporter, ctx, out_dir):
+    """slice_fleet's bulk trial: FLEET_BERT_STEPS BERT-base steps on slice's
+    data under a warmup-cosine schedule, the state saved through
+    ctx.save_checkpoint every FLEET_SAVE_EVERY steps and, on a preemption
+    (the STOP a heartbeat draws surfaces as EarlyStopException at the next
+    broadcast; the sweep stops nothing early), at the last step trained, so
+    the ack carries it; with ctx.resume_step it restores that state and goes
+    on at the step after it. Each attempt writes a record of its own."""
+    from maggy_tpu_torch.exceptions import EarlyStopException
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.train import Trainer, adamw, warmup_cosine_decay_schedule
+
+    record = TrialRecord(out_dir, reporter)
+    record.path = os.path.join(out_dir, "{}.{}.{}.json".format(
+        reporter.trial_id, os.getpid(), time.monotonic_ns()))
+    full_fp32()
+    cfg, batch = bert_data()
+    total = FLEET_BERT_STEPS
+    sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
+    trainer = Trainer(BertEncoder(cfg, device="meta"), adamw(sched), labels_loss,
+                      device=DEVICE).init(seed=0)
+    saved = None
+    if ctx.resume_step is not None:
+        state = ctx.restore_checkpoint({**trainer_state(trainer), "steps_done": 0})
+        if state is None or state["steps_done"] != ctx.resume_step + 1:
+            raise RuntimeError("trial {} resumes at step {} but its checkpoint holds {}".format(
+                reporter.trial_id, ctx.resume_step, state and state["steps_done"]))
+        trainer.model.load_state_dict(state["model"])
+        trainer.optimizer.load_state_dict(state["optimizer"])
+        trainer.scheduler.load_state_dict(state["scheduler"])
+        record.first_step, saved = state["steps_done"], ctx.resume_step
+    loss, i = None, record.first_step - 1
+    with record:
+        try:
+            for i in range(record.first_step, total):
+                loss = trainer.step(batch(i))
+                record.steps += 1
+                if (i + 1) % FLEET_SAVE_EVERY == 0:
+                    ctx.save_checkpoint(i, {**trainer_state(trainer), "steps_done": i + 1})
+                    saved = i
+                if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
+                    reporter.broadcast(-loss, step=i)
+        except EarlyStopException:
+            if loss is not None and saved != i:
+                ctx.save_checkpoint(i, {**trainer_state(trainer), "steps_done": i + 1})
+            raise
+    final = float(loss)
+    if not math.isfinite(final):
+        raise FloatingPointError("non-finite loss {}".format(final))
+    return {"metric": -final}
+
+
+def fleet_tenant_journals(base):
+    """{tenant name: its journal's events} of the experiments under ``base``."""
+    from maggy_tpu_torch.telemetry import read_events
+
+    out = {}
+    for path in glob.glob(os.path.join(base, "*", "telemetry.jsonl")):
+        events = read_events(path)
+        name = next((e["name"] for e in events if e["ev"] == "experiment" and e.get("name")),
+                    None)
+        out[name] = events
+    return out
+
+
+def preempt_chain(events):
+    """Each checkpointed preemption of a journal: its trial, the acked step,
+    the step its resumption started from, request to ack and ack to resume
+    in s."""
+    out = []
+    for e in events:
+        if e["ev"] == "trial" and e["phase"] == "preempted" and e.get("checkpointed"):
+            req = max((r["t"] for r in events if r["ev"] == "trial" and r["trial"] == e["trial"]
+                       and r["phase"] == "preempt_requested" and r["t"] <= e["t"]), default=None)
+            res = next((r for r in events if r["ev"] == "trial" and r["trial"] == e["trial"]
+                        and r["phase"] == "resumed" and r["t"] >= e["t"]), None)
+            out.append({"trial": e["trial"], "step": e.get("step"),
+                        "resumed_from": None if res is None else res.get("from_step"),
+                        "request_to_ack_s": None if req is None else e["t"] - req,
+                        "preempt_to_resume_s": None if res is None else res["t"] - e["t"]})
+    return out
+
+
+def health_flags(events):
+    counts = {}
+    for e in events:
+        if e["ev"] == "health" and e.get("status") == "raised":
+            counts[e.get("check")] = counts.get(e.get("check"), 0) + 1
+    return counts
+
+
+def phase_slice_fleet(exp_root):
+    """Phase 20: the shared fleet. (a) run_fleet_soak at its defaults; (b)
+    the card soak, one Fleet(runners=2) hosting a BERT-base bulk tenant and
+    an MNIST urgent one; (c) the monitor and the telemetry CLI on its home.
+    Returns the card soak's flash launches."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.fleet import Fleet
+    from maggy_tpu_torch.fleet.soak import fleet_soak_report, run_fleet_soak
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.telemetry.trace import validate_trace
+    from maggy_tpu_torch.train import warm
+
+    t_phase = time.perf_counter()
+    exp_root = fresh_dir(exp_root)
+    closed = run_fleet_soak(base_dir=fresh_dir(os.path.join(exp_root, "closed_form")))
+    emit("slice_fleet/closed_form", ok=closed["ok"], violations=closed["violations"],
+         results=closed["results"], preempted=closed["preempted"],
+         detail={k: v for k, v in closed["detail"].items() if k not in ("experiments", "goodput")},
+         goodput_fraction=closed["detail"]["goodput"]["goodput_fraction"])
+    if not closed["ok"] or closed["replay"]["preemptions"] < 1:
+        raise AssertionError("slice_fleet: run_fleet_soak failed: {}".format(
+            closed["violations"] or "no preemption"))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.reset_peak_memory_stats()
+    base = fresh_dir(os.path.join(exp_root, "card"))
+    bulk_records = fresh_dir(os.path.join(exp_root, "records_bulk"))
+    urgent_records = fresh_dir(os.path.join(exp_root, "records_urgent"))
+    cfg, _ = bert_data()
+
+    def config(name, trials, space):
+        return OptimizationConfig(name=name, num_trials=trials, optimizer="randomsearch",
+                                  searchspace=space, direction="max", hb_interval=FLEET_HB_S,
+                                  seed=0, es_policy="none", experiment_dir=base)
+
+    bert_space = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]),
+                             warmup_frac=("DOUBLE", [0.0, 0.3]))
+    fleet = Fleet(runners=2, home_dir=os.path.join(base, "fleet"),
+                  preempt_grace_s=FLEET_GRACE_S)
+    before = warm.counters()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    with fleet:
+        bulk = experiment.lagom_submit(
+            functools.partial(train_bert_fleet, out_dir=bulk_records),
+            config("bulk", FLEET_BULK_TRIALS, bert_space), fleet=fleet, priority="low",
+            block=False)
+        deadline = time.monotonic() + 120
+        while bulk.entry.allocated() < 2 and not bulk.done() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        saturated_s = time.perf_counter() - t0
+        urgent = experiment.lagom_submit(
+            functools.partial(train_mnist, budget=1, out_dir=urgent_records),
+            config("urgent", FLEET_URGENT_TRIALS, chaos_space()), fleet=fleet,
+            priority="high", min_runners=1, max_runners=1, block=False)
+        results = {"bulk": bulk.result(timeout=400), "urgent": urgent.result(timeout=400)}
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    reading = warm_reading("slice_fleet", None, before)
+    CAPTURED["bert_base_fleet"] = reading["captured"]
+    report = fleet_soak_report(fleet, base, results, {"bulk": FLEET_BULK_TRIALS,
+                                                      "urgent": FLEET_URGENT_TRIALS},
+                               FLEET_STARVATION_S, wall)
+    journals = fleet_tenant_journals(base)
+    chain = preempt_chain(journals.get("bulk", []))
+    records = read_records(bulk_records)
+    steps = sum(r["steps"] for r in records)
+    expected = cfg.num_layers * steps
+    problems = list(report["violations"])
+    if not any(c["resumed_from"] is not None and c["resumed_from"] == c["step"]
+               for c in chain):
+        problems.append("no checkpointed bulk trial resumed at its acked step: {}".format(chain))
+    if any(n != expected for n in launches.values()) or expected == 0:
+        problems.append("launches {} != {} layers x {} steps".format(
+            launches, cfg.num_layers, steps))
+    if len(read_records(urgent_records)) < FLEET_URGENT_TRIALS:
+        problems.append("urgent tenant: {} trial records".format(
+            len(read_records(urgent_records))))
+    replay = report["replay"]
+    fields = dict(
+        wall_s=wall, bulk_saturated_s=saturated_s, results=report["results"],
+        queue_wait_ms=replay["queue_wait_ms"], max_queue_wait_s=replay["max_queue_wait_s"],
+        starvation_bound_s=FLEET_STARVATION_S, preemptions=replay["preemptions"],
+        share=replay["share"], expected_share=replay["expected_share"],
+        share_error=replay["share_error"],
+        resumed_from_steps=report["detail"]["resumed_from_steps"], preempt_chain=chain,
+        goodput={name: {k: t["goodput"].get(k) for k in ("goodput_fraction", "held_chip_s")}
+                 | {"chip_seconds": t["chip_seconds"]}
+                 for name, t in replay["goodput"]["tenants"].items()},
+        bert_steps=steps, bert_attempts=len(records), launches=launches,
+        expected_launches_each=expected,
+        step_ms_median_with_saves=float(np.median([r["step_ms"] for r in records]))
+        if records else None,
+        warm=reading, health_flags={n: health_flags(ev) for n, ev in journals.items()},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if problems:
+        emit("slice_fleet/card", problems=problems, **fields)
+        raise AssertionError("slice_fleet: {}".format("; ".join(problems)))
+    emit("slice_fleet/card", **fields)
+
+    home = fleet.home_dir
+    clis = {}
+    for name, argv in (("monitor", ["maggy_tpu_torch.monitor", "--fleet", home, "--once"]),
+                       ("trace", ["maggy_tpu_torch.telemetry", "trace", home])):
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, timeout=180)
+        clis[name] = {"rc": proc.returncode, "s": time.perf_counter() - t1,
+                      "stdout": proc.stdout.strip().splitlines()[:12]}
+        if proc.returncode != 0:
+            emit("slice_fleet/cli", **clis)
+            raise AssertionError("slice_fleet: {} exited {}: {}".format(
+                name, proc.returncode, proc.stderr[-2000:]))
+    with open(os.path.join(home, "fleet_trace.json")) as f:
+        clis["trace"]["events"] = validate_trace(json.load(f))
+    for ckpt in glob.glob(os.path.join(base, "*", "*", "checkpoints")):
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit("slice_fleet", phase_s=time.perf_counter() - t_phase, cli=clis)
+    return launches
+
+
+def train_bert_remote(lr, warmup_frac, budget, reporter):
+    """slice_remote's trial, named to its agents as chip_smoke:
+    train_bert_remote: train_bert_asha with its records under the directory
+    the agent's environment names."""
+    return train_bert_asha(lr, warmup_frac, budget, reporter,
+                           out_dir=os.environ[REMOTE_RECORDS_ENV])
+
+
+def phase_slice_remote(exp_dir):
+    """Phase 21: the slice sweep under pool="remote" on two agent
+    processes, with the monitor polling it through its ticket. Returns the
+    launches summed over the agents' trial records."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.core import rpc
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.optimizers import Asha
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    exp_dir = fresh_dir(exp_dir)
+    out_dir = fresh_dir(os.path.join(exp_dir, "records"))
+    run_root = fresh_dir(os.path.join(exp_dir, "exp"))
+    config = OptimizationConfig(
+        name="bert_base_asha_remote", num_trials=9,
+        optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=0),
+        searchspace=Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]),
+                                warmup_frac=("DOUBLE", [0.0, 0.3])),
+        direction="max", num_workers=2, es_policy="median", es_min=3, hb_interval=0.1,
+        seed=0, experiment_dir=run_root, pool="remote")
+    joins, orig_join = {}, rpc.Server._join
+
+    def timed_join(self, msg):
+        reply = orig_join(self, msg)
+        if reply.get("type") == "JOIN":
+            joins[reply["partition_id"]] = time.time()
+        return reply
+
+    out, agents, monitors = {}, [], {}
+
+    def sweep():
+        try:
+            out["result"] = experiment.lagom(None, config)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            out["error"] = e
+
+    rpc.Server._join = timed_join
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        thread = threading.Thread(target=sweep, daemon=True, name="slice-remote-driver")
+        thread.start()
+        deadline = time.monotonic() + 60
+        tickets = []
+        while not tickets and time.monotonic() < deadline and "error" not in out:
+            tickets = glob.glob(os.path.join(run_root, "*", "runner_ticket.json"))
+            time.sleep(0.05)
+        if not tickets:
+            raise AssertionError("slice_remote: no join ticket: {!r}".format(out.get("error")))
+        ticket = tickets[0]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]),
+            **{REMOTE_RECORDS_ENV: out_dir})
+        for i in range(2):
+            log = open(os.path.join(exp_dir, "agent_{}.log".format(i)), "w")
+            agents.append((subprocess.Popen(
+                [sys.executable, "-m", "maggy_tpu_torch.runner", "--ticket", ticket,
+                 "--train", REMOTE_TRAIN], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log))
+        # The polls start with the agents: a poll that reaches the driver
+        # (exit 0) reached it while the sweep ran, since the driver's
+        # server stops with the sweep.
+        polls = {flag: subprocess.Popen(
+            [sys.executable, "-m", "maggy_tpu_torch.monitor", "--ticket", ticket, "--once",
+             *([flag] if flag else [])], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for flag in ("", "--telem", "--health",
+                                                            "--goodput")}
+        for flag, proc in polls.items():
+            stdout, stderr = proc.communicate(timeout=120)
+            monitors[flag or "--log"] = {"rc": proc.returncode,
+                                         "lines": stdout.strip().splitlines()[:6],
+                                         "stderr": stderr[-500:] if proc.returncode else ""}
+        for proc, log in agents:
+            proc.wait(timeout=REMOTE_AGENT_TIMEOUT_S)
+            log.close()
+        thread.join(60)
+    finally:
+        rpc.Server._join = orig_join
+        for proc, log in agents:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    agent_rcs = [proc.returncode for proc, _ in agents]
+    if "error" in out or agent_rcs != [0, 0]:
+        raise AssertionError("slice_remote: sweep {!r}, agents {}: {}".format(
+            out.get("error"), agent_rcs,
+            [log_tail(os.path.join(exp_dir, "agent_{}.log".format(i)), 30) for i in range(2)]))
+    bad = {k: v for k, v in monitors.items() if v["rc"] != 0}
+    if bad:
+        raise AssertionError("slice_remote: monitor polls {}".format(bad))
+    result = out["result"]
+    records = read_records(out_dir)
+    launches = {k: sum(r["launches"][k] for r in records) for k in A.launch_counts()}
+    if any(A.launch_counts().values()):
+        raise AssertionError("the driver process launched kernels in the remote sweep: "
+                             "{}".format(A.launch_counts()))
+    trials, promoted, total_steps, expected = check_bert_sweep(
+        "slice_remote", result, exp_dir, records, launches)
+    telemetry = journal_check("slice_remote", run_root, result)
+    reading_warm = warm_reading("slice_remote", telemetry)
+    CAPTURED["bert_base_remote"] = reading_warm["captured"]
+    pids = sorted({r["pid"] for r in records})
+    if os.getpid() in pids or len(pids) != 2:
+        raise AssertionError("slice_remote: trials ran in processes {} (driver {})".format(
+            pids, os.getpid()))
+    first_running = {}
+    for e in telemetry["_events"]:
+        if e["ev"] == "trial" and e["phase"] == "running" and e.get("partition") is not None:
+            first_running.setdefault(int(e["partition"]), e["t"])
+    emit("slice_remote", trials_finished=len(trials), promoted=promoted,
+         early_stopped=result["early_stopped"], best_val=result["best_val"],
+         steps=total_steps, launches=launches, expected_launches_each=expected,
+         sweep_wall_s=wall, step_ms_in_sweep_median=float(np.median(
+             [r["step_ms"] for r in records])),
+         process_step_ms_in_sweep_median=READINGS.get("slice_process_step_ms"),
+         join_to_first_trial_s={str(p): first_running[p] - t for p, t in sorted(joins.items())
+                                if p in first_running},
+         agent_peak_mem_gb={str(pid): max(r["peak_mem_gb"] for r in records if r["pid"] == pid)
+                            for pid in pids},
+         time_split=time_split(records), runner_setup=runner_setup(telemetry),
+         monitors=monitors, pipeline=pipeline_summary(result["pipeline"]), warm=reading_warm,
+         telemetry=public(telemetry), phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def fresh_dir(path):
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
@@ -4568,6 +5039,12 @@ def main():
     phase_slice_chaos()
     launches["bert_base_loco"] = phase_slice_ablation(
         os.path.join(ROOT, "build", "chip_smoke_experiments_ablation"))
+    clear_warm()
+    launches["bert_base_fleet"] = phase_slice_fleet(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_fleet"))
+    clear_warm()
+    launches["bert_base_remote"] = phase_slice_remote(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_remote"))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

@@ -29,7 +29,7 @@ import json
 import sys
 
 #: The JAX package's soaks still to port: flag -> ROADMAP queue 1 item.
-_UNPORTED = {"gang": "8", "driver": "9", "sink": "9", "agent": "9"}
+_UNPORTED = {"gang": "8", "driver": "9b", "sink": "9b", "agent": "9b"}
 
 
 def main(argv=None) -> int:

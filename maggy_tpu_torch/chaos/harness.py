@@ -23,7 +23,7 @@ JAX module's docstring:
     throughout, /healthz reads 503 during a flagged stall, and the first
     flag per stalled partition yields exactly one ``profile_captured``;
 13. driver failover is lossless (no driver soak in the port yet: it kills a
-    driver whose remote runners survive, ROADMAP queue 1 item 9);
+    driver whose remote runners survive, ROADMAP queue 1 item 9b);
 14. a checkpoint fork whose runner dies requeues once and resumes from the
     same fork point, lineage intact;
 15. rework chip-time lands exactly on the seamed trials, and a fault-free
@@ -38,7 +38,9 @@ the JAX package's, their signatures name no device: the ``train_fn`` decides
 where the work runs. The default trials are closed-form host loops;
 ``chip_smoke.py``'s ``slice_chaos`` phase passes trials that train on the
 card. Left out: the lock-order witness of the JAX soaks
-(``maggy_tpu.analysis``, ROADMAP queue 1 item 13) and the gang soak.
+(``maggy_tpu.analysis``, which reads only the JAX package's sources; a copy
+pointed at the port is optional, ROADMAP queue 1 item 13) and the gang
+soak.
 """
 
 from __future__ import annotations

@@ -2,16 +2,18 @@
 
 The subset of ``maggy_tpu/config.py`` the port runs: `LagomConfig` (with the
 heartbeat-loss shape, fault injection, the live health engine and the
-observability plane) and `OptimizationConfig` with the fields of a
-single-host sweep over thread, process or GPU-pinned process runners, with
+observability plane) and `OptimizationConfig` with the fields of a sweep
+over thread, process, GPU-pinned process or remote runners, with
 heartbeat-loss requeue, the telemetry journal, the compile-once warm path
 (``warm_start``), checkpoint forking (``fork``) and experiment resume
-(``resume``) and vectorized lanes (``vmap_lanes``), and `AblationConfig`
-for LOCO ablation studies. ``chips_per_budget``
-(gangs) and ``fleet`` exist only so that setting one raises "not ported
-yet" with its ROADMAP item; each is replaced by the real
-field in the slice that ports it. Parity: reference
-`maggy/experiment_config.py:18-50`.
+(``resume``), vectorized lanes (``vmap_lanes``) and a shared fleet's
+binding (``fleet``, set by ``Fleet.submit``), and `AblationConfig` for LOCO
+ablation studies. ``chips_per_budget`` (gangs, ROADMAP queue 1 item 8) and
+``sink`` (the fleet's journal sink, item 9b) exist only so that setting one
+raises "not ported yet" with its ROADMAP item, as does
+``pool="elastic"`` (item 8: it sizes chip sub-slices by
+``chips_per_budget``); each is replaced by the real field in the slice
+that ports it. Parity: reference `maggy/experiment_config.py:18-50`.
 """
 
 from __future__ import annotations
@@ -24,11 +26,12 @@ from maggy_tpu_torch import constants
 from maggy_tpu_torch.searchspace import Searchspace
 
 #: Runner pools the port runs, and the JAX package's that it does not.
-POOLS = ("thread", "process", "gpu")
-_UNPORTED_POOLS = ("elastic", "remote")
+POOLS = ("thread", "process", "gpu", "remote")
+#: pool -> the ROADMAP queue 1 item that ports it.
+_UNPORTED_POOLS = {"elastic": "8"}
 #: field -> (its value that keeps it off, the ROADMAP queue 1 item that
 #: ports it).
-_UNPORTED_FIELDS = {"chips_per_budget": (None, "8"), "fleet": (None, "9")}
+_UNPORTED_FIELDS = {"chips_per_budget": (None, "8"), "sink": (False, "9b")}
 
 
 @dataclass
@@ -111,10 +114,16 @@ class OptimizationConfig(LagomConfig):
     ``optimizer`` is a registry name ("randomsearch", "asha", "gridsearch",
     "tpe", "gp", "none") or an AbstractOptimizer instance. ``pool`` picks the
     runners: "thread" (in-process threads sharing the CUDA device), "process"
-    (one spawned OS process each; ``train_fn`` must be module-level) or "gpu"
+    (one spawned OS process each; ``train_fn`` must be module-level), "gpu"
     (processes pinned to ``chips_per_trial`` CUDA devices each through
-    CUDA_VISIBLE_DEVICES). ``num_workers`` is the runner count, or "auto" for
-    one per CUDA device; the driver clamps it to ``num_trials``.
+    CUDA_VISIBLE_DEVICES) or "remote" (agents started apart, ``python -m
+    maggy_tpu_torch.runner``, JOIN through the join ticket the driver
+    writes to ``<exp_dir>/runner_ticket.json``). ``num_workers`` is the
+    runner count, or "auto" for one per CUDA device (not for "remote":
+    agents join as they come, and the count caps their admission); the
+    driver clamps it to ``num_trials``. ``fleet`` is set by ``Fleet.submit``
+    (``lagom_submit``): the experiment then leases runners from the fleet
+    instead of owning a pool.
     ``prefetch`` pipelines the trial hand-off: a suggester thread
     materializes the next suggestions while runners train, and a FINAL's
     reply carries the runner's next trial (``maggy_tpu/config.py:194``).
@@ -165,10 +174,13 @@ class OptimizationConfig(LagomConfig):
     # in lockstep as one vmapped step. Each lane keeps its own span,
     # metrics and FINAL. 1 (the default) is the scalar dispatch path.
     vmap_lanes: int = 1
+    # Fleet mode (maggy_tpu/config.py:78-86): the fleet.FleetBinding of a
+    # submission, set by Fleet.submit, never by hand.
+    fleet: Any = None
     # The JAX package's fields whose slices are still to port: setting one
     # raises (see _UNPORTED_FIELDS).
     chips_per_budget: Optional[Any] = None
-    fleet: Any = None
+    sink: bool = False
 
     def __post_init__(self):
         if self.direction not in ("max", "min"):
@@ -182,8 +194,9 @@ class OptimizationConfig(LagomConfig):
                              "with pool='gpu'")
         if self.pool in _UNPORTED_POOLS:
             raise NotImplementedError(
-                "pool={!r} is not ported yet (ROADMAP queue 1 item 9); the port "
-                "runs {}".format(self.pool, ", ".join(repr(p) for p in POOLS)))
+                "pool={!r} is not ported yet (ROADMAP queue 1 item {}); the port "
+                "runs {}".format(self.pool, _UNPORTED_POOLS[self.pool],
+                                 ", ".join(repr(p) for p in POOLS)))
         if self.pool not in POOLS:
             raise ValueError("pool must be one of {}, got {!r}".format(
                 ", ".join(repr(p) for p in POOLS), self.pool))

@@ -4,7 +4,8 @@ Copy of the subset of ``maggy_tpu/constants.py`` the port uses (parity:
 reference `maggy/constants.py:23-28`; the prefetch lock bound of
 ``maggy_tpu/constants.py:31-36``; the fork-affinity hold of
 ``maggy_tpu/constants.py:38-43``; the heartbeat-loss defaults of
-``maggy_tpu/constants.py:80-88``).
+``maggy_tpu/constants.py:80-88``; the registration barrier and the shared
+listener's per-tenant queue of ``maggy_tpu/constants.py:30, 37, 79``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,15 @@ CLIENT_MAX_RETRIES = 3
 CLIENT_RETRY_BACKOFF_BASE_S = 0.05
 CLIENT_RETRY_BACKOFF_CAP_S = 2.0
 RPC_RECV_BUFSIZE = 1 << 16
+# QUERY poll of the runner's registration barrier wait.
+CLIENT_POLL_INTERVAL_S = 1.0
+# How long the registration barrier (and a remote runner's wait for its
+# join ticket) may take before it fails.
+REGISTRATION_TIMEOUT_S = 600.0
+# The shared listener's per-tenant dispatch queue: a tenant whose handlers
+# fall behind fills its own queue, and a frame past it is shed with its
+# connection (the client's retry re-delivers); other tenants are unaffected.
+TENANT_DISPATCH_QUEUE_DEPTH = 512
 # Pipelined hand-off (config.prefetch): how long the FINAL fast path may
 # wait for the driver's schedule lock before falling back to the worker
 # queue (reply OK, runner GET-polls). The lock is only ever contended

@@ -5,8 +5,9 @@ Copy of ``maggy_tpu/core/driver/ablation_driver.py`` (parity: reference
 driver (:26), forces no early stopping (:33), controller = LOCO over the
 study with num_trials from the ablator (:46-49), executor runs in ablation
 mode (:95-106), resolving declarative specs to dataset and model
-generators). ``pool="remote"`` never reaches it: the port's config refuses
-that pool (ROADMAP queue 1 item 9).
+generators). ``pool="remote"`` is refused, as in the JAX package
+(``:23-28``): the study's generators are local callables that do not
+travel to a remote agent.
 """
 
 from __future__ import annotations
@@ -24,6 +25,11 @@ ABLATOR_REGISTRY = {"loco": LOCO}
 
 class AblationDriver(OptimizationDriver):
     def __init__(self, config: AblationConfig, app_id: str, run_id: int):
+        if config.pool == "remote":
+            raise ValueError(
+                "pool='remote' is not supported for ablation studies: the study's "
+                "model/dataset generators are local callables and cannot be shipped to "
+                "remote agents. Use a local pool.")
         super().__init__(config, app_id, run_id)
         # Early stopping is meaningless for a fixed ablation schedule
         # (reference `ablation_driver.py:33`).

@@ -33,8 +33,12 @@ event opens the run and ``chaos_summary`` closes it. The live health engine
 process obs server (``obs_started`` names its address), and the health
 engine's first straggler or hang flag per partition captures a
 torch.profiler trace (the profiler is started and stopped once first, so
-that capture does not pay its one-time start-up while runners step). Fleet
-leasing is not ported yet.
+that capture does not pay its one-time start-up while runners step).
+
+Fleet mode (``config.fleet``, JAX `driver.py:255-306`): the driver publishes
+its server on the fleet's shared listener instead of binding its own, and
+leases its runners from the fleet's scheduler (``binding.lease_pool``)
+instead of owning a pool.
 """
 
 from __future__ import annotations
@@ -215,7 +219,12 @@ class Driver:
             self._exp_startup_callback()
             self._bind()
             self._start_worker()
-            self._active_pool = self._make_runner_pool()
+            # A fleet tenant leases runners from the fleet's scheduler; the
+            # leased pool blocks until the experiment completes, as a
+            # pool's run does.
+            binding = getattr(self.config, "fleet", None)
+            self._active_pool = binding.lease_pool(self) if binding is not None \
+                else self._make_runner_pool()
             if self.chaos is not None:
                 # Kill and stall faults act through the pool.
                 self.chaos.attach(pool=self._active_pool)
@@ -246,8 +255,14 @@ class Driver:
         port, so that runners' reconnect loops land on it), then persist
         the identity a later incarnation needs."""
         prev_port = int((self.driver_state or {}).get("port") or 0)
+        binding = getattr(self.config, "fleet", None)
         try:
-            self.server_addr = self.env.connect_host(self.server, port=prev_port)
+            if binding is not None:
+                # A fleet tenant's traffic shares the fleet's one listener,
+                # routed by the secret that authenticates each frame.
+                self.server_addr = binding.attach_server(self.server)
+            else:
+                self.server_addr = self.env.connect_host(self.server, port=prev_port)
         except OSError as e:
             if prev_port == 0:
                 raise
@@ -322,6 +337,10 @@ class Driver:
 
     def enqueue(self, msg: Dict[str, Any]) -> None:
         self._message_q.put(msg)
+
+    def secret_for_clients(self) -> str:
+        """The secret runners authenticate with: what a join ticket carries."""
+        return self.server.secret_hex
 
     def get_trial(self, trial_id: str):
         return None

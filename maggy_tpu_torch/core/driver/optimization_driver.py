@@ -47,8 +47,12 @@ both (``restore_from_finals``), a pruner reloads its bracket state
 runner that registers on a partition holding a trial (a relaunched runner,
 or a resumed driver's runner on a restored slot) takes the BLACK path: the
 trial is requeued (reason ``blacklist``) and handed back to that slot,
-resuming at its fork or preemption step. Gangs and fleet eviction are not
-ported yet.
+resuming at its fork or preemption step. A fleet's preemption evicts the
+runner too (``preempt_partition(evict=True)``, JAX `:1559-1580`): it leaves
+with GSTOP once it acks, or at its next GET when it holds nothing, and a
+trial assigned to it after the eviction was requested goes back to the
+schedule (the evict race, JAX `:1495-1502`). Gangs are not ported yet
+(ROADMAP queue 1 item 8).
 
 Vectorized lanes (``config.vmap_lanes`` = K > 1, JAX `:193-231, 489-520,
 560-656, 1190-1197, 1420-1475, 1889-2007`): when a runner takes a fresh
@@ -324,10 +328,23 @@ class OptimizationDriver(Driver):
             pass
 
     def _make_server(self):
-        return OptimizationServer(secret=self.secret)
+        # Sized to the clamped runner count: the JOIN slots and the
+        # registration barrier.
+        return OptimizationServer(secret=self.secret, num_executors=self.num_executors)
 
     def _make_runner_pool(self):
         pool = self.config.pool
+        if pool == "remote":
+            from maggy_tpu_torch.core.runner_pool import RemoteRunnerPool
+
+            # JOIN admission opens: an agent that dials in gets a partition
+            # id and this executor config (JAX `:358-370`).
+            self.server.join_info = {
+                "hb_interval": self.hb_interval, "exp_dir": self.exp_dir,
+                "optimization_key": self.optimization_key,
+                "trial_type": "optimization",
+                "warm_start": self.config.warm_start}
+            return RemoteRunnerPool(self)
         if pool == "process":
             return ProcessRunnerPool(self.num_executors)
         if pool == "gpu":
@@ -567,17 +584,30 @@ class OptimizationDriver(Driver):
 
     # locked-by: _sched_lock
     def _preempted_final(self, msg, trial: Optional[Trial]) -> None:
-        """Requeue a preempted trial (JAX `:1481-1557`). Only a trial whose
-        preempt flag is still armed is processed: a retried ack (a lost
-        reply) arrives after reset_run_state cleared it and is dropped —
-        without fleet eviction (ROADMAP queue 1 item 9) nothing else clears
-        the flag. ``step`` is the runner's last checkpoint step: the
-        re-dispatch ships it as ``resume_step``; a fork that never
-        checkpointed resumes at its fork point; otherwise it re-runs from
-        scratch."""
+        """Requeue a preempted trial (JAX `:1481-1557`). ``step`` is the
+        runner's last checkpoint step: the re-dispatch ships it as
+        ``resume_step``; a fork that never checkpointed resumes at its fork
+        point; otherwise it re-runs from scratch. A trial whose preempt flag
+        is no longer armed is either a retried ack (its first delivery
+        requeued it) or the evict race: the worker assigned it after
+        ``request_evict`` but before any flag, and the GET path's synthetic
+        preempted FINAL is its only way back into the schedule. Where the
+        trial is now tells them apart: waiting, re-dispatched or finished is
+        a retry, dropped; anything else requeues from scratch (it never ran
+        on the evicted runner). An evicted runner gets no new work here."""
         pid = msg.get("partition_id")
-        if trial is None or not trial.get_preempt():
+        if trial is None:
             return
+        if not trial.get_preempt():
+            with self._store_lock:
+                waiting = trial.trial_id in self._requeue
+            if waiting or any(rec.get("trial_id") == trial.trial_id
+                              for rec in self.server.reservations.all().values()):
+                return
+            with trial.lock:
+                if trial.final_metric is not None or trial.status == Trial.ERROR:
+                    return
+            msg = {**msg, "step": None}
         step = msg.get("step")
         # A preempted block's leader takes its lanes with it: they requeue
         # as scalar trials; the leader follows the path below.
@@ -603,32 +633,38 @@ class OptimizationDriver(Driver):
         self._log("trial {} preempted on runner {} ({}); requeued".format(
             trial.trial_id, pid,
             "checkpoint step {}".format(step) if step is not None else "no checkpoint"))
-        # The runner stays with this experiment: hand it work now, possibly
-        # the preempted trial itself, which is the resume path.
-        self._assign_next_locked(pid, None)
+        if not self.server.reservations.evict_requested(pid):
+            # The runner stays with this experiment: hand it work now,
+            # possibly the preempted trial itself, which is the resume path.
+            self._assign_next_locked(pid, None)
 
     def obs_status(self) -> Dict[str, Any]:
-        """The base /status document with the trial store's counts (JAX
-        `optimization_driver.py:2348-2379`, without its gang and fleet
-        blocks). One lock at a time: it runs on an obs handler thread."""
+        """The base /status document with the trial store's counts and, for
+        a fleet tenant, the fleet scheduler's snapshot (JAX
+        `optimization_driver.py:2348-2379`, without its gang block). One
+        lock at a time: it runs on an obs handler thread."""
         out = super().obs_status()
         with self._store_lock:
             out["store"] = {"trials": len(self._trial_store),
                             "finalized": len(self._final_store),
                             "requeue": len(self._requeue)}
+        binding = self.config.fleet
+        if binding is not None:
+            out["fleet"] = binding.fleet.scheduler.snapshot()
         return out
 
     def preempt_partition(self, partition_id: int, evict: bool = False) -> Optional[str]:
         """Gracefully preempt whatever ``partition_id`` runs (JAX
         `:1559-1580`): arm the trial's preempt and early-stop flags, so the
         next heartbeat draws STOP(preempt) and the runner acks with a
-        preempted FINAL carrying its checkpoint step. Returns the preempted
-        trial id, or None when the partition held nothing. Callable from any
-        thread: touches only trial and reservation locks."""
+        preempted FINAL carrying its checkpoint step. ``evict=True`` (the
+        fleet) also releases the runner from this experiment once the ack
+        lands, or at its next GET when it holds nothing. Returns the
+        preempted trial id, or None when the partition held nothing.
+        Callable from any thread: touches only trial and reservation
+        locks."""
         if evict:
-            raise NotImplementedError(
-                "preempt_partition(evict=True) releases a fleet runner, which is not "
-                "ported yet (ROADMAP queue 1 item 9)")
+            self.server.reservations.request_evict(partition_id)
         trial_id = self.server.reservations.get_assigned_trial(partition_id)
         trial = self.get_trial(trial_id) if trial_id else None
         if trial is None:
@@ -1071,7 +1107,9 @@ class OptimizationDriver(Driver):
         rec = self.server.reservations.get(partition_id)
         if rec is None:
             return "live"  # its REG is still in flight
-        if rec.get("released"):
+        if rec.get("released") or rec.get("evict"):
+            # Evicted by a fleet preemption: the runner is leaving this
+            # experiment, so fresh work goes elsewhere.
             return "released"
         bound = self.server.hb_loss_timeout
         if bound is not None and self.server.reservations.is_silent(partition_id, bound):

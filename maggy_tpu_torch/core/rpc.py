@@ -39,17 +39,39 @@ condemned thread runner dies with ``ChaosKilled``) and counts its retries and
 reconnects in ``CLIENT_METRICS``, and ``Reservations.age_beat`` fakes a
 silent runner for ``fake_preemption``.
 
+Remote runners and the registration barrier (JAX `rpc.py:443-452,
+490-542, 727-738, 1833-1840`): with ``join_info`` published (``pool=
+"remote"``) the JOIN verb hands a dialing agent the lowest free partition
+id and the executor config; an explicit id reclaims a slot whose holder
+went silent or was released, and a slot issued to a joiner that has not
+registered yet stays taken for the liveness bound. QUERY answers whether
+every slot registered (``Reservations.required``); the driver-side and the
+client-side barrier waits poll it.
+
+The shared fleet listener (JAX `rpc.py:767-1100`): ``SharedServer`` puts
+many experiments' servers behind one socket. A frame routes to the server
+whose secret authenticates it (an unbound connection tries every attached
+secret, as the JAX package does, and binds to the first match); each tenant
+has its own ``_TenantDispatcher`` thread, so one tenant's slow handler
+never delays another's replies. A fleet preemption with eviction
+(``request_evict``) releases the runner with GSTOP after its preempted
+FINAL, or on its next GET when it is idle. Not ported yet (ROADMAP queue 1
+item 9b): ``FleetAgentServer``, ``SinkServer`` and the BATCH verb.
+
 Wire layout as in the JAX package: 4-byte big-endian length, 32-byte
 HMAC-SHA256 of the payload under the experiment secret, payload. The payload
 is JSON (the JAX package uses msgpack); every frame is a fixed-schema map of
-declarative data — nothing on the wire is ever unpickled.
+declarative data — nothing on the wire is ever unpickled. The HMAC and the
+server's frame scan run in the native codec (``maggy_tpu_torch/native``,
+JAX `rpc.py:62-64, 617-635`), with a Python fallback where it is not built.
 """
 
 from __future__ import annotations
 
-import hashlib
 import hmac
 import json
+import os
+import queue
 import random
 import secrets as pysecrets
 import selectors
@@ -59,7 +81,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from maggy_tpu_torch import constants
+from maggy_tpu_torch import constants, native
 from maggy_tpu_torch.chaos.injectors import ChaosKilled
 from maggy_tpu_torch.chaos.injectors import active_engine as chaos_engine
 from maggy_tpu_torch.exceptions import AuthenticationError
@@ -86,7 +108,7 @@ _sleep = time.sleep
 
 
 def _sign(secret: bytes, payload: bytes) -> bytes:
-    return hmac.new(secret, payload, hashlib.sha256).digest()
+    return native.hmac_sha256(secret, payload)
 
 
 def _encode(msg: Dict[str, Any]) -> bytes:
@@ -132,15 +154,56 @@ class Reservations:
     """Thread-safe registry partition_id -> runner record (reference
     `rpc.py:35-113`)."""
 
-    def __init__(self):
+    def __init__(self, required: int = 0):
+        #: Registrations the barrier waits for (``done``).
+        self.required = required
         self.lock = threading.RLock()
         self._table: Dict[int, Dict[str, Any]] = {}  # guarded-by: lock
+        # Evictions requested before the partition registered (a fleet
+        # preemption racing a fresh lease's REG): applied at ``add`` so the
+        # release is delivered, not lost.
+        self._pending_evict: set = set()  # guarded-by: lock
 
     def add(self, meta: Dict[str, Any]) -> None:
         with self.lock:
             rec = dict(meta)
             rec["last_beat"] = time.monotonic()
-            self._table[int(meta["partition_id"])] = rec
+            pid = int(meta["partition_id"])
+            if pid in self._pending_evict:
+                self._pending_evict.discard(pid)
+                rec["evict"] = True
+            self._table[pid] = rec
+
+    def done(self) -> bool:
+        """The registration barrier: every required slot registered."""
+        with self.lock:
+            return len(self._table) >= self.required
+
+    def remaining(self) -> int:
+        with self.lock:
+            return max(0, self.required - len(self._table))
+
+    def request_evict(self, partition_id) -> None:
+        """Fleet preemption: release this partition's runner (GSTOP) at its
+        next reply, after its preempted FINAL or on its next GET when idle.
+        A fresh registration of the slot builds a fresh record, which clears
+        it; an unknown partition's eviction is parked until it registers
+        (JAX `rpc.py:386-400`)."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is None:
+                self._pending_evict.add(int(partition_id))
+            else:
+                rec["evict"] = True
+
+    def evict_requested(self, partition_id) -> bool:
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            return bool(rec and rec.get("evict"))
+
+    def all_released(self) -> bool:
+        with self.lock:
+            return all(rec.get("released") for rec in self._table.values())
 
     def touch(self, partition_id) -> None:
         """Record liveness: any message from the runner counts as a beat.
@@ -280,13 +343,27 @@ class Server:
     """Event-loop RPC server running in a daemon thread. Verbs are
     dispatched to ``_handlers``; an unknown verb gets an ERR reply."""
 
-    def __init__(self, secret: Optional[str] = None):
+    def __init__(self, secret: Optional[str] = None, num_executors: int = 0):
         # Telemetry facade (maggy_tpu_torch.telemetry.Telemetry), attached
         # by the driver. None = no TELEM verb, no verb timing.
         self.telemetry = None
+        #: The experiment's partition-id range: the JOIN slots and the
+        #: registration barrier's size.
+        self.num_executors = int(num_executors)
         self.secret_hex = secret or pysecrets.token_hex(16)
         self.secret = self.secret_hex.encode()
-        self.reservations = Reservations()
+        self.reservations = Reservations(self.num_executors)
+        # Remote-runner admission: the driver publishes the executor config
+        # here when its runners are agents that dial in; None refuses JOIN.
+        self.join_info: Optional[Dict[str, Any]] = None
+        self._join_lock = threading.Lock()
+        # pid -> when JOIN issued it. A slot is taken while its issue is
+        # fresher than the liveness bound or its holder registered; an
+        # issued slot whose agent died before REG expires and is reclaimed.
+        self._issued_pids: Dict[int, float] = {}  # guarded-by: _join_lock
+        # Set while this server is published on a fleet's SharedServer:
+        # frames arrive through the shared loop, and stop() detaches.
+        self._shared: Optional["SharedServer"] = None
         self._buffers: Dict[socket.socket, bytearray] = {}
         self._sel = selectors.DefaultSelector()
         self._thread: Optional[threading.Thread] = None
@@ -296,7 +373,49 @@ class Server:
 
     def _register_handlers(self) -> None:
         """Subclasses add their verbs."""
+        self._handlers["QUERY"] = lambda msg: {"type": "QUERY",
+                                               "done": self.reservations.done()}
+        self._handlers["JOIN"] = self._join
         self._handlers["TELEM"] = self._telem
+
+    def _join(self, msg):
+        """Admit a remote runner agent: a partition id and the executor
+        config (JAX `rpc.py:490-542`). An explicit id (a restarted agent
+        reclaiming its slot, whose REG then takes the BLACK path) is
+        refused outside the experiment, while its holder is alive, and
+        while it was just issued to another joiner (two agents on one pid
+        would interleave GET and FINAL); otherwise the lowest slot neither
+        registered nor freshly issued."""
+        info = self.join_info
+        if info is None:
+            return {"type": "ERR", "error": "this experiment does not accept remote runners"}
+        want = msg.get("partition_id")
+        liveness = getattr(self, "hb_loss_timeout", None) or 10.0
+        now = time.monotonic()
+        with self._join_lock:
+            if want is not None and int(want) >= 0:
+                pid = int(want)
+                if pid >= self.num_executors:
+                    return {"type": "ERR",
+                            "error": "partition_id {} out of range (experiment has {} "
+                                     "slots)".format(pid, self.num_executors)}
+                rec = self.reservations.get(pid)
+                if rec is not None and not rec.get("released") and \
+                        not self.reservations.is_silent(pid, liveness):
+                    return {"type": "ERR", "error": "slot {} is held by a live runner".format(pid)}
+                issued = self._issued_pids.get(pid)
+                if issued is not None and now - issued < liveness:
+                    return {"type": "ERR",
+                            "error": "slot {} was just issued to another joining "
+                                     "runner".format(pid)}
+            else:
+                taken = set(self.reservations.all()) | {
+                    p for p, t in self._issued_pids.items() if now - t < liveness}
+                pid = next((i for i in range(self.num_executors) if i not in taken), None)
+                if pid is None:
+                    return {"type": "ERR", "error": "experiment full"}
+            self._issued_pids[pid] = now
+        return {"type": "JOIN", "partition_id": pid, **info}
 
     def _telem(self, msg):
         """The telemetry snapshot: live metric registry and span-derived
@@ -307,6 +426,9 @@ class Server:
         return {"type": "TELEM", **telem.snapshot()}
 
     def start(self, host: str = "127.0.0.1", port: int = 0) -> Tuple[str, int]:
+        # The codec's first build (g++, seconds) runs here, before the
+        # event loop exists, not inside it while registrations queue up.
+        native.get_lib()
         srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         srv.bind((host, port))
@@ -345,21 +467,17 @@ class Server:
             self._dispatch(conn, payload)
 
     def _try_extract_frame(self, conn, buf: bytearray) -> Optional[bytes]:
-        """Pop one complete authenticated frame from the buffer, or None. An
-        oversized frame or a MAC mismatch drops the connection."""
-        if len(buf) < _HEADER:
+        """Pop one complete authenticated frame from the buffer, or None.
+        The scan and the HMAC check run in the native codec; an oversized
+        frame (-1) or a MAC mismatch (-2) drops the connection."""
+        result = native.frame_scan(buf, self.secret, MAX_FRAME)
+        if result == 0:
             return None
-        (length,) = _LEN.unpack(bytes(buf[:4]))
-        if length > MAX_FRAME:
+        if result < 0:
             self._drop(conn)
             return None
-        if len(buf) < _HEADER + length:
-            return None
-        payload = bytes(buf[_HEADER:_HEADER + length])
-        if not hmac.compare_digest(bytes(buf[4:_HEADER]), _sign(self.secret, payload)):
-            self._drop(conn)
-            return None
-        del buf[:_HEADER + length]
+        payload = bytes(buf[_HEADER:result])
+        del buf[:result]
         return payload
 
     def _dispatch(self, conn, payload: bytes):
@@ -436,7 +554,31 @@ class Server:
     def _tick(self) -> None:
         """Periodic hook run on the event-loop thread between selects."""
 
+    def await_reservations(self, timeout: float = constants.REGISTRATION_TIMEOUT_S,
+                           on_timeout: Optional[Callable[[], None]] = None
+                           ) -> Dict[int, Dict[str, Any]]:
+        """The driver-side registration barrier (JAX `rpc.py:727-744`):
+        block until every slot registered; a timeout calls ``on_timeout``
+        and raises."""
+        deadline = time.monotonic() + timeout
+        while not self.reservations.done():
+            if time.monotonic() > deadline:
+                if on_timeout:
+                    on_timeout()
+                raise TimeoutError(
+                    "Registration barrier timed out: {} of {} executors missing.".format(
+                        self.reservations.remaining(), self.num_executors))
+            time.sleep(0.1)
+        return self.reservations.all()
+
     def stop(self):
+        if self._shared is not None:
+            # Published on a fleet's shared listener: detach this
+            # experiment's routing; the shared socket outlives it.
+            self._shared.detach(self)
+            self._shared = None
+            self._sel.close()
+            return
         self._stop_event.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
@@ -450,7 +592,7 @@ class OptimizationServer(Server):
     attaches itself via `attach_driver` so handlers can read trial state
     and hand work to the driver."""
 
-    def __init__(self, secret: Optional[str] = None):
+    def __init__(self, secret: Optional[str] = None, num_executors: int = 0):
         self.driver = None
         # partition -> when its last FINAL arrived, until its next TRIAL
         # leaves (the hand-off gap); touched only on the server thread.
@@ -459,7 +601,7 @@ class OptimizationServer(Server):
         # declared lost (set by the driver); None disables the scan.
         self.hb_loss_timeout: Optional[float] = None
         self._last_loss_scan = time.monotonic()
-        super().__init__(secret)
+        super().__init__(secret, num_executors)
 
     def attach_driver(self, driver) -> None:
         self.driver = driver
@@ -616,6 +758,13 @@ class OptimizationServer(Server):
         self.reservations.clear_trial_if(pid, msg.get("block") or msg.get("trial_id"))
         if not self.driver.process_final_inline(msg):
             self.driver.enqueue(dict(msg))
+            if msg.get("preempted") and self.reservations.evict_requested(pid):
+                # An evicted runner's preempt ack on the worker path: the
+                # queued message requeues the trial, and the runner leaves
+                # now instead of GET-polling an experiment it was preempted
+                # out of (JAX `rpc.py:1436-1446`).
+                self._release(pid)
+                return {"type": "GSTOP"}
             return {"type": "OK"}
         telem = self.telemetry
         reply = self._serve_assigned(pid)
@@ -626,6 +775,11 @@ class OptimizationServer(Server):
                 telem.trial_event(reply["trial_id"], "prefetch_hit", once=True,
                                   partition=int(pid))
             return reply
+        if self.reservations.evict_requested(pid):
+            # A fleet preemption: the ack doubles as the runner's release;
+            # it re-binds to another experiment.
+            self._release(pid)
+            return {"type": "GSTOP"}
         if self.driver.experiment_done:
             self._release(pid)
             return {"type": "GSTOP"}
@@ -693,6 +847,19 @@ class OptimizationServer(Server):
     def _get(self, msg):
         self.reservations.touch(msg["partition_id"])
         self._note_adopted(msg["partition_id"])
+        pid = msg["partition_id"]
+        if self.reservations.evict_requested(pid):
+            # A fleet preemption of an idle runner: an undelivered
+            # assignment goes back to the schedule as a never-started
+            # preemption (from scratch), and the runner is released to
+            # re-bind elsewhere (JAX `rpc.py:1537-1552`).
+            tid = self.reservations.get_assigned_trial(pid)
+            if tid is not None:
+                self.reservations.clear_trial_if(pid, tid)
+                self.driver.enqueue({"type": "FINAL", "trial_id": tid, "partition_id": pid,
+                                     "preempted": True, "step": None, "logs": []})
+            self._release(pid)
+            return {"type": "GSTOP"}
         # Serve an already-assigned trial BEFORE honoring experiment-done:
         # the last suggestion may be assigned concurrently with another
         # FINAL ending the experiment, and must still run.
@@ -706,6 +873,289 @@ class OptimizationServer(Server):
 
     def _log(self, msg):
         return {"type": "LOG", **self.driver.progress_snapshot()}
+
+
+
+# ---------------------------------------------------------------- shared
+
+
+class _TenantDispatcher:
+    """One tenant's handler thread on a shared listener: a bounded FIFO of
+    (conn, payload) frames drained by one daemon worker (JAX `rpc.py:
+    767-811`). One worker keeps a connection's frames handled and replied
+    in arrival order, as a listener of its own would, and keeps the
+    tenant's handler time off every other tenant. ``submit`` never blocks:
+    a full queue returns False and the caller sheds the frame."""
+
+    def __init__(self, shared: "SharedServer", server: Server, depth: int):
+        self.depth = int(depth)
+        self._shared = shared
+        self._server = server
+        self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="rpc-dispatch-{}".format(server.secret_hex[:8]))
+        self._thread.start()
+
+    def submit(self, conn, payload: bytes) -> bool:
+        try:
+            self._q.put_nowait((conn, payload))
+            return True
+        except queue.Full:
+            return False
+
+    def stop(self, timeout: float = 2.0) -> None:
+        self._stop.set()
+        self._thread.join(timeout=timeout)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, payload = self._q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            try:
+                self._shared._dispatch(conn, self._server, payload)
+            except Exception:  # noqa: BLE001 - one bad frame must not end the tenant's worker
+                pass
+
+
+class SharedServer:
+    """One listening socket for many experiments' control planes (the
+    fleet; JAX `rpc.py:814-1100`). Each attached ``Server`` keeps its
+    handlers, reservations and secret; a frame goes to the server whose
+    secret authenticates it, and the connection binds to that server at its
+    first authenticated frame, so later frames are checked against one
+    secret. A runner re-binding to another experiment reconnects to the
+    same address with the other experiment's secret.
+
+    The event loop only accepts, reassembles and routes; each tenant's
+    ``_TenantDispatcher`` runs its handlers and replies, so one tenant's
+    slow handler stalls its own queue only. A frame for a tenant whose
+    queue is full is shed with its connection (``rpc.tenant.
+    backpressure_drops`` and a ``shed`` event with ``scope="rpc"``), and
+    the client's retry re-delivers it. The JAX package's loop-dispatch
+    path (``dispatch_pool=False``, an A/B for its scale bench) is not
+    ported: every tenant gets its dispatcher. The loop also drives each attached server's ``_tick`` (its heartbeat-
+    loss scan) and the chaos engine's elapsed-time triggers."""
+
+    def __init__(self, tenant_queue_depth: Optional[int] = None):
+        self.tenant_queue_depth = int(
+            tenant_queue_depth if tenant_queue_depth is not None
+            else os.environ.get("MAGGY_TPU_TENANT_QUEUE_DEPTH",
+                                constants.TENANT_DISPATCH_QUEUE_DEPTH))
+        self._lock = threading.RLock()
+        self._servers: Dict[bytes, Server] = {}  # guarded-by: _lock
+        self._dispatchers: Dict[bytes, _TenantDispatcher] = {}  # guarded-by: _lock
+        self._conn_server: Dict[socket.socket, Server] = {}  # guarded-by: _lock
+        self._buffers: Dict[socket.socket, bytearray] = {}  # guarded-by: _lock
+        self._sel = selectors.DefaultSelector()
+        self._listener: Optional[socket.socket] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop_event = threading.Event()
+        self.addr: Optional[Tuple[str, int]] = None
+
+    def attach(self, server: Server, host: str = "127.0.0.1") -> Tuple[str, int]:
+        """Publish ``server`` on the shared listener (started at the first
+        attach); returns the shared (host, port)."""
+        with self._lock:
+            self._servers[server.secret] = server
+            self._dispatchers[server.secret] = _TenantDispatcher(
+                self, server, self.tenant_queue_depth)
+            server._shared = self
+            if self._listener is None:
+                self._start_locked(host)
+        return self.addr
+
+    def detach(self, server: Server) -> None:
+        with self._lock:
+            self._servers.pop(server.secret, None)
+            dispatcher = self._dispatchers.pop(server.secret, None)
+            stale = [c for c, s in self._conn_server.items() if s is server]
+        for conn in stale:
+            self._drop(conn)
+        if dispatcher is not None:
+            dispatcher.stop()
+
+    # locked-by: _lock
+    def _start_locked(self, host: str, port: int = 0) -> None:
+        native.get_lib()  # the codec's first build, off the event loop
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind((host, port))
+        srv.listen(128)
+        srv.setblocking(False)
+        self._listener = srv
+        self.addr = srv.getsockname()
+        self._sel.register(srv, selectors.EVENT_READ, self._accept)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="rpc-shared-server")
+        self._thread.start()
+
+    def _accept(self, sock, mask):
+        conn, _ = sock.accept()
+        conn.setblocking(False)
+        with self._lock:
+            self._buffers[conn] = bytearray()
+        self._sel.register(conn, selectors.EVENT_READ, self._serve)
+
+    def _serve(self, conn, mask):
+        try:
+            chunk = conn.recv(constants.RPC_RECV_BUFSIZE)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            self._drop(conn)
+            return
+        if not chunk:
+            self._drop(conn)
+            return
+        with self._lock:
+            buf = self._buffers.get(conn)
+        if buf is None:
+            return
+        buf.extend(chunk)
+        # Stop at the first drop: frames left in the buffer of a closed
+        # connection must not be dispatched, nor re-bind it.
+        while self._tracked(conn):
+            extracted = self._try_extract_frame(conn, buf)
+            if extracted is None:
+                return
+            self._route(conn, *extracted)
+
+    def _tracked(self, conn) -> bool:
+        with self._lock:
+            return conn in self._buffers
+
+    def _try_extract_frame(self, conn, buf: bytearray):
+        """(server, payload) of one complete frame, or None. A bound
+        connection verifies against its server's secret only; an unbound
+        one tries every attached secret and binds to the first match; no
+        match is an unauthenticated peer, and its connection drops."""
+        if len(buf) < _HEADER:
+            return None
+        (length,) = _LEN.unpack(bytes(buf[:4]))
+        if length > MAX_FRAME:
+            self._drop(conn)
+            return None
+        if len(buf) < _HEADER + length:
+            return None
+        mac = bytes(buf[4:_HEADER])
+        payload = bytes(buf[_HEADER:_HEADER + length])
+        with self._lock:
+            bound = self._conn_server.get(conn)
+            candidates = [bound] if bound is not None else list(self._servers.values())
+        server = next((s for s in candidates
+                       if native.digest_eq(mac, _sign(s.secret, payload))), None)
+        if server is None:
+            self._drop(conn)
+            return None
+        if bound is None:
+            with self._lock:
+                # Bind only a connection still tracked: a concurrent drop
+                # must not come back as a routing entry of a closed socket.
+                if conn not in self._buffers:
+                    return None
+                self._conn_server[conn] = server
+        del buf[:_HEADER + length]
+        return server, payload
+
+    def _route(self, conn, server: Server, payload: bytes) -> None:
+        """Hand one authenticated frame to its tenant's dispatcher; a frame
+        for a tenant detached meanwhile drops its connection."""
+        with self._lock:
+            dispatcher = self._dispatchers.get(server.secret)
+        if dispatcher is None:
+            self._drop(conn)
+            return
+        if not dispatcher.submit(conn, payload):
+            telem = server.telemetry
+            if telem is not None:
+                telem.metrics.counter("rpc.tenant.backpressure_drops").inc()
+                telem.event("shed", scope="rpc", queue_depth=dispatcher.depth)
+            self._drop(conn)
+
+    def _dispatch(self, conn, server: Server, payload: bytes):
+        """``Server._dispatch`` with the target server resolved per frame:
+        the same chaos hooks, the reply signed with that server's secret."""
+        sever_reply = False
+        try:
+            msg = json.loads(payload)
+            engine = chaos_engine()
+            if engine is not None:
+                action = engine.on_server_message(msg)
+                if action is not None:
+                    if action[0] == "drop":
+                        self._drop(conn)
+                        return
+                    if action[0] == "delay":
+                        time.sleep(action[1])
+                    elif action[0] == "sever":
+                        sever_reply = True
+            resp = server.handle_message(msg)
+        except Exception as e:  # noqa: BLE001 - a bad message must never kill the loop
+            resp = {"type": "ERR", "error": "handler error: {!r}".format(e)}
+        if sever_reply:
+            self._drop(conn)
+            return
+        try:
+            conn.setblocking(True)
+            MessageSocket.send_msg(conn, resp, server.secret)
+        except OSError:
+            self._drop(conn)
+        finally:
+            try:
+                conn.setblocking(False)
+            except OSError:
+                pass
+
+    def _drop(self, conn):
+        """Tear down one connection; called from the loop and from the
+        dispatcher threads, so every table is touched under the lock and a
+        double drop is harmless."""
+        with self._lock:
+            self._buffers.pop(conn, None)
+            self._conn_server.pop(conn, None)
+        try:
+            self._sel.unregister(conn)
+        except (KeyError, ValueError):
+            pass
+        try:
+            conn.close()
+        except OSError:
+            pass
+
+    def _loop(self):
+        while not self._stop_event.is_set():
+            for key, mask in self._sel.select(timeout=0.2):
+                key.data(key.fileobj, mask)
+            with self._lock:
+                servers = list(self._servers.values())
+            for server in servers:
+                try:
+                    server._tick()
+                except Exception:  # noqa: BLE001 - one tenant's tick must not end the loop
+                    pass
+            engine = chaos_engine()
+            if engine is not None:
+                engine.tick()
+
+    def stop(self):
+        self._stop_event.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        with self._lock:
+            servers = list(self._servers.values())
+            self._servers.clear()
+            dispatchers = list(self._dispatchers.values())
+            self._dispatchers.clear()
+        for dispatcher in dispatchers:
+            dispatcher.stop()
+        for server in servers:
+            server._shared = None
+        for key in list(self._sel.get_map().values()):
+            self._drop(key.fileobj)
+        self._sel.close()
 
 
 # --------------------------------------------------------------------- client
@@ -785,6 +1235,16 @@ class Client:
 
     def register(self) -> None:
         self._request({"type": "REG"})
+
+    def await_reservations(self, timeout: float = constants.REGISTRATION_TIMEOUT_S) -> None:
+        """The runner-side registration barrier (JAX `rpc.py:1833-1840`):
+        poll QUERY until every slot registered."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self._request({"type": "QUERY"}).get("done"):
+                return
+            time.sleep(constants.CLIENT_POLL_INTERVAL_S)
+        raise TimeoutError("Registration barrier not reached.")
 
     def start_heartbeat(self, reporter) -> None:
         def beat():

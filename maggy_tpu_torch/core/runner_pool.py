@@ -5,8 +5,12 @@ The pools of ``maggy_tpu/core/runner_pool.py:130-330`` that one host runs:
 device), ``ProcessRunnerPool`` (one spawned OS process per runner, each with
 its own interpreter and CUDA context; a lost runner is SIGKILLed) and
 ``GPURunnerPool`` (processes pinned to disjoint CUDA devices through
-CUDA_VISIBLE_DEVICES, the counterpart of the JAX package's TPU-pinned pool).
-The elastic and remote pools are not ported yet. Each pool exposes
+CUDA_VISIBLE_DEVICES, the counterpart of the JAX package's TPU-pinned pool)
+and ``RemoteRunnerPool`` (agents started apart, ``python -m
+maggy_tpu_torch.runner``, that JOIN through a ticket; ``maggy_tpu/core/
+runner_pool.py:518-601``). The elastic pool sizes chip sub-slices by
+``chips_per_budget`` and is not ported yet (ROADMAP queue 1 item 8). Each
+pool exposes
 ``kill_worker`` and ``stall_worker`` (``maggy_tpu/core/runner_pool.py:150-163,
 268-279``), through which the chaos engine's ``kill_runner`` and
 ``stall_runner`` faults act: process pools SIGKILL, and SIGSTOP then SIGCONT;
@@ -33,6 +37,10 @@ def resolve_num_workers(config) -> int:
     nw = getattr(config, "num_workers", 1)
     if nw != "auto":
         return int(nw)
+    if getattr(config, "pool", "thread") == "remote":
+        raise ValueError(
+            "num_workers='auto' is for local pools; remote agents join "
+            "dynamically — set the admission cap explicitly.")
     count = torch.cuda.device_count()
     if count == 0:
         raise ValueError("num_workers='auto' found no CUDA device; pass an "
@@ -202,3 +210,67 @@ class GPURunnerPool(ProcessRunnerPool):
                              "CUDA devices".format(num_workers, chips_per_trial, visible))
         super().__init__(num_workers, env_fn=lambda i: device_env(i, chips_per_trial))
         self.chips_per_trial = chips_per_trial
+
+
+class RemoteRunnerPool(RunnerPool):
+    """Runners are agent processes started apart (``python -m
+    maggy_tpu_torch.runner``), on this host or another that reaches the
+    driver, which dial the driver's control plane and JOIN. They belong to
+    this experiment and exit with it.
+
+    The pool spawns nothing: it writes a join ticket (address and secret)
+    to ``<exp_dir>/runner_ticket.json`` and waits for the experiment. Agents
+    may join at any time up to ``num_workers``; the schedule completes with
+    however many joined (heartbeat-loss recovery covers an agent that dies
+    mid-trial). It fails instead of hanging when no agent registers within
+    ``constants.REGISTRATION_TIMEOUT_S``, or when every agent that did has
+    gone silent past the loss bound with the experiment unfinished."""
+
+    TICKET_NAME = "runner_ticket.json"
+
+    def __init__(self, driver):
+        super().__init__(driver.num_executors)
+        self.driver = driver
+
+    def ticket(self) -> dict:
+        drv = self.driver
+        host, port = drv.server_addr
+        return {"host": host, "port": port, "secret": drv.secret_for_clients(),
+                "app_id": drv.app_id, "run_id": drv.run_id, "num_workers": self.num_workers}
+
+    def run(self, worker_fn: Callable[[int], None]) -> List[BaseException]:
+        import json
+        import time
+
+        from maggy_tpu_torch import constants
+
+        drv = self.driver
+        path = drv.exp_dir + "/" + self.TICKET_NAME
+        drv.env.dump(json.dumps(self.ticket(), indent=2), path)
+        timeout = constants.REGISTRATION_TIMEOUT_S
+        deadline = time.monotonic() + timeout
+        while not drv.experiment_done and not drv.server.reservations.all():
+            if time.monotonic() > deadline:
+                raise TimeoutError("no remote runner registered within {}s; ticket at "
+                                   "{}".format(timeout, path))
+            time.sleep(0.2)
+        # With every admitted agent silent past the loss bound nobody is
+        # left to take the requeued trials: fail with that cause.
+        while not drv.experiment_done:
+            time.sleep(0.2)
+            bound = drv.server.hb_loss_timeout
+            if bound is None:
+                continue
+            registered = drv.server.reservations.all()
+            active = {pid for pid, rec in registered.items() if not rec.get("released")}
+            if active and active <= set(drv.server.reservations.silent(bound)):
+                return [RuntimeError(
+                    "all {} remote agent(s) silent for > {:.0f}s with the experiment "
+                    "incomplete; presumed dead (partitions {})".format(
+                        len(active), bound, sorted(active)))]
+        # Let agents read their GSTOP before the driver stops the server;
+        # a dead agent never acks, so the wait is capped.
+        ack_deadline = time.monotonic() + 10.0
+        while not drv.server.reservations.all_released() and time.monotonic() < ack_deadline:
+            time.sleep(0.1)
+        return []

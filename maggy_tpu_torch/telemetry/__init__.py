@@ -26,7 +26,7 @@ each partition's last progress for the hang watchdog, and its snapshot
 carries the ``health`` engine's findings (``health.py``); the observability
 server (``obs.py``) renders its registry and snapshot, and ``profiling.py``
 captures torch.profiler traces at a flagged anomaly. The fleet journal sink
-is not ported yet (ROADMAP queue 1 item 9).
+is not ported yet (ROADMAP queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ class Telemetry:
                  sink=None, fsync: Optional[bool] = None):
         if sink is not None:
             raise NotImplementedError(
-                "the fleet journal sink is not ported yet (ROADMAP queue 1 item 9)")
+                "the fleet journal sink is not ported yet (ROADMAP queue 1 item 9b)")
         self.enabled = enabled
         self.metrics = MetricsRegistry()
         self.spans = SpanTracker()

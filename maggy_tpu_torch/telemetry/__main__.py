@@ -1,17 +1,20 @@
 """Telemetry CLI: ``python -m maggy_tpu_torch.telemetry <command>``.
 
-    trace <exp_dir|journal.jsonl> [-o OUT]   journal -> Perfetto JSON
-    replay <exp_dir|journal.jsonl>           journal -> derived numbers
-    goodput <exp_dir|journal.jsonl>          chip-time ledger
+    trace <exp_dir|journal.jsonl|fleet home> [-o OUT]   journal -> Perfetto JSON
+    replay <exp_dir|journal.jsonl>                       journal -> derived numbers
+    goodput <exp_dir|journal.jsonl|fleet home>           chip-time ledger
 
-The port's copy of ``maggy_tpu/telemetry/__main__.py`` for experiment
-journals. ``trace`` writes Chrome-trace-event JSON loadable in
-https://ui.perfetto.dev or chrome://tracing (one track per partition, trial
-slices with phase sub-slices, instant markers for stops and requeues).
+The port's copy of ``maggy_tpu/telemetry/__main__.py``. ``trace`` writes
+Chrome-trace-event JSON loadable in https://ui.perfetto.dev or
+chrome://tracing (one track per partition, trial slices with phase
+sub-slices, instant markers for stops and requeues); on a fleet home
+directory (one holding ``fleet.jsonl``) it writes the fleet timeline, one
+track per fleet runner with a lane per experiment (``fleet_trace.json``).
 ``replay`` prints the same derived scheduling numbers the driver and the
-TELEM verb compute, plus the journal's ``torn_lines`` count. A fleet home
-directory and ``trace --unified`` are not ported yet (ROADMAP queue 1
-item 9).
+TELEM verb compute, plus the journal's ``torn_lines`` count. ``goodput``
+on a fleet home prints each tenant's leased chip-seconds and its own
+ledger. ``trace --unified`` needs the fleet's journal sink and is not
+ported yet (ROADMAP queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -25,14 +28,18 @@ from maggy_tpu_torch.telemetry import JOURNAL_NAME, read_events, replay_journal
 from maggy_tpu_torch.telemetry.goodput import compute_goodput, render_goodput
 from maggy_tpu_torch.telemetry.trace import write_trace
 
-_FLEET = "fleet home directories are not ported yet (ROADMAP queue 1 item 9)"
+_UNIFIED = ("--unified: the unified trace needs the fleet's journal sink, which is not "
+            "ported yet (ROADMAP queue 1 item 9b)")
+FLEET_JOURNAL = "fleet.jsonl"
+
+
+def _is_fleet_home(path: str) -> bool:
+    return os.path.isdir(path) and os.path.exists(os.path.join(path, FLEET_JOURNAL))
 
 
 def _resolve_journal(path: str) -> str:
     """Accept an experiment dir or a journal file path."""
     if os.path.isdir(path):
-        if os.path.exists(os.path.join(path, "fleet.jsonl")):
-            raise SystemExit(_FLEET)
         path = os.path.join(path, JOURNAL_NAME)
     if not os.path.exists(path):
         raise FileNotFoundError("no telemetry journal at {}".format(path))
@@ -50,7 +57,7 @@ def main(argv=None) -> int:
     pt.add_argument("-o", "--out",
                     help="output file (default: <exp_dir>/trace.json)")
     pt.add_argument("--unified", action="store_true",
-                    help="fleet home dirs only; not ported yet")
+                    help="fleet home dirs with a journal sink; not ported yet")
     pr = sub.add_parser("replay", help="print journal-derived scheduling "
                                        "numbers as JSON")
     pr.add_argument("path", help="experiment dir or telemetry.jsonl path")
@@ -63,7 +70,11 @@ def main(argv=None) -> int:
                          "human summary")
     args = p.parse_args(argv)
     if getattr(args, "unified", False):
-        raise SystemExit("--unified: " + _FLEET)
+        raise SystemExit(_UNIFIED)
+    if args.command == "goodput" and _is_fleet_home(args.path):
+        return _fleet_goodput(args)
+    if args.command == "trace" and _is_fleet_home(args.path):
+        return _fleet_trace(args)
 
     journal = _resolve_journal(args.path)
     if args.command == "replay":
@@ -87,6 +98,46 @@ def main(argv=None) -> int:
     if torn:
         msg += " ({} torn line(s) skipped)".format(torn)
     print(msg)
+    print("open in https://ui.perfetto.dev or chrome://tracing")
+    return 0
+
+
+def _fleet_goodput(args) -> int:
+    """A fleet home's ledger: the fleet replay's per-tenant roll-up of
+    lease-derived chip-seconds and each tenant's own journal fold."""
+    from maggy_tpu_torch.fleet.scheduler import replay_fleet_journal
+
+    block = replay_fleet_journal(args.path).get("goodput") or {}
+    if args.json:
+        print(json.dumps(block, indent=2, default=str))
+        return 0
+    for tenant, tb in sorted((block.get("tenants") or {}).items()):
+        print("tenant {}: {:.1f} leased chip-seconds".format(tenant, tb.get("chip_seconds") or 0.0))
+        for line in render_goodput(tb.get("goodput") or {}):
+            print("  " + line)
+    return 0
+
+
+def _fleet_trace(args) -> int:
+    """The fleet timeline: each experiment's journal is found through the
+    fleet journal's events, which carry its exp_dir."""
+    from maggy_tpu_torch.telemetry.trace import build_fleet_trace, validate_trace
+
+    fleet_events = read_events(os.path.join(args.path, FLEET_JOURNAL))
+    exp_dirs = {ev["exp"]: ev["exp_dir"] for ev in fleet_events
+                if ev.get("exp") and ev.get("exp_dir")}
+    experiments = {}
+    for name, exp_dir in exp_dirs.items():
+        jp = os.path.join(exp_dir, JOURNAL_NAME)
+        if os.path.exists(jp):
+            experiments[name] = read_events(jp)
+    trace = build_fleet_trace(fleet_events, experiments)
+    n = validate_trace(trace)
+    out = args.out or os.path.join(args.path, "fleet_trace.json")
+    with open(out, "w") as f:
+        json.dump(trace, f)
+    print("fleet trace: {} fleet events + {} experiment journal(s) -> {} trace events -> "
+          "{}".format(len(fleet_events), len(experiments), n, out))
     print("open in https://ui.perfetto.dev or chrome://tracing")
     return 0
 

@@ -15,9 +15,10 @@ that serves them (``http.server.ThreadingHTTPServer``):
   ``trial.phase.<phase>`` counters -> a ``phase`` label).
 - ``GET /status``: one JSON document per registered experiment — the
   TELEM snapshot (the same body the TELEM RPC verb ships) plus the
-  driver's live control-plane state: trial store / requeue backlog and
-  the reservation table (the JAX package's gang and fleet blocks wait for
-  their slices, ROADMAP queue 1 items 8 and 9).
+  driver's live control-plane state: trial store / requeue backlog, the
+  reservation table and, for a fleet tenant, the fleet scheduler's share
+  snapshot (``fleet``); a fleet host registers its own status too (the
+  JAX package's gang block waits for ROADMAP queue 1 item 8).
 - ``GET /healthz``: 200 when no registered experiment's HealthEngine has
   an active raised finding, 503 (with the flags as JSON) otherwise — the
   shape load balancers and k8s probes expect.
@@ -25,7 +26,7 @@ that serves them (``http.server.ThreadingHTTPServer``):
   capture (telemetry.profiling.ProfileCapturer) saved under
   ``<exp_dir>/profiles/`` and journaled as a ``profile_captured`` event.
 
-One obs server per PROCESS: the first experiment that asks
+One obs server per PROCESS: the first experiment (or fleet) that asks
 starts it, later experiments register into the same listener and
 deregister on stop; the listener closes when the last registration
 leaves. Binding is loopback (127.0.0.1) by default — the endpoints are

@@ -1,8 +1,9 @@
 """Timeline export: telemetry journal -> Chrome-trace-event / Perfetto JSON.
 
-The port's copy of ``maggy_tpu/telemetry/trace.py:1-372, :701-733``
-(``build_trace``, ``validate_trace``, ``write_trace``); the fleet and
-unified trace builders are not ported yet (ROADMAP queue 1 item 9).
+The port's copy of ``maggy_tpu/telemetry/trace.py:1-509, :701-733``
+(``build_trace``, ``build_fleet_trace``, ``validate_trace``,
+``write_trace``); the unified trace builder needs the fleet's journal sink
+and is not ported yet (ROADMAP queue 1 item 9b).
 
 ``python -m maggy_tpu_torch.telemetry trace <exp_dir>`` converts any telemetry
 journal into the JSON object format chrome://tracing and https://ui.perfetto.dev
@@ -376,6 +377,136 @@ def _trial_slices(trial_id: str, evs: List[Dict[str, Any]], us,
                                      "warm": bool(compiled.get("warm"))}})
                 cursor += dur
     return out
+
+
+def build_fleet_trace(fleet_events: List[Dict[str, Any]],
+                      experiments: Dict[str, List[Dict[str, Any]]]
+                      ) -> Dict[str, Any]:
+    """Fleet timeline: one trace process per FLEET RUNNER, with one
+    thread lane per experiment inside it — so multiplexing is literally
+    visible: runner 0's track shows experiment A's trial slices on A's
+    lane giving way to B's after a preemption marker.
+
+    ``fleet_events`` is the fleet journal (lease/preempt/lifecycle);
+    ``experiments`` maps experiment name -> that experiment's own
+    telemetry journal events. Experiment-journal partitions are
+    per-experiment slot ids, so each trial slice is placed on the fleet
+    runner whose lease of (experiment, slot) covers the slice's time —
+    slices with no covering lease (driver-side edges) land on the driver
+    track."""
+    all_events = list(fleet_events)
+    for evs in experiments.values():
+        all_events.extend(evs)
+    times = [e["t"] for e in all_events
+             if isinstance(e.get("t"), (int, float))]
+    t0 = min(times) if times else 0.0
+
+    def us(t: float) -> int:
+        return int(round((t - t0) * 1e6))
+
+    exp_names = sorted(experiments)
+    exp_tid = {name: i + 1 for i, name in enumerate(exp_names)}
+
+    # Lease intervals per (exp, slot pid): [(start_us, end_us, runner)].
+    leases: Dict[tuple, List[tuple]] = {}
+    open_leases: Dict[tuple, tuple] = {}
+    out: List[Dict[str, Any]] = []
+    runners = set()
+    max_us = max((us(t) for t in times), default=0)
+    for ev in fleet_events:
+        t = ev.get("t")
+        if not isinstance(t, (int, float)):
+            continue
+        kind = ev.get("ev")
+        if kind == "lease":
+            key = (ev.get("exp"), ev.get("pid"))
+            runner = ev.get("runner")
+            if runner is not None:
+                runners.add(int(runner))
+            if ev.get("phase") == "start":
+                open_leases[key] = (us(t), runner)
+            elif ev.get("phase") == "end":
+                started = open_leases.pop(key, None)
+                if started is not None:
+                    leases.setdefault(key, []).append(
+                        (started[0], us(t), started[1]))
+        elif kind == "preempt":
+            out.append({"name": "preempt:{}".format(ev.get("exp")),
+                        "cat": "fleet", "ph": "i", "s": "g", "ts": us(t),
+                        "pid": DRIVER_PID, "tid": 0,
+                        "args": {k: v for k, v in ev.items()
+                                 if k not in ("ev", "t")}})
+        elif kind in ("fleet", "fleet_submit", "fleet_admit",
+                      "fleet_experiment"):
+            out.append({"name": "{}:{}".format(
+                            kind, ev.get("exp", ev.get("phase", ""))),
+                        "cat": "fleet", "ph": "i", "s": "p", "ts": us(t),
+                        "pid": DRIVER_PID, "tid": 0,
+                        "args": {k: v for k, v in ev.items()
+                                 if k not in ("ev", "t")}})
+    for key, (start, runner) in open_leases.items():  # journal ended mid-lease
+        leases.setdefault(key, []).append((start, max_us, runner))
+
+    def runner_at(exp: str, slot: int, ts: int):
+        for start, end, runner in leases.get((exp, slot), []):
+            if start <= ts <= end and runner is not None:
+                return int(runner)
+        return None
+
+    # Lease slices on each runner track, in the owning experiment's lane.
+    for (exp, slot), intervals in leases.items():
+        tid = exp_tid.get(exp, 0)
+        for start, end, runner in intervals:
+            if runner is None:
+                continue
+            out.append({"name": "lease {}".format(exp), "cat": "lease",
+                        "ph": "X", "ts": start,
+                        "dur": max(1, end - start),
+                        "pid": int(runner) + 1, "tid": tid,
+                        "args": {"exp": exp, "slot": slot}})
+
+    # Trial slices from each experiment's journal, remapped from its slot
+    # ids onto the fleet runner serving that slot at the slice's time.
+    for name, evs in experiments.items():
+        tid = exp_tid[name]
+        by_trial: Dict[str, List[Dict[str, Any]]] = {}
+        for ev in evs:
+            if ev.get("ev") == "trial" and ev.get("trial") is not None \
+                    and isinstance(ev.get("t"), (int, float)):
+                by_trial.setdefault(ev["trial"], []).append(ev)
+        for trial_id, tevs in by_trial.items():
+            tevs.sort(key=lambda e: e["t"])
+            for s in _trial_slices(trial_id, tevs, us):
+                slot = s["pid"] - 1  # _pid() inverse
+                runner = runner_at(name, slot, s["ts"]) \
+                    if slot >= 0 else None
+                s["pid"] = DRIVER_PID if runner is None else runner + 1
+                s["tid"] = tid
+                s.setdefault("args", {})["exp"] = name
+                out.append(s)
+
+    meta = [{"name": "process_name", "ph": "M", "pid": DRIVER_PID, "tid": 0,
+             "args": {"name": "fleet"}},
+            {"name": "process_sort_index", "ph": "M", "pid": DRIVER_PID,
+             "tid": 0, "args": {"sort_index": -1}}]
+    for r in sorted(runners):
+        meta.append({"name": "process_name", "ph": "M", "pid": r + 1,
+                     "tid": 0, "args": {"name": "runner {}".format(r)}})
+        meta.append({"name": "process_sort_index", "ph": "M", "pid": r + 1,
+                     "tid": 0, "args": {"sort_index": r}})
+        for name in exp_names:
+            meta.append({"name": "thread_name", "ph": "M", "pid": r + 1,
+                         "tid": exp_tid[name],
+                         "args": {"name": "exp {}".format(name)}})
+            meta.append({"name": "thread_sort_index", "ph": "M",
+                         "pid": r + 1, "tid": exp_tid[name],
+                         "args": {"sort_index": exp_tid[name]}})
+    out.sort(key=lambda e: e.get("ts", 0))
+    return {"traceEvents": meta + out, "displayTimeUnit": "ms",
+            "otherData": {"source": "maggy_tpu.telemetry(fleet)",
+                          "t0_unix_s": t0,
+                          "runners": sorted(runners),
+                          "experiments": exp_names}}
 
 
 def validate_trace(trace: Dict[str, Any]) -> int:

@@ -10,10 +10,11 @@ study's dataset from a TFRecord of ``tf.train.Example`` rows (reference
   ``Feature`` values, each one of bytes_list / float_list / int64_list.
 
 The writer emits the same bytes as the JAX package's for the same examples,
-so either package reads the other's files. Cut: the native slice-by-8
-crc32c and whole-buffer scanner (``maggy_tpu/native/framing.cpp``, ROADMAP
-queue 1 item 13): the crc here is the pure-Python table loop, about MB/s,
-which bounds how fast a large file loads.
+so either package reads the other's files. The crc32c and the reader go
+through the native codec (``maggy_tpu_torch/native``: slice-by-8 crc32c and
+a whole-buffer scanner that verifies every frame in C++, as
+``maggy_tpu/train/tfrecord.py:43, 259`` do), with the Python table loop as
+the fallback where no toolchain built it.
 """
 
 from __future__ import annotations
@@ -36,7 +37,18 @@ for _n in range(256):
 
 
 def crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli) of ``data``, one table lookup a byte."""
+    """CRC-32C (Castagnoli) of ``data``: the native slice-by-8 route, or one
+    table lookup a byte where the codec is not built."""
+    from maggy_tpu_torch import native
+
+    value = native.crc32c(bytes(data))
+    if value is not None:
+        return value
+    return py_crc32c(data)
+
+
+def py_crc32c(data: bytes) -> int:
+    """The table loop of ``crc32c``."""
     crc = 0xFFFFFFFF
     for b in data:
         crc = (crc >> 8) ^ _CRC32C_TABLE[(crc ^ b) & 0xFF]
@@ -232,10 +244,30 @@ def write_tfrecord(path: str, examples) -> None:
             f.write(struct.pack("<I", _masked_crc(payload)))
 
 
+# The whole-buffer scan holds the file and about its size again of index
+# arrays; past this size the streaming loop (whose crcs still go native)
+# keeps peak memory bounded (``maggy_tpu/train/tfrecord.py:245-248``).
+_NATIVE_SCAN_MAX_BYTES = 256 * 1024 * 1024
+
+
 def iter_tfrecord(path: str, verify: bool = True) -> Iterator[bytes]:
-    """Yield raw record payloads from a TFRecord file, record by record
-    with bounded memory, each frame's crcs verified unless ``verify`` is
-    False."""
+    """Yield raw record payloads from a TFRecord file, each frame's crcs
+    verified unless ``verify`` is False. A file up to
+    ``_NATIVE_SCAN_MAX_BYTES`` goes through the native whole-buffer scanner
+    (crcs verified in C++); a larger one, or any file without the codec,
+    streams record by record with bounded memory."""
+    from maggy_tpu_torch import native
+
+    if os.path.getsize(path) <= _NATIVE_SCAN_MAX_BYTES and native.is_native():
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            spans = native.tfrecord_scan(data, verify=verify)
+        except ValueError as e:
+            raise ValueError("{} in {}".format(e, path)) from e
+        for off, ln in spans:
+            yield data[off:off + ln]
+        return
     with open(path, "rb") as f:
         while True:
             header = f.read(8)

@@ -267,8 +267,9 @@ def test_unknown_ablator_and_remote_pool_are_refused():
     with pytest.raises(ValueError, match="Unknown ablator"):
         AblationDriver(AblationConfig(ablation_study=make_study(AblationStudy), ablator="nope"),
                        "a", 0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AblationConfig(ablation_study=make_study(AblationStudy), pool="remote")
+    with pytest.raises(ValueError, match="not supported for ablation studies"):
+        AblationDriver(AblationConfig(ablation_study=make_study(AblationStudy), pool="remote"),
+                       "a", 0)
 
 
 def test_resume_reruns_only_what_did_not_finish_where_jax_raises(tmp_path, monkeypatch):

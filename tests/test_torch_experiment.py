@@ -73,6 +73,11 @@ _SWEEP = textwrap.dedent("""
     import maggy_tpu_torch.telemetry.obs
     import maggy_tpu_torch.telemetry.profiling
     import maggy_tpu_torch.train.warm
+    import maggy_tpu_torch.core.config
+    import maggy_tpu_torch.fleet.__main__
+    import maggy_tpu_torch.monitor
+    import maggy_tpu_torch.native
+    from maggy_tpu_torch import runner
     from maggy_tpu_torch.chaos import harness
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
     from maggy_tpu_torch.models import BertConfig, BertEncoder
@@ -192,6 +197,42 @@ _SWEEP = textwrap.dedent("""
             sys.argv = argv
         return json.loads(buf.getvalue())
 
+    def agent_train(lr, warmup_frac, reporter):
+        # A remote agent's trial: the agent process runs this script as
+        # __main__, whose hook refused the banned modules first.
+        reporter.broadcast(1.0 - lr, step=0)
+        return {{"metric": 1.0 - lr, "banned": banned_imports(), "pid": os.getpid()}}
+
+    def remote_sweep():
+        # pool="remote" served by one `maggy_tpu_torch.runner` agent process
+        # started from this script, so the hook runs in the agent too.
+        import subprocess, threading
+        exp_dir = tempfile.mkdtemp()
+        os.environ["MAGGY_TPU_APP_ID"] = "blocked_remote"
+        out = {{}}
+        config = OptimizationConfig(name="blocked_remote", num_trials=3, searchspace=sp,
+                                    num_workers=1, pool="remote", es_policy="none",
+                                    hb_interval=0.05, seed=0, experiment_dir=exp_dir)
+        thread = threading.Thread(target=lambda: out.setdefault(
+            "result", experiment.lagom(None, config)))
+        thread.start()
+        ticket = os.path.join(exp_dir, "blocked_remote_0", "runner_ticket.json")
+        agent = subprocess.run([sys.executable, os.path.abspath(__file__), "--agent", ticket],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                               timeout=120)
+        thread.join(60)
+        assert agent.returncode == 0, agent.stderr[-2000:]
+        outputs = [json.load(open(os.path.join(exp_dir, "blocked_remote_0", e, ".outputs.json")))
+                   for e in os.listdir(os.path.join(exp_dir, "blocked_remote_0"))
+                   if os.path.exists(os.path.join(exp_dir, "blocked_remote_0", e,
+                                                  ".outputs.json"))]
+        return {{"num_trials": out["result"]["num_trials"], "outputs": outputs}}
+
+    if sys.argv[1:2] == ["--agent"]:
+        sys.exit(runner.main(["--ticket", sys.argv[2], "--train", "__main__:agent_train"]))
+
+    sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
+
     if __name__ == "__main__":
         sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
         bo_sp = Searchspace(lr=("DOUBLE", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]),
@@ -222,6 +263,14 @@ _SWEEP = textwrap.dedent("""
             name="blocked_ablation", ablation_study=ablation_study(), num_workers=2,
             hb_interval=0.05, experiment_dir=tempfile.mkdtemp()))
         out["ablation"] = {{k: ablated[k] for k in ("num_trials", "worst_hp")}}
+        # The fleet soak (shared listener, scheduler, preemption, native
+        # codec) and a remote agent, under the hook.
+        from maggy_tpu_torch.fleet.soak import run_fleet_soak
+        fleet = run_fleet_soak(seed=7, base_dir=tempfile.mkdtemp())
+        out["fleet"] = {{"ok": fleet["ok"], "violations": fleet["violations"],
+                         "preemptions": fleet["replay"]["preemptions"],
+                         "native": maggy_tpu_torch.native.is_native()}}
+        out["remote"] = remote_sweep()
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
         print(json.dumps(out))
@@ -244,6 +293,15 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert out["ablation"]["num_trials"] == 4
     assert out["ablation"]["worst_hp"]["ablated_feature"] == "a"
     assert out["chaos"]["violations"] == [] and out["chaos"]["profiles"]["auto"] == 1
+    assert out["fleet"]["ok"], out["fleet"]["violations"]
+    assert out["fleet"]["preemptions"] >= 1 and out["fleet"]["native"]
+    # The remote agent's trials ran in its own process, which saw none of
+    # the banned modules either.
+    remote = out["remote"]
+    assert remote["num_trials"] == len(remote["outputs"]) == 3
+    assert all(o["banned"] == [] for o in remote["outputs"])
+    assert {o["pid"] for o in remote["outputs"]} - {out["pid"]} == \
+        {o["pid"] for o in remote["outputs"]}
     # The process sweep: every trial ran in a runner process of its own
     # (not the driver's), which saw none of the banned modules either.
     result, outputs = out["process"]["result"], out["process"]["outputs"]
@@ -317,7 +375,10 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("train", "tfrecord.py"), ("train", "registry.py"), ("train", "data.py"),
         ("ablation", "ablationstudy.py"), ("ablation", "ablator", "abstractablator.py"),
         ("ablation", "ablator", "loco.py"), ("models", "surgery.py"), ("callbacks.py",),
-        ("core", "driver", "ablation_driver.py"), ("train", "vmap.py"))} <= scanned
+        ("core", "driver", "ablation_driver.py"), ("train", "vmap.py"),
+        ("core", "config.py"), ("native", "__init__.py"), ("runner.py",), ("monitor.py",),
+        ("fleet", "__init__.py"), ("fleet", "__main__.py"), ("fleet", "scheduler.py"),
+        ("fleet", "soak.py"), ("core", "rpc.py"), ("core", "runner_pool.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

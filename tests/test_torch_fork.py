@@ -350,9 +350,14 @@ def test_preempt_partition_arms_the_trial(tmp_path):
                          trial.get_early_stop(), trial_events(driver)]
             trial.reset_run_state()
             out[name].append([trial.get_preempt(), trial.get_early_stop()])
+        # With eviction (the fleet's preemption) the partition is also
+        # marked for release, in both packages.
+        for name, (driver, _) in pair.items():
+            driver.server.reservations.assign_trial(0, None)
+            out[name].append([driver.preempt_partition(0, evict=True),
+                              driver.server.reservations.evict_requested(0)])
         assert out["port"] == out["jax"]
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pair["port"][0].preempt_partition(0, evict=True)
+        assert out["port"][-1] == [None, True]
     finally:
         stop_all(pair)
 

@@ -169,6 +169,9 @@ def test_one_server_per_process_and_refcounted_close():
 def test_profilez_captures_a_torch_trace(tmp_path):
     telem = Telemetry()
     prof = ProfileCapturer(telem, str(tmp_path / "profiles"))
+    # The profiler's first start (seconds on a loaded CPU) is paid here, as
+    # the driver pays it before its runners step, not inside the request.
+    prof.prime()
     reg = obs.ObsRegistration("k", {}, telem, profiler=prof)
     server = obs.register(reg, port=0)
     base = "http://{}:{}".format(*server.address)

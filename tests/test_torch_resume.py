@@ -8,6 +8,7 @@ the seeded-ASHA re-issue both packages share, the validation errors, and a
 Hyperband sweep killed with SIGKILL and resumed in a new process."""
 
 import copy
+import faulthandler
 import glob
 import json
 import os
@@ -251,35 +252,107 @@ def _resumed_through_lagom(pkg, base):
                           and e.get("phase") == "recovered"]}
 
 
-@pytest.mark.timeout(90)
-def test_interrupted_run_resumes_through_lagom_as_jax(tmp_path, monkeypatch):
-    """The synthetic interrupted run, built for each package and resumed
-    through its lagom (seeded RandomSearch, 4 trials, 2 threads): 4
-    finalized, the completed trial never runs again, the one in flight
-    runs once, epochs [1, 2], one recovered event, the same finalized ids.
-    The JAX package's sweep runs in a child process with a time limit: its
-    driver can strand a trial on a re-registration race (ROADMAP queue 3
-    item 9) and never end, and its runner threads would then outlive the
-    test and hold the test process open."""
+def _check_resumed(pkg, seen):
+    ids = seen["ids"]
+    assert seen["num_trials"] == 4, pkg
+    assert len(seen["finals"]) == len(set(seen["finals"])) == 4, pkg
+    assert ids["t2"] not in seen["calls"] and seen["calls"].count(ids["t1"]) == 1, pkg
+    assert seen["epochs"] == [1, 2], pkg
+    assert len(seen["recovered"]) == 1 and seen["recovered"][0]["inflight"] == 1, pkg
+
+
+@pytest.mark.timeout(60)
+def test_interrupted_run_resumes_through_lagom(tmp_path, monkeypatch):
+    """The synthetic interrupted run resumed through the port's lagom
+    (seeded RandomSearch, 4 trials, 2 threads): 4 finalized, the completed
+    trial never runs again, the one in flight runs once, epochs [1, 2], one
+    recovered event."""
     monkeypatch.setenv("MAGGY_TPU_APP_ID", "e2e")
-    out = {"port": _resumed_through_lagom("port", str(tmp_path / "port"))}
-    script = ("import json, sys; sys.path[:0] = [{tests!r}, {root!r}]; import jax; "
+    _check_resumed("port", _resumed_through_lagom("port", str(tmp_path / "port")))
+
+
+#: The JAX child's own time limit; the subprocess bound stands behind it.
+_JAX_CHILD_DEADLINE_S = 60
+#: What the JAX child writes to stderr when its driver stranded a trial.
+_STRANDED = "stranded trial"
+
+
+def _stranded_report(base):
+    """The JAX run's queue 3 item 9 signature, read from its files: each
+    trial whose FINAL the driver dropped as stale ("dropping stale FINAL
+    for requeued trial", in maggy.log) and that never finalized, so no
+    runner holds it and the sweep cannot end."""
+    lines = []
+    for log in glob.glob(os.path.join(base, "*", "maggy.log")):
+        with open(log) as f:
+            logged = [ln.strip() for ln in f]
+        # The log's tail, for a timeout without the signature.
+        lines += ["log: " + ln[:200] for ln in logged[-6:]]
+        dropped = [ln for ln in logged if "dropping stale FINAL for requeued trial" in ln]
+        journal = os.path.join(os.path.dirname(log), "telemetry.jsonl")
+        finals = {e.get("trial") for e in jax_telemetry.read_events(journal)
+                  if e.get("ev") == "trial" and e.get("phase") == "finalized"} \
+            if os.path.exists(journal) else set()
+        for ln in dropped:
+            tid = ln.split("requeued trial ", 1)[1].split()[0]
+            if tid not in finals:
+                lines.append("{} {}: {}".format(_STRANDED, tid, ln))
+    return "\n".join(lines)
+
+
+def _jax_child(base):
+    """The JAX half, run in a child process: prints its result, or, past
+    ``_JAX_CHILD_DEADLINE_S``, writes the stranded-trial report to stderr
+    and exits 3 (its non-daemon runner threads would hold it open)."""
+    done = threading.Event()
+
+    def watchdog():
+        if not done.wait(_JAX_CHILD_DEADLINE_S):
+            # What the run left on disk and where each thread stands, so a
+            # timeout without the signature can be told apart.
+            files = sorted(os.path.relpath(os.path.join(d, f), base)
+                           for d, _, fs in os.walk(base) for f in fs)
+            sys.stderr.write("files: {}\n".format(files))
+            faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+            sys.stderr.write("timed out\n" + _stranded_report(base) + "\n")
+            sys.stderr.flush()
+            os._exit(3)
+
+    threading.Thread(target=watchdog, daemon=True).start()
+    out = _resumed_through_lagom("jax", base)
+    done.set()
+    print(json.dumps(out), flush=True)
+    os._exit(0)
+
+
+@pytest.mark.timeout(150)
+def test_interrupted_run_resumes_through_lagom_as_jax(tmp_path, monkeypatch):
+    """The same interrupted run resumed through the JAX package's lagom,
+    in a child process, held to the port's checks and finalized set. The
+    JAX driver can strand a trial on a re-registration race (ROADMAP queue
+    3 item 9): when its child times out with that signature on stderr (a
+    stale FINAL dropped for a trial that then never finalized), the test
+    xfails naming the fault; any other failure stays red. The port's own
+    checks are ``test_interrupted_run_resumes_through_lagom``; the
+    deterministic evidence of the fault is
+    ``test_reregistration_takes_the_black_path_as_jax[reg_first]``."""
+    monkeypatch.setenv("MAGGY_TPU_APP_ID", "e2e")
+    port = _resumed_through_lagom("port", str(tmp_path / "port"))
+    script = ("import sys; sys.path[:0] = [{tests!r}, {root!r}]; import jax; "
               "jax.config.update('jax_platforms', 'cpu'); import test_torch_resume as t; "
-              "print(json.dumps(t._resumed_through_lagom('jax', {base!r})))").format(
+              "t._jax_child({base!r})").format(
                   tests=os.path.join(ROOT, "tests"), root=ROOT, base=str(tmp_path / "jax"))
     proc = subprocess.run([sys.executable, "-c", script], stdout=subprocess.PIPE,
-                          stderr=subprocess.PIPE, text=True, timeout=70,
+                          stderr=subprocess.PIPE, text=True,
+                          timeout=_JAX_CHILD_DEADLINE_S + 40,
                           env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    out["jax"] = json.loads(proc.stdout.strip().splitlines()[-1])
-    for pkg, seen in out.items():
-        ids = seen["ids"]
-        assert seen["num_trials"] == 4, pkg
-        assert len(seen["finals"]) == len(set(seen["finals"])) == 4, pkg
-        assert ids["t2"] not in seen["calls"] and seen["calls"].count(ids["t1"]) == 1, pkg
-        assert seen["epochs"] == [1, 2], pkg
-        assert len(seen["recovered"]) == 1 and seen["recovered"][0]["inflight"] == 1, pkg
-    assert set(out["port"]["finals"]) == set(out["jax"]["finals"])
+    if proc.returncode == 3 and _STRANDED in proc.stderr:
+        pytest.xfail("ROADMAP queue 3 item 9: the JAX driver stranded a trial "
+                     "({})".format(proc.stderr.strip().splitlines()[-1][:300]))
+    assert proc.returncode == 0, proc.stderr[-12000:]
+    jax = json.loads(proc.stdout.strip().splitlines()[-1])
+    _check_resumed("jax", jax)
+    assert set(port["finals"]) == set(jax["finals"])
 
 
 # ------------------------------------------------------- the recovering driver

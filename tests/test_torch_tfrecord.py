@@ -105,18 +105,25 @@ def _corrupt(raw):
     (lambda raw: raw[:30], "Truncated TFRecord payload"),
     (lambda raw: bytes([raw[0] ^ 1]) + raw[1:], "Corrupt TFRecord length crc"),
 ])
-def test_corrupt_and_truncated_files_are_refused_as_jax(tmp_path, mutate, message):
-    """The port names the frame part at fault (the JAX package's streaming
-    reader's words); the JAX package, whose native scanner may take the
-    file, refuses it too."""
+def test_corrupt_and_truncated_files_are_refused_as_jax(tmp_path, monkeypatch, mutate, message):
+    """Both packages read a file this size through their native scanners
+    and refuse it with the same words; without the codec the port's
+    streaming reader names the frame part at fault (the JAX package's
+    streaming reader's words)."""
+    from maggy_tpu_torch import native
+
     path = str(tmp_path / "bad.tfrecord")
     tfrecord.write_tfrecord(path, _examples(2))
     raw = open(path, "rb").read()
     open(path, "wb").write(mutate(raw))
+    with pytest.raises(ValueError, match="TFRecord") as port_err:
+        list(tfrecord.iter_tfrecord(path))
+    with pytest.raises(ValueError, match="TFRecord") as jax_err:
+        list(jax_tfrecord.iter_tfrecord(path))
+    assert str(port_err.value) == str(jax_err.value)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
     with pytest.raises(ValueError, match=message):
         list(tfrecord.iter_tfrecord(path))
-    with pytest.raises(ValueError, match="TFRecord"):
-        list(jax_tfrecord.iter_tfrecord(path))
 
 
 def _formats(tmp_path):

@@ -85,6 +85,18 @@ def fresh_cache():
     clear_warm()
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: on a CPU loaded by other processes the default
+    pool's threads spin against each other (on an 8-core CPU beside ten
+    busy processes the BERT lanes test took 42 s with the default pool, 3 s
+    with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_block():
     """The JAX package's block over LRS (its lanes' losses, STEPS steps) and

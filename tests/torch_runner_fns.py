@@ -34,3 +34,28 @@ def train_wedge(lr, units, flag, reporter=None):
         os.kill(os.getpid(), signal.SIGSTOP)
         os._exit(43)  # reached only if something resumed the process
     return {"metric": 1.0 - (lr - 0.1) ** 2}
+
+
+def train_remote(lr, units, reporter=None):
+    """A remote agent's trial (``python -m maggy_tpu_torch.runner --train
+    torch_runner_fns:train_remote``): the closed form of the JAX package's
+    ``tests/remote_train_module.py:train_fn``, with the agent's pid."""
+    acc = 1.0 - ((lr - 0.1) ** 2 + ((units - 32) / 64.0) ** 2)
+    if reporter is not None:
+        reporter.broadcast(acc, step=0)
+    return {"metric": acc, "pid": os.getpid()}
+
+
+def train_remote_gated(lr, units, reporter=None):
+    """``train_remote`` that first waits (at most 30 s) until two agent
+    processes have each entered a trial, marked under
+    MAGGY_TEST_AGENT_DIR: the sweep is then served by both agents, whatever
+    their start-up skew."""
+    import time
+
+    gate = os.environ["MAGGY_TEST_AGENT_DIR"]
+    open(os.path.join(gate, str(os.getpid())), "w").close()
+    deadline = time.monotonic() + 30
+    while len(os.listdir(gate)) < 2 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return train_remote(lr, units, reporter)
