@@ -328,6 +328,35 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              in-sweep step p50 beside slice_process's, JOIN to first trial
              per agent (the server's JOIN against the journal's first
              running edge of its partition) and each agent's peak memory.
+22. slice_agents — fleet agents and the journal sink. (a) On the host:
+             run_agent_soak(agents=2, trials=4) (agent processes on --device
+             cpu, one SIGKILLed mid-lease) and run_sink_soak(tenants=2,
+             trials=4) (the sink killed mid-run and restarted), each without
+             a violation. (b) One Fleet(runners=1, max_agents=2, sink=True)
+             and two python -m maggy_tpu_torch.fleet agent --ticket <home>/
+             agent_ticket.json processes, each with its own CUDA context: an
+             MNIST tenant (slice_fleet's urgent one, a partial: no name on the
+             wire, so the thread runner serves it) and a BERT-base tenant
+             (slice_fleet's schedule of 4 trials x 24 steps, batch 32 x 128,
+             named chip_smoke:train_bert_agents, at most two runners), both
+             with config.sink. Trials must run on both agents; the flash
+             launches summed over the trials' records 12 x the steps; this
+             process's launches its own records'; every tenant's journal,
+             merged from the sink's segment and any local fallback, exactly
+             once (check_exactly_once up to the driver's last event id) and
+             through check_invariants; each agent's shipped journal exactly
+             once; python -m maggy_tpu_torch.telemetry trace --unified <home>
+             exiting 0. (c) A third tenant (2 trials of 192 steps, a 3 s loss
+             bound): the first agent-leased trial past step 9 (or 1 s after
+             its assignment) has its agent
+             SIGKILLed (a kill_agent chaos record in its journal); the trial
+             is requeued once, the lease ends agent_lost, the tenant
+             finishes, the other agent exits 0 on the plane's AGSTOP. (d) One
+             slice_mnist trial with profile=True: a trace in its trial dir
+             holding CUDA kernel events. Prints AJOIN to first lease per
+             agent, the agents' peak memory, the sink's ingest lag, the
+             in-sweep step p50 beside slice_fleet's, the kill and the clock
+             offsets.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -372,7 +401,8 @@ slice_moe's at the Llama shape's times, bert_base_lanes's slice_lanes'
 at the folded shape, 4 lanes x batch 32, llama3_8b_moe_lanes's its MoE
 arm's at the Llama's shape (2 lanes x batch 1), bert_base_loco's
 slice_ablation's, bert_base_fleet's slice_fleet's card soak's,
-bert_base_remote's slice_remote's summed over its agents),
+bert_base_remote's slice_remote's summed over its agents,
+bert_base_agents's slice_agents' BERT tenant's summed over its trials),
 the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
@@ -443,7 +473,8 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
 SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
               "bert_base_resume": "bert_base", "bert_base_warm": "bert_base",
               "bert_base_loco": "bert_base", "bert_base_fleet": "bert_base",
-              "bert_base_remote": "bert_base", "llama3_8b_moe": "llama3_8b",
+              "bert_base_remote": "bert_base", "bert_base_agents": "bert_base",
+              "llama3_8b_moe": "llama3_8b",
               "llama3_8b_moe_lanes": "llama3_8b"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
@@ -566,6 +597,19 @@ FLEET_GRACE_S, FLEET_HB_S, FLEET_STARVATION_S = 0.25, 0.1, 60.0
 REMOTE_RECORDS_ENV = "MAGGY_TPU_SMOKE_RECORDS"
 REMOTE_TRAIN = "chip_smoke:train_bert_remote"
 REMOTE_AGENT_TIMEOUT_S = 400
+# slice_agents: the agents' trial functions, named by module as an ABIND
+# lease names them (a function of __main__ has no name on the wire), where
+# their trials write records (read from the environment), the BERT tenant's
+# trials (slice_fleet's schedule: FLEET_BULK_TRIALS of FLEET_BERT_STEPS), the
+# killed tenant's trials and steps, the step its kill waits for, its
+# heartbeat-loss bound, and how long the phase waits for its agents. The
+# kill waits for the trial's step AGENTS_KILL_AT_STEP in the driver's store,
+# or for AGENTS_KILL_AFTER_S of the trial's assignment, whichever first.
+AGENTS_BERT_TRAIN = "chip_smoke:train_bert_agents"
+AGENTS_KILL_TRAIN = "chip_smoke:train_bert_agents_kill"
+AGENTS_RECORDS_ENV = "MAGGY_TPU_SMOKE_AGENT_RECORDS"
+AGENTS_KILL_TRIALS, AGENTS_KILL_STEPS, AGENTS_KILL_AT_STEP, AGENTS_KILL_AFTER_S = 2, 192, 9, 1.0
+AGENTS_HB_LOSS_S, AGENTS_JOIN_TIMEOUT_S = 3.0, 180.0
 #: Readings one phase leaves for a later one's line.
 READINGS = {}
 
@@ -4836,6 +4880,7 @@ def phase_slice_fleet(exp_root):
         emit("slice_fleet/card", problems=problems, **fields)
         raise AssertionError("slice_fleet: {}".format("; ".join(problems)))
     emit("slice_fleet/card", **fields)
+    READINGS["slice_fleet_step_ms"] = fields["step_ms_median_with_saves"]
 
     home = fleet.home_dir
     clis = {}
@@ -4995,6 +5040,330 @@ def phase_slice_remote(exp_dir):
     return launches
 
 
+def train_bert_agents(lr, warmup_frac, reporter, steps=FLEET_BERT_STEPS, records=""):
+    """slice_agents' BERT-base trial, run by an agent process (or a thread
+    runner): slice_fleet's schedule without its checkpoints, on the agent's
+    device (``--device``), its record under the directory the environment
+    names (its ``records`` subdirectory)."""
+    from maggy_tpu_torch.fleet.agent import trial_device
+    from maggy_tpu_torch.models import BertEncoder
+    from maggy_tpu_torch.train import Trainer, adamw, warmup_cosine_decay_schedule
+
+    out_dir = os.path.join(os.environ[AGENTS_RECORDS_ENV], records)
+    os.makedirs(out_dir, exist_ok=True)
+    record = TrialRecord(out_dir, reporter)
+    full_fp32()
+    cfg, batch = bert_data()
+    sched = warmup_cosine_decay_schedule(0.0, lr, int(steps * warmup_frac), steps)
+    trainer = Trainer(BertEncoder(cfg, device="meta"), adamw(sched), labels_loss,
+                      device=trial_device()).init(seed=0)
+    with record:
+        for i in range(steps):
+            loss = trainer.step(batch(i))
+            record.steps += 1
+            if i % REPORT_EVERY == REPORT_EVERY - 1 or i == steps - 1:
+                reporter.broadcast(-loss, step=i)
+    final = float(loss)
+    if not math.isfinite(final):
+        raise FloatingPointError("non-finite loss {}".format(final))
+    return {"metric": -final}
+
+
+def train_bert_agents_kill(lr, warmup_frac, reporter):
+    """slice_agents' killed tenant: train_bert_agents at AGENTS_KILL_STEPS,
+    its records apart."""
+    return train_bert_agents(lr, warmup_frac, reporter, steps=AGENTS_KILL_STEPS, records="kill")
+
+
+def shipped_journal(home, name, local_dir=None):
+    """A source's exactly-once journal: its sink segment merged with its
+    local fallback journal, if it left one."""
+    from maggy_tpu_torch.telemetry import read_events
+    from maggy_tpu_torch.telemetry.sink import SINK_DIR_NAME, merge_source_events, sanitize_source
+
+    path = os.path.join(home, SINK_DIR_NAME, sanitize_source(name) + ".jsonl")
+    shipped = read_events(path) if os.path.exists(path) else None
+    local_path = local_dir and os.path.join(local_dir, "telemetry.jsonl")
+    local = read_events(local_path) if local_path and os.path.exists(local_path) else None
+    return merge_source_events(shipped, local)
+
+
+def phase_slice_agents(exp_root):
+    """Phase 22: fleet agents and the journal sink. (a) run_agent_soak and
+    run_sink_soak on the host; (b) one Fleet(runners=1, max_agents=2,
+    sink=True) with two agent processes on the card, a BERT-base tenant on
+    the agents and an MNIST tenant on the thread runner, every journal
+    shipped to the sink; (c) one agent SIGKILLed mid-lease in a third tenant;
+    (d) a profiled MNIST trial. Returns (b)'s flash launches, summed over its
+    trials' records."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.chaos.harness import check_invariants
+    from maggy_tpu_torch.fleet import Fleet
+    from maggy_tpu_torch.fleet.scheduler import replay_fleet_journal
+    from maggy_tpu_torch.fleet.soak import (run_agent_soak, run_sink_soak, spawn_agent_process,
+                                            stop_agent_processes)
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.runner import load_train_fn
+    from maggy_tpu_torch.telemetry import read_events
+    from maggy_tpu_torch.telemetry.sink import check_exactly_once, read_sink_dir
+
+    t_phase = time.perf_counter()
+    exp_root = fresh_dir(exp_root)
+    for name, soak in (("agent_soak", functools.partial(run_agent_soak, agents=2, trials=4)),
+                       ("sink_soak", functools.partial(run_sink_soak, tenants=2, trials=4))):
+        t0 = time.perf_counter()
+        report = soak(base_dir=fresh_dir(os.path.join(exp_root, name)))
+        emit("slice_agents/" + name, ok=report["ok"], violations=report["violations"],
+             wall_s=time.perf_counter() - t0,
+             detail={k: v for k, v in report["detail"].items() if k != "per_source"})
+        if not report["ok"]:
+            raise AssertionError("slice_agents: {}: {}".format(name, report["violations"]))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = fresh_dir(os.path.join(exp_root, "card"))
+    records_dir = fresh_dir(os.path.join(exp_root, "records"))
+    kill_records = os.path.join(records_dir, "kill")
+    mnist_records = fresh_dir(os.path.join(exp_root, "records_mnist"))
+    cfg, _ = bert_data()
+    bert_space = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]),
+                             warmup_frac=("DOUBLE", [0.0, 0.3]))
+
+    def config(name, trials, space, **kw):
+        return OptimizationConfig(name=name, num_trials=trials, optimizer="randomsearch",
+                                  searchspace=space, direction="max", hb_interval=FLEET_HB_S,
+                                  seed=0, es_policy="none", experiment_dir=base, sink=True, **kw)
+
+    fleet = Fleet(runners=1, max_agents=2, sink=True, home_dir=os.path.join(base, "fleet"),
+                  preempt_grace_s=FLEET_GRACE_S, agent_liveness_s=10.0)
+    home = fleet.home_dir
+    # The agents inherit this environment (the records' directory) and
+    # import chip_smoke from ROOT, the package's directory.
+    os.environ[AGENTS_RECORDS_ENV] = records_dir
+    procs, out = [], {}
+    logs = [os.path.join(exp_root, "agent_{}.log".format(i)) for i in range(2)]
+    t0 = time.perf_counter()
+    try:
+        with fleet:
+            for log in logs:
+                procs.append(spawn_agent_process(os.path.join(home, "agent_ticket.json"),
+                                                 log_path=log, device=DEVICE))
+            deadline = time.monotonic() + AGENTS_JOIN_TIMEOUT_S
+            while len(fleet.status()["agents"]) < 2 and time.monotonic() < deadline:
+                if any(p.poll() is not None for p in procs):
+                    raise AssertionError("slice_agents: an agent exited before joining: {}".format(
+                        [log_tail(path, 30) for path in logs]))
+                time.sleep(0.1)
+            joined_s = time.perf_counter() - t0
+            if len(fleet.status()["agents"]) < 2:
+                raise AssertionError("slice_agents: {} agents joined in {} s".format(
+                    len(fleet.status()["agents"]), AGENTS_JOIN_TIMEOUT_S))
+            # MNIST first, as a partial: no name on the wire, so only the
+            # thread runner serves it. The BERT tenant (at most two runners)
+            # is named by module and leases the agents, or the thread runner
+            # once it is free.
+            mnist = experiment.lagom_submit(
+                functools.partial(train_mnist, budget=1, out_dir=mnist_records),
+                config("mnist", FLEET_URGENT_TRIALS, chaos_space()), fleet=fleet,
+                max_runners=1, block=False)
+            deadline = time.monotonic() + 60
+            while mnist.entry.allocated() < 1 and not mnist.done() \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+            A.reset_launch_counts()
+            t_bert = time.perf_counter()
+            bert = experiment.lagom_submit(
+                load_train_fn(AGENTS_BERT_TRAIN), config("bert", FLEET_BULK_TRIALS, bert_space),
+                fleet=fleet, max_runners=2, block=False)
+            out["results"] = {"mnist": mnist.result(timeout=400), "bert": bert.result(timeout=400)}
+            bert_wall = time.perf_counter() - t_bert
+            driver_launches = A.launch_counts()
+
+            # (c) A third tenant; one agent SIGKILLed once its trial passed
+            # AGENTS_KILL_AT_STEP (the driver's store holds the steps its
+            # heartbeats carried) or had been assigned AGENTS_KILL_AFTER_S.
+            kill = experiment.lagom_submit(
+                load_train_fn(AGENTS_KILL_TRAIN),
+                config("bert_kill", AGENTS_KILL_TRIALS, bert_space,
+                       hb_loss_timeout=AGENTS_HB_LOSS_S), fleet=fleet, max_runners=2, block=False)
+            killed, deadline, first_seen, seen = None, time.monotonic() + 240, {}, {}
+            while killed is None and time.monotonic() < deadline and not kill.done():
+                drv = kill.entry.driver
+                for rec in (fleet.agent_plane.snapshot() if drv is not None else []):
+                    seen[rec["agent"]] = (rec["state"], rec["lease"], rec["pid"])
+                    if rec["state"] != "leased" or rec["lease"] != "bert_kill" or rec["pid"] is None:
+                        continue
+                    tid = drv.server.reservations.get_assigned_trial(rec["pid"])
+                    trial = drv.get_trial(tid) if tid is not None else None
+                    if trial is None:
+                        continue
+                    age = time.monotonic() - first_seen.setdefault(tid, time.monotonic())
+                    seen[rec["agent"]] += (tid, max(trial.step_history or [-1]), age)
+                    if max(trial.step_history or [-1]) < AGENTS_KILL_AT_STEP \
+                            and age < AGENTS_KILL_AFTER_S:
+                        continue
+                    drv.telemetry.event("chaos", kind="kill_agent", trial=tid,
+                                        partition=rec["pid"], agent=rec["agent"])
+                    killed = {"agent": rec["agent"], "trial": tid, "partition": rec["pid"],
+                              "at_step": max(trial.step_history or [-1]), "assigned_s": age,
+                              "signalled": fleet.agent_plane.kill_agent_by_runner(rec["runner"]),
+                              "t": time.time()}
+                    break
+                time.sleep(0.02)
+            out["kill"] = kill.result(timeout=400)
+            exp_dirs = {name: h.entry.driver.exp_dir for name, h in
+                        (("mnist", mnist), ("bert", bert), ("bert_kill", kill))}
+            max_sids = {name: h.entry.driver.telemetry.journal.max_sid() for name, h in
+                        (("mnist", mnist), ("bert", bert), ("bert_kill", kill))}
+            fleet.agent_plane.stop()
+            agent_rcs = []
+            for proc in procs:
+                try:
+                    agent_rcs.append(proc.wait(timeout=30))
+                except subprocess.TimeoutExpired:
+                    agent_rcs.append(None)
+    finally:
+        stop_agent_processes(procs)
+        os.environ.pop(AGENTS_RECORDS_ENV, None)
+    wall = time.perf_counter() - t0
+
+    problems = []
+    records = read_records(records_dir)
+    steps = sum(r["steps"] for r in records)
+    launches = {k: sum(r["launches"][k] for r in records) for k in driver_launches}
+    expected = cfg.num_layers * steps
+    agent_pids = [p.pid for p in procs]
+    # Trials by process: the agents', and any the fleet's thread runner took
+    # in this process (its records count this process's launches).
+    served = {str(pid): sum(1 for r in records if r["pid"] == pid)
+              for pid in sorted({r["pid"] for r in records})}
+    here = {k: sum(r["launches"][k] for r in records if r["pid"] == os.getpid())
+            for k in driver_launches}
+    if out["results"]["bert"]["num_trials"] != FLEET_BULK_TRIALS or \
+            out["results"]["mnist"]["num_trials"] != FLEET_URGENT_TRIALS:
+        problems.append("results {}".format({k: v["num_trials"] for k, v in out["results"].items()}))
+    if not all(served.get(str(pid)) for pid in agent_pids):
+        problems.append("BERT trials by process {}: not on both agents {}".format(
+            served, agent_pids))
+    if any(n != expected for n in launches.values()) or expected != \
+            cfg.num_layers * FLEET_BULK_TRIALS * FLEET_BERT_STEPS:
+        problems.append("launches {} != {} layers x {} steps".format(launches, cfg.num_layers,
+                                                                     steps))
+    if driver_launches != here:
+        problems.append("this process launched {}, its trials' records say {}".format(
+            driver_launches, here))
+    if agent_rcs.count(0) != 1 or agent_rcs.count(-signal.SIGKILL) != 1:
+        problems.append("agent exit codes {} (one SIGKILLed, one ending on AGSTOP)".format(
+            agent_rcs))
+
+    # The sink: every tenant's journal and both agents' exactly once.
+    sources = read_sink_dir(os.path.join(home, "journal"))
+    fleet_events = read_events(os.path.join(home, "fleet.jsonl"))
+    agent_ids = [e["agent"] for e in fleet_events if e["ev"] == "agent" and e["phase"] == "join"]
+    journals, sink_check = {}, {}
+    for name in ("mnist", "bert", "bert_kill"):
+        journals[name] = shipped_journal(home, name, exp_dirs[name])
+        once = check_exactly_once(journals[name], expected_max_sid=max_sids[name])
+        inv = check_invariants(journals[name], stall_flag_bound_s=None)
+        sink_check[name] = {"events": len(journals[name]), "max_sid": max_sids[name],
+                            "local_fallback": os.path.exists(
+                                os.path.join(exp_dirs[name], "telemetry.jsonl")),
+                            "exactly_once": once, "invariants": inv["violations"],
+                            "trials": inv["trials"]}
+        problems += ["{}: {}".format(name, v) for v in once + inv["violations"]]
+    for aid in agent_ids:
+        once = check_exactly_once(sources.get(aid) or [])
+        sink_check["agent " + aid] = {"events": len(sources.get(aid) or []),
+                                      "exactly_once": once}
+        if not sources.get(aid):
+            problems.append("agent {} shipped no journal".format(aid))
+        problems += ["agent {}: {}".format(aid, v) for v in once]
+
+    # (c) the killed agent: its trial requeued once (by the loss scan, or
+    # by the BLACK path when its partition's next runner registers first),
+    # its lease revoked.
+    replay = replay_fleet_journal(os.path.join(home, "fleet.jsonl"))
+    kill_events = journals["bert_kill"]
+    requeues = [e.get("reason") for e in kill_events if e["ev"] == "trial"
+                and e["phase"] == "requeued" and killed and e["trial"] == killed["trial"]]
+    if killed is None or not killed["signalled"]:
+        problems.append("no agent was killed mid-lease: {} (last seen {})".format(killed, seen))
+    elif len(requeues) != 1 or requeues[0] not in ("heartbeat_loss", "blacklist") \
+            or out["kill"]["num_trials"] != AGENTS_KILL_TRIALS:
+        problems.append("killed trial requeued {}, tenant finished {} trials".format(
+            requeues, out["kill"]["num_trials"]))
+    if (replay["agents"]["losses"], replay["agents"]["lost_leases"]) != (1, 1):
+        problems.append("fleet replay agents {}".format(replay["agents"]))
+    lost_lease = [e for e in fleet_events if e["ev"] == "lease" and e.get("phase") == "end"
+                  and e.get("reason") == "agent_lost"]
+
+    first_lease = {}
+    for e in fleet_events:
+        if e["ev"] == "agent" and e["phase"] == "lease":
+            first_lease.setdefault(e["agent"], e["t"])
+    join_t = {e["agent"]: e["t"] for e in fleet_events if e["ev"] == "agent"
+              and e["phase"] == "join"}
+    reading = warm_reading("slice_agents", {"_events": journals["bert"]})
+    CAPTURED["bert_base_agents"] = reading["captured"]
+
+    # The unified trace over the fleet home.
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "maggy_tpu_torch.telemetry", "trace", "--unified",
+                           home], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True, timeout=180)
+    unified = {"rc": proc.returncode, "s": time.perf_counter() - t1}
+    if proc.returncode == 0:
+        with open(os.path.join(home, "unified_trace.json")) as f:
+            other = json.load(f)["otherData"]
+        unified.update(agents=other["agents"], flows=other["flows"],
+                       clock_offsets=other["clock_offsets"])
+    else:
+        problems.append("trace --unified exited {}: {}".format(proc.returncode,
+                                                                proc.stderr[-1500:]))
+
+    # (d) One profiled MNIST trial: a trace with the card's kernels.
+    t1 = time.perf_counter()
+    prof_dir = fresh_dir(os.path.join(exp_root, "profiled"))
+    prof_result = experiment.lagom(
+        functools.partial(train_mnist, budget=0.5, out_dir=fresh_dir(os.path.join(
+            exp_root, "records_profiled"))),
+        OptimizationConfig(name="mnist_profiled", num_trials=1, optimizer="randomsearch",
+                           searchspace=chaos_space(), hb_interval=FLEET_HB_S, seed=0,
+                           es_policy="none", experiment_dir=prof_dir, profile=True))
+    traces = glob.glob(os.path.join(prof_dir, "*", "*", "profile", "trace.json"))
+    profiled = {"trials": prof_result["num_trials"], "traces": len(traces),
+                "kernel_events": trace_kernels(traces[0]) if traces else 0,
+                "trace_bytes": os.path.getsize(traces[0]) if traces else 0,
+                "s": time.perf_counter() - t1}
+    if len(traces) != 1 or profiled["kernel_events"] == 0:
+        problems.append("profile=True: {}".format(profiled))
+
+    fields = dict(
+        wall_s=wall, agents_joined_s=joined_s, bert_wall_s=bert_wall,
+        results={k: v["num_trials"] for k, v in out["results"].items()},
+        bert_steps=steps, launches=launches, expected_launches_each=expected,
+        trials_per_agent=served, agent_exit_codes=agent_rcs,
+        join_to_first_lease_s={a: first_lease[a] - join_t[a] for a in join_t if a in first_lease},
+        agent_peak_mem_gb={str(pid): max((r["peak_mem_gb"] for r in records + (read_records(
+            kill_records) if os.path.isdir(kill_records) else []) if r["pid"] == pid),
+            default=None) for pid in agent_pids},
+        step_ms_in_sweep_median=float(np.median([r["step_ms"] for r in records]))
+        if records else None,
+        fleet_step_ms_in_sweep_median=READINGS.get("slice_fleet_step_ms"),
+        sink_ingest=replay.get("sink"), sink=sink_check, clock_offsets=replay.get("clock_offsets"),
+        kill=killed, kill_requeues=requeues, lost_leases=len(lost_lease),
+        kill_results=out["kill"]["num_trials"], agents_replay=replay["agents"],
+        unified=unified, profiled=profiled, warm=reading,
+        driver_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase_s=time.perf_counter() - t_phase)
+    if problems:
+        emit("slice_agents", problems=problems, **fields)
+        raise AssertionError("slice_agents: {}".format("; ".join(problems)))
+    emit("slice_agents", **fields)
+    return launches
+
+
 def fresh_dir(path):
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
@@ -5045,6 +5414,9 @@ def main():
     clear_warm()
     launches["bert_base_remote"] = phase_slice_remote(
         os.path.join(ROOT, "build", "chip_smoke_experiments_remote"))
+    clear_warm()
+    launches["bert_base_agents"] = phase_slice_agents(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_agents"))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

@@ -16,10 +16,16 @@ drops, and every 5th FINAL's reply severed.
     python -m maggy_tpu_torch.chaos --fork            # fork-kill soak
     python -m maggy_tpu_torch.chaos --goodput         # fault-free ledger soak
     python -m maggy_tpu_torch.chaos --vmap            # vectorized-block soak
+    python -m maggy_tpu_torch.chaos --agent           # agent-kill soak
+    python -m maggy_tpu_torch.chaos --sink            # sink-kill soak
+    python -m maggy_tpu_torch.chaos --driver          # driver-kill soak
     python -m maggy_tpu_torch.chaos --show-schedule --seed 7   # no experiment
 
-``--gang``, ``--driver``, ``--sink`` and ``--agent`` run soaks the port has
-not ported yet: they exit non-zero naming their ROADMAP item.
+``--agent``, ``--sink`` and ``--driver`` own their whole topology (agent or
+driver processes, or a fleet whose sink is detached mid-run; the kill is the
+harness's, since no in-process plan can reach another process or the
+fleet's sink), and their processes run with no card. ``--gang`` waits for
+gangs: it exits non-zero naming ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import json
 import sys
 
 #: The JAX package's soaks still to port: flag -> ROADMAP queue 1 item.
-_UNPORTED = {"gang": "8", "driver": "9b", "sink": "9b", "agent": "9b"}
+_UNPORTED = {"gang": "8"}
 
 
 def main(argv=None) -> int:
@@ -82,6 +88,19 @@ def main(argv=None) -> int:
     ap.add_argument("--show-schedule", action="store_true",
                     help="print the plan's deterministic decision "
                          "expansion and exit (no experiment)")
+    ap.add_argument("--agent", action="store_true",
+                    help="the agent-kill soak: agent processes (--device cpu) "
+                         "serve leases, one is SIGKILLed mid-lease; the lease "
+                         "is revoked and the trial requeued exactly once "
+                         "(invariant 11)")
+    ap.add_argument("--sink", action="store_true",
+                    help="the sink-kill soak: the fleet's journal sink is "
+                         "killed mid-run and restarted; no event lost or "
+                         "doubled, no experiment failed (invariant 12)")
+    ap.add_argument("--driver", action="store_true",
+                    help="the driver-kill soak: the driver process SIGKILLed "
+                         "mid-sweep and resumed; its remote runners survive "
+                         "and the sweep completes (invariant 13)")
     for flag, item in _UNPORTED.items():
         ap.add_argument("--" + flag, action="store_true",
                         help="not ported yet (ROADMAP queue 1 item {})".format(item))
@@ -104,7 +123,19 @@ def main(argv=None) -> int:
         ap.error("pick one of --stall / --piggyback / --preempt / --fork / "
                  "--goodput / --vmap")
     seed = 7 if args.seed is None else args.seed
-    if args.vmap:
+    if args.driver:
+        from maggy_tpu_torch.chaos.driver_soak import run_driver_soak
+
+        report = run_driver_soak(seed=seed)
+    elif args.sink:
+        from maggy_tpu_torch.fleet.soak import run_sink_soak
+
+        report = run_sink_soak(seed=seed)
+    elif args.agent:
+        from maggy_tpu_torch.fleet.soak import run_agent_soak
+
+        report = run_agent_soak(trials=min(args.trials, 6), seed=seed)
+    elif args.vmap:
         report = harness.run_vmap_soak(seed=seed, num_trials=args.trials)
     elif args.goodput:
         report = harness.run_goodput_soak(seed=seed, num_trials=args.trials,

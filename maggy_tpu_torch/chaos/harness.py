@@ -22,8 +22,12 @@ JAX module's docstring:
 9.  the observability plane survives the faults: the endpoints answer
     throughout, /healthz reads 503 during a flagged stall, and the first
     flag per stalled partition yields exactly one ``profile_captured``;
-13. driver failover is lossless (no driver soak in the port yet: it kills a
-    driver whose remote runners survive, ROADMAP queue 1 item 9b);
+11. an agent killed mid-lease has its lease revoked and its trial requeued
+    exactly once (``fleet/soak.py``'s ``run_agent_soak``);
+12. the journal sink degrades without losing or doubling an event
+    (``fleet/soak.py``'s ``run_sink_soak``);
+13. driver failover is lossless (``chaos/driver_soak.py``: the driver is
+    SIGKILLed and resumed while its remote runners survive);
 14. a checkpoint fork whose runner dies requeues once and resumes from the
     same fork point, lineage intact;
 15. rework chip-time lands exactly on the seamed trials, and a fault-free
@@ -33,7 +37,9 @@ JAX module's docstring:
 The soaks: ``run_soak`` (any plan; ``default_plan``, ``piggyback_plan``,
 ``stall_plan``, ``preempt_plan`` with ``ckpt_train_fn``), ``run_fork_soak``
 (``fork_plan``, then one fork across ``lagom(..., resume=True)``),
-``run_goodput_soak`` (fault-free) and ``run_vmap_soak`` (``vmap_plan``). Like
+``run_goodput_soak`` (fault-free) and ``run_vmap_soak`` (``vmap_plan``);
+the agent, sink and driver soaks own their topology and live beside the
+fleet and in ``driver_soak.py``. Like
 the JAX package's, their signatures name no device: the ``train_fn`` decides
 where the work runs. The default trials are closed-form host loops;
 ``chip_smoke.py``'s ``slice_chaos`` phase passes trials that train on the

@@ -7,13 +7,13 @@ over thread, process, GPU-pinned process or remote runners, with
 heartbeat-loss requeue, the telemetry journal, the compile-once warm path
 (``warm_start``), checkpoint forking (``fork``) and experiment resume
 (``resume``), vectorized lanes (``vmap_lanes``) and a shared fleet's
-binding (``fleet``, set by ``Fleet.submit``), and `AblationConfig` for LOCO
-ablation studies. ``chips_per_budget`` (gangs, ROADMAP queue 1 item 8) and
-``sink`` (the fleet's journal sink, item 9b) exist only so that setting one
-raises "not ported yet" with its ROADMAP item, as does
-``pool="elastic"`` (item 8: it sizes chip sub-slices by
-``chips_per_budget``); each is replaced by the real field in the slice
-that ports it. Parity: reference `maggy/experiment_config.py:18-50`.
+binding (``fleet``, set by ``Fleet.submit``) with its journal-sink opt-in
+(``sink``), the per-trial ``profile`` and ``ship_prints``, and
+`AblationConfig` for LOCO ablation studies. ``chips_per_budget`` (gangs,
+ROADMAP queue 1 item 8) exists only so that setting it raises "not ported
+yet" with its ROADMAP item, as does ``pool="elastic"`` (item 8: it sizes
+chip sub-slices by ``chips_per_budget``). Parity: reference
+`maggy/experiment_config.py:18-50`.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ POOLS = ("thread", "process", "gpu", "remote")
 _UNPORTED_POOLS = {"elastic": "8"}
 #: field -> (its value that keeps it off, the ROADMAP queue 1 item that
 #: ports it).
-_UNPORTED_FIELDS = {"chips_per_budget": (None, "8"), "sink": (False, "9b")}
+_UNPORTED_FIELDS = {"chips_per_budget": (None, "8")}
 
 
 @dataclass
@@ -46,7 +46,13 @@ class LagomConfig:
     empty."""
 
     name: str = "maggyTpuTorchExperiment"
+    #: Free text kept in the experiment's metadata (``maggy_tpu/config.py:
+    #: 26``).
+    description: str = ""
     hb_interval: float = constants.DEFAULT_HEARTBEAT_INTERVAL_S
+    #: A live progress line on stdout while the experiment runs, and the
+    #: result summary at its end (``maggy_tpu/config.py:28-30``).
+    verbose: bool = False
     hb_loss_factor: float = constants.HEARTBEAT_LOSS_FACTOR
     hb_loss_min_s: float = constants.HEARTBEAT_LOSS_MIN_S
     telemetry: bool = True
@@ -177,10 +183,23 @@ class OptimizationConfig(LagomConfig):
     # Fleet mode (maggy_tpu/config.py:78-86): the fleet.FleetBinding of a
     # submission, set by Fleet.submit, never by hand.
     fleet: Any = None
+    # Fleet journal-sink routing (maggy_tpu/config.py:87-96,
+    # telemetry/sink.py): a fleet tenant ships its journal to the fleet's
+    # sink over the shared socket, and <exp_dir>/telemetry.jsonl becomes the
+    # shipper's fallback while the sink is down. Ignored without a fleet or
+    # with the fleet's sink off.
+    sink: bool = False
+    # A torch.profiler trace per trial into <trial dir>/profile/
+    # (maggy_tpu/config.py:229-230). One trace at a time a process: a
+    # thread-pool trial that finds the profiler busy runs untraced and
+    # journals ``profile_skipped``.
+    profile: bool = False
+    # Tee the train function's print() calls into the reporter log, which
+    # streams to the driver on heartbeats (maggy_tpu/config.py:231-236).
+    ship_prints: bool = False
     # The JAX package's fields whose slices are still to port: setting one
     # raises (see _UNPORTED_FIELDS).
     chips_per_budget: Optional[Any] = None
-    sink: bool = False
 
     def __post_init__(self):
         if self.direction not in ("max", "min"):

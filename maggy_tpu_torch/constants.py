@@ -10,6 +10,8 @@ listener's per-tenant queue of ``maggy_tpu/constants.py:30, 37, 79``).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -25,13 +27,23 @@ DEFAULT_HEARTBEAT_INTERVAL_S = 1.0
 DRIVER_IDLE_REQUEUE_TICK_S = 0.1
 # First GET retry after a miss; doubles up to DRIVER_IDLE_REQUEUE_TICK_S.
 CLIENT_GET_POLL_MIN_S = 0.005
-# Request retry budget and backoff (exponential with full jitter).
-CLIENT_MAX_RETRIES = 3
+# Request retry budget and backoff (exponential with full jitter). The
+# budget is env-overridable (MAGGY_TPU_CLIENT_MAX_RETRIES,
+# ``maggy_tpu/constants.py:50-58``): runners that must outlive a driver's
+# restart (the driver-kill soak, ``chaos/driver_soak.py``) keep retrying
+# across the window.
+CLIENT_MAX_RETRIES = int(os.environ.get("MAGGY_TPU_CLIENT_MAX_RETRIES", "3"))
 CLIENT_RETRY_BACKOFF_BASE_S = 0.05
 CLIENT_RETRY_BACKOFF_CAP_S = 2.0
 RPC_RECV_BUFSIZE = 1 << 16
 # QUERY poll of the runner's registration barrier wait.
 CLIENT_POLL_INTERVAL_S = 1.0
+# Heartbeat batching (``maggy_tpu/constants.py:65-73``): beats whose ship
+# failed are banked client-side, coalesced per trial, and re-delivered as one
+# BATCH frame on the next beat. The bounds cap memory over a long driver
+# outage; beyond them the oldest entries are dropped.
+CLIENT_MAX_PENDING_BEATS = 16
+CLIENT_MAX_PENDING_LOG_LINES = 500
 # How long the registration barrier (and a remote runner's wait for its
 # join ticket) may take before it fails.
 REGISTRATION_TIMEOUT_S = 600.0

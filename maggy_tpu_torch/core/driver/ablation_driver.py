@@ -58,7 +58,8 @@ class AblationDriver(OptimizationDriver):
             hb_interval=self.hb_interval, exp_dir=self.exp_dir,
             optimization_key=self.optimization_key, train_fn=train_fn,
             warm_start=self.config.warm_start, trial_type="ablation",
-            ablation_resolver=self.controller.make_resolver())
+            ablation_resolver=self.controller.make_resolver(),
+            profile=self.config.profile, ship_prints=self.config.ship_prints)
 
     def _exp_startup_callback(self) -> None:
         self.job_start = time.time()

@@ -69,6 +69,7 @@ class Driver:
         self.app_id = app_id
         self.run_id = run_id
         self.name = config.name
+        self.description = config.description
         self.hb_interval = config.hb_interval
         self.env = EnvSing.get_instance()
         # The incarnation claim comes before anything touches the run dir:
@@ -104,12 +105,22 @@ class Driver:
         self._log_lock = threading.Lock()
         self.exception: Optional[BaseException] = None
         self.exp_dir = self.env.register_experiment(
-            app_id, run_id, {"name": self.name, "type": type(self).__name__},
+            app_id, run_id, {"name": self.name, "description": self.description,
+                             "type": type(self).__name__},
             base_dir=config.experiment_dir)
         # Record paths are buffer-only (the journal flushes on its own
         # daemon thread): attaching it costs the message hot path no I/O.
+        # A fleet tenant with ``config.sink`` ships its journal to the
+        # fleet's journal sink as source <tenant name>; the local path is
+        # then the shipper's fallback (JAX `driver.py:101-115`).
+        sink_binding = sink_source = None
+        fleet_binding = getattr(config, "fleet", None)
+        if fleet_binding is not None and getattr(config, "sink", False):
+            sink_binding = fleet_binding.fleet.sink_binding()
+            sink_source = fleet_binding.entry.name
         self.telemetry = Telemetry(env=self.env, journal_path=self.exp_dir + "/" + JOURNAL_NAME,
-                                   enabled=config.telemetry)
+                                   enabled=config.telemetry, sink=sink_binding,
+                                   sink_source=sink_source)
         self.server.telemetry = self.telemetry
         if resume:
             # One journal across interruptions: its replay covers the whole
@@ -214,11 +225,29 @@ class Driver:
 
     # ------------------------------------------------------------ lifecycle
 
+    def _start_progress_printer(self) -> None:
+        """``verbose``: a live progress line on stdout, printed when it
+        changes, once a second (JAX `driver.py:356-371`)."""
+        from maggy_tpu_torch import monitor
+
+        def printer():
+            last = None
+            while not self.worker_done:
+                line = monitor.render(self.progress_snapshot())
+                if line != last:
+                    print("[{}] {}".format(self.name, line), flush=True)
+                    last = line
+                time.sleep(1.0)
+
+        threading.Thread(target=printer, daemon=True, name="progress-printer").start()
+
     def run_experiment(self, train_fn: Callable) -> Any:
         try:
             self._exp_startup_callback()
             self._bind()
             self._start_worker()
+            if self.config.verbose:
+                self._start_progress_printer()
             # A fleet tenant leases runners from the fleet's scheduler; the
             # leased pool blocks until the experiment completes, as a
             # pool's run does.

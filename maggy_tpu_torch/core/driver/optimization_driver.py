@@ -357,7 +357,8 @@ class OptimizationDriver(Driver):
             server_addr=self.server_addr, secret=self.server.secret_hex,
             hb_interval=self.hb_interval, exp_dir=self.exp_dir,
             optimization_key=self.optimization_key, train_fn=train_fn,
-            warm_start=self.config.warm_start)
+            warm_start=self.config.warm_start,
+            profile=self.config.profile, ship_prints=self.config.ship_prints)
 
     def _register_msg_callbacks(self) -> None:
         self.message_callbacks.update(
@@ -1411,6 +1412,8 @@ class OptimizationDriver(Driver):
                       self.exp_dir + "/result.json")
         util.build_summary(self.exp_dir, self.env)
         self.maggy_log = self._result_summary(duration)
+        if self.config.verbose:
+            print(self.maggy_log, flush=True)
         # The journal is durable at the finish line: the flusher's cadence
         # must not decide whether the last trials' spans land.
         self.telemetry.event("experiment", phase="finalized", duration_s=duration)

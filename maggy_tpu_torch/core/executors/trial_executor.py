@@ -40,11 +40,22 @@ step, ``train/vmap.py``) and returns a dict of metrics by lane trial id or
 a sequence in lane order; one without it runs them one after another as
 scalar trials. Either way every lane sends its own FINAL with its own run
 epoch, and only the last releases the partition.
+
+Per-trial profiles and print shipping (JAX `trial_executor.py:34-70,
+583-620`): with ``profile`` a trial runs inside ``profiling.trial_profile``
+(a torch.profiler trace into ``<trial dir>/profile/``, one a process; a
+trial that finds the profiler taken runs untraced and its runner stats
+carry ``profile_skipped``, journaled as that trial event); with
+``ship_prints`` the train function's ``print`` calls are teed into the
+reporter log through a thread-scoped tee, so thread runners that share
+``builtins.print`` ship only their own trial's lines.
 """
 
 from __future__ import annotations
 
 import inspect
+import sys
+import threading
 import time
 import traceback
 from typing import Callable, Optional, Tuple
@@ -56,9 +67,39 @@ from maggy_tpu_torch.core.executors.context import (LaneSet, TrialContext,
 from maggy_tpu_torch.core.reporter import Reporter
 from maggy_tpu_torch.core.rpc import Client
 from maggy_tpu_torch.exceptions import EarlyStopException
+from maggy_tpu_torch.telemetry import profiling
 from maggy_tpu_torch.telemetry.runnerstats import RunnerStats
 from maggy_tpu_torch.train import warm
 from maggy_tpu_torch.train.checkpoint import fork_checkpoint, latest_checkpoint_step
+
+# ship_prints: builtins.print is a process global shared by thread runners,
+# so the tee dispatches through a thread-local; only a thread inside a
+# shipping trial has a reporter set. Installed once, never removed (the
+# pass-through costs nothing).
+_print_ship = threading.local()
+_print_tee_lock = threading.Lock()
+_orig_print = None
+
+
+def _install_print_tee() -> None:
+    global _orig_print
+    with _print_tee_lock:
+        if _orig_print is not None:
+            return
+        import builtins
+
+        _orig_print = builtins.print
+
+        def tee_print(*args, **kwargs):
+            _orig_print(*args, **kwargs)
+            reporter = getattr(_print_ship, "reporter", None)
+            if reporter is not None and kwargs.get("file") in (None, sys.stdout):
+                try:
+                    reporter.log(str(kwargs.get("sep", " ")).join(str(a) for a in args))
+                except Exception:  # noqa: BLE001 - shipping must never break print
+                    pass
+
+        builtins.print = tee_print
 
 
 class TrialExecutor:
@@ -68,7 +109,8 @@ class TrialExecutor:
     def __init__(self, server_addr: Tuple[str, int], secret: str, hb_interval: float,
                  exp_dir: str, optimization_key: str, train_fn: Callable,
                  warm_start: bool = True, trial_type: str = "optimization",
-                 ablation_resolver: Optional[Callable] = None):
+                 ablation_resolver: Optional[Callable] = None, profile: bool = False,
+                 ship_prints: bool = False):
         self.server_addr = server_addr
         self.secret = secret
         self.hb_interval = hb_interval
@@ -78,6 +120,8 @@ class TrialExecutor:
         self.warm_start = warm_start
         self.trial_type = trial_type
         self.ablation_resolver = ablation_resolver
+        self.profile = profile
+        self.ship_prints = ship_prints
 
     def __call__(self, partition_id: int) -> None:
         env = EnvSing.get_instance()
@@ -128,7 +172,8 @@ class TrialExecutor:
                     with warm.trial_scope(trial_id=trial_id, enabled=self.warm_start,
                                           stats=stats,
                                           fresh_state=info_needs_fresh_state(client.last_info)):
-                        retval = self.train_fn(**call_params)
+                        retval = self._run_trial(call_params, trial_id, trial_dir, reporter,
+                                                 stats)
                     metric = util.handle_return_val(retval, trial_dir,
                                                     self.optimization_key, env)
                     client.finalize_metric(metric, reporter)
@@ -206,7 +251,9 @@ class TrialExecutor:
             call_params["reporter"] = reporter
         try:
             with warm.trial_scope(trial_id=leader_id, enabled=self.warm_start, stats=stats):
-                retval = self.train_fn(**call_params)
+                retval = self._run_trial(call_params, leader_id,
+                                         "{}/{}".format(self.exp_dir, leader_id), reporter,
+                                         stats)
             metrics = self._lane_metrics(retval, lane_descs)
             remaining = [e for e in lane_descs if e["trial_id"] not in finalized]
             for i, entry in enumerate(remaining):
@@ -270,7 +317,7 @@ class TrialExecutor:
                 call_params["reporter"] = reporter
             try:
                 with warm.trial_scope(trial_id=tid, enabled=self.warm_start, stats=stats):
-                    retval = self.train_fn(**call_params)
+                    retval = self._run_trial(call_params, tid, lane_dir, reporter, stats)
                 metric = util.handle_return_val(retval, lane_dir, self.optimization_key, env)
                 client.finalize_lane(tid, metric, reporter, lane=lane, block=leader_id,
                                      epoch=entry.get("epoch"), last=last)
@@ -288,6 +335,25 @@ class TrialExecutor:
                                      epoch=entry.get("epoch"), last=last, error=True)
             finally:
                 stats.trial_end(tid)
+
+    def _run_trial(self, call_params: dict, trial_id: str, trial_dir: str, reporter,
+                   stats):
+        """Call the train function, with its prints teed into the reporter
+        (``ship_prints``) and under a per-trial trace (``profile``)."""
+        if self.ship_prints:
+            _install_print_tee()
+            _print_ship.reporter = reporter
+        try:
+            if not self.profile:
+                return self.train_fn(**call_params)
+            with profiling.trial_profile(trial_dir) as path:
+                if path is None:
+                    stats.note_profile_skipped(trial_id)
+                    reporter.log("profiler busy (another trial or capture holds it); "
+                                 "trial {} runs untraced".format(trial_id))
+                return self.train_fn(**call_params)
+        finally:
+            _print_ship.reporter = None
 
     def _stage_fork(self, ctx, trial_id: str, trial_dir: str, client, reporter,
                     stats) -> None:

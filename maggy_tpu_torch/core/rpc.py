@@ -55,8 +55,16 @@ secret, as the JAX package does, and binds to the first match); each tenant
 has its own ``_TenantDispatcher`` thread, so one tenant's slow handler
 never delays another's replies. A fleet preemption with eviction
 (``request_evict``) releases the runner with GSTOP after its preempted
-FINAL, or on its next GET when it is idle. Not ported yet (ROADMAP queue 1
-item 9b): ``FleetAgentServer``, ``SinkServer`` and the BATCH verb.
+FINAL, or on its next GET when it is idle.
+
+Fleet agents, the journal sink and heartbeat batching (JAX `rpc.py:679-699,
+1102-1220, 1843-1907`): ``FleetAgentServer`` (AJOIN, ALEASE, ADONE, under the
+fleet ticket's secret) hands leases to agent processes through the
+attached ``fleet.agent.AgentPlane``; ``SinkServer`` (JSINK, under a secret of
+its own) feeds the attached ``telemetry.sink.JournalSink``; both ride the
+fleet's shared listener. A runner whose beats failed banks them, coalesced
+per trial, and re-delivers them as one BATCH frame whose beats run through
+the METRIC handler, the reply being the newest beat's.
 
 Wire layout as in the JAX package: 4-byte big-endian length, 32-byte
 HMAC-SHA256 of the payload under the experiment secret, payload. The payload
@@ -530,6 +538,22 @@ class Server:
                 telem.observe_ms("rpc.handle_ms.{}".format(msg.get("type")),
                                  (time.monotonic() - t0) * 1e3)
 
+    def _batch(self, msg):
+        """Coalesced heartbeats (JAX `rpc.py:679-699`): ``beats`` is an
+        oldest-first list of METRIC payloads a runner banked while its beats
+        failed. Each runs through the METRIC handler (liveness, rstats,
+        metric history), and the reply is the newest beat's: a STOP about a
+        retired beat's trial is stale, and beats re-draw STOP until it is
+        honored."""
+        metric = self._handlers.get("METRIC")
+        if metric is None:
+            return {"type": "ERR", "error": "this server does not accept heartbeats"}
+        reply: Dict[str, Any] = {"type": "OK"}
+        for beat in msg.get("beats") or []:
+            reply = metric({**beat, "type": "METRIC",
+                            "partition_id": msg["partition_id"]})
+        return reply
+
     def _drop(self, conn):
         self._buffers.pop(conn, None)
         try:
@@ -608,7 +632,7 @@ class OptimizationServer(Server):
 
     def _register_handlers(self) -> None:
         super()._register_handlers()
-        self._handlers.update(REG=self._reg, METRIC=self._metric,
+        self._handlers.update(REG=self._reg, METRIC=self._metric, BATCH=self._batch,
                               FINAL=self._final, GET=self._get, LOG=self._log)
 
     def _tick(self) -> None:
@@ -1161,6 +1185,92 @@ class SharedServer:
 # --------------------------------------------------------------------- client
 
 
+class FleetAgentServer(Server):
+    """The fleet host's control plane for agent processes (``python -m
+    maggy_tpu_torch.fleet agent``), published on the fleet's shared listener
+    under the fleet ticket's secret (JAX `rpc.py:1102-1176`):
+
+    - ``AJOIN``: an agent declares its host, chips, process index and OS pid
+      and is admitted into an agent slot; the reply carries its ``agent`` id,
+      the poll cadence and the liveness bound.
+    - ``ALEASE``: the agent's idle poll and idle heartbeat. Replies ``ABIND``
+      (a lease: the experiment's secret, partition id, executor config and
+      the train function's ``module:function`` path), ``OK`` (nothing to do)
+      or ``AGSTOP`` (the fleet is shutting down).
+    - ``ADONE``: the agent's executor loop returned; the lease closes and the
+      agent goes back to the idle pool.
+
+    The handlers delegate to the attached ``fleet.agent.AgentPlane``."""
+
+    def __init__(self, max_agents: int, secret: Optional[str] = None):
+        # The plane, attached by the fleet; None rejects every agent verb.
+        self.agent_plane = None
+        super().__init__(secret, max_agents)
+
+    def attach_plane(self, plane) -> None:
+        self.agent_plane = plane
+
+    def _register_handlers(self) -> None:
+        super()._register_handlers()
+        self._handlers.update(AJOIN=self._ajoin, ALEASE=self._alease, ADONE=self._adone)
+
+    def _no_plane(self):
+        return {"type": "ERR", "error": "this fleet does not accept remote agents"}
+
+    def _ajoin(self, msg):
+        plane = self.agent_plane
+        if plane is None:
+            return self._no_plane()
+        return plane.agent_join(host=msg.get("host"), chips=msg.get("chips"),
+                                process_index=msg.get("process_index"),
+                                os_pid=msg.get("os_pid"), agent=msg.get("agent"))
+
+    def _alease(self, msg):
+        plane = self.agent_plane
+        if plane is None:
+            return self._no_plane()
+        return plane.agent_lease(agent=msg.get("agent"), offset_s=msg.get("offset_s"),
+                                 rtt_s=msg.get("rtt_s"))
+
+    def _adone(self, msg):
+        plane = self.agent_plane
+        if plane is None:
+            return self._no_plane()
+        return plane.agent_done(agent=msg.get("agent"), error=msg.get("error"))
+
+
+class SinkServer(Server):
+    """The fleet host's journal-sink tenant (``telemetry/sink.py``, JAX
+    `rpc.py:1178-1220`), published on the shared listener under its own
+    secret, so a journal shipper can neither lease agents nor speak to any
+    experiment. One verb, ``JSINK``: a batch of one source's journal events,
+    each stamped with the source's monotonic ``sid``, and an optional
+    counter snapshot; the reply acks the highest sid the sink holds.
+    Batches land on this tenant's own dispatch thread, so ingestion never
+    delays an experiment's control traffic, and a full queue sheds frames,
+    which the shipper treats as a dead sink."""
+
+    def __init__(self, secret: Optional[str] = None):
+        # The sink service (telemetry.sink.JournalSink), attached by the
+        # fleet; None rejects JSINK.
+        self.sink = None
+        super().__init__(secret, 1)
+
+    def attach_sink(self, sink) -> None:
+        self.sink = sink
+
+    def _register_handlers(self) -> None:
+        super()._register_handlers()
+        self._handlers.update(JSINK=self._jsink)
+
+    def _jsink(self, msg):
+        sink = self.sink
+        if sink is None:
+            return {"type": "ERR", "error": "this fleet has no journal sink attached"}
+        return sink.ingest(source=msg.get("source"), events=msg.get("events"),
+                           counters=msg.get("counters"), client_t=msg.get("client_t"))
+
+
 class Client:
     """Runner-side control-plane client (reference `rpc.py:440-593`): one
     request socket plus one heartbeat socket; the heartbeat thread ships
@@ -1246,8 +1356,29 @@ class Client:
             time.sleep(constants.CLIENT_POLL_INTERVAL_S)
         raise TimeoutError("Registration barrier not reached.")
 
+    @staticmethod
+    def _queue_beat(pending: list, payload: Dict[str, Any]) -> None:
+        """Bank a failed beat for BATCH re-delivery (JAX `rpc.py:1843-1864`):
+        coalesce with the newest banked beat of the same trial (the fresher
+        metric, step and span; the logs concatenated, newest last, capped at
+        CLIENT_MAX_PENDING_LOG_LINES), and keep at most
+        CLIENT_MAX_PENDING_BEATS, dropping the oldest. ``rstats`` is stripped:
+        that delta requeues through the runner-stats buffer."""
+        beat = {k: v for k, v in payload.items() if k != "rstats"}
+        if pending and pending[-1].get("trial_id") == beat.get("trial_id"):
+            beat["logs"] = ((pending[-1].get("logs") or []) + (beat.get("logs") or []))[
+                -constants.CLIENT_MAX_PENDING_LOG_LINES:]
+            pending[-1] = beat
+            return
+        pending.append(beat)
+        del pending[:-constants.CLIENT_MAX_PENDING_BEATS]
+
     def start_heartbeat(self, reporter) -> None:
         def beat():
+            # Beats whose ship failed, oldest first: re-delivered as one
+            # BATCH frame with the next beat, which rides last so the reply
+            # is about the newest data.
+            pending: list = []
             while not self._hb_stop.is_set():
                 try:
                     data = reporter.get_data()
@@ -1267,18 +1398,27 @@ class Client:
                 delta = stats.snapshot_delta() if stats is not None else None
                 if delta:
                     payload["rstats"] = delta
+                send = {"type": "BATCH", "beats": pending + [payload]} if pending else payload
                 t_send = time.monotonic()
                 try:
-                    resp = self._request(payload, heartbeat=True)
+                    resp = self._request(send, heartbeat=True)
+                    if pending:
+                        CLIENT_METRICS.counter("rpc.client.batched_beats").inc(len(pending))
+                        pending = []
                     if stats is not None:
                         # Retries and backoff included: the control-plane
                         # latency the runner experiences.
                         stats.observe_hb_rtt((time.monotonic() - t_send) * 1e3)
-                except (ConnectionError, ValueError):
+                except (ConnectionError, ValueError) as e:
                     resp = {}
                     if delta:
                         # Re-send on the next beat instead of losing it.
                         stats.requeue_delta(delta)
+                    if isinstance(e, ConnectionError):
+                        self._queue_beat(pending, payload)
+                    else:
+                        # Too large a frame: the bank can never ship.
+                        pending = []
                 if resp.get("type") == "STOP":
                     # Only stop the trial the beat was ABOUT: the runner may
                     # have rolled over to the next trial meanwhile.

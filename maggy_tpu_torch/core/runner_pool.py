@@ -93,7 +93,11 @@ class ThreadRunnerPool(RunnerPool):
                     errors.append(e)
                 traceback.print_exc()
 
-        threads = [threading.Thread(target=target, args=(i,), name="runner-{}".format(i))
+        # Daemon threads: a runner that never returns (a test whose sweep
+        # was cut by its time limit, a wedged native call) must not hold
+        # its process open at exit. run() still waits for every runner.
+        threads = [threading.Thread(target=target, args=(i,), name="runner-{}".format(i),
+                                    daemon=True)
                    for i in range(self.num_workers)]
         for t in threads:
             t.start()

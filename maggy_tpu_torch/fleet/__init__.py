@@ -12,12 +12,15 @@ persistent runner fleet (see scheduler.py for the design).
                                     block=False)
         results = a.result(), b.result()
 
-CLI: ``python -m maggy_tpu_torch.fleet start|submit|status|soak`` (spool-file
-submissions for use from other processes); live view:
+CLI: ``python -m maggy_tpu_torch.fleet start|submit|status|soak|agent``
+(spool-file submissions for use from other processes, and agent processes
+that ``Fleet(max_agents=N)`` leases like runners); live view:
 ``python -m maggy_tpu_torch.monitor --fleet <home_dir>``. The port's copy of
-``maggy_tpu/fleet/__init__.py`` without the remote agents (``AgentPlane``,
-``FleetAgent``, ROADMAP queue 1 item 9b).
+``maggy_tpu/fleet/__init__.py``.
 """
+
+from maggy_tpu_torch.fleet.agent import (AGENT_TICKET_NAME, AgentPlane, FleetAgent,
+                                         read_fleet_ticket)
 
 from maggy_tpu_torch.fleet.scheduler import (FLEET_JOURNAL_NAME, ExperimentEntry, Fleet,
                                              FleetBinding, FleetLeasedPool, FleetPolicy,
@@ -29,4 +32,5 @@ __all__ = [
     "FleetBinding", "FleetLeasedPool", "FleetSubmission",
     "ExperimentEntry", "FLEET_JOURNAL_NAME", "priority_rank",
     "replay_fleet_journal",
+    "AgentPlane", "FleetAgent", "AGENT_TICKET_NAME", "read_fleet_ticket",
 ]

@@ -2,15 +2,21 @@
 
     start   host a fleet in this process and serve submissions from a
             spec file and/or the fleet home's ``queue/`` spool directory
+            (``--max-agents N`` also opens the agent plane and writes
+            ``<home>/agent_ticket.json``)
+    agent   run an agent process: read the fleet ticket, JOIN, and serve
+            leases on ``--device`` (default cuda) until the fleet releases
+            it
     submit  drop a submission JSON into a running fleet's spool
     status  print the fleet's status.json + journal-replayed shares
     soak    run the built-in two-experiment preemption soak (invariants
             checked; exit 1 on violation); ``--slow-tenant`` runs the
-            head-of-line isolation soak
+            head-of-line isolation soak, ``--agent`` the agent-kill soak
+            (invariant 11) with real agent processes on the CPU, ``--sink``
+            the journal-sink soak (invariant 12)
 
-The port's copy of ``maggy_tpu/fleet/__main__.py``. ``agent``, ``start
---max-agents``, ``soak --agent`` and ``soak --sink`` need the remote-agent
-plane or the journal sink and exit non-zero naming ROADMAP queue 1 item 9b.
+The port's copy of ``maggy_tpu/fleet/__main__.py``; the soaks run without the
+JAX package's lock-order witness (ROADMAP queue 1 item 13).
 
 A submission spec names a module-level train function and the
 OptimizationConfig fields (searchspace as ``{name: [TYPE, range]}``):
@@ -145,13 +151,14 @@ def _cmd_start(args) -> int:
     from maggy_tpu_torch.fleet import Fleet
 
     env = EnvSing.get_instance()
-    if args.max_agents:
-        print(_UNPORTED_AGENTS.format("start --max-agents"), file=sys.stderr)
-        return 2
     fleet = Fleet(runners=args.runners, name=args.name,
                   home_dir=args.home, max_active=args.max_active,
                   max_queued=args.max_queued,
-                  preempt_grace_s=args.preempt_grace)
+                  preempt_grace_s=args.preempt_grace,
+                  max_agents=args.max_agents,
+                  bind_host=args.bind_host,
+                  agent_liveness_s=args.agent_liveness,
+                  sink=False if args.no_sink else None)
     spool = fleet.home_dir + "/queue"
     env.mkdir(spool)
     handles: Dict[str, Any] = {}
@@ -160,6 +167,8 @@ def _cmd_start(args) -> int:
         print("fleet {!r}: {} runner(s), {} agent slot(s), home {}".format(
             fleet.name, fleet.num_runners, fleet.max_agents,
             fleet.home_dir), flush=True)
+        if fleet.agent_plane is not None:
+            print("agent ticket: {}/agent_ticket.json".format(fleet.home_dir), flush=True)
         for spec_path in args.spec or []:
             with open(spec_path) as f:
                 loaded = json.load(f)
@@ -213,23 +222,21 @@ def _cmd_status(args) -> int:
     return 0
 
 
-_UNPORTED_AGENTS = ("{}: remote fleet agents and the journal sink are not ported yet "
-                    "(ROADMAP queue 1 item 9b)")
-
-
 def _cmd_agent(args) -> int:
-    print(_UNPORTED_AGENTS.format("agent"), file=sys.stderr)
-    return 2
+    from maggy_tpu_torch.fleet.agent import agent_main
+
+    return agent_main(args)
 
 
 def _cmd_soak(args) -> int:
-    from maggy_tpu_torch.fleet.soak import run_fleet_soak, run_slow_tenant_soak
+    from maggy_tpu_torch.fleet.soak import (run_agent_soak, run_fleet_soak,
+                                            run_sink_soak, run_slow_tenant_soak)
 
-    if args.sink or args.agent:
-        print(_UNPORTED_AGENTS.format("soak --sink" if args.sink else "soak --agent"),
-              file=sys.stderr)
-        return 2
-    if args.slow_tenant:
+    if args.sink:
+        report = run_sink_soak(seed=args.seed)
+    elif args.agent:
+        report = run_agent_soak(seed=args.seed)
+    elif args.slow_tenant:
         report = run_slow_tenant_soak(seed=args.seed)
     else:
         report = run_fleet_soak(runners=args.runners, seed=args.seed)
@@ -272,11 +279,60 @@ def main(argv=None) -> int:
                     help="exit after this many idle seconds (no pending "
                          "experiments, empty spool); default: run forever")
     ps.add_argument("--max-agents", type=int, default=0,
-                    help="remote-agent slots: not ported yet (ROADMAP queue 1 "
-                         "item 9b); only 0 runs")
+                    help="agent slots: >0 opens the agent plane and writes "
+                         "<home>/agent_ticket.json for `python -m "
+                         "maggy_tpu_torch.fleet agent` processes (default 0: "
+                         "thread runners only)")
+    ps.add_argument("--bind-host", default="127.0.0.1",
+                    help="address the shared listener binds (default "
+                         "loopback; 0.0.0.0 for agents on other hosts, the "
+                         "ticket then advertising this host's address)")
+    ps.add_argument("--agent-liveness", type=float, default=None,
+                    help="seconds of silence after which an agent is "
+                         "declared lost (default 10)")
+    ps.add_argument("--no-sink", action="store_true",
+                    help="no journal sink (<home>/journal/): tenants with "
+                         "config.sink journal locally, agents keep their "
+                         "agent.jsonl (default: the sink is on whenever "
+                         "the fleet's telemetry is)")
 
-    sub.add_parser("agent", help="remote fleet-agent daemon: not ported yet "
-                                 "(ROADMAP queue 1 item 9b)")
+    pa = sub.add_parser("agent", help="run a fleet agent process")
+    pa.add_argument("--ticket",
+                    help="path to the fleet's agent_ticket.json (written by "
+                         "`start --max-agents`)")
+    pa.add_argument("--wait-ticket", type=float, default=30.0,
+                    help="seconds to wait for the ticket file to appear")
+    pa.add_argument("--fleet-addr",
+                    help="fleet control-plane address HOST:PORT (instead of "
+                         "--ticket)")
+    pa.add_argument("--secret", help="fleet secret (hex)")
+    pa.add_argument("--secret-file", help="file containing the fleet secret")
+    pa.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where this agent's trials run: cuda (the default; "
+                         "the agent refuses to start without a visible card) "
+                         "or cpu (every card hidden from the process)")
+    pa.add_argument("--chips", type=int, default=1,
+                    help="CUDA devices this agent declares (and pins to, "
+                         "with --pin)")
+    pa.add_argument("--process-index", type=int, default=0,
+                    help="this agent's index among the agents on this host "
+                         "(selects its devices with --pin)")
+    pa.add_argument("--pin", action="store_true",
+                    help="pin this process to its disjoint CUDA devices "
+                         "(CUDA_VISIBLE_DEVICES) before CUDA starts")
+    pa.add_argument("--obs-port", type=int, default=None,
+                    help="per-agent observability: serve /healthz and "
+                         "/metrics on this port (0 = ephemeral; default off)")
+    pa.add_argument("--home", help="agent scratch dir (its journal); "
+                                   "default: a temp dir")
+    pa.add_argument("--profile", action="store_true",
+                    help="capture a torch.profiler trace per trial")
+    pa.add_argument("--max-leases", type=int, default=None,
+                    help="exit after serving this many leases (default: run "
+                         "until AGSTOP)")
+    pa.add_argument("--idle-exit", type=float, default=None,
+                    help="exit after this many idle seconds with no lease "
+                         "(default: run until AGSTOP)")
 
     pq = sub.add_parser("submit", help="queue a spec into a fleet's spool")
     pq.add_argument("--home", required=True)
@@ -290,11 +346,17 @@ def main(argv=None) -> int:
     pk.add_argument("--runners", type=int, default=2)
     pk.add_argument("--seed", type=int, default=7)
     pk.add_argument("--agent", action="store_true",
-                    help="the agent-kill soak: not ported yet (ROADMAP "
-                         "queue 1 item 9b)")
+                    help="run the agent-kill soak instead: agent processes "
+                         "(--device cpu) serve leases over sockets, one is "
+                         "SIGKILLed mid-lease, and invariant 11 (lease "
+                         "revoked, trial requeued exactly once) is checked "
+                         "from the journals")
     pk.add_argument("--sink", action="store_true",
-                    help="the journal-sink soak: not ported yet (ROADMAP "
-                         "queue 1 item 9b)")
+                    help="run the journal-sink soak instead: the fleet's "
+                         "sink is killed mid-soak and restarted; invariant "
+                         "12 (degrade to local journals, re-ship on "
+                         "reconnect, no lost or duplicate event, no failed "
+                         "experiment)")
     pk.add_argument("--slow-tenant", action="store_true",
                     help="run the slow-tenant isolation soak instead: one "
                          "tenant's handlers artificially delayed, other "

@@ -9,12 +9,12 @@ The port's copy of ``maggy_tpu/fleet/scheduler.py``: ``FleetSaturated``,
 vocabulary, so either package replays the other's ``fleet.jsonl``. Its
 runners are thread runners of this process; on the card they share its
 CUDA context, and a runner re-bound to another tenant keeps the process's
-warm cache (``train/warm.py``), whose slots key by program. Not ported yet
-(ROADMAP queue 1 item 9b): the remote-agent plane (``max_agents > 0``
-raises) and the journal sink (``sink=True`` raises; ``sink=None`` starts
-none, and no tenant ships to a sink: ``config.sink`` stays refused), so the
-agent-slot bookkeeping here only ever sees thread runners. Gang blocks wait
-for gangs (item 8): ``request_gang`` raises, and the JAX scheduler's block
+warm cache (``train/warm.py``), whose slots key by program. With
+``max_agents > 0`` agent processes (``fleet/agent.py``) join as runners in
+agent slots, each with its own CUDA context; the journal sink
+(``telemetry/sink.py``) is on whenever the fleet's telemetry is, and a
+tenant with ``config.sink`` ships its journal to it. Gang blocks wait for
+gangs (ROADMAP queue 1 item 8): ``request_gang`` raises, and the JAX scheduler's block
 state (reservations, parked blocks of a failed tenant and their expiry, the
 block checks in binding and preemption, ``FleetBinding.request_gang`` /
 ``release_gang``, ``FleetLeasedPool.chip_of``) is left out with it.
@@ -93,23 +93,6 @@ class FleetSaturated(RuntimeError):
     a ``shed`` event) instead of queued unboundedly. Callers back off
     and resubmit; the spool feeder simply leaves specs unclaimed until
     the queue drains."""
-
-
-def train_fn_path(fn) -> Optional[str]:
-    """``module:function`` of a module-level callable, or None when it
-    cannot be named on the wire (lambda, closure, method, ``__main__``):
-    what a remote agent's lease would ship (``maggy_tpu/fleet/agent.py:
-    75-90``)."""
-    import sys
-
-    mod = getattr(fn, "__module__", None)
-    qual = getattr(fn, "__qualname__", None)
-    if not mod or not qual or mod == "__main__" or "<" in qual or "." in qual:
-        return None
-    module = sys.modules.get(mod)
-    if module is None or getattr(module, qual, None) is not fn:
-        return None
-    return "{}:{}".format(mod, qual)
 
 
 def priority_rank(priority) -> int:
@@ -910,7 +893,7 @@ class FleetBinding:
         self.entry = entry
 
     def attach_server(self, server) -> Tuple[str, int]:
-        return self.fleet.shared_server.attach(server)
+        return self.fleet.shared_server.attach(server, host=self.fleet.bind_host)
 
     def lease_pool(self, driver) -> "FleetLeasedPool":
         return FleetLeasedPool(self, driver)
@@ -966,6 +949,11 @@ class FleetLeasedPool(RunnerPool):
                                             partition_id)
         if runner is None:
             return False
+        if fleet.scheduler.is_agent_slot(runner):
+            # An agent process holds the lease: the plane SIGKILLs it (a
+            # same-host kill; the chaos and soak path).
+            plane = fleet.agent_plane
+            return plane is not None and plane.kill_agent_by_runner(runner)
         return fleet.pool.kill_worker(runner)
 
     def terminate(self) -> None:
@@ -989,20 +977,17 @@ class Fleet:
                  obs_port: Optional[int] = None,
                  obs_host: str = "127.0.0.1",
                  max_agents: int = 0,
-                 sink: Optional[bool] = None):
+                 sink: Optional[bool] = None,
+                 bind_host: str = "127.0.0.1",
+                 agent_liveness_s: Optional[float] = None):
         if pool != "thread":
             raise ValueError(
                 "fleet pools are in-process ('thread'): experiments are "
                 "submitted as live callables and scheduler bindings cross "
-                "no process boundary (got pool={!r})".format(pool))
-        if int(max_agents) > 0:
-            raise NotImplementedError(
-                "max_agents > 0 opens the fleet's remote-agent plane, which is not "
-                "ported yet (ROADMAP queue 1 item 9b)")
-        if sink:
-            raise NotImplementedError(
-                "sink=True starts the fleet's journal sink, which is not ported yet "
-                "(ROADMAP queue 1 item 9b)")
+                "no process boundary (got pool={!r}). Cross-process "
+                "capacity comes from agents instead: pass max_agents=N and "
+                "start agents with `python -m maggy_tpu_torch.fleet agent "
+                "--ticket <home>/agent_ticket.json`".format(pool))
         from maggy_tpu_torch.core.environment import EnvSing
         from maggy_tpu_torch.core.rpc import SharedServer
         from maggy_tpu_torch.telemetry import Telemetry
@@ -1022,8 +1007,23 @@ class Fleet:
             max_active=max_active, max_queued=max_queued,
             preempt_grace_s=preempt_grace_s)
         self.shared_server = SharedServer()
-        # Always 0 in the port: the agent plane waits for item 9b.
+        # Agents (fleet/agent.py): max_agents > 0 opens the agent plane at
+        # start(), a FleetAgentServer on the shared listener and the fleet
+        # ticket in home_dir; its proxies declare an agent lost after
+        # agent_liveness_s of silence. The listener binds bind_host, and
+        # the ticket advertises this host's address when that is a
+        # wildcard.
         self.max_agents = int(max_agents)
+        self.bind_host = bind_host
+        self._agent_liveness_s = agent_liveness_s
+        self.agent_plane = None
+        # The journal sink (telemetry/sink.py): per-source journals under
+        # <home>/journal/, fed by a SinkServer tenant on the shared
+        # listener. Default: on whenever the fleet's telemetry is (tenants
+        # still opt in with config.sink).
+        self.sink_enabled = bool(telemetry) if sink is None else bool(sink)
+        self.sink = None
+        self.sink_server = None
         self._pool_thread: Optional[threading.Thread] = None
         self._tick_thread: Optional[threading.Thread] = None
         self._started = False
@@ -1053,13 +1053,24 @@ class Fleet:
             self._started = True
         self.telemetry.event("fleet", phase="start", name=self.name,
                              runners=self.num_runners, pool="thread")
+        if self.sink_enabled:
+            from maggy_tpu_torch.core.rpc import SinkServer
+            from maggy_tpu_torch.telemetry.sink import SINK_DIR_NAME, JournalSink
+
+            self.sink = JournalSink(self.env, self.home_dir + "/" + SINK_DIR_NAME,
+                                    telemetry=self.telemetry)
+            self.sink_server = SinkServer()
+            self.sink_server.telemetry = self.telemetry
+            self.sink_server.attach_sink(self.sink)
+            self.shared_server.attach(self.sink_server, host=self.bind_host)
         if self._obs_port is not None and self.telemetry.enabled:
             from maggy_tpu_torch.telemetry import obs as obs_mod
 
             self._obs_registration = obs_mod.ObsRegistration(
                 key="fleet:{}".format(self.name),
                 labels={"experiment": self.name, "run": "fleet"},
-                telemetry=self.telemetry, status_fn=self.status)
+                telemetry=self.telemetry, status_fn=self.status,
+                snapshots_fn=self._federated_metrics)
             server = obs_mod.register(self._obs_registration,
                                       port=self._obs_port,
                                       host=self._obs_host)
@@ -1073,6 +1084,13 @@ class Fleet:
         self._tick_thread = threading.Thread(
             target=self._tick_loop, daemon=True, name="fleet-tick")
         self._tick_thread.start()
+        if self.max_agents > 0:
+            from maggy_tpu_torch.fleet.agent import DEFAULT_LIVENESS_S, AgentPlane
+
+            self.agent_plane = AgentPlane(
+                self, max_agents=self.max_agents,
+                liveness_s=self._agent_liveness_s if self._agent_liveness_s is not None
+                else DEFAULT_LIVENESS_S).start()
         self._dump_status()
         return self
 
@@ -1118,10 +1136,18 @@ class Fleet:
             for t in subs:
                 t.join(timeout=max(0.1, deadline - time.monotonic()))
         self.scheduler.stop()
+        if self.agent_plane is not None:
+            # After the scheduler's stop: the proxies wake from
+            # next_binding, and the agents' next polls read AGSTOP.
+            self.agent_plane.stop()
         for t in (self._pool_thread, self._tick_thread):
             if t is not None:
                 t.join(timeout=5)
         self.shared_server.stop()
+        if self.sink is not None:
+            # After the listener: no JSINK frame can land any more, so the
+            # sink seals every per-source journal.
+            self.sink.stop()
         if self._obs_registration is not None:
             from maggy_tpu_torch.telemetry import obs as obs_mod
 
@@ -1130,6 +1156,41 @@ class Fleet:
         self.telemetry.event("fleet", phase="stop")
         self._dump_status()
         self.telemetry.close()
+
+    # ------------------------------------------------------------ sink plane
+
+    def sink_binding(self):
+        """Where this fleet's journal shippers dial (a
+        ``telemetry.sink.SinkBinding``), or None while the sink is off or
+        not started."""
+        if self.sink_server is None or self.shared_server.addr is None:
+            return None
+        from maggy_tpu_torch.telemetry.sink import SinkBinding
+
+        return SinkBinding(self.shared_server.addr, self.sink_server.secret_hex)
+
+    def kill_sink(self) -> bool:
+        """Chaos and test hook (invariant 12): detach the sink tenant from
+        the shared listener, so JSINK frames fail authentication and the
+        shippers degrade to their local journals. The sink service (its
+        writers and dedup state) stays for ``restart_sink``."""
+        if self.sink_server is None:
+            return False
+        self.shared_server.detach(self.sink_server)
+        return True
+
+    def restart_sink(self) -> bool:
+        """Re-attach the sink tenant under the same secret: degraded
+        shippers reconnect on their next cycle and re-ship their unacked
+        suffix (the sink's sid dedup absorbs any overlap)."""
+        if self.sink_server is None:
+            return False
+        self.shared_server.attach(self.sink_server, host=self.bind_host)
+        return True
+
+    def _federated_metrics(self):
+        """Each source's shipped counters for the fleet's /metrics."""
+        return self.sink.federated_snapshots() if self.sink is not None else []
 
     def __enter__(self) -> "Fleet":
         return self.start()
@@ -1151,6 +1212,8 @@ class Fleet:
                              min_runners=min_runners,
                              max_runners=max_runners)
         base = name or getattr(config, "name", "experiment")
+        from maggy_tpu_torch.fleet.agent import train_fn_path
+
         fn_path = train_fn_path(train_fn)
         with self._lock:
             if self._stopped:
@@ -1235,7 +1298,9 @@ class Fleet:
         return {"t": time.time(), "name": self.name,
                 "runners": self.num_runners, "pool": "thread",
                 "stopped": self._stopped,
-                "max_agents": self.max_agents, "agents": [], "sink": {},
+                "max_agents": self.max_agents,
+                "agents": self.agent_plane.snapshot() if self.agent_plane is not None else [],
+                "sink": self.sink.snapshot() if self.sink is not None else {},
                 **snap}
 
     def _dump_status(self) -> None:
@@ -1415,6 +1480,17 @@ def replay_fleet_journal(path: str, env=None,
     from maggy_tpu_torch.telemetry import JOURNAL_NAME
     from maggy_tpu_torch.telemetry.goodput import compute_goodput
 
+    home = os.path.dirname(os.path.abspath(path))
+    shipped_by_source: Dict[str, Any] = {}
+    try:
+        from maggy_tpu_torch.telemetry.sink import SINK_DIR_NAME, read_sink_dir
+
+        sink_dir = os.path.join(home, SINK_DIR_NAME)
+        if os.path.isdir(sink_dir):
+            shipped_by_source = read_sink_dir(sink_dir)
+    except Exception:  # noqa: BLE001 - a torn sink dir must not kill replay
+        shipped_by_source = {}
+
     tenants: Dict[str, Dict[str, Any]] = {}
     fleet_held = 0.0
     fleet_train = 0.0
@@ -1425,9 +1501,18 @@ def replay_fleet_journal(path: str, env=None,
             jp = os.path.join(exp_dir, JOURNAL_NAME)
             if os.path.exists(jp):
                 local = read_events(jp, env=env)
-        # A tenant's own journal: the port has no journal sink (item 9b),
-        # so there is no shipped segment to merge with it.
-        gp = compute_goodput(local) if local is not None else {}
+        shipped = None
+        if shipped_by_source:
+            from maggy_tpu_torch.telemetry.sink import sanitize_source
+
+            shipped = shipped_by_source.get(sanitize_source(name))
+        gp: Dict[str, Any] = {}
+        if shipped is not None and local is not None:
+            from maggy_tpu_torch.telemetry.sink import merge_source_events
+
+            gp = compute_goodput(merge_source_events(shipped, local))
+        elif local is not None or shipped is not None:
+            gp = compute_goodput(local if local is not None else shipped)
         tenants[name] = {"chip_seconds": oe["runner_seconds"],
                          "goodput": gp}
         held = gp.get("held_chip_s") or 0.0

@@ -462,7 +462,9 @@ def main(argv=None) -> int:
     p.add_argument("--once", action="store_true",
                    help="print one snapshot and exit")
     p.add_argument("--logs", action="store_true",
-                   help="also stream executor log lines (reporter.log)")
+                   help="also stream executor log lines (reporter.log and, "
+                        "with ship_prints=True, the train function's print() "
+                        "output)")
     p.add_argument("--telem", action="store_true",
                    help="poll the TELEM verb instead of LOG: span-derived "
                         "scheduling numbers (hand-off gap, early-stop "

@@ -7,9 +7,10 @@ receive its partition id and executor config, and runs the trial-executor
 loop (register -> heartbeat -> get_suggestion -> train -> FINAL) until
 GSTOP. Each agent is its own process with its own CUDA context. The port's
 driver binds loopback, so its agents run on the driver's host; the JAX
-package's ``bind_host`` (0.0.0.0 for remote pools, the ticket advertising
-the host's address) waits for the cross-host fleet (ROADMAP queue 1 item
-9b).
+package's ``OptimizationConfig.bind_host`` (0.0.0.0 for remote pools, the
+ticket advertising the host's address) waits for the multi-host work of
+ROADMAP queue 1 item 8. Agents on other hosts join a fleet instead:
+``Fleet(bind_host=...)`` and ``python -m maggy_tpu_torch.fleet agent``.
 
 The train function is named by a dotted path (``pkg.module:fn``) and
 imported on the agent; only declarative data crosses the network. Importing
@@ -28,8 +29,8 @@ or, without a shared filesystem:
 Cut (ROADMAP queue 1 item 8): the distributed-training branch of
 ``run_agent`` (a JOIN reply whose ``trial_type`` is "distributed"), its
 ``--config`` factory, and ``--chips-per-agent`` / ``--agent-index``
-device pinning for gang sub-slices. ``--profile`` is refused: per-trial
-profiles are not ported (``config.profile``).
+device pinning for gang sub-slices. ``--profile`` traces every trial the
+agent runs (``profiling.trial_profile``).
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ def read_ticket(path: str, wait_s: float = 0.0) -> dict:
 
 
 def run_agent(driver_addr: Tuple[str, int], secret: str, train_fn: Callable,
-              partition_id: Optional[int] = None) -> int:
+              partition_id: Optional[int] = None, profile: bool = False) -> int:
     """Join the experiment and run the trial loop to its GSTOP; returns the
     partition id served."""
     info = join_experiment(driver_addr, secret, partition_id)
@@ -110,7 +111,7 @@ def run_agent(driver_addr: Tuple[str, int], secret: str, train_fn: Callable,
         server_addr=driver_addr, secret=secret, hb_interval=info["hb_interval"],
         exp_dir=info["exp_dir"], optimization_key=info["optimization_key"],
         train_fn=train_fn, warm_start=info.get("warm_start", True),
-        trial_type=info.get("trial_type", "optimization"))
+        trial_type=info.get("trial_type", "optimization"), profile=profile)
     executor(info["partition_id"])
     return info["partition_id"]
 
@@ -130,10 +131,8 @@ def main(argv=None) -> int:
     p.add_argument("--partition-id", type=int, default=None,
                    help="reclaim a specific runner slot (restart recovery)")
     p.add_argument("--profile", action="store_true",
-                   help="per-trial profiles: not ported yet")
+                   help="capture a torch.profiler trace per trial")
     args = p.parse_args(argv)
-    if args.profile:
-        p.error("--profile: per-trial profiles are not ported yet")
 
     if args.ticket:
         ticket = read_ticket(args.ticket, wait_s=args.wait_ticket)
@@ -153,7 +152,8 @@ def main(argv=None) -> int:
         p.error("one of --ticket or --driver is required")
 
     train_fn = load_train_fn(args.train)
-    pid = run_agent(addr, secret, train_fn, partition_id=args.partition_id)
+    pid = run_agent(addr, secret, train_fn, partition_id=args.partition_id,
+                    profile=args.profile)
     print("runner {} done".format(pid))
     return 0
 

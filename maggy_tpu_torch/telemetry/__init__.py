@@ -25,8 +25,9 @@ phase to ``chaos_hook`` (an armed chaos engine's ``on_trial_phase``), stamps
 each partition's last progress for the hang watchdog, and its snapshot
 carries the ``health`` engine's findings (``health.py``); the observability
 server (``obs.py``) renders its registry and snapshot, and ``profiling.py``
-captures torch.profiler traces at a flagged anomaly. The fleet journal sink
-is not ported yet (ROADMAP queue 1 item 9b).
+captures torch.profiler traces at a flagged anomaly. With ``sink`` (a
+fleet's ``SinkBinding``) the journal ships to the fleet's journal sink
+(``sink.py``) instead of writing its file directly.
 """
 
 from __future__ import annotations
@@ -55,17 +56,26 @@ class Telemetry:
 
     def __init__(self, env=None, journal_path: Optional[str] = None,
                  enabled: bool = True, flush_interval_s: float = 1.0,
-                 sink=None, fsync: Optional[bool] = None):
-        if sink is not None:
-            raise NotImplementedError(
-                "the fleet journal sink is not ported yet (ROADMAP queue 1 item 9b)")
+                 sink=None, sink_source: Optional[str] = None,
+                 fsync: Optional[bool] = None):
         self.enabled = enabled
         self.metrics = MetricsRegistry()
         self.spans = SpanTracker()
         self.journal: Optional[TelemetryJournal] = None
         if enabled and env is not None and journal_path:
-            self.journal = TelemetryJournal(
-                env, journal_path, flush_interval_s=flush_interval_s, fsync=fsync)
+            if sink is not None:
+                # Fleet journal-sink routing (sink.py): events ship to the
+                # fleet's sink (a telemetry.sink.SinkBinding) through the
+                # process's shipper thread; journal_path becomes the local
+                # file the shipper degrades to while the sink is down.
+                from maggy_tpu_torch.telemetry.sink import SinkJournal
+
+                self.journal = SinkJournal(env, journal_path, binding=sink,
+                                           source=sink_source or journal_path,
+                                           metrics_fn=self.metrics.snapshot)
+            else:
+                self.journal = TelemetryJournal(
+                    env, journal_path, flush_interval_s=flush_interval_s, fsync=fsync)
         # Journal-less fallback buffer (no env/path given): spans still
         # derive for the TELEM verb, just without persistence.
         self._local_lock = threading.Lock()
@@ -326,8 +336,11 @@ class Telemetry:
         suffix durable now. The FINAL path runs it before its RPC reply is
         written, so an acknowledged FINAL is never absent from the recovery
         source of truth (``maggy_tpu/telemetry/__init__.py:343-355``)."""
-        if self.journal is not None:
-            self.journal.barrier()
+        # A SinkJournal owns no local durability (it ships at least once,
+        # with a local fallback spool): no barrier.
+        barrier = getattr(self.journal, "barrier", None)
+        if barrier is not None:
+            barrier()
 
     def close(self) -> None:
         if self.journal is not None:

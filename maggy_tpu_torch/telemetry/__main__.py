@@ -13,8 +13,11 @@ track per fleet runner with a lane per experiment (``fleet_trace.json``).
 ``replay`` prints the same derived scheduling numbers the driver and the
 TELEM verb compute, plus the journal's ``torn_lines`` count. ``goodput``
 on a fleet home prints each tenant's leased chip-seconds and its own
-ledger. ``trace --unified`` needs the fleet's journal sink and is not
-ported yet (ROADMAP queue 1 item 9b).
+ledger. ``trace --unified`` on a fleet home merges ``fleet.jsonl``, the
+journal sink's per-source segments (``<home>/journal/``) and the surviving
+local journals into one trace (``unified_trace.json``): a process group an
+agent, its journal moved onto the fleet's clock by its journaled clock
+offset, and ABIND -> execution -> FINAL flow arrows.
 """
 
 from __future__ import annotations
@@ -28,8 +31,6 @@ from maggy_tpu_torch.telemetry import JOURNAL_NAME, read_events, replay_journal
 from maggy_tpu_torch.telemetry.goodput import compute_goodput, render_goodput
 from maggy_tpu_torch.telemetry.trace import write_trace
 
-_UNIFIED = ("--unified: the unified trace needs the fleet's journal sink, which is not "
-            "ported yet (ROADMAP queue 1 item 9b)")
 FLEET_JOURNAL = "fleet.jsonl"
 
 
@@ -57,7 +58,11 @@ def main(argv=None) -> int:
     pt.add_argument("-o", "--out",
                     help="output file (default: <exp_dir>/trace.json)")
     pt.add_argument("--unified", action="store_true",
-                    help="fleet home dirs with a journal sink; not ported yet")
+                    help="fleet home dirs only: merge fleet.jsonl, the journal "
+                         "sink's per-source segments (<home>/journal/) and "
+                         "the surviving local journals into one trace, with "
+                         "a process group an agent, clock-offset-corrected "
+                         "timestamps and ABIND->execution->FINAL flow arrows")
     pr = sub.add_parser("replay", help="print journal-derived scheduling "
                                        "numbers as JSON")
     pr.add_argument("path", help="experiment dir or telemetry.jsonl path")
@@ -69,12 +74,13 @@ def main(argv=None) -> int:
                     help="emit the full ledger as JSON instead of the "
                          "human summary")
     args = p.parse_args(argv)
-    if getattr(args, "unified", False):
-        raise SystemExit(_UNIFIED)
     if args.command == "goodput" and _is_fleet_home(args.path):
         return _fleet_goodput(args)
     if args.command == "trace" and _is_fleet_home(args.path):
         return _fleet_trace(args)
+    if args.command == "trace" and args.unified:
+        raise SystemExit("--unified needs a fleet home dir (a directory containing "
+                         "fleet.jsonl)")
 
     journal = _resolve_journal(args.path)
     if args.command == "replay":
@@ -120,27 +126,56 @@ def _fleet_goodput(args) -> int:
 
 def _fleet_trace(args) -> int:
     """The fleet timeline: each experiment's journal is found through the
-    fleet journal's events, which carry its exp_dir."""
-    from maggy_tpu_torch.telemetry.trace import build_fleet_trace, validate_trace
+    fleet journal's events, which carry its exp_dir. With ``--unified``,
+    each experiment's stream is the exactly-once merge of its sink segment
+    and any surviving local journal, the agents' shipped journals join as
+    clock-corrected process groups, and flow arrows cross the process
+    boundary."""
+    from maggy_tpu_torch.telemetry.trace import (build_fleet_trace, build_unified_trace,
+                                                 validate_trace)
 
     fleet_events = read_events(os.path.join(args.path, FLEET_JOURNAL))
     exp_dirs = {ev["exp"]: ev["exp_dir"] for ev in fleet_events
                 if ev.get("exp") and ev.get("exp_dir")}
+    unified = args.command == "trace" and args.unified
+    sink = {}
+    if unified:
+        from maggy_tpu_torch.telemetry.sink import (SINK_DIR_NAME, merge_source_events,
+                                                    read_sink_dir, sanitize_source)
+
+        sink = read_sink_dir(os.path.join(args.path, SINK_DIR_NAME))
     experiments = {}
     for name, exp_dir in exp_dirs.items():
         jp = os.path.join(exp_dir, JOURNAL_NAME)
-        if os.path.exists(jp):
-            experiments[name] = read_events(jp)
-    trace = build_fleet_trace(fleet_events, experiments)
+        local = read_events(jp) if os.path.exists(jp) else None
+        if unified:
+            shipped = sink.pop(sanitize_source(name), None)
+            if shipped is not None or local is not None:
+                experiments[name] = merge_source_events(shipped, local)
+        elif local is not None:
+            experiments[name] = local
+    if unified:
+        # Every remaining sink source that names a joined agent is that
+        # agent's own journal.
+        agent_ids = {str(ev.get("agent")) for ev in fleet_events
+                     if ev.get("ev") == "agent" and ev.get("phase") == "join"
+                     and ev.get("agent")}
+        trace = build_unified_trace(fleet_events, experiments,
+                                    agent_journals={src: evs for src, evs in sink.items()
+                                                    if src in agent_ids})
+        default_out = "unified_trace.json"
+    else:
+        trace = build_fleet_trace(fleet_events, experiments)
+        default_out = "fleet_trace.json"
     n = validate_trace(trace)
-    out = args.out or os.path.join(args.path, "fleet_trace.json")
+    out = args.out or os.path.join(args.path, default_out)
     with open(out, "w") as f:
         json.dump(trace, f)
-    print("fleet trace: {} fleet events + {} experiment journal(s) -> {} trace events -> "
-          "{}".format(len(fleet_events), len(experiments), n, out))
+    print("{} trace: {} fleet events + {} experiment journal(s) -> {} trace events -> "
+          "{}".format("unified" if unified else "fleet", len(fleet_events),
+                      len(experiments), n, out))
     print("open in https://ui.perfetto.dev or chrome://tracing")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -180,13 +180,20 @@ class ObsRegistration:
 
     def __init__(self, key: str, labels: Dict[str, str], telemetry,
                  status_fn: Optional[Callable[[], Dict[str, Any]]] = None,
-                 health=None, profiler=None):
+                 health=None, profiler=None,
+                 snapshots_fn: Optional[Callable[
+                     [], List[Tuple[Dict[str, str], Dict[str, Any]]]]] = None):
         self.key = key
         self.labels = dict(labels)
         self.telemetry = telemetry
         self.status_fn = status_fn
         self.health = health
         self.profiler = profiler
+        #: Extra ``[(labels, registry snapshot), ...]`` rendered into
+        #: /metrics beside this registration's own registry: a fleet plugs
+        #: in its journal sink's per-source counters, so one scrape of the
+        #: fleet host shows every agent's and tenant's shipped counters.
+        self.snapshots_fn = snapshots_fn
 
 
 class ObsServer:
@@ -241,6 +248,11 @@ class ObsServer:
                               reg.telemetry.metrics.snapshot()))
             except Exception:  # noqa: BLE001 - one experiment must not break the scrape
                 continue
+            if reg.snapshots_fn is not None:
+                try:
+                    snaps.extend(reg.snapshots_fn())
+                except Exception:  # noqa: BLE001 - federation must not break the scrape
+                    pass
         return render_prometheus(snaps)
 
     def status_doc(self) -> Dict[str, Any]:

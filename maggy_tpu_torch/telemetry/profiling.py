@@ -35,6 +35,7 @@ auto captures of every experiment share one lock).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -72,6 +73,39 @@ def capture_activities() -> List[str]:
     import torch
 
     return ["cpu", "cuda"] if torch.cuda.is_initialized() else ["cpu"]
+
+
+#: A profiled trial's trace directory inside its trial directory
+#: (``config.profile``).
+TRIAL_PROFILE_DIR = "profile"
+
+
+@contextlib.contextmanager
+def trial_profile(trial_dir: str):
+    """``config.profile`` (``maggy_tpu/core/executors/trial_executor.py:
+    583-620``): trace one trial into ``<trial_dir>/profile/trace.json``,
+    recording CPU and, where the process can reach a card, CUDA. Yields the
+    trace's path, or None when the process's profiler is taken (another
+    trial's trace or a capture holds it): the trial then runs untraced.
+    Start and stop hold ``device_gate.quiesce``, as every capture does."""
+    if not _CAPTURE_LOCK.acquire(blocking=False):
+        yield None
+        return
+    try:
+        import torch
+
+        prof = _start_trace(["cpu", "cuda"] if torch.cuda.is_available() else ["cpu"])
+        if isinstance(prof, str):
+            yield None
+            return
+        path = os.path.join(trial_dir, TRIAL_PROFILE_DIR, TRACE_NAME)
+        try:
+            yield path
+        finally:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            _stop_trace(prof, path)
+    finally:
+        _CAPTURE_LOCK.release()
 
 
 class ProfileCapturer:

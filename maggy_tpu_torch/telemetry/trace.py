@@ -1,9 +1,8 @@
 """Timeline export: telemetry journal -> Chrome-trace-event / Perfetto JSON.
 
-The port's copy of ``maggy_tpu/telemetry/trace.py:1-509, :701-733``
-(``build_trace``, ``build_fleet_trace``, ``validate_trace``,
-``write_trace``); the unified trace builder needs the fleet's journal sink
-and is not ported yet (ROADMAP queue 1 item 9b).
+The port's copy of ``maggy_tpu/telemetry/trace.py`` (``build_trace``,
+``build_fleet_trace``, ``build_unified_trace``, ``validate_trace``,
+``write_trace``).
 
 ``python -m maggy_tpu_torch.telemetry trace <exp_dir>`` converts any telemetry
 journal into the JSON object format chrome://tracing and https://ui.perfetto.dev
@@ -527,6 +526,203 @@ def validate_trace(trace: Dict[str, Any]) -> int:
             raise ValueError("trace event without ts: {!r}".format(ev))
     json.dumps(trace)  # must be pure-JSON serializable
     return len(events)
+
+
+#: tid of the per-agent execution lane inside an agent's process group
+#: (their trial slices render on the per-experiment lanes, like thread
+#: runners; this lane carries the agent's OWN journal: lease..done exec
+#: slices, clock_offset / sink degradation instants).
+AGENT_LANE_TID = 999
+
+
+def build_unified_trace(fleet_events: List[Dict[str, Any]],
+                        experiments: Dict[str, List[Dict[str, Any]]],
+                        agent_journals: Optional[Dict[str, List[Dict[str,
+                                                                     Any]]]]
+                        = None,
+                        offsets: Optional[Dict[str, float]] = None
+                        ) -> Dict[str, Any]:
+    """ONE Perfetto trace for the whole fleet: the fleet timeline
+    (``build_fleet_trace`` — driver track, one process per runner with a
+    lane per experiment) EXTENDED with the cross-process telemetry the
+    journal sink fans in:
+
+    - runner process groups held by REMOTE AGENTS are renamed
+      ``agent <id> @host`` (from the fleet journal's ``agent`` join
+      events), so each agent process is its own group;
+    - each agent's OWN journal (sink segment or surviving local
+      ``agent.jsonl``) renders on the agent's execution lane, with every
+      timestamp corrected onto the FLEET clock by the agent's journaled
+      ``clock_offset`` (``offsets`` overrides per agent; an agent event
+      at agent-clock ``t`` happened at fleet-clock ``t - offset_s``);
+    - FLOW ARROWS follow each remotely-leased trial across the process
+      boundary: ABIND dispatch (driver track) -> the agent-side
+      execution slice -> the trial's FINAL — the Perfetto ``s``/``t``/
+      ``f`` flow triple, one per delivered lease.
+
+    Pure like every function here: journals in, trace dict out.
+    """
+    agent_journals = agent_journals or {}
+    # Agent registry + journaled clock offsets from the fleet journal.
+    runner_agent: Dict[int, str] = {}
+    agent_runner: Dict[str, int] = {}
+    agent_host: Dict[str, str] = {}
+    derived_offsets: Dict[str, float] = {}
+    for ev in fleet_events:
+        kind = ev.get("ev")
+        if kind == "agent" and ev.get("phase") == "join" \
+                and ev.get("agent") is not None \
+                and ev.get("runner") is not None:
+            aid = str(ev["agent"])
+            runner_agent[int(ev["runner"])] = aid
+            agent_runner[aid] = int(ev["runner"])
+            agent_host[aid] = str(ev.get("host") or "?")
+        elif kind == "clock_offset" and ev.get("agent") \
+                and ev.get("offset_s") is not None:
+            derived_offsets[str(ev["agent"])] = float(ev["offset_s"])
+    offs = dict(derived_offsets)
+    offs.update(offsets or {})
+
+    base = build_fleet_trace(fleet_events, experiments)
+    out: List[Dict[str, Any]] = base["traceEvents"]
+    t0 = base["otherData"]["t0_unix_s"]
+
+    def us(t: float) -> int:
+        return int(round((t - t0) * 1e6))
+
+    # Rename agent-held runner process groups (latest join wins — slot
+    # reuse after an agent loss keeps the newest identity).
+    for ev in out:
+        if ev.get("ph") == "M" and ev.get("name") == "process_name" \
+                and ev["pid"] - 1 in runner_agent:
+            aid = runner_agent[ev["pid"] - 1]
+            ev["args"] = {"name": "agent {} @{}".format(
+                aid, agent_host.get(aid, "?"))}
+
+    exp_names = sorted(experiments)
+    exp_tid = {name: i + 1 for i, name in enumerate(exp_names)}
+
+    # Agent-side lanes: exec slices (lease..done) + instants, clocks
+    # corrected onto the fleet time base. exec_index[(aid, exp, pid)] is
+    # the ordered list of corrected exec windows, consumed in order by
+    # the flow matcher below.
+    exec_index: Dict[tuple, List[tuple]] = {}
+    for aid, a_events in sorted(agent_journals.items()):
+        runner = agent_runner.get(aid)
+        if runner is None:
+            continue
+        pid = runner + 1
+        off = offs.get(aid, 0.0)
+        open_lease: Optional[Dict[str, Any]] = None
+        open_t: Optional[float] = None
+        last_t: Optional[float] = None
+        out.append({"name": "thread_name", "ph": "M", "pid": pid,
+                    "tid": AGENT_LANE_TID,
+                    "args": {"name": "agent {}".format(aid)}})
+        out.append({"name": "thread_sort_index", "ph": "M", "pid": pid,
+                    "tid": AGENT_LANE_TID,
+                    "args": {"sort_index": AGENT_LANE_TID}})
+
+        def _close(end_t: float) -> None:
+            nonlocal open_lease, open_t
+            if open_lease is None or open_t is None:
+                return
+            key = (aid, open_lease.get("exp"), open_lease.get("pid"))
+            exec_index.setdefault(key, []).append((open_t, end_t))
+            out.append({"name": "exec {}".format(open_lease.get("exp")),
+                        "cat": "agent", "ph": "X", "ts": us(open_t),
+                        "dur": max(1, us(end_t) - us(open_t)),
+                        "pid": pid, "tid": AGENT_LANE_TID,
+                        "args": {"agent": aid,
+                                 "exp": open_lease.get("exp"),
+                                 "slot": open_lease.get("pid"),
+                                 "offset_s": off}})
+            open_lease, open_t = None, None
+
+        for ev in sorted((e for e in a_events
+                          if isinstance(e.get("t"), (int, float))),
+                         key=lambda e: e["t"]):
+            t = ev["t"] - off  # agent clock -> fleet clock
+            last_t = t
+            kind = ev.get("ev")
+            if kind == "agent" and ev.get("phase") == "lease":
+                _close(t)
+                open_lease, open_t = ev, t
+            elif kind == "agent" and ev.get("phase") == "done":
+                _close(t)
+            elif kind in ("clock_offset", "sink_degraded",
+                          "sink_recovered", "obs_started"):
+                out.append({"name": kind, "cat": "agent", "ph": "i",
+                            "s": "t", "ts": us(t), "pid": pid,
+                            "tid": AGENT_LANE_TID,
+                            "args": {k: v for k, v in ev.items()
+                                     if k not in ("ev", "t")}})
+        if open_lease is not None and last_t is not None:
+            _close(last_t)  # journal ended mid-lease
+
+    # Flow arrows: ABIND dispatch (fleet journal 'agent' lease event,
+    # driver track) -> agent-side exec slice -> the trial's FINAL on the
+    # runner's experiment lane. Leases match exec windows in delivery
+    # order per (agent, exp, slot).
+    finals: Dict[tuple, List[float]] = {}
+    for name, evs in experiments.items():
+        for ev in evs:
+            if ev.get("ev") == "trial" and ev.get("phase") == "finalized" \
+                    and ev.get("partition") is not None \
+                    and isinstance(ev.get("t"), (int, float)):
+                finals.setdefault((name, int(ev["partition"])),
+                                  []).append(ev["t"])
+    for fs in finals.values():
+        fs.sort()
+    exec_cursor: Dict[tuple, int] = {}
+    flows = 0
+    for ev in fleet_events:
+        if ev.get("ev") != "agent" or ev.get("phase") != "lease" \
+                or not isinstance(ev.get("t"), (int, float)):
+            continue
+        aid = str(ev.get("agent"))
+        key = (aid, ev.get("exp"), ev.get("pid"))
+        windows = exec_index.get(key) or []
+        i = exec_cursor.get(key, 0)
+        if i >= len(windows):
+            continue
+        exec_cursor[key] = i + 1
+        exec_start, exec_end = windows[i]
+        flows += 1
+        fid = "abind-{}".format(flows)
+        abind_t = ev["t"]
+        pid = agent_runner[aid] + 1
+        # Anchor slice on the driver track for the flow start.
+        out.append({"name": "abind {}".format(ev.get("exp")),
+                    "cat": "fleet", "ph": "X", "ts": us(abind_t),
+                    "dur": 1000, "pid": DRIVER_PID, "tid": 0,
+                    "args": {"agent": aid, "exp": ev.get("exp"),
+                             "slot": ev.get("pid")}})
+        out.append({"name": "trial-flow", "cat": "flow", "ph": "s",
+                    "id": fid, "ts": us(abind_t), "pid": DRIVER_PID,
+                    "tid": 0})
+        out.append({"name": "trial-flow", "cat": "flow", "ph": "t",
+                    "id": fid, "ts": us(exec_start) + 1, "pid": pid,
+                    "tid": AGENT_LANE_TID})
+        # The FINAL inside (or just after) the exec window, consumed
+        # in order so each lease binds its own trial's FINAL.
+        fin_list = finals.get((ev.get("exp"), ev.get("pid"))) or []
+        fin = next((t for t in fin_list if exec_start <= t), None)
+        if fin is not None:
+            fin_list.remove(fin)
+            out.append({"name": "trial-flow", "cat": "flow", "ph": "f",
+                        "bp": "e", "id": fid, "ts": us(fin), "pid": pid,
+                        "tid": exp_tid.get(ev.get("exp"), 0)})
+
+    out.sort(key=lambda e: e.get("ts", 0))
+    base["otherData"].update({
+        # The JAX package's source tag, as in build_trace.
+        "source": "maggy_tpu.telemetry(unified)",
+        "agents": sorted(agent_runner),
+        "clock_offsets": offs,
+        "flows": flows,
+    })
+    return base
 
 
 def write_trace(events: List[Dict[str, Any]], out_path: str,

@@ -2,10 +2,7 @@
 
 A verbatim copy of ``maggy_tpu/telemetry/vocab.py``: both packages write
 the same strings, so either package's replay reads the other's journal.
-The port emits a subset: the trial lifecycle with prefetch, forks,
-preemption, resume and vectorized lanes, chaos injections, health flags,
-profile captures and the obs plane's discovery event; not the gang, fleet
-or journal-sink vocabulary (ROADMAP queue 1 items 8 and 9).
+The port emits all of it but the gang vocabulary (ROADMAP queue 1 item 8).
 
 One home for the stringly-typed contract between EMITTERS (``Telemetry.
 trial_event`` / ``Telemetry.event`` call sites across the package) and

@@ -685,13 +685,57 @@ def test_chaos_needs_telemetry(tmp_path):
         experiment.lagom(lambda x: x, config)
 
 
-@pytest.mark.parametrize("flag,item", [("--gang", "8"), ("--driver", "9"), ("--sink", "9"),
-                                       ("--agent", "9")])
+@pytest.mark.parametrize("flag,item", [("--gang", "8")])
 def test_cli_refuses_unported_soaks(flag, item, capsys):
     from maggy_tpu_torch.chaos.__main__ import main
 
     assert main([flag]) != 0
     assert "ROADMAP queue 1 item {}".format(item) in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,module,fn", [
+    ("--driver", "maggy_tpu_torch.chaos.driver_soak", "run_driver_soak"),
+    ("--sink", "maggy_tpu_torch.fleet.soak", "run_sink_soak"),
+    ("--agent", "maggy_tpu_torch.fleet.soak", "run_agent_soak")])
+def test_cli_runs_the_topology_soaks(flag, module, fn, capsys, monkeypatch):
+    """The agent, sink and driver soaks own their processes and run through
+    their own functions (exercised in test_torch_agent, test_torch_sink and
+    below); the CLI hands them the seed, the agent soak at most 6 trials,
+    and exits 1 on a violation."""
+    import importlib
+
+    from maggy_tpu_torch.chaos.__main__ import main
+
+    calls = []
+
+    def fake(**kwargs):
+        calls.append(kwargs)
+        return {"ok": len(calls) == 1, "violations": []}
+
+    monkeypatch.setattr(importlib.import_module(module), fn, fake)
+    assert main([flag, "--seed", "3", "--trials", "20"]) == 0
+    assert main([flag]) == 1
+    want = {"seed": 3, "trials": 6} if flag == "--agent" else {"seed": 3}
+    assert calls[0] == want and calls[1]["seed"] == 7
+    assert json.loads(capsys.readouterr().out.split("\n}\n")[0] + "}")["ok"]
+
+
+@pytest.mark.timeout(120)
+def test_driver_soak_invariant_13_as_jax(tmp_path):
+    """``tests/test_failover.py:712``'s soak at its size (5 trials, 2 remote
+    runners, one driver SIGKILL): the resumed driver adopts the surviving
+    runners and finishes the sweep; its journal reads the same through the
+    JAX package's checker."""
+    from maggy_tpu.telemetry import read_events as jax_read_events
+    from maggy_tpu_torch.chaos.driver_soak import run_driver_soak
+
+    report = run_driver_soak(trials=5, workers=2, seed=7, kills=1, base_dir=str(tmp_path))
+    assert report["ok"], report["violations"]
+    assert report["failover"]["kills"] == 1 and report["failover"]["driver_epochs"] == [1, 2]
+    assert report["trials"]["finalized"] == 5
+    events = read_events(report["journal"])
+    assert harness.check_invariants(events) == \
+        jax_harness.check_invariants(jax_read_events(report["journal"]))
 
 
 def test_cli_show_schedule_matches_jax(capsys):

@@ -75,6 +75,9 @@ _SWEEP = textwrap.dedent("""
     import maggy_tpu_torch.train.warm
     import maggy_tpu_torch.core.config
     import maggy_tpu_torch.fleet.__main__
+    import maggy_tpu_torch.fleet.agent
+    import maggy_tpu_torch.telemetry.sink
+    import maggy_tpu_torch.chaos.driver_soak
     import maggy_tpu_torch.monitor
     import maggy_tpu_torch.native
     from maggy_tpu_torch import runner
@@ -270,6 +273,11 @@ _SWEEP = textwrap.dedent("""
         out["fleet"] = {{"ok": fleet["ok"], "violations": fleet["violations"],
                          "preemptions": fleet["replay"]["preemptions"],
                          "native": maggy_tpu_torch.native.is_native()}}
+        # The journal sink killed and restarted under two sink-shipping
+        # tenants (invariant 12), under the hook.
+        from maggy_tpu_torch.fleet.soak import run_sink_soak
+        shipped = run_sink_soak(tenants=2, trials=3, base_dir=tempfile.mkdtemp())
+        out["sink"] = {{"ok": shipped["ok"], "violations": shipped["violations"]}}
         out["remote"] = remote_sweep()
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
@@ -295,6 +303,7 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert out["chaos"]["violations"] == [] and out["chaos"]["profiles"]["auto"] == 1
     assert out["fleet"]["ok"], out["fleet"]["violations"]
     assert out["fleet"]["preemptions"] >= 1 and out["fleet"]["native"]
+    assert out["sink"]["ok"], out["sink"]["violations"]
     # The remote agent's trials ran in its own process, which saw none of
     # the banned modules either.
     remote = out["remote"]
@@ -378,7 +387,8 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("core", "driver", "ablation_driver.py"), ("train", "vmap.py"),
         ("core", "config.py"), ("native", "__init__.py"), ("runner.py",), ("monitor.py",),
         ("fleet", "__init__.py"), ("fleet", "__main__.py"), ("fleet", "scheduler.py"),
-        ("fleet", "soak.py"), ("core", "rpc.py"), ("core", "runner_pool.py"))} <= scanned
+        ("fleet", "soak.py"), ("core", "rpc.py"), ("core", "runner_pool.py"),
+        ("fleet", "agent.py"), ("telemetry", "sink.py"), ("chaos", "driver_soak.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

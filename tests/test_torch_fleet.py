@@ -5,9 +5,9 @@ refusal of a bad MAC; ``run_fleet_soak(seed=7)`` through both packages; each
 package's ``fleet.jsonl`` replayed by the other to the same numbers; the
 spool CLI; ``preempt_partition(evict=True)`` and the server's eviction
 paths in both packages; ``lagom_submit(block=False)``; the fleet trace and
-goodput CLI on a fleet home; and the refusals of the parts not ported yet
-(the journal sink, remote agents). Every comparison is exact unless a test
-says otherwise."""
+goodput CLI on a fleet home, and its unified trace; the refusal of gang
+blocks, and the sink's and the agent plane's defaults. Every comparison is
+exact unless a test says otherwise."""
 
 import copy
 import json
@@ -299,15 +299,23 @@ def test_fleet_trace_goodput_and_monitor_on_a_fleet_home(tmp_path, capsys):
     assert "tenant bulk:" in text and "tenant urgent:" in text
     assert monitor.main(["--fleet", home, "--once"]) == 0
     assert "bulk [done, prio low, w 1.0]" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="item 9b"):
-        telem_main(["trace", "--unified", home])
+    # The unified trace of a fleet home whose tenants journal locally: the
+    # same trace as the JAX package's CLI builds from the same home.
+    from maggy_tpu.telemetry.__main__ import main as jax_telem_main
+
+    assert telem_main(["trace", "--unified", home]) == 0
+    assert jax_telem_main(["trace", "--unified", home, "-o",
+                           str(tmp_path / "jax_unified.json")]) == 0
+    with open(os.path.join(home, "unified_trace.json")) as f, \
+            open(str(tmp_path / "jax_unified.json")) as g:
+        assert json.load(f) == json.load(g)
 
 
 # ---------------------------------------------------------------- the CLI
 
 
 @pytest.mark.timeout(90)
-def test_spool_cli_submit_start_and_status(tmp_path, capsys):
+def test_spool_cli_submit_start_and_status(tmp_path, capsys, monkeypatch):
     from maggy_tpu_torch.fleet.__main__ import main as fleet_main
 
     home = str(tmp_path / "home")
@@ -332,10 +340,15 @@ def test_spool_cli_submit_start_and_status(tmp_path, capsys):
     capsys.readouterr()
     assert fleet_main(["status", "--home", home]) == 0
     assert "cli_exp" in capsys.readouterr().out
-    for argv in (["agent"], ["soak", "--agent"], ["soak", "--sink"],
-                 ["start", "--home", home, "--max-agents", "1"]):
-        assert fleet_main(argv) == 2
-        assert "item 9b" in capsys.readouterr().err
+    # An agent refuses to start without a card unless it runs on the CPU,
+    # and then still needs a ticket or an address. (The agent's device
+    # choice writes the process's environment: restored at teardown.)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.setenv("MAGGY_TPU_TORCH_DEVICE", "cuda")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        fleet_main(["agent"])
+    with pytest.raises(SystemExit, match="--ticket or --fleet-addr"):
+        fleet_main(["agent", "--device", "cpu"])
 
 
 # --------------------------------------------------------------- eviction
@@ -448,14 +461,23 @@ def test_fleet_shedding_raises_fleet_saturated(tmp_path):
 
 
 def test_the_sink_and_the_agent_plane_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        scheduler.Fleet(runners=1, home_dir=str(tmp_path / "a"), sink=True)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        scheduler.Fleet(runners=1, home_dir=str(tmp_path / "b"), max_agents=2)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        OptimizationConfig(sink=True)
+    """Gang blocks stay refused (ROADMAP queue 1 item 8); the journal sink
+    and the agent plane run, with the JAX package's defaults: the sink on
+    whenever the fleet's telemetry is, no agent slots."""
     with pytest.raises(NotImplementedError, match="item 8"):
         scheduler.FleetScheduler(2).request_gang(None, 2)
-    # sink=None starts no sink.
-    fleet = scheduler.Fleet(runners=1, home_dir=str(tmp_path / "c"))
-    assert fleet.status()["sink"] == {} and fleet.max_agents == 0
+    assert OptimizationConfig(sink=True).sink and not OptimizationConfig().sink
+    for telemetry, sink, on in ((True, None, True), (False, None, False),
+                                (True, False, False), (False, True, True)):
+        kw = dict(runners=1, telemetry=telemetry, sink=sink)
+        port = scheduler.Fleet(home_dir=str(tmp_path / "p{}{}".format(telemetry, sink)), **kw)
+        jax = jax_scheduler.Fleet(home_dir=str(tmp_path / "j{}{}".format(telemetry, sink)),
+                                  **kw)
+        assert port.sink_enabled == jax.sink_enabled == on
+    with scheduler.Fleet(runners=1, home_dir=str(tmp_path / "a"), max_agents=2) as fleet:
+        assert fleet.agent_plane is not None and fleet.sink_binding() is not None
+        with open(os.path.join(fleet.home_dir, "agent_ticket.json")) as f:
+            ticket = json.load(f)
+        assert (ticket["host"], ticket["port"]) == fleet.shared_server.addr
+        assert ticket["max_agents"] == 2 and ticket["sink"] == fleet.sink_server.secret_hex
+        assert fleet.status()["agents"] == [] and fleet.status()["max_agents"] == 2

@@ -89,3 +89,44 @@ def test_slow_tenant_soak_through_the_cli_as_jax(tmp_path, capsys, monkeypatch):
             want = 2 if tenant == "slow" else 6
             assert mine["trials"] == {"queued": want, "finalized": want,
                                       "requeued": 0}, (name, tenant)
+
+
+def test_scale_churn_with_the_sink_replays_as_jax(tmp_path):
+    """A small churn (16 cheap tenants, 4 through the spool) with every
+    tenant shipping its journal to the sink: all complete, and the fleet
+    journal (its jsink ingest records included) replays to the same
+    numbers through either package."""
+    report = soak.run_scale_churn(experiments=16, runners=2, max_active=4, spool_specs=4,
+                                  base_dir=str(tmp_path), sink=True, result_timeout_s=60.0,
+                                  min_decisions_per_s=0.0)
+    assert report["ok"], report["violations"]
+    assert report["detail"]["completed"] == 16 and report["detail"]["spooled"] == 4
+    replay = scheduler.replay_fleet_journal(report["journal"])
+    assert replay == jax_scheduler.replay_fleet_journal(report["journal"])
+    assert replay["sink"]["sources"] == 16 and replay["sink"]["dup"] == 0
+
+
+def test_remote_scale_soak_on_agent_processes(tmp_path):
+    """The churn driven by two agent processes (--device cpu) with the
+    sink on: every tenant completes, remote leases happened, and the
+    unified trace carries both agents' process groups and flow arrows."""
+    report = soak.run_remote_scale_soak(experiments=6, agents=2, runners=1, max_active=3,
+                                        base_dir=str(tmp_path), result_timeout_s=60.0)
+    assert report["ok"], report["violations"]
+    detail = report["detail"]
+    assert detail["completed"] == 6 and detail["agent_joins"] == 2
+    assert detail["remote_leases"] >= 1
+    assert detail["unified"]["agents"] == 2 and detail["unified"]["flows"] >= 1
+
+
+def test_scale_soak_composes_its_parts(tmp_path):
+    """The scale scenario at a small size without its sink A/B: the churn,
+    the weighted share and the slow-tenant soak each pass."""
+    report = soak.run_scale_soak(experiments=8, runners=2, max_active=4, sink_ab=False,
+                                 base_dir=str(tmp_path),
+                                 churn_kwargs={"spool_specs": 2, "min_decisions_per_s": 0.0,
+                                               "result_timeout_s": 60.0})
+    assert report["ok"], report["violations"]
+    assert report["detail"]["churn"]["completed"] == 8
+    assert report["detail"]["sink"] is None
+    assert set(report["detail"]) == {"churn", "sink", "share", "slow_tenant"}

@@ -20,7 +20,7 @@ import torch
 from maggy_tpu.telemetry import MetricsRegistry as JaxMetricsRegistry
 from maggy_tpu.telemetry import obs as jax_obs
 
-from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+from maggy_tpu_torch import OptimizationConfig, Searchspace, device_gate, experiment
 from maggy_tpu_torch.chaos import disarm, harness
 from maggy_tpu_torch.core.environment import EnvSing, LocalEnv
 from maggy_tpu_torch.telemetry import MetricsRegistry, Telemetry, obs, profiling
@@ -194,16 +194,20 @@ def test_capture_artifact_and_journal(tmp_path):
     stop = threading.Event()
 
     def work():
+        # A runner's steps hold the process's device gate, as the trainers'
+        # do, so the profiler's start and stop never run beside one.
         while not stop.is_set():
-            x @ x
+            with device_gate.step():
+                x @ x
 
-    worker = threading.Thread(target=work)
+    worker = threading.Thread(target=work, daemon=True)
     worker.start()
     try:
         record = prof.capture(duration_s=0.2, reason="manual", partition=2, trial="t")
     finally:
         stop.set()
-        worker.join()
+        worker.join(10)
+    assert not worker.is_alive()
     # CPU only: this process never initialized CUDA.
     assert capture_activities() == ["cpu"] and record["activities"] == ["cpu"]
     assert record["profiler"] == "torch"
@@ -333,12 +337,13 @@ def test_one_capture_at_a_time_in_a_process(tmp_path, monkeypatch):
     monkeypatch.setattr(profiling, "_start_trace", slow_start)
     a = ProfileCapturer(Telemetry(), str(tmp_path / "a"))
     b = ProfileCapturer(Telemetry(), str(tmp_path / "b"))
-    first = threading.Thread(target=a.capture, kwargs={"duration_s": 0.01})
+    first = threading.Thread(target=a.capture, kwargs={"duration_s": 0.01}, daemon=True)
     first.start()
     assert entered.wait(5)
     assert b.capture(duration_s=0.01) == {"skipped": "capture already in flight"}
     release.set()
-    first.join()
+    first.join(10)
+    assert not first.is_alive()
 
 
 def test_auto_capture_rate_limits(tmp_path, monkeypatch):

@@ -130,8 +130,7 @@ def test_driver_sizes_the_schedule_and_clamps_the_pool(tmp_path):
     assert sizes["port"] == sizes["jax"] == (6, 3)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("chips_per_budget", {1: 2}, "8"), ("sink", True, "9b")])
+@pytest.mark.parametrize("field,value,item", [("chips_per_budget", {1: 2}, "8")])
 def test_unported_config_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match="item {}".format(item)):
         OptimizationConfig(**{field: value})

@@ -157,17 +157,27 @@ def _remote_sweep(pkg, base, agent_cmd, env_extra):
     ticket = os.path.join(base, "remote_0", "runner_ticket.json")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([TESTS, ROOT]), JAX_PLATFORMS="cpu",
                **env_extra)
-    procs = [subprocess.Popen([sys.executable, "-m", *agent_cmd, "--ticket", ticket,
-                               "--wait-ticket", "30"], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for _ in range(2)]
+    procs = []
     agents = []
-    for p in procs:
-        try:
-            _, err = p.communicate(timeout=90)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            _, err = p.communicate()
-        agents.append((p.returncode, err[-1500:]))
+    try:
+        for _ in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", *agent_cmd, "--ticket", ticket, "--wait-ticket", "30"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for p in procs:
+            try:
+                _, err = p.communicate(timeout=90)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate(timeout=10)
+            agents.append((p.returncode, err[-1500:]))
+    finally:
+        # The test's time limit may interrupt the waits above: no agent
+        # outlives the test.
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
     thread.join(30)
     assert "error" not in out, out.get("error")
     finals = set()

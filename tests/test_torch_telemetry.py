@@ -333,17 +333,22 @@ def test_cli_prints_what_the_jax_cli_prints(port_journal_path, tmp_path, command
 
 def test_cli_refuses_a_fleet_home(tmp_path):
     """``replay`` reads an experiment journal, which a fleet home does not
-    hold (as in the JAX package); the unified trace needs the journal sink,
-    not ported yet. The fleet home's trace and goodput: test_torch_fleet."""
+    hold, and ``trace --unified`` needs a fleet home, as in the JAX package.
+    A facade with no journal path ignores a sink binding. The fleet home's
+    trace, goodput and unified trace: test_torch_fleet and
+    test_torch_sink."""
     (tmp_path / "fleet.jsonl").write_text("")
+    (tmp_path / "exp").mkdir()
+    (tmp_path / "exp" / "telemetry.jsonl").write_text("")
+    from maggy_tpu.telemetry.__main__ import main as jax_main
     from maggy_tpu_torch.telemetry.__main__ import main
 
     with pytest.raises(FileNotFoundError, match="no telemetry journal"):
         main(["replay", str(tmp_path)])
-    with pytest.raises(SystemExit, match="item 9b"):
-        main(["trace", "--unified", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_telemetry.Telemetry(sink=object())
+    for cli in (main, jax_main):
+        with pytest.raises(SystemExit, match="needs a fleet home"):
+            cli(["trace", "--unified", str(tmp_path / "exp")])
+    assert port_telemetry.Telemetry(sink=object()).journal is None
 
 
 # ------------------------------------------------------------ runner stats
