@@ -16,7 +16,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              training shape with a padding mask that fully masks some rows,
              a causal GQA shape, causal padded shapes at S=256 with fully
              padded rows, and the Llama-3-8B training shape: causal, GQA
-             32:8, D=128, S=2048), dQ also in the mode that computes delta
+             32:8, D=128, S=2048; the ring's block at a rank's shard of
+             sequence parallelism, 1x4096, GQA 32:8, D=128, causal and
+             not causal), dQ also in the mode that computes delta
              from the forward's output, each error beside its tolerance;
              each kernel's registers, local memory, shared memory and
              resident blocks per SM (failing if a D=64 tensor-core kernel
@@ -357,6 +359,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              agent, the agents' peak memory, the sink's ingest lag, the
              in-sweep step p50 beside slice_fleet's, the kill and the clock
              offsets.
+23. slice_dist — distributed training through experiment.lagom with a
+             DistributedConfig(backend="process"), three runs.
+             llama3_8b_sp: two rank processes sharing the card over gloo
+             (mesh {"seq": 2}, strategy "sp"): each first holds one layer's
+             ring_attention (impl "flash") at Llama-3-8B's attention (32
+             heads, 8 KV heads, D=128) on its shard of 8192 seeded tokens
+             against flash_attention on the whole sequence, forward and
+             gradients, within the kernels phase's bf16 tolerance; then the
+             LoRA Llama-3-8B at full width (DIST_LAYERS layers: depth cut,
+             remat, attention_impl="ring") trains DIST_STEPS mesh-Trainer
+             steps on batch 1 x DIST_S (labels shifted over the whole
+             sequence). Both ranks must report the same finite loss each
+             step, and the flash launches summed over their records must be
+             the ring's schedule (ring_schedule_launches). ulysses: the same
+             check for ulysses_attention (eight all-to-alls a rank).
+             resnet_dp: examples/distributed_training.py's train function
+             on the port (ResNet-18 width 16, SGD with momentum, batch 128,
+             4 epochs of its seeded data) on a world of one over NCCL. Each
+             run's journal replayed (every worker registered and finalized
+             once, the experiment started and ended); prints wall,
+             rendezvous_ms, step p50 a rank, bytes and ms a ring hop, a
+             gradient all-reduce and a loss all-reduce with the transport
+             that ran, each rank's peak
+             memory, the launches, beside nvidia-smi's line. Two ranks on
+             one card time-slice it: correctness, not scaling. The rank
+             processes are killed in a finally.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -402,10 +430,14 @@ at the folded shape, 4 lanes x batch 32, llama3_8b_moe_lanes's its MoE
 arm's at the Llama's shape (2 lanes x batch 1), bert_base_loco's
 slice_ablation's, bert_base_fleet's slice_fleet's card soak's,
 bert_base_remote's slice_remote's summed over its agents,
-bert_base_agents's slice_agents' BERT tenant's summed over its trials),
+bert_base_agents's slice_agents' BERT tenant's summed over its trials,
+dist's slice_dist's llama3_8b_sp ranks' summed, timed at the ring's
+block: 1 x 4096, causal, fp32 gradients),
 the
 nvidia-smi line, and the last
-line {"ok": true, "device": {...}}. Needs one CUDA card; imports nothing of
+line {"ok": true, "device": {...}}. Every phase line also goes to
+build/chip_smoke_phases.jsonl beside the script (PHASE_LOG), which keeps
+every line when a long output is cut. Needs one CUDA card; imports nothing of
 JAX or maggy_tpu. Runner processes are spawned and re-import this file as
 ``__mp_main__``: importing it does no CUDA work, and their train functions
 are the module-level ``train_*`` below.
@@ -453,6 +485,15 @@ REPORT_EVERY = 2
 # Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5).
 LLAMA_B, LLAMA_S = 2, 2048
 LLAMA_STEPS_PER_BUDGET = 2
+# slice_dist: Llama-3-8B at full width on a "seq" ring of DIST_RANKS rank
+# processes sharing the card over gloo, DIST_LAYERS layers (depth cut), batch
+# 1 x DIST_S tokens (DIST_S / DIST_RANKS a rank), DIST_STEPS steps; the
+# ranks' records (read from the environment); the worlds' collective
+# timeout (the heartbeat-loss bound); the ring block's heads and head dim.
+DIST_RANKS, DIST_LAYERS, DIST_S, DIST_STEPS = 2, 4, 8192, 8
+DIST_RECORDS_ENV = "MAGGY_TPU_SMOKE_DIST_RECORDS"
+DIST_TIMEOUT_S = 120.0
+DIST_H, DIST_HKV, DIST_D = 32, 8, 128
 # The Bayesian-optimization sweeps of examples/bert_glue_hpo.py. Cuts: TPE
 # runs 14 trials of 16 steps (the example: 8 trials; TPE fits its KDEs only
 # from 2(d+1) = 8 finalized trials, and a suggestion prefetched while two
@@ -465,7 +506,11 @@ BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 16, 4, 4
 MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "bert_base_bo": (64, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128),
-               "bert_base_lanes": (4 * BERT_B, BERT_S, BERT_S, 12, 12, 64)}
+               "bert_base_lanes": (4 * BERT_B, BERT_S, BERT_S, 12, 12, 64),
+               "dist": (1, DIST_S // DIST_RANKS, DIST_S // DIST_RANKS, DIST_H, DIST_HKV,
+                        DIST_D)}
+#: Paths whose attention is causal and unpadded (the rest: key padding).
+CAUSAL_PATHS = ("llama3_8b", "dist")
 #: Paths that run the kernels at another path's shape: the process-runner,
 #: forking, resumed, warm A/B and LOCO sweeps are the slice sweep's, the MoE
 #: Llama's attention is the Llama's, and so is its lanes' (2 lanes of batch
@@ -612,10 +657,18 @@ AGENTS_KILL_TRIALS, AGENTS_KILL_STEPS, AGENTS_KILL_AT_STEP, AGENTS_KILL_AFTER_S 
 AGENTS_HB_LOSS_S, AGENTS_JOIN_TIMEOUT_S = 3.0, 180.0
 #: Readings one phase leaves for a later one's line.
 READINGS = {}
+#: Every phase line of a run, one JSON object a line (emptied by main).
+PHASE_LOG = os.path.join(ROOT, "build", "chip_smoke_phases.jsonl")
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """Print a phase line, and append it to PHASE_LOG, which keeps every
+    phase line where only the end of a run's output is kept."""
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(PHASE_LOG), exist_ok=True)
+    with open(PHASE_LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def tolerance(dtype, ref):
@@ -772,7 +825,10 @@ def phase_kernels():
              ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False),
              ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
              ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
-             ("llama3_8b", MAIN_SHAPES["llama3_8b"], True, False)]
+             ("llama3_8b", MAIN_SHAPES["llama3_8b"], True, False),
+             ("dist", MAIN_SHAPES["dist"], True, False),
+             # The ring's off-diagonal blocks: the rank's shard, not causal.
+             ("dist_full", MAIN_SHAPES["dist"], False, False)]
     results, main = [], {path: {} for path in MAIN_SHAPES}
     for label, shape, causal, padded in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -813,8 +869,13 @@ def phase_kernels():
                     emit("kernels", checks=results)
                     raise AssertionError("{} disagrees with its plain version on {} {}: "
                                          "{} > {}".format(name, label + variant, dtype, err, tol))
-                if label in main and not variant and dtype == torch.bfloat16:
-                    main[label][name] = {"max_abs_err": err}
+                # Each path's error is that of the variant it runs: the
+                # ring's blocks (causal and full) return fp32 gradients.
+                path = "dist" if label == "dist_full" else label
+                runs = "/grad_fp32" if path == "dist" and name != "flash_fwd" else ""
+                if path in main and variant == runs and dtype == torch.bfloat16:
+                    prev = main[path].get(name, {}).get("max_abs_err", 0.0)
+                    main[path][name] = {"max_abs_err": max(prev, err)}
     A.reset_launch_counts()
 
     # What each kernel takes on the card, per head dim and type (and, for
@@ -849,7 +910,10 @@ def phase_kernels():
          bert_base_lanes={"shape": [4 * BERT_B, BERT_S, 12, 64],
                           "timed": timed["bert_base_lanes"], **yardsticks["bert_base_lanes"]},
          llama3_8b={"shape": [llama[0], llama[1], llama[3], llama[4], llama[5]],
-                    "causal": True, "timed": timed["llama3_8b"], **yardsticks["llama3_8b"]})
+                    "causal": True, "timed": timed["llama3_8b"], **yardsticks["llama3_8b"]},
+         dist={"shape": [1, DIST_S // DIST_RANKS, DIST_H, DIST_HKV, DIST_D], "causal": True,
+               "grad_fp32": True, "errors_over": ["dist", "dist_full"],
+               "timed": timed["dist"], **yardsticks["dist"]})
     return main
 
 
@@ -861,7 +925,9 @@ def time_kernels(path, main):
     from maggy_tpu_torch.ops import attention as A
 
     B, S, _, H, Hkv, D = MAIN_SHAPES[path]
-    causal = path.startswith("llama3_8b")
+    causal = path.startswith(CAUSAL_PATHS)
+    # The ring's backward blocks return fp32 gradients (flash_block_bwd).
+    g32 = path == "dist"
     dtype = torch.bfloat16
     q, k, v, do, mask = make_inputs(B, S, S, H, Hkv, D, dtype, not causal, seed=2)
     out, lse = A.flash_fwd(q, k, v, mask, causal)
@@ -884,13 +950,15 @@ def time_kernels(path, main):
             library=lambda: sdpa(qt, kt, vt, **sdpa_kw),
             nbytes=2 * t_q + 2 * t_kv + stat + mask_b, flops=4 * D * n_live),
         "flash_bwd_dkdv": dict(
-            ms=lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal),
+            ms=lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal, g32),
             plain=lambda: A._plain_bwd_dkdv(q, k, v, do, lse, delta, mask, causal),
-            library=None, nbytes=2 * t_q + 4 * t_kv + 2 * stat + mask_b, flops=8 * D * n_live),
+            library=None, nbytes=2 * t_q + (4 + 2 * g32) * t_kv + 2 * stat + mask_b,
+            flops=8 * D * n_live),
         "flash_bwd_dq": dict(
-            ms=lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal),
+            ms=lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal, g32),
             plain=lambda: A._plain_bwd_dq(q, k, v, do, lse, delta, mask, causal),
-            library=None, nbytes=3 * t_q + 2 * t_kv + 2 * stat + mask_b, flops=6 * D * n_live),
+            library=None, nbytes=(3 + g32) * t_q + 2 * t_kv + 2 * stat + mask_b,
+            flops=6 * D * n_live),
     }
     for name, t in timing.items():
         b_ms, b_by = bound(t["nbytes"], t["flops"], dtype)
@@ -5297,6 +5365,13 @@ def phase_slice_agents(exp_root):
         problems.append("fleet replay agents {}".format(replay["agents"]))
     lost_lease = [e for e in fleet_events if e["ev"] == "lease" and e.get("phase") == "end"
                   and e.get("reason") == "agent_lost"]
+    # Each lease's end and each loss as the fleet saw them, and every
+    # requeue of the killed tenant: what a wrong loss count is read from.
+    agent_ends = [{k: e.get(k) for k in ("t", "agent", "phase", "exp", "pid", "reason", "detail")}
+                  for e in fleet_events if e["ev"] == "agent" and e["phase"] in ("done", "lost")]
+    kill_tenant_requeues = [{k: e.get(k) for k in ("t", "trial", "reason", "partition")}
+                            for e in kill_events if e["ev"] == "trial"
+                            and e["phase"] == "requeued"]
 
     first_lease = {}
     for e in fleet_events:
@@ -5354,6 +5429,7 @@ def phase_slice_agents(exp_root):
         sink_ingest=replay.get("sink"), sink=sink_check, clock_offsets=replay.get("clock_offsets"),
         kill=killed, kill_requeues=requeues, lost_leases=len(lost_lease),
         kill_results=out["kill"]["num_trials"], agents_replay=replay["agents"],
+        agent_ends=agent_ends, kill_tenant_requeues=kill_tenant_requeues,
         unified=unified, profiled=profiled, warm=reading,
         driver_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         phase_s=time.perf_counter() - t_phase)
@@ -5361,6 +5437,337 @@ def phase_slice_agents(exp_root):
         emit("slice_agents", problems=problems, **fields)
         raise AssertionError("slice_agents: {}".format("; ".join(problems)))
     emit("slice_agents", **fields)
+    return launches
+
+
+def dist_record(env, name, record):
+    """A rank's record of a slice_dist run: ``<records>/<name>.rank<i>.json``."""
+    path = os.path.join(os.environ[DIST_RECORDS_ENV],
+                        "{}.rank{}.json".format(name, env.process_index))
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)
+
+
+def seq_parallel_check(env, fn):
+    """``fn`` (ring_attention or ulysses_attention, impl="flash") on this
+    rank's shard of seeded bf16 q [1, DIST_S, 32, 128] and k, v [1, DIST_S,
+    8, 128] (the Llama-3-8B attention of slice_dist's sequence), causal,
+    forward and backward, against flash_attention on the whole sequence on
+    this rank: each error beside the kernels phase's bf16 tolerance, and the
+    exchanges the call made."""
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.parallel import collectives, split_sequence
+
+    g = torch.Generator(device=env.device).manual_seed(5)
+
+    def draw(heads):
+        return torch.randn(1, DIST_S, heads, DIST_D, device=env.device,
+                           generator=g).to(torch.bfloat16)
+
+    q, k, v, do = draw(DIST_H), draw(DIST_HKV), draw(DIST_HKV), draw(DIST_H)
+    whole = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = A.flash_attention(*whole, None, True)
+    ref.backward(do)
+    n, i = env.axis_size("seq"), env.axis_index("seq")
+
+    def shard(x):
+        return split_sequence(x.detach(), n, i).contiguous()
+
+    mine = [shard(x).requires_grad_() for x in (q, k, v)]
+    collectives.reset_traffic()
+    out = fn(*mine, env.group("seq"), causal=True, impl="flash")
+    out.backward(shard(do))
+    torch.cuda.synchronize()
+    traffic = collectives.traffic()
+    checks = {}
+    for key, got, want in (("out", out, ref), ("dq", mine[0].grad, whole[0].grad),
+                           ("dk", mine[1].grad, whole[1].grad),
+                           ("dv", mine[2].grad, whole[2].grad)):
+        want = shard(want)
+        checks[key] = {"max_abs_err": float((got.detach().float() - want.float()).abs().max()),
+                       "tol": tolerance(torch.bfloat16, want),
+                       "finite": bool(torch.isfinite(got).all())}
+    return {"checks": checks, "traffic": traffic,
+            "ok": all(c["finite"] and c["max_abs_err"] <= c["tol"] for c in checks.values())}
+
+
+def train_llama_sp(sharding_env, reporter=None):
+    """A rank of slice_dist's llama3_8b_sp run: the ring check at its shape,
+    then the LoRA Llama-3-8B (DIST_LAYERS layers, remat, attention_impl=
+    "ring") on this rank's shard of batch 1 x DIST_S seeded tokens, labels
+    shifted over the whole sequence, DIST_STEPS mesh-Trainer steps
+    (strategy "sp"). Records losses, step times, this rank's kernel
+    launches and exchanges over the steps, its peak memory."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.models import Llama, LlamaConfig
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.ops import next_token_labels, sharded_next_token_loss
+    from maggy_tpu_torch.parallel import collectives, ring_attention
+    from maggy_tpu_torch.train import Trainer, adamw, only_lora
+
+    env = sharding_env
+    t_enter = time.perf_counter()
+    check = seq_parallel_check(env, ring_attention)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=16), num_layers=DIST_LAYERS,
+                              attention_impl="ring", seq_mesh=env.mesh)
+    n_seq = env.axis_size("seq")
+    trainer = Trainer(Llama(cfg, device="meta"), only_lora(adamw(1e-4)),
+                      lambda out, b: sharded_next_token_loss(out[0], out[1], b["labels"], n_seq),
+                      train_kwargs={"return_hidden": True}, env=env, strategy="sp").init(seed=0)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(DIST_STEPS, 1, DIST_S))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    collectives.reset_traffic()
+    losses, step_ms = [], []
+    setup_s = time.perf_counter() - t_enter
+    for i in range(DIST_STEPS):
+        t = torch.as_tensor(tokens[i])
+        batch = trainer.place_batch({"inputs": (t,), "labels": next_token_labels(t)})
+        t0 = time.perf_counter()
+        loss = float(trainer.step(batch))  # the all-reduced loss: synced
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if reporter is not None:
+            reporter.broadcast(loss, step=i)
+    dist_record(env, "llama3_8b_sp", {
+        "pid": os.getpid(), "rank": env.process_index, "device": str(env.device),
+        "backend": str(dist.get_backend()), "losses": losses, "step_ms": step_ms,
+        "launches": A.launch_counts(), "traffic": collectives.traffic(), "check": check,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "params": sum(p.numel() for p in trainer.model.parameters()), "setup_s": setup_s})
+    return {"metric": losses[-1]}
+
+
+def train_ulysses(sharding_env):
+    """A rank of slice_dist's ulysses run: the Ulysses check at the ring's
+    shape and world."""
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.parallel import ulysses_attention
+
+    A.reset_launch_counts()
+    check = seq_parallel_check(sharding_env, ulysses_attention)
+    dist_record(sharding_env, "ulysses", {"pid": os.getpid(), "check": check,
+                                          "launches": A.launch_counts(),
+                                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"metric": check["checks"]["out"]["max_abs_err"]}
+
+
+def train_resnet_dp(sharding_env, reporter=None):
+    """examples/distributed_training.py's train function on the port:
+    ResNet-18 width 16 (2 classes, CIFAR stem), SGD 0.05 with momentum 0.9,
+    BatchNorm statistics updated in the step, batch 128 of 512 seeded
+    32 x 32 x 3 images for 4 epochs through ShardedBatchIterator. A world of
+    one runs no collective in its steps (a one-rank group is skipped), so
+    the final loss is then all-reduced once over the world's NCCL group."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.models import ResNet
+    from maggy_tpu_torch.parallel import collectives
+    from maggy_tpu_torch.train import ShardedBatchIterator, Trainer, cross_entropy_loss
+
+    env = sharding_env
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(512, 32, 32, 3)).astype(np.float32)
+    y = (X.mean(axis=(1, 2, 3)) > 0).astype(np.int64)
+
+    def sgd(model):
+        opt = torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda step: 1.0)
+
+    trainer = Trainer(ResNet(depth=18, num_classes=2, width=16, device="meta"), sgd,
+                      lambda out, b: cross_entropy_loss(out, b["labels"]),
+                      has_aux_collections=True, train_kwargs={"train": True}, env=env,
+                      strategy="dp").init(seed=0)
+    it = ShardedBatchIterator({"x": X, "y": y}, batch_size=128, shard_count=env.shard_count,
+                              current_shard=env.current_shard, epochs=4, seed=1, env=env)
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_traffic()
+    losses, step_ms = [], []
+    for i, b in enumerate(it):
+        t0 = time.perf_counter()
+        loss = trainer.step({"inputs": (b["x"],), "labels": b["y"]})
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if reporter is not None and i % 4 == 0:
+            reporter.broadcast(losses[-1], step=i)
+    final = torch.tensor([losses[-1]], device=env.device)
+    collectives.all_reduce_(final, dist.group.WORLD)
+    dist_record(env, "resnet_dp", {
+        "pid": os.getpid(), "backend": str(dist.get_backend()), "world": dist.get_world_size(),
+        "losses": losses, "step_ms": step_ms, "all_reduced_loss": float(final),
+        "traffic": collectives.traffic(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"metric": losses[-1]}
+
+
+def ring_schedule_launches(n, causal, layers, steps, remat):
+    """The flash launches the ring's schedule makes, summed over its n
+    ranks: a rank at index i runs the diagonal block and, causal, the i
+    blocks strictly in its past (every block, full), each a forward (twice
+    under remat: the layer runs again in the backward) and one dK/dV and one
+    dQ launch of the backward (flash_block_bwd), for every layer and step."""
+    blocks = n * (n + 1) // 2 if causal else n * n
+    per = layers * steps * blocks
+    return {"flash_fwd": per * (2 if remat else 1), "flash_bwd_dkdv": per, "flash_bwd_dq": per}
+
+
+def dist_journal_check(name, exp_dir, workers):
+    """Replay a distributed run's journal: whole, every worker registered
+    and finalized once without an error, the experiment started and ended;
+    returns the events, the rendezvous times and the problems."""
+    from maggy_tpu_torch.telemetry import read_events
+
+    paths = glob.glob(os.path.join(exp_dir, "*", "telemetry.jsonl"))
+    if len(paths) != 1:
+        return {"problems": ["{}: {} journals under {}".format(name, len(paths), exp_dir)]}
+    events = read_events(paths[0])
+    worker = [e for e in events if e["ev"] == "worker"]
+    registered = sorted(e["partition"] for e in worker if e["phase"] == "registered")
+    finalized = [e for e in worker if e["phase"] == "finalized"]
+    phases = [e["phase"] for e in events if e["ev"] == "experiment"]
+    problems = []
+    if events.torn_lines:
+        problems.append("{}: {} torn journal lines".format(name, events.torn_lines))
+    if registered != list(range(workers)) or sorted(
+            e["partition"] for e in finalized) != list(range(workers)):
+        problems.append("{}: workers registered {} and finalized {} of {}".format(
+            name, registered, [e["partition"] for e in finalized], workers))
+    if any(e.get("error") for e in finalized):
+        problems.append("{}: a worker finalized with an error".format(name))
+    if phases[:1] != ["start"] or phases[-1:] != ["end"]:
+        problems.append("{}: experiment phases {}".format(name, phases))
+    return {"events": len(events), "torn_lines": events.torn_lines,
+            "rendezvous_ms": {str(e["partition"]): e.get("rendezvous_ms") for e in finalized},
+            "problems": problems}
+
+
+def phase_slice_dist(exp_root, smi):
+    """Phase 23: distributed training through lagom(train_fn,
+    DistributedConfig(backend="process")). llama3_8b_sp: two rank processes
+    sharing the card over gloo, a "seq" ring of the LoRA Llama-3-8B at full
+    width; ulysses: Ulysses at the same shape and world; resnet_dp: the
+    ResNet-18 of examples/distributed_training.py on a world of one, over
+    NCCL. Returns the ring run's flash launches summed over its ranks."""
+    import multiprocessing
+
+    from maggy_tpu_torch import DistributedConfig, experiment
+
+    t_phase = time.perf_counter()
+    exp_root = fresh_dir(exp_root)
+    records = fresh_dir(os.path.join(exp_root, "records"))
+    os.environ[DIST_RECORDS_ENV] = records
+    runs, problems = {}, []
+    seq_world = dict(num_workers=DIST_RANKS, mesh_shape={"seq": DIST_RANKS}, strategy="sp")
+    try:
+        for name, fn, shape in (("llama3_8b_sp", train_llama_sp, seq_world),
+                                ("ulysses", train_ulysses, seq_world),
+                                ("resnet_dp", train_resnet_dp,
+                                 dict(num_workers=1, mesh_shape={"data": 1}, strategy="dp"))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            exp_dir = fresh_dir(os.path.join(exp_root, name))
+            t0 = time.perf_counter()
+            try:
+                result = experiment.lagom(fn, DistributedConfig(
+                    name=name, backend="process", hb_interval=0.5,
+                    hb_loss_timeout=DIST_TIMEOUT_S, experiment_dir=exp_dir, device=DEVICE,
+                    **shape))
+            except RuntimeError:
+                # The ranks' tracebacks are in their logs: a failed rank's
+                # world is killed before its own stderr says why.
+                lines = [line for path in sorted(glob.glob(os.path.join(
+                    exp_dir, "*", "worker_*.log"))) for line in open(path, errors="replace")]
+                emit("slice_dist", failed=name, worker_logs="".join(lines[-120:]))
+                raise
+            wall = time.perf_counter() - t0
+            ranks = [json.load(open(os.path.join(records, "{}.rank{}.json".format(name, r))))
+                     for r in range(shape["num_workers"])]
+            journal = dist_journal_check(name, exp_dir, shape["num_workers"])
+            problems += journal.pop("problems")
+            runs[name] = {"result": result, "wall_s": wall, "ranks": ranks, "journal": journal}
+            if result["num_workers"] != shape["num_workers"] or \
+                    len(result["per_worker"]) != shape["num_workers"]:
+                problems.append("{}: result {}".format(name, result))
+    finally:
+        os.environ.pop(DIST_RECORDS_ENV, None)
+        for p in multiprocessing.active_children():
+            if p.name.startswith("runner-"):
+                p.kill()
+                p.join(10)
+
+    sp, ul, rn = runs["llama3_8b_sp"], runs["ulysses"], runs["resnet_dp"]
+    # The ring: equal finite losses on both ranks, its check, launches.
+    losses = [r["losses"] for r in sp["ranks"]]
+    if not (len(losses[0]) == DIST_STEPS and all(lo == losses[0] for lo in losses)
+            and all(math.isfinite(x) for x in losses[0])):
+        problems.append("llama3_8b_sp: rank losses {}".format(losses))
+    launches = {k: sum(r["launches"][k] for r in sp["ranks"]) for k in REPLACES}
+    expected = ring_schedule_launches(DIST_RANKS, True, DIST_LAYERS, DIST_STEPS, remat=True)
+    if launches != expected:
+        problems.append("llama3_8b_sp: launches {} != the ring's schedule {}".format(
+            launches, expected))
+    if {r["pid"] for r in sp["ranks"]} & {os.getpid()} or len({r["pid"] for r in sp["ranks"]}) \
+            != DIST_RANKS or {r["backend"] for r in sp["ranks"]} != {"gloo"}:
+        problems.append("llama3_8b_sp: ranks {}".format(
+            [(r["pid"], r["backend"], r["device"]) for r in sp["ranks"]]))
+    for name, run in (("llama3_8b_sp", sp), ("ulysses", ul)):
+        for r in run["ranks"]:
+            if not r["check"]["ok"]:
+                problems.append("{}: rank {} off flash_attention on the whole sequence: "
+                                "{}".format(name, run["ranks"].index(r), r["check"]["checks"]))
+    if ul["ranks"][0]["check"]["traffic"].get("all_to_all", {}).get("calls") != 8:
+        # Forward: q, k, v in and the output back; backward: the output's
+        # gradient in and dq, dk, dv back.
+        problems.append("ulysses: all-to-alls {}".format(ul["ranks"][0]["check"]["traffic"]))
+    resnet = rn["ranks"][0]
+    if not (resnet["backend"] == "nccl" and resnet["world"] == 1
+            and all(math.isfinite(x) for x in resnet["losses"]) and len(resnet["losses"]) == 16
+            and resnet["all_reduced_loss"] == resnet["losses"][-1]):
+        problems.append("resnet_dp: {}".format({k: resnet[k] for k in (
+            "backend", "world", "losses", "all_reduced_loss")}))
+
+    def hop(rank):
+        t = rank["traffic"].get("ring_hop") or {}
+        return {"transport": t.get("transport"), "hops": t.get("calls"),
+                "bytes_per_hop": t["bytes"] / t["calls"] if t else None,
+                "ms_per_hop": t["ms"] / t["calls"] if t else None,
+                "grad_all_reduce": rank["traffic"].get("grad_all_reduce"),
+                "loss_all_reduce": rank["traffic"].get("loss_all_reduce")}
+
+    fields = dict(
+        nvidia_smi=smi,
+        note="two rank processes time-slice one card: correctness, not scaling",
+        llama3_8b_sp={
+            "wall_s": sp["wall_s"], "ranks": DIST_RANKS, "layers": DIST_LAYERS,
+            "tokens": [1, DIST_S], "steps": DIST_STEPS, "losses": losses[0],
+            "step_ms_p50": [float(np.median(r["step_ms"][1:])) for r in sp["ranks"]],
+            "step_ms": [r["step_ms"] for r in sp["ranks"]],
+            "launches": launches, "expected_launches": expected,
+            "launches_by_rank": [r["launches"] for r in sp["ranks"]],
+            "exchanges": [hop(r) for r in sp["ranks"]],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in sp["ranks"]],
+            "params": sp["ranks"][0]["params"], "setup_s": [r["setup_s"] for r in sp["ranks"]],
+            "ring_check": [r["check"] for r in sp["ranks"]],
+            "rendezvous_ms": sp["journal"]["rendezvous_ms"], "journal": sp["journal"]},
+        ulysses={"wall_s": ul["wall_s"], "check": [r["check"] for r in ul["ranks"]],
+                 "launches_by_rank": [r["launches"] for r in ul["ranks"]],
+                 "peak_mem_gb": [r["peak_mem_gb"] for r in ul["ranks"]],
+                 "rendezvous_ms": ul["journal"]["rendezvous_ms"], "journal": ul["journal"]},
+        resnet_dp={"wall_s": rn["wall_s"], "backend": resnet["backend"],
+                   "losses": resnet["losses"], "step_ms_p50": float(np.median(
+                       resnet["step_ms"][1:])), "peak_mem_gb": resnet["peak_mem_gb"],
+                   "traffic": resnet["traffic"], "rendezvous_ms": rn["journal"]["rendezvous_ms"],
+                   "journal": rn["journal"]},
+        phase_s=time.perf_counter() - t_phase)
+    if problems:
+        emit("slice_dist", problems=problems, **fields)
+        raise AssertionError("slice_dist: {}".format("; ".join(problems)))
+    emit("slice_dist", **fields)
+    CAPTURED["dist"] = False
     return launches
 
 
@@ -5373,6 +5780,8 @@ def fresh_dir(path):
 def main():
     from maggy_tpu_torch.train import clear_warm
 
+    if os.path.exists(PHASE_LOG):
+        os.remove(PHASE_LOG)
     smi = phase_device()
     phase_build()
     main_times = phase_kernels()
@@ -5417,6 +5826,9 @@ def main():
     clear_warm()
     launches["bert_base_agents"] = phase_slice_agents(
         os.path.join(ROOT, "build", "chip_smoke_experiments_agents"))
+    clear_warm()
+    launches["dist"] = phase_slice_dist(os.path.join(ROOT, "build", "chip_smoke_experiments_dist"),
+                                        smi)
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

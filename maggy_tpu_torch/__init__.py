@@ -8,8 +8,10 @@ package imports nothing of it.
 
 __version__ = "0.1.0"
 
-from maggy_tpu_torch.config import AblationConfig, LagomConfig, OptimizationConfig
+from maggy_tpu_torch.config import (AblationConfig, DistributedConfig, LagomConfig,
+                                    OptimizationConfig)
 from maggy_tpu_torch.searchspace import Searchspace
 from maggy_tpu_torch.trial import Trial
 
-__all__ = ["AblationConfig", "Searchspace", "Trial", "LagomConfig", "OptimizationConfig"]
+__all__ = ["AblationConfig", "DistributedConfig", "Searchspace", "Trial", "LagomConfig",
+           "OptimizationConfig"]

@@ -8,8 +8,9 @@ heartbeat-loss requeue, the telemetry journal, the compile-once warm path
 (``warm_start``), checkpoint forking (``fork``) and experiment resume
 (``resume``), vectorized lanes (``vmap_lanes``) and a shared fleet's
 binding (``fleet``, set by ``Fleet.submit``) with its journal-sink opt-in
-(``sink``), the per-trial ``profile`` and ``ship_prints``, and
-`AblationConfig` for LOCO ablation studies. ``chips_per_budget`` (gangs,
+(``sink``), the per-trial ``profile`` and ``ship_prints``,
+`AblationConfig` for LOCO ablation studies, and `DistributedConfig` for
+distributed training of one model. ``chips_per_budget`` (gangs,
 ROADMAP queue 1 item 8) exists only so that setting it raises "not ported
 yet" with its ROADMAP item, as does ``pool="elastic"`` (item 8: it sizes
 chip sub-slices by ``chips_per_budget``). Parity: reference
@@ -19,8 +20,8 @@ chip sub-slices by ``chips_per_budget``). Parity: reference
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Any, Optional, Union
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Union
 
 from maggy_tpu_torch import constants
 from maggy_tpu_torch.searchspace import Searchspace
@@ -245,3 +246,69 @@ class AblationConfig(OptimizationConfig):
     ablation_study: Any = None
     ablator: Union[str, Any] = "loco"
     es_policy: str = "none"
+
+
+#: DistributedConfig backends the port runs ("remote" is SPMD agents,
+#: ROADMAP queue 1 item 8).
+DIST_BACKENDS = (None, "process", "thread")
+
+
+@dataclass
+class DistributedConfig(LagomConfig):
+    """Distributed training of ONE model (``maggy_tpu/config.py:319-360``;
+    reference `experiment_config.py:68-81`). The train function receives a
+    ``parallel.ShardingEnv`` (the mesh, this rank's index, device and
+    process groups) instead of a DDP-wrapped model.
+
+    One worker is one rank on one device. ``backend`` None or "process"
+    spawns one process a rank (a single worker runs in a thread of the
+    caller, as in the JAX package), each joining one
+    ``torch.distributed`` process group: NCCL when every rank has a card
+    of its own, gloo when ranks share one (NCCL refuses two ranks on one
+    device) or run on the CPU. "thread" runs every worker in a thread of
+    this process: the barrier, the rendezvous and the FINAL averaging run,
+    and each thread gets a world-1 ``ShardingEnv`` (a process holds one
+    default group; the JAX package's thread mode skips
+    ``jax.distributed`` too). "remote" and ``bind_host`` are not ported
+    yet (ROADMAP queue 1 item 8). ``device`` is where ranks run, "cuda" (a rank without a card
+    raises) or "cpu" (the port's own field: JAX picks its default
+    backend)."""
+
+    #: Model (or model spec) forwarded to the train function.
+    model: Any = None
+    train_set: Any = None
+    test_set: Any = None
+    #: Number of ranks.
+    num_workers: int = 1
+    #: Logical mesh axes, e.g. {"data": 2} or {"data": 2, "seq": 2}.
+    mesh_shape: Dict[str, int] = field(default_factory=dict)
+    #: Parallelism strategy name: "dp", "fsdp", "tp", "dp_tp", "sp", ...
+    strategy: str = "dp"
+    backend: Optional[str] = None
+    #: Control-plane bind host (for remote agents): not ported yet, the
+    #: driver binds loopback; setting it raises (ROADMAP queue 1 item 8).
+    bind_host: Optional[str] = None
+    #: A worker silent this many seconds fails the experiment (a dead rank
+    #: wedges the world's collectives); also the process group's timeout.
+    #: None -> max(hb_loss_min_s, hb_interval * hb_loss_factor).
+    hb_loss_timeout: Optional[float] = None
+    #: A torch.profiler trace per worker into the experiment dir.
+    profile: bool = False
+    experiment_dir: Optional[str] = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.backend == "remote":
+            raise NotImplementedError("DistributedConfig(backend='remote') is not ported yet "
+                                      "(ROADMAP queue 1 item 8)")
+        if self.bind_host is not None:
+            raise NotImplementedError("DistributedConfig(bind_host={!r}) is not ported yet "
+                                      "(ROADMAP queue 1 item 8)".format(self.bind_host))
+        if self.backend not in DIST_BACKENDS:
+            raise ValueError("backend must be one of {}, got {!r}".format(
+                DIST_BACKENDS, self.backend))
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError("device must be 'cuda' or 'cpu', got {!r}".format(self.device))
+        if not isinstance(self.num_workers, int) or self.num_workers < 1:
+            raise ValueError("num_workers must be an int >= 1, got {!r}".format(
+                self.num_workers))

@@ -4,8 +4,8 @@ Copy of the subset of ``maggy_tpu/constants.py`` the port uses (parity:
 reference `maggy/constants.py:23-28`; the prefetch lock bound of
 ``maggy_tpu/constants.py:31-36``; the fork-affinity hold of
 ``maggy_tpu/constants.py:38-43``; the heartbeat-loss defaults of
-``maggy_tpu/constants.py:80-88``; the registration barrier and the shared
-listener's per-tenant queue of ``maggy_tpu/constants.py:30, 37, 79``).
+``maggy_tpu/constants.py:80-88``; the registration barrier, the rendezvous and the shared
+listener's per-tenant queue of ``maggy_tpu/constants.py:26-30, 37, 49, 79``).
 """
 
 from __future__ import annotations
@@ -47,6 +47,11 @@ CLIENT_MAX_PENDING_LOG_LINES = 500
 # How long the registration barrier (and a remote runner's wait for its
 # join ticket) may take before it fails.
 REGISTRATION_TIMEOUT_S = 600.0
+# A distributed worker's wait for the coordinator rendezvous (DIST_CONFIG),
+# polled from CLIENT_GET_POLL_MIN_S doubling up to the cap
+# (``maggy_tpu/constants.py:26-29, 49``).
+RENDEZVOUS_TIMEOUT_S = 60.0
+CLIENT_DIST_CONFIG_POLL_MAX_S = 0.5
 # The shared listener's per-tenant dispatch queue: a tenant whose handlers
 # fall behind fills its own queue, and a frame past it is shed with its
 # connection (the client's retry re-delivers); other tenants are unaffected.

@@ -217,6 +217,10 @@ class Driver:
     def _exp_startup_callback(self) -> None:
         pass
 
+    def _after_runners(self) -> None:
+        """Called once every runner has returned, before the outcome is
+        judged."""
+
     def _exp_final_callback(self, job_end: float) -> Any:
         return None
 
@@ -260,6 +264,7 @@ class Driver:
             # Blocks until every runner returns (foreachPartition semantics).
             failures = self._active_pool.run(self._executor_fn(train_fn))
             job_end = time.time()
+            self._after_runners()
             # A callback failure must surface BEFORE finalization, or the
             # experiment would be marked FINISHED with a bogus result.
             if self.exception is not None:

@@ -11,7 +11,11 @@ assignment it finishes. Graceful preemption (JAX `rpc.py:1351-1355, 1468-1474,
 2110-2129`): a STOP reply carries ``preempt`` when the driver preempts the
 trial, and the runner acks with a FINAL marked ``preempted`` that carries its
 last checkpoint step. Parity: reference `maggy/core/rpc.py` (:35-113,
-:116-162, :250-286, :295-437, :440-593).
+:116-162, :250-286, :295-437, :440-593). Distributed training's
+`DistributedServer` (JAX `rpc.py:1618-1717`: REG with the coordinator
+endpoint, the registration barrier, DIST_CONFIG and the heartbeat-loss scan
+that fails the experiment) pairs with the client's ``register(host_port)``,
+``await_reservations`` and ``get_dist_config``.
 
 Vectorized blocks (JAX `rpc.py:1333-1389, 1413-1428, 1514-1532, 1893-1939,
 2083-2100`): a block's TRIAL reply journals a ``running`` edge for every
@@ -175,7 +179,9 @@ class Reservations:
     def add(self, meta: Dict[str, Any]) -> None:
         with self.lock:
             rec = dict(meta)
-            rec["last_beat"] = time.monotonic()
+            # When this runner registered: a fleet lease tells its own
+            # runner's record from the one its partition's last holder left.
+            rec["last_beat"] = rec["registered_t"] = time.monotonic()
             pid = int(meta["partition_id"])
             if pid in self._pending_evict:
                 self._pending_evict.discard(pid)
@@ -903,6 +909,91 @@ class OptimizationServer(Server):
 # ---------------------------------------------------------------- shared
 
 
+class DistributedServer(Server):
+    """The distributed-training verbs (``maggy_tpu/core/rpc.py:1618-1717``):
+    REG carries the worker's coordinator endpoint, QUERY is the
+    registration barrier, and DIST_CONFIG returns partition 0's endpoint
+    and the world size once every worker registered (the reference's
+    TORCH_CONFIG MASTER_ADDR/PORT brokering, `rpc.py:391-437`). Worker 0
+    hosts the rendezvous store that ``torch.distributed`` joins there.
+    ``_tick``'s heartbeat-loss scan declares a silent worker dead: a dead
+    rank wedges every collective in the world, so the driver fails the
+    experiment instead of waiting."""
+
+    def __init__(self, num_executors: int, secret: Optional[str] = None):
+        self.driver = None
+        self.hb_loss_timeout: Optional[float] = None
+        self._last_loss_scan = time.monotonic()
+        super().__init__(secret, num_executors)
+
+    def attach_driver(self, driver) -> None:
+        self.driver = driver
+
+    def _register_handlers(self) -> None:
+        super()._register_handlers()
+        self._handlers.update(REG=self._reg, METRIC=self._metric, BATCH=self._batch,
+                              FINAL=self._final, DIST_CONFIG=self._dist_config, LOG=self._log)
+
+    def _reg(self, msg):
+        self.reservations.add({"partition_id": msg["partition_id"],
+                               "host_port": msg.get("host_port"), "trial_id": None})
+        if self.telemetry is not None:
+            self.telemetry.event("worker", phase="registered",
+                                 partition=int(msg["partition_id"]))
+        return {"type": "OK"}
+
+    def _metric(self, msg):
+        self.reservations.touch(msg["partition_id"])
+        rstats = msg.pop("rstats", None)
+        if rstats and self.telemetry is not None:
+            self.telemetry.record_runner_stats(msg["partition_id"], rstats)
+        if self.driver is not None:
+            self.driver.enqueue(dict(msg))
+        return {"type": "OK"}
+
+    def _final(self, msg):
+        # FINAL is a worker's last message: its slot is released here.
+        self.reservations.touch(msg["partition_id"])
+        self.reservations.mark_released(msg["partition_id"])
+        if self.driver is not None:
+            self.driver.enqueue(dict(msg))
+        telem = self.telemetry
+        if telem is not None:
+            # The worker-measured rendezvous latency rides the FINAL; the
+            # event carries it too, so a replay of the journal reads it.
+            rendezvous_ms = (msg.get("telem") or {}).get("rendezvous_ms")
+            telem.event("worker", phase="finalized", partition=int(msg["partition_id"]),
+                        error=bool(msg.get("error")), rendezvous_ms=rendezvous_ms)
+            if rendezvous_ms is not None:
+                telem.observe_ms("dist.rendezvous_ms", float(rendezvous_ms))
+        return {"type": "OK"}
+
+    def _tick(self) -> None:
+        """A worker whose heartbeats stopped is dead: DEAD_WORKER to the
+        driver, at most every min(1 s, timeout / 4)."""
+        if self.hb_loss_timeout is None or self.driver is None:
+            return
+        now = time.monotonic()
+        if now - self._last_loss_scan < min(1.0, self.hb_loss_timeout / 4):
+            return
+        self._last_loss_scan = now
+        for pid in self.reservations.silent(self.hb_loss_timeout):
+            self.reservations.mark_released(pid)
+            self.driver.enqueue({"type": "DEAD_WORKER", "partition_id": pid})
+
+    def _dist_config(self, msg):
+        rec = self.reservations.get(0)
+        if rec is None or not self.reservations.done():
+            return {"type": "OK", "config": None}
+        return {"type": "DIST_CONFIG",
+                "config": {"coordinator_address": rec["host_port"],
+                           "num_processes": self.num_executors}}
+
+    def _log(self, msg):
+        snap = self.driver.progress_snapshot() if self.driver else {}
+        return {"type": "LOG", **snap}
+
+
 class _TenantDispatcher:
     """One tenant's handler thread on a shared listener: a bounded FIFO of
     (conn, payload) frames drained by one daemon worker (JAX `rpc.py:
@@ -1343,8 +1434,12 @@ class Client:
                     self._sock = fresh
         raise ConnectionError("RPC request failed after retries: {}".format(last_err))
 
-    def register(self) -> None:
-        self._request({"type": "REG"})
+    def register(self, host_port: Optional[str] = None) -> None:
+        """REG; a distributed worker advertises its coordinator endpoint."""
+        msg = {"type": "REG"}
+        if host_port is not None:
+            msg["host_port"] = host_port
+        self._request(msg)
 
     def await_reservations(self, timeout: float = constants.REGISTRATION_TIMEOUT_S) -> None:
         """The runner-side registration barrier (JAX `rpc.py:1833-1840`):
@@ -1487,8 +1582,26 @@ class Client:
         elif resp.get("type") == "GSTOP":
             self.done = True
 
-    def finalize_metric(self, metric, reporter) -> Dict[str, Any]:
-        return self._finalize({"trial_id": reporter.trial_id, "value": metric}, reporter)
+    def finalize_metric(self, metric, reporter,
+                        extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """FINAL with the metric; ``extra`` adds payload fields (a
+        distributed worker's rendezvous time)."""
+        return self._finalize({"trial_id": reporter.trial_id, "value": metric, **(extra or {})},
+                              reporter)
+
+    def get_dist_config(self, timeout: float = constants.RENDEZVOUS_TIMEOUT_S) -> Dict[str, Any]:
+        """Poll DIST_CONFIG until the server has every registration (JAX
+        `rpc.py:2013-2031`): from CLIENT_GET_POLL_MIN_S, doubling up to
+        CLIENT_DIST_CONFIG_POLL_MAX_S."""
+        deadline = time.monotonic() + timeout
+        delay = constants.CLIENT_GET_POLL_MIN_S
+        while time.monotonic() < deadline:
+            resp = self._request({"type": "DIST_CONFIG"})
+            if resp.get("config"):
+                return resp["config"]
+            time.sleep(delay)
+            delay = min(delay * 2, constants.CLIENT_DIST_CONFIG_POLL_MAX_S)
+        raise TimeoutError("Coordinator rendezvous timed out.")
 
     def finalize_error(self, trial_id: str, reporter) -> Dict[str, Any]:
         """Report a failed trial (train_fn raised): FINAL with the error

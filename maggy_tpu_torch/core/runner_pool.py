@@ -24,11 +24,15 @@ import multiprocessing as mp
 import os
 import signal
 import threading
+import time
 import traceback
 from abc import ABC, abstractmethod
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+#: Seconds a runner process gets to exit after ``terminate`` before SIGKILL.
+TERMINATE_GRACE_S = 5.0
 
 
 def resolve_num_workers(config) -> int:
@@ -163,8 +167,15 @@ class ProcessRunnerPool(RunnerPool):
         super().__init__(num_workers)
         self.env_fn = env_fn
         self._procs: list = []
+        # When terminate() was asked (monotonic), else None: run() escalates
+        # to SIGKILL for a process that outlives the grace period.
+        self._terminated_at: Optional[float] = None
 
     def terminate(self) -> None:
+        """SIGTERM every runner process; one still alive TERMINATE_GRACE_S
+        later is SIGKILLed by ``run`` (a rank blocked in a collective of a
+        native library must not outlive its world)."""
+        self._terminated_at = time.monotonic()
         for p in self._procs:
             if p.is_alive():
                 p.terminate()
@@ -194,6 +205,11 @@ class ProcessRunnerPool(RunnerPool):
             p.start()
         failures: List[BaseException] = []
         for p in self._procs:
+            while p.is_alive():
+                p.join(timeout=0.5)
+                t_term = self._terminated_at
+                if t_term is not None and time.monotonic() - t_term > TERMINATE_GRACE_S:
+                    p.kill()
             p.join()
             if p.exitcode != 0:
                 failures.append(RuntimeError("Runner process {} died (exit code {}).".format(

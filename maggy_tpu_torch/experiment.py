@@ -10,8 +10,9 @@ resume in a new process finds its run. An ``AblationConfig`` runs a LOCO
 study through the ``AblationDriver`` (``core/driver/ablation_driver.py``).
 ``lagom_submit`` (``maggy_tpu/experiment.py:155-200``) submits an experiment
 to a shared ``fleet.Fleet`` instead: any number run at once in one process,
-leasing the fleet's runners by priority, weight and quota. Distributed
-training is not ported yet (ROADMAP queue 1 item 8).
+leasing the fleet's runners by priority, weight and quota. A
+``DistributedConfig`` trains one model on a world of ranks through the
+``DistributedDriver`` (``core/driver/distributed_driver.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from functools import singledispatch
 from typing import Any, Callable, Optional
 
 from maggy_tpu_torch import util
-from maggy_tpu_torch.config import AblationConfig, LagomConfig, OptimizationConfig
+from maggy_tpu_torch.config import (AblationConfig, DistributedConfig, LagomConfig,
+                                    OptimizationConfig)
 from maggy_tpu_torch.core.environment import EnvSing
 
 _state_lock = threading.Lock()
@@ -105,8 +107,8 @@ def lagom_submit(train_fn: Callable, config: LagomConfig, *, fleet, priority="no
 
 @singledispatch
 def lagom_driver(config, app_id: str, run_id: int):
-    raise TypeError("Unsupported config type {}; the port runs "
-                    "OptimizationConfig and AblationConfig.".format(type(config)))
+    raise TypeError("Unsupported config type {}; the port runs OptimizationConfig, "
+                    "AblationConfig and DistributedConfig.".format(type(config)))
 
 
 @lagom_driver.register(OptimizationConfig)
@@ -121,3 +123,10 @@ def _(config: AblationConfig, app_id: str, run_id: int):
     from maggy_tpu_torch.core.driver.ablation_driver import AblationDriver
 
     return AblationDriver(config, app_id, run_id)
+
+
+@lagom_driver.register(DistributedConfig)
+def _(config: DistributedConfig, app_id: str, run_id: int):
+    from maggy_tpu_torch.core.driver.distributed_driver import DistributedDriver
+
+    return DistributedDriver(config, app_id, run_id)

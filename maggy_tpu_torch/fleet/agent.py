@@ -401,7 +401,7 @@ class AgentPlane:
         info = dict(entry.agent_info or {})
         lease = {"type": "ABIND", "exp": entry.name,
                  "partition_id": int(pid), **info}
-        now = time.monotonic()
+        now = lease_set_t = time.monotonic()
         with self._lock:
             rec.pending = lease
             rec.pending_set_t = now
@@ -446,6 +446,11 @@ class AgentPlane:
                     break
             else:
                 rrec = res.get(pid) if res is not None else None
+                if rrec is not None and rrec.get("registered_t", 0.0) < lease_set_t:
+                    # The record the partition's last holder left (a lost
+                    # agent's, silent since it died): this agent has not
+                    # REGed yet, and that silence is not its own.
+                    rrec = None
                 if rrec is None:
                     if now - delivered_t > bound * _REG_GRACE_FACTOR:
                         # ABIND delivered but the agent never REGed: it
@@ -488,7 +493,8 @@ class AgentPlane:
                 # instant idle-silence back in the proxy loop.
                 rec.last_beat = time.monotonic()
         self._event(rec, "done", exp=entry.name, pid=pid,
-                    error=err is not None, reason=reason)
+                    error=err is not None, reason=reason,
+                    detail=str(err) if err is not None else None)
         return err, reason
 
     # -------------------------------------------------------------- querying

@@ -8,6 +8,13 @@ compute dtype (``dtype``), LoRA adapters on q/k/v/o, an untied lm head, and
 per-layer rematerialization (``torch.utils.checkpoint``) when ``remat``.
 Attention goes through ``multi_head_attention``, so a CUDA model whose
 sequence length tiles runs the flash kernels (causal, GQA).
+``attention_impl="ring"`` runs sequence parallelism instead
+(``maggy_tpu/models/llama.py:173-190``): each rank of ``seq_mesh``'s
+``seq_axis`` holds one shard of the sequence, its RoPE positions offset by
+the shard's start, and attention is ``parallel.ring_attention`` over the
+axis (causal only: an explicit mask raises). Its next-token labels are
+shifted over the global sequence before it is sharded
+(``ops.losses.next_token_labels``).
 
 Parameter names follow the Flax module names (``layer_i`` -> ``layers.i``),
 which is what ``flax_to_state_dict`` relies on. Layouts: dense kernels are
@@ -60,9 +67,13 @@ class LlamaConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     remat: bool = True
-    # Ring attention (attention_impl="ring") is not ported yet: Llama
-    # raises for it.
+    # Sequence parallelism: attention_impl="ring" runs ring attention over
+    # ``seq_mesh``'s ``seq_axis`` (a DeviceMesh, ``ShardingEnv.mesh``), each
+    # rank holding one shard of the sequence; "auto" is
+    # multi_head_attention.
     attention_impl: str = "auto"
+    seq_axis: str = "seq"
+    seq_mesh: Any = None
     # Mixture-of-experts: num_experts > 0 replaces the dense MLP with a
     # top-k routed MoEMLP (``models/moe.py``), every expert on the card.
     num_experts: int = 0
@@ -163,7 +174,17 @@ class Attention(nn.Module):
         v = self.v_proj(x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        out = multi_head_attention(q, k, v, causal=True, mask=mask)
+        if cfg.attention_impl == "ring":
+            if mask is not None:
+                raise ValueError("attention_impl='ring' supports only causal masking; "
+                                 "got an explicit mask")
+            from maggy_tpu_torch.parallel.mesh import axis_group
+            from maggy_tpu_torch.parallel.ring_attention import ring_attention
+
+            # GQA rides the ring natively: k/v circulate with Hkv heads.
+            out = ring_attention(q, k, v, axis_group(cfg.seq_mesh, cfg.seq_axis), causal=True)
+        else:
+            out = multi_head_attention(q, k, v, causal=True, mask=mask)
         return self.o_proj(out.reshape(B, S, cfg.num_heads * cfg.head_dim))
 
 
@@ -211,9 +232,9 @@ class Llama(nn.Module):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Llama(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
-        if cfg.attention_impl == "ring":
-            raise NotImplementedError("attention_impl='ring' is not ported yet "
-                                      "(ROADMAP.md queue 1 item 8)")
+        if cfg.attention_impl == "ring" and cfg.seq_mesh is None:
+            raise ValueError("attention_impl='ring' requires cfg.seq_mesh (a DeviceMesh with "
+                             "a '{}' axis)".format(cfg.seq_axis))
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.hidden_dim, dtype=cfg.param_dtype, device=device))
@@ -253,7 +274,14 @@ class Llama(nn.Module):
     def forward(self, tokens, positions=None, return_hidden: bool = False):
         cfg = self.cfg
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+            start = 0
+            if cfg.attention_impl == "ring":
+                # This rank's shard of the global sequence.
+                from maggy_tpu_torch.parallel.mesh import axis_index
+
+                start = axis_index(cfg.seq_mesh, cfg.seq_axis) * tokens.shape[1]
+            positions = torch.arange(start, start + tokens.shape[1],
+                                     device=tokens.device).expand(tokens.shape)
         x = F.embedding(tokens, self.embedding.to(cfg.dtype))
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():

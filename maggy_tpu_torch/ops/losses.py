@@ -10,6 +10,10 @@ each chunk's logits again instead of keeping them (the JAX package's
 ``jax.checkpoint`` on its scan body). Plain PyTorch: the JAX package
 computes this outside any Pallas kernel.
 
+``next_token_labels`` and ``sharded_next_token_loss`` are the loss of a
+sequence split over the ranks of a "seq" axis (the JAX package leaves the
+shift across shards to GSPMD).
+
 Numerics as in the JAX package: each chunk's logits are fp32 products of
 operands in ``h``'s dtype (the head is cast to it). On a CUDA card a bf16
 product runs as ``torch.mm(..., out_dtype=torch.float32)`` (tensor cores,
@@ -128,3 +132,34 @@ def chunked_next_token_loss(hidden, kernel, tokens, vocab_chunk: int = 16384):
     H = hidden.shape[-1]
     h = hidden[:, :-1, :].reshape(-1, H)
     return chunked_softmax_xent(h, kernel, tokens[:, 1:].reshape(-1), vocab_chunk)
+
+
+#: The label of a position with no next token (``F.cross_entropy``'s
+#: default ignore index).
+IGNORE_LABEL = -100
+
+
+def next_token_labels(tokens):
+    """labels[:, t] = tokens[:, t + 1], the last position IGNORE_LABEL. Shift
+    the GLOBAL sequence, then shard it: a shard's last position takes its
+    label from the next shard's first token."""
+    tokens = torch.as_tensor(tokens)
+    labels = torch.full(tokens.shape, IGNORE_LABEL, dtype=torch.long)
+    labels[:, :-1] = tokens[:, 1:]
+    return labels
+
+
+def sharded_next_token_loss(hidden, kernel, labels, seq_shards: int = 1,
+                            vocab_chunk: int = 16384):
+    """Next-token loss of one rank's shard of a sequence split ``seq_shards``
+    ways: hidden [B, s, H] and the head kernel [H, V] (``Llama(...,
+    return_hidden=True)``), labels [B, s] from ``next_token_labels`` of the
+    global tokens. Scaled so that its mean over the seq ranks (and any
+    data ranks, whose batches are equal) is the global mean over the
+    B * (S - 1) labelled positions (``next_token_loss`` of the whole
+    sequence), which is what the mesh Trainer's average makes of it."""
+    B, s, H = hidden.shape
+    flat = labels.reshape(-1)
+    keep = flat != IGNORE_LABEL
+    mean = chunked_softmax_xent(hidden.reshape(-1, H)[keep], kernel, flat[keep], vocab_chunk)
+    return mean * keep.sum() * seq_shards / (B * (s * seq_shards - 1))

@@ -5,7 +5,9 @@ patching.py` — in-memory datasets sharded by the DistributedSampler
 contract, :50-68, with automatic device movement, :89-107, and path
 datasets sharded by row or file, :69-81). The JAX package's ``mesh``
 becomes a torch ``device``; the seeded permutation is the same, so both
-packages yield the same index sequence. ``drop_feature`` and
+packages yield the same index sequence; given a ``ShardingEnv`` (``env``,
+the JAX iterator's ``mesh``) each batch becomes this rank's slice of it on
+the rank's device (``ShardingEnv.shard_batch``). ``drop_feature`` and
 ``feature_dropping_generator`` are LOCO's dataset ablation. Parquet needs
 ``pyarrow``, imported only when a parquet path is loaded, as in the JAX
 package; where it is not installed (the card's machine) a parquet path
@@ -26,7 +28,8 @@ import torch
 
 class ShardedBatchIterator:
     """Iterate minibatches of a dict-of-arrays dataset, restricted to this
-    process's shard, optionally placed on a torch ``device``."""
+    process's shard, optionally placed on a torch ``device`` or, with
+    ``env``, sliced and placed for this rank of a mesh."""
 
     def __init__(
         self,
@@ -40,6 +43,7 @@ class ShardedBatchIterator:
         device=None,
         epochs: Optional[int] = 1,
         prefetch: int = 0,
+        env=None,
     ):
         if not data:
             raise ValueError("Empty dataset.")
@@ -57,6 +61,7 @@ class ShardedBatchIterator:
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.device = None if device is None else torch.device(device)
+        self.env = env
         self.epochs = epochs
         self.prefetch = prefetch
 
@@ -103,7 +108,9 @@ class ShardedBatchIterator:
             for start in range(0, max(stop, 0), self.batch_size):
                 sel = idx[start:start + self.batch_size]
                 batch = {k: v[sel] for k, v in self.data.items()}
-                if self.device is not None:
+                if self.env is not None:
+                    batch = self.env.shard_batch(batch)
+                elif self.device is not None:
                     batch = self._place(batch)
                 yield batch
             epoch += 1

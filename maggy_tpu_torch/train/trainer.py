@@ -12,6 +12,21 @@ returns the loss as an un-synced 0-d tensor, which the `Reporter`
 materializes on its heartbeat thread; ``fit`` steps over batches with the
 JAX Trainer's reporting and callbacks (``maggy_tpu/train/trainer.py:
 622-640``).
+
+On a mesh (``env``, a ``parallel.ShardingEnv``, with a ``strategy``) the
+Trainer is the counterpart of ``init_train_state`` / ``make_train_step``
+(``maggy_tpu/train/trainer.py:57, 315``): parameters are placed by
+``parallel/sharding.py``'s rules, the gradients are averaged over the
+data-like and "seq" axes (the all-reduce GSPMD emits in JAX), the loss
+returned is that average too, and a "zero" strategy part shards the
+optimizer moments over "data" (ZeRO-1: each rank updates its slice of
+every parameter whose leading dim, in the JAX package's layout, divides,
+then the slices are gathered). Such a step runs eagerly, without the warm
+path: a gloo collective cannot sit in a CUDA graph. Strategies that shard
+parameters (fsdp, tp and their compositions) on an axis of more than one
+rank are not ported yet (ROADMAP queue 1 item 8) and raise. BatchNorm
+statistics are each rank's own batch's (GSPMD computes them over the
+global batch).
 """
 
 from __future__ import annotations
@@ -271,7 +286,16 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, optimizer: Callable, loss_fn: Callable,
                  device="cuda", train_kwargs: Optional[Dict[str, Any]] = None,
                  step_key: Optional[tuple] = None, warm_start: Optional[bool] = None,
-                 has_aux_collections: bool = False):
+                 has_aux_collections: bool = False, env=None, strategy: str = "dp"):
+        self.env = env
+        self.strategy = strategy
+        self._zero, self._zero_rows = False, []
+        if env is not None:
+            from maggy_tpu_torch.parallel import sharding
+
+            sharding.logical_axis_rules(strategy)  # raises on an unknown strategy
+            self._zero = sharding.validate_zero_strategy(env.mesh, strategy)
+            device, warm_start = env.device, False
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; pass "
@@ -348,6 +372,8 @@ class Trainer:
             self.model = self.model.to_empty(device=self.device)
         self._init_values(seed, state_dict)
         self.optimizer, self.scheduler = self.optimizer_factory(self.model)
+        if self.env is not None:
+            self._place_on_mesh()
         if self._slot is not None:
             self._unit = _Unit(self.model, self.optimizer,
                                getattr(self.optimizer_factory, "kwargs", None))
@@ -391,7 +417,12 @@ class Trainer:
     # ------------------------------------------------------------- step
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """numpy/tensor leaves of ``batch`` -> tensors on the device."""
+        """numpy/tensor leaves of ``batch`` -> tensors on the device; on a
+        mesh, this rank's slice of the global batch (``ShardingEnv.
+        shard_batch``)."""
+        if self.env is not None:
+            return self.env.shard_batch(batch)
+
         def put(x):
             if isinstance(x, (tuple, list)):
                 return type(x)(put(v) for v in x)
@@ -439,8 +470,105 @@ class Trainer:
                 cb({"loss": loss}, step=i)
         return float(loss) if loss is not None else float("nan")
 
+    # ------------------------------------------------------------- mesh
+
+    def _place_on_mesh(self) -> None:
+        """Place the parameters by the strategy's rules: every rank drew the
+        same values from the same seed, so a replicated parameter is placed
+        already; a sharded one is refused. Under "zero" the optimizer's
+        param groups get each rank's slice of every parameter that
+        ``zero_placements`` shards over "data" (views of the parameter's
+        storage), so the moments it creates are that slice's alone."""
+        from torch.distributed.tensor import Shard
+
+        from maggy_tpu_torch.parallel import sharding
+
+        env = self.env
+        for name, placements in sharding.shard_params(
+                env.mesh, self.model.named_parameters(), self.strategy).items():
+            for axis, placement in zip(env.axis_names, placements):
+                if isinstance(placement, Shard) and env.axis_size(axis) > 1:
+                    raise NotImplementedError(
+                        "strategy {!r} shards parameter {} over {!r}: sharded parameters "
+                        "are not ported yet (ROADMAP queue 1 item 8)".format(
+                            self.strategy, name, axis))
+        self._zero_rows = []
+        n, i = env.axis_size("data"), env.axis_index("data")
+        if not self._zero or n == 1:
+            return
+        names = {id(p): name for name, p in self.model.named_parameters()}
+        data_axis = env.axis_names.index("data")
+        for group in self.optimizer.param_groups:
+            params = []
+            for p in group["params"]:
+                placement = sharding.zero_placements(env.mesh, names[id(p)], p.shape,
+                                                     self.strategy)[data_axis]
+                if isinstance(placement, Shard):
+                    dim = placement.dim
+                    rows = p.shape[dim] // n
+                    shard = torch.nn.Parameter(p.detach().narrow(dim, i * rows, rows))
+                    self._zero_rows.append((p, shard, dim, i * rows, rows))
+                    p = shard
+                params.append(p)
+            group["params"] = params
+
+    def _reduce(self, tensors, kind: str) -> None:
+        """Average ``tensors`` in place over the mesh's reduce axes (the
+        data-like axes and "seq"), one flat buffer a dtype, each all-reduce
+        counted under ``kind`` (``collectives.traffic``)."""
+        from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+        from maggy_tpu_torch.parallel import collectives
+
+        group = self.env.group(*self.env.reduce_axes)
+        if group is None:
+            return
+        n = torch.distributed.get_world_size(group)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            flat = collectives.all_reduce_(_flatten_dense_tensors(ts), group, kind=kind)
+            flat /= n
+            for t, reduced in zip(ts, _unflatten_dense_tensors(flat, ts)):
+                t.copy_(reduced)
+
+    def _mesh_step(self, batch) -> torch.Tensor:
+        """The eager distributed step: backward, gradients averaged over the
+        reduce axes, the update (under "zero" each rank's slices, gathered
+        after), and the loss averaged like the gradients."""
+        from maggy_tpu_torch.parallel import collectives
+
+        loss, aux = self._objective(batch)
+        # The model's: under "zero" the optimizer holds slices, not these.
+        self.model.zero_grad(set_to_none=True)
+        loss.backward()
+        # Every rank reduces the same buffers: a trained parameter without a
+        # gradient here contributes zeros.
+        grads = []
+        for p in self.model.parameters():
+            if p.requires_grad:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+        self._reduce(grads, "grad_all_reduce")
+        for p, shard, dim, start, rows in self._zero_rows:
+            shard.grad = p.grad.narrow(dim, start, rows)
+        self.optimizer.step()
+        self.scheduler.step()
+        group = self.env.group("data")
+        for p, shard, dim, _, _ in self._zero_rows:
+            with torch.no_grad():
+                p.copy_(torch.cat(collectives.all_gather(shard.detach(), group), dim=dim))
+        self.aux_loss = None if aux is None else aux.detach()
+        loss = loss.detach().float().reshape(1)
+        self._reduce([loss], "loss_all_reduce")
+        return loss[0]
+
     def step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One optimizer step; returns the loss (lazy 0-d tensor)."""
+        if self.env is not None:
+            return self._mesh_step(batch)
         if self.device.type != "cuda":
             return self._eager_step(batch)
         graph = self._graph_for(batch)

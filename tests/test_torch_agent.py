@@ -359,6 +359,58 @@ def test_death_before_reg_frees_lease_cleanly(tmp_path):
     assert _replay("port", fleet)["agents"]["lost_leases"] == 1
 
 
+def test_a_successor_is_not_lost_for_its_predecessors_silence(tmp_path):
+    """Agent A dies mid-lease on the experiment's only partition; agent B
+    is leased the same partition and REGs only after several of the
+    proxy's watch ticks. The record A left is silent past the loss bound,
+    but B's lease is judged on B's own registration: one loss, not two."""
+    with _fleet("port", tmp_path, runners=0, max_agents=2, liveness=5.0) as fleet:
+        t = _ticket("port", fleet)
+        chans = [agent._AgentChannel((t["host"], t["port"]), t["secret"]) for _ in range(2)]
+        a = _join(chans[0], "a")
+        handle = experiment.lagom_submit(
+            soak.agent_train_fn, _cfg("port", "succ", 2, tmp_path, hb_loss_timeout=1.0,
+                                      hb_interval=0.05),
+            fleet=fleet, block=False, name="succ", max_runners=1)
+        lease_a = _await_lease(chans[0], a["agent"])
+        dead = rpc.Client((t["host"], t["port"]), lease_a["partition_id"],
+                          lease_a["hb_interval"], lease_a["secret"])
+        dead.register()
+        assert _get_trial(dead) is not None
+        b = _join(chans[1], "b")
+        for sock in (dead._sock, dead._hb_sock):
+            sock.close()
+        chans[0].close()
+        lease_b = _await_lease(chans[1], b["agent"])
+        assert lease_b["partition_id"] == lease_a["partition_id"]
+        time.sleep(0.5)  # ten of the proxy's ticks, inside the REG grace
+        client = rpc.Client((t["host"], t["port"]), lease_b["partition_id"],
+                            lease_b["hb_interval"], lease_b["secret"])
+        client.register()
+        reporter = _Reporter()
+        finals, deadline = 0, time.monotonic() + 30
+        while time.monotonic() < deadline:
+            resp = client._request({"type": "GET"})
+            if resp.get("type") == "GSTOP":
+                break
+            if resp.get("type") == "TRIAL":
+                client.last_info = resp.get("info", {})
+                reporter.trial_id = resp["trial_id"]
+                client.finalize_metric(0.5, reporter)
+                finals += 1
+            time.sleep(0.05)
+        assert chans[1].call({"type": "ADONE", "agent": b["agent"], "error": None})["type"] \
+            == "OK"
+        assert handle.result(timeout=60)["num_trials"] == 2
+        states = {rec["agent"]: rec["state"] for rec in fleet.status()["agents"]}
+        client.stop()
+        chans[1].close()
+    assert finals == 2
+    assert states[a["agent"]] == "lost" and states[b["agent"]] != "lost"
+    replay = _replay("port", fleet)["agents"]
+    assert (replay["losses"], replay["lost_leases"]) == (1, 1)
+
+
 def test_check_invariants_kill_agent_as_jax():
     def events(requeues, finals=1):
         out = [{"ev": "experiment", "phase": "start", "t": 0.0},

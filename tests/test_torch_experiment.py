@@ -80,6 +80,8 @@ _SWEEP = textwrap.dedent("""
     import maggy_tpu_torch.chaos.driver_soak
     import maggy_tpu_torch.monitor
     import maggy_tpu_torch.native
+    import maggy_tpu_torch.parallel
+    import maggy_tpu_torch.core.driver.distributed_driver
     from maggy_tpu_torch import runner
     from maggy_tpu_torch.chaos import harness
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
@@ -122,6 +124,18 @@ _SWEEP = textwrap.dedent("""
         # which re-ran the import hook above before importing anything.
         out = train(lr, warmup_frac, reporter, steps_per_budget=2)
         return {{**out, "banned": banned_imports(), "pid": os.getpid()}}
+
+    def train_dist(sharding_env):
+        # A rank of a 2-process {{"seq": 2}} world: the plain ring over its
+        # gloo group; the rank records what it imported.
+        from maggy_tpu_torch.parallel import ring_attention
+
+        x = torch.ones(1, 4, 2, 8) * (1 + sharding_env.process_index)
+        out = ring_attention(x, x, x, sharding_env.group("seq"))
+        with open(os.path.join(os.environ["MAGGY_TEST_DIST_OUT"],
+                               str(sharding_env.process_index)), "w") as f:
+            json.dump({{"banned": banned_imports(), "pid": os.getpid()}}, f)
+        return {{"metric": float(out.mean())}}
 
     def train_pbt(lr, warmup_frac, generation, member, budget, reporter, ctx):
         # A PBT segment: its parent's checkpoint (staged by the fork) read
@@ -279,6 +293,13 @@ _SWEEP = textwrap.dedent("""
         shipped = run_sink_soak(tenants=2, trials=3, base_dir=tempfile.mkdtemp())
         out["sink"] = {{"ok": shipped["ok"], "violations": shipped["violations"]}}
         out["remote"] = remote_sweep()
+        os.environ["MAGGY_TEST_DIST_OUT"] = tempfile.mkdtemp()
+        from maggy_tpu_torch import DistributedConfig
+        dist_result = experiment.lagom(train_dist, DistributedConfig(
+            name="dist", num_workers=2, mesh_shape={{"seq": 2}}, strategy="sp",
+            backend="process", device="cpu", hb_interval=0.1))
+        out["dist"] = {{"result": dist_result, "ranks": [json.load(open(os.path.join(
+            os.environ["MAGGY_TEST_DIST_OUT"], str(r)))) for r in (0, 1)]}}
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
         print(json.dumps(out))
@@ -311,6 +332,16 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert all(o["banned"] == [] for o in remote["outputs"])
     assert {o["pid"] for o in remote["outputs"]} - {out["pid"]} == \
         {o["pid"] for o in remote["outputs"]}
+    # The distributed run's two ranks were processes of their own, which
+    # saw none of the banned modules either; the causal ring on constant
+    # shards averages V (1 on rank 0's shard, 2 on rank 1's) over the keys
+    # each rank sees.
+    dist = out["dist"]
+    assert dist["result"]["num_workers"] == 2
+    low, high = sorted(dist["result"]["per_worker"])
+    assert low == 1.0 and 1.0 < high < 2.0
+    assert all(r["banned"] == [] for r in dist["ranks"])
+    assert out["pid"] not in {r["pid"] for r in dist["ranks"]}
     # The process sweep: every trial ran in a runner process of its own
     # (not the driver's), which saw none of the banned modules either.
     result, outputs = out["process"]["result"], out["process"]["outputs"]
@@ -388,7 +419,12 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("core", "config.py"), ("native", "__init__.py"), ("runner.py",), ("monitor.py",),
         ("fleet", "__init__.py"), ("fleet", "__main__.py"), ("fleet", "scheduler.py"),
         ("fleet", "soak.py"), ("core", "rpc.py"), ("core", "runner_pool.py"),
-        ("fleet", "agent.py"), ("telemetry", "sink.py"), ("chaos", "driver_soak.py"))} <= scanned
+        ("fleet", "agent.py"), ("telemetry", "sink.py"), ("chaos", "driver_soak.py"),
+        ("parallel", "__init__.py"), ("parallel", "mesh.py"), ("parallel", "sharding.py"),
+        ("parallel", "ring_attention.py"), ("parallel", "ulysses.py"),
+        ("parallel", "collectives.py"), ("parallel", "gloo_cuda_probe.py"),
+        ("core", "executors", "dist_executor.py"),
+        ("core", "driver", "distributed_driver.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

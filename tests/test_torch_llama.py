@@ -303,8 +303,10 @@ def test_llama3_8b_counts_match_jax_eval_shape():
 
 
 def test_unported_options_raise():
+    # The ring path is ported (tests/test_torch_llama_sp.py); as in the JAX
+    # package it needs a mesh with a "seq" axis.
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="requires cfg.seq_mesh"):
         Llama(dataclasses.replace(tcfg, attention_impl="ring"), device="cpu")
 
 

@@ -7,6 +7,7 @@ nothing about the port's own imports."""
 
 import os
 import signal
+import time
 
 
 def _claim(flag):
@@ -51,11 +52,272 @@ def train_remote_gated(lr, units, reporter=None):
     processes have each entered a trial, marked under
     MAGGY_TEST_AGENT_DIR: the sweep is then served by both agents, whatever
     their start-up skew."""
-    import time
-
     gate = os.environ["MAGGY_TEST_AGENT_DIR"]
     open(os.path.join(gate, str(os.getpid())), "w").close()
     deadline = time.monotonic() + 30
     while len(os.listdir(gate)) < 2 and time.monotonic() < deadline:
         time.sleep(0.05)
     return train_remote(lr, units, reporter)
+
+
+# ------------------------------------------------------------ gloo worlds
+#
+# The port's distributed tests run their ranks as spawned processes of one
+# gloo world each: at most one world a test module (started by a
+# module-scoped fixture), a FileStore under the test's tmp dir for the
+# rendezvous (no port to collide on), one intra-op thread a rank, every
+# process joined with a bound and killed if it outlives it.
+
+WORLD_TIMEOUT_S = 120
+
+
+def _world_entry(fn, rank, world, out_dir, args):
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        store = dist.FileStore(os.path.join(out_dir, "store"), world)
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                                timeout=timedelta(seconds=WORLD_TIMEOUT_S))
+        try:
+            result = fn(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, "rank{}.pkl".format(rank)), "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(os.path.join(out_dir, "rank{}.err".format(rank)), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_world(fn, world, out_dir, args=(), timeout=WORLD_TIMEOUT_S):
+    """Run ``fn(rank, world, *args)`` on ``world`` spawned gloo ranks and
+    return their results in rank order; raises with the ranks' tracebacks
+    when one fails, and kills every rank still alive at ``timeout``."""
+    import multiprocessing as mp
+    import pickle
+
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_world_entry, args=(fn, r, world, out_dir, args),
+                         name="world-rank-{}".format(r)) for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        errors = []
+        for r, p in enumerate(procs):
+            err = os.path.join(out_dir, "rank{}.err".format(r))
+            if os.path.exists(err):
+                errors.append(open(err).read())
+            elif p.is_alive() or p.exitcode != 0:
+                errors.append("rank {}: {}".format(
+                    r, "alive at the {} s bound".format(timeout) if p.is_alive()
+                    else "exit code {}".format(p.exitcode)))
+        if errors:
+            raise RuntimeError("gloo world failed:\n" + "\n".join(errors))
+        results = []
+        for r in range(world):
+            with open(os.path.join(out_dir, "rank{}.pkl".format(r)), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def ring_rank(rank, world, cases):
+    """Each case ({"q", "k", "v", "do": global numpy arrays, "causal",
+    "impl", "fn": "ring" | "ulysses"}) on this rank's sequence shard:
+    the output shard and the shards' gradients of sum(out * do)."""
+    import torch
+
+    from maggy_tpu_torch.parallel import (ShardingEnv, make_mesh, ring_attention,
+                                          split_sequence, ulysses_attention)
+
+    env = ShardingEnv(make_mesh({"seq": world}, device_type="cpu"))
+    group = env.group("seq")
+    out = {}
+    for name, case in cases.items():
+        q, k, v, do = (split_sequence(torch.tensor(case[x]), world, rank).clone()
+                       for x in ("q", "k", "v", "do"))
+        for t in (q, k, v):
+            t.requires_grad_()
+        fn = ring_attention if case["fn"] == "ring" else ulysses_attention
+        try:
+            o = fn(q, k, v, group, causal=case["causal"], impl=case["impl"])
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        (o.float() * do).sum().backward()
+        out[name] = {"out": _np(o), "dq": _np(q.grad), "dk": _np(k.grad), "dv": _np(v.grad)}
+    return out
+
+
+def llama_sp_rank(rank, world, fields, state, tokens, steps_tokens, lr, mesh_shape):
+    """The ring Llama on a {"data", "seq"} mesh of ``world`` ranks: this
+    rank's logits shard for ``tokens`` under the converted weights ``state``,
+    then the mesh Trainer (dp_sp, adam(lr), the sharded next-token loss)
+    over ``steps_tokens``: the averaged loss of each step."""
+    import dataclasses
+
+    import torch
+
+    from maggy_tpu_torch.models import Llama, LlamaConfig
+    from maggy_tpu_torch.ops import next_token_labels, sharded_next_token_loss
+    from maggy_tpu_torch.parallel import ShardingEnv, make_mesh
+    from maggy_tpu_torch.train import Trainer, adam
+
+    env = ShardingEnv(make_mesh(mesh_shape, device_type="cpu"), rank, world)
+    cfg = dataclasses.replace(LlamaConfig(dtype=torch.float32, **fields),
+                              attention_impl="ring", seq_mesh=env.mesh)
+    model = Llama(cfg, device="cpu")
+    model.load_state_dict(state)
+    local = env.shard_batch({"tokens": torch.tensor(tokens, dtype=torch.long)})["tokens"]
+    with torch.no_grad():
+        logits = model(local)
+    n_seq = env.axis_size("seq")
+    trainer = Trainer(Llama(cfg, device="cpu"), adam(lr),
+                      lambda out, b: sharded_next_token_loss(out[0], out[1], b["labels"], n_seq),
+                      train_kwargs={"return_hidden": True}, env=env,
+                      strategy="dp_sp").init(state_dict=state)
+    losses = []
+    for toks in steps_tokens:
+        toks = torch.tensor(toks, dtype=torch.long)
+        batch = trainer.place_batch({"inputs": (toks,), "labels": next_token_labels(toks)})
+        losses.append(float(trainer.step(batch)))
+    return {"coord": (env.axis_index("data"), env.axis_index("seq")), "logits": _np(logits),
+            "losses": losses}
+
+
+def zero_rank(rank, world, state, x, y, steps, lr):
+    """A two-layer MLP on a {"data": world} mesh under "dp" and "dp_zero"
+    (adam(lr), cross entropy, the same global batch each step): the
+    averaged losses, the final parameters and the shapes of the Adam
+    moments each rank holds."""
+    import torch
+
+    from maggy_tpu_torch.parallel import ShardingEnv, make_mesh
+    from maggy_tpu_torch.train import Trainer, adam, cross_entropy_loss
+
+    env = ShardingEnv(make_mesh({"data": world}, device_type="cpu"), rank, world)
+    out = {}
+    for strategy in ("dp", "dp_zero"):
+        model = torch.nn.Sequential(torch.nn.Linear(32, 64), torch.nn.ReLU(),
+                                    torch.nn.Linear(64, 2))
+        trainer = Trainer(model, adam(lr), lambda o, b: cross_entropy_loss(o, b["labels"]),
+                          env=env, strategy=strategy).init(state_dict=state)
+        batch = trainer.place_batch({"inputs": (x,), "labels": y})
+        losses = [float(trainer.step(batch)) for _ in range(steps)]
+        moments = {name: tuple(trainer.optimizer.state[p]["exp_avg"].shape)
+                   for group in trainer.optimizer.param_groups for p, name in
+                   zip(group["params"], [n for n, _ in trainer.model.named_parameters()])}
+        out[strategy] = {"losses": losses, "moments": moments,
+                         "params": {k: _np(v) for k, v in trainer.model.state_dict().items()}}
+    fsdp = ShardingEnv(make_mesh({"fsdp": world}, device_type="cpu"), rank, world)
+    try:
+        Trainer(torch.nn.Linear(32, 64), adam(lr), lambda o, b: o.sum(), env=fsdp,
+                strategy="fsdp").init(state_dict={"weight": state["0.weight"],
+                                                  "bias": state["0.bias"]})
+    except NotImplementedError as e:
+        out["fsdp_refused"] = str(e)
+    return out
+
+
+# ----------------------------------------------- DistributedConfig workers
+
+
+def _sgd(lr):
+    import torch
+
+    def factory(model):
+        opt = torch.optim.SGD(model.parameters(), lr=lr)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda step: 1.0)
+
+    return factory
+
+
+def dp_train_fn(sharding_env, reporter=None):
+    """``tests/test_distributed.py``'s DP step on the port: linear regression
+    (64 x 8, sgd 0.1, 60 steps), the batch sharded over "data" and the
+    gradients averaged by the mesh Trainer. Also reports what this rank saw
+    of the mesh: its batch rows, and the refusal of a mesh larger than the
+    world."""
+    import numpy as np
+    import torch
+
+    from maggy_tpu_torch.parallel import make_mesh
+    from maggy_tpu_torch.train import Trainer
+
+    import multiprocessing
+
+    if multiprocessing.current_process().name != "MainProcess":
+        torch.set_num_threads(1)  # a spawned rank; thread workers share the test's process
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 8)).astype(np.float32)
+    y = X @ rng.normal(size=(8, 1)).astype(np.float32)
+    model = torch.nn.Linear(8, 1, bias=False)
+    trainer = Trainer(model, _sgd(0.1), lambda out, b: ((out - b["y"]) ** 2).mean(),
+                      env=sharding_env, strategy="dp").init(
+        state_dict={"weight": torch.zeros(1, 8)})
+    batch = trainer.place_batch({"inputs": (X,), "y": y})
+    loss = None
+    for i in range(60):
+        loss = trainer.step(batch)
+        if reporter is not None and i % 20 == 0:
+            reporter.broadcast(loss, step=i)
+    n = sharding_env.axis_size("data")
+    rows = batch["inputs"][0].numpy()
+    shard = 64 // n * sharding_env.axis_index("data")
+    seen = {"rows_match": bool(np.array_equal(rows, X[shard:shard + 64 // n])),
+            "rows": int(rows.shape[0]), "axis_names": list(sharding_env.axis_names)}
+    try:
+        make_mesh({"data": sharding_env.num_devices + 1}, device_type="cpu")
+    except ValueError as e:
+        seen["bad_mesh"] = str(e)
+    out_dir = os.environ.get("MAGGY_TEST_DIST_DIR")
+    if out_dir:
+        import json
+
+        with open(os.path.join(out_dir, "rank{}.json".format(sharding_env.process_index)),
+                  "w") as f:
+            json.dump({**seen, "pid": os.getpid(), "loss": float(loss)}, f)
+    return {"metric": float(loss)}
+
+
+def failing_rank1_train_fn(sharding_env, reporter=None):
+    """Rank 1 raises; rank 0 waits in a collective rank 1 never joins (a
+    world whose failed rank would hang its survivors until the group's
+    timeout) after writing its pid where the test can find it. Rank 1
+    raises only once rank 0's pid is written (or after 30 s), so the
+    driver's kill always meets a rank 0 inside its train function."""
+    import torch
+    import torch.distributed as dist
+
+    out_dir = os.environ["MAGGY_TEST_DIST_DIR"]
+    path = os.path.join(out_dir, "pid{}".format(sharding_env.process_index))
+    with open(path + ".tmp", "w") as f:
+        f.write(str(os.getpid()))
+    os.replace(path + ".tmp", path)
+    if sharding_env.process_index == 1:
+        deadline = time.monotonic() + 30
+        while not os.path.exists(os.path.join(out_dir, "pid0")) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        raise RuntimeError("rank 1 exploded")
+    if dist.is_initialized():
+        dist.all_reduce(torch.zeros(1))
+    return {"metric": 0.0}
