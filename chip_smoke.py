@@ -348,7 +348,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              once (check_exactly_once up to the driver's last event id) and
              through check_invariants; each agent's shipped journal exactly
              once; python -m maggy_tpu_torch.telemetry trace --unified <home>
-             exiting 0. (c) A third tenant (2 trials of 192 steps, a 3 s loss
+             exiting 0. (c) A third tenant (2 trials of 96 steps, a 3 s loss
              bound): the first agent-leased trial past step 9 (or 1 s after
              its assignment) has its agent
              SIGKILLed (a kill_agent chaos record in its journal); the trial
@@ -385,6 +385,31 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              memory, the launches, beside nvidia-smi's line. Two ranks on
              one card time-slice it: correctness, not scaling. The rank
              processes are killed in a finally.
+24. slice_gang — gang-scheduled trials (maggy_tpu_torch/gang.py).
+             bert_base_gang: a BERT-base (full width, no dropout, key
+             padding with every 8th row fully padded) ASHA(2, 1, 2) sweep
+             of GANG_TRIALS rung-0 trials on GANG_RUNNERS thread runners
+             with chips_per_budget {1: GangSpec(1), 2: GangSpec(2, "dp")}:
+             rung 0 on one chip (captured), each promotion a 2-chip gang
+             whose leader runs one rank process a chip, the ranks sharing
+             the card over gloo and training on the mesh Trainer, BERT_B
+             rows a rank; each gang's losses within AB_LOSS_TOL of one rank
+             at the global batch from the same weights, the flash launches
+             summed over its ranks equal to 2 ranks x 12 layers x
+             GANG_STEPS, and no rank process alive after. Prints
+             replay_pack (chip-seconds utilization, assembly latency,
+             stalls), gangs assembled and released, step p50 of the 1-chip
+             trials and of the ranks, each rank's peak memory and the
+             sweep's goodput. bert_base_remote_gang: the same trial as a
+             2-chip gang over two agent processes on one fleet (equal
+             finite losses on both, exact launches, rendezvous_ms, the
+             world's backend). Gang chaos: run_gang_soak with its ranks on
+             the card, one member killed: one revocation, one
+             gang_member_lost requeue, invariant 8, no rank left. Elastic:
+             an MNIST ASHA sweep on pool="elastic" with total_chips=2 and
+             chips_per_budget {1: 1, 2: 2}: at least one respawn, every
+             trial on the lease its budget maps to, never more than 2
+             chips leased in the journal's lease events.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -418,7 +443,7 @@ journal's; slice_recovery also on other than 2 lost runners and 2 requeues
 or no rework. slice and slice_recovery write and validate a Perfetto
 trace. slice_process and the MNIST process sweep print each runner's
 queue wait, init and first-step time from the ledger, and slice_mnist
-reruns its thread sweep with telemetry off and on in turns, twice
+reruns its thread sweep with telemetry off and on in turns
 (telemetry's cost where the host sets the pace).
 
 Then the {"kernels": [...]} summary line (one entry per kernel and main
@@ -432,7 +457,8 @@ slice_ablation's, bert_base_fleet's slice_fleet's card soak's,
 bert_base_remote's slice_remote's summed over its agents,
 bert_base_agents's slice_agents' BERT tenant's summed over its trials,
 dist's slice_dist's llama3_8b_sp ranks' summed, timed at the ring's
-block: 1 x 4096, causal, fp32 gradients),
+block: 1 x 4096, causal, fp32 gradients; bert_base_gang's slice_gang's
+gang ranks' summed over the in-process and remote gangs, eager),
 the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Every phase line also goes to
@@ -490,7 +516,7 @@ LLAMA_STEPS_PER_BUDGET = 2
 # 1 x DIST_S tokens (DIST_S / DIST_RANKS a rank), DIST_STEPS steps; the
 # ranks' records (read from the environment); the worlds' collective
 # timeout (the heartbeat-loss bound); the ring block's heads and head dim.
-DIST_RANKS, DIST_LAYERS, DIST_S, DIST_STEPS = 2, 4, 8192, 8
+DIST_RANKS, DIST_LAYERS, DIST_S, DIST_STEPS = 2, 4, 8192, 4
 DIST_RECORDS_ENV = "MAGGY_TPU_SMOKE_DIST_RECORDS"
 DIST_TIMEOUT_S = 120.0
 DIST_H, DIST_HKV, DIST_D = 32, 8, 128
@@ -519,6 +545,7 @@ SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
               "bert_base_resume": "bert_base", "bert_base_warm": "bert_base",
               "bert_base_loco": "bert_base", "bert_base_fleet": "bert_base",
               "bert_base_remote": "bert_base", "bert_base_agents": "bert_base",
+              "bert_base_gang": "bert_base",
               "llama3_8b_moe": "llama3_8b",
               "llama3_8b_moe_lanes": "llama3_8b"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
@@ -586,7 +613,7 @@ MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY_FACTOR = 4, 8, 2, 2.0
 # batched matmul, the scalar's a matmul, their sums in another order); and
 # the BERT-base sweep's lanes.
 LANES_K, LANES_TRIALS, LANES_SEED, LANES_BATCH = 8, 25, 7, 256
-LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 20.0
+LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 5.0
 LANES_PARITY_LRS, LANES_PARITY_STEPS, LANES_MASK_AT = [1e-3, 3e-3, 1e-2, 3e-2], 25, 10
 LANES_TOL = (1e-4, 1e-5)
 BERT_LANES = 4
@@ -653,22 +680,41 @@ REMOTE_AGENT_TIMEOUT_S = 400
 AGENTS_BERT_TRAIN = "chip_smoke:train_bert_agents"
 AGENTS_KILL_TRAIN = "chip_smoke:train_bert_agents_kill"
 AGENTS_RECORDS_ENV = "MAGGY_TPU_SMOKE_AGENT_RECORDS"
-AGENTS_KILL_TRIALS, AGENTS_KILL_STEPS, AGENTS_KILL_AT_STEP, AGENTS_KILL_AFTER_S = 2, 192, 9, 1.0
+AGENTS_KILL_TRIALS, AGENTS_KILL_STEPS, AGENTS_KILL_AT_STEP, AGENTS_KILL_AFTER_S = 2, 96, 9, 1.0
 AGENTS_HB_LOSS_S, AGENTS_JOIN_TIMEOUT_S = 3.0, 180.0
 #: Readings one phase leaves for a later one's line.
 READINGS = {}
 #: Every phase line of a run, one JSON object a line (emptied by main).
 PHASE_LOG = os.path.join(ROOT, "build", "chip_smoke_phases.jsonl")
+#: One bytecode cache for the script and every process it starts (runners,
+#: ranks, agents, resume children). Where the environment forbids writing
+#: bytecode (PYTHONDONTWRITEBYTECODE), each of them otherwise compiles
+#: torch's modules from source at its start (``python3 -m
+#: maggy_tpu_torch.train.init_probe`` measures it).
+PYCACHE = os.path.join(ROOT, "build", "pycache")
+#: When the script started: every phase line carries its ``t_s`` from here,
+#: so the gaps between lines give each phase's wall.
+T_START = time.perf_counter()
 
 
 def emit(phase, **fields):
     """Print a phase line, and append it to PHASE_LOG, which keeps every
     phase line where only the end of a run's output is kept."""
-    line = json.dumps({"phase": phase, **fields})
+    line = json.dumps({"phase": phase, **fields,
+                       "t_s": round(time.perf_counter() - T_START, 3)})
     print(line, flush=True)
     os.makedirs(os.path.dirname(PHASE_LOG), exist_ok=True)
     with open(PHASE_LOG, "a") as f:
         f.write(line + "\n")
+
+
+def share_bytecode():
+    """Read and write bytecode under PYCACHE, here and in every process
+    started from here (they inherit the environment)."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = PYCACHE
 
 
 def tolerance(dtype, ref):
@@ -3600,10 +3646,10 @@ def phase_slice_mnist(exp_root):
         raise AssertionError("MNIST CNN logits off the CPU path: {} > {}".format(
             logit_err, logit_tol))
     sweeps = {}
-    # Then the thread sweep with telemetry off and on in turns, twice: its
-    # cost where the host sets the pace, both sides warm.
-    pairs = [("thread_telemetry_{}_{}".format("on" if on else "off", i), "thread", on)
-             for i in (1, 2) for on in (False, True)]
+    # Then the thread sweep with telemetry off and on in turns: its cost
+    # where the host sets the pace, both sides warm.
+    pairs = [("thread_telemetry_{}_1".format("on" if on else "off"), "thread", on)
+             for on in (False, True)]
     for label, pool, on in [("thread", "thread", True), ("process", "process", True)] + pairs:
         name = "slice_mnist/" + label
         exp_dir = os.path.join(exp_root, label)
@@ -4180,7 +4226,7 @@ def phase_slice_moe(exp_dir):
 CHAOS_ROOT = os.path.join(ROOT, "build", "chip_smoke_chaos")
 CHAOS_HB_S, CHAOS_BUDGET = 0.1, 6
 CHAOS_CKPT_STEPS, CHAOS_CKPT_PACE_S = 16, 0.02
-CHAOS_STALL_S, CHAOS_STALL_TRIALS, CHAOS_HANG_FACTOR = 2.0, 60, 10.0
+CHAOS_STALL_S, CHAOS_STALL_TRIALS, CHAOS_HANG_FACTOR = 2.0, 40, 10.0
 #: A sub-soak still running after this many seconds dumps every thread's
 #: stack and ends the script (faulthandler), instead of holding the card.
 CHAOS_SOAK_LIMIT_S = 240
@@ -5771,6 +5817,346 @@ def phase_slice_dist(exp_root, smi):
     return launches
 
 
+# ---------------------------------------------------------------- slice_gang
+# Gang-scheduled trials (maggy_tpu_torch/gang.py). GANG_STEPS steps each at
+# BERT-base width, BERT_B rows a rank; ASHA(2, 1, 2) over GANG_TRIALS rung-0
+# trials on GANG_RUNNERS thread runners: rung 0 on one chip, promotions as
+# 2-chip "dp" gangs of rank processes.
+GANG_STEPS = 3
+GANG_TRIALS = 4
+GANG_RUNNERS = 4
+GANG_RECORDS_ENV = "MAGGY_TPU_SMOKE_GANG_RECORDS"
+#: The remote gang's train function, by name on the wire.
+GANG_TRAIN = "chip_smoke:train_bert_gang"
+
+
+def gang_batch(i, rows):
+    """Step ``i``'s global batch of ``rows`` rows, numpy from a seed (every
+    rank draws the same one and takes its rows): BERT-base's vocabulary,
+    padded length 128, key padding, every 8th row fully padded."""
+    from maggy_tpu_torch.models import BertConfig
+
+    vocab = BertConfig.base().vocab_size
+    rng = np.random.default_rng(1000 + i)
+    tokens = rng.integers(2, vocab, size=(rows, BERT_S))
+    lens = rng.integers(16, BERT_S + 1, size=rows)
+    lens[::8] = 0
+    mask = np.arange(BERT_S)[None, :] < lens[:, None]
+    labels = (((tokens > vocab // 2) & mask).sum(1) * 2 > lens).astype(np.int64)
+    return {"inputs": (tokens, mask), "labels": labels}
+
+
+def train_bert_gang(lr, reporter=None, ctx=None, budget=1, gang=None):
+    """slice_gang's trial: BERT-base at full width for GANG_STEPS steps.
+    Alone (a 1-chip trial) it runs in its runner thread, captured; in a gang
+    each rank runs it eagerly on the mesh Trainer over the gang's world, on
+    its BERT_B rows of the global batch. Writes a record per rank (losses,
+    step times, launches, peak memory, world, rendezvous) under
+    GANG_RECORDS_ENV."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import Trainer, adamw
+
+    del budget, gang
+    full_fp32()
+    g = ctx.gang if ctx is not None else None
+    t0 = time.perf_counter()
+    env = g.sharding_env() if g is not None else None
+    rendezvous_ms = (time.perf_counter() - t0) * 1e3
+    rows = BERT_B * (g.size if g is not None else 1)
+    if g is None:
+        from maggy_tpu_torch.fleet.agent import trial_device
+
+        device = trial_device()  # an agent's --device; "cuda" in a runner thread
+    else:
+        device = str(env.device)
+    trainer = Trainer(bert_base_model(), adamw(lr), labels_loss, device=device, env=env,
+                      strategy=g.strategy if g else "dp").init(seed=0)
+    launches = A.launch_counts()
+    losses, step_ms = [], []
+    for i in range(GANG_STEPS):
+        batch = trainer.place_batch(gang_batch(i, rows))
+        t = time.perf_counter()
+        loss = float(trainer.step(batch))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+        if reporter is not None:
+            reporter.broadcast(-loss, step=i)
+    record = {"trial_id": ctx.trial_id if ctx is not None else None, "lr": lr,
+              "rank": g.process_id if g is not None else None,
+              "world": dist.get_world_size() if g is not None else 1,
+              "backend": dist.get_backend() if g is not None else None,
+              "pid": os.getpid(), "losses": losses, "step_ms": step_ms,
+              "rendezvous_ms": rendezvous_ms,
+              "launches": {k: n - launches[k] for k, n in A.launch_counts().items()},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out_dir = os.environ[GANG_RECORDS_ENV]
+    path = os.path.join(out_dir, "{}.{}.{}.json".format(record["trial_id"], record["rank"],
+                                                       os.getpid()))
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)
+    if not all(math.isfinite(x) for x in losses):
+        raise FloatingPointError("non-finite loss {}".format(losses))
+    return {"metric": -losses[-1]}
+
+
+def train_mnist_elastic(lr, batch, budget, reporter):
+    """slice_gang's elastic trial: train_mnist (GANG_STEPS x 10 steps a
+    budget unit) in an elastic runner process, after marking its budget and
+    its lease's chip count."""
+    from maggy_tpu_torch.core.runner_pool import lease_chips
+
+    out_dir = os.environ[GANG_RECORDS_ENV]
+    with open(os.path.join(out_dir, "elastic.{}.{}.{}".format(
+            int(budget), len(lease_chips()), os.getpid())), "a") as f:
+        f.write("x")
+    return train_mnist(lr, batch, budget, reporter, out_dir=out_dir,
+                       steps_per_budget=GANG_STEPS * 10)
+
+
+def gang_losses_match(records, problems, name):
+    """Per gang trial, its ranks' records: equal finite losses on every
+    rank; returns {trial: ranks' records}."""
+    by_trial = {}
+    for r in records:
+        if r["world"] > 1:
+            by_trial.setdefault(r["trial_id"], []).append(r)
+    for tid, ranks in by_trial.items():
+        if sorted(r["rank"] for r in ranks) != list(range(ranks[0]["world"])):
+            problems.append("{}: trial {} ranks {}".format(name, tid, [r["rank"] for r in ranks]))
+        if any(r["losses"] != ranks[0]["losses"] for r in ranks) or \
+                not all(math.isfinite(x) for x in ranks[0]["losses"]):
+            problems.append("{}: trial {} rank losses {}".format(
+                name, tid, [r["losses"] for r in ranks]))
+    return by_trial
+
+
+def phase_slice_gang(exp_root):
+    """Phase 24: gang-scheduled trials. (a) bert_base_gang: the mixed
+    in-process sweep, BERT-base ASHA(2, 1, 2) over GANG_TRIALS trials on
+    GANG_RUNNERS thread runners with chips_per_budget {1: GangSpec(1), 2:
+    GangSpec(2, "dp")}: rung 0 on one chip (captured), promotions as 2-chip
+    gangs whose ranks are processes sharing the card over gloo; each gang
+    trial's losses against a one-rank run at the global batch from the same
+    weights, the launches summed over its ranks against 2 ranks x 12 layers
+    x GANG_STEPS, no rank alive after. (b) bert_base_remote_gang: a 2-chip
+    gang over two agent processes on one fleet. (c) run_gang_soak on the
+    card: one gang member killed. (d) an elastic MNIST sweep. Returns the
+    flash launches of (a) and (b), summed over their ranks."""
+    from maggy_tpu_torch import GangSpec, OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch import gang as gang_mod
+    from maggy_tpu_torch.chaos.harness import run_gang_soak
+    from maggy_tpu_torch.fleet import Fleet
+    from maggy_tpu_torch.fleet.soak import spawn_agent_process, stop_agent_processes
+    from maggy_tpu_torch.optimizers import Asha
+    from maggy_tpu_torch.runner import load_train_fn
+    from maggy_tpu_torch.telemetry import read_events
+    from maggy_tpu_torch.train import Trainer, adamw
+
+    t_phase = time.perf_counter()
+    exp_root = fresh_dir(exp_root)
+    records_dir = fresh_dir(os.path.join(exp_root, "records"))
+    os.environ[GANG_RECORDS_ENV] = records_dir
+    problems, fields = [], {}
+    from maggy_tpu_torch.models import BertConfig
+
+    rel, absolute = AB_LOSS_TOL["bert_base"]
+    layers = BertConfig.base().num_layers
+    try:
+        # (a) The mixed in-process sweep.
+        gc.collect()
+        torch.cuda.empty_cache()
+        exp_dir = fresh_dir(os.path.join(exp_root, "bert_base_gang"))
+        t0 = time.perf_counter()
+        result = experiment.lagom(train_bert_gang, OptimizationConfig(
+            name="bert_base_gang", num_trials=GANG_TRIALS,
+            optimizer=Asha(reduction_factor=2, resource_min=1, resource_max=2, seed=0),
+            searchspace=Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-4])), direction="max",
+            chips_per_budget={1: GangSpec(1), 2: GangSpec(2, strategy="dp")},
+            pool="thread", num_workers=GANG_RUNNERS, es_policy="none", hb_interval=0.5,
+            experiment_dir=exp_dir))
+        wall = time.perf_counter() - t0
+        survivors = gang_mod.live_rank_pids()
+        telemetry = journal_check("slice_gang/bert_base_gang", exp_dir, result)
+        events = telemetry["_events"]
+        pack = gang_mod.replay_pack(events)
+        phases = [e["phase"] for e in events if e["ev"] == "trial"]
+        records = read_records(records_dir)
+        gangs = gang_losses_match(records, problems, "bert_base_gang")
+        solo = [r for r in records if r["world"] == 1]
+        gang_launches = {k: sum(r["launches"][k] for t in gangs.values() for r in t)
+                         for k in REPLACES}
+        expected = {k: 2 * layers * GANG_STEPS * len(gangs) for k in REPLACES}
+        if len(gangs) < 2 or gang_launches != expected:
+            problems.append("bert_base_gang: {} gang trials, launches {} != {}".format(
+                len(gangs), gang_launches, expected))
+        if survivors or any(gang_mod.pid_alive(r["pid"]) for t in gangs.values() for r in t):
+            problems.append("bert_base_gang: rank processes alive after the sweep: {}".format(
+                survivors))
+        if phases.count("gang_assembled") != phases.count("gang_released") or \
+                phases.count("gang_assembled") != len(gangs):
+            problems.append("bert_base_gang: assembled {} released {} gang trials {}".format(
+                phases.count("gang_assembled"), phases.count("gang_released"), len(gangs)))
+        # Gate 1: each gang trial against one rank at the global batch.
+        against = {}
+        for tid, ranks in sorted(gangs.items()):
+            lr = ranks[0]["lr"]
+            ref = Trainer(bert_base_model(), adamw(lr), labels_loss, device=DEVICE,
+                          warm_start=False).init(seed=0)
+            ref_losses = [float(ref.step(ref.place_batch(gang_batch(i, 2 * BERT_B))))
+                          for i in range(GANG_STEPS)]
+            del ref
+            gc.collect()
+            off = max(abs(a - b) - (rel * abs(b) + absolute)
+                      for a, b in zip(ranks[0]["losses"], ref_losses))
+            against[tid] = {"gang": ranks[0]["losses"], "one_rank_b64": ref_losses,
+                            "excess_over_tol": off}
+            if off > 0:
+                problems.append("bert_base_gang: trial {} off the one-rank run: {}".format(
+                    tid, against[tid]))
+        rank_records = [r for t in gangs.values() for r in t]
+        fields["bert_base_gang"] = {
+            "wall_s": wall, "num_trials": result["num_trials"], "pack": pack,
+            "gangs_assembled": phases.count("gang_assembled"),
+            "gangs_released": phases.count("gang_released"),
+            "solo_step_ms_p50": float(np.median([x for r in solo for x in r["step_ms"][1:]])),
+            "rank_step_ms_p50": float(np.median([x for r in rank_records
+                                                 for x in r["step_ms"][1:]])),
+            "rank_peak_mem_gb": {"{}.{}".format(r["trial_id"], r["rank"]): r["peak_mem_gb"]
+                                 for r in rank_records},
+            "rank_backends": sorted({r["backend"] for r in rank_records}),
+            "rank_pids": sorted({r["pid"] for r in rank_records}),
+            "launches": gang_launches, "expected_launches": expected, "against": against,
+            "goodput": telemetry["goodput"], "telemetry": public(telemetry)}
+        if set(fields["bert_base_gang"]["rank_backends"]) != {"gloo"} or \
+                os.getpid() in fields["bert_base_gang"]["rank_pids"]:
+            problems.append("bert_base_gang: ranks {}".format(
+                [(r["pid"], r["backend"]) for r in rank_records]))
+
+        # (b) A gang over two agent processes.
+        for path in glob.glob(os.path.join(records_dir, "*.json")):
+            os.remove(path)
+        base = fresh_dir(os.path.join(exp_root, "remote"))
+        fleet = Fleet(runners=0, max_agents=2, home_dir=os.path.join(base, "fleet"),
+                      agent_liveness_s=30.0)
+        logs = [os.path.join(base, "agent_{}.log".format(i)) for i in range(2)]
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            with fleet:
+                for log in logs:
+                    procs.append(spawn_agent_process(
+                        os.path.join(fleet.home_dir, "agent_ticket.json"), log_path=log,
+                        device=DEVICE))
+                remote = experiment.lagom_submit(load_train_fn(GANG_TRAIN), OptimizationConfig(
+                    name="bert_base_remote_gang", num_trials=1, optimizer="randomsearch",
+                    searchspace=Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-4]),
+                                            gang=("GANG", [GangSpec(2, strategy="dp")])),
+                    direction="max", hb_interval=0.5, hb_loss_timeout=60.0, seed=0,
+                    es_policy="none", experiment_dir=base), fleet=fleet,
+                    block=False).result(timeout=300)
+                fleet.agent_plane.stop()
+                for p in procs:
+                    p.wait(timeout=30)
+        except Exception:
+            emit("slice_gang", failed="bert_base_remote_gang",
+                 agent_logs=[log_tail(path, 40) for path in logs])
+            raise
+        finally:
+            stop_agent_processes(procs)
+        remote_wall = time.perf_counter() - t0
+        remote_records = read_records(records_dir)
+        remote_gangs = gang_losses_match(remote_records, problems, "bert_base_remote_gang")
+        remote_launches = {k: sum(r["launches"][k] for r in remote_records) for k in REPLACES}
+        remote_expected = {k: 2 * layers * GANG_STEPS for k in REPLACES}
+        if remote["num_trials"] != 1 or len(remote_gangs) != 1 or \
+                remote_launches != remote_expected or \
+                {r["pid"] for r in remote_records} != {p.pid for p in procs}:
+            problems.append("bert_base_remote_gang: trials {}, records {}, launches {}".format(
+                remote["num_trials"], [(r["rank"], r["pid"]) for r in remote_records],
+                remote_launches))
+        fields["bert_base_remote_gang"] = {
+            "wall_s": remote_wall, "losses": [r["losses"] for r in remote_records],
+            "rendezvous_ms": {str(r["rank"]): r["rendezvous_ms"] for r in remote_records},
+            "backend": sorted({r["backend"] for r in remote_records}),
+            "step_ms_p50": float(np.median([x for r in remote_records
+                                            for x in r["step_ms"][1:]])),
+            "peak_mem_gb": [r["peak_mem_gb"] for r in remote_records],
+            "launches": remote_launches, "agent_exit_codes": [p.returncode for p in procs]}
+
+        # (c) The gang chaos soak, its ranks on the card.
+        t0 = time.perf_counter()
+        # Four trials, so the driver keeps four runners: the revoked gang
+        # reassembles around the killed member's chip.
+        soak = run_gang_soak(num_trials=4, workers=4, gang_chips=2, hb_loss_timeout=2.0,
+                             base_dir=fresh_dir(os.path.join(exp_root, "chaos")))
+        revoked = [r for r in soak["gang_revocations"] if r["outcome"] == "revoked"]
+        soak_events = read_events(soak["journal"]) if soak.get("journal") else []
+        requeues = [e for e in soak_events if e.get("ev") == "trial"
+                    and e.get("phase") == "requeued" and e.get("reason") == "gang_member_lost"]
+        if not soak["ok"] or len(revoked) != 1 or revoked[0]["requeues"] != 1 or \
+                len(requeues) != 1:
+            problems.append("gang chaos: ok {} violations {} revocations {}".format(
+                soak["ok"], soak["violations"], soak["gang_revocations"]))
+        fields["gang_chaos"] = {"wall_s": time.perf_counter() - t0, "ok": soak["ok"],
+                                "revocations": soak["gang_revocations"],
+                                "requeues": len(requeues),
+                                "rank_survivors": soak["gang_rank_survivors"]}
+
+        # (d) The elastic pool.
+        exp_dir = fresh_dir(os.path.join(exp_root, "elastic"))
+        t0 = time.perf_counter()
+        elastic = experiment.lagom(train_mnist_elastic, OptimizationConfig(
+            name="elastic", num_trials=2,
+            optimizer=Asha(reduction_factor=2, resource_min=1, resource_max=2, seed=0),
+            searchspace=Searchspace(lr=("DOUBLE_LOG", [1e-4, 1e-2]),
+                                    batch=("DISCRETE", [128])),
+            direction="max", pool="elastic", num_workers=1, total_chips=2,
+            chips_per_budget={1: 1, 2: 2}, es_policy="none", hb_interval=0.5,
+            experiment_dir=exp_dir))
+        markers = [m.split(".")[1:3] for m in os.listdir(records_dir)
+                   if m.startswith("elastic.")]
+        (journal,) = glob.glob(os.path.join(exp_dir, "*", "telemetry.jsonl"))
+        held, peak, starts, resized = 0, 0, {}, 0
+        for ev in read_events(journal):
+            if ev["ev"] != "lease":
+                continue
+            held += ev["capacity"] if ev["phase"] == "start" else -ev["capacity"]
+            peak = max(peak, held)
+            if ev["phase"] == "start":
+                starts[ev["partition"]] = starts.get(ev["partition"], 0) + 1
+        resized = sum(n - 1 for n in starts.values())
+        if elastic["num_trials"] < 3 or any(chips != budget for budget, chips in markers) or \
+                not markers or peak > 2 or held != 0 or resized < 1:
+            problems.append("elastic: trials {}, (budget, chips) {}, peak lease {}, held at end "
+                            "{}, respawns {}".format(elastic["num_trials"], markers, peak, held,
+                                                     resized))
+        fields["elastic"] = {"wall_s": time.perf_counter() - t0,
+                             "num_trials": elastic["num_trials"],
+                             "budget_chips": sorted(markers), "peak_leased_chips": peak,
+                             "respawns": resized}
+    finally:
+        os.environ.pop(GANG_RECORDS_ENV, None)
+    fields["phase_s"] = time.perf_counter() - t_phase
+    if problems:
+        emit("slice_gang", problems=problems, **fields)
+        raise AssertionError("slice_gang: {}".format("; ".join(problems)))
+    emit("slice_gang", **fields)
+    CAPTURED["bert_base_gang"] = False
+    return {k: gang_launches[k] + remote_launches[k] for k in REPLACES}
+
+
+def bert_base_model():
+    """BERT-base at full width (12 x 768, 12 heads, vocab 30522), built on
+    the meta device, without dropout: a gang's ranks and the one-rank run
+    it is held to draw no masks, so their losses compare."""
+    from maggy_tpu_torch.models import BertConfig, BertEncoder
+
+    return BertEncoder(dataclasses.replace(BertConfig.base(), dropout=0.0), device="meta")
+
+
 def fresh_dir(path):
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
@@ -5782,6 +6168,7 @@ def main():
 
     if os.path.exists(PHASE_LOG):
         os.remove(PHASE_LOG)
+    share_bytecode()
     smi = phase_device()
     phase_build()
     main_times = phase_kernels()
@@ -5829,6 +6216,9 @@ def main():
     clear_warm()
     launches["dist"] = phase_slice_dist(os.path.join(ROOT, "build", "chip_smoke_experiments_dist"),
                                         smi)
+    clear_warm()
+    launches["bert_base_gang"] = phase_slice_gang(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_gang"))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

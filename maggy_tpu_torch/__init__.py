@@ -10,8 +10,9 @@ __version__ = "0.1.0"
 
 from maggy_tpu_torch.config import (AblationConfig, DistributedConfig, LagomConfig,
                                     OptimizationConfig)
+from maggy_tpu_torch.gang import GangSpec
 from maggy_tpu_torch.searchspace import Searchspace
 from maggy_tpu_torch.trial import Trial
 
 __all__ = ["AblationConfig", "DistributedConfig", "Searchspace", "Trial", "LagomConfig",
-           "OptimizationConfig"]
+           "OptimizationConfig", "GangSpec"]

@@ -24,8 +24,9 @@ drops, and every 5th FINAL's reply severed.
 ``--agent``, ``--sink`` and ``--driver`` own their whole topology (agent or
 driver processes, or a fleet whose sink is detached mid-run; the kill is the
 harness's, since no in-process plan can reach another process or the
-fleet's sink), and their processes run with no card. ``--gang`` waits for
-gangs: it exits non-zero naming ROADMAP queue 1 item 8.
+fleet's sink), and their processes run with no card. ``--gang`` runs the
+gang soak (its ranks on the device kind ``MAGGY_TPU_TORCH_DEVICE`` names,
+"cuda" by default; ``cpu`` for a host without a card).
 """
 
 from __future__ import annotations
@@ -33,9 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-#: The JAX package's soaks still to port: flag -> ROADMAP queue 1 item.
-_UNPORTED = {"gang": "8"}
 
 
 def main(argv=None) -> int:
@@ -101,26 +99,22 @@ def main(argv=None) -> int:
                     help="the driver-kill soak: the driver process SIGKILLed "
                          "mid-sweep and resumed; its remote runners survive "
                          "and the sweep completes (invariant 13)")
-    for flag, item in _UNPORTED.items():
-        ap.add_argument("--" + flag, action="store_true",
-                        help="not ported yet (ROADMAP queue 1 item {})".format(item))
+    ap.add_argument("--gang", action="store_true",
+                    help="the gang-revocation soak: a mixed 1-chip + 4-chip-fsdp ASHA "
+                         "sweep with one member of the first assembled gang killed "
+                         "mid-trial; the whole gang lease must be revoked and the trial "
+                         "requeued exactly once (invariant 8)")
     args = ap.parse_args(argv)
-
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag):
-            print("--{}: the soak is not ported yet (ROADMAP queue 1 item {})".format(
-                flag, item), file=sys.stderr)
-            return 2
 
     from maggy_tpu_torch.chaos import harness
     from maggy_tpu_torch.chaos.plan import FaultPlan
 
-    modes = [m for m in ("stall", "piggyback", "preempt", "fork", "goodput", "vmap")
+    modes = [m for m in ("stall", "piggyback", "preempt", "gang", "fork", "goodput", "vmap")
              if getattr(args, m)]
     if args.plan and modes:
         ap.error("--{} uses a built-in plan; drop --plan".format(modes[0]))
     if len(modes) > 1:
-        ap.error("pick one of --stall / --piggyback / --preempt / --fork / "
+        ap.error("pick one of --stall / --piggyback / --preempt / --gang / --fork / "
                  "--goodput / --vmap")
     seed = 7 if args.seed is None else args.seed
     if args.driver:
@@ -142,6 +136,8 @@ def main(argv=None) -> int:
                                           workers=args.workers)
     elif args.fork:
         report = harness.run_fork_soak(seed=seed)
+    elif args.gang and not args.show_schedule:
+        report = harness.run_gang_soak(seed=seed, num_trials=args.trials)
     else:
         report = None
     if report is not None:
@@ -159,6 +155,8 @@ def main(argv=None) -> int:
         plan = harness.piggyback_plan(seed=seed)
     elif args.preempt:
         plan = harness.preempt_plan(seed=seed)
+    elif args.gang:
+        plan = harness.gang_plan(seed=seed)
     else:
         plan = harness.default_plan(seed=seed)
     if args.show_schedule:

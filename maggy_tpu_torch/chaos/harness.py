@@ -17,8 +17,7 @@ JAX module's docstring:
 6.  exactly-once requeue: N runner-death faults on a trial, at most N
     requeues (the piggybacked hand-off's window included);
 7.  a graceful preemption resumes from the acked checkpoint step;
-8.  a gang revocation is whole and exactly-once (no gang soak in the port
-    yet: ROADMAP queue 1 item 8);
+8.  a gang revocation is whole and exactly-once (``run_gang_soak``);
 9.  the observability plane survives the faults: the endpoints answer
     throughout, /healthz reads 503 during a flagged stall, and the first
     flag per stalled partition yields exactly one ``profile_captured``;
@@ -35,7 +34,9 @@ JAX module's docstring:
 16. a vectorized block dies as a unit and recovers as individuals.
 
 The soaks: ``run_soak`` (any plan; ``default_plan``, ``piggyback_plan``,
-``stall_plan``, ``preempt_plan`` with ``ckpt_train_fn``), ``run_fork_soak``
+``stall_plan``, ``preempt_plan`` with ``ckpt_train_fn``), ``run_gang_soak``
+(``gang_plan``: the pack soak's mixed sweep with one gang member killed),
+``run_fork_soak``
 (``fork_plan``, then one fork across ``lagom(..., resume=True)``),
 ``run_goodput_soak`` (fault-free) and ``run_vmap_soak`` (``vmap_plan``);
 the agent, sink and driver soaks own their topology and live beside the
@@ -45,8 +46,7 @@ where the work runs. The default trials are closed-form host loops;
 ``chip_smoke.py``'s ``slice_chaos`` phase passes trials that train on the
 card. Left out: the lock-order witness of the JAX soaks
 (``maggy_tpu.analysis``, which reads only the JAX package's sources; a copy
-pointed at the port is optional, ROADMAP queue 1 item 13) and the gang
-soak.
+pointed at the port is optional, ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -163,6 +163,17 @@ def preempt_plan(seed: int = 7, nth: int = 2) -> FaultPlan:
         FaultSpec("preempt_trial", trigger={"on_phase": "first_metric",
                                             "nth": nth}),
     ], seed=seed)
+
+
+def gang_plan(seed: int = 7, nth: int = 1) -> FaultPlan:
+    """One non-leader member of the Nth assembled gang killed right after
+    assembly (invariant 8): the driver must revoke the whole gang (the
+    healthy members and the leader, through a preempting STOP, return to
+    the pool) and requeue the trial with reason ``gang_member_lost``
+    exactly once; it then reassembles around the dead chip."""
+    return FaultPlan([FaultSpec("kill_gang_member",
+                                trigger={"on_phase": "gang_assembled", "nth": nth})],
+                     seed=seed)
 
 
 def fork_plan(seed: int = 7, nth: int = 1) -> FaultPlan:
@@ -434,6 +445,64 @@ def run_soak(plan: Optional[FaultPlan] = None, seed: int = 7,
         client_retries=retries,
         schedule_fingerprint=plan.fingerprint(),
     )
+    return report
+
+
+def gang_soak_train_fn(lr, budget=1, gang=None, reporter=None, ctx=None):
+    """The gang soak's trial: the pack soak's MLP in paced steps, about
+    1.6 s for a 1-chip trial and 4 s for a gang trial, so member-loss
+    detection lands mid-gang-trial instead of racing its FINAL."""
+    from maggy_tpu_torch.gang import reference_gang_loss
+
+    del budget, gang
+    g = None
+    if ctx is not None and ctx.gang is not None:
+        ctx.gang.ensure_rendezvous()
+        g = ctx.gang.to_dict()
+    chips = len(g["chips"]) if g and isinstance(g.get("chips"), list) else 1
+    return {"metric": reference_gang_loss(lr, g, reporter=reporter,
+                                          steps=100 if chips > 1 else 40)}
+
+
+def run_gang_soak(seed: int = 7, num_trials: int = 10, workers: int = 8,
+                  gang_chips: int = 4, base_dir: Optional[str] = None,
+                  hb_loss_timeout: float = 1.0) -> Dict[str, Any]:
+    """The gang chaos soak (JAX ``harness.py:260-317``): the pack soak's
+    mixed ASHA sweep (1-chip rung-0 trials and ``gang_chips``-chip fsdp
+    promotions on ``workers`` thread runners) under ``gang_plan``. Checks
+    invariant 8 with the standard suite, fails when the fault never
+    produced a revocation (a soak that raced every FINAL verified nothing)
+    and when a gang rank process outlived the soak. The gang ranks run on
+    ``MAGGY_TPU_TORCH_DEVICE``'s kind; ``hb_loss_timeout`` stays under a
+    gang trial's length, so the member's loss is detected mid-trial."""
+    from maggy_tpu_torch import Searchspace
+    from maggy_tpu_torch import gang as gang_mod
+    from maggy_tpu_torch.optimizers import Asha
+
+    plan = gang_plan(seed)
+    report = run_soak(
+        plan=plan, seed=seed, train_fn=gang_soak_train_fn,
+        num_trials=num_trials, workers=workers, pool="thread",
+        hb_interval=0.05, hb_loss_timeout=hb_loss_timeout, base_dir=base_dir,
+        config_overrides=dict(
+            optimizer=Asha(reduction_factor=gang_chips, resource_min=1,
+                           resource_max=gang_chips, seed=seed),
+            searchspace=Searchspace(lr=("DOUBLE", [0.05, 0.2])),
+            chips_per_budget={1: gang_mod.GangSpec(1),
+                              gang_chips: gang_mod.GangSpec(gang_chips, strategy="fsdp")}))
+    revoked = [r for r in report.get("gang_revocations", []) if r.get("outcome") == "revoked"]
+    if not revoked:
+        report["violations"].append(
+            "gang fault never produced a revocation: every kill_gang_member injection "
+            "lost the race to the trial's FINAL — the soak exercised nothing (raise the "
+            "trial length or lower hb_loss_timeout)")
+        report["ok"] = False
+    survivors = gang_mod.live_rank_pids()
+    report["gang_rank_survivors"] = survivors
+    if survivors:
+        report["violations"].append("gang rank processes outlived the soak: {}".format(
+            survivors))
+        report["ok"] = False
     return report
 
 

@@ -1,7 +1,7 @@
 """Chaos engine: runtime fault injection behind no-op-by-default hooks.
 
 The port's copy of ``maggy_tpu/chaos/injectors.py:114-441``. Gangs are not
-ported yet (ROADMAP queue 1 item 8): firing ``kill_gang_member`` raises.
+``kill_gang_member`` kills one non-leader member of an assembled gang.
 The hook points live in the port's control-plane seams:
 
 - ``Server._dispatch`` (core/rpc.py) consults ``on_server_message`` for
@@ -369,9 +369,26 @@ class ChaosEngine:
             detail["mechanism"] = "graceful" if preempted is not None \
                 else "noop"
         elif spec.kind == "kill_gang_member":
-            raise NotImplementedError(
-                "chaos fault kill_gang_member is not ported yet (ROADMAP queue 1 "
-                "item 8): the port assembles no gangs")
+            # Kill one non-leader member of the trial's assembled gang (the
+            # on_phase=gang_assembled event's partition is the leader;
+            # killing the leader is kill_runner's LOST path): the lowest
+            # member id that is not the triggering partition, or the
+            # triggering partition when the gang is gone by now, so the
+            # injection is journaled either way.
+            members: List[int] = []
+            if self.driver is not None and trial is not None:
+                try:
+                    members = [int(m) for m in self.driver.gang_members(trial)
+                               if int(m) != pid]
+                except Exception:  # noqa: BLE001 - injection must never crash the hook
+                    members = []
+            victim = min(members) if members else pid
+            with self._lock:
+                self._condemned.add(victim)
+            killed = bool(self.pool is not None and self.pool.kill_worker(victim))
+            detail["mechanism"] = "sigkill" if killed else "cooperative"
+            detail["leader"] = pid
+            pid = victim
         elif spec.kind == "fake_preemption":
             # The runner stays alive; only the driver's view of its
             # heartbeats is aged — the falsely-declared-lost race. The

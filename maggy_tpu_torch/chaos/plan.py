@@ -1,9 +1,7 @@
 """Declarative, seeded fault plans.
 
 A verbatim copy of ``maggy_tpu/chaos/plan.py``, so one plan JSON drives
-either package and both expand it to the same schedule. The port's engine
-refuses ``kill_gang_member`` when it fires: gangs are not ported yet
-(ROADMAP queue 1 item 8).
+either package and both expand it to the same schedule.
 
 A ``FaultPlan`` is a JSON-serializable list of ``FaultSpec``s plus one
 seed. Every random decision the chaos engine makes (e.g. "drop this METRIC

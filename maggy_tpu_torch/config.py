@@ -10,10 +10,11 @@ heartbeat-loss requeue, the telemetry journal, the compile-once warm path
 binding (``fleet``, set by ``Fleet.submit``) with its journal-sink opt-in
 (``sink``), the per-trial ``profile`` and ``ship_prints``,
 `AblationConfig` for LOCO ablation studies, and `DistributedConfig` for
-distributed training of one model. ``chips_per_budget`` (gangs,
-ROADMAP queue 1 item 8) exists only so that setting it raises "not ported
-yet" with its ROADMAP item, as does ``pool="elastic"`` (item 8: it sizes
-chip sub-slices by ``chips_per_budget``). Parity: reference
+distributed training of one model. ``chips_per_budget`` declares
+multi-chip trials (JAX ``maggy_tpu/config.py:150-184, 252-294``): on the
+thread pool or in fleet mode its values gang-schedule (``gang.GangSpec``;
+a bare int N is GangSpec(N)), and on ``pool="elastic"`` its int values
+size respawnable pinned runners within ``total_chips``. Parity: reference
 `maggy/experiment_config.py:18-50`.
 """
 
@@ -26,13 +27,8 @@ from typing import Any, Dict, Optional, Union
 from maggy_tpu_torch import constants
 from maggy_tpu_torch.searchspace import Searchspace
 
-#: Runner pools the port runs, and the JAX package's that it does not.
-POOLS = ("thread", "process", "gpu", "remote")
-#: pool -> the ROADMAP queue 1 item that ports it.
-_UNPORTED_POOLS = {"elastic": "8"}
-#: field -> (its value that keeps it off, the ROADMAP queue 1 item that
-#: ports it).
-_UNPORTED_FIELDS = {"chips_per_budget": (None, "8")}
+#: Runner pools the port runs.
+POOLS = ("thread", "process", "gpu", "elastic", "remote")
 
 
 @dataclass
@@ -123,7 +119,9 @@ class OptimizationConfig(LagomConfig):
     runners: "thread" (in-process threads sharing the CUDA device), "process"
     (one spawned OS process each; ``train_fn`` must be module-level), "gpu"
     (processes pinned to ``chips_per_trial`` CUDA devices each through
-    CUDA_VISIBLE_DEVICES) or "remote" (agents started apart, ``python -m
+    CUDA_VISIBLE_DEVICES), "elastic" (processes leased ``chips_per_budget``
+    chips each out of ``total_chips``, respawned at another size when the
+    next trial's budget needs it) or "remote" (agents started apart, ``python -m
     maggy_tpu_torch.runner``, JOIN through the join ticket the driver
     writes to ``<exp_dir>/runner_ticket.json``). ``num_workers`` is the
     runner count, or "auto" for one per CUDA device (not for "remote":
@@ -198,9 +196,20 @@ class OptimizationConfig(LagomConfig):
     # Tee the train function's print() calls into the reporter log, which
     # streams to the driver on heartbeats (maggy_tpu/config.py:231-236).
     ship_prints: bool = False
-    # The JAX package's fields whose slices are still to port: setting one
-    # raises (see _UNPORTED_FIELDS).
-    chips_per_budget: Optional[Any] = None
+    # Multi-chip trial sizing, budget -> chip need (maggy_tpu/config.py:
+    # 150-182). Two mechanisms share the declaration, chosen by the pool:
+    # - pool="elastic" (int values): budget-sized chip leases; a runner
+    #   exits and respawns re-pinned when its capacity does not match the
+    #   next trial's need. Budgets missing from the map use chips_per_trial.
+    # - pool="thread" or fleet mode (int or gang.GangSpec values): gang
+    #   scheduling. The driver assembles N runners (runner = chip) into one
+    #   contiguous block, dispatches the trial to the lowest-chip member as
+    #   leader (ctx.gang carries the mesh axes and strategy) and holds the
+    #   members until the trial releases. A bare int N is GangSpec(N).
+    # A Searchspace GANG entry declares the same per trial.
+    chips_per_budget: Optional[Dict[Any, Any]] = None
+    # Chips the elastic pool may lease at once (None: one a CUDA device).
+    total_chips: Optional[int] = None
 
     def __post_init__(self):
         if self.direction not in ("max", "min"):
@@ -212,11 +221,6 @@ class OptimizationConfig(LagomConfig):
         if self.pool == "tpu":
             raise ValueError("pool='tpu' pins TPU chips; the port pins CUDA devices "
                              "with pool='gpu'")
-        if self.pool in _UNPORTED_POOLS:
-            raise NotImplementedError(
-                "pool={!r} is not ported yet (ROADMAP queue 1 item {}); the port "
-                "runs {}".format(self.pool, _UNPORTED_POOLS[self.pool],
-                                 ", ".join(repr(p) for p in POOLS)))
         if self.pool not in POOLS:
             raise ValueError("pool must be one of {}, got {!r}".format(
                 ", ".join(repr(p) for p in POOLS), self.pool))
@@ -225,14 +229,45 @@ class OptimizationConfig(LagomConfig):
             raise ValueError(
                 "vmap_lanes must be an int >= 1 (1 = scalar dispatch), "
                 "got {!r}".format(self.vmap_lanes))
-        for name, (off, item) in _UNPORTED_FIELDS.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    "{}={!r} is not ported yet (ROADMAP queue 1 item {})".format(
-                        name, getattr(self, name), item))
         if not isinstance(self.chips_per_trial, int) or self.chips_per_trial < 1:
             raise ValueError("chips_per_trial must be an int >= 1, got {!r}".format(
                 self.chips_per_trial))
+        self._check_gang_declarations()
+
+    def _check_gang_declarations(self) -> None:
+        """The JAX package's gating of multi-chip declarations
+        (``maggy_tpu/config.py:257-294``)."""
+        if self.vmap_lanes > 1 and self.chips_per_budget is not None:
+            raise ValueError(
+                "vmap_lanes packs K trials onto ONE chip; gang-scheduled "
+                "sweeps (chips_per_budget) size trials the other way — "
+                "pick one")
+        if self.chips_per_budget is not None and self.pool not in ("elastic", "thread"):
+            raise ValueError(
+                "chips_per_budget needs pool='elastic' (budget-sized "
+                "respawnable pinned workers) or pool='thread' "
+                "(gang-scheduled runner groups); got pool={!r}".format(self.pool))
+        if self.chips_per_budget is not None and self.pool == "elastic":
+            from maggy_tpu_torch.gang import GangSpec
+
+            if any(isinstance(v, (GangSpec, dict)) for v in self.chips_per_budget.values()):
+                raise ValueError(
+                    "GangSpec chips_per_budget values gang-schedule fleet "
+                    "runners and need pool='thread' (or fleet mode); the "
+                    "elastic pool respawns single pinned runners from int "
+                    "chip counts")
+        if self.searchspace is not None:
+            gang_names = [n for n in self.searchspace.names()
+                          if self.searchspace.get_type(n) == "GANG"]
+            if gang_names and self.pool != "thread":
+                raise ValueError(
+                    "a Searchspace GANG entry gang-schedules fleet runners "
+                    "and needs pool='thread' (or fleet mode); got "
+                    "pool={!r}".format(self.pool))
+            if len(gang_names) > 1:
+                raise ValueError(
+                    "at most one Searchspace GANG entry per sweep (a trial "
+                    "runs on one gang); got {}".format(gang_names))
 
 
 @dataclass

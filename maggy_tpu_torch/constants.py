@@ -47,6 +47,10 @@ CLIENT_MAX_PENDING_LOG_LINES = 500
 # How long the registration barrier (and a remote runner's wait for its
 # join ticket) may take before it fails.
 REGISTRATION_TIMEOUT_S = 600.0
+#: Bound between an elastic RESIZE request and the respawned runner's REG: a
+#: respawn that wedges before registering never heartbeats, so this is its
+#: liveness bound (the driver kills it past it).
+RESIZE_RESPAWN_TIMEOUT_S = 120.0
 # A distributed worker's wait for the coordinator rendezvous (DIST_CONFIG),
 # polled from CLIENT_GET_POLL_MIN_S doubling up to the cap
 # (``maggy_tpu/constants.py:26-29, 49``).

@@ -51,8 +51,31 @@ resuming at its fork or preemption step. A fleet's preemption evicts the
 runner too (``preempt_partition(evict=True)``, JAX `:1559-1580`): it leaves
 with GSTOP once it acks, or at its next GET when it holds nothing, and a
 trial assigned to it after the eviction was requested goes back to the
-schedule (the evict race, JAX `:1495-1502`). Gangs are not ported yet
-(ROADMAP queue 1 item 8).
+schedule (the evict race, JAX `:1495-1502`).
+
+Gang scheduling (``config.chips_per_budget`` GangSpec values or a
+Searchspace GANG entry; JAX `:86-192, 551-555, 660-663, 872-1161,
+1662-1675, 1848-1876`): a trial that needs N > 1 chips is parked for
+assembly; the placer (``gang.GangPlacer``) reserves a contiguous block,
+every free runner whose chip falls inside it is held for the gang (it gets
+no 1-chip work; a 1-chip suggestion that lands on a held or reserved
+runner is kept in the requeue for another), and once the block is fully
+held the trial is stamped with its gang (chips, members, leader, mesh,
+strategy, and for a gang of agents the rendezvous block) and assigned to
+the lowest-chip member. A FINAL, an error, a lost or re-registered leader
+release the gang; a silent member revokes it whole, exactly once
+(``GANG_LOST``, reason ``gang_member_lost``), and the healthy leader is
+aborted with a preempting STOP whose ack is dropped. A gang requeue is
+served whole to a new gang, never split. In fleet mode the driver keeps a
+fleet gang block while gangs wait or run.
+
+Elastic sizing (``pool="elastic"``, JAX `:699-870, 1584-1591, 1716-1727,
+1859-1876`): a trial whose budget needs another chip count than the
+runner's capacity is parked and the runner is told to RESIZE (exit and
+respawn at the right lease); an idle runner whose size serves nothing that
+waits is resized toward the demand or retired, bounded so a herd of idle
+runners does not chase one trial; a respawn that does not register within
+``constants.RESIZE_RESPAWN_TIMEOUT_S`` is killed (``periodic_check``).
 
 Vectorized lanes (``config.vmap_lanes`` = K > 1, JAX `:193-231, 489-520,
 560-656, 1190-1197, 1420-1475, 1889-2007`): when a runner takes a fresh
@@ -75,13 +98,15 @@ import time
 from typing import Any, Dict, List, Optional
 
 from maggy_tpu_torch import constants, util
+from maggy_tpu_torch import gang as gang_mod
 from maggy_tpu_torch.config import OptimizationConfig
 from maggy_tpu_torch.core.driver import recovery
 from maggy_tpu_torch.core.driver.driver import Driver
 from maggy_tpu_torch.core.executors.trial_executor import trial_executor_fn
 from maggy_tpu_torch.core.rpc import OptimizationServer
-from maggy_tpu_torch.core.runner_pool import (GPURunnerPool, ProcessRunnerPool,
-                                              ThreadRunnerPool, resolve_num_workers)
+from maggy_tpu_torch.core.runner_pool import (ElasticRunnerPool, GPURunnerPool,
+                                              ProcessRunnerPool, ThreadRunnerPool,
+                                              resolve_num_workers)
 from maggy_tpu_torch.earlystop import MedianStoppingRule, NoStoppingRule
 from maggy_tpu_torch.optimizers import PBT, Asha, GridSearch, RandomSearch, SingleRun
 from maggy_tpu_torch.optimizers.abstractoptimizer import AbstractOptimizer
@@ -132,14 +157,58 @@ class OptimizationDriver(Driver):
         # A controller whose schedule bounds its concurrency (PBT: members
         # are sequential chains) caps the pool, or excess runners idle.
         max_conc = getattr(self.controller, "max_concurrency", None)
-        self.num_executors = min(resolve_num_workers(config), self.num_trials,
-                                 max_conc() if max_conc is not None else self.num_trials)
+        ceiling = min(self.num_trials,
+                      max_conc() if max_conc is not None else self.num_trials)
+        # A gang needs N runners for one trial: the trial-count clamp must
+        # not shrink the pool below the largest declared gang.
+        max_gang = gang_mod.config_max_gang_chips(config)
+        gang_pool = config.pool != "elastic"
+        if max_gang > 1 and gang_pool:
+            ceiling = max(ceiling, max_gang)
+        self.num_executors = min(resolve_num_workers(config), ceiling)
+        if max_gang > 1 and gang_pool and self.num_executors < max_gang:
+            raise ValueError(
+                "a declared gang needs {} chips but only {} runner(s) are configured "
+                "(num_workers); a gang can never assemble".format(max_gang, self.num_executors))
         super().__init__(config, app_id, run_id)
         self._trial_store: Dict[str, Trial] = {}  # guarded-by: _store_lock
         self._final_store: List[Trial] = []  # guarded-by: _store_lock
         # Trials of lost runners, served before fresh suggestions.
         self._requeue: List[str] = []  # guarded-by: _store_lock
         self._store_lock = threading.RLock()
+        # ---- elastic sizing (pool="elastic") ----
+        # Trials parked for a runner of the right capacity.
+        self._parked: List[str] = []  # guarded-by: _store_lock
+        self._chips_map = config.chips_per_budget if config.pool == "elastic" else None
+        # Outstanding resizes by target size (the herd bound), and
+        # partition -> (request time, size, spawn stamp) for the watchdog.
+        self._resize_inflight: Dict[int, int] = {}  # guarded-by: _store_lock
+        self._resize_watch: Dict[int, tuple] = {}  # guarded-by: _store_lock
+        # ---- gang scheduling ----
+        self._gang_map = config.chips_per_budget if gang_pool else None
+        self._gang_mode = gang_mod.config_declares_gangs(config) and gang_pool
+        # The GANG entry, found by type: it may have any name.
+        sp = config.searchspace
+        self._gang_param = next((n for n in sp.names() if sp.get_type(n) == "GANG"),
+                                None) if sp is not None else None
+        binding = config.fleet
+        # In fleet mode the placer spans the fleet's runners and agent slots.
+        placer_chips = (binding.fleet.num_runners + binding.fleet.max_agents) \
+            if binding is not None else self.num_executors
+        if self._gang_mode and max_gang > placer_chips:
+            raise ValueError(
+                "a declared gang needs {} chips but the {} spans only {} runner(s); the "
+                "gang can never assemble".format(
+                    max_gang, "fleet" if binding is not None else "runner pool", placer_chips))
+        self._placer = gang_mod.GangPlacer(placer_chips, telemetry=self.telemetry) \
+            if self._gang_mode else None
+        # Gang trials waiting for assembly (requeued ones wait in _requeue).
+        self._gang_wait: List[str] = []  # guarded-by: _store_lock
+        # Assembled gangs: trial id -> {chips, members, leader, mesh,
+        # strategy, [rendezvous], [revoking]}.
+        self._gangs: Dict[str, Dict[str, Any]] = {}  # guarded-by: _store_lock
+        # The fleet gang block is held while gangs wait or run.
+        self._fleet_gang_active = False  # guarded-by: _store_lock
         # Serializes the schedule across the worker thread (REG/IDLE and
         # FINAL fallbacks), the RPC thread (the FINAL fast path) and the
         # suggester thread. Ordering: sched -> store lock, never the reverse.
@@ -350,6 +419,20 @@ class OptimizationDriver(Driver):
         if pool == "gpu":
             return GPURunnerPool(self.num_executors,
                                  chips_per_trial=self.config.chips_per_trial)
+        if pool == "elastic":
+            total = self.config.total_chips
+            if total is None:
+                # One chip a visible CUDA device.
+                total = resolve_num_workers(OptimizationConfig(num_workers="auto", pool="gpu"))
+            if self._chips_map:
+                worst = max(self._chips_map.values())
+                if worst > total:
+                    raise ValueError("chips_per_budget asks for {} chips but only {} are "
+                                     "available to lease".format(worst, total))
+            return ElasticRunnerPool(self.num_executors, total_chips=total,
+                                     chips_per_trial=self.config.chips_per_trial,
+                                     should_stop=lambda: self.experiment_done,
+                                     telemetry=self.telemetry)
         return ThreadRunnerPool(self.num_executors)
 
     def _executor_fn(self, train_fn):
@@ -368,6 +451,7 @@ class OptimizationDriver(Driver):
             IDLE=self._idle_msg_callback,
             REG=self._register_msg_callback,
             LOST=self._lost_msg_callback,
+            GANG_LOST=self._gang_lost_msg_callback,
         )
 
     def get_trial(self, trial_id):
@@ -469,6 +553,10 @@ class OptimizationDriver(Driver):
 
     def _final_locked(self, msg) -> None:
         self.add_executor_logs(msg.get("logs"))
+        # Any FINAL of this trial from this partition ends the computation a
+        # revocation STOP was armed to abort: consume it, or a stop orphaned
+        # by a raced FINAL would abort a later re-run on this runner.
+        self.server.reservations.pop_stop(msg["partition_id"], msg.get("trial_id"))
         trial = self.get_trial(msg.get("trial_id"))
         if msg.get("preempted"):
             # A preemption ack is no finalize: the trial goes back into the
@@ -517,6 +605,10 @@ class OptimizationDriver(Driver):
         with self._store_lock:
             self._trial_store.pop(trial.trial_id, None)
             self._final_store.append(trial)
+        # A finalized gang trial frees its whole block before the artifact
+        # dump, so its members' idle ticks can pick up work meanwhile.
+        self._release_gang(trial.trial_id, why="error" if was_error else "finalized",
+                           partition=msg.get("partition_id"))
         if trial.status == Trial.ERROR and self.controller.pruner is not None:
             # Free the failed run's bracket slot, or its rung never fills.
             self.controller.pruner.report_failure(trial.trial_id)
@@ -601,9 +693,13 @@ class OptimizationDriver(Driver):
             return
         if not trial.get_preempt():
             with self._store_lock:
-                waiting = trial.trial_id in self._requeue
+                waiting = trial.trial_id in self._requeue or trial.trial_id in self._parked
             if waiting or any(rec.get("trial_id") == trial.trial_id
                               for rec in self.server.reservations.all().values()):
+                # A retried ack, or a revoked gang leader's ack: dropped. A
+                # runner left holding nothing gets work.
+                if self.server.reservations.get_assigned_trial(pid) is None:
+                    self._assign_next_locked(pid, None)
                 return
             with trial.lock:
                 if trial.final_metric is not None or trial.status == Trial.ERROR:
@@ -614,6 +710,9 @@ class OptimizationDriver(Driver):
         # as scalar trials; the leader follows the path below.
         self._requeue_vmap_block(trial.trial_id, pid, "preempted")
         trial.reset_run_state()
+        # A preempted gang trial releases its block; it reassembles from
+        # the requeue.
+        self._release_gang(trial.trial_id, why="preempted", partition=pid)
         with trial.lock:
             if step is not None:
                 trial.info_dict["resume_step"] = int(step)
@@ -642,13 +741,23 @@ class OptimizationDriver(Driver):
     def obs_status(self) -> Dict[str, Any]:
         """The base /status document with the trial store's counts and, for
         a fleet tenant, the fleet scheduler's snapshot (JAX
-        `optimization_driver.py:2348-2379`, without its gang block). One
-        lock at a time: it runs on an obs handler thread."""
+        `optimization_driver.py:2348-2379`): the store's counts, the
+        assembled gangs and the placer's blocks. One lock at a time: it
+        runs on an obs handler thread."""
         out = super().obs_status()
         with self._store_lock:
             out["store"] = {"trials": len(self._trial_store),
                             "finalized": len(self._final_store),
-                            "requeue": len(self._requeue)}
+                            "requeue": len(self._requeue),
+                            "parked": len(self._parked),
+                            "gang_wait": len(self._gang_wait)}
+            out["gangs"] = {
+                tid: {"chips": info.get("chips"), "members": list(info.get("members") or []),
+                      "leader": info.get("leader"), "strategy": info.get("strategy"),
+                      "revoking": bool(info.get("revoking"))}
+                for tid, info in self._gangs.items()}
+        if self._placer is not None:
+            out["pack"] = self._placer.snapshot()
         binding = self.config.fleet
         if binding is not None:
             out["fleet"] = binding.fleet.scheduler.snapshot()
@@ -713,6 +822,9 @@ class OptimizationDriver(Driver):
                 with self._store_lock:
                     if trial.trial_id not in self._requeue:
                         self._requeue.append(trial.trial_id)
+                # A lost gang leader takes its gang down: the members go back
+                # to the pool and the trial reassembles around the dead chip.
+                self._release_gang(trial.trial_id, why="leader_lost", partition=pid)
                 self.telemetry.trial_event(trial.trial_id, "lost", partition=pid)
                 # The explicit requeue edge recovery latency derives from.
                 self.telemetry.trial_event(trial.trial_id, "requeued", partition=pid,
@@ -735,16 +847,48 @@ class OptimizationDriver(Driver):
         # The dead runner's live gauges must not outlive it.
         self.telemetry.prune_partition(pid)
 
-    def _pop_requeue(self) -> Optional[Trial]:
-        """The oldest requeued trial still in the store."""
+    def _pop_requeue(self, capacity: Optional[int] = None) -> Optional[Trial]:
+        """The oldest requeued trial this runner can serve (JAX
+        `:847-868`). An elastic runner takes only a trial of its capacity;
+        a gang trial (N > 1 chips) is skipped but kept: it waits for
+        assembly and is served whole to a gang, never to one runner."""
         with self._store_lock:
-            while self._requeue:
-                trial = self._trial_store.get(self._requeue.pop(0))
-                if trial is not None:
+            for tid in list(self._requeue):
+                trial = self._trial_store.get(tid)
+                if trial is None:
+                    self._requeue.remove(tid)
+                    continue
+                spec = self._gang_spec_for(trial)
+                if spec is not None and spec.chips > 1:
+                    continue
+                need = self._chips_for(trial)
+                if capacity is None or need is None or need == capacity:
+                    self._requeue.remove(tid)
+                    return trial
+        return None
+
+    def _pop_parked(self, capacity: Optional[int]) -> Optional[Trial]:
+        """The first parked trial this runner's capacity serves."""
+        with self._store_lock:
+            for i, tid in enumerate(self._parked):
+                trial = self._trial_store.get(tid)
+                if trial is None:
+                    continue
+                need = self._chips_for(trial)
+                if capacity is None or need is None or need == capacity:
+                    del self._parked[i]
                     return trial
         return None
 
     def _register_msg_callback(self, msg) -> None:
+        # A respawned elastic runner at its new size settles one
+        # outstanding resize toward that capacity.
+        cap = msg.get("capacity")
+        if cap is not None:
+            with self._store_lock:
+                if self._resize_inflight.get(cap, 0) > 0:
+                    self._resize_inflight[cap] -= 1
+                self._resize_watch.pop(msg["partition_id"], None)
         self._assign_next(msg["partition_id"], None)
 
     def _blacklist_msg_callback(self, msg) -> None:
@@ -752,13 +896,27 @@ class OptimizationDriver(Driver):
         predecessor died (or belonged to a crashed driver incarnation). The
         trial is requeued and handed back to this slot at once, resuming as
         the backlog path would: its fork source is verified and a fork or
-        preempted trial journals ``resumed`` at its step (JAX `:544-594`,
-        without the gang branch)."""
+        preempted trial journals ``resumed`` at its step (JAX `:544-594`).
+        A re-registered gang leader revokes its gang instead."""
         pid = msg["partition_id"]
         # The partition names a new runner: the dead one's live gauges go.
         self.telemetry.prune_partition(pid)
         with self._sched_lock:
             trial = self.get_trial(msg["trial_id"])
+            if trial is not None and self.gang_members(trial.trial_id):
+                # A re-registered gang leader cannot take its trial back:
+                # its block is gone. The gang is revoked and reassembles
+                # from the requeue.
+                self._release_gang(trial.trial_id, why="leader_blacklisted", partition=pid)
+                trial.reset_run_state()
+                self.server.reservations.assign_trial(pid, None)
+                with self._store_lock:
+                    if trial.trial_id not in self._requeue:
+                        self._requeue.append(trial.trial_id)
+                self.telemetry.trial_event(trial.trial_id, "requeued", partition=pid,
+                                           reason="blacklist")
+                self._assign_next(pid, None)
+                return
             # A re-registered block leader: the other lanes requeue as
             # scalar trials, the leader (block stamps stripped) comes back
             # to this slot.
@@ -825,7 +983,17 @@ class OptimizationDriver(Driver):
 
     # locked-by: _sched_lock
     def _assign_next_once_locked(self, partition_id: int, last_trial: Optional[Trial]) -> bool:
-        """One assignment attempt; True = pull again."""
+        """One assignment attempt; True = pull again (the suggestion was
+        parked for gang assembly or held for its fork parent, and this
+        runner is still free)."""
+        res = self.server.reservations
+        # A gang-held member is not free: its chip belongs to a gang's
+        # block. Its idle chain keeps ticking, so it takes work the moment
+        # the gang releases. A FINAL's runner is never held here: terminal
+        # paths release the gang first.
+        if self._gang_mode and last_trial is None and res.gang_of(partition_id) is not None:
+            self._rearm_idle(partition_id)
+            return False
         # Held forks and requeued trials take priority over fresh
         # suggestions, but never swallow a FINAL report: the controller sees
         # ``last_trial`` first.
@@ -857,21 +1025,35 @@ class OptimizationDriver(Driver):
                 self._rearm_idle(partition_id)
             return False
         if suggestion in (None, "IDLE"):
+            # Gang service first: a free runner inside a reserved block is
+            # held for its gang instead of taking 1-chip work the block
+            # would then wait out.
+            if self._service_gangs_locked(partition_id):
+                self._rearm_idle(partition_id)
+                return False
+            cap = res.capacity(partition_id)
             held = self._pop_fork_hold(partition_id)
             if held is not None:
                 # A fork held for this runner (it ran the parent), or an
                 # expired hold any runner may take.
                 held.set_status(Trial.SCHEDULED)
-                self.server.reservations.assign_trial(partition_id, held.trial_id)
+                res.assign_trial(partition_id, held.trial_id)
                 self.telemetry.trial_event(held.trial_id, "assigned", partition=partition_id,
                                            fork_affinity=True)
                 self._journal_fork_edge(held, partition_id)
                 return False
-            requeued = self._pop_requeue()
+            parked = self._pop_parked(cap)
+            if parked is not None:
+                parked.set_status(Trial.SCHEDULED)
+                res.assign_trial(partition_id, parked.trial_id)
+                self.telemetry.trial_event(parked.trial_id, "assigned", partition=partition_id,
+                                           requeue="parked")
+                return False
+            requeued = self._pop_requeue(cap)
             if requeued is not None:
                 # A requeued fork must still have its resume point.
                 self._verify_fork_source(requeued, partition_id)
-                self.server.reservations.assign_trial(partition_id, requeued.trial_id)
+                res.assign_trial(partition_id, requeued.trial_id)
                 self.telemetry.trial_event(requeued.trial_id, "assigned",
                                            partition=partition_id, requeue="backlog")
                 self._journal_fork_edge(requeued, partition_id)
@@ -885,6 +1067,11 @@ class OptimizationDriver(Driver):
             if last_trial is None:
                 suggestion = self._next_suggestion() if self._prefetch_enabled else \
                     self._timed("inline", lambda: self.controller.get_suggestion(None))
+            # Nothing fresh either: an idle elastic runner whose size fits no
+            # waiting trial is resized toward the waiting work, or retired.
+            if suggestion in (None, "IDLE") and cap is not None \
+                    and self._maybe_migrate(partition_id, cap):
+                return False
         if suggestion is None:
             # Over only once nothing is in flight.
             with self._store_lock:
@@ -913,6 +1100,47 @@ class OptimizationDriver(Driver):
         # The controller just moved its schedule (Hyperband bound the trial
         # to a bracket slot): persist it, so a resume picks the bracket up.
         self._checkpoint_pruner()
+        # A gang trial is never assigned to one runner: it waits for
+        # assembly, and this runner (maybe its first member) pulls again.
+        spec = self._gang_spec_for(suggestion)
+        if spec is not None and spec.chips > 1:
+            with self._store_lock:
+                if suggestion.trial_id not in self._gang_wait:
+                    self._gang_wait.append(suggestion.trial_id)
+            self._log("trial {} needs a {}-chip gang ({}); awaiting assembly".format(
+                suggestion.trial_id, spec.chips, spec.strategy))
+            if self._service_gangs_locked(partition_id):
+                self._rearm_idle(partition_id)
+                return False
+            return True
+        # 1-chip work must not land on a runner reserved for a waiting gang
+        # (the block would fill again instead of draining): the suggestion
+        # waits in the requeue for another runner, and this one is held.
+        if self._gang_mode and self._placer is not None and \
+                self._placer.owner_of(self._chip_of(partition_id)) is not None:
+            with self._store_lock:
+                if suggestion.trial_id not in self._requeue:
+                    self._requeue.append(suggestion.trial_id)
+            self._service_gangs_locked(partition_id)
+            self._rearm_idle(partition_id)
+            return False
+        # Elastic sizing: a trial whose budget needs another chip count than
+        # this runner's lease is parked, and the runner respawns at the
+        # right size (the pin precedes CUDA init; no in-place resize).
+        need = self._chips_for(suggestion)
+        cap = res.capacity(partition_id)
+        if need is not None and cap is not None and need != cap:
+            with self._store_lock:
+                self._parked.append(suggestion.trial_id)
+                # This runner is on its way to ``need``: idle runners must
+                # not chase the same trial.
+                self._resize_inflight[need] = self._resize_inflight.get(need, 0) + 1
+                self._resize_watch[partition_id] = (
+                    time.monotonic(), need, self._pool_spawn_stamp(partition_id))
+            res.request_resize(partition_id, need)
+            self._log("trial {} needs {} chip(s); runner {} (capacity {}) asked to "
+                      "resize".format(suggestion.trial_id, need, partition_id, cap))
+            return False
         if self._maybe_hold_for_parent(suggestion, partition_id):
             self._log("trial {} held for runner {} (fork parent affinity)".format(
                 suggestion.trial_id, self._parent_partition(
@@ -921,15 +1149,341 @@ class OptimizationDriver(Driver):
         suggestion.set_status(Trial.SCHEDULED)
         if self._vmap_lanes > 1 and self._assemble_vmap_block_locked(suggestion, partition_id):
             return False
-        self.server.reservations.assign_trial(partition_id, suggestion.trial_id)
+        res.assign_trial(partition_id, suggestion.trial_id)
         self.telemetry.trial_event(suggestion.trial_id, "assigned", partition=partition_id)
         self._journal_fork_edge(suggestion, partition_id)
         return False
 
+    # ------------------------------------------------------- elastic sizing
+
+    def _chips_for(self, trial: Trial) -> Optional[int]:
+        """A trial's chip need under the elastic chips_per_budget (None when
+        elastic sizing is off)."""
+        if self._chips_map is None:
+            return None
+        budget = trial.params.get("budget", trial.info_dict.get("budget"))
+        return int(self._chips_map.get(budget, self.config.chips_per_trial))
+
+    def _maybe_migrate(self, partition_id: int, cap: int) -> bool:
+        """Resize or retire an idle elastic runner when the waiting work
+        needs sizes its capacity cannot serve (JAX `:708-754`). True = the
+        runner was told to leave (no idle chain)."""
+        with self._store_lock:
+            demand: Dict[int, int] = {}
+            for tid in self._parked + self._requeue:
+                if tid in self._trial_store:
+                    n = self._chips_for(self._trial_store[tid])
+                    if n is not None:
+                        demand[n] = demand.get(n, 0) + 1
+        if not demand or cap in demand:
+            return False
+        res = self.server.reservations
+        live = res.capacities()
+        with self._store_lock:
+            for size in sorted(demand, reverse=True):
+                supply = live.get(size, 0) + self._resize_inflight.get(size, 0)
+                if demand[size] > supply:
+                    self._resize_inflight[size] = self._resize_inflight.get(size, 0) + 1
+                    self._resize_watch[partition_id] = (
+                        time.monotonic(), size, self._pool_spawn_stamp(partition_id))
+                    res.request_resize(partition_id, size)
+                    self._log("idle runner {} (capacity {}) resized toward waiting work "
+                              "({} chips)".format(partition_id, cap, size))
+                    return True
+            inflight = sum(self._resize_inflight.values())
+        # The demand is covered: this runner's size serves nothing that
+        # waits, so it retires and its chips free for the pending respawns.
+        # The last live runner stays unless a respawn is on its way (which
+        # registers and polls); retiring it would leave nobody polling.
+        if sum(live.values()) <= 1 and inflight == 0:
+            return False
+        res.request_resize(partition_id, 0)
+        self._log("idle runner {} (capacity {}) retired; chips released for pending "
+                  "resizes".format(partition_id, cap))
+        return True
+
+    def _pool_spawn_stamp(self, partition_id: int):
+        stamp_of = getattr(self._active_pool, "spawn_stamp", None)
+        return stamp_of(partition_id) if stamp_of is not None else None
+
+    def periodic_check(self) -> None:
+        """The server loop's hook (JAX `:761-831`): the watchdog of resize
+        respawns, then the gang member scan. A respawn that wedges before
+        its REG never heartbeats, so it is killed once older than
+        ``constants.RESIZE_RESPAWN_TIMEOUT_S``; a respawn still queued for
+        chips, or the pre-resize process winding down, re-arms the watch;
+        one that died before registering gives its in-flight credit back."""
+        pool = self._active_pool
+        stamp_of = getattr(pool, "spawn_stamp", None)
+        now = time.monotonic()
+        expired = []
+        with self._store_lock:
+            for pid, (t0, size, s0) in list(self._resize_watch.items()):
+                if now - t0 <= constants.RESIZE_RESPAWN_TIMEOUT_S:
+                    continue
+                stamp = stamp_of(pid) if stamp_of is not None else None
+                if stamp_of is not None and stamp is None:
+                    pending_of = getattr(pool, "pending_respawn", None)
+                    if pending_of is None or pending_of(pid):
+                        self._resize_watch[pid] = (now, size, s0)
+                        continue
+                    why = "died before registering"
+                elif stamp_of is not None and (
+                        stamp == s0 or now - stamp <= constants.RESIZE_RESPAWN_TIMEOUT_S):
+                    self._resize_watch[pid] = (now, size, s0)
+                    continue
+                else:
+                    why = "did not re-register within {:.0f}s; killing it".format(
+                        constants.RESIZE_RESPAWN_TIMEOUT_S)
+                del self._resize_watch[pid]
+                if self._resize_inflight.get(size, 0) > 0:
+                    self._resize_inflight[size] -= 1
+                expired.append((pid, size, why))
+        for pid, size, why in expired:
+            self._log("resize respawn for runner {} ({} chips) {}".format(pid, size, why))
+            if pool is not None:
+                pool.kill_worker(pid)
+        self._check_gang_members()
+
+    # ------------------------------------------------------- gang scheduling
+
+    def _gang_spec_for(self, trial: Trial) -> Optional[gang_mod.GangSpec]:
+        """The trial's gang shape (None = a plain 1-runner trial): a sampled
+        GANG param wins, else the chips_per_budget entry of its budget."""
+        if not self._gang_mode:
+            return None
+        g = trial.params.get(self._gang_param) if self._gang_param is not None else None
+        if g:
+            return gang_mod.GangSpec.from_value(g)
+        if self._gang_map:
+            v = self._gang_map.get(trial.params.get("budget", trial.info_dict.get("budget")))
+            if v is not None:
+                return gang_mod.GangSpec.from_value(v)
+        return None
+
+    def _chip_of(self, partition_id: int) -> int:
+        """The runner's chip: its partition on a thread pool (runner =
+        chip), the fleet runner it is leased to in fleet mode."""
+        chip_of = getattr(self._active_pool, "chip_of", None)
+        if chip_of is not None:
+            chip = chip_of(partition_id)
+            if chip is not None:
+                return int(chip)
+        return int(partition_id)
+
+    # locked-by: _store_lock
+    def _gang_demand_locked(self) -> List[str]:
+        """Gang trials waiting for assembly, requeued (revoked or lost) ones
+        first."""
+        demand = []
+        for tid in self._requeue + self._gang_wait:
+            if tid in demand or tid not in self._trial_store or tid in self._gangs:
+                continue
+            spec = self._gang_spec_for(self._trial_store[tid])
+            if spec is not None and spec.chips > 1:
+                demand.append(tid)
+        return demand
+
+    # locked-by: _sched_lock
+    def _service_gangs_locked(self, partition_id: int) -> bool:
+        """Reserve blocks for waiting gang trials, hold every free runner
+        whose chip falls inside one, and assemble each gang whose block is
+        fully held. True when the asking runner was held: the caller hands
+        it no other work."""
+        if not self._gang_mode:
+            return False
+        res = self.server.reservations
+        with self._store_lock:
+            demand = self._gang_demand_locked()
+            running = bool(self._gangs)
+        self._sync_fleet_gang(bool(demand) or running)
+        if not demand:
+            return False
+        bound = self.server.hb_loss_timeout
+        free = [p for p in res.free_pids() if bound is None or not res.is_silent(p, bound)]
+        chip_by_pid = {p: self._chip_of(p) for p in free}
+        free_chips = set(chip_by_pid.values())
+        # Chips whose runners never come back (silent or released): a block
+        # holding one would park its gang forever.
+        dead_chips = set()
+        for pid, rec in res.all().items():
+            if rec.get("released") or (bound is not None and res.is_silent(pid, bound)):
+                dead_chips.add(self._chip_of(pid))
+        conscripted = False
+        for tid in demand:
+            trial = self.get_trial(tid)
+            if trial is None:
+                continue
+            spec = self._gang_spec_for(trial)
+            # A sticky block whose chip died while busy can never fully
+            # free: release it and plan around the dead chip.
+            existing = self._placer.block_of(tid)
+            if existing is not None and dead_chips & set(existing):
+                self._release_gang(tid, why="block_chip_dead")
+            block = self._placer.reserve(tid, spec.chips, free_chips,
+                                         avoid=dead_chips - free_chips)
+            if block is None:
+                continue
+            for p, c in list(chip_by_pid.items()):
+                if c in block:
+                    res.hold_for_gang(p, tid)
+                    if p == partition_id:
+                        conscripted = True
+                    del chip_by_pid[p]
+                    free_chips.discard(c)
+            members = res.gang_members(tid)
+            if len(members) >= spec.chips:
+                self._assemble_gang_locked(tid, trial, spec, block, members)
+        return conscripted
+
+    # locked-by: _sched_lock
+    def _assemble_gang_locked(self, tid: str, trial: Trial, spec: gang_mod.GangSpec,
+                              block: List[int], members: List[int]) -> None:
+        """Every chip of the block is held: the lowest-chip member leads,
+        the gang's geometry is stamped into the trial's info (it ships with
+        the TRIAL as ``ctx.gang``), and the trial is assigned to the
+        leader. A gang whose every member registered a ``host_port`` (fleet
+        agents, one process each) is a remote gang: it gets the rendezvous
+        block, ranks in chip order, the leader's address as coordinator. A
+        gang that mixes thread runners in runs the in-process path."""
+        res = self.server.reservations
+        leader = min(members, key=self._chip_of)
+        info = {"chips": sorted(int(c) for c in block),
+                "members": sorted(int(m) for m in members),
+                "leader": int(leader), "mesh": dict(spec.mesh), "strategy": spec.strategy}
+        coord_by_member = {m: (res.get(m) or {}).get("host_port") for m in members}
+        if all(coord_by_member.get(m) for m in members):
+            ordered = sorted(members, key=self._chip_of)
+            info["rendezvous"] = {
+                "coordinator": coord_by_member[ordered[0]],
+                "num_processes": len(ordered),
+                "process_ids": {str(int(m)): i for i, m in enumerate(ordered)}}
+        with trial.lock:
+            trial.info_dict["gang"] = info
+        with self._store_lock:
+            self._gangs[tid] = dict(info)
+            if tid in self._gang_wait:
+                self._gang_wait.remove(tid)
+            if tid in self._requeue:
+                self._requeue.remove(tid)
+        trial.set_status(Trial.SCHEDULED)
+        res.assign_trial(leader, tid)
+        self.telemetry.trial_event(tid, "gang_assembled", partition=leader,
+                                   members=info["members"], chips=info["chips"],
+                                   strategy=spec.strategy)
+        self.telemetry.trial_event(tid, "assigned", partition=leader)
+        self._log("gang assembled for trial {}: chips {} (leader runner {}, strategy "
+                  "{})".format(tid, info["chips"], leader, spec.strategy))
+
+    def _release_gang(self, tid: str, why: str, partition: Optional[int] = None) -> None:
+        """Return a gang's chips to the pool: drop the member holds, free
+        the placer's block and journal ``gang_released``. Idempotent:
+        every terminal path calls it."""
+        with self._store_lock:
+            info = self._gangs.pop(tid, None)
+        freed = self.server.reservations.release_gang(tid)
+        if self._placer is not None:
+            self._placer.release(tid, reason=why)
+        if info is None and not freed:
+            return
+        self.telemetry.trial_event(tid, "gang_released", partition=partition,
+                                   members=(info or {}).get("members", freed), why=why)
+
+    def _sync_fleet_gang(self, active: bool) -> None:
+        """Hold a fleet gang block while gang trials wait or run, and give
+        it back to fair share when the last one ends."""
+        binding = self.config.fleet
+        if binding is None or not hasattr(binding, "request_gang"):
+            return
+        with self._store_lock:
+            was = self._fleet_gang_active
+            self._fleet_gang_active = active
+        if active and not was:
+            if binding.request_gang(gang_mod.config_max_gang_chips(self.config)) is None:
+                # No disjoint window yet: retry on the next demand tick.
+                with self._store_lock:
+                    self._fleet_gang_active = False
+        elif was and not active:
+            binding.release_gang()
+
+    def gang_members(self, trial_id: str) -> List[int]:
+        """Members of an assembled gang (chaos's kill_gang_member picks its
+        victim here); empty when the trial has none."""
+        with self._store_lock:
+            info = self._gangs.get(trial_id)
+            return list(info["members"]) if info else []
+
+    def gang_info(self, trial_id: str) -> Optional[Dict[str, Any]]:
+        """A copy of an assembled gang's geometry (the server's member
+        delivery reads its rendezvous block), or None."""
+        with self._store_lock:
+            info = self._gangs.get(trial_id)
+            return dict(info) if info else None
+
+    def _check_gang_members(self) -> None:
+        """The server loop's scan: a silent member of an assembled gang
+        breaks its world, so the whole gang is revoked exactly once
+        (``revoking`` dedupes rescans) through the worker thread; a silent
+        member of a gang still assembling loses its hold, so the placer
+        plans around it."""
+        bound = self.server.hb_loss_timeout
+        if not self._gang_mode or bound is None:
+            return
+        res = self.server.reservations
+        with self._store_lock:
+            assembled = {tid: dict(info) for tid, info in self._gangs.items()
+                         if not info.get("revoking")}
+        for tid, info in assembled.items():
+            silent = [m for m in info["members"] if res.is_silent(m, bound)]
+            if not silent:
+                continue
+            with self._store_lock:
+                live = self._gangs.get(tid)
+                if live is None or live.get("revoking"):
+                    continue
+                live["revoking"] = True
+            self.enqueue({"type": "GANG_LOST", "trial_id": tid, "partition_id": silent[0]})
+        with self._store_lock:
+            waiting = self._gang_demand_locked()
+        for tid in waiting:
+            if any(res.is_silent(m, bound) for m in res.gang_members(tid)):
+                self._release_gang(tid, why="member_dead_assembling")
+
+    def _gang_lost_msg_callback(self, msg) -> None:
+        """The worker's half of a revocation: requeue the trial exactly
+        once (reason ``gang_member_lost``), return the healthy members to
+        the pool, and abort the leader (maybe still computing) with a
+        reservation-level preempting STOP whose ack is dropped."""
+        tid, pid = msg["trial_id"], msg.get("partition_id")
+        with self._sched_lock:
+            with self._store_lock:
+                info = self._gangs.get(tid)
+            trial = self.get_trial(tid)
+            if info is None or trial is None:
+                return
+            leader = info.get("leader")
+            self._release_gang(tid, why="member_lost", partition=pid)
+            self.server.reservations.clear_trial_if(leader, tid)
+            trial.reset_run_state()
+            with self._store_lock:
+                if tid not in self._requeue:
+                    self._requeue.append(tid)
+            self.result["gang_revocations"] = self.result.get("gang_revocations", 0) + 1
+            self.telemetry.trial_event(tid, "requeued", partition=pid, reason="gang_member_lost")
+            self._log("gang member (runner {}) lost for trial {}; gang lease revoked, trial "
+                      "requeued".format(pid, tid))
+            if leader is not None and leader != pid:
+                # The leader is healthy but its world is broken: its next
+                # beat draws a preempting STOP; the ack finds the trial
+                # waiting and is dropped.
+                self.server.reservations.request_stop(leader, tid)
+        # The dead member's gauges go (the healthy ones keep reporting).
+        self.telemetry.prune_partition(pid)
+
     # ------------------------------------------------------ vectorized lanes
 
     def _vmap_blockable_locked(self, trial: Trial) -> bool:
-        """Can the trial ride a block (JAX `:1900-1921`, no gangs here)? Not
+        """Can the trial ride a block (JAX `:1900-1921`)? Not
         with unhashable params (no program key), nor as a resume or a
         checkpoint fork (a lane restores no state); a BO near-duplicate
         keeps its parent tag and rides as a fork lane, trained from scratch."""

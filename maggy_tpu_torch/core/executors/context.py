@@ -20,9 +20,11 @@ The state saved is anything ``torch.save`` writes with tensors and numbers
 in nested dicts, lists and tuples — typically ``{"model":
 model.state_dict(), "optimizer": optimizer.state_dict(), ...}``; a restore
 takes the same structure from a freshly built trainer as its template.
-Gang contexts are not ported yet (ROADMAP queue 1 item 8). A train function
-that names ``lanes`` gets a ``LaneSet`` for a vectorized block instead of
-one trial (JAX ``:199-245``).
+A gang trial's function gets ``ctx.gang``, a ``gang.GangContext`` (JAX
+``:124-140``): the member chips, the mesh axes, the strategy and
+``sharding_env()`` over the gang's world; None for a 1-chip trial. A train
+function that names ``lanes`` gets a ``LaneSet`` for a vectorized block
+instead of one trial (JAX ``:199-245``).
 """
 
 from __future__ import annotations
@@ -57,9 +59,6 @@ class TrialContext:
     def __init__(self, trial_id: str, trial_dir: str, exp_dir: str,
                  params: Dict[str, Any], info: Optional[Dict[str, Any]] = None):
         info = dict(info or {})
-        if info.get("gang"):
-            raise NotImplementedError(
-                "gang-scheduled trials are not ported yet (ROADMAP queue 1 item 8)")
         self.trial_id = trial_id
         self.trial_dir = trial_dir
         self.exp_dir = exp_dir
@@ -110,6 +109,22 @@ class TrialContext:
         a fresh run."""
         step = self.info.get("resume_step")
         return None if step is None else int(step)
+
+    @property
+    def gang(self):
+        """For a gang-scheduled multi-chip trial: the assembled
+        ``gang.GangContext`` the driver stamped into the assignment (member
+        chips, mesh axes, strategy, ``sharding_env()``). None for a 1-chip
+        trial, so a train function can branch on it."""
+        info = self.info.get("gang")
+        if not info:
+            return None
+        from maggy_tpu_torch.gang import GangContext
+
+        # This member's own partition rides along: a remote gang resolves
+        # its process's rank from it.
+        return GangContext({**info, "partition": info.get("partition",
+                                                          self.info.get("partition"))})
 
     @property
     def needs_fresh_state(self) -> bool:

@@ -43,15 +43,15 @@ DIST_SEED = 0
 COORD_HOST = "127.0.0.1"
 
 
-def rank_device(device: str, partition_id: int) -> torch.device:
-    """This rank's device: the CPU, or CUDA device rank % count (raising
-    without a card)."""
+def rank_device(device: str, index: int) -> torch.device:
+    """The device of rank (or gang chip) ``index``: the CPU, or CUDA device
+    index % count (raising without a card)."""
     if device == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("distributed worker {}: config.device='cuda' but this process "
-                           "finds no CUDA device".format(partition_id))
-    return torch.device("cuda", partition_id % torch.cuda.device_count())
+        raise RuntimeError("rank {}: device 'cuda' asked but this process finds no CUDA "
+                           "device".format(index))
+    return torch.device("cuda", index % torch.cuda.device_count())
 
 
 def process_backend(device: torch.device, world: int) -> str:
@@ -59,6 +59,18 @@ def process_backend(device: torch.device, world: int) -> str:
     if device.type == "cuda" and world <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
+
+
+def join_world(store, rank: int, world: int, device: torch.device,
+               timeout: timedelta) -> str:
+    """``init_process_group`` for this process as ``rank`` of ``world`` at
+    ``store``, on ``device``; returns the backend (``process_backend``)."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = process_backend(device, world)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=timeout)
+    return backend
 
 
 class DistExecutor:
@@ -90,8 +102,6 @@ class DistExecutor:
         grouped = False
         try:
             device = rank_device(self.config.device, partition_id)
-            if device.type == "cuda":
-                torch.cuda.set_device(device)
             timeout = timedelta(seconds=self.config.resolved_hb_loss_timeout())
             store, host_port = None, None
             if partition_id == 0 and not self.shared_process:
@@ -134,6 +144,8 @@ class DistExecutor:
 
     def _world_of_one(self, partition_id: int, device: torch.device) -> ShardingEnv:
         """A thread worker's env: the config's axes, each of size 1."""
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
         names = resolve_mesh_shape(self.config.mesh_shape, self.num_workers)
         return ShardingEnv(mesh=make_mesh({a: 1 for a in names}, device_type=device.type),
                            process_index=partition_id, process_count=self.num_workers,
@@ -147,9 +159,7 @@ class DistExecutor:
         if store is None:
             host, port = dist_config["coordinator_address"].rsplit(":", 1)
             store = dist.TCPStore(host, int(port), world, is_master=False, timeout=timeout)
-        backend = process_backend(device, world)
-        dist.init_process_group(backend, store=store, rank=partition_id, world_size=world,
-                                timeout=timeout)
+        backend = join_world(store, partition_id, world, device, timeout)
         reporter.log("torch.distributed initialized: rank {}/{} ({}, {}) at {}".format(
             partition_id, world, backend, device, dist_config["coordinator_address"]))
         return ShardingEnv(mesh=make_mesh(self.config.mesh_shape, device_type=device.type),

@@ -41,6 +41,16 @@ a sequence in lane order; one without it runs them one after another as
 scalar trials. Either way every lane sends its own FINAL with its own run
 epoch, and only the last releases the partition.
 
+Gangs and elastic runners (JAX `trial_executor.py:110-113, 144-180,
+550-585`): an assignment stamped ``gang`` of more than one chip without a
+rendezvous block is an in-process gang, and this runner is its leader: the
+trial runs in one rank process per chip (``gang.run_gang_ranks``), rank
+0's result is this trial's FINAL. A gang of agents (``rendezvous``) runs
+here, the agent being a rank; a member served ``gang_role="member"`` joins
+the world, runs the program, discards the result and sends no FINAL. An
+elastic runner registers its lease's capacity and, told to RESIZE, writes
+the new size to its resize file and exits for the pool to respawn it.
+
 Per-trial profiles and print shipping (JAX `trial_executor.py:34-70,
 583-620`): with ``profile`` a trial runs inside ``profiling.trial_profile``
 (a torch.profiler trace into ``<trial dir>/profile/``, one a process; a
@@ -48,24 +58,30 @@ trial that finds the profiler taken runs untraced and its runner stats
 carry ``profile_skipped``, journaled as that trial event); with
 ``ship_prints`` the train function's ``print`` calls are teed into the
 reporter log through a thread-scoped tee, so thread runners that share
-``builtins.print`` ship only their own trial's lines.
+``builtins.print`` ship only their own trial's lines. An in-process gang's
+rank 0 runs its trial the same way, in its own process: traced into the
+trial dir, its prints shipped through the leader's relay.
 """
 
 from __future__ import annotations
 
 import inspect
+import json
+import os
 import sys
 import threading
 import time
 import traceback
 from typing import Callable, Optional, Tuple
 
+from maggy_tpu_torch import gang as gang_mod
 from maggy_tpu_torch import util
 from maggy_tpu_torch.core.environment import EnvSing
 from maggy_tpu_torch.core.executors.context import (LaneSet, TrialContext,
                                                     info_needs_fresh_state)
 from maggy_tpu_torch.core.reporter import Reporter
-from maggy_tpu_torch.core.rpc import Client
+from maggy_tpu_torch.core.rpc import RESIZE, Client
+from maggy_tpu_torch.core.runner_pool import CAPACITY_ENV, RESIZE_FILE_ENV
 from maggy_tpu_torch.exceptions import EarlyStopException
 from maggy_tpu_torch.telemetry import profiling
 from maggy_tpu_torch.telemetry.runnerstats import RunnerStats
@@ -102,6 +118,31 @@ def _install_print_tee() -> None:
         builtins.print = tee_print
 
 
+def call_train_fn(train_fn: Callable, call_params: dict, trial_dir: str, reporter,
+                  profile: bool = False, ship_prints: bool = False,
+                  on_untraced: Optional[Callable[[], None]] = None):
+    """Call the train function, with its prints teed into ``reporter``
+    (``ship_prints``) and under a per-trial trace in ``trial_dir``
+    (``profile``; ``on_untraced`` runs when the process's profiler is
+    taken and the trial runs untraced). A runner's trial and an in-process
+    gang's rank 0 (``gang.run_gang_ranks``) run through it."""
+    if ship_prints:
+        _install_print_tee()
+        _print_ship.reporter = reporter
+    try:
+        if not profile:
+            return train_fn(**call_params)
+        with profiling.trial_profile(trial_dir) as path:
+            if path is None:
+                if on_untraced is not None:
+                    on_untraced()
+                reporter.log("profiler busy (another trial or capture holds it); "
+                             "trial runs untraced")
+            return train_fn(**call_params)
+    finally:
+        _print_ship.reporter = None
+
+
 class TrialExecutor:
     """The worker each runner (thread or process) executes; picklable when
     ``train_fn`` is, so process pools can send it to a spawned child."""
@@ -110,7 +151,7 @@ class TrialExecutor:
                  exp_dir: str, optimization_key: str, train_fn: Callable,
                  warm_start: bool = True, trial_type: str = "optimization",
                  ablation_resolver: Optional[Callable] = None, profile: bool = False,
-                 ship_prints: bool = False):
+                 ship_prints: bool = False, host_port: Optional[str] = None):
         self.server_addr = server_addr
         self.secret = secret
         self.hb_interval = hb_interval
@@ -122,6 +163,11 @@ class TrialExecutor:
         self.ablation_resolver = ablation_resolver
         self.profile = profile
         self.ship_prints = ship_prints
+        #: The "host:port" this runner's gang world may be reached at (a
+        #: fleet agent's reserved rendezvous address); None for runners of
+        #: this process. Its presence in the REG record is how the driver
+        #: tells a remote member from a thread runner.
+        self.host_port = host_port
 
     def __call__(self, partition_id: int) -> None:
         env = EnvSing.get_instance()
@@ -132,7 +178,9 @@ class TrialExecutor:
         reporter.stats = stats
         client.runner_stats = stats
         try:
-            client.register()
+            capacity = os.environ.get(CAPACITY_ENV)
+            client.register(host_port=self.host_port,
+                            capacity=int(capacity) if capacity else None)
             client.start_heartbeat(reporter)
             sig_params = inspect.signature(self.train_fn).parameters
             wants_reporter, wants_ctx = "reporter" in sig_params, "ctx" in sig_params
@@ -140,6 +188,19 @@ class TrialExecutor:
                 trial_id, params = client.get_suggestion()
                 if trial_id is None:
                     break
+                if trial_id == RESIZE:
+                    # The elastic pool respawns this partition pinned to
+                    # params["chips"] chips (0: retired).
+                    resize_file = os.environ.get(RESIZE_FILE_ENV)
+                    if resize_file:
+                        with open(resize_file, "w") as f:
+                            json.dump({"chips": params["chips"]}, f)
+                    reporter.log("resizing to {} chip(s); runner exiting for respawn".format(
+                        params["chips"]))
+                    break
+                if client.last_info.get("gang_role") == "member":
+                    self._run_gang_member(trial_id, params, client, reporter)
+                    continue
                 if client.last_info.get("vmap_block"):
                     self._run_vmap_block(trial_id, params, client, reporter, stats, env,
                                          sig_params)
@@ -169,11 +230,20 @@ class TrialExecutor:
                     # stats; at its exit their units retire into their warm
                     # slots. A trial that continues saved state restores it
                     # from its checkpoint into fresh state.
-                    with warm.trial_scope(trial_id=trial_id, enabled=self.warm_start,
-                                          stats=stats,
-                                          fresh_state=info_needs_fresh_state(client.last_info)):
-                        retval = self._run_trial(call_params, trial_id, trial_dir, reporter,
-                                                 stats)
+                    gang = client.last_info.get("gang")
+                    if gang and len(gang.get("chips") or ()) > 1 \
+                            and not gang.get("rendezvous"):
+                        # An in-process gang: this runner leads its ranks.
+                        retval = gang_mod.run_gang_ranks(
+                            self.train_fn, dict(params), dict(client.last_info), reporter,
+                            trial_id, trial_dir, self.exp_dir, wants_reporter, wants_ctx,
+                            profile=self.profile, ship_prints=self.ship_prints)
+                    else:
+                        with warm.trial_scope(trial_id=trial_id, enabled=self.warm_start,
+                                              stats=stats, fresh_state=info_needs_fresh_state(
+                                                  client.last_info)):
+                            retval = self._run_trial(call_params, trial_id, trial_dir,
+                                                     reporter, stats)
                     metric = util.handle_return_val(retval, trial_dir,
                                                     self.optimization_key, env)
                     client.finalize_metric(metric, reporter)
@@ -202,6 +272,31 @@ class TrialExecutor:
                         ctx.close()
         finally:
             client.stop()
+
+    def _run_gang_member(self, trial_id: str, params: dict, client, reporter) -> None:
+        """A remote gang member's side of a gang trial: every process of the
+        world runs the same program, or the leader's collectives hang. It
+        joins the world, runs the program with no reporter, discards the
+        result and sends no FINAL (the leader sends the one FINAL). A
+        failure is logged: the leader's world fails with it, and the
+        driver's member-loss path owns the recovery."""
+        trial_dir = "{}/{}".format(self.exp_dir, trial_id)
+        try:
+            ctx = TrialContext(trial_id, trial_dir, self.exp_dir, params, client.last_info)
+            gang = ctx.gang
+            if gang is None:
+                return
+            gang.ensure_rendezvous()
+            call_params = dict(params)
+            sig_params = inspect.signature(self.train_fn).parameters
+            if "ctx" in sig_params:
+                call_params["ctx"] = ctx
+            if "reporter" in sig_params:
+                call_params["reporter"] = None
+            self.train_fn(**call_params)
+        except Exception:  # noqa: BLE001 - a member's failure surfaces in the leader's world
+            reporter.log("gang member program for {} failed:\n{}".format(
+                trial_id, traceback.format_exc()))
 
     # ------------------------------------------------------ vectorized blocks
 
@@ -338,22 +433,11 @@ class TrialExecutor:
 
     def _run_trial(self, call_params: dict, trial_id: str, trial_dir: str, reporter,
                    stats):
-        """Call the train function, with its prints teed into the reporter
-        (``ship_prints``) and under a per-trial trace (``profile``)."""
-        if self.ship_prints:
-            _install_print_tee()
-            _print_ship.reporter = reporter
-        try:
-            if not self.profile:
-                return self.train_fn(**call_params)
-            with profiling.trial_profile(trial_dir) as path:
-                if path is None:
-                    stats.note_profile_skipped(trial_id)
-                    reporter.log("profiler busy (another trial or capture holds it); "
-                                 "trial {} runs untraced".format(trial_id))
-                return self.train_fn(**call_params)
-        finally:
-            _print_ship.reporter = None
+        """``call_train_fn`` with this executor's ``profile`` and
+        ``ship_prints``."""
+        return call_train_fn(self.train_fn, call_params, trial_dir, reporter,
+                             profile=self.profile, ship_prints=self.ship_prints,
+                             on_untraced=lambda: stats.note_profile_skipped(trial_id))
 
     def _stage_fork(self, ctx, trial_id: str, trial_dir: str, client, reporter,
                     stats) -> None:

@@ -324,6 +324,17 @@ class Reporter:
                 if preempt:
                     self._preempt_flag = True
 
+    def stop_requested(self) -> bool:
+        """Whether the driver flagged this trial (the next broadcast
+        raises): a gang leader that relays its ranks polls it."""
+        with self.lock:
+            return self._stop_flag
+
+    def stop_metric(self):
+        """The newest metric as a float, the value an early stop carries."""
+        with self.lock:
+            return self._materialize(self.metric) if self.metric is not None else None
+
     def take_preempt(self) -> bool:
         """Consume the preemption marker: True exactly once per preempted
         stop (the executor's EarlyStopException handler decides between

@@ -61,6 +61,18 @@ never delays another's replies. A fleet preemption with eviction
 (``request_evict``) releases the runner with GSTOP after its preempted
 FINAL, or on its next GET when it is idle.
 
+Gangs and elastic sizing (JAX `rpc.py:57, 196-232, 303-384, 1114,
+1538-1612, 1955-2008`): the reservation table holds gang holds (a
+conscripted runner is no free runner and gets no 1-chip work), the
+one-shot member latch of a remote gang, a revocation STOP armed for a
+healthy leader (``request_stop``, answered as a preempting STOP on its
+next beat), and an elastic runner's capacity with its pending resize,
+served on its next GET as ``RESIZE``. A REG carries the runner's
+``host_port`` (a fleet agent's reserved rendezvous address) and its
+``capacity``; a held member of a remote gang is served the gang trial
+once as ``gang_role="member"``. The loop's tick also runs the driver's
+``periodic_check`` (the resize watchdog and the gang member scan).
+
 Fleet agents, the journal sink and heartbeat batching (JAX `rpc.py:679-699,
 1102-1220, 1843-1907`): ``FleetAgentServer`` (AJOIN, ALEASE, ADONE, under the
 fleet ticket's secret) hands leases to agent processes through the
@@ -100,6 +112,10 @@ from maggy_tpu_torch.exceptions import AuthenticationError
 from maggy_tpu_torch.telemetry.metrics import MetricsRegistry
 from maggy_tpu_torch.trial import Trial
 from maggy_tpu_torch.util import json_default_numpy
+
+#: The get_suggestion result that tells an elastic runner to exit for a
+#: respawn at another size.
+RESIZE = "__resize__"
 
 _LEN = struct.Struct(">I")
 _HEADER = 4 + 32
@@ -315,6 +331,109 @@ class Reservations:
         with self.lock:
             return {pid: dict(rec) for pid, rec in self._table.items()}
 
+    def capacity(self, partition_id: int) -> Optional[int]:
+        """The runner's advertised chip capacity (None = not elastic)."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            return rec.get("capacity") if rec else None
+
+    def capacities(self) -> Dict[int, int]:
+        """Count of live (registered, unreleased) runners by capacity."""
+        with self.lock:
+            out: Dict[int, int] = {}
+            for rec in self._table.values():
+                cap = rec.get("capacity")
+                if cap is not None and not rec.get("released"):
+                    out[cap] = out.get(cap, 0) + 1
+            return out
+
+    def request_resize(self, partition_id: int, chips: int) -> None:
+        """Ask a runner to exit and respawn pinned to ``chips`` chips (0:
+        retire); delivered on its next GET."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is not None:
+                rec["resize"] = int(chips)
+
+    def pop_resize(self, partition_id: int) -> Optional[int]:
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            return rec.pop("resize", None) if rec is not None else None
+
+    # ------------------------------------------------------------ gang holds
+
+    def hold_for_gang(self, partition_id, trial_id: str) -> None:
+        """Conscript the runner into a gang: while held it is not free (the
+        driver hands it no 1-chip work) but it keeps heartbeating and
+        idle-polling; its chip belongs to ``trial_id``'s block until the
+        gang releases."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is not None:
+                rec["gang"] = trial_id
+
+    def gang_of(self, partition_id) -> Optional[str]:
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            return rec.get("gang") if rec else None
+
+    def release_gang(self, trial_id: str) -> list:
+        """Free every member held for ``trial_id``; returns their ids."""
+        with self.lock:
+            freed = []
+            for pid, rec in self._table.items():
+                if rec.get("gang") == trial_id:
+                    rec.pop("gang", None)
+                    rec.pop("gang_served", None)
+                    freed.append(pid)
+            return freed
+
+    def mark_gang_served(self, partition_id, trial_id: str) -> bool:
+        """The one-shot delivery latch of a remote gang's member program:
+        True the first time this held member is served ``trial_id``, False
+        on every re-poll (cleared with the hold, so a reassembled gang
+        serves its members again)."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is None or rec.get("gang") != trial_id or \
+                    rec.get("gang_served") == trial_id:
+                return False
+            rec["gang_served"] = trial_id
+            return True
+
+    def gang_members(self, trial_id: str) -> list:
+        with self.lock:
+            return sorted(pid for pid, rec in self._table.items()
+                          if rec.get("gang") == trial_id)
+
+    def free_pids(self) -> list:
+        """Runners free for new work: registered, unreleased, not evicted,
+        holding no trial and held by no gang (the gang assembler's free
+        set)."""
+        with self.lock:
+            return sorted(pid for pid, rec in self._table.items()
+                          if not rec.get("released") and not rec.get("evict")
+                          and rec.get("trial_id") is None and rec.get("gang") is None)
+
+    def request_stop(self, partition_id, trial_id: str) -> None:
+        """Gang revocation: arm a one-shot preempting STOP for the
+        partition's next beat about ``trial_id``, aborting a healthy leader
+        whose gang lost a member. The trial is already requeued, so the
+        leader's preempt ack is dropped."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is not None:
+                rec["stop_trial"] = trial_id
+
+    def pop_stop(self, partition_id, trial_id) -> bool:
+        """Consume an armed revocation STOP if it names ``trial_id``."""
+        with self.lock:
+            rec = self._table.get(int(partition_id))
+            if rec is not None and trial_id is not None and rec.get("stop_trial") == trial_id:
+                rec.pop("stop_trial", None)
+                return True
+            return False
+
     def servable_trial(self, partition_id: int) -> Optional[str]:
         """The assignment a GET may hand out: none while a re-registration
         is held for the driver's BLACK path (``held``)."""
@@ -325,7 +444,7 @@ class Reservations:
     # ------------------------------------------------------- crash recovery
 
     def restore(self, partition_id, trial_id: Optional[str] = None,
-                capacity: Optional[int] = None) -> None:
+                capacity: Optional[int] = None, host_port: Optional[str] = None) -> None:
         """Re-seed a pre-crash partition's record from the replayed journal,
         with a fresh last beat: a live runner's next message re-binds it
         (``pop_recovered`` journals ``adopted``), a dead one goes silent
@@ -336,7 +455,8 @@ class Reservations:
             if pid in self._table:
                 return
             self._table[pid] = {"partition_id": pid, "trial_id": trial_id,
-                                "capacity": capacity, "recovered": True,
+                                "capacity": capacity, "host_port": host_port,
+                                "recovered": True,
                                 "last_beat": time.monotonic()}
 
     def pop_recovered(self, partition_id) -> bool:
@@ -646,12 +766,23 @@ class OptimizationServer(Server):
         each silent partition holding a trial loses its assignment first
         (so its late FINAL clears nothing), then the driver gets LOST
         (``maggy_tpu/core/rpc.py:1260-1286``)."""
-        if self.driver is None or self.hb_loss_timeout is None:
+        if self.driver is None:
             return
         now = time.monotonic()
-        if now - self._last_loss_scan < min(1.0, self.hb_loss_timeout / 4):
+        gate = min(1.0, self.hb_loss_timeout / 4) if self.hb_loss_timeout is not None else 1.0
+        if now - self._last_loss_scan < gate:
             return
         self._last_loss_scan = now
+        check = getattr(self.driver, "periodic_check", None)
+        if check is not None:
+            try:
+                check()
+            except Exception:  # noqa: BLE001 - never kill the event loop
+                import traceback
+
+                traceback.print_exc()
+        if self.hb_loss_timeout is None:
+            return
         for pid, trial_id in self.reservations.lost_assignments(self.hb_loss_timeout):
             self.reservations.assign_trial(pid, None)
             self.driver.enqueue({"type": "LOST", "trial_id": trial_id, "partition_id": pid})
@@ -677,11 +808,13 @@ class OptimizationServer(Server):
         pid = msg["partition_id"]
         prev = self.reservations.get_assigned_trial(pid)
         self.reservations.add({"partition_id": pid, "trial_id": prev,
+                               "host_port": msg.get("host_port"),
                                "capacity": msg.get("capacity"), "held": prev is not None})
         if prev is not None:
             self.driver.enqueue({"type": "BLACK", "trial_id": prev, "partition_id": pid})
         else:
-            self.driver.enqueue({"type": "REG", "partition_id": pid})
+            self.driver.enqueue({"type": "REG", "partition_id": pid,
+                                 "capacity": msg.get("capacity")})
         telem = self.telemetry
         if telem is not None:
             telem.event("runner", phase="registered", partition=int(pid),
@@ -699,6 +832,9 @@ class OptimizationServer(Server):
             # shape it always did.
             telem.record_runner_stats(pid, rstats)
         trial_id = msg.get("trial_id")
+        # A revocation STOP is answered to a beat that carries a metric:
+        # the leader's reporter arms a stop only once it has one.
+        has_value = msg.get("value") is not None or bool(msg.get("lanes"))
         assigned = self.reservations.get_assigned_trial(pid)
         if trial_id is not None and assigned != trial_id and (
                 assigned is None or self.driver.block_leader(trial_id) != assigned):
@@ -708,6 +844,10 @@ class OptimizationServer(Server):
             msg = {k: v for k, v in msg.items() if k != "lanes"}
             msg["value"] = None
         self.driver.enqueue(dict(msg))
+        if trial_id and has_value and self.reservations.pop_stop(pid, trial_id):
+            # A gang revocation's abort: preempt-shaped, so the leader acks
+            # and frees itself; the driver already requeued the trial.
+            return {"type": "STOP", "preempt": True}
         if msg.get("lanes"):
             return self._metric_lanes(msg, trial_id)
         trial = self.driver.get_trial(trial_id) if trial_id else None
@@ -896,10 +1036,51 @@ class OptimizationServer(Server):
         reply = self._serve_assigned(msg["partition_id"])
         if reply is not None:
             return reply
+        member = self._serve_gang_member(pid)
+        if member is not None:
+            return member
         if self.driver.experiment_done:
             self._release(msg["partition_id"])
             return {"type": "GSTOP"}
+        resize = self.reservations.pop_resize(pid)
+        if resize is not None:
+            # The runner exits and its pool respawns it pinned to ``chips``
+            # chips; released here, so the loss scan ignores the gap until
+            # it registers again.
+            self._release(pid)
+            return {"type": "RESIZE", "chips": resize}
         return {"type": "OK", "trial_id": None}
+
+    def _serve_gang_member(self, partition_id):
+        """A remote gang's member delivery (JAX `rpc.py:1576-1612`): a held
+        member whose gang carries a ``rendezvous`` block lives in another
+        process and must run the program itself, or the leader's
+        collectives hang. It is served the gang trial once an assembly,
+        flagged ``gang_role="member"``: the executor joins the world, runs
+        the program, discards the result and never finalizes. Members of an
+        in-process gang never get here: the leader's ranks do their work."""
+        res = self.reservations
+        tid = res.gang_of(partition_id)
+        if tid is None or res.get_assigned_trial(partition_id) == tid:
+            return None
+        gang_info = getattr(self.driver, "gang_info", None)
+        info_g = gang_info(tid) if gang_info is not None else None
+        if not info_g or not info_g.get("rendezvous"):
+            return None
+        if int(partition_id) == int(info_g.get("leader", -1)):
+            # The assembly window: the leader waits for its own assignment.
+            return None
+        if not res.mark_gang_served(partition_id, tid):
+            return None
+        trial = self.driver.get_trial(tid)
+        if trial is None:
+            return None
+        with trial.lock:
+            info = dict(trial.info_dict)
+        info["partition"] = int(partition_id)
+        info["gang_role"] = "member"
+        return {"type": "TRIAL", "trial_id": trial.trial_id, "params": trial.params,
+                "info": info}
 
     def _log(self, msg):
         return {"type": "LOG", **self.driver.progress_snapshot()}
@@ -1314,6 +1495,7 @@ class FleetAgentServer(Server):
             return self._no_plane()
         return plane.agent_join(host=msg.get("host"), chips=msg.get("chips"),
                                 process_index=msg.get("process_index"),
+                                coord_addr=msg.get("coord_addr"),
                                 os_pid=msg.get("os_pid"), agent=msg.get("agent"))
 
     def _alease(self, msg):
@@ -1434,11 +1616,15 @@ class Client:
                     self._sock = fresh
         raise ConnectionError("RPC request failed after retries: {}".format(last_err))
 
-    def register(self, host_port: Optional[str] = None) -> None:
-        """REG; a distributed worker advertises its coordinator endpoint."""
+    def register(self, host_port: Optional[str] = None,
+                 capacity: Optional[int] = None) -> None:
+        """REG; a distributed worker or a fleet agent advertises its
+        coordinator endpoint, an elastic runner the chips it is pinned to."""
         msg = {"type": "REG"}
         if host_port is not None:
             msg["host_port"] = host_port
+        if capacity is not None:
+            msg["capacity"] = int(capacity)
         self._request(msg)
 
     def await_reservations(self, timeout: float = constants.REGISTRATION_TIMEOUT_S) -> None:
@@ -1548,6 +1734,11 @@ class Client:
             if resp.get("type") == "TRIAL":
                 self.last_info = resp.get("info", {})
                 return resp["trial_id"], resp["params"]
+            if resp.get("type") == "RESIZE":
+                # An elastic runner exits to be respawned pinned to
+                # resp["chips"] chips (pinning precedes CUDA init).
+                self.done = True
+                return RESIZE, {"chips": resp["chips"]}
             time.sleep(delay)
             delay = min(delay * 2, constants.DRIVER_IDLE_REQUEUE_TICK_S)
 

@@ -8,8 +8,9 @@ its own interpreter and CUDA context; a lost runner is SIGKILLed) and
 CUDA_VISIBLE_DEVICES, the counterpart of the JAX package's TPU-pinned pool)
 and ``RemoteRunnerPool`` (agents started apart, ``python -m
 maggy_tpu_torch.runner``, that JOIN through a ticket; ``maggy_tpu/core/
-runner_pool.py:518-601``). The elastic pool sizes chip sub-slices by
-``chips_per_budget`` and is not ported yet (ROADMAP queue 1 item 8). Each
+runner_pool.py:518-601``), and ``ElasticRunnerPool`` (``maggy_tpu/core/
+runner_pool.py:329-517``): ephemeral pinned processes leased chips out of
+``total_chips`` and respawned at another size on the driver's RESIZE. Each
 pool exposes
 ``kill_worker`` and ``stall_worker`` (``maggy_tpu/core/runner_pool.py:150-163,
 268-279``), through which the chaos engine's ``kill_runner`` and
@@ -49,7 +50,7 @@ def resolve_num_workers(config) -> int:
     if count == 0:
         raise ValueError("num_workers='auto' found no CUDA device; pass an "
                          "explicit count")
-    if getattr(config, "pool", "thread") == "gpu":
+    if getattr(config, "pool", "thread") in ("gpu", "elastic"):
         return max(1, count // max(1, config.chips_per_trial))
     return count
 
@@ -230,6 +231,196 @@ class GPURunnerPool(ProcessRunnerPool):
                              "CUDA devices".format(num_workers, chips_per_trial, visible))
         super().__init__(num_workers, env_fn=lambda i: device_env(i, chips_per_trial))
         self.chips_per_trial = chips_per_trial
+
+
+#: The variables an elastic runner reads its lease from (the counterparts of
+#: the JAX pool's TPU_VISIBLE_CHIPS and MAGGY_TPU_CAPACITY): the logical
+#: chips of its lease and their count. Its CUDA_VISIBLE_DEVICES lists the
+#: distinct physical devices they run on (chip c on device c % count).
+LEASE_CHIPS_ENV = "MAGGY_TPU_TORCH_LEASE_CHIPS"
+CAPACITY_ENV = "MAGGY_TPU_TORCH_CAPACITY"
+RESIZE_FILE_ENV = "MAGGY_TPU_TORCH_RESIZE_FILE"
+
+
+def lease_env(chips, device_count: Optional[int] = None) -> Dict[str, str]:
+    """An elastic runner's pinning env for a lease of logical ``chips``:
+    CUDA_VISIBLE_DEVICES lists the distinct physical devices the chips map
+    to (through this process's own CUDA_VISIBLE_DEVICES when it has one);
+    the lease itself rides in variables of its own."""
+    chips = sorted(int(c) for c in chips)
+    count = torch.cuda.device_count() if device_count is None else device_count
+    env = {LEASE_CHIPS_ENV: ",".join(str(c) for c in chips), CAPACITY_ENV: str(len(chips))}
+    if count > 0:
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        ids = [v.strip() for v in visible.split(",") if v.strip()] if visible else None
+        devices = sorted({c % count for c in chips})
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(ids[d] if ids else str(d) for d in devices)
+    return env
+
+
+def lease_chips() -> List[int]:
+    """The logical chips of this elastic runner's lease (empty outside one)."""
+    raw = os.environ.get(LEASE_CHIPS_ENV, "")
+    return [int(c) for c in raw.split(",") if c.strip()]
+
+
+class ElasticRunnerPool(RunnerPool):
+    """Budget-sized chip leases (JAX ``ElasticTPURunnerPool``). Each runner
+    is an ephemeral pinned process; when the driver finds a runner's
+    capacity no longer matches the schedule's needs (chips_per_budget), the
+    runner exits with a resize request and this pool respawns it pinned to
+    the new chip count (the pin precedes the child's first CUDA call, so a
+    resize is an exit and a respawn). A chip free list keeps sum(leases) <=
+    total_chips; a respawn waits until enough chips are free (the driver
+    resizes idle runners toward parked work, so chips migrate). With
+    ``telemetry`` every lease's start and end is journaled as a ``lease``
+    event (partition, chips, capacity)."""
+
+    def __init__(self, num_workers: int, total_chips: int, chips_per_trial: int = 1,
+                 should_stop: Optional[Callable[[], bool]] = None, telemetry=None):
+        super().__init__(num_workers)
+        if num_workers * chips_per_trial > total_chips:
+            raise ValueError("{} workers x {} chips exceeds the {}-chip lease budget".format(
+                num_workers, chips_per_trial, total_chips))
+        self.total_chips = total_chips
+        self.chips_per_trial = chips_per_trial
+        self.should_stop = should_stop or (lambda: False)
+        self.telemetry = telemetry
+        import tempfile
+
+        self.resize_dir = tempfile.mkdtemp(prefix="maggy_resize_")
+        self._procs: dict = {}  # guarded-by: _lock  # pid -> (process, chips)
+        self._spawn_time: dict = {}  # guarded-by: _lock
+        self._free: set = set()  # guarded-by: _lock
+        # Respawns queued for chips: [(partition_id, chips_needed)], so the
+        # driver's watchdog tells "queued" from "died before registering".
+        self._pending_respawns: list = []  # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def spawn_stamp(self, partition_id: int):
+        """Monotonic spawn time of the partition's current process, or None
+        when none exists (its respawn is queued for chips)."""
+        with self._lock:
+            if partition_id not in self._procs:
+                return None
+            return self._spawn_time.get(partition_id)
+
+    def spawn_age(self, partition_id: int):
+        """Seconds since the partition's current process was spawned."""
+        t0 = self.spawn_stamp(partition_id)
+        return None if t0 is None else time.monotonic() - t0
+
+    def pending_respawn(self, partition_id: int) -> bool:
+        """True while the partition has a future: its respawn is queued for
+        chips, or a process exists now. False is terminal."""
+        with self._lock:
+            if partition_id in self._procs:
+                return True
+            return any(pid == partition_id for pid, _ in self._pending_respawns)
+
+    def _resize_file(self, partition_id: int) -> str:
+        return os.path.join(self.resize_dir, "{}.resize".format(partition_id))
+
+    # locked-by: _lock
+    def _spawn_locked(self, ctx, worker_fn, partition_id: int, chips: set) -> None:
+        env = lease_env(chips)
+        env[RESIZE_FILE_ENV] = self._resize_file(partition_id)
+        p = ctx.Process(target=_process_entry, args=(worker_fn, partition_id, env),
+                        name="runner-{}".format(partition_id))
+        p.start()
+        self._procs[partition_id] = (p, chips)
+        self._spawn_time[partition_id] = time.monotonic()
+        self._lease_event_locked("start", partition_id, chips)
+
+    # locked-by: _lock
+    def _lease_event_locked(self, phase: str, partition_id: int, chips: set) -> None:
+        if self.telemetry is not None:
+            extra = {} if phase == "start" else {"reason": "released"}
+            self.telemetry.event("lease", phase=phase, partition=int(partition_id),
+                                 chips=sorted(chips), capacity=len(chips), **extra)
+
+    def kill_worker(self, partition_id: int) -> bool:
+        with self._lock:
+            entry = self._procs.get(partition_id)
+            if entry and entry[0].is_alive():
+                entry[0].kill()
+                return True
+        return False
+
+    def stall_worker(self, partition_id: int, duration_s: float) -> bool:
+        with self._lock:
+            entry = self._procs.get(partition_id)
+        return bool(entry) and _stall_process(entry[0], duration_s)
+
+    def terminate(self) -> None:
+        with self._lock:
+            for p, _ in self._procs.values():
+                if p.is_alive():
+                    p.terminate()
+
+    def run(self, worker_fn: Callable[[int], None]) -> List[BaseException]:
+        import json
+
+        ctx = mp.get_context("spawn")
+        chip_ids = list(range(self.total_chips))
+        with self._lock:
+            for i in range(self.num_workers):
+                lease = set(chip_ids[i * self.chips_per_trial:(i + 1) * self.chips_per_trial])
+                self._spawn_locked(ctx, worker_fn, i, lease)
+            self._free = set(chip_ids[self.num_workers * self.chips_per_trial:])
+        failures: List[BaseException] = []
+        while True:
+            with self._lock:
+                exited = [(pid, p, chips) for pid, (p, chips) in self._procs.items()
+                          if not p.is_alive()]
+            for pid, p, chips in exited:
+                p.join()
+                # Read the resize request before the slot is released, so
+                # the watchdog never sees a queued respawn as a dead one.
+                resize = None
+                rf = self._resize_file(pid)
+                if os.path.exists(rf):
+                    try:
+                        with open(rf) as f:
+                            resize = int(json.load(f)["chips"])
+                    except (ValueError, KeyError, OSError):
+                        pass
+                    try:
+                        os.unlink(rf)
+                    except OSError:
+                        pass
+                with self._lock:
+                    self._procs.pop(pid, None)
+                    self._free |= chips
+                    self._lease_event_locked("end", pid, chips)
+                    if p.exitcode == 0 and resize:
+                        # resize 0 = retire: the chips free, no respawn.
+                        self._pending_respawns.append((pid, resize))
+                if p.exitcode != 0:
+                    failures.append(RuntimeError("Runner process {} died (exit code {}).".format(
+                        p.name, p.exitcode)))
+            with self._lock:
+                still_pending = []
+                for pid, k in self._pending_respawns:
+                    if k > self.total_chips:
+                        failures.append(RuntimeError(
+                            "Runner {} asked for {} chips but the lease budget is {} (check "
+                            "chips_per_budget).".format(pid, k, self.total_chips)))
+                        continue
+                    if self.should_stop():
+                        continue  # the experiment is over: no respawn
+                    if len(self._free) >= k:
+                        lease = set(sorted(self._free)[:k])
+                        self._free -= lease
+                        self._spawn_locked(ctx, worker_fn, pid, lease)
+                    else:
+                        still_pending.append((pid, k))
+                self._pending_respawns = still_pending
+                alive = any(p.is_alive() for p, _ in self._procs.values())
+            if not alive and (not still_pending or self.should_stop()):
+                break
+            time.sleep(0.05)
+        return failures
 
 
 class RemoteRunnerPool(RunnerPool):

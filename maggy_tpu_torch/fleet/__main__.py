@@ -320,6 +320,9 @@ def main(argv=None) -> int:
     pa.add_argument("--pin", action="store_true",
                     help="pin this process to its disjoint CUDA devices "
                          "(CUDA_VISIBLE_DEVICES) before CUDA starts")
+    pa.add_argument("--advertise-host", default="127.0.0.1",
+                    help="host other gang members reach this agent on (the "
+                         "rendezvous address of a gang it leads)")
     pa.add_argument("--obs-port", type=int, default=None,
                     help="per-agent observability: serve /healthz and "
                          "/metrics on this port (0 = ephemeral; default off)")

@@ -32,8 +32,13 @@ card from the process, the port's counterpart of the JAX package's
 ``JAX_PLATFORMS=cpu`` agents. Train functions read it with
 ``trial_device()``.
 
-Left out with gangs (ROADMAP queue 1 item 8): ``reserve_coord_addr``, the
-``coord_addr`` an agent advertises at AJOIN, and the gang rendezvous.
+Remote gangs (JAX `agent.py:126-138, 150-157, 253-274, 589-636, 851`): an
+agent reserves its rendezvous address at start (``reserve_coord_addr``
+binds the store that a gang world led by this agent is served from, so it
+listens before it is advertised), sends it at AJOIN as ``coord_addr`` and
+registers with it as its REG's ``host_port``: a gang whose members are all
+agents then gets a rendezvous block, and its members join one
+``torch.distributed`` world (``gang.GangContext.ensure_rendezvous``).
 
 Wire contract (``core/rpc.py``'s ``FleetAgentServer``): ``AJOIN {host,
 chips, process_index, os_pid, agent}`` -> ``{agent, poll_s, liveness_s,
@@ -127,6 +132,25 @@ def read_fleet_ticket(path: str, wait_s: float = 0.0) -> Dict[str, Any]:
         time.sleep(0.5)
 
 
+def reserve_coord_addr(host: str = "127.0.0.1") -> str:
+    """Reserve this process's gang rendezvous address: bind a
+    ``torch.distributed.TCPStore`` on an ephemeral port of ``host`` and keep
+    it (``gang.set_coord_store``). A gang world whose rank 0 is this
+    process is served from that store, so the address listens from the
+    moment it is advertised (the JAX package binds a port, releases it and
+    lets ``jax.distributed`` re-bind it)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from maggy_tpu_torch import gang
+
+    store = dist.TCPStore(host, 0, 1, is_master=True, timeout=timedelta(seconds=120),
+                          wait_for_workers=False)
+    gang.set_coord_store(store)
+    return "{}:{}".format(host, store.port)
+
+
 # ----------------------------------------------------------- fleet side
 
 
@@ -136,12 +160,14 @@ class AgentRecord:  # guarded-by: AgentPlane._lock
     synchronized)."""
 
     def __init__(self, agent_id: str, runner: int, host: str, chips: int,
-                 process_index: int, os_pid: Optional[int]):
+                 process_index: int, os_pid: Optional[int],
+                 coord_addr: Optional[str] = None):
         self.agent_id = agent_id
         self.runner = runner
         self.host = host
         self.chips = chips
         self.process_index = process_index
+        self.coord_addr = coord_addr
         self.os_pid = os_pid
         self.joined_t = time.time()
         self.last_beat = time.monotonic()
@@ -252,7 +278,8 @@ class AgentPlane:
 
     # ---------------------------------------------------------- rpc handlers
 
-    def agent_join(self, host, chips, process_index, os_pid, agent) -> Dict[str, Any]:
+    def agent_join(self, host, chips, process_index, os_pid, agent,
+                   coord_addr=None) -> Dict[str, Any]:
         """AJOIN handler body. ``agent`` (a previous id) is accepted for
         restart-rejoin symmetry but a fresh identity is always minted —
         the dead record's lease was already revoked by its proxy, and id
@@ -272,7 +299,8 @@ class AgentPlane:
         rec = AgentRecord(agent_id, runner, host=str(host or "?"),
                           chips=int(chips or 1),
                           process_index=int(process_index or 0),
-                          os_pid=int(os_pid) if os_pid else None)
+                          os_pid=int(os_pid) if os_pid else None,
+                          coord_addr=coord_addr)
         thread = threading.Thread(target=self._proxy_loop, args=(rec,),
                                   daemon=True,
                                   name="agent-proxy-{}".format(agent_id))
@@ -592,6 +620,7 @@ class FleetAgent:
 
     def __init__(self, ticket: Dict[str, Any], chips: int = 1,
                  process_index: int = 0, host: Optional[str] = None,
+                 advertise_host: str = "127.0.0.1",
                  obs_port: Optional[int] = None, home: Optional[str] = None,
                  profile: bool = False):
         from maggy_tpu_torch.telemetry.sink import ClockOffsetEstimator
@@ -601,6 +630,7 @@ class FleetAgent:
         self.chips = int(chips)
         self.process_index = int(process_index)
         self.host = host or socket.gethostname()
+        self.coord_addr = reserve_coord_addr(advertise_host)
         self.profile = profile
         self.agent_id: Optional[str] = None
         self.poll_s = DEFAULT_POLL_S
@@ -636,8 +666,8 @@ class FleetAgent:
         t_send = time.time()
         resp = self._channel.call({
             "type": "AJOIN", "host": self.host, "chips": self.chips,
-            "process_index": self.process_index, "os_pid": os.getpid(),
-            "agent": self.agent_id,
+            "process_index": self.process_index, "coord_addr": self.coord_addr,
+            "os_pid": os.getpid(), "agent": self.agent_id,
         })
         if resp.get("type") != "AJOIN":
             raise RuntimeError("AJOIN rejected: {}".format(
@@ -851,6 +881,7 @@ class FleetAgent:
                 trial_type=lease.get("trial_type", "optimization"),
                 profile=self.profile,
                 warm_start=lease.get("warm_start", True),
+                host_port=self.coord_addr,
             )
             executor(int(lease["partition_id"]))
             return None
@@ -866,7 +897,7 @@ class FleetAgent:
 def trial_device() -> str:
     """The device this agent process runs its trials on (``--device``), for
     a train function to build its Trainer on; "cuda" outside an agent."""
-    return os.environ.get(DEVICE_ENV, "cuda")
+    return os.environ.get(DEVICE_ENV) or "cuda"
 
 
 def _select_device(device: str, chips: Optional[int], process_index: int,
@@ -913,7 +944,8 @@ def agent_main(args) -> int:
         raise SystemExit("one of --ticket or --fleet-addr is required")
     agent = FleetAgent(
         ticket, chips=args.chips or 1, process_index=args.process_index,
-        obs_port=args.obs_port, home=args.home, profile=args.profile)
+        advertise_host=args.advertise_host, obs_port=args.obs_port, home=args.home,
+        profile=args.profile)
     agent.join()
     print("agent {} joined fleet at {}:{} (device {})".format(
         agent.agent_id, ticket["host"], ticket["port"], args.device), flush=True)

@@ -13,11 +13,15 @@ warm cache (``train/warm.py``), whose slots key by program. With
 ``max_agents > 0`` agent processes (``fleet/agent.py``) join as runners in
 agent slots, each with its own CUDA context; the journal sink
 (``telemetry/sink.py``) is on whenever the fleet's telemetry is, and a
-tenant with ``config.sink`` ships its journal to it. Gang blocks wait for
-gangs (ROADMAP queue 1 item 8): ``request_gang`` raises, and the JAX scheduler's block
-state (reservations, parked blocks of a failed tenant and their expiry, the
-block checks in binding and preemption, ``FleetBinding.request_gang`` /
-``release_gang``, ``FleetLeasedPool.chip_of``) is left out with it.
+tenant with ``config.sink`` ships its journal to it. Gang blocks (JAX
+`scheduler.py:272-280, 449-456, 601-690`): ``request_gang`` reserves an
+aligned, sticky, disjoint block of fleet runners for a tenant's gangs (an
+oversized gang is refused); a runner inside a block binds only to its
+owner and is never carved out of it by a preemption; a failed tenant's
+block is parked for ``tenant_grace_s`` so its restarted driver reclaims
+it, and expires to fair share after; ``FleetBinding.request_gang`` /
+``release_gang`` and ``FleetLeasedPool.chip_of`` give the driver its
+block and each partition's fleet runner.
 
 The classic ``lagom()`` path owns its runner pool for the lifetime of one
 experiment and tears it down afterwards — a host serving many users sits
@@ -93,6 +97,16 @@ class FleetSaturated(RuntimeError):
     a ``shed`` event) instead of queued unboundedly. Callers back off
     and resubmit; the spool feeder simply leaves specs unclaimed until
     the queue drains."""
+
+
+def _base_name(name: str) -> str:
+    """A resubmitted tenant's scheduler name carries a ``-<seq>`` dedup
+    suffix (Fleet.submit); failover matching (parked gang blocks) keys on
+    the base name, so the restarted submission finds its block."""
+    stem, sep, tail = name.rpartition("-")
+    if sep and tail.isdigit():
+        return stem
+    return name
 
 
 def priority_rank(priority) -> int:
@@ -238,8 +252,14 @@ class FleetScheduler:
     def __init__(self, fleet_size: int, telemetry=None,
                  max_active: Optional[int] = None,
                  preempt_grace_s: float = 1.0,
-                 max_queued: Optional[int] = None):
+                 max_queued: Optional[int] = None,
+                 max_size: Optional[int] = None,
+                 tenant_grace_s: float = 10.0):
         self.fleet_size = int(fleet_size)
+        # The size the fleet can grow to as agents join (thread runners and
+        # agent slots): a gang that fits once the agents arrive must park,
+        # not fail.
+        self.max_size = int(max_size) if max_size is not None else self.fleet_size
         self.telemetry = telemetry
         self.max_active = max_active
         self.max_queued = max_queued
@@ -268,6 +288,17 @@ class FleetScheduler:
         # entries leave _entries so scheduling decisions stay O(live)
         # and a long-lived fleet host doesn't grow without bound.
         self._finished: List[Dict[str, Any]] = []  # guarded-by: _lock
+        # Gang blocks: experiment name -> the contiguous fleet runners
+        # reserved for its gang trials. A runner inside a block binds only
+        # to its owner (and is shielded from preemption), so the owner's
+        # driver can assemble an N-chip block without fair share starving
+        # the gang at N-1 members.
+        self._gang_blocks: Dict[str, List[int]] = {}  # guarded-by: _lock
+        # A failed tenant's block, parked for tenant_grace_s so a restarted
+        # driver (matched by base name) reclaims it: base name -> (block,
+        # monotonic expiry).
+        self.tenant_grace_s = float(tenant_grace_s)
+        self._parked_blocks: Dict[str, Tuple[List[int], float]] = {}  # guarded-by: _lock
         # Warm prewarming hints: agent slot -> the program-family key
         # (the submission's dotted train-fn path) it last served — the
         # binding pick prefers handing an agent a same-family experiment
@@ -429,6 +460,17 @@ class FleetScheduler:
                 self._active.pop(entry.name, None)
             self._targets_cache = None
             self._event("fleet_experiment", exp=entry.name, phase=state)
+            # A finished tenant's block must not hold runners forever; a
+            # failed one's is parked for its restart's grace.
+            block = self._gang_blocks.pop(entry.name, None)
+            if block is not None:
+                if state == "failed" and self.tenant_grace_s > 0:
+                    self._parked_blocks[_base_name(entry.name)] = (
+                        block, time.monotonic() + self.tenant_grace_s)
+                    self._event("pack", op="fleet_park", exp=entry.name, block=block,
+                                grace_s=self.tenant_grace_s)
+                else:
+                    self._event("pack", op="fleet_release", exp=entry.name)
             # Retire the entry: late release_binding calls still work on
             # the object itself; only the scheduling/status sets forget
             # it. Keep a bounded tail of final snapshots for status.json.
@@ -567,11 +609,68 @@ class FleetScheduler:
 
     def request_gang(self, entry: ExperimentEntry,
                      size: int) -> Optional[List[int]]:
-        """A contiguous block of fleet runners for ``entry``'s
-        gang-scheduled trials: gangs are not ported yet."""
-        raise NotImplementedError(
-            "fleet gang blocks need gangs, which are not ported yet (ROADMAP queue 1 "
-            "item 8)")
+        """Reserve a contiguous block of ``size`` fleet runners for
+        ``entry``'s gang trials: among windows disjoint from other tenants'
+        blocks (and parked ones), size-aligned first, the one with the
+        fewest runners bound elsewhere, lowest start. Sticky until
+        ``release_gang``; None while no window exists. A gang larger than
+        the fleet can grow to is refused."""
+        from maggy_tpu_torch.gang import aligned_windows
+
+        size = int(size)
+        if size > self.max_size:
+            raise ValueError("a gang of {} runners can never assemble on a {}-runner "
+                             "fleet".format(size, self.max_size))
+        with self._lock:
+            existing = self._gang_blocks.get(entry.name)
+            if existing is not None:
+                return list(existing)
+            self._expire_parked_locked()
+            parked = self._parked_blocks.pop(_base_name(entry.name), None)
+            if parked is not None:
+                block = parked[0]
+                self._gang_blocks[entry.name] = block
+                self._event("pack", op="fleet_reclaim", exp=entry.name, block=block)
+                self._wake.notify_all()
+                return list(block)
+            taken = {r for b in self._gang_blocks.values() for r in b}
+            taken |= {r for b, _exp in self._parked_blocks.values() for r in b}
+            bound_elsewhere = set()
+            for e in self._entries.values():
+                if e is not entry:
+                    bound_elsewhere |= set(e.open_leases.keys())
+            aligned = aligned_windows(self.fleet_size, size, taken)
+            if not aligned:
+                return None
+            block = min(aligned, key=lambda w: (sum(1 for r in w if r in bound_elsewhere), w[0]))
+            self._gang_blocks[entry.name] = block
+            self._event("pack", op="fleet_reserve", exp=entry.name, block=block)
+            self._wake.notify_all()
+            return list(block)
+
+    def release_gang(self, entry: ExperimentEntry) -> None:
+        with self._lock:
+            block = self._gang_blocks.pop(entry.name, None)
+            if block is not None:
+                self._event("pack", op="fleet_release", exp=entry.name, block=block)
+                self._wake.notify_all()
+
+    # locked-by: _lock
+    def _expire_parked_locked(self) -> None:
+        """Release parked blocks whose restart grace ran out."""
+        now = time.monotonic()
+        for base, (block, expiry) in list(self._parked_blocks.items()):
+            if now >= expiry:
+                del self._parked_blocks[base]
+                self._event("pack", op="fleet_release", exp=base, block=block, expired=True)
+                self._wake.notify_all()
+
+    # locked-by: _lock
+    def _gang_owner_locked(self, runner_idx: int) -> Optional[ExperimentEntry]:
+        for name, block in self._gang_blocks.items():
+            if runner_idx in block:
+                return self._entries.get(name)
+        return None
 
     # -------------------------------------------------------------- binding
 
@@ -596,6 +695,17 @@ class FleetScheduler:
     # locked-by: _lock
     def _pick_locked(self, runner_idx: int) -> Optional[ExperimentEntry]:
         is_agent = runner_idx in self._agent_slots
+        # A runner inside a gang block binds only to its owner, past the
+        # fair-share target (a gang needs its whole block at once); when
+        # the owner cannot take it now, it waits.
+        owner = self._gang_owner_locked(runner_idx)
+        if owner is not None:
+            if is_agent and owner.agent_info is None:
+                return None
+            if owner.wants_runners() and \
+                    owner.allocated() < owner.effective_max(self.fleet_size):
+                return owner
+            return None
         targets = self._targets_locked()
         now = time.monotonic()
         slot_family = self._slot_family.get(runner_idx) if is_agent \
@@ -711,6 +821,7 @@ class FleetScheduler:
         with self._lock:
             if self.stopped:
                 return 0
+            self._expire_parked_locked()
             targets = self._targets_locked()
             for e in self._active.values():
                 if not e.wants_runners():
@@ -731,7 +842,10 @@ class FleetScheduler:
                 victim = self._victim_locked(e, targets)
                 if victim is None:
                     continue
-                leases = list(victim.open_leases.items())
+                # Never carve a runner out of the victim's own gang block:
+                # that would revoke its whole N-chip lease.
+                protected = set(self._gang_blocks.get(victim.name) or ())
+                leases = [(r, v) for r, v in victim.open_leases.items() if r not in protected]
                 if not leases:
                     continue
                 runner, (pid, _t0) = max(leases, key=lambda kv: kv[1][1])
@@ -898,6 +1012,14 @@ class FleetBinding:
     def lease_pool(self, driver) -> "FleetLeasedPool":
         return FleetLeasedPool(self, driver)
 
+    def request_gang(self, size: int) -> Optional[List[int]]:
+        """Reserve a contiguous fleet-runner block for this experiment's
+        gang trials (``FleetScheduler.request_gang``)."""
+        return self.fleet.scheduler.request_gang(self.entry, size)
+
+    def release_gang(self) -> None:
+        self.fleet.scheduler.release_gang(self.entry)
+
 
 class FleetLeasedPool(RunnerPool):
     """The driver-facing pool adapter in fleet mode: ``run`` registers the
@@ -956,6 +1078,12 @@ class FleetLeasedPool(RunnerPool):
             return plane is not None and plane.kill_agent_by_runner(runner)
         return fleet.pool.kill_worker(runner)
 
+    def chip_of(self, partition_id: int) -> Optional[int]:
+        """The fleet runner this partition is leased to (runner = chip):
+        the gang placer's coordinate in fleet mode, so contiguous chips are
+        contiguous fleet runners. None while unbound."""
+        return self.binding.fleet.scheduler.runner_for(self.binding.entry, partition_id)
+
     def terminate(self) -> None:
         # The fleet owns its runners; a doomed experiment must not take
         # the shared substrate down with it.
@@ -1005,7 +1133,8 @@ class Fleet:
         self.scheduler = FleetScheduler(
             self.num_runners, telemetry=self.telemetry,
             max_active=max_active, max_queued=max_queued,
-            preempt_grace_s=preempt_grace_s)
+            preempt_grace_s=preempt_grace_s,
+            max_size=self.num_runners + int(max_agents))
         self.shared_server = SharedServer()
         # Agents (fleet/agent.py): max_agents > 0 opens the agent plane at
         # start(), a FleetAgentServer on the shared listener and the fleet

@@ -75,7 +75,8 @@ class TPE(BaseAsyncBO):
         sp = self.searchspace
         return [
             len(sp._hparams[name])
-            if t in (Searchspace.DISCRETE, Searchspace.CATEGORICAL) else 0
+            if t in (Searchspace.DISCRETE, Searchspace.CATEGORICAL,
+                     Searchspace.GANG) else 0
             for name, t in sp._hparam_types.items()
         ]
 

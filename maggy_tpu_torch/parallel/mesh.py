@@ -18,8 +18,8 @@ PyTorch runs SPMD as one process per rank, so the port maps it this way:
 Mesh axis conventions (as in the JAX package): "data" (data parallelism),
 "fsdp" (parameters sharded over a data-like axis), "model" (tensor
 parallelism), "seq" (sequence parallelism: ring or Ulysses attention),
-"pipe" and "expert". ``slice_mesh`` (a gang's mesh over a slice of the
-device inventory) waits for gangs (ROADMAP queue 1 item 8).
+"pipe" and "expert". ``slice_mesh`` is a gang's mesh: the gang's world
+is exactly its chips' ranks, in chip order (``gang.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +67,22 @@ def make_mesh(mesh_shape: Optional[Dict[str, int]] = None, device_type: str = "c
         return init_device_mesh(device_type, sizes, mesh_dim_names=names)
     return DeviceMesh(device_type, torch.zeros(sizes, dtype=torch.int64),
                       mesh_dim_names=names, _init_backend=False, _rank=0)
+
+
+def slice_mesh(chip_ids, mesh_shape: Dict[str, int], device_type: str = "cuda"):
+    """Named mesh over a gang's chips (JAX ``mesh.py:67-77``). JAX builds
+    it over devices [chip_ids] of one process's inventory; here the gang's
+    world holds one rank per chip in chip order, so the mesh spans the
+    world and its size must equal ``len(chip_ids)``."""
+    shape = dict(mesh_shape) if mesh_shape else {"data": len(chip_ids)}
+    if int(np.prod(list(shape.values()))) != len(chip_ids):
+        raise ValueError("gang mesh {} needs {} chips, the gang has {}".format(
+            shape, int(np.prod(list(shape.values()))), len(chip_ids)))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != len(chip_ids):
+        raise ValueError("gang of {} chips in a world of {} ranks: a gang's world is its "
+                         "chips".format(len(chip_ids), world))
+    return make_mesh(shape, device_type=device_type)
 
 
 def _has_groups(mesh) -> bool:

@@ -1,7 +1,6 @@
 """Typed hyperparameter search space with a unit-cube normalization codec.
 
-Copy of ``maggy_tpu/searchspace.py`` without the GANG type (multi-chip
-trial shapes need the gang scheduler, which the port does not have yet).
+Copy of ``maggy_tpu/searchspace.py``, with the GANG type.
 
 Parity: reference `maggy/searchspace.py` (types at :60-63, validation at
 :71-150, sampling at :180-208, container protocol at :210-264, transform codec
@@ -37,6 +36,12 @@ class Searchspace:
     - ``INTEGER``: integer range, ``(low, high)`` inclusive with ``low < high``
     - ``DISCRETE``: explicit list of numeric values
     - ``CATEGORICAL``: explicit list of string values
+    - ``GANG``: explicit list of multi-chip trial shapes
+      (``maggy_tpu_torch.gang.GangSpec`` instances or their dict form): the
+      sweep searches over chip count, mesh axes and sharding strategy, and
+      the driver gang-schedules each sampled shape. Index-encoded like
+      CATEGORICAL for BO surrogates; stored (and delivered to the train
+      function) as plain dicts, so trial params stay JSON-serializable.
 
     Construct with kwargs or :meth:`add`::
 
@@ -49,8 +54,9 @@ class Searchspace:
     INTEGER = "INTEGER"
     DISCRETE = "DISCRETE"
     CATEGORICAL = "CATEGORICAL"
+    GANG = "GANG"
 
-    _TYPES = (DOUBLE, DOUBLE_LOG, INTEGER, DISCRETE, CATEGORICAL)
+    _TYPES = (DOUBLE, DOUBLE_LOG, INTEGER, DISCRETE, CATEGORICAL, GANG)
     # Continuous kinds (shared by optimizers for guards/perturbations).
     CONTINUOUS_TYPES = (DOUBLE, DOUBLE_LOG, INTEGER)
 
@@ -113,6 +119,12 @@ class Searchspace:
                     raise ValueError(
                         "CATEGORICAL values of '{}' must be strings, got {!r}.".format(name, v)
                     )
+        elif hp_type == Searchspace.GANG:
+            from maggy_tpu_torch.gang import GangSpec
+
+            # Validated through GangSpec and stored in dict form: trial
+            # params stay JSON-serializable end to end.
+            region = [GangSpec.from_value(v).to_dict() for v in region]
         self._hparam_types[name] = hp_type
         self._hparams[name] = region
 

@@ -16,9 +16,9 @@ that serves them (``http.server.ThreadingHTTPServer``):
 - ``GET /status``: one JSON document per registered experiment — the
   TELEM snapshot (the same body the TELEM RPC verb ships) plus the
   driver's live control-plane state: trial store / requeue backlog, the
-  reservation table and, for a fleet tenant, the fleet scheduler's share
-  snapshot (``fleet``); a fleet host registers its own status too (the
-  JAX package's gang block waits for ROADMAP queue 1 item 8).
+  reservation table, the assembled gangs with the placer's blocks
+  (``gangs``, ``pack``) and, for a fleet tenant, the fleet scheduler's
+  share snapshot (``fleet``); a fleet host registers its own status too.
 - ``GET /healthz``: 200 when no registered experiment's HealthEngine has
   an active raised finding, 503 (with the flags as JSON) otherwise — the
   shape load balancers and k8s probes expect.

@@ -2,7 +2,7 @@
 
 A verbatim copy of ``maggy_tpu/telemetry/vocab.py``: both packages write
 the same strings, so either package's replay reads the other's journal.
-The port emits all of it but the gang vocabulary (ROADMAP queue 1 item 8).
+The port emits all of it, the gang vocabulary included.
 
 One home for the stringly-typed contract between EMITTERS (``Telemetry.
 trial_event`` / ``Telemetry.event`` call sites across the package) and

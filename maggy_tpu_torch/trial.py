@@ -64,9 +64,10 @@ class Trial:
         self.metric_dict: Dict[int, float] = {}  # guarded-by: lock
         self.start: Optional[float] = None  # guarded-by: lock
         self.duration: Optional[float] = None  # guarded-by: lock
-        # Run epoch: bumped on every reset_run_state (requeue) and stamped
-        # into each dispatch, so the driver can tell a dead run's in-flight
-        # FINAL from the live re-run's, even from the same partition.
+        # Run epoch: bumped on every reset_run_state (requeue or gang
+        # revocation) and stamped into each dispatch, so the driver can tell
+        # a dead run's in-flight FINAL from the live re-run's, even from the
+        # same partition (a revoked gang reassembling onto its old leader).
         self.run_epoch = 0  # guarded-by: lock
         self.info_dict: Dict[str, Any] = info_dict or {}
         self.lock = threading.RLock()

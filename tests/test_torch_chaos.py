@@ -268,10 +268,22 @@ def test_partitionless_phase_event_does_not_misfire():
 
 
 def test_gang_member_kill_is_refused():
+    """The fault fires: it kills the lowest non-leader member of the gang
+    the driver reports, cooperatively on a thread pool, and journals the
+    leader beside the victim, as the JAX engine does. (The name is kept
+    from when the port refused the fault, so the test's history stays
+    one.)"""
+    class _Driver:
+        def gang_members(self, trial):
+            return [0, 2, 3] if trial == "t1" else []
+
     engine = _engine(FaultSpec("kill_gang_member",
                                trigger={"on_phase": "gang_assembled"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        engine.on_trial_phase("t1", "gang_assembled", partition=0)
+    engine.driver = _Driver()
+    engine.on_trial_phase("t1", "gang_assembled", partition=0)
+    (fired,) = engine.injected
+    assert fired["partition"] == 2 and fired["leader"] == 0
+    assert fired["mechanism"] == "cooperative"
 
 
 def test_a_unit_that_drops_its_graphs_takes_a_fresh_pool():
@@ -685,12 +697,19 @@ def test_chaos_needs_telemetry(tmp_path):
         experiment.lagom(lambda x: x, config)
 
 
-@pytest.mark.parametrize("flag,item", [("--gang", "8")])
-def test_cli_refuses_unported_soaks(flag, item, capsys):
+@pytest.mark.parametrize("flag", [pytest.param("--gang", id="--gang-8")])
+def test_cli_refuses_unported_soaks(flag, capsys):
+    """The gang soak is ported: the flag expands its plan to the JAX CLI's
+    schedule (the soak itself runs in tests/test_torch_gang.py). The name
+    and the case id are kept from when the CLI refused it."""
+    from maggy_tpu.chaos.__main__ import main as jax_main
     from maggy_tpu_torch.chaos.__main__ import main
 
-    assert main([flag]) != 0
-    assert "ROADMAP queue 1 item {}".format(item) in capsys.readouterr().err
+    assert main([flag, "--show-schedule"]) == 0
+    port = json.loads(capsys.readouterr().out)
+    assert jax_main([flag, "--show-schedule"]) == 0
+    assert json.loads(capsys.readouterr().out) == port
+    assert port["schedule"][0]["kind"] == "kill_gang_member"
 
 
 @pytest.mark.parametrize("flag,module,fn", [

@@ -137,6 +137,20 @@ _SWEEP = textwrap.dedent("""
             json.dump({{"banned": banned_imports(), "pid": os.getpid()}}, f)
         return {{"metric": float(out.mean())}}
 
+    def train_gang(lr, warmup_frac, gang, reporter, ctx):
+        # A rank of a 2-chip "dp" gang of the tiny BERT: a process of its
+        # own, unpickled from __mp_main__ (the hook ran first); rank 0's
+        # return is the trial's.
+        t = Trainer(BertEncoder(cfg, device="cpu"), adamw(lr),
+                    lambda lo, b: cross_entropy_loss(lo, b["labels"]), device="cpu",
+                    env=ctx.gang.sharding_env(), strategy="dp").init(seed=0)
+        for i in range(2):
+            loss = t.step(t.place_batch({{"inputs": (tokens[:8], mask[:8]),
+                                          "labels": labels[:8]}}))
+            reporter.broadcast(-loss, step=i)
+        return {{"metric": -float(loss), "banned": banned_imports(), "pid": os.getpid(),
+                 "rank": ctx.gang.process_id, "world": ctx.gang.size}}
+
     def train_pbt(lr, warmup_frac, generation, member, budget, reporter, ctx):
         # A PBT segment: its parent's checkpoint (staged by the fork) read
         # back with torch.load, its own written with torch.save.
@@ -300,6 +314,13 @@ _SWEEP = textwrap.dedent("""
             backend="process", device="cpu", hb_interval=0.1))
         out["dist"] = {{"result": dist_result, "ranks": [json.load(open(os.path.join(
             os.environ["MAGGY_TEST_DIST_OUT"], str(r)))) for r in (0, 1)]}}
+        # A 2-chip gang of the tiny BERT: the ranks are processes of this
+        # script, on the CPU.
+        os.environ["MAGGY_TPU_TORCH_DEVICE"] = "cpu"
+        from maggy_tpu_torch import GangSpec
+        out["gang"] = sweep("blocked_gang", "randomsearch", 1, Searchspace(
+            lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]),
+            gang=("GANG", [GangSpec(2)])), train_gang)
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
         print(json.dumps(out))
@@ -342,6 +363,12 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert low == 1.0 and 1.0 < high < 2.0
     assert all(r["banned"] == [] for r in dist["ranks"])
     assert out["pid"] not in {r["pid"] for r in dist["ranks"]}
+    # The gang's rank 0 was a process of its own in a world of two, which
+    # saw none of the banned modules either.
+    (gang_out,) = out["gang"]["outputs"]
+    assert out["gang"]["result"]["num_trials"] == 1 and np.isfinite(gang_out["metric"])
+    assert gang_out["banned"] == [] and gang_out["pid"] != out["pid"]
+    assert (gang_out["rank"], gang_out["world"]) == (0, 2)
     # The process sweep: every trial ran in a runner process of its own
     # (not the driver's), which saw none of the banned modules either.
     result, outputs = out["process"]["result"], out["process"]["outputs"]
@@ -424,7 +451,7 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("parallel", "ring_attention.py"), ("parallel", "ulysses.py"),
         ("parallel", "collectives.py"), ("parallel", "gloo_cuda_probe.py"),
         ("core", "executors", "dist_executor.py"),
-        ("core", "driver", "distributed_driver.py"))} <= scanned
+        ("core", "driver", "distributed_driver.py"), ("gang.py",))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

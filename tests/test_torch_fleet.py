@@ -461,11 +461,14 @@ def test_fleet_shedding_raises_fleet_saturated(tmp_path):
 
 
 def test_the_sink_and_the_agent_plane_are_refused(tmp_path):
-    """Gang blocks stay refused (ROADMAP queue 1 item 8); the journal sink
-    and the agent plane run, with the JAX package's defaults: the sink on
-    whenever the fleet's telemetry is, no agent slots."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scheduler.FleetScheduler(2).request_gang(None, 2)
+    """A gang larger than the fleet is refused as in the JAX scheduler
+    (the blocks themselves run, tests/test_torch_gang_driver.py); the
+    journal sink and the agent plane run, with the JAX package's defaults:
+    the sink on whenever the fleet's telemetry is, no agent slots. (The
+    name is kept from when the port refused the sink and the agents.)"""
+    for sched in (scheduler.FleetScheduler(2), jax_scheduler.FleetScheduler(2)):
+        with pytest.raises(ValueError, match="never assemble"):
+            sched.request_gang(None, 4)
     assert OptimizationConfig(sink=True).sink and not OptimizationConfig().sink
     for telemetry, sink, on in ((True, None, True), (False, None, False),
                                 (True, False, False), (False, True, True)):

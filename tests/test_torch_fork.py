@@ -185,9 +185,19 @@ def test_trial_context_matches_jax(tmp_path, params, info):
 
 
 def test_trial_context_refuses_gangs(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_context.TrialContext("t", str(tmp_path / "t"), str(tmp_path), {},
-                                  {"gang": {"chips": 2}})
+    """Gangs are ported: a gang assignment's context carries the gang as
+    the JAX context does, and a 1-chip trial's has none. (The name is kept
+    from when the context refused gangs.)"""
+    from maggy_tpu.core.executors.context import TrialContext as JaxContext
+
+    info = {"gang": {"chips": [2, 3], "members": [2, 3], "leader": 2,
+                     "mesh": {"data": 2}, "strategy": "dp"}, "partition": 3}
+    port = port_context.TrialContext("t", str(tmp_path / "t"), str(tmp_path), {}, info)
+    jax = JaxContext("t", str(tmp_path / "t"), str(tmp_path), {}, info)
+    assert port.gang.to_dict() == jax.gang.to_dict()
+    assert port.gang.size == 2 and port.gang.partition == 3
+    assert port_context.TrialContext("t", str(tmp_path / "t"), str(tmp_path), {},
+                                     {}).gang is None
 
 
 # ------------------------------------------------------------ the driver

@@ -414,7 +414,8 @@ def test_driver_registers_and_deregisters(tmp_path, monkeypatch):
     assert result["num_trials"] == 3 and obs.active_server() is None
     (doc,) = seen["status"]["experiments"].values()
     assert doc["status"]["driver"] == "OptimizationDriver"
-    assert set(doc["status"]["store"]) == {"trials", "finalized", "requeue"}
+    assert set(doc["status"]["store"]) == {"trials", "finalized", "requeue", "parked",
+                                           "gang_wait"}
     assert "health" in doc["telem"]
     assert "maggy_tpu_trial_phase_total" in seen["metrics"]
     (journal,) = (tmp_path / "e").glob("*/telemetry.jsonl")

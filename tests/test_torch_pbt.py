@@ -132,8 +132,17 @@ def test_driver_sizes_the_schedule_and_clamps_the_pool(tmp_path):
 
 @pytest.mark.parametrize("field,value,item", [("chips_per_budget", {1: 2}, "8")])
 def test_unported_config_fields_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match="item {}".format(item)):
-        OptimizationConfig(**{field: value})
+    """The field of ROADMAP queue 1 item 8 is ported: the config takes it
+    as the JAX one does, and both read a bare int as a gang of that many
+    chips on the thread pool."""
+    import maggy_tpu.gang as jax_gang
+    import maggy_tpu_torch.gang as port_gang
+
+    assert item == "8"
+    port, jax = OptimizationConfig(**{field: value}), JaxConfig(**{field: value})
+    assert getattr(port, field) == getattr(jax, field) == value
+    assert port_gang.config_max_gang_chips(port) == jax_gang.config_max_gang_chips(jax) == 2
+    assert port_gang.config_declares_gangs(port) and jax_gang.config_declares_gangs(jax)
 
 
 def test_fork_is_on_by_default_as_in_jax():

@@ -124,8 +124,11 @@ def test_auto_workers_are_refused_for_remote_and_elastic_is_not_ported():
 
     with pytest.raises(ValueError, match="admission cap"):
         resolve_num_workers(OptimizationConfig(pool="remote", num_workers="auto"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        OptimizationConfig(pool="elastic")
+    # The elastic pool is ported; "auto" sizes it by the visible cards,
+    # and a host without one is refused.
+    assert OptimizationConfig(pool="elastic").pool == "elastic"
+    with pytest.raises(ValueError, match="no CUDA device"):
+        resolve_num_workers(OptimizationConfig(pool="elastic", num_workers="auto"))
 
 
 def _remote_sweep(pkg, base, agent_cmd, env_extra):

@@ -249,7 +249,7 @@ def test_gpu_pool_refuses_more_devices_than_visible(tmp_path):
 
 @pytest.mark.parametrize("pool, error, match", [
     ("thread", None, None), ("process", None, None), ("gpu", None, None),
-    ("tpu", ValueError, "pool='gpu'"), ("elastic", NotImplementedError, "not ported yet"),
+    ("tpu", ValueError, "pool='gpu'"), ("elastic", None, None),
     ("remote", None, None), ("spark", ValueError, "must be one of")])
 def test_config_validates_the_pool(pool, error, match):
     if error is None:

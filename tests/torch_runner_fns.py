@@ -321,3 +321,112 @@ def failing_rank1_train_fn(sharding_env, reporter=None):
     if dist.is_initialized():
         dist.all_reduce(torch.zeros(1))
     return {"metric": 0.0}
+
+
+# ------------------------------------------------------------------- gangs
+
+
+def gang_loss_rank(rank, world, spec, lrs):
+    """A rank of a gang world computing ``gang.reference_gang_loss`` for
+    each learning rate: the world of ``run_world`` is the gang's."""
+    import torch
+
+    from maggy_tpu_torch import gang
+    from maggy_tpu_torch.fleet.agent import DEVICE_ENV
+
+    os.environ[DEVICE_ENV] = "cpu"
+    gang._WORLD = {"rank": rank, "world": world, "device": torch.device("cpu"),
+                   "backend": "gloo"}
+    info = {"chips": list(range(world)), "members": list(range(world)), "leader": 0,
+            "mesh": spec["mesh"], "strategy": spec["strategy"]}
+    losses = [gang.reference_gang_loss(lr, info) for lr in lrs]
+    # Every rank is past its last collective before the world goes.
+    torch.distributed.barrier()
+    return losses
+
+
+#: The tiny BERT gang's sequence length.
+GANG_BERT_S = 64
+
+
+def gang_bert_batch(step, n=8):
+    """The global batch of step ``step`` of the tiny BERT gang: numpy, from
+    a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(100 + step)
+    tokens = rng.integers(2, 64, size=(n, GANG_BERT_S)).astype(np.int64)
+    lens = rng.integers(8, GANG_BERT_S + 1, size=n)
+    mask = np.arange(GANG_BERT_S)[None, :] < lens[:, None]
+    labels = rng.integers(0, 2, size=n).astype(np.int64)
+    return tokens, mask, labels
+
+
+def train_gang_bert(x, gang, reporter, ctx):
+    """A rank of a 2-chip "dp" gang training the tiny BERT of
+    ``MAGGY_TEST_GANG_BERT`` ({"state", "fields", "out", "lr"}) for 3 steps
+    on the mesh Trainer, from the saved weights; records its losses and
+    world."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.models import BertConfig, BertEncoder
+    from maggy_tpu_torch.train import Trainer, adamw, cross_entropy_loss
+
+    del x, gang
+    spec = json.loads(os.environ["MAGGY_TEST_GANG_BERT"])
+    lr = spec["lr"]
+    env = ctx.gang.sharding_env()
+    trainer = Trainer(BertEncoder(BertConfig(dtype=torch.float32, **spec["fields"]),
+                                  device="cpu"),
+                      adamw(lr), lambda logits, b: cross_entropy_loss(logits, b["labels"]),
+                      device="cpu", env=env, strategy="dp").init(
+        state_dict=torch.load(spec["state"]))
+    losses = []
+    for step in range(3):
+        tokens, mask, labels = gang_bert_batch(step)
+        loss = trainer.step(trainer.place_batch({"inputs": (tokens, mask), "labels": labels}))
+        losses.append(float(loss))
+        reporter.broadcast(loss, step=step)
+    with open(os.path.join(spec["out"], "rank{}.json".format(ctx.gang.process_id)), "w") as f:
+        json.dump({"losses": losses, "world": dist.get_world_size(),
+                   "backend": dist.get_backend(), "pid": os.getpid()}, f)
+    return {"metric": losses[-1]}
+
+
+def train_gang_failing(x, gang, ctx):
+    """Rank 1 of a gang raises; rank 0 waits to be killed."""
+    del x, gang
+    if ctx.gang.process_id == 1:
+        raise RuntimeError("rank 1 refuses")
+    time.sleep(60)
+    return {"metric": 0.0}
+
+
+def train_gang_printing(x, gang, ctx):
+    """Every rank of a gang prints its rank; the result is rank 0's."""
+    del gang
+    print("gang rank {} prints".format(ctx.gang.process_id))
+    return {"metric": float(x)}
+
+
+# ------------------------------------------------------------------ elastic
+
+
+def train_elastic(lr, units, budget=1, reporter=None):
+    """Marks (budget, the lease's chip count, pid) so a test can assert each
+    trial ran on the lease its budget calls for (``tests/test_experiment.py:
+    380-390``)."""
+    from maggy_tpu_torch.core.runner_pool import lease_chips
+
+    n = len(lease_chips())
+    marker = os.path.join(os.environ["MAGGY_TPU_ELASTIC_DIR"],
+                          "{}_{}_{}".format(int(budget), n, os.getpid()))
+    with open(marker, "a") as f:
+        f.write("x")
+    time.sleep(0.05)
+    if reporter is not None:
+        reporter.broadcast(1.0 - (lr - 0.1) ** 2, step=0)
+    return {"metric": 1.0 - (lr - 0.1) ** 2}
