@@ -50,10 +50,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              latencies by source, hand-off gaps by runner, invalidations,
              lock fallbacks, step times beside the ASHA sweep's, wall times
              and the best values.
-6. slice_llama — the Llama-3-8B LoRA sweep (32 x 4096, vocab 128256,
+6. slice_llama — the Llama-3-8B LoRA sweep (4096 wide, vocab 128256, cut
+             to LLAMA_LAYERS = 16 of its 32 layers,
              32/8 heads, remat) through experiment.lagom: ASHA over
              (lora_rank, lora_alpha, lr) on two thread runners, each trial
-             building the full model, only the adapters trained, batches of
+             building its model, only the adapters trained, batches of
              2 x 2048 tokens, the vocab-chunked loss. Launch counters are
              zeroed just before and read just after: the forward kernel
              runs twice per layer and step (remat), the backward kernels
@@ -119,7 +120,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              moment with a fork running, if one comes before 7 finalized);
              mnist_hyperband_resume is MnistCNN(3, 2, 16, 2) on
              make_data(2048) under RandomSearch(seed 7) + Hyperband(1, 9, 3)
-             over lr and batch, 20 steps a budget unit, two thread runners,
+             over lr and batch, 10 steps a budget unit, two thread runners,
              each trial marking a file named after its params and budget.
              Both must show incarnation 1 killed by the signal and 2 exiting
              0, driver epochs [1, 2] in the markers and the journal, one
@@ -171,7 +172,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              the captured step), ASHA(3, 1, 9) + median stopping (es_min 3),
              9 rung-0 trials on 3 thread runners, the example's
              ShardedBatchIterator (batch 128, seed 1) over make_cifar_like's
-             seeded 1024 x 32 x 32 x 3 set on the card, 8 steps a budget
+             seeded 1024 x 32 x 32 x 3 set on the card, 4 steps a budget
              unit, a heartbeat every 2. Every step after a unit's first at
              its shape must replay a graph. Then 5 steps replayed against the
              same 5 taken eagerly from the same start at lr 0: the running
@@ -410,6 +411,30 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              chips_per_budget {1: 1, 2: 2}: at least one respawn, every
              trial on the lease its budget maps to, never more than 2
              chips leased in the journal's lease events.
+25. slice_parallel — sharded parameters, expert and pipeline parallelism
+             (maggy_tpu_torch/parallel/sharded.py, pipeline.py) through
+             experiment.lagom(train_fn, DistributedConfig(...)), ranks
+             sharing the card over gloo. First the one-device runs, freed
+             before any rank starts. One world of two rank processes
+             (backend "process") runs, each on a mesh of its own over it:
+             llama3_8b_tp (slice_dist's 4-layer LoRA Llama-3-8B, remat,
+             "tp" on {"model": 2}: 16 query and 4 kv heads a rank, 1 x 2048,
+             4 steps), bert_base_fsdp (BERT-base, "fsdp" on {"fsdp": 2}, 32
+             x 128 a rank, 3 steps) and llama3_8b_moe_ep (slice_moe's MoE
+             Llama, "ep" on {"expert": 2}: 4 of 8 experts a rank, 1 x 2048,
+             3 steps). Then pipelined_lm: PipelinedLM at Llama-3-8B's widths
+             (2 stages x 2 layers, bf16 compute, 4 microbatches of 1 x 2048)
+             on {"pipe": 2} over two remote agents (backend "remote"):
+             pipeline_1f1b_grads and one GPipe step. Checked: equal finite
+             losses on every rank, within 1e-2 x |loss| + 1e-3 of one
+             device at the global batch; every parameter's shape what the
+             logical rules give; each rank's peak memory of the steps below
+             the one-device run's; flash launches exact (0 for the
+             pipeline); the pipeline's output against apply_sequential and
+             1F1B's stage gradients against GPipe's within the kernels'
+             bf16 tolerance; the journals; no rank alive after. Prints step
+             p50 a rank, traffic() by kind with its transport,
+             rendezvous_ms, peak memory a rank and shard shapes.
 
 The CPU tests hold the new models' warm path (tests/test_torch_resnet.py,
 tests/test_torch_moe.py): a ResNet warm hit re-initializes its buffers in
@@ -471,6 +496,7 @@ are the module-level ``train_*`` below.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import faulthandler
@@ -508,8 +534,10 @@ STEPS_PER_BUDGET = 4
 # The budgets of the BERT sweeps' ASHA(3, 1, 9) rungs.
 RUNG_BUDGETS = (1, 3, 9)
 REPORT_EVERY = 2
-# Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5).
-LLAMA_B, LLAMA_S = 2, 2048
+# Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5),
+# its sweep at full width cut to LLAMA_LAYERS of the 32 layers (the
+# script's time; launches and checks count the layers run).
+LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 16
 LLAMA_STEPS_PER_BUDGET = 2
 # slice_dist: Llama-3-8B at full width on a "seq" ring of DIST_RANKS rank
 # processes sharing the card over gloo, DIST_LAYERS layers (depth cut), batch
@@ -534,7 +562,11 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128),
                "bert_base_lanes": (4 * BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "dist": (1, DIST_S // DIST_RANKS, DIST_S // DIST_RANKS, DIST_H, DIST_HKV,
-                        DIST_D)}
+                        DIST_D),
+               # slice_parallel: tp's rank (16 of 32 query heads, 4 of 8 kv
+               # heads) and the MoE Llama's ep rank at batch 1.
+               "llama3_8b_tp": (1, LLAMA_S, LLAMA_S, 16, 4, 128),
+               "llama3_8b_b1": (1, LLAMA_S, LLAMA_S, 32, 8, 128)}
 #: Paths whose attention is causal and unpadded (the rest: key padding).
 CAUSAL_PATHS = ("llama3_8b", "dist")
 #: Paths that run the kernels at another path's shape: the process-runner,
@@ -545,8 +577,8 @@ SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
               "bert_base_resume": "bert_base", "bert_base_warm": "bert_base",
               "bert_base_loco": "bert_base", "bert_base_fleet": "bert_base",
               "bert_base_remote": "bert_base", "bert_base_agents": "bert_base",
-              "bert_base_gang": "bert_base",
-              "llama3_8b_moe": "llama3_8b",
+              "bert_base_gang": "bert_base", "bert_base_fsdp": "bert_base",
+              "llama3_8b_moe": "llama3_8b", "llama3_8b_moe_ep": "llama3_8b_b1",
               "llama3_8b_moe_lanes": "llama3_8b"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
@@ -574,7 +606,7 @@ RESUME_ROOT = os.path.join(ROOT, "build", "chip_smoke_experiments_resume")
 CHILD_SCRIPT = os.path.abspath(__file__)
 RESUME_LOSS_TIMEOUT_S = 3.0
 RESUME_HYPERBAND = {"min_budget": 1, "max_budget": 9, "eta": 3}
-MNIST_RESUME_STEPS_PER_BUDGET = 20
+MNIST_RESUME_STEPS_PER_BUDGET = 10
 RESUME_KILL_DEADLINE_S, RESUME_CHILD_TIMEOUT_S = 300, 420
 # slice_warm (bench.py's run_compile_ab): trials an arm, the MNIST arm's
 # batch and budget (20 steps at bench's 40 a unit), the BERT-base arm's
@@ -595,7 +627,7 @@ AB_LOSS_TOL = {"mnist": (1e-4, 1e-5), "bert_base": (1e-2, 1e-3)}
 # eval-logits tolerance against the CPU (TF32 off in every comparison:
 # fp32 sums in another order through 50 layers).
 RESNET_DEPTH, RESNET_WIDTHS, RESNET_BATCH, RESNET_N = 50, [32, 64], 128, 1024
-RESNET_STEPS_PER_BUDGET, RESNET_REPORT_EVERY = 8, 2
+RESNET_STEPS_PER_BUDGET, RESNET_REPORT_EVERY = 4, 2
 RESNET_BN_STEPS, RESNET_BN_RTOL, RESNET_LOGIT_RTOL = 5, 1e-5, 1e-3
 # slice_vit (examples/vit_cifar_hpo.py with ViTConfig.base(num_classes=2)):
 # batch 64 of a seeded 512-image set (the example steps its whole set at
@@ -873,6 +905,8 @@ def phase_kernels():
              ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
              ("llama3_8b", MAIN_SHAPES["llama3_8b"], True, False),
              ("dist", MAIN_SHAPES["dist"], True, False),
+             ("llama3_8b_tp", MAIN_SHAPES["llama3_8b_tp"], True, False),
+             ("llama3_8b_b1", MAIN_SHAPES["llama3_8b_b1"], True, False),
              # The ring's off-diagonal blocks: the rank's shard, not causal.
              ("dist_full", MAIN_SHAPES["dist"], False, False)]
     results, main = [], {path: {} for path in MAIN_SHAPES}
@@ -959,7 +993,10 @@ def phase_kernels():
                     "causal": True, "timed": timed["llama3_8b"], **yardsticks["llama3_8b"]},
          dist={"shape": [1, DIST_S // DIST_RANKS, DIST_H, DIST_HKV, DIST_D], "causal": True,
                "grad_fp32": True, "errors_over": ["dist", "dist_full"],
-               "timed": timed["dist"], **yardsticks["dist"]})
+               "timed": timed["dist"], **yardsticks["dist"]},
+         **{path: {"shape": [MAIN_SHAPES[path][i] for i in (0, 1, 3, 4, 5)], "causal": True,
+                   "timed": timed[path], **yardsticks[path]}
+            for path in ("llama3_8b_tp", "llama3_8b_b1")})
     return main
 
 
@@ -3430,7 +3467,7 @@ def phase_slice_llama(exp_dir):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    base = LlamaConfig.llama3_8b()
+    base = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=LLAMA_LAYERS)
     # Token batches over the whole vocabulary, made from a numpy seed.
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, base.vocab_size, size=(4, LLAMA_B, LLAMA_S)), device="cuda")
@@ -3444,7 +3481,7 @@ def phase_slice_llama(exp_dir):
 
     def make_trainer(lora_rank, lora_alpha, lr, warm_start=None):
         cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=int(lora_rank)),
-                                  lora_alpha=float(lora_alpha))
+                                  lora_alpha=float(lora_alpha), num_layers=LLAMA_LAYERS)
         return Trainer(Llama(cfg, device="meta"), only_lora(adamw(lr)), loss_fn,
                        device="cuda", train_kwargs={"return_hidden": True},
                        warm_start=warm_start).init(seed=0), None
@@ -4318,10 +4355,11 @@ def replacement_first_metric_s(report):
     return out
 
 
-def trace_kernels(path):
-    """CUDA kernel events in a torch.profiler Chrome trace."""
+def trace_categories(path):
+    """Events by category in a torch.profiler Chrome trace ("kernel": CUDA
+    kernels; "cuda_runtime": the host's CUDA calls that CUPTI saw)."""
     with open(path) as f:
-        return sum(1 for e in json.load(f).get("traceEvents", []) if e.get("cat") == "kernel")
+        return dict(collections.Counter(e.get("cat") for e in json.load(f).get("traceEvents", [])))
 
 
 def stall_reading(report, problems):
@@ -4345,10 +4383,13 @@ def stall_reading(report, problems):
         if files != ["threads.txt", "trace.json"]:
             problems.append("stall: the capture holds {}".format(files))
         else:
-            out.update(kernel_events=trace_kernels(trace), trace_bytes=os.path.getsize(trace),
+            cats = trace_categories(trace)
+            out.update(kernel_events=cats.get("kernel", 0), trace_categories=cats,
+                       trace_bytes=os.path.getsize(trace),
                        journaled_to_trace_written_s=os.path.getmtime(trace) - cap["t"])
             if not out["kernel_events"]:
-                problems.append("stall: the capture's trace holds no CUDA kernel event")
+                problems.append("stall: the capture's trace holds no CUDA kernel event "
+                                "(events by category {})".format(cats))
     codes = [(t, c) for t, c in report["obs"]["healthz"] if t >= stall["t"]]
     first_503 = next((t for t, c in codes if c == 503), None)
     after = [t for t, c in codes if c == 200 and first_503 is not None and t > first_503]
@@ -5454,7 +5495,7 @@ def phase_slice_agents(exp_root):
                            es_policy="none", experiment_dir=prof_dir, profile=True))
     traces = glob.glob(os.path.join(prof_dir, "*", "*", "profile", "trace.json"))
     profiled = {"trials": prof_result["num_trials"], "traces": len(traces),
-                "kernel_events": trace_kernels(traces[0]) if traces else 0,
+                "kernel_events": trace_categories(traces[0]).get("kernel", 0) if traces else 0,
                 "trace_bytes": os.path.getsize(traces[0]) if traces else 0,
                 "s": time.perf_counter() - t1}
     if len(traces) != 1 or profiled["kernel_events"] == 0:
@@ -6148,6 +6189,549 @@ def phase_slice_gang(exp_root):
     return {k: gang_launches[k] + remote_launches[k] for k in REPLACES}
 
 
+# ------------------------------------------------------------ slice_parallel
+# Sharded parameters, expert and pipeline parallelism (parallel/sharded.py,
+# parallel/pipeline.py) through lagom(train_fn, DistributedConfig(...)) on
+# PAR_RANKS rank processes sharing the card over gloo. The three process
+# runs share one world (its start-up paid once), each on a mesh of its own
+# over it; the pipeline runs over two remote agents. Each run against the
+# one-device run of the same model, seed and global batch (PAR_LOSS_TOL:
+# slice_gang's 1e-2 x |loss| + 1e-3). Depths: the 4-layer LoRA Llama-3-8B of
+# slice_dist (remat), slice_moe's 4-layer MoE Llama (8 experts, top 2,
+# capacity 2.0), BERT-base whole; PipelinedLM at Llama-3-8B's widths, 2
+# stages of 2 layers, 4 microbatches of 1 x 2048.
+PAR_RANKS = 2
+PAR_LLAMA_LAYERS, PAR_S = 4, 2048
+PAR_RUNS = {"llama3_8b_tp": {"mesh": {"model": PAR_RANKS}, "strategy": "tp", "steps": 4},
+            "bert_base_fsdp": {"mesh": {"fsdp": PAR_RANKS}, "strategy": "fsdp", "steps": 3},
+            "llama3_8b_moe_ep": {"mesh": {"expert": PAR_RANKS}, "strategy": "ep", "steps": 3}}
+PAR_PIPE = {"vocab": 128256, "hidden": 4096, "intermediate": 14336, "stages": PAR_RANKS,
+            "layers": 2, "microbatches": 4, "batch": 4}
+PAR_LOSS_TOL = (1e-2, 1e-3)
+# Each step's loss change from step 0, ranks against one device: a gradient
+# summed where a mean belongs, or a shard that never updates, moves it. The
+# largest gap read on the H100 was 8.3e-4 (llama3_8b_tp's step 3, against
+# moves of up to 0.094); PAR_LOSS_TOL alone is wider than all of training.
+PAR_DELTA_TOL = 1.5e-3
+PAR_RECORDS_ENV = "MAGGY_TPU_SMOKE_PAR_RECORDS"
+PAR_PIPE_TRAIN = "chip_smoke:train_pipelined_lm"
+PAR_TIMEOUT_S = 300
+PAR_LR = 1e-4
+
+
+def par_model(name):
+    """Run ``name``'s model on the meta device: BERT-base, the MoE Llama or
+    the LoRA Llama-3-8B at PAR_LLAMA_LAYERS layers."""
+    from maggy_tpu_torch.models import Llama, LlamaConfig
+
+    if name == "bert_base_fsdp":
+        return bert_base_model()
+    cfg = moe_config() if name == "llama3_8b_moe_ep" else dataclasses.replace(
+        LlamaConfig.llama3_8b(lora_rank=16), num_layers=PAR_LLAMA_LAYERS)
+    return Llama(cfg, device="meta")
+
+
+def par_trainer(name, env=None):
+    """``name``'s Trainer from seed 0: one device (``env`` None, eager) or a
+    rank of the mesh ``env``."""
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.train import Trainer, adamw, only_lora
+
+    kw = dict(device=str(env.device) if env is not None else DEVICE, env=env,
+              strategy=PAR_RUNS[name]["strategy"] if env is not None else "dp",
+              warm_start=False)
+    if name == "bert_base_fsdp":
+        return Trainer(par_model(name), adamw(PAR_LR), labels_loss, **kw).init(seed=0)
+    return Trainer(par_model(name), only_lora(adamw(PAR_LR)),
+                   lambda out, b: chunked_next_token_loss(out[0], out[1], b["tokens"]),
+                   train_kwargs={"return_hidden": True}, **kw).init(seed=0)
+
+
+def par_batch(name, i):
+    """Step ``i``'s global batch of run ``name``, numpy from a seed: 64 rows
+    of BERT-base (32 a rank under fsdp), or 1 x PAR_S Llama-3 tokens (the
+    same on every rank: tp and ep cut no batch)."""
+    if name == "bert_base_fsdp":
+        return gang_batch(i, PAR_RANKS * BERT_B)
+    t = np.random.default_rng(300 + i).integers(0, 128256, size=(1, PAR_S))
+    return {"inputs": (t,), "tokens": t}
+
+
+def par_launches(name, ranks=1):
+    """The flash launches of run ``name`` summed over ``ranks``: each layer
+    and step a forward (twice under the Llamas' remat), a dK/dV and a dQ."""
+    layers = 12 if name == "bert_base_fsdp" else PAR_LLAMA_LAYERS
+    n = layers * PAR_RUNS[name]["steps"] * ranks
+    return {"flash_fwd": n * (1 if name == "bert_base_fsdp" else 2), "flash_bwd_dkdv": n,
+            "flash_bwd_dq": n}
+
+
+def peak_over(base, device=None):
+    """GB allocated at the peak since the last reset, over ``base`` (the
+    bytes allocated before the run began): what the run itself held, not
+    what earlier phases of the process left."""
+    return (torch.cuda.max_memory_allocated(device) - base) / 1e9
+
+
+def par_steps(name, trainer, base):
+    """The run's steps on ``trainer``: losses, step times, and the peak
+    memory of the steps over ``base`` (the model and optimizer included)."""
+    torch.cuda.synchronize(trainer.device)
+    torch.cuda.reset_peak_memory_stats(trainer.device)
+    losses, step_ms = [], []
+    for i in range(PAR_RUNS[name]["steps"]):
+        batch = trainer.place_batch(par_batch(name, i))
+        t0 = time.perf_counter()
+        losses.append(float(trainer.step(batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, peak_over(base, trainer.device)
+
+
+def par_expected_shapes(name, env):
+    """{parameter: shape} the logical rules give this run's model on its
+    mesh (every parameter, whole where nothing cuts it)."""
+    from maggy_tpu_torch.parallel import sharding
+
+    model = par_model(name)
+    specs = sharding.logical_placements(model, env.mesh, PAR_RUNS[name]["strategy"])
+    out = {}
+    for n, p in model.named_parameters():
+        shape = list(p.shape)
+        for d, axis in enumerate(specs[n]):
+            if axis is not None:
+                shape[d] //= env.axis_size(axis)
+        out[n] = tuple(shape)
+    return out
+
+
+#: Parameters whose shard shapes slice_parallel prints.
+PAR_SHOWN = ("layers.0.attn.q_proj.weight", "layers.0.attn.o_proj.weight", "embedding",
+             "lm_head", "layers.0.moe_mlp.gate_proj", "layers.0.moe_mlp.router",
+             "tok_embedding", "layers.0.q_proj.weight", "layers.0.o_proj.weight",
+             "pooler.weight")
+
+
+def train_parallel(sharding_env, reporter=None):
+    """A rank of slice_parallel's process world: each run of PAR_RUNS on a
+    mesh of its own over the world (``parallel.make_mesh``), from seed 0,
+    its launches and exchanges counted from zero just before its steps and
+    read just after. Records per run: losses, step times, launches,
+    exchanges, peak memory of init and steps, shard shapes and whether
+    every parameter's shape is what the logical rules give."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.parallel import ShardingEnv, collectives, make_mesh
+
+    full_fp32()
+    world = sharding_env
+    metric = None
+    for k, (name, run) in enumerate(PAR_RUNS.items()):
+        t0 = time.perf_counter()
+        env = ShardingEnv(make_mesh(run["mesh"], device_type=world.device.type),
+                          world.process_index, world.process_count, world.device)
+        mesh_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(env.device)
+        torch.cuda.reset_peak_memory_stats(env.device)
+        trainer = par_trainer(name, env)
+        init_s = time.perf_counter() - t0 - mesh_s
+        init_peak = peak_over(base, env.device)
+        shapes = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
+        want = par_expected_shapes(name, env)
+        A.reset_launch_counts()
+        collectives.reset_traffic()
+        losses, step_ms, peak = par_steps(name, trainer, base)
+        record = {"pid": os.getpid(), "rank": env.process_index,
+                  "backend": str(dist.get_backend()), "world": dist.get_world_size(),
+                  "mesh": run["mesh"], "losses": losses, "step_ms": step_ms,
+                  "launches": A.launch_counts(), "traffic": collectives.traffic(),
+                  "peak_mem_gb": peak, "init_peak_mem_gb": init_peak, "init_s": init_s,
+                  "mesh_s": mesh_s, "shards": {n: shapes[n] for n in PAR_SHOWN if n in shapes},
+                  "shapes_ok": shapes == want,
+                  "shape_mismatch": {n: (shapes.get(n), want.get(n)) for n in
+                                     set(shapes) | set(want) if shapes.get(n) != want.get(n)},
+                  "cut": len(trainer.shard_shapes),
+                  "params": sum(p.numel() for p in trainer.model.parameters())}
+        dist_record(env, name, record)
+        metric = losses[-1]
+        if reporter is not None:
+            reporter.broadcast(metric, step=k)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"metric": metric}
+
+
+def pipe_model(stages, device):
+    from maggy_tpu_torch.parallel import PipelinedLM
+
+    c = PAR_PIPE
+    return PipelinedLM(c["vocab"], c["hidden"], c["intermediate"], c["stages"], c["layers"],
+                       dtype=torch.bfloat16, stages=stages, device=device)
+
+
+def pipe_tokens(device):
+    c = PAR_PIPE
+    return torch.as_tensor(np.random.default_rng(400).integers(
+        0, c["vocab"], size=(c["batch"], PAR_S)), device=device)
+
+
+def pipe_loss(hidden, head, tokens):
+    """The mean over the microbatches (a row each) of each one's chunked
+    next-token loss: what 1F1B's loss is, microbatch by microbatch."""
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+
+    M = PAR_PIPE["microbatches"]
+    rows = hidden.shape[0] // M
+    return torch.stack([chunked_next_token_loss(hidden[m * rows:(m + 1) * rows], head,
+                                                tokens[m * rows:(m + 1) * rows])
+                        for m in range(M)]).mean()
+
+
+def pipe_reference_path():
+    return os.path.join(ROOT, "build", "chip_smoke_pipe_reference.pt")
+
+
+def train_pipelined_lm(sharding_env, reporter=None):
+    """A rank (a remote agent) of slice_parallel's pipelined_lm run: this
+    rank's stage of PipelinedLM from seed 0 on the {"pipe": 2} mesh.
+    pipeline_1f1b_grads, then one GPipe step (pipeline_apply, autograd, SGD
+    on the stage; the embedding and head, which every rank holds whole as
+    in JAX, stay frozen); the pipeline's output against the one-device
+    apply_sequential (``pipe_reference_path``), 1F1B's loss and stage
+    gradients against GPipe's. The peak memory of each (over what the
+    process held before the stage was built) is read apart: 1F1B's
+    gradients wait in host memory during the GPipe step."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.parallel import collectives, pipeline
+
+    full_fp32()
+    env = sharding_env
+    stage = pipeline.stage_param_sharding(env)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(env.device)
+    t0 = time.perf_counter()
+    lm = pipe_model([stage], env.device)
+    lm.init_weights(torch.Generator(device=env.device).manual_seed(0))
+    lm.embed.requires_grad_(False)
+    lm.head.requires_grad_(False)
+    tokens = pipe_tokens(env.device)
+    ref = torch.load(pipe_reference_path(), map_location="cpu")
+    init_s = time.perf_counter() - t0
+    A.reset_launch_counts()
+    collectives.reset_traffic()
+    M = PAR_PIPE["microbatches"]
+    head = lm.head.detach().to(torch.bfloat16)
+    x = lm.embed.detach().to(torch.bfloat16)[tokens]
+    torch.cuda.synchronize(env.device)
+    torch.cuda.reset_peak_memory_stats(env.device)
+    t1 = time.perf_counter()
+    loss_1f1b, grads_1f1b = pipeline.pipeline_1f1b_grads(
+        lm.stage_fn, lambda act, tgt: chunked_next_token_loss(act, head, tgt),
+        {k: v.detach() for k, v in lm.stage_params(stage).items()}, x, tokens, env,
+        num_microbatches=M)
+    loss_1f1b = float(loss_1f1b)
+    ms_1f1b = (time.perf_counter() - t1) * 1e3
+    peak_1f1b = peak_over(base, env.device)
+    grads_1f1b = {k: g.cpu() for k, g in grads_1f1b.items()}
+    del head, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(env.device)
+    torch.cuda.reset_peak_memory_stats(env.device)
+    t2 = time.perf_counter()
+    hidden, head_p = lm.apply(tokens, env, num_microbatches=M, return_hidden=True)
+    loss = pipe_loss(hidden, head_p, tokens)
+    loss.backward()
+    with torch.no_grad():
+        for p in lm.parameters():
+            if p.grad is not None:
+                p.sub_(0.01 * p.grad)
+    loss = loss.item()
+    ms_gpipe = (time.perf_counter() - t2) * 1e3
+    peak = peak_over(base, env.device)
+    grads = {k: getattr(lm, k).grad[0].cpu() for k in pipeline.STAGE_LEAVES}
+    checks = {}
+    for key, got, want in [("out_vs_sequential", hidden.detach().cpu(), ref["hidden"])] + [
+            ("grad_" + k, grads_1f1b[k], grads[k]) for k in pipeline.STAGE_LEAVES]:
+        checks[key] = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+                       "tol": tolerance(torch.bfloat16, want),
+                       "finite": bool(torch.isfinite(got).all())}
+    record = {"pid": os.getpid(), "rank": env.process_index, "stage": stage,
+              "backend": str(dist.get_backend()), "world": dist.get_world_size(),
+              "loss_gpipe": loss, "loss_1f1b": loss_1f1b, "loss_reference": ref["loss"],
+              "checks": checks, "ms_1f1b": ms_1f1b, "ms_gpipe_step": ms_gpipe,
+              "launches": A.launch_counts(), "traffic": collectives.traffic(),
+              "peak_mem_gb": peak, "peak_mem_1f1b_gb": peak_1f1b, "init_s": init_s,
+              "stage_shape": list(lm.w_gate.shape),
+              "params": sum(p.numel() for p in lm.parameters())}
+    dist_record(env, "pipelined_lm", record)
+    return {"metric": loss}
+
+
+def par_reference():
+    """The one-device runs, one after another and each freed: every
+    PAR_RUNS model at its global batch (losses, peak memory of the steps and
+    of init), and PipelinedLM's apply_sequential with its loss and
+    backward, the embedding and head frozen as on the ranks (the output
+    saved for the ranks)."""
+    refs = {}
+    for name in PAR_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = par_trainer(name)
+        init_peak = peak_over(base)
+        losses, step_ms, peak = par_steps(name, trainer, base)
+        refs[name] = {"losses": losses, "step_ms": step_ms, "peak_mem_gb": peak,
+                      "init_peak_mem_gb": init_peak, "wall_s": time.perf_counter() - t0}
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lm = pipe_model(None, DEVICE)
+    lm.init_weights(torch.Generator(device=DEVICE).manual_seed(0))
+    lm.embed.requires_grad_(False)
+    lm.head.requires_grad_(False)
+    tokens = pipe_tokens(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hidden, head = lm.apply_sequential(tokens, return_hidden=True)
+    loss = pipe_loss(hidden, head, tokens)
+    loss.backward()
+    os.makedirs(os.path.dirname(pipe_reference_path()), exist_ok=True)
+    torch.save({"hidden": hidden.detach().cpu(), "loss": loss.item()}, pipe_reference_path())
+    refs["pipelined_lm"] = {"loss": loss.item(), "wall_s": time.perf_counter() - t0,
+                            "peak_mem_gb": peak_over(base)}
+    del lm, hidden, head, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def remote_dist_run(name, exp_dir, train, env_extra, **config_kw):
+    """``lagom(train, DistributedConfig(backend="remote"))`` with its ranks
+    as two ``python -m maggy_tpu_torch.runner`` agent processes started
+    here; returns (result, wall, agent pids and exit codes). Every agent is
+    killed in a ``finally``."""
+    from maggy_tpu_torch import DistributedConfig, experiment
+
+    out, agents = {}, []
+    run_root = fresh_dir(os.path.join(exp_dir, "exp"))
+
+    def drive():
+        try:
+            out["result"] = experiment.lagom(train, DistributedConfig(
+                name=name, backend="remote", bind_host="127.0.0.1", hb_interval=0.5,
+                hb_loss_timeout=DIST_TIMEOUT_S, experiment_dir=run_root, device=DEVICE,
+                **config_kw))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            out["error"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=drive, daemon=True, name="slice-parallel-driver")
+    try:
+        thread.start()
+        tickets, deadline = [], time.monotonic() + 60
+        while not tickets and time.monotonic() < deadline and "error" not in out:
+            tickets = glob.glob(os.path.join(run_root, "*", "runner_ticket.json"))
+            time.sleep(0.05)
+        if not tickets:
+            raise AssertionError("{}: no join ticket: {!r}".format(name, out.get("error")))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]),
+            **env_extra)
+        for i in range(config_kw["num_workers"]):
+            log = open(os.path.join(exp_dir, "agent_{}.log".format(i)), "w")
+            agents.append((subprocess.Popen(
+                [sys.executable, "-m", "maggy_tpu_torch.runner", "--ticket", tickets[0],
+                 "--train", PAR_PIPE_TRAIN], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log))
+        for proc, _ in agents:
+            proc.wait(timeout=PAR_TIMEOUT_S)
+        thread.join(60)
+    finally:
+        for proc, log in agents:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    rcs = [proc.returncode for proc, _ in agents]
+    if "error" in out or rcs != [0] * len(agents):
+        raise AssertionError("{}: {!r}, agents {}: {}".format(
+            name, out.get("error"), rcs, [log_tail(os.path.join(exp_dir, "agent_{}.log".format(
+                i)), 40) for i in range(len(agents))]))
+    return out["result"], time.perf_counter() - t0, [p.pid for p, _ in agents], rcs, run_root
+
+
+def phase_slice_parallel(exp_root, smi):
+    """Phase 25: sharded parameters, expert and pipeline parallelism through
+    lagom(train_fn, DistributedConfig(...)) on ranks sharing the card over
+    gloo. llama3_8b_tp (the LoRA Llama-3-8B, tp: 16 query and 4 kv heads a
+    rank), bert_base_fsdp (BERT-base, fsdp) and llama3_8b_moe_ep (the MoE
+    Llama, 4 experts a rank) on one world of PAR_RANKS rank processes, each
+    on its own mesh; pipelined_lm (PipelinedLM, GPipe and 1F1B) over two
+    remote agents. The one-device runs go first and are freed. Checked per
+    run: equal finite losses on every rank within PAR_LOSS_TOL of one device
+    at the global batch and each step's loss change within PAR_DELTA_TOL of
+    one device's, every parameter's shape what the logical rules give,
+    each rank's peak memory of the steps (GPipe's and 1F1B's for the
+    pipeline; each over what its process held before) below the one-device
+    run's, flash
+    launches exact (0 for the pipeline), the pipeline's output against
+    apply_sequential and 1F1B's loss and gradients against GPipe's, the
+    journal, no rank alive after. Returns the three process runs' launches
+    summed over their ranks."""
+    import multiprocessing
+
+    from maggy_tpu_torch import DistributedConfig, experiment
+    from maggy_tpu_torch.gang import pid_alive
+    from maggy_tpu_torch.train import clear_warm
+
+    t_phase = time.perf_counter()
+    clear_warm()
+    exp_root = fresh_dir(exp_root)
+    records = fresh_dir(os.path.join(exp_root, "records"))
+    t0 = time.perf_counter()
+    refs = par_reference()
+    ref_s = time.perf_counter() - t0
+    problems, runs = [], {}
+    os.environ[DIST_RECORDS_ENV] = records
+    try:
+        exp_dir = fresh_dir(os.path.join(exp_root, "process_world"))
+        first = next(iter(PAR_RUNS.values()))
+        t0 = time.perf_counter()
+        try:
+            result = experiment.lagom(train_parallel, DistributedConfig(
+                name="slice_parallel", backend="process", num_workers=PAR_RANKS,
+                mesh_shape=first["mesh"], strategy=first["strategy"], hb_interval=0.5,
+                hb_loss_timeout=DIST_TIMEOUT_S, experiment_dir=exp_dir, device=DEVICE))
+        except RuntimeError:
+            lines = [line for path in sorted(glob.glob(os.path.join(
+                exp_dir, "*", "worker_*.log"))) for line in open(path, errors="replace")]
+            emit("slice_parallel", failed="process_world", worker_logs="".join(lines[-120:]))
+            raise
+        world = {"result": result, "wall_s": time.perf_counter() - t0,
+                 "journal": dist_journal_check("slice_parallel", exp_dir, PAR_RANKS)}
+        problems += world["journal"].pop("problems")
+        for name in PAR_RUNS:
+            runs[name] = [json.load(open(os.path.join(records, "{}.rank{}.json".format(
+                name, r)))) for r in range(PAR_RANKS)]
+        pipe_dir = fresh_dir(os.path.join(exp_root, "pipelined_lm"))
+        p_result, p_wall, agent_pids, agent_rcs, p_root = remote_dist_run(
+            "pipelined_lm", pipe_dir, train_pipelined_lm, {DIST_RECORDS_ENV: records},
+            num_workers=PAR_RANKS, mesh_shape={"pipe": PAR_RANKS}, strategy="dp")
+        pipe_journal = dist_journal_check("pipelined_lm", p_root, PAR_RANKS)
+        problems += pipe_journal.pop("problems")
+        pipe = [json.load(open(os.path.join(records, "pipelined_lm.rank{}.json".format(r))))
+                for r in range(PAR_RANKS)]
+    finally:
+        os.environ.pop(DIST_RECORDS_ENV, None)
+        for p in multiprocessing.active_children():
+            if p.name.startswith("runner-"):
+                p.kill()
+                p.join(10)
+
+    rel, absolute = PAR_LOSS_TOL
+    fields, launches = {}, {}
+    for name, ranks in runs.items():
+        ref = refs[name]
+        losses = [r["losses"] for r in ranks]
+        excess = max(abs(a - b) - (rel * abs(b) + absolute)
+                     for a, b in zip(losses[0], ref["losses"]))
+        delta_gap = max(abs((a - losses[0][0]) - (b - ref["losses"][0]))
+                        for a, b in zip(losses[0], ref["losses"]))
+        if not (all(lo == losses[0] for lo in losses) and len(losses[0]) ==
+                PAR_RUNS[name]["steps"] and all(math.isfinite(x) for x in losses[0])
+                and excess <= 0 and delta_gap <= PAR_DELTA_TOL):
+            problems.append("{}: rank losses {} against one device {} (step changes "
+                            "differ by {} > {}?)".format(name, losses, ref["losses"],
+                                                         delta_gap, PAR_DELTA_TOL))
+        if not all(r["shapes_ok"] for r in ranks) or not all(r["cut"] for r in ranks):
+            problems.append("{}: shapes off the logical rules: {}".format(
+                name, [r["shape_mismatch"] for r in ranks]))
+        if any(r["peak_mem_gb"] >= ref["peak_mem_gb"] for r in ranks):
+            problems.append("{}: rank peak memory {} not below one device's {}".format(
+                name, [r["peak_mem_gb"] for r in ranks], ref["peak_mem_gb"]))
+        launches[name] = {k: sum(r["launches"][k] for r in ranks) for k in REPLACES}
+        expected = par_launches(name, PAR_RANKS)
+        if launches[name] != expected:
+            problems.append("{}: launches {} != {}".format(name, launches[name], expected))
+        if {r["backend"] for r in ranks} != {"gloo"} or len({r["pid"] for r in ranks}) != \
+                PAR_RANKS or any(pid_alive(r["pid"]) for r in ranks):
+            problems.append("{}: ranks {}".format(name, [(r["pid"], r["backend"], pid_alive(
+                r["pid"])) for r in ranks]))
+        fields[name] = {
+            "mesh": PAR_RUNS[name]["mesh"], "strategy": PAR_RUNS[name]["strategy"],
+            "losses": losses[0], "one_device_losses": ref["losses"], "excess_over_tol": excess,
+            "step_change_gap": delta_gap, "step_change_tol": PAR_DELTA_TOL,
+            "step_ms_p50": [float(np.median(r["step_ms"][1:])) for r in ranks],
+            "one_device_step_ms_p50": float(np.median(ref["step_ms"][1:])),
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+            "one_device_peak_mem_gb": ref["peak_mem_gb"],
+            "init_peak_mem_gb": [r["init_peak_mem_gb"] for r in ranks],
+            "one_device_init_peak_mem_gb": ref["init_peak_mem_gb"],
+            "shards": ranks[0]["shards"], "params_cut": ranks[0]["cut"],
+            "params_a_rank": ranks[0]["params"], "launches": launches[name],
+            "expected_launches": expected,
+            "traffic": [r["traffic"] for r in ranks], "init_s": [r["init_s"] for r in ranks]}
+    # The pipeline: its checks, launches 0, the same losses on both ranks.
+    p_launches = {k: sum(r["launches"][k] for r in pipe) for k in REPLACES}
+    ref = refs["pipelined_lm"]
+    p_excess = max(abs(r[k] - ref["loss"]) - (rel * abs(ref["loss"]) + absolute)
+                   for r in pipe for k in ("loss_gpipe", "loss_1f1b"))
+    bad = {r["rank"]: {k: c for k, c in r["checks"].items()
+                       if not (c["finite"] and c["max_abs_err"] <= c["tol"])} for r in pipe}
+    if any(bad.values()) or p_excess > 0 or any(p_launches.values()) or \
+            len({r["loss_gpipe"] for r in pipe}) != 1 or \
+            len({r["loss_1f1b"] for r in pipe}) != 1 or \
+            sorted(r["pid"] for r in pipe) != sorted(agent_pids) or \
+            any(pid_alive(p) for p in agent_pids) or p_result["num_workers"] != PAR_RANKS:
+        problems.append("pipelined_lm: checks {}, losses {} against {}, launches {}, "
+                        "pids {} agents {}".format(bad, [(r["loss_gpipe"], r["loss_1f1b"])
+                                                         for r in pipe], ref["loss"],
+                                                   p_launches, [r["pid"] for r in pipe],
+                                                   agent_pids))
+    if any(max(r["peak_mem_gb"], r["peak_mem_1f1b_gb"]) >= ref["peak_mem_gb"] for r in pipe):
+        problems.append("pipelined_lm: rank peak memory (GPipe, 1F1B) {} not below one "
+                        "device's {}".format([(r["peak_mem_gb"], r["peak_mem_1f1b_gb"])
+                                              for r in pipe], ref["peak_mem_gb"]))
+    fields["pipelined_lm"] = {
+        "mesh": {"pipe": PAR_RANKS}, "backend": "remote", "widths": PAR_PIPE,
+        "loss_gpipe": pipe[0]["loss_gpipe"], "loss_1f1b": pipe[0]["loss_1f1b"],
+        "one_device_loss": ref["loss"], "excess_over_tol": p_excess,
+        "checks": [r["checks"] for r in pipe], "ms_1f1b": [r["ms_1f1b"] for r in pipe],
+        "ms_gpipe_step": [r["ms_gpipe_step"] for r in pipe],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in pipe],
+        "peak_mem_1f1b_gb": [r["peak_mem_1f1b_gb"] for r in pipe],
+        "one_device_peak_mem_gb": ref["peak_mem_gb"], "launches": p_launches,
+        "stage_shape": pipe[0]["stage_shape"], "params_a_rank": pipe[0]["params"],
+        "traffic": [r["traffic"] for r in pipe], "wall_s": p_wall,
+        "agent_exit_codes": agent_rcs, "rendezvous_ms": pipe_journal["rendezvous_ms"],
+        "journal": pipe_journal}
+    fields.update(nvidia_smi=smi, world_wall_s=world["wall_s"],
+                  rendezvous_ms=world["journal"]["rendezvous_ms"], journal=world["journal"],
+                  one_device_s=ref_s, one_device=refs,
+                  note="two rank processes time-slice one card: correctness, not scaling",
+                  phase_s=time.perf_counter() - t_phase)
+    if problems:
+        emit("slice_parallel", problems=problems, **fields)
+        raise AssertionError("slice_parallel: {}".format("; ".join(problems)))
+    emit("slice_parallel", **fields)
+    for name in PAR_RUNS:
+        CAPTURED[name] = False
+    return launches
+
+
 def bert_base_model():
     """BERT-base at full width (12 x 768, 12 heads, vocab 30522), built on
     the meta device, without dropout: a gang's ranks and the one-rank run
@@ -6219,6 +6803,9 @@ def main():
     clear_warm()
     launches["bert_base_gang"] = phase_slice_gang(
         os.path.join(ROOT, "build", "chip_smoke_experiments_gang"))
+    clear_warm()
+    launches.update(phase_slice_parallel(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_parallel"), smi))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}

@@ -283,9 +283,9 @@ class AblationConfig(OptimizationConfig):
     es_policy: str = "none"
 
 
-#: DistributedConfig backends the port runs ("remote" is SPMD agents,
-#: ROADMAP queue 1 item 8).
-DIST_BACKENDS = (None, "process", "thread")
+#: DistributedConfig backends: local rank processes, threads, or remote
+#: agents (``python -m maggy_tpu_torch.runner``).
+DIST_BACKENDS = (None, "process", "thread", "remote")
 
 
 @dataclass
@@ -304,10 +304,16 @@ class DistributedConfig(LagomConfig):
     this process: the barrier, the rendezvous and the FINAL averaging run,
     and each thread gets a world-1 ``ShardingEnv`` (a process holds one
     default group; the JAX package's thread mode skips
-    ``jax.distributed`` too). "remote" and ``bind_host`` are not ported
-    yet (ROADMAP queue 1 item 8). ``device`` is where ranks run, "cuda" (a rank without a card
-    raises) or "cpu" (the port's own field: JAX picks its default
-    backend)."""
+    ``jax.distributed`` too). "remote" spawns nothing: each rank is an
+    agent started apart (``python -m maggy_tpu_torch.runner --ticket
+    <exp_dir>/runner_ticket.json --train mod:fn``) that JOINs the driver,
+    gets its partition (its rank), the world size, mesh, strategy and device
+    from the JOIN reply, and joins the world at the rendezvous store worker
+    0 hosts (``maggy_tpu/config.py:340-353``). The driver binds its control
+    plane to ``bind_host``, 0.0.0.0 by default under "remote", and its
+    ticket advertises a reachable address. ``device`` is where ranks run,
+    "cuda" (a rank without a card raises) or "cpu" (the port's own field:
+    JAX picks its default backend)."""
 
     #: Model (or model spec) forwarded to the train function.
     model: Any = None
@@ -320,8 +326,8 @@ class DistributedConfig(LagomConfig):
     #: Parallelism strategy name: "dp", "fsdp", "tp", "dp_tp", "sp", ...
     strategy: str = "dp"
     backend: Optional[str] = None
-    #: Control-plane bind host (for remote agents): not ported yet, the
-    #: driver binds loopback; setting it raises (ROADMAP queue 1 item 8).
+    #: Control-plane bind host; defaults to 0.0.0.0 when backend="remote"
+    #: (loopback otherwise).
     bind_host: Optional[str] = None
     #: A worker silent this many seconds fails the experiment (a dead rank
     #: wedges the world's collectives); also the process group's timeout.
@@ -333,12 +339,8 @@ class DistributedConfig(LagomConfig):
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.backend == "remote":
-            raise NotImplementedError("DistributedConfig(backend='remote') is not ported yet "
-                                      "(ROADMAP queue 1 item 8)")
-        if self.bind_host is not None:
-            raise NotImplementedError("DistributedConfig(bind_host={!r}) is not ported yet "
-                                      "(ROADMAP queue 1 item 8)".format(self.bind_host))
+        if self.bind_host is None and self.backend == "remote":
+            self.bind_host = "0.0.0.0"
         if self.backend not in DIST_BACKENDS:
             raise ValueError("backend must be one of {}, got {!r}".format(
                 DIST_BACKENDS, self.backend))

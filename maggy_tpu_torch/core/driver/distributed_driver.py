@@ -53,6 +53,19 @@ class DistributedDriver(Driver):
         return DistributedServer(self.num_workers, secret=self.secret)
 
     def _make_runner_pool(self):
+        if self.config.backend == "remote":
+            from maggy_tpu_torch.core.runner_pool import RemoteRunnerPool
+
+            # Each rank is an agent started apart: JOIN admits it and hands
+            # it what its DistExecutor needs (JAX `distributed_driver.py:41-58`).
+            cfg = self.config
+            self.server.join_info = {
+                "hb_interval": self.hb_interval, "exp_dir": self.exp_dir,
+                "optimization_key": "metric", "trial_type": "distributed",
+                "num_workers": self.num_workers, "mesh_shape": dict(cfg.mesh_shape or {}),
+                "strategy": cfg.strategy, "device": cfg.device,
+                "hb_loss_timeout": cfg.resolved_hb_loss_timeout(), "profile": cfg.profile}
+            return RemoteRunnerPool(self)
         # One rank a process; a single worker (or thread mode) runs in
         # threads of this process.
         if self.num_workers == 1 or self.config.backend == "thread":

@@ -296,7 +296,8 @@ class Driver:
                 # routed by the secret that authenticates each frame.
                 self.server_addr = binding.attach_server(self.server)
             else:
-                self.server_addr = self.env.connect_host(self.server, port=prev_port)
+                self.server_addr = self.env.connect_host(
+                    self.server, host=getattr(self.config, "bind_host", None), port=prev_port)
         except OSError as e:
             if prev_port == 0:
                 raise

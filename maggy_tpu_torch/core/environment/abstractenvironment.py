@@ -4,8 +4,11 @@ The local-filesystem environment of ``maggy_tpu/core/environment/
 abstractenvironment.py``, with the resume-time sweep of orphaned atomic-dump
 files and the chaos write hook: ``dump`` and ``exclusive_create`` ask an
 armed engine's ``on_env_write`` first (``env_write_fail``; the telemetry
-journal's own path is exempt there). The abstract interface and the GCS
-backend are not ported yet. Parity: reference
+journal's own path is exempt there). ``connect_host`` binds the host a
+config names (``DistributedConfig.bind_host``: 0.0.0.0 for remote agents).
+The abstract interface and the GCS backend (a store shared by the hosts of
+a pod) are not ported: each process of a multi-host world writes its own
+files where its environment says. Parity: reference
 `maggy/core/environment/abstractenvironment.py:20-169`.
 """
 

@@ -9,7 +9,8 @@ FINAL metric carrying the worker-measured ``rendezvous_ms``.
 JAX's ``jax.distributed.initialize`` becomes ``torch.distributed.
 init_process_group``: worker 0 hosts the rendezvous store (a ``TCPStore``
 bound to a free port before its REG, so the endpoint it advertises is
-already listening), the others join it. Each rank runs on one device:
+already listening; a remote agent advertises the address it reaches the
+driver from), the others join it. Each rank runs on one device:
 ``cuda:(rank % device count)``, with NCCL when every rank has a card of its
 own and gloo when ranks share one (NCCL refuses two ranks on one device) or
 run on the CPU (``config.device="cpu"``). The group's timeout is the
@@ -78,7 +79,7 @@ class DistExecutor:
 
     def __init__(self, server_addr: Tuple[str, int], secret: str, hb_interval: float,
                  exp_dir: str, train_fn: Callable, config, num_workers: int,
-                 shared_process: bool):
+                 shared_process: bool, coord_host: str = COORD_HOST):
         self.server_addr = server_addr
         self.secret = secret
         self.hb_interval = hb_interval
@@ -89,6 +90,8 @@ class DistExecutor:
         #: Workers are threads of one process (backend="thread", more than
         #: one): no process group, world-1 meshes.
         self.shared_process = shared_process
+        #: Where worker 0's rendezvous store is advertised.
+        self.coord_host = coord_host
 
     def __call__(self, partition_id: int) -> None:
         reporter = Reporter(log_file="{}/worker_{}.log".format(self.exp_dir, partition_id))
@@ -105,9 +108,9 @@ class DistExecutor:
             timeout = timedelta(seconds=self.config.resolved_hb_loss_timeout())
             store, host_port = None, None
             if partition_id == 0 and not self.shared_process:
-                store = dist.TCPStore(COORD_HOST, 0, self.num_workers, is_master=True,
+                store = dist.TCPStore(self.coord_host, 0, self.num_workers, is_master=True,
                                       timeout=timeout, wait_for_workers=False)
-                host_port = "{}:{}".format(COORD_HOST, store.port)
+                host_port = "{}:{}".format(self.coord_host, store.port)
             client.register(host_port=host_port)
             client.start_heartbeat(reporter)
             t_barrier = time.monotonic()

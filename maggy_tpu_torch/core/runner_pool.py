@@ -446,6 +446,10 @@ class RemoteRunnerPool(RunnerPool):
     def ticket(self) -> dict:
         drv = self.driver
         host, port = drv.server_addr
+        if host in ("0.0.0.0", "", "::"):
+            from maggy_tpu_torch.util import host_address
+
+            host = host_address()
         return {"host": host, "port": port, "secret": drv.secret_for_clients(),
                 "app_id": drv.app_id, "run_id": drv.run_id, "num_workers": self.num_workers}
 

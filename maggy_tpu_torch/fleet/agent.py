@@ -237,7 +237,9 @@ class AgentPlane:
             self.server, host=self.fleet.bind_host)
         advertise = host
         if advertise in ("0.0.0.0", "", "::"):
-            advertise = _host_address()
+            from maggy_tpu_torch.util import host_address
+
+            advertise = host_address()
         sink_server = getattr(self.fleet, "sink_server", None)
         self.ticket = write_fleet_ticket(
             self.fleet.env,
@@ -256,21 +258,28 @@ class AgentPlane:
             threads = list(self._threads)
             leaving = [rec for rec in self._agents.values()
                        if rec.state in ("idle", "leased")]
+            # Keep answering for a couple of poll periods, so each idle
+            # agent's next ALEASE reads AGSTOP and the agent exits 0; an
+            # agent still inside a lease also gets the ADONE grace, since
+            # its ADONE and its next poll follow the lease's end. One that
+            # polls after the listener detached only sees a dead fleet and
+            # exits 1 once its liveness bound passes. (The JAX package
+            # detaches at once, and its agents' exit depends on that race.)
+            now = time.monotonic()
+            deadlines = [(rec, now + 2 * self.poll_s + 1.0
+                          + (_DONE_GRACE_S if rec.state == "leased" else 0.0))
+                         for rec in leaving]
             for rec in leaving:
                 rec.state = "left"
         for rec in leaving:
             self._event(rec, "leave")
         for t in threads:
             t.join(timeout=5)
-        # Keep answering for a couple of poll periods, so each idle agent's
-        # next ALEASE reads AGSTOP and the agent exits 0; one that polls
-        # after the listener detached only sees a dead fleet and exits 1
-        # once its liveness bound passes. (The JAX package detaches at once,
-        # and its agents' exit depends on that race.)
-        deadline = time.monotonic() + 2 * self.poll_s + 1.0
-        while time.monotonic() < deadline:
+        while True:
             with self._lock:
-                if all(rec.stop_delivered for rec in leaving):
+                now = time.monotonic()
+                if all(rec.stop_delivered or now >= deadline
+                       for rec, deadline in deadlines):
                     break
             time.sleep(0.02)
         if self.server is not None:
@@ -963,11 +972,3 @@ def agent_main(args) -> int:
     print("agent {} done ({} lease(s) served)".format(
         agent.agent_id, served), flush=True)
     return 0
-
-
-def _host_address() -> str:
-    """This host's address for a ticket whose listener binds a wildcard."""
-    try:
-        return socket.gethostbyname(socket.gethostname())
-    except OSError:
-        return "127.0.0.1"

@@ -52,9 +52,13 @@ device (``core/executors/dist_executor.py``). So:
   whose store already listens when the agent advertises it). A later gang
   in the same agent process reuses the first world, as in JAX. A gang that
   mixes thread runners and agents runs the in-process path.
-- **Steps** run eagerly: a gloo collective cannot sit in a CUDA graph.
-  ``reference_gang_loss``'s MLP keeps full parameters on every rank under
-  every strategy ("fsdp" included) and averages gradients over the data
+- **Steps** run eagerly: a gloo collective cannot sit in a CUDA graph. A
+  gang trial's mesh Trainer (``Trainer(..., env=ctx.gang.sharding_env(),
+  strategy=ctx.gang.strategy)``) places its model's parameters as the
+  strategy says: "fsdp", "tp" and "ep" and their compositions cut them
+  (``parallel/sharded.py``). ``reference_gang_loss``'s MLP keeps full
+  parameters on every rank under every strategy ("fsdp" included), as its
+  bare tensors declare no logical axes, and averages gradients over the data
   axes, which is the JAX sharded computation up to float rounding.
 
 Left out: nothing of the JAX module; its ``jax.distributed`` latch became

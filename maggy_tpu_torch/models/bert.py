@@ -6,7 +6,12 @@ approximation of GELU, fp32 parameters with bf16 compute, fp32 logits, and
 dropout only when called with ``train=True``. Attention goes through
 ``multi_head_attention``, so a CUDA model whose sequence length tiles runs
 the flash kernels. Parameter names follow the Flax module names, which is
-what ``flax_to_state_dict`` relies on.
+what ``flax_to_state_dict`` relies on, and each parameter declares the
+logical axes of ``maggy_tpu/models/bert.py:45-110`` (``param_axes``) for the
+mesh Trainer: under tensor parallelism the q/k/v products are
+column-parallel and ``o_proj`` row-parallel, and each rank attends with
+``num_heads / n`` heads; the MLP and the LayerNorms are not cut over
+"model" (the LayerNorms are not annotated in Flax; the MLP, below).
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from torch import nn
 
 from maggy_tpu_torch.models.params import init_targets
 from maggy_tpu_torch.ops.attention import multi_head_attention
+from maggy_tpu_torch.parallel import sharded
+
+EMBED, HEADS, VOCAB = "embed", "heads", "vocab"
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
 
@@ -55,15 +63,26 @@ class BertConfig:
 
 class _Dense(nn.Linear):
     """nn.Dense(dtype=compute, param_dtype=fp32): fp32 weights, products in
-    the compute dtype."""
+    the compute dtype. ``kernel_axes``: the Flax kernel's logical axes (in,
+    out); the bias takes the output's."""
 
-    def __init__(self, fan_in, fan_out, cfg: BertConfig, device):
+    def __init__(self, fan_in, fan_out, cfg: BertConfig, device, kernel_axes=(None, None)):
         super().__init__(fan_in, fan_out, device=device, dtype=cfg.param_dtype)
         self.compute_dtype = cfg.dtype
+        self.kernel_axes = tuple(kernel_axes)
+
+    def param_axes(self):
+        a_in, a_out = self.kernel_axes
+        return {"weight": (a_out, a_in), "bias": (a_out,)}
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w, b = sharded.gathered(self.weight).to(dt), sharded.gathered(self.bias).to(dt)
+        x = sharded.column_parallel(x.to(dt), self.weight)
+        if sharded.group_of(self.weight, 1, "model") is None:
+            return F.linear(x, w, b)
+        # Row-parallel: the partial products summed, then the bias.
+        return sharded.row_parallel(F.linear(x, w), self.weight) + b
 
 
 def _layer_norm(ln: nn.LayerNorm, x):
@@ -77,24 +96,28 @@ class EncoderLayer(nn.Module):
         self.cfg = cfg
         H, M = cfg.hidden_dim, cfg.intermediate_dim
         self.ln_attn = nn.LayerNorm(H, eps=LN_EPS, device=device)
-        self.q_proj = _Dense(H, H, cfg, device)
-        self.k_proj = _Dense(H, H, cfg, device)
-        self.v_proj = _Dense(H, H, cfg, device)
-        self.o_proj = _Dense(H, H, cfg, device)
+        self.q_proj = _Dense(H, H, cfg, device, (EMBED, HEADS))
+        self.k_proj = _Dense(H, H, cfg, device, (EMBED, HEADS))
+        self.v_proj = _Dense(H, H, cfg, device, (EMBED, HEADS))
+        self.o_proj = _Dense(H, H, cfg, device, (HEADS, EMBED))
         self.ln_mlp = nn.LayerNorm(H, eps=LN_EPS, device=device)
-        self.fc_in = _Dense(H, M, cfg, device)
-        self.fc_out = _Dense(M, H, cfg, device)
+        # The JAX package imports its Llama's ``MLP``, which by then is the
+        # MLP module class, not the axis name (``maggy_tpu/models/bert.py:17``):
+        # the MLP dim is never cut there, and is not here.
+        self.fc_in = _Dense(H, M, cfg, device, (EMBED, None))
+        self.fc_out = _Dense(M, H, cfg, device, (None, EMBED))
 
     def forward(self, x, pad_mask, train: bool = False):
         cfg = self.cfg
         B, S, _ = x.shape
-        shape4 = (B, S, cfg.num_heads, cfg.hidden_dim // cfg.num_heads)
+        sharded.check_heads(cfg.num_heads, cfg.num_heads, self.q_proj.weight)
+        shape4 = (B, S, -1, cfg.hidden_dim // cfg.num_heads)
         h = _layer_norm(self.ln_attn, x).to(cfg.dtype)
         att = multi_head_attention(
             self.q_proj(h).reshape(shape4), self.k_proj(h).reshape(shape4),
             self.v_proj(h).reshape(shape4), causal=False,
             mask=pad_mask[:, None, None, :])
-        att = self.o_proj(att.reshape(B, S, cfg.hidden_dim))
+        att = self.o_proj(att.reshape(B, S, -1))
         x = x + F.dropout(att, cfg.dropout, training=train)
         h = _layer_norm(self.ln_mlp, x).to(cfg.dtype)
         h = self.fc_out(F.gelu(self.fc_in(h), approximate="tanh"))
@@ -118,13 +141,18 @@ class BertEncoder(nn.Module):
             cfg.max_seq_len, cfg.hidden_dim, device=device, dtype=cfg.param_dtype))
         self.layers = nn.ModuleList(EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
         self.ln_final = nn.LayerNorm(cfg.hidden_dim, eps=LN_EPS, device=device)
-        self.pooler = _Dense(cfg.hidden_dim, cfg.hidden_dim, cfg, device)
-        self.classifier = _Dense(cfg.hidden_dim, cfg.num_classes, cfg, device)
+        # (EMBED, None), not (EMBED, EMBED): one spec must not name the same
+        # mesh axis twice under fsdp strategies (maggy_tpu/models/bert.py:106).
+        self.pooler = _Dense(cfg.hidden_dim, cfg.hidden_dim, cfg, device, (EMBED, None))
+        self.classifier = _Dense(cfg.hidden_dim, cfg.num_classes, cfg, device, (EMBED, None))
 
     @property
     def identity(self):
         """The warm cache's model identity (``models/params.py``)."""
         return type(self), self.cfg
+
+    def param_axes(self):
+        return {"tok_embedding": (VOCAB, EMBED), "pos_embedding": (None, EMBED)}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -143,8 +171,8 @@ class BertEncoder(nn.Module):
         B, S = tokens.shape
         if attention_mask is None:
             attention_mask = torch.ones(B, S, dtype=torch.bool, device=tokens.device)
-        x = F.embedding(tokens, self.tok_embedding).to(cfg.dtype) \
-            + self.pos_embedding[:S].to(cfg.dtype)[None]
+        x = sharded.vocab_parallel_embedding(tokens, self.tok_embedding, cfg.param_dtype) \
+            .to(cfg.dtype) + sharded.gathered(self.pos_embedding)[:S].to(cfg.dtype)[None]
         for layer in self.layers:
             x = layer(x, attention_mask.bool(), train=train)
         x = _layer_norm(self.ln_final, x)

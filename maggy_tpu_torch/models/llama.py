@@ -23,11 +23,27 @@ which is what ``flax_to_state_dict`` relies on. Layouts: dense kernels are
 [hidden, vocab] are kept as in Flax, and so are a ``moe_mlp``'s router and
 stacked experts (``num_experts > 0``; ``models/moe.py``), whose
 load-balancing losses the Trainer adds to the objective.
+
+On a mesh every parameter declares the logical axes of
+``maggy_tpu/models/llama.py:94-255`` (``param_axes``), and the mesh
+Trainer cuts it by them (``parallel/sharded.py``). Under tensor
+parallelism q/k/v are column-parallel and ``o_proj`` row-parallel, each
+rank attending with its own heads (a head count that does not divide the
+"model" axis raises, where GSPMD would pad); the vocab-cut embedding looks
+up the rows a rank holds and sums over "model". The vocab-cut head, two
+ways: ``return_hidden`` hands it on cut, and ``ops.losses``' chunked
+losses (what the Llama sweeps use) compute the softmax vocab-parallel,
+the max and the sum of exponentials combined over "model" (no rank holds
+the whole head, nor the whole logits); the dense logits gather the head
+whole first (its gradient: this rank's slice), so that any loss function
+of logits runs unchanged, each "model" rank computing the same loss.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict
 
@@ -37,9 +53,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.models.moe import MoEMLP
 from maggy_tpu_torch.models.params import check_device, init_targets
 from maggy_tpu_torch.ops.attention import multi_head_attention
+from maggy_tpu_torch.parallel import sharded
+
+#: Logical axis names (``maggy_tpu/models/llama.py``), mapped onto mesh
+#: axes by ``parallel.sharding.logical_axis_rules``.
+EMBED, HEADS, KV, MLP_AXIS, VOCAB = "embed", "heads", "kv", "mlp", "vocab"
 
 #: flax's lecun_normal draws a standard normal truncated at +-2 and divides
 #: the scale by the truncated distribution's standard deviation.
@@ -107,8 +129,11 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.scale = nn.Parameter(torch.empty(dim, dtype=param_dtype, device=device))
 
+    def param_axes(self):
+        return {"scale": (EMBED,)}
+
     def forward(self, x):
-        return _rms_norm(x, self.scale.to(x.dtype), self.eps)
+        return _rms_norm(x, sharded.gathered(self.scale).to(x.dtype), self.eps)
 
 
 def rope(x, positions, theta: float):
@@ -130,12 +155,18 @@ class LoRADense(nn.Module):
     y = x W^T + (x A) B * alpha / r, every factor cast to the compute dtype
     first. ``train.lora.only_lora`` trains only ``lora_a``/``lora_b``.
     ``device`` defaults to the card and raises without one unless it is
-    "cpu" (or "meta")."""
+    "cpu" (or "meta"). ``kernel_axes`` are the Flax kernel's logical axes
+    (in, out); the weight is [out, in], ``lora_a`` [in, r] and ``lora_b``
+    [r, out]. Under tensor parallelism (a weight cut over "model") an
+    output-cut layer is column-parallel and an input-cut one row-parallel:
+    the adapter's low-rank product enters or leaves the region on its own,
+    so that the replicated factor's gradient is whole on every rank."""
 
     def __init__(self, in_dim: int, features: int, cfg: LlamaConfig, lora_rank: int,
-                 device="cuda"):
+                 device="cuda", kernel_axes=(None, None)):
         super().__init__()
         device = check_device(device)
+        self.kernel_axes = tuple(kernel_axes)
         self.compute_dtype = cfg.dtype
         self.weight = nn.Parameter(torch.empty(features, in_dim, dtype=cfg.param_dtype,
                                                device=device))
@@ -147,11 +178,22 @@ class LoRADense(nn.Module):
                                                    device=device))
             self.lora_scale = cfg.lora_alpha / lora_rank
 
+    def param_axes(self):
+        a_in, a_out = self.kernel_axes
+        axes = {"weight": (a_out, a_in)}
+        if self.lora_rank > 0:
+            axes.update(lora_a=(a_in, None), lora_b=(None, a_out))
+        return axes
+
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.linear(x, self.weight.to(dt))
+        w = self.weight
+        y = F.linear(sharded.column_parallel(x, w), sharded.gathered(w).to(dt))
+        y = sharded.row_parallel(y, w)
         if self.lora_rank > 0:
-            y = y + (x @ self.lora_a.to(dt)) @ self.lora_b.to(dt) * self.lora_scale
+            xa = x @ sharded.gathered(self.lora_a).to(dt)
+            xa = sharded.column_parallel(sharded.row_parallel(xa, w), w)
+            y = y + xa @ sharded.gathered(self.lora_b).to(dt) * self.lora_scale
         return y
 
 
@@ -161,17 +203,21 @@ class Attention(nn.Module):
         self.cfg = cfg
         H, r = cfg.hidden_dim, cfg.lora_rank
         q_dim, kv_dim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-        self.q_proj = LoRADense(H, q_dim, cfg, r, device)
-        self.k_proj = LoRADense(H, kv_dim, cfg, r, device)
-        self.v_proj = LoRADense(H, kv_dim, cfg, r, device)
-        self.o_proj = LoRADense(q_dim, H, cfg, r, device)
+        self.q_proj = LoRADense(H, q_dim, cfg, r, device, (EMBED, HEADS))
+        self.k_proj = LoRADense(H, kv_dim, cfg, r, device, (EMBED, KV))
+        self.v_proj = LoRADense(H, kv_dim, cfg, r, device, (EMBED, KV))
+        self.o_proj = LoRADense(q_dim, H, cfg, r, device, (HEADS, EMBED))
 
     def forward(self, x, positions, mask=None):
+        """Under tensor parallelism each rank attends with its own heads:
+        ``num_heads / n`` query and ``num_kv_heads / n`` kv heads of the n
+        "model" ranks (a count that does not divide raises)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q = self.q_proj(x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        sharded.check_heads(cfg.num_heads, cfg.num_kv_heads, self.q_proj.weight)
+        q = self.q_proj(x).reshape(B, S, -1, cfg.head_dim)
+        k = self.k_proj(x).reshape(B, S, -1, cfg.head_dim)
+        v = self.v_proj(x).reshape(B, S, -1, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         if cfg.attention_impl == "ring":
@@ -185,16 +231,20 @@ class Attention(nn.Module):
             out = ring_attention(q, k, v, axis_group(cfg.seq_mesh, cfg.seq_axis), causal=True)
         else:
             out = multi_head_attention(q, k, v, causal=True, mask=mask)
-        return self.o_proj(out.reshape(B, S, cfg.num_heads * cfg.head_dim))
+        return self.o_proj(out.reshape(B, S, -1))
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         H, M = cfg.hidden_dim, cfg.intermediate_dim
-        self.gate_proj = LoRADense(H, M, cfg, 0, device)
-        self.up_proj = LoRADense(H, M, cfg, 0, device)
-        self.down_proj = LoRADense(M, H, cfg, 0, device)
+        # The JAX package's dense MLP names its kernels' hidden dim with its
+        # own ``MLP`` module class, which shadows the logical axis name
+        # (``maggy_tpu/models/llama.py:31, 194``): no rule maps it, so the
+        # JAX Trainer never cuts that dim, and neither does the port.
+        self.gate_proj = LoRADense(H, M, cfg, 0, device, (EMBED, None))
+        self.up_proj = LoRADense(H, M, cfg, 0, device, (EMBED, None))
+        self.down_proj = LoRADense(M, H, cfg, 0, device, (None, EMBED))
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -210,7 +260,8 @@ class DecoderLayer(nn.Module):
         if cfg.num_experts > 0:
             self.moe_mlp = MoEMLP(cfg.hidden_dim, cfg.intermediate_dim, cfg.num_experts,
                                   top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
-                                  dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+                                  dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+                                  embed_axis=EMBED, mlp_axis=MLP_AXIS)
         else:
             self.mlp = MLP(cfg, device)
 
@@ -218,6 +269,12 @@ class DecoderLayer(nn.Module):
         h = x + self.attn(self.attn_norm(x), positions, mask)
         mlp = self.moe_mlp if self.cfg.num_experts > 0 else self.mlp
         return h + mlp(self.mlp_norm(h))
+
+
+def _remat_contexts(group):
+    """(forward, recompute) contexts of a rematerialized layer: the
+    recompute sees the forward's batch-statistics group."""
+    return contextlib.nullcontext(), variables.batch_stats_over(group)
 
 
 class Llama(nn.Module):
@@ -247,6 +304,9 @@ class Llama(nn.Module):
     def identity(self):
         """The warm cache's model identity (``models/params.py``)."""
         return type(self), self.cfg
+
+    def param_axes(self):
+        return {"embedding": (VOCAB, EMBED), "lm_head": (EMBED, VOCAB)}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -282,19 +342,27 @@ class Llama(nn.Module):
                 start = axis_index(cfg.seq_mesh, cfg.seq_axis) * tokens.shape[1]
             positions = torch.arange(start, start + tokens.shape[1],
                                      device=tokens.device).expand(tokens.shape)
-        x = F.embedding(tokens, self.embedding.to(cfg.dtype))
+        x = sharded.vocab_parallel_embedding(tokens, self.embedding, cfg.dtype)
+        # The recomputed forward runs where the backward runs (a device
+        # thread on the card): it re-enters the forward's statistics group.
+        group = variables.stats_group()
+        contexts = functools.partial(_remat_contexts, group)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
                 # Rematerialize each layer: only its input is kept for the
                 # backward, which runs the layer's forward again.
                 x = checkpoint(layer, x, positions, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, context_fn=contexts)
             else:
                 x = layer(x, positions)
         x = self.final_norm(x)
         if return_hidden:
-            return x, self.lm_head
-        return (x @ self.lm_head.to(cfg.dtype)).float()
+            # A vocab-cut head stays cut: the chunked losses run
+            # vocab-parallel on it (ops/losses.py).
+            return x, sharded.gathered(self.lm_head)
+        # Dense logits: a vocab-cut head is gathered whole, so that any loss
+        # function reads whole logits (every "model" rank computes the same).
+        return (x @ sharded.whole(self.lm_head, 1).to(cfg.dtype)).float()
 
 
 def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

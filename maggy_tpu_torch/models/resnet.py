@@ -37,7 +37,8 @@ from torch import nn
 
 from maggy_tpu_torch.models.llama import TRUNC_NORMAL_STD
 from maggy_tpu_torch.models.params import check_device, init_targets
-from maggy_tpu_torch.models.variables import buffers_mutable
+from maggy_tpu_torch.models.variables import buffers_mutable, stats_group
+from maggy_tpu_torch.parallel import collectives
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -62,15 +63,28 @@ def batch_norm(x, mean, var, scale, bias, train: bool):
     """Flax BatchNorm(momentum=0.9, dtype=float32) over the channels of an
     NCHW tensor. With ``train`` it normalizes with the batch's statistics
     and updates the ``mean`` and ``var`` buffers in place (which needs
-    mutable buffers, ``models/variables.py``); else it normalizes with them."""
+    mutable buffers, ``models/variables.py``); else it normalizes with them.
+    Inside ``variables.batch_stats_over(group)`` the batch is every rank's
+    of ``group`` (the mesh Trainer's data-like axes)."""
     x = x.float()
     if train:
         if not buffers_mutable():
             raise ValueError("BatchNorm(train=True) updates its running statistics, and the "
                              "buffers are immutable here: pass has_aux_collections=True to "
                              "the Trainer")
-        batch_mean = x.mean((0, 2, 3))
-        batch_var = (x.square().mean((0, 2, 3)) - batch_mean.square()).clamp_min(0.0)
+        group = stats_group()
+        if group is None:
+            batch_mean = x.mean((0, 2, 3))
+            batch_var = (x.square().mean((0, 2, 3)) - batch_mean.square()).clamp_min(0.0)
+        else:
+            # One all-reduce of the sums, the sums of squares and the count
+            # over the group's ranks; its backward sums the gradients too.
+            count = torch.full((1,), x.numel() / x.shape[1], device=x.device)
+            sums = collectives.sum_both_ways(
+                torch.cat([x.sum((0, 2, 3)), x.square().sum((0, 2, 3)), count]), group, "bn")
+            C = x.shape[1]
+            batch_mean = sums[:C] / sums[-1]
+            batch_var = (sums[C:2 * C] / sums[-1] - batch_mean.square()).clamp_min(0.0)
         with torch.no_grad():
             mean.copy_(BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * batch_mean)
             var.copy_(BN_MOMENTUM * var + (1 - BN_MOMENTUM) * batch_var)

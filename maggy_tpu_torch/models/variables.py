@@ -11,6 +11,10 @@
   ``sowing_losses`` block on this thread, and dropped outside one. The
   Trainer opens the block around its forward only, so a forward that
   rematerialization runs again in the backward sows nothing.
+
+On a mesh the Trainer's forward also runs inside ``batch_stats_over(group)``:
+a training-mode BatchNorm then computes its batch statistics over the
+ranks of ``group`` (the data-like axes), as GSPMD does over the global batch.
 """
 
 from __future__ import annotations
@@ -58,3 +62,19 @@ def mutable_buffers(mutable: bool):
 
 def buffers_mutable() -> bool:
     return getattr(_local, "mutable", True)
+
+
+@contextlib.contextmanager
+def batch_stats_over(group):
+    """Within the block, batch statistics are over the ranks of ``group``
+    (a process group, or None: this rank's batch alone)."""
+    prev = getattr(_local, "stats_group", None)
+    _local.stats_group = group
+    try:
+        yield
+    finally:
+        _local.stats_group = prev
+
+
+def stats_group():
+    return getattr(_local, "stats_group", None)

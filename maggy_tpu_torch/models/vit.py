@@ -27,6 +27,7 @@ from torch import nn
 from maggy_tpu_torch.models import bert
 from maggy_tpu_torch.models.bert import BertConfig, EncoderLayer, LN_EPS, _Dense, _layer_norm
 from maggy_tpu_torch.models.params import check_device, init_targets
+from maggy_tpu_torch.parallel import sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,12 +83,20 @@ class ViT(nn.Module):
                                                       dtype=cfg.param_dtype))
         self.layers = nn.ModuleList(EncoderLayer(enc, device) for _ in range(cfg.num_layers))
         self.ln_final = nn.LayerNorm(D, eps=LN_EPS, device=device)
-        self.head = _Dense(D, cfg.num_classes, enc, device)
+        self.head = _Dense(D, cfg.num_classes, enc, device, (bert.EMBED, None))
 
     @property
     def identity(self):
         """The warm cache's model identity (``models/params.py``)."""
         return type(self), self.cfg
+
+    def param_axes(self):
+        """``maggy_tpu/models/vit.py:85-100``: the patch kernel (OIHW here,
+        HWIO in Flax) and its bias, the CLS token and the position embedding
+        along the embedding."""
+        E = bert.EMBED
+        return {"patch_embed.weight": (E, None, None, None), "patch_embed.bias": (E,),
+                "cls_token": (None, None, E), "pos_embedding": (None, E)}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -109,11 +118,12 @@ class ViT(nn.Module):
             raise ValueError("Expected {0}x{0} images, got {1}x{2}".format(
                 cfg.image_size, H, W))
         dt, D = cfg.dtype, cfg.hidden_dim
-        w, b = self.patch_embed.weight.to(dt), self.patch_embed.bias.to(dt)
+        w, b = (sharded.gathered(p).to(dt) for p in (self.patch_embed.weight,
+                                                     self.patch_embed.bias))
         x = F.conv2d(images.to(dt).permute(0, 3, 1, 2), w, b, stride=cfg.patch_size)
         x = x.permute(0, 2, 3, 1).reshape(B, cfg.num_patches, D)  # NHWC rows
-        x = torch.cat([self.cls_token.to(dt).expand(B, 1, D), x], dim=1)
-        x = x + self.pos_embedding[None].to(dt)
+        x = torch.cat([sharded.gathered(self.cls_token).to(dt).expand(B, 1, D), x], dim=1)
+        x = x + sharded.gathered(self.pos_embedding)[None].to(dt)
         mask = torch.ones(B, cfg.num_patches + 1, dtype=torch.bool, device=x.device)
         for layer in self.layers:
             x = layer(x, mask, train=train)

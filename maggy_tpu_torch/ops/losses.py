@@ -12,7 +12,12 @@ computes this outside any Pallas kernel.
 
 ``next_token_labels`` and ``sharded_next_token_loss`` are the loss of a
 sequence split over the ranks of a "seq" axis (the JAX package leaves the
-shift across shards to GSPMD).
+shift across shards to GSPMD). Under tensor parallelism the Llama hands
+these losses its vocab-cut head as it is (``models/llama.py``), and
+``chunked_softmax_xent`` runs vocab-parallel: each "model" rank computes
+its columns' chunks, the max and the sums of exponentials are combined over
+"model" (two all-reduces of [N] vectors), and the hidden states' gradient
+is summed over it.
 
 Numerics as in the JAX package: each chunk's logits are fp32 products of
 operands in ``h``'s dtype (the head is cast to it). On a CUDA card a bf16
@@ -58,12 +63,38 @@ def _chunk_logits(h, kernel, c0: int, cs: int, chunk: int):
     return logits
 
 
+def _check_targets(targets, V: int) -> None:
+    """Refuse a target outside [0, V), as ``F.cross_entropy`` does: a head
+    whose vocab cut was lost on the way (a cast drops the note that
+    ``parallel/sharded.py`` leaves on it) would otherwise give a wrong loss
+    without a word. On the card a device-side assert, which needs no sync
+    and so runs inside a captured step."""
+    ok = (targets >= 0) & (targets < V)
+    if targets.is_cuda:
+        torch._assert_async(ok.all())
+    elif not bool(ok.all()):
+        raise ValueError("a target lies outside the head's {} classes; a head cut over "
+                         "'model' must reach the loss as the model returned it".format(V))
+
+
 class _ChunkedSoftmaxXent(torch.autograd.Function):
+    """With ``group``, ``kernel`` is this rank's vocab columns [v0, v0 +
+    V_local) of a head cut over the group: the chunks' running statistics
+    are combined over the group (the max, then the rescaled sums of
+    exponentials and the target logits), and the backward sums the
+    hidden states' gradient over it."""
+
     @staticmethod
-    def forward(ctx, h, kernel, targets, vocab_chunk):
+    def forward(ctx, h, kernel, targets, vocab_chunk, group=None, v0=0):
         N, V = h.shape[0], kernel.shape[1]
         chunk = min(vocab_chunk, V)
-        tgt = targets.long()
+        tgt = targets.long() - v0
+        if group is None:
+            _check_targets(targets, V)
+        else:
+            import torch.distributed as dist
+
+            _check_targets(targets, V * dist.get_world_size(group))
         m = torch.full((N,), float("-inf"), device=h.device)
         s = torch.zeros(N, device=h.device)
         t = torch.zeros(N, device=h.device)
@@ -71,13 +102,21 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
             logits = _chunk_logits(h, kernel, c0, cs, chunk)
             m_new = torch.maximum(m, logits.amax(-1))
             s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
-            in_chunk = (tgt >= c0) & (tgt < c0 + chunk)
+            in_chunk = (tgt >= c0) & (tgt < min(c0 + chunk, V))
             picked = logits.gather(1, (tgt - cs).clamp(0, chunk - 1)[:, None])[:, 0]
             t = torch.where(in_chunk, picked, t)
             m = m_new
+        if group is not None:
+            from maggy_tpu_torch.parallel import collectives
+
+            m_all = collectives.all_reduce_(m.clone(), group, dist.ReduceOp.MAX,
+                                            kind="tp_loss_all_reduce")
+            st = collectives.all_reduce_(torch.stack([s * torch.exp(m - m_all), t]), group,
+                                         kind="tp_loss_all_reduce")
+            m, s, t = m_all, st[0], st[1]
         lse = m + torch.log(s)
         ctx.save_for_backward(h, kernel, tgt, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.group = chunk, group
         return (lse - t).mean()
 
     @staticmethod
@@ -96,7 +135,7 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
             # -1 at each target this chunk owns, with no data-dependent
             # index (a step captured as a CUDA graph cannot sync): the other
             # rows add -0.0, which leaves p as it is.
-            in_chunk = (tgt >= c0) & (tgt < c0 + chunk)
+            in_chunk = (tgt >= c0) & (tgt < min(c0 + chunk, V))
             p.scatter_add_(1, (tgt - cs).clamp(0, chunk - 1)[:, None],
                            -in_chunk.to(p.dtype)[:, None])
             p *= g / N
@@ -104,8 +143,13 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
                 dh.addmm_(p, kernel[:, cs:cs + chunk].to(h.dtype).float().T)
             if want_k:
                 dk[:, cs:cs + chunk].addmm_(h32.T, p)
+        if want_h and ctx.group is not None:
+            from maggy_tpu_torch.parallel import collectives
+
+            # Each rank's vocab columns give a partial sum of h's gradient.
+            collectives.all_reduce_(dh, ctx.group, kind="tp_loss_grad_all_reduce")
         return (dh.to(h.dtype) if want_h else None,
-                dk.to(kernel.dtype) if want_k else None, None, None)
+                dk.to(kernel.dtype) if want_k else None, None, None, None, None)
 
 
 def chunked_softmax_xent(h, kernel, targets, vocab_chunk: int = 16384):
@@ -114,8 +158,16 @@ def chunked_softmax_xent(h, kernel, targets, vocab_chunk: int = 16384):
 
     h: [N, H] activations; kernel: [H, V] classifier weights; targets: [N]
     int class ids in [0, V). Equivalent to
-    ``-mean(log_softmax(fp32(h @ kernel))[i, targets[i]])``."""
-    return _ChunkedSoftmaxXent.apply(h, kernel, targets, int(vocab_chunk))
+    ``-mean(log_softmax(fp32(h @ kernel))[i, targets[i]])``. A kernel whose
+    vocab dim is cut over "model" (a tensor-parallel Llama's head,
+    ``parallel/sharded.py``) holds this rank's columns: the softmax is
+    computed over the whole vocabulary across the "model" ranks
+    (vocab-parallel), and the loss is the same on each."""
+    from maggy_tpu_torch.parallel import sharded
+
+    group = sharded.group_of(kernel, 1, "model")
+    v0 = sharded.local_range(kernel, 1)[0] if group is not None else 0
+    return _ChunkedSoftmaxXent.apply(h, kernel, targets, int(vocab_chunk), group, v0)
 
 
 def chunked_next_token_loss(hidden, kernel, tokens, vocab_chunk: int = 16384):

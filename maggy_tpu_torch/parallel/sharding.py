@@ -1,4 +1,4 @@
-"""Parameter and batch sharding rules: dp / fsdp / tp / sp / zero in one place.
+"""Parameter and batch sharding rules: dp / fsdp / tp / sp / ep / zero in one place.
 
 Counterpart of ``maggy_tpu/parallel/sharding.py:34-218``. The rules are the
 JAX package's, computed on shapes alone, so they hold with or without a
@@ -7,6 +7,18 @@ world: ``param_sharding`` gives a leaf's spec as the entries of a JAX
 ``param_placements`` the same rule as DTensor placements, one a mesh axis
 (``Shard(dim)`` or ``Replicate()``). A mesh is a ``DeviceMesh`` or a plain
 ordered {"axis": size} dict.
+
+The mesh Trainer places a model's parameters as the JAX Trainer does
+(``maggy_tpu/train/trainer.py:33-55``): by the logical axes each zoo model
+declares for its parameters (``logical_axes``: every module's
+``param_axes()``, the counterpart of the Flax ``nn.with_logical_partitioning``
+annotations, in the port's dim order), mapped through
+``logical_axis_rules(strategy)`` with the axes the mesh lacks dropped
+(``logical_placements``); a parameter without a declaration is replicated,
+as an unannotated Flax leaf is. ``param_sharding`` / ``shard_params``, the
+shape-only heuristic, are the raw-pytree helpers of JAX's ``ShardingEnv``
+and place no model parameter. ``shard_state_dict`` cuts a rank's shards out
+of a whole state dict (a converted Flax tree, ``flax_to_state_dict``).
 
 Layouts: the rules read a leaf in the Flax layout, so that the port shards
 the dimension the JAX package shards. A 2-d dense ``weight`` of the port is
@@ -138,6 +150,69 @@ def logical_axis_rules(strategy: str = "dp"):
     # dim: batch_sharding and ring attention), nor does "zero" (it shards
     # the optimizer state: zero_opt_sharding).
     return list(rules.items())
+
+
+def logical_spec(axes: Sequence[Optional[str]], rules, mesh) -> Tuple[Optional[str], ...]:
+    """One parameter's spec (a mesh axis or None for each of its dims) from
+    its logical axes (one name or None a dim): each name through ``rules``
+    (``logical_axis_rules``), a mesh axis ``mesh`` lacks dropped."""
+    names, rules = mesh_axes(mesh), dict(rules)
+    spec = (rules.get(name) if name else None for name in axes)
+    return tuple(axis if axis in names else None for axis in spec)
+
+
+def logical_axes(model) -> Dict[str, Tuple[Optional[str], ...]]:
+    """{parameter name: logical axes in the port's dim order} of every
+    parameter that ``model``'s modules declare (each module's
+    ``param_axes()``, keyed by the parameter's name in the module)."""
+    out = {}
+    for prefix, module in model.named_modules():
+        declare = getattr(module, "param_axes", None)
+        if declare is None:
+            continue
+        for leaf, axes in declare().items():
+            out[prefix + "." + leaf if prefix else leaf] = tuple(axes)
+    return out
+
+
+def logical_placements(model, mesh, strategy: str = "dp") -> Dict[str, Tuple[Optional[str], ...]]:
+    """{name: spec} of every parameter of ``model`` under ``strategy`` on
+    ``mesh``: its declared logical axes through the strategy's rules, () for
+    a parameter without a declaration (replicated)."""
+    rules = logical_axis_rules(strategy)
+    declared = logical_axes(model)
+    out = {}
+    for name, p in model.named_parameters():
+        axes = declared.get(name)
+        if axes is not None and len(axes) != p.ndim:
+            raise ValueError("{} declares {} logical axes for a {}-d parameter".format(
+                name, len(axes), p.ndim))
+        out[name] = () if axes is None else logical_spec(axes, rules, mesh)
+    return out
+
+
+def shard_of(t, spec: Sequence[Optional[str]], env):
+    """This rank's block of the whole tensor ``t`` under ``spec``: each
+    sharded dim cut into the axis's size and the rank's coordinate kept;
+    a dim that does not divide raises."""
+    for dim, axis in enumerate(spec):
+        n = env.axis_size(axis) if axis is not None else 1
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError("dim {} of size {} does not divide over {} ranks of {!r}".format(
+                dim, t.shape[dim], n, axis))
+        rows = t.shape[dim] // n
+        t = t.narrow(dim, env.axis_index(axis) * rows, rows)
+    return t
+
+
+def shard_state_dict(state, specs, env):
+    """A rank's state dict: each tensor of the whole ``state`` (every rank
+    drew or loaded the same values) cut to its shard under ``specs``
+    ({name: spec}, ``logical_placements``; a missing name is replicated),
+    copied so that the whole tensors can be freed."""
+    return {name: shard_of(t, specs.get(name, ()), env).clone() for name, t in state.items()}
 
 
 def batch_sharding(mesh, ndim: int = 2, shape=None) -> Tuple[Optional[object], ...]:

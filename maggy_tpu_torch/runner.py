@@ -5,12 +5,16 @@ The port's copy of ``maggy_tpu/runner.py:42-221``. A driver with
 ``<exp_dir>/runner_ticket.json``; an agent process reads it, JOINs to
 receive its partition id and executor config, and runs the trial-executor
 loop (register -> heartbeat -> get_suggestion -> train -> FINAL) until
-GSTOP. Each agent is its own process with its own CUDA context. The port's
-driver binds loopback, so its agents run on the driver's host; the JAX
-package's ``OptimizationConfig.bind_host`` (0.0.0.0 for remote pools, the
-ticket advertising the host's address) waits for the multi-host work of
-ROADMAP queue 1 item 8. Agents on other hosts join a fleet instead:
-``Fleet(bind_host=...)`` and ``python -m maggy_tpu_torch.fleet agent``.
+GSTOP, or, for a ``DistributedConfig(backend="remote")`` experiment (the
+JOIN reply's ``trial_type`` is "distributed"), one rank of the training
+world: a ``DistExecutor`` built from the reply's world size, mesh, strategy
+and device, or from ``--config``'s factory (the JAX package's
+``maggy_tpu/runner.py:112-126``). Each agent is its own process with its
+own CUDA context. A distributed experiment's driver binds ``bind_host``
+(0.0.0.0 by default) and advertises a reachable address; an optimization
+experiment's driver binds loopback, so its agents run on the driver's
+host, and agents on other hosts join a fleet instead
+(``Fleet(bind_host=...)`` and ``python -m maggy_tpu_torch.fleet agent``).
 
 The train function is named by a dotted path (``pkg.module:fn``) and
 imported on the agent; only declarative data crosses the network. Importing
@@ -26,11 +30,10 @@ or, without a shared filesystem:
     python -m maggy_tpu_torch.runner --driver 127.0.0.1:41234 --secret-file s.txt \\
         --train my_project.train:train_fn
 
-Cut (ROADMAP queue 1 item 8): the distributed-training branch of
-``run_agent`` (a JOIN reply whose ``trial_type`` is "distributed"), its
-``--config`` factory, and ``--chips-per-agent`` / ``--agent-index``
-device pinning for gang sub-slices. ``--profile`` traces every trial the
-agent runs (``profiling.trial_profile``).
+``--chips-per-agent K --agent-index i`` pins the agent to CUDA devices
+[i*K, (i+1)*K) of its host before anything touches the card (one agent a
+device subset, ``maggy_tpu/runner.py:170-191``). ``--profile`` traces every
+trial the agent runs (``profiling.trial_profile``).
 """
 
 from __future__ import annotations
@@ -100,13 +103,16 @@ def read_ticket(path: str, wait_s: float = 0.0) -> dict:
 
 
 def run_agent(driver_addr: Tuple[str, int], secret: str, train_fn: Callable,
-              partition_id: Optional[int] = None, profile: bool = False) -> int:
-    """Join the experiment and run the trial loop to its GSTOP; returns the
-    partition id served."""
+              partition_id: Optional[int] = None, profile: bool = False,
+              config_factory: Optional[Callable] = None) -> int:
+    """Join the experiment and run its executor to the end: the trial loop
+    to GSTOP, or one rank of a distributed experiment's world (the JOIN
+    reply's ``trial_type`` decides). Returns the partition id served."""
     info = join_experiment(driver_addr, secret, partition_id)
     if info.get("trial_type") == "distributed":
-        raise NotImplementedError(
-            "distributed-training agents are not ported yet (ROADMAP queue 1 item 8)")
+        executor = _dist_executor(driver_addr, secret, train_fn, info, profile, config_factory)
+        executor(info["partition_id"])
+        return info["partition_id"]
     executor = TrialExecutor(
         server_addr=driver_addr, secret=secret, hb_interval=info["hb_interval"],
         exp_dir=info["exp_dir"], optimization_key=info["optimization_key"],
@@ -114,6 +120,27 @@ def run_agent(driver_addr: Tuple[str, int], secret: str, train_fn: Callable,
         trial_type=info.get("trial_type", "optimization"), profile=profile)
     executor(info["partition_id"])
     return info["partition_id"]
+
+
+def _dist_executor(driver_addr, secret, train_fn, info, profile, config_factory):
+    """A rank's ``DistExecutor``: model and dataset objects cannot travel
+    over the wire, so a config factory builds them on the agent; without
+    one the world's shape comes from the JOIN reply and the train function
+    sees only the sharding env."""
+    from maggy_tpu_torch.config import DistributedConfig
+    from maggy_tpu_torch.core.executors.dist_executor import DistExecutor
+    from maggy_tpu_torch.util import address_toward
+
+    config = config_factory() if config_factory else DistributedConfig(
+        num_workers=info["num_workers"], mesh_shape=info.get("mesh_shape") or {},
+        strategy=info.get("strategy", "dp"), device=info.get("device", "cuda"),
+        hb_interval=info["hb_interval"], hb_loss_timeout=info.get("hb_loss_timeout"),
+        profile=profile or bool(info.get("profile")))
+    return DistExecutor(
+        server_addr=driver_addr, secret=secret, hb_interval=info["hb_interval"],
+        exp_dir=info["exp_dir"], train_fn=train_fn, config=config,
+        num_workers=info["num_workers"], shared_process=False,
+        coord_host=address_toward(driver_addr))
 
 
 def main(argv=None) -> int:
@@ -128,11 +155,32 @@ def main(argv=None) -> int:
     p.add_argument("--secret-file", help="file containing the shared secret")
     p.add_argument("--train", required=True,
                    help="train function as 'package.module:function'")
+    p.add_argument("--config",
+                   help="for distributed experiments: a zero-argument factory "
+                        "'package.module:function' returning the local DistributedConfig "
+                        "(model and datasets built on the agent)")
     p.add_argument("--partition-id", type=int, default=None,
                    help="reclaim a specific runner slot (restart recovery)")
     p.add_argument("--profile", action="store_true",
                    help="capture a torch.profiler trace per trial")
+    p.add_argument("--chips-per-agent", type=int, default=None,
+                   help="pin this agent to a disjoint CUDA device subset of its host: "
+                        "devices [agent-index*K, (agent-index+1)*K)")
+    p.add_argument("--agent-index", type=int, default=0,
+                   help="this agent's index among the agents on this host; selects its "
+                        "device subset")
     args = p.parse_args(argv)
+
+    if args.chips_per_agent is not None:
+        # Before the first CUDA call of this process (the executor's first
+        # device touch): the same pinning the gpu runner pool applies.
+        from maggy_tpu_torch.core.runner_pool import device_env
+
+        if args.chips_per_agent <= 0:
+            p.error("--chips-per-agent must be >= 1")
+        if args.agent_index < 0:
+            p.error("--agent-index must be >= 0")
+        os.environ.update(device_env(args.agent_index, args.chips_per_agent))
 
     if args.ticket:
         ticket = read_ticket(args.ticket, wait_s=args.wait_ticket)
@@ -152,8 +200,9 @@ def main(argv=None) -> int:
         p.error("one of --ticket or --driver is required")
 
     train_fn = load_train_fn(args.train)
+    factory = load_train_fn(args.config) if args.config else None
     pid = run_agent(addr, secret, train_fn, partition_id=args.partition_id,
-                    profile=args.profile)
+                    profile=args.profile, config_factory=factory)
     print("runner {} done".format(pid))
     return 0
 

@@ -15,24 +15,31 @@ JAX Trainer's reporting and callbacks (``maggy_tpu/train/trainer.py:
 
 On a mesh (``env``, a ``parallel.ShardingEnv``, with a ``strategy``) the
 Trainer is the counterpart of ``init_train_state`` / ``make_train_step``
-(``maggy_tpu/train/trainer.py:57, 315``): parameters are placed by
-``parallel/sharding.py``'s rules, the gradients are averaged over the
-data-like and "seq" axes (the all-reduce GSPMD emits in JAX), the loss
-returned is that average too, and a "zero" strategy part shards the
-optimizer moments over "data" (ZeRO-1: each rank updates its slice of
+(``maggy_tpu/train/trainer.py:33-57, 315``). Parameters are placed as the
+JAX Trainer places them: by the logical axes the model declares, through
+``logical_axis_rules(strategy)`` (``sharding.logical_placements``); an
+undeclared parameter is replicated. Every rank first draws (or loads) the
+whole values, then keeps its block of each cut parameter
+(``parallel/sharded.py``), and the optimizer is built over the blocks, so
+fsdp's moments are sharded (ZeRO-3). Under fsdp the model gathers a block
+before use and reduce-scatters its gradient; under tp and ep it computes
+on its blocks (``models/llama.py``, ``bert.py``, ``moe.py``). The
+gradients are averaged over the data-like and "seq" axes (the all-reduce
+GSPMD emits in JAX: over the axes a reduce-scatter has not summed yet),
+the loss returned is that average too, and a "zero" strategy part shards
+the optimizer moments over "data" (ZeRO-1: each rank updates its slice of
 every parameter whose leading dim, in the JAX package's layout, divides,
-then the slices are gathered). Such a step runs eagerly, without the warm
-path: a gloo collective cannot sit in a CUDA graph. Strategies that shard
-parameters (fsdp, tp and their compositions) on an axis of more than one
-rank are not ported yet (ROADMAP queue 1 item 8) and raise. BatchNorm
-statistics are each rank's own batch's (GSPMD computes them over the
-global batch).
+then the slices are gathered). A training-mode BatchNorm computes its
+batch statistics over the data-like axes' whole batch, as GSPMD does
+(``models/resnet.py``). Such a step runs eagerly, without the warm path: a
+gloo collective cannot sit in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import math
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional
@@ -290,6 +297,7 @@ class Trainer:
         self.env = env
         self.strategy = strategy
         self._zero, self._zero_rows = False, []
+        self.shard_shapes: Dict[str, tuple] = {}
         if env is not None:
             from maggy_tpu_torch.parallel import sharding
 
@@ -371,9 +379,11 @@ class Trainer:
         if _on_meta(self.model):
             self.model = self.model.to_empty(device=self.device)
         self._init_values(seed, state_dict)
+        if self.env is not None:
+            self._shard_on_mesh()
         self.optimizer, self.scheduler = self.optimizer_factory(self.model)
         if self.env is not None:
-            self._place_on_mesh()
+            self._place_zero()
         if self._slot is not None:
             self._unit = _Unit(self.model, self.optimizer,
                                getattr(self.optimizer_factory, "kwargs", None))
@@ -435,9 +445,12 @@ class Trainer:
         """(objective, summed auxiliary losses or None): ``loss_fn`` of the
         model's outputs plus each loss sowed in the forward, in the order
         sowed. Only the forward runs inside the sowing block, so a layer
-        that rematerialization runs again in the backward sows nothing."""
+        that rematerialization runs again in the backward sows nothing. On
+        a mesh, batch statistics are over the data-like axes."""
+        stats = None if self.env is None else self.env.data_group
         with variables.sowing_losses() as sown, \
-                variables.mutable_buffers(self.has_aux_collections):
+                variables.mutable_buffers(self.has_aux_collections), \
+                variables.batch_stats_over(stats):
             out = self.model(*batch["inputs"], **self.train_kwargs)
         loss, aux = self.loss_fn(out, batch), None
         for leaf in sown:
@@ -472,26 +485,28 @@ class Trainer:
 
     # ------------------------------------------------------------- mesh
 
-    def _place_on_mesh(self) -> None:
-        """Place the parameters by the strategy's rules: every rank drew the
-        same values from the same seed, so a replicated parameter is placed
-        already; a sharded one is refused. Under "zero" the optimizer's
-        param groups get each rank's slice of every parameter that
-        ``zero_placements`` shards over "data" (views of the parameter's
-        storage), so the moments it creates are that slice's alone."""
+    def _shard_on_mesh(self) -> None:
+        """Place the parameters by the model's logical axes and the
+        strategy's rules: every rank drew the same values from the same
+        seed, so a replicated parameter is placed already, and a cut one is
+        replaced by this rank's block (``sharded.shard_module``; the whole
+        values are freed). ``shard_shapes`` maps each cut parameter to its
+        block's shape."""
+        from maggy_tpu_torch.parallel import sharded, sharding
+
+        specs = sharding.logical_placements(self.model, self.env.mesh, self.strategy)
+        self.shard_shapes = sharded.shard_module(self.model, self.env, specs)
+
+    def _place_zero(self) -> None:
+        """Under "zero" the optimizer's param groups get each rank's slice
+        of every parameter that ``zero_placements`` shards over "data"
+        (views of the parameter's storage), so the moments it creates are
+        that slice's alone."""
         from torch.distributed.tensor import Shard
 
         from maggy_tpu_torch.parallel import sharding
 
         env = self.env
-        for name, placements in sharding.shard_params(
-                env.mesh, self.model.named_parameters(), self.strategy).items():
-            for axis, placement in zip(env.axis_names, placements):
-                if isinstance(placement, Shard) and env.axis_size(axis) > 1:
-                    raise NotImplementedError(
-                        "strategy {!r} shards parameter {} over {!r}: sharded parameters "
-                        "are not ported yet (ROADMAP queue 1 item 8)".format(
-                            self.strategy, name, axis))
         self._zero_rows = []
         n, i = env.axis_size("data"), env.axis_index("data")
         if not self._zero or n == 1:
@@ -512,23 +527,28 @@ class Trainer:
                 params.append(p)
             group["params"] = params
 
-    def _reduce(self, tensors, kind: str) -> None:
+    def _reduce(self, tensors, kind: str, summed=()) -> None:
         """Average ``tensors`` in place over the mesh's reduce axes (the
-        data-like axes and "seq"), one flat buffer a dtype, each all-reduce
-        counted under ``kind`` (``collectives.traffic``)."""
+        data-like axes and "seq"): summed over those of them not in
+        ``summed`` (axes a reduce-scatter already summed them over), one flat
+        buffer a dtype, each all-reduce counted under ``kind``
+        (``collectives.traffic``), then divided by the reduce axes' size."""
         from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
         from maggy_tpu_torch.parallel import collectives
 
-        group = self.env.group(*self.env.reduce_axes)
-        if group is None:
+        env = self.env
+        n = math.prod(env.axis_size(a) for a in env.reduce_axes)
+        if n == 1:
             return
-        n = torch.distributed.get_world_size(group)
+        group = env.group(*(a for a in env.reduce_axes if a not in summed))
         by_dtype: Dict[torch.dtype, list] = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
         for ts in by_dtype.values():
-            flat = collectives.all_reduce_(_flatten_dense_tensors(ts), group, kind=kind)
+            flat = _flatten_dense_tensors(ts)
+            if group is not None:
+                collectives.all_reduce_(flat, group, kind=kind)
             flat /= n
             for t, reduced in zip(ts, _unflatten_dense_tensors(flat, ts)):
                 t.copy_(reduced)
@@ -544,14 +564,20 @@ class Trainer:
         self.model.zero_grad(set_to_none=True)
         loss.backward()
         # Every rank reduces the same buffers: a trained parameter without a
-        # gradient here contributes zeros.
-        grads = []
+        # gradient here contributes zeros. A gradient that fsdp's
+        # reduce-scatter summed over an axis is not summed over it again.
+        from maggy_tpu_torch.parallel import sharded
+
+        grads: Dict[tuple, list] = {}
         for p in self.model.parameters():
             if p.requires_grad:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-                grads.append(p.grad)
-        self._reduce(grads, "grad_all_reduce")
+                summed = tuple(a for a in sharded.shard_groups(p)
+                               if a in sharded.GATHERED_AXES)
+                grads.setdefault(summed, []).append(p.grad)
+        for summed, gs in grads.items():
+            self._reduce(gs, "grad_all_reduce", summed)
         for p, shard, dim, start, rows in self._zero_rows:
             shard.grad = p.grad.narrow(dim, start, rows)
         self.optimizer.step()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import threading
 import time
 from typing import Any, Dict
@@ -159,3 +160,22 @@ def claim_driver_epoch(run_dir: str, env) -> int:
             "claimed); exactly one restarted driver may adopt a run — this one must "
             "exit".format(run_dir, marker.rsplit("/", 1)[-1]))
     return epoch
+
+
+def host_address() -> str:
+    """This host's address, for a ticket whose listener binds a wildcard."""
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return "127.0.0.1"
+
+
+def address_toward(addr) -> str:
+    """The local address this host reaches ``addr`` (host, port) from: a
+    datagram socket's connect picks the route and sends nothing."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        try:
+            s.connect((addr[0], int(addr[1])))
+            return s.getsockname()[0]
+        except OSError:
+            return host_address()

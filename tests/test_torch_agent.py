@@ -590,6 +590,31 @@ def test_cli_subprocess_rebinds_across_experiments(tmp_path):
     assert (replay["joins"], replay["leases"], replay["losses"]) == (1, 2, 0)
 
 
+def test_an_agent_ending_its_lease_at_the_stop_still_reads_agstop(tmp_path):
+    """The plane's stop keeps answering an agent that was inside a lease
+    when the stop began past the idle agents' two poll periods: its ADONE
+    and its next poll, later than those, read OK and AGSTOP, so the agent
+    exits 0 and does not wait out its liveness bound on a dead fleet."""
+    with _fleet("port", tmp_path, runners=0, max_agents=1, liveness=5.0) as fleet:
+        t = _ticket("port", fleet)
+        ch = agent._AgentChannel((t["host"], t["port"]), t["secret"])
+        agent_id = _join(ch, "busy")["agent"]
+        fleet.agent_plane.record(agent_id).state = "leased"
+        stopper = threading.Thread(target=fleet.agent_plane.stop, daemon=True)
+        stopper.start()
+        time.sleep(2 * fleet.agent_plane.poll_s + 2.0)
+        try:
+            replies = [ch.call({"type": "ADONE", "agent": agent_id, "error": None})["type"],
+                       ch.call({"type": "ALEASE", "agent": agent_id})["type"]]
+        except (ConnectionError, OSError) as e:
+            replies = [repr(e)]
+        finally:
+            ch.close()
+        stopper.join(timeout=30)
+    assert replies == ["OK", "AGSTOP"]
+    assert not stopper.is_alive()
+
+
 @pytest.mark.timeout(120)
 def test_agent_kill_soak_journals_check_as_jax(tmp_path):
     """Invariant 11 with agent processes: one SIGKILLed mid-lease. The

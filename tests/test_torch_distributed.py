@@ -130,10 +130,12 @@ def test_failed_worker_fails_the_experiment_in_thread_mode(local_env, tmp_path):
 
 
 def test_unported_backend_and_bad_fields_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        DistributedConfig(backend="remote")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        DistributedConfig(bind_host="0.0.0.0")
+    # "remote" and bind_host run (tests/test_torch_remote_dist.py): the
+    # JAX package's defaults, and an unknown backend or device raises.
+    assert DistributedConfig(backend="remote").bind_host == "0.0.0.0"
+    assert DistributedConfig(backend="remote", bind_host="127.0.0.1").bind_host == "127.0.0.1"
+    assert DistributedConfig(bind_host="0.0.0.0").backend is None
+    assert DistributedConfig().bind_host is None
     with pytest.raises(ValueError, match="backend"):
         DistributedConfig(backend="mpi")
     with pytest.raises(ValueError, match="device"):

@@ -451,7 +451,8 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("parallel", "ring_attention.py"), ("parallel", "ulysses.py"),
         ("parallel", "collectives.py"), ("parallel", "gloo_cuda_probe.py"),
         ("core", "executors", "dist_executor.py"),
-        ("core", "driver", "distributed_driver.py"), ("gang.py",))} <= scanned
+        ("core", "driver", "distributed_driver.py"), ("gang.py",),
+        ("parallel", "sharded.py"), ("parallel", "pipeline.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}

@@ -11,7 +11,9 @@ transposed). The world test trains an MLP under "dp" and "dp_zero" on two
 CPU ranks: equal losses and parameters (1e-6: the same arithmetic, the
 update split by rows), each rank's Adam moments half of the sharded leaves,
 and both equal to one process training on the whole batch (1e-5: the
-gradient average sums in another order).
+gradient average sums in another order). Under "fsdp" on {"fsdp": 2} the
+same MLP, which declares no logical axes, trains replicated with the "dp"
+losses and parameters, as the JAX Trainer replicates an unannotated leaf.
 """
 
 import flax.linen as nn
@@ -226,4 +228,9 @@ def test_dp_zero_shards_the_moments_and_keeps_the_math(zero_world):
         assert r["dp_zero"]["moments"] == {"0.weight": (64, 16), "0.bias": (32,),
                                            "2.weight": (2, 32), "2.bias": (1,)}
         assert r["dp"]["moments"]["0.weight"] == (64, 32)
-        assert "sharded parameters are not ported yet" in r["fsdp_refused"]
+        # No declared logical axes: replicated under fsdp, the dp numbers.
+        assert r["fsdp"]["shard_shapes"] == {}
+        assert r["fsdp"]["losses"] == r["dp"]["losses"]
+        assert r["fsdp"]["moments"] == r["dp"]["moments"]
+        for name, p in r["dp"]["params"].items():
+            np.testing.assert_array_equal(r["fsdp"]["params"][name], p)

@@ -205,10 +205,10 @@ def llama_sp_rank(rank, world, fields, state, tokens, steps_tokens, lr, mesh_sha
 
 
 def zero_rank(rank, world, state, x, y, steps, lr):
-    """A two-layer MLP on a {"data": world} mesh under "dp" and "dp_zero"
-    (adam(lr), cross entropy, the same global batch each step): the
-    averaged losses, the final parameters and the shapes of the Adam
-    moments each rank holds."""
+    """A two-layer MLP on a {"data": world} mesh under "dp" and "dp_zero",
+    and on an {"fsdp": world} mesh under "fsdp" (adam(lr), cross entropy,
+    the same global batch each step): the averaged losses, the final
+    parameters and the shapes of the Adam moments each rank holds."""
     import torch
 
     from maggy_tpu_torch.parallel import ShardingEnv, make_mesh
@@ -216,25 +216,178 @@ def zero_rank(rank, world, state, x, y, steps, lr):
 
     env = ShardingEnv(make_mesh({"data": world}, device_type="cpu"), rank, world)
     out = {}
-    for strategy in ("dp", "dp_zero"):
+    fsdp = ShardingEnv(make_mesh({"fsdp": world}, device_type="cpu"), rank, world)
+    for strategy, mesh_env in (("dp", env), ("dp_zero", env), ("fsdp", fsdp)):
         model = torch.nn.Sequential(torch.nn.Linear(32, 64), torch.nn.ReLU(),
                                     torch.nn.Linear(64, 2))
         trainer = Trainer(model, adam(lr), lambda o, b: cross_entropy_loss(o, b["labels"]),
-                          env=env, strategy=strategy).init(state_dict=state)
+                          env=mesh_env, strategy=strategy).init(state_dict=state)
         batch = trainer.place_batch({"inputs": (x,), "labels": y})
         losses = [float(trainer.step(batch)) for _ in range(steps)]
         moments = {name: tuple(trainer.optimizer.state[p]["exp_avg"].shape)
                    for group in trainer.optimizer.param_groups for p, name in
                    zip(group["params"], [n for n, _ in trainer.model.named_parameters()])}
         out[strategy] = {"losses": losses, "moments": moments,
-                         "params": {k: _np(v) for k, v in trainer.model.state_dict().items()}}
-    fsdp = ShardingEnv(make_mesh({"fsdp": world}, device_type="cpu"), rank, world)
-    try:
-        Trainer(torch.nn.Linear(32, 64), adam(lr), lambda o, b: o.sum(), env=fsdp,
-                strategy="fsdp").init(state_dict={"weight": state["0.weight"],
-                                                  "bias": state["0.bias"]})
-    except NotImplementedError as e:
-        out["fsdp_refused"] = str(e)
+                         "params": {k: _np(v) for k, v in trainer.model.state_dict().items()},
+                         "shard_shapes": trainer.shard_shapes}
+    return out
+
+
+def mesh_model(kind, fields, device="cpu"):
+    """A port model for ``mesh_train_rank``: "llama" (``LlamaConfig``
+    fields, fp32), "bert" (``BertConfig`` fields, fp32), "resnet"
+    (``ResNet`` keyword arguments) or "mlp" (a 32-64-2 Sequential)."""
+    import torch
+
+    from maggy_tpu_torch.models import BertConfig, BertEncoder, Llama, LlamaConfig, ResNet
+
+    if kind in ("llama", "llama_chunked"):
+        return Llama(LlamaConfig(dtype=torch.float32, **fields), device=device)
+    if kind == "bert":
+        return BertEncoder(BertConfig(dtype=torch.float32, **fields), device=device)
+    if kind == "resnet":
+        return ResNet(device=device, **fields)
+    return torch.nn.Sequential(torch.nn.Linear(32, 64), torch.nn.ReLU(), torch.nn.Linear(64, 2))
+
+
+def mesh_loss(kind):
+    """The loss of ``mesh_model(kind)``: "llama" the dense next-token loss
+    of its logits, "llama_chunked" the vocab-chunked one of its hidden
+    states and head (``train_kwargs={"return_hidden": True}``)."""
+    from maggy_tpu_torch.ops import chunked_next_token_loss, next_token_loss
+    from maggy_tpu_torch.train import cross_entropy_loss
+
+    if kind == "llama":
+        return lambda out, b: next_token_loss(out, b["tokens"])
+    if kind == "llama_chunked":
+        return lambda out, b: chunked_next_token_loss(out[0], out[1], b["tokens"], 24)
+    return lambda out, b: cross_entropy_loss(out, b["labels"])
+
+
+def mesh_train_rank(rank, world, runs):
+    """Each run ({"model", "fields", "state", "mesh", "strategy", "opt",
+    "lr", "batches", "train_kwargs", "aux"}) on its own mesh over this
+    world: the mesh Trainer (adam(lr), or sgd(lr) with ``opt="sgd"``) from
+    the whole ``state`` for one step a batch.
+    Returns per run the averaged losses, the whole final state (gathered),
+    the block shapes of the cut parameters and the exchanges made."""
+    import torch
+
+    from maggy_tpu_torch.parallel import ShardingEnv, collectives, make_mesh, sharded
+    from maggy_tpu_torch.train import Trainer, adam
+
+    out = {}
+    for name, run in runs.items():
+        env = ShardingEnv(make_mesh(run["mesh"], device_type="cpu"), rank, world)
+        opt = _sgd(run["lr"]) if run.get("opt") == "sgd" else adam(run["lr"])
+        trainer = Trainer(mesh_model(run["model"], run["fields"]), opt,
+                          mesh_loss(run["model"]), train_kwargs=run.get("train_kwargs"),
+                          has_aux_collections=run.get("aux", False), env=env,
+                          strategy=run["strategy"]).init(
+            state_dict={k: torch.as_tensor(v) for k, v in run["state"].items()})
+        collectives.reset_traffic()
+        losses = []
+        for batch in run["batches"]:
+            losses.append(float(trainer.step(trainer.place_batch(batch))))
+        traffic = collectives.traffic()
+        moments = {n: tuple(trainer.optimizer.state[p]["exp_avg"].shape)
+                   for n, p in trainer.model.named_parameters()
+                   if "exp_avg" in trainer.optimizer.state.get(p, {})}
+        state = {k: _np(v) for k, v in sharded.full_state_dict(trainer.model).items()}
+        out[name] = {"losses": losses, "state": state, "shard_shapes": trainer.shard_shapes,
+                     "moments": moments,
+                     "traffic": traffic,
+                     "coord": {a: env.axis_index(a) for a in env.axis_names}}
+    return out
+
+
+def gather_scatter_rank(rank, world):
+    """fsdp's gather and reduce-scatter on this rank's block of a seeded
+    [8, 6] tensor: both results, and the transports ``traffic()`` named."""
+    import torch
+
+    from maggy_tpu_torch.parallel import collectives
+
+    group = torch.distributed.group.WORLD
+    full = torch.arange(48, dtype=torch.float32).reshape(8, 6) * (rank + 1)
+    block = full[:, 3 * rank:3 * rank + 3].contiguous()
+    collectives.reset_traffic()
+    return {"gathered": _np(collectives._gather_dim(block, group, 1, "k_gather")),
+            "scattered": _np(collectives._reduce_scatter_dim(full, group, 0, "k_scatter")),
+            "transports": {k: v["transport"] for k, v in collectives.traffic().items()}}
+
+
+def _tanh_stage(p, a):
+    import torch
+
+    return a + torch.tanh(a @ p["w"])
+
+
+def _mse(out, tgt):
+    return ((out - tgt) ** 2).mean()
+
+
+def pipeline_rank(rank, world, cases):
+    """Each case on its own mesh ({"mesh", "M"} and either "lm": a
+    ``PipelinedLM`` from the JAX params ``params`` on ``tokens``, or "w"
+    [n, D, D] stacked tanh stages with ``x`` and ``targets``): this rank's
+    stage through ``pipeline_apply`` (the output, and for the tanh stages
+    the GPipe loss and stage gradient by autograd, averaged over the
+    data-like axes) and ``pipeline_1f1b_grads``; the rank's coordinates."""
+    import math
+
+    import torch
+
+    from maggy_tpu_torch.parallel import ShardingEnv, collectives, make_mesh
+    from maggy_tpu_torch.parallel import pipeline as pp
+
+    out = {}
+    for name, case in cases.items():
+        env = ShardingEnv(make_mesh(case["mesh"], device_type="cpu"), rank, world)
+        stage = pp.stage_param_sharding(env)
+        res = {"coord": {a: env.axis_index(a) for a in env.axis_names}}
+        try:
+            if "lm" in case:
+                lm = pp.PipelinedLM(*case["lm"], dtype=torch.float32, stages=[stage],
+                                    device="cpu")
+                lm.load_state_dict(pp.pipelined_lm_state(case["params"], [stage]))
+                logits = lm.apply(torch.as_tensor(case["tokens"]), env,
+                                  num_microbatches=case["M"])
+                res["out"] = _np(logits.detach())
+                # The stage's gradient of the mean square logit, averaged
+                # over the data-like axes (each rank's rows are equal).
+                logits.square().mean().backward()
+                data = pp._data_group(env)
+                grads = {k: getattr(lm, k).grad[0].clone() for k in pp.STAGE_LEAVES}
+                for g in grads.values():
+                    if data is not None:
+                        collectives.all_reduce_(g, data)
+                        g /= torch.distributed.get_world_size(data)
+                res["grads"] = {k: _np(g) for k, g in grads.items()}
+            else:
+                M = case["M"]
+                w = torch.tensor(case["w"][stage], requires_grad=True)
+                x, tgt = torch.as_tensor(case["x"]), torch.as_tensor(case["targets"])
+                y = pp.pipeline_apply(_tanh_stage, {"w": w}, x, env, num_microbatches=M)
+                t_rows = pp._data_rows(pp._microbatches(tgt, M), env)
+                y_mb = y.reshape(t_rows.shape)
+                loss = torch.stack([_mse(y_mb[m], t_rows[m]) for m in range(M)]).mean()
+                loss.backward()
+                data = pp._data_group(env)
+                grad, loss = w.grad.clone(), loss.detach().reshape(1)
+                if data is not None:
+                    dp = torch.distributed.get_world_size(data)
+                    collectives.all_reduce_(grad, data)
+                    collectives.all_reduce_(loss, data)
+                    grad, loss = grad / dp, loss / dp
+                l1, g1 = pp.pipeline_1f1b_grads(_tanh_stage, _mse, {"w": w.detach()}, x, tgt,
+                                                env, num_microbatches=M)
+                res.update(out=_np(y), gpipe_loss=float(loss[0]), gpipe_grad=_np(grad),
+                           loss_1f1b=float(l1), grad_1f1b=_np(g1["w"]),
+                           finite=math.isfinite(float(l1)))
+        except ValueError as e:
+            res["error"] = str(e)
+        out[name] = res
     return out
 
 
@@ -284,7 +437,8 @@ def dp_train_fn(sharding_env, reporter=None):
     rows = batch["inputs"][0].numpy()
     shard = 64 // n * sharding_env.axis_index("data")
     seen = {"rows_match": bool(np.array_equal(rows, X[shard:shard + 64 // n])),
-            "rows": int(rows.shape[0]), "axis_names": list(sharding_env.axis_names)}
+            "rows": int(rows.shape[0]), "axis_names": list(sharding_env.axis_names),
+            "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
     try:
         make_mesh({"data": sharding_env.num_devices + 1}, device_type="cpu")
     except ValueError as e:
