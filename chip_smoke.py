@@ -10,7 +10,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              framing.cpp, host code) into build/native/: is_native() must
              hold, its HMAC equal hashlib's, its crc32c the Python table's,
              and its TFRecord scan the Python reader's records on
-             titanic_loco's TFRecord (make_titanic_like written anew).
+             titanic_loco's TFRecord (make_titanic_like written anew). Then
+             python -m maggy_tpu_torch.analysis --json on the port's tree (a
+             process of its own): its locks, order edges, unsuppressed
+             findings (none, or the phase fails) and suppressions with their
+             reasons, and its seconds.
 3. kernels — each flash-attention kernel against its plain PyTorch version
              (bf16, bf16 with fp32 gradients, and fp32; the BERT-base
              training shape with a padding mask that fully masks some rows,
@@ -37,7 +41,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              weights on the CPU path, the per-step time alone, eager
              (warm_start=False) and replayed in turns, and a torch.profiler
              breakdown of five replayed steps (with each flash kernel's
-             device time per launch).
+             device time per launch). Each step's loss is also a
+             TensorBoard scalar (maggy_tpu_torch.tensorboard), and the first
+             trial traces its steps 1 and 2 with tensorboard.start_trace /
+             stop_trace. After the sweep the script decodes every event file
+             itself (the port's TFRecord scanner, crcs verified, and
+             decode_event here: the card's machine has no tensorboard): each
+             trial dir one session start with the trial's hparams, a loss
+             scalar for each step its records count, one session end; the
+             experiment's tensorboard dir the HParams config and the
+             telemetry scalars; one trace, with kernel events, under its
+             trial's tensorboard dir.
 5. slice_bo — the BERT-base sweep of examples/bert_glue_hpo.py (lr,
              warmup_frac, batch 32 or 64; median stopping) through
              experiment.lagom on two thread runners, three times: TPE,
@@ -119,7 +133,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              finalized and the journal on disk shows one running (at a
              moment with a fork running, if one comes before 7 finalized);
              mnist_hyperband_resume is MnistCNN(3, 2, 16, 2) on
-             make_data(2048) under RandomSearch(seed 7) + Hyperband(1, 9, 3)
+             make_data(2048) under RandomSearch(seed 7) + Hyperband(1, 9, 9)
              over lr and batch, 10 steps a budget unit, two thread runners,
              each trial marking a file named after its params and budget.
              Both must show incarnation 1 killed by the signal and 2 exiting
@@ -140,7 +154,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              forked at the parent's last step and trained from the step
              after, a fork in flight at the kill resumed at its fork step
              (recovery's fork count). mnist_hyperband_resume also: the
-             bracket file present at the kill, every slot of the 22 run,
+             bracket file present at the kill, every slot of the 12 run,
              only trials in flight at the kill run twice (at most one a
              runner), result.json counting the slots plus them. Prints each
              incarnation's wall time, the resume's time to its first
@@ -270,7 +284,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              its fork point; the failover half across lagom(...,
              resume=True)), lanes (vmap_lanes=4: a torn block, every live
              lane requeued once) and control (no fault: no rework, at most 5%
-             unaccounted, no health flag). Then check_invariants over every
+             unaccounted, no health flag). Every sub-soak runs under the
+             port's lock-order witness (lock_witness=True): its line's
+             "witness" holds the edges seen, the forbidden ones (none, or
+             the phase fails), the acquisitions noted and the witness's own
+             seconds. Then check_invariants over every
              earlier phase's journal (build/chip_smoke_experiments*): no lost,
              phantom or twice-finalized trial and an ended experiment on each;
              each journal's raised health flags are printed, those of
@@ -335,7 +353,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              run_agent_soak(agents=2, trials=4) (agent processes on --device
              cpu, one SIGKILLed mid-lease) and run_sink_soak(tenants=2,
              trials=4) (the sink killed mid-run and restarted), each without
-             a violation. (b) One Fleet(runners=1, max_agents=2, sink=True)
+             a violation, under the lock-order witness (edges seen, no
+             forbidden one, its acquisitions and seconds). (b) One Fleet(runners=1, max_agents=2, sink=True)
              and two python -m maggy_tpu_torch.fleet agent --ticket <home>/
              agent_ticket.json processes, each with its own CUDA context: an
              MNIST tenant (slice_fleet's urgent one, a partial: no name on the
@@ -355,8 +374,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              SIGKILLed (a kill_agent chaos record in its journal); the trial
              is requeued once, the lease ends agent_lost, the tenant
              finishes, the other agent exits 0 on the plane's AGSTOP. (d) One
-             slice_mnist trial with profile=True: a trace in its trial dir
-             holding CUDA kernel events. Prints AJOIN to first lease per
+             slice_mnist trial with profile=True: a trace in its trial's
+             tensorboard dir holding CUDA kernel events. Prints AJOIN to first lease per
              agent, the agents' peak memory, the sink's ingest lag, the
              in-sweep step p50 beside slice_fleet's, the kill and the clock
              offsets.
@@ -552,9 +571,10 @@ DIST_H, DIST_HKV, DIST_D = 32, 8, 128
 # runs 14 trials of 16 steps (the example: 8 trials; TPE fits its KDEs only
 # from 2(d+1) = 8 finalized trials, and a suggestion prefetched while two
 # trials run sees about k - 3 of its k predecessors finalized, so only the
-# 12th and later can be model proposals); GP + Hyperband runs 4 steps per
-# budget unit; a heartbeat every 4 steps.
-BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 16, 4, 4
+# 12th and later can be model proposals), of 8 steps (cut from 16); GP +
+# Hyperband runs 2 steps per budget unit (cut from 4); a heartbeat every 4
+# steps and at a trial's last.
+BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 8, 2, 4
 #: (batch, Sq, Sk, heads, kv heads, head dim) of each main path's attention;
 #: the BO sweeps add batch 64 (their search space is batch in {32, 64}).
 MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
@@ -598,14 +618,15 @@ PBT_STEPS, PBT_PREEMPT_AFTER = 15, 5
 FORK_MIN_FREE_BYTES = 20e9
 # slice_resume: its sweeps' root, the script its children run (a CPU
 # rehearsal points it at its own), the BERT sweep's loss timeout, the
-# Hyperband sweep's bracket ladder and steps a budget unit (bench.py trains
+# Hyperband sweep's bracket ladder (eta 9: 12 trials in two brackets; cut
+# from eta 3's 22 trials in three) and steps a budget unit (bench.py trains
 # 40; cut, since the sweep only shows the bracket state across a crash),
 # how long incarnation 1 may take to reach its kill point and incarnation 2
 # to finish.
 RESUME_ROOT = os.path.join(ROOT, "build", "chip_smoke_experiments_resume")
 CHILD_SCRIPT = os.path.abspath(__file__)
 RESUME_LOSS_TIMEOUT_S = 3.0
-RESUME_HYPERBAND = {"min_budget": 1, "max_budget": 9, "eta": 3}
+RESUME_HYPERBAND = {"min_budget": 1, "max_budget": 9, "eta": 9}
 MNIST_RESUME_STEPS_PER_BUDGET = 10
 RESUME_KILL_DEADLINE_S, RESUME_CHILD_TIMEOUT_S = 300, 420
 # slice_warm (bench.py's run_compile_ab): trials an arm, the MNIST arm's
@@ -643,12 +664,14 @@ MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY_FACTOR = 4, 8, 2, 2.0
 # engine gates' rates and steps; the tolerance (relative, absolute) of a lane
 # against its scalar Trainer (fp32, TF32 off: a lane's products are one
 # batched matmul, the scalar's a matmul, their sums in another order); and
-# the BERT-base sweep's lanes.
+# the BERT-base sweep's lanes, and the steps of its timed, profiled and
+# eager-attributed runs alone (cut from 10, 5 and 3).
 LANES_K, LANES_TRIALS, LANES_SEED, LANES_BATCH = 8, 25, 7, 256
-LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 5.0
+LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 3.0
 LANES_PARITY_LRS, LANES_PARITY_STEPS, LANES_MASK_AT = [1e-3, 3e-3, 1e-2, 3e-2], 25, 10
 LANES_TOL = (1e-4, 1e-5)
 BERT_LANES = 4
+BERT_LANES_ALONE_STEPS, BERT_LANES_PROFILE_STEPS, BERT_LANES_OP_STEPS = 5, 3, 1
 #: The steps a trial of slice_lanes' MNIST arms trains (set by the phase).
 LANES_STEPS = [LANES_BENCH_STEPS]
 # slice_lanes' lanes of models with buffers or sowed losses. resnet50_lanes:
@@ -796,13 +819,61 @@ def phase_build():
     from maggy_tpu_torch.ops import build
 
     t0 = time.perf_counter()
+    # The analyzer runs in a process of its own while nvcc builds.
+    analysis = start_analysis()
     sources = build.compile_all()
     for name in sources:
         build.library(name)
     ptxas = [line.strip() for name in sources
              for line in build.build_logs.get(name, "").splitlines() if "Used" in line]
     emit("build", sources=sources, seconds=time.perf_counter() - t0,
-         ptxas_register_lines=len(ptxas), ptxas_sample=ptxas[:3], native=native_check())
+         ptxas_register_lines=len(ptxas), ptxas_sample=ptxas[:3], native=native_check(),
+         analysis=analysis_check(*analysis))
+
+
+def start_analysis():
+    """Start ``python -m maggy_tpu_torch.analysis --json`` on the port's
+    tree in a process of its own, read by a thread that notes the seconds
+    from its start to its exit: (process, thread, {"stdout", "stderr",
+    "seconds"})."""
+    out = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "maggy_tpu_torch.analysis", "--json"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def read():
+        out["stdout"], out["stderr"] = proc.communicate()
+        out["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=read, daemon=True)
+    thread.start()
+    return proc, thread, out
+
+
+def analysis_check(proc, thread, out):
+    """The report of ``start_analysis``'s process: its locks, order edges,
+    unsuppressed findings and suppressions (each with its reason), and its
+    seconds from start to exit (beside nvcc, in the build phase). Any
+    unsuppressed finding, or a non-zero exit, fails the phase."""
+    thread.join(300)
+    if thread.is_alive():
+        proc.kill()
+        thread.join()
+        raise AssertionError("analysis ran past 300 s")
+    try:
+        report = json.loads(out["stdout"])
+    except ValueError:
+        raise AssertionError("analysis printed no report (rc {}):\n{}".format(
+            proc.returncode, out["stderr"][-2000:]))
+    out = {"rc": proc.returncode, "locks": report["num_locks"],
+           "edges": len(report["lock_edges"]), "findings": report["findings"],
+           "suppressed": len(report["suppressed"]),
+           "suppressed_reasons": sorted({f["reason"] for f in report["suppressed"]}),
+           "summary": report["summary"], "seconds": out["seconds"]}
+    if proc.returncode != 0 or report["findings"] or \
+            not all(f["reason"] for f in report["suppressed"]):
+        raise AssertionError("maggy_tpu_torch.analysis: {}".format(out))
+    return out
 
 
 def py_tfrecord_records(path):
@@ -826,6 +897,165 @@ def py_tfrecord_records(path):
         out.append(payload)
         pos += 16 + length
     return out
+
+
+def pb_fields(buf):
+    """(field number, value) of each field of one protobuf message: a
+    varint as an int, fixed64 as a double, fixed32 as a float, a
+    length-delimited field as its bytes."""
+    from maggy_tpu_torch.train.tfrecord import _read_varint
+
+    pos = 0
+    while pos < len(buf):
+        key, pos = _read_varint(buf, pos)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, pos = _read_varint(buf, pos)
+        elif wire == 1:
+            (value,), pos = struct.unpack_from("<d", buf, pos), pos + 8
+        elif wire == 5:
+            (value,), pos = struct.unpack_from("<f", buf, pos), pos + 4
+        elif wire == 2:
+            n, pos = _read_varint(buf, pos)
+            value, pos = bytes(buf[pos:pos + n]), pos + n
+        else:
+            raise ValueError("wire type {} of field {}".format(wire, field))
+        yield field, value
+
+
+def pb_value(buf):
+    """A google.protobuf.Value: its number, string or bool."""
+    for field, value in pb_fields(buf):
+        if field == 2:
+            return value
+        if field == 3:
+            return value.decode()
+        if field == 4:
+            return bool(value)
+    return None
+
+
+def decode_hparams(content):
+    """An HParamsPluginData: ("session_start", {name: value}),
+    ("session_end", status) or ("experiment", [hparam names])."""
+    for field, value in pb_fields(content):
+        if field == 3:
+            hparams = {}
+            for f, entry in pb_fields(value):
+                if f == 1:
+                    kv = dict(pb_fields(entry))
+                    hparams[kv[1].decode()] = pb_value(kv.get(2, b""))
+            return "session_start", hparams
+        if field == 4:
+            return "session_end", dict(pb_fields(value)).get(1)
+        if field == 2:
+            return "experiment", [dict(pb_fields(info))[1].decode()
+                                  for f, info in pb_fields(value) if f == 4]
+    return "unknown", None
+
+
+def decode_event(raw):
+    """One Event: its step, file_version and summary values, each (tag,
+    simple_value or None, the HParams record or None)."""
+    event = {"step": 0, "file_version": None, "values": []}
+    for field, value in pb_fields(raw):
+        if field == 2:
+            event["step"] = value
+        elif field == 3:
+            event["file_version"] = value.decode()
+        elif field == 5:
+            for f, val in pb_fields(value):
+                if f != 1:
+                    continue
+                v = dict(pb_fields(val))
+                plugin = None
+                if 9 in v:
+                    pd = dict(pb_fields(dict(pb_fields(v[9]))[1]))
+                    if pd.get(1) == b"hparams":
+                        plugin = decode_hparams(pd.get(2, b""))
+                event["values"].append((v[1].decode(), v.get(2), plugin))
+    return event
+
+
+def event_file_records(logdir):
+    """Every event of the event files in ``logdir``, read through the
+    port's TFRecord scanner with each frame's crcs verified: (files,
+    events). Each file must open with the version record."""
+    from maggy_tpu_torch import tensorboard
+    from maggy_tpu_torch.train.tfrecord import iter_tfrecord
+
+    files = sorted(glob.glob(os.path.join(logdir, tensorboard.EVENT_FILE_PREFIX + "*")))
+    events = []
+    for path in files:
+        evs = [decode_event(raw) for raw in iter_tfrecord(path, verify=True)]
+        if not evs or evs[0]["file_version"] != tensorboard.FILE_VERSION:
+            raise AssertionError("{}: no version record first".format(path))
+        events += evs[1:]
+    return files, events
+
+
+def tensorboard_check(name, exp_dir, records, searchspace, traced):
+    """The TensorBoard files of a sweep under ``exp_dir``, decoded here
+    (the card's machine has no tensorboard package): each trial dir holds
+    one event file with one session start carrying the trial's hparams, a
+    ``loss`` scalar for every step its records count, and one session end
+    (STATUS_SUCCESS); the experiment's ``tensorboard`` dir holds the HParams
+    config (the searchspace's names) and the telemetry scalars; with
+    ``traced``, exactly one trial's trace lies in its ``tensorboard`` dir.
+    Returns the reading; a mismatch raises."""
+    from maggy_tpu_torch import tensorboard
+    from maggy_tpu_torch.telemetry.profiling import TB_TRACE_SUFFIX
+
+    t0 = time.perf_counter()
+    problems, n_events, n_scalars, traces = [], 0, 0, []
+    steps = collections.Counter()
+    for r in records:
+        steps[r["trial_id"]] += r["steps"]
+    trial_files = sorted(glob.glob(os.path.join(exp_dir, "*", "*", "trial.json")))
+    for path in trial_files:
+        trial_dir = os.path.dirname(path)
+        with open(path) as f:
+            trial = json.load(f)
+        logdir = os.path.join(trial_dir, "tensorboard")
+        files, events = event_file_records(logdir)
+        n_events += len(events)
+        values = [v for e in events for v in e["values"]]
+        starts = [p[1] for _, _, p in values if p and p[0] == "session_start"]
+        ends = [p[1] for _, _, p in values if p and p[0] == "session_end"]
+        losses = [e["step"] for e in events for tag, _, _ in e["values"] if tag == "loss"]
+        n_scalars += len(losses)
+        want = trial["params"]
+        if len(files) != 1 or len(starts) != 1 or starts[0] != want or ends != [
+                tensorboard.STATUS_SUCCESS] or len(losses) != steps[trial["id"]]:
+            problems.append("{}: {} files, starts {} (want {}), ends {}, {} loss scalars for "
+                            "{} steps".format(trial["id"], len(files), starts, want, ends,
+                                              len(losses), steps[trial["id"]]))
+        traces += glob.glob(os.path.join(logdir, "*" + TB_TRACE_SUFFIX))
+    (run_dir,) = {os.path.dirname(os.path.dirname(p)) for p in trial_files}
+    exp_files, exp_events = event_file_records(os.path.join(run_dir, "tensorboard"))
+    exp_values = [v for e in exp_events for v in e["values"]]
+    configs = [p[1] for _, _, p in exp_values if p and p[0] == "experiment"]
+    telem = {tag: value for tag, value, p in exp_values if tag.startswith("telemetry/")}
+    if configs != [list(searchspace.to_dict())]:
+        problems.append("experiment config {} for {}".format(configs, list(searchspace.to_dict())))
+    if telem.get("telemetry/trials_finalized") != len(trial_files):
+        problems.append("telemetry scalars {}".format(telem))
+    reading = {"trial_dirs": len(trial_files), "events": n_events, "loss_scalars": n_scalars,
+               "experiment_files": len(exp_files), "telemetry_scalars": telem,
+               "traces": [os.path.relpath(t, exp_dir) for t in traces],
+               "decode_s": time.perf_counter() - t0}
+    if traced:
+        if len(traces) != 1:
+            problems.append("{} traces, want one".format(len(traces)))
+        else:
+            cats = trace_categories(traces[0])
+            reading.update(trace_kernel_events=cats.get("kernel", 0),
+                           trace_bytes=os.path.getsize(traces[0]))
+            if not cats.get("kernel"):
+                problems.append("the trace holds no kernel event: {}".format(cats))
+    if problems:
+        raise AssertionError("{}: tensorboard: {}".format(name, "; ".join(problems)))
+    return reading
 
 
 def native_check():
@@ -1382,8 +1612,21 @@ def time_split(records):
             "step_s_total": sum(r["step_s"] for r in records)}
 
 
-def train_bert_asha(lr, warmup_frac, budget, reporter, out_dir):
-    """One trial of the BERT-base ASHA sweep (slice, slice_process)."""
+def claim_once(flag):
+    """True for the one caller (of any process) that creates ``flag``."""
+    try:
+        os.close(os.open(flag, os.O_CREAT | os.O_EXCL))
+        return True
+    except FileExistsError:
+        return False
+
+
+def train_bert_asha(lr, warmup_frac, budget, reporter, out_dir, trace_flag=None):
+    """One trial of the BERT-base ASHA sweep (slice, slice_process): each
+    step's loss also a TensorBoard scalar; with ``trace_flag``, the first
+    trial to claim it traces its steps 1 and 2 with
+    ``tensorboard.start_trace`` / ``stop_trace`` into its logdir."""
+    from maggy_tpu_torch import tensorboard
     from maggy_tpu_torch.models import BertEncoder
     from maggy_tpu_torch.train import Trainer, adamw, warmup_cosine_decay_schedule
 
@@ -1394,12 +1637,25 @@ def train_bert_asha(lr, warmup_frac, budget, reporter, out_dir):
     sched = warmup_cosine_decay_schedule(0.0, lr, int(total * warmup_frac), total)
     trainer = Trainer(BertEncoder(cfg, device="meta"), adamw(sched), labels_loss,
                       device=DEVICE).init(seed=0)
+    traced = trace_flag is not None and claim_once(trace_flag)
+    tracing = False
     with record:
-        for i in range(total):
-            loss = trainer.step(batch(i))
-            record.steps += 1
-            if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
-                reporter.broadcast(-loss, step=i)
+        try:
+            for i in range(total):
+                if traced and i == 1:
+                    tensorboard.start_trace()
+                    tracing = True
+                loss = trainer.step(batch(i))
+                record.steps += 1
+                tensorboard.add_scalar("loss", loss, step=i)
+                if tracing and i == 2:
+                    tracing = False
+                    tensorboard.stop_trace()
+                if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
+                    reporter.broadcast(-loss, step=i)
+        finally:
+            if tracing:
+                tensorboard.stop_trace()
     final = float(loss)
     if not math.isfinite(final):
         raise FloatingPointError("non-finite loss {}".format(final))
@@ -1590,24 +1846,31 @@ def train_mnist(lr, batch, budget, reporter, out_dir, kill_flag=None, wedge_flag
 # ------------------------------------------------------------------- sweeps
 
 
-def bert_asha_sweep(exp_dir, pool, train=train_bert_asha):
+def bert_asha_space():
+    """The searchspace of the BERT-base ASHA sweeps (slice, slice_process)."""
+    from maggy_tpu_torch import Searchspace
+
+    return Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
+
+
+def bert_asha_sweep(exp_dir, pool, train=train_bert_asha, **train_kw):
     """The BERT-base ASHA(3, 1, 9) + median sweep on two runners of
-    ``pool``: (result, wall s, records, the driver process's launches)."""
-    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    ``pool``: (result, wall s, records, the driver process's launches).
+    ``train_kw`` go to the train function."""
+    from maggy_tpu_torch import OptimizationConfig, experiment
     from maggy_tpu_torch.ops import attention as A
     from maggy_tpu_torch.optimizers import Asha
 
     out_dir = fresh_dir(os.path.join(exp_dir, "records"))
-    sp = Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
     config = OptimizationConfig(
         name="bert_base_asha_smoke", num_trials=9,
         optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=0),
-        searchspace=sp, direction="max", num_workers=2, es_policy="median",
+        searchspace=bert_asha_space(), direction="max", num_workers=2, es_policy="median",
         es_min=3, hb_interval=0.1, seed=0, experiment_dir=fresh_dir(os.path.join(exp_dir, "exp")),
         pool=pool)
     A.reset_launch_counts()
     t0 = time.perf_counter()
-    result = experiment.lagom(functools.partial(train, out_dir=out_dir), config)
+    result = experiment.lagom(functools.partial(train, out_dir=out_dir, **train_kw), config)
     wall = time.perf_counter() - t0
     return result, wall, read_records(out_dir), A.launch_counts()
 
@@ -1660,9 +1923,12 @@ def phase_slice(exp_dir):
 
     cfg, batch = bert_data()
     before = warm.counters()
-    result, wall, records, launches = bert_asha_sweep(exp_dir, "thread")
+    trace_flag = os.path.join(fresh_dir(os.path.join(exp_dir, "flags")), "trace")
+    result, wall, records, launches = bert_asha_sweep(exp_dir, "thread", trace_flag=trace_flag)
     trials, promoted, total_steps, expected = check_bert_sweep(
         "slice", result, exp_dir, records, launches)
+    tb_reading = tensorboard_check("slice", os.path.join(exp_dir, "exp"), records,
+                                   bert_asha_space(), traced=True)
     telemetry = journal_check("slice", os.path.join(exp_dir, "exp"), result, trace=True)
     reading_warm = warm_reading("slice", telemetry, before)
     CAPTURED["bert_base"] = reading_warm["captured"]
@@ -1711,7 +1977,7 @@ def phase_slice(exp_dir):
          step_ms_alone_eager=float(np.median(alone["eager"])), step_ms_alone_pairs=alone,
          step_profile=profile, warm=reading_warm, time_split=time_split(records),
          pipeline=pipeline_summary(result["pipeline"]), telemetry=public(telemetry),
-         logits_max_abs_err=logit_err, logits_tol=logit_tol,
+         logits_max_abs_err=logit_err, logits_tol=logit_tol, tensorboard=tb_reading,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     reading = {"sweep_wall_s": wall, "steps": total_steps, "forks": forks,
                **fork_reading(telemetry)}
@@ -3102,13 +3368,14 @@ def phase_slice_lanes(exp_root, warm_bert_losses):
 
     profiles, ops = {}, {}
     for label, make in (("scalar", scalar_bert), ("lanes", lanes_bert)):
-        ms, trainer = lanes_step_alone(make, bert_batch)
-        profiles[label] = dict(step_device_profile(lambda i: trainer.step(bert_batch(i))),
+        ms, trainer = lanes_step_alone(make, bert_batch, n=BERT_LANES_ALONE_STEPS)
+        profiles[label] = dict(step_device_profile(lambda i: trainer.step(bert_batch(i)),
+                                                   steps=BERT_LANES_PROFILE_STEPS),
                                replayed_step_alone_ms=ms)
         del trainer
         eager = make(warm_start=False)
         eager.step(bert_batch(0))
-        ops[label] = op_device_ms(lambda i: eager.step(bert_batch(i)))
+        ops[label] = op_device_ms(lambda i: eager.step(bert_batch(i)), steps=BERT_LANES_OP_STEPS)
         del eager
         clear_warm()
     scalar_ms = profiles["scalar"]["replayed_step_alone_ms"]
@@ -4415,12 +4682,26 @@ def allocated_after_release():
     return [cleared, torch.cuda.memory_allocated()]
 
 
+def witness_line(block):
+    """A soak's lock-order witness reading as a phase line prints it: the
+    edges seen, the forbidden ones, the acquisitions the witness noted and
+    the seconds it spent noting them (its overhead, less the wrapper's own
+    call cost); None for a soak that ran without it."""
+    if block is None:
+        return None
+    return {"edges_seen": block.get("edge_count", block.get("edges")),
+            "violations": block["violations"], "acquisitions": block["acquisitions"],
+            "overhead_s": block["busy_s"]}
+
+
 def chaos_soak(name, run, problems, kinds, pool="thread"):
     """Run one slice_chaos sub-soak and print its line: violations,
     injections by kind, recovery latencies, health flags, wall, warm
     counters, warm units and allocated bytes before and after (and after
-    the units and the cuBLAS workspaces are dropped), peak memory. A
-    violation, or no injection of each kind in ``kinds``, is a problem."""
+    the units and the cuBLAS workspaces are dropped), peak memory, and the
+    lock-order witness's reading (every soak runs under it). A violation (a
+    forbidden lock-order edge among them), a soak without the witness, or no
+    injection of each kind in ``kinds``, is a problem."""
     from maggy_tpu_torch.train import warm
 
     gc.collect()
@@ -4449,6 +4730,9 @@ def chaos_soak(name, run, problems, kinds, pool="thread"):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "faults": replacement_first_metric_s(report)}
     line["allocated_bytes_released"] = allocated_after_release()
+    line["witness"] = witness_line(report.get("witness"))
+    if line["witness"] is None:
+        problems.append("{}: ran without the lock-order witness".format(name))
     for kind in kinds:
         if not report["faults"]["by_kind"].get(kind):
             problems.append("{}: no {} injected".format(name, kind))
@@ -4512,7 +4796,7 @@ def phase_slice_chaos():
 
     def soak(name, **kw):
         return lambda: harness.run_soak(base_dir=os.path.join(CHAOS_ROOT, name),
-                                        hb_interval=CHAOS_HB_S, **kw)
+                                        hb_interval=CHAOS_HB_S, lock_witness=True, **kw)
 
     subsoaks = [
         ("kill_thread", ["kill_runner", "fake_preemption"], "thread",
@@ -4536,16 +4820,16 @@ def phase_slice_chaos():
         ("fork", ["kill_fork"], "thread",
          lambda: harness.run_fork_soak(seed=7, base_dir=os.path.join(CHAOS_ROOT, "fork"),
                                        train_fn=ckpt, hb_interval=CHAOS_HB_S,
-                                       hb_loss_timeout=1.0)),
+                                       hb_loss_timeout=1.0, lock_witness=True)),
         ("lanes", ["kill_runner"], "thread",
          lambda: harness.run_vmap_soak(
              seed=7, base_dir=os.path.join(CHAOS_ROOT, "lanes"), hb_interval=CHAOS_HB_S,
-             hb_loss_timeout=1.0, train_fn=functools.partial(train_mnist_vmap,
-                                                             out_dir=out_dir))),
+             hb_loss_timeout=1.0, lock_witness=True,
+             train_fn=functools.partial(train_mnist_vmap, out_dir=out_dir))),
         ("control", [], "thread",
          lambda: harness.run_goodput_soak(seed=7, base_dir=os.path.join(CHAOS_ROOT, "control"),
                                           hb_interval=CHAOS_HB_S, train_fn=mnist,
-                                          config_overrides=space)),
+                                          config_overrides=space, lock_witness=True)),
     ]
     lines = {}
     for name, kinds, pool, run in subsoaks:
@@ -5267,12 +5551,15 @@ def phase_slice_agents(exp_root):
     for name, soak in (("agent_soak", functools.partial(run_agent_soak, agents=2, trials=4)),
                        ("sink_soak", functools.partial(run_sink_soak, tenants=2, trials=4))):
         t0 = time.perf_counter()
-        report = soak(base_dir=fresh_dir(os.path.join(exp_root, name)))
+        report = soak(base_dir=fresh_dir(os.path.join(exp_root, name)), lock_witness=True)
+        witness = witness_line(report["witness"])
         emit("slice_agents/" + name, ok=report["ok"], violations=report["violations"],
-             wall_s=time.perf_counter() - t0,
-             detail={k: v for k, v in report["detail"].items() if k != "per_source"})
-        if not report["ok"]:
-            raise AssertionError("slice_agents: {}: {}".format(name, report["violations"]))
+             wall_s=time.perf_counter() - t0, witness=witness,
+             detail={k: v for k, v in report["detail"].items()
+                     if k not in ("per_source", "witness")})
+        if not report["ok"] or witness is None:
+            raise AssertionError("slice_agents: {}: {} (witness {})".format(
+                name, report["violations"], witness))
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -5493,7 +5780,7 @@ def phase_slice_agents(exp_root):
         OptimizationConfig(name="mnist_profiled", num_trials=1, optimizer="randomsearch",
                            searchspace=chaos_space(), hb_interval=FLEET_HB_S, seed=0,
                            es_policy="none", experiment_dir=prof_dir, profile=True))
-    traces = glob.glob(os.path.join(prof_dir, "*", "*", "profile", "trace.json"))
+    traces = glob.glob(os.path.join(prof_dir, "*", "*", "tensorboard", "*.pt.trace.json"))
     profiled = {"trials": prof_result["num_trials"], "traces": len(traces),
                 "kernel_events": trace_categories(traces[0]).get("kernel", 0) if traces else 0,
                 "trace_bytes": os.path.getsize(traces[0]) if traces else 0,

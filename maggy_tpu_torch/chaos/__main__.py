@@ -27,6 +27,11 @@ harness's, since no in-process plan can reach another process or the
 fleet's sink), and their processes run with no card. ``--gang`` runs the
 gang soak (its ranks on the device kind ``MAGGY_TPU_TORCH_DEVICE`` names,
 "cuda" by default; ``cpu`` for a host without a card).
+
+Every soak runs under the lock-order witness
+(``maggy_tpu_torch.analysis.witness``) unless ``--no-witness``: the
+acquisition edges the run takes are recorded, and an edge the static lock
+order forbids fails the soak like an invariant violation.
 """
 
 from __future__ import annotations
@@ -104,6 +109,10 @@ def main(argv=None) -> int:
                          "sweep with one member of the first assembled gang killed "
                          "mid-trial; the whole gang lease must be revoked and the trial "
                          "requeued exactly once (invariant 8)")
+    ap.add_argument("--no-witness", action="store_true",
+                    help="disable the runtime lock-order witness "
+                         "(maggy_tpu_torch.analysis.witness; on by default so "
+                         "every soak doubles as a dynamic lock-order check)")
     args = ap.parse_args(argv)
 
     from maggy_tpu_torch.chaos import harness
@@ -117,27 +126,31 @@ def main(argv=None) -> int:
         ap.error("pick one of --stall / --piggyback / --preempt / --gang / --fork / "
                  "--goodput / --vmap")
     seed = 7 if args.seed is None else args.seed
+    witness = not args.no_witness
     if args.driver:
         from maggy_tpu_torch.chaos.driver_soak import run_driver_soak
 
-        report = run_driver_soak(seed=seed)
+        report = run_driver_soak(seed=seed, lock_witness=witness)
     elif args.sink:
         from maggy_tpu_torch.fleet.soak import run_sink_soak
 
-        report = run_sink_soak(seed=seed)
+        report = run_sink_soak(seed=seed, lock_witness=witness)
     elif args.agent:
         from maggy_tpu_torch.fleet.soak import run_agent_soak
 
-        report = run_agent_soak(trials=min(args.trials, 6), seed=seed)
+        report = run_agent_soak(trials=min(args.trials, 6), seed=seed,
+                                lock_witness=witness)
     elif args.vmap:
-        report = harness.run_vmap_soak(seed=seed, num_trials=args.trials)
+        report = harness.run_vmap_soak(seed=seed, num_trials=args.trials,
+                                       lock_witness=witness)
     elif args.goodput:
         report = harness.run_goodput_soak(seed=seed, num_trials=args.trials,
-                                          workers=args.workers)
+                                          workers=args.workers, lock_witness=witness)
     elif args.fork:
-        report = harness.run_fork_soak(seed=seed)
+        report = harness.run_fork_soak(seed=seed, lock_witness=witness)
     elif args.gang and not args.show_schedule:
-        report = harness.run_gang_soak(seed=seed, num_trials=args.trials)
+        report = harness.run_gang_soak(seed=seed, num_trials=args.trials,
+                                       lock_witness=witness)
     else:
         report = None
     if report is not None:
@@ -180,7 +193,8 @@ def main(argv=None) -> int:
                                              "health_interval_s": 0.1})
     report = harness.run_soak(plan=plan, seed=plan.seed, train_fn=train_fn,
                               num_trials=args.trials, workers=args.workers,
-                              pool=args.pool, obs=args.obs, **soak_kwargs)
+                              pool=args.pool, obs=args.obs, lock_witness=witness,
+                              **soak_kwargs)
     print(json.dumps(report, indent=2, default=str))
     return 0 if report["ok"] else 1
 

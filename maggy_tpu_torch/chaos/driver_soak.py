@@ -19,13 +19,17 @@ The port's copy of ``maggy_tpu/chaos/driver_soak.py``, with real processes:
    re-run, every kill followed by a recovered incarnation) and the rest.
 
 ``python -m maggy_tpu_torch.chaos --driver`` runs it. The trials are
-closed-form host work, and every child runs with no card visible. Left
-out: the children's lock-order witness (``maggy_tpu.analysis``, ROADMAP
-queue 1 item 13).
+closed-form host work, and every child runs with no card visible. With
+``lock_witness`` (the default) each driver child runs under the lock-order
+witness (``MAGGY_TPU_TORCH_LOCK_WITNESS=1`` in its environment) and dumps
+its snapshot beside the base dir; the parent sums the children's edges and
+violations into the report's ``witness`` block (zero edges is a violation:
+the race check ran nothing).
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import signal
@@ -65,7 +69,8 @@ def failover_train_fn(lr, units, reporter=None):
 def child_main(argv: Optional[List[str]] = None) -> int:
     """One driver incarnation (``--child``): run the soak's sweep over a
     remote runner pool; with ``--resume``, adopt and recover the
-    interrupted run."""
+    interrupted run. Dumps a lock-order witness snapshot next to the base
+    dir when the environment arms the witness, for the parent to sum."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="python -m maggy_tpu_torch.chaos.driver_soak")
@@ -81,6 +86,11 @@ def child_main(argv: Optional[List[str]] = None) -> int:
     # requeue a live runner's trial (correct but adoption-less).
     ap.add_argument("--hb-loss-timeout", type=float, default=6.0)
     args = ap.parse_args(argv)
+
+    # Witness first: locks constructed after install are wrapped.
+    from maggy_tpu_torch.analysis import witness as _witness
+
+    wit = _witness.install() if _witness.enabled_by_env() else None
 
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
 
@@ -103,17 +113,27 @@ def child_main(argv: Optional[List[str]] = None) -> int:
     except BaseException as e:  # noqa: BLE001 - the parent reads the verdict
         print(json.dumps({"ok": False, "error": repr(e)}), flush=True)
         rc = 1
+    if wit is not None:
+        snap = wit.snapshot()
+        with open(os.path.join(args.base_dir,
+                               "witness_{}.json".format(os.getpid())), "w") as f:
+            json.dump({"edge_count": snap["edge_count"], "violations": snap["violations"],
+                       "acquisitions": snap["acquisitions"], "busy_s": snap["busy_s"]}, f)
     return rc
 
 
 # ----------------------------------------------------------------- harness
 
 
-def _child_env() -> Dict[str, str]:
+def _child_env(lock_witness: bool) -> Dict[str, str]:
     env = dict(os.environ)
     env["MAGGY_TPU_APP_ID"] = APP_ID
     env["MAGGY_TPU_JOURNAL_FSYNC"] = "1"
     env["MAGGY_TPU_CLIENT_MAX_RETRIES"] = str(CHILD_CLIENT_RETRIES)
+    if lock_witness:
+        env["MAGGY_TPU_TORCH_LOCK_WITNESS"] = "1"
+    else:
+        env.pop("MAGGY_TPU_TORCH_LOCK_WITNESS", None)
     # The closed-form trials need no card: the children never touch CUDA.
     env["CUDA_VISIBLE_DEVICES"] = ""
     # The children import this package from where this process did.
@@ -187,17 +207,18 @@ def _drain(proc: subprocess.Popen) -> str:
 
 def run_driver_soak(trials: int = 6, workers: int = 3, seed: int = 7,
                     kills: int = 1, base_dir: Optional[str] = None,
+                    lock_witness: bool = True,
                     progress_per_kill: int = 1,
                     restart_timeout_s: float = 240.0) -> Dict[str, Any]:
     """Run the kill_driver soak end to end; returns the invariant report
-    (``check_invariants`` shape + a ``failover`` block)."""
+    (``check_invariants`` shape + ``failover``/``witness`` blocks)."""
     import tempfile
 
     from maggy_tpu_torch.chaos.harness import check_invariants
     from maggy_tpu_torch.telemetry import read_events
 
     base_dir = base_dir or tempfile.mkdtemp(prefix="maggy_driver_soak_")
-    env = _child_env()
+    env = _child_env(lock_witness)
     journal = _journal_path(base_dir)
     ticket = os.path.join(base_dir, "{}_0".format(APP_ID),
                           "runner_ticket.json")
@@ -277,6 +298,23 @@ def run_driver_soak(trials: int = 6, workers: int = 3, seed: int = 7,
             "missing incarnations: {} driver_epoch event(s) for {} "
             "kill(s)".format(len(report["failover"]["driver_epochs"]),
                              kills))
+    # Witness aggregation across the incarnations.
+    if lock_witness:
+        block = {"edge_count": 0, "violations": [], "acquisitions": 0, "busy_s": 0.0}
+        for path in sorted(glob.glob(os.path.join(base_dir, "witness_*.json"))):
+            with open(path) as f:
+                snap = json.load(f)
+            block["edge_count"] += int(snap.get("edge_count") or 0)
+            block["violations"].extend(snap.get("violations") or [])
+            block["acquisitions"] += int(snap.get("acquisitions") or 0)
+            block["busy_s"] += float(snap.get("busy_s") or 0.0)
+        report["witness"] = block
+        if block["edge_count"] == 0:
+            report["violations"].append(
+                "lock-order witness recorded zero edges: the children "
+                "never armed it — the soak's race check ran nothing")
+        report["violations"].extend(
+            "lock-order witness: " + v for v in block["violations"])
     report["ok"] = not report["violations"]
     # Separate block: must not collide with check_invariants' own keys
     # (notably the "trials" lifecycle-count dict).

@@ -44,9 +44,10 @@ fleet and in ``driver_soak.py``. Like
 the JAX package's, their signatures name no device: the ``train_fn`` decides
 where the work runs. The default trials are closed-form host loops;
 ``chip_smoke.py``'s ``slice_chaos`` phase passes trials that train on the
-card. Left out: the lock-order witness of the JAX soaks
-(``maggy_tpu.analysis``, which reads only the JAX package's sources; a copy
-pointed at the port is optional, ROADMAP queue 1 item 13).
+card. Every soak takes ``lock_witness`` as the JAX soaks do (None defers to
+``MAGGY_TPU_TORCH_LOCK_WITNESS``): armed, it runs under the port's
+lock-order witness (``maggy_tpu_torch/analysis/witness.py``), the report
+carries a ``witness`` block and a forbidden edge is a violation.
 """
 
 from __future__ import annotations
@@ -308,6 +309,7 @@ def run_soak(plan: Optional[FaultPlan] = None, seed: int = 7,
              base_dir: Optional[str] = None,
              requeue_grace_s: float = 5.0,
              config_overrides: Optional[Dict[str, Any]] = None,
+             lock_witness: Optional[bool] = None,
              obs: bool = False) -> Dict[str, Any]:
     """Execute one soak and return its report (see ``check_invariants``).
 
@@ -321,11 +323,22 @@ def run_soak(plan: Optional[FaultPlan] = None, seed: int = 7,
     report gains an ``obs`` block, and an unresponsive endpoint, an
     untruthful /healthz, or a missing or duplicated health-triggered
     ``profile_captured`` artifact is a violation. The report's ``wall_s``
-    is the experiment's wall time."""
+    is the experiment's wall time.
+
+    ``lock_witness`` arms the runtime lock-order witness for the soak
+    (JAX ``harness.py:660-668``): every acquired-while-holding edge the
+    experiment takes is recorded, and an edge the static canonical order
+    forbids is a violation. None defers to MAGGY_TPU_TORCH_LOCK_WITNESS.
+    It is installed before the driver builds its locks, and uninstalled on
+    the way out if this call installed it."""
     import json as _json
     import tempfile
     import threading
     import time as _time
+
+    from maggy_tpu_torch.analysis.witness import SoakWitness
+
+    wit = SoakWitness(lock_witness)
 
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
     from maggy_tpu_torch.core import rpc
@@ -379,6 +392,7 @@ def run_soak(plan: Optional[FaultPlan] = None, seed: int = 7,
         if obs_thread is not None:
             obs_stop.set()
             obs_thread.join(timeout=5)
+        wit.release()
     wall_s = _time.perf_counter() - t0
     retries = rpc.CLIENT_METRICS.counter("rpc.client.retries").value - retry0
     exp_dirs = sorted(d for d in glob.glob(os.path.join(base_dir, "*"))
@@ -445,6 +459,13 @@ def run_soak(plan: Optional[FaultPlan] = None, seed: int = 7,
         client_retries=retries,
         schedule_fingerprint=plan.fingerprint(),
     )
+    reading = wit.reading()
+    if reading is not None:
+        report["witness"] = reading
+        if reading["violations"]:
+            report["violations"].extend(
+                "lock-order witness: " + v for v in reading["violations"])
+            report["ok"] = False
     return report
 
 
@@ -466,7 +487,8 @@ def gang_soak_train_fn(lr, budget=1, gang=None, reporter=None, ctx=None):
 
 def run_gang_soak(seed: int = 7, num_trials: int = 10, workers: int = 8,
                   gang_chips: int = 4, base_dir: Optional[str] = None,
-                  hb_loss_timeout: float = 1.0) -> Dict[str, Any]:
+                  hb_loss_timeout: float = 1.0,
+                  lock_witness: Optional[bool] = None) -> Dict[str, Any]:
     """The gang chaos soak (JAX ``harness.py:260-317``): the pack soak's
     mixed ASHA sweep (1-chip rung-0 trials and ``gang_chips``-chip fsdp
     promotions on ``workers`` thread runners) under ``gang_plan``. Checks
@@ -484,6 +506,7 @@ def run_gang_soak(seed: int = 7, num_trials: int = 10, workers: int = 8,
         plan=plan, seed=seed, train_fn=gang_soak_train_fn,
         num_trials=num_trials, workers=workers, pool="thread",
         hb_interval=0.05, hb_loss_timeout=hb_loss_timeout, base_dir=base_dir,
+        lock_witness=lock_witness,
         config_overrides=dict(
             optimizer=Asha(reduction_factor=gang_chips, resource_min=1,
                            resource_max=gang_chips, seed=seed),
@@ -512,7 +535,7 @@ def run_goodput_soak(seed: int = 7, num_trials: int = 12, workers: int = 3,
     other half): with NO faults injected, the goodput fold over the journal
     must book ~zero rework and an ``unaccounted`` residual at or under 5%
     of held chip-time. ``soak_kwargs`` go to ``run_soak`` (a card trial's
-    ``train_fn`` and ``config_overrides``)."""
+    ``train_fn`` and ``config_overrides``, ``lock_witness``)."""
     soak_kwargs.setdefault("hb_loss_timeout", 2.0)
     report = run_soak(plan=FaultPlan([], seed), seed=seed,
                       num_trials=num_trials, workers=workers, **soak_kwargs)
@@ -540,8 +563,8 @@ def run_goodput_soak(seed: int = 7, num_trials: int = 12, workers: int = 3,
 def run_fork_soak(seed: int = 7, num_trials: int = 4, workers: int = 2,
                   base_dir: Optional[str] = None,
                   train_fn: Optional[Callable] = None,
-                  hb_interval: float = 0.05, hb_loss_timeout: float = 0.6
-                  ) -> Dict[str, Any]:
+                  hb_interval: float = 0.05, hb_loss_timeout: float = 0.6,
+                  lock_witness: Optional[bool] = None) -> Dict[str, Any]:
     """The checkpoint-forking chaos soak (invariant 14), two halves:
 
     1. **Runner death mid-fork**: an ASHA sweep whose promotions FORK their
@@ -562,6 +585,7 @@ def run_fork_soak(seed: int = 7, num_trials: int = 4, workers: int = 2,
         plan=fork_plan(seed), seed=seed, train_fn=train_fn or fork_ckpt_train_fn,
         num_trials=num_trials, workers=workers, pool="thread",
         hb_interval=hb_interval, hb_loss_timeout=hb_loss_timeout, base_dir=base_dir,
+        lock_witness=lock_witness,
         config_overrides=dict(
             optimizer=Asha(reduction_factor=2, resource_min=1,
                            resource_max=2, seed=seed),
@@ -733,7 +757,7 @@ def run_vmap_soak(seed: int = 7, num_trials: int = 12, workers: int = 2,
                   lanes: int = 4, base_dir: Optional[str] = None,
                   train_fn: Optional[Callable] = None,
                   hb_interval: float = 0.05, hb_loss_timeout: float = 0.6,
-                  nth: int = 4) -> Dict[str, Any]:
+                  nth: int = 4, lock_witness: Optional[bool] = None) -> Dict[str, Any]:
     """The vectorized-block chaos soak: a float-only sweep (every trial
     program-compatible, so blocks assemble as soon as the prefetch queue
     fills) with ``vmap_lanes=lanes`` on a 2-runner thread fleet, under
@@ -748,6 +772,7 @@ def run_vmap_soak(seed: int = 7, num_trials: int = 12, workers: int = 2,
         train_fn=train_fn or vmap_soak_train_fn,
         num_trials=num_trials, workers=workers, pool="thread",
         hb_interval=hb_interval, hb_loss_timeout=hb_loss_timeout, base_dir=base_dir,
+        lock_witness=lock_witness,
         config_overrides=dict(
             searchspace=Searchspace(lr=("DOUBLE", [0.0, 0.2])),
             vmap_lanes=lanes,

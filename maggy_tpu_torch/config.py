@@ -188,8 +188,8 @@ class OptimizationConfig(LagomConfig):
     # shipper's fallback while the sink is down. Ignored without a fleet or
     # with the fleet's sink off.
     sink: bool = False
-    # A torch.profiler trace per trial into <trial dir>/profile/
-    # (maggy_tpu/config.py:229-230). One trace at a time a process: a
+    # A torch.profiler trace per trial into <trial dir>/tensorboard/, the
+    # trial's TensorBoard logdir (maggy_tpu/config.py:229-230). One trace at a time a process: a
     # thread-pool trial that finds the profiler busy runs untraced and
     # journals ``profile_skipped``.
     profile: bool = False

@@ -952,13 +952,13 @@ class OptimizationDriver(Driver):
         queue 3 item 9)."""
         if self.server.reservations.get_assigned_trial(msg["partition_id"]) is not None:
             return
-        self._assign_next(msg["partition_id"], None)
+        self._assign_next(msg["partition_id"], msg.get("last_trial"))
 
     def _rearm_idle(self, partition_id: int) -> None:
         # A timer, not a sleep on the single worker thread: idle runners
         # must not stall METRIC processing.
-        timer = threading.Timer(constants.DRIVER_IDLE_REQUEUE_TICK_S, self.enqueue,
-                                args=({"type": "IDLE", "partition_id": partition_id},))
+        msg = {"type": "IDLE", "partition_id": partition_id, "last_trial": None}
+        timer = threading.Timer(constants.DRIVER_IDLE_REQUEUE_TICK_S, self.enqueue, args=(msg,))
         timer.daemon = True
         timer.start()
 
@@ -1909,14 +1909,17 @@ class OptimizationDriver(Driver):
     def _refresh_recovery(self) -> None:
         """result's ``lost_runners`` and ``recovery`` blocks, read back from
         the telemetry: counters from its registry, each requeue (trial,
-        partition, wall time) from its ``requeued`` span events."""
+        partition, wall time) from its ``requeued`` span events. The
+        telemetry is read before the result lock is taken: its registry's
+        locks are not to be acquired under it (the lock-order witness
+        caught that nesting)."""
+        counters = self.telemetry.metrics.snapshot()["counters"]
+        killed = sorted(int(k[len(_KILLED):]) for k in counters if k.startswith(_KILLED))
+        requeued = [{"trial_id": ev["trial"], "partition": ev["partition"], "at": ev["t"]}
+                    for ev in self.telemetry.events()
+                    if ev.get("ev") == "trial" and ev["phase"] == "requeued"
+                    and ev.get("reason") == "heartbeat_loss"]
         with self._result_lock:
-            counters = self.telemetry.metrics.snapshot()["counters"]
-            killed = sorted(int(k[len(_KILLED):]) for k in counters if k.startswith(_KILLED))
-            requeued = [{"trial_id": ev["trial"], "partition": ev["partition"], "at": ev["t"]}
-                        for ev in self.telemetry.events()
-                        if ev.get("ev") == "trial" and ev["phase"] == "requeued"
-                        and ev.get("reason") == "heartbeat_loss"]
             self.result["lost_runners"] = counters.get("recovery.lost_runners", 0)
             self.result["recovery"] = {
                 "requeued": requeued,
@@ -1972,6 +1975,16 @@ class OptimizationDriver(Driver):
         # must not decide whether the last trials' spans land.
         self.telemetry.event("experiment", phase="finalized", duration_s=duration)
         self.telemetry.flush()
+        try:
+            # The derived scheduling numbers as TensorBoard scalars beside
+            # the experiment's hparams config (JAX
+            # `optimization_driver.py:2297-2306`).
+            from maggy_tpu_torch import tensorboard
+
+            tensorboard.write_telemetry_scalars(self.exp_dir,
+                                                self.telemetry.snapshot(fresh=True))
+        except Exception:  # noqa: BLE001 - telemetry mirrors are best-effort
+            pass
         self.env.finalize_experiment(
             self.exp_dir, "FINISHED",
             {"result": {k: self.result[k] for k in

@@ -126,7 +126,10 @@ class DistExecutor:
                                                   timeout, reporter)
                 grouped = True
             if self.config.profile:
-                with profiling.trial_profile("{}/worker_{}".format(self.exp_dir, partition_id)):
+                # A profiled rank's trace goes where the JAX package's goes
+                # (``dist_executor.py:91-95``).
+                with profiling.trial_profile("{}/tensorboard_worker{}".format(
+                        self.exp_dir, partition_id)):
                     metric = self._run_train_fn(sharding_env, reporter)
             else:
                 metric = self._run_train_fn(sharding_env, reporter)

@@ -53,7 +53,8 @@ the new size to its resize file and exits for the pool to respawn it.
 
 Per-trial profiles and print shipping (JAX `trial_executor.py:34-70,
 583-620`): with ``profile`` a trial runs inside ``profiling.trial_profile``
-(a torch.profiler trace into ``<trial dir>/profile/``, one a process; a
+(a torch.profiler trace into ``<trial dir>/tensorboard/``, the trial's
+TensorBoard logdir, one a process; a
 trial that finds the profiler taken runs untraced and its runner stats
 carry ``profile_skipped``, journaled as that trial event); with
 ``ship_prints`` the train function's ``print`` calls are teed into the
@@ -75,7 +76,7 @@ import traceback
 from typing import Callable, Optional, Tuple
 
 from maggy_tpu_torch import gang as gang_mod
-from maggy_tpu_torch import util
+from maggy_tpu_torch import tensorboard, util
 from maggy_tpu_torch.core.environment import EnvSing
 from maggy_tpu_torch.core.executors.context import (LaneSet, TrialContext,
                                                     info_needs_fresh_state)
@@ -132,7 +133,8 @@ def call_train_fn(train_fn: Callable, call_params: dict, trial_dir: str, reporte
     try:
         if not profile:
             return train_fn(**call_params)
-        with profiling.trial_profile(trial_dir) as path:
+        with profiling.trial_profile(os.path.join(trial_dir, profiling.TRIAL_PROFILE_DIR)) \
+                as path:
             if path is None:
                 if on_untraced is not None:
                     on_untraced()
@@ -211,6 +213,20 @@ class TrialExecutor:
                 # The driver-minted span rides the TRIAL info.
                 reporter.reset(trial_id=trial_id, span=client.last_info.get("span"))
                 stats.trial_start(trial_id)
+                gang = client.last_info.get("gang")
+                in_process_gang = bool(gang and len(gang.get("chips") or ()) > 1
+                                       and not gang.get("rendezvous"))
+                try:
+                    # Per-trial TensorBoard logdir and hparams record (JAX
+                    # `trial_executor.py:200-208`). An in-process gang's
+                    # rank 0 writes its trial's session in its own process.
+                    if in_process_gang:
+                        tensorboard._close()
+                    else:
+                        tensorboard._register(os.path.join(trial_dir, "tensorboard"))
+                        tensorboard.write_hparams(params)
+                except Exception:  # noqa: BLE001 - TB must never kill a trial
+                    pass
                 call_params = dict(params)
                 if self.trial_type == "ablation":
                     # Declarative spec -> the study's generators.
@@ -230,9 +246,7 @@ class TrialExecutor:
                     # stats; at its exit their units retire into their warm
                     # slots. A trial that continues saved state restores it
                     # from its checkpoint into fresh state.
-                    gang = client.last_info.get("gang")
-                    if gang and len(gang.get("chips") or ()) > 1 \
-                            and not gang.get("rendezvous"):
+                    if in_process_gang:
                         # An in-process gang: this runner leads its ranks.
                         retval = gang_mod.run_gang_ranks(
                             self.train_fn, dict(params), dict(client.last_info), reporter,
@@ -271,6 +285,13 @@ class TrialExecutor:
                     if ctx is not None:
                         ctx.close()
         finally:
+            try:
+                # Close the last trial's TensorBoard session: its session end
+                # record, and the event file flushed (JAX
+                # `trial_executor.py:305-314`).
+                tensorboard._close()
+            except Exception:  # noqa: BLE001
+                pass
             client.stop()
 
     def _run_gang_member(self, trial_id: str, params: dict, client, reporter) -> None:

@@ -510,6 +510,7 @@ class Server:
         self._handlers["QUERY"] = lambda msg: {"type": "QUERY",
                                                "done": self.reservations.done()}
         self._handlers["JOIN"] = self._join
+        # rpc-ok: TELEM produced by monitor --telem via a generic send_msg
         self._handlers["TELEM"] = self._telem
 
     def _join(self, msg):
@@ -847,7 +848,7 @@ class OptimizationServer(Server):
         if trial_id and has_value and self.reservations.pop_stop(pid, trial_id):
             # A gang revocation's abort: preempt-shaped, so the leader acks
             # and frees itself; the driver already requeued the trial.
-            return {"type": "STOP", "preempt": True}
+            return {"type": "STOP", "span": msg.get("span"), "preempt": True}
         if msg.get("lanes"):
             return self._metric_lanes(msg, trial_id)
         trial = self.driver.get_trial(trial_id) if trial_id else None
@@ -859,7 +860,9 @@ class OptimizationServer(Server):
             # ``preempt``: a scheduler preemption, not an early-stop verdict
             # — the runner acks with a preempted FINAL carrying its last
             # checkpoint step instead of finalizing (JAX `rpc.py:1351-1355`).
-            return {"type": "STOP", "preempt": trial.get_preempt()}
+            # The reply echoes the span, so the runner side can attribute
+            # the abort without re-deriving it.
+            return {"type": "STOP", "span": msg.get("span"), "preempt": trial.get_preempt()}
         return {"type": "OK"}
 
     def _metric_lanes(self, msg, leader_id):
@@ -883,7 +886,7 @@ class OptimizationServer(Server):
                                   partition=int(msg["partition_id"]), lane=beat.get("lane"))
         leader = self.driver.get_trial(leader_id) if leader_id else None
         if preempt or (leader is not None and leader.get_early_stop() and leader.get_preempt()):
-            return {"type": "STOP", "preempt": True}
+            return {"type": "STOP", "span": msg.get("span"), "preempt": True}
         reply = {"type": "OK"}
         if stop_lanes:
             reply["stop_lanes"] = stop_lanes
@@ -1759,13 +1762,14 @@ class Client:
         leader's would let a stale lane FINAL past the driver's epoch
         guard). Only the ``last`` releases the partition, resets the
         reporter and banks the reply's hand-off (JAX `rpc.py:2083-2108`)."""
-        payload = {"trial_id": trial_id, "value": None if error else metric, "epoch": epoch,
+        payload = {"type": "FINAL", "trial_id": trial_id,
+                   "value": None if error else metric, "epoch": epoch,
                    "lane": int(lane), "block": block, "last": bool(last)}
         if error:
             payload["error"] = True
         if last:
             return self._finalize(payload, reporter)
-        return self._request({**payload, "type": "FINAL", "logs": []})
+        return self._request({**payload, "logs": []})
 
     def _bank(self, resp: Dict[str, Any]) -> None:
         if resp.get("type") == "TRIAL":

@@ -25,8 +25,9 @@ import threading
 class _Gate:
     def __init__(self):
         self._cond = threading.Condition()
-        self._steps = 0  # guarded-by: _cond; steps running
-        self._waiting = 0  # guarded-by: _cond; exclusive holders waiting
+        # Steps running, exclusive holders waiting, and whether one holds.
+        self._steps = 0  # guarded-by: _cond
+        self._waiting = 0  # guarded-by: _cond
         self._held = False  # guarded-by: _cond
 
     @contextlib.contextmanager

@@ -15,8 +15,9 @@
             (invariant 11) with real agent processes on the CPU, ``--sink``
             the journal-sink soak (invariant 12)
 
-The port's copy of ``maggy_tpu/fleet/__main__.py``; the soaks run without the
-JAX package's lock-order witness (ROADMAP queue 1 item 13).
+The port's copy of ``maggy_tpu/fleet/__main__.py``. The agent, sink and
+slow-tenant soaks run under the port's lock-order witness
+(``maggy_tpu_torch.analysis.witness``), as the JAX CLI's do.
 
 A submission spec names a module-level train function and the
 OptimizationConfig fields (searchspace as ``{name: [TYPE, range]}``):
@@ -233,11 +234,13 @@ def _cmd_soak(args) -> int:
                                             run_sink_soak, run_slow_tenant_soak)
 
     if args.sink:
-        report = run_sink_soak(seed=args.seed)
+        report = run_sink_soak(seed=args.seed, lock_witness=True)
     elif args.agent:
-        report = run_agent_soak(seed=args.seed)
+        report = run_agent_soak(seed=args.seed, lock_witness=True)
     elif args.slow_tenant:
-        report = run_slow_tenant_soak(seed=args.seed)
+        # Witness on, like the chaos CLI's soaks: the isolation run doubles
+        # as a dynamic lock-order check.
+        report = run_slow_tenant_soak(seed=args.seed, lock_witness=True)
     else:
         report = run_fleet_soak(runners=args.runners, seed=args.seed)
     print(json.dumps(report, indent=2, default=str))

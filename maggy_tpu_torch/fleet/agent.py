@@ -320,6 +320,7 @@ class AgentPlane:
         self._event(rec, "join", host=rec.host, chips=rec.chips,
                     process_index=rec.process_index)
         thread.start()
+        # rpc-ok: AJOIN reply literal, not a request producer — poll_s/liveness_s/server_t are consumed by the agent CLIENT (FleetAgent.join), a direction the checker does not model
         return {"type": "AJOIN", "agent": agent_id,
                 "poll_s": self.poll_s, "liveness_s": self.liveness_s,
                 "server_t": time.time()}

@@ -11,11 +11,13 @@ function decides where the work runs. Also the scale soaks
 (``run_scale_churn``, ``run_remote_scale_soak``, ``run_scale_soak``), the
 agent-kill soak (``run_agent_soak``, chaos invariant 11, on agent processes
 that ``spawn_agent_process`` starts with ``--device cpu``) and the
-journal-sink soak (``run_sink_soak``, invariant 12). Left out: the lock-order
-witness of the JAX soaks (``maggy_tpu.analysis``, ROADMAP queue 1 item 13),
-as in the port's chaos harness, and the slow-tenant A/B arm with the
-per-tenant dispatch pools off, a path the port's shared listener does not
-have.
+journal-sink soak (``run_sink_soak``, invariant 12). The slow-tenant, agent
+and sink soaks take ``lock_witness`` as the JAX soaks do (None defers to
+``MAGGY_TPU_TORCH_LOCK_WITNESS``): armed, the soak runs under the port's
+lock-order witness, its result carries a ``witness`` block (edges,
+violations, acquisitions, the witness's own seconds) and a forbidden edge
+is a violation. Left out: the slow-tenant A/B arm with the per-tenant
+dispatch pools off, a path the port's shared listener does not have.
 
 The standard scenario (``run_fleet_soak``): a low-priority "bulk" sweep
 takes the whole 2-runner fleet, then a high-priority "urgent" experiment
@@ -37,8 +39,21 @@ import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
+from maggy_tpu_torch.analysis.witness import SoakWitness
 from maggy_tpu_torch.fleet.scheduler import (FLEET_JOURNAL_NAME, Fleet,
                                              replay_fleet_journal)
+
+def _witness_block(wit: SoakWitness, violations: List[str]) -> Optional[Dict[str, Any]]:
+    """A fleet soak's ``witness`` block (JAX ``fleet/soak.py:602-608``),
+    with this soak's forbidden edges added to ``violations``; None when
+    the witness is off."""
+    reading = wit.reading()
+    if reading is None:
+        return None
+    violations.extend("lock-order witness: {}".format(v) for v in reading["violations"])
+    return {"edges": reading["edge_count"], "violations": len(reading["violations"]),
+            "acquisitions": reading["acquisitions"], "busy_s": reading["busy_s"]}
+
 
 #: The directory holding the maggy_tpu_torch package.
 _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -473,7 +488,8 @@ def run_slow_tenant_soak(runners: int = 3, victims: int = 2,
                          seed: int = 7,
                          base_dir: Optional[str] = None,
                          handoff_p95_bound_ms: float = 150.0,
-                         victim_rtt_bound_ms: float = 50.0
+                         victim_rtt_bound_ms: float = 50.0,
+                         lock_witness: Optional[bool] = None
                          ) -> Dict[str, Any]:
     """Head-of-line-isolation soak (the chaos side of the dispatch-pool
     refactor): one tenant's handlers are artificially delayed by
@@ -495,8 +511,9 @@ def run_slow_tenant_soak(runners: int = 3, victims: int = 2,
 
     The JAX soak's ``dispatch_pool=False`` side (handlers on the shared
     loop, an A/B for its scale bench) is not ported: the port's shared
-    listener always gives each tenant its dispatcher. Nor is its
-    lock-order witness (``witness`` is None)."""
+    listener always gives each tenant its dispatcher. ``lock_witness``
+    arms the lock-order witness like the chaos soaks do; any forbidden
+    edge is a violation."""
     import threading
 
     from maggy_tpu_torch import experiment
@@ -508,9 +525,10 @@ def run_slow_tenant_soak(runners: int = 3, victims: int = 2,
     delay_s = delay_ms / 1e3
     t0 = time.time()
     injected = {"n": 0}
+    wit = SoakWitness(lock_witness)
     fleet = Fleet(runners=runners,
                   home_dir=os.path.join(base_dir, "fleet"))
-    with fleet:
+    with wit, fleet:
         slow = experiment.lagom_submit(
             slow_tenant_train_fn,
             _scale_config("slow", slow_trials, base_dir, seed,
@@ -611,6 +629,7 @@ def run_slow_tenant_soak(runners: int = 3, victims: int = 2,
     if injected["n"] == 0:
         violations.append("slow_tenant fault never injected: the soak "
                           "exercised nothing")
+    witness_block = _witness_block(wit, violations)
     detail = {
         "delay_ms": delay_ms,
         "injections": injected["n"],
@@ -619,11 +638,11 @@ def run_slow_tenant_soak(runners: int = 3, victims: int = 2,
         "victim_reply_rtt_ms": victim_rtt,
         "victim_rtt_bound_ms": victim_rtt_bound_ms,
         "wall_s": round(wall_s, 1),
-        "witness": None,
+        "witness": witness_block,
     }
     return {"ok": not violations, "violations": violations,
             "detail": detail, "journals": journals,
-            "witness": None, "base_dir": base_dir}
+            "witness": witness_block, "base_dir": base_dir}
 
 
 def agent_train_fn(lr, units, reporter=None, ctx=None):
@@ -697,7 +716,8 @@ def stop_agent_processes(procs, grace_s: float = 10.0) -> List[Optional[int]]:
 def run_agent_soak(agents: int = 2, trials: int = 6, seed: int = 7,
                    base_dir: Optional[str] = None,
                    result_timeout_s: float = 240.0,
-                   lease_timeout_s: float = 120.0) -> Dict[str, Any]:
+                   lease_timeout_s: float = 120.0,
+                   lock_witness: Optional[bool] = None) -> Dict[str, Any]:
     """Chaos invariant 11: REAL agent processes serve leases over
     sockets; one is SIGKILLed mid-lease. The experiment's slot-reclaim
     liveness must requeue the killed trial EXACTLY once (the invariant-
@@ -706,13 +726,16 @@ def run_agent_soak(agents: int = 2, trials: int = 6, seed: int = 7,
     ``reason=agent_lost`` + ``agent`` phase ``lost`` in fleet.jsonl),
     and the experiment must still complete its full schedule on the
     survivors (the thread runner + the remaining agent). The agents join
-    before the tenant starts."""
+    before the tenant starts. ``lock_witness`` arms the lock-order witness
+    in this process (the fleet, its agent plane and the tenant's driver)
+    like the chaos soaks do."""
     from maggy_tpu_torch import experiment
     from maggy_tpu_torch.chaos.harness import check_invariants
     from maggy_tpu_torch.telemetry import JOURNAL_NAME, read_events
 
     base_dir = base_dir or tempfile.mkdtemp(prefix="maggy_agent_soak_")
     t0 = time.time()
+    wit = SoakWitness(lock_witness)
     fleet = Fleet(runners=1, max_agents=agents,
                   home_dir=os.path.join(base_dir, "fleet"),
                   agent_liveness_s=3.0, preempt_grace_s=5.0)
@@ -720,7 +743,7 @@ def run_agent_soak(agents: int = 2, trials: int = 6, seed: int = 7,
     killed = {"agent": None, "trial": None, "partition": None}
     violations: List[str] = []
     try:
-        with fleet:
+        with wit, fleet:
             ticket = os.path.join(fleet.home_dir, "agent_ticket.json")
             for i in range(agents):
                 procs.append(spawn_agent_process(
@@ -823,16 +846,18 @@ def run_agent_soak(agents: int = 2, trials: int = 6, seed: int = 7,
                 "one kill produced {} agent_lost lease revocations "
                 "(expected exactly 1)".format(
                     agents_replay["lost_leases"]))
+    witness_block = _witness_block(wit, violations)
     detail = {
         "agents": agents,
         "killed": killed,
         "agents_replay": agents_replay,
         "wall_s": round(wall_s, 1),
+        "witness": witness_block,
     }
     return {"ok": not violations, "violations": violations,
             "detail": detail, "report": report,
             "journal": exp_journal, "fleet_journal": fleet_journal,
-            "base_dir": base_dir}
+            "witness": witness_block, "base_dir": base_dir}
 
 
 def sink_train_fn(lr, units, reporter=None):
@@ -852,7 +877,8 @@ def sink_train_fn(lr, units, reporter=None):
 def run_sink_soak(tenants: int = 3, trials: int = 6, seed: int = 7,
                   base_dir: Optional[str] = None,
                   result_timeout_s: float = 240.0,
-                  phase_timeout_s: float = 30.0) -> Dict[str, Any]:
+                  phase_timeout_s: float = 30.0,
+                  lock_witness: Optional[bool] = None) -> Dict[str, Any]:
     """Chaos invariant 12 — the journal sink degrades, never dominates:
     tenants run with sink-routed telemetry (``config.sink``) while the
     soak KILLS the sink mid-run (``kill_sink``: the sink tenant detaches
@@ -872,7 +898,8 @@ def run_sink_soak(tenants: int = 3, trials: int = 6, seed: int = 7,
 
     A soak-owned PROBE journal records on a steady cadence through the
     whole window, so the degrade/recover/re-ship path is exercised
-    deterministically even when the tenants' own schedules drain early."""
+    deterministically even when the tenants' own schedules drain early.
+    ``lock_witness`` arms the lock-order witness like the chaos soaks do."""
     from maggy_tpu_torch import experiment
     from maggy_tpu_torch.chaos.harness import check_invariants
     from maggy_tpu_torch.core.environment import EnvSing
@@ -884,6 +911,7 @@ def run_sink_soak(tenants: int = 3, trials: int = 6, seed: int = 7,
     base_dir = base_dir or tempfile.mkdtemp(prefix="maggy_sink_soak_")
     env = EnvSing.get_instance()
     t0 = time.time()
+    wit = SoakWitness(lock_witness)
     fleet = Fleet(runners=2, home_dir=os.path.join(base_dir, "fleet"),
                   preempt_grace_s=5.0)
     violations: List[str] = []
@@ -893,7 +921,7 @@ def run_sink_soak(tenants: int = 3, trials: int = 6, seed: int = 7,
     recovered_seen = False
     expected: Dict[str, int] = {}
     exp_dirs: Dict[str, str] = {}
-    with fleet:
+    with wit, fleet:
         probe = Telemetry(
             env=env, journal_path=os.path.join(base_dir,
                                                "probe_local.jsonl"),
@@ -1020,6 +1048,7 @@ def run_sink_soak(tenants: int = 3, trials: int = 6, seed: int = 7,
     if recovered_seen and recovered_events < 1:
         violations.append("shipper recovered but no sink_recovered "
                           "event survives in any merged journal")
+    witness_block = _witness_block(wit, violations)
     detail = {
         "tenants": tenants,
         "killed_t": killed_t,
@@ -1027,12 +1056,13 @@ def run_sink_soak(tenants: int = 3, trials: int = 6, seed: int = 7,
         "recovered_events": recovered_events,
         "per_source": per_source,
         "wall_s": round(wall_s, 1),
+        "witness": witness_block,
     }
     return {"ok": not violations, "violations": violations,
             "detail": detail, "sink_dir": sink_dir,
             "fleet_journal": os.path.join(fleet.home_dir,
                                           FLEET_JOURNAL_NAME),
-            "base_dir": base_dir}
+            "witness": witness_block, "base_dir": base_dir}
 
 
 def run_remote_scale_soak(experiments: int = 40, agents: int = 4,

@@ -400,9 +400,10 @@ def _rank_entry(train_fn, params: Dict[str, Any], rank: int, world: int, port: i
                 profile: bool, ship_prints: bool) -> None:
     """One rank process of an in-process gang: join the world at the
     leader's store, seed, run the trial function, send the result. Rank 0
-    runs it as a runner runs a 1-chip trial (``call_train_fn``): traced
-    into the trial dir with ``profile``, its prints relayed as logs with
-    ``ship_prints``."""
+    runs it as a runner runs a 1-chip trial (``call_train_fn``): its
+    TensorBoard session in ``<trial dir>/tensorboard`` (the hparams record,
+    the train function's scalars, the session end), traced into that dir
+    with ``profile``, its prints relayed as logs with ``ship_prints``."""
     import sys
     import traceback
     from datetime import timedelta
@@ -410,6 +411,7 @@ def _rank_entry(train_fn, params: Dict[str, Any], rank: int, world: int, port: i
     import torch
     import torch.distributed as dist
 
+    from maggy_tpu_torch import tensorboard
     from maggy_tpu_torch.core.executors.context import TrialContext
     from maggy_tpu_torch.core.executors.dist_executor import DIST_SEED, rank_device
     from maggy_tpu_torch.core.executors.trial_executor import call_train_fn
@@ -434,8 +436,17 @@ def _rank_entry(train_fn, params: Dict[str, Any], rank: int, world: int, port: i
             call["ctx"] = TrialContext(trial_id, trial_dir, exp_dir, params,
                                        dict(info, gang=gang))
         lead = rank == 0
-        retval = call_train_fn(train_fn, call, trial_dir, reporter, profile=profile and lead,
-                               ship_prints=ship_prints and lead)
+        if lead:
+            try:
+                tensorboard._register(os.path.join(trial_dir, "tensorboard"))
+                tensorboard.write_hparams(params)
+            except Exception:  # noqa: BLE001 - TB must never kill a trial
+                pass
+        try:
+            retval = call_train_fn(train_fn, call, trial_dir, reporter,
+                                   profile=profile and lead, ship_prints=ship_prints and lead)
+        finally:
+            tensorboard._close()
         # Every rank is past its last collective before the world goes.
         dist.barrier()
         queue.put(("done", rank, _plain(retval) if rank == 0 else None, None))

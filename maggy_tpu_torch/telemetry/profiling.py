@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import socket
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -76,34 +77,83 @@ def capture_activities() -> List[str]:
 
 
 #: A profiled trial's trace directory inside its trial directory
-#: (``config.profile``).
-TRIAL_PROFILE_DIR = "profile"
+#: (``config.profile``): its TensorBoard logdir, where the JAX package's
+#: ``jax.profiler`` trace goes (``trial_executor.py:613-617``).
+TRIAL_PROFILE_DIR = "tensorboard"
+
+#: The suffix of a trace that TensorBoard's profile plugin reads.
+TB_TRACE_SUFFIX = ".pt.trace.json"
+
+
+def tb_trace_path(trace_dir: str) -> str:
+    """A trace's path in ``trace_dir``, named as
+    ``torch.profiler.tensorboard_trace_handler`` names it:
+    ``<host>_<pid>.<ns>.pt.trace.json``."""
+    return os.path.join(trace_dir, "{}_{}.{}{}".format(
+        socket.gethostname(), os.getpid(), time.time_ns(), TB_TRACE_SUFFIX))
+
+
+def _trial_activities() -> List[str]:
+    import torch
+
+    return ["cpu", "cuda"] if torch.cuda.is_available() else ["cpu"]
 
 
 @contextlib.contextmanager
-def trial_profile(trial_dir: str):
+def trial_profile(trace_dir: str):
     """``config.profile`` (``maggy_tpu/core/executors/trial_executor.py:
-    583-620``): trace one trial into ``<trial_dir>/profile/trace.json``,
-    recording CPU and, where the process can reach a card, CUDA. Yields the
-    trace's path, or None when the process's profiler is taken (another
-    trial's trace or a capture holds it): the trial then runs untraced.
-    Start and stop hold ``device_gate.quiesce``, as every capture does."""
+    583-620``): trace one trial into ``trace_dir`` (a trial's
+    ``<trial dir>/tensorboard``, a distributed rank's
+    ``<exp dir>/tensorboard_worker<partition>``) as ``tb_trace_path``
+    names the file, recording CPU and, where the process can reach a card,
+    CUDA. Yields the trace's path, or None when the process's profiler is
+    taken (another trial's trace, a user trace or a capture holds it): the
+    trial then runs untraced. Start and stop hold ``device_gate.quiesce``,
+    as every capture does."""
     if not _CAPTURE_LOCK.acquire(blocking=False):
         yield None
         return
     try:
-        import torch
-
-        prof = _start_trace(["cpu", "cuda"] if torch.cuda.is_available() else ["cpu"])
+        prof = _start_trace(_trial_activities())
         if isinstance(prof, str):
             yield None
             return
-        path = os.path.join(trial_dir, TRIAL_PROFILE_DIR, TRACE_NAME)
+        path = tb_trace_path(trace_dir)
         try:
             yield path
         finally:
-            os.makedirs(os.path.dirname(path), exist_ok=True)
+            os.makedirs(trace_dir, exist_ok=True)
             _stop_trace(prof, path)
+    finally:
+        _CAPTURE_LOCK.release()
+
+
+def start_user_trace():
+    """``tensorboard.start_trace``'s profiler: holds ``_CAPTURE_LOCK`` until
+    ``stop_user_trace``, so it never overlaps a trial's profile or a
+    capture. Raises RuntimeError when the profiler is taken."""
+    if not _CAPTURE_LOCK.acquire(blocking=False):
+        raise RuntimeError("the process's profiler is taken (a trial's profile, "
+                           "a capture or another trace)")
+    try:
+        prof = _start_trace(_trial_activities())
+    except BaseException:
+        _CAPTURE_LOCK.release()
+        raise
+    if isinstance(prof, str):
+        _CAPTURE_LOCK.release()
+        raise RuntimeError(prof)
+    return prof
+
+
+def stop_user_trace(prof, trace_dir: str) -> str:
+    """Stop ``start_user_trace``'s profiler, write its trace into
+    ``trace_dir`` and release the profiler. Returns the trace's path."""
+    try:
+        path = tb_trace_path(trace_dir)
+        os.makedirs(trace_dir, exist_ok=True)
+        _stop_trace(prof, path)
+        return path
     finally:
         _CAPTURE_LOCK.release()
 

@@ -232,16 +232,19 @@ def decode_example(raw: bytes) -> Dict[str, List[Any]]:
 
 # ------------------------------------------------------------ file framing
 
+def frame_record(payload: bytes) -> bytes:
+    """One TFRecord frame: ``u64 length ‖ u32 masked-crc32c(length) ‖
+    payload ‖ u32 masked-crc32c(payload)``."""
+    header = struct.pack("<Q", len(payload))
+    return (header + struct.pack("<I", _masked_crc(header)) + payload
+            + struct.pack("<I", _masked_crc(payload)))
+
+
 def write_tfrecord(path: str, examples) -> None:
     """Write ``examples`` (dicts of feature values) as a TFRecord file."""
     with open(path, "wb") as f:
         for ex in examples:
-            payload = ex if isinstance(ex, bytes) else encode_example(ex)
-            header = struct.pack("<Q", len(payload))
-            f.write(header)
-            f.write(struct.pack("<I", _masked_crc(header)))
-            f.write(payload)
-            f.write(struct.pack("<I", _masked_crc(payload)))
+            f.write(frame_record(ex if isinstance(ex, bytes) else encode_example(ex)))
 
 
 # The whole-buffer scan holds the file and about its size again of index

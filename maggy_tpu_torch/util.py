@@ -60,9 +60,15 @@ def handle_return_val(return_val: Any, trial_dir: str, optimization_key: str,
 
 
 def write_hparams_config(exp_dir: str, searchspace, env) -> None:
-    """Persist the searchspace next to the experiment's results."""
-    if searchspace is not None:
-        env.dump(json.dumps(searchspace.to_dict(), indent=2), exp_dir + "/searchspace.json")
+    """Persist the searchspace next to the experiment's results, and the
+    TensorBoard HParams dashboard's column config (JAX ``util.py:64-77``;
+    ``write_experiment_config`` swallows its own failures)."""
+    if searchspace is None:
+        return
+    env.dump(json.dumps(searchspace.to_dict(), indent=2), exp_dir + "/searchspace.json")
+    from maggy_tpu_torch import tensorboard
+
+    tensorboard.write_experiment_config(exp_dir, searchspace)
 
 
 def build_summary(exp_dir: str, env) -> Dict[str, Any]:

@@ -720,7 +720,8 @@ def test_cli_runs_the_topology_soaks(flag, module, fn, capsys, monkeypatch):
     """The agent, sink and driver soaks own their processes and run through
     their own functions (exercised in test_torch_agent, test_torch_sink and
     below); the CLI hands them the seed, the agent soak at most 6 trials,
-    and exits 1 on a violation."""
+    the lock-order witness unless --no-witness (as the JAX CLI does), and
+    exits 1 on a violation."""
     import importlib
 
     from maggy_tpu_torch.chaos.__main__ import main
@@ -735,7 +736,9 @@ def test_cli_runs_the_topology_soaks(flag, module, fn, capsys, monkeypatch):
     assert main([flag, "--seed", "3", "--trials", "20"]) == 0
     assert main([flag]) == 1
     want = {"seed": 3, "trials": 6} if flag == "--agent" else {"seed": 3}
-    assert calls[0] == want and calls[1]["seed"] == 7
+    assert calls[0] == {**want, "lock_witness": True} and calls[1]["seed"] == 7
+    main([flag, "--no-witness"])
+    assert calls[2]["lock_witness"] is False
     assert json.loads(capsys.readouterr().out.split("\n}\n")[0] + "}")["ok"]
 
 

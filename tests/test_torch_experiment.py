@@ -82,6 +82,9 @@ _SWEEP = textwrap.dedent("""
     import maggy_tpu_torch.native
     import maggy_tpu_torch.parallel
     import maggy_tpu_torch.core.driver.distributed_driver
+    import maggy_tpu_torch.tensorboard
+    import maggy_tpu_torch.analysis.__main__
+    import maggy_tpu_torch.analysis.witness
     from maggy_tpu_torch import runner
     from maggy_tpu_torch.chaos import harness
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
@@ -452,10 +455,23 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("parallel", "collectives.py"), ("parallel", "gloo_cuda_probe.py"),
         ("core", "executors", "dist_executor.py"),
         ("core", "driver", "distributed_driver.py"), ("gang.py",),
-        ("parallel", "sharded.py"), ("parallel", "pipeline.py"))} <= scanned
+        ("parallel", "sharded.py"), ("parallel", "pipeline.py"), ("tensorboard.py",),
+        ("analysis", "__init__.py"), ("analysis", "__main__.py"), ("analysis", "astindex.py"),
+        ("analysis", "guards.py"), ("analysis", "lockorder.py"), ("analysis", "rpcconf.py"),
+        ("analysis", "journalvocab.py"), ("analysis", "witness.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     assert {f: r for f, r in offenders.items() if r} == {}
+    # The event-file writer and the analyzer need neither tensorboard nor
+    # protobuf (the card's machine has neither); the analyzer, pure AST,
+    # not torch either.
+    for f in files:
+        rel = os.path.relpath(f, ROOT)
+        roots = set(_imported_roots(f))
+        if rel == os.path.join("maggy_tpu_torch", "tensorboard.py"):
+            assert not roots & {"tensorboard", "google"}, rel
+        elif rel.startswith(os.path.join("maggy_tpu_torch", "analysis")):
+            assert not roots & {"tensorboard", "google", "torch", "numpy"}, rel
 
 
 def _simulate(opt, initialize, num_trials, workers=2):

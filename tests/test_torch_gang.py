@@ -496,7 +496,7 @@ def test_a_gang_trial_is_profiled_and_ships_its_prints(tmp_path):
         num_workers=2, pool="thread", hb_interval=0.05, es_policy="none", seed=0,
         profile=True, ship_prints=True, experiment_dir=str(tmp_path)))
     assert result["num_trials"] == 1 and result["best_val"] is not None
-    (trace,) = glob.glob(str(tmp_path / "*" / "*" / "profile" / "trace.json"))
+    (trace,) = glob.glob(str(tmp_path / "*" / "*" / "tensorboard" / "*.pt.trace.json"))
     with open(trace) as f:
         assert json.load(f)["traceEvents"]
     logs = "".join(open(p).read() for p in glob.glob(str(tmp_path / "*" / "executor_*.log")))

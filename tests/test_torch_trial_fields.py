@@ -146,12 +146,12 @@ def train_plain(lr, units):
 
 
 def test_profile_traces_each_trial_or_journals_a_skip_as_jax(tmp_path):
-    """One runner: every trial traced (the port's torch.profiler trace in
-    <trial>/profile/, the JAX package's in <trial>/tensorboard/), no skip.
+    """One runner: every trial traced (the port's torch.profiler trace and
+    the JAX package's both in <trial>/tensorboard/), no skip.
     Then, with the process's profiler held by a capture, every port trial
     runs untraced and journals profile_skipped."""
     traced = {}
-    for pkg, pattern in (("port", "profile/trace.json"),
+    for pkg, pattern in (("port", "tensorboard/*.pt.trace.json"),
                          ("jax", "tensorboard/plugins/profile/*")):
         result, exp_dir = _sweep(pkg, str(tmp_path / pkg), trials=2, workers=1,
                                  train_fn=train_plain, profile=True)
@@ -161,7 +161,8 @@ def test_profile_traces_each_trial_or_journals_a_skip_as_jax(tmp_path):
             os.path.join(exp_dir, "telemetry.jsonl"))
         assert not [e for e in events if e.get("phase") == "profile_skipped"], pkg
     assert traced["port"] == traced["jax"] == 2
-    with open(glob.glob(str(tmp_path / "port" / "*" / "*" / "profile" / "trace.json"))[0]) as f:
+    with open(glob.glob(str(tmp_path / "port" / "*" / "*" / "tensorboard" / "*.pt.trace.json"))[0]) \
+            as f:
         assert json.load(f)["traceEvents"]
     with profiling._CAPTURE_LOCK:
         result, exp_dir = _sweep("port", str(tmp_path / "busy"), trials=2, workers=1,
@@ -169,5 +170,5 @@ def test_profile_traces_each_trial_or_journals_a_skip_as_jax(tmp_path):
     skipped = [e for e in read_events(os.path.join(exp_dir, "telemetry.jsonl"))
                if e.get("phase") == "profile_skipped"]
     assert result["num_trials"] == 2 and len(skipped) == 2
-    assert not glob.glob(os.path.join(exp_dir, "*", "profile"))
+    assert not glob.glob(os.path.join(exp_dir, "*", "tensorboard", "*.pt.trace.json"))
     assert OptimizationConfig().profile is JaxConfig().profile is False
