@@ -65,7 +65,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              lock fallbacks, step times beside the ASHA sweep's, wall times
              and the best values.
 6. slice_llama — the Llama-3-8B LoRA sweep (4096 wide, vocab 128256, cut
-             to LLAMA_LAYERS = 16 of its 32 layers,
+             to LLAMA_LAYERS = 8 of its 32 layers,
              32/8 heads, remat) through experiment.lagom: ASHA over
              (lora_rank, lora_alpha, lr) on two thread runners, each trial
              building its model, only the adapters trained, batches of
@@ -111,6 +111,27 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              save and restore times with their share spent waiting for the
              checkpoint lock, and the run directory's peak bytes on disk
              beside slice's, then removes the run directory.
+10b. slice_objstore — the slice_fork sweep (with a loss scalar a step) with
+             its whole experiment dir in an object store: GCSEnv over
+             SmokeStore, an fsspec-shaped stand-in defined here (objects
+             under the phase's dir, committed whole at close, no append, no
+             rename, if_generation_match=0 exclusive, ops and bytes
+             counted; the card has no fsspec, gcsfs or network), installed
+             with EnvSing.set_instance. Checkpoints, fork copies with their
+             .fork_complete.<step> markers, the journal (its append refused,
+             so full rewrites), trial.json files, TensorBoard event files
+             and the summary all go to the store. The run is read back from
+             the store and held to slice_fork's gates, launches at 12 x the
+             steps, no tmp object, no local gs: path, no FINAL reply carrying
+             an assignment (the inline FINAL path is off for a store) while
+             prefetched suggestions still serve hand-offs, and one event
+             file a trial decoded with a loss scalar a step. Then JAX
+             tests/test_gcs_env.py's object-store resume: three trials of
+             train_mnist_ckpt, one finalized trial.json torn to 17 bytes,
+             resume=True to six trials (two restored, the torn one re-run).
+             Prints the store's op counts and bytes, the checkpoint save,
+             restore and fork-load p50 and the sweep's wall and goodput
+             beside slice_fork's, and the phase's seconds.
 11. slice_pbt — examples/pbt_sweep.py on the card: PBT(6 members, 4
              generations) over lr and weight decay, MnistCNN(3, 2, 8
              features, 2 classes) on make_data(512), 15 steps a segment,
@@ -522,6 +543,8 @@ import faulthandler
 import functools
 import gc
 import glob
+import io
+import itertools
 import json
 import math
 import os
@@ -556,7 +579,7 @@ REPORT_EVERY = 2
 # Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5),
 # its sweep at full width cut to LLAMA_LAYERS of the 32 layers (the
 # script's time; launches and checks count the layers run).
-LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 16
+LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 8
 LLAMA_STEPS_PER_BUDGET = 2
 # slice_dist: Llama-3-8B at full width on a "seq" ring of DIST_RANKS rank
 # processes sharing the card over gloo, DIST_LAYERS layers (depth cut), batch
@@ -574,7 +597,7 @@ DIST_H, DIST_HKV, DIST_D = 32, 8, 128
 # 12th and later can be model proposals), of 8 steps (cut from 16); GP +
 # Hyperband runs 2 steps per budget unit (cut from 4); a heartbeat every 4
 # steps and at a trial's last.
-BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 8, 2, 4
+BO_TPE_TRIALS, BO_TPE_STEPS, BO_STEPS_PER_BUDGET, BO_REPORT_EVERY = 14, 4, 2, 4
 #: (batch, Sq, Sk, heads, kv heads, head dim) of each main path's attention;
 #: the BO sweeps add batch 64 (their search space is batch in {32, 64}).
 MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
@@ -594,6 +617,7 @@ CAUSAL_PATHS = ("llama3_8b", "dist")
 #: Llama's attention is the Llama's, and so is its lanes' (2 lanes of batch
 #: 1 fold into the Llama's batch 2).
 SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
+              "bert_base_objstore": "bert_base",
               "bert_base_resume": "bert_base", "bert_base_warm": "bert_base",
               "bert_base_loco": "bert_base", "bert_base_fleet": "bert_base",
               "bert_base_remote": "bert_base", "bert_base_agents": "bert_base",
@@ -700,7 +724,7 @@ LANES_STEPS = [LANES_BENCH_STEPS]
 # lane's objective against its scalar Trainer within
 # AB_LOSS_TOL["bert_base"] (bf16 arithmetic).
 RESNET_LANES_LRS, RESNET_LANES_WD = [1e-4, 2e-4, 5e-4, 1e-3], 1e-4
-RESNET_LANES_STEPS, RESNET_LANES_LOSS_TOL, RESNET_LANES_TOL_PER_LR = 5, 1e-3, 20.0
+RESNET_LANES_STEPS, RESNET_LANES_LOSS_TOL, RESNET_LANES_TOL_PER_LR = 3, 1e-3, 20.0
 MOE_LANES_K, MOE_LANES_LAYERS, MOE_LANES_STEPS, MOE_LANES_B = 2, 1, 3, 1
 MOE_LANES_LRS = [1e-5, 1e-4]
 # slice_ablation: examples/titanic_ablation.py's study (make_titanic_like's
@@ -1669,14 +1693,16 @@ def trainer_state(trainer):
             "scheduler": trainer.scheduler.state_dict()}
 
 
-def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
-    """One trial of the slice_fork and slice_resume sweeps: train_bert_asha
-    with a checkpoint of its state (and its last loss) at its end, and, for
-    a fork, a resume from the staged parent checkpoint at the step after it
-    under this trial's own schedule (its larger budget). A fork whose own
-    final checkpoint is already in its dir (it trained to its end before an
-    interruption, and only its FINAL was lost) restores that one and trains
-    no step."""
+def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir, scalars=False):
+    """One trial of the slice_fork, slice_objstore and slice_resume sweeps:
+    train_bert_asha with a checkpoint of its state (and its last loss) at
+    its end, and, for a fork, a resume from the staged parent checkpoint at
+    the step after it under this trial's own schedule (its larger budget).
+    A fork whose own final checkpoint is already in its dir (it trained to
+    its end before an interruption, and only its FINAL was lost) restores
+    that one and trains no step. With ``scalars`` each step's loss is also
+    a TensorBoard scalar (slice_objstore), as in train_bert_asha."""
+    from maggy_tpu_torch import tensorboard
     from maggy_tpu_torch.models import BertEncoder
     from maggy_tpu_torch.train import Trainer, adamw, warmup_cosine_decay_schedule
 
@@ -1705,6 +1731,8 @@ def train_bert_fork(lr, warmup_frac, budget, reporter, ctx, out_dir):
         for i in range(record.first_step, total):
             loss = trainer.step(batch(i))
             record.steps += 1
+            if scalars:
+                tensorboard.add_scalar("loss", loss, step=i)
             if i % REPORT_EVERY == REPORT_EVERY - 1 or i == total - 1:
                 reporter.broadcast(-loss, step=i)
     final = float(loss)
@@ -1853,9 +1881,11 @@ def bert_asha_space():
     return Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]))
 
 
-def bert_asha_sweep(exp_dir, pool, train=train_bert_asha, **train_kw):
+def bert_asha_sweep(exp_dir, pool, train=train_bert_asha, experiment_dir=None, **train_kw):
     """The BERT-base ASHA(3, 1, 9) + median sweep on two runners of
     ``pool``: (result, wall s, records, the driver process's launches).
+    Its experiment dir is ``experiment_dir`` (a store's ``gs://`` path in
+    slice_objstore), else ``<exp_dir>/exp``; the records stay local.
     ``train_kw`` go to the train function."""
     from maggy_tpu_torch import OptimizationConfig, experiment
     from maggy_tpu_torch.ops import attention as A
@@ -1866,8 +1896,8 @@ def bert_asha_sweep(exp_dir, pool, train=train_bert_asha, **train_kw):
         name="bert_base_asha_smoke", num_trials=9,
         optimizer=Asha(reduction_factor=3, resource_min=1, resource_max=9, seed=0),
         searchspace=bert_asha_space(), direction="max", num_workers=2, es_policy="median",
-        es_min=3, hb_interval=0.1, seed=0, experiment_dir=fresh_dir(os.path.join(exp_dir, "exp")),
-        pool=pool)
+        es_min=3, hb_interval=0.1, seed=0,
+        experiment_dir=experiment_dir or fresh_dir(os.path.join(exp_dir, "exp")), pool=pool)
     A.reset_launch_counts()
     t0 = time.perf_counter()
     result = experiment.lagom(functools.partial(train, out_dir=out_dir, **train_kw), config)
@@ -2048,32 +2078,14 @@ class DiskPeak:
         return False
 
 
-def phase_slice_fork(exp_dir, slice_reading):
-    """The slice sweep with checkpoint forking, beside slice's readings."""
-    from maggy_tpu_torch.train import clear_warm, warm
-
-    os.makedirs(exp_dir, exist_ok=True)
-    free = shutil.disk_usage(exp_dir).free
-    if free < FORK_MIN_FREE_BYTES:
-        raise AssertionError("slice_fork needs {:.0f} GB free for its checkpoints; {} has "
-                             "{:.1f} GB".format(FORK_MIN_FREE_BYTES / 1e9, exp_dir, free / 1e9))
-    gc.collect()
-    torch.cuda.empty_cache()
-    fresh_dir(exp_dir)
-    before = warm.counters()
-    with DiskPeak(exp_dir) as disk:
-        result, wall, records, launches = bert_asha_sweep(exp_dir, "thread", train=train_bert_fork)
-        # The last FINAL's checkpoint GC may still be deleting.
-        for t in threading.enumerate():
-            if t.name == "fork-gc":
-                t.join(120)
-    trials, promoted, total_steps, expected = check_bert_sweep(
-        "slice_fork", result, exp_dir, records, launches)
-    telemetry = journal_check("slice_fork", os.path.join(exp_dir, "exp"), result, trace=True)
-    reading = fork_reading(telemetry)
-    reading_warm = warm_reading("slice_fork", telemetry, before)
-    CAPTURED["bert_base_fork"] = reading_warm["captured"]
-    clear_warm()
+def fork_gates(trials, records, telemetry, reading, has_checkpoints):
+    """slice_fork's gates on a forking sweep: every promoted trial whose
+    parent saved is journaled forked_from that parent at its last step and
+    trains from the step after it; derive's fork block counts the forks and
+    the steps saved; every spent parent below the top rung is retired by
+    ckpt_gc, and none still holds checkpoints (``has_checkpoints(trial id)``:
+    on the local disk or in the store). Returns (forks by trial, the trials
+    gc'd, problems)."""
     events = [e for e in telemetry["_events"] if e["ev"] == "trial"]
     forks = {e["trial"]: e for e in events if e["phase"] == "forked_from"}
     gced = {e["trial"] for e in telemetry["_events"] if e["ev"] == "ckpt_gc"}
@@ -2099,18 +2111,55 @@ def phase_slice_fork(exp_dir, slice_reading):
             and reading["fork"].get("steps_saved", 0) > 0):
         problems.append("derive's fork block {} for {} forks".format(reading["fork"], len(forks)))
     # ckpt_gc: every parent that saved and whose promoted child finalized is
-    # retired on disk. The journal holds each retirement but those of the
-    # top rung's parents, which happen when the sweep is exhausted and may
-    # land after the journal closed.
-    (run_dir,) = glob.glob(os.path.join(exp_dir, "exp", "*", ""))
+    # retired. The journal holds each retirement but those of the top rung's
+    # parents, which happen when the sweep is exhausted and may land after
+    # the journal closed.
     spent = {t["info_dict"]["parent"] for t in trials if t["info_dict"].get("parent")
              and not by_id[t["info_dict"]["parent"]]["early_stop"]}
     top = {t["info_dict"].get("parent") for t in trials
            if t["params"]["budget"] == RUNG_BUDGETS[-1]}
-    on_disk = {tid for tid in spent if os.path.isdir(os.path.join(run_dir, tid, "checkpoints"))}
-    if on_disk or not (spent - top) <= gced:
-        problems.append("ckpt_gc: spent parents {}, still on disk {}, journaled {}".format(
-            sorted(spent), sorted(on_disk), sorted(gced)))
+    kept = {tid for tid in spent if has_checkpoints(tid)}
+    if kept or not (spent - top) <= gced:
+        problems.append("ckpt_gc: spent parents {}, still holding checkpoints {}, journaled "
+                        "{}".format(sorted(spent), sorted(kept), sorted(gced)))
+    return forks, gced, problems
+
+
+def join_fork_gc():
+    """Wait for the last FINAL's checkpoint GC, which may still be
+    deleting."""
+    for t in threading.enumerate():
+        if t.name == "fork-gc":
+            t.join(120)
+
+
+def phase_slice_fork(exp_dir, slice_reading):
+    """The slice sweep with checkpoint forking, beside slice's readings."""
+    from maggy_tpu_torch.train import clear_warm, warm
+
+    os.makedirs(exp_dir, exist_ok=True)
+    free = shutil.disk_usage(exp_dir).free
+    if free < FORK_MIN_FREE_BYTES:
+        raise AssertionError("slice_fork needs {:.0f} GB free for its checkpoints; {} has "
+                             "{:.1f} GB".format(FORK_MIN_FREE_BYTES / 1e9, exp_dir, free / 1e9))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh_dir(exp_dir)
+    before = warm.counters()
+    with DiskPeak(exp_dir) as disk:
+        result, wall, records, launches = bert_asha_sweep(exp_dir, "thread", train=train_bert_fork)
+        join_fork_gc()
+    trials, promoted, total_steps, expected = check_bert_sweep(
+        "slice_fork", result, exp_dir, records, launches)
+    telemetry = journal_check("slice_fork", os.path.join(exp_dir, "exp"), result, trace=True)
+    reading = fork_reading(telemetry)
+    reading_warm = warm_reading("slice_fork", telemetry, before)
+    CAPTURED["bert_base_fork"] = reading_warm["captured"]
+    clear_warm()
+    (run_dir,) = glob.glob(os.path.join(exp_dir, "exp", "*", ""))
+    forks, gced, problems = fork_gates(
+        trials, records, telemetry, reading,
+        lambda tid: os.path.isdir(os.path.join(run_dir, tid, "checkpoints")))
     line = {"trials_finished": len(trials), "promoted": promoted, "forks": len(forks),
             "early_stopped": result["early_stopped"], "best_val": result["best_val"],
             "steps": total_steps, "launches": launches, "expected_launches_each": expected,
@@ -2121,6 +2170,392 @@ def phase_slice_fork(exp_dir, slice_reading):
     emit("slice_fork", **line)
     if problems:
         raise AssertionError("slice_fork: {}".format("; ".join(problems)))
+    READINGS["slice_fork"] = {k: line[k] for k in (
+        "sweep_wall_s", "save_ms_p50", "restore_ms_p50", "fork_load_ms_p50", "forks")}
+    READINGS["slice_fork"]["goodput_fraction"] = telemetry["goodput"]["goodput_fraction"]
+    shutil.rmtree(exp_dir)
+    return launches
+
+
+class SmokeStore:
+    """A small fsspec-shaped object store for slice_objstore (test
+    scaffolding, not a package feature: the card's machine has neither
+    fsspec nor gcsfs, and no network). ``gs://<bucket>/<key>`` objects are
+    files under ``<root>/objects/<bucket>/<key>``; a prefix is a directory.
+    An object written is private until ``close`` and then commits whole (a
+    write that raises commits nothing); ``if_generation_match=0`` commits
+    only where no object exists; ``"a"`` raises, as GCS has no append; there
+    is no rename or ``mv``. Counts puts, gets, lists, deletes and bytes, and
+    logs every committed key in order."""
+
+    def __init__(self, root):
+        self.root = root
+        self._lock = threading.Lock()
+        self._uploads = itertools.count()
+        self.ops = collections.Counter()
+        self.puts = []  # committed keys, oldest first; guarded-by: _lock
+        os.makedirs(os.path.join(root, "uploads"), exist_ok=True)
+
+    def _count(self, op, n=1):
+        with self._lock:
+            self.ops[op] += n
+
+    def _local(self, path):
+        if not path.startswith("gs://"):
+            raise ValueError("not an object path: {!r}".format(path))
+        key = path[len("gs://"):].strip("/")
+        if not key or ".." in key.split("/"):
+            raise ValueError("bad object key: {!r}".format(path))
+        return os.path.join(self.root, "objects", key)
+
+    def exists(self, path, **kw):
+        self._count("head")
+        return os.path.exists(self._local(path))
+
+    def isdir(self, path):
+        self._count("head")
+        return os.path.isdir(self._local(path))
+
+    def makedirs(self, path, exist_ok=False):
+        os.makedirs(self._local(path), exist_ok=exist_ok)
+
+    def ls(self, path, detail=True, **kw):
+        self._count("list")
+        local = self._local(path)
+        if not os.path.isdir(local):
+            raise FileNotFoundError(path)
+        out = []
+        for name in sorted(os.listdir(local)):
+            full = os.path.join(local, name)
+            out.append({"name": path.rstrip("/") + "/" + name,
+                        "type": "directory" if os.path.isdir(full) else "file",
+                        "size": 0 if os.path.isdir(full) else os.path.getsize(full)})
+        return out if detail else [e["name"] for e in out]
+
+    def rm(self, path, recursive=False, **kw):
+        self._count("delete")
+        local = self._local(path)
+        if os.path.isdir(local):
+            if recursive:
+                shutil.rmtree(local)
+            else:
+                os.rmdir(local)
+        else:
+            os.remove(local)
+
+    def open(self, path, mode="rb", **kw):
+        if "a" in mode or "+" in mode:
+            self._count("append_refused")
+            raise NotImplementedError("an object store has no append: {}".format(path))
+        local = self._local(path)
+        if "r" in mode:
+            if kw:
+                raise TypeError("unexpected arguments {}".format(sorted(kw)))
+            self._count("get")
+            return _StoreReader(self, open(local, mode))
+        match = kw.pop("if_generation_match", None)
+        if kw:
+            raise TypeError("unexpected arguments {}".format(sorted(kw)))
+        upload = os.path.join(self.root, "uploads", str(next(self._uploads)))
+        return _StoreWriter(self, path, local, upload, open(upload, mode), match)
+
+    def commit(self, path, local, upload, nbytes, match):
+        with self._lock:
+            if match == 0 and os.path.exists(local):
+                os.remove(upload)
+                raise FileExistsError("412 precondition failed (generation 0): " + path)
+            os.makedirs(os.path.dirname(local), exist_ok=True)
+            os.replace(upload, local)
+            self.ops["put"] += 1
+            self.ops["put_bytes"] += nbytes
+            self.puts.append(path)
+
+    def snapshot(self):
+        with self._lock:
+            return dict(self.ops), list(self.puts)
+
+    def objects(self):
+        """Every committed object's path."""
+        base = os.path.join(self.root, "objects")
+        return sorted("gs://" + os.path.relpath(os.path.join(d, n), base)
+                      for d, _, names in os.walk(base) for n in names)
+
+
+class _StoreReader:
+    """A read handle that counts the bytes it reads."""
+
+    def __init__(self, store, f):
+        self._store, self._f = store, f
+
+    def read(self, *args):
+        data = self._f.read(*args)
+        self._store._count("get_bytes", len(data))
+        return data
+
+    def readinto(self, buf):
+        n = self._f.readinto(buf)
+        self._store._count("get_bytes", n or 0)
+        return n
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._f.close()
+        return False
+
+
+class _StoreWriter:
+    """A private upload that commits at ``close`` (discarded when the
+    ``with`` block raises)."""
+
+    def __init__(self, store, path, local, upload, f, match):
+        self._store, self._path, self._local = store, path, local
+        self._upload, self._f, self._match = upload, f, match
+        self._n = 0
+        self.closed = False
+
+    def write(self, data):
+        self._n += len(data)
+        return self._f.write(data)
+
+    def flush(self):
+        self._f.flush()
+
+    def tell(self):
+        return self._f.tell()
+
+    def writable(self):
+        return True
+
+    def close(self):
+        if self.closed:
+            return
+        self.closed = True
+        self._f.close()
+        self._store.commit(self._path, self._local, self._upload, self._n, self._match)
+
+    def discard(self):
+        self.closed = True
+        self._f.close()
+        os.remove(self._upload)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            self.close()
+        else:
+            self.discard()
+        return False
+
+
+#: slice_objstore's experiment dirs in its store, and its app id (a
+#: resumed run is found by app id and name).
+OBJSTORE_BUCKET = "gs://maggy-smoke"
+OBJSTORE_SWEEP = OBJSTORE_BUCKET + "/objstore"
+OBJSTORE_RESUME = OBJSTORE_BUCKET + "/objstore_resume"
+OBJSTORE_APP_ID = "objstore_smoke"
+
+
+def store_mirror(env, src, dst, skip=("checkpoints",)):
+    """Copy the store's tree under ``src`` into the local ``dst`` through
+    ``env``, all but the ``skip`` dirs: slice_objstore reads its run back
+    from the store and holds it to slice_fork's local checks. Returns the
+    files copied."""
+    copied = 0
+    os.makedirs(dst, exist_ok=True)
+    for name in env.ls(src):
+        src_path, dst_path = src + "/" + name, os.path.join(dst, name)
+        if env.isdir(src_path):
+            if name not in skip:
+                copied += store_mirror(env, src_path, dst_path, skip)
+            continue
+        with env.open_file(src_path, "rb") as f, open(dst_path, "wb") as out:
+            shutil.copyfileobj(f, out)
+        copied += 1
+    return copied
+
+
+def local_gs_paths(phase_dir):
+    """Local paths named ``gs:...`` (where a store path taken as a local one
+    lands): in the working directory, the repo root and the default base
+    dir, and anywhere under ``phase_dir``."""
+    found = [os.path.join(d, "gs:") for d in (
+        os.getcwd(), ROOT, os.path.join(os.path.expanduser("~"), "maggy_tpu_experiments"))
+        if os.path.lexists(os.path.join(d, "gs:"))]
+    for root, dirs, files in os.walk(phase_dir):
+        found += [os.path.join(root, n) for n in dirs + files if n.startswith("gs:")]
+    return sorted(set(found))
+
+
+def objstore_resume(exp_dir, env):
+    """JAX ``tests/test_gcs_env.py:85-138`` on the card: three random-search
+    trials of train_mnist_ckpt (a checkpoint a step) in the store, one
+    finalized trial.json torn to 17 bytes, then ``resume=True`` with six
+    trials: two restored, the torn one re-run, three fresh, and the torn
+    artifact whole again."""
+    from maggy_tpu_torch import OptimizationConfig, experiment
+    from maggy_tpu_torch.train.checkpoint import latest_checkpoint_step_env
+
+    def run(n, incarnation):
+        out_dir = fresh_dir(os.path.join(exp_dir, "resume_records", str(incarnation)))
+        config = OptimizationConfig(
+            name="objstore_resume", num_trials=n, optimizer="randomsearch",
+            searchspace=chaos_space(), direction="max", num_workers=2, hb_interval=0.05,
+            seed=5, es_policy="none", experiment_dir=OBJSTORE_RESUME, resume=incarnation > 1)
+        t0 = time.perf_counter()
+        result = experiment.lagom(functools.partial(train_mnist_ckpt, out_dir=out_dir), config)
+        return result, read_records(out_dir), time.perf_counter() - t0
+
+    first, records1, wall1 = run(3, 1)
+    (run_name,) = env.ls(OBJSTORE_RESUME)
+    run_url = OBJSTORE_RESUME + "/" + run_name
+    torn = torn_id = None
+    for name in env.ls(run_url):
+        path = "{}/{}/trial.json".format(run_url, name)
+        if env.exists(path):
+            torn, torn_id = path, name
+            env.dump(env.load(path)[:17], path)
+            break
+    second, records2, wall2 = run(6, 2)
+    rerun = sorted(r["trial_id"] for r in records2)
+    first_ids = sorted(r["trial_id"] for r in records1)
+    restored = sorted(set(first_ids) - set(rerun))
+    whole = json.loads(env.load(torn)) if torn else None
+    trials = [n for n in env.ls(run_url) if env.exists("{}/{}/trial.json".format(run_url, n))]
+    ckpt_steps = {n: latest_checkpoint_step_env(env, "{}/{}".format(run_url, n)) for n in trials}
+    line = {"num_trials": [first["num_trials"], second["num_trials"]], "torn": torn_id,
+            "restored": restored, "rerun": rerun, "walls_s": [wall1, wall2],
+            "checkpoint_steps": ckpt_steps}
+    problems = []
+    if not (first["num_trials"] == 3 and second["num_trials"] == 6 and torn is not None
+            and len(restored) == 2 and torn_id in rerun and len(rerun) == 4
+            and whole and whole.get("status") == "FINALIZED" and len(trials) == 6
+            and set(ckpt_steps.values()) == {CHAOS_CKPT_STEPS - 1}):
+        problems.append("resume: {}, torn artifact now {}".format(line, whole))
+    return line, problems
+
+
+def phase_slice_objstore(exp_dir, smi):
+    """slice_fork's sweep with its whole experiment dir in an object store:
+    ``GCSEnv`` over ``SmokeStore`` (``EnvSing.set_instance``), then the
+    object-store resume; see the module docstring."""
+    import importlib.util
+
+    from maggy_tpu_torch.core.environment import EnvSing, GCSEnv
+    from maggy_tpu_torch.train import clear_warm, warm
+
+    t_phase = time.perf_counter()
+    fresh_dir(exp_dir)
+    free = shutil.disk_usage(exp_dir).free
+    if free < FORK_MIN_FREE_BYTES:
+        raise AssertionError("slice_objstore needs {:.0f} GB free for its store; {} has "
+                             "{:.1f} GB".format(FORK_MIN_FREE_BYTES / 1e9, exp_dir, free / 1e9))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = SmokeStore(os.path.join(exp_dir, "store"))
+    env = GCSEnv(OBJSTORE_BUCKET, fs=store)
+    refused = collections.Counter()
+    open_file = env.open_file
+
+    def counted_open(path, mode="r"):
+        # GCSEnv refuses an append before the store sees it: counted here.
+        try:
+            return open_file(path, mode)
+        except io.UnsupportedOperation:
+            refused[path.rsplit("/", 1)[-1]] += 1
+            raise
+
+    env.open_file = counted_open
+    app_id = os.environ.get("MAGGY_TPU_APP_ID")
+    os.environ["MAGGY_TPU_APP_ID"] = OBJSTORE_APP_ID
+    EnvSing.set_instance(env)
+    try:
+        before = warm.counters()
+        result, wall, records, launches = bert_asha_sweep(
+            exp_dir, "thread", train=train_bert_fork, experiment_dir=OBJSTORE_SWEEP,
+            scalars=True)
+        join_fork_gc()
+        sweep_ops, puts = store.snapshot()
+        t0 = time.perf_counter()
+        mirrored = store_mirror(env, OBJSTORE_SWEEP, os.path.join(exp_dir, "exp"))
+        read_back_s = time.perf_counter() - t0
+        (run_name,) = env.ls(OBJSTORE_SWEEP)
+        run_url = OBJSTORE_SWEEP + "/" + run_name
+        trials, promoted, total_steps, expected = check_bert_sweep(
+            "slice_objstore", result, exp_dir, records, launches)
+        telemetry = journal_check("slice_objstore", os.path.join(exp_dir, "exp"), result)
+        reading = fork_reading(telemetry)
+        reading_warm = warm_reading("slice_objstore", telemetry, before)
+        CAPTURED["bert_base_objstore"] = reading_warm["captured"]
+        clear_warm()
+        forks, gced, problems = fork_gates(
+            trials, records, telemetry, reading,
+            lambda tid: env.isdir("{}/{}/checkpoints".format(run_url, tid)))
+        order = {p: i for i, p in enumerate(puts)}
+        markers = {}
+        for tid, fork in forks.items():
+            ckpt = "{}/{}/checkpoints/".format(run_url, tid)
+            marker = ckpt + ".fork_complete.{}".format(fork["step"])
+            state = ckpt + "{}/state.pt".format(fork["step"])
+            markers[tid] = marker in order
+            if not (marker in order and state in order and order[state] < order[marker]):
+                problems.append("fork {} at step {}: staged object {}, marker {}".format(
+                    tid, fork["step"], state in order, marker in order))
+        tmp_objects = [p for p in puts + store.objects() if ".tmp." in p or ".fork_tmp" in p]
+        if tmp_objects:
+            problems.append("tmp objects in the store: {}".format(tmp_objects[:5]))
+        if not refused.get("telemetry.jsonl") or sweep_ops.get("append_refused"):
+            problems.append("appends refused by GCSEnv {}, by the store {}: want the "
+                            "journal's refused and none reaching the store".format(
+                                dict(refused), sweep_ops.get("append_refused")))
+        suggested = sum(1 for e in telemetry["_events"]
+                        if e["ev"] == "suggest" and e["source"] == "prefetch")
+        invalidated = sum(e["n"] for e in telemetry["_events"]
+                          if e["ev"] == "prefetch_invalidated")
+        pipe = result["pipeline"]
+        if pipe["prefetch_hits"] or not pipe["prefetch"] or suggested - invalidated <= 0:
+            problems.append("inline FINAL path: {} hits on FINAL replies, prefetch {}, {} "
+                            "prefetched less {} invalidated".format(
+                                pipe["prefetch_hits"], pipe["prefetch"], suggested, invalidated))
+        if not env.exists(run_url + "/.summary.json"):
+            problems.append("no .summary.json in the store")
+        tb = tensorboard_check("slice_objstore", os.path.join(exp_dir, "exp"), records,
+                               bert_asha_space(), traced=False)
+        resume_line, resume_problems = objstore_resume(exp_dir, env)
+        problems += resume_problems
+    finally:
+        EnvSing.reset()
+        if app_id is None:
+            os.environ.pop("MAGGY_TPU_APP_ID", None)
+        else:
+            os.environ["MAGGY_TPU_APP_ID"] = app_id
+    local = local_gs_paths(exp_dir)
+    if local:
+        problems.append("local gs: paths {}".format(local))
+    ops, _ = store.snapshot()
+    line = {"device": smi, "trials_finished": len(trials), "promoted": promoted,
+            "forks": len(forks), "fork_markers": markers, "early_stopped": result["early_stopped"],
+            "best_val": result["best_val"], "steps": total_steps, "launches": launches,
+            "expected_launches_each": expected, "sweep_wall_s": wall, "ckpt_gc": len(gced),
+            "store_ops_sweep": sweep_ops, "store_ops_phase": ops,
+            "appends_refused": dict(refused), "objects_left": len(
+                store.objects()), "tmp_objects": len(tmp_objects), "local_gs_paths": local,
+            "mirrored_files": mirrored, "read_back_s": read_back_s,
+            "absent_modules": {m: importlib.util.find_spec(m) is None
+                               for m in ("fsspec", "gcsfs")},
+            "prefetched_served": suggested - invalidated, **reading, "warm": reading_warm,
+            "slice_fork": READINGS.get("slice_fork"), "tensorboard": tb, "resume": resume_line,
+            "pipeline": pipeline_summary(pipe), "telemetry": public(telemetry),
+            "phase_s": time.perf_counter() - t_phase}
+    emit("slice_objstore", **line)
+    if problems:
+        raise AssertionError("slice_objstore: {}".format("; ".join(problems)))
     shutil.rmtree(exp_dir)
     return launches
 
@@ -7059,6 +7494,9 @@ def main():
     clear_warm()
     launches["bert_base_fork"] = phase_slice_fork(
         os.path.join(ROOT, "build", "chip_smoke_experiments_fork"), slice_reading)
+    clear_warm()
+    launches["bert_base_objstore"] = phase_slice_objstore(
+        os.path.join(ROOT, "build", "chip_smoke_experiments_objstore"), smi)
     phase_slice_pbt(os.path.join(ROOT, "build", "chip_smoke_experiments_pbt"))
     launches["bert_base_resume"] = phase_slice_resume()
     clear_warm()

@@ -223,6 +223,28 @@ class PackageIndex:
         owners = self.method_owners.get(name, [])
         return owners[0] if len(owners) == 1 else None
 
+    def method_family(self, name: str) -> List[str]:
+        """Every definition of method ``name`` when there are several and
+        all are methods of one class hierarchy (one package-local root,
+        such as an interface and the environments that override it): a
+        call by that name may reach any of them. Else []."""
+        owners = self.method_owners.get(name, [])
+        roots = set()
+        for qual in owners:
+            cls = self.class_info(qual.split(".")[0]) if qual.count(".") == 1 else None
+            if cls is None:
+                return []
+            seen = set()
+            while cls.name not in seen:
+                seen.add(cls.name)
+                bases = [self.class_info(b) for b in cls.bases if b]
+                bases = [c for c in bases if c is not None]
+                if not bases:
+                    break
+                cls = bases[0]
+            roots.add(cls.name)
+        return owners if len(owners) > 1 and len(roots) == 1 else []
+
     def resolve_alias(self, qual: str) -> str:
         """Follow ``aliases`` to the defining qualname (bounded)."""
         for _ in range(8):

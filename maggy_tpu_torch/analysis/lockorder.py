@@ -75,6 +75,14 @@ def _resolve_callee(index: PackageIndex, call) -> str:
     return index.resolve_method(call.callee) or ""
 
 
+def _resolve_callees(index: PackageIndex, call) -> List[str]:
+    """``_resolve_callee``'s target, or, for a method name that only one
+    class hierarchy defines, each of its definitions (a call through an
+    interface may reach any override)."""
+    callee = _resolve_callee(index, call)
+    return [callee] if callee else index.method_family(call.callee)
+
+
 def build_graph(index: PackageIndex) -> LockGraph:
     graph = LockGraph()
     for decl in index.lock_decls():
@@ -105,9 +113,9 @@ def build_graph(index: PackageIndex) -> LockGraph:
     # may-acquire fixpoint over the (name-resolved) call graph.
     calls_of: Dict[str, Set[str]] = {}
     for call in index.calls:
-        callee = _resolve_callee(index, call)
-        if callee and callee in index.functions:
-            calls_of.setdefault(call.func, set()).add(callee)
+        for callee in _resolve_callees(index, call):
+            if callee in index.functions:
+                calls_of.setdefault(call.func, set()).add(callee)
     may: Dict[str, Set[str]] = {f: set(direct.get(f, ()))
                                 for f in index.functions}
     for _ in range(MAX_ROUNDS):
@@ -125,15 +133,13 @@ def build_graph(index: PackageIndex) -> LockGraph:
     for call in index.calls:
         if not call.held:
             continue
-        callee = _resolve_callee(index, call)
-        if not callee:
-            continue
-        for lock in sorted(may.get(callee, ())):
-            for held in call.held:
-                graph.add(held, lock,
-                          site_of(call.func, call.line) + " -> " + callee,
-                          suppressed_reason=suppression(call.func,
-                                                        call.line))
+        for callee in _resolve_callees(index, call):
+            for lock in sorted(may.get(callee, ())):
+                for held in call.held:
+                    graph.add(held, lock,
+                              site_of(call.func, call.line) + " -> " + callee,
+                              suppressed_reason=suppression(call.func,
+                                                            call.line))
     return graph
 
 

@@ -103,6 +103,9 @@ class Driver:
         self._active_pool = None
         self.executor_logs: list = []  # guarded-by: _log_lock
         self._log_lock = threading.Lock()
+        # maggy.log's lines on an environment without append (object
+        # stores), loaded at the first line.
+        self._store_log: Optional[list] = None  # guarded-by: _log_lock
         self.exception: Optional[BaseException] = None
         self.exp_dir = self.env.register_experiment(
             app_id, run_id, {"name": self.name, "description": self.description,
@@ -397,12 +400,22 @@ class Driver:
                 "progress": progress, "reservations": reservations}
 
     def _log(self, msg: str) -> None:
-        line = "{} ({}/{}): {}".format(
+        line = "{} ({}/{}): {}\n".format(
             time.strftime("%Y-%m-%d %H:%M:%S"), self.app_id, self.run_id, msg)
+        path = self.exp_dir + "/maggy.log"
         with self._log_lock:
             try:
-                with self.env.open_file(self.exp_dir + "/maggy.log", "a") as f:
-                    f.write(line + "\n")
+                if self.env.FAST_LOCAL_WRITES:
+                    with self.env.open_file(path, "a") as f:
+                        f.write(line)
+                    return
+                # An object store has no append (GCSEnv refuses it): the
+                # log, a resumed run's earlier lines first, is rewritten
+                # whole.
+                if self._store_log is None:
+                    self._store_log = [self.env.load(path)] if self.env.exists(path) else []
+                self._store_log.append(line)
+                self.env.dump("".join(self._store_log), path)
             except OSError:
                 pass
 

@@ -248,6 +248,11 @@ class OptimizationDriver(Driver):
 
         # ---- pipelined hand-off (config.prefetch) ----
         self._prefetch_enabled = bool(config.prefetch) and self.controller.supports_prefetch()
+        # The FINAL fast path persists trial.json on the RPC event loop:
+        # only where the environment's writes are local (JAX `:251-257`).
+        # On an object store FINALs go to the worker thread, and the
+        # prefetch queue still feeds its hand-off.
+        self._inline_final_enabled = self._prefetch_enabled and self.env.FAST_LOCAL_WRITES
         # Pre-materialized suggestions (oldest first), each stamped with the
         # controller's schedule_version at suggest time.
         self._prefetched: List[Trial] = []  # guarded-by: _sched_lock
@@ -524,8 +529,10 @@ class OptimizationDriver(Driver):
         False = the caller enqueues the FINAL for the worker thread (prefetch
         off, or the schedule lock stayed held by a mid-fit suggester for
         PREFETCH_FINAL_LOCK_TIMEOUT_S: every runner's heartbeat and STOP
-        reply waits on this thread)."""
-        if not self._prefetch_enabled or self.worker_done:
+        reply waits on this thread). An environment without local writes
+        takes the worker path too: a trial.json persisted to a store on
+        this thread would stall every heartbeat."""
+        if not self._inline_final_enabled or self.worker_done:
             return False
         if not self._sched_lock.acquire(timeout=constants.PREFETCH_FINAL_LOCK_TIMEOUT_S):
             self.telemetry.metrics.counter("prefetch.lock_fallbacks").inc()

@@ -1,27 +1,31 @@
 """Environment singleton (parity: reference
-`maggy/core/environment/singleton.py`); the default is a working LocalEnv."""
+`maggy/core/environment/singleton.py`): a ``GCSEnv`` when
+``MAGGY_TPU_BASE_DIR`` is a ``gs://`` path, else a working ``LocalEnv``
+(JAX ``singleton.py:22-28``)."""
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Optional
 
-from maggy_tpu_torch.core.environment.abstractenvironment import LocalEnv
+from maggy_tpu_torch.core.environment.abstractenvironment import AbstractEnv, GCSEnv, LocalEnv
 
 
 class EnvSing:
-    _instance: Optional[LocalEnv] = None
+    _instance: Optional[AbstractEnv] = None
     _lock = threading.Lock()
 
     @classmethod
-    def get_instance(cls) -> LocalEnv:
+    def get_instance(cls) -> AbstractEnv:
         with cls._lock:
             if cls._instance is None:
-                cls._instance = LocalEnv()
+                base = os.environ.get("MAGGY_TPU_BASE_DIR", "")
+                cls._instance = GCSEnv(base) if base.startswith("gs://") else LocalEnv()
             return cls._instance
 
     @classmethod
-    def set_instance(cls, env: LocalEnv) -> None:
+    def set_instance(cls, env: AbstractEnv) -> None:
         with cls._lock:
             cls._instance = env
 

@@ -29,7 +29,6 @@ instead of one trial (JAX ``:199-245``).
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Any, Dict, Optional
 
@@ -158,9 +157,10 @@ class TrialContext:
     def restore_checkpoint(self, template: Any) -> Optional[Any]:
         """This trial's newest checkpoint on the template's device (None if
         absent)."""
-        if not os.path.isdir(os.path.join(self.trial_dir, "checkpoints")):
+        from maggy_tpu_torch.train.checkpoint import has_checkpoints, last_lock_wait_ms
+
+        if not has_checkpoints(self.trial_dir):
             return None
-        from maggy_tpu_torch.train.checkpoint import last_lock_wait_ms
 
         t0 = time.perf_counter()
         try:

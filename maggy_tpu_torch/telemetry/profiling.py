@@ -31,18 +31,26 @@ the window's events with every runner held, so an auto window is short
 start-up (CUPTI's) once, when the obs plane comes up, before any runner
 steps. Captures in one process run one at a time (``/profilez`` and the
 auto captures of every experiment share one lock).
+
+A remote target (an experiment dir on an object store, ``gs://...``) is
+written into a local staging directory and uploaded through the
+environment (``upload_tree``), as TensorBoard's event files are: nothing
+is written under a local path that begins with ``gs:``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import shutil
 import socket
+import tempfile
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from maggy_tpu_torch import device_gate
+from maggy_tpu_torch.core.environment import is_remote
 
 #: Auto (health-triggered) captures per run, across all partitions.
 AUTO_CAPTURE_LIMIT = 2
@@ -93,6 +101,32 @@ def tb_trace_path(trace_dir: str) -> str:
         socket.gethostname(), os.getpid(), time.time_ns(), TB_TRACE_SUFFIX))
 
 
+def upload_file(local_path: str, remote_path: str) -> None:
+    """Copy one local file to ``remote_path`` through the active
+    environment, chunked (traces run to GBs)."""
+    from maggy_tpu_torch.core.environment import EnvSing
+
+    with open(local_path, "rb") as src, \
+            EnvSing.get_instance().open_file(remote_path, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+
+
+def upload_tree(local_dir: str, remote_dir: str) -> None:
+    """Copy a staged directory to its remote home through the active
+    environment (best-effort, as every TensorBoard and profile artifact
+    is), then remove the staging directory."""
+    try:
+        for root, _, files in os.walk(local_dir):
+            rel = os.path.relpath(root, local_dir)
+            for fname in files:
+                upload_file(os.path.join(root, fname), "/".join(
+                    p for p in (remote_dir, "" if rel == "." else rel, fname) if p))
+    except Exception:  # noqa: BLE001 - an artifact never fails its run
+        pass
+    finally:
+        shutil.rmtree(local_dir, ignore_errors=True)
+
+
 def _trial_activities() -> List[str]:
     import torch
 
@@ -109,7 +143,8 @@ def trial_profile(trace_dir: str):
     CUDA. Yields the trace's path, or None when the process's profiler is
     taken (another trial's trace, a user trace or a capture holds it): the
     trial then runs untraced. Start and stop hold ``device_gate.quiesce``,
-    as every capture does."""
+    as every capture does. A remote ``trace_dir`` is staged locally and
+    uploaded after the stop."""
     if not _CAPTURE_LOCK.acquire(blocking=False):
         yield None
         return
@@ -119,11 +154,16 @@ def trial_profile(trace_dir: str):
             yield None
             return
         path = tb_trace_path(trace_dir)
+        staging = tempfile.mkdtemp(prefix="maggy_trace_") if is_remote(trace_dir) else None
         try:
             yield path
         finally:
-            os.makedirs(trace_dir, exist_ok=True)
-            _stop_trace(prof, path)
+            if staging is None:
+                os.makedirs(trace_dir, exist_ok=True)
+                _stop_trace(prof, path)
+            else:
+                _stop_trace(prof, os.path.join(staging, os.path.basename(path)))
+                upload_tree(staging, trace_dir)
     finally:
         _CAPTURE_LOCK.release()
 
@@ -196,15 +236,20 @@ class ProfileCapturer:
             if partition is not None:
                 stamp += "_p{}".format(partition)
             target = os.path.join(self.profile_dir, stamp)
-            os.makedirs(target, exist_ok=True)
+            staging = tempfile.mkdtemp(prefix="maggy_profile_") \
+                if is_remote(target) else None
+            local = staging or target
+            os.makedirs(local, exist_ok=True)
             # The thread dump is the cheap, always-available half of the
             # artifact, written before the trace.
             from maggy_tpu_torch.telemetry.health import thread_dump
 
             try:
-                with open(os.path.join(target, "threads.txt"), "w") as f:
+                with open(os.path.join(local, "threads.txt"), "w") as f:
                     f.write(thread_dump(max_bytes=1 << 20))
-            except OSError:
+                if staging is not None:
+                    upload_file(os.path.join(local, "threads.txt"), target + "/threads.txt")
+            except Exception:  # noqa: BLE001 - the dump is best-effort
                 pass
             record: Dict[str, Any] = {
                 "path": target, "reason": reason,
@@ -227,13 +272,15 @@ class ProfileCapturer:
                 return record
             record["profiler"] = "torch"
             time.sleep(float(duration_s))
-            trace = os.path.join(target, TRACE_NAME)
+            trace = os.path.join(local, TRACE_NAME)
             _stop_trace(prof, trace)
-            record["trace"] = trace
+            record["trace"] = os.path.join(target, TRACE_NAME)
             record["trace_bytes"] = os.path.getsize(trace)
             record["capture_s"] = time.monotonic() - t0
             return record
         finally:
+            if staging is not None:
+                upload_tree(staging, target)
             _CAPTURE_LOCK.release()
 
     def prime(self) -> float:

@@ -62,6 +62,8 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from maggy_tpu_torch.core.environment import is_remote
+from maggy_tpu_torch.telemetry.profiling import upload_tree
 from maggy_tpu_torch.train.tfrecord import _len_delim, _tag, _varint, frame_record
 
 # Per-THREAD registry: trial runners are threads sharing this module; a
@@ -205,7 +207,7 @@ class _EventWriter:
 
     def __init__(self, logdir: str):
         self._remote_dir = None
-        if _is_remote(logdir):
+        if is_remote(logdir):
             import tempfile
 
             self._remote_dir = logdir
@@ -240,7 +242,7 @@ class _EventWriter:
         teardown of every writer, without the session end."""
         self._file.close()
         if self._remote_dir is not None:
-            _upload_tree(self._staging_dir, self._remote_dir)
+            upload_tree(self._staging_dir, self._remote_dir)
 
     def close(self) -> None:
         try:
@@ -250,37 +252,9 @@ class _EventWriter:
         self.finish()
 
 
-def _is_remote(path: str) -> bool:
-    return "://" in path
-
-
 def _tb_dir(exp_dir: str) -> str:
-    return "/".join((exp_dir, "tensorboard")) if _is_remote(exp_dir) \
+    return "/".join((exp_dir, "tensorboard")) if is_remote(exp_dir) \
         else os.path.join(exp_dir, "tensorboard")
-
-
-def _upload_tree(local_dir: str, remote_dir: str) -> None:
-    """Copy a staged logdir to its remote home through the experiment's
-    environment (best-effort), then remove the staging dir."""
-    import shutil
-
-    from maggy_tpu_torch.core.environment import EnvSing
-
-    try:
-        env = EnvSing.get_instance()
-        for root, _, files in os.walk(local_dir):
-            rel = os.path.relpath(root, local_dir)
-            for fname in files:
-                remote = "/".join(p for p in (
-                    remote_dir, "" if rel == "." else rel, fname) if p)
-                with open(os.path.join(root, fname), "rb") as src, \
-                        env.open_file(remote, "wb") as dst:
-                    # Chunked: traces run to GBs.
-                    shutil.copyfileobj(src, dst)
-    except Exception:  # noqa: BLE001
-        pass
-    finally:
-        shutil.rmtree(local_dir, ignore_errors=True)
 
 
 def _register(trial_logdir: str) -> None:
@@ -373,7 +347,7 @@ def start_trace(trace_dir: Optional[str] = None) -> None:
 
     target = trace_dir or logdir()
     staging = None
-    if _is_remote(target):
+    if is_remote(target):
         import tempfile
 
         staging = (tempfile.mkdtemp(prefix="maggy_trace_"), target)
@@ -392,4 +366,4 @@ def stop_trace() -> None:
     prof, target, staging = trace
     profiling.stop_user_trace(prof, target)
     if staging is not None:
-        _upload_tree(staging[0], staging[1])
+        upload_tree(staging[0], staging[1])

@@ -11,6 +11,15 @@ driver stamps the parent's newest step into the assignment and the runner
 copies that step into the child's trial dir (``fork_checkpoint``), so the
 child's own ``restore`` resumes there.
 
+A remote trial dir (``gs://...``, any path with ``://``) is read and
+written through the active environment (``EnvSing``), never the local
+disk: one object a step, ``<trial>/checkpoints/<step>/state.pt``, written
+with ``torch.save`` into ``env.open_file(..., "wb")``. The finished object
+is the publish point (a store has no temporary directory and no rename),
+and a fork's copy is published by its ``.fork_complete.<step>`` marker.
+The JAX checkpointer makes such a path absolute and local, and its save
+fails there (ROADMAP queue 3 item 28).
+
 ``torch`` is imported only where a checkpoint is written or read: the
 preemption ack and the driver's fork stamp need only the step numbers,
 which come from a directory listing.
@@ -19,11 +28,14 @@ which come from a directory listing.
 from __future__ import annotations
 
 import contextlib
+import io
 import os
 import shutil
 import threading
 import time
 from typing import Any, Dict, Optional
+
+from maggy_tpu_torch.core.environment import EnvSing, is_remote
 
 #: Thread runners share one process: every checkpoint write, read and
 #: prune runs under this lock (``maggy_tpu/train/checkpoint.py:16-20``).
@@ -52,9 +64,19 @@ def last_lock_wait_ms() -> float:
     return getattr(_wait, "ms", 0.0)
 
 
-def _steps(path: str):
+def _steps(path: str, env=None):
+    """The step numbers kept under a checkpoints dir, oldest first: through
+    ``env`` when given, else from the local disk."""
+    if env is not None:
+        return sorted(int(name) for name in env.ls(path) if name.isdigit())
     return sorted(int(name) for name in os.listdir(path) if name.isdigit()) \
         if os.path.isdir(path) else []
+
+
+def has_checkpoints(trial_dir: str) -> bool:
+    """Whether ``trial_dir`` has a checkpoints dir (local disk or store)."""
+    path = "{}/checkpoints".format(trial_dir.rstrip("/"))
+    return EnvSing.get_instance().isdir(path) if is_remote(trial_dir) else os.path.isdir(path)
 
 
 def _flat_tensors(tree, prefix=()) -> Dict[tuple, Any]:
@@ -101,13 +123,25 @@ class TrialCheckpointer:
     step is not newer than the latest kept step is skipped. A fork stages
     its parent's step into the child's dir, so a PBT segment that exploits
     a donor further along keeps the donor's copy, and its lineage continues
-    from the donor's weights (ROADMAP queue 3 item 7)."""
+    from the donor's weights (ROADMAP queue 3 item 7).
+
+    A remote ``trial_dir`` goes through the environment active at
+    construction: each step is one object, complete once ``save``
+    returns."""
 
     def __init__(self, trial_dir: str, max_to_keep: int = 1):
         if max_to_keep < 1:
             raise ValueError("max_to_keep must be >= 1, got {}".format(max_to_keep))
-        self.path = os.path.abspath(os.path.join(trial_dir, "checkpoints"))
+        if is_remote(trial_dir):
+            self.env = EnvSing.get_instance()
+            self.path = "{}/checkpoints".format(trial_dir.rstrip("/"))
+        else:
+            self.env = None
+            self.path = os.path.abspath(os.path.join(trial_dir, "checkpoints"))
         self.max_to_keep = max_to_keep
+
+    def _state_path(self, step: int) -> str:
+        return "{}/{}/{}".format(self.path, int(step), STATE_FILE)
 
     def save(self, step: int, state: Any) -> None:
         """Write ``state`` (nested dicts, lists and tuples of tensors and
@@ -118,8 +152,16 @@ class TrialCheckpointer:
 
         step = int(step)
         with _locked():
-            kept = _steps(self.path)
+            kept = _steps(self.path, self.env)
             if kept and step <= kept[-1]:
+                return
+            if self.env is not None:
+                # The object is the publish point: a step whose write
+                # failed has no object, and the error reaches the caller.
+                with self.env.open_file(self._state_path(step), "wb") as f:
+                    torch.save(state, f)
+                for stale in (kept + [step])[:-self.max_to_keep]:
+                    self.env.delete("{}/{}".format(self.path, stale), recursive=True)
                 return
             os.makedirs(self.path, exist_ok=True)
             tmp = os.path.join(self.path, ".tmp.{}".format(step))
@@ -132,7 +174,7 @@ class TrialCheckpointer:
 
     def latest_step(self) -> Optional[int]:
         with _locked():
-            kept = _steps(self.path)
+            kept = _steps(self.path, self.env)
         return kept[-1] if kept else None
 
     def restore(self, template: Any, step: Optional[int] = None) -> Any:
@@ -150,12 +192,16 @@ class TrialCheckpointer:
         first = next(iter(wanted.values()), None)
         with _locked():
             if step is None:
-                kept = _steps(self.path)
+                kept = _steps(self.path, self.env)
                 if not kept:
                     return None
                 step = kept[-1]
-            path = os.path.join(self.path, str(int(step)), STATE_FILE)
-            state = torch.load(path, map_location=None if first is None else first.device,
+            path = self._state_path(step)
+            source = path
+            if self.env is not None:
+                with self.env.open_file(path, "rb") as f:
+                    source = io.BytesIO(f.read())
+            state = torch.load(source, map_location=None if first is None else first.device,
                                weights_only=True)
         got = _flat_tensors(state)
         for key, t in wanted.items():
@@ -176,6 +222,8 @@ class TrialCheckpointer:
 def latest_checkpoint_step(trial_dir: str) -> Optional[int]:
     """Newest checkpointed step under ``trial_dir`` or None, from the
     directory listing alone: the preemption ack needs only the number."""
+    if is_remote(trial_dir):
+        return latest_checkpoint_step_env(EnvSing.get_instance(), trial_dir)
     kept = _steps(os.path.join(trial_dir, "checkpoints"))
     return kept[-1] if kept else None
 
@@ -183,8 +231,8 @@ def latest_checkpoint_step(trial_dir: str) -> Optional[int]:
 def restore_parent_state(exp_dir: str, parent_trial_id: str, template: Any) -> Optional[Any]:
     """Warm-start a promoted trial from its parent's newest checkpoint
     (None when the parent saved none)."""
-    parent_dir = os.path.join(exp_dir, parent_trial_id)
-    if not os.path.isdir(os.path.join(parent_dir, "checkpoints")):
+    parent_dir = "{}/{}".format(exp_dir.rstrip("/"), parent_trial_id)
+    if not has_checkpoints(parent_dir):
         return None
     ckpt = TrialCheckpointer(parent_dir)
     try:
@@ -198,11 +246,8 @@ def restore_parent_state(exp_dir: str, parent_trial_id: str, template: Any) -> O
 def latest_checkpoint_step_env(env, trial_dir: str) -> Optional[int]:
     """``latest_checkpoint_step`` through the environment: the driver
     resolves a parent's checkpoint step with it at fork-stamp time."""
-    path = "{}/checkpoints".format(trial_dir)
-    if not env.isdir(path):
-        return None
-    steps = [int(name) for name in env.ls(path) if name.isdigit()]
-    return max(steps) if steps else None
+    steps = _steps("{}/checkpoints".format(trial_dir), env)
+    return steps[-1] if steps else None
 
 
 def _copy_tree_env(env, src: str, dst: str) -> int:

@@ -11,8 +11,9 @@ A manifest records ``{name, version, path, format, schema, description,
 created}``. Consumers address datasets as ``registry://name`` (latest) or
 ``registry://name@<version>`` anywhere a dataset path is accepted
 (``ShardedBatchIterator.from_path``, ``AblationStudy(train_set=...)``,
-``train.data.load_path_dataset``). Cut: nothing of the registry; the port's
-environment is the local disk alone (no GCS environment yet).
+``train.data.load_path_dataset``). Nothing of the registry is cut: on a
+``GCSEnv`` the manifests live in the bucket and the data paths stay where
+the data lives.
 """
 
 from __future__ import annotations

@@ -37,7 +37,11 @@ from maggy_tpu_torch.searchspace import Searchspace
 pytestmark = [pytest.mark.torch, pytest.mark.timeout(60)]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "sklearn", "maggy_tpu")
+#: The store libraries: the card's machine has neither, so the port may
+#: import gcsfs only where a ``GCSEnv`` is built without a filesystem.
+STORE_LIBS = ("fsspec", "gcsfs")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "sklearn",
+          "maggy_tpu") + STORE_LIBS
 
 _SWEEP = textwrap.dedent("""
     import importlib.abc, importlib.machinery, json, os, sys, tempfile
@@ -324,6 +328,16 @@ _SWEEP = textwrap.dedent("""
         out["gang"] = sweep("blocked_gang", "randomsearch", 1, Searchspace(
             lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]),
             gang=("GANG", [GangSpec(2)])), train_gang)
+        # An object-store environment over an injected filesystem needs
+        # neither store library; one without a filesystem refuses to start.
+        from maggy_tpu_torch.core.environment import GCSEnv
+        gcs = GCSEnv("gs://bucket/base", fs=object())
+        try:
+            GCSEnv("gs://bucket/base")
+            refused = None
+        except ImportError as e:
+            refused = str(e)
+        out["gcs"] = {{"fast_local_writes": gcs.FAST_LOCAL_WRITES, "refused": refused}}
         out["leaked"] = banned_imports()
         out["pid"] = os.getpid()
         print(json.dumps(out))
@@ -342,6 +356,7 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    assert out["gcs"]["fast_local_writes"] is False and "gcsfs" in out["gcs"]["refused"]
     # A LOCO study over a registered TFRecord: 1 + 2 features + 1 layer.
     assert out["ablation"]["num_trials"] == 4
     assert out["ablation"]["worst_hp"]["ablated_feature"] == "a"
@@ -419,9 +434,11 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert "rpc-server" not in result["pipeline"]["suggest_threads"]
 
 
-def _imported_roots(path):
+def _imported_roots(path, top_level=False):
+    """The top-level package of every import in ``path`` (with
+    ``top_level``, of the module-level statements only)."""
     tree = ast.parse(open(path).read(), filename=path)
-    for node in ast.walk(tree):
+    for node in (tree.body if top_level else ast.walk(tree)):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name.split(".")[0]
@@ -458,9 +475,15 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("parallel", "sharded.py"), ("parallel", "pipeline.py"), ("tensorboard.py",),
         ("analysis", "__init__.py"), ("analysis", "__main__.py"), ("analysis", "astindex.py"),
         ("analysis", "guards.py"), ("analysis", "lockorder.py"), ("analysis", "rpcconf.py"),
-        ("analysis", "journalvocab.py"), ("analysis", "witness.py"))} <= scanned
+        ("analysis", "journalvocab.py"), ("analysis", "witness.py"),
+        ("core", "environment", "abstractenvironment.py"),
+        ("core", "environment", "singleton.py"), ("telemetry", "profiling.py"))} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
+    # gcsfs only inside GCSEnv.__init__, where no filesystem was given.
+    lazy = os.path.join("maggy_tpu_torch", "core", "environment", "abstractenvironment.py")
+    assert offenders.pop(lazy) == ["gcsfs"]
+    assert "gcsfs" not in set(_imported_roots(os.path.join(ROOT, lazy), top_level=True))
     assert {f: r for f, r in offenders.items() if r} == {}
     # The event-file writer and the analyzer need neither tensorboard nor
     # protobuf (the card's machine has neither); the analyzer, pure AST,

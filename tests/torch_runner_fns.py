@@ -66,12 +66,18 @@ def train_remote_gated(lr, units, reporter=None):
 # gloo world each: at most one world a test module (started by a
 # module-scoped fixture), a FileStore under the test's tmp dir for the
 # rendezvous (no port to collide on), one intra-op thread a rank, every
-# process joined with a bound and killed if it outlives it.
+# process joined with a bound and killed if it outlives it. Each rank's
+# fatal signals dump its threads to ``rank<r>.stderr``, which a failed
+# world's error quotes. A rank that wrote its result leaves with
+# ``os._exit``: under load, a rank of a 4-rank world was seen to abort in
+# the interpreter's teardown after its work ("Fatal Python error: Aborted",
+# no Python frame), in native code the test does not exercise.
 
 WORLD_TIMEOUT_S = 120
 
 
 def _world_entry(fn, rank, world, out_dir, args):
+    import faulthandler
     import pickle
     import traceback
     from datetime import timedelta
@@ -79,6 +85,8 @@ def _world_entry(fn, rank, world, out_dir, args):
     import torch
     import torch.distributed as dist
 
+    log = open(os.path.join(out_dir, "rank{}.stderr".format(rank)), "w")
+    faulthandler.enable(log)
     torch.set_num_threads(1)
     try:
         store = dist.FileStore(os.path.join(out_dir, "store"), world)
@@ -94,6 +102,8 @@ def _world_entry(fn, rank, world, out_dir, args):
         with open(os.path.join(out_dir, "rank{}.err".format(rank)), "w") as f:
             f.write(traceback.format_exc())
         raise
+    log.close()
+    os._exit(0)
 
 
 def run_world(fn, world, out_dir, args=(), timeout=WORLD_TIMEOUT_S):
@@ -119,9 +129,11 @@ def run_world(fn, world, out_dir, args=(), timeout=WORLD_TIMEOUT_S):
             if os.path.exists(err):
                 errors.append(open(err).read())
             elif p.is_alive() or p.exitcode != 0:
-                errors.append("rank {}: {}".format(
+                log = os.path.join(out_dir, "rank{}.stderr".format(r))
+                errors.append("rank {}: {}{}".format(
                     r, "alive at the {} s bound".format(timeout) if p.is_alive()
-                    else "exit code {}".format(p.exitcode)))
+                    else "exit code {}".format(p.exitcode),
+                    "\n" + open(log).read()[-4000:] if os.path.exists(log) else ""))
         if errors:
             raise RuntimeError("gloo world failed:\n" + "\n".join(errors))
         results = []
