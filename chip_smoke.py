@@ -16,7 +16,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              findings (none, or the phase fails) and suppressions with their
              reasons, and its seconds.
 3. kernels — each flash-attention kernel against its plain PyTorch version
-             (bf16, bf16 with fp32 gradients, and fp32; the BERT-base
+             (bf16, bf16 with fp32 gradients, and fp32; every head dim the
+             kernels take, D = 64, 72, ..., 256, at 2 x 256 keys, 4:2
+             heads, causal and key-padded with a fully masked row, Sq =
+             128 for a quarter of the dims; the BERT-base
              training shape with a padding mask that fully masks some rows,
              a causal GQA shape, causal padded shapes at S=256 with fully
              padded rows, and the Llama-3-8B training shape: causal, GQA
@@ -25,9 +28,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              not causal), dQ also in the mode that computes delta
              from the forward's output, each error beside its tolerance;
              each kernel's registers, local memory, shared memory and
-             resident blocks per SM (failing if a D=64 tensor-core kernel
-             spills; bf16 D=128 local memory printed); kernel, plain and
-             scaled_dot_product_attention times at both main paths' shapes
+             resident blocks per SM at every head dim (failing if a D=64
+             tensor-core kernel spills; bf16 D=128 and D=80 local memory
+             printed); kernel, plain and
+             scaled_dot_product_attention times at the main paths' shapes
+             (H2O-Danube-1.8B's 2 x 2048, GQA 32:8, D=80, causal, among them)
              (SDPA's forward, backward and both are yardsticks, never used
              by the port).
 4. slice   — the BERT-base (12 x 768, vocab 30522) ASHA + median-stopping
@@ -65,7 +70,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              lock fallbacks, step times beside the ASHA sweep's, wall times
              and the best values.
 6. slice_llama — the Llama-3-8B LoRA sweep (4096 wide, vocab 128256, cut
-             to LLAMA_LAYERS = 8 of its 32 layers,
+             to LLAMA_LAYERS = 4 of its 32 layers,
              32/8 heads, remat) through experiment.lagom: ASHA over
              (lora_rank, lora_alpha, lr) on two thread runners, each trial
              building its model, only the adapters trained, batches of
@@ -76,6 +81,18 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              CPU path (hidden states, loss, layer-0 adapter gradients), the
              chunked loss's time, the step time alone, a torch.profiler
              breakdown of three steps, and the phase's peak memory.
+6b. slice_danube — slice_llama's LoRA sweep (ASHA over lora_rank,
+             lora_alpha, lr on two thread runners, 2 x 2048 tokens, remat,
+             the chunked loss) at H2O-Danube-1.8B's widths (arXiv:2401.16818:
+             vocab 32000, 2560 wide, FFN 6912, 24 layers, 32/8 heads,
+             head_dim 80, rope theta 1e4) at full depth: the flash kernels
+             at D=80, a width no earlier path runs. Danube's sliding window
+             of 4096 keys covers all 2048 tokens, so the repo's Llama
+             computes its function. Launches exact (the forward twice per
+             layer and step, the backward kernels once), the journal
+             replayed, the warm reading; then a 2-layer full-width model on
+             the card against the CPU path (hidden states, loss, layer-0
+             adapter gradients).
 7. slice_process — the slice sweep under pool="process": two spawned runner
              processes, each with its own interpreter and CUDA context. Each
              trial writes its steps and its process's kernel launches to a
@@ -579,8 +596,14 @@ REPORT_EVERY = 2
 # Llama-3-8B LoRA fine-tune: batch 2 x 2048 tokens (BASELINE.md config 5),
 # its sweep at full width cut to LLAMA_LAYERS of the 32 layers (the
 # script's time; launches and checks count the layers run).
-LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 8
+LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 4
 LLAMA_STEPS_PER_BUDGET = 2
+# slice_danube: H2O-Danube-1.8B at full depth, the sweep's batches those of
+# slice_llama (2 x 2048 tokens).
+DANUBE_LAYERS = 24
+# The kernels phase holds every head dim the CUDA kernels take (the JAX
+# rule D >= 64, D % 8 == 0, up to 256) against the plain versions.
+KERNEL_CHECK_DIMS = tuple(range(64, 257, 8))
 # slice_dist: Llama-3-8B at full width on a "seq" ring of DIST_RANKS rank
 # processes sharing the card over gloo, DIST_LAYERS layers (depth cut), batch
 # 1 x DIST_S tokens (DIST_S / DIST_RANKS a rank), DIST_STEPS steps; the
@@ -609,9 +632,11 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                # slice_parallel: tp's rank (16 of 32 query heads, 4 of 8 kv
                # heads) and the MoE Llama's ep rank at batch 1.
                "llama3_8b_tp": (1, LLAMA_S, LLAMA_S, 16, 4, 128),
-               "llama3_8b_b1": (1, LLAMA_S, LLAMA_S, 32, 8, 128)}
+               "llama3_8b_b1": (1, LLAMA_S, LLAMA_S, 32, 8, 128),
+               # slice_danube: H2O-Danube-1.8B, 32:8 heads of 80.
+               "danube_1_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 80)}
 #: Paths whose attention is causal and unpadded (the rest: key padding).
-CAUSAL_PATHS = ("llama3_8b", "dist")
+CAUSAL_PATHS = ("llama3_8b", "dist", "danube_1_8b")
 #: Paths that run the kernels at another path's shape: the process-runner,
 #: forking, resumed, warm A/B and LOCO sweeps are the slice sweep's, the MoE
 #: Llama's attention is the Llama's, and so is its lanes' (2 lanes of batch
@@ -845,12 +870,14 @@ def phase_build():
     t0 = time.perf_counter()
     # The analyzer runs in a process of its own while nvcc builds.
     analysis = start_analysis()
-    sources = build.compile_all()
-    for name in sources:
-        build.library(name)
-    ptxas = [line.strip() for name in sources
+    builds = build.compile_all()
+    for name, variant in builds:
+        build.library(name, variant)
+    names = [build.build_name(*b) for b in builds]
+    ptxas = [line.strip() for name in names
              for line in build.build_logs.get(name, "").splitlines() if "Used" in line]
-    emit("build", sources=sources, seconds=time.perf_counter() - t0,
+    emit("build", sources=names, seconds=time.perf_counter() - t0,
+         nvcc_s={name: build.build_seconds.get(name) for name in names},
          ptxas_register_lines=len(ptxas), ptxas_sample=ptxas[:3], native=native_check(),
          analysis=analysis_check(*analysis))
 
@@ -1146,6 +1173,59 @@ def bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_kernels(label, shape, causal, padded, results, main):
+    """Every kernel and variant at ``shape`` against its plain version, in
+    bf16 (with bf16 and fp32 gradients) and fp32; appends to ``results``,
+    raises on a miss, and keeps each main path's bf16 error in ``main``."""
+    from maggy_tpu_torch.ops import attention as A
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, mask = make_inputs(*shape, dtype, padded, seed=1)
+        out, lse = A.flash_fwd(q, k, v, mask, causal)
+        p_out, p_lse = A._plain_fwd(q, k, v, mask, causal)
+        p_out = p_out.contiguous()
+        delta = A._row_delta(do, p_out)
+        dk, dv = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
+        p_dk, p_dv = A._plain_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
+        dq = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
+        p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
+        # The mode the autograd backward runs: delta from the output.
+        dq_f, delta_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, causal, out=p_out)
+        live = p_lse > A.ALL_MASKED_LSE
+        pairs = [("flash_fwd", "", [(out, p_out), (torch.where(live, lse, 0.0),
+                                                   torch.where(live, p_lse, 0.0))]),
+                 ("flash_bwd_dkdv", "", [(dk, p_dk), (dv, p_dv)]),
+                 ("flash_bwd_dq", "", [(dq, p_dq)]),
+                 ("flash_bwd_dq", "/fused_delta", [(dq_f, p_dq), (delta_f, delta)])]
+        if dtype == torch.bfloat16:  # fp32 gradients (the ring building block)
+            dk32, dv32 = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal, True)
+            dq32 = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal, True)
+            dq32_f, delta32_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, causal,
+                                               True, out=p_out)
+            pairs += [("flash_bwd_dkdv", "/grad_fp32", [(dk32, p_dk), (dv32, p_dv)]),
+                      ("flash_bwd_dq", "/grad_fp32", [(dq32, p_dq)]),
+                      ("flash_bwd_dq", "/fused_delta/grad_fp32",
+                       [(dq32_f, p_dq), (delta32_f, delta)])]
+        torch.cuda.synchronize()
+        for name, variant, checks in pairs:
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in checks)
+            tol = min(tolerance(dtype, b) for _, b in checks)
+            ok = err <= tol and all(bool(torch.isfinite(a).all()) for a, _ in checks)
+            results.append({"case": label + variant, "dtype": str(dtype),
+                            "kernel": name, "max_abs_err": err, "tol": tol, "ok": ok})
+            if not ok:
+                emit("kernels", checks=results)
+                raise AssertionError("{} disagrees with its plain version on {} {}: "
+                                     "{} > {}".format(name, label + variant, dtype, err, tol))
+            # Each path's error is that of the variant it runs: the
+            # ring's blocks (causal and full) return fp32 gradients.
+            path = "dist" if label == "dist_full" else label
+            runs = "/grad_fp32" if path == "dist" and name != "flash_fwd" else ""
+            if path in main and variant == runs and dtype == torch.bfloat16:
+                prev = main[path].get(name, {}).get("max_abs_err", 0.0)
+                main[path][name] = {"max_abs_err": max(prev, err)}
+
+
 def phase_kernels():
     from maggy_tpu_torch.ops import attention as A
 
@@ -1158,85 +1238,55 @@ def phase_kernels():
              ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
              ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
              ("llama3_8b", MAIN_SHAPES["llama3_8b"], True, False),
+             ("danube_1_8b", MAIN_SHAPES["danube_1_8b"], True, False),
              ("dist", MAIN_SHAPES["dist"], True, False),
              ("llama3_8b_tp", MAIN_SHAPES["llama3_8b_tp"], True, False),
              ("llama3_8b_b1", MAIN_SHAPES["llama3_8b_b1"], True, False),
              # The ring's off-diagonal blocks: the rank's shard, not causal.
              ("dist_full", MAIN_SHAPES["dist"], False, False)]
+    # Every head dim the kernels take: 2 x 256 keys, 4:2 heads, causal and
+    # key-padded with the first batch row fully masked; Sq = 128 != Sk
+    # where D % 32 == 8 (72, 104, ..., 232: dims with a half k16 step), so
+    # the bottom-right causal offset meets the zero columns too.
+    cases += [("d{}".format(D), (2, 128 if D % 32 == 8 else 256, 256, 4, 2, D), True, True)
+              for D in KERNEL_CHECK_DIMS]
     results, main = [], {path: {} for path in MAIN_SHAPES}
+    t_checks = time.perf_counter()
     for label, shape, causal, padded in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do, mask = make_inputs(*shape, dtype, padded, seed=1)
-            out, lse = A.flash_fwd(q, k, v, mask, causal)
-            p_out, p_lse = A._plain_fwd(q, k, v, mask, causal)
-            p_out = p_out.contiguous()
-            delta = A._row_delta(do, p_out)
-            dk, dv = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
-            p_dk, p_dv = A._plain_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal)
-            dq = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
-            p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, mask, causal)
-            # The mode the autograd backward runs: delta from the output.
-            dq_f, delta_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, causal, out=p_out)
-            live = p_lse > A.ALL_MASKED_LSE
-            pairs = [("flash_fwd", "", [(out, p_out), (torch.where(live, lse, 0.0),
-                                                       torch.where(live, p_lse, 0.0))]),
-                     ("flash_bwd_dkdv", "", [(dk, p_dk), (dv, p_dv)]),
-                     ("flash_bwd_dq", "", [(dq, p_dq)]),
-                     ("flash_bwd_dq", "/fused_delta", [(dq_f, p_dq), (delta_f, delta)])]
-            if dtype == torch.bfloat16:  # fp32 gradients (the ring building block)
-                dk32, dv32 = A.flash_bwd_dkdv(q, k, v, do, p_lse, delta, mask, causal, True)
-                dq32 = A.flash_bwd_dq(q, k, v, do, p_lse, delta, mask, causal, True)
-                dq32_f, delta32_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, causal,
-                                                   True, out=p_out)
-                pairs += [("flash_bwd_dkdv", "/grad_fp32", [(dk32, p_dk), (dv32, p_dv)]),
-                          ("flash_bwd_dq", "/grad_fp32", [(dq32, p_dq)]),
-                          ("flash_bwd_dq", "/fused_delta/grad_fp32",
-                           [(dq32_f, p_dq), (delta32_f, delta)])]
-            torch.cuda.synchronize()
-            for name, variant, checks in pairs:
-                err = max(float((a.float() - b.float()).abs().max()) for a, b in checks)
-                tol = min(tolerance(dtype, b) for _, b in checks)
-                ok = err <= tol and all(bool(torch.isfinite(a).all()) for a, _ in checks)
-                results.append({"case": label + variant, "dtype": str(dtype),
-                                "kernel": name, "max_abs_err": err, "tol": tol, "ok": ok})
-                if not ok:
-                    emit("kernels", checks=results)
-                    raise AssertionError("{} disagrees with its plain version on {} {}: "
-                                         "{} > {}".format(name, label + variant, dtype, err, tol))
-                # Each path's error is that of the variant it runs: the
-                # ring's blocks (causal and full) return fp32 gradients.
-                path = "dist" if label == "dist_full" else label
-                runs = "/grad_fp32" if path == "dist" and name != "flash_fwd" else ""
-                if path in main and variant == runs and dtype == torch.bfloat16:
-                    prev = main[path].get(name, {}).get("max_abs_err", 0.0)
-                    main[path][name] = {"max_abs_err": max(prev, err)}
+        check_kernels(label, shape, causal, padded, results, main)
+    checks_s = time.perf_counter() - t_checks
     A.reset_launch_counts()
 
     # What each kernel takes on the card, per head dim and type (and, for
     # the backward, per gradient type).
     variants = [(torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)]
-    resources = [{"kernel": name, "D": D, "dtype": str(dtype), "grad_fp32": g32,
-                  **A.kernel_resources(name, D, dtype, g32)}
-                 for name in REPLACES for D in A.KERNEL_HEAD_DIMS
+    resources = [{"kernel": name, "D": D, "width": A.kernel_width(D), "dtype": str(dtype),
+                  "grad_fp32": g32, **A.kernel_resources(name, D, dtype, g32)}
+                 for name in REPLACES for D in KERNEL_CHECK_DIMS
                  for dtype, g32 in variants if not (g32 and name == "flash_fwd")]
     spilling = [r for r in resources if r["D"] == 64 and r["dtype"] == str(torch.bfloat16)
                 and r["local_bytes"]]
     if spilling:
         emit("kernels", checks=results, resources=resources)
         raise AssertionError("tensor-core kernels use local memory at D=64: {}".format(spilling))
-    # The Llama path's head dim: local memory is reported, not gated.
-    d128 = {"{}{}".format(r["kernel"], "/grad_fp32" if r["grad_fp32"] else ""):
+    # The Llama and Danube paths' head dims: local memory is reported, not
+    # gated.
+    bf16_resources = {
+        D: {"{}{}".format(r["kernel"], "/grad_fp32" if r["grad_fp32"] else ""):
             {key: r[key] for key in ("registers", "local_bytes", "blocks_per_sm")}
-            for r in resources if r["D"] == 128 and r["dtype"] == str(torch.bfloat16)}
+            for r in resources if r["D"] == D and r["dtype"] == str(torch.bfloat16)}
+        for D in (128, 80)}
 
     # Times at each main path's shape and type (bf16): BERT-base padded,
-    # Llama-3-8B causal GQA.
+    # Llama-3-8B and H2O-Danube-1.8B causal GQA.
     timed, yardsticks = {}, {}
     for path in MAIN_SHAPES:
         timed[path], yardsticks[path] = time_kernels(path, main[path])
     A.reset_launch_counts()
     llama = MAIN_SHAPES["llama3_8b"]
-    emit("kernels", checks=results, resources=resources, bf16_d128_resources=d128,
+    emit("kernels", checks=results, checks_s=checks_s, head_dims=list(KERNEL_CHECK_DIMS),
+         resources=resources, bf16_d128_resources=bf16_resources[128],
+         bf16_d80_resources=bf16_resources[80],
          shape_main=[BERT_B, BERT_S, 12, 64], dtype=str(torch.bfloat16),
          timed=timed["bert_base"], **yardsticks["bert_base"],
          bert_base_bo={"shape": [64, BERT_S, 12, 64], "timed": timed["bert_base_bo"],
@@ -1250,7 +1300,7 @@ def phase_kernels():
                "timed": timed["dist"], **yardsticks["dist"]},
          **{path: {"shape": [MAIN_SHAPES[path][i] for i in (0, 1, 3, 4, 5)], "causal": True,
                    "timed": timed[path], **yardsticks[path]}
-            for path in ("llama3_8b_tp", "llama3_8b_b1")})
+            for path in ("llama3_8b_tp", "llama3_8b_b1", "danube_1_8b")})
     return main
 
 
@@ -4160,54 +4210,23 @@ def llama_lora_sweep(phase, name, exp_dir, make_trainer, batch, layers):
             "peak_sweep": peak_sweep}
 
 
-def phase_slice_llama(exp_dir):
-    from maggy_tpu_torch.models import Llama, LlamaConfig
+def llama_tokens(vocab_size):
+    """Four token batches of LLAMA_B x LLAMA_S over the whole vocabulary,
+    made from a numpy seed, on the card."""
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab_size, size=(4, LLAMA_B, LLAMA_S)), device="cuda")
+
+
+def llama_full_width(phase, cfg2, tokens):
+    """A 2-layer model at full width on the card (kernels) against the same
+    weights on the CPU (reference attention): hidden states, the chunked
+    loss and the layer-0 adapters' gradients, with the base frozen in bf16
+    as in the sweep and lora_b drawn nonzero so every adapter has one.
+    Raises on a miss; returns the errors beside their tolerances."""
+    from maggy_tpu_torch.models import Llama
     from maggy_tpu_torch.ops import chunked_next_token_loss
-    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, only_lora
+    from maggy_tpu_torch.train import adamw, only_lora
 
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=LLAMA_LAYERS)
-    # Token batches over the whole vocabulary, made from a numpy seed.
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, base.vocab_size, size=(4, LLAMA_B, LLAMA_S)), device="cuda")
-
-    def batch(i):
-        t = tokens[i % tokens.shape[0]]
-        return {"inputs": (t,), "tokens": t}
-
-    def loss_fn(out, b):
-        return chunked_next_token_loss(out[0], out[1], b["tokens"])
-
-    def make_trainer(lora_rank, lora_alpha, lr, warm_start=None):
-        cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=int(lora_rank)),
-                                  lora_alpha=float(lora_alpha), num_layers=LLAMA_LAYERS)
-        return Trainer(Llama(cfg, device="meta"), only_lora(adamw(lr)), loss_fn,
-                       device="cuda", train_kwargs={"return_hidden": True},
-                       warm_start=warm_start).init(seed=0), None
-
-    sweep = llama_lora_sweep("slice_llama", "llama3_8b_lora_asha_smoke", exp_dir,
-                             make_trainer, batch, base.num_layers)
-    result, telemetry, before = sweep["result"], sweep["telemetry"], sweep["before"]
-    # The Llama sweep may step eagerly only where a capture raised (out of
-    # memory beside the other runner's 8B base, say): then the reason and
-    # the peak memory are printed.
-    reading_warm = warm_reading("slice_llama", telemetry, before, must_capture=False)
-    if not reading_warm["captured"] and not reading_warm["graph_failures"]:
-        emit("slice_llama", warm=reading_warm)
-        raise AssertionError("slice_llama stepped eagerly without a failed capture: {}".format(
-            reading_warm))
-    CAPTURED["llama3_8b"] = reading_warm["captured"]
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # A 2-layer model at full width on the card (kernels) against the same
-    # weights on the CPU (reference attention): hidden states, the chunked
-    # loss and the layer-0 adapters' gradients, with the base frozen in bf16
-    # as in the sweep and lora_b drawn nonzero so every adapter has one.
-    cfg2 = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=16), num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(3)
     model = Llama(cfg2, device="cuda")
     model.init_weights(gen)
@@ -4242,8 +4261,74 @@ def phase_slice_llama(exp_dir):
             and full_width["hidden_max_abs_err"] <= full_width["hidden_tol"]
             and abs(g_loss - c_loss) <= full_width["loss_tol"] and math.isfinite(g_loss)
             and len(g_grads) == len(c_grads) == 8 and not bad):
-        emit("slice_llama", full_width=full_width)
-        raise AssertionError("full-width Llama off the CPU path: {}".format(bad or full_width))
+        emit(phase, full_width=full_width)
+        raise AssertionError("{}: full-width Llama off the CPU path: {}".format(
+            phase, bad or full_width))
+    return full_width
+
+
+def llama_sweep_phase(phase, name, path, exp_dir, make_cfg):
+    """The LoRA sweep of a Llama-family config (``llama_lora_sweep``) with
+    its trainers, batches and loss: ``make_cfg(lora_rank, lora_alpha)`` is
+    a trial's config, the base frozen in bf16, only the adapters trained,
+    batches of LLAMA_B x LLAMA_S tokens, the vocab-chunked loss. Checks the
+    warm reading and records ``path``'s captures; returns (sweep, the warm
+    reading, tokens, batch, make_trainer)."""
+    from maggy_tpu_torch.models import Llama
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.train import Trainer, adamw, only_lora
+
+    base = make_cfg(16, 16.0)
+    tokens = llama_tokens(base.vocab_size)
+
+    def batch(i):
+        t = tokens[i % tokens.shape[0]]
+        return {"inputs": (t,), "tokens": t}
+
+    def loss_fn(out, b):
+        return chunked_next_token_loss(out[0], out[1], b["tokens"])
+
+    def make_trainer(lora_rank, lora_alpha, lr, warm_start=None):
+        cfg = make_cfg(int(lora_rank), float(lora_alpha))
+        return Trainer(Llama(cfg, device="meta"), only_lora(adamw(lr)), loss_fn,
+                       device="cuda", train_kwargs={"return_hidden": True},
+                       warm_start=warm_start).init(seed=0), None
+
+    sweep = llama_lora_sweep(phase, name, exp_dir, make_trainer, batch, base.num_layers)
+    # The sweep may step eagerly only where a capture raised (out of memory
+    # beside the other runner's base, say): then the reason and the peak
+    # memory are printed.
+    reading_warm = warm_reading(phase, sweep["telemetry"], sweep["before"], must_capture=False)
+    if not reading_warm["captured"] and not reading_warm["graph_failures"]:
+        emit(phase, warm=reading_warm)
+        raise AssertionError("{} stepped eagerly without a failed capture: {}".format(
+            phase, reading_warm))
+    CAPTURED[path] = reading_warm["captured"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sweep, reading_warm, tokens, batch, make_trainer
+
+
+def phase_slice_llama(exp_dir):
+    from maggy_tpu_torch.models import LlamaConfig
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.train import clear_warm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def make_cfg(lora_rank, lora_alpha):
+        return dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=lora_rank),
+                                   lora_alpha=lora_alpha, num_layers=LLAMA_LAYERS)
+
+    sweep, reading_warm, tokens, batch, make_trainer = llama_sweep_phase(
+        "slice_llama", "llama3_8b_lora_asha_smoke", "llama3_8b", exp_dir, make_cfg)
+    result, telemetry = sweep["result"], sweep["telemetry"]
+    base = make_cfg(16, 16.0)
+    full_width = llama_full_width("slice_llama", dataclasses.replace(
+        LlamaConfig.llama3_8b(lora_rank=16), num_layers=2), tokens)
 
     # The chunked loss at the sweep's shape (bf16 hidden, frozen bf16 head):
     # forward alone, and forward + backward (its gradient products in fp32).
@@ -4293,6 +4378,49 @@ def phase_slice_llama(exp_dir):
          telemetry=public(telemetry), full_width=full_width, chunked_loss_ms=loss_ms,
          mm_out_dtype_differentiable=mm_out_dtype_differentiable,
          peak_mem_sweep_gb=sweep["peak_sweep"] / 1e9,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+    return sweep["launches"]
+
+
+def danube_config(lora_rank=16, lora_alpha=16.0, num_layers=DANUBE_LAYERS):
+    """H2O-Danube-1.8B's widths (arXiv:2401.16818, Table 1): vocab 32000,
+    hidden 2560, FFN 6912, 24 layers, 32 query and 8 kv heads of head_dim
+    80, rope theta 1e4, RMSNorm eps 1e-5, context 16384; untied embeddings,
+    about 1.83 B parameters (24 x 69.5 M + 2 x 81.9 M). Its sliding window
+    of 4096 keys covers the sweep's 2048 tokens, so the repo's Llama (full
+    causal attention) computes the same function. Weights are seeded; the
+    LoRA adapters are this repo's."""
+    from maggy_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_dim=2560, intermediate_dim=6912,
+                       num_layers=num_layers, num_heads=32, num_kv_heads=8, head_dim=80,
+                       max_seq_len=16384, rope_theta=10000.0, norm_eps=1e-5,
+                       lora_rank=int(lora_rank), lora_alpha=float(lora_alpha))
+
+
+def phase_slice_danube(exp_dir):
+    """slice_llama's LoRA sweep at H2O-Danube-1.8B's widths, full depth: the
+    flash kernels at D=80 on the main path, with slice_llama's gates."""
+    from maggy_tpu_torch.train import clear_warm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sweep, reading_warm, tokens, _, _ = llama_sweep_phase(
+        "slice_danube", "danube_1_8b_lora_asha_smoke", "danube_1_8b", exp_dir, danube_config)
+    result = sweep["result"]
+    full_width = llama_full_width("slice_danube", danube_config(num_layers=2), tokens)
+    del tokens
+    clear_warm()
+    emit("slice_danube", trials_finished=sweep["trials_finished"], promoted=sweep["promoted"],
+         best_hp=result["best_hp"], best_val=result["best_val"], steps=sweep["steps"],
+         layers=DANUBE_LAYERS, head_dim=80, launches=sweep["launches"],
+         expected_launches=sweep["expected"], sweep_wall_s=sweep["wall"],
+         step_ms_in_sweep_median=float(np.median(sweep["step_ms"])), warm=reading_warm,
+         pipeline=pipeline_summary(result["pipeline"]), telemetry=public(sweep["telemetry"]),
+         full_width=full_width, peak_mem_sweep_gb=sweep["peak_sweep"] / 1e9,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          phase_s=time.perf_counter() - t_phase)
     return sweep["launches"]
@@ -7486,6 +7614,8 @@ def main():
                                        asha_step_ms),
         "llama3_8b": phase_slice_llama(
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama"))),
+        "danube_1_8b": phase_slice_danube(
+            fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_danube"))),
         "bert_base_process": phase_slice_process(
             os.path.join(ROOT, "build", "chip_smoke_experiments_process"), asha_step_ms)}
     clear_warm()

@@ -35,8 +35,21 @@ key-padding keep-mask, bottom-right causal alignment when Sq != Sk):
   is part of the result.
 - ``flash_block_fwd`` / ``flash_block_bwd``: the ring-attention building
   blocks (external lse/delta in, fp32 gradients out).
-- ``multi_head_attention``: the public entry. A CUDA tensor whose shapes
-  tile goes to the kernels; everything else to ``attention_reference``.
+- ``multi_head_attention``: the public entry, with the JAX package's
+  dispatch rule: a key-padding (or no) mask, D >= 64 with D % 8 == 0
+  (``flash_head_dim_ok``) and Sq, Sk multiples of 128 go to the flash
+  kernels on a CUDA tensor; everything else, and every CPU tensor, to
+  ``attention_reference``.
+
+Head dims. The CUDA kernels take every head dim of that rule up to
+MAX_KERNEL_HEAD_DIM = 256, from thirteen compiled widths (``kernel_width``:
+D rounded up to 16, one library each; ops/build.py VARIANTS): D = W - 8 runs
+at width W with its 8 columns past D held at zero. A CUDA tensor with D >
+256 raises a ValueError in the wrappers, and the dispatch never sends it to
+``attention_reference`` instead (ROADMAP queue 2 item 3: larger tiles do
+not fit a block's shared memory and registers in this design). The plain
+versions take every D of the rule, as the Pallas kernels do in interpret
+mode.
 """
 
 from __future__ import annotations
@@ -63,10 +76,39 @@ CAUSAL_SKIP_BLOCK = 128
 #: must be multiples of them. Both divide CAUSAL_SKIP_BLOCK.
 BLOCK_Q = 64
 BLOCK_K = 64
-#: Head dims the kernels are instantiated for.
-KERNEL_HEAD_DIMS = (64, 96, 128)
+#: The largest head dim the CUDA kernels take.
+MAX_KERNEL_HEAD_DIM = 256
 _SOURCE = "flash_attn.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_head_dim_ok(D: int) -> bool:
+    """The JAX package's rule for the flash kernels' head dim (its
+    ``multi_head_attention`` and ``resolve_seq_parallel_impl``): D >= 64
+    and D % 8 == 0. The CUDA kernels take it up to MAX_KERNEL_HEAD_DIM and
+    raise above; the plain versions take it all."""
+    return D >= 64 and D % 8 == 0
+
+
+def kernel_width(D: int) -> int:
+    """The compiled width that runs head dim D on the card, D rounded up to
+    16 (the tensor cores' k16 step; one library per width, ops/build.py
+    VARIANTS); raises for a D the kernels do not take."""
+    if not flash_head_dim_ok(D):
+        raise ValueError("flash kernels take head_dim >= 64 with head_dim % 8 == 0, "
+                         "got {}".format(D))
+    if D > MAX_KERNEL_HEAD_DIM:
+        raise ValueError(
+            "the CUDA flash kernels take head_dim 64 to {} (head_dim % 8 == 0), got {}: "
+            "larger head dims are not built (ROADMAP queue 2 item 3)".format(
+                MAX_KERNEL_HEAD_DIM, D))
+    return -(-D // 16) * 16
+
+
+def _library(D: int):
+    from maggy_tpu_torch.ops import build
+
+    return build.library(_SOURCE, "w{}".format(kernel_width(D)))
 
 
 # ----------------------------------------------------------------- reference
@@ -187,9 +229,7 @@ def _check(q, k, v, mask, *more):
     Sk, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError("flash kernels take float32 or bfloat16, got {}".format(q.dtype))
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError("flash kernels are built for head_dim in {}, got {}".format(
-            KERNEL_HEAD_DIMS, D))
+    kernel_width(D)
     if Sq % BLOCK_Q or Sk % BLOCK_K or H % Hkv:
         raise ValueError("flash kernels need Sq % {} == Sk % {} == 0 and H % Hkv == 0; "
                          "got Sq={}, Sk={}, H={}, Hkv={}".format(
@@ -268,14 +308,12 @@ def flash_fwd(q, k, v, mask, causal: bool):
     """Forward: (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32)."""
     if _device_kind(q) == "cpu":
         return _plain_fwd(q, k, v, mask, causal)
-    from maggy_tpu_torch.ops import build
-
     _check(q, k, v, mask)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    lib = build.library(_SOURCE)
+    lib = _library(D)
     _launched(flash_fwd)
     _raise_on(lib.flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out),
                             _ptr(lse), B, Sq, Sk, H, Hkv, D, int(causal),
@@ -291,15 +329,13 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal: bool,
         dk, dv = _plain_bwd_dkdv(q, k, v, do, lse, delta, mask, causal)
         dt = torch.float32 if grad_fp32 else k.dtype
         return dk.to(dt), dv.to(dt)
-    from maggy_tpu_torch.ops import build
-
     _check(q, k, v, mask, do, lse, delta)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dt = torch.float32 if grad_fp32 else k.dtype
     dk = torch.empty(k.shape, dtype=dt, device=k.device)
     dv = torch.empty(v.shape, dtype=dt, device=v.device)
-    lib = build.library(_SOURCE)
+    lib = _library(D)
     _launched(flash_bwd_dkdv)
     _raise_on(lib.flash_bwd_dkdv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(mask),
@@ -325,8 +361,6 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask, causal: bool,
             delta = _row_delta(do, out)
         dq = _plain_bwd_dq(q, k, v, do, lse, delta, mask, causal).to(dt)
         return dq if out is None else (dq, delta)
-    from maggy_tpu_torch.ops import build
-
     _check(q, k, v, mask, do, lse, delta if out is None else out)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -336,7 +370,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask, causal: bool,
             raise ValueError("out must have q's shape and dtype")
         delta_out = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=dt, device=q.device)
-    lib = build.library(_SOURCE)
+    lib = _library(D)
     _launched(flash_bwd_dq)
     _raise_on(lib.flash_bwd_dq(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(out),
@@ -367,11 +401,9 @@ def kernel_resources(name: str, D: int, dtype: torch.dtype, grad_fp32: bool = Fa
     grad_fp32) takes on the card: registers and local (spill and stack)
     bytes per thread, static and dynamic shared bytes and threads per
     block, and the blocks that fit on one SM. Needs the card."""
-    from maggy_tpu_torch.ops import build
-
     info = (ctypes.c_int * 6)()
     index = [kernel.__name__ for kernel in KERNELS].index(name)
-    _raise_on(build.library(_SOURCE).flash_kernel_info(
+    _raise_on(_library(D).flash_kernel_info(
         index, D, _DTYPE_CODE[dtype], int(grad_fp32), info), name)
     keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "threads",
             "blocks_per_sm")
@@ -551,23 +583,25 @@ def multi_head_attention(q, k, v, causal: bool = True, mask=None,
                          force: Optional[str] = None):
     """Public attention entry. q: [B,Sq,H,D], k/v: [B,Sk,Hkv,D].
 
-    A CUDA tensor with a key-padding (or no) mask, a head dim the kernels
-    are built for (KERNEL_HEAD_DIMS) and 128-tiling Sq/Sk goes through the
-    flash kernels; anything else, and every CPU tensor, through
+    The JAX package's rule: a CUDA tensor with a key-padding (or no) mask,
+    D >= 64 with D % 8 == 0 and 128-tiling Sq/Sk goes through the flash
+    kernels (which raise for D > MAX_KERNEL_HEAD_DIM: no reference stands
+    in on the card); anything else, and every CPU tensor, through
     ``attention_reference``. ``force`` in {"flash", "reference"} overrides
-    the choice; "flash" on a CPU tensor runs the kernels' plain versions."""
+    the choice; "flash" on a CPU tensor runs the kernels' plain versions,
+    at any D of the rule."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if H % Hkv != 0:
         raise ValueError("H={} not divisible by Hkv={}".format(H, Hkv))
     pad_mask, mask_ok = _key_padding_mask(mask, B, Sk)
-    tiles_ok = mask_ok and D in KERNEL_HEAD_DIMS and Sq % 128 == 0 and Sk % 128 == 0
+    tiles_ok = mask_ok and flash_head_dim_ok(D) and Sq % 128 == 0 and Sk % 128 == 0
     if force == "flash":
         if not tiles_ok:
             raise ValueError(
-                "force='flash' requires a key-padding (or no) mask, head_dim in "
-                "{}, and 128-tiling Sq/Sk; got D={}, Sq={}, Sk={}, mask "
-                "shape={}".format(KERNEL_HEAD_DIMS, D, Sq, Sk, None if mask is None
+                "force='flash' requires a key-padding (or no) mask, D>=64 with "
+                "D%8==0, and 128-tiling Sq/Sk; got D={}, Sq={}, Sk={}, mask "
+                "shape={}".format(D, Sq, Sk, None if mask is None
                                   else tuple(torch.as_tensor(mask).shape)))
         use_flash = True
     else:

@@ -12,12 +12,29 @@
 // K/V are never repeated in memory), mask [B,Sk] int32 keep-mask or null,
 // lse/delta [B,H,Sq] fp32.
 //
+// Head dims. The Pallas kernels take any D >= 64 with D % 8 == 0; these take
+// that rule up to D = 256. The source compiles once per kernel width W, D
+// rounded up to a multiple of 16 (-DFLASH_W=W, W in 64, 80, ..., 256:
+// ops/build.py VARIANTS), each build a library of its own (ops/attention.py
+// kernel_width picks it). Every loop over D runs over W at compile time, as
+// the tensor cores' k16 steps need; D itself is read only by the loads, the
+// stores and delta's prologue. Where D % 16 == 8 (W = D + 8) the last k16
+// step of a reduction over D (Q K^T, dO V^T) reads the 8 columns past D: the
+// bf16 tiles' columns D..W-1 are zeroed once per block and cp.async never
+// writes them, and the fp32 tiles are loaded with zeros there. The
+// tensor-core kernels are compiled twice per width: EXACT (D == W) folds D
+// to a constant, so a D that is a multiple of 16 runs the code a build for
+// that D alone would give (a run-time D there cost registers and a resident
+// block per SM at D = 64: dQ 168 -> 179 registers, 3 -> 2 blocks); the
+// other takes D = W - 8 at run time. The fp32 kernels take D at run time.
+//
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the BERT-base
 // training shape B=32, S=128, H=12, D=64, bf16, padded: the forward moves
 // ~25 MB (q,k,v read, out and lse written) for ~1.6 GFLOP: 7.6 us of memory
 // time against ~1.6 us of tensor-core time, so bytes bound it; dK/dV moves
 // ~38 MB (11.4 us) and dQ ~32 MB (9.5 us; ~38 MB when it also reads O and
-// writes delta), bytes again. chip_smoke.py computes the bound from each
+// writes delta), bytes again. The causal Llama shapes (2 x 2048, D = 128 or
+// 80) are bound by operations. chip_smoke.py computes the bound from each
 // run's inputs; PERF.md carries the times.
 //
 // Design. A TPU grid runs in order on one core and carries the online-softmax
@@ -44,8 +61,13 @@
 //   dK/dV:   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, so P
 //            and dS come out in key-row layout, ready as A operands;
 //   dQ:      S = Q K^T, dP = dO V^T, dQ += dS K (K through ldmatrix.trans).
-// ~47 KB (forward), ~37 KB (dK/dV) and ~55 KB (dQ) of shared memory at D=64
-// leave several blocks resident on each SM.
+// The products whose output runs over D (P V, P^T dO, dS^T Q, dS K) step
+// over W in pairs of n8 tiles; where D % 16 == 8 the last pair's second
+// tile multiplies zero columns into a register that is never stored.
+// ~47 KB (forward), ~37 KB (dK/dV) and ~55 KB (dQ) of shared memory at W=64,
+// 169 / 136 / 203 KB at W=256. At the largest widths the accumulators (W/2
+// fp32 registers a thread for O or dQ, W for dK and dV together) no longer
+// fit in registers and spill: right, not fast (PERF.md has the resources).
 //
 // delta = rowsum(dO * O) is computed by the dQ kernels when given O (the
 // autograd backward runs dQ first and hands its delta to dK/dV): a dQ block
@@ -56,6 +78,8 @@
 // fp32 inputs run on the simple kernels: tiles converted to fp32 in shared
 // memory, every product fp32 FMA on CUDA cores (tensor cores would break the
 // fp32 tolerance), 64 x 64 tiles, 256 threads, four threads per tile row.
+// Above W=192 the dK/dV kernel's query step and the dQ kernel's key step
+// drop to 32 rows, so that their tiles fit in a block's 227 KB.
 //
 // Masking uses NEG_INF = -1e30, not -inf, so a query row whose keys are all
 // masked yields exp(0) = 1 for every key it saw and returns the mean of V
@@ -68,6 +92,10 @@
 // The backward treats masked entries as constants (ds = 0) and, for a fully
 // masked row (lse below -1e29), gives every key of an unskipped tile
 // p = 1/n: the exact gradient of the forward above.
+
+#ifndef FLASH_W
+#error "build with -DFLASH_W=<kernel width>: 64, 80, ..., 256 (ops/build.py VARIANTS)"
+#endif
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,6 +118,11 @@ constexpr int TC_BWD_BQ = 32;
 constexpr float NEG_INF = -1e30f;
 constexpr float ALL_MASKED_LSE = -1e29f;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The fp32 kernels' inner tile (dK/dV: query rows a step; dQ: key rows a
+// step): 64, or 32 above width 192, where two 64-row fp32 tiles of K/V and
+// two of Q/dO no longer fit in a block's 232,448 bytes. 32 divides SKIP.
+__host__ __device__ constexpr int fp32_tile(int W) { return W <= 192 ? 64 : 32; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -117,14 +150,15 @@ __device__ __forceinline__ bool masked(int causal, const int* mask, int b, int S
 
 // ------------------------------------------------ fp32 kernels (CUDA cores)
 
-// rows x D tile from global (row stride `stride` elements) into shared
-// memory with leading dimension `ld`, converted to fp32 and scaled.
-template <typename T, int D>
+// rows x W tile from global (row stride `stride` elements, D real columns)
+// into shared memory with leading dimension `ld`, converted to fp32 and
+// scaled; columns D..W-1 are written as zeros, so sums over W see D columns.
+template <typename T, int W>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          size_t stride, int rows, float scale) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
-    const int r = idx / D, c = idx % D;
-    dst[r * ld + c] = to_f(src[r * stride + c]) * scale;
+                                          size_t stride, int rows, int D, float scale) {
+  for (int idx = threadIdx.x; idx < rows * W; idx += NT) {
+    const int r = idx / W, c = idx % W;
+    dst[r * ld + c] = c < D ? to_f(src[r * stride + c]) * scale : 0.f;
   }
 }
 
@@ -138,26 +172,26 @@ __device__ __forceinline__ float row_sum4(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
+template <int W>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
 #pragma unroll 16
-  for (int d = 0; d < D; ++d) s += a[d] * b[d];
+  for (int d = 0; d < W; ++d) s += a[d] * b[d];
   return s;
 }
 
-template <typename T, int D>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ mask,
                  T* __restrict__ out, float* __restrict__ lse,
-                 int Sq, int Sk, int H, int Hkv, int causal, float sm_scale) {
-  constexpr int DP = D + 1, KP = BK + 1, DC = D / 4;
+                 int Sq, int Sk, int H, int Hkv, int D, int causal, float sm_scale) {
+  constexpr int DP = W + 1, KP = BK + 1, DC = W / 4;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * DP;
   float* sV = sK + BK * DP;
-  float* sP = sV + BK * D;
+  float* sP = sV + BK * W;
 
   const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv), offset = Sk - Sq;
@@ -166,7 +200,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
   const int n_keys = keys_seen(causal, qi * BQ, offset, Sk);
 
-  load_tile<T, D>(sQ, DP, q + ((size_t)b * Sq + qi * BQ) * qs + (size_t)h * D, qs, BQ, sm_scale);
+  load_tile<T, W>(sQ, DP, q + ((size_t)b * Sq + qi * BQ) * qs + (size_t)h * D, qs, BQ, D,
+                  sm_scale);
   float acc[DC];
 #pragma unroll
   for (int c = 0; c < DC; ++c) acc[c] = 0.f;
@@ -175,8 +210,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kb = 0; kb * BK < n_keys; ++kb) {
     __syncthreads();  // the previous tile is fully consumed
     const size_t koff = ((size_t)b * Sk + kb * BK) * ks + (size_t)hk * D;
-    load_tile<T, D>(sK, DP, k + koff, ks, BK, 1.f);
-    load_tile<T, D>(sV, D, v + koff, ks, BK, 1.f);
+    load_tile<T, W>(sK, DP, k + koff, ks, BK, D, 1.f);
+    load_tile<T, W>(sV, W, v + koff, ks, BK, D, 1.f);
     __syncthreads();
 
     float s[BK / 4];
@@ -184,7 +219,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) {
       const int j = part + 4 * i;
-      float x = dot<D>(sQ + row * DP, sK + j * DP);
+      float x = dot<W>(sQ + row * DP, sK + j * DP);
       if (masked(causal, mask, b, Sk, qpos, kb * BK + j, offset)) x = NEG_INF;
       s[i] = x;
       mx = fmaxf(mx, x);
@@ -206,35 +241,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       const float p = sP[row * KP + j];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[c] += p * sV[j * D + part + 4 * c];
+      for (int c = 0; c < DC; ++c) acc[c] += p * sV[j * W + part + 4 * c];
     }
   }
 
   const float l_safe = fmaxf(l, 1e-30f);
   T* o = out + ((size_t)b * Sq + qpos) * qs + (size_t)h * D;
 #pragma unroll
-  for (int c = 0; c < DC; ++c) o[part + 4 * c] = from_f<T>(acc[c] / l_safe);
+  for (int c = 0; c < DC; ++c)
+    if (part + 4 * c < D) o[part + 4 * c] = from_f<T>(acc[c] / l_safe);
   if (part == 0) lse[((size_t)b * H + h) * Sq + qpos] = m + logf(l_safe);
 }
 
-template <typename T, typename G, int D>
+template <typename T, typename G, int W>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dO,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       const int* __restrict__ mask, G* __restrict__ dk,
-                      G* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
+                      G* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int D,
                       int causal, float sm_scale) {
-  constexpr int DP = D + 1, QP = BQ + 1, DC = D / 4;
+  constexpr int QT = fp32_tile(W), DP = W + 1, QP = QT + 1, DC = W / 4;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + BK * DP;
   float* sQ = sV + BK * DP;
-  float* sdO = sQ + BQ * DP;
-  float* sP = sdO + BQ * DP;
+  float* sdO = sQ + QT * DP;
+  float* sP = sdO + QT * DP;
   float* sdS = sP + BK * QP;
   float* sL = sdS + BK * QP;
-  float* sDelta = sL + BQ;
+  float* sDelta = sL + QT;
 
   const int kb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv, offset = Sk - Sq;
@@ -243,46 +279,46 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
   const size_t koff = ((size_t)b * Sk + kb * BK) * ks + (size_t)hk * D;
 
-  load_tile<T, D>(sK, DP, k + koff, ks, BK, 1.f);
-  load_tile<T, D>(sV, DP, v + koff, ks, BK, 1.f);
+  load_tile<T, W>(sK, DP, k + koff, ks, BK, D, 1.f);
+  load_tile<T, W>(sV, DP, v + koff, ks, BK, D, 1.f);
   float dk_acc[DC], dv_acc[DC];
 #pragma unroll
   for (int c = 0; c < DC; ++c) dk_acc[c] = dv_acc[c] = 0.f;
 
   for (int r = 0; r < rep; ++r) {
     const int h = hk * rep + r;
-    for (int qi = 0; qi < Sq / BQ; ++qi) {
-      const int n = keys_seen(causal, qi * BQ, offset, Sk);
+    for (int qi = 0; qi < Sq / QT; ++qi) {
+      const int n = keys_seen(causal, qi * QT, offset, Sk);
       if (kb * BK >= n) continue;
       __syncthreads();
-      const size_t qoff = ((size_t)b * Sq + qi * BQ) * qs + (size_t)h * D;
-      load_tile<T, D>(sQ, DP, q + qoff, qs, BQ, 1.f);
-      load_tile<T, D>(sdO, DP, dO + qoff, qs, BQ, 1.f);
-      if (threadIdx.x < BQ) {
-        const size_t st = ((size_t)b * H + h) * Sq + qi * BQ + threadIdx.x;
+      const size_t qoff = ((size_t)b * Sq + qi * QT) * qs + (size_t)h * D;
+      load_tile<T, W>(sQ, DP, q + qoff, qs, QT, D, 1.f);
+      load_tile<T, W>(sdO, DP, dO + qoff, qs, QT, D, 1.f);
+      if (threadIdx.x < QT) {
+        const size_t st = ((size_t)b * H + h) * Sq + qi * QT + threadIdx.x;
         sL[threadIdx.x] = lse[st];
         sDelta[threadIdx.x] = delta[st];
       }
       __syncthreads();
       const float uniform = 1.f / n;
 #pragma unroll 4
-      for (int ii = 0; ii < BQ / 4; ++ii) {
+      for (int ii = 0; ii < QT / 4; ++ii) {
         const int i = part + 4 * ii;
         float p, ds;
-        if (masked(causal, mask, b, Sk, qi * BQ + i, kpos, offset)) {
+        if (masked(causal, mask, b, Sk, qi * QT + i, kpos, offset)) {
           p = sL[i] < ALL_MASKED_LSE ? uniform : 0.f;
           ds = 0.f;
         } else {
-          const float s = dot<D>(sQ + i * DP, sK + kr * DP) * sm_scale;
+          const float s = dot<W>(sQ + i * DP, sK + kr * DP) * sm_scale;
           p = expf(s - sL[i]);
-          const float dp = dot<D>(sdO + i * DP, sV + kr * DP);
+          const float dp = dot<W>(sdO + i * DP, sV + kr * DP);
           ds = p * (dp - sDelta[i]) * sm_scale;
         }
         sP[kr * QP + i] = p;
         sdS[kr * QP + i] = ds;
       }
       __syncwarp();
-      for (int i = 0; i < BQ; ++i) {
+      for (int i = 0; i < QT; ++i) {
         const float p = sP[kr * QP + i], ds = sdS[kr * QP + i];
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
@@ -296,28 +332,30 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t o = ((size_t)b * Sk + kpos) * ks + (size_t)hk * D;
 #pragma unroll
   for (int c = 0; c < DC; ++c) {
-    dk[o + part + 4 * c] = from_f<G>(dk_acc[c]);
-    dv[o + part + 4 * c] = from_f<G>(dv_acc[c]);
+    if (part + 4 * c < D) {
+      dk[o + part + 4 * c] = from_f<G>(dk_acc[c]);
+      dv[o + part + 4 * c] = from_f<G>(dv_acc[c]);
+    }
   }
 }
 
 // With `o` set, delta is computed here (four threads a row) and written to
 // delta_out; else it is read from `delta`.
-template <typename T, typename G, int D>
+template <typename T, typename G, int W>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const T* __restrict__ o, float* __restrict__ delta_out,
                     const int* __restrict__ mask, G* __restrict__ dq, int Sq,
-                    int Sk, int H, int Hkv, int causal, float sm_scale) {
-  constexpr int DP = D + 1, KP = BK + 1, DC = D / 4;
+                    int Sk, int H, int Hkv, int D, int causal, float sm_scale) {
+  constexpr int KT = fp32_tile(W), DP = W + 1, KP = KT + 1, DC = W / 4;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + BQ * DP;
   float* sK = sdO + BQ * DP;
-  float* sV = sK + BK * DP;
-  float* sdS = sV + BK * DP;
+  float* sV = sK + KT * DP;
+  float* sdS = sV + KT * DP;
 
   const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv), offset = Sk - Sq;
@@ -339,32 +377,32 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int n_keys = keys_seen(causal, qi * BQ, offset, Sk);
 
-  load_tile<T, D>(sQ, DP, q + qoff, qs, BQ, 1.f);
-  load_tile<T, D>(sdO, DP, dO + qoff, qs, BQ, 1.f);
+  load_tile<T, W>(sQ, DP, q + qoff, qs, BQ, D, 1.f);
+  load_tile<T, W>(sdO, DP, dO + qoff, qs, BQ, D, 1.f);
   float acc[DC];
 #pragma unroll
   for (int c = 0; c < DC; ++c) acc[c] = 0.f;
 
-  for (int kb = 0; kb * BK < n_keys; ++kb) {
+  for (int kb = 0; kb * KT < n_keys; ++kb) {
     __syncthreads();
-    const size_t koff = ((size_t)b * Sk + kb * BK) * ks + (size_t)hk * D;
-    load_tile<T, D>(sK, DP, k + koff, ks, BK, 1.f);
-    load_tile<T, D>(sV, DP, v + koff, ks, BK, 1.f);
+    const size_t koff = ((size_t)b * Sk + kb * KT) * ks + (size_t)hk * D;
+    load_tile<T, W>(sK, DP, k + koff, ks, KT, D, 1.f);
+    load_tile<T, W>(sV, DP, v + koff, ks, KT, D, 1.f);
     __syncthreads();
 #pragma unroll 4
-    for (int i = 0; i < BK / 4; ++i) {
+    for (int i = 0; i < KT / 4; ++i) {
       const int j = part + 4 * i;
       float ds = 0.f;
-      if (!masked(causal, mask, b, Sk, qpos, kb * BK + j, offset)) {
-        const float s = dot<D>(sQ + row * DP, sK + j * DP) * sm_scale;
+      if (!masked(causal, mask, b, Sk, qpos, kb * KT + j, offset)) {
+        const float s = dot<W>(sQ + row * DP, sK + j * DP) * sm_scale;
         const float p = expf(s - my_lse);
-        const float dp = dot<D>(sdO + row * DP, sV + j * DP);
+        const float dp = dot<W>(sdO + row * DP, sV + j * DP);
         ds = p * (dp - my_delta) * sm_scale;
       }
       sdS[row * KP + j] = ds;
     }
     __syncwarp();
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < KT; ++j) {
       const float ds = sdS[row * KP + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[c] += ds * sK[j * DP + part + 4 * c];
@@ -373,7 +411,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   G* dq_row = dq + ((size_t)b * Sq + qpos) * qs + (size_t)h * D;
 #pragma unroll
-  for (int c = 0; c < DC; ++c) dq_row[part + 4 * c] = from_f<G>(acc[c]);
+  for (int c = 0; c < DC; ++c)
+    if (part + 4 * c < D) dq_row[part + 4 * c] = from_f<G>(acc[c]);
 }
 
 // ------------------------------------------- bf16 kernels (tensor cores)
@@ -437,13 +476,28 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
 }
 
 // ROWS x D bf16 tile (global row stride `stride` elements) into shared
-// memory with row stride LD, 16 bytes per cp.async.
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, size_t stride) {
-  constexpr int CPR = D / 8;
+// memory with row stride LD, 16 bytes per cp.async; columns D..W-1 are
+// left alone (zero_pad wrote them).
+template <int ROWS, int W, int LD>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, size_t stride, int D) {
+  constexpr int CPR = W / 8;
   for (int idx = threadIdx.x; idx < ROWS * CPR; idx += TC_NT) {
     const int r = idx / CPR, c = (idx % CPR) * 8;
-    cp_async16(dst + r * LD + c, src + r * stride + c);
+    if (c < D) cp_async16(dst + r * LD + c, src + r * stride + c);
+  }
+}
+
+// Columns D..W-1 of `rows` consecutive tile rows (row stride LD) set to
+// zero, once per block before the first cp.async: the k16 steps of a
+// reduction over D read up to the next multiple of 16, and nothing else
+// ever writes these columns or stores them out.
+template <int W, int LD>
+__device__ __forceinline__ void zero_pad(bf16* tile, int rows, int D) {
+  const int chunks = (W - D) / 8;  // 16-byte chunks a row
+  if (chunks == 0) return;
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += TC_NT) {
+    const int r = idx / chunks, c = D + (idx % chunks) * 8;
+    *reinterpret_cast<uint4*>(tile + r * LD + c) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -470,17 +524,19 @@ __device__ __forceinline__ const bf16* b_addr(const bf16* tile, int ld, int k0, 
   return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
 }
 
-// Shared row stride of a bf16 tile: D plus 16 bytes, so the eight rows one
-// ldmatrix reads start in eight different 4-bank groups.
-__host__ __device__ constexpr int tc_ld(int D) { return D + 8; }
+// Shared row stride of a bf16 tile of width W (a multiple of 16): W plus 16
+// bytes, so the eight rows one ldmatrix reads start in eight different
+// 16-byte bank groups.
+__host__ __device__ constexpr int tc_ld(int W) { return W + 8; }
 
-template <int D>
+template <int W, bool EXACT>
 __global__ void __launch_bounds__(TC_NT)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ mask,
                     bf16* __restrict__ out, float* __restrict__ lse,
-                    int Sq, int Sk, int H, int Hkv, int causal, float sm_scale) {
-  constexpr int LD = tc_ld(D), KC = D / 16, DT = D / 8, ST = TC_BK / 8;
+                    int Sq, int Sk, int H, int Hkv, int D_run, int causal, float sm_scale) {
+  constexpr int LD = tc_ld(W), KC = W / 16, DT = W / 8, ST = TC_BK / 8;
+  const int D = EXACT ? W : D_run;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = sQ + TC_BQ * LD;    // [2][TC_BK][LD]
@@ -498,14 +554,15 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int kb, int buf) {
     const size_t koff = ((size_t)b * Sk + kb * TC_BK) * ks + (size_t)hk * D;
-    cp_tile<TC_BK, D, LD>(sK + buf * TC_BK * LD, k + koff, ks);
-    cp_tile<TC_BK, D, LD>(sV + buf * TC_BK * LD, v + koff, ks);
+    cp_tile<TC_BK, W, LD>(sK + buf * TC_BK * LD, k + koff, ks, D);
+    cp_tile<TC_BK, W, LD>(sV + buf * TC_BK * LD, v + koff, ks, D);
     if (mask && threadIdx.x < TC_BK / 4)
       cp_async16(sM + buf * TC_BK + threadIdx.x * 4,
                  mask + (size_t)b * Sk + kb * TC_BK + threadIdx.x * 4);
   };
 
-  cp_tile<TC_BQ, D, LD>(sQ, q + ((size_t)b * Sq + q0) * qs + (size_t)h * D, qs);
+  zero_pad<W, LD>(sQ, TC_BQ + 4 * TC_BK, D);  // sQ, sK[2], sV[2]
+  cp_tile<TC_BQ, W, LD>(sQ, q + ((size_t)b * Sq + q0) * qs + (size_t)h * D, qs, D);
   if (n_kb > 0) load_kv(0, 0);
   cp_async_commit();
   cp_async_wait_all();
@@ -593,7 +650,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t pa[4];
       acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < W / 16; ++dp) {
         uint32_t bv[4];
         ldsm_x4_t(bv, b_addr(tV, LD, kc * 16, dp * 16, lane));
         mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
@@ -610,8 +667,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* orow = out + ((size_t)b * Sq + qpos) * qs + (size_t)h * D;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-          pack_bf16(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+      if (8 * j < D)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
     if (t == 0) lse[((size_t)b * H + h) * Sq + qpos] = m[i] + logf(l_safe);
   }
 }
@@ -623,15 +681,16 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-template <typename G, int D>
+template <typename G, int W, bool EXACT>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dO,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const int* __restrict__ mask, G* __restrict__ dk,
-                         G* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
+                         G* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int D_run,
                          int causal, float sm_scale) {
-  constexpr int LD = tc_ld(D), QB = TC_BWD_BQ, KC = D / 16, DT = D / 8, ST = QB / 8;
+  constexpr int LD = tc_ld(W), QB = TC_BWD_BQ, KC = W / 16, DT = W / 8, ST = QB / 8;
+  const int D = EXACT ? W : D_run;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + TC_BK * LD;
@@ -659,8 +718,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_q = [&](int it, int buf) {
     const int h = hk * rep + it / per_head, qb = qb0 + it % per_head;
     const size_t qoff = ((size_t)b * Sq + qb * QB) * qs + (size_t)h * D;
-    cp_tile<QB, D, LD>(sQ + buf * QB * LD, q + qoff, qs);
-    cp_tile<QB, D, LD>(sdO + buf * QB * LD, dO + qoff, qs);
+    cp_tile<QB, W, LD>(sQ + buf * QB * LD, q + qoff, qs, D);
+    cp_tile<QB, W, LD>(sdO + buf * QB * LD, dO + qoff, qs, D);
     const size_t st = ((size_t)b * H + h) * Sq + qb * QB;
     if (threadIdx.x < QB / 4)
       cp_async16(sL + buf * QB + threadIdx.x * 4, lse + st + threadIdx.x * 4);
@@ -669,8 +728,9 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  delta + st + (threadIdx.x - QB / 4) * 4);
   };
 
-  cp_tile<TC_BK, D, LD>(sK, k + koff, ks);
-  cp_tile<TC_BK, D, LD>(sV, v + koff, ks);
+  zero_pad<W, LD>(sK, 2 * TC_BK + 4 * QB, D);  // sK, sV, sQ[2], sdO[2]
+  cp_tile<TC_BK, W, LD>(sK, k + koff, ks, D);
+  cp_tile<TC_BK, W, LD>(sV, v + koff, ks, D);
   if (n_it > 0) load_q(0, 0);
   cp_async_commit();
 
@@ -733,7 +793,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t pa[4];
       acc_to_a(pa, st[2 * kc], st[2 * kc + 1]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < W / 16; ++dp) {
         uint32_t bo[4];
         ldsm_x4_t(bo, b_addr(tdO, LD, kc * 16, dp * 16, lane));
         mma_bf16(dv_acc[2 * dp], pa, bo[0], bo[1]);
@@ -775,7 +835,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t da[4];
       acc_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < W / 16; ++dp) {
         uint32_t bq[4];
         ldsm_x4_t(bq, b_addr(tQ, LD, kc * 16, dp * 16, lane));
         mma_bf16(dk_acc[2 * dp], da, bq[0], bq[1]);
@@ -789,6 +849,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t o = ((size_t)b * Sk + krow0 + 8 * i) * ks + (size_t)hk * D;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
+      if (8 * j >= D) continue;
       store2(dk + o + 8 * j + 2 * t, dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
       store2(dv + o + 8 * j + 2 * t, dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
     }
@@ -808,9 +869,9 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   return s;
 }
 
-// Q and dO A fragments stay in registers across the key loop up to this head
-// dim; above it they are re-read from shared memory for every key tile.
-constexpr int DQ_HOLD_D = 96;
+// Q and dO A fragments stay in registers across the key loop up to this
+// width; above it they are re-read from shared memory for every key tile.
+constexpr int DQ_HOLD_W = 96;
 
 // bf16 dQ on tensor cores (G = bf16, or fp32 for grad_fp32). Replaces
 // _flash_bwd_dq_kernel (maggy_tpu/ops/attention.py:369). Bytes bound it:
@@ -824,18 +885,19 @@ constexpr int DQ_HOLD_D = 96;
 // dQ += dS K with dS as the A operand straight from the accumulators.
 // With `o` set, the prologue computes delta = rowsum(dO * O) for the block's
 // rows, while the tiles land: the quad that owns a row in the mma layout
-// takes its 16-byte chunks t, t+4, ... and row_sum4 adds them; delta goes
-// to delta_out for the dK/dV kernel.
-template <typename G, int D>
+// takes its 16-byte chunks t, t+4, ... below D and row_sum4 adds them;
+// delta goes to delta_out for the dK/dV kernel.
+template <typename G, int W, bool EXACT>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dO,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        const bf16* __restrict__ o, float* __restrict__ delta_out,
                        const int* __restrict__ mask, G* __restrict__ dq,
-                       int Sq, int Sk, int H, int Hkv, int causal, float sm_scale) {
-  constexpr int LD = tc_ld(D), KC = D / 16, DT = D / 8, ST = TC_BK / 8, CH = D / 32;
-  constexpr bool HOLD = D <= DQ_HOLD_D;
+                       int Sq, int Sk, int H, int Hkv, int D_run, int causal, float sm_scale) {
+  constexpr int LD = tc_ld(W), KC = W / 16, DT = W / 8, ST = TC_BK / 8, CH = (W + 31) / 32;
+  const int D = EXACT ? W : D_run;
+  constexpr bool HOLD = W <= DQ_HOLD_W;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdO = sQ + TC_BQ * LD;
@@ -856,15 +918,16 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int kb, int buf) {
     const size_t koff = ((size_t)b * Sk + kb * TC_BK) * ks + (size_t)hk * D;
-    cp_tile<TC_BK, D, LD>(sK + buf * TC_BK * LD, k + koff, ks);
-    cp_tile<TC_BK, D, LD>(sV + buf * TC_BK * LD, v + koff, ks);
+    cp_tile<TC_BK, W, LD>(sK + buf * TC_BK * LD, k + koff, ks, D);
+    cp_tile<TC_BK, W, LD>(sV + buf * TC_BK * LD, v + koff, ks, D);
     if (mask && threadIdx.x < TC_BK / 4)
       cp_async16(sM + buf * TC_BK + threadIdx.x * 4,
                  mask + (size_t)b * Sk + kb * TC_BK + threadIdx.x * 4);
   };
 
-  cp_tile<TC_BQ, D, LD>(sQ, q + qoff, qs);
-  cp_tile<TC_BQ, D, LD>(sdO, dO + qoff, qs);
+  zero_pad<W, LD>(sQ, 2 * TC_BQ + 4 * TC_BK, D);  // sQ, sdO, sK[2], sV[2]
+  cp_tile<TC_BQ, W, LD>(sQ, q + qoff, qs, D);
+  cp_tile<TC_BQ, W, LD>(sdO, dO + qoff, qs, D);
   if (n_kb > 0) load_kv(0, 0);
   cp_async_commit();
 
@@ -875,8 +938,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int c = 0; c < CH; ++c)
-        ov[i][c] = *reinterpret_cast<const uint4*>(o + qoff + (size_t)(r0 + 8 * i) * qs +
-                                                   (t + 4 * c) * 8);
+        if ((t + 4 * c) * 8 < D)
+          ov[i][c] = *reinterpret_cast<const uint4*>(o + qoff + (size_t)(r0 + 8 * i) * qs +
+                                                     (t + 4 * c) * 8);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) L[i] = lse[st + 8 * i];
@@ -888,8 +952,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < CH; ++c)
-        sum += dot8(ov[i][c],
-                    *reinterpret_cast<const uint4*>(sdO + (r0 + 8 * i) * LD + (t + 4 * c) * 8));
+        if ((t + 4 * c) * 8 < D)
+          sum += dot8(ov[i][c], *reinterpret_cast<const uint4*>(sdO + (r0 + 8 * i) * LD +
+                                                                (t + 4 * c) * 8));
       dl[i] = row_sum4(sum);
       if (t == 0) delta_out[st + 8 * i] = dl[i];
     }
@@ -974,7 +1039,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t sa[4];
       acc_to_a(sa, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
-      for (int dc = 0; dc < D / 16; ++dc) {
+      for (int dc = 0; dc < W / 16; ++dc) {
         uint32_t bk[4];
         ldsm_x4_t(bk, b_addr(tK, LD, kc * 16, dc * 16, lane));
         mma_bf16(acc[2 * dc], sa, bk[0], bk[1]);
@@ -987,26 +1052,40 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     G* row = dq + qoff + (size_t)(r0 + 8 * i) * qs;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) store2(row + 8 * j + 2 * t, acc[j][2 * i], acc[j][2 * i + 1]);
+    for (int j = 0; j < DT; ++j)
+      if (8 * j < D) store2(row + 8 * j + 2 * t, acc[j][2 * i], acc[j][2 * i + 1]);
   }
 }
 
 // ---------------------------------------------------------------- launch
 
-size_t fwd_smem(int D) { return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)); }
-size_t dkdv_smem(int D) {
-  return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
+constexpr int KW = FLASH_W;  // this build's kernel width
+static_assert(KW % 16 == 0 && KW >= 64 && KW <= 256, "FLASH_W: a multiple of 16 in 64..256");
+constexpr int FT = fp32_tile(KW);
+
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (BQ * (KW + 1) + BK * (KW + 1) + BK * KW + BQ * (BK + 1));
 }
-size_t dq_smem(int D) { return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1)); }
-size_t fwd_tc_smem(int D) {
-  return sizeof(bf16) * (TC_BQ + 4 * TC_BK) * tc_ld(D) + sizeof(int) * 2 * TC_BK;
+constexpr size_t dkdv_smem() {
+  return sizeof(float) * (2 * BK * (KW + 1) + 2 * FT * (KW + 1) + 2 * BK * (FT + 1) + 2 * FT);
 }
-size_t dkdv_tc_smem(int D) {
-  return sizeof(bf16) * (2 * TC_BK + 4 * TC_BWD_BQ) * tc_ld(D) + sizeof(float) * 4 * TC_BWD_BQ;
+constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * BQ * (KW + 1) + 2 * FT * (KW + 1) + BQ * (FT + 1));
 }
-size_t dq_tc_smem(int D) {
-  return sizeof(bf16) * (2 * TC_BQ + 4 * TC_BK) * tc_ld(D) + sizeof(int) * 2 * TC_BK;
+constexpr size_t fwd_tc_smem() {
+  return sizeof(bf16) * (TC_BQ + 4 * TC_BK) * tc_ld(KW) + sizeof(int) * 2 * TC_BK;
 }
+constexpr size_t dkdv_tc_smem() {
+  return sizeof(bf16) * (2 * TC_BK + 4 * TC_BWD_BQ) * tc_ld(KW) + sizeof(float) * 4 * TC_BWD_BQ;
+}
+constexpr size_t dq_tc_smem() {
+  return sizeof(bf16) * (2 * TC_BQ + 4 * TC_BK) * tc_ld(KW) + sizeof(int) * 2 * TC_BK;
+}
+// A block's dynamic shared memory on Hopper: at most 232,448 bytes.
+static_assert(fwd_smem() <= 232448 && dkdv_smem() <= 232448 && dq_smem() <= 232448 &&
+                  fwd_tc_smem() <= 232448 && dkdv_tc_smem() <= 232448 &&
+                  dq_tc_smem() <= 232448,
+              "a kernel's tiles exceed a block's shared memory");
 
 // Launch `kern`, or, with `info`, describe it instead: registers per thread,
 // local (spill and stack) bytes per thread, static and dynamic shared memory
@@ -1034,70 +1113,15 @@ int launch(void (*kern)(P...), dim3 grid, int threads, size_t smem, cudaStream_t
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int fwd_t(const void* q, const void* k, const void* v, const int* mask, void* out,
-          float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal, float scale,
-          cudaStream_t s, int* info) {
-  return launch(flash_fwd_kernel<T, D>, dim3(Sq / BQ, H, B), NT, fwd_smem(D), s, info,
-                (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, lse, Sq, Sk, H, Hkv,
-                causal, scale);
-}
+// The head dims this build takes: the JAX package's rule (D >= 64, D % 8
+// == 0) up to this width, i.e. KW and KW - 8 (KW alone at width 64).
+bool head_dim_ok(int D) { return D >= 64 && D % 8 == 0 && D <= KW; }
 
-template <int D>
-int fwd_tc_t(const void* q, const void* k, const void* v, const int* mask, void* out,
-             float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal, float scale,
-             cudaStream_t s, int* info) {
-  return launch(flash_fwd_tc_kernel<D>, dim3(Sq / TC_BQ, H, B), TC_NT, fwd_tc_smem(D), s, info,
-                (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, lse, Sq, Sk,
-                H, Hkv, causal, scale);
-}
-
-template <typename T, typename G, int D>
-int dkdv_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-           const float* delta, const int* mask, void* dk, void* dv, int B, int Sq, int Sk,
-           int H, int Hkv, int causal, float scale, cudaStream_t s, int* info) {
-  return launch(flash_bwd_dkdv_kernel<T, G, D>, dim3(Sk / BK, Hkv, B), NT, dkdv_smem(D), s,
-                info, (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta, mask,
-                (G*)dk, (G*)dv, Sq, Sk, H, Hkv, causal, scale);
-}
-
-template <typename G, int D>
-int dkdv_tc_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-              const float* delta, const int* mask, void* dk, void* dv, int B, int Sq, int Sk,
-              int H, int Hkv, int causal, float scale, cudaStream_t s, int* info) {
-  return launch(flash_bwd_dkdv_tc_kernel<G, D>, dim3(Sk / TC_BK, Hkv, B), TC_NT,
-                dkdv_tc_smem(D), s, info, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                (const bf16*)dO, lse, delta, mask, (G*)dk, (G*)dv, Sq, Sk, H, Hkv, causal,
-                scale);
-}
-
-template <typename T, typename G, int D>
-int dq_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-         const float* delta, const void* o, float* delta_out, const int* mask, void* dq,
-         int B, int Sq, int Sk, int H, int Hkv, int causal, float scale, cudaStream_t s,
-         int* info) {
-  return launch(flash_bwd_dq_kernel<T, G, D>, dim3(Sq / BQ, H, B), NT, dq_smem(D), s, info,
-                (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta,
-                (const T*)o, delta_out, mask, (G*)dq, Sq, Sk, H, Hkv, causal, scale);
-}
-
-template <typename G, int D>
-int dq_tc_t(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-            const float* delta, const void* o, float* delta_out, const int* mask, void* dq,
-            int B, int Sq, int Sk, int H, int Hkv, int causal, float scale, cudaStream_t s,
-            int* info) {
-  return launch(flash_bwd_dq_tc_kernel<G, D>, dim3(Sq / TC_BQ, H, B), TC_NT, dq_tc_smem(D), s,
-                info, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, lse,
-                delta, (const bf16*)o, delta_out, mask, (G*)dq, Sq, Sk, H, Hkv, causal, scale);
-}
-
-#define DISPATCH_D(D, CALL)                      \
-  switch (D) {                                   \
-    case 64: { constexpr int DD = 64; return CALL; }   \
-    case 96: { constexpr int DD = 96; return CALL; }   \
-    case 128: { constexpr int DD = 128; return CALL; } \
-    default: return (int)cudaErrorInvalidValue;  \
-  }
+// The tensor-core kernel `kern<args..., EXACT>` for head dim D: EXACT when D
+// == KW, else the run-time-D kernel for KW - 8 (at width 64 no such D
+// exists, so that build compiles only the EXACT kernel).
+#define TC_KERNEL(kern, ...) \
+  (D == KW ? kern<__VA_ARGS__, true> : kern<__VA_ARGS__, KW == 64>)
 
 // dtype codes: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (tensor-core
 // kernels). grad_fp32 = 1 writes fp32 gradients from bf16 inputs (the
@@ -1108,36 +1132,56 @@ int dq_tc_t(const void* q, const void* k, const void* v, const void* dO, const f
 int fwd_any(const void* q, const void* k, const void* v, const int* mask, void* out,
             float* lse, int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype,
             float scale, cudaStream_t s, int* info) {
-  if (dtype == 0) {
-    DISPATCH_D(D, (fwd_t<float, DD>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
-  }
-  DISPATCH_D(D, (fwd_tc_t<DD>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch(flash_fwd_kernel<float, KW>, dim3(Sq / BQ, H, B), NT, fwd_smem(), s, info,
+                  (const float*)q, (const float*)k, (const float*)v, mask, (float*)out, lse,
+                  Sq, Sk, H, Hkv, D, causal, scale);
+  return launch(TC_KERNEL(flash_fwd_tc_kernel, KW), dim3(Sq / TC_BQ, H, B), TC_NT,
+                fwd_tc_smem(), s, info, (const bf16*)q, (const bf16*)k, (const bf16*)v, mask,
+                (bf16*)out, lse, Sq, Sk, H, Hkv, D, causal, scale);
 }
 
 int dkdv_any(const void* q, const void* k, const void* v, const void* dO, const float* lse,
              const float* delta, const int* mask, void* dk, void* dv, int B, int Sq, int Sk,
              int H, int Hkv, int D, int causal, int dtype, int grad_fp32, float scale,
              cudaStream_t s, int* info) {
-  if (dtype == 0) {
-    DISPATCH_D(D, (dkdv_t<float, float, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
-  }
-  if (grad_fp32) {
-    DISPATCH_D(D, (dkdv_tc_t<float, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
-  }
-  DISPATCH_D(D, (dkdv_tc_t<bf16, DD>(q, k, v, dO, lse, delta, mask, dk, dv, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch(flash_bwd_dkdv_kernel<float, float, KW>, dim3(Sk / BK, Hkv, B), NT,
+                  dkdv_smem(), s, info, (const float*)q, (const float*)k, (const float*)v,
+                  (const float*)dO, lse, delta, mask, (float*)dk, (float*)dv, Sq, Sk, H, Hkv,
+                  D, causal, scale);
+  if (grad_fp32)
+    return launch(TC_KERNEL(flash_bwd_dkdv_tc_kernel, float, KW), dim3(Sk / TC_BK, Hkv, B),
+                  TC_NT, dkdv_tc_smem(), s, info, (const bf16*)q, (const bf16*)k,
+                  (const bf16*)v, (const bf16*)dO, lse, delta, mask, (float*)dk, (float*)dv, Sq,
+                  Sk, H, Hkv, D, causal, scale);
+  return launch(TC_KERNEL(flash_bwd_dkdv_tc_kernel, bf16, KW), dim3(Sk / TC_BK, Hkv, B),
+                TC_NT, dkdv_tc_smem(), s, info, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                (const bf16*)dO, lse, delta, mask, (bf16*)dk, (bf16*)dv, Sq, Sk, H, Hkv, D,
+                causal, scale);
 }
 
 int dq_any(const void* q, const void* k, const void* v, const void* dO, const float* lse,
            const float* delta, const void* o, float* delta_out, const int* mask, void* dq,
            int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int dtype, int grad_fp32,
            float scale, cudaStream_t s, int* info) {
-  if (dtype == 0) {
-    DISPATCH_D(D, (dq_t<float, float, DD>(q, k, v, dO, lse, delta, o, delta_out, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
-  }
-  if (grad_fp32) {
-    DISPATCH_D(D, (dq_tc_t<float, DD>(q, k, v, dO, lse, delta, o, delta_out, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
-  }
-  DISPATCH_D(D, (dq_tc_t<bf16, DD>(q, k, v, dO, lse, delta, o, delta_out, mask, dq, B, Sq, Sk, H, Hkv, causal, scale, s, info)));
+  if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch(flash_bwd_dq_kernel<float, float, KW>, dim3(Sq / BQ, H, B), NT, dq_smem(), s,
+                  info, (const float*)q, (const float*)k, (const float*)v, (const float*)dO,
+                  lse, delta, (const float*)o, delta_out, mask, (float*)dq, Sq, Sk, H, Hkv, D,
+                  causal, scale);
+  if (grad_fp32)
+    return launch(TC_KERNEL(flash_bwd_dq_tc_kernel, float, KW), dim3(Sq / TC_BQ, H, B),
+                  TC_NT, dq_tc_smem(), s, info, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                  (const bf16*)dO, lse, delta, (const bf16*)o, delta_out, mask, (float*)dq, Sq,
+                  Sk, H, Hkv, D, causal, scale);
+  return launch(TC_KERNEL(flash_bwd_dq_tc_kernel, bf16, KW), dim3(Sq / TC_BQ, H, B), TC_NT,
+                dq_tc_smem(), s, info, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                (const bf16*)dO, lse, delta, (const bf16*)o, delta_out, mask, (bf16*)dq, Sq, Sk,
+                H, Hkv, D, causal, scale);
 }
 
 }  // namespace

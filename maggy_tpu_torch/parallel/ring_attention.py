@@ -33,8 +33,9 @@ Two inner-block implementations, as in the JAX package:
   backward's hops run in one order on every rank.
 
 ``impl="auto"`` is flash for a CUDA tensor whose shard tiles the kernels
-(S/n % 128 == 0, D in ``KERNEL_HEAD_DIMS``), plain otherwise; ``"flash"``
-on a shape the kernels do not build raises.
+by the JAX package's rule (S/n % 128 == 0, D >= 64 with D % 8 == 0), plain
+otherwise; ``"flash"`` on a shape outside that rule raises, and so do the
+kernels on a CUDA tensor with D above ``MAX_KERNEL_HEAD_DIM``.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ import math
 import torch
 import torch.distributed as dist
 
-from maggy_tpu_torch.ops.attention import (KERNEL_HEAD_DIMS, NEG_INF, _row_delta,
-                                           flash_block_bwd, flash_block_fwd)
+from maggy_tpu_torch.ops.attention import (NEG_INF, _row_delta, flash_block_bwd,
+                                           flash_block_fwd, flash_head_dim_ok)
 from maggy_tpu_torch.parallel import collectives
 
 
@@ -54,12 +55,12 @@ def resolve_seq_parallel_impl(seq_len: int, head_dim: int, impl: str, on_cuda: b
     """Shared flash/plain dispatch of the ring's blocks and Ulysses' gathered
     sequence (JAX ``resolve_seq_parallel_impl``): ``seq_len`` is the length
     the kernel sees."""
-    flash_ok = seq_len % 128 == 0 and head_dim in KERNEL_HEAD_DIMS
+    flash_ok = seq_len % 128 == 0 and flash_head_dim_ok(head_dim)
     if impl == "auto":
         return "flash" if flash_ok and on_cuda else "plain"
     if impl == "flash" and not flash_ok:
-        raise ValueError("impl='flash' needs {} divisible by 128 and D in {}; got {}, D={}".format(
-            what, KERNEL_HEAD_DIMS, seq_len, head_dim))
+        raise ValueError("impl='flash' needs {} divisible by 128 and D>=64 with D%8==0; "
+                         "got {}, D={}".format(what, seq_len, head_dim))
     if impl not in ("flash", "plain"):
         raise ValueError("impl must be 'auto', 'flash' or 'plain', got {!r}".format(impl))
     return impl

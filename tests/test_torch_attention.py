@@ -2,9 +2,11 @@
 ``attention_reference`` and its Pallas kernels in interpret mode.
 
 Inputs are made with numpy from a seed and fed to both sides. Tolerances as
-tests/test_models.py: fp32, 1e-4 forward and 1e-3 gradients. The CUDA
-kernels themselves run only on the card (chip_smoke.py, and the
-card-only test at the end, which skips here).
+tests/test_models.py: fp32, 1e-4 forward and 1e-3 gradients. The head dims
+run from 64 to 256 by the JAX rule (D >= 64, D % 8 == 0): 72 and 120 leave
+a half k16 step (D % 16 == 8), 80 is H2O-Danube-1.8B's, 256 the kernels'
+largest. The CUDA kernels themselves run only on the card (chip_smoke.py,
+and the card-only test at the end, which skips here).
 """
 
 import jax
@@ -15,6 +17,8 @@ import torch
 
 from maggy_tpu.ops import attention as jax_attn
 from maggy_tpu_torch.ops import attention as A
+from maggy_tpu_torch.ops import build
+from maggy_tpu_torch.parallel.ring_attention import resolve_seq_parallel_impl
 
 # Each test bounded (a test that hangs fails alone instead of cutting the
 # whole run); the tests that set their own, longer bound keep it.
@@ -33,6 +37,13 @@ CASES = {
     "causal_gqa_d128_s384": (1, 384, 384, 4, 2, 128, True, None),
     "causal_sq_ne_sk": (1, 128, 256, 2, 2, 64, True, None),
     "gqa_pad_s256": (2, 256, 256, 4, 2, 64, False, "pad"),
+    # Every head dim the kernels take, by the rule: causal GQA across two
+    # skip tiles, and key padding with a fully masked row.
+    **{"causal_gqa_d{}_s256".format(D): (1, 256, 256, 4, 2, D, True, None)
+       for D in (72, 80, 120, 256)},
+    **{"pad_all_masked_row_d{}".format(D): (2, 128, 128, 2, 2, D, False, "pad")
+       for D in (72, 80, 120, 256)},
+    "causal_sq_ne_sk_d120": (1, 128, 384, 4, 2, 120, True, None),
 }
 
 
@@ -136,18 +147,81 @@ def test_causal_padded_all_masked_row_matches_pallas(case):
         assert _maxdiff(g, pg.numpy(), B - 1) < GRAD_TOL
 
 
-def test_mha_unbuilt_head_dim_goes_to_reference():
-    """D=80 tiles but has no kernel instantiation: dispatch sends it to
-    attention_reference, and forcing the kernels raises up front."""
-    q, k, v, keep = _inputs(2, 128, 128, 2, 2, 80, "pad")
+@pytest.mark.parametrize("D", [56, 80, 84, 120, 256, 264])
+def test_mha_unbuilt_head_dim_goes_to_reference(D):
+    """The head-dim rule of both packages' dispatch. D=56 and 84 are outside
+    it (D < 64, D % 8 != 0): forcing the kernels raises in both, and the
+    dispatch sends them to the reference. 80, 120 and 256 are inside:
+    ``force="flash"`` runs the port's plain versions (the card's kernels'
+    arithmetic) and matches JAX's Pallas kernels in interpret mode. 264 is
+    inside the rule but above the CUDA kernels' 256: on the CPU it computes
+    like JAX; on the card the kernels raise (the card-only test below)."""
+    q, k, v, keep = _inputs(2, 128, 128, 2, 2, D, "pad")
     m4 = keep[:, None, None, :]
     args = [torch.tensor(x) for x in (q, k, v)]
-    with pytest.raises(ValueError, match=r"^force='flash'.*\(64, 96, 128\)"):
-        A.multi_head_attention(*args, causal=True, mask=torch.tensor(m4), force="flash")
-    out = A.multi_head_attention(*args, causal=True, mask=torch.tensor(m4))
-    ref = jax_attn.attention_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                       causal=True, mask=jnp.asarray(m4))
+    jargs = [jnp.asarray(x) for x in (q, k, v)]
+    ref = jax_attn.attention_reference(*jargs, causal=True, mask=jnp.asarray(m4))
+    if not A.flash_head_dim_ok(D):
+        with pytest.raises(ValueError, match=r"^force='flash'.*D>=64 with D%8==0"):
+            A.multi_head_attention(*args, causal=True, mask=torch.tensor(m4), force="flash")
+        with pytest.raises(ValueError, match=r"^force='flash'"):
+            jax_attn.multi_head_attention(*jargs, causal=True, mask=jnp.asarray(m4),
+                                          force="flash")
+        out = A.multi_head_attention(*args, causal=True, mask=torch.tensor(m4))
+        j_out = jax_attn.multi_head_attention(*jargs, causal=True, mask=jnp.asarray(m4))
+        assert _maxdiff(np.asarray(j_out), np.asarray(ref)) < FWD_TOL
+    else:
+        out = A.multi_head_attention(*args, causal=True, mask=torch.tensor(m4), force="flash")
+        j_out = jax_attn.multi_head_attention(*jargs, causal=True, mask=jnp.asarray(m4),
+                                              force="flash")
+        assert out.shape == (2, 128, 2, D)
+        assert _maxdiff(out.numpy(), np.asarray(j_out)) < FWD_TOL
+    # At Sk = 128 (one skip tile) the kernels' fully masked row averages V
+    # over every key, as the reference does.
     assert _maxdiff(out.numpy(), np.asarray(ref)) < FWD_TOL
+
+
+@pytest.mark.parametrize("D", [56, 64, 72, 80, 84, 96, 120, 128, 248, 256, 264])
+def test_seq_parallel_dispatch_matches_jax(D):
+    """The ring's and Ulysses' flash/plain choice against JAX's
+    ``resolve_seq_parallel_impl`` over a grid of lengths: a CUDA tensor
+    in the port stands where the Pallas kernels run in JAX (interpret mode
+    here), a CPU tensor where they do not; "plain" is JAX's "xla"."""
+    names = {"xla": "plain", "flash": "flash"}
+    for seq_len in (64, 128, 200, 256, 384, 4096):
+        for impl in ("auto", "flash", "plain"):
+            for on_cuda in (True, False):
+                try:
+                    want = names[jax_attn.resolve_seq_parallel_impl(
+                        seq_len, D, "xla" if impl == "plain" else impl, on_cuda, "S")]
+                except ValueError as e:
+                    assert str(e).startswith("impl='flash' needs S divisible by 128")
+                    with pytest.raises(ValueError, match="impl='flash' needs S divisible"):
+                        resolve_seq_parallel_impl(seq_len, D, impl, on_cuda, "S")
+                    continue
+                assert resolve_seq_parallel_impl(seq_len, D, impl, on_cuda, "S") == want, (
+                    seq_len, impl, on_cuda)
+
+
+def test_kernel_widths_cover_the_rule_and_each_has_a_build():
+    """Every D of the rule up to MAX_KERNEL_HEAD_DIM maps to the least
+    multiple of 16 >= D, every such width has its own build and no other
+    build exists, and above 256 the wrappers' check raises naming the
+    range."""
+    dims = [D for D in range(8, 300, 8) if A.flash_head_dim_ok(D)]
+    assert dims[0] == 64
+    widths = set()
+    for D in dims:
+        if D <= A.MAX_KERNEL_HEAD_DIM:
+            w = A.kernel_width(D)
+            assert w >= D and w - 16 < D and w % 16 == 0
+            widths.add(w)
+        else:
+            with pytest.raises(ValueError, match=r"head_dim 64 to 256 .*queue 2 item 3"):
+                A.kernel_width(D)
+    assert build.builds() == [("flash_attn.cu", "w{}".format(w)) for w in sorted(widths)]
+    with pytest.raises(ValueError, match="builds as"):
+        build.compile_source("flash_attn.cu")
 
 
 def test_block_building_blocks_match_pallas():
@@ -290,12 +364,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def test_kernels_match_plain_versions_on_card(cuda_device):
+@pytest.mark.parametrize("D", [64, 72, 80, 120, 128, 200, 256, 264])
+def test_kernels_match_plain_versions_on_card(cuda_device, D):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v, do = (torch.randn(2, 128, 4, 64, device=cuda_device, generator=g)
+    q, k, v, do = (torch.randn(2, 128, 4, D, device=cuda_device, generator=g)
                    for _ in range(4))
     mask = torch.ones(2, 128, dtype=torch.int32, device=cuda_device)
     mask[1, 100:] = 0
+    if D > A.MAX_KERNEL_HEAD_DIM:
+        with pytest.raises(ValueError, match=r"head_dim 64 to 256 .*queue 2 item 3"):
+            A.flash_fwd(q, k, v, mask, False)
+        with pytest.raises(ValueError, match=r"head_dim 64 to 256"):
+            A.multi_head_attention(q, k, v, causal=False, mask=mask[:, None, None, :])
+        return
     out, lse = A.flash_fwd(q, k, v, mask, False)
     p_out, p_lse = A._plain_fwd(q, k, v, mask, False)
     p_out = p_out.contiguous()

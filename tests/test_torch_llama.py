@@ -87,8 +87,11 @@ def _maxdiff(a, b):
     return float(np.abs(_np(a) - _np(b)).max())
 
 
-def test_converted_logits_and_hidden_match_flax():
-    jcfg, tcfg = _configs()
+@pytest.mark.parametrize("head_dim", [64, 80])
+def test_converted_logits_and_hidden_match_flax(head_dim):
+    """At D=64 and at H2O-Danube-1.8B's D=80 (RoPE's split halves of 40,
+    q/k/v wider than the hidden size), weights carried across from Flax."""
+    jcfg, tcfg = _configs(head_dim=head_dim)
     params = _flax_params(jcfg)
     tokens = _tokens(1)
     apply = jax.jit(JaxLlama(jcfg).apply, static_argnames="return_hidden")
