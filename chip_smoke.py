@@ -21,6 +21,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              heads, causal and key-padded with a fully masked row, Sq =
              128 for a quarter of the dims; the BERT-base
              training shape with a padding mask that fully masks some rows,
+             and bert_glue_hpo's (64 x 128 with a mask that keeps every
+             key),
              a causal GQA shape, causal padded shapes at S=256 with fully
              padded rows, and the Llama-3-8B training shape: causal, GQA
              32:8, D=128, S=2048; the ring's block at a rank's shard of
@@ -34,7 +36,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              scaled_dot_product_attention times at the main paths' shapes
              (H2O-Danube-1.8B's 2 x 2048, GQA 32:8, D=80, causal, among them)
              (SDPA's forward, backward and both are yardsticks, never used
-             by the port).
+             by the port; SDPA's backward also stands as library_bwd_ms
+             beside each backward kernel in the kernels line).
 4. slice   — the BERT-base (12 x 768, vocab 30522) ASHA + median-stopping
              sweep through maggy_tpu_torch.experiment.lagom on two thread
              runners. Launch counters are zeroed just before and read just
@@ -85,7 +88,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              lora_alpha, lr on two thread runners, 2 x 2048 tokens, remat,
              the chunked loss) at H2O-Danube-1.8B's widths (arXiv:2401.16818:
              vocab 32000, 2560 wide, FFN 6912, 24 layers, 32/8 heads,
-             head_dim 80, rope theta 1e4) at full depth: the flash kernels
+             head_dim 80, rope theta 1e4) at 12 of its 24 layers (depth
+             cut for the script's time): the flash kernels
              at D=80, a width no earlier path runs. Danube's sliding window
              of 4096 keys covers all 2048 tokens, so the repo's Llama
              computes its function. Launches exact (the forward twice per
@@ -93,6 +97,29 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              replayed, the warm reading; then a 2-layer full-width model on
              the card against the CPU path (hidden states, loss, layer-0
              adapter gradients).
+6c. slice_examples — the port's examples (maggy_tpu_torch/examples) as a
+             user runs them: python -m maggy_tpu_torch.examples.mnist_hpo
+             --trials 2 --workers 2 as a process of its own with no device
+             variable set (exit 0, its Best line, 2 finalized trials, its
+             start-up seconds); then main(argv) in this process with the
+             JAX CI's smoke arguments for resnet_cifar_asha (at --depth 50),
+             vit_cifar_hpo, pbt_sweep, titanic_ablation and
+             distributed_training (their trial counts finalized, each
+             journal replayed); then bert_glue_hpo at BertConfig.base's
+             widths on its own tokens at length 128 (--trials 2: 40 steps a
+             trial at batch 32 or 64, no attention mask, so every key is
+             kept) and llama_lora_sweep at Llama-3-8B's widths (4 of 32
+             layers, 2 x 2048 tokens, slice_llama's vocab chunk; --trials 2
+             --resource-max 1: 20 steps a trial), each by setting the
+             example's module-level model config, data and loss chunk
+             before main. Launch counters zeroed just before each of the two
+             and read just after must equal the examples' own arithmetic:
+             BERT 12 layers x (steps + one accuracy pass a trial) forward
+             and 12 x steps backward launches; Llama 2 x 4 x steps (remat)
+             and 4 x steps. Every run dir, registry and temporary file is
+             under build/. Prints each example's wall, trials, best value,
+             launches against the expected, its trials' seconds a step and
+             peak memory.
 7. slice_process — the slice sweep under pool="process": two spawned runner
              processes, each with its own interpreter and CUDA context. Each
              trial writes its steps and its process's kernel launches to a
@@ -224,10 +251,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              the captured step), ASHA(3, 1, 9) + median stopping (es_min 3),
              9 rung-0 trials on 3 thread runners, the example's
              ShardedBatchIterator (batch 128, seed 1) over make_cifar_like's
-             seeded 1024 x 32 x 32 x 3 set on the card, 4 steps a budget
-             unit, a heartbeat every 2. Every step after a unit's first at
-             its shape must replay a graph. Then 5 steps replayed against the
-             same 5 taken eagerly from the same start at lr 0: the running
+             seeded 1024 x 32 x 32 x 3 set on the card, 2 steps a budget
+             unit (cut from 4; the example trains 8), a heartbeat every 2.
+             Every step after a unit's first at its shape must replay a
+             graph. Then 3 steps replayed against the same 3 taken eagerly
+             from the same start at lr 0: the running
              statistics must agree within RESNET_BN_RTOL (a replay that
              updated them twice or not at all misses by about 10%), and so
              must a warm hit's (a unit stepped and retired, re-initialized
@@ -242,7 +270,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              goodput, the step alone eager and replayed, its profile, peak
              memory and the TF32 settings.
 15. slice_vit — examples/vit_cifar_hpo.py at ViT-B/16 (ViTConfig.base(2)):
-             TPE, 8 trials of 12 steps, 2 threads, a plain adamw(lr) (each
+             TPE, 4 trials of 6 steps (cut from the example's 8 of 12:
+             slice_examples runs the example itself), 2 threads, a plain
+             adamw(lr) (each
              trial its own slot, as the example intends), batch 64 of a
              seeded 512 x 224 x 224 x 3 set (the example steps its whole set
              at once). 197 tokens do not tile by 128: the flash launches
@@ -345,7 +375,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              worst ablation, the base trial's accuracy above 0.8.
              bert_base_loco: BERT-base's 12 encoder layers on slice's data,
              the 12 singly, [layer_10, layer_11] and the prefix group layer_1
-             (15 trials, 2 runners, 24 steps each, a constant-rate swept
+             (15 trials, 2 runners, 12 steps each, a constant-rate swept
              AdamW). filter_layers matches by name or prefix, so the single
              layer_1 trial drops layer_10 and layer_11 too, as the prefix
              group does: each flash kernel launched (12 + 11 x 11 + 9 + 10 +
@@ -397,7 +427,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              agent_ticket.json processes, each with its own CUDA context: an
              MNIST tenant (slice_fleet's urgent one, a partial: no name on the
              wire, so the thread runner serves it) and a BERT-base tenant
-             (slice_fleet's schedule of 4 trials x 24 steps, batch 32 x 128,
+             (slice_fleet's schedule of 4 trials x 16 steps, batch 32 x 128,
              named chip_smoke:train_bert_agents, at most two runners), both
              with config.sink. Trials must run on both agents; the flash
              launches summed over the trials' records 12 x the steps; this
@@ -554,6 +584,7 @@ are the module-level ``train_*`` below.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import faulthandler
@@ -598,9 +629,29 @@ REPORT_EVERY = 2
 # script's time; launches and checks count the layers run).
 LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 4
 LLAMA_STEPS_PER_BUDGET = 2
-# slice_danube: H2O-Danube-1.8B at full depth, the sweep's batches those of
-# slice_llama (2 x 2048 tokens).
-DANUBE_LAYERS = 24
+# slice_danube: H2O-Danube-1.8B cut to DANUBE_LAYERS of its 24 layers (the
+# script's time), the sweep's batches those of slice_llama (2 x 2048 tokens).
+DANUBE_LAYERS = 12
+# slice_examples: the arguments main gets (the JAX CI's smoke arguments,
+# tests/test_examples.py:41-51; resnet_cifar_asha also at --depth 50,
+# BASELINE configs[2]) and the trials each run finalizes; bert_glue_hpo's
+# and llama_lora_sweep's steps a trial (their train functions'), the Llama
+# loss's vocab chunk at full width (slice_llama's: chunked_next_token_loss's
+# default) and how long the python -m run may take.
+EXAMPLE_ARGS = {
+    "mnist_hpo": ["--trials", "2", "--workers", "2"],
+    "resnet_cifar_asha": ["--trials", "2", "--resource-max", "1", "--workers", "2",
+                          "--depth", "50"],
+    "vit_cifar_hpo": ["--trials", "2"],
+    "pbt_sweep": ["--population", "2", "--generations", "2", "--workers", "2"],
+    "titanic_ablation": [],
+    "distributed_training": [],
+    "bert_glue_hpo": ["--trials", "2"],
+    "llama_lora_sweep": ["--trials", "2", "--resource-max", "1"]}
+EXAMPLE_TRIALS = {"mnist_hpo": 2, "resnet_cifar_asha": 2, "vit_cifar_hpo": 2, "pbt_sweep": 4,
+                  "titanic_ablation": 9, "bert_glue_hpo": 2, "llama_lora_sweep": 2}
+BERT_EXAMPLE_STEPS, LLAMA_EXAMPLE_STEPS, LLAMA_EXAMPLE_VOCAB_CHUNK = 40, 20, 16384
+EXAMPLE_CLI_TIMEOUT_S = 300
 # The kernels phase holds every head dim the CUDA kernels take (the JAX
 # rule D >= 64, D % 8 == 0, up to 256) against the plain versions.
 KERNEL_CHECK_DIMS = tuple(range(64, 257, 8))
@@ -609,7 +660,7 @@ KERNEL_CHECK_DIMS = tuple(range(64, 257, 8))
 # 1 x DIST_S tokens (DIST_S / DIST_RANKS a rank), DIST_STEPS steps; the
 # ranks' records (read from the environment); the worlds' collective
 # timeout (the heartbeat-loss bound); the ring block's heads and head dim.
-DIST_RANKS, DIST_LAYERS, DIST_S, DIST_STEPS = 2, 4, 8192, 4
+DIST_RANKS, DIST_LAYERS, DIST_S, DIST_STEPS = 2, 4, 8192, 2
 DIST_RECORDS_ENV = "MAGGY_TPU_SMOKE_DIST_RECORDS"
 DIST_TIMEOUT_S = 120.0
 DIST_H, DIST_HKV, DIST_D = 32, 8, 128
@@ -634,9 +685,14 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "llama3_8b_tp": (1, LLAMA_S, LLAMA_S, 16, 4, 128),
                "llama3_8b_b1": (1, LLAMA_S, LLAMA_S, 32, 8, 128),
                # slice_danube: H2O-Danube-1.8B, 32:8 heads of 80.
-               "danube_1_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 80)}
-#: Paths whose attention is causal and unpadded (the rest: key padding).
+               "danube_1_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 80),
+               # slice_examples' bert_glue_hpo: no attention mask (every
+               # key kept), batch 64 of its space.
+               "bert_glue_hpo": (64, BERT_S, BERT_S, 12, 12, 64)}
+#: Paths whose attention is causal and unpadded (the rest: key padding,
+#: or a mask that keeps every key).
 CAUSAL_PATHS = ("llama3_8b", "dist", "danube_1_8b")
+KEEP_ALL_PATHS = ("bert_glue_hpo",)
 #: Paths that run the kernels at another path's shape: the process-runner,
 #: forking, resumed, warm A/B and LOCO sweeps are the slice sweep's, the MoE
 #: Llama's attention is the Llama's, and so is its lanes' (2 lanes of batch
@@ -648,7 +704,8 @@ SAME_SHAPE = {"bert_base_process": "bert_base", "bert_base_fork": "bert_base",
               "bert_base_remote": "bert_base", "bert_base_agents": "bert_base",
               "bert_base_gang": "bert_base", "bert_base_fsdp": "bert_base",
               "llama3_8b_moe": "llama3_8b", "llama3_8b_moe_ep": "llama3_8b_b1",
-              "llama3_8b_moe_lanes": "llama3_8b"}
+              "llama3_8b_moe_lanes": "llama3_8b", "bert_base_examples": "bert_glue_hpo",
+              "llama3_8b_examples": "llama3_8b"}
 #: Where the runners' trials train (a CPU rehearsal of the sweep phases
 #: sets "cpu"; the script itself only runs on the card).
 DEVICE = "cuda"
@@ -697,12 +754,14 @@ AB_LOSS_TOL = {"mnist": (1e-4, 1e-5), "bert_base": (1e-2, 1e-3)}
 # eval-logits tolerance against the CPU (TF32 off in every comparison:
 # fp32 sums in another order through 50 layers).
 RESNET_DEPTH, RESNET_WIDTHS, RESNET_BATCH, RESNET_N = 50, [32, 64], 128, 1024
-RESNET_STEPS_PER_BUDGET, RESNET_REPORT_EVERY = 4, 2
-RESNET_BN_STEPS, RESNET_BN_RTOL, RESNET_LOGIT_RTOL = 5, 1e-5, 1e-3
+RESNET_STEPS_PER_BUDGET, RESNET_REPORT_EVERY = 2, 2
+RESNET_BN_STEPS, RESNET_BN_RTOL, RESNET_LOGIT_RTOL = 3, 1e-5, 1e-3
 # slice_vit (examples/vit_cifar_hpo.py with ViTConfig.base(num_classes=2)):
 # batch 64 of a seeded 512-image set (the example steps its whole set at
-# once), 12 steps a trial, 8 TPE trials on two runners, a heartbeat every 4.
-VIT_N, VIT_BATCH, VIT_STEPS, VIT_TRIALS, VIT_REPORT_EVERY = 512, 64, 12, 8, 4
+# once), 6 steps a trial, 4 TPE trials on two runners (cut from the
+# example's 12 and 8: slice_examples runs the example itself), a heartbeat
+# every 4.
+VIT_N, VIT_BATCH, VIT_STEPS, VIT_TRIALS, VIT_REPORT_EVERY = 512, 64, 6, 4, 4
 # slice_moe: the slice_llama LoRA sweep with 8 experts (top-2, capacity
 # factor 2) at Llama-3-8B's widths, cut to MOE_LAYERS layers to fit one
 # card (see phase_slice_moe).
@@ -716,7 +775,7 @@ MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY_FACTOR = 4, 8, 2, 2.0
 # the BERT-base sweep's lanes, and the steps of its timed, profiled and
 # eager-attributed runs alone (cut from 10, 5 and 3).
 LANES_K, LANES_TRIALS, LANES_SEED, LANES_BATCH = 8, 25, 7, 256
-LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 3.0
+LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 1.5
 LANES_PARITY_LRS, LANES_PARITY_STEPS, LANES_MASK_AT = [1e-3, 3e-3, 1e-2, 3e-2], 25, 10
 LANES_TOL = (1e-4, 1e-5)
 BERT_LANES = 4
@@ -755,18 +814,18 @@ MOE_LANES_LRS = [1e-5, 1e-4]
 # slice_ablation: examples/titanic_ablation.py's study (make_titanic_like's
 # rows, 5 features, full batch, Adam 1e-2, 60 steps, 3 runners) and a LOCO
 # study over BERT-base's 12 encoder layers on slice's data (a constant-rate
-# swept AdamW, 24 steps a trial, 2 runners).
+# swept AdamW, 12 steps a trial, 2 runners).
 TITANIC_FEATURES = ["pclass", "sex", "age", "fare", "embarked"]
 TITANIC_N, TITANIC_STEPS, TITANIC_LR, TITANIC_RUNNERS = 2048, 60, 1e-2, 3
 BERT_LOCO_NAMES = ["embed"] + ["layer_{}".format(i) for i in range(12)] + ["head"]
-BERT_LOCO_STEPS, BERT_LOCO_LR, BERT_LOCO_RUNNERS = 24, 3e-5, 2
+BERT_LOCO_STEPS, BERT_LOCO_LR, BERT_LOCO_RUNNERS = 12, 3e-5, 2
 # slice_fleet's card soak: the bulk tenant's trials, steps a trial and
 # checkpoint cadence, the urgent tenant's trials, the scheduler's grace
 # (run_fleet_soak's), the heartbeat, and the starvation bound (a first
 # Trainer.init on the card takes 8-10 s, ROADMAP F3, and a BERT-base save
 # about 2.3 s, F4: an urgent tenant can wait for both before its runner
 # frees).
-FLEET_BULK_TRIALS, FLEET_BERT_STEPS, FLEET_SAVE_EVERY, FLEET_URGENT_TRIALS = 4, 24, 8, 2
+FLEET_BULK_TRIALS, FLEET_BERT_STEPS, FLEET_SAVE_EVERY, FLEET_URGENT_TRIALS = 4, 16, 8, 2
 FLEET_GRACE_S, FLEET_HB_S, FLEET_STARVATION_S = 0.25, 0.1, 60.0
 # slice_remote: where the agents' trials write their records (the agents
 # read it from the environment), and how long the phase may wait for them.
@@ -1152,7 +1211,9 @@ def make_inputs(B, Sq, Sk, H, Hkv, D, dtype, padded, seed):
     v = torch.randn(B, Sk, Hkv, D, device="cuda", generator=g).to(dtype)
     do = torch.randn(B, Sq, H, D, device="cuda", generator=g).to(dtype)
     mask = None
-    if padded:
+    if padded == "all":  # a keep-mask that keeps every key
+        mask = torch.ones(B, Sk, dtype=torch.int32, device="cuda")
+    elif padded:
         lens = torch.randint(16, Sk + 1, (B,), device="cuda", generator=g)
         lens[: max(1, B // 8)] = 0  # fully padded rows: output is the mean of V
         mask = (torch.arange(Sk, device="cuda")[None] < lens[:, None]).to(torch.int32)
@@ -1234,6 +1295,7 @@ def phase_kernels():
     cases = [("bert_base", MAIN_SHAPES["bert_base"], False, True),
              ("bert_base_bo", MAIN_SHAPES["bert_base_bo"], False, True),
              ("bert_base_lanes", MAIN_SHAPES["bert_base_lanes"], False, True),
+             ("bert_glue_hpo", MAIN_SHAPES["bert_glue_hpo"], False, "all"),
              ("causal_gqa", (2, 128, 1024, 32, 8, 128), True, False),
              ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
              ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
@@ -1293,6 +1355,8 @@ def phase_kernels():
                        **yardsticks["bert_base_bo"]},
          bert_base_lanes={"shape": [4 * BERT_B, BERT_S, 12, 64],
                           "timed": timed["bert_base_lanes"], **yardsticks["bert_base_lanes"]},
+         bert_glue_hpo={"shape": [64, BERT_S, 12, 64], "mask": "keeps every key",
+                        "timed": timed["bert_glue_hpo"], **yardsticks["bert_glue_hpo"]},
          llama3_8b={"shape": [llama[0], llama[1], llama[3], llama[4], llama[5]],
                     "causal": True, "timed": timed["llama3_8b"], **yardsticks["llama3_8b"]},
          dist={"shape": [1, DIST_S // DIST_RANKS, DIST_H, DIST_HKV, DIST_D], "causal": True,
@@ -1316,7 +1380,8 @@ def time_kernels(path, main):
     # The ring's backward blocks return fp32 gradients (flash_block_bwd).
     g32 = path == "dist"
     dtype = torch.bfloat16
-    q, k, v, do, mask = make_inputs(B, S, S, H, Hkv, D, dtype, not causal, seed=2)
+    q, k, v, do, mask = make_inputs(B, S, S, H, Hkv, D, dtype,
+                                    "all" if path in KEEP_ALL_PATHS else not causal, seed=2)
     out, lse = A.flash_fwd(q, k, v, mask, causal)
     delta = A._row_delta(do, out)
     n_live = live_entries(B, S, S, H, causal, mask)
@@ -1382,6 +1447,10 @@ def time_kernels(path, main):
     o_kept = sdpa(qg, kg, vg, **sdpa_kw)
     sdpa_bwd_ms = gpu_time_ms(
         lambda: torch.autograd.grad(o_kept, (qg, kg, vg), dot_, retain_graph=True))
+    # SDPA's backward computes dQ, dK and dV in one call: a yardstick for
+    # the two backward kernels together, not the function of either.
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        timed[name]["library_bwd_ms"] = main[name]["library_bwd_ms"] = sdpa_bwd_ms
     return timed, dict(fwd_bwd_ms=gpu_time_ms(kernels_fwd_bwd, reps=10),
                        sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10),
                        bwd_pair_ms=gpu_time_ms(kernels_bwd), sdpa_bwd_ms=sdpa_bwd_ms)
@@ -4400,8 +4469,9 @@ def danube_config(lora_rank=16, lora_alpha=16.0, num_layers=DANUBE_LAYERS):
 
 
 def phase_slice_danube(exp_dir):
-    """slice_llama's LoRA sweep at H2O-Danube-1.8B's widths, full depth: the
-    flash kernels at D=80 on the main path, with slice_llama's gates."""
+    """slice_llama's LoRA sweep at H2O-Danube-1.8B's widths, DANUBE_LAYERS
+    deep: the flash kernels at D=80 on the main path, with slice_llama's
+    gates."""
     from maggy_tpu_torch.train import clear_warm
 
     t_phase = time.perf_counter()
@@ -4424,6 +4494,210 @@ def phase_slice_danube(exp_dir):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          phase_s=time.perf_counter() - t_phase)
     return sweep["launches"]
+
+
+@contextlib.contextmanager
+def example_dirs(exp_dir):
+    """An example's run dirs (MAGGY_TPU_BASE_DIR), dataset registry
+    (MAGGY_TPU_REGISTRY_ROOT) and temporary files, all under ``exp_dir``,
+    with the environment singleton rebuilt over them; restored after.
+    Yields the base dir its runs land in."""
+    import tempfile
+
+    from maggy_tpu_torch.core.environment.singleton import EnvSing
+
+    base = fresh_dir(os.path.join(exp_dir, "exp"))
+    keys = ("MAGGY_TPU_BASE_DIR", "MAGGY_TPU_REGISTRY_ROOT")
+    saved, saved_tmp = {k: os.environ.get(k) for k in keys}, tempfile.tempdir
+    os.environ.update(MAGGY_TPU_BASE_DIR=base,
+                      MAGGY_TPU_REGISTRY_ROOT=fresh_dir(os.path.join(exp_dir, "registry")))
+    tempfile.tempdir = fresh_dir(os.path.join(exp_dir, "tmp"))
+    EnvSing.reset()
+    try:
+        yield base
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tempfile.tempdir = saved_tmp
+        EnvSing.reset()
+
+
+def run_example(exp_root, name, settings=None):
+    """``maggy_tpu_torch.examples.<name>.main(EXAMPLE_ARGS[name])`` in this
+    process, the module's ``settings`` (name -> value, or a function of the
+    module giving it) set for the run and restored after. Checks the
+    printed lines, the finalized trials and the journal; returns (the
+    phase line's summary, the trials)."""
+    import importlib
+
+    from maggy_tpu_torch.train import clear_warm
+
+    mod = importlib.import_module("maggy_tpu_torch.examples." + name)
+    settings = settings or {}
+    saved = {k: getattr(mod, k) for k in settings}
+    out = io.StringIO()
+    with example_dirs(os.path.join(exp_root, name)) as base:
+        try:
+            for k, v in settings.items():
+                setattr(mod, k, v(mod) if callable(v) else v)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = mod.main(list(EXAMPLE_ARGS[name]))
+            wall = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                setattr(mod, k, v)
+            clear_warm()
+        lines = out.getvalue().splitlines()
+        summary = {"wall_s": wall, "printed": lines}
+        if name == "distributed_training":
+            journal = dist_journal_check(name, base, 1)
+            problems = journal.pop("problems")
+            if not (lines and lines[-1].startswith("Average final loss across workers:")
+                    and math.isfinite(result["average_metric"])):
+                problems.append("result {}, printed {}".format(result, lines))
+            if problems:
+                raise AssertionError("slice_examples {}: {}".format(name, "; ".join(problems)))
+            summary.update(average_metric=result["average_metric"], journal=journal)
+            return summary, []
+        trials = read_trials(base)
+        finished = [t for t in trials if t["status"] == "FINALIZED"
+                    and t["final_metric"] is not None and math.isfinite(t["final_metric"])]
+        if not (len(trials) == len(finished) == result["num_trials"] == EXAMPLE_TRIALS[name]
+                and math.isfinite(result["best_val"]) and lines
+                and lines[0].startswith(("Best", "Trials:"))):
+            emit("slice_examples", failed=name, printed=lines, trials=len(trials),
+                 finished=len(finished), result_trials=result["num_trials"])
+            raise AssertionError("slice_examples {}: {} of {} trials finalized".format(
+                name, len(finished), EXAMPLE_TRIALS[name]))
+        summary.update(trials=len(finished), best_val=result["best_val"],
+                       best_hp=result["best_hp"],
+                       telemetry=public(journal_check("slice_examples " + name, base, result)))
+        return summary, trials
+
+
+def example_launches(name, trials, expected, before, summary):
+    """Hold a full-width example's kernel launches to ``expected`` and its
+    steps to CUDA graphs (a capture that failed is printed and allowed
+    only for the Llama, as in slice_llama); returns the launches."""
+    from maggy_tpu_torch.ops import attention as A
+
+    launches = A.launch_counts()
+    reading = warm_reading("slice_examples " + name, None, before,
+                           must_capture=name == "bert_glue_hpo")
+    if not reading["captured"] and not reading["graph_failures"]:
+        raise AssertionError("slice_examples {} stepped eagerly without a failed capture: "
+                             "{}".format(name, reading))
+    summary.update(launches=launches, expected_launches=expected, warm=reading,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches != expected or any(t.get("early_stop") for t in trials):
+        emit("slice_examples", failed=name, **summary)
+        raise AssertionError("slice_examples {} launches {} != {}".format(
+            name, launches, expected))
+    return launches, reading["captured"]
+
+
+def phase_slice_examples(exp_root):
+    """The port's examples as a user runs them: the python -m entry, the
+    tiny examples in this process, and bert_glue_hpo and llama_lora_sweep
+    at full width through the flash kernels (see the module docstring)."""
+    from maggy_tpu_torch.models import BertConfig, LlamaConfig
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import warm
+
+    t_phase = time.perf_counter()
+    exp_root = fresh_dir(exp_root)
+    examples, launches = {}, {}
+
+    # 1. The CLI entry, on the card: no device variable in its environment.
+    exp_dir = fresh_dir(os.path.join(exp_root, "mnist_hpo_cli"))
+    env = {k: v for k, v in os.environ.items() if k != "MAGGY_TPU_TORCH_DEVICE"}
+    env["MAGGY_TPU_BASE_DIR"] = exp_dir
+    cmd = [sys.executable, "-m", "maggy_tpu_torch.examples.mnist_hpo",
+           *EXAMPLE_ARGS["mnist_hpo"]]
+    t_spawn, t0 = time.time(), time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    trials = read_trials(exp_dir)
+    if not (proc.returncode == 0 and any(line.startswith("Best: ") for line in lines)
+            and len(trials) == EXAMPLE_TRIALS["mnist_hpo"]
+            and all(t["status"] == "FINALIZED" for t in trials)):
+        emit("slice_examples", failed="mnist_hpo_cli", rc=proc.returncode, stdout=lines[-20:],
+             stderr=err.splitlines()[-40:], trials=len(trials))
+        raise AssertionError("python -m maggy_tpu_torch.examples.mnist_hpo: rc {}, {} "
+                             "trials".format(proc.returncode, len(trials)))
+    result = {"num_trials": len(trials), "pipeline": json.load(open(glob.glob(os.path.join(
+        exp_dir, "*", "result.json"))[0]))["pipeline"]}
+    telemetry = journal_check("slice_examples mnist_hpo_cli", exp_dir, result)
+    first_event = min(e["t"] for e in telemetry["_events"])
+    examples["mnist_hpo_cli"] = {"wall_s": wall, "startup_s": first_event - t_spawn,
+                                 "trials": len(trials), "printed": lines,
+                                 "telemetry": public(telemetry)}
+
+    # 2. The other tiny examples, in this process.
+    for name in ("resnet_cifar_asha", "vit_cifar_hpo", "pbt_sweep", "titanic_ablation",
+                 "distributed_training"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        summary, _ = run_example(exp_root, name)
+        summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        examples[name] = summary
+
+    # 3. bert_glue_hpo at BERT-base's widths on its own tokens at length 128.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = BertConfig.base(num_classes=2)
+    before = warm.counters()
+    A.reset_launch_counts()
+    summary, trials = run_example(exp_root, "bert_glue_hpo", {
+        "CONFIG": cfg, "TOKENS": lambda m: m.make_sst_like(seq=BERT_S)[0],
+        "LABELS": lambda m: m.make_sst_like(seq=BERT_S)[1]})
+    steps = len(trials) * BERT_EXAMPLE_STEPS
+    expected = {"flash_fwd": cfg.num_layers * (steps + len(trials)),
+                "flash_bwd_dkdv": cfg.num_layers * steps, "flash_bwd_dq": cfg.num_layers * steps}
+    launches["bert_base_examples"], CAPTURED["bert_base_examples"] = example_launches(
+        "bert_glue_hpo", trials, expected, before, summary)
+    summary.update(steps=steps, trial_s_per_step=sorted(
+        t["duration"] / BERT_EXAMPLE_STEPS for t in trials))
+    examples["bert_glue_hpo"] = summary
+
+    # 4. llama_lora_sweep at Llama-3-8B's widths, 4 of 32 layers.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=LLAMA_LAYERS)
+    before = warm.counters()
+    A.reset_launch_counts()
+    summary, trials = run_example(exp_root, "llama_lora_sweep", {
+        "CONFIG": cfg, "ROWS": LLAMA_B, "SEQ": LLAMA_S, "VOCAB_CHUNK": LLAMA_EXAMPLE_VOCAB_CHUNK,
+        "CORPUS": lambda m: m.make_corpus(seq=LLAMA_S, vocab=cfg.vocab_size)})
+    steps = len(trials) * LLAMA_EXAMPLE_STEPS
+    expected = {"flash_fwd": 2 * cfg.num_layers * steps, "flash_bwd_dkdv": cfg.num_layers * steps,
+                "flash_bwd_dq": cfg.num_layers * steps}
+    launches["llama3_8b_examples"], CAPTURED["llama3_8b_examples"] = example_launches(
+        "llama_lora_sweep", trials, expected, before, summary)
+    summary.update(steps=steps, trial_s_per_step=sorted(
+        t["duration"] / LLAMA_EXAMPLE_STEPS for t in trials))
+    examples["llama_lora_sweep"] = summary
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit("slice_examples", examples=examples, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def mnist_sweep(exp_dir, pool, fn_kw=None, **config_kw):
@@ -7616,6 +7890,7 @@ def main():
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama"))),
         "danube_1_8b": phase_slice_danube(
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_danube"))),
+        **phase_slice_examples(os.path.join(ROOT, "build", "chip_smoke_experiments_examples")),
         "bert_base_process": phase_slice_process(
             os.path.join(ROOT, "build", "chip_smoke_experiments_process"), asha_step_ms)}
     clear_warm()

@@ -3,7 +3,8 @@
 ``adam`` is ``optax.adam`` (eps 1e-8 added after the square root, eps_root
 0): ``adamw`` with no weight decay computes the same update. ``adamw`` matches ``optax.adamw``'s defaults (b1 0.9, b2 0.999, eps 1e-8,
 weight decay 1e-4 on every parameter — torch's own AdamW default decay is
-1e-2). ``warmup_cosine_decay_schedule`` is optax's schedule (step ->
+1e-2). ``sgd`` is ``optax.sgd`` (examples/distributed_training.py's optimizer).
+``warmup_cosine_decay_schedule`` is optax's schedule (step ->
 learning rate); ``adamw`` drives torch.optim.AdamW with a base rate of 1 and
 a LambdaLR whose factor at step t is that schedule's value, so update t
 uses schedule(t) exactly as optax's step counter does.
@@ -76,6 +77,28 @@ def adam(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.9
          eps: float = 1e-8):
     """``optax.adam``'s update as an optimizer factory (see ``adamw``)."""
     return adamw(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=0.0)
+
+
+def sgd(learning_rate: Union[float, Schedule], momentum: float = 0.0, nesterov: bool = False):
+    """``optax.sgd``'s update as an optimizer factory (see ``adamw``):
+    torch.optim.SGD without dampening keeps optax's trace, m <- g + mu m
+    (m starts at 0, so the first step's m is g), and steps p <- p - lr m,
+    or p <- p - lr (g + mu m) with ``nesterov``. At momentum 0 the trace is
+    g, Nesterov's included (torch refuses the flag there, so it is
+    dropped)."""
+    schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+    kwargs = dict(momentum=momentum, nesterov=bool(nesterov) and momentum > 0)
+
+    def build(params):
+        if isinstance(params, torch.nn.Module):
+            params = params.parameters()
+        opt = torch.optim.SGD(params, lr=1.0, **kwargs)
+        return opt, build.scheduler(opt)
+
+    build.scheduler = lambda opt: torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+    build.schedule = schedule
+    build.kwargs = kwargs
+    return build
 
 
 #: The hyperparameter that rides the optimizer's learning-rate tensor.

@@ -478,6 +478,9 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("analysis", "journalvocab.py"), ("analysis", "witness.py"),
         ("core", "environment", "abstractenvironment.py"),
         ("core", "environment", "singleton.py"), ("telemetry", "profiling.py"))} <= scanned
+    assert {os.path.join("maggy_tpu_torch", "examples", n + ".py") for n in (
+        "__init__", "mnist_hpo", "bert_glue_hpo", "llama_lora_sweep", "resnet_cifar_asha",
+        "vit_cifar_hpo", "pbt_sweep", "titanic_ablation", "distributed_training")} <= scanned
     offenders = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(BANNED))
                  for f in files}
     # gcsfs only inside GCSEnv.__init__, where no filesystem was given.
