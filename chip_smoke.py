@@ -34,7 +34,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              tensor-core kernel spills; bf16 D=128 and D=80 local memory
              printed); kernel, plain and
              scaled_dot_product_attention times at the main paths' shapes
-             (H2O-Danube-1.8B's 2 x 2048, GQA 32:8, D=80, causal, among them)
+             (H2O-Danube-1.8B's 2 x 2048, GQA 32:8, D=80, causal, and the
+             LoRA lanes' folded 8 x 2048, 32:8, D=128, causal, among them;
+             the folded shape is also held against the plain versions)
              (SDPA's forward, backward and both are yardsticks, never used
              by the port; SDPA's backward also stands as library_bwd_ms
              beside each backward kernel in the kernels line).
@@ -80,7 +82,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              2 x 2048 tokens, the vocab-chunked loss. Launch counters are
              zeroed just before and read just after: the forward kernel
              runs twice per layer and step (remat), the backward kernels
-             once. Then a 2-layer full-width model on the card against the
+             once. Then a 1-layer full-width model on the card against the
              CPU path (hidden states, loss, layer-0 adapter gradients), the
              chunked loss's time, the step time alone, a torch.profiler
              breakdown of three steps, and the phase's peak memory.
@@ -88,16 +90,45 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              lora_alpha, lr on two thread runners, 2 x 2048 tokens, remat,
              the chunked loss) at H2O-Danube-1.8B's widths (arXiv:2401.16818:
              vocab 32000, 2560 wide, FFN 6912, 24 layers, 32/8 heads,
-             head_dim 80, rope theta 1e4) at 12 of its 24 layers (depth
+             head_dim 80, rope theta 1e4) at 6 of its 24 layers (depth
              cut for the script's time): the flash kernels
              at D=80, a width no earlier path runs. Danube's sliding window
              of 4096 keys covers all 2048 tokens, so the repo's Llama
              computes its function. Launches exact (the forward twice per
              layer and step, the backward kernels once), the journal
-             replayed, the warm reading; then a 2-layer full-width model on
+             replayed, the warm reading; then a 1-layer full-width model on
              the card against the CPU path (hidden states, loss, layer-0
              adapter gradients).
-6c. slice_examples — the port's examples (maggy_tpu_torch/examples) as a
+6c. slice_lora_lanes — vectorized lanes of a LoRA family at Llama-3-8B's
+             widths (train/vmap.py: only the adapters stacked, the frozen
+             bf16 base held once; remat under torch.func, models/remat.py;
+             the chunked loss's batching rule, ops/losses.py), two arms.
+             (a) The sweep: OptimizationConfig(vmap_lanes=4, num_workers=1,
+             es_policy="median") over lr (DOUBLE_LOG 1e-5 to 1e-3), 9
+             trials (the runner's first dispatch is scalar, so 8 ride two
+             4-lane blocks, the second on the first's retired unit),
+             LLAMA_LAYERS layers, remat, the chunked loss through
+             return_hidden, batches of 2 x 2048 seeded tokens, 6 steps a
+             trial, through the phase's own lane train function. Launch
+             counters zeroed just before and read just after must be 2 /
+             1 / 1 (fwd / dK,dV / dQ) x layers x dispatch steps, whatever
+             K: a block step launches each kernel once a layer for all
+             lanes. Every trial finalized once, the journal replayed, every
+             step after a unit's first replayed from its graph, each
+             block's unit holding exactly one base's frozen bytes (no
+             frozen parameter stacked, with a gradient buffer or optimizer
+             state), and the lanes at the smallest and largest rate within
+             AB_LOSS_TOL["bert_base"] of a scalar Trainer of
+             only_lora(adamw(lr)) at the same seed, rate and batches.
+             (b) The full depth: one VmapTrainer of 4 LoRA lanes of the
+             whole 32-layer model, eager, 3 steps: each lane's first loss
+             against the unit module's eager forward (lora_b starts at
+             zero), launches 2 / 1 / 1 x 32 x 3, the unit's bytes. Prints
+             the block step p50, the units' frozen and stacked bytes, and
+             the peak memory of the sweep, of (b)'s build (the base drawn
+             in fp32, ROADMAP F5) and of (b)'s steps, beside reckonings
+             made before the first chip run.
+6d. slice_examples — the port's examples (maggy_tpu_torch/examples) as a
              user runs them: python -m maggy_tpu_torch.examples.mnist_hpo
              --trials 2 --workers 2 as a process of its own with no device
              variable set (exit 0, its Best line, 2 finalized trials, its
@@ -570,7 +601,9 @@ bert_base_remote's slice_remote's summed over its agents,
 bert_base_agents's slice_agents' BERT tenant's summed over its trials,
 dist's slice_dist's llama3_8b_sp ranks' summed, timed at the ring's
 block: 1 x 4096, causal, fp32 gradients; bert_base_gang's slice_gang's
-gang ranks' summed over the in-process and remote gangs, eager),
+gang ranks' summed over the in-process and remote gangs, eager;
+llama3_8b_lora_lanes's slice_lora_lanes' sweep, timed at the folded shape,
+4 lanes x batch 2 x 2048),
 the
 nvidia-smi line, and the last
 line {"ok": true, "device": {...}}. Every phase line also goes to
@@ -631,7 +664,26 @@ LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 4
 LLAMA_STEPS_PER_BUDGET = 2
 # slice_danube: H2O-Danube-1.8B cut to DANUBE_LAYERS of its 24 layers (the
 # script's time), the sweep's batches those of slice_llama (2 x 2048 tokens).
-DANUBE_LAYERS = 12
+DANUBE_LAYERS = 6
+# slice_lora_lanes: Llama-3-8B LoRA lanes (LLAMA_LAYERS deep in the sweep,
+# 32 in the full-depth arm). The sweep's lanes a block, trials (each
+# runner's first dispatch is scalar, so 9 trials make two blocks of 4, the
+# second on the first's retired unit) and steps a trial; the full-depth
+# arm's steps and rates; and the reckonings of peak memory (GB) made before
+# the first chip run (PERF.md): the sweep, two 4-layer bases of
+# 3.85 GB (the scalar trial's retired unit and the lanes'), a build's fp32
+# materialization (7.7 GB) and a step's activations; the full depth, the
+# build's fp32 draw of the whole model (32.1 GB, then cast to 16.06 GB of
+# bf16 base) against the steps' 16.06 GB of base, 0.93 GB of adapters and
+# their state, 4.3 GB of remat inputs and about 8 GB of one layer's
+# recompute and the chunked loss.
+LORA_LANES_K, LORA_LANES_TRIALS, LORA_LANES_STEPS = 4, 9, 6
+LORA_LANES_FULL_STEPS, LORA_LANES_FULL_LRS = 3, [1e-5, 1e-4, 3e-4, 1e-3]
+LORA_LANES_SWEEP_RECKONING_GB = [16.0, 26.0]
+LORA_LANES_RECKONING_GB = {"init": [32.1, 36.0], "steps": [24.0, 32.0]}
+#: The scalar 32-layer Llama-3-8B LoRA sweep's peak (GB; PERF.md section 5),
+#: printed beside the full-depth arm's.
+SCALAR_32_LAYER_PEAK_GB = 68.07
 # slice_examples: the arguments main gets (the JAX CI's smoke arguments,
 # tests/test_examples.py:41-51; resnet_cifar_asha also at --depth 50,
 # BASELINE configs[2]) and the trials each run finalizes; bert_glue_hpo's
@@ -688,7 +740,10 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "danube_1_8b": (LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 80),
                # slice_examples' bert_glue_hpo: no attention mask (every
                # key kept), batch 64 of its space.
-               "bert_glue_hpo": (64, BERT_S, BERT_S, 12, 12, 64)}
+               "bert_glue_hpo": (64, BERT_S, BERT_S, 12, 12, 64),
+               # slice_lora_lanes: LORA_LANES_K lanes of the Llama's batch
+               # fold into one batch.
+               "llama3_8b_lora_lanes": (LORA_LANES_K * LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
 #: Paths whose attention is causal and unpadded (the rest: key padding,
 #: or a mask that keeps every key).
 CAUSAL_PATHS = ("llama3_8b", "dist", "danube_1_8b")
@@ -775,7 +830,7 @@ MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY_FACTOR = 4, 8, 2, 2.0
 # the BERT-base sweep's lanes, and the steps of its timed, profiled and
 # eager-attributed runs alone (cut from 10, 5 and 3).
 LANES_K, LANES_TRIALS, LANES_SEED, LANES_BATCH = 8, 25, 7, 256
-LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 1.5
+LANES_BENCH_STEPS, LANES_REPORT_EVERY, LANES_ARM_BUDGET_S = 2500, 100, 1.0
 LANES_PARITY_LRS, LANES_PARITY_STEPS, LANES_MASK_AT = [1e-3, 3e-3, 1e-2, 3e-2], 25, 10
 LANES_TOL = (1e-4, 1e-5)
 BERT_LANES = 4
@@ -800,10 +855,8 @@ LANES_STEPS = [LANES_BENCH_STEPS]
 # under the same cuDNN settings.
 # moe_lanes: the MoE Llama at Llama-3-8B's widths with MOE_EXPERTS experts
 # a layer (top-2, capacity factor 2), without LoRA (every parameter
-# trained: the lanes stack every parameter, frozen ones too, as the JAX
-# package's stack every variable), parameters in bf16, no remat
-# (torch.func's grad does not take torch.utils.checkpoint's saved-tensor
-# hooks), eager, MOE_LANES_LAYERS layers at MOE_LANES_K lanes, batches of
+# trained and stacked; slice_lora_lanes holds a LoRA family's frozen base
+# once), parameters in bf16, no remat, eager, MOE_LANES_LAYERS layers at MOE_LANES_K lanes, batches of
 # MOE_LANES_B x 2048 tokens (the memory reckoning: lanes_moe_arm), each
 # lane's objective against its scalar Trainer within
 # AB_LOSS_TOL["bert_base"] (bf16 arithmetic).
@@ -1300,6 +1353,7 @@ def phase_kernels():
              ("causal_pad_gqa", (8, 256, 256, 8, 2, 64), True, True),
              ("causal_pad_d96", (8, 256, 256, 4, 4, 96), True, True),
              ("llama3_8b", MAIN_SHAPES["llama3_8b"], True, False),
+             ("llama3_8b_lora_lanes", MAIN_SHAPES["llama3_8b_lora_lanes"], True, False),
              ("danube_1_8b", MAIN_SHAPES["danube_1_8b"], True, False),
              ("dist", MAIN_SHAPES["dist"], True, False),
              ("llama3_8b_tp", MAIN_SHAPES["llama3_8b_tp"], True, False),
@@ -1364,7 +1418,8 @@ def phase_kernels():
                "timed": timed["dist"], **yardsticks["dist"]},
          **{path: {"shape": [MAIN_SHAPES[path][i] for i in (0, 1, 3, 4, 5)], "causal": True,
                    "timed": timed[path], **yardsticks[path]}
-            for path in ("llama3_8b_tp", "llama3_8b_b1", "danube_1_8b")})
+            for path in ("llama3_8b_tp", "llama3_8b_b1", "danube_1_8b",
+                         "llama3_8b_lora_lanes")})
     return main
 
 
@@ -3750,8 +3805,8 @@ def lanes_moe_arm():
     1.41 B and attention 42 M), at 2 bytes each as parameter, gradient
     buffer and AdamW's two moments (20 GB a lane), beside the unit's module
     (5 GB) and a step's own gradients (5 GB a lane); the dense logits'
-    path (vmap takes no custom Function, so not the chunked loss) holds
-    about 10 GB a lane at batch 2 x 2048. At batch 2 this arm ran out of
+    path (this arm's loss; the chunked loss also takes lanes, as
+    slice_lora_lanes runs it) holds about 10 GB a lane at batch 2 x 2048. At batch 2 this arm ran out of
     memory on an H100 80GB after the ResNet arm; so batch 1 x 2048, about
     18 GB less. Returns (line, problems, launches)."""
     from maggy_tpu_torch.models import Llama
@@ -4194,8 +4249,8 @@ def read_trials(exp_dir):
 def bf16_tolerance(ref):
     """Card (kernels, cuBLAS) against the CPU path (reference attention),
     both computing in bf16: 5e-2 of the largest CPU value, about a dozen
-    bf16 roundings (2^-8 relative each) of the largest entry, for two
-    layers whose residual stream, products and attention probabilities are
+    bf16 roundings (2^-8 relative each) of the largest entry, for a layer
+    or two whose residual stream, products and attention probabilities are
     rounded to bf16 at different places on the two sides."""
     return 5e-2 * float(ref.float().abs().max()) + 1e-6
 
@@ -4287,11 +4342,12 @@ def llama_tokens(vocab_size):
 
 
 def llama_full_width(phase, cfg2, tokens):
-    """A 2-layer model at full width on the card (kernels) against the same
-    weights on the CPU (reference attention): hidden states, the chunked
-    loss and the layer-0 adapters' gradients, with the base frozen in bf16
-    as in the sweep and lora_b drawn nonzero so every adapter has one.
-    Raises on a miss; returns the errors beside their tolerances."""
+    """A model of ``cfg2``'s depth (1 layer) at full width on the card
+    (kernels) against the same weights on the CPU (reference attention):
+    hidden states, the chunked loss and the layer-0 adapters' gradients,
+    with the base frozen in bf16 as in the sweep and lora_b drawn nonzero so
+    every adapter has one. Raises on a miss; returns the errors beside their
+    tolerances."""
     from maggy_tpu_torch.models import Llama
     from maggy_tpu_torch.ops import chunked_next_token_loss
     from maggy_tpu_torch.train import adamw, only_lora
@@ -4397,7 +4453,7 @@ def phase_slice_llama(exp_dir):
     result, telemetry = sweep["result"], sweep["telemetry"]
     base = make_cfg(16, 16.0)
     full_width = llama_full_width("slice_llama", dataclasses.replace(
-        LlamaConfig.llama3_8b(lora_rank=16), num_layers=2), tokens)
+        LlamaConfig.llama3_8b(lora_rank=16), num_layers=1), tokens)
 
     # The chunked loss at the sweep's shape (bf16 hidden, frozen bf16 head):
     # forward alone, and forward + backward (its gradient products in fp32).
@@ -4481,7 +4537,7 @@ def phase_slice_danube(exp_dir):
     sweep, reading_warm, tokens, _, _ = llama_sweep_phase(
         "slice_danube", "danube_1_8b_lora_asha_smoke", "danube_1_8b", exp_dir, danube_config)
     result = sweep["result"]
-    full_width = llama_full_width("slice_danube", danube_config(num_layers=2), tokens)
+    full_width = llama_full_width("slice_danube", danube_config(num_layers=1), tokens)
     del tokens
     clear_warm()
     emit("slice_danube", trials_finished=sweep["trials_finished"], promoted=sweep["promoted"],
@@ -4494,6 +4550,300 @@ def phase_slice_danube(exp_dir):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          phase_s=time.perf_counter() - t_phase)
     return sweep["launches"]
+
+
+def lora_lanes_config(num_layers):
+    """slice_lora_lanes' model: Llama-3-8B's widths with rank-16 adapters
+    (lora_alpha 16) and remat, ``num_layers`` of its 32 layers."""
+    from maggy_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=16), lora_alpha=16.0,
+                               num_layers=num_layers)
+
+
+def lora_adamw(learning_rate):
+    """The LoRA lane family (train/vmap.py): a factory of only_lora builders
+    of AdamW at ``learning_rate``."""
+    from maggy_tpu_torch.train import adamw, only_lora
+
+    return only_lora(adamw(learning_rate))
+
+
+def lora_unit_reading(vt, cfg):
+    """What a LoRA VmapTrainer's K-lane unit holds: the frozen parameters'
+    bytes against one base's (every non-adapter parameter of ``cfg`` in the
+    compute dtype), the stacked adapters', their gradient buffer's and
+    AdamW's state's bytes; and what is wrong: a frozen parameter held twice,
+    stacked, with a gradient buffer or optimizer state, trainable or in
+    another dtype, or a stacked one that is no adapter."""
+    from maggy_tpu_torch.models import Llama
+    from maggy_tpu_torch.train import is_lora_param
+
+    unit = vt._unit
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    state = [v for st in unit.optimizer.state.values() for v in st.values()
+             if isinstance(v, torch.Tensor)]
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    base = itemsize * sum(p.numel() for n, p in Llama(cfg, device="meta").named_parameters()
+                          if not is_lora_param(n))
+    frozen = [t.data_ptr() for t in unit.frozen.values()]
+    trained = {t.data_ptr() for t in list(unit.stacked.values()) + list(unit.grads.values())
+               + state}
+    trained |= {p.data_ptr() for g in unit.optimizer.param_groups for p in g["params"]}
+    reading = {"lanes": vt.k, "frozen_params": len(unit.frozen), "frozen_bytes":
+               nbytes(unit.frozen.values()), "base_bytes": base,
+               "stacked_params": len(unit.stacked), "stacked_bytes": nbytes(unit.stacked.values()),
+               "grad_bytes": nbytes(unit.grads.values()), "optimizer_state_bytes": nbytes(state)}
+    problems = []
+    if reading["frozen_bytes"] != base:
+        problems.append("frozen bytes {} != one base's {}".format(reading["frozen_bytes"], base))
+    if len(set(frozen)) != len(frozen) or set(frozen) & trained:
+        problems.append("a frozen parameter is held twice, stacked or optimized")
+    if not all(is_lora_param(n) for n in unit.stacked) or \
+            any(is_lora_param(n) for n in unit.frozen):
+        problems.append("stacked {} / frozen {} names".format(len(unit.stacked),
+                                                               len(unit.frozen)))
+    if any(t.dtype != cfg.dtype or t.requires_grad for t in unit.frozen.values()):
+        problems.append("a frozen parameter is trainable or not in {}".format(cfg.dtype))
+    reading["problems"] = problems
+    return reading
+
+
+def lora_lanes_full_depth(batch, loss_fn):
+    """slice_lora_lanes (b): one VmapTrainer of LORA_LANES_K LoRA lanes of
+    the whole 32-layer Llama-3-8B (remat, the chunked loss), eager, for
+    LORA_LANES_FULL_STEPS steps. lora_b starts at zero, so every lane's
+    first loss is the base's: each against the unit module's own eager
+    forward on the same batch, within AB_LOSS_TOL["bert_base"] (bf16
+    arithmetic: the lanes' products fold the lanes into their rows, the
+    eager forward's do not). Returns (line, problems, launches)."""
+    from maggy_tpu_torch.models import Llama
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.train.vmap import VmapTrainer
+
+    cfg = lora_lanes_config(32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vt = VmapTrainer(Llama(cfg, device="meta"), lora_adamw,
+                     [{"learning_rate": lr} for lr in LORA_LANES_FULL_LRS], loss_fn,
+                     device="cuda", train_kwargs={"return_hidden": True},
+                     warm_start=False).init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
+    first = batch(0)
+    with torch.no_grad():
+        hidden, head = vt.model(first["inputs"][0], return_hidden=True)
+        eager = float(chunked_next_token_loss(hidden, head, first["tokens"]))
+    del hidden, head
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    rows = []
+    t0 = time.perf_counter()
+    for i in range(LORA_LANES_FULL_STEPS):
+        rows.append(vt.step(batch(i)))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / LORA_LANES_FULL_STEPS
+    launches = A.launch_counts()
+    peak_steps = torch.cuda.max_memory_allocated()
+    losses = torch.stack(rows).float().cpu().numpy()
+    unit = lora_unit_reading(vt, cfg)
+    del vt, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel, absolute = AB_LOSS_TOL["bert_base"]
+    off = float(np.max(np.abs(losses[0] - eager) - (rel * abs(eager) + absolute)))
+    steps = LORA_LANES_FULL_STEPS
+    expected = {"flash_fwd": 2 * cfg.num_layers * steps,
+                "flash_bwd_dkdv": cfg.num_layers * steps, "flash_bwd_dq": cfg.num_layers * steps}
+    line = {"lanes": LORA_LANES_K, "layers": cfg.num_layers, "batch": [LLAMA_B, LLAMA_S],
+            "steps": steps, "lrs": LORA_LANES_FULL_LRS, "losses": losses.tolist(),
+            "eager_forward_loss": eager, "first_loss_excess_over_tol": off,
+            "tol": {"relative": rel, "absolute": absolute}, "launches": launches,
+            "expected_launches": expected, "init_s": init_s, "step_ms_eager": step_ms,
+            "unit": unit, "peak_mem_init_gb": peak_init / 1e9,
+            "peak_mem_steps_gb": peak_steps / 1e9, "reckoning_gb": LORA_LANES_RECKONING_GB,
+            "scalar_32_layer_sweep_peak_gb": SCALAR_32_LAYER_PEAK_GB}
+    problems = ["full depth: " + p for p in unit["problems"]]
+    if off > 0 or not np.isfinite(losses).all():
+        problems.append("full depth: first losses {} off the eager forward's {} by {} over "
+                        "the tolerance".format(losses[0].tolist(), eager, off))
+    if launches != expected:
+        problems.append("full depth: launches {} != {}".format(launches, expected))
+    return line, problems, launches
+
+
+def phase_slice_lora_lanes(exp_dir):
+    """Vectorized LoRA lanes of Llama-3-8B (train/vmap.py's LoRA family,
+    models/remat.py, ops/losses.py's batching rule): (a) the sweep through
+    lagom, (b) the full depth. See the module docstring."""
+    from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
+    from maggy_tpu_torch.models import Llama
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.ops import chunked_next_token_loss
+    from maggy_tpu_torch.train import Trainer, adamw, clear_warm, only_lora, swept_transform, warm
+    from maggy_tpu_torch.train.vmap import VmapTrainer
+
+    phase = "slice_lora_lanes"
+    t_phase = time.perf_counter()
+    clear_warm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = lora_lanes_config(LLAMA_LAYERS)
+    tokens = llama_tokens(cfg.vocab_size)
+
+    def batch(i):
+        t = tokens[i % tokens.shape[0]]
+        return {"inputs": (t,), "tokens": t}
+
+    def loss_fn(out, b):
+        return chunked_next_token_loss(out[0], out[1], b["tokens"])
+
+    lock = threading.Lock()
+    dispatches = []
+
+    def train_lora_lanes(lr, reporter, lanes=None):
+        """A trial of the sweep: a block's lanes as one VmapTrainer of the
+        LoRA family, a scalar dispatch as a Trainer of the same family;
+        each step timed alone and its losses kept, each unit read."""
+        if lanes is None:
+            trainer = Trainer(Llama(cfg, device="meta"),
+                              swept_transform(lora_adamw, learning_rate=lr), loss_fn,
+                              device="cuda", train_kwargs={"return_hidden": True}).init(seed=0)
+            step, lrs, ids = trainer.step, [lr], [reporter.trial_id]
+        else:
+            vt = VmapTrainer(Llama(cfg, device="meta"), lora_adamw,
+                             [{"learning_rate": h["lr"]} for h in lanes.hparams], loss_fn,
+                             device="cuda", train_kwargs={"return_hidden": True}).init(seed=0)
+            step, lrs, ids = vt.step, [h["lr"] for h in lanes.hparams], list(lanes.trial_ids)
+        rows, step_ms = [], []
+        for i in range(LORA_LANES_STEPS):
+            stream_sync()
+            t0 = time.perf_counter()
+            losses = step(batch(i))
+            stream_sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(losses.float().reshape(-1))
+            if lanes is None:
+                reporter.broadcast(-losses, step=i)
+                continue
+            reporter.broadcast_lanes(-losses, step=i)
+            stopped = lanes.take_stopped()
+            if stopped:
+                values = (-losses).tolist()
+                for lane in stopped:
+                    vt.mask_lane(lane)
+                    lanes.retire(lane, values[lane])
+        final = rows[-1].tolist()
+        record = {"kind": "scalar" if lanes is None else "block", "lrs": lrs, "trials": ids,
+                  "losses": torch.stack(rows).cpu().numpy().tolist(), "step_ms": step_ms}
+        if lanes is not None:
+            record["unit_id"] = id(vt._unit)
+            record["unit"] = lora_unit_reading(vt, cfg)
+        with lock:
+            dispatches.append(record)
+        if not np.isfinite(final).all():
+            raise FloatingPointError("non-finite losses {}".format(final))
+        if lanes is None:
+            return {"metric": -final[0]}
+        return {tid: -final[i] for i, tid in enumerate(ids)}
+
+    config = OptimizationConfig(
+        name="llama3_8b_lora_lanes_smoke", num_trials=LORA_LANES_TRIALS,
+        optimizer="randomsearch", searchspace=Searchspace(lr=("DOUBLE_LOG", [1e-5, 1e-3])),
+        direction="max", num_workers=1, es_policy="median", vmap_lanes=LORA_LANES_K,
+        hb_interval=0.1, seed=0, experiment_dir=exp_dir)
+    before = warm.counters()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = experiment.lagom(train_lora_lanes, config)
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    telemetry = journal_check(phase, exp_dir, result)
+    reading_warm = warm_reading(phase, telemetry, before)
+    peak_sweep = torch.cuda.max_memory_allocated()
+    clear_warm()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    problems = []
+    blocks = [d for d in dispatches if d["kind"] == "block"]
+    scalars = [d for d in dispatches if d["kind"] == "scalar"]
+    ids = [t for d in dispatches for t in d["trials"]]
+    if not (result["num_trials"] == LORA_LANES_TRIALS == len(ids) == len(set(ids))):
+        problems.append("{} trials, {} dispatched ({} distinct), of {}".format(
+            result["num_trials"], len(ids), len(set(ids)), LORA_LANES_TRIALS))
+    sizes = [len(d["trials"]) for d in blocks]
+    if sizes != [LORA_LANES_K, LORA_LANES_K] or blocks[1]["unit_id"] != blocks[0]["unit_id"]:
+        problems.append("blocks {}: want two of {} lanes, the second on the first's retired "
+                        "unit".format(sizes, LORA_LANES_K))
+    total_steps = sum(len(d["step_ms"]) for d in dispatches)
+    expected = {"flash_fwd": 2 * cfg.num_layers * total_steps,
+                "flash_bwd_dkdv": cfg.num_layers * total_steps,
+                "flash_bwd_dq": cfg.num_layers * total_steps}
+    if launches != expected:
+        problems.append("launches {} != {} (a block step launches each kernel once a layer "
+                        "for all lanes; remat: the forward twice)".format(launches, expected))
+    if not (reading_warm["eager_steps"] == reading_warm["warm_misses"]
+            and reading_warm["graph_replays"] == total_steps - reading_warm["eager_steps"]):
+        problems.append("steps after a unit's first not all replayed: {} of {}".format(
+            reading_warm, total_steps))
+    for d in blocks:
+        problems += ["unit: " + p for p in d["unit"]["problems"]]
+
+    # The lanes with the smallest and the largest rate against a scalar
+    # Trainer of only_lora(adamw(lr)) at the same seed, rate and batches.
+    rel, absolute = AB_LOSS_TOL["bert_base"]
+    lanes_by_lr = sorted(((lr, np.asarray(d["losses"])[:, i]) for d in blocks
+                          for i, lr in enumerate(d["lrs"])), key=lambda pair: pair[0])
+    against_scalar = []
+    for lr, lane in (lanes_by_lr[:1] + lanes_by_lr[-1:]):
+        trainer = Trainer(Llama(cfg, device="meta"), only_lora(adamw(lr)), loss_fn,
+                          device="cuda", train_kwargs={"return_hidden": True}).init(seed=0)
+        ref = np.asarray([float(trainer.step(batch(i))) for i in range(LORA_LANES_STEPS)])
+        del trainer
+        clear_warm()
+        excess = float(np.max(np.abs(lane - ref) - (rel * np.abs(ref) + absolute)))
+        against_scalar.append({"lr": lr, "lane": lane.tolist(), "scalar": ref.tolist(),
+                               "excess_over_tol": excess})
+        if not excess <= 0:
+            problems.append("the lane at lr {} is off its scalar Trainer by {} over the "
+                            "tolerance".format(lr, excess))
+    CAPTURED["llama3_8b_lora_lanes"] = reading_warm["captured"]
+    replayed_block_ms = [ms for d in blocks for ms in d["step_ms"][1:]]
+    fields = dict(
+        trials=result["num_trials"], best_hp=result["best_hp"], best_val=result["best_val"],
+        blocks=sizes, scalar_dispatches=len(scalars), layers=cfg.num_layers,
+        batch=[LLAMA_B, LLAMA_S], steps=total_steps, launches=launches,
+        expected_launches=expected, warm=reading_warm,
+        block_step_ms_p50=float(np.median(replayed_block_ms)) if replayed_block_ms else None,
+        block_first_step_ms=[d["step_ms"][0] for d in blocks],
+        scalar_step_ms_p50=float(np.median([ms for d in scalars for ms in d["step_ms"][1:]]))
+        if scalars else None,
+        unit=blocks[0]["unit"] if blocks else None, against_scalar=against_scalar,
+        tol={"relative": rel, "absolute": absolute}, sweep_wall_s=wall,
+        peak_mem_sweep_gb=peak_sweep / 1e9, reckoning_sweep_gb=LORA_LANES_SWEEP_RECKONING_GB,
+        pipeline=pipeline_summary(result["pipeline"]), telemetry=public(telemetry))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    try:
+        full, full_problems, _ = lora_lanes_full_depth(batch, loss_fn)
+    except BaseException as e:
+        emit(phase, **fields, problems=problems, full_depth_error=repr(e)[:1000],
+             phase_s=time.perf_counter() - t_phase)
+        raise
+    problems += full_problems
+    emit(phase, **fields, full_depth=full, problems=problems,
+         phase_s=time.perf_counter() - t_phase)
+    if problems:
+        raise AssertionError("{}: {}".format(phase, "; ".join(problems)))
+    return launches
 
 
 @contextlib.contextmanager
@@ -5367,7 +5717,7 @@ def phase_slice_moe(exp_dir):
 CHAOS_ROOT = os.path.join(ROOT, "build", "chip_smoke_chaos")
 CHAOS_HB_S, CHAOS_BUDGET = 0.1, 6
 CHAOS_CKPT_STEPS, CHAOS_CKPT_PACE_S = 16, 0.02
-CHAOS_STALL_S, CHAOS_STALL_TRIALS, CHAOS_HANG_FACTOR = 2.0, 40, 10.0
+CHAOS_STALL_S, CHAOS_STALL_TRIALS, CHAOS_HANG_FACTOR = 2.0, 20, 10.0
 #: A sub-soak still running after this many seconds dumps every thread's
 #: stack and ends the script (faulthandler), instead of holding the card.
 CHAOS_SOAK_LIMIT_S = 240
@@ -7890,6 +8240,8 @@ def main():
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama"))),
         "danube_1_8b": phase_slice_danube(
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_danube"))),
+        "llama3_8b_lora_lanes": phase_slice_lora_lanes(
+            fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_lora_lanes"))),
         **phase_slice_examples(os.path.join(ROOT, "build", "chip_smoke_experiments_examples")),
         "bert_base_process": phase_slice_process(
             os.path.join(ROOT, "build", "chip_smoke_experiments_process"), asha_step_ms)}

@@ -5,7 +5,9 @@ PyTorch counterpart of ``maggy_tpu/models/llama.py`` with the same layout
 and numerics: RMSNorm, split-half RoPE computed in fp32, SwiGLU, grouped-query
 attention, fp32 parameters (``param_dtype``) read only after a cast to the
 compute dtype (``dtype``), LoRA adapters on q/k/v/o, an untied lm head, and
-per-layer rematerialization (``torch.utils.checkpoint``) when ``remat``.
+per-layer rematerialization when ``remat`` (``models/remat.py``:
+``torch.utils.checkpoint`` in eager autograd, an ``autograd.Function``
+that recomputes under ``torch.func.vjp`` inside the vectorized lanes).
 Attention goes through ``multi_head_attention``, so a CUDA model whose
 sequence length tiles runs the flash kernels (causal, GQA).
 ``attention_impl="ring"`` runs sequence parallelism instead
@@ -41,9 +43,7 @@ of logits runs unchanged, each "model" rank computing the same loss.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import functools
 import math
 from typing import Any, Dict
 
@@ -51,11 +51,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.models.moe import MoEMLP
 from maggy_tpu_torch.models.params import check_device, init_targets
+from maggy_tpu_torch.models.remat import remat_layer
 from maggy_tpu_torch.ops.attention import multi_head_attention
 from maggy_tpu_torch.parallel import sharded
 
@@ -271,12 +271,6 @@ class DecoderLayer(nn.Module):
         return h + mlp(self.mlp_norm(h))
 
 
-def _remat_contexts(group):
-    """(forward, recompute) contexts of a rematerialized layer: the
-    recompute sees the forward's batch-statistics group."""
-    return contextlib.nullcontext(), variables.batch_stats_over(group)
-
-
 class Llama(nn.Module):
     """tokens [B,S] int -> fp32 logits [B,S,vocab] (rounded to the compute
     dtype first, as the product runs in it), or with ``return_hidden`` the
@@ -343,16 +337,12 @@ class Llama(nn.Module):
             positions = torch.arange(start, start + tokens.shape[1],
                                      device=tokens.device).expand(tokens.shape)
         x = sharded.vocab_parallel_embedding(tokens, self.embedding, cfg.dtype)
-        # The recomputed forward runs where the backward runs (a device
-        # thread on the card): it re-enters the forward's statistics group.
         group = variables.stats_group()
-        contexts = functools.partial(_remat_contexts, group)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
-                # Rematerialize each layer: only its input is kept for the
+                # Rematerialize each layer: only its inputs are kept for the
                 # backward, which runs the layer's forward again.
-                x = checkpoint(layer, x, positions, use_reentrant=False,
-                               preserve_rng_state=False, context_fn=contexts)
+                x = remat_layer(layer, x, positions, group=group)
             else:
                 x = layer(x, positions)
         x = self.final_norm(x)

@@ -8,7 +8,10 @@ materializing [N, vocab_chunk] logits: the forward keeps running
 log-sum-exp statistics over vocabulary chunks, and the backward computes
 each chunk's logits again instead of keeping them (the JAX package's
 ``jax.checkpoint`` on its scan body). Plain PyTorch: the JAX package
-computes this outside any Pallas kernel.
+computes this outside any Pallas kernel. It runs under ``torch.func``
+transforms as the JAX scan runs under ``jax.vmap``: in the vectorized
+lanes (``train/vmap.py``) the batching rules fold the lanes into rows, so
+K lanes over one frozen head take one pass of K x N rows.
 
 ``next_token_labels`` and ``sharded_next_token_loss`` are the loss of a
 sequence split over the ranks of a "seq" axis (the JAX package leaves the
@@ -32,6 +35,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+# The flash Functions' batching-rule helpers: lanes folded into the leading
+# (here: row) axis, an unbatched argument repeated, and unfolded after.
+from maggy_tpu_torch.ops.attention import _fold, _unfold
 
 
 def next_token_loss(logits, tokens):
@@ -77,15 +84,36 @@ def _check_targets(targets, V: int) -> None:
                          "'model' must reach the loss as the model returned it".format(V))
 
 
+def _lane(x, dim, i):
+    """Lane ``i`` of a batching rule's argument (``x`` itself if unbatched)."""
+    return x if dim is None else x.select(dim, i)
+
+
+def _stack_lanes(fn, in_dims, args, lanes):
+    """A batching rule's fallback: ``fn`` lane by lane, outputs stacked on
+    dim 0."""
+    outs = [fn(*(_lane(x, d, i) for x, d in zip(args, in_dims))) for i in range(lanes)]
+    stacked = tuple(torch.stack(parts) for parts in zip(*outs))
+    return stacked, (0,) * len(stacked)
+
+
 class _ChunkedSoftmaxXent(torch.autograd.Function):
-    """With ``group``, ``kernel`` is this rank's vocab columns [v0, v0 +
-    V_local) of a head cut over the group: the chunks' running statistics
-    are combined over the group (the max, then the rescaled sums of
+    """Each row's loss, log-sum-exp minus the target's logit, and the
+    log-sum-exp itself (not differentiable): ``(rows [N], lse [N])``. With
+    ``group``, ``kernel`` is this rank's vocab columns [v0, v0 + V_local)
+    of a head cut over the group: the chunks' running statistics are
+    combined over the group (the max, then the rescaled sums of
     exponentials and the target logits), and the backward sums the
-    hidden states' gradient over it."""
+    hidden states' gradient over it.
+
+    New-style (``setup_context``), so that it runs under ``torch.func``
+    transforms. Its ``vmap`` rule folds the lanes into rows: a kernel that
+    is the same for every lane (a frozen head, unbatched) takes all K x N
+    rows in one pass; a batched kernel runs lane by lane. The backward is
+    ``_ChunkedSoftmaxXentBwd``, whose batching rule folds the same way."""
 
     @staticmethod
-    def forward(ctx, h, kernel, targets, vocab_chunk, group=None, v0=0):
+    def forward(h, kernel, targets, vocab_chunk, group=None, v0=0):
         N, V = h.shape[0], kernel.shape[1]
         chunk = min(vocab_chunk, V)
         tgt = targets.long() - v0
@@ -115,22 +143,53 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
                                          kind="tp_loss_all_reduce")
             m, s, t = m_all, st[0], st[1]
         lse = m + torch.log(s)
-        ctx.save_for_backward(h, kernel, tgt, lse)
-        ctx.chunk, ctx.group = chunk, group
-        return (lse - t).mean()
+        return lse - t, lse
 
     @staticmethod
-    def backward(ctx, g):
-        h, kernel, tgt, lse = ctx.saved_tensors
-        chunk = ctx.chunk
-        N, V = h.shape[0], kernel.shape[1]
+    def setup_context(ctx, inputs, output):
+        h, kernel, targets, vocab_chunk, group, v0 = inputs
+        ctx.save_for_backward(h, kernel, targets, output[1])
+        ctx.chunk, ctx.group, ctx.v0 = min(vocab_chunk, kernel.shape[1]), group, v0
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, dlse):
+        del dlse  # lse is not differentiable
+        h, kernel, targets, lse = ctx.saved_tensors
         want_h, want_k = ctx.needs_input_grad[:2]
-        dh = torch.zeros(N, h.shape[1], device=h.device) if want_h else None
+        grads = _ChunkedSoftmaxXentBwd.apply(h, kernel, targets, lse, g, ctx.chunk, ctx.group,
+                                             ctx.v0, want_k)
+        return (grads[0] if want_h else None, grads[1] if want_k else None,
+                None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, h, kernel, targets, vocab_chunk, group, v0):
+        K = info.batch_size
+        if in_dims[1] is None:
+            rows, lse = _ChunkedSoftmaxXent.apply(
+                _fold(h, in_dims[0], K), kernel, _fold(targets, in_dims[2], K), vocab_chunk,
+                group, v0)
+            return (_unfold(rows, K), _unfold(lse, K)), (0, 0)
+        return _stack_lanes(lambda h_, k_, t_: _ChunkedSoftmaxXent.apply(
+            h_, k_, t_, vocab_chunk, group, v0), in_dims[:3], (h, kernel, targets), K)
+
+
+class _ChunkedSoftmaxXentBwd(torch.autograd.Function):
+    """The gradients of ``_ChunkedSoftmaxXent``'s rows given their
+    cotangent ``g`` [N]: (dh,) or, with ``want_k``, (dh, dkernel). Each
+    chunk's logits are computed again instead of kept. No backward: no
+    path takes a second derivative."""
+
+    @staticmethod
+    def forward(h, kernel, targets, lse, g, chunk, group, v0, want_k):
+        N, V = h.shape[0], kernel.shape[1]
+        tgt = targets.long() - v0
+        dh = torch.zeros(N, h.shape[1], device=h.device)
         dk = torch.zeros(kernel.shape, device=h.device) if want_k else None
         h32 = h.float() if want_k else None
         for c0, cs in _chunks(V, chunk):
             logits = _chunk_logits(h, kernel, c0, cs, chunk)
-            # d loss / d logits = (softmax - onehot(target)) * g / N.
+            # d row / d logits = softmax - onehot(target), times the row's g.
             p = torch.exp(logits - lse[:, None])
             # -1 at each target this chunk owns, with no data-dependent
             # index (a step captured as a CUDA graph cannot sync): the other
@@ -138,18 +197,33 @@ class _ChunkedSoftmaxXent(torch.autograd.Function):
             in_chunk = (tgt >= c0) & (tgt < min(c0 + chunk, V))
             p.scatter_add_(1, (tgt - cs).clamp(0, chunk - 1)[:, None],
                            -in_chunk.to(p.dtype)[:, None])
-            p *= g / N
-            if want_h:
-                dh.addmm_(p, kernel[:, cs:cs + chunk].to(h.dtype).float().T)
+            p *= g[:, None]
+            dh.addmm_(p, kernel[:, cs:cs + chunk].to(h.dtype).float().T)
             if want_k:
                 dk[:, cs:cs + chunk].addmm_(h32.T, p)
-        if want_h and ctx.group is not None:
+        if group is not None:
             from maggy_tpu_torch.parallel import collectives
 
             # Each rank's vocab columns give a partial sum of h's gradient.
-            collectives.all_reduce_(dh, ctx.group, kind="tp_loss_grad_all_reduce")
-        return (dh.to(h.dtype) if want_h else None,
-                dk.to(kernel.dtype) if want_k else None, None, None, None, None)
+            collectives.all_reduce_(dh, group, kind="tp_loss_grad_all_reduce")
+        dh = dh.to(h.dtype)
+        return (dh, dk.to(kernel.dtype)) if want_k else (dh,)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, h, kernel, targets, lse, g, chunk, group, v0, want_k):
+        K = info.batch_size
+        if in_dims[1] is None and not want_k:
+            (dh,) = _ChunkedSoftmaxXentBwd.apply(
+                _fold(h, in_dims[0], K), kernel, *(_fold(x, d, K) for x, d in
+                                                   zip((targets, lse, g), in_dims[2:5])),
+                chunk, group, v0, False)
+            return (_unfold(dh, K),), (0,)
+        return _stack_lanes(lambda *args: _ChunkedSoftmaxXentBwd.apply(
+            *args, chunk, group, v0, want_k), in_dims[:5], (h, kernel, targets, lse, g), K)
 
 
 def chunked_softmax_xent(h, kernel, targets, vocab_chunk: int = 16384):
@@ -167,7 +241,8 @@ def chunked_softmax_xent(h, kernel, targets, vocab_chunk: int = 16384):
 
     group = sharded.group_of(kernel, 1, "model")
     v0 = sharded.local_range(kernel, 1)[0] if group is not None else 0
-    return _ChunkedSoftmaxXent.apply(h, kernel, targets, int(vocab_chunk), group, v0)
+    rows, _ = _ChunkedSoftmaxXent.apply(h, kernel, targets, int(vocab_chunk), group, v0)
+    return rows.mean()
 
 
 def chunked_next_token_loss(hidden, kernel, tokens, vocab_chunk: int = 16384):

@@ -133,7 +133,8 @@ def swept_transform(factory: Callable, **hparams):
     and ``weight_decay`` as Python floats, which a captured graph bakes in,
     so their VALUES join the family (two trials that differ in them do not
     share a slot). A factory without a ``scheduler`` attribute bakes every
-    value."""
+    value. A factory whose builders are ``only_lora`` wrappers has the
+    family ``("only_lora", family)``."""
     build = factory(**hparams)
     numeric = {k: v for k, v in hparams.items()
                if isinstance(v, numbers.Real) and not isinstance(v, bool)}
@@ -145,6 +146,10 @@ def swept_transform(factory: Callable, **hparams):
                                  getattr(factory, "__qualname__", repr(factory))),
                   tuple(sorted(numeric)), tuple(sorted((k, repr(v)) for k, v in statics.items())),
                   baked)
+        if getattr(build, "freeze", None) is not None:
+            # An only_lora builder (train/lora.py): another program than
+            # the factory's own builders, whose lanes stack every parameter.
+            family = ("only_lora", family)
     else:
         family, tensors = None, set()
     build._maggy_swept = {"family": family,

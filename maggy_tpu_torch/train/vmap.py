@@ -49,8 +49,27 @@ over stacked state:
   JAX's donated broadcast re-init, ``:195-212``). ``has_aux_collections``
   joins the program key, as it joins the scalar one.
 
-Every parameter is stacked and trained, frozen ones included: a LoRA
-factory (``train.lora.only_lora``) is not a family the lanes take.
+- **A LoRA family** (``lambda learning_rate: only_lora(adamw(
+  learning_rate))``, ``train/lora.py``): only the adapters are stacked and
+  trained. The frozen base is frozen and cast to the compute dtype as
+  ``only_lora`` does for a scalar trial, and each frozen parameter is held
+  ONCE, unstacked: the module's own tensor, with no gradient buffer and no
+  optimizer state, entering the vmapped step with ``in_dims`` None. The
+  port's ``only_lora`` never moves the base, so every lane's base is the
+  same tensor, and holding it once computes what stacking would. A LoRA
+  block's lanes share that base, so a refill starts from the block's own
+  init. The family carries ``only_lora``, so a LoRA block never takes a
+  full-training unit, nor the reverse.
+- **Rematerialization** (``cfg.remat``) runs under the step's transforms
+  (``models/remat.py``), and so does the vocab-chunked loss
+  (``ops/losses.py``, whose batching rule folds the lanes into rows over
+  the unbatched frozen head), so a Llama LoRA sweep trains in lanes as it
+  does in scalar trials. A model with lazy modules (``nn.LazyLinear``)
+  gets its shapes from ``init(..., example_inputs=...)``, as ``Trainer``'s.
+
+Only the learning rate differs between lanes (JAX ``:81-90``):
+``lora_rank`` and ``lora_alpha`` are model settings, part of the program,
+so a swept ``lora_alpha`` cannot ride the lane axis.
 """
 
 from __future__ import annotations
@@ -65,7 +84,7 @@ from maggy_tpu_torch import device_gate
 from maggy_tpu_torch.models import variables
 from maggy_tpu_torch.train import warm
 from maggy_tpu_torch.train.optim import swept_transform
-from maggy_tpu_torch.train.trainer import _copy_into, _on_meta, capture_step
+from maggy_tpu_torch.train.trainer import _copy_into, _on_meta, capture_step, materialize_lazy
 
 
 def stack_trees(trees: Sequence[Any]):
@@ -139,15 +158,18 @@ class _LaneGraph:
 
 class _VmapUnit:
     """What a retired block hands the next block of its program and K: the
-    module (the scalar init's target), the stacked parameters, buffers and
-    gradient buffer, the per-lane optimizer and the step's graphs by batch
-    shape."""
+    module (the scalar init's target), the stacked trained parameters,
+    buffers and gradient buffer, the frozen parameters (the module's own,
+    unstacked; none outside a LoRA family), the per-lane optimizer and the
+    step's graphs by batch shape."""
 
-    __slots__ = ("model", "stacked", "buffers", "grads", "lane_params", "optimizer",
+    __slots__ = ("model", "stacked", "frozen", "buffers", "grads", "lane_params", "optimizer",
                  "opt_kwargs", "graphs", "warmed", "pool")
 
-    def __init__(self, model, stacked, buffers, grads, lane_params, optimizer, opt_kwargs):
+    def __init__(self, model, stacked, frozen, buffers, grads, lane_params, optimizer,
+                 opt_kwargs):
         self.model, self.stacked, self.buffers, self.grads = model, stacked, buffers, grads
+        self.frozen = frozen
         self.lane_params, self.optimizer, self.opt_kwargs = lane_params, optimizer, opt_kwargs
         self.graphs: "OrderedDict[tuple, _LaneGraph]" = OrderedDict()
         self.warmed: set = set()
@@ -162,7 +184,9 @@ class VmapTrainer:
     """``VmapTrainer(model, opt_factory, lane_hparams, loss_fn, device,
     train_kwargs, warm_start, has_aux_collections, **statics)``: K =
     ``len(lane_hparams)`` lanes of the family ``swept_transform(opt_factory,
-    **statics, **hp_i)`` (``adam`` or ``adamw``), e.g. ``lane_hparams=
+    **statics, **hp_i)`` (``adam``, ``adamw``, or a factory of
+    ``only_lora`` builders such as ``lambda learning_rate:
+    only_lora(adamw(learning_rate))``), e.g. ``lane_hparams=
     [{"learning_rate": 1e-3}, ...]``. ``loss_fn(outputs, batch)`` and the
     model call are ``Trainer``'s. ``step(batch)`` returns the lazy ``[K]``
     loss tensor; ``has_aux_collections`` lets the forward update the
@@ -200,10 +224,14 @@ class VmapTrainer:
             if not (hasattr(build, "schedule") and hasattr(build, "kwargs")):
                 raise ValueError("VmapTrainer needs an optimizer factory like train.adam or "
                                  "train.adamw (a builder with .schedule and .kwargs)")
-            if warm.opt_family(build) != self.family or build.kwargs != builds[0].kwargs:
+            if warm.opt_family(build) != self.family or build.kwargs != builds[0].kwargs \
+                    or getattr(build, "freeze", None) is not getattr(builds[0], "freeze", None):
                 raise ValueError("every lane must share the block's optimizer family; only "
                                  "learning_rate may differ between lanes")
         self._builds = builds
+        # A LoRA family (train.lora.only_lora): freezes the base and names
+        # the parameters it trains.
+        self._freeze = getattr(builds[0], "freeze", None)
         self._warm_enabled = warm.enabled() if warm_start is None else bool(warm_start)
         self._slot = self._resolve_slot() if self._warm_enabled else None
         self._entry = None if self._slot is None else self._slot.vmap_entry(("vmap", self.k),
@@ -246,11 +274,15 @@ class VmapTrainer:
             model.init_weights(gen)
 
     def init(self, seed: Optional[int] = None,
-             state_dict: Optional[Dict[str, torch.Tensor]] = None) -> "VmapTrainer":
+             state_dict: Optional[Dict[str, torch.Tensor]] = None,
+             example_inputs=None) -> "VmapTrainer":
         """Stacked K-lane init from one scalar init (``seed`` or
         ``state_dict``), built, or on a warm hit written into the retired
         K-lane unit in place: parameters and buffers, optimizer state
-        zeroed, the lanes' learning rates (JAX ``:153-193``)."""
+        zeroed, the lanes' learning rates (JAX ``:153-193``).
+        ``example_inputs`` (the model's positional inputs) give a model's
+        lazy modules their shapes before the build (``materialize_lazy``),
+        as the JAX package's ``init(rng, example_inputs)`` traces them."""
         t0 = time.perf_counter()
         self._seed, self._state_dict = seed, state_dict
         unit = None if self._entry is None else self._entry.take_retired()
@@ -259,6 +291,7 @@ class VmapTrainer:
             unit = None
         hit = unit is not None
         if unit is None:
+            materialize_lazy(self.model, example_inputs)
             unit = self._build_unit()
         self._unit = unit
         self.model = unit.model
@@ -267,7 +300,8 @@ class VmapTrainer:
             for rows, values in ((unit.stacked, unit.model.named_parameters()),
                                  (unit.buffers, unit.model.named_buffers())):
                 for name, value in values:
-                    rows[name].copy_(value.detach().unsqueeze(0).expand_as(rows[name]))
+                    if name in rows:
+                        rows[name].copy_(value.detach().unsqueeze(0).expand_as(rows[name]))
             for state in unit.optimizer.state.values():
                 for value in state.values():
                     if hasattr(value, "zero_"):
@@ -286,8 +320,12 @@ class VmapTrainer:
         model = self.model
         if _on_meta(model):
             model = model.to_empty(device=self.device)
-        stacked, grads = {}, {}
+        trained = None if self._freeze is None else {id(p) for p in self._freeze(model)}
+        stacked, grads, frozen = {}, {}, {}
         for name, p in model.named_parameters():
+            if trained is not None and id(p) not in trained:
+                frozen[name] = p.detach()
+                continue
             stacked[name] = torch.zeros((self.k,) + tuple(p.shape), dtype=p.dtype,
                                         device=self.device)
             grads[name] = torch.zeros_like(stacked[name])
@@ -311,17 +349,18 @@ class VmapTrainer:
                 group["lr"] = torch.tensor(1.0, dtype=torch.float32, device=self.device)
                 group["capturable"] = True
             optimizer._warned_capturable_if_run_uncaptured = True
-        return _VmapUnit(model, stacked, buffers, grads, lane_params, optimizer, kwargs)
+        return _VmapUnit(model, stacked, frozen, buffers, grads, lane_params, optimizer, kwargs)
 
     # ------------------------------------------------------------- step
 
-    def _objective(self, params, buffers, batch):
+    def _objective(self, params, buffers, frozen, batch):
         """One lane's (objective, summed sowed losses): the
         trainer's ``loss_fn`` plus each loss sowed in the forward, which
-        updates the lane's buffer rows in place where they are mutable."""
+        updates the lane's buffer rows in place where they are mutable.
+        ``frozen`` (the LoRA base) is the same for every lane."""
         with variables.sowing_losses() as sown, \
                 variables.mutable_buffers(self.has_aux_collections):
-            out = torch.func.functional_call(self.model, (params, buffers),
+            out = torch.func.functional_call(self.model, (params, frozen, buffers),
                                              tuple(batch["inputs"]), self.train_kwargs)
         loss = self.loss_fn(out, batch)
         aux = torch.zeros_like(loss)
@@ -339,8 +378,8 @@ class VmapTrainer:
         # graphs and their memory pool would outlive the trainer until a
         # cyclic collection.
         vstep = torch.func.vmap(torch.func.grad_and_value(self._objective, has_aux=True),
-                                in_dims=(0, 0, None))
-        grads, (losses, aux) = vstep(unit.stacked, unit.buffers, batch)
+                                in_dims=(0, 0, None, None))
+        grads, (losses, aux) = vstep(unit.stacked, unit.buffers, unit.frozen, batch)
         with torch.no_grad():
             for name, g in grads.items():
                 unit.grads[name].copy_(g)
@@ -434,12 +473,16 @@ class VmapTrainer:
         unit = self._unit
         if seed is None and state_dict is None:
             seed, state_dict = self._seed, self._state_dict
+        if unit.frozen and (seed != self._seed or state_dict is not self._state_dict):
+            raise ValueError("a LoRA block's lanes share one frozen base: a refill starts "
+                             "from the block's own init")
         self._scalar_init(unit.model, seed, state_dict)
         with torch.no_grad():
             for rows, values in ((unit.stacked, unit.model.named_parameters()),
                                  (unit.buffers, unit.model.named_buffers())):
                 for name, value in values:
-                    rows[name][lane].copy_(value.detach())
+                    if name in rows:
+                        rows[name][lane].copy_(value.detach())
             for p in unit.lane_params[lane]:
                 for value in unit.optimizer.state.get(p, {}).values():
                     if hasattr(value, "zero_"):
@@ -451,10 +494,11 @@ class VmapTrainer:
 
     def lane_state_dict(self, lane: int) -> Dict[str, torch.Tensor]:
         """Lane ``lane``'s parameters and buffers by name, as a module's
-        ``state_dict`` (views of the stacked rows)."""
+        ``state_dict`` (views of the stacked rows; a LoRA base's frozen
+        parameters are every lane's)."""
         unit = self._unit
-        return {name: t[lane] for rows in (unit.stacked, unit.buffers)
-                for name, t in rows.items()}
+        return {**unit.frozen, **{name: t[lane] for rows in (unit.stacked, unit.buffers)
+                                  for name, t in rows.items()}}
 
     # -------------------------------------------------------- retirement
 

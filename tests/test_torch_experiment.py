@@ -89,6 +89,7 @@ _SWEEP = textwrap.dedent("""
     import maggy_tpu_torch.tensorboard
     import maggy_tpu_torch.analysis.__main__
     import maggy_tpu_torch.analysis.witness
+    import maggy_tpu_torch.models.remat
     from maggy_tpu_torch import runner
     from maggy_tpu_torch.chaos import harness
     from maggy_tpu_torch import OptimizationConfig, Searchspace, experiment
@@ -328,6 +329,23 @@ _SWEEP = textwrap.dedent("""
         out["gang"] = sweep("blocked_gang", "randomsearch", 1, Searchspace(
             lr=("DOUBLE_LOG", [1e-5, 1e-3]), warmup_frac=("DOUBLE", [0.0, 0.3]),
             gang=("GANG", [GangSpec(2)])), train_gang)
+        # Two LoRA lanes of a tiny Llama (remat, the chunked loss, the
+        # frozen base held once) under the hook.
+        import dataclasses
+        from maggy_tpu_torch.models import Llama, LlamaConfig
+        from maggy_tpu_torch.ops import chunked_next_token_loss
+        from maggy_tpu_torch.train import VmapTrainer, only_lora
+        lcfg = dataclasses.replace(LlamaConfig.tiny(lora_rank=4), dtype=torch.float32,
+                                   remat=True)
+        toks = torch.as_tensor(rng.integers(0, lcfg.vocab_size, (2, 32)))
+        vt = VmapTrainer(Llama(lcfg, device="meta"),
+                         lambda learning_rate: only_lora(adamw(learning_rate)),
+                         [{{"learning_rate": 1e-3}}, {{"learning_rate": 3e-2}}],
+                         lambda o, b: chunked_next_token_loss(o[0], o[1], b["tokens"]),
+                         device="cpu", train_kwargs={{"return_hidden": True}}).init(seed=0)
+        out["lora_lanes"] = {{"losses": [vt.step({{"inputs": (toks,), "tokens": toks}}).tolist()
+                                         for _ in range(3)],
+                              "frozen": len(vt._unit.frozen)}}
         # An object-store environment over an injected filesystem needs
         # neither store library; one without a filesystem refuses to start.
         from maggy_tpu_torch.core.environment import GCSEnv
@@ -356,6 +374,9 @@ def test_sweep_runs_with_jax_and_maggy_tpu_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    lanes = np.asarray(out["lora_lanes"]["losses"])
+    assert lanes.shape == (3, 2) and np.isfinite(lanes).all() and lanes[-1, 0] != lanes[-1, 1]
+    assert out["lora_lanes"]["frozen"] > 0
     assert out["gcs"]["fast_local_writes"] is False and "gcsfs" in out["gcs"]["refused"]
     # A LOCO study over a registered TFRecord: 1 + 2 features + 1 layer.
     assert out["ablation"]["num_trials"] == 4
@@ -477,7 +498,8 @@ def test_port_imports_nothing_of_jax_or_maggy_tpu():
         ("analysis", "guards.py"), ("analysis", "lockorder.py"), ("analysis", "rpcconf.py"),
         ("analysis", "journalvocab.py"), ("analysis", "witness.py"),
         ("core", "environment", "abstractenvironment.py"),
-        ("core", "environment", "singleton.py"), ("telemetry", "profiling.py"))} <= scanned
+        ("core", "environment", "singleton.py"), ("telemetry", "profiling.py"),
+        ("models", "remat.py"), ("ops", "losses.py"))} <= scanned
     assert {os.path.join("maggy_tpu_torch", "examples", n + ".py") for n in (
         "__init__", "mnist_hpo", "bert_glue_hpo", "llama_lora_sweep", "resnet_cifar_asha",
         "vit_cifar_hpo", "pbt_sweep", "titanic_ablation", "distributed_training")} <= scanned
