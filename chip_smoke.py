@@ -16,10 +16,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              findings (none, or the phase fails) and suppressions with their
              reasons, and its seconds.
 3. kernels — each flash-attention kernel against its plain PyTorch version
-             (bf16, bf16 with fp32 gradients, and fp32; every head dim the
-             kernels take, D = 64, 72, ..., 256, at 2 x 256 keys, 4:2
-             heads, causal and key-padded with a fully masked row, Sq =
-             128 for a quarter of the dims; the BERT-base
+             (bf16, bf16 with fp32 gradients, and fp32; every head dim of
+             the per-width builds, D = 64, 72, ..., 256, and of the split-D
+             build D = 264, 320, 384, 512, 520 and 1024, at 2 x 256 keys,
+             4:2 heads, causal and key-padded with a fully masked row, Sq =
+             128 where D % 32 == 8; the BERT-base
              training shape with a padding mask that fully masks some rows,
              and bert_glue_hpo's (64 x 128 with a mask that keeps every
              key),
@@ -27,19 +28,22 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              padded rows, and the Llama-3-8B training shape: causal, GQA
              32:8, D=128, S=2048; the ring's block at a rank's shard of
              sequence parallelism, 1x4096, GQA 32:8, D=128, causal and
-             not causal), dQ also in the mode that computes delta
+             not causal, and flash_block_fwd / flash_block_bwd themselves
+             at its D=512 regrouping, 8:2), dQ also in the mode that computes delta
              from the forward's output, each error beside its tolerance;
              each kernel's registers, local memory, shared memory and
-             resident blocks per SM at every head dim (failing if a D=64
-             tensor-core kernel spills; bf16 D=128 and D=80 local memory
-             printed); kernel, plain and
+             resident blocks per SM at every head dim of 64-256 and at
+             D=512 (failing if a D=64 tensor-core kernel spills; bf16
+             D=128, D=80 and D=512 local memory printed); kernel, plain and
              scaled_dot_product_attention times at the main paths' shapes
              (H2O-Danube-1.8B's 2 x 2048, GQA 32:8, D=80, causal, and the
-             LoRA lanes' folded 8 x 2048, 32:8, D=128, causal, among them;
-             the folded shape is also held against the plain versions)
+             LoRA lanes' folded 8 x 2048, 32:8, D=128, causal, and
+             slice_wide_heads' 2 x 2048, 8:2, D=512, causal, among them;
+             the last two are also held against the plain versions)
              (SDPA's forward, backward and both are yardsticks, never used
-             by the port; SDPA's backward also stands as library_bwd_ms
-             beside each backward kernel in the kernels line).
+             by the port, each with the SDPA backend that ran; SDPA's
+             backward also stands as library_bwd_ms beside each backward
+             kernel in the kernels line).
 4. slice   — the BERT-base (12 x 768, vocab 30522) ASHA + median-stopping
              sweep through maggy_tpu_torch.experiment.lagom on two thread
              runners. Launch counters are zeroed just before and read just
@@ -90,7 +94,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              lora_alpha, lr on two thread runners, 2 x 2048 tokens, remat,
              the chunked loss) at H2O-Danube-1.8B's widths (arXiv:2401.16818:
              vocab 32000, 2560 wide, FFN 6912, 24 layers, 32/8 heads,
-             head_dim 80, rope theta 1e4) at 6 of its 24 layers (depth
+             head_dim 80, rope theta 1e4) at 4 of its 24 layers (depth
              cut for the script's time): the flash kernels
              at D=80, a width no earlier path runs. Danube's sliding window
              of 4096 keys covers all 2048 tokens, so the repo's Llama
@@ -99,7 +103,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              replayed, the warm reading; then a 1-layer full-width model on
              the card against the CPU path (hidden states, loss, layer-0
              adapter gradients).
-6c. slice_lora_lanes — vectorized lanes of a LoRA family at Llama-3-8B's
+6c. slice_wide_heads — slice_llama's LoRA sweep at Llama-3-8B's widths
+             with its heads regrouped to 8 query and 2 kv heads of
+             head_dim 512 (q_proj 4096 x 4096, k/v_proj 4096 x 1024, o_proj
+             4096 x 4096: every matrix and the 4:1 GQA ratio Llama-3-8B's)
+             at WIDE_LAYERS = 2 of its 32 layers: the split-D flash kernels
+             (D > 256) on the main path. Launches exact, every step after
+             a trial's first replayed from its graph, the journal replayed;
+             then a 1-layer full-width model on the card against the CPU
+             path.
+6d. slice_lora_lanes — vectorized lanes of a LoRA family at Llama-3-8B's
              widths (train/vmap.py: only the adapters stacked, the frozen
              bf16 base held once; remat under torch.func, models/remat.py;
              the chunked loss's batching rule, ops/losses.py), two arms.
@@ -121,14 +134,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              AB_LOSS_TOL["bert_base"] of a scalar Trainer of
              only_lora(adamw(lr)) at the same seed, rate and batches.
              (b) The full depth: one VmapTrainer of 4 LoRA lanes of the
-             whole 32-layer model, eager, 3 steps: each lane's first loss
+             whole 32-layer model, eager, 2 steps: each lane's first loss
              against the unit module's eager forward (lora_b starts at
-             zero), launches 2 / 1 / 1 x 32 x 3, the unit's bytes. Prints
+             zero), launches 2 / 1 / 1 x 32 x 2, the unit's bytes. Prints
              the block step p50, the units' frozen and stacked bytes, and
              the peak memory of the sweep, of (b)'s build (the base drawn
              in fp32, ROADMAP F5) and of (b)'s steps, beside reckonings
              made before the first chip run.
-6d. slice_examples — the port's examples (maggy_tpu_torch/examples) as a
+6e. slice_examples — the port's examples (maggy_tpu_torch/examples) as a
              user runs them: python -m maggy_tpu_torch.examples.mnist_hpo
              --trials 2 --workers 2 as a process of its own with no device
              variable set (exit 0, its Best line, 2 finalized trials, its
@@ -535,7 +548,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
              sharing the card over gloo. First the one-device runs, freed
              before any rank starts. One world of two rank processes
              (backend "process") runs, each on a mesh of its own over it:
-             llama3_8b_tp (slice_dist's 4-layer LoRA Llama-3-8B, remat,
+             llama3_8b_tp (slice_dist's LoRA Llama-3-8B at 4 layers, remat,
              "tp" on {"model": 2}: 16 query and 4 kv heads a rank, 1 x 2048,
              4 steps), bert_base_fsdp (BERT-base, "fsdp" on {"fsdp": 2}, 32
              x 128 a rank, 3 steps) and llama3_8b_moe_ep (slice_moe's MoE
@@ -664,7 +677,10 @@ LLAMA_B, LLAMA_S, LLAMA_LAYERS = 2, 2048, 4
 LLAMA_STEPS_PER_BUDGET = 2
 # slice_danube: H2O-Danube-1.8B cut to DANUBE_LAYERS of its 24 layers (the
 # script's time), the sweep's batches those of slice_llama (2 x 2048 tokens).
-DANUBE_LAYERS = 6
+DANUBE_LAYERS = 4
+# slice_wide_heads: Llama-3-8B regrouped to 8:2 heads of 512 (the split-D
+# kernels), cut to WIDE_LAYERS of its 32 layers; slice_llama's batches.
+WIDE_H, WIDE_HKV, WIDE_D, WIDE_LAYERS = 8, 2, 512, 2
 # slice_lora_lanes: Llama-3-8B LoRA lanes (LLAMA_LAYERS deep in the sweep,
 # 32 in the full-depth arm). The sweep's lanes a block, trials (each
 # runner's first dispatch is scalar, so 9 trials make two blocks of 4, the
@@ -678,7 +694,7 @@ DANUBE_LAYERS = 6
 # their state, 4.3 GB of remat inputs and about 8 GB of one layer's
 # recompute and the chunked loss.
 LORA_LANES_K, LORA_LANES_TRIALS, LORA_LANES_STEPS = 4, 9, 6
-LORA_LANES_FULL_STEPS, LORA_LANES_FULL_LRS = 3, [1e-5, 1e-4, 3e-4, 1e-3]
+LORA_LANES_FULL_STEPS, LORA_LANES_FULL_LRS = 2, [1e-5, 1e-4, 3e-4, 1e-3]
 LORA_LANES_SWEEP_RECKONING_GB = [16.0, 26.0]
 LORA_LANES_RECKONING_GB = {"init": [32.1, 36.0], "steps": [24.0, 32.0]}
 #: The scalar 32-layer Llama-3-8B LoRA sweep's peak (GB; PERF.md section 5),
@@ -704,15 +720,20 @@ EXAMPLE_TRIALS = {"mnist_hpo": 2, "resnet_cifar_asha": 2, "vit_cifar_hpo": 2, "p
                   "titanic_ablation": 9, "bert_glue_hpo": 2, "llama_lora_sweep": 2}
 BERT_EXAMPLE_STEPS, LLAMA_EXAMPLE_STEPS, LLAMA_EXAMPLE_VOCAB_CHUNK = 40, 20, 16384
 EXAMPLE_CLI_TIMEOUT_S = 300
-# The kernels phase holds every head dim the CUDA kernels take (the JAX
-# rule D >= 64, D % 8 == 0, up to 256) against the plain versions.
+# The kernels phase holds every head dim of the per-width builds (the JAX
+# rule D >= 64, D % 8 == 0, up to 256) against the plain versions, and
+# head dims of the split-D build, which takes every D of the rule above
+# 256: 264 and 520 (D % 16 == 8, an 8-column last slice and chunk), 320 (a
+# D chunk of 0 mod 64 != D), 384 and 512 (whole slices) and 1024 (16 D
+# chunks, beyond any width the per-width design reaches).
 KERNEL_CHECK_DIMS = tuple(range(64, 257, 8))
+SPLIT_CHECK_DIMS = (264, 320, 384, 512, 520, 1024)
 # slice_dist: Llama-3-8B at full width on a "seq" ring of DIST_RANKS rank
 # processes sharing the card over gloo, DIST_LAYERS layers (depth cut), batch
 # 1 x DIST_S tokens (DIST_S / DIST_RANKS a rank), DIST_STEPS steps; the
 # ranks' records (read from the environment); the worlds' collective
 # timeout (the heartbeat-loss bound); the ring block's heads and head dim.
-DIST_RANKS, DIST_LAYERS, DIST_S, DIST_STEPS = 2, 4, 8192, 2
+DIST_RANKS, DIST_LAYERS, DIST_S, DIST_STEPS = 2, 2, 8192, 2
 DIST_RECORDS_ENV = "MAGGY_TPU_SMOKE_DIST_RECORDS"
 DIST_TIMEOUT_S = 120.0
 DIST_H, DIST_HKV, DIST_D = 32, 8, 128
@@ -743,10 +764,13 @@ MAIN_SHAPES = {"bert_base": (BERT_B, BERT_S, BERT_S, 12, 12, 64),
                "bert_glue_hpo": (64, BERT_S, BERT_S, 12, 12, 64),
                # slice_lora_lanes: LORA_LANES_K lanes of the Llama's batch
                # fold into one batch.
-               "llama3_8b_lora_lanes": (LORA_LANES_K * LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128)}
+               "llama3_8b_lora_lanes": (LORA_LANES_K * LLAMA_B, LLAMA_S, LLAMA_S, 32, 8, 128),
+               # slice_wide_heads: H * D = 4096 as Llama-3-8B's, so the same
+               # attention operations as llama3_8b's on the split-D kernels.
+               "llama3_8b_d512": (LLAMA_B, LLAMA_S, LLAMA_S, WIDE_H, WIDE_HKV, WIDE_D)}
 #: Paths whose attention is causal and unpadded (the rest: key padding,
-#: or a mask that keeps every key).
-CAUSAL_PATHS = ("llama3_8b", "dist", "danube_1_8b")
+#: or a mask that keeps every key), by prefix.
+CAUSAL_PATHS = ("llama3_8b", "dist", "danube_1_8b", "llama3_8b_d512")
 KEEP_ALL_PATHS = ("bert_glue_hpo",)
 #: Paths that run the kernels at another path's shape: the process-runner,
 #: forking, resumed, warm A/B and LOCO sweeps are the slice sweep's, the MoE
@@ -939,6 +963,12 @@ def tolerance(dtype, ref):
     1e-4 relative plus 1e-5."""
     scale = float(ref.float().abs().max())
     return 1e-2 * scale + 1e-2 if dtype == torch.bfloat16 else 1e-4 * scale + 1e-5
+
+
+# Timed runs of a kernel's plain version, which repeats the kernel's
+# arithmetic in PyTorch and is no yardstick of speed: fewer than the
+# kernels' (the script's time).
+PLAIN_REPS = 5
 
 
 def gpu_time_ms(fn, reps=20):
@@ -1340,6 +1370,40 @@ def check_kernels(label, shape, causal, padded, results, main):
                 main[path][name] = {"max_abs_err": max(prev, err)}
 
 
+def check_ring_blocks(results):
+    """flash_block_fwd / flash_block_bwd themselves (the ring's blocks: fp32
+    gradients from the global lse and delta) at the dist shard regrouped to
+    WIDE_H:WIDE_HKV heads of WIDE_D, causal (the diagonal block) and not,
+    against the plain versions; appends to ``results``, raises on a miss."""
+    from maggy_tpu_torch.ops import attention as A
+
+    _, S, _, _, _, _ = MAIN_SHAPES["dist"]
+    for causal in (True, False):
+        q, k, v, do, _ = make_inputs(1, S, S, WIDE_H, WIDE_HKV, WIDE_D, torch.bfloat16, False,
+                                     seed=3)
+        out, lse = A.flash_block_fwd(q, k, v, causal)
+        p_out, p_lse = A._plain_fwd(q, k, v, None, causal)
+        delta = A._row_delta(do, p_out.contiguous())
+        dq, dk, dv = A.flash_block_bwd(q, k, v, do, p_lse, delta, causal)
+        p_dk, p_dv = A._plain_bwd_dkdv(q, k, v, do, p_lse, delta, None, causal)
+        p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, None, causal)
+        torch.cuda.synchronize()
+        label = "ring_block_d{}{}".format(WIDE_D, "" if causal else "_full")
+        for name, checks in (("flash_block_fwd", [(out, p_out), (lse, p_lse)]),
+                             ("flash_block_bwd", [(dq, p_dq), (dk, p_dk), (dv, p_dv)])):
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in checks)
+            tol = min(tolerance(torch.bfloat16, b) for _, b in checks)
+            ok = (err <= tol and all(bool(torch.isfinite(a).all()) for a, _ in checks)
+                  and all(a.dtype == torch.float32 for a, _ in checks[-3:]
+                          if name == "flash_block_bwd"))
+            results.append({"case": label, "dtype": str(torch.bfloat16), "kernel": name,
+                            "max_abs_err": err, "tol": tol, "ok": ok})
+            if not ok:
+                emit("kernels", checks=results)
+                raise AssertionError("{} disagrees with its plain version on {}: {} > {}".format(
+                    name, label, err, tol))
+
+
 def phase_kernels():
     from maggy_tpu_torch.ops import attention as A
 
@@ -1355,43 +1419,47 @@ def phase_kernels():
              ("llama3_8b", MAIN_SHAPES["llama3_8b"], True, False),
              ("llama3_8b_lora_lanes", MAIN_SHAPES["llama3_8b_lora_lanes"], True, False),
              ("danube_1_8b", MAIN_SHAPES["danube_1_8b"], True, False),
+             ("llama3_8b_d512", MAIN_SHAPES["llama3_8b_d512"], True, False),
              ("dist", MAIN_SHAPES["dist"], True, False),
              ("llama3_8b_tp", MAIN_SHAPES["llama3_8b_tp"], True, False),
              ("llama3_8b_b1", MAIN_SHAPES["llama3_8b_b1"], True, False),
              # The ring's off-diagonal blocks: the rank's shard, not causal.
              ("dist_full", MAIN_SHAPES["dist"], False, False)]
-    # Every head dim the kernels take: 2 x 256 keys, 4:2 heads, causal and
-    # key-padded with the first batch row fully masked; Sq = 128 != Sk
-    # where D % 32 == 8 (72, 104, ..., 232: dims with a half k16 step), so
-    # the bottom-right causal offset meets the zero columns too.
+    # Every head dim of the per-width builds and the split-D build's check
+    # dims: 2 x 256 keys, 4:2 heads, causal and key-padded with the first
+    # batch row fully masked; Sq = 128 != Sk where D % 32 == 8 (72, 104,
+    # ..., 232: dims with a half k16 step; 264, 520), so the bottom-right
+    # causal offset meets the zero columns too.
     cases += [("d{}".format(D), (2, 128 if D % 32 == 8 else 256, 256, 4, 2, D), True, True)
-              for D in KERNEL_CHECK_DIMS]
+              for D in KERNEL_CHECK_DIMS + SPLIT_CHECK_DIMS]
     results, main = [], {path: {} for path in MAIN_SHAPES}
     t_checks = time.perf_counter()
     for label, shape, causal, padded in cases:
         check_kernels(label, shape, causal, padded, results, main)
+    check_ring_blocks(results)
     checks_s = time.perf_counter() - t_checks
     A.reset_launch_counts()
 
     # What each kernel takes on the card, per head dim and type (and, for
-    # the backward, per gradient type).
+    # the backward, per gradient type); the split-D kernels take D at run
+    # time, so one D stands for all.
     variants = [(torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)]
-    resources = [{"kernel": name, "D": D, "width": A.kernel_width(D), "dtype": str(dtype),
+    resources = [{"kernel": name, "D": D, "build": A.kernel_build(D), "dtype": str(dtype),
                   "grad_fp32": g32, **A.kernel_resources(name, D, dtype, g32)}
-                 for name in REPLACES for D in KERNEL_CHECK_DIMS
+                 for name in REPLACES for D in KERNEL_CHECK_DIMS + (WIDE_D,)
                  for dtype, g32 in variants if not (g32 and name == "flash_fwd")]
     spilling = [r for r in resources if r["D"] == 64 and r["dtype"] == str(torch.bfloat16)
                 and r["local_bytes"]]
     if spilling:
         emit("kernels", checks=results, resources=resources)
         raise AssertionError("tensor-core kernels use local memory at D=64: {}".format(spilling))
-    # The Llama and Danube paths' head dims: local memory is reported, not
-    # gated.
+    # The Llama, Danube and wide-head paths' head dims: local memory is
+    # reported, not gated.
     bf16_resources = {
         D: {"{}{}".format(r["kernel"], "/grad_fp32" if r["grad_fp32"] else ""):
             {key: r[key] for key in ("registers", "local_bytes", "blocks_per_sm")}
             for r in resources if r["D"] == D and r["dtype"] == str(torch.bfloat16)}
-        for D in (128, 80)}
+        for D in (128, 80, WIDE_D)}
 
     # Times at each main path's shape and type (bf16): BERT-base padded,
     # Llama-3-8B and H2O-Danube-1.8B causal GQA.
@@ -1400,9 +1468,12 @@ def phase_kernels():
         timed[path], yardsticks[path] = time_kernels(path, main[path])
     A.reset_launch_counts()
     llama = MAIN_SHAPES["llama3_8b"]
-    emit("kernels", checks=results, checks_s=checks_s, head_dims=list(KERNEL_CHECK_DIMS),
+    emit("kernels", checks=results, checks_s=checks_s,
+         head_dims=list(KERNEL_CHECK_DIMS + SPLIT_CHECK_DIMS),
+         builds={D: A.kernel_build(D) for D in KERNEL_CHECK_DIMS + SPLIT_CHECK_DIMS},
          resources=resources, bf16_d128_resources=bf16_resources[128],
          bf16_d80_resources=bf16_resources[80],
+         bf16_d512_resources=bf16_resources[WIDE_D],
          shape_main=[BERT_B, BERT_S, 12, 64], dtype=str(torch.bfloat16),
          timed=timed["bert_base"], **yardsticks["bert_base"],
          bert_base_bo={"shape": [64, BERT_S, 12, 64], "timed": timed["bert_base_bo"],
@@ -1419,8 +1490,21 @@ def phase_kernels():
          **{path: {"shape": [MAIN_SHAPES[path][i] for i in (0, 1, 3, 4, 5)], "causal": True,
                    "timed": timed[path], **yardsticks[path]}
             for path in ("llama3_8b_tp", "llama3_8b_b1", "danube_1_8b",
-                         "llama3_8b_lora_lanes")})
+                         "llama3_8b_lora_lanes", "llama3_8b_d512")})
     return main
+
+
+def sdpa_backend(q, k, v, **kw):
+    """The backend torch's scaled_dot_product_attention picks for these
+    inputs (its own dispatch: flash stops at head dim 256), or "none" where
+    no backend takes them."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        name = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name.lower()
+    except RuntimeError:
+        return "none"
+    return "none" if name == "error" else name
 
 
 def time_kernels(path, main):
@@ -1450,11 +1534,12 @@ def time_kernels(path, main):
         sdpa_kw = dict(is_causal=True, enable_gqa=True)
     else:
         sdpa_kw = dict(attn_mask=mask.bool()[:, None, None, :])
+    backend = sdpa_backend(qt, kt, vt, **sdpa_kw)
     timing = {
         "flash_fwd": dict(
             ms=lambda: A.flash_fwd(q, k, v, mask, causal),
             plain=lambda: A._plain_fwd(q, k, v, mask, causal),
-            library=lambda: sdpa(qt, kt, vt, **sdpa_kw),
+            library=None if backend == "none" else lambda: sdpa(qt, kt, vt, **sdpa_kw),
             nbytes=2 * t_q + 2 * t_kv + stat + mask_b, flops=4 * D * n_live),
         "flash_bwd_dkdv": dict(
             ms=lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, mask, causal, g32),
@@ -1469,9 +1554,10 @@ def time_kernels(path, main):
     }
     for name, t in timing.items():
         b_ms, b_by = bound(t["nbytes"], t["flops"], dtype)
-        main[name].update(ms=gpu_time_ms(t["ms"]), plain_ms=gpu_time_ms(t["plain"]),
+        main[name].update(ms=gpu_time_ms(t["ms"]), plain_ms=gpu_time_ms(t["plain"], PLAIN_REPS),
                           bound_ms=b_ms, bound_by=b_by,
-                          library_ms=gpu_time_ms(t["library"]) if t["library"] else None)
+                          library_ms=gpu_time_ms(t["library"]) if t["library"] else None,
+                          sdpa_backend=backend)
     # dQ computing delta as well: O read and delta written on top.
     f_ms, f_by = bound(4 * t_q + 2 * t_kv + 2 * stat + mask_b,
                        6 * D * n_live + 2 * D * B * S * H, dtype)
@@ -1499,16 +1585,19 @@ def time_kernels(path, main):
         _, dl = A.flash_bwd_dq(q, k, v, do, l_, None, mask, causal, out=o)
         A.flash_bwd_dkdv(q, k, v, do, l_, dl, mask, causal)
 
-    o_kept = sdpa(qg, kg, vg, **sdpa_kw)
-    sdpa_bwd_ms = gpu_time_ms(
-        lambda: torch.autograd.grad(o_kept, (qg, kg, vg), dot_, retain_graph=True))
+    sdpa_bwd_ms = sdpa_fwd_bwd_ms = None
+    if backend != "none":
+        o_kept = sdpa(qg, kg, vg, **sdpa_kw)
+        sdpa_bwd_ms = gpu_time_ms(
+            lambda: torch.autograd.grad(o_kept, (qg, kg, vg), dot_, retain_graph=True))
+        sdpa_fwd_bwd_ms = gpu_time_ms(sdpa_fwd_bwd, reps=10)
     # SDPA's backward computes dQ, dK and dV in one call: a yardstick for
     # the two backward kernels together, not the function of either.
     for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
         timed[name]["library_bwd_ms"] = main[name]["library_bwd_ms"] = sdpa_bwd_ms
     return timed, dict(fwd_bwd_ms=gpu_time_ms(kernels_fwd_bwd, reps=10),
-                       sdpa_fwd_bwd_ms=gpu_time_ms(sdpa_fwd_bwd, reps=10),
-                       bwd_pair_ms=gpu_time_ms(kernels_bwd), sdpa_bwd_ms=sdpa_bwd_ms)
+                       sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms, bwd_pair_ms=gpu_time_ms(kernels_bwd),
+                       sdpa_bwd_ms=sdpa_bwd_ms, sdpa_backend=backend)
 
 
 LIFECYCLE = ("queued", "assigned", "running", "finalized")
@@ -4543,6 +4632,53 @@ def phase_slice_danube(exp_dir):
     emit("slice_danube", trials_finished=sweep["trials_finished"], promoted=sweep["promoted"],
          best_hp=result["best_hp"], best_val=result["best_val"], steps=sweep["steps"],
          layers=DANUBE_LAYERS, head_dim=80, launches=sweep["launches"],
+         expected_launches=sweep["expected"], sweep_wall_s=sweep["wall"],
+         step_ms_in_sweep_median=float(np.median(sweep["step_ms"])), warm=reading_warm,
+         pipeline=pipeline_summary(result["pipeline"]), telemetry=public(sweep["telemetry"]),
+         full_width=full_width, peak_mem_sweep_gb=sweep["peak_sweep"] / 1e9,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+    return sweep["launches"]
+
+
+def wide_heads_config(lora_rank=16, lora_alpha=16.0, num_layers=WIDE_LAYERS):
+    """Llama-3-8B's widths with its heads regrouped to WIDE_H query and
+    WIDE_HKV kv heads of WIDE_D: q_proj 4096 x 4096, k/v_proj 4096 x 1024,
+    o_proj 4096 x 4096, every matrix and the 4:1 GQA ratio Llama-3-8B's, so
+    the attention does llama3_8b's operations. No public model has equal
+    q/k/v head dims above 256; this one puts the split-D kernels on the
+    main path."""
+    from maggy_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=int(lora_rank)),
+                               lora_alpha=float(lora_alpha), num_layers=num_layers,
+                               num_heads=WIDE_H, num_kv_heads=WIDE_HKV, head_dim=WIDE_D)
+
+
+def phase_slice_wide_heads(exp_dir):
+    """slice_llama's LoRA sweep at Llama-3-8B's widths in WIDE_H:WIDE_HKV
+    heads of WIDE_D, WIDE_LAYERS deep: the split-D kernels on the main
+    path, with slice_llama's gates, and every step after a unit's first
+    replayed from its graph."""
+    from maggy_tpu_torch.ops import attention as A
+    from maggy_tpu_torch.train import clear_warm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sweep, reading_warm, tokens, _, _ = llama_sweep_phase(
+        "slice_wide_heads", "llama3_8b_d512_lora_asha_smoke", "llama3_8b_d512", exp_dir,
+        wide_heads_config)
+    replayed_after_warmup("slice_wide_heads", reading_warm, sweep["steps"])
+    result = sweep["result"]
+    full_width = llama_full_width("slice_wide_heads", wide_heads_config(num_layers=1), tokens)
+    del tokens
+    clear_warm()
+    emit("slice_wide_heads", trials_finished=sweep["trials_finished"],
+         promoted=sweep["promoted"], best_hp=result["best_hp"], best_val=result["best_val"],
+         steps=sweep["steps"], layers=WIDE_LAYERS, heads=[WIDE_H, WIDE_HKV], head_dim=WIDE_D,
+         build=A.kernel_build(WIDE_D), launches=sweep["launches"],
          expected_launches=sweep["expected"], sweep_wall_s=sweep["wall"],
          step_ms_in_sweep_median=float(np.median(sweep["step_ms"])), warm=reading_warm,
          pipeline=pipeline_summary(result["pipeline"]), telemetry=public(sweep["telemetry"]),
@@ -7670,8 +7806,8 @@ def phase_slice_gang(exp_root):
 # runs share one world (its start-up paid once), each on a mesh of its own
 # over it; the pipeline runs over two remote agents. Each run against the
 # one-device run of the same model, seed and global batch (PAR_LOSS_TOL:
-# slice_gang's 1e-2 x |loss| + 1e-3). Depths: the 4-layer LoRA Llama-3-8B of
-# slice_dist (remat), slice_moe's 4-layer MoE Llama (8 experts, top 2,
+# slice_gang's 1e-2 x |loss| + 1e-3). Depths: slice_dist's LoRA Llama-3-8B at
+# 4 layers (remat), slice_moe's 4-layer MoE Llama (8 experts, top 2,
 # capacity 2.0), BERT-base whole; PipelinedLM at Llama-3-8B's widths, 2
 # stages of 2 layers, 4 microbatches of 1 x 2048.
 PAR_RANKS = 2
@@ -8222,6 +8358,7 @@ def fresh_dir(path):
 
 
 def main():
+    from maggy_tpu_torch.ops import attention as A
     from maggy_tpu_torch.train import clear_warm
 
     if os.path.exists(PHASE_LOG):
@@ -8240,6 +8377,8 @@ def main():
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_llama"))),
         "danube_1_8b": phase_slice_danube(
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_danube"))),
+        "llama3_8b_d512": phase_slice_wide_heads(
+            fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_wide_heads"))),
         "llama3_8b_lora_lanes": phase_slice_lora_lanes(
             fresh_dir(os.path.join(ROOT, "build", "chip_smoke_experiments_lora_lanes"))),
         **phase_slice_examples(os.path.join(ROOT, "build", "chip_smoke_experiments_examples")),
@@ -8288,8 +8427,10 @@ def main():
     clear_warm()
     launches.update(phase_slice_parallel(
         os.path.join(ROOT, "build", "chip_smoke_experiments_parallel"), smi))
+    head_dim = {path: MAIN_SHAPES[SAME_SHAPE.get(path, path)][5] for path in launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "path": path, "launches": launches[path][name], "captured": CAPTURED[path],
+                "path": path, "D": head_dim[path], "build": A.kernel_build(head_dim[path]),
+                "launches": launches[path][name], "captured": CAPTURED[path],
                 **main_times[SAME_SHAPE.get(path, path)][name]}
                for path in launches for name in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,15 +41,16 @@ key-padding keep-mask, bottom-right causal alignment when Sq != Sk):
   kernels on a CUDA tensor; everything else, and every CPU tensor, to
   ``attention_reference``.
 
-Head dims. The CUDA kernels take every head dim of that rule up to
-MAX_KERNEL_HEAD_DIM = 256, from thirteen compiled widths (``kernel_width``:
-D rounded up to 16, one library each; ops/build.py VARIANTS): D = W - 8 runs
-at width W with its 8 columns past D held at zero. A CUDA tensor with D >
-256 raises a ValueError in the wrappers, and the dispatch never sends it to
-``attention_reference`` instead (ROADMAP queue 2 item 3: larger tiles do
-not fit a block's shared memory and registers in this design). The plain
-versions take every D of the rule, as the Pallas kernels do in interpret
-mode.
+Head dims. The CUDA kernels take every head dim of that rule, with no
+upper bound, as the Pallas kernels do. Up to MAX_WIDTH_HEAD_DIM = 256 they
+run from thirteen compiled widths (``kernel_build``: D rounded up to 16,
+one library each; ops/build.py VARIANTS): D = W - 8 runs at width W with
+its 8 columns past D held at zero. Above 256 one more build runs the
+split-D kernels, which cut the output's columns into 128-wide slices,
+one block each, and sum the products over D (Q K^T and dO V^T) in 64-wide
+chunks, recomputing them once per slice. A CUDA tensor that the rule sends
+to the kernels never falls back to ``attention_reference`` or a plain
+version.
 """
 
 from __future__ import annotations
@@ -76,8 +77,9 @@ CAUSAL_SKIP_BLOCK = 128
 #: must be multiples of them. Both divide CAUSAL_SKIP_BLOCK.
 BLOCK_Q = 64
 BLOCK_K = 64
-#: The largest head dim the CUDA kernels take.
-MAX_KERNEL_HEAD_DIM = 256
+#: Head dims up to this run on a per-width build, every larger one on the
+#: split-D build.
+MAX_WIDTH_HEAD_DIM = 256
 _SOURCE = "flash_attn.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,30 +87,27 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def flash_head_dim_ok(D: int) -> bool:
     """The JAX package's rule for the flash kernels' head dim (its
     ``multi_head_attention`` and ``resolve_seq_parallel_impl``): D >= 64
-    and D % 8 == 0. The CUDA kernels take it up to MAX_KERNEL_HEAD_DIM and
-    raise above; the plain versions take it all."""
+    and D % 8 == 0. The CUDA kernels and the plain versions take it all."""
     return D >= 64 and D % 8 == 0
 
 
-def kernel_width(D: int) -> int:
-    """The compiled width that runs head dim D on the card, D rounded up to
-    16 (the tensor cores' k16 step; one library per width, ops/build.py
-    VARIANTS); raises for a D the kernels do not take."""
+def kernel_build(D: int) -> str:
+    """The build that runs head dim D on the card (ops/build.py VARIANTS):
+    ``"w<W>"``, W = D rounded up to 16 (the tensor cores' k16 step), up to
+    MAX_WIDTH_HEAD_DIM, else ``"split"``, the split-D kernels. Raises for a
+    D the kernels do not take."""
     if not flash_head_dim_ok(D):
         raise ValueError("flash kernels take head_dim >= 64 with head_dim % 8 == 0, "
                          "got {}".format(D))
-    if D > MAX_KERNEL_HEAD_DIM:
-        raise ValueError(
-            "the CUDA flash kernels take head_dim 64 to {} (head_dim % 8 == 0), got {}: "
-            "larger head dims are not built (ROADMAP queue 2 item 3)".format(
-                MAX_KERNEL_HEAD_DIM, D))
-    return -(-D // 16) * 16
+    if D > MAX_WIDTH_HEAD_DIM:
+        return "split"
+    return "w{}".format(-(-D // 16) * 16)
 
 
 def _library(D: int):
     from maggy_tpu_torch.ops import build
 
-    return build.library(_SOURCE, "w{}".format(kernel_width(D)))
+    return build.library(_SOURCE, kernel_build(D))
 
 
 # ----------------------------------------------------------------- reference
@@ -229,7 +228,7 @@ def _check(q, k, v, mask, *more):
     Sk, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError("flash kernels take float32 or bfloat16, got {}".format(q.dtype))
-    kernel_width(D)
+    kernel_build(D)
     if Sq % BLOCK_Q or Sk % BLOCK_K or H % Hkv:
         raise ValueError("flash kernels need Sq % {} == Sk % {} == 0 and H % Hkv == 0; "
                          "got Sq={}, Sk={}, H={}, Hkv={}".format(
@@ -585,9 +584,8 @@ def multi_head_attention(q, k, v, causal: bool = True, mask=None,
 
     The JAX package's rule: a CUDA tensor with a key-padding (or no) mask,
     D >= 64 with D % 8 == 0 and 128-tiling Sq/Sk goes through the flash
-    kernels (which raise for D > MAX_KERNEL_HEAD_DIM: no reference stands
-    in on the card); anything else, and every CPU tensor, through
-    ``attention_reference``. ``force`` in {"flash", "reference"} overrides
+    kernels (above MAX_WIDTH_HEAD_DIM the split-D ones); anything else, and
+    every CPU tensor, through ``attention_reference``. ``force`` in {"flash", "reference"} overrides
     the choice; "flash" on a CPU tensor runs the kernels' plain versions,
     at any D of the rule."""
     B, Sq, H, D = q.shape

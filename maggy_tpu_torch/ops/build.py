@@ -4,10 +4,10 @@ Each source in ``ops/csrc/`` compiles on first use into ``build/kernels/``
 of the checkout, named by the hash of its source and flags, so an unchanged
 source is built once per checkout. A source with variants (``VARIANTS``)
 compiles once per variant, each with its own defines into a library of its
-own: ``flash_attn.cu`` once per kernel width. The library has a plain C
-interface: every kernel entry takes raw device pointers, shapes, and the
-CUDA stream, and returns the ``cudaError_t`` of its launch. A failed build
-raises; nothing falls back.
+own: ``flash_attn.cu`` once per kernel width and once split over D. The
+library has a plain C interface: every kernel entry takes raw device
+pointers, shapes, and the CUDA stream, and returns the ``cudaError_t`` of
+its launch. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -43,11 +43,13 @@ SIGNATURES = {
 
 #: The builds of a source that has more than one, by variant name: nvcc
 #: defines of each. flash_attn.cu compiles once per kernel width, every
-#: multiple of 16 from 64 to 256 (``ops/attention.py`` kernel_width maps a
-#: head dim to its width), so the widths build in parallel and a head dim
-#: loads only its width's library.
-VARIANTS = {"flash_attn.cu": {"w{}".format(w): ["-DFLASH_W={}".format(w)]
-                              for w in range(64, 257, 16)}}
+#: multiple of 16 from 64 to 256, and once more as the split-D kernels,
+#: which take every head dim above 256 (``ops/attention.py`` kernel_build
+#: maps a head dim to its build), so the builds run in parallel and a head
+#: dim loads only its own library.
+VARIANTS = {"flash_attn.cu": {**{"w{}".format(w): ["-DFLASH_W={}".format(w)]
+                                 for w in range(64, 257, 16)},
+                              "split": ["-DFLASH_SPLIT"]}}
 
 _lock = threading.Lock()
 _libs: Dict[Tuple[str, Optional[str]], ctypes.CDLL] = {}

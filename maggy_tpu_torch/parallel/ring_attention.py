@@ -33,9 +33,9 @@ Two inner-block implementations, as in the JAX package:
   backward's hops run in one order on every rank.
 
 ``impl="auto"`` is flash for a CUDA tensor whose shard tiles the kernels
-by the JAX package's rule (S/n % 128 == 0, D >= 64 with D % 8 == 0), plain
-otherwise; ``"flash"`` on a shape outside that rule raises, and so do the
-kernels on a CUDA tensor with D above ``MAX_KERNEL_HEAD_DIM``.
+by the JAX package's rule (S/n % 128 == 0, D >= 64 with D % 8 == 0, above
+256 the split-D kernels), plain otherwise; ``"flash"`` on a shape outside
+that rule raises.
 """
 
 from __future__ import annotations

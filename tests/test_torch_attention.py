@@ -3,10 +3,12 @@
 
 Inputs are made with numpy from a seed and fed to both sides. Tolerances as
 tests/test_models.py: fp32, 1e-4 forward and 1e-3 gradients. The head dims
-run from 64 to 256 by the JAX rule (D >= 64, D % 8 == 0): 72 and 120 leave
-a half k16 step (D % 16 == 8), 80 is H2O-Danube-1.8B's, 256 the kernels'
-largest. The CUDA kernels themselves run only on the card (chip_smoke.py,
-and the card-only test at the end, which skips here).
+follow the JAX rule (D >= 64, D % 8 == 0): 72 and 120 leave a half k16 step
+(D % 16 == 8), 80 is H2O-Danube-1.8B's, 256 the largest per-width build's;
+264 (a slice of 8 columns), 320 (a D chunk of 0 mod 64 != D) and 512 run on
+the card's split-D kernels, whose arithmetic the plain versions repeat. The
+CUDA kernels themselves run only on the card (chip_smoke.py, and the
+card-only test at the end, which skips here).
 """
 
 import jax
@@ -40,9 +42,9 @@ CASES = {
     # Every head dim the kernels take, by the rule: causal GQA across two
     # skip tiles, and key padding with a fully masked row.
     **{"causal_gqa_d{}_s256".format(D): (1, 256, 256, 4, 2, D, True, None)
-       for D in (72, 80, 120, 256)},
+       for D in (72, 80, 120, 256, 264, 320, 512)},
     **{"pad_all_masked_row_d{}".format(D): (2, 128, 128, 2, 2, D, False, "pad")
-       for D in (72, 80, 120, 256)},
+       for D in (72, 80, 120, 256, 264, 320, 512)},
     "causal_sq_ne_sk_d120": (1, 128, 384, 4, 2, 120, True, None),
 }
 
@@ -151,11 +153,11 @@ def test_causal_padded_all_masked_row_matches_pallas(case):
 def test_mha_unbuilt_head_dim_goes_to_reference(D):
     """The head-dim rule of both packages' dispatch. D=56 and 84 are outside
     it (D < 64, D % 8 != 0): forcing the kernels raises in both, and the
-    dispatch sends them to the reference. 80, 120 and 256 are inside:
+    dispatch sends them to the reference. 80, 120, 256 and 264 are inside:
     ``force="flash"`` runs the port's plain versions (the card's kernels'
-    arithmetic) and matches JAX's Pallas kernels in interpret mode. 264 is
-    inside the rule but above the CUDA kernels' 256: on the CPU it computes
-    like JAX; on the card the kernels raise (the card-only test below)."""
+    arithmetic; 264 that of the split-D kernels, on the card the
+    card-only test below) and matches JAX's Pallas kernels in interpret
+    mode."""
     q, k, v, keep = _inputs(2, 128, 128, 2, 2, D, "pad")
     m4 = keep[:, None, None, :]
     args = [torch.tensor(x) for x in (q, k, v)]
@@ -204,30 +206,33 @@ def test_seq_parallel_dispatch_matches_jax(D):
 
 
 def test_kernel_widths_cover_the_rule_and_each_has_a_build():
-    """Every D of the rule up to MAX_KERNEL_HEAD_DIM maps to the least
-    multiple of 16 >= D, every such width has its own build and no other
-    build exists, and above 256 the wrappers' check raises naming the
-    range."""
-    dims = [D for D in range(8, 300, 8) if A.flash_head_dim_ok(D)]
+    """Every D of the rule up to 1024 maps to a build: up to
+    MAX_WIDTH_HEAD_DIM the least multiple of 16 >= D, above it the split-D
+    build; every such build exists and no other, and a D outside the rule
+    raises."""
+    dims = [D for D in range(8, 1025, 8) if A.flash_head_dim_ok(D)]
     assert dims[0] == 64
-    widths = set()
+    used = set()
     for D in dims:
-        if D <= A.MAX_KERNEL_HEAD_DIM:
-            w = A.kernel_width(D)
-            assert w >= D and w - 16 < D and w % 16 == 0
-            widths.add(w)
+        name = A.kernel_build(D)
+        if D <= A.MAX_WIDTH_HEAD_DIM:
+            w = int(name[1:])
+            assert name == "w{}".format(w) and w >= D and w - 16 < D and w % 16 == 0
         else:
-            with pytest.raises(ValueError, match=r"head_dim 64 to 256 .*queue 2 item 3"):
-                A.kernel_width(D)
-    assert build.builds() == [("flash_attn.cu", "w{}".format(w)) for w in sorted(widths)]
+            assert name == "split"
+        used.add(name)
+    assert sorted(used) == sorted(v for _, v in build.builds())
+    assert build.builds()[-1] == ("flash_attn.cu", "split")
+    assert all(s == "flash_attn.cu" for s, _ in build.builds())
+    for D in (56, 84, 260):
+        with pytest.raises(ValueError, match=r"head_dim >= 64 with head_dim % 8 == 0"):
+            A.kernel_build(D)
     with pytest.raises(ValueError, match="builds as"):
         build.compile_source("flash_attn.cu")
 
 
-def test_block_building_blocks_match_pallas():
-    """flash_block_fwd/bwd (external lse/delta, fp32 gradients) against the
-    JAX package's, both in their CPU forms."""
-    q, k, v, _ = _inputs(1, 128, 256, 4, 2, 64, None, seed=3)
+def _block_building_blocks_match_pallas(D, H, Hkv):
+    q, k, v, _ = _inputs(1, 128, 256, H, Hkv, D, None, seed=3)
     do = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
     j_out, j_lse = jax_attn.flash_block_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                             causal=True, interpret=True)
@@ -243,6 +248,18 @@ def test_block_building_blocks_match_pallas():
     for g, jg in zip(grads, j_grads):
         assert g.dtype == torch.float32
         assert _maxdiff(g.numpy(), np.asarray(jg)) < GRAD_TOL
+
+
+def test_block_building_blocks_match_pallas():
+    """flash_block_fwd/bwd (external lse/delta, fp32 gradients) against the
+    JAX package's, both in their CPU forms."""
+    _block_building_blocks_match_pallas(64, 4, 2)
+
+
+def test_block_building_blocks_match_pallas_split_d():
+    """The same at D = 320, a head dim of the split-D kernels (three column
+    slices, the last of 64 columns) on the card."""
+    _block_building_blocks_match_pallas(320, 2, 1)
 
 
 FUSED_CASES = dict(CASES, causal_pad_s256=(2, 256, 256, 2, 2, 64, True, "pad"))
@@ -364,19 +381,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("D", [64, 72, 80, 120, 128, 200, 256, 264])
+@pytest.mark.parametrize("D", [64, 72, 80, 120, 128, 200, 256, 264, 512])
 def test_kernels_match_plain_versions_on_card(cuda_device, D):
+    """fp32 kernels against the plain versions; 264 and 512 on the split-D
+    kernels."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v, do = (torch.randn(2, 128, 4, D, device=cuda_device, generator=g)
                    for _ in range(4))
     mask = torch.ones(2, 128, dtype=torch.int32, device=cuda_device)
     mask[1, 100:] = 0
-    if D > A.MAX_KERNEL_HEAD_DIM:
-        with pytest.raises(ValueError, match=r"head_dim 64 to 256 .*queue 2 item 3"):
-            A.flash_fwd(q, k, v, mask, False)
-        with pytest.raises(ValueError, match=r"head_dim 64 to 256"):
-            A.multi_head_attention(q, k, v, causal=False, mask=mask[:, None, None, :])
-        return
+    A.reset_launch_counts()
     out, lse = A.flash_fwd(q, k, v, mask, False)
     p_out, p_lse = A._plain_fwd(q, k, v, mask, False)
     p_out = p_out.contiguous()
@@ -387,6 +401,7 @@ def test_kernels_match_plain_versions_on_card(cuda_device, D):
     p_dq = A._plain_bwd_dq(q, k, v, do, p_lse, delta, mask, False)
     dq_f, delta_f = A.flash_bwd_dq(q, k, v, do, p_lse, None, mask, False, out=p_out)
     torch.cuda.synchronize()
+    assert A.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 2}
     for a, b in ((out, p_out), (lse, p_lse), (dk, p_dk), (dv, p_dv), (dq, p_dq),
                  (dq_f, p_dq), (delta_f, delta)):
         assert float((a - b).abs().max()) < FWD_TOL

@@ -87,10 +87,12 @@ def _maxdiff(a, b):
     return float(np.abs(_np(a) - _np(b)).max())
 
 
-@pytest.mark.parametrize("head_dim", [64, 80])
+@pytest.mark.parametrize("head_dim", [64, 80, 264])
 def test_converted_logits_and_hidden_match_flax(head_dim):
-    """At D=64 and at H2O-Danube-1.8B's D=80 (RoPE's split halves of 40,
-    q/k/v wider than the hidden size), weights carried across from Flax."""
+    """At D=64, at H2O-Danube-1.8B's D=80 (RoPE's split halves of 40, q/k/v
+    wider than the hidden size) and at D=264, a head dim of the card's
+    split-D kernels (RoPE's halves of 132, the head reshapes above 256),
+    weights carried across from Flax."""
     jcfg, tcfg = _configs(head_dim=head_dim)
     params = _flax_params(jcfg)
     tokens = _tokens(1)
